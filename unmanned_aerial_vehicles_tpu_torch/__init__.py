@@ -1,0 +1,28 @@
+"""PyTorch/CUDA port of the quadrotor GP-MPC framework.
+
+A second package beside ``unmanned_aerial_vehicles_tpu`` (the JAX reference,
+which stays as it is). Module names and public function names follow the JAX
+package, so each counterpart is easy to find: ``loop.closed_loop`` here is
+``loop.closed_loop`` there.
+
+Plain tensor code is PyTorch. Every kernel that the JAX package wrote in
+Pallas for the TPU becomes a kernel written by hand for Hopper (CUDA C++ in
+``csrc/``, built for ``sm_90a`` at first use). Beside each kernel sits its
+plain PyTorch version: a wrapper runs the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU they raise rather than carry on quietly on the CPU.
+
+Sub-packages
+------------
+``models``        double integrator, PX4 rate-loop surrogate, parameters
+``trajectories``  the ramped figure-8 reference
+``control``       geometric allocation, condensed linear MPC
+``gp``            exact GP and the residual-dynamics ring buffer
+``ops``           box-QP ADMM and the hand-written kernels (plant, tick)
+``loop``          closed-loop flights
+``convert``       carries the JAX package's values (as numpy) across
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,224 @@
+"""6-state linear GP-MPC as a condensed box-QP (port of
+``control/mpc_linear.py``).
+
+Double-integrator model ``x_{k+1} = x_k + dt (f_nom + d_k)`` with stage-wise
+GP dynamics residuals ``d_k``; cost ``Q_pos = diag(50,50,80)``,
+``Q_vel = diag(12,12,18)``, ``R = diag(2,2,1,8)`` with terminal weights
+``3 Q_pos`` / ``2 Q_vel``; box bounds on states and controls; states
+eliminated and the QP solved in control space by fixed-iteration composite
+ADMM with a shifted warm start.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .._device import full_f32_matmul, resolve_device
+from ..models.double_integrator import CONTROL_DIM, STATE_DIM
+from ..ops.qp import admm_box_qp_composite, condense_dynamics
+
+
+@dataclass(frozen=True)
+class LinearMPCConfig:
+    dt: float = 0.02
+    horizon: int = 25
+    q_pos: Tuple[float, float, float] = (50.0, 50.0, 80.0)
+    q_vel: Tuple[float, float, float] = (12.0, 12.0, 18.0)
+    r_control: Tuple[float, float, float, float] = (2.0, 2.0, 1.0, 8.0)
+    terminal_pos_weight: float = 3.0
+    terminal_vel_weight: float = 2.0
+    state_lower: Tuple[float, ...] = (-30.0, -30.0, -5.0, -8.0, -8.0, -4.0)
+    state_upper: Tuple[float, ...] = (30.0, 30.0, 20.0, 8.0, 8.0, 4.0)
+    control_lower: Tuple[float, ...] = (-4.0, -4.0, -5.0, -1.0)
+    control_upper: Tuple[float, ...] = (4.0, 4.0, 8.0, 1.0)
+    admm_iterations: int = 80
+    admm_rho: float = 8.0
+    admm_over_relax: float = 1.6
+    polish: bool = False
+    polish_tol: float = 1e-7
+    polish_passes: int = 3
+    tightening_factor: float = 0.0
+    use_fused_admm: bool = False
+    use_fused_controller: bool = False
+
+
+class MPCCarry(NamedTuple):
+    """Warm-start state carried across ticks."""
+
+    slack: torch.Tensor       # ADMM z  (m,)
+    dual: torch.Tensor        # ADMM y  (m,)
+    X_prev: torch.Tensor      # (N+1, 6) previous predicted states
+    U_prev: torch.Tensor      # (N, 4) previous optimal controls
+
+
+class LinearMPC:
+    """Condensed-QP linear MPC: built once in NumPy float64, solved with
+    tensors of ``dtype`` on ``device``.
+
+    With ``use_fused_controller`` it also holds ``_fc_data``, the row-form
+    operands of the multi-tick kernel (``ops.controller_pallas``)."""
+
+    def __init__(self, config: LinearMPCConfig = LinearMPCConfig(),
+                 dtype=torch.float32, device=None):
+        self.config = config
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        N, dt = config.horizon, config.dt
+        nx, nu = STATE_DIM, CONTROL_DIM
+
+        A = np.eye(nx)
+        A[0:3, 3:6] = dt * np.eye(3)
+        B = np.zeros((nx, nu))
+        B[3:6, 0:3] = dt * np.eye(3)
+
+        Sx, Su, Sw = condense_dynamics(A, B, N)
+
+        q_stage = np.concatenate([config.q_pos, config.q_vel])
+        q_term = np.concatenate(
+            [
+                config.terminal_pos_weight * np.asarray(config.q_pos),
+                config.terminal_vel_weight * np.asarray(config.q_vel),
+            ]
+        )
+        qbar = np.concatenate([np.tile(q_stage, N - 1), q_term])
+        rbar = np.tile(np.asarray(config.r_control), N)
+
+        H = Su.T @ (qbar[:, None] * Su) + np.diag(rbar)
+        G = np.vstack([np.eye(N * nu), Su])
+        M = H + config.admm_rho * (G.T @ G)
+        M_inv = np.linalg.inv(M)
+
+        self.n_primal = N * nu
+        self.n_constraints = G.shape[0]
+
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        cast = lambda a: torch.as_tensor(np.asarray(a, dtype=np_dtype), device=self.device)
+        self._Sx, self._Su, self._Sw = cast(Sx), cast(Su), cast(Sw)
+        self._qbar = cast(qbar)
+        self._H, self._G, self._M_inv = cast(H), cast(G), cast(M_inv)
+        self._SuT_q = cast(Su.T * qbar[None, :])
+        GMinv = G @ M_inv
+        self._GMinv = cast(GMinv)
+        self._P1 = cast(GMinv @ G.T)
+        u_lo = np.asarray(np.tile(config.control_lower, N), np_dtype)
+        u_hi = np.asarray(np.tile(config.control_upper, N), np_dtype)
+        x_lo = np.asarray(np.tile(config.state_lower, N), np_dtype)
+        x_hi = np.asarray(np.tile(config.state_upper, N), np_dtype)
+        self._u_lo, self._u_hi = cast(u_lo), cast(u_hi)
+        self._x_lo, self._x_hi = cast(x_lo), cast(x_hi)
+
+        if config.use_fused_controller:
+            from ..ops.controller_pallas import build_fused_controller_data
+
+            self._fc_data = build_fused_controller_data(
+                Sx, Su, Sw, Su.T * qbar[None, :], M_inv, G, u_lo, u_hi, x_lo, x_hi,
+            )
+
+    # ------------------------------------------------------------------
+    def init_carry(self, state: torch.Tensor | None = None) -> MPCCarry:
+        N = self.config.horizon
+        kw = dict(dtype=self.dtype, device=self.device)
+        x0 = torch.zeros(STATE_DIM, **kw) if state is None else state.to(**kw)
+        return MPCCarry(
+            slack=torch.zeros(self.n_constraints, **kw),
+            dual=torch.zeros(self.n_constraints, **kw),
+            X_prev=x0[None, :].repeat(N + 1, 1),
+            U_prev=torch.zeros(N, CONTROL_DIM, **kw),
+        )
+
+    def _shift(self, carry: MPCCarry, x0: torch.Tensor) -> MPCCarry:
+        """Shift the warm start one stage forward (last stage duplicated)."""
+        N = self.config.horizon
+
+        def roll(mat):
+            return torch.cat([mat[1:], mat[-1:]], dim=0)
+
+        nu_n = N * CONTROL_DIM
+        zu = roll(carry.slack[:nu_n].reshape(N, CONTROL_DIM)).reshape(-1)
+        zx = roll(carry.slack[nu_n:].reshape(N, STATE_DIM)).reshape(-1)
+        yu = roll(carry.dual[:nu_n].reshape(N, CONTROL_DIM)).reshape(-1)
+        yx = roll(carry.dual[nu_n:].reshape(N, STATE_DIM)).reshape(-1)
+        X_prev = roll(carry.X_prev)
+        X_prev[0] = x0
+        return MPCCarry(
+            slack=torch.cat([zu, zx]),
+            dual=torch.cat([yu, yx]),
+            X_prev=X_prev,
+            U_prev=roll(carry.U_prev),
+        )
+
+    # ------------------------------------------------------------------
+    def solve(
+        self,
+        carry: MPCCarry,
+        state: torch.Tensor,
+        target_pos: torch.Tensor,
+        residuals: torch.Tensor | None = None,
+        reference_states: torch.Tensor | None = None,
+        uncertainty: torch.Tensor | None = None,
+    ):
+        """One staged MPC tick. ``state``: 6-vector, ``target_pos``:
+        3-vector, ``residuals``: optional ``(N, 6)`` gain-scaled GP dynamics
+        residuals. Returns ``(u0, X_opt, new_carry)``."""
+        cfg = self.config
+        if cfg.use_fused_controller:
+            raise NotImplementedError(
+                "use_fused_controller solves through the fused controller "
+                "kernel K3 (controller_pallas.gpmpc_controller_fused), queued "
+                "in ROADMAP.md; the multi-tick flight path "
+                "(use_fused_tick=True) does not call solve"
+            )
+        if cfg.use_fused_admm:
+            raise NotImplementedError(
+                "use_fused_admm solves through the fused ADMM kernel K6 "
+                "(admm_pallas.admm_box_qp_fused_composite), queued in ROADMAP.md"
+            )
+        if cfg.polish:
+            raise NotImplementedError("active-set polish is queued in ROADMAP.md")
+        if uncertainty is not None and cfg.tightening_factor > 0.0:
+            raise NotImplementedError(
+                "uncertainty tightening is queued in ROADMAP.md"
+            )
+        full_f32_matmul()
+        N = cfg.horizon
+        x0 = state.to(self.dtype)
+
+        carry = self._shift(carry, x0)
+
+        if residuals is None:
+            w = torch.zeros(N * STATE_DIM, dtype=self.dtype, device=self.device)
+        else:
+            w = (cfg.dt * residuals.to(self.dtype)).reshape(-1)
+
+        if reference_states is not None:
+            ref = reference_states.to(self.dtype).reshape(-1)
+        else:
+            ref = torch.cat(
+                [target_pos.to(self.dtype), torch.zeros(3, dtype=self.dtype, device=self.device)]
+            ).repeat(N)
+
+        offset = self._Sx @ x0 + self._Sw @ w
+        f = self._SuT_q @ (offset - ref)
+        lower = torch.cat([self._u_lo, self._x_lo - offset])
+        upper = torch.cat([self._u_hi, self._x_hi - offset])
+
+        p0 = -(self._GMinv @ f)
+        minv_f = self._M_inv @ f
+        sol = admm_box_qp_composite(
+            self._P1, p0, self._GMinv.T, minv_f, lower, upper,
+            carry.slack, carry.dual,
+            cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
+        )
+
+        # controls come from the slack's U-block: box-feasible at every
+        # iteration; equals the primal at convergence
+        U = sol.slack[: N * CONTROL_DIM].reshape(N, CONTROL_DIM)
+        X_tail = (offset + self._Su @ sol.primal).reshape(N, STATE_DIM)
+        X_opt = torch.cat([x0[None, :], X_tail], dim=0)
+
+        new_carry = MPCCarry(slack=sol.slack, dual=sol.dual, X_prev=X_opt, U_prev=U)
+        return U[0], X_opt, new_carry

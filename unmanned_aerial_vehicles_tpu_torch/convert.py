@@ -1,0 +1,137 @@
+"""Carry the JAX package's values across into the port's objects.
+
+Every function here takes plain numpy arrays (``np.asarray`` of the JAX
+package's arrays) and builds the port's counterpart, so both packages can
+compute from identical operands. Padded JAX layouts (128-lane rows) are cut
+down to the port's semantic shapes. This module imports neither JAX nor
+the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .gp.exact_gp import GPParams, GPPosterior
+from .gp.residual_gp import ResidualDataset
+from .ops.controller_pallas import FusedControllerData
+from .ops.tick_pallas import FusedTickData, GPRows, build_tick_data
+
+
+def _keep(a, dev):
+    """A tensor of ``a``'s own dtype on ``dev`` (copied: JAX's host views
+    are read-only)."""
+    return torch.as_tensor(np.array(a, order="C"), device=dev)
+
+
+def _t(a, dtype, dev):
+    return _keep(a, dev).to(dtype)
+
+
+def gp_posterior_from_numpy(
+    X_train, chol, alpha, y_mean, y_std, length_scale, signal_variance, noise_variance,
+    x_shift=None, y_train_norm=None, dtype=torch.float64, device=None,
+) -> GPPosterior:
+    """A ``GPPosterior`` from the JAX posterior's arrays. ``dtype`` applies
+    to the factor, alpha and the hyperparameters; the training inputs and
+    target statistics keep their own float width."""
+    dev = resolve_device(device)
+    keep = lambda a: _keep(a, dev)
+    params = GPParams.create(
+        length_scale=np.array(length_scale, np.float64),
+        signal_variance=float(np.asarray(signal_variance)),
+        noise_variance=float(np.asarray(noise_variance)),
+        dtype=dtype, device=dev,
+    )
+    alpha_t = _t(alpha, dtype, dev)
+    return GPPosterior(
+        params=params,
+        X_train=keep(X_train),
+        chol=_t(chol, dtype, dev),
+        alpha=alpha_t,
+        y_mean=keep(y_mean),
+        y_std=keep(y_std),
+        y_train_norm=keep(y_train_norm) if y_train_norm is not None else torch.zeros_like(alpha_t),
+        x_shift=keep(x_shift) if x_shift is not None else None,
+    )
+
+
+def dataset_from_numpy(X, Y, head, count, device=None) -> ResidualDataset:
+    """A ``ResidualDataset`` ring buffer from the JAX one's arrays."""
+    dev = resolve_device(device)
+    keep = lambda a: _keep(a, dev)
+    return ResidualDataset(
+        X=keep(X), Y=keep(Y),
+        head=torch.tensor(int(np.asarray(head)), dtype=torch.int64, device=dev),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int64, device=dev),
+    )
+
+
+def fused_controller_data_from_numpy(padded: Mapping[str, np.ndarray], horizon: int,
+                                     nu: int = 4, nx: int = 6) -> FusedControllerData:
+    """Cut the JAX package's padded ``FusedControllerData`` fields (a
+    mapping such as ``jax_data._asdict()``) down to semantic shapes."""
+    N = horizon
+    Nnu, Nnx = N * nu, N * nx
+    m = Nnu + Nnx
+    a = {k: np.asarray(v, np.float32) for k, v in padded.items()}
+    c = lambda arr: np.ascontiguousarray(arr)
+    return FusedControllerData(
+        SxT=c(a["SxT"][:nx, :Nnx]),
+        SwT=c(a["SwT"][:Nnx, :Nnx]),
+        SuTqT=c(a["SuTqT"][:Nnx, :Nnu]),
+        SuT=c(a["SuT"][:Nnu, :Nnx]),
+        P1=c(a["P1"][:m, :m]),
+        P0mat=c(a["P0mat"][:Nnu, :m]),
+        P0matT=c(a["P0matT"][:m, :Nnu]),
+        MinvT=c(a["MinvT"][:Nnu, :Nnu]),
+        u_lo_row=c(a["u_lo_row"][0, :m]),
+        u_hi_row=c(a["u_hi_row"][0, :m]),
+        x_lo_row=c(a["x_lo_row"][0, :m]),
+        x_hi_row=c(a["x_hi_row"][0, :m]),
+    )
+
+
+def fused_tick_data_from_numpy(padded_ctrl: Mapping[str, np.ndarray], horizon: int,
+                               nu: int = 4, nx: int = 6, device=None) -> FusedTickData:
+    """``FusedTickData`` on ``device`` from the JAX controller data's
+    padded fields (the tick layouts are rebuilt from them)."""
+    ctrl = fused_controller_data_from_numpy(padded_ctrl, horizon, nu, nx)
+    return build_tick_data(ctrl, horizon, nu, nx, device=device)
+
+
+def gp_rows_from_numpy(ztrT, sq2_row, alpha_s, y_mean_row, inv_ls_row, scal_row,
+                       n_features: int = 10, device=None) -> GPRows:
+    """``GPRows`` from the JAX package's padded GP rows."""
+    dev = resolve_device(device)
+    f = lambda a: _t(a, torch.float32, dev).contiguous()
+    d = n_features
+    return GPRows(
+        ztrT=f(np.asarray(ztrT)[:d, :]),
+        sq2=f(np.asarray(sq2_row)[0]),
+        alpha_s=f(np.asarray(alpha_s)[:, :6]),
+        y_mean=f(np.asarray(y_mean_row)[0, :6]),
+        inv_ls=f(np.asarray(inv_ls_row)[:, :d]),
+        scal=f(np.asarray(scal_row)[0, :3]),
+    )
+
+
+def multitick_carry_from_numpy(state_row, aux_row, xtail_row, z_row, y_row, horizon: int,
+                               nu: int = 4, nx: int = 6, device=None):
+    """The K5 carries ``(state (12,), aux (9,), xtail (Nnx,), z (m,),
+    y (m,))`` from the JAX kernel's padded rows (aux lanes: previous x0 in
+    0:6, integral in 8:11)."""
+    dev = resolve_device(device)
+    f = lambda a: _t(a, torch.float32, dev).contiguous()
+    m = horizon * (nu + nx)
+    aux = np.concatenate([np.asarray(aux_row)[0, 0:6], np.asarray(aux_row)[0, 8:11]])
+    return (
+        f(np.asarray(state_row)[0, :12]),
+        f(aux),
+        f(np.asarray(xtail_row)[0, : horizon * nx]),
+        f(np.asarray(z_row)[0, :m]),
+        f(np.asarray(y_row)[0, :m]),
+    )

@@ -1,0 +1,158 @@
+// Scalar device math of the PX4 surrogate plant and the geometric
+// allocation, shared by the plant kernels (plant_kernels.cu: K1, K2) and the
+// multi-tick tick kernel (tick_kernel.cu: K5).
+//
+// A transcription of the JAX package's ops/plant_pallas.py scalar
+// functions (_derivative, _rk4_substeps, _allocation), which the port's
+// plain versions (ops/plant_pallas.py) mirror. All float32, no fast math:
+// sinf/cosf/asinf/sqrtf are the accurate library versions. The compiler
+// contracts a*b+c into FMAs, so results agree with the plain versions to
+// float32 rounding, not bit for bit.
+#pragma once
+
+#include <math.h>
+
+namespace uav {
+
+constexpr int kPlantLanes = 10;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+
+// plant row lanes: mass, gravity, k_drag_linear, tau_roll, tau_pitch,
+// tau_yaw, thrust_gain, wind_x, wind_y, wind_z
+struct Plant {
+  float mass, gravity, k_drag, tau_r, tau_p, tau_y, thrust_gain, wx, wy, wz;
+};
+
+__device__ __forceinline__ Plant load_plant(const float* row) {
+  Plant p;
+  p.mass = row[0];
+  p.gravity = row[1];
+  p.k_drag = row[2];
+  p.tau_r = row[3];
+  p.tau_p = row[4];
+  p.tau_y = row[5];
+  p.thrust_gain = row[6];
+  p.wx = row[7];
+  p.wy = row[8];
+  p.wz = row[9];
+  return p;
+}
+
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// Floor-mod wrap to [-pi, pi): (a + pi) mod 2pi - pi, with the remainder
+// taking the divisor's sign. fmodf is exact; the sign fix makes it the
+// floor-mod that jnp.remainder and torch.remainder compute, bit for bit
+// (the form a - 2pi floor((a + pi) / 2pi) rounds differently).
+__device__ __forceinline__ float wrap_angle(float a) {
+  float x = a + kPi;
+  float m = fmodf(x, kTwoPi);
+  if (m != 0.0f && m < 0.0f) m += kTwoPi;
+  return m - kPi;
+}
+
+// d(state)/dt of the rate-tracking surrogate: mixed-NED thrust, airspeed
+// drag, guarded Euler-rate transform, first-order body-rate lags.
+__device__ __forceinline__ void derivative(const float s[12], const float c[4],
+                                           const Plant& pl, float out[12]) {
+  const float vx = s[3], vy = s[4], vz = s[5];
+  const float phi = s[6], theta = s[7], psi = s[8];
+  const float p = s[9], q = s[10], r = s[11];
+  const float cphi = cosf(phi), sphi = sinf(phi);
+  const float cth = cosf(theta), sth = sinf(theta);
+  const float cpsi = cosf(psi), spsi = sinf(psi);
+
+  // R[:, 2] with the mixed-NED xy sign flip
+  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
+  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
+  const float t2 = cphi * cth;
+  const float a_thrust = c[0] * pl.thrust_gain;
+
+  // drag on the airspeed (v - wind); zero speed -> zero drag
+  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
+  const float sq = avx * avx + avy * avy + avz * avz;
+  const float speed = sq > 0.0f ? sqrtf(sq) : 0.0f;
+  const float kd = pl.k_drag / pl.mass;
+
+  out[0] = vx;
+  out[1] = vy;
+  out[2] = vz;
+  out[3] = a_thrust * t0 - kd * speed * avx;
+  out[4] = a_thrust * t1 - kd * speed * avy;
+  out[5] = a_thrust * t2 - kd * speed * avz - pl.gravity;
+
+  const float tth = sth / cth;
+  const float cth_safe = fabsf(cth) < 1e-6f ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
+  out[6] = p + q * sphi * tth + r * cphi * tth;
+  out[7] = q * cphi - r * sphi;
+  out[8] = q * sphi / cth_safe + r * cphi / cth_safe;
+
+  out[9] = (c[1] - p) / pl.tau_r;
+  out[10] = (c[2] - q) / pl.tau_p;
+  out[11] = (c[3] - r) / pl.tau_y;
+}
+
+// `substeps` RK4 steps of length dt / substeps, in place on s.
+__device__ __forceinline__ void rk4_substeps(float s[12], const float c[4], const Plant& pl,
+                                             double dt, int substeps) {
+  const double h = dt / substeps;
+  const float hf = (float)h, half_h = (float)(0.5 * h), h6 = (float)(h / 6.0);
+  float k1[12], k2[12], k3[12], k4[12], x[12];
+  for (int step = 0; step < substeps; ++step) {
+    derivative(s, c, pl, k1);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x[i] = s[i] + half_h * k1[i];
+    derivative(x, c, pl, k2);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x[i] = s[i] + half_h * k2[i];
+    derivative(x, c, pl, k3);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x[i] = s[i] + hf * k3[i];
+    derivative(x, c, pl, k4);
+#pragma unroll
+    for (int i = 0; i < 12; ++i)
+      s[i] = s[i] + h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+  }
+}
+
+// Geometric allocation + attitude PID (Kp 3.2, Ki 0.6, Kd 0.6, integral
+// clip 0.3). cmd = ax, ay, az, yawrate, yaw. Writes control (thrust, p, q,
+// r), att_sp (roll, pitch, yaw) and the new integral.
+__device__ __forceinline__ void allocation(const float s[12], const float cmd[5],
+                                           const float integral[3], float dt, float gravity,
+                                           float thrust_ceiling, float control[4],
+                                           float att_sp[3], float new_int[3]) {
+  const float kp = 3.2f, ki = 0.6f, kd = 0.6f, integral_max = 0.3f;
+  const float tvx = cmd[0], tvy = cmd[1], tvz = cmd[2] + gravity;
+  const float tmag = sqrtf(tvx * tvx + tvy * tvy + tvz * tvz);
+  const float thrust = fminf(fmaxf(tmag / gravity, 0.25f), thrust_ceiling);
+  const float inv = 1.0f / fmaxf(tmag, 1e-9f);
+  float pitch_cmd = -asinf(clipf(tvx * inv, -0.4f, 0.4f));
+  float roll_cmd = asinf(clipf(tvy * inv, -0.4f, 0.4f));
+  if (tmag <= 0.1f) {
+    pitch_cmd = 0.0f;
+    roll_cmd = 0.0f;
+  }
+  const float target_yaw = cmd[4];
+  const float e0 = wrap_angle(roll_cmd - s[6]);
+  const float e1 = wrap_angle(pitch_cmd - s[7]);
+  const float e2 = wrap_angle(target_yaw - s[8]);
+  const float i0 = clipf(integral[0] + e0 * dt, -integral_max, integral_max);
+  const float i1 = clipf(integral[1] + e1 * dt, -integral_max, integral_max);
+  const float i2 = clipf(integral[2] + e2 * dt, -integral_max, integral_max);
+  control[0] = thrust;
+  control[1] = clipf(kp * e0 + ki * i0 - kd * s[9], -1.2f, 1.2f);
+  control[2] = clipf(kp * e1 + ki * i1 - kd * s[10], -1.2f, 1.2f);
+  control[3] = clipf(cmd[3] + kp * e2 + ki * i2 - kd * s[11], -0.8f, 0.8f);
+  att_sp[0] = roll_cmd;
+  att_sp[1] = pitch_cmd;
+  att_sp[2] = target_yaw;
+  new_int[0] = i0;
+  new_int[1] = i1;
+  new_int[2] = i2;
+}
+
+}  // namespace uav

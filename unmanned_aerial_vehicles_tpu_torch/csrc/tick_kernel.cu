@@ -1,0 +1,424 @@
+// K5: K whole GP-MPC control ticks of one flight in one launch.
+//
+// Replaces the JAX package's ops/tick_pallas.py:gpmpc_multitick_fused
+// (pallas_call at :786). Its plain version is the port's
+// ops/tick_pallas.py:multitick_staged.
+//
+// Design: one thread block per flight; the K ticks are a loop inside the
+// block, so the carries (state, previous x0 + attitude integral, X_tail,
+// ADMM slack z and dual y) stay in shared memory for the whole launch and
+// nothing but the packed per-tick rows and the final carries goes back to
+// device memory. P1 = G M^-1 G' (m x m, 160 KB at N=20) is copied into
+// dynamic shared memory once per launch; the other condensed matrices
+// (~290 KB at N=20) and the GP operands (~45 KB at P=800) are read through
+// L1/L2 every tick.
+//
+// Per tick, in block-wide phases separated by __syncthreads():
+//   GP     features of the UNshifted previous solution -> scaled features;
+//          thread (stage k, slice s) forms the cross-kernel entries of
+//          stage k against every S-th training point from s, exponentiates
+//          them and contracts them with alpha[:, 3:6]; the S slice sums of
+//          a stage are added in a fixed order (deterministic, no atomics);
+//   shift  warm start moved one stage forward (last stage repeated);
+//   offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
+//          box bounds, p0 = -(f @ P0mat), M^-1 f;
+//   ADMM   `iterations` x one (m, m) matvec from shared memory, thread j
+//          owns column j, the matvec input double-buffered so each
+//          iteration needs one barrier;
+//   U, X_tail, then thread 0 runs the clips, hover fallback, allocation +
+//          attitude PID and the plant RK4 substeps (plant_math.cuh, the
+//          same device code as K1/K2) and writes the packed row.
+//
+// What bounds it on an H100: at N=20, P=800 one tick is about 0.73 M
+// multiply-adds (GP ~0.26 M, 10 ADMM iterations 0.4 M, the rest ~0.07 M):
+// ~3 us at one SM's 128 FP32 FMA per clock. The ADMM matvec reads P1 from
+// shared memory at 128 bytes per clock per SM, so each iteration costs at
+// least m*m*4/128 = 1250 clocks (~0.7 us), 10 iterations ~7 us per tick;
+// the per-tick L2 reads of the other operands (~340 KB) are of the same
+// order. One block uses one SM of 132: the kernel is latency-bound by
+// design for one flight, and a batch of flights (one block each) is what
+// fills the card. Holding P1 in registers across a 1024-thread block, and
+// overlapping the scalar plant section with the next tick's GP, are the
+// next steps (ROADMAP.md).
+//
+// loop_precision: both modes compute in float32 with FMAs here.
+
+#include <cuda_runtime.h>
+
+#include "plant_math.cuh"
+
+// Host-visible (external linkage): the C entry point takes pointers to
+// these, laid out as ops/tick_pallas.py's _TickParams / _TickOperands.
+struct TickParams {
+  int k_ticks, n, m, n_train, use_gp, iterations, substeps, use_fallback;
+  double dt;
+  float rho, over_relax, one_minus_over_relax, yawrate_limit;
+  float fallback_error_sq, fallback_thrust_ceiling;
+  float accel_lo[3], accel_hi[3], fallback_lo[3], fallback_hi[3];
+};
+
+struct TickOperands {
+  const float *SxSwT, *SuTqT, *PM, *P1, *P0matT, *SuT, *lo_row, *hi_row;
+  const float *ztrT, *sq2, *alpha_s, *y_mean, *inv_ls, *scal;
+  const float *state_in, *aux_in, *xtail_in, *z_in, *y_in, *refs, *yaw_refs, *plant_row;
+  float *packed, *state_out, *aux_out, *xtail_out, *z_out, *y_out;
+};
+
+namespace {
+
+constexpr int kThreads = 256;   // ops/tick_pallas.py KERNEL_THREADS
+constexpr int kNu = 4;
+constexpr int kNx = 6;
+constexpr int kFeat = kNu + kNx;
+constexpr int kPacked = 32;
+constexpr int kAux = 9;
+
+// sum_i v[i] * A[i * lda + j] for i < n: column j of a row-major matrix
+// against a shared-memory vector. 16 loads of A are issued before their
+// multiply-adds and 4 accumulators break the add chain, so a thread keeps
+// 16 reads in flight instead of waiting out one L2 latency per element.
+__device__ __forceinline__ float col_dot(const float* __restrict__ v,
+                                         const float* __restrict__ A, int lda, int j, int n) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int i = 0;
+  for (; i + 16 <= n; i += 16) {
+    float a[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a[u] = A[(i + u) * lda + j];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc[u & 3] += v[i + u] * a[u];
+  }
+  for (; i < n; ++i) acc[i & 3] += v[i] * A[i * lda + j];
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// col_dot for a shared-memory matrix and a 16-byte-aligned shared vector:
+// the vector is read 4 floats per (broadcast) load, so the matrix column,
+// not the vector, takes the shared-memory bandwidth.
+__device__ __forceinline__ float col_dot_smem(const float* __restrict__ v,
+                                              const float* __restrict__ A, int lda, int j,
+                                              int n) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int i = 0;
+  for (; i + 16 <= n; i += 16) {
+    float a[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) a[u] = A[(i + u) * lda + j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 w = v4[(i >> 2) + q];
+      acc[0] += w.x * a[4 * q];
+      acc[1] += w.y * a[4 * q + 1];
+      acc[2] += w.z * a[4 * q + 2];
+      acc[3] += w.w * a[4 * q + 3];
+    }
+  }
+  for (; i < n; ++i) acc[i & 3] += v[i] * A[i * lda + j];
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// Block matrix-vector product out[j] = sum_i v[i] A[i * lda + j] for
+// j < n_out, i < n_in, in two phases around a barrier: matvec_partial
+// splits each column's sum into `parts` slices over the block's threads
+// (so a short output uses every thread, and each thread's chain of
+// dependent L2 reads is shorter); matvec_total adds the slices in a fixed
+// order (deterministic).
+__device__ __forceinline__ int matvec_parts(int n_out, int nth) {
+  return n_out >= nth ? 1 : nth / n_out;
+}
+
+__device__ __forceinline__ void matvec_partial(const float* __restrict__ v,
+                                               const float* __restrict__ A, int lda, int n_in,
+                                               int n_out, float* __restrict__ part, int tid,
+                                               int nth) {
+  const int parts = matvec_parts(n_out, nth);
+  const int chunk = (n_in + parts - 1) / parts;
+  for (int t = tid; t < parts * n_out; t += nth) {
+    const int j = t % n_out, q = t / n_out;
+    const int i0 = min(n_in, q * chunk), i1 = min(n_in, i0 + chunk);
+    part[t] = col_dot(v + i0, A + i0 * lda, lda, j, i1 - i0);
+  }
+}
+
+__device__ __forceinline__ float matvec_total(const float* __restrict__ part, int n_out,
+                                              int nth, int j) {
+  const int parts = matvec_parts(n_out, nth);
+  float acc = 0.0f;
+  for (int q = 0; q < parts; ++q) acc += part[q * n_out + j];
+  return acc;
+}
+
+// The scalar section of one tick (one thread): u0 clips, hover fallback,
+// allocation + attitude PID, plant RK4 substeps, the packed row and the
+// state / aux carries. Not inlined: it runs once per tick on one thread, so
+// it gets its own register allocation and keeps the block's loops from
+// paying for its register pressure.
+__device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands& O, int t,
+                                         const float* z, const float* ref,
+                                         const float* xtail, float* st, float* aux) {
+    const uav::Plant pl = uav::load_plant(O.plant_row);
+    float s[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s[i] = st[i];
+    float ax = uav::clipf(z[0], P.accel_lo[0], P.accel_hi[0]);
+    float ay = uav::clipf(z[1], P.accel_lo[1], P.accel_hi[1]);
+    float az = uav::clipf(z[2], P.accel_lo[2], P.accel_hi[2]);
+    float yr = uav::clipf(z[3], -P.yawrate_limit, P.yawrate_limit);
+    float thrust_hi = 1.2f;
+    if (P.use_fallback) {
+      const float ex = ref[0] - s[0], ey = ref[1] - s[1], ez = ref[2] - s[2];
+      if (ex * ex + ey * ey + ez * ez > P.fallback_error_sq) {
+        ax = uav::clipf(1.5f * ex - 0.8f * s[3], P.fallback_lo[0], P.fallback_hi[0]);
+        ay = uav::clipf(1.5f * ey - 0.8f * s[4], P.fallback_lo[1], P.fallback_hi[1]);
+        az = uav::clipf(1.5f * ez - 0.8f * s[5], P.fallback_lo[2], P.fallback_hi[2]);
+        yr = 0.0f;
+        thrust_hi = P.fallback_thrust_ceiling;
+      }
+    }
+    const float cmd[5] = {ax, ay, az, yr, O.yaw_refs[t]};
+    const float integral[3] = {aux[6], aux[7], aux[8]};
+    float c[4], att_sp[3], new_int[3];
+    uav::allocation(s, cmd, integral, (float)P.dt, pl.gravity, thrust_hi, c, att_sp,
+                    new_int);
+    float sn[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) sn[i] = s[i];
+    uav::rk4_substeps(sn, c, pl, P.dt, P.substeps);
+
+    float* row = O.packed + t * kPacked;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) row[i] = s[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
+    row[22] = ax;
+    row[23] = ay;
+    row[24] = az;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row[25 + i] = z[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[29 + i] = xtail[3 + i];
+
+#pragma unroll
+    for (int i = 0; i < 12; ++i) st[i] = sn[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) aux[i] = s[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) aux[6 + i] = new_int[i];
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  const int m4 = (m + 3) & ~3;
+
+  // shared memory layout (ops/tick_pallas.py shared_memory_bytes); P1, va
+  // and vb start 16-byte aligned (m * m and m4 are multiples of 4)
+  float* P1s = sm;
+  float* va = P1s + m * m;      // ADMM matvec input, double-buffered
+  float* vb = va + m4;
+  float* z = vb + m4;
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lo = p0 + m;
+  float* hi = lo + m;
+  float* lower = hi + m;
+  float* upper = lower + m;
+  float* xw = upper + m;        // [x0 (6) | w (Nnx)]
+  float* wv = xw + kNx;
+  float* xtail = wv + Nnx;
+  float* offset = xtail + Nnx;
+  float* ref = offset + Nnx;
+  float* dref = ref + Nnx;
+  float* f = dref + Nnx;
+  float* minvf = f + Nnu;
+  float* U = minvf + Nnu;
+  float* part = U + Nnu;        // matvec slices: nth + npm
+  float* zf = part + nth + npm;
+  float* sq1 = zf + N * kFeat;
+  float* red = sq1 + N;
+  float* st = red + 3 * nth;
+  float* aux = st + 12;
+
+  {
+    const float4* src = reinterpret_cast<const float4*>(O.P1);
+    float4* dst = reinterpret_cast<float4*>(P1s);
+#pragma unroll 4
+    for (int i = tid; i < (m * m) / 4; i += nth) dst[i] = __ldg(src + i);
+  }
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+    lo[i] = O.lo_row[i];
+    hi[i] = O.hi_row[i];
+  }
+  for (int i = tid; i < Nnx; i += nth) xtail[i] = O.xtail_in[i];
+  if (tid < 12) st[tid] = O.state_in[tid];
+  if (tid < kAux) aux[tid] = O.aux_in[tid];
+  const float rho = P.rho;
+  __syncthreads();
+
+  for (int t = 0; t < P.k_ticks; ++t) {
+    for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
+    if (tid < kNx) xw[tid] = st[tid];
+
+    // ---- GP horizon posterior mean ---------------------------------------
+    if (P.use_gp) {
+      const float sf2 = O.scal[0], gain = O.scal[1];
+      for (int i = tid; i < N * kFeat; i += nth) {
+        const int k = i / kFeat, c = i % kFeat;
+        const float feat = c < kNx ? (k == 0 ? aux[c] : xtail[(k - 1) * kNx + c])
+                                   : z[k * kNu + (c - kNx)];
+        zf[i] = feat * O.inv_ls[c] - O.inv_ls[kFeat + c];
+      }
+      __syncthreads();
+      for (int k = tid; k < N; k += nth) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kFeat; ++c) acc += zf[k * kFeat + c] * zf[k * kFeat + c];
+        sq1[k] = acc;
+      }
+      __syncthreads();
+      // thread (k, sl): stage k against training points sl, sl + S, ...;
+      // neighbouring threads read neighbouring points (coalesced), and the
+      // S slices of a stage meet in `red` (fixed order: deterministic)
+      const int ntr = P.n_train;
+      const int S = max(1, nth / N);
+      for (int t = tid; t < N * S; t += nth) {
+        const int k = t / S, sl = t % S;
+        float zk[kFeat];
+#pragma unroll
+        for (int c = 0; c < kFeat; ++c) zk[c] = zf[k * kFeat + c];
+        const float q1 = sq1[k];
+        float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+#pragma unroll 2
+        for (int p = sl; p < ntr; p += S) {
+          float cross = 0.0f;
+#pragma unroll
+          for (int c = 0; c < kFeat; ++c) cross += zk[c] * __ldg(O.ztrT + c * ntr + p);
+          const float kst = sf2 * expf(-0.5f * fmaxf(q1 + __ldg(O.sq2 + p) - 2.0f * cross, 0.0f));
+          acc0 += kst * __ldg(O.alpha_s + p * 6 + 3);
+          acc1 += kst * __ldg(O.alpha_s + p * 6 + 4);
+          acc2 += kst * __ldg(O.alpha_s + p * 6 + 5);
+        }
+        red[t * 3 + 0] = acc0;
+        red[t * 3 + 1] = acc1;
+        red[t * 3 + 2] = acc2;
+      }
+      __syncthreads();
+      for (int i = tid; i < N * 3; i += nth) {
+        const int k = i / 3, j = i % 3;
+        float acc = 0.0f;
+        for (int sl = 0; sl < S; ++sl) acc += red[(k * S + sl) * 3 + j];
+        wv[k * kNx + 3 + j] = gain * (acc + O.y_mean[3 + j]);
+        wv[k * kNx + j] = 0.0f;
+      }
+    } else {
+      for (int i = tid; i < Nnx; i += nth) wv[i] = 0.0f;
+    }
+    // ---- warm-start shift (gather; the write waits for the barrier) ------
+    for (int i = tid; i < m; i += nth) {
+      int src = i;
+      if (i < Nnu - kNu) src = i + kNu;
+      else if (i >= Nnu && i < Nnu + Nnx - kNx) src = i + kNx;
+      va[i] = z[src];
+      vb[i] = y[src];
+    }
+    __syncthreads();
+    for (int i = tid; i < m; i += nth) {
+      z[i] = va[i];
+      y[i] = vb[i];
+    }
+    // ---- prediction offset = [x0, w] @ [Sx'; Sw'] --------------------------
+    matvec_partial(xw, O.SxSwT, Nnx, kNx + Nnx, Nnx, part, tid, nth);
+    __syncthreads();
+    for (int r = tid; r < Nnx; r += nth) {
+      const float off = matvec_total(part, Nnx, nth, r);
+      offset[r] = off;
+      dref[r] = off - ref[r];
+    }
+    __syncthreads();
+    // ---- condensed gradient and box bounds --------------------------------
+    matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
+    for (int i = tid; i < m; i += nth) {
+      const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
+      lower[i] = lo[i] - off_z;
+      upper[i] = hi[i] - off_z;
+      va[i] = rho * z[i] - y[i];
+    }
+    __syncthreads();
+    for (int c = tid; c < Nnu; c += nth) f[c] = matvec_total(part, Nnu, nth, c);
+    __syncthreads();
+    // ---- p0 = -(f @ P0mat), M^-1 f = f @ MinvT ---------------------------
+    matvec_partial(f, O.PM, npm, Nnu, npm, part, tid, nth);
+    __syncthreads();
+    for (int j = tid; j < npm; j += nth) {
+      const float acc = matvec_total(part, npm, nth, j);
+      if (j < m) p0[j] = -acc;
+      else minvf[j - m] = acc;
+    }
+    __syncthreads();
+    // ---- composite ADMM: one (m, m) matvec per iteration -----------------
+    float* vsrc = va;
+    float* vdst = vb;
+    for (int it = 0; it < P.iterations; ++it) {
+      for (int j = tid; j < m; j += nth) {
+        const float GU = p0[j] + col_dot_smem(vsrc, P1s, m, j, m);
+        const float Gt = P.over_relax * GU + P.one_minus_over_relax * z[j];
+        const float zn = uav::clipf(Gt + y[j] / rho, lower[j], upper[j]);
+        const float yn = y[j] + rho * (Gt - zn);
+        z[j] = zn;
+        y[j] = yn;
+        vdst[j] = rho * zn - yn;
+      }
+      __syncthreads();
+      float* tmp = vsrc;
+      vsrc = vdst;
+      vdst = tmp;
+    }
+    // ---- primal U and predicted tail --------------------------------------
+    matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, part, tid, nth);
+    __syncthreads();
+    for (int c = tid; c < Nnu; c += nth) U[c] = -minvf[c] + matvec_total(part, Nnu, nth, c);
+    __syncthreads();
+    matvec_partial(U, O.SuT, Nnx, Nnu, Nnx, part, tid, nth);
+    __syncthreads();
+    for (int r = tid; r < Nnx; r += nth) xtail[r] = offset[r] + matvec_total(part, Nnx, nth, r);
+    __syncthreads();
+    // ---- u0 clips, fallback, allocation + plant (one thread) -------------
+    if (tid == 0) scalar_tick(P, O, t, z, ref, xtail, st, aux);
+    __syncthreads();
+  }
+
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+  for (int i = tid; i < Nnx; i += nth) O.xtail_out[i] = xtail[i];
+  if (tid < 12) O.state_out[tid] = st[tid];
+  if (tid < kAux) O.aux_out[tid] = aux[tid];
+}
+
+}  // namespace
+
+extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperands* ops,
+                                      int smem_bytes, void* stream) {
+  // raise the block's shared-memory limit once per size (host-side call,
+  // kept out of the per-launch path and out of CUDA graph captures)
+  static int configured_bytes = -1;
+  if (smem_bytes > configured_bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gpmpc_multitick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured_bytes = smem_bytes;
+  }
+  gpmpc_multitick_kernel<<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,239 @@
+"""Residual-dynamics GP (port of ``gp/residual_gp.py``).
+
+10-D input ``[x,y,z,vx,vy,vz,ax,ay,az,yaw_rate]`` -> 6-D state residual
+``state_next - nominal(state, control, dt)``, with the reference's data
+quality filters and sklearn configuration (``RBF(0.5) + WhiteKernel(0.1)``,
+``alpha=1e-4``, ``normalize_y=True``). ``ResidualDataset`` is a
+fixed-capacity ring buffer updated on the device without host syncs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from .._device import full_f32_matmul, resolve_device
+from ..models.double_integrator import double_integrator_step
+from .exact_gp import GPParams, GPPosterior, _work_dtype, fit_gp, predict_mean
+from .kernels import rbf_kernel
+
+INPUT_DIM = 10
+OUTPUT_DIM = 6
+
+
+@dataclass(frozen=True)
+class ResidualGPConfig:
+    max_data_points: int = 800
+    dt: float = 0.02
+    max_velocity_norm: float = 5.0
+    max_control_norm: float = 3.0
+    max_residual_norm: float = 2.0
+    length_scale: float = 0.5
+    noise_variance: float = 0.1
+    alpha: float = 1e-4
+    residual_gain: float = 0.1
+
+
+class ResidualDataset(NamedTuple):
+    """Fixed-capacity ring buffer of (input, residual) pairs."""
+
+    X: torch.Tensor        # (capacity, 10)
+    Y: torch.Tensor        # (capacity, 6)
+    head: torch.Tensor     # 0-d int64: next write slot (monotone)
+    count: torch.Tensor    # 0-d int64: number of valid rows (<= capacity)
+
+
+def empty_dataset(capacity: int = 800, dtype=torch.float32, device=None) -> ResidualDataset:
+    dev = resolve_device(device)
+    return ResidualDataset(
+        X=torch.zeros(capacity, INPUT_DIM, dtype=dtype, device=dev),
+        Y=torch.zeros(capacity, OUTPUT_DIM, dtype=dtype, device=dev),
+        head=torch.zeros((), dtype=torch.int64, device=dev),
+        count=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def add_training_samples_batch(
+    dataset: ResidualDataset,
+    states: torch.Tensor,        # (K, >=6)
+    controls: torch.Tensor,      # (K, >=4)
+    states_next: torch.Tensor,   # (K, >=6)
+    config: ResidualGPConfig = ResidualGPConfig(),
+) -> ResidualDataset:
+    """K ring-buffer inserts with the reference's quality filters, equal to
+    K sequential single inserts.
+
+    Accepted samples take consecutive ring slots by a prefix count
+    (wrap-around included). Rejected samples are written to one scratch
+    row past the ring, which is cut off: the scatter never reads the number
+    of accepted rows on the host, so a flight pays no sync per launch."""
+    K = states.shape[0]
+    capacity = dataset.X.shape[0]
+    if K > capacity:
+        raise ValueError(f"batch of {K} inserts exceeds ring capacity {capacity}")
+    s6 = states[:, :6]
+    n6 = states_next[:, :6]
+    c4 = controls[:, :4]
+
+    velocity_norm = torch.linalg.vector_norm(s6[:, 3:6], dim=1)
+    control_norm = torch.linalg.vector_norm(c4[:, :3], dim=1)
+    residual = n6 - double_integrator_step(s6, c4, config.dt)
+    residual_norm = torch.linalg.vector_norm(residual, dim=1)
+    accept = (
+        (velocity_norm <= config.max_velocity_norm)
+        & (control_norm <= config.max_control_norm)
+        & (residual_norm <= config.max_residual_norm)
+    )
+
+    acc_i = accept.to(torch.int64)
+    before = torch.cumsum(acc_i, dim=0) - acc_i
+    slots = torch.where(
+        accept, (dataset.head + before) % capacity, torch.full_like(before, capacity)
+    )
+    rows = torch.cat([s6, c4], dim=1).to(dataset.X.dtype)
+
+    def scatter(buf, vals):
+        ext = torch.cat([buf, buf.new_zeros(1, buf.shape[1])], dim=0)
+        ext[slots] = vals.to(buf.dtype)
+        return ext[:capacity]
+
+    n_new = acc_i.sum()
+    return ResidualDataset(
+        X=scatter(dataset.X, rows),
+        Y=scatter(dataset.Y, residual),
+        head=dataset.head + n_new,
+        count=torch.clamp(dataset.count + n_new, max=capacity),
+    )
+
+
+def default_params(config: ResidualGPConfig = ResidualGPConfig(), device=None) -> GPParams:
+    return GPParams.create(
+        length_scale=config.length_scale,
+        signal_variance=1.0,
+        noise_variance=config.noise_variance,
+        device=device,
+    )
+
+
+def masked_input_stats(dataset: ResidualDataset):
+    """Per-dim (mean, std) of the valid ring-buffer inputs; degenerate
+    dims get std 1. The mean doubles as the fit's ``x_shift``."""
+    capacity = dataset.X.shape[0]
+    valid = (torch.arange(capacity, device=dataset.X.device) < dataset.count)[:, None]
+    count = torch.clamp(dataset.count, min=1).to(dataset.X.dtype)
+    Xv = torch.where(valid, dataset.X, 0.0)
+    mean = torch.sum(Xv, dim=0) / count
+    var = torch.sum(torch.where(valid, (dataset.X - mean) ** 2, 0.0), dim=0) / count
+    std = torch.sqrt(var)
+    std = torch.where(std > 1e-8, std, torch.ones_like(std))
+    return mean, std
+
+
+def standardized_params(
+    dataset: ResidualDataset,
+    config: ResidualGPConfig = ResidualGPConfig(),
+    std: torch.Tensor | None = None,
+) -> GPParams:
+    """ARD length scales ``l * sigma_d`` equivalent to standardizing the
+    inputs (sigma_d: masked per-dim std over valid rows)."""
+    if std is None:
+        _, std = masked_input_stats(dataset)
+    dev = dataset.X.device
+    return GPParams.create(
+        length_scale=config.length_scale * std,
+        signal_variance=1.0,
+        noise_variance=config.noise_variance,
+        device=dev,
+    )
+
+
+def fit_residual_gp(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    config: ResidualGPConfig = ResidualGPConfig(),
+    params: GPParams | None = None,
+) -> GPPosterior:
+    """Fit on (n,10)/(n,6) tensors: fixed hyperparameters, alpha jitter,
+    normalized targets."""
+    if params is None:
+        params = default_params(config, device=X.device)
+    return fit_gp(params, X, Y, jitter=config.alpha, normalize_y=True)
+
+
+def fit_residual_gp_masked(
+    dataset: ResidualDataset,
+    config: ResidualGPConfig = ResidualGPConfig(),
+    params: GPParams | None = None,
+    x_shift: torch.Tensor | None = None,
+) -> GPPosterior:
+    """Fit on a partially filled ring buffer with static shapes.
+
+    Invalid rows are masked out algebraically: off-diagonal kernel entries
+    0, diagonal 1, target 0, so their alpha is exactly 0; target
+    normalisation uses masked statistics. Invalid training inputs are set
+    to a large finite sentinel (1e6), so a query's kernel value against
+    them underflows to 0. The Gram matrix and its Cholesky factor are in
+    float64 with the default (float64) hyperparameters."""
+    full_f32_matmul()
+    X, Y = dataset.X, dataset.Y
+    if params is None:
+        params = default_params(config, device=X.device)
+
+    capacity = X.shape[0]
+    valid = (torch.arange(capacity, device=X.device) < dataset.count)[:, None]
+    count = torch.clamp(dataset.count, min=1).to(X.dtype)
+    X_in = X if x_shift is None else X - x_shift
+
+    Yv = torch.where(valid, Y, 0.0)
+    y_mean = torch.sum(Yv, dim=0) / count
+    y_var = torch.sum(torch.where(valid, (Y - y_mean) ** 2, 0.0), dim=0) / count
+    y_std = torch.sqrt(y_var)
+    y_std = torch.where(y_std == 0.0, torch.ones_like(y_std), y_std)
+    Yn = torch.where(valid, (Y - y_mean) / y_std, 0.0)
+
+    wd = _work_dtype(params, X_in)
+    K = rbf_kernel(X_in.to(wd), X_in.to(wd), params.length_scale.to(wd),
+                   params.signal_variance.to(wd))
+    mask2d = valid & valid.T
+    K = torch.where(mask2d, K, 0.0)
+    diag = torch.where(
+        valid[:, 0],
+        torch.diagonal(K) + params.noise_variance.to(wd) + config.alpha,
+        1.0,
+    )
+    K.diagonal().copy_(diag)
+
+    L = torch.linalg.cholesky(K)
+    alpha = torch.cholesky_solve(Yn.to(wd), L)
+    return GPPosterior(
+        params=params,
+        X_train=torch.where(valid, X_in, 1e6),
+        chol=L,
+        alpha=alpha,
+        y_mean=y_mean,
+        y_std=y_std,
+        y_train_norm=Yn,
+        x_shift=x_shift,
+    )
+
+
+def build_horizon_residuals(
+    posterior: GPPosterior,
+    X_guess: torch.Tensor,
+    U_guess: torch.Tensor,
+    config: ResidualGPConfig = ResidualGPConfig(),
+) -> torch.Tensor:
+    """Stage-wise MPC dynamics residuals from the warm-start trajectory:
+    one batched posterior over the horizon, state residual / dt on the
+    acceleration rows, scaled by ``residual_gain``.
+
+    ``X_guess (N+1, 6)``, ``U_guess (N, 4)`` -> ``(N, 6)``."""
+    N = U_guess.shape[0]
+    inputs = torch.cat([X_guess[:N, :6], U_guess[:, :4]], dim=1)
+    mean = predict_mean(posterior, inputs)        # (N, 6) state residuals
+    dyn = mean / config.dt
+    D = torch.zeros(N, OUTPUT_DIM, dtype=mean.dtype, device=mean.device)
+    D[:, 3:6] = config.residual_gain * dyn[:, 3:6]
+    return D

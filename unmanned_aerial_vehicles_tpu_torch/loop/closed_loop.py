@@ -1,0 +1,475 @@
+"""Closed-loop flights (port of ``loop/closed_loop.py``).
+
+``mpc_flight_rollout`` flies linear MPC @ 50 Hz -> acceleration clip ->
+geometric allocation -> body rates + thrust -> PX4-surrogate plant, in two
+tiers:
+
+* staged: one Python loop step per tick of PyTorch ops on the device
+  (``use_pallas_plant`` sends allocation + plant through kernel K2);
+* multi-tick (``use_fused_tick=True`` with ``ticks_per_dispatch > 1`` or a
+  GP): K whole ticks per launch of kernel K5 with the GP posterior inside
+  the kernel; with ``online_gp=`` the GP learns in flight — each launch's K
+  transitions go into the ring buffer, and every ``refit_every`` ticks a
+  masked Cholesky refit rebuilds the kernel's GP operands.
+
+``pid_flight_rollout`` flies the cascade PID; with ``use_pallas_plant`` its
+plant substeps go through kernel K1.
+
+A loop returns a dict of per-tick tensors on its device. ``reference_fn``
+maps a tensor of times ``(T,)`` to ``(pos (T, 3), yaw (T,))``; the loops
+evaluate it once for the whole flight.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Tuple
+
+import torch
+
+from .._device import full_f32_matmul, resolve_device
+from ..control.allocation import AttitudeLoopState, attitude_loop_init, geometric_control_allocation
+from ..control.cascade_pid import CascadePidGains, cascade_init, cascade_pid_step
+from ..control.mpc_linear import LinearMPC
+from ..gp.residual_gp import ResidualGPConfig
+from ..models.params import RigidBodyParams
+from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
+
+_QUEUED = "queued in ROADMAP.md"
+
+
+@dataclass(frozen=True)
+class FlightLoopConfig:
+    control_dt: float = 0.02      # 50 Hz control loop
+    plant_substeps: int = 2       # plant RK4 at 100 Hz
+    takeoff_height: float = 3.0
+    accel_lower: Tuple[float, float, float] = (-3.5, -3.5, -4.0)
+    accel_upper: Tuple[float, float, float] = (3.5, 3.5, 6.0)
+    yawrate_limit: float = 0.8
+    use_pallas_plant: bool = False
+    use_fused_tick: bool = False
+    fused_tick_loop_precision: str = "highest"
+    ticks_per_dispatch: int = 1
+    fused_tick_ad: bool = False
+    fallback_error_m: float = 0.0
+    fallback_accel_scale: float = 1.5
+    fallback_thrust_ceiling: float = 1.5
+
+
+@dataclass(frozen=True)
+class OnlineFusedGPConfig:
+    """Online (in-flight) GP learning on the multi-tick path: every tick's
+    transition goes into the ring buffer (quality filters included), and
+    every ``refit_every`` ticks the masked refit rebuilds the kernel's GP."""
+
+    gp: ResidualGPConfig = field(default_factory=ResidualGPConfig)
+    refit_every: int = 250
+    min_samples: int = 30
+    standardize_inputs: bool = False
+
+
+def _plant_row(body: RigidBodyParams, rate_loop: RateLoopParams, device):
+    from ..ops.plant_pallas import build_plant_row
+
+    return build_plant_row(
+        body.mass, body.gravity, body.k_drag_linear,
+        (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
+        body.gravity / rate_loop.hover_thrust_norm, body.wind, device=device,
+    )
+
+
+def _plant_substeps(state, control, body, rate_loop, cfg: FlightLoopConfig, plain=False):
+    if cfg.use_pallas_plant:
+        from ..ops.plant_pallas import _px4_plant_rows, px4_plant_step_plain
+
+        step = px4_plant_step_plain if plain else _px4_plant_rows
+        out = step(state.to(torch.float32)[None].contiguous(),
+                   control.to(torch.float32)[None].contiguous(),
+                   _plant_row(body, rate_loop, state.device),
+                   cfg.control_dt, cfg.plant_substeps)
+        return out[0].to(state.dtype)
+    dt_sub = cfg.control_dt / cfg.plant_substeps
+    for _ in range(cfg.plant_substeps):
+        state = px4_rate_tracking_step(state, control, body, rate_loop, dt_sub)
+    return state
+
+
+def _times(num_steps: int, dt: float, dtype, device):
+    return torch.arange(num_steps, device=device).to(dtype) * dt
+
+
+def _references(reference_fn, num_steps, cfg, dtype, device):
+    pos, yaw = reference_fn(_times(num_steps, cfg.control_dt, dtype, device))
+    return pos.to(dtype), yaw.to(dtype)
+
+
+def _stack_outs(rows: list[dict]) -> dict:
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def pid_flight_rollout(
+    reference_fn: Callable,
+    num_steps: int,
+    gains: CascadePidGains | None = None,
+    body: RigidBodyParams = RigidBodyParams(),
+    rate_loop: RateLoopParams = RateLoopParams(),
+    cfg: FlightLoopConfig = FlightLoopConfig(),
+    initial_state: torch.Tensor | None = None,
+    dtype=torch.float32,
+    device=None,
+    plain_kernels: bool = False,
+):
+    """Closed-loop cascade-PID flight; with ``cfg.use_pallas_plant`` the
+    plant substeps run as kernel K1 (``plain_kernels=True`` flies K1's
+    plain version instead, on any device)."""
+    dev = resolve_device(device)
+    if gains is None:
+        gains = CascadePidGains.default(dtype=dtype, device=dev)
+    if initial_state is None:
+        initial_state = torch.zeros(12, dtype=dtype, device=dev)
+        initial_state[2] = cfg.takeoff_height
+    state = initial_state.to(dtype=dtype, device=dev)
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, dev)
+    pid_state = cascade_init(dtype, dev)
+    rows = []
+    for i in range(num_steps):
+        control, pid_state, aux = cascade_pid_step(
+            gains, pid_state, state, pos_refs[i], yaw_refs[i], cfg.control_dt
+        )
+        new_state = _plant_substeps(state, control, body, rate_loop, cfg, plain=plain_kernels)
+        rows.append({
+            "state": state,
+            "pos_ref": pos_refs[i],
+            "vel_ref": aux["velocity_setpoint"],
+            "att_ref": aux["attitude_setpoint"],
+            "thrust": control[0],
+            "rates_cmd": control[1:4],
+        })
+        state = new_state
+    outs = _stack_outs(rows)
+    outs["final_state"] = state
+    return outs
+
+
+def mpc_flight_rollout(
+    mpc: LinearMPC,
+    reference_fn: Callable,
+    num_steps: int,
+    body: RigidBodyParams = RigidBodyParams(),
+    rate_loop: RateLoopParams = RateLoopParams(),
+    cfg: FlightLoopConfig = FlightLoopConfig(),
+    initial_state: torch.Tensor | None = None,
+    residual_fn: Callable | None = None,
+    output_correction_fn: Callable | None = None,
+    preview: bool = False,
+    gp_posterior=None,
+    gp_gain: float = 0.1,
+    gp_dt: float = 0.02,
+    online_gp: OnlineFusedGPConfig | None = None,
+    initial_dataset=None,
+    uncertainty_fn: Callable | None = None,
+    resume=None,
+    return_resume: bool = False,
+    dtype=torch.float32,
+    device=None,
+    plain_kernels: bool = False,
+):
+    """Closed-loop linear-MPC flight (optionally GP-enhanced).
+
+    ``residual_fn(X_guess, U_guess)`` produces the ``(N, 6)`` stage
+    residuals from the MPC's warm-start trajectory (staged path).
+    ``gp_posterior=`` / ``online_gp=`` put the GP inside the multi-tick
+    kernel. ``device`` defaults to ``cuda`` and must match the MPC's.
+    ``plain_kernels=True`` flies the kernels' plain PyTorch versions
+    instead (the reference a kernel flight is held against on the card).
+    Returns a dict of stacked per-tick tensors."""
+    dev = resolve_device(device)
+    if mpc.device != dev:
+        raise ValueError(f"the MPC lives on {mpc.device}, the flight on {dev}")
+    if initial_state is None:
+        initial_state = torch.zeros(12, dtype=dtype, device=dev)
+        initial_state[2] = cfg.takeoff_height
+    initial_state = initial_state.to(device=dev)
+    full_f32_matmul()
+
+    if online_gp is not None and not cfg.use_fused_tick:
+        raise ValueError(
+            "online_gp= is the fused multi-tick online-learning path (use_fused_tick=True)"
+        )
+    if initial_dataset is not None and online_gp is None:
+        raise ValueError("initial_dataset= only makes sense with online_gp=")
+    if resume is not None or return_resume:
+        raise NotImplementedError(f"mid-flight checkpoint/resume is {_QUEUED}")
+    if preview:
+        raise NotImplementedError(f"trajectory preview is {_QUEUED}")
+    if uncertainty_fn is not None or mpc.config.tightening_factor > 0.0:
+        raise NotImplementedError(f"uncertainty tightening (tightening_factor > 0) is {_QUEUED}")
+    if output_correction_fn is not None:
+        raise NotImplementedError(f"the post-solve GP output correction is {_QUEUED}")
+    if cfg.fused_tick_ad:
+        raise NotImplementedError(f"the autodiff wrappers of the fused tiers (K13) are {_QUEUED}")
+    if cfg.use_fused_tick:
+        if online_gp is not None:
+            if gp_posterior is not None or residual_fn is not None:
+                raise ValueError(
+                    "online_gp= builds its posterior in flight from the ring "
+                    "buffer; don't also pass gp_posterior/residual_fn"
+                )
+            return _multitick_rollout(
+                mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+                None, gp_gain, online_gp.gp.dt, online_gp=online_gp,
+                initial_dataset=initial_dataset, plain_kernels=plain_kernels,
+            )
+        if cfg.ticks_per_dispatch > 1 or gp_posterior is not None:
+            if residual_fn is not None and gp_posterior is None:
+                raise ValueError(
+                    "ticks_per_dispatch > 1 computes the GP inside the kernel: "
+                    "pass the raw posterior via gp_posterior= instead of residual_fn"
+                )
+            return _multitick_rollout(
+                mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+                gp_posterior, gp_gain, gp_dt, plain_kernels=plain_kernels,
+            )
+        raise NotImplementedError(
+            "the single-tick fused path (ticks_per_dispatch=1, kernels K4 and "
+            f"K3) is {_QUEUED}; use ticks_per_dispatch > 1"
+        )
+    if gp_posterior is not None:
+        raise ValueError(
+            "gp_posterior is only consumed by the multi-tick kernel path "
+            "(use_fused_tick=True); pass a residual_fn on the staged path"
+        )
+    return _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
+                           initial_state, residual_fn, dtype, plain_kernels)
+
+
+def batched_mpc_flight_sweep(*args, **kwargs):
+    """Throughput mode (B flights in lockstep); needs kernels K8 and K7."""
+    raise NotImplementedError(
+        "batched_mpc_flight_sweep (kernels K8 gpmpc_controller_structured_batched "
+        f"and K7 rbf_posterior_mean_pallas) is {_QUEUED}"
+    )
+
+
+def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
+                    initial_state, residual_fn, dtype, plain_kernels):
+    from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
+
+    dev = initial_state.device
+    kw = dict(dtype=dtype, device=dev)
+    accel_lo = torch.tensor(cfg.accel_lower, **kw)
+    accel_hi = torch.tensor(cfg.accel_upper, **kw)
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, dev)
+    plant_row = _plant_row(body, rate_loop, dev) if cfg.use_pallas_plant else None
+    alloc_plant = allocation_plant_tick_plain if plain_kernels else _allocation_plant_rows
+
+    state = initial_state.to(dtype)
+    mpc_carry = mpc.init_carry(state[0:6])
+    att_carry = attitude_loop_init(dtype, dev)
+    rows = []
+    for i in range(num_steps):
+        pos_ref, yaw_ref = pos_refs[i], yaw_refs[i]
+        residuals = (
+            residual_fn(mpc_carry.X_prev, mpc_carry.U_prev) if residual_fn is not None else None
+        )
+        u_opt, X_opt, mpc_carry = mpc.solve(mpc_carry, state[0:6], pos_ref, residuals)
+
+        accel_des = torch.minimum(torch.maximum(u_opt[0:3], accel_lo), accel_hi)
+        yawrate_des = torch.clamp(u_opt[3], -cfg.yawrate_limit, cfg.yawrate_limit)
+        thrust_ceiling = 1.2
+        if cfg.fallback_error_m > 0.0:
+            # divergence guard: fallback PD hover law with recovery headroom
+            e = pos_ref - state[0:3]
+            diverged = torch.sum(e * e) > cfg.fallback_error_m**2
+            k = cfg.fallback_accel_scale
+            a_fb = torch.minimum(torch.maximum(1.5 * e - 0.8 * state[3:6], k * accel_lo),
+                                 k * accel_hi)
+            accel_des = torch.where(diverged, a_fb, accel_des)
+            yawrate_des = torch.where(diverged, 0.0, yawrate_des)
+            thrust_ceiling = torch.where(diverged, cfg.fallback_thrust_ceiling,
+                                         torch.tensor(1.2, **kw))
+
+        if cfg.use_pallas_plant:
+            # allocation + attitude PID + all plant substeps in one kernel
+            f32 = dict(dtype=torch.float32, device=dev)
+            cmd = torch.cat([
+                accel_des.to(torch.float32), yawrate_des.reshape(1).to(torch.float32),
+                yaw_ref.reshape(1).to(torch.float32),
+                torch.as_tensor(thrust_ceiling, **f32).reshape(1),
+            ])[None]
+            new_state, ctrl, new_int = alloc_plant(
+                state.to(torch.float32)[None].contiguous(), cmd,
+                att_carry.integral.to(torch.float32)[None].contiguous(), plant_row,
+                cfg.control_dt, cfg.plant_substeps,
+            )
+            new_state = new_state[0].to(dtype)
+            att_carry = AttitudeLoopState(integral=new_int[0].to(dtype))
+            control = ctrl[0, 0:4].to(dtype)
+            att_sp = ctrl[0, 4:7].to(dtype)
+            thrust, rate_cmd = control[0], control[1:4]
+        else:
+            thrust, rate_cmd, att_sp, att_carry = geometric_control_allocation(
+                att_carry, accel_des, yaw_ref, yawrate_des, state[6:9], state[9:12],
+                dt_attitude=cfg.control_dt, thrust_ceiling=thrust_ceiling,
+            )
+            control = torch.cat([thrust[None], rate_cmd])
+            new_state = _plant_substeps(state, control, body, rate_loop, cfg)
+
+        rows.append({
+            "state": state,
+            "pos_ref": pos_ref,
+            "vel_ref": X_opt[1, 3:6],
+            "att_ref": att_sp,
+            "thrust": thrust,
+            "rates_cmd": rate_cmd,
+            "accel_cmd": accel_des,
+            "u_mpc": u_opt,
+        })
+        state = new_state
+    outs = _stack_outs(rows)
+    outs["final_state"] = state
+    return outs
+
+
+def _multitick_rollout(
+    mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+    posterior, gp_gain, gp_dt,
+    online_gp: OnlineFusedGPConfig | None = None,
+    initial_dataset=None,
+    plain_kernels: bool = False,
+):
+    """K ticks per launch of kernel K5, GP posterior inside the kernel.
+
+    The host loop never waits on the card except where a refit is due
+    (once per ``refit_every`` ticks it reads the ring buffer's count to
+    decide whether enough samples were captured)."""
+    from ..gp.residual_gp import (
+        add_training_samples_batch,
+        empty_dataset,
+        fit_residual_gp_masked,
+        masked_input_stats,
+        standardized_params,
+    )
+    from ..models.double_integrator import CONTROL_DIM, STATE_DIM
+    from ..ops.tick_pallas import (
+        build_gp_rows,
+        build_tick_data,
+        gpmpc_multitick_fused,
+        multitick_staged,
+    )
+
+    if not mpc.config.use_fused_controller:
+        raise ValueError("use_fused_tick requires LinearMPCConfig.use_fused_controller=True")
+    K = cfg.ticks_per_dispatch
+    if num_steps % K != 0:
+        raise ValueError(f"num_steps={num_steps} not divisible by ticks_per_dispatch={K}")
+    N = mpc.config.horizon
+    dev = initial_state.device
+    f32 = torch.float32
+    data = build_tick_data(mpc._fc_data, N, CONTROL_DIM, STATE_DIM, device=dev)
+    online = online_gp is not None
+    if online and online_gp.refit_every < K:
+        raise ValueError(
+            f"online_gp.refit_every={online_gp.refit_every} must be >= "
+            f"ticks_per_dispatch={K} (refits happen at launch boundaries)"
+        )
+    plant_row = _plant_row(body, rate_loop, dev)
+    tick = multitick_staged if plain_kernels else gpmpc_multitick_fused
+
+    if online:
+        gcfg = online_gp.gp
+        dataset = (
+            initial_dataset if initial_dataset is not None
+            else empty_dataset(gcfg.max_data_points, f32, dev)
+        )
+
+        def fit_scaled(ds):
+            if online_gp.standardize_inputs:
+                shift, std = masked_input_stats(ds)
+                return fit_residual_gp_masked(
+                    ds, gcfg, params=standardized_params(ds, gcfg, std=std), x_shift=shift,
+                )
+            return fit_residual_gp_masked(ds, gcfg)
+
+        # the gain gates the kernel's correction: zero until enough samples
+        gain0 = gp_gain if int(dataset.count) >= online_gp.min_samples else 0.0
+        gp = build_gp_rows(fit_scaled(dataset), gain0,
+                           control_dt=cfg.control_dt, gp_dt=gcfg.dt)
+    else:
+        gp = (
+            build_gp_rows(posterior, gp_gain, control_dt=cfg.control_dt, gp_dt=gp_dt)
+            if posterior is not None else None
+        )
+    statics = dict(
+        k_ticks=K, use_gp=online or posterior is not None,
+        rho=mpc.config.admm_rho,
+        iterations=mpc.config.admm_iterations,
+        over_relax=mpc.config.admm_over_relax,
+        dt=cfg.control_dt, substeps=cfg.plant_substeps,
+        accel_lo=tuple(cfg.accel_lower), accel_hi=tuple(cfg.accel_upper),
+        yawrate_limit=cfg.yawrate_limit,
+        fallback_error_m=cfg.fallback_error_m,
+        fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
+        fallback_accel_scale=cfg.fallback_accel_scale,
+        loop_precision=cfg.fused_tick_loop_precision,
+        n=N, nu=CONTROL_DIM, nx=STATE_DIM,
+    )
+
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, f32, dev)
+    zeros3 = torch.zeros(num_steps, 3, dtype=f32, device=dev)
+    refs_all = torch.cat([pos_refs, zeros3], dim=1).repeat(1, N).contiguous()  # (T, N nx)
+
+    x0 = initial_state.to(f32)
+    m = mpc.n_constraints
+    state = x0.clone()
+    aux = torch.cat([x0[0:6], torch.zeros(3, dtype=f32, device=dev)])  # prev x0; integral 0
+    xtail = x0[0:6].repeat(N).contiguous()
+    z = torch.zeros(m, dtype=f32, device=dev)
+    y = torch.zeros(m, dtype=f32, device=dev)
+
+    packed_chunks, counts = [], []
+    for i in range(num_steps // K):
+        sl = slice(i * K, (i + 1) * K)
+        refs = refs_all[sl]
+        packed, state, aux, xtail, z, y = tick(
+            data, gp, state, aux, xtail, z, y, refs, yaw_refs[sl].contiguous(),
+            plant_row, **statics,
+        )
+        packed_chunks.append(packed)
+        if online:
+            # transitions: state at tick k (pre-plant) -> state at tick k+1
+            # (the next packed row; the last tick's is the carried state);
+            # control = the clipped MPC command the allocation consumed
+            states_next = torch.cat([packed[1:, 0:12], state[None]], dim=0)
+            yr = torch.clamp(packed[:, 28], -cfg.yawrate_limit, cfg.yawrate_limit)
+            if cfg.fallback_error_m > 0.0:
+                # on fallback ticks the kernel applied yawrate 0
+                err2 = torch.sum((refs[:, 0:3] - packed[:, 0:3]) ** 2, dim=1)
+                yr = torch.where(err2 > cfg.fallback_error_m**2, 0.0, yr)
+            controls = torch.cat([packed[:, 22:25], yr[:, None]], dim=1)
+            dataset = add_training_samples_batch(dataset, packed[:, 0:12], controls,
+                                                 states_next, gcfg)
+            counts.append(dataset.count.expand(K))
+            # the retrain timer: test the host-known tick arithmetic first,
+            # read the count only on launches where a refit is due
+            if ((i + 1) * K) % online_gp.refit_every < K and (
+                int(dataset.count) >= online_gp.min_samples
+            ):
+                gp = build_gp_rows(fit_scaled(dataset), gp_gain,
+                                   control_dt=cfg.control_dt, gp_dt=gcfg.dt)
+
+    packed = torch.cat(packed_chunks, dim=0)
+    outs = {
+        "state": packed[:, 0:12],
+        "pos_ref": pos_refs,
+        "vel_ref": packed[:, 29:32],
+        "att_ref": packed[:, 16:19],
+        "thrust": packed[:, 12],
+        "rates_cmd": packed[:, 13:16],
+        "accel_cmd": packed[:, 22:25],
+        "u_mpc": packed[:, 25:29],
+    }
+    if online:
+        outs["gp_count"] = torch.cat(counts)
+    outs["final_state"] = state
+    return outs

@@ -1,0 +1,7 @@
+"""Numerical ops: box-QP ADMM and the hand-written CUDA kernels.
+
+Kernels (CUDA C++ in ``csrc/``, each beside its plain PyTorch version):
+K1 ``plant_pallas.px4_plant_step_fused``, K2
+``plant_pallas.allocation_plant_tick_fused``, K5
+``tick_pallas.gpmpc_multitick_fused``.
+"""

@@ -1,0 +1,153 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each library in ``LIBRARIES`` is one ``csrc/*.cu`` source compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+loaded with ``ctypes``. The build runs at first use into
+``_build/<hash of the sources and flags>/``; every library's ``nvcc``
+starts at once, so the build takes as long as the slowest source.
+
+No ``--use_fast_math``: the approximate ``__sinf``/``__cosf`` would break
+parity with the plain versions.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises if that is not 0. Launch counts live in ``launch_counts``:
+a wrapper adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+
+# library name -> its .cu source (all share the headers in csrc/)
+LIBRARIES = {
+    "plant": "plant_kernels.cu",
+    "tick": "tick_kernel.cu",
+}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+launch_counts: dict[str, int] = {
+    "px4_plant_step_fused": 0,
+    "allocation_plant_tick_fused": 0,
+    "gpmpc_multitick_fused": 0,
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}   # library -> nvcc's output (ptxas register report)
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> Path:
+    """Compile every library that is not built yet, all ``nvcc`` processes
+    at once; raise with the compiler's output if one fails."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, src in LIBRARIES.items():
+        target = out_dir / f"lib{name}.so"
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / src)]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, target,
+        )
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {LIBRARIES[name]} (nvcc exit {proc.returncode}) ---\n{out}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out_dir
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, building every library at first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        out_dir = build_all()
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        _loaded[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(t, name: str, shape: tuple, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` (the kernels take nothing else)."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,426 @@
+"""The multi-tick GP-MPC kernel K5 (port of ``ops/tick_pallas.py``:
+``FusedTickData``, ``build_tick_data``, ``build_shift_matrix``,
+``GPRows``, ``build_gp_rows`` and ``gpmpc_multitick_fused``).
+
+One launch runs K whole control ticks of one flight. Each tick:
+
+    GP horizon posterior mean from the previous solution's features
+    z, y   <- shifted warm start
+    offset = Sx x0 + Sw w,  f = Su'Q (offset - ref),  box bounds
+    ADMM loop (one (m, m) matvec per iteration)
+    U = M^-1(-f + G'(rho z - y)),  X_tail = offset + Su U
+    u0 clips (+ hover fallback) -> allocation + attitude PID -> plant RK4
+
+The kernel is ``csrc/tick_kernel.cu`` (one thread block per flight, the K
+ticks looped inside the block, P1 resident in shared memory). Its plain
+PyTorch version is ``multitick_staged`` below, a port of the JAX package's
+own block-for-block XLA twin (``ops/tick_ad.py:multitick_staged``). The
+wrapper ``gpmpc_multitick_fused`` takes the plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
+
+Shapes are semantic (no 128-lane padding): ``N`` stages, ``Nnu = N nu``,
+``Nnx = N nx``, ``m = Nnu + Nnx``. Carries: ``state (12,)``,
+``aux (9,) = [previous x0 (6), attitude integral (3)]``, ``xtail (Nnx,)``,
+``z, y (m,)``. ``packed (K, 32)`` lanes: state 0:12, control 12:16,
+att_sp 16:19, integral 19:22, accel_cmd 22:25, u_mpc 25:29, vel_ref 29:32.
+
+``loop_precision`` is accepted for the JAX signature; on the card both
+modes compute in float32 with FMAs (the bfloat16 "default" mode was a TPU
+matrix-unit choice).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import _cuda
+from .controller_pallas import FusedControllerData
+from .plant_pallas import PLANT_LANES, _allocation, _read_plant, _rk4_substeps
+
+PACKED_LANES = 32
+AUX_LANES = 9
+KERNEL_THREADS = 256   # csrc/tick_kernel.cu kThreads
+
+
+class FusedTickData(NamedTuple):
+    """Device float32 operands of the multi-tick kernel (row form)."""
+
+    ctrl: FusedControllerData   # host source of the operands below
+    ShiftT: torch.Tensor        # (m, m) warm-start shift: z_new = z @ ShiftT
+    SxSwT: torch.Tensor         # (nx + Nnx, Nnx): offset = [x0, w] @ SxSwT
+    SuTqT: torch.Tensor         # (Nnx, Nnu)
+    PM: torch.Tensor            # (Nnu, m + Nnu) = [P0mat | MinvT]
+    P1: torch.Tensor            # (m, m)
+    P0matT: torch.Tensor        # (m, Nnu)
+    SuT: torch.Tensor           # (Nnu, Nnx)
+    lo_row: torch.Tensor        # (m,) = u_lo_row + x_lo_row (disjoint blocks)
+    hi_row: torch.Tensor        # (m,)
+    Nnu: int
+    Nnx: int
+
+
+def build_shift_matrix(N: int, nu: int, nx: int) -> np.ndarray:
+    """Row-form shift: ``z_new = z_old @ ShiftT`` moves each stage block
+    one stage forward and repeats the last stage (U and X blocks alike)."""
+
+    def block(width):
+        n = N * width
+        S = np.zeros((n, n), np.float32)
+        for i in range((N - 1) * width):
+            S[i, i + width] = 1.0       # new[k] = old[k+1]
+        for i in range((N - 1) * width, n):
+            S[i, i] = 1.0               # new[N-1] = old[N-1]
+        return S.T
+
+    m = N * (nu + nx)
+    out = np.zeros((m, m), np.float32)
+    out[: N * nu, : N * nu] = block(nu)
+    out[N * nu :, N * nu :] = block(nx)
+    return out
+
+
+def build_tick_data(ctrl: FusedControllerData, N: int, nu: int, nx: int,
+                    device=None) -> FusedTickData:
+    """Stack the controller operands into the kernel's layouts on ``device``."""
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    return FusedTickData(
+        ctrl=ctrl,
+        ShiftT=t(build_shift_matrix(N, nu, nx)),
+        SxSwT=t(np.concatenate([ctrl.SxT, ctrl.SwT], axis=0)),
+        SuTqT=t(ctrl.SuTqT),
+        PM=t(np.concatenate([ctrl.P0mat, ctrl.MinvT], axis=1)),
+        P1=t(ctrl.P1),
+        P0matT=t(ctrl.P0matT),
+        SuT=t(ctrl.SuT),
+        lo_row=t(ctrl.u_lo_row + ctrl.x_lo_row),
+        hi_row=t(ctrl.u_hi_row + ctrl.x_hi_row),
+        Nnu=N * nu,
+        Nnx=N * nx,
+    )
+
+
+class GPRows(NamedTuple):
+    """GP-posterior operands of the kernel (rebuilt whenever the posterior
+    changes: once per flight for a frozen GP, at every refit online)."""
+
+    ztrT: torch.Tensor     # (d, P) length-scaled training inputs, transposed
+    sq2: torch.Tensor      # (P,)   per-training-point squared norms
+    alpha_s: torch.Tensor  # (P, 6) alpha * y_std
+    y_mean: torch.Tensor   # (6,)
+    inv_ls: torch.Tensor   # (2, d): row 0 = 1/ls, row 1 = x_shift/ls
+    scal: torch.Tensor     # (3,) = [signal_variance, gain, prior variance]
+
+
+def build_gp_rows(posterior, gain: float, control_dt: float = 0.02, gp_dt: float = 0.02,
+                  with_variance: bool = False) -> GPRows:
+    """Pack a ``gp.exact_gp.GPPosterior`` for the kernel (float32, on the
+    posterior's device). The kernel computes
+    ``w[k, 3:6] = gain (control_dt / gp_dt) posterior_mean[k, 3:6]``."""
+    if with_variance:
+        raise NotImplementedError(
+            "the posterior-variance / tightening branch of K5 is queued in ROADMAP.md"
+        )
+    f32 = torch.float32
+    X = posterior.X_train.to(f32)                     # (P, d)
+    P, d = X.shape
+    ls = posterior.params.length_scale.to(f32).expand(d)
+    Z = X / ls
+    inv_ls = torch.zeros(2, d, dtype=f32, device=X.device)
+    inv_ls[0] = 1.0 / ls
+    if posterior.x_shift is not None:
+        inv_ls[1] = posterior.x_shift.to(f32) / ls
+    sf2 = posterior.params.signal_variance.to(f32)
+    noise = posterior.params.noise_variance.to(f32)
+    g = torch.tensor(gain * (control_dt / gp_dt), dtype=f32, device=X.device)
+    return GPRows(
+        ztrT=Z.T.contiguous(),
+        sq2=torch.sum(Z * Z, dim=1).contiguous(),
+        alpha_s=(posterior.alpha.to(f32) * posterior.y_std.to(f32)[None, :]).contiguous(),
+        y_mean=posterior.y_mean.to(f32).contiguous(),
+        inv_ls=inv_ls,
+        scal=torch.stack([sf2, g, sf2 + noise]),
+    )
+
+
+def _check_statics(n, nu, nx, tighten_kappa):
+    if tighten_kappa > 0.0:
+        raise NotImplementedError(
+            "tighten_kappa > 0 (in-kernel GP variance + box tightening) is "
+            "queued in ROADMAP.md"
+        )
+    if (nu, nx) != (4, 6):
+        raise ValueError(f"the tick kernel is built for nu=4, nx=6 (got {nu}, {nx})")
+    if n < 1:
+        raise ValueError("horizon n must be >= 1")
+
+
+def multitick_staged(
+    data: FusedTickData,
+    gp: GPRows | None,
+    state, aux, xtail, z0, y0, refs, yaw_refs, plant_row,
+    *,
+    k_ticks, use_gp, rho, iterations, over_relax, dt, substeps,
+    accel_lo, accel_hi, yawrate_limit,
+    loop_precision="highest", n=0, nu=4, nx=6, tighten_kappa=0.0,
+    fallback_error_m=0.0, fallback_thrust_ceiling=1.5,
+    fallback_accel_scale=1.5,
+):
+    """Plain version of K5: the same operands and outputs, the same math
+    block for block, in PyTorch tensor ops on any device."""
+    _check_statics(n, nu, nx, tighten_kappa)
+    N = n
+    Nnu, Nnx = N * nu, N * nx
+    m = data.P1.shape[0]
+    plant = _read_plant(plant_row)
+    gravity = plant[1]
+    dev = state.device
+    zeros3 = torch.zeros(N, 3, dtype=torch.float32, device=dev)
+
+    packed_rows = []
+    z_prev, y_prev = z0, y0
+    for t in range(k_ticks):
+        ref = refs[t]
+        yaw_ref = yaw_refs[t]
+        if use_gp:
+            # features from the UNshifted previous solution: stage 0 from
+            # the previous x0, stages 1..N-1 from the previous X_tail,
+            # controls from the previous slack's U-block
+            Xs = torch.cat([aux[None, :nx], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
+            F = torch.cat([Xs, z_prev[:Nnu].reshape(N, nu)], dim=1)
+            Zf = F * gp.inv_ls[0] - gp.inv_ls[1]
+            sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
+            cross = Zf @ gp.ztrT
+            dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * cross, min=0.0)
+            Kst = gp.scal[0] * torch.exp(-0.5 * dists)
+            mean = Kst @ gp.alpha_s + gp.y_mean                    # (N, 6)
+            w = torch.cat([zeros3, gp.scal[1] * mean[:, 3:6]], dim=1).reshape(-1)
+        else:
+            w = torch.zeros(Nnx, dtype=torch.float32, device=dev)
+
+        zy = torch.stack([z_prev, y_prev]) @ data.ShiftT            # exact 0/1 product
+        z, y = zy[0], zy[1]
+
+        offset = torch.cat([state[:nx], w]) @ data.SxSwT
+        f = (offset - ref) @ data.SuTqT
+        off_z = torch.cat([torch.zeros(Nnu, dtype=torch.float32, device=dev), offset])
+        lower = data.lo_row - off_z
+        upper = data.hi_row - off_z
+
+        pm = f @ data.PM
+        p0 = -pm[:m]
+        for _ in range(iterations):
+            GU = p0 + (rho * z - y) @ data.P1
+            Gt = over_relax * GU + (1.0 - over_relax) * z
+            z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+            y = y + rho * (Gt - z_new)
+            z = z_new
+        U = -pm[m:] + (rho * z - y) @ data.P0matT
+        X_tail = offset + U @ data.SuT
+
+        ax = torch.clamp(z[0], accel_lo[0], accel_hi[0])
+        ay = torch.clamp(z[1], accel_lo[1], accel_hi[1])
+        az = torch.clamp(z[2], accel_lo[2], accel_hi[2])
+        yr = torch.clamp(z[3], -yawrate_limit, yawrate_limit)
+        integral = (aux[6], aux[7], aux[8])
+        s = tuple(state[i] for i in range(12))
+        thrust_hi = torch.full((), 1.2, dtype=torch.float32, device=dev)
+        if fallback_error_m > 0.0:
+            # divergence guard: fallback PD hover law + recovery thrust
+            ex, ey, ez = ref[0] - s[0], ref[1] - s[1], ref[2] - s[2]
+            diverged = ex * ex + ey * ey + ez * ez > fallback_error_m**2
+            ks = fallback_accel_scale
+            fb = lambda e, v, lo, hi: torch.clamp(1.5 * e - 0.8 * v, ks * lo, ks * hi)
+            ax = torch.where(diverged, fb(ex, s[3], accel_lo[0], accel_hi[0]), ax)
+            ay = torch.where(diverged, fb(ey, s[4], accel_lo[1], accel_hi[1]), ay)
+            az = torch.where(diverged, fb(ez, s[5], accel_lo[2], accel_hi[2]), az)
+            yr = torch.where(diverged, 0.0, yr)
+            thrust_hi = torch.where(diverged, fallback_thrust_ceiling, thrust_hi)
+        c, att_sp, new_int = _allocation(
+            s, (ax, ay, az, yr, yaw_ref), integral, dt, gravity, thrust_ceiling=thrust_hi,
+        )
+        s_new = _rk4_substeps(s, c, plant, dt, substeps)
+
+        packed_rows.append(torch.stack(
+            s + c + att_sp + new_int + (ax, ay, az)
+            + (z[0], z[1], z[2], z[3]) + (X_tail[3], X_tail[4], X_tail[5])
+        ))
+        state = torch.stack(s_new)
+        aux = torch.stack(s[0:6] + new_int)
+        xtail = X_tail
+        z_prev, y_prev = z, y
+    return torch.stack(packed_rows), state, aux, xtail, z_prev, y_prev
+
+
+class _TickParams(ctypes.Structure):
+    _fields_ = [
+        ("k_ticks", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
+        ("n_train", ctypes.c_int), ("use_gp", ctypes.c_int),
+        ("iterations", ctypes.c_int), ("substeps", ctypes.c_int),
+        ("use_fallback", ctypes.c_int),
+        ("dt", ctypes.c_double),
+        ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float), ("yawrate_limit", ctypes.c_float),
+        ("fallback_error_sq", ctypes.c_float), ("fallback_thrust_ceiling", ctypes.c_float),
+        ("accel_lo", ctypes.c_float * 3), ("accel_hi", ctypes.c_float * 3),
+        ("fallback_lo", ctypes.c_float * 3), ("fallback_hi", ctypes.c_float * 3),
+    ]
+
+
+_OPERAND_NAMES = (
+    "SxSwT", "SuTqT", "PM", "P1", "P0matT", "SuT", "lo_row", "hi_row",
+    "ztrT", "sq2", "alpha_s", "y_mean", "inv_ls", "scal",
+    "state_in", "aux_in", "xtail_in", "z_in", "y_in", "refs", "yaw_refs", "plant_row",
+    "packed", "state_out", "aux_out", "xtail_out", "z_out", "y_out",
+)
+
+
+class _TickOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _OPERAND_NAMES]
+
+
+def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int = KERNEL_THREADS) -> int:
+    """Dynamic shared memory of one K5 block (csrc/tick_kernel.cu layout):
+    P1 plus the per-tick vectors."""
+    m, Nnu, Nnx, d = n * (nu + nx), n * nu, n * nx, nu + nx
+    m4 = (m + 3) // 4 * 4
+    floats = (m * m + 2 * m4 + 7 * m + nx + 5 * Nnx + 3 * Nnu + (threads + m + Nnu)
+              + n * d + n + 3 * threads + 24)
+    return 4 * floats
+
+
+def gpmpc_multitick_fused(
+    data: FusedTickData,
+    gp: GPRows | None,
+    state: torch.Tensor,      # (12,)
+    aux: torch.Tensor,        # (9,) previous x0 (6) + integral (3)
+    xtail: torch.Tensor,      # (Nnx,) previous predicted X_tail
+    z0: torch.Tensor,         # (m,) UNshifted previous slack
+    y0: torch.Tensor,         # (m,) UNshifted previous dual
+    refs: torch.Tensor,       # (K, Nnx) stacked state references per tick
+    yaw_refs: torch.Tensor,   # (K,)
+    plant_row: torch.Tensor,  # (10,)
+    *,
+    k_ticks: int,
+    use_gp: bool,
+    rho: float,
+    iterations: int,
+    over_relax: float,
+    dt: float,
+    substeps: int,
+    accel_lo: tuple,
+    accel_hi: tuple,
+    yawrate_limit: float,
+    loop_precision: str = "highest",
+    n: int = 0,
+    nu: int = 4,
+    nx: int = 6,
+    tighten_kappa: float = 0.0,
+    fallback_error_m: float = 0.0,
+    fallback_thrust_ceiling: float = 1.5,
+    fallback_accel_scale: float = 1.5,
+):
+    """K whole GP-MPC ticks in one launch (K5).
+
+    Returns ``(packed (K, 32), state (12,), aux (9,), xtail (Nnx,),
+    z (m,), y (m,))``. A horizon whose P1 does not fit in one block's
+    shared memory raises ``ValueError``."""
+    _check_statics(n, nu, nx, tighten_kappa)
+    dev = state.device
+    N, K = n, k_ticks
+    Nnx, m = N * nx, N * (nu + nx)
+    req = _cuda.require
+    req(state, "state", (12,), dev)
+    req(aux, "aux", (AUX_LANES,), dev)
+    req(xtail, "xtail", (Nnx,), dev)
+    req(z0, "z0", (m,), dev)
+    req(y0, "y0", (m,), dev)
+    req(refs, "refs", (K, Nnx), dev)
+    req(yaw_refs, "yaw_refs", (K,), dev)
+    req(plant_row, "plant_row", (PLANT_LANES,), dev)
+    req(data.P1, "P1", (m, m), dev)
+    req(data.SxSwT, "SxSwT", (nx + Nnx, Nnx), dev)
+    req(data.SuTqT, "SuTqT", (Nnx, N * nu), dev)
+    req(data.PM, "PM", (N * nu, m + N * nu), dev)
+    req(data.P0matT, "P0matT", (m, N * nu), dev)
+    req(data.SuT, "SuT", (N * nu, Nnx), dev)
+    req(data.lo_row, "lo_row", (m,), dev)
+    req(data.hi_row, "hi_row", (m,), dev)
+    if use_gp:
+        if gp is None:
+            raise ValueError("use_gp=True needs GP rows")
+        P = gp.sq2.shape[0]
+        d = nu + nx
+        req(gp.ztrT, "ztrT", (d, P), dev)
+        req(gp.sq2, "sq2", (P,), dev)
+        req(gp.alpha_s, "alpha_s", (P, 6), dev)
+        req(gp.y_mean, "y_mean", (6,), dev)
+        req(gp.inv_ls, "inv_ls", (2, d), dev)
+        req(gp.scal, "scal", (3,), dev)
+    statics = dict(
+        k_ticks=k_ticks, use_gp=use_gp, rho=rho, iterations=iterations,
+        over_relax=over_relax, dt=dt, substeps=substeps, accel_lo=accel_lo,
+        accel_hi=accel_hi, yawrate_limit=yawrate_limit, loop_precision=loop_precision,
+        n=n, nu=nu, nx=nx, tighten_kappa=tighten_kappa,
+        fallback_error_m=fallback_error_m,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+    )
+    if dev.type == "cpu":
+        return multitick_staged(data, gp, state, aux, xtail, z0, y0, refs, yaw_refs,
+                                plant_row, **statics)
+    if dev.type != "cuda":
+        raise ValueError(f"gpmpc_multitick_fused runs on cuda or cpu, not {dev}")
+
+    smem = shared_memory_bytes(N, nu, nx)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(
+            f"horizon {N}: P1 ({m}x{m}) and the tick vectors need {smem} bytes of "
+            f"shared memory, more than one block's {limit}; streaming P1 from L2 "
+            "for long horizons is queued in ROADMAP.md"
+        )
+    f = lambda v: float(np.float32(v))
+    params = _TickParams(
+        k_ticks=K, n=N, m=m, n_train=(gp.sq2.shape[0] if use_gp else 0),
+        use_gp=int(bool(use_gp)), iterations=int(iterations), substeps=int(substeps),
+        use_fallback=int(fallback_error_m > 0.0), dt=float(dt),
+        rho=f(rho), over_relax=f(over_relax), one_minus_over_relax=f(1.0 - over_relax),
+        yawrate_limit=f(yawrate_limit), fallback_error_sq=f(fallback_error_m**2),
+        fallback_thrust_ceiling=f(fallback_thrust_ceiling),
+        accel_lo=(ctypes.c_float * 3)(*accel_lo), accel_hi=(ctypes.c_float * 3)(*accel_hi),
+        fallback_lo=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_lo)),
+        fallback_hi=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_hi)),
+    )
+    outs = dict(
+        packed=torch.empty(K, PACKED_LANES, dtype=torch.float32, device=dev),
+        state_out=torch.empty(12, dtype=torch.float32, device=dev),
+        aux_out=torch.empty(AUX_LANES, dtype=torch.float32, device=dev),
+        xtail_out=torch.empty(Nnx, dtype=torch.float32, device=dev),
+        z_out=torch.empty(m, dtype=torch.float32, device=dev),
+        y_out=torch.empty(m, dtype=torch.float32, device=dev),
+    )
+    tensors = dict(
+        SxSwT=data.SxSwT, SuTqT=data.SuTqT, PM=data.PM, P1=data.P1, P0matT=data.P0matT,
+        SuT=data.SuT, lo_row=data.lo_row, hi_row=data.hi_row,
+        state_in=state, aux_in=aux, xtail_in=xtail, z_in=z0, y_in=y0, refs=refs,
+        yaw_refs=yaw_refs, plant_row=plant_row, **outs,
+    )
+    if use_gp:
+        tensors.update(ztrT=gp.ztrT, sq2=gp.sq2, alpha_s=gp.alpha_s, y_mean=gp.y_mean,
+                       inv_ls=gp.inv_ls, scal=gp.scal)
+    ops = _TickOperands(**{k: v.data_ptr() for k, v in tensors.items()})
+    fn = _cuda.library("tick").gpmpc_multitick_launch
+    fn.argtypes = [ctypes.POINTER(_TickParams), ctypes.POINTER(_TickOperands),
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(params), ctypes.byref(ops), smem, _cuda.stream_of(state))
+    _cuda.check(status, "gpmpc_multitick_fused")
+    _cuda.count_launch("gpmpc_multitick_fused")
+    return (outs["packed"], outs["state_out"], outs["aux_out"], outs["xtail_out"],
+            outs["z_out"], outs["y_out"])
