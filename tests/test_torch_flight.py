@@ -36,7 +36,6 @@ from unmanned_aerial_vehicles_tpu_torch.loop import (
     OnlineFusedGPConfig,
     mpc_flight_rollout,
 )
-from unmanned_aerial_vehicles_tpu_torch.loop.closed_loop import batched_mpc_flight_sweep
 from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
 from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
 
@@ -123,6 +122,9 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.loop.closed_loop\n"
         "import unmanned_aerial_vehicles_tpu_torch.convert\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.tick_pallas\n"
+        "import unmanned_aerial_vehicles_tpu_torch.ops.controller_pallas\n"
+        "import unmanned_aerial_vehicles_tpu_torch.ops.rbf_pallas\n"
+        "import unmanned_aerial_vehicles_tpu_torch.parallel.sweep\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"
@@ -160,7 +162,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         mpc_flight_rollout(tm, t_ref, 4)
 
 
-@pytest.mark.parametrize("path", ["single_tick_fused", "tightening", "resume", "batched_sweep"])
+@pytest.mark.parametrize("path", ["single_tick_fused", "tightening", "resume",
+                                  "fused_controller_solve"])
 def test_queued_paths_raise_and_point_at_the_roadmap(path):
     cfg = dict(horizon=HORIZON, use_fused_controller=True)
     kw = dict(cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=1), device="cpu")
@@ -171,7 +174,7 @@ def test_queued_paths_raise_and_point_at_the_roadmap(path):
         kw["return_resume"] = True
     tm = LinearMPC(LinearMPCConfig(**cfg), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "batched_sweep":
-            batched_mpc_flight_sweep(tm, t_ref, K, torch.zeros(2, 12))
+        if path == "fused_controller_solve":
+            tm.solve(tm.init_carry(), torch.zeros(6), torch.zeros(3))
         else:
             mpc_flight_rollout(tm, t_ref, K, **kw)

@@ -17,7 +17,7 @@ import torch
 from ._device import resolve_device
 from .gp.exact_gp import GPParams, GPPosterior
 from .gp.residual_gp import ResidualDataset
-from .ops.controller_pallas import FusedControllerData
+from .ops.controller_pallas import FusedControllerData, StructuredBatchData
 from .ops.tick_pallas import FusedTickData, GPRows, build_tick_data
 
 
@@ -135,3 +135,36 @@ def multitick_carry_from_numpy(state_row, aux_row, xtail_row, z_row, y_row, hori
         f(np.asarray(z_row)[0, :m]),
         f(np.asarray(y_row)[0, :m]),
     )
+
+
+def structured_batch_data_from_numpy(padded: Mapping, horizon: int, nu: int = 4, nx: int = 6,
+                                     device=None) -> StructuredBatchData:
+    """``StructuredBatchData`` on ``device`` from the JAX package's padded
+    one (a mapping such as ``jax_sdata._asdict()``), cut to semantic
+    shapes."""
+    dev = resolve_device(device)
+    N = horizon
+    Nnu, Nnx = N * nu, N * nx
+    f = lambda a, rows, cols: _t(np.asarray(a)[:rows, :cols], torch.float32, dev).contiguous()
+    v = lambda a, n: _t(np.asarray(a)[0, :n], torch.float32, dev).contiguous()
+    return StructuredBatchData(
+        SxT=f(padded["SxT"], nx, Nnx),
+        SwT=f(padded["SwT"], Nnx, Nnx),
+        SuTqT=f(padded["SuTqT"], Nnx, Nnu),
+        SuT=f(padded["SuT"], Nnu, Nnx),
+        SuRow=f(padded["SuRow"], Nnx, Nnu),
+        MinvT=f(padded["MinvT"], Nnu, Nnu),
+        u_lo=v(padded["u_lo"], Nnu), u_hi=v(padded["u_hi"], Nnu),
+        x_lo=v(padded["x_lo"], Nnx), x_hi=v(padded["x_hi"], Nnx),
+        horizon=N, nu=nu, nx=nx,
+    )
+
+
+def split_planes_from_numpy(ZU, ZX, YU, YX, horizon: int, nu: int = 4, nx: int = 6,
+                            device=None):
+    """K8's ``(ZU (B, Nnu), ZX (B, Nnx), YU (B, Nnu), YX (B, Nnx))`` from
+    the JAX package's ``(B, n_pad)`` iterate planes."""
+    dev = resolve_device(device)
+    f = lambda a, n: _t(np.asarray(a)[:, :n], torch.float32, dev).contiguous()
+    Nnu, Nnx = horizon * nu, horizon * nx
+    return f(ZU, Nnu), f(ZX, Nnx), f(YU, Nnu), f(YX, Nnx)

@@ -6,6 +6,7 @@ from .residual_gp import (
     ResidualGPConfig,
     add_training_samples_batch,
     build_horizon_residuals,
+    build_horizon_residuals_batched_fused,
     default_params,
     empty_dataset,
     fit_residual_gp,
@@ -17,6 +18,7 @@ from .residual_gp import (
 __all__ = [
     "GPParams", "GPPosterior", "fit_gp", "predict_mean", "ResidualDataset",
     "ResidualGPConfig", "add_training_samples_batch", "build_horizon_residuals",
+    "build_horizon_residuals_batched_fused",
     "default_params", "empty_dataset", "fit_residual_gp", "fit_residual_gp_masked",
     "masked_input_stats", "standardized_params",
 ]

@@ -229,11 +229,44 @@ def build_horizon_residuals(
     one batched posterior over the horizon, state residual / dt on the
     acceleration rows, scaled by ``residual_gain``.
 
-    ``X_guess (N+1, 6)``, ``U_guess (N, 4)`` -> ``(N, 6)``."""
+    ``X_guess (N+1, 6)``, ``U_guess (N, 4)`` -> ``(N, 6)``. Free of
+    in-place writes, so ``torch.func.vmap`` maps it over flights."""
     N = U_guess.shape[0]
     inputs = torch.cat([X_guess[:N, :6], U_guess[:, :4]], dim=1)
     mean = predict_mean(posterior, inputs)        # (N, 6) state residuals
-    dyn = mean / config.dt
-    D = torch.zeros(N, OUTPUT_DIM, dtype=mean.dtype, device=mean.device)
-    D[:, 3:6] = config.residual_gain * dyn[:, 3:6]
-    return D
+    return _acceleration_rows(mean, config)
+
+
+def _acceleration_rows(mean: torch.Tensor, config: ResidualGPConfig) -> torch.Tensor:
+    """State residuals ``(..., 6)`` -> dynamics residuals: ``/ dt`` on the
+    acceleration rows, scaled by ``residual_gain``, zeros on the position
+    rows (the reference's conversion, ``mpc.py:1490-1506``)."""
+    acc = config.residual_gain * (mean[..., 3:6] / config.dt)
+    return torch.cat([torch.zeros_like(acc), acc], dim=-1)
+
+
+def build_horizon_residuals_batched_fused(
+    posterior,
+    X_guess: torch.Tensor,
+    U_guess: torch.Tensor,
+    config: ResidualGPConfig = ResidualGPConfig(),
+    precision: str = "high",
+    plain_kernels: bool = False,
+) -> torch.Tensor:
+    """Flight-batched ``build_horizon_residuals`` through the fused
+    posterior-mean kernel K7 (``ops.rbf_pallas.rbf_posterior_mean_pallas``),
+    whose ``(B N, n_train)`` cross-kernel matrix is never written out.
+    ``posterior`` is a ``GPPosterior`` or its ``PosteriorMeanOperands``;
+    ``precision`` is accepted for the JAX signature (K7 computes in float32
+    for every tier). ``plain_kernels=True`` runs K7's plain version on any
+    device.
+
+    ``X_guess (B, N+1, 6)``, ``U_guess (B, N, 4)`` -> ``(B, N, 6)`` float32."""
+    from ..ops.rbf_pallas import rbf_posterior_mean_pallas, rbf_posterior_mean_plain
+
+    B, N = U_guess.shape[0], U_guess.shape[1]
+    inputs = torch.cat([X_guess[:, :N, :6], U_guess[:, :, :4]], dim=2)
+    inputs = inputs.to(torch.float32).reshape(B * N, INPUT_DIM).contiguous()
+    mean_fn = rbf_posterior_mean_plain if plain_kernels else rbf_posterior_mean_pallas
+    mean = mean_fn(posterior, inputs, precision).reshape(B, N, OUTPUT_DIM)
+    return _acceleration_rows(mean, config)

@@ -3,8 +3,12 @@
 from .closed_loop import (
     FlightLoopConfig,
     OnlineFusedGPConfig,
+    batched_mpc_flight_sweep,
     mpc_flight_rollout,
     pid_flight_rollout,
 )
 
-__all__ = ["FlightLoopConfig", "OnlineFusedGPConfig", "mpc_flight_rollout", "pid_flight_rollout"]
+__all__ = [
+    "FlightLoopConfig", "OnlineFusedGPConfig", "batched_mpc_flight_sweep", "mpc_flight_rollout",
+    "pid_flight_rollout",
+]

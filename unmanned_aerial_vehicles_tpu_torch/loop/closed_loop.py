@@ -15,6 +15,10 @@ tiers:
 ``pid_flight_rollout`` flies the cascade PID; with ``use_pallas_plant`` its
 plant substeps go through kernel K1.
 
+``batched_mpc_flight_sweep`` is the throughput mode: B flights in lockstep,
+one launch each of K8 (controller), K7 (GP posterior mean) and K2
+(allocation + plant) per tick for the whole batch.
+
 A loop returns a dict of per-tick tensors on its device. ``reference_fn``
 maps a tensor of times ``(T,)`` to ``(pos (T, 3), yaw (T,))``; the loops
 evaluate it once for the whole flight.
@@ -243,12 +247,146 @@ def mpc_flight_rollout(
                            initial_state, residual_fn, dtype, plain_kernels)
 
 
-def batched_mpc_flight_sweep(*args, **kwargs):
-    """Throughput mode (B flights in lockstep); needs kernels K8 and K7."""
-    raise NotImplementedError(
-        "batched_mpc_flight_sweep (kernels K8 gpmpc_controller_structured_batched "
-        f"and K7 rbf_posterior_mean_pallas) is {_QUEUED}"
+def batched_mpc_flight_sweep(
+    mpc: LinearMPC,
+    reference_fn: Callable,
+    num_steps: int,
+    initial_states: torch.Tensor,          # (B, 12)
+    body: RigidBodyParams = RigidBodyParams(),
+    rate_loop: RateLoopParams = RateLoopParams(),
+    cfg: FlightLoopConfig = FlightLoopConfig(),
+    residual_fn: Callable | None = None,
+    gp_every: int = 1,
+    gp_posterior=None,
+    gp_cfg: ResidualGPConfig | None = None,
+    gp_fused_precision: str = "high",
+    device=None,
+    plain_kernels: bool = False,
+):
+    """Throughput mode: B GP-MPC flights advance in lockstep.
+
+    Each tick is one launch of the structured batched controller K8
+    (``ops.controller_pallas.gpmpc_controller_structured_batched``) and one
+    launch of K2 for allocation, attitude PID and plant of all B flights
+    (``ops.plant_pallas``). Requires ``mpc`` built with
+    ``use_fused_controller=True``; any B works (no padding).
+
+    ``residual_fn(X_guess, U_guess)`` (one flight's ``(N, 6)`` residuals,
+    e.g. ``gp.build_horizon_residuals``) is mapped over the flights with
+    ``torch.func.vmap``. ``gp_posterior`` instead sends the GP through the
+    fused posterior-mean kernel K7 (``gp.residual_gp.
+    build_horizon_residuals_batched_fused``, configured by ``gp_cfg``); the
+    two are mutually exclusive. ``gp_fused_precision`` is accepted for the
+    JAX signature: K7 computes in float32 for every tier. ``gp_every``: the
+    GP runs on every ``gp_every``-th tick and its disturbances are held in
+    between. A flight farther than ``cfg.fallback_error_m`` from its
+    reference flies the hover fallback law that tick.
+
+    ``device`` defaults to ``cuda`` and must match the MPC's.
+    ``plain_kernels=True`` flies the plain versions of K8, K7 and K2 on any
+    device (the reference a kernel sweep is held against on the card).
+
+    Returns ``{"state": (T, B, 12), "pos_ref": (T, 3), "thrust": (T, B)}``;
+    ``state`` is the state at the start of each tick."""
+    from ..gp.residual_gp import build_horizon_residuals_batched_fused
+    from ..models.double_integrator import CONTROL_DIM, STATE_DIM
+    from ..ops.controller_pallas import (
+        build_structured_batch_data,
+        gpmpc_controller_structured_batched,
+        gpmpc_controller_structured_batched_plain,
     )
+    from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
+    from ..ops.rbf_pallas import posterior_mean_operands
+
+    dev = resolve_device(device)
+    if mpc.device != dev:
+        raise ValueError(f"the MPC lives on {mpc.device}, the sweep on {dev}")
+    if not mpc.config.use_fused_controller:
+        raise ValueError("batched_mpc_flight_sweep requires "
+                         "LinearMPCConfig.use_fused_controller=True")
+    if gp_posterior is not None and residual_fn is not None:
+        raise ValueError("pass gp_posterior OR residual_fn, not both")
+    if gp_every < 1:
+        raise ValueError(f"gp_every must be >= 1, got {gp_every}")
+    full_f32_matmul()
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = initial_states.to(**f32).contiguous()
+    B = states.shape[0]
+    N, nu, nx = mpc.config.horizon, CONTROL_DIM, STATE_DIM
+    Nnu, Nnx = N * nu, N * nx
+    sdata = build_structured_batch_data(mpc._fc_data, N, nu, nx, mpc._u_lo, mpc._u_hi,
+                                        mpc._x_lo, mpc._x_hi, device=dev)
+    controller = (gpmpc_controller_structured_batched_plain if plain_kernels
+                  else gpmpc_controller_structured_batched)
+    alloc_plant = allocation_plant_tick_plain if plain_kernels else _allocation_plant_rows
+    plant_row = _plant_row(body, rate_loop, dev)
+    gp_ops = posterior_mean_operands(gp_posterior) if gp_posterior is not None else None
+    gp_cfg = gp_cfg if gp_cfg is not None else ResidualGPConfig()
+
+    accel_lo = torch.tensor(cfg.accel_lower, **f32)
+    accel_hi = torch.tensor(cfg.accel_upper, **f32)
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, torch.float32, dev)
+    refs_all = torch.cat([pos_refs, torch.zeros(num_steps, 3, **f32)], dim=1).repeat(1, N)
+
+    ZU = torch.zeros(B, Nnu, **f32)
+    YU = torch.zeros(B, Nnu, **f32)
+    ZX = torch.zeros(B, Nnx, **f32)
+    YX = torch.zeros(B, Nnx, **f32)
+    X_prev = states[:, None, 0:6].repeat(1, N + 1, 1)
+    U_prev = torch.zeros(B, N, nu, **f32)
+    att_int = torch.zeros(B, 3, **f32)
+    W = torch.zeros(1, Nnx, **f32)     # one zero row, broadcast to every flight
+    ceiling = torch.full((B,), 1.2, **f32)
+
+    state_rows, thrust_rows = [], []
+    for i in range(num_steps):
+        if (residual_fn is not None or gp_ops is not None) and i % gp_every == 0:
+            # the tick index is known on the host: held ticks skip the GP
+            if gp_ops is not None:
+                residuals = build_horizon_residuals_batched_fused(
+                    gp_ops, X_prev, U_prev, gp_cfg, precision=gp_fused_precision,
+                    plain_kernels=plain_kernels,
+                )
+            else:
+                residuals = torch.func.vmap(residual_fn)(X_prev, U_prev)
+            W = (cfg.control_dt * residuals).to(torch.float32).reshape(B, Nnx).contiguous()
+
+        ref = refs_all[i : i + 1]
+        ZU, ZX, YU, YX, _, X_tail = controller(
+            sdata, states[:, 0:6].contiguous(), W, ref, ZU, ZX, YU, YX,
+            mpc.config.admm_rho, mpc.config.admm_iterations, mpc.config.admm_over_relax,
+        )
+        U_blk = ZU.reshape(B, N, nu)
+        accel_des = torch.minimum(torch.maximum(U_blk[:, 0, 0:3], accel_lo), accel_hi)
+        yawrate_des = torch.clamp(U_blk[:, 0, 3], -cfg.yawrate_limit, cfg.yawrate_limit)
+        thrust_ceiling = ceiling
+        if cfg.fallback_error_m > 0.0:
+            # divergence guard per flight: fallback PD hover law with
+            # recovery headroom
+            e = pos_refs[i][None, :] - states[:, 0:3]
+            diverged = torch.sum(e * e, dim=1) > cfg.fallback_error_m**2
+            k = cfg.fallback_accel_scale
+            a_fb = torch.minimum(torch.maximum(1.5 * e - 0.8 * states[:, 3:6], k * accel_lo),
+                                 k * accel_hi)
+            accel_des = torch.where(diverged[:, None], a_fb, accel_des)
+            yawrate_des = torch.where(diverged, 0.0, yawrate_des)
+            thrust_ceiling = torch.where(diverged, cfg.fallback_thrust_ceiling, ceiling)
+
+        cmd = torch.cat([accel_des, yawrate_des[:, None], yaw_refs[i].expand(B, 1),
+                         thrust_ceiling[:, None]], dim=1)
+        new_states, ctrl, att_int = alloc_plant(states, cmd, att_int, plant_row,
+                                                cfg.control_dt, cfg.plant_substeps)
+        X_prev = torch.cat([states[:, None, 0:6], X_tail.reshape(B, N, nx)], dim=1)
+        U_prev = U_blk
+        state_rows.append(states)
+        thrust_rows.append(ctrl[:, 0])
+        states = new_states
+    return {
+        "state": torch.stack(state_rows),
+        "pos_ref": pos_refs,
+        "thrust": torch.stack(thrust_rows),
+    }
 
 
 def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,

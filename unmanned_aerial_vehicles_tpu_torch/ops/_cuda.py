@@ -32,6 +32,8 @@ BUILD_ROOT = _PKG / "_build"
 LIBRARIES = {
     "plant": "plant_kernels.cu",
     "tick": "tick_kernel.cu",
+    "controller": "controller_kernels.cu",
+    "rbf": "rbf_kernels.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +45,8 @@ launch_counts: dict[str, int] = {
     "px4_plant_step_fused": 0,
     "allocation_plant_tick_fused": 0,
     "gpmpc_multitick_fused": 0,
+    "gpmpc_controller_structured_batched": 0,
+    "rbf_posterior_mean_pallas": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
