@@ -14,12 +14,17 @@ Phases (any failure exits non-zero; nothing is caught):
    10 ADMM iterations, GP fitted on the seeded synthetic set) on the packed
    lanes and every carry (tolerance 1e-4), K8 at the sweep's width
    (B=1024, N=20, 10 ADMM iterations, random planes; tolerance 1e-4 on all
-   six outputs) and K7 at the sweep's width (20480 queries against the
-   800-point GP; tolerance 1e-5); time each kernel and its plain version
-   alone: device time from CUDA events around a replayed CUDA graph of
-   many calls, and time with the host's overhead, eagerly; time K5 also
-   without its GP section and without its ADMM iterations, and K2 also at
-   the sweep's batch of 1024;
+   six outputs), K7 at the sweep's width (20480 queries against the
+   800-point GP; tolerance 1e-5), K4 and K3 at N=20 (P1 in shared memory)
+   and N=25 (P1 read through L2), K4 also with a separate controller
+   state, a tightening row and the hover fallback, and K6 at N=20 and
+   N=25 (tolerance 1e-4 on every output), and ``LinearMPC.solve`` through
+   K3 and K6 at both horizons in float32 and float64 against the same
+   solves through the plain versions (1e-4); time each kernel and its plain
+   version alone: device time from CUDA events around a replayed CUDA
+   graph of many calls, and time with the host's overhead, eagerly; time
+   K5 also without its GP section and without its ADMM iterations, K2 also
+   at the sweep's batch of 1024, and K4, K3, K6 also at N=25;
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -27,14 +32,20 @@ Phases (any failure exits non-zero; nothing is caught):
    plant (K2, 100 launches), a cascade-PID flight with the fused plant (K1,
    100 launches), and the throughput sweep (1024 figure-8 flights, N=20,
    P=800, 100 ticks: K8, K7 and K2 100 launches each; again with
-   ``gp_every=5``: K7 20 launches); each is held against the same flight
-   through the plain versions on the card;
-4. time microseconds per online tick as the slope between two flight
-   lengths, for the kernel path and the plain path, and microseconds per
-   flight-tick of the 1024-flight sweep as the slope between 200 and 700
-   ticks (``gp_posterior`` with ``gp_every`` 1 and 5, and ``residual_fn``),
-   and the device's busy time per sweep tick by kernel from a
-   ``torch.profiler`` window of 50 ticks;
+   ``gp_every=5``: K7 20 launches), the single-tick figure-8 with the
+   800-point GP as ``residual_fn`` (N=20, 500 ticks: K4 500 launches;
+   again with preview: 500), the frozen-GP multi-tick flight with preview
+   (K=8, 400 ticks: K5 50 launches), and 100-tick staged flights with a
+   ``use_fused_controller`` MPC (K3, 100 launches) and a ``use_fused_admm``
+   MPC (K6, 100 launches); each is held against the same flight through
+   the plain versions on the card;
+4. time microseconds per online tick and per single-tick tick as the
+   slope between two flight lengths, for the kernel path and the plain
+   path (the single-tick tick also without its GP), and microseconds per
+   flight-tick of the 1024-flight sweep as the
+   slope between 200 and 700 ticks (``gp_posterior`` with ``gp_every`` 1
+   and 5, and ``residual_fn``), and the device's busy time per sweep tick
+   by kernel from a ``torch.profiler`` window of 50 ticks;
 5. print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +84,11 @@ T_SWEEP_SLOPE = (200, 700)    # bench.py:301
 K8_TOL = 1e-4
 K7_TOL = 1e-5
 SWEEP_GAP_BOUND_M = 1e-3      # kernel vs plain sweep, max over all flights
+
+SINGLE_TOL = 1e-4             # K4, K3, K6 against their plain versions
+SINGLE_GAP_BOUND_M = 1e-3     # kernel vs plain flight: single-tick, preview, K3/K6 staged
+LONG_HORIZON = 25             # the package default: P1 read through L2
+K5_PREVIEW_K, K5_PREVIEW_T = 8, 400   # bench.py's frozen-GP preview flight
 
 
 def fail(msg: str) -> None:
@@ -158,6 +174,21 @@ def ops_structured_controller(N: int, iterations: int, nx: int = 6) -> int:
     return setup + iterations * iteration + final
 
 
+def ops_admm(m: int, n: int, iterations: int) -> int:
+    """FP32 operations of K6 (csrc/single_tick_kernels.cu): per iteration
+    and column the m-term dot and ~12 for the relaxation, clip and dual
+    update; then the primal recovery."""
+    return iterations * (2 * m * m + 12 * m) + 2 * n * m + n
+
+
+def ops_controller(N: int, iterations: int) -> int:
+    """FP32 operations of K3: offset, gradient, bounds, p0 and M^-1 f, the
+    ADMM loop, U and X_tail."""
+    Nnu, Nnx, m = 4 * N, 6 * N, 10 * N
+    return (2 * (6 + Nnx) * Nnx + Nnx + 2 * Nnx * Nnu + 3 * m + 2 * Nnu * (m + Nnu)
+            + ops_admm(m, 0, iterations) + 2 * m * Nnu + Nnu + 2 * Nnu * Nnx + Nnx)
+
+
 def ops_posterior_mean(m: int, P: int, d: int = 10, out: int = 6) -> int:
     """FP32 operations of K7 (csrc/rbf_kernels.cu): per (query, training
     point) pair the d-term dot, the distance (4), the scale and expf (2) and
@@ -195,6 +226,7 @@ def main() -> int:
     from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
     from unmanned_aerial_vehicles_tpu_torch.ops import (
         _cuda,
+        admm_pallas,
         controller_pallas,
         plant_pallas,
         rbf_pallas,
@@ -299,7 +331,7 @@ def main() -> int:
     # K5: one launch at full width from a GP fitted on the seeded synthetic set
     mpc = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
                                     use_fused_controller=True), device=dev)
-    data = tick_pallas.build_tick_data(mpc._fc_data, HORIZON, 4, 6, device=dev)
+    data = mpc._tick_data
     rng = np.random.default_rng(0)
     Xs = rng.normal(size=(GP_POINTS, 10))
     Ys = 0.05 * rng.normal(size=(GP_POINTS, 6))
@@ -420,6 +452,137 @@ def main() -> int:
     if not k7_err <= K7_TOL:
         fail(f"K7 disagrees with its plain version: {k7_err}")
 
+    # K4, K3 and K6 at N=20 (P1 in shared memory) and N=25 (P1 through L2)
+    tick_statics = dict(rho=8.0, iterations=ADMM_ITERS, over_relax=1.6, dt=0.02, substeps=2,
+                        accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                        yawrate_limit=0.8)
+
+    def single_tick_cases(N):
+        """K4's, K3's and K6's inputs at horizon N from seeded random draws
+        around a hovering flight near the figure-8."""
+        tm = mpc if N == HORIZON else LinearMPC(LinearMPCConfig(
+            horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True), device=dev)
+        am = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                       use_fused_admm=True), device=dev)
+        m, Nnu, Nnx = 10 * N, 4 * N, 6 * N
+        state = x0.clone()
+        w = torch.cat([torch.zeros(N, 3), 0.02 * torch.randn(N, 3, generator=gen)], 1)
+        ref = torch.cat([pos[:1], torch.zeros(1, 3, **f32)], 1).repeat(1, N).reshape(-1)
+        misc = torch.tensor([0.1, 0.02, -0.01, 0.03], **f32)
+        z, y = rnd(m, scale=0.3), rnd(m, scale=0.1)
+        k4 = (tm._tick_data, state, w.reshape(-1).to(**f32), ref.contiguous(), misc, z, y, prow)
+        k3 = (tm._tick_data, state[:6].contiguous(), *k4[2:4], z, y, 8.0, ADMM_ITERS, 1.6)
+        f = torch.randn(Nnu, generator=gen).to(**f32)
+        off = rnd(Nnx, scale=0.3)
+        k6 = (am._P1_f32, (-(am._GMinv @ f)).contiguous(), am._GMinvT_f32,
+              (am._M_inv @ f).contiguous(),
+              torch.cat([am._u_lo, am._x_lo - off]), torch.cat([am._u_hi, am._x_hi - off]),
+              z, y, 8.0, ADMM_ITERS, 1.6)
+        # K4 with the controller reading an estimate, tightened boxes and
+        # the hover fallback engaged (0.5 m from its reference)
+        tight = torch.zeros(m, **f32)
+        tight[Nnu:] = 0.2 * torch.rand(Nnx, generator=gen).to(dev)
+        cover = dict(ctrl_state=(state + rnd(12, scale=0.05)).contiguous(), tight=tight,
+                     fallback_error_m=0.3)
+        return k4, k3, k6, cover
+
+    def max_err(got, want):
+        for g in got:
+            if not torch.isfinite(g).all():
+                fail("a single-tick kernel produced non-finite values")
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    single = {}
+    for N in (HORIZON, LONG_HORIZON):
+        k4_args, k3_args, k6_args, cover = single_tick_cases(N)
+        kw = dict(tick_statics, n=N)
+        # the stacked device operands K3 and K4 read (FusedTickData: SxSwT
+        # through hi_row; ShiftT is a gather in the kernel)
+        tick_data = list(k4_args[0][2:10])
+        operands = lambda args: [a for a in args if torch.is_tensor(a)]
+        ops_k3 = ops_controller(N, ADMM_ITERS)
+        runs = {
+            "gpmpc_tick_fused": (
+                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused(*a, **kw),
+                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused_plain(*a, **kw),
+                operands(k4_args) + tick_data, ops_k3 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP),
+            "gpmpc_controller_fused": (
+                lambda a=k3_args: controller_pallas.gpmpc_controller_fused(*a),
+                lambda a=k3_args: controller_pallas.gpmpc_controller_fused_plain(*a),
+                operands(k3_args) + tick_data, ops_k3),
+            "admm_box_qp_fused_composite": (
+                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite(*a),
+                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite_plain(*a),
+                operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS)),
+        }
+        for name, (fn, plain, tensors, n_ops) in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = max_err(got, plain())
+            if name == "gpmpc_tick_fused":
+                kw_cover = dict(kw, **cover)
+                got = tick_pallas.gpmpc_tick_fused(*k4_args, **kw_cover)
+                torch.cuda.synchronize()
+                want = tick_pallas.gpmpc_tick_fused_plain(*k4_args, **kw_cover)
+                lo, hi = (torch.tensor(v, **f32) for v in (tick_statics["accel_lo"],
+                                                           tick_statics["accel_hi"]))
+                mpc_cmd = torch.minimum(torch.maximum(want[1][0:3], lo), hi)
+                if not float((want[0][22:25] - mpc_cmd).abs().max()) > 1e-3:
+                    fail("K4's coverage case did not engage the hover fallback")
+                err = max(err, max_err(got, want))
+            rec = dict(err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+                       host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
+                       bound=bound_ms(nbytes(*tensors) + nbytes(*got), n_ops))
+            single[(name, N)] = rec
+            variant = "P1 in shared memory" if N <= 23 else "P1 through L2"
+            print(f"{name} (N={N}, {variant}): max_abs_err {err:.3e}; device "
+                  f"{rec['ms'] * 1e3:.2f} us per launch, plain {rec['plain_ms'] * 1e3:.2f} us; "
+                  f"with host overhead {rec['host_ms'] * 1e3:.2f} us; bound "
+                  f"{rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
+            if not err <= SINGLE_TOL:
+                fail(f"{name} at N={N} disagrees with its plain version: {err}")
+    for name in ("gpmpc_tick_fused", "gpmpc_controller_fused", "admm_box_qp_fused_composite"):
+        kernels[name] = dict(single[(name, HORIZON)],
+                             err=max(single[(name, HORIZON)]["err"],
+                                     single[(name, LONG_HORIZON)]["err"]))
+    print(f"shared memory per block: K3/K4 "
+          f"{controller_pallas.controller_shared_memory_bytes(HORIZON)} B at N={HORIZON}, "
+          f"{controller_pallas.controller_shared_memory_bytes(LONG_HORIZON, False)} B at "
+          f"N={LONG_HORIZON}; K6 {admm_pallas.shared_memory_bytes(10 * HORIZON)} B and "
+          f"{admm_pallas.shared_memory_bytes(10 * LONG_HORIZON, False)} B")
+
+    # LinearMPC.solve through K3 and K6 at N=20 and N=25 in float32 and
+    # float64 (the kernels compute in float32, the solve casts back): three
+    # warm-started ticks, each solved again from the same carry through the
+    # plain versions
+    solve_errs = {}
+    for N in (HORIZON, LONG_HORIZON):
+        for dtype in (torch.float32, torch.float64):
+            for mode in ("use_fused_controller", "use_fused_admm"):
+                sm = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                               **{mode: True}), dtype=dtype, device=dev)
+                x = torch.tensor([0.3, -0.2, 2.8, 0.4, 0.1, -0.1], dtype=dtype, device=dev)
+                target = torch.tensor([0.8, 0.3, 3.0], dtype=dtype, device=dev)
+                carry, err = sm.init_carry(x), 0.0
+                for _ in range(3):
+                    res = (0.5 * torch.randn(N, 6, generator=gen)).to(dtype=dtype, device=dev)
+                    u, X, new = sm.solve(carry, x, target, res)
+                    torch.cuda.synchronize()
+                    up, Xp, newp = sm.solve(carry, x, target, res, plain_kernels=True)
+                    if not (u.dtype == X.dtype == new.slack.dtype == dtype):
+                        fail(f"the {mode} solve at N={N} returned another dtype than {dtype}")
+                    if not all(torch.isfinite(v).all() for v in (u, X, new.slack, new.dual)):
+                        fail(f"the {mode} solve at N={N} produced non-finite values")
+                    err = max([err] + [float((a - b).abs().max()) for a, b in (
+                        (u, up), (X, Xp), (new.slack, newp.slack), (new.dual, newp.dual))])
+                    carry, x = new, X[1]
+                solve_errs[(mode, N, str(dtype).split(".")[1])] = err
+    print("LinearMPC.solve through K3 (use_fused_controller) and K6 (use_fused_admm), 3 ticks, "
+          "max_abs_err against the plain versions: "
+          + "; ".join(f"{m} N={n} {d} {e:.3e}" for (m, n, d), e in solve_errs.items()))
+    if not max(solve_errs.values()) <= SINGLE_TOL:
+        fail(f"a fused solve disagrees with its plain version: {solve_errs}")
+
     # ---- phase 3: fly every path ------------------------------------------
     def ref(t):
         p, y = ramped_figure8_reference(t, 6.0, 0.02)
@@ -527,45 +690,92 @@ def main() -> int:
     if not torch.equal(agg["rms_per_flight"], sweep_rms):
         fail("a second kernel sweep differs from the first")
 
-    # ---- phase 4: microseconds per online tick (slope of two lengths) ------
-    def slope_us(plain, lengths):
+    # the single-tick tier (one K4 launch per tick, the 800-point GP as
+    # residual_fn between launches), with and without preview; the
+    # frozen-GP multi-tick flight with preview (bench.py's rms_preview);
+    # staged flights solving through K3 and K6
+    gp_cfg = ResidualGPConfig()
+    resid = lambda Xg, Ug: build_horizon_residuals(post, Xg, Ug, gp_cfg)
+
+    def single_tick(T, plain=False, preview=False, gp=True):
+        return mpc_flight_rollout(mpc, ref, T, cfg=FlightLoopConfig(use_fused_tick=True),
+                                  residual_fn=resid if gp else None, preview=preview,
+                                  device=dev, plain_kernels=plain)
+
+    single_outs, _ = check_path(
+        f"single-tick GP-MPC figure-8 (N={HORIZON}, P={GP_POINTS} residual_fn, {T_MAIN} ticks)",
+        lambda p: single_tick(T_MAIN, p), {"gpmpc_tick_fused": T_MAIN}, SINGLE_GAP_BOUND_M,
+    )
+    preview_outs, _ = check_path(
+        f"single-tick GP-MPC figure-8 with preview ({T_MAIN} ticks)",
+        lambda p: single_tick(T_MAIN, p, preview=True), {"gpmpc_tick_fused": T_MAIN},
+        SINGLE_GAP_BOUND_M, record=False,
+    )
+    frozen_preview_outs, _ = check_path(
+        f"frozen-GP multi-tick figure-8 with preview (K={K5_PREVIEW_K}, {K5_PREVIEW_T} ticks)",
+        lambda p: mpc_flight_rollout(
+            mpc, ref, K5_PREVIEW_T, gp_posterior=post, gp_gain=gp_cfg.residual_gain,
+            cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K5_PREVIEW_K),
+            preview=True, device=dev, plain_kernels=p),
+        {"gpmpc_multitick_fused": K5_PREVIEW_T // K5_PREVIEW_K}, SINGLE_GAP_BOUND_M,
+        record=False,
+    )
+    admm_mpc = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                         use_fused_admm=True), device=dev)
+    for label, solver_mpc, kernel in (("use_fused_controller", mpc, "gpmpc_controller_fused"),
+                                      ("use_fused_admm", admm_mpc, "admm_box_qp_fused_composite")):
+        check_path(
+            f"staged MPC flight solving through {kernel} ({label}, residual_fn, 100 ticks)",
+            lambda p, m_=solver_mpc: mpc_flight_rollout(m_, ref, 100, residual_fn=resid,
+                                                        device=dev, plain_kernels=p),
+            {kernel: 100}, SINGLE_GAP_BOUND_M,
+        )
+    print(f"  figure-8 RMS: single-tick {float(rms(single_outs)):.6f} m, with preview "
+          f"{float(rms(preview_outs)):.6f} m; frozen-GP multi-tick with preview "
+          f"{float(rms(frozen_preview_outs)):.6f} m")
+
+    # ---- phase 4: microseconds per tick (slope of two lengths) --------------
+    def slope_us(fly, lengths, reps=2, warm_T=None):
+        """Microseconds per tick of ``fly(T)``: the slope of the best of
+        ``reps`` host wall clocks between the two lengths. Warm at each
+        length, or once at ``warm_T`` ticks."""
+        if warm_T is not None:
+            fly(warm_T)
         times = {}
         for T in lengths:
-            online(T, plain)          # warm
+            if warm_T is None:
+                fly(T)
             torch.cuda.synchronize()
             best = math.inf
-            for _ in range(2):
+            for _ in range(reps):
                 t0 = time.perf_counter()
-                online(T, plain)
+                fly(T)
                 torch.cuda.synchronize()
                 best = min(best, time.perf_counter() - t0)
             times[T] = best
         a, b = lengths
         return (times[b] - times[a]) / (b - a) * 1e6
 
-    us_kernel = slope_us(False, T_SLOPE)
-    us_plain = slope_us(True, T_SLOPE_PLAIN)
+    us_kernel = slope_us(lambda T: online(T), T_SLOPE)
+    us_plain = slope_us(lambda T: online(T, True), T_SLOPE_PLAIN)
     print(f"online tick: {us_kernel:.2f} us/tick through K5 (slope {T_SLOPE[0]}->{T_SLOPE[1]} "
           f"ticks), {us_plain:.2f} us/tick through the plain version "
           f"(slope {T_SLOPE_PLAIN[0]}->{T_SLOPE_PLAIN[1]}); card: {card}")
+    us_single = slope_us(lambda T: single_tick(T), T_SLOPE)
+    us_single_plain = slope_us(lambda T: single_tick(T, True), T_SLOPE, reps=1, warm_T=100)
+    print(f"single-tick tick: {us_single:.2f} us/tick through K4 (slope {T_SLOPE[0]}->"
+          f"{T_SLOPE[1]} ticks; K4's device time {kernels['gpmpc_tick_fused']['ms'] * 1e3:.2f} "
+          f"us of it), {us_single_plain:.2f} us/tick through the plain version (same slope, "
+          f"one run per length); card: {card}")
+    # the same slope without the GP: what the residual_fn costs per tick
+    us_single_no_gp = slope_us(lambda T: single_tick(T, gp=False), T_SLOPE)
+    print(f"single-tick tick without the GP (residual_fn=None): {us_single_no_gp:.2f} us/tick "
+          f"through K4 (same slope); card: {card}")
 
     def sweep_slope_us(**kw):
         """Microseconds per sweep tick, slope between the two lengths."""
-        times = {}
-        for T in T_SWEEP_SLOPE:
-            sweep(T, **kw)          # warm
-            torch.cuda.synchronize()
-            best = math.inf
-            for _ in range(2):
-                t0 = time.perf_counter()
-                sweep(T, **kw)
-                torch.cuda.synchronize()
-                best = min(best, time.perf_counter() - t0)
-            times[T] = best
-        a, b = T_SWEEP_SLOPE
-        return (times[b] - times[a]) / (b - a) * 1e6
+        return slope_us(lambda T: sweep(T, **kw), T_SWEEP_SLOPE)
 
-    gp_cfg = ResidualGPConfig()
     sweep_routes = {
         "gp_posterior, gp_every=1": dict(gp_kw),
         "gp_posterior, gp_every=5": dict(gp_kw, gp_every=5),
@@ -582,24 +792,41 @@ def main() -> int:
     print(f"  device time per sweep tick at that width: K8 {k8['ms'] * 1e3:.2f} us, K7 "
           f"{k7['ms'] * 1e3:.2f} us, K2 {k2['ms'] * 1e3:.2f} us, together {device_tick_us:.2f} "
           f"us; K8 bound {k8['bound'][0] * 1e3:.2f} us, K7 bound {k7['bound'][0] * 1e3:.2f} us")
-    # device time per sweep tick by kernel name, from a torch.profiler trace
-    # of 50 ticks; against the unprofiled tick above it gives the idle share
+    # device time per tick by kernel name, from a torch.profiler trace of
+    # 50 ticks; against the unprofiled tick above it gives the idle share
     from torch.profiler import ProfilerActivity, profile
 
-    sweep(50, **gp_kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sweep(50, **gp_kw)
+    def device_busy(fly, ticks=50):
+        """Device-busy microseconds per tick of ``fly(ticks)`` and the
+        kernels by name (device-side events only: a CPU op's entry repeats
+        its kernels' time)."""
+        fly(ticks)
         torch.cuda.synchronize()
-    # device-side events only: a CPU op's entry repeats its kernels' time
-    by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
-    busy_us = sum(t for t, _ in by_name) / 50
-    tick_us = us_sweep_tick["gp_posterior, gp_every=1"]
-    print(f"  profiler, 50 sweep ticks (gp_every=1): device busy {busy_us:.2f} us per tick of "
-          f"{tick_us:.2f} us, idle share {1.0 - busy_us / tick_us:.3f}; by kernel (us per tick): "
-          + "; ".join(f"{name[:60]} {t / 50:.2f}" for t, name in by_name[:8]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fly(ticks)
+            torch.cuda.synchronize()
+        by_name = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0), reverse=True)
+        return sum(t for t, _ in by_name) / ticks, by_name
+
+    for label, fly, tick_us in (
+        ("50 sweep ticks (gp_every=1)", lambda T: sweep(T, **gp_kw),
+         us_sweep_tick["gp_posterior, gp_every=1"]),
+        ("50 single-tick ticks", lambda T: single_tick(T), us_single),
+    ):
+        busy_us, by_name = device_busy(fly)
+        print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
+              f"idle share {1.0 - busy_us / tick_us:.3f}; by kernel (us per tick): "
+              + "; ".join(f"{name[:60]} {t / 50:.2f}" for t, name in by_name[:8]))
+    # two parts of the single-tick tick, each timed alone with the host's
+    # overhead (not in the tick's window: the host's run-to-run spread is
+    # larger than the rest of the loop, so no remainder is derived)
+    Xg = torch.zeros(HORIZON + 1, 6, **f32)
+    Ug = torch.zeros(HORIZON, 4, **f32)
+    resid_us = 1e3 * cuda_ms(lambda: resid(Xg, Ug), 200)
+    print(f"  single-tick tick parts, each alone with host overhead: residual_fn {resid_us:.2f} "
+          f"us, K4 call {kernels['gpmpc_tick_fused']['host_ms'] * 1e3:.2f} us; card: {card}")
     k2_1 = k2["batch_1"]
     print(f"  K2 at batch 1 (staged flight): device {k2_1['ms'] * 1e3:.2f} us, plain "
           f"{k2_1['plain_ms'] * 1e3:.2f} us; with host overhead {k2_1['host_ms'] * 1e3:.2f} us, "
@@ -619,6 +846,11 @@ def main() -> int:
         "gpmpc_controller_structured_batched": (
             "controller_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:449"),
         "rbf_posterior_mean_pallas": ("rbf_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/rbf_pallas.py:221"),
+        "gpmpc_tick_fused": ("single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_pallas.py:276"),
+        "gpmpc_controller_fused": (
+            "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:152"),
+        "admm_box_qp_fused_composite": (
+            "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/admm_pallas.py:172"),
     }
     line = {"kernels": [
         {
@@ -639,7 +871,15 @@ def main() -> int:
         "fig8_rms_m_online_500": float(rms(outs)),
         "us_per_flight_tick_sweep_1024": us_flight_tick,
         "sweep_rms_mean_m": float(sweep_rms.mean()), "sweep_rms_max_m": float(sweep_rms.max()),
-        "sweep_rms_mean_m_plain": float(sweep_rms_plain.mean())}
+        "sweep_rms_mean_m_plain": float(sweep_rms_plain.mean()),
+        "us_per_single_tick": us_single, "us_per_single_tick_plain": us_single_plain,
+        "us_per_single_tick_no_gp": us_single_no_gp,
+        "fig8_rms_m_single_tick_500": float(rms(single_outs)),
+        "fig8_rms_m_single_tick_preview_500": float(rms(preview_outs)),
+        "fig8_rms_m_frozen_preview_400": float(rms(frozen_preview_outs)),
+        "us_per_launch_n25": {name: single[(name, LONG_HORIZON)]["ms"] * 1e3
+                              for name in ("gpmpc_tick_fused", "gpmpc_controller_fused",
+                                           "admm_box_qp_fused_composite")}}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -123,6 +123,7 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.convert\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.tick_pallas\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.controller_pallas\n"
+        "import unmanned_aerial_vehicles_tpu_torch.ops.admm_pallas\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.rbf_pallas\n"
         "import unmanned_aerial_vehicles_tpu_torch.parallel.sweep\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -162,19 +163,44 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         mpc_flight_rollout(tm, t_ref, 4)
 
 
-@pytest.mark.parametrize("path", ["single_tick_fused", "tightening", "resume",
-                                  "fused_controller_solve"])
+@pytest.mark.parametrize("path", ["polish", "tightening", "resume", "output_correction",
+                                  "fused_tick_ad"])
 def test_queued_paths_raise_and_point_at_the_roadmap(path):
     cfg = dict(horizon=HORIZON, use_fused_controller=True)
-    kw = dict(cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=1), device="cpu")
-    if path == "tightening":
+    kw = dict(cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K), device="cpu")
+    if path == "polish":
+        cfg = dict(horizon=HORIZON, polish=True)
+    elif path == "tightening":
         cfg["tightening_factor"] = 1.0
-        kw["cfg"] = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K)
     elif path == "resume":
         kw["return_resume"] = True
+    elif path == "output_correction":
+        kw = dict(output_correction_fn=lambda x, u, p: u, device="cpu")
+    else:
+        kw["cfg"] = FlightLoopConfig(use_fused_tick=True, fused_tick_ad=True)
     tm = LinearMPC(LinearMPCConfig(**cfg), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "fused_controller_solve":
+        if path == "polish":
             tm.solve(tm.init_carry(), torch.zeros(6), torch.zeros(3))
         else:
             mpc_flight_rollout(tm, t_ref, K, **kw)
+
+
+@pytest.mark.parametrize("path", ["tightening", "resume", "uncertainty_fn",
+                                  "output_correction_fn"])
+def test_single_tick_tier_refuses_what_jax_refuses(path):
+    """The JAX package raises ``ValueError`` for these on its single-tick
+    tier (``closed_loop.py:274-330``); so does the port."""
+    cfg = dict(horizon=HORIZON, use_fused_controller=True)
+    kw = dict(cfg=FlightLoopConfig(use_fused_tick=True), device="cpu")
+    if path == "tightening":
+        cfg["tightening_factor"] = 1.0
+    elif path == "resume":
+        kw["return_resume"] = True
+    elif path == "uncertainty_fn":
+        kw["uncertainty_fn"] = lambda X, U: torch.zeros(HORIZON, 6)
+    else:
+        kw["output_correction_fn"] = lambda x, u, p: u
+    tm = LinearMPC(LinearMPCConfig(**cfg), device="cpu")
+    with pytest.raises(ValueError):
+        mpc_flight_rollout(tm, t_ref, K, **kw)

@@ -93,8 +93,10 @@ def test_fused_controller_data_matches_jax_unpadded():
     carried = convert.fused_controller_data_from_numpy(jm._fc_data._asdict(), HORIZON)
     for name, got in tm._fc_data._asdict().items():
         np.testing.assert_array_equal(got, getattr(carried, name), err_msg=name)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tm.solve(tm.init_carry(), torch.zeros(6), torch.zeros(3))
+    # the fused operands solve (through K3's plain version on the CPU)
+    u0, X_opt, carry = tm.solve(tm.init_carry(), torch.zeros(6), torch.tensor([0.5, 0.0, 1.0]))
+    assert u0.shape == (4,) and X_opt.shape == (HORIZON + 1, 6)
+    assert carry.slack.shape == (HORIZON * 10,) and bool(torch.isfinite(X_opt).all())
 
 
 def test_admm_composite_matches_jax_f64():

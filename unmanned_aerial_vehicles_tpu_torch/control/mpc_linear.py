@@ -7,6 +7,12 @@ GP dynamics residuals ``d_k``; cost ``Q_pos = diag(50,50,80)``,
 ``3 Q_pos`` / ``2 Q_vel``; box bounds on states and controls; states
 eliminated and the QP solved in control space by fixed-iteration composite
 ADMM with a shifted warm start.
+
+``use_fused_controller`` solves each tick in one launch of the fused
+controller kernel K3 (``ops.controller_pallas.gpmpc_controller_fused``);
+``use_fused_admm`` runs the ADMM loop as one launch of K6
+(``ops.admm_pallas.admm_box_qp_fused_composite``). Both compute in float32
+and cast back to the MPC's dtype.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from .._device import full_f32_matmul, resolve_device
 from ..models.double_integrator import CONTROL_DIM, STATE_DIM
-from ..ops.qp import admm_box_qp_composite, condense_dynamics
+from ..ops.qp import AdmmState, admm_box_qp_composite, condense_dynamics
 
 
 @dataclass(frozen=True)
@@ -59,8 +65,11 @@ class LinearMPC:
     """Condensed-QP linear MPC: built once in NumPy float64, solved with
     tensors of ``dtype`` on ``device``.
 
-    With ``use_fused_controller`` it also holds ``_fc_data``, the row-form
-    operands of the multi-tick kernel (``ops.controller_pallas``)."""
+    With ``use_fused_controller`` it also holds ``_fc_data``, the host
+    row-form controller operands (``ops.controller_pallas``), and
+    ``_tick_data``, their float32 device layouts for K3, K4 and K5
+    (``ops.tick_pallas.build_tick_data``). With ``use_fused_admm`` it holds
+    K6's float32 ``P1`` and ``GMinvT``."""
 
     def __init__(self, config: LinearMPCConfig = LinearMPCConfig(),
                  dtype=torch.float32, device=None):
@@ -113,10 +122,17 @@ class LinearMPC:
 
         if config.use_fused_controller:
             from ..ops.controller_pallas import build_fused_controller_data
+            from ..ops.tick_pallas import build_tick_data
 
             self._fc_data = build_fused_controller_data(
                 Sx, Su, Sw, Su.T * qbar[None, :], M_inv, G, u_lo, u_hi, x_lo, x_hi,
             )
+            self._tick_data = build_tick_data(self._fc_data, N, nu, nx, device=self.device)
+        if config.use_fused_admm:
+            f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                            device=self.device)
+            self._P1_f32 = f32(GMinv @ G.T)
+            self._GMinvT_f32 = f32(GMinv.T)
 
     # ------------------------------------------------------------------
     def init_carry(self, state: torch.Tensor | None = None) -> MPCCarry:
@@ -160,29 +176,30 @@ class LinearMPC:
         residuals: torch.Tensor | None = None,
         reference_states: torch.Tensor | None = None,
         uncertainty: torch.Tensor | None = None,
+        *,
+        plain_kernels: bool = False,
     ):
-        """One staged MPC tick. ``state``: 6-vector, ``target_pos``:
-        3-vector, ``residuals``: optional ``(N, 6)`` gain-scaled GP dynamics
-        residuals. Returns ``(u0, X_opt, new_carry)``."""
+        """One MPC tick. ``state``: 6-vector, ``target_pos``: 3-vector,
+        ``residuals``: optional ``(N, 6)`` gain-scaled GP dynamics
+        residuals, ``reference_states``: optional ``(N, 6)`` per-stage
+        references (trajectory preview; overrides ``target_pos``). Returns
+        ``(u0, X_opt, new_carry)``.
+
+        With ``use_fused_controller`` the tick is one launch of K3, with
+        ``use_fused_admm`` the ADMM loop is one launch of K6;
+        ``plain_kernels=True`` runs their plain versions instead, on any
+        device."""
         cfg = self.config
-        if cfg.use_fused_controller:
-            raise NotImplementedError(
-                "use_fused_controller solves through the fused controller "
-                "kernel K3 (controller_pallas.gpmpc_controller_fused), queued "
-                "in ROADMAP.md; the multi-tick flight path "
-                "(use_fused_tick=True) does not call solve"
+        tightened = uncertainty is not None and cfg.tightening_factor > 0.0
+        if cfg.use_fused_controller and tightened:
+            raise ValueError(
+                "uncertainty tightening with use_fused_controller runs on the multi-tick "
+                "kernel path; the fused controller kernel reads static bound rows"
             )
-        if cfg.use_fused_admm:
-            raise NotImplementedError(
-                "use_fused_admm solves through the fused ADMM kernel K6 "
-                "(admm_pallas.admm_box_qp_fused_composite), queued in ROADMAP.md"
-            )
-        if cfg.polish:
+        if tightened:
+            raise NotImplementedError("uncertainty tightening is queued in ROADMAP.md")
+        if cfg.polish and not (cfg.use_fused_controller or cfg.use_fused_admm):
             raise NotImplementedError("active-set polish is queued in ROADMAP.md")
-        if uncertainty is not None and cfg.tightening_factor > 0.0:
-            raise NotImplementedError(
-                "uncertainty tightening is queued in ROADMAP.md"
-            )
         full_f32_matmul()
         N = cfg.horizon
         x0 = state.to(self.dtype)
@@ -201,6 +218,23 @@ class LinearMPC:
                 [target_pos.to(self.dtype), torch.zeros(3, dtype=self.dtype, device=self.device)]
             ).repeat(N)
 
+        f32 = lambda v: v.to(torch.float32).contiguous()
+        if cfg.use_fused_controller:
+            from ..ops.controller_pallas import (
+                gpmpc_controller_fused,
+                gpmpc_controller_fused_plain,
+            )
+
+            controller = gpmpc_controller_fused_plain if plain_kernels else gpmpc_controller_fused
+            z, y, _, X_tail = controller(
+                self._tick_data, f32(x0), f32(w), f32(ref), f32(carry.slack), f32(carry.dual),
+                cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
+            )
+            slack, dual = z.to(self.dtype), y.to(self.dtype)
+            U = slack[: N * CONTROL_DIM].reshape(N, CONTROL_DIM)
+            X_opt = torch.cat([x0[None, :], X_tail.to(self.dtype).reshape(N, STATE_DIM)], dim=0)
+            return U[0], X_opt, MPCCarry(slack=slack, dual=dual, X_prev=X_opt, U_prev=U)
+
         offset = self._Sx @ x0 + self._Sw @ w
         f = self._SuT_q @ (offset - ref)
         lower = torch.cat([self._u_lo, self._x_lo - offset])
@@ -208,11 +242,25 @@ class LinearMPC:
 
         p0 = -(self._GMinv @ f)
         minv_f = self._M_inv @ f
-        sol = admm_box_qp_composite(
-            self._P1, p0, self._GMinv.T, minv_f, lower, upper,
-            carry.slack, carry.dual,
-            cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
-        )
+        if cfg.use_fused_admm:
+            from ..ops.admm_pallas import (
+                admm_box_qp_fused_composite,
+                admm_box_qp_fused_composite_plain,
+            )
+
+            admm = admm_box_qp_fused_composite_plain if plain_kernels else admm_box_qp_fused_composite
+            Uf, zf, yf = admm(
+                self._P1_f32, f32(p0), self._GMinvT_f32, f32(minv_f), f32(lower), f32(upper),
+                f32(carry.slack), f32(carry.dual),
+                cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
+            )
+            sol = AdmmState(Uf.to(self.dtype), zf.to(self.dtype), yf.to(self.dtype))
+        else:
+            sol = admm_box_qp_composite(
+                self._P1, p0, self._GMinv.T, minv_f, lower, upper,
+                carry.slack, carry.dual,
+                cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
+            )
 
         # controls come from the slack's U-block: box-feasible at every
         # iteration; equals the primal at convergence

@@ -168,3 +168,19 @@ def split_planes_from_numpy(ZU, ZX, YU, YX, horizon: int, nu: int = 4, nx: int =
     f = lambda a, n: _t(np.asarray(a)[:, :n], torch.float32, dev).contiguous()
     Nnu, Nnx = horizon * nu, horizon * nx
     return f(ZU, Nnu), f(ZX, Nnx), f(YU, Nnu), f(YX, Nnx)
+
+
+def row_from_numpy(row, n: int, device=None) -> torch.Tensor:
+    """The first ``n`` lanes of a JAX kernel's ``(1, pad)`` row (an operand
+    or an output of K3, K4 or K6) as a float32 ``(n,)`` tensor."""
+    return _t(np.asarray(row)[0, :n], torch.float32, resolve_device(device)).contiguous()
+
+
+def composite_admm_operands_from_numpy(P1_pad, GMinvT_pad, horizon: int, nu: int = 4,
+                                       nx: int = 6, device=None):
+    """K6's ``(P1 (m, m), GMinvT (n, m))`` from the JAX MPC's padded
+    ``_P1_pad`` and ``_GMinvT_pad`` (``use_fused_admm``)."""
+    dev = resolve_device(device)
+    n, m = horizon * nu, horizon * (nu + nx)
+    f = lambda a, rows, cols: _t(np.asarray(a)[:rows, :cols], torch.float32, dev).contiguous()
+    return f(P1_pad, m, m), f(GMinvT_pad, n, m)

@@ -1,6 +1,7 @@
 // Scalar device math of the PX4 surrogate plant and the geometric
-// allocation, shared by the plant kernels (plant_kernels.cu: K1, K2) and the
-// multi-tick tick kernel (tick_kernel.cu: K5).
+// allocation, shared by the plant kernels (plant_kernels.cu: K1, K2), the
+// multi-tick tick kernel (tick_kernel.cu: K5) and the single-tick tick
+// kernel (single_tick_kernels.cu: K4).
 //
 // A transcription of the JAX package's ops/plant_pallas.py scalar
 // functions (_derivative, _rk4_substeps, _allocation), which the port's
@@ -153,6 +154,46 @@ __device__ __forceinline__ void allocation(const float s[12], const float cmd[5]
   new_int[0] = i0;
   new_int[1] = i1;
   new_int[2] = i2;
+}
+
+// The scalar section of one fused MPC tick (one thread), shared by K5 and
+// K4: the first stage of the slack's U-block z[0:4] clipped to the
+// acceleration and yaw-rate limits; the hover fallback when the controller
+// state sc is farther than the threshold from ref[0:3] (PD law a = 1.5 e -
+// 0.8 v with widened clips, yaw rate 0, raised thrust ceiling); allocation
+// + attitude PID on sc; the plant's RK4 substeps from s into sn. `Params`
+// is any struct with the fields read below (K5's TickParams, K4's
+// SingleTickParams).
+template <class Params>
+__device__ __forceinline__ void mpc_command_plant(const Params& P, const Plant& pl,
+                                                  const float* z, const float* ref,
+                                                  const float sc[12], const float s[12],
+                                                  float yaw_ref, const float integral[3],
+                                                  float sn[12], float c[4], float att_sp[3],
+                                                  float new_int[3], float accel[3]) {
+  float ax = clipf(z[0], P.accel_lo[0], P.accel_hi[0]);
+  float ay = clipf(z[1], P.accel_lo[1], P.accel_hi[1]);
+  float az = clipf(z[2], P.accel_lo[2], P.accel_hi[2]);
+  float yr = clipf(z[3], -P.yawrate_limit, P.yawrate_limit);
+  float thrust_hi = 1.2f;
+  if (P.use_fallback) {
+    const float ex = ref[0] - sc[0], ey = ref[1] - sc[1], ez = ref[2] - sc[2];
+    if (ex * ex + ey * ey + ez * ez > P.fallback_error_sq) {
+      ax = clipf(1.5f * ex - 0.8f * sc[3], P.fallback_lo[0], P.fallback_hi[0]);
+      ay = clipf(1.5f * ey - 0.8f * sc[4], P.fallback_lo[1], P.fallback_hi[1]);
+      az = clipf(1.5f * ez - 0.8f * sc[5], P.fallback_lo[2], P.fallback_hi[2]);
+      yr = 0.0f;
+      thrust_hi = P.fallback_thrust_ceiling;
+    }
+  }
+  const float cmd[5] = {ax, ay, az, yr, yaw_ref};
+  allocation(sc, cmd, integral, (float)P.dt, pl.gravity, thrust_hi, c, att_sp, new_int);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) sn[i] = s[i];
+  rk4_substeps(sn, c, pl, P.dt, P.substeps);
+  accel[0] = ax;
+  accel[1] = ay;
+  accel[2] = az;
 }
 
 }  // namespace uav

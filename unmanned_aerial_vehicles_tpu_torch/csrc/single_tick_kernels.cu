@@ -1,0 +1,309 @@
+// The single-tick fused kernels, one thread block per call:
+//
+//   K6 admm_composite_kernel  replaces the JAX package's
+//      ops/admm_pallas.py:admm_box_qp_fused_composite (pallas_call at :193):
+//      `iterations` composite-ADMM steps, then the primal recovery
+//      U = -M^-1 f + (rho z - y) GMinvT'. Plain version:
+//      ops/admm_pallas.py:admm_box_qp_fused_composite_plain.
+//   K3 single_tick_kernel<., false>  replaces ops/controller_pallas.py:
+//      gpmpc_controller_fused (pallas_call at :169): prediction offset,
+//      condensed gradient, box bounds, p0 and M^-1 f, K6's loop, U and the
+//      predicted tail X_tail, from an already shifted warm start. Plain
+//      version: ops/controller_pallas.py:gpmpc_controller_fused_plain.
+//   K4 single_tick_kernel<., true>  replaces ops/tick_pallas.py:
+//      gpmpc_tick_fused (pallas_call at :344): K3 after the warm-start shift
+//      (a gather), with the controller reading ctrl_state and the state
+//      boxes tightened by the `tight` row; then one thread runs the u0
+//      clips, the hover fallback, allocation + attitude PID and the plant's
+//      RK4 substeps on `state` and writes the 25-lane packed row. Plain
+//      version: ops/tick_pallas.py:gpmpc_tick_fused_plain.
+//
+// K6, K3 and K4 are one family with K5 (tick_kernel.cu): the matvecs and the
+// composite-ADMM iteration are block_linalg.cuh's, the scalar section is
+// plant_math.cuh's mpc_command_plant, so the four run one device
+// implementation of each.
+//
+// Each kernel is built in two variants. With kSharedP1, P1 = G M^-1 G'
+// (m x m; 160,000 bytes at N=20) is copied into dynamic shared memory with
+// 16-byte loads and each ADMM step reads its column from there; without
+// it, each step reads P1 from global memory through L1/L2, 16 loads in
+// flight per thread. The wrapper takes the shared variant where P1 and the
+// vectors fit the block's opt-in shared memory (N <= 23 on an H100) and the
+// other one beyond (the package default N=25 has a 250,000-byte P1).
+//
+// What bounds them on an H100: one block on one SM of 132, so latency, not
+// the card's rates. At N=20 one ADMM step is 40,000 multiply-adds spread
+// over 200 threads (one column each) and one barrier: ~0.7 us of
+// shared-memory reads per step; K4's other phases are five short matvecs
+// against L2-resident operands (~300 KB) and the one-thread RK4. The bound
+// from the card's rates (bytes over 3.35 TB/s, operations over 67 TFLOP/s)
+// is well under a microsecond; a batch of flights (a grid of blocks) is
+// what would approach it.
+//
+// Every sum runs in a fixed order, so two launches agree bit for bit.
+
+#include <cuda_runtime.h>
+
+#include "block_linalg.cuh"
+#include "plant_math.cuh"
+
+// Host-visible (external linkage): laid out as ops/admm_pallas.py's
+// _AdmmParams / _AdmmOperands and ops/controller_pallas.py's
+// _SingleTickParams / _SingleTickOperands.
+struct AdmmParams {
+  int n, m, iterations;
+  float rho, over_relax, one_minus_over_relax;
+};
+
+struct AdmmOperands {
+  const float *P1, *p0, *GMinvT, *minvf, *lower, *upper, *z_in, *y_in;
+  float *u_out, *z_out, *y_out;
+};
+
+struct SingleTickParams {
+  int n, m, iterations, substeps, use_fallback;
+  double dt;
+  float rho, over_relax, one_minus_over_relax, yawrate_limit;
+  float fallback_error_sq, fallback_thrust_ceiling;
+  float accel_lo[3], accel_hi[3], fallback_lo[3], fallback_hi[3];
+};
+
+// x0: the controller's state (K3: 6 lanes; K4: ctrl_state, 12 lanes).
+// state, misc = [yaw_ref, integral (3)], tight, plant_row and packed are
+// K4's only.
+struct SingleTickOperands {
+  const float *SxSwT, *SuTqT, *PM, *P1, *P0matT, *SuT, *lo_row, *hi_row;
+  const float *x0, *w, *ref, *z_in, *y_in;
+  const float *state, *misc, *tight, *plant_row;
+  float *z_out, *y_out, *u_out, *xtail_out, *packed;
+};
+
+namespace {
+
+using uav::matvec_partial;
+using uav::matvec_total;
+
+constexpr int kThreads = 256;   // ops/admm_pallas.py KERNEL_THREADS
+constexpr int kNu = 4;
+constexpr int kNx = 6;
+
+__device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+template <bool kSharedP1>
+__global__ void __launch_bounds__(kThreads, 1)
+admm_composite_kernel(const AdmmParams P, const AdmmOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int m = P.m, m4 = round4(m);
+
+  // shared memory layout (ops/admm_pallas.py shared_memory_bytes)
+  float* P1s = sm;
+  float* va = P1s + (kSharedP1 ? round4(m * m) : 0);
+  float* vb = va + m4;
+  float* z = vb + m4;
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lower = p0 + m;
+  float* upper = lower + m;
+
+  if constexpr (kSharedP1) uav::copy_floats_to_shared(P1s, O.P1, m * m, tid, nth);
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+    p0[i] = O.p0[i];
+    lower[i] = O.lower[i];
+    upper[i] = O.upper[i];
+    va[i] = P.rho * z[i] - y[i];
+  }
+  __syncthreads();
+  const float* vsrc = uav::composite_admm<kSharedP1>(
+      kSharedP1 ? P1s : O.P1, m, p0, lower, upper, z, y, va, vb, P.rho, P.over_relax,
+      P.one_minus_over_relax, P.iterations, tid, nth);
+  // primal recovery: U[r] = -minvf[r] + GMinvT[r, :] . (rho z - y)
+  uav::row_dots_warp(O.GMinvT, m, vsrc, m, P.n, tid, nth,
+                     [=](int r, float acc) { O.u_out[r] = -O.minvf[r] + acc; });
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+}
+
+// K4's scalar section (one thread): command, fallback, allocation + PID on
+// ctrl_state, RK4 on state, the packed row. Not inlined, so its registers
+// stay out of the block loops' allocation.
+__device__ __noinline__ void tick_section(const SingleTickParams& P, const SingleTickOperands& O,
+                                          const float* z, const float* ref) {
+  const uav::Plant pl = uav::load_plant(O.plant_row);
+  float s[12], sc[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    s[i] = O.state[i];
+    sc[i] = O.x0[i];
+  }
+  const float integral[3] = {O.misc[1], O.misc[2], O.misc[3]};
+  float sn[12], c[4], att_sp[3], new_int[3], accel[3];
+  uav::mpc_command_plant(P, pl, z, ref, sc, s, O.misc[0], integral, sn, c, att_sp, new_int,
+                         accel);
+  float* row = O.packed;   // 25 lanes
+#pragma unroll
+  for (int i = 0; i < 12; ++i) row[i] = sn[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
+}
+
+// K3 (kTick false) and K4 (kTick true).
+template <bool kSharedP1, bool kTick>
+__global__ void __launch_bounds__(kThreads, 1)
+single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  const int m4 = round4(m);
+  const float rho = P.rho;
+
+  // shared memory layout (ops/controller_pallas.py
+  // controller_shared_memory_bytes); P1, va and vb start 16-byte aligned
+  float* P1s = sm;
+  float* va = P1s + (kSharedP1 ? round4(m * m) : 0);   // ADMM matvec input,
+  float* vb = va + m4;                                 // double-buffered
+  float* z = vb + m4;
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lower = p0 + m;
+  float* upper = lower + m;
+  float* xw = upper + m;        // [x0 (6) | w (Nnx)]
+  float* offset = xw + kNx + Nnx;
+  float* ref = offset + Nnx;
+  float* dref = ref + Nnx;
+  float* f = dref + Nnx;
+  float* minvf = f + Nnu;
+  float* U = minvf + Nnu;
+  float* part = U + Nnu;        // matvec slices: nth + npm
+
+  if constexpr (kSharedP1) uav::copy_floats_to_shared(P1s, O.P1, m * m, tid, nth);
+  // ---- warm start; K4 shifts it one stage forward (last stage repeated) --
+  for (int i = tid; i < m; i += nth) {
+    int src = i;
+    if constexpr (kTick) {
+      if (i < Nnu - kNu) src = i + kNu;
+      else if (i >= Nnu && i < Nnu + Nnx - kNx) src = i + kNx;
+    }
+    z[i] = O.z_in[src];
+    y[i] = O.y_in[src];
+  }
+  if (tid < kNx) xw[tid] = O.x0[tid];
+  for (int i = tid; i < Nnx; i += nth) {
+    xw[kNx + i] = O.w[i];
+    ref[i] = O.ref[i];
+  }
+  __syncthreads();
+  // ---- prediction offset = [x0, w] @ [Sx'; Sw'] ----------------------------
+  matvec_partial(xw, O.SxSwT, Nnx, kNx + Nnx, Nnx, part, tid, nth);
+  __syncthreads();
+  for (int r = tid; r < Nnx; r += nth) {
+    const float off = matvec_total(part, Nnx, nth, r);
+    offset[r] = off;
+    dref[r] = off - ref[r];
+  }
+  __syncthreads();
+  // ---- condensed gradient and box bounds (K4: tightened state boxes) -----
+  matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
+  for (int i = tid; i < m; i += nth) {
+    const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
+    if constexpr (kTick) {
+      const float t = O.tight[i];
+      lower[i] = (O.lo_row[i] + t) - off_z;
+      upper[i] = (O.hi_row[i] - t) - off_z;
+    } else {
+      lower[i] = O.lo_row[i] - off_z;
+      upper[i] = O.hi_row[i] - off_z;
+    }
+    va[i] = rho * z[i] - y[i];
+  }
+  __syncthreads();
+  for (int c = tid; c < Nnu; c += nth) f[c] = matvec_total(part, Nnu, nth, c);
+  __syncthreads();
+  // ---- p0 = -(f @ P0mat), M^-1 f = f @ MinvT -----------------------------
+  matvec_partial(f, O.PM, npm, Nnu, npm, part, tid, nth);
+  __syncthreads();
+  for (int j = tid; j < npm; j += nth) {
+    const float acc = matvec_total(part, npm, nth, j);
+    if (j < m) p0[j] = -acc;
+    else minvf[j - m] = acc;
+  }
+  __syncthreads();
+  // ---- composite ADMM ------------------------------------------------------
+  const float* vsrc = uav::composite_admm<kSharedP1>(
+      kSharedP1 ? P1s : O.P1, m, p0, lower, upper, z, y, va, vb, rho, P.over_relax,
+      P.one_minus_over_relax, P.iterations, tid, nth);
+  // ---- primal U and predicted tail -----------------------------------------
+  matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, part, tid, nth);
+  __syncthreads();
+  for (int c = tid; c < Nnu; c += nth) U[c] = -minvf[c] + matvec_total(part, Nnu, nth, c);
+  __syncthreads();
+  matvec_partial(U, O.SuT, Nnx, Nnu, Nnx, part, tid, nth);
+  __syncthreads();
+  for (int r = tid; r < Nnx; r += nth) O.xtail_out[r] = offset[r] + matvec_total(part, Nnx, nth, r);
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+  for (int c = tid; c < Nnu; c += nth) O.u_out[c] = U[c];
+  // ---- K4: u0 clips, fallback, allocation + plant (one thread) -------------
+  if constexpr (kTick) {
+    if (tid == 0) tick_section(P, O, z, ref);
+  }
+}
+
+// Raise the block's shared-memory limit once per size and instantiation
+// (a host-side call, kept out of the per-launch path and out of CUDA graph
+// captures), then launch one block on `stream`.
+template <class Params, class Operands>
+int launch_one_block(void (*kernel)(const Params, const Operands), int* configured,
+                     const Params* params, const Operands* ops, int smem_bytes, void* stream) {
+  if (smem_bytes > *configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    *configured = smem_bytes;
+  }
+  kernel<<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  return (int)cudaGetLastError();
+}
+
+int configured_bytes[6] = {-1, -1, -1, -1, -1, -1};
+
+}  // namespace
+
+extern "C" int admm_composite_launch(const AdmmParams* params, const AdmmOperands* ops,
+                                     int p1_shared, int smem_bytes, void* stream) {
+  return p1_shared ? launch_one_block(admm_composite_kernel<true>, &configured_bytes[0], params,
+                                      ops, smem_bytes, stream)
+                   : launch_one_block(admm_composite_kernel<false>, &configured_bytes[1],
+                                      params, ops, smem_bytes, stream);
+}
+
+extern "C" int gpmpc_controller_launch(const SingleTickParams* params,
+                                       const SingleTickOperands* ops, int p1_shared,
+                                       int smem_bytes, void* stream) {
+  return p1_shared ? launch_one_block(single_tick_kernel<true, false>, &configured_bytes[2],
+                                      params, ops, smem_bytes, stream)
+                   : launch_one_block(single_tick_kernel<false, false>, &configured_bytes[3],
+                                      params, ops, smem_bytes, stream);
+}
+
+extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTickOperands* ops,
+                                 int p1_shared, int smem_bytes, void* stream) {
+  return p1_shared ? launch_one_block(single_tick_kernel<true, true>, &configured_bytes[4],
+                                      params, ops, smem_bytes, stream)
+                   : launch_one_block(single_tick_kernel<false, true>, &configured_bytes[5],
+                                      params, ops, smem_bytes, stream);
+}

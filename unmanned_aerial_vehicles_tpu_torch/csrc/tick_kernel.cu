@@ -13,6 +13,10 @@
 // (~290 KB at N=20) and the GP operands (~45 KB at P=800) are read through
 // L1/L2 every tick.
 //
+// The matvecs, the composite-ADMM iteration (block_linalg.cuh) and the
+// scalar section (plant_math.cuh mpc_command_plant) are the same device code
+// that the single-tick kernels K3, K4 and K6 run (single_tick_kernels.cu).
+//
 // Per tick, in block-wide phases separated by __syncthreads():
 //   GP     features of the UNshifted previous solution -> scaled features;
 //          thread (stage k, slice s) forms the cross-kernel entries of
@@ -45,6 +49,7 @@
 
 #include <cuda_runtime.h>
 
+#include "block_linalg.cuh"
 #include "plant_math.cuh"
 
 // Host-visible (external linkage): the C entry point takes pointers to
@@ -66,88 +71,15 @@ struct TickOperands {
 
 namespace {
 
+using uav::matvec_partial;
+using uav::matvec_total;
+
 constexpr int kThreads = 256;   // ops/tick_pallas.py KERNEL_THREADS
 constexpr int kNu = 4;
 constexpr int kNx = 6;
 constexpr int kFeat = kNu + kNx;
 constexpr int kPacked = 32;
 constexpr int kAux = 9;
-
-// sum_i v[i] * A[i * lda + j] for i < n: column j of a row-major matrix
-// against a shared-memory vector. 16 loads of A are issued before their
-// multiply-adds and 4 accumulators break the add chain, so a thread keeps
-// 16 reads in flight instead of waiting out one L2 latency per element.
-__device__ __forceinline__ float col_dot(const float* __restrict__ v,
-                                         const float* __restrict__ A, int lda, int j, int n) {
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int i = 0;
-  for (; i + 16 <= n; i += 16) {
-    float a[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) a[u] = A[(i + u) * lda + j];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) acc[u & 3] += v[i + u] * a[u];
-  }
-  for (; i < n; ++i) acc[i & 3] += v[i] * A[i * lda + j];
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
-// col_dot for a shared-memory matrix and a 16-byte-aligned shared vector:
-// the vector is read 4 floats per (broadcast) load, so the matrix column,
-// not the vector, takes the shared-memory bandwidth.
-__device__ __forceinline__ float col_dot_smem(const float* __restrict__ v,
-                                              const float* __restrict__ A, int lda, int j,
-                                              int n) {
-  const float4* v4 = reinterpret_cast<const float4*>(v);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int i = 0;
-  for (; i + 16 <= n; i += 16) {
-    float a[16];
-#pragma unroll
-    for (int u = 0; u < 16; ++u) a[u] = A[(i + u) * lda + j];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 w = v4[(i >> 2) + q];
-      acc[0] += w.x * a[4 * q];
-      acc[1] += w.y * a[4 * q + 1];
-      acc[2] += w.z * a[4 * q + 2];
-      acc[3] += w.w * a[4 * q + 3];
-    }
-  }
-  for (; i < n; ++i) acc[i & 3] += v[i] * A[i * lda + j];
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
-// Block matrix-vector product out[j] = sum_i v[i] A[i * lda + j] for
-// j < n_out, i < n_in, in two phases around a barrier: matvec_partial
-// splits each column's sum into `parts` slices over the block's threads
-// (so a short output uses every thread, and each thread's chain of
-// dependent L2 reads is shorter); matvec_total adds the slices in a fixed
-// order (deterministic).
-__device__ __forceinline__ int matvec_parts(int n_out, int nth) {
-  return n_out >= nth ? 1 : nth / n_out;
-}
-
-__device__ __forceinline__ void matvec_partial(const float* __restrict__ v,
-                                               const float* __restrict__ A, int lda, int n_in,
-                                               int n_out, float* __restrict__ part, int tid,
-                                               int nth) {
-  const int parts = matvec_parts(n_out, nth);
-  const int chunk = (n_in + parts - 1) / parts;
-  for (int t = tid; t < parts * n_out; t += nth) {
-    const int j = t % n_out, q = t / n_out;
-    const int i0 = min(n_in, q * chunk), i1 = min(n_in, i0 + chunk);
-    part[t] = col_dot(v + i0, A + i0 * lda, lda, j, i1 - i0);
-  }
-}
-
-__device__ __forceinline__ float matvec_total(const float* __restrict__ part, int n_out,
-                                              int nth, int j) {
-  const int parts = matvec_parts(n_out, nth);
-  float acc = 0.0f;
-  for (int q = 0; q < parts; ++q) acc += part[q * n_out + j];
-  return acc;
-}
 
 // The scalar section of one tick (one thread): u0 clips, hover fallback,
 // allocation + attitude PID, plant RK4 substeps, the packed row and the
@@ -161,30 +93,10 @@ __device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands
     float s[12];
 #pragma unroll
     for (int i = 0; i < 12; ++i) s[i] = st[i];
-    float ax = uav::clipf(z[0], P.accel_lo[0], P.accel_hi[0]);
-    float ay = uav::clipf(z[1], P.accel_lo[1], P.accel_hi[1]);
-    float az = uav::clipf(z[2], P.accel_lo[2], P.accel_hi[2]);
-    float yr = uav::clipf(z[3], -P.yawrate_limit, P.yawrate_limit);
-    float thrust_hi = 1.2f;
-    if (P.use_fallback) {
-      const float ex = ref[0] - s[0], ey = ref[1] - s[1], ez = ref[2] - s[2];
-      if (ex * ex + ey * ey + ez * ez > P.fallback_error_sq) {
-        ax = uav::clipf(1.5f * ex - 0.8f * s[3], P.fallback_lo[0], P.fallback_hi[0]);
-        ay = uav::clipf(1.5f * ey - 0.8f * s[4], P.fallback_lo[1], P.fallback_hi[1]);
-        az = uav::clipf(1.5f * ez - 0.8f * s[5], P.fallback_lo[2], P.fallback_hi[2]);
-        yr = 0.0f;
-        thrust_hi = P.fallback_thrust_ceiling;
-      }
-    }
-    const float cmd[5] = {ax, ay, az, yr, O.yaw_refs[t]};
     const float integral[3] = {aux[6], aux[7], aux[8]};
-    float c[4], att_sp[3], new_int[3];
-    uav::allocation(s, cmd, integral, (float)P.dt, pl.gravity, thrust_hi, c, att_sp,
-                    new_int);
-    float sn[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) sn[i] = s[i];
-    uav::rk4_substeps(sn, c, pl, P.dt, P.substeps);
+    float sn[12], c[4], att_sp[3], new_int[3], accel[3];
+    uav::mpc_command_plant(P, pl, z, ref, s, s, O.yaw_refs[t], integral, sn, c, att_sp,
+                           new_int, accel);
 
     float* row = O.packed + t * kPacked;
 #pragma unroll
@@ -195,9 +107,8 @@ __device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands
     for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
 #pragma unroll
     for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
-    row[22] = ax;
-    row[23] = ay;
-    row[24] = az;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
 #pragma unroll
     for (int i = 0; i < 4; ++i) row[25 + i] = z[i];
 #pragma unroll
@@ -366,23 +277,9 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
     }
     __syncthreads();
     // ---- composite ADMM: one (m, m) matvec per iteration -----------------
-    float* vsrc = va;
-    float* vdst = vb;
-    for (int it = 0; it < P.iterations; ++it) {
-      for (int j = tid; j < m; j += nth) {
-        const float GU = p0[j] + col_dot_smem(vsrc, P1s, m, j, m);
-        const float Gt = P.over_relax * GU + P.one_minus_over_relax * z[j];
-        const float zn = uav::clipf(Gt + y[j] / rho, lower[j], upper[j]);
-        const float yn = y[j] + rho * (Gt - zn);
-        z[j] = zn;
-        y[j] = yn;
-        vdst[j] = rho * zn - yn;
-      }
-      __syncthreads();
-      float* tmp = vsrc;
-      vsrc = vdst;
-      vdst = tmp;
-    }
+    const float* vsrc = uav::composite_admm<true>(P1s, m, p0, lower, upper, z, y, va, vb, rho,
+                                                  P.over_relax, P.one_minus_over_relax,
+                                                  P.iterations, tid, nth);
     // ---- primal U and predicted tail --------------------------------------
     matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, part, tid, nth);
     __syncthreads();

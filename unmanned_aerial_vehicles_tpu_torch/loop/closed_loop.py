@@ -1,16 +1,25 @@
 """Closed-loop flights (port of ``loop/closed_loop.py``).
 
 ``mpc_flight_rollout`` flies linear MPC @ 50 Hz -> acceleration clip ->
-geometric allocation -> body rates + thrust -> PX4-surrogate plant, in two
-tiers:
+geometric allocation -> body rates + thrust -> PX4-surrogate plant, in
+three tiers:
 
 * staged: one Python loop step per tick of PyTorch ops on the device
-  (``use_pallas_plant`` sends allocation + plant through kernel K2);
+  (``use_pallas_plant`` sends allocation + plant through kernel K2; an MPC
+  built with ``use_fused_controller`` or ``use_fused_admm`` solves through
+  K3 or K6);
+* single-tick fused (``use_fused_tick=True``, ``ticks_per_dispatch=1``):
+  one launch of kernel K4 per tick (shift, controller, allocation, plant),
+  the ``residual_fn`` GP computed by PyTorch ops between launches;
 * multi-tick (``use_fused_tick=True`` with ``ticks_per_dispatch > 1`` or a
   GP): K whole ticks per launch of kernel K5 with the GP posterior inside
   the kernel; with ``online_gp=`` the GP learns in flight — each launch's K
   transitions go into the ring buffer, and every ``refit_every`` ticks a
   masked Cholesky refit rebuilds the kernel's GP operands.
+
+``preview=True`` (every tier) gives the MPC per-stage references along the
+horizon, position at ``t + dt (1..N)`` and finite-difference velocity,
+instead of one point target per tick.
 
 ``pid_flight_rollout`` flies the cascade PID; with ``use_pallas_plant`` its
 plant substeps go through kernel K1.
@@ -107,6 +116,31 @@ def _references(reference_fn, num_steps, cfg, dtype, device):
     return pos.to(dtype), yaw.to(dtype)
 
 
+def _preview_references(reference_fn, num_steps, N, cfg, dtype, device):
+    """``(T, N nx)`` per-stage state references of every tick: position at
+    ``t + dt k`` for k = 1..N and the finite-difference velocity to the
+    next sample (JAX ``closed_loop.py:362-369``)."""
+    t = _times(num_steps, cfg.control_dt, dtype, device)
+    ts = t[:, None] + cfg.control_dt * torch.arange(1, N + 2, dtype=dtype, device=device)
+    pos, _ = reference_fn(ts.reshape(-1))
+    pos = pos.to(dtype).reshape(num_steps, N + 1, 3)
+    vel = (pos[:, 1:] - pos[:, :-1]) / cfg.control_dt
+    return torch.cat([pos[:, :-1], vel], dim=2).reshape(num_steps, -1)
+
+
+def _tick_references(reference_fn, num_steps, N, cfg, preview, dtype, device):
+    """``(pos_refs (T, 3), yaw_refs (T,), refs (T, N nx))``: the point
+    targets, and the state references the fused tiers hand their kernels
+    (the point target repeated over the horizon, or the preview)."""
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, device)
+    if preview:
+        refs = _preview_references(reference_fn, num_steps, N, cfg, dtype, device)
+    else:
+        zeros3 = torch.zeros(num_steps, 3, dtype=dtype, device=device)
+        refs = torch.cat([pos_refs, zeros3], dim=1).repeat(1, N)
+    return pos_refs, yaw_refs, refs.contiguous()
+
+
 def _stack_outs(rows: list[dict]) -> dict:
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
@@ -181,12 +215,14 @@ def mpc_flight_rollout(
     """Closed-loop linear-MPC flight (optionally GP-enhanced).
 
     ``residual_fn(X_guess, U_guess)`` produces the ``(N, 6)`` stage
-    residuals from the MPC's warm-start trajectory (staged path).
-    ``gp_posterior=`` / ``online_gp=`` put the GP inside the multi-tick
-    kernel. ``device`` defaults to ``cuda`` and must match the MPC's.
+    residuals from the MPC's warm-start trajectory (staged and single-tick
+    tiers). ``gp_posterior=`` / ``online_gp=`` put the GP inside the
+    multi-tick kernel. ``preview=True`` tracks per-stage references along
+    the horizon. ``device`` defaults to ``cuda`` and must match the MPC's.
     ``plain_kernels=True`` flies the kernels' plain PyTorch versions
     instead (the reference a kernel flight is held against on the card).
-    Returns a dict of stacked per-tick tensors."""
+    Returns a dict of stacked per-tick tensors; the fused tiers return
+    float32 whatever ``dtype`` is."""
     dev = resolve_device(device)
     if mpc.device != dev:
         raise ValueError(f"the MPC lives on {mpc.device}, the flight on {dev}")
@@ -202,17 +238,30 @@ def mpc_flight_rollout(
         )
     if initial_dataset is not None and online_gp is None:
         raise ValueError("initial_dataset= only makes sense with online_gp=")
-    if resume is not None or return_resume:
-        raise NotImplementedError(f"mid-flight checkpoint/resume is {_QUEUED}")
-    if preview:
-        raise NotImplementedError(f"trajectory preview is {_QUEUED}")
-    if uncertainty_fn is not None or mpc.config.tightening_factor > 0.0:
-        raise NotImplementedError(f"uncertainty tightening (tightening_factor > 0) is {_QUEUED}")
-    if output_correction_fn is not None:
-        raise NotImplementedError(f"the post-solve GP output correction is {_QUEUED}")
+    resuming = resume is not None or return_resume
+    if resuming and not cfg.use_fused_tick:
+        raise ValueError("mid-flight checkpoint/resume runs on the fused multi-tick path "
+                         "(use_fused_tick=True)")
     if cfg.fused_tick_ad:
         raise NotImplementedError(f"the autodiff wrappers of the fused tiers (K13) are {_QUEUED}")
     if cfg.use_fused_tick:
+        if uncertainty_fn is not None:
+            raise ValueError(
+                "uncertainty_fn is a staged-path hook; on the fused paths the kernel "
+                "computes the posterior variance itself"
+            )
+        if output_correction_fn is not None:
+            raise ValueError(
+                "output_correction_fn (the post-solve GP generation) is not supported on "
+                "the fused-tick paths; use the staged rollout (use_fused_tick=False)"
+            )
+        multitick = (online_gp is not None or cfg.ticks_per_dispatch > 1
+                     or gp_posterior is not None)
+        if multitick and resuming:
+            raise NotImplementedError(f"mid-flight checkpoint/resume is {_QUEUED}")
+        if multitick and mpc.config.tightening_factor > 0.0:
+            raise NotImplementedError(
+                f"uncertainty tightening (tightening_factor > 0) in K5 is {_QUEUED}")
         if online_gp is not None:
             if gp_posterior is not None or residual_fn is not None:
                 raise ValueError(
@@ -221,10 +270,10 @@ def mpc_flight_rollout(
                 )
             return _multitick_rollout(
                 mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
-                None, gp_gain, online_gp.gp.dt, online_gp=online_gp,
+                None, gp_gain, online_gp.gp.dt, preview, online_gp=online_gp,
                 initial_dataset=initial_dataset, plain_kernels=plain_kernels,
             )
-        if cfg.ticks_per_dispatch > 1 or gp_posterior is not None:
+        if multitick:
             if residual_fn is not None and gp_posterior is None:
                 raise ValueError(
                     "ticks_per_dispatch > 1 computes the GP inside the kernel: "
@@ -232,19 +281,29 @@ def mpc_flight_rollout(
                 )
             return _multitick_rollout(
                 mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
-                gp_posterior, gp_gain, gp_dt, plain_kernels=plain_kernels,
+                gp_posterior, gp_gain, gp_dt, preview, plain_kernels=plain_kernels,
             )
-        raise NotImplementedError(
-            "the single-tick fused path (ticks_per_dispatch=1, kernels K4 and "
-            f"K3) is {_QUEUED}; use ticks_per_dispatch > 1"
-        )
+        if mpc.config.tightening_factor > 0.0:
+            raise ValueError(
+                "uncertainty tightening on the fused single-tick path needs the staged "
+                "rollout or the multi-tick kernel (the GP and its variance run in-kernel there)"
+            )
+        if resuming:
+            raise ValueError("checkpoint/resume runs on the multi-tick path "
+                             "(ticks_per_dispatch > 1, or pass gp_posterior=/online_gp=)")
+        return _fused_tick_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
+                                   initial_state, residual_fn, preview, plain_kernels)
+    if uncertainty_fn is not None or mpc.config.tightening_factor > 0.0:
+        raise NotImplementedError(f"uncertainty tightening (tightening_factor > 0) is {_QUEUED}")
+    if output_correction_fn is not None:
+        raise NotImplementedError(f"the post-solve GP output correction is {_QUEUED}")
     if gp_posterior is not None:
         raise ValueError(
             "gp_posterior is only consumed by the multi-tick kernel path "
             "(use_fused_tick=True); pass a residual_fn on the staged path"
         )
     return _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
-                           initial_state, residual_fn, dtype, plain_kernels)
+                           initial_state, residual_fn, preview, dtype, plain_kernels)
 
 
 def batched_mpc_flight_sweep(
@@ -390,7 +449,7 @@ def batched_mpc_flight_sweep(
 
 
 def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
-                    initial_state, residual_fn, dtype, plain_kernels):
+                    initial_state, residual_fn, preview, dtype, plain_kernels):
     from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
 
     dev = initial_state.device
@@ -398,6 +457,9 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
     accel_lo = torch.tensor(cfg.accel_lower, **kw)
     accel_hi = torch.tensor(cfg.accel_upper, **kw)
     pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, dev)
+    N = mpc.config.horizon
+    ref_states = (_preview_references(reference_fn, num_steps, N, cfg, dtype, dev)
+                  .reshape(num_steps, N, 6) if preview else None)
     plant_row = _plant_row(body, rate_loop, dev) if cfg.use_pallas_plant else None
     alloc_plant = allocation_plant_tick_plain if plain_kernels else _allocation_plant_rows
 
@@ -410,7 +472,10 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
         residuals = (
             residual_fn(mpc_carry.X_prev, mpc_carry.U_prev) if residual_fn is not None else None
         )
-        u_opt, X_opt, mpc_carry = mpc.solve(mpc_carry, state[0:6], pos_ref, residuals)
+        u_opt, X_opt, mpc_carry = mpc.solve(
+            mpc_carry, state[0:6], pos_ref, residuals,
+            reference_states=ref_states[i] if preview else None, plain_kernels=plain_kernels,
+        )
 
         accel_des = torch.minimum(torch.maximum(u_opt[0:3], accel_lo), accel_hi)
         yawrate_des = torch.clamp(u_opt[3], -cfg.yawrate_limit, cfg.yawrate_limit)
@@ -471,7 +536,7 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
 
 def _multitick_rollout(
     mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
-    posterior, gp_gain, gp_dt,
+    posterior, gp_gain, gp_dt, preview,
     online_gp: OnlineFusedGPConfig | None = None,
     initial_dataset=None,
     plain_kernels: bool = False,
@@ -489,12 +554,7 @@ def _multitick_rollout(
         standardized_params,
     )
     from ..models.double_integrator import CONTROL_DIM, STATE_DIM
-    from ..ops.tick_pallas import (
-        build_gp_rows,
-        build_tick_data,
-        gpmpc_multitick_fused,
-        multitick_staged,
-    )
+    from ..ops.tick_pallas import build_gp_rows, gpmpc_multitick_fused, multitick_staged
 
     if not mpc.config.use_fused_controller:
         raise ValueError("use_fused_tick requires LinearMPCConfig.use_fused_controller=True")
@@ -504,7 +564,7 @@ def _multitick_rollout(
     N = mpc.config.horizon
     dev = initial_state.device
     f32 = torch.float32
-    data = build_tick_data(mpc._fc_data, N, CONTROL_DIM, STATE_DIM, device=dev)
+    data = mpc._tick_data
     online = online_gp is not None
     if online and online_gp.refit_every < K:
         raise ValueError(
@@ -553,9 +613,8 @@ def _multitick_rollout(
         n=N, nu=CONTROL_DIM, nx=STATE_DIM,
     )
 
-    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, f32, dev)
-    zeros3 = torch.zeros(num_steps, 3, dtype=f32, device=dev)
-    refs_all = torch.cat([pos_refs, zeros3], dim=1).repeat(1, N).contiguous()  # (T, N nx)
+    pos_refs, yaw_refs, refs_all = _tick_references(reference_fn, num_steps, N, cfg, preview,
+                                                    f32, dev)
 
     x0 = initial_state.to(f32)
     m = mpc.n_constraints
@@ -609,5 +668,70 @@ def _multitick_rollout(
     }
     if online:
         outs["gp_count"] = torch.cat(counts)
+    outs["final_state"] = state
+    return outs
+
+
+def _fused_tick_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+                        residual_fn, preview, plain_kernels):
+    """One launch of kernel K4 per tick (JAX ``closed_loop.py:455-566``):
+    the warm-start shift, the controller, the clips and fallback,
+    allocation and the plant run in the kernel; the ``residual_fn`` GP runs
+    as PyTorch ops on the same device between launches. Flies float32."""
+    from ..models.double_integrator import CONTROL_DIM, STATE_DIM
+    from ..ops.tick_pallas import gpmpc_tick_fused, gpmpc_tick_fused_plain
+
+    if not mpc.config.use_fused_controller:
+        raise ValueError("use_fused_tick requires LinearMPCConfig.use_fused_controller=True")
+    N = mpc.config.horizon
+    dev = initial_state.device
+    f32 = torch.float32
+    tick = gpmpc_tick_fused_plain if plain_kernels else gpmpc_tick_fused
+    statics = dict(
+        rho=mpc.config.admm_rho,
+        iterations=mpc.config.admm_iterations,
+        over_relax=mpc.config.admm_over_relax,
+        dt=cfg.control_dt, substeps=cfg.plant_substeps,
+        accel_lo=tuple(cfg.accel_lower), accel_hi=tuple(cfg.accel_upper),
+        yawrate_limit=cfg.yawrate_limit,
+        fallback_error_m=cfg.fallback_error_m,
+        fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
+        fallback_accel_scale=cfg.fallback_accel_scale,
+        loop_precision=cfg.fused_tick_loop_precision,
+        n=N, nu=CONTROL_DIM, nx=STATE_DIM,
+    )
+    data = mpc._tick_data
+    plant_row = _plant_row(body, rate_loop, dev)
+    pos_refs, yaw_refs, refs = _tick_references(reference_fn, num_steps, N, cfg, preview, f32,
+                                                dev)
+    w = torch.zeros(N * STATE_DIM, dtype=f32, device=dev)
+
+    state = initial_state.to(f32)
+    init = mpc.init_carry(state[0:6])
+    slack, dual = init.slack.to(f32), init.dual.to(f32)
+    X_prev, U_prev = init.X_prev.to(f32), init.U_prev.to(f32)
+    integral = torch.zeros(3, dtype=f32, device=dev)
+    rows = []
+    for i in range(num_steps):
+        if residual_fn is not None:
+            w = (cfg.control_dt * residual_fn(X_prev, U_prev).to(f32)).reshape(-1)
+        misc = torch.cat([yaw_refs[i : i + 1], integral])
+        packed, slack, dual, _, X_tail = tick(data, state, w, refs[i], misc, slack, dual,
+                                              plant_row, **statics)
+        U_prev = slack[: N * CONTROL_DIM].reshape(N, CONTROL_DIM)
+        X_prev = torch.cat([state[None, 0:6], X_tail.reshape(N, STATE_DIM)], dim=0)
+        rows.append({
+            "state": state,
+            "pos_ref": pos_refs[i],
+            "vel_ref": X_prev[1, 3:6],
+            "att_ref": packed[16:19],
+            "thrust": packed[12],
+            "rates_cmd": packed[13:16],
+            "accel_cmd": packed[22:25],
+            "u_mpc": U_prev[0],
+        })
+        state = packed[0:12]
+        integral = packed[19:22]
+    outs = _stack_outs(rows)
     outs["final_state"] = state
     return outs

@@ -2,8 +2,10 @@
 
 Kernels (CUDA C++ in ``csrc/``, each beside its plain PyTorch version):
 K1 ``plant_pallas.px4_plant_step_fused``, K2
-``plant_pallas.allocation_plant_tick_fused``, K5
-``tick_pallas.gpmpc_multitick_fused``, K7
+``plant_pallas.allocation_plant_tick_fused``, K3
+``controller_pallas.gpmpc_controller_fused``, K4
+``tick_pallas.gpmpc_tick_fused``, K5 ``tick_pallas.gpmpc_multitick_fused``,
+K6 ``admm_pallas.admm_box_qp_fused_composite``, K7
 ``rbf_pallas.rbf_posterior_mean_pallas``, K8
 ``controller_pallas.gpmpc_controller_structured_batched``.
 """

@@ -34,6 +34,7 @@ LIBRARIES = {
     "tick": "tick_kernel.cu",
     "controller": "controller_kernels.cu",
     "rbf": "rbf_kernels.cu",
+    "single_tick": "single_tick_kernels.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +48,9 @@ launch_counts: dict[str, int] = {
     "gpmpc_multitick_fused": 0,
     "gpmpc_controller_structured_batched": 0,
     "rbf_posterior_mean_pallas": 0,
+    "gpmpc_tick_fused": 0,
+    "gpmpc_controller_fused": 0,
+    "admm_box_qp_fused_composite": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -138,6 +142,41 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def shared_memory_optin(device) -> int:
+    """Bytes of dynamic shared memory one block on ``device`` may opt into."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    limit = _optin.get(index)
+    if limit is None:
+        limit = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+        _optin[index] = limit
+    return limit
+
+
+_optin: dict[int, int] = {}
+
+
+def p1_variant(device, smem_shared: int, smem_global: int) -> tuple[int, int]:
+    """``(p1_shared, bytes)`` for the single-tick kernels: the variant with
+    P1 in shared memory where that layout fits one block of ``device``, the
+    one reading P1 through L2 otherwise; raise if neither fits."""
+    limit = shared_memory_optin(device)
+    if smem_shared <= limit:
+        return 1, smem_shared
+    if smem_global <= limit:
+        return 0, smem_global
+    raise ValueError(f"the kernel's vectors need {smem_global} bytes of shared memory, more "
+                     f"than one block's {limit}")
+
+
+def require_aligned(what: str, *tensors) -> None:
+    """Raise unless every tensor starts 16-byte aligned (the kernels copy
+    them with 16-byte loads)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: operands copied with 16-byte loads must be 16-byte aligned")
 
 
 def require(t, name: str, shape: tuple, device) -> None:

@@ -1,6 +1,7 @@
-"""The condensed-QP controller's operands and the structured batched
-controller kernel K8 (port of ``ops/controller_pallas.py``:
-``FusedControllerData``, ``build_fused_controller_data``,
+"""The condensed-QP controller's operands, the fused controller kernel K3
+and the structured batched controller kernel K8 (port of
+``ops/controller_pallas.py``: ``FusedControllerData``,
+``build_fused_controller_data``, ``gpmpc_controller_fused``,
 ``StructuredBatchData``, ``build_structured_batch_data`` and
 ``gpmpc_controller_structured_batched``).
 
@@ -19,9 +20,19 @@ kernel is ``csrc/controller_kernels.cu``; its plain PyTorch version is
 plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
 
-The single-tick controller kernel (``gpmpc_controller_fused``, K3) is
-queued in ROADMAP.md; the multi-tick kernel (``ops.tick_pallas``) consumes
-``FusedControllerData`` today.
+K3 runs one controller tick of one flight from an already shifted warm
+start:
+
+    offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
+    box bounds [u_box; x_box - offset],  p0 = -(f @ P0mat),  M^-1 f,
+    ADMM loop (one (m, m) matvec per iteration),
+    U = -M^-1 f + (rho z - y) @ G M^-1,  X_tail = offset + U @ Su'.
+
+It reads the stacked device operands of ``ops.tick_pallas.FusedTickData``
+(the TPU kernel's ``Emb`` matmul is a lane offset here). The kernel is
+``csrc/single_tick_kernels.cu`` (``single_tick_kernel``, one block; K4 is
+the same kernel with the shift before it and the plant after it); its plain
+version is ``gpmpc_controller_fused_plain`` below.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch
 
 from .._device import resolve_device
 from . import _cuda
+from .admm_pallas import KERNEL_THREADS
 
 
 class FusedControllerData(NamedTuple):
@@ -83,6 +95,173 @@ def build_fused_controller_data(
         u_lo_row=row(u_lo, 0), u_hi_row=row(u_hi, 0),
         x_lo_row=row(x_lo, Nnu), x_hi_row=row(x_hi, Nnu),
     )
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused single-flight controller (and the launch K4 shares with it)
+# ---------------------------------------------------------------------------
+
+
+def controller_plain(data, x0, w, ref, z, y, rho: float, iterations: int,
+                     over_relax: float, tight=None):
+    """The condensed controller tick of K3, K4 and K5 in PyTorch tensor ops:
+    ``(z, y, U, X_tail)`` from the (already shifted) warm start ``z, y``.
+    ``tight`` (m,) backs the boxes off (K4's tightening row)."""
+    Nnu = data.Nnu
+    offset = torch.cat([x0, w]) @ data.SxSwT
+    f = (offset - ref) @ data.SuTqT
+    off_z = torch.cat([torch.zeros(Nnu, dtype=offset.dtype, device=offset.device), offset])
+    lower, upper = data.lo_row, data.hi_row
+    if tight is not None:
+        lower, upper = lower + tight, upper - tight
+    lower, upper = lower - off_z, upper - off_z
+    m = data.P1.shape[0]
+    pm = f @ data.PM
+    p0 = -pm[:m]
+    for _ in range(iterations):
+        GU = p0 + (rho * z - y) @ data.P1
+        Gt = over_relax * GU + (1.0 - over_relax) * z
+        z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+        y = y + rho * (Gt - z_new)
+        z = z_new
+    U = -pm[m:] + (rho * z - y) @ data.P0matT
+    return z, y, U, offset + U @ data.SuT
+
+
+def gpmpc_controller_fused_plain(data, x0, w, ref, z0, y0, rho: float, iterations: int,
+                                 over_relax: float = 1.6):
+    """Plain version of K3: ``(z (m,), y (m,), U (Nnu,), X_tail (Nnx,))``."""
+    return controller_plain(data, x0, w, ref, z0, y0, rho, iterations, over_relax)
+
+
+def controller_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4, nx: int = 6,
+                                   threads: int = KERNEL_THREADS) -> int:
+    """Dynamic shared memory of one K3/K4 block (csrc/single_tick_kernels.cu
+    layout): P1 (shared variant only), the double-buffered matvec input,
+    five m-vectors, [x0 | w], offset, ref and ref error, three U-space
+    vectors and the matvec slices."""
+    m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
+    r4 = lambda v: (v + 3) // 4 * 4
+    floats = ((r4(m * m) if p1_shared else 0) + 2 * r4(m) + 5 * m + nx + 4 * Nnx + 3 * Nnu
+              + threads + m + Nnu)
+    return 4 * floats
+
+
+class _SingleTickParams(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int), ("m", ctypes.c_int), ("iterations", ctypes.c_int),
+        ("substeps", ctypes.c_int), ("use_fallback", ctypes.c_int),
+        ("dt", ctypes.c_double),
+        ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float), ("yawrate_limit", ctypes.c_float),
+        ("fallback_error_sq", ctypes.c_float), ("fallback_thrust_ceiling", ctypes.c_float),
+        ("accel_lo", ctypes.c_float * 3), ("accel_hi", ctypes.c_float * 3),
+        ("fallback_lo", ctypes.c_float * 3), ("fallback_hi", ctypes.c_float * 3),
+    ]
+
+
+_SINGLE_TICK_OPERANDS = (
+    "SxSwT", "SuTqT", "PM", "P1", "P0matT", "SuT", "lo_row", "hi_row",
+    "x0", "w", "ref", "z_in", "y_in", "state", "misc", "tight", "plant_row",
+    "z_out", "y_out", "u_out", "xtail_out", "packed",
+)
+
+
+class _SingleTickOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _SINGLE_TICK_OPERANDS]
+
+
+def require_tick_data(data, n: int, device) -> None:
+    """Raise unless ``data`` (``ops.tick_pallas.FusedTickData``) holds the
+    operands of horizon ``n`` as contiguous float32 tensors on ``device``."""
+    Nnu, Nnx = data.Nnu, data.Nnx
+    if (Nnu, Nnx) != (4 * n, 6 * n):
+        raise ValueError(f"the tick data is laid out for Nnu={Nnu}, Nnx={Nnx}, not horizon {n}")
+    m = Nnu + Nnx
+    req = _cuda.require
+    req(data.P1, "P1", (m, m), device)
+    req(data.SxSwT, "SxSwT", (6 + Nnx, Nnx), device)
+    req(data.SuTqT, "SuTqT", (Nnx, Nnu), device)
+    req(data.PM, "PM", (Nnu, m + Nnu), device)
+    req(data.P0matT, "P0matT", (m, Nnu), device)
+    req(data.SuT, "SuT", (Nnu, Nnx), device)
+    req(data.lo_row, "lo_row", (m,), device)
+    req(data.hi_row, "hi_row", (m,), device)
+
+
+def launch_single_tick(entry: str, counter: str, data, n: int, tensors: dict, outs: dict,
+                       rho: float, iterations: int, over_relax: float, dt: float = 0.0,
+                       substeps: int = 0, accel_lo=(0.0,) * 3, accel_hi=(0.0,) * 3,
+                       yawrate_limit: float = 0.0, fallback_error_m: float = 0.0,
+                       fallback_thrust_ceiling: float = 1.5,
+                       fallback_accel_scale: float = 1.5) -> None:
+    """Launch K3 (``entry="gpmpc_controller_launch"``) or K4
+    (``"gpmpc_tick_launch"``) on the operands already checked by the
+    caller, with P1 in shared memory where it fits."""
+    dev = data.P1.device
+    m = data.P1.shape[0]
+    _cuda.require_aligned(counter, data.P1)
+    p1_shared, smem = _cuda.p1_variant(dev, controller_shared_memory_bytes(n, True),
+                                       controller_shared_memory_bytes(n, False))
+    floats3 = lambda v: (ctypes.c_float * 3)(*v)
+    params = _SingleTickParams(
+        n=n, m=m, iterations=int(iterations), substeps=int(substeps),
+        use_fallback=int(fallback_error_m > 0.0), dt=float(dt),
+        rho=rho, over_relax=over_relax, one_minus_over_relax=1.0 - over_relax,
+        yawrate_limit=yawrate_limit, fallback_error_sq=fallback_error_m**2,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        accel_lo=floats3(accel_lo), accel_hi=floats3(accel_hi),
+        fallback_lo=floats3(fallback_accel_scale * v for v in accel_lo),
+        fallback_hi=floats3(fallback_accel_scale * v for v in accel_hi),
+    )
+    ptrs = dict(SxSwT=data.SxSwT, SuTqT=data.SuTqT, PM=data.PM, P1=data.P1,
+                P0matT=data.P0matT, SuT=data.SuT, lo_row=data.lo_row, hi_row=data.hi_row,
+                **tensors, **outs)
+    ops = _SingleTickOperands(**{k: v.data_ptr() for k, v in ptrs.items()})
+    fn = getattr(_cuda.library("single_tick"), entry)
+    fn.argtypes = [ctypes.POINTER(_SingleTickParams), ctypes.POINTER(_SingleTickOperands),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem,
+                _cuda.stream_of(data.P1))
+    _cuda.check(status, counter)
+    _cuda.count_launch(counter)
+
+
+def gpmpc_controller_fused(
+    data,                 # ops.tick_pallas.FusedTickData
+    x0: torch.Tensor,     # (nx,) controller state
+    w: torch.Tensor,      # (Nnx,) stacked disturbance dt * D
+    ref: torch.Tensor,    # (Nnx,) stacked state reference
+    z0: torch.Tensor,     # (m,) shifted warm-start slack
+    y0: torch.Tensor,     # (m,) shifted warm-start dual
+    rho: float,
+    iterations: int,
+    over_relax: float = 1.6,
+):
+    """One fused controller tick (K3). Returns ``(z (m,), y (m,),
+    U (Nnu,), X_tail (Nnx,))`` in float32. P1 lies in shared memory where
+    it fits one block (N <= 23 on an H100) and is read through L2 beyond."""
+    dev = x0.device
+    Nnu, Nnx = data.Nnu, data.Nnx
+    n, m = Nnu // 4, Nnu + Nnx
+    require_tick_data(data, n, dev)
+    req = _cuda.require
+    req(x0, "x0", (6,), dev)
+    req(w, "w", (Nnx,), dev)
+    req(ref, "ref", (Nnx,), dev)
+    req(z0, "z0", (m,), dev)
+    req(y0, "y0", (m,), dev)
+    if dev.type == "cpu":
+        return gpmpc_controller_fused_plain(data, x0, w, ref, z0, y0, rho, iterations, over_relax)
+    if dev.type != "cuda":
+        raise ValueError(f"gpmpc_controller_fused runs on cuda or cpu, not {dev}")
+    empty = lambda k: torch.empty(k, dtype=torch.float32, device=dev)
+    outs = dict(z_out=empty(m), y_out=empty(m), u_out=empty(Nnu), xtail_out=empty(Nnx))
+    launch_single_tick("gpmpc_controller_launch", "gpmpc_controller_fused", data, n,
+                       dict(x0=x0, w=w, ref=ref, z_in=z0, y_in=y0), outs,
+                       rho, iterations, over_relax)
+    return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,19 @@
-"""The multi-tick GP-MPC kernel K5 (port of ``ops/tick_pallas.py``:
+"""The fused tick kernels K4 and K5 (port of ``ops/tick_pallas.py``:
 ``FusedTickData``, ``build_tick_data``, ``build_shift_matrix``,
-``GPRows``, ``build_gp_rows`` and ``gpmpc_multitick_fused``).
+``gpmpc_tick_fused``, ``GPRows``, ``build_gp_rows`` and
+``gpmpc_multitick_fused``).
 
-One launch runs K whole control ticks of one flight. Each tick:
+K4 ``gpmpc_tick_fused`` runs one whole control tick of one flight: the
+warm-start shift, the fused controller of K3 (``ops.controller_pallas``) on
+the controller state ``ctrl_state`` with the state boxes backed off by the
+``tight`` row, the u0 clips and hover fallback, allocation + attitude PID,
+and the plant's RK4 substeps on ``state``. The kernel is
+``csrc/single_tick_kernels.cu``; its plain version is
+``gpmpc_tick_fused_plain`` below. Packed row lanes (25): next state 0:12,
+control 12:16, att_sp 16:19, integral 19:22, accel_cmd 22:25.
+
+K5 ``gpmpc_multitick_fused`` runs K whole control ticks of one flight in
+one launch. Each tick:
 
     GP horizon posterior mean from the previous solution's features
     z, y   <- shifted warm start
@@ -39,16 +50,23 @@ import torch
 
 from .._device import resolve_device
 from . import _cuda
-from .controller_pallas import FusedControllerData
+from .controller_pallas import (
+    FusedControllerData,
+    controller_plain,
+    launch_single_tick,
+    require_tick_data,
+)
 from .plant_pallas import PLANT_LANES, _allocation, _read_plant, _rk4_substeps
 
 PACKED_LANES = 32
+TICK_PACKED_LANES = 25   # K4's packed row
 AUX_LANES = 9
 KERNEL_THREADS = 256   # csrc/tick_kernel.cu kThreads
 
 
 class FusedTickData(NamedTuple):
-    """Device float32 operands of the multi-tick kernel (row form)."""
+    """Device float32 operands of the fused controller and tick kernels K3,
+    K4 and K5 (row form)."""
 
     ctrl: FusedControllerData   # host source of the operands below
     ShiftT: torch.Tensor        # (m, m) warm-start shift: z_new = z @ ShiftT
@@ -160,6 +178,37 @@ def _check_statics(n, nu, nx, tighten_kappa):
         raise ValueError("horizon n must be >= 1")
 
 
+def command_plant_plain(z, ref, sc, s, yaw_ref, integral, plant, *, dt, substeps,
+                        accel_lo, accel_hi, yawrate_limit, fallback_error_m=0.0,
+                        fallback_thrust_ceiling=1.5, fallback_accel_scale=1.5):
+    """The scalar section of K4 and K5 in PyTorch tensor ops: the first
+    stage of the slack's U-block clipped, the hover fallback when the
+    controller state ``sc`` is farther than ``fallback_error_m`` from
+    ``ref[0:3]``, allocation + attitude PID on ``sc`` and the plant's RK4
+    substeps on ``s`` (both 12-tuples of 0-d tensors). Returns
+    ``(next state, control, att_sp, integral, accel_cmd)`` as tuples."""
+    ax = torch.clamp(z[0], accel_lo[0], accel_hi[0])
+    ay = torch.clamp(z[1], accel_lo[1], accel_hi[1])
+    az = torch.clamp(z[2], accel_lo[2], accel_hi[2])
+    yr = torch.clamp(z[3], -yawrate_limit, yawrate_limit)
+    thrust_hi = torch.full((), 1.2, dtype=torch.float32, device=z.device)
+    if fallback_error_m > 0.0:
+        # divergence guard: fallback PD hover law + recovery thrust
+        ex, ey, ez = ref[0] - sc[0], ref[1] - sc[1], ref[2] - sc[2]
+        diverged = ex * ex + ey * ey + ez * ez > fallback_error_m**2
+        ks = fallback_accel_scale
+        fb = lambda e, v, lo, hi: torch.clamp(1.5 * e - 0.8 * v, ks * lo, ks * hi)
+        ax = torch.where(diverged, fb(ex, sc[3], accel_lo[0], accel_hi[0]), ax)
+        ay = torch.where(diverged, fb(ey, sc[4], accel_lo[1], accel_hi[1]), ay)
+        az = torch.where(diverged, fb(ez, sc[5], accel_lo[2], accel_hi[2]), az)
+        yr = torch.where(diverged, 0.0, yr)
+        thrust_hi = torch.where(diverged, fallback_thrust_ceiling, thrust_hi)
+    c, att_sp, new_int = _allocation(
+        sc, (ax, ay, az, yr, yaw_ref), integral, dt, plant[1], thrust_ceiling=thrust_hi,
+    )
+    return _rk4_substeps(s, c, plant, dt, substeps), c, att_sp, new_int, (ax, ay, az)
+
+
 def multitick_staged(
     data: FusedTickData,
     gp: GPRows | None,
@@ -175,10 +224,14 @@ def multitick_staged(
     block for block, in PyTorch tensor ops on any device."""
     _check_statics(n, nu, nx, tighten_kappa)
     N = n
-    Nnu, Nnx = N * nu, N * nx
-    m = data.P1.shape[0]
+    Nnu = N * nu
     plant = _read_plant(plant_row)
-    gravity = plant[1]
+    plant_statics = dict(
+        dt=dt, substeps=substeps, accel_lo=accel_lo, accel_hi=accel_hi,
+        yawrate_limit=yawrate_limit, fallback_error_m=fallback_error_m,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+    )
     dev = state.device
     zeros3 = torch.zeros(N, 3, dtype=torch.float32, device=dev)
 
@@ -201,53 +254,16 @@ def multitick_staged(
             mean = Kst @ gp.alpha_s + gp.y_mean                    # (N, 6)
             w = torch.cat([zeros3, gp.scal[1] * mean[:, 3:6]], dim=1).reshape(-1)
         else:
-            w = torch.zeros(Nnx, dtype=torch.float32, device=dev)
+            w = torch.zeros(N * nx, dtype=torch.float32, device=dev)
 
         zy = torch.stack([z_prev, y_prev]) @ data.ShiftT            # exact 0/1 product
-        z, y = zy[0], zy[1]
-
-        offset = torch.cat([state[:nx], w]) @ data.SxSwT
-        f = (offset - ref) @ data.SuTqT
-        off_z = torch.cat([torch.zeros(Nnu, dtype=torch.float32, device=dev), offset])
-        lower = data.lo_row - off_z
-        upper = data.hi_row - off_z
-
-        pm = f @ data.PM
-        p0 = -pm[:m]
-        for _ in range(iterations):
-            GU = p0 + (rho * z - y) @ data.P1
-            Gt = over_relax * GU + (1.0 - over_relax) * z
-            z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
-            y = y + rho * (Gt - z_new)
-            z = z_new
-        U = -pm[m:] + (rho * z - y) @ data.P0matT
-        X_tail = offset + U @ data.SuT
-
-        ax = torch.clamp(z[0], accel_lo[0], accel_hi[0])
-        ay = torch.clamp(z[1], accel_lo[1], accel_hi[1])
-        az = torch.clamp(z[2], accel_lo[2], accel_hi[2])
-        yr = torch.clamp(z[3], -yawrate_limit, yawrate_limit)
-        integral = (aux[6], aux[7], aux[8])
+        z, y, U, X_tail = controller_plain(data, state[:nx], w, ref, zy[0], zy[1], rho,
+                                           iterations, over_relax)
         s = tuple(state[i] for i in range(12))
-        thrust_hi = torch.full((), 1.2, dtype=torch.float32, device=dev)
-        if fallback_error_m > 0.0:
-            # divergence guard: fallback PD hover law + recovery thrust
-            ex, ey, ez = ref[0] - s[0], ref[1] - s[1], ref[2] - s[2]
-            diverged = ex * ex + ey * ey + ez * ez > fallback_error_m**2
-            ks = fallback_accel_scale
-            fb = lambda e, v, lo, hi: torch.clamp(1.5 * e - 0.8 * v, ks * lo, ks * hi)
-            ax = torch.where(diverged, fb(ex, s[3], accel_lo[0], accel_hi[0]), ax)
-            ay = torch.where(diverged, fb(ey, s[4], accel_lo[1], accel_hi[1]), ay)
-            az = torch.where(diverged, fb(ez, s[5], accel_lo[2], accel_hi[2]), az)
-            yr = torch.where(diverged, 0.0, yr)
-            thrust_hi = torch.where(diverged, fallback_thrust_ceiling, thrust_hi)
-        c, att_sp, new_int = _allocation(
-            s, (ax, ay, az, yr, yaw_ref), integral, dt, gravity, thrust_ceiling=thrust_hi,
-        )
-        s_new = _rk4_substeps(s, c, plant, dt, substeps)
-
+        s_new, c, att_sp, new_int, accel = command_plant_plain(
+            z, ref, s, s, yaw_ref, (aux[6], aux[7], aux[8]), plant, **plant_statics)
         packed_rows.append(torch.stack(
-            s + c + att_sp + new_int + (ax, ay, az)
+            s + c + att_sp + new_int + accel
             + (z[0], z[1], z[2], z[3]) + (X_tail[3], X_tail[4], X_tail[5])
         ))
         state = torch.stack(s_new)
@@ -343,14 +359,7 @@ def gpmpc_multitick_fused(
     req(refs, "refs", (K, Nnx), dev)
     req(yaw_refs, "yaw_refs", (K,), dev)
     req(plant_row, "plant_row", (PLANT_LANES,), dev)
-    req(data.P1, "P1", (m, m), dev)
-    req(data.SxSwT, "SxSwT", (nx + Nnx, Nnx), dev)
-    req(data.SuTqT, "SuTqT", (Nnx, N * nu), dev)
-    req(data.PM, "PM", (N * nu, m + N * nu), dev)
-    req(data.P0matT, "P0matT", (m, N * nu), dev)
-    req(data.SuT, "SuT", (N * nu, Nnx), dev)
-    req(data.lo_row, "lo_row", (m,), dev)
-    req(data.hi_row, "hi_row", (m,), dev)
+    require_tick_data(data, N, dev)
     if use_gp:
         if gp is None:
             raise ValueError("use_gp=True needs GP rows")
@@ -424,3 +433,106 @@ def gpmpc_multitick_fused(
     _cuda.count_launch("gpmpc_multitick_fused")
     return (outs["packed"], outs["state_out"], outs["aux_out"], outs["xtail_out"],
             outs["z_out"], outs["y_out"])
+
+
+# ---------------------------------------------------------------------------
+# K4: one whole tick per launch
+# ---------------------------------------------------------------------------
+
+
+def gpmpc_tick_fused_plain(
+    data: FusedTickData, state, w, ref, misc, z0, y0, plant_row, *,
+    rho, iterations, over_relax, dt, substeps, accel_lo, accel_hi, yawrate_limit,
+    loop_precision="highest", n=0, nu=4, nx=6, fallback_error_m=0.0,
+    fallback_thrust_ceiling=1.5, fallback_accel_scale=1.5, ctrl_state=None, tight=None,
+):
+    """Plain version of K4: the same operands and outputs, in PyTorch
+    tensor ops on any device."""
+    cs = state if ctrl_state is None else ctrl_state
+    zy = torch.stack([z0, y0]) @ data.ShiftT            # exact 0/1 product
+    z, y, U, X_tail = controller_plain(data, cs[:nx], w, ref, zy[0], zy[1], rho, iterations,
+                                       over_relax, tight)
+    s_new, c, att_sp, new_int, accel = command_plant_plain(
+        z, ref, tuple(cs[i] for i in range(12)), tuple(state[i] for i in range(12)),
+        misc[0], (misc[1], misc[2], misc[3]), _read_plant(plant_row),
+        dt=dt, substeps=substeps, accel_lo=accel_lo, accel_hi=accel_hi,
+        yawrate_limit=yawrate_limit, fallback_error_m=fallback_error_m,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+    )
+    return torch.stack(s_new + c + att_sp + new_int + accel), z, y, U, X_tail
+
+
+def gpmpc_tick_fused(
+    data: FusedTickData,
+    state: torch.Tensor,      # (12,) plant state (the truth)
+    w: torch.Tensor,          # (Nnx,) stacked disturbance dt * D
+    ref: torch.Tensor,        # (Nnx,) stacked state reference
+    misc: torch.Tensor,       # (4,) = [yaw_ref, attitude integral (3)]
+    z0: torch.Tensor,         # (m,) UNshifted previous slack
+    y0: torch.Tensor,         # (m,) UNshifted previous dual
+    plant_row: torch.Tensor,  # (10,)
+    *,
+    rho: float,
+    iterations: int,
+    over_relax: float,
+    dt: float,
+    substeps: int,
+    accel_lo: tuple,
+    accel_hi: tuple,
+    yawrate_limit: float,
+    loop_precision: str = "highest",
+    n: int = 0,
+    nu: int = 4,
+    nx: int = 6,
+    fallback_error_m: float = 0.0,
+    fallback_thrust_ceiling: float = 1.5,
+    fallback_accel_scale: float = 1.5,
+    ctrl_state: torch.Tensor | None = None,   # (12,) the controller's state; None: state
+    tight: torch.Tensor | None = None,        # (m,) box back-off; None: zeros
+):
+    """One whole GP-MPC tick in one launch (K4).
+
+    Returns ``(packed (25,), z (m,), y (m,), U (Nnu,), X_tail (Nnx,))``.
+    ``n`` (the horizon) defaults to the one ``data`` is laid out for. P1
+    lies in shared memory where it fits one block (N <= 23 on an H100) and
+    is read through L2 beyond."""
+    N = n or data.Nnx // nx
+    _check_statics(N, nu, nx, 0.0)
+    dev = state.device
+    Nnx, m = N * nx, N * (nu + nx)
+    require_tick_data(data, N, dev)
+    req = _cuda.require
+    req(state, "state", (12,), dev)
+    if ctrl_state is not None:
+        req(ctrl_state, "ctrl_state", (12,), dev)
+    if tight is not None:
+        req(tight, "tight", (m,), dev)
+    req(w, "w", (Nnx,), dev)
+    req(ref, "ref", (Nnx,), dev)
+    req(misc, "misc", (4,), dev)
+    req(z0, "z0", (m,), dev)
+    req(y0, "y0", (m,), dev)
+    req(plant_row, "plant_row", (PLANT_LANES,), dev)
+    statics = dict(
+        rho=rho, iterations=iterations, over_relax=over_relax, dt=dt, substeps=substeps,
+        accel_lo=accel_lo, accel_hi=accel_hi, yawrate_limit=yawrate_limit,
+        fallback_error_m=fallback_error_m, fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+    )
+    if dev.type == "cpu":
+        return gpmpc_tick_fused_plain(data, state, w, ref, misc, z0, y0, plant_row, n=N,
+                                      nu=nu, nx=nx, ctrl_state=ctrl_state, tight=tight,
+                                      **statics)
+    if dev.type != "cuda":
+        raise ValueError(f"gpmpc_tick_fused runs on cuda or cpu, not {dev}")
+    if tight is None:
+        tight = torch.zeros(m, dtype=torch.float32, device=dev)
+    empty = lambda k: torch.empty(k, dtype=torch.float32, device=dev)
+    outs = dict(z_out=empty(m), y_out=empty(m), u_out=empty(N * nu), xtail_out=empty(Nnx),
+                packed=empty(TICK_PACKED_LANES))
+    tensors = dict(x0=state if ctrl_state is None else ctrl_state, w=w, ref=ref, z_in=z0,
+                   y_in=y0, state=state, misc=misc, tight=tight, plant_row=plant_row)
+    launch_single_tick("gpmpc_tick_launch", "gpmpc_tick_fused", data, N, tensors, outs,
+                       **statics)
+    return outs["packed"], outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
