@@ -20,7 +20,11 @@ Phases (any failure exits non-zero; nothing is caught):
    state, a tightening row and the hover fallback, and K6 at N=20 and
    N=25 (tolerance 1e-4 on every output), and ``LinearMPC.solve`` through
    K3 and K6 at both horizons in float32 and float64 against the same
-   solves through the plain versions (1e-4); time each kernel and its plain
+   solves through the plain versions (1e-4); K9 over K5's operands in four
+   configurations (the online-noisy filter, the observer with per-tick gust
+   rows, ``relinearize_every="dispatch"``, the hover fallback engaged;
+   tolerance 1e-4 on the packed lanes, the estimate, P and every carry, and
+   a second launch bit-identical); time each kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
@@ -37,11 +41,19 @@ Phases (any failure exits non-zero; nothing is caught):
    again with preview: 500), the frozen-GP multi-tick flight with preview
    (K=8, 400 ticks: K5 50 launches), and 100-tick staged flights with a
    ``use_fused_controller`` MPC (K3, 100 launches) and a ``use_fused_admm``
-   MPC (K6, 100 launches); each is held against the same flight through
-   the plain versions on the card;
-4. time microseconds per online tick and per single-tick tick as the
-   slope between two flight lengths, for the kernel path and the plain
-   path (the single-tick tick also without its GP), and microseconds per
+   MPC (K6, 100 launches), and the noisy tiers on one seeded sensor stream:
+   the online-noisy figure-8 (the EKF in K9, 500 ticks: K9 must launch 25
+   times, the ring buffer's count equal to the plain flight's), the 15-state
+   observer with a gust at 5 s (K9 25 launches; its disturbance estimate
+   must point into the wind), a 100-tick staged noisy flight (K3 and K1 100
+   launches each) and a 100-tick single-tick noisy flight (K4 100
+   launches); each is held against the same flight through the plain
+   versions on the card;
+4. time microseconds per online tick, per online-noisy tick and per
+   single-tick tick as the slope between two flight lengths, for the
+   kernel path and the plain path (the single-tick tick also without its
+   GP), the device's busy time and idle share from ``torch.profiler``
+   windows (sweep, single-tick, online-noisy), and microseconds per
    flight-tick of the 1024-flight sweep as the
    slope between 200 and 700 ticks (``gp_posterior`` with ``gp_every`` 1
    and 5, and ``residual_fn``), and the device's busy time per sweep tick
@@ -89,6 +101,11 @@ SINGLE_TOL = 1e-4             # K4, K3, K6 against their plain versions
 SINGLE_GAP_BOUND_M = 1e-3     # kernel vs plain flight: single-tick, preview, K3/K6 staged
 LONG_HORIZON = 25             # the package default: P1 read through L2
 K5_PREVIEW_K, K5_PREVIEW_T = 8, 400   # bench.py's frozen-GP preview flight
+
+K9_TOL = 1e-4                 # K9 against its plain version
+NOISY_GAP_BOUND_M = 1e-3      # kernel vs plain noisy flights
+NOISY_SHORT_T = 100           # the staged and single-tick noisy flights
+GUST_T_S = 5.0                # the observer flight's wind step
 
 
 def fail(msg: str) -> None:
@@ -161,6 +178,7 @@ def nbytes(*tensors) -> int:
 OPS_DERIVATIVE = 62
 OPS_RK4_SUBSTEP = 4 * OPS_DERIVATIVE + 3 * 24 + 12 * 7
 OPS_ALLOCATION = 75
+OPS_JACOBIAN = 120
 
 
 def ops_structured_controller(N: int, iterations: int, nx: int = 6) -> int:
@@ -196,6 +214,114 @@ def ops_posterior_mean(m: int, P: int, d: int = 10, out: int = 6) -> int:
     return m * P * (2 * d + 4 + 2 + 2 * out) + m * (3 * d + out)
 
 
+def ops_filter(n: int, relinearize_per_tick: bool = True) -> int:
+    """FP32 operations of one tick of K9's filter (csrc/noisy_tick_kernel.cu,
+    an FMA counts 2) at n = 12 or 15 states: the RK4 prediction, the four
+    stage Jacobians, the chain K2..K4 and Fd (per tick, or once per launch
+    with ``relinearize_per_tick`` False), the propagation of P and the 9
+    scalar fusions."""
+    fd = 4 * OPS_JACOBIAN + 3 * 144 * (2 * 12 + 2) + 144 * 7 + (n * n if n > 12 else 0)
+    propagate = n * n * 2 * n + n * n * (2 * n + 4)
+    fuse = 9 * (2 * n * n + 3 * n + 6)
+    return OPS_RK4_SUBSTEP + (fd if relinearize_per_tick else 0) + propagate + fuse + 3
+
+
+def check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics, k5_ops, fail_fn):
+    """Hold K9 against its plain version on the card in four
+    configurations (online-noisy operands; the observer with per-tick gust
+    rows; relinearize_every "dispatch"; the hover fallback engaged), over
+    K5's full-width operands (N=20, P=800, K=20), and time the first.
+    Returns the kernel's record for the JSON line."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.estimation import DisturbanceEKFConfig, EKFConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    K, N = statics["k_ticks"], statics["n"]
+    ekf, dob = EKFConfig(), DisturbanceEKFConfig()
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32)
+    r9 = ekf.r_diag(dev)
+    noise = (torch.sqrt(r9) * rnd(K, 9)).contiguous()
+    est12 = (x0 + rnd(12, scale=0.02)).contiguous()
+    A = rnd(15, 15, scale=0.02)
+    P15 = (torch.diag(dob.p0_diag(dev)) + A @ A.T).contiguous()
+    aux = torch.cat([est12[:6] + 0.01, torch.tensor([0.02, -0.01, 0.03, 1.02, 0.1, -0.05, 0.03],
+                                                    **f32)]).contiguous()
+    gust = torch.stack([torch.cat([prow[:7], torch.tensor([0.8 + 0.05 * k, 0.4 - 0.03 * k, 0.1],
+                                                          **f32)]) for k in range(K)])
+    nominal = torch.cat([prow[:7], torch.zeros(3, **f32)]).contiguous()
+    # the fallback case: every tick's reference 0.5 m from the estimate
+    ref_fb = torch.cat([est12[:3] + torch.tensor([0.5, 0.0, 0.0], **f32), torch.zeros(3, **f32)])
+    refs_fb = ref_fb.repeat(K, N).contiguous()
+    observer = dict(use_dob=True, nominal_row=nominal, bdist=tick_pallas.build_dob_bdist(0.02, dev))
+    base = dict(est=est12, P=P15[:12, :12].contiguous(), rows=prow[None], q=ekf.q_diag(dev),
+                refs=refs, kw={})
+    cases = {
+        "online-noisy": base,
+        "observer, per-tick gust rows": dict(
+            base, est=torch.cat([est12, torch.tensor([0.4, -0.2, 0.1], **f32)]), P=P15,
+            rows=gust.contiguous(), q=dob.q_diag(dev), kw=observer),
+        "relinearize_every=dispatch": dict(base, kw=dict(relinearize_per_tick=False)),
+        "fallback engaged": dict(base, refs=refs_fb, kw=dict(fallback_error_m=0.3)),
+    }
+    errs = {}
+    for label, c in cases.items():
+        args = (mpc._tick_data, gp, x0, c["est"], c["P"], aux, xtail, z0, y0, c["refs"], yaw,
+                noise, c["rows"], c["q"], r9)
+        kw = dict(statics, **c["kw"])
+        got = tick_pallas.gpmpc_noisy_multitick_fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = tick_pallas.noisy_multitick_staged(*args, **kw)
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail_fn(f"K9 ({label}) produced non-finite values")
+        errs[label] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if label == "fallback engaged":
+            lo, hi = (torch.tensor(v, **f32) for v in (statics["accel_lo"], statics["accel_hi"]))
+            mpc_cmd = torch.minimum(torch.maximum(want[0][0, 25:28], lo), hi)
+            if not float((want[0][0, 22:25] - mpc_cmd).abs().max()) > 1e-3:
+                fail_fn("K9's fallback case did not engage the hover fallback")
+        if label == "online-noisy":
+            main_args, main_out = args, got
+        again = tick_pallas.gpmpc_noisy_multitick_fused(*args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail_fn(f"K9 ({label}): a second launch on the same inputs differs")
+    print("K9 gpmpc_noisy_multitick_fused: max_abs_err against the plain version over the "
+          f"packed lanes 0:47, the estimate, P and the carries (N={N}, K={K}): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; shared memory {tick_pallas.noisy_shared_memory_bytes(N)} B")
+    for label, err in errs.items():
+        if not err <= K9_TOL:
+            fail_fn(f"K9 ({label}) disagrees with its plain version: {err}")
+    fn = lambda: tick_pallas.gpmpc_noisy_multitick_fused(*main_args, **statics)
+    plain = lambda: tick_pallas.noisy_multitick_staged(*main_args, **statics)
+    data = mpc._tick_data
+    n_bytes = (nbytes(data.SxSwT, data.SuTqT, data.PM, data.P1, data.P0matT, data.SuT,
+                      data.lo_row, data.hi_row, *gp, *main_args[2:])
+               + nbytes(*main_out))
+    # where K9's time goes: the same launch without the GP section (the
+    # filter then runs beside idle warps), and with one Fd per launch
+    variants = {
+        what: graph_ms(lambda: tick_pallas.gpmpc_noisy_multitick_fused(
+            *main_args, **{**statics, **change}), 20)
+        for what, change in (("without the GP", {"use_gp": False}),
+                             ("relinearize_every=dispatch", {"relinearize_per_tick": False}))
+    }
+    # cycles per tick by section, from the build with section clocks (the
+    # filter warp's four steps beside the GP warps, then the solve and the
+    # one-thread scalar section)
+    with _cuda.library_variant("noisy_tick", "noisy_tick_clocks"):
+        tick_pallas.noisy_section_cycles()
+        fn()
+        torch.cuda.synchronize()
+        sections = {k: v / K for k, v in tick_pallas.noisy_section_cycles().items()}
+    return dict(err=max(errs.values()), errs=errs, variants=variants, sections=sections,
+                ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+                host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
+                bound=bound_ms(n_bytes, k5_ops + K * ops_filter(12)),
+                filter_ops_per_tick=ops_filter(12))
+
+
 def main() -> int:
     import torch
 
@@ -211,6 +337,7 @@ def main() -> int:
     import numpy as np
 
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.estimation import noisy_mpc_flight_rollout
     from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
         ResidualGPConfig,
         build_horizon_residuals,
@@ -393,6 +520,21 @@ def main() -> int:
     }
     print(f"K5 device time per launch: {k5['ms'] * 1e3:.2f} us; "
           + "; ".join(f"without {w} {ms * 1e3:.2f} us" for w, ms in k5_without.items()))
+
+    # K9: K5's operands with the filter inside, four configurations
+    k9 = check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics,
+                  K_TICKS * (gp_ops + admm_ops + rest_ops), fail)
+    kernels["gpmpc_noisy_multitick_fused"] = k9
+    print(f"K9 device time per launch: {k9['ms'] * 1e3:.2f} us ({k9['ms'] * 1e3 / K_TICKS:.2f} "
+          f"us per tick; K5 on the same operands {k5['ms'] * 1e3:.2f} us), plain "
+          f"{k9['plain_ms'] * 1e3:.2f} us; with host overhead {k9['host_ms'] * 1e3:.2f} us; bound "
+          f"{k9['bound'][0] * 1e3:.4f} us ({k9['bound'][1]}; the filter "
+          f"{k9['filter_ops_per_tick']} operations per tick); "
+          + "; ".join(f"{w} {ms * 1e3:.2f} us" for w, ms in k9["variants"].items())
+          + f"; card: {card}")
+    whole = k9["sections"]["whole tick"]
+    print("K9 clock cycles per tick by section (build with section clocks): "
+          + "; ".join(f"{name} {c:.0f} ({c / whole:.1%})" for name, c in k9["sections"].items()))
 
     # K8 at the sweep's width, from random planes (a few slacks on their boxes)
     B = SWEEP_B
@@ -734,6 +876,64 @@ def main() -> int:
           f"{float(rms(preview_outs)):.6f} m; frozen-GP multi-tick with preview "
           f"{float(rms(frozen_preview_outs)):.6f} m")
 
+    # the noisy tiers: sensors -> filter -> MPC on the estimate -> plant on
+    # the truth, the same seeded sensor stream for the kernel and plain runs
+    def noisy(T, plain=False, **kw):
+        return noisy_mpc_flight_rollout(mpc, ref, T, generator=torch.Generator(device=dev).manual_seed(0),
+                                        device=dev, plain_kernels=plain, **kw)
+
+    def online_noisy(T, plain=False):
+        return noisy(T, plain, cfg=online_cfg, online_gp=ogp, gp_gain=0.1)
+
+    noisy_outs, noisy_plain = check_path(
+        f"online-noisy GP-MPC figure-8 (EKF in K9; N={HORIZON}, P={GP_POINTS}, K={K_TICKS}, "
+        f"{T_MAIN} ticks)",
+        lambda p: online_noisy(T_MAIN, p), {"gpmpc_noisy_multitick_fused": T_MAIN // K_TICKS},
+        NOISY_GAP_BOUND_M,
+    )
+    if not torch.equal(noisy_outs["gp_count"], noisy_plain["gp_count"]):
+        fail("online-noisy flight: the ring buffer's count differs from the plain flight's")
+    est_err = float((noisy_outs["state_est"] - noisy_outs["state"]).norm(dim=1).mean())
+    print(f"  gp_count at refits (ticks 250, 500): {int(noisy_outs['gp_count'][249])}, "
+          f"{int(noisy_outs['gp_count'][-1])}; mean estimate error {est_err:.4f} m "
+          "(12-state norm)")
+
+    gust_wind = torch.tensor([1.5, 0.8, 0.0], **f32)
+    base_wind = torch.tensor(wind, **f32)
+
+    def wind_fn(t):
+        return torch.where((t >= GUST_T_S)[:, None], gust_wind, base_wind)
+
+    observer_outs, _ = check_path(
+        f"observer figure-8 with a gust at {GUST_T_S} s (15-state observer in K9, K={K_TICKS}, "
+        f"{T_MAIN} ticks)",
+        lambda p: noisy(T_MAIN, p, cfg=online_cfg, body=RigidBodyParams(wind=wind),
+                        disturbance_observer=True, wind_fn=wind_fn),
+        {"gpmpc_noisy_multitick_fused": T_MAIN // K_TICKS}, NOISY_GAP_BOUND_M, record=False,
+    )
+    d_tail = observer_outs["disturbance_est"][-100:].mean(dim=0)
+    print(f"  disturbance estimate over the last 100 ticks: {[round(float(v), 4) for v in d_tail]}"
+          f" (wind after the gust {gust_wind.tolist()})")
+    if not all(float(d_tail[i]) * float(gust_wind[i]) > 0 for i in (0, 1)):
+        fail(f"the observer's disturbance estimate {d_tail.tolist()} does not point into the wind")
+    check_path(
+        f"staged noisy flight (EKF as PyTorch ops, solve through K3, plant K1; "
+        f"{NOISY_SHORT_T} ticks)",
+        lambda p: noisy(NOISY_SHORT_T, p, body=RigidBodyParams(wind=wind),
+                        cfg=FlightLoopConfig(use_pallas_plant=True)),
+        {"gpmpc_controller_fused": NOISY_SHORT_T, "px4_plant_step_fused": NOISY_SHORT_T},
+        NOISY_GAP_BOUND_M, record=False,
+    )
+    check_path(
+        f"single-tick noisy flight (K4 on the estimate, the GP as residual_fn; "
+        f"{NOISY_SHORT_T} ticks)",
+        lambda p: noisy(NOISY_SHORT_T, p, cfg=FlightLoopConfig(use_fused_tick=True),
+                        residual_fn=resid),
+        {"gpmpc_tick_fused": NOISY_SHORT_T}, NOISY_GAP_BOUND_M, record=False,
+    )
+    print(f"  figure-8 RMS: online-noisy {float(rms(noisy_outs)):.6f} m (online without noise "
+          f"{float(rms(outs)):.6f} m); observer with the gust {float(rms(observer_outs)):.6f} m")
+
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
     def slope_us(fly, lengths, reps=2, warm_T=None):
         """Microseconds per tick of ``fly(T)``: the slope of the best of
@@ -771,6 +971,13 @@ def main() -> int:
     us_single_no_gp = slope_us(lambda T: single_tick(T, gp=False), T_SLOPE)
     print(f"single-tick tick without the GP (residual_fn=None): {us_single_no_gp:.2f} us/tick "
           f"through K4 (same slope); card: {card}")
+    us_noisy = slope_us(lambda T: online_noisy(T), T_SLOPE)
+    us_noisy_plain = slope_us(lambda T: online_noisy(T, True), T_SLOPE_PLAIN)
+    print(f"online-noisy tick: {us_noisy:.2f} us/tick through K9 (slope {T_SLOPE[0]}->"
+          f"{T_SLOPE[1]} ticks; K9's device time {k9['ms'] * 1e3 / K_TICKS:.2f} us per tick of "
+          f"it), {us_noisy_plain:.2f} us/tick through the plain version (slope "
+          f"{T_SLOPE_PLAIN[0]}->{T_SLOPE_PLAIN[1]}); online tick without noise {us_kernel:.2f} "
+          f"us; card: {card}")
 
     def sweep_slope_us(**kw):
         """Microseconds per sweep tick, slope between the two lengths."""
@@ -810,15 +1017,18 @@ def main() -> int:
                           and e.self_device_time_total > 0), reverse=True)
         return sum(t for t, _ in by_name) / ticks, by_name
 
-    for label, fly, tick_us in (
+    idle_share = {}
+    for label, fly, tick_us, ticks in (
         ("50 sweep ticks (gp_every=1)", lambda T: sweep(T, **gp_kw),
-         us_sweep_tick["gp_posterior, gp_every=1"]),
-        ("50 single-tick ticks", lambda T: single_tick(T), us_single),
+         us_sweep_tick["gp_posterior, gp_every=1"], 50),
+        ("50 single-tick ticks", lambda T: single_tick(T), us_single, 50),
+        ("100 online-noisy ticks", lambda T: online_noisy(T), us_noisy, 100),
     ):
-        busy_us, by_name = device_busy(fly)
+        busy_us, by_name = device_busy(fly, ticks)
+        idle_share[label] = 1.0 - busy_us / tick_us
         print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
-              f"idle share {1.0 - busy_us / tick_us:.3f}; by kernel (us per tick): "
-              + "; ".join(f"{name[:60]} {t / 50:.2f}" for t, name in by_name[:8]))
+              f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
+              + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
     # two parts of the single-tick tick, each timed alone with the host's
     # overhead (not in the tick's window: the host's run-to-run spread is
     # larger than the rest of the loop, so no remainder is derived)
@@ -847,6 +1057,8 @@ def main() -> int:
             "controller_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:449"),
         "rbf_posterior_mean_pallas": ("rbf_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/rbf_pallas.py:221"),
         "gpmpc_tick_fused": ("single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_pallas.py:276"),
+        "gpmpc_noisy_multitick_fused": (
+            "noisy_tick_kernel.cu", "unmanned_aerial_vehicles_tpu/ops/tick_pallas.py:1191"),
         "gpmpc_controller_fused": (
             "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:152"),
         "admm_box_qp_fused_composite": (
@@ -874,6 +1086,12 @@ def main() -> int:
         "sweep_rms_mean_m_plain": float(sweep_rms_plain.mean()),
         "us_per_single_tick": us_single, "us_per_single_tick_plain": us_single_plain,
         "us_per_single_tick_no_gp": us_single_no_gp,
+        "us_per_online_noisy_tick": us_noisy, "us_per_online_noisy_tick_plain": us_noisy_plain,
+        "idle_share_online_noisy": idle_share["100 online-noisy ticks"],
+        "fig8_rms_m_online_noisy_500": float(rms(noisy_outs)),
+        "fig8_rms_m_observer_gust_500": float(rms(observer_outs)),
+        "k9_max_abs_err_by_case": k9["errs"],
+        "k9_cycles_per_tick_by_section": k9["sections"],
         "fig8_rms_m_single_tick_500": float(rms(single_outs)),
         "fig8_rms_m_single_tick_preview_500": float(rms(preview_outs)),
         "fig8_rms_m_frozen_preview_400": float(rms(frozen_preview_outs)),

@@ -126,6 +126,9 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.ops.admm_pallas\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.rbf_pallas\n"
         "import unmanned_aerial_vehicles_tpu_torch.parallel.sweep\n"
+        "import unmanned_aerial_vehicles_tpu_torch.estimation.ekf\n"
+        "import unmanned_aerial_vehicles_tpu_torch.estimation.disturbance\n"
+        "import unmanned_aerial_vehicles_tpu_torch.estimation.noisy_loop\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"

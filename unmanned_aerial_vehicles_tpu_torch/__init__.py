@@ -20,8 +20,9 @@ Sub-packages
 ``trajectories``  the ramped figure-8 reference
 ``control``       geometric allocation, condensed linear MPC
 ``gp``            exact GP and the residual-dynamics ring buffer
+``estimation``    EKF, disturbance observer, noisy-sensor flights
 ``ops``           box-QP ADMM and the hand-written kernels (plant, tick,
-                  batched controller, GP posterior mean)
+                  batched controller, GP posterior mean, noisy tick)
 ``loop``          closed-loop flights and the batched throughput sweep
 ``parallel``      flight sweeps reduced to tracking aggregates
 ``convert``       carries the JAX package's values (as numpy) across

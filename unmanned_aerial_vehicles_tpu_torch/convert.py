@@ -184,3 +184,30 @@ def composite_admm_operands_from_numpy(P1_pad, GMinvT_pad, horizon: int, nu: int
     n, m = horizon * nu, horizon * (nu + nx)
     f = lambda a, rows, cols: _t(np.asarray(a)[:rows, :cols], torch.float32, dev).contiguous()
     return f(P1_pad, m, m), f(GMinvT_pad, n, m)
+
+
+def noisy_carry_from_numpy(state_row, est_row, p_mat, aux_row, xtail_row, z_row, y_row,
+                           horizon: int, n_est: int = 12, nu: int = 4, nx: int = 6, device=None):
+    """The K9 carries ``(state (12,), est (n_est,), P (n_est, n_est),
+    aux (13,), xtail (Nnx,), z (m,), y (m,))`` from the JAX noisy kernel's
+    padded rows and its (128, 128) covariance (aux lanes there: estimate
+    x0 in 0:6, integral in 8:11, applied control in 11:15)."""
+    dev = resolve_device(device)
+    f = lambda a: _t(a, torch.float32, dev).contiguous()
+    m = horizon * (nu + nx)
+    aux = np.asarray(aux_row)[0]
+    return (
+        f(np.asarray(state_row)[0, :12]),
+        f(np.asarray(est_row)[0, :n_est]),
+        f(np.asarray(p_mat)[:n_est, :n_est]),
+        f(np.concatenate([aux[0:6], aux[8:11], aux[11:15]])),
+        f(np.asarray(xtail_row)[0, : horizon * nx]),
+        f(np.asarray(z_row)[0, :m]),
+        f(np.asarray(y_row)[0, :m]),
+    )
+
+
+def plant_rows_from_numpy(rows, device=None) -> torch.Tensor:
+    """``(R, 10)`` plant rows from the JAX package's ``(R, 16)`` ones (the
+    10 plant lanes of its padded row)."""
+    return _t(np.asarray(rows)[:, :10], torch.float32, resolve_device(device)).contiguous()

@@ -1,10 +1,10 @@
 // Scalar device math of the PX4 surrogate plant and the geometric
 // allocation, shared by the plant kernels (plant_kernels.cu: K1, K2), the
-// multi-tick tick kernel (tick_kernel.cu: K5) and the single-tick tick
-// kernel (single_tick_kernels.cu: K4).
+// multi-tick tick kernels (tick_kernel.cu: K5; noisy_tick_kernel.cu: K9)
+// and the single-tick tick kernel (single_tick_kernels.cu: K4).
 //
 // A transcription of the JAX package's ops/plant_pallas.py scalar
-// functions (_derivative, _rk4_substeps, _allocation), which the port's
+// functions (_derivative, _rk4_substeps, _jacobian_rows, _allocation), which the port's
 // plain versions (ops/plant_pallas.py) mirror. All float32, no fast math:
 // sinf/cosf/asinf/sqrtf are the accurate library versions. The compiler
 // contracts a*b+c into FMAs, so results agree with the plain versions to
@@ -117,6 +117,176 @@ __device__ __forceinline__ void rk4_substeps(float s[12], const float c[4], cons
     for (int i = 0; i < 12; ++i)
       s[i] = s[i] + h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
   }
+}
+
+// The warp-cooperative forms below (K9's filter warp) spread the slow,
+// serial pieces of derivative() and of the closed-form Jacobian (the
+// accurate sine and cosine and the IEEE divisions, each behind a slow-path
+// branch) over the lanes of one warp and share the results by shuffles:
+// the warp waits for one sincosf and one division where a single thread
+// waits for six and seven in a row. Every lane must call them with the
+// same arguments (all 32 lanes active).
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// derivative() on a whole warp; every lane gets the whole out. Lanes 0-2
+// form the sine and cosine of one Euler angle each, lanes 0-6 one quotient
+// each. The same arithmetic as derivative() (sincosf for sinf and cosf).
+__device__ __forceinline__ void derivative_warp(const float s[12], const float c[4],
+                                                const Plant& pl, int lane, float out[12]) {
+  float sn, cs;
+  sincosf(s[6 + lane % 3], &sn, &cs);
+  const float cphi = __shfl_sync(kFullMask, cs, 0), sphi = __shfl_sync(kFullMask, sn, 0);
+  const float cth = __shfl_sync(kFullMask, cs, 1), sth = __shfl_sync(kFullMask, sn, 1);
+  const float cpsi = __shfl_sync(kFullMask, cs, 2), spsi = __shfl_sync(kFullMask, sn, 2);
+  const float vx = s[3], vy = s[4], vz = s[5];
+  const float p = s[9], q = s[10], r = s[11];
+  const float cth_safe = fabsf(cth) < 1e-6f ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
+
+  // one quotient per lane: tan, the two psi_dot terms, the three rate lags, k/m
+  const int k = lane & 7;
+  const float num = k == 0 ? sth : k == 1 ? q * sphi : k == 2 ? r * cphi : k == 3 ? c[1] - p
+                  : k == 4 ? c[2] - q : k == 5 ? c[3] - r : pl.k_drag;
+  const float den = k == 0 ? cth : k < 3 ? cth_safe : k == 3 ? pl.tau_r : k == 4 ? pl.tau_p
+                  : k == 5 ? pl.tau_y : pl.mass;
+  const float quo = num / den;
+  const float tth = __shfl_sync(kFullMask, quo, 0);
+  const float psi_q = __shfl_sync(kFullMask, quo, 1), psi_r = __shfl_sync(kFullMask, quo, 2);
+  const float p_dot = __shfl_sync(kFullMask, quo, 3), q_dot = __shfl_sync(kFullMask, quo, 4);
+  const float r_dot = __shfl_sync(kFullMask, quo, 5), kd = __shfl_sync(kFullMask, quo, 6);
+
+  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
+  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
+  const float t2 = cphi * cth;
+  const float a_thrust = c[0] * pl.thrust_gain;
+  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
+  const float sq = avx * avx + avy * avy + avz * avz;
+  const float speed = sq > 0.0f ? sqrtf(sq) : 0.0f;
+  out[0] = vx;
+  out[1] = vy;
+  out[2] = vz;
+  out[3] = a_thrust * t0 - kd * speed * avx;
+  out[4] = a_thrust * t1 - kd * speed * avy;
+  out[5] = a_thrust * t2 - kd * speed * avz - pl.gravity;
+  out[6] = p + q * sphi * tth + r * cphi * tth;
+  out[7] = q * cphi - r * sphi;
+  out[8] = psi_q + psi_r;
+  out[9] = p_dot;
+  out[10] = q_dot;
+  out[11] = r_dot;
+}
+
+// One RK4 step of length dt from s on a whole warp (the noisy tick's filter
+// prediction): the stage states x2, x3, x4 (the linearisation points of the
+// transition Jacobian) and the predicted state xp, the same on every lane.
+__device__ __forceinline__ void rk4_stages_warp(const float s[12], const float c[4],
+                                                const Plant& pl, double dt, int lane,
+                                                float x2[12], float x3[12], float x4[12],
+                                                float xp[12]) {
+  const float hf = (float)dt, half_h = (float)(0.5 * dt), h6 = (float)(dt / 6.0);
+  float k[12], acc[12];
+  derivative_warp(s, c, pl, lane, acc);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x2[i] = s[i] + half_h * acc[i];
+  derivative_warp(x2, c, pl, lane, k);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    x3[i] = s[i] + half_h * k[i];
+    acc[i] = acc[i] + 2.0f * k[i];
+  }
+  derivative_warp(x3, c, pl, lane, k);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    x4[i] = s[i] + hf * k[i];
+    acc[i] = acc[i] + 2.0f * k[i];
+  }
+  derivative_warp(x4, c, pl, lane, k);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) xp[i] = s[i] + h6 * (acc[i] + k[i]);
+}
+
+// d(derivative)/d(state) in closed form at the four RK4 stage states xs
+// (4 x 12) on a whole warp, row-major into J + 144 g for stage g (12 x 12
+// each): identity from velocity to position, the airspeed drag -(k/m)(speed
+// I + av av' / speed) (zero at zero airspeed), the thrust direction's
+// Euler-angle derivatives on the acceleration rows, the Euler-rate
+// transform's derivatives on the attitude rows, -1/tau on the rate rows.
+// Only the entries that are not structurally zero are written: the caller
+// zeroes J once. Unlike derivative(), the phi row uses the guarded tangent
+// sin / cth_safe (the same for any bounded attitude). A transcription of
+// the JAX package's ops/plant_pallas.py:_jacobian_rows: lanes 0-11 form the
+// sine and cosine of one angle of one stage and a quotient each (per stage
+// 1 / cth_safe, sth / cth_safe, 1 / |airspeed|), lanes 12-15 k/m and the
+// three -1/tau; lane g < 4 then writes stage g's entries.
+__device__ __forceinline__ void jacobians_warp(const float* xs, const float c[4],
+                                               const Plant& pl, int lane, float* J) {
+  const int l12 = lane < 12 ? lane : 11, g3 = 3 * (l12 / 3);
+  const float* sg = xs + 12 * (l12 / 3);   // this lane's stage state
+  float sn, cs;
+  sincosf(sg[6 + lane % 3], &sn, &cs);
+  // lanes 0-11: the quotients of stage lane / 3; lanes 12-15 the plant's
+  const float cth = __shfl_sync(kFullMask, cs, g3 + 1), sth = __shfl_sync(kFullMask, sn, g3 + 1);
+  const float cth_safe = fabsf(cth) < 1e-6f ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
+  const float avx = sg[3] - pl.wx, avy = sg[4] - pl.wy, avz = sg[5] - pl.wz;
+  const float sq = avx * avx + avy * avy + avz * avz;
+  const int w = lane < 12 ? lane % 3 : lane - 9;   // 3: k/m, 4-6: the rate lags
+  const float num = w == 0 ? 1.0f : w == 1 ? sth : w == 2 ? 1.0f : w == 3 ? pl.k_drag : -1.0f;
+  const float den = w < 2 ? cth_safe : w == 2 ? (sq > 0.0f ? sqrtf(sq) : 1.0f)
+                  : w == 3 ? pl.mass : w == 4 ? pl.tau_r : w == 5 ? pl.tau_p : pl.tau_y;
+  float quo = num / den;
+  if (w == 2 && !(sq > 0.0f)) quo = 0.0f;
+  const int g = lane & 3, b = 3 * g;   // lane g < 4 writes stage g
+  const float cphi = __shfl_sync(kFullMask, cs, b), sphi = __shfl_sync(kFullMask, sn, b);
+  const float cth_g = __shfl_sync(kFullMask, cs, b + 1), sth_g = __shfl_sync(kFullMask, sn, b + 1);
+  const float cpsi = __shfl_sync(kFullMask, cs, b + 2), spsi = __shfl_sync(kFullMask, sn, b + 2);
+  const float sec = __shfl_sync(kFullMask, quo, b), tth = __shfl_sync(kFullMask, quo, b + 1);
+  const float inv_speed = __shfl_sync(kFullMask, quo, b + 2);
+  const float kd = __shfl_sync(kFullMask, quo, 12), nr = __shfl_sync(kFullMask, quo, 13);
+  const float np = __shfl_sync(kFullMask, quo, 14), ny = __shfl_sync(kFullMask, quo, 15);
+  if (lane >= 4) return;
+
+  const float* s = xs + 12 * g;
+  const float q = s[10], r = s[11];
+  const float sec2 = sec * sec;
+  const float av[3] = {s[3] - pl.wx, s[4] - pl.wy, s[5] - pl.wz};
+  const float sqg = av[0] * av[0] + av[1] * av[1] + av[2] * av[2];
+  const float speed = sqg * inv_speed;
+  const float a = c[0] * pl.thrust_gain;
+  const float dphi[3] = {a * (sphi * sth_g * cpsi - cphi * spsi),
+                         a * (sphi * sth_g * spsi + cphi * cpsi), a * (-sphi * cth_g)};
+  const float dth[3] = {a * (-cphi * cth_g * cpsi), a * (-cphi * cth_g * spsi),
+                        a * (-cphi * sth_g)};
+  const float dpsi[3] = {a * (cphi * sth_g * spsi - sphi * cpsi),
+                         a * (-(cphi * sth_g * cpsi + sphi * spsi)), 0.0f};
+  float* Jg = J + 144 * g;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    Jg[i * 12 + 3 + i] = 1.0f;
+    float* row = Jg + (3 + i) * 12;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      row[3 + j] = -kd * ((i == j ? speed : 0.0f) + av[i] * av[j] * inv_speed);
+    row[6] = dphi[i];
+    row[7] = dth[i];
+    row[8] = dpsi[i];
+  }
+  float* r6 = Jg + 6 * 12;
+  r6[6] = q * cphi * tth - r * sphi * tth;
+  r6[7] = (q * sphi + r * cphi) * sec2;
+  r6[9] = 1.0f;
+  r6[10] = sphi * tth;
+  r6[11] = cphi * tth;
+  float* r7 = Jg + 7 * 12;
+  r7[6] = -q * sphi - r * cphi;
+  r7[10] = cphi;
+  r7[11] = -sphi;
+  float* r8 = Jg + 8 * 12;
+  r8[6] = (q * cphi - r * sphi) * sec;
+  r8[7] = (q * sphi + r * cphi) * sth_g * sec2;
+  r8[10] = sphi * sec;
+  r8[11] = cphi * sec;
+  Jg[9 * 12 + 9] = nr;
+  Jg[10 * 12 + 10] = np;
+  Jg[11 * 12 + 11] = ny;
 }
 
 // Geometric allocation + attitude PID (Kp 3.2, Ki 0.6, Kd 0.6, integral

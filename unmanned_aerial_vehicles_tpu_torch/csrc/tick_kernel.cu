@@ -13,9 +13,11 @@
 // (~290 KB at N=20) and the GP operands (~45 KB at P=800) are read through
 // L1/L2 every tick.
 //
-// The matvecs, the composite-ADMM iteration (block_linalg.cuh) and the
-// scalar section (plant_math.cuh mpc_command_plant) are the same device code
-// that the single-tick kernels K3, K4 and K6 run (single_tick_kernels.cu).
+// The per-tick phases (GP, shift, condensed solve: multitick_phases.cuh)
+// are the same device code that the noisy kernel K9 runs
+// (noisy_tick_kernel.cu); the matvecs, the composite-ADMM iteration
+// (block_linalg.cuh) and the scalar section (plant_math.cuh
+// mpc_command_plant) are those of the single-tick kernels K3, K4 and K6.
 //
 // Per tick, in block-wide phases separated by __syncthreads():
 //   GP     features of the UNshifted previous solution -> scaled features;
@@ -49,7 +51,7 @@
 
 #include <cuda_runtime.h>
 
-#include "block_linalg.cuh"
+#include "multitick_phases.cuh"
 #include "plant_math.cuh"
 
 // Host-visible (external linkage): the C entry point takes pointers to
@@ -71,13 +73,10 @@ struct TickOperands {
 
 namespace {
 
-using uav::matvec_partial;
-using uav::matvec_total;
-
 constexpr int kThreads = 256;   // ops/tick_pallas.py KERNEL_THREADS
 constexpr int kNu = 4;
 constexpr int kNx = 6;
-constexpr int kFeat = kNu + kNx;
+constexpr int kFeat = uav::kTickFeat;
 constexpr int kPacked = 32;
 constexpr int kAux = 9;
 
@@ -176,119 +175,21 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
   const float rho = P.rho;
   __syncthreads();
 
+  const uav::GPOperands gp{O.ztrT, O.sq2, O.alpha_s, O.y_mean, O.inv_ls, O.scal, P.n_train};
+  const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
+  const uav::TickVectors vec{P1s,  lo,     hi,     ref,   va,    vb, z, y, p0, lower,
+                             upper, xw,   xtail, offset, dref, f, minvf, U, part};
   for (int t = 0; t < P.k_ticks; ++t) {
     for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
     if (tid < kNx) xw[tid] = st[tid];
-
-    // ---- GP horizon posterior mean ---------------------------------------
     if (P.use_gp) {
-      const float sf2 = O.scal[0], gain = O.scal[1];
-      for (int i = tid; i < N * kFeat; i += nth) {
-        const int k = i / kFeat, c = i % kFeat;
-        const float feat = c < kNx ? (k == 0 ? aux[c] : xtail[(k - 1) * kNx + c])
-                                   : z[k * kNu + (c - kNx)];
-        zf[i] = feat * O.inv_ls[c] - O.inv_ls[kFeat + c];
-      }
-      __syncthreads();
-      for (int k = tid; k < N; k += nth) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int c = 0; c < kFeat; ++c) acc += zf[k * kFeat + c] * zf[k * kFeat + c];
-        sq1[k] = acc;
-      }
-      __syncthreads();
-      // thread (k, sl): stage k against training points sl, sl + S, ...;
-      // neighbouring threads read neighbouring points (coalesced), and the
-      // S slices of a stage meet in `red` (fixed order: deterministic)
-      const int ntr = P.n_train;
-      const int S = max(1, nth / N);
-      for (int t = tid; t < N * S; t += nth) {
-        const int k = t / S, sl = t % S;
-        float zk[kFeat];
-#pragma unroll
-        for (int c = 0; c < kFeat; ++c) zk[c] = zf[k * kFeat + c];
-        const float q1 = sq1[k];
-        float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-#pragma unroll 2
-        for (int p = sl; p < ntr; p += S) {
-          float cross = 0.0f;
-#pragma unroll
-          for (int c = 0; c < kFeat; ++c) cross += zk[c] * __ldg(O.ztrT + c * ntr + p);
-          const float kst = sf2 * expf(-0.5f * fmaxf(q1 + __ldg(O.sq2 + p) - 2.0f * cross, 0.0f));
-          acc0 += kst * __ldg(O.alpha_s + p * 6 + 3);
-          acc1 += kst * __ldg(O.alpha_s + p * 6 + 4);
-          acc2 += kst * __ldg(O.alpha_s + p * 6 + 5);
-        }
-        red[t * 3 + 0] = acc0;
-        red[t * 3 + 1] = acc1;
-        red[t * 3 + 2] = acc2;
-      }
-      __syncthreads();
-      for (int i = tid; i < N * 3; i += nth) {
-        const int k = i / 3, j = i % 3;
-        float acc = 0.0f;
-        for (int sl = 0; sl < S; ++sl) acc += red[(k * S + sl) * 3 + j];
-        wv[k * kNx + 3 + j] = gain * (acc + O.y_mean[3 + j]);
-        wv[k * kNx + j] = 0.0f;
-      }
+      uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, tid, nth, uav::BlockBarrier{});
     } else {
       for (int i = tid; i < Nnx; i += nth) wv[i] = 0.0f;
     }
-    // ---- warm-start shift (gather; the write waits for the barrier) ------
-    for (int i = tid; i < m; i += nth) {
-      int src = i;
-      if (i < Nnu - kNu) src = i + kNu;
-      else if (i >= Nnu && i < Nnu + Nnx - kNx) src = i + kNx;
-      va[i] = z[src];
-      vb[i] = y[src];
-    }
-    __syncthreads();
-    for (int i = tid; i < m; i += nth) {
-      z[i] = va[i];
-      y[i] = vb[i];
-    }
-    // ---- prediction offset = [x0, w] @ [Sx'; Sw'] --------------------------
-    matvec_partial(xw, O.SxSwT, Nnx, kNx + Nnx, Nnx, part, tid, nth);
-    __syncthreads();
-    for (int r = tid; r < Nnx; r += nth) {
-      const float off = matvec_total(part, Nnx, nth, r);
-      offset[r] = off;
-      dref[r] = off - ref[r];
-    }
-    __syncthreads();
-    // ---- condensed gradient and box bounds --------------------------------
-    matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
-    for (int i = tid; i < m; i += nth) {
-      const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
-      lower[i] = lo[i] - off_z;
-      upper[i] = hi[i] - off_z;
-      va[i] = rho * z[i] - y[i];
-    }
-    __syncthreads();
-    for (int c = tid; c < Nnu; c += nth) f[c] = matvec_total(part, Nnu, nth, c);
-    __syncthreads();
-    // ---- p0 = -(f @ P0mat), M^-1 f = f @ MinvT ---------------------------
-    matvec_partial(f, O.PM, npm, Nnu, npm, part, tid, nth);
-    __syncthreads();
-    for (int j = tid; j < npm; j += nth) {
-      const float acc = matvec_total(part, npm, nth, j);
-      if (j < m) p0[j] = -acc;
-      else minvf[j - m] = acc;
-    }
-    __syncthreads();
-    // ---- composite ADMM: one (m, m) matvec per iteration -----------------
-    const float* vsrc = uav::composite_admm<true>(P1s, m, p0, lower, upper, z, y, va, vb, rho,
-                                                  P.over_relax, P.one_minus_over_relax,
-                                                  P.iterations, tid, nth);
-    // ---- primal U and predicted tail --------------------------------------
-    matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, part, tid, nth);
-    __syncthreads();
-    for (int c = tid; c < Nnu; c += nth) U[c] = -minvf[c] + matvec_total(part, Nnu, nth, c);
-    __syncthreads();
-    matvec_partial(U, O.SuT, Nnx, Nnu, Nnx, part, tid, nth);
-    __syncthreads();
-    for (int r = tid; r < Nnx; r += nth) xtail[r] = offset[r] + matvec_total(part, Nnx, nth, r);
-    __syncthreads();
+    uav::warm_shift(z, y, va, vb, N, m, tid, nth, uav::BlockBarrier{});
+    uav::condensed_solve(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
+                         P.iterations, tid, nth);
     // ---- u0 clips, fallback, allocation + plant (one thread) -------------
     if (tid == 0) scalar_tick(P, O, t, z, ref, xtail, st, aux);
     __syncthreads();

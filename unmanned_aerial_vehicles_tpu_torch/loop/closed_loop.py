@@ -534,6 +534,64 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
     return outs
 
 
+class _OnlineGP:
+    """In-flight learning on the multi-tick tiers: the ring buffer, the
+    masked refit every ``refit_every`` ticks and the gain that stays 0
+    until ``min_samples`` transitions are in. ``rows`` are the kernel's
+    current GP operands."""
+
+    def __init__(self, online_gp: OnlineFusedGPConfig, initial_dataset, gp_gain: float,
+                 control_dt: float, device):
+        from ..gp.residual_gp import empty_dataset
+
+        self.cfg, self.gain, self.control_dt = online_gp, gp_gain, control_dt
+        self.dataset = (
+            initial_dataset if initial_dataset is not None
+            else empty_dataset(online_gp.gp.max_data_points, torch.float32, device)
+        )
+        self.counts = []
+        gain0 = gp_gain if int(self.dataset.count) >= online_gp.min_samples else 0.0
+        self.rows = self._fit(gain0)
+
+    def _fit(self, gain):
+        from ..gp.residual_gp import fit_residual_gp_masked, masked_input_stats, standardized_params
+        from ..ops.tick_pallas import build_gp_rows
+
+        ds, gcfg = self.dataset, self.cfg.gp
+        if self.cfg.standardize_inputs:
+            shift, std = masked_input_stats(ds)
+            post = fit_residual_gp_masked(
+                ds, gcfg, params=standardized_params(ds, gcfg, std=std), x_shift=shift)
+        else:
+            post = fit_residual_gp_masked(ds, gcfg)
+        return build_gp_rows(post, gain, control_dt=self.control_dt, gp_dt=gcfg.dt)
+
+    def capture(self, states, controls, states_next, launch: int, K: int) -> None:
+        """Insert one launch's transitions, record the count for its K
+        ticks, and refit where the retrain timer is due: the host-known
+        tick arithmetic is tested first, the count is read only then."""
+        from ..gp.residual_gp import add_training_samples_batch
+
+        self.dataset = add_training_samples_batch(self.dataset, states, controls, states_next,
+                                                  self.cfg.gp)
+        self.counts.append(self.dataset.count.expand(K))
+        if ((launch + 1) * K) % self.cfg.refit_every < K and (
+            int(self.dataset.count) >= self.cfg.min_samples
+        ):
+            self.rows = self._fit(self.gain)
+
+
+def _applied_controls(packed, refs, ctrl_pos, cfg: FlightLoopConfig):
+    """The command the allocation consumed on each tick of a launch: the
+    clipped MPC acceleration and yaw rate, the yaw rate 0 on ticks where the
+    controller's position ``ctrl_pos`` (K, 3) tripped the hover fallback."""
+    yr = torch.clamp(packed[:, 28], -cfg.yawrate_limit, cfg.yawrate_limit)
+    if cfg.fallback_error_m > 0.0:
+        err2 = torch.sum((refs[:, 0:3] - ctrl_pos) ** 2, dim=1)
+        yr = torch.where(err2 > cfg.fallback_error_m**2, 0.0, yr)
+    return torch.cat([packed[:, 22:25], yr[:, None]], dim=1)
+
+
 def _multitick_rollout(
     mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
     posterior, gp_gain, gp_dt, preview,
@@ -546,13 +604,6 @@ def _multitick_rollout(
     The host loop never waits on the card except where a refit is due
     (once per ``refit_every`` ticks it reads the ring buffer's count to
     decide whether enough samples were captured)."""
-    from ..gp.residual_gp import (
-        add_training_samples_batch,
-        empty_dataset,
-        fit_residual_gp_masked,
-        masked_input_stats,
-        standardized_params,
-    )
     from ..models.double_integrator import CONTROL_DIM, STATE_DIM
     from ..ops.tick_pallas import build_gp_rows, gpmpc_multitick_fused, multitick_staged
 
@@ -575,24 +626,7 @@ def _multitick_rollout(
     tick = multitick_staged if plain_kernels else gpmpc_multitick_fused
 
     if online:
-        gcfg = online_gp.gp
-        dataset = (
-            initial_dataset if initial_dataset is not None
-            else empty_dataset(gcfg.max_data_points, f32, dev)
-        )
-
-        def fit_scaled(ds):
-            if online_gp.standardize_inputs:
-                shift, std = masked_input_stats(ds)
-                return fit_residual_gp_masked(
-                    ds, gcfg, params=standardized_params(ds, gcfg, std=std), x_shift=shift,
-                )
-            return fit_residual_gp_masked(ds, gcfg)
-
-        # the gain gates the kernel's correction: zero until enough samples
-        gain0 = gp_gain if int(dataset.count) >= online_gp.min_samples else 0.0
-        gp = build_gp_rows(fit_scaled(dataset), gain0,
-                           control_dt=cfg.control_dt, gp_dt=gcfg.dt)
+        learner = _OnlineGP(online_gp, initial_dataset, gp_gain, cfg.control_dt, dev)
     else:
         gp = (
             build_gp_rows(posterior, gp_gain, control_dt=cfg.control_dt, gp_dt=gp_dt)
@@ -624,36 +658,21 @@ def _multitick_rollout(
     z = torch.zeros(m, dtype=f32, device=dev)
     y = torch.zeros(m, dtype=f32, device=dev)
 
-    packed_chunks, counts = [], []
+    packed_chunks = []
     for i in range(num_steps // K):
         sl = slice(i * K, (i + 1) * K)
         refs = refs_all[sl]
         packed, state, aux, xtail, z, y = tick(
-            data, gp, state, aux, xtail, z, y, refs, yaw_refs[sl].contiguous(),
-            plant_row, **statics,
+            data, learner.rows if online else gp, state, aux, xtail, z, y, refs,
+            yaw_refs[sl].contiguous(), plant_row, **statics,
         )
         packed_chunks.append(packed)
         if online:
             # transitions: state at tick k (pre-plant) -> state at tick k+1
-            # (the next packed row; the last tick's is the carried state);
-            # control = the clipped MPC command the allocation consumed
+            # (the next packed row; the last tick's is the carried state)
             states_next = torch.cat([packed[1:, 0:12], state[None]], dim=0)
-            yr = torch.clamp(packed[:, 28], -cfg.yawrate_limit, cfg.yawrate_limit)
-            if cfg.fallback_error_m > 0.0:
-                # on fallback ticks the kernel applied yawrate 0
-                err2 = torch.sum((refs[:, 0:3] - packed[:, 0:3]) ** 2, dim=1)
-                yr = torch.where(err2 > cfg.fallback_error_m**2, 0.0, yr)
-            controls = torch.cat([packed[:, 22:25], yr[:, None]], dim=1)
-            dataset = add_training_samples_batch(dataset, packed[:, 0:12], controls,
-                                                 states_next, gcfg)
-            counts.append(dataset.count.expand(K))
-            # the retrain timer: test the host-known tick arithmetic first,
-            # read the count only on launches where a refit is due
-            if ((i + 1) * K) % online_gp.refit_every < K and (
-                int(dataset.count) >= online_gp.min_samples
-            ):
-                gp = build_gp_rows(fit_scaled(dataset), gp_gain,
-                                   control_dt=cfg.control_dt, gp_dt=gcfg.dt)
+            learner.capture(packed[:, 0:12], _applied_controls(packed, refs, packed[:, 0:3], cfg),
+                            states_next, i, K)
 
     packed = torch.cat(packed_chunks, dim=0)
     outs = {
@@ -667,7 +686,7 @@ def _multitick_rollout(
         "u_mpc": packed[:, 25:29],
     }
     if online:
-        outs["gp_count"] = torch.cat(counts)
+        outs["gp_count"] = torch.cat(learner.counts)
     outs["final_state"] = state
     return outs
 

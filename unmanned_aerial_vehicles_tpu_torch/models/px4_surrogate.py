@@ -6,6 +6,8 @@ attitude kinematics, in the reference's mixed-NED frame (NED x/y and Euler
 angles, z up): ``a_xy = -(T/m)(R e3)_xy``, ``a_z = +(T/m)(R e3)_z - g``.
 
 This is the plain version of the plant kernels in ``ops.plant_pallas``.
+``derivative_jacobian`` and ``px4_step_jacobian`` give the continuous
+Jacobian and the RK4 step's transition Jacobian in closed form.
 """
 
 from __future__ import annotations
@@ -87,3 +89,94 @@ def px4_rate_tracking_step(
     k3 = f(state + 0.5 * dt * k2)
     k4 = f(state + dt * k3)
     return state + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def derivative_jacobian(
+    state: torch.Tensor,
+    control: torch.Tensor,
+    body: RigidBodyParams,
+    rates: RateLoopParams,
+) -> torch.Tensor:
+    """``d(_derivative)/d(state)`` in closed form (12, 12): identity from
+    velocity to position, the airspeed drag ``-(k/m)(speed I + av av' /
+    speed)`` (zero at zero airspeed) and the thrust direction's Euler-angle
+    derivatives on the acceleration rows, ``dW/d(phi, theta) omega`` and
+    ``W`` on the attitude rows, ``-diag(1/tau)`` on the rate rows. The
+    tangent and secant use the guarded ``cos(theta)``."""
+    dtype, dev = state.dtype, state.device
+    vel = state[3:6]
+    phi, theta, psi = state[6], state[7], state[8]
+    q, r = state[10], state[11]
+
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    cpsi, spsi = torch.cos(psi), torch.sin(psi)
+    eps = torch.where(cth < 0, torch.full_like(cth, -1e-6), torch.full_like(cth, 1e-6))
+    cth_safe = torch.where(torch.abs(cth) < 1e-6, eps, cth)
+    tth = sth / cth_safe
+    sec = 1.0 / cth_safe
+    sec2 = sec * sec
+    zero, one = torch.zeros_like(phi), torch.ones_like(phi)
+
+    av = vel - torch.tensor(body.wind, dtype=dtype, device=dev)
+    sq = torch.sum(av**2)
+    pos = sq > 0.0
+    speed = torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+    kd = body.k_drag_linear / body.mass
+    outer = torch.where(pos, torch.outer(av, av) / torch.where(pos, speed, 1.0), 0.0)
+    drag = -kd * (speed * torch.eye(3, dtype=dtype, device=dev) + outer)
+
+    a_thrust = control[0] * (body.gravity / rates.hover_thrust_norm)
+    d_euler = a_thrust * torch.stack([
+        torch.stack([sphi * sth * cpsi - cphi * spsi, -cphi * cth * cpsi,
+                     cphi * sth * spsi - sphi * cpsi]),
+        torch.stack([sphi * sth * spsi + cphi * cpsi, -cphi * cth * spsi,
+                     -(cphi * sth * cpsi + sphi * spsi)]),
+        torch.stack([-sphi * cth, -cphi * sth, zero]),
+    ])
+    att = torch.stack([
+        torch.stack([q * cphi * tth - r * sphi * tth, (q * sphi + r * cphi) * sec2, zero,
+                     one, sphi * tth, cphi * tth]),
+        torch.stack([-q * sphi - r * cphi, zero, zero, zero, cphi, -sphi]),
+        torch.stack([(q * cphi - r * sphi) * sec, (q * sphi + r * cphi) * sth * sec2, zero,
+                     zero, sphi * sec, cphi * sec]),
+    ])
+    taus = torch.tensor([rates.tau_roll, rates.tau_pitch, rates.tau_yaw], dtype=dtype,
+                        device=dev)
+
+    J = torch.zeros(12, 12, dtype=dtype, device=dev)
+    J[0:3, 3:6] = torch.eye(3, dtype=dtype, device=dev)
+    J[3:6, 3:6] = drag
+    J[3:6, 6:9] = d_euler
+    J[6:9, 6:12] = att
+    J[9:12, 9:12] = torch.diag(-1.0 / taus)
+    return J
+
+
+def px4_step_jacobian(
+    state: torch.Tensor,
+    control: torch.Tensor,
+    body: RigidBodyParams,
+    rates: RateLoopParams,
+    dt: float,
+) -> torch.Tensor:
+    """Transition Jacobian of ``px4_rate_tracking_step``: the chain rule
+    through the RK4 stages with ``derivative_jacobian``,
+
+        K1 = J(x),  K2 = J(x2)(I + h/2 K1),  K3 = J(x3)(I + h/2 K2),
+        K4 = J(x4)(I + h K3),  F = I + h/6 (K1 + 2 K2 + 2 K3 + K4)."""
+    f = lambda x: _derivative(x, control, body, rates)
+    Jat = lambda x: derivative_jacobian(x, control, body, rates)
+    eye = torch.eye(12, dtype=state.dtype, device=state.device)
+    h = dt
+    k1 = f(state)
+    x2 = state + 0.5 * h * k1
+    k2 = f(x2)
+    x3 = state + 0.5 * h * k2
+    k3 = f(x3)
+    x4 = state + h * k3
+    K1 = Jat(state)
+    K2 = Jat(x2) @ (eye + 0.5 * h * K1)
+    K3 = Jat(x3) @ (eye + 0.5 * h * K2)
+    K4 = Jat(x4) @ (eye + h * K3)
+    return eye + (h / 6.0) * (K1 + 2.0 * K2 + 2.0 * K3 + K4)

@@ -7,5 +7,6 @@ K1 ``plant_pallas.px4_plant_step_fused``, K2
 ``tick_pallas.gpmpc_tick_fused``, K5 ``tick_pallas.gpmpc_multitick_fused``,
 K6 ``admm_pallas.admm_box_qp_fused_composite``, K7
 ``rbf_pallas.rbf_posterior_mean_pallas``, K8
-``controller_pallas.gpmpc_controller_structured_batched``.
+``controller_pallas.gpmpc_controller_structured_batched``, K9
+``tick_pallas.gpmpc_noisy_multitick_fused``.
 """

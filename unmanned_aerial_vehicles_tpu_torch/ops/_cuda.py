@@ -16,6 +16,7 @@ a wrapper adds one where it launches its kernel and nowhere else.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,13 +29,17 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-# library name -> its .cu source (all share the headers in csrc/)
+# library name -> its .cu source, or (source, extra nvcc flags) (all share
+# the headers in csrc/)
 LIBRARIES = {
     "plant": "plant_kernels.cu",
     "tick": "tick_kernel.cu",
     "controller": "controller_kernels.cu",
     "rbf": "rbf_kernels.cu",
     "single_tick": "single_tick_kernels.cu",
+    "noisy_tick": "noisy_tick_kernel.cu",
+    # K9 with its per-section clock counters (chip_smoke.py's breakdown)
+    "noisy_tick_clocks": ("noisy_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,6 +56,7 @@ launch_counts: dict[str, int] = {
     "gpmpc_tick_fused": 0,
     "gpmpc_controller_fused": 0,
     "admm_box_qp_fused_composite": 0,
+    "gpmpc_noisy_multitick_fused": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -94,13 +100,14 @@ def build_all() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name, src in LIBRARIES.items():
+    for name, spec in LIBRARIES.items():
         target = out_dir / f"lib{name}.so"
         if target.exists():
             continue
+        src, extra = (spec, []) if isinstance(spec, str) else spec
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", tmp, str(CSRC / src)]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, target,
@@ -110,7 +117,7 @@ def build_all() -> Path:
         out, _ = proc.communicate()
         build_log[name] = out
         if proc.returncode != 0:
-            failed.append(f"--- {LIBRARIES[name]} (nvcc exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
             os.unlink(tmp)
         else:
             os.replace(tmp, target)
@@ -127,6 +134,21 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
         _loaded[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def library_variant(name: str, variant: str):
+    """Inside the block, ``library(name)`` returns the library ``variant``
+    (the same kernels built with other flags), so the wrappers launch it."""
+    saved = _loaded.get(name)
+    _loaded[name] = library(variant)
+    try:
+        yield
+    finally:
+        if saved is None:
+            _loaded.pop(name)
+        else:
+            _loaded[name] = saved
 
 
 def check(status: int, what: str) -> None:

@@ -109,6 +109,68 @@ def _rk4_substeps(s, c, plant, dt, substeps):
     return s
 
 
+def _jacobian(s, c, plant):
+    """Elementwise transcription of ``px4_surrogate.derivative_jacobian``
+    on a 12-tuple of 0-d state tensors: the (12, 12) continuous Jacobian
+    that the noisy tick kernel K9 relinearises each tick (``csrc/
+    plant_math.cuh:jacobian``). Unlike ``_derivative``, the phi row uses
+    the guarded tangent ``sin/cth_safe``: identical for any bounded
+    attitude, finite at the theta singularity."""
+    (mass, gravity, k_drag_linear, tau_r, tau_p, tau_y,
+     thrust_gain, wx, wy, wz) = plant
+    vx, vy, vz = s[3], s[4], s[5]
+    phi, theta, psi = s[6], s[7], s[8]
+    q, r = s[10], s[11]
+    zero, one = torch.zeros_like(phi), torch.ones_like(phi)
+
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    cth, sth = torch.cos(theta), torch.sin(theta)
+    cpsi, spsi = torch.cos(psi), torch.sin(psi)
+    eps = torch.where(cth < 0, torch.full_like(cth, -1e-6), torch.full_like(cth, 1e-6))
+    cth_safe = torch.where(torch.abs(cth) < 1e-6, eps, cth)
+    tth = sth / cth_safe
+    sec = one / cth_safe
+    sec2 = sec * sec
+
+    # drag block: -(k/m)(speed I + av av'/speed), zero at zero airspeed
+    avx, avy, avz = vx - wx, vy - wy, vz - wz
+    sq = avx * avx + avy * avy + avz * avz
+    pos = sq > 0.0
+    inv_speed = torch.where(pos, one / torch.sqrt(torch.where(pos, sq, one)), zero)
+    speed = sq * inv_speed
+    kd = k_drag_linear / mass
+    av = (avx, avy, avz)
+    drag = [[-kd * ((speed if i == j else zero) + av[i] * av[j] * inv_speed) for j in range(3)]
+            for i in range(3)]
+
+    # thrust-direction derivatives wrt the Euler angles (mixed-NED signs)
+    a_thrust = c[0] * thrust_gain
+    dphi = (a_thrust * (sphi * sth * cpsi - cphi * spsi),
+            a_thrust * (sphi * sth * spsi + cphi * cpsi),
+            a_thrust * (-sphi * cth))
+    dth = (a_thrust * (-cphi * cth * cpsi), a_thrust * (-cphi * cth * spsi),
+           a_thrust * (-cphi * sth))
+    dpsi = (a_thrust * (cphi * sth * spsi - sphi * cpsi),
+            a_thrust * (-(cphi * sth * cpsi + sphi * spsi)), zero)
+
+    z3 = (zero, zero, zero)
+    rows = [
+        z3 + (one, zero, zero) + z3 + z3,
+        z3 + (zero, one, zero) + z3 + z3,
+        z3 + (zero, zero, one) + z3 + z3,
+        *(z3 + tuple(drag[i]) + (dphi[i], dth[i], dpsi[i]) + z3 for i in range(3)),
+        z3 + z3 + (q * cphi * tth - r * sphi * tth, (q * sphi + r * cphi) * sec2, zero,
+                   one, sphi * tth, cphi * tth),
+        z3 + z3 + (-q * sphi - r * cphi, zero, zero, zero, cphi, -sphi),
+        z3 + z3 + ((q * cphi - r * sphi) * sec, (q * sphi + r * cphi) * sth * sec2, zero,
+                   zero, sphi * sec, cphi * sec),
+        z3 + z3 + z3 + (-one / tau_r, zero, zero),
+        z3 + z3 + z3 + (zero, -one / tau_p, zero),
+        z3 + z3 + z3 + (zero, zero, -one / tau_y),
+    ]
+    return torch.stack([torch.stack(row) for row in rows])
+
+
 def _wrap(a):
     return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
 

@@ -1,7 +1,8 @@
-"""The fused tick kernels K4 and K5 (port of ``ops/tick_pallas.py``:
+"""The fused tick kernels K4, K5 and K9 (port of ``ops/tick_pallas.py``:
 ``FusedTickData``, ``build_tick_data``, ``build_shift_matrix``,
-``gpmpc_tick_fused``, ``GPRows``, ``build_gp_rows`` and
-``gpmpc_multitick_fused``).
+``gpmpc_tick_fused``, ``GPRows``, ``build_gp_rows``,
+``gpmpc_multitick_fused``, ``EKF_MEAS_IDX``, ``build_dob_bdist`` and
+``gpmpc_noisy_multitick_fused``).
 
 K4 ``gpmpc_tick_fused`` runs one whole control tick of one flight: the
 warm-start shift, the fused controller of K3 (``ops.controller_pallas``) on
@@ -35,9 +36,17 @@ Shapes are semantic (no 128-lane padding): ``N`` stages, ``Nnu = N nu``,
 ``z, y (m,)``. ``packed (K, 32)`` lanes: state 0:12, control 12:16,
 att_sp 16:19, integral 19:22, accel_cmd 22:25, u_mpc 25:29, vel_ref 29:32.
 
-``loop_precision`` is accepted for the JAX signature; on the card both
-modes compute in float32 with FMAs (the bfloat16 "default" mode was a TPU
-matrix-unit choice).
+K9 ``gpmpc_noisy_multitick_fused`` is K5 with the EKF inside: each tick
+first predicts and fuses the noisy measurement of the truth (the 12-state
+filter, or the 15-state disturbance observer), then flies K5's tick on the
+estimate while the plant integrates the truth. The kernel is
+``csrc/noisy_tick_kernel.cu``; its plain version is
+``noisy_multitick_staged``. Carries: ``est (12|15,)``, ``P (12|15,
+12|15)``, ``aux (13,)``; ``packed (K, 47)``.
+
+``loop_precision`` (and K9's ``cov_precision``) are accepted for the JAX
+signature; on the card every mode computes in float32 with FMAs (the
+bfloat16 modes were TPU matrix-unit choices).
 """
 
 from __future__ import annotations
@@ -56,7 +65,16 @@ from .controller_pallas import (
     launch_single_tick,
     require_tick_data,
 )
-from .plant_pallas import PLANT_LANES, _allocation, _read_plant, _rk4_substeps
+from .plant_pallas import (
+    PLANT_LANES,
+    _allocation,
+    _axpy,
+    _derivative,
+    _jacobian,
+    _read_plant,
+    _rk4_substeps,
+    _wrap,
+)
 
 PACKED_LANES = 32
 TICK_PACKED_LANES = 25   # K4's packed row
@@ -536,3 +554,393 @@ def gpmpc_tick_fused(
     launch_single_tick("gpmpc_tick_launch", "gpmpc_tick_fused", data, N, tensors, outs,
                        **statics)
     return outs["packed"], outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
+
+
+# ---------------------------------------------------------------------------
+# K9: K whole noisy ticks per launch (K5 with the EKF inside)
+# ---------------------------------------------------------------------------
+
+EKF_MEAS_IDX = (0, 1, 2, 6, 7, 8, 9, 10, 11)   # estimation.ekf.MEASURED_IDX
+NOISY_PACKED_LANES = 47   # K5's 32 lanes | estimate 32:44 | disturbance 44:47
+NOISY_AUX_LANES = 13      # estimate x0 (6) | integral (3) | applied control (4)
+DOB_STATES = 15           # [x12, d3] in observer mode
+
+
+def build_dob_bdist(dt: float, device=None) -> torch.Tensor:
+    """The disturbance-injection block of the observer's transition
+    Jacobian, (15, 15): ``0.5 dt^2`` from d to position, ``dt`` from d to
+    velocity, zero elsewhere, so that F = I + Fd12 + bdist is the observer's
+    exact ``jacfwd``."""
+    b = np.zeros((DOB_STATES, DOB_STATES), np.float32)
+    for j in range(3):
+        b[j, 12 + j] = 0.5 * dt * dt
+        b[3 + j, 12 + j] = dt
+    return torch.as_tensor(b, device=resolve_device(device))
+
+
+def _rk4_stages(ex, c, plant, dt):
+    """One RK4 step of the surrogate at ``dt`` on a 12-tuple: the stage
+    states x2, x3, x4 (the Jacobian's linearisation points) and the
+    prediction."""
+    k1 = _derivative(ex, c, plant)
+    x2 = _axpy(ex, k1, 0.5 * dt)
+    k2 = _derivative(x2, c, plant)
+    x3 = _axpy(ex, k2, 0.5 * dt)
+    k3 = _derivative(x3, c, plant)
+    x4 = _axpy(ex, k3, dt)
+    k4 = _derivative(x4, c, plant)
+    xp = tuple(ex[i] + (dt / 6.0) * (k1[i] + 2.0 * k2[i] + 2.0 * k3[i] + k4[i])
+               for i in range(12))
+    return x2, x3, x4, xp
+
+
+def _transition_fd(ex, c, x2, x3, x4, plant, dt, bdist):
+    """Fd = F - I of the filter's RK4 step: dt/6 (K1 + 2 K2 + 2 K3 + K4)
+    with K_{i+1} = J(x_{i+1}) + c_i dt J(x_{i+1}) K_i from the closed-form
+    J at the stage states; plus ``bdist`` in observer mode."""
+    K1 = _jacobian(ex, c, plant)
+    J2, J3, J4 = (_jacobian(x, c, plant) for x in (x2, x3, x4))
+    K2 = J2 + 0.5 * dt * (J2 @ K1)
+    K3 = J3 + 0.5 * dt * (J3 @ K2)
+    K4 = J4 + dt * (J4 @ K3)
+    Fd = (dt / 6.0) * (K1 + 2.0 * K2 + 2.0 * K3 + K4)
+    if bdist is None:
+        return Fd
+    return torch.nn.functional.pad(Fd, (0, 3, 0, 3)) + bdist
+
+
+def noisy_multitick_staged(
+    data: FusedTickData,
+    gp: GPRows | None,
+    state, est, P, aux, xtail, z0, y0, refs, yaw_refs, noise, plant_rows, q_diag, r_diag,
+    *,
+    k_ticks, use_gp, rho, iterations, over_relax, dt, substeps,
+    accel_lo, accel_hi, yawrate_limit,
+    loop_precision="highest", n=0, nu=4, nx=6,
+    fallback_error_m=0.0, fallback_thrust_ceiling=1.5, fallback_accel_scale=1.5,
+    relinearize_per_tick=True, cov_precision="highest", use_dob=False,
+    nominal_row=None, bdist=None,
+):
+    """Plain version of K9: the same operands and outputs, the same math
+    block for block, in PyTorch tensor ops on any device."""
+    _check_statics(n, nu, nx, 0.0)
+    N = n
+    plants = [_read_plant(plant_rows[i]) for i in range(plant_rows.shape[0])]
+    nominal = _read_plant(nominal_row) if use_dob else None
+    plant_statics = dict(
+        dt=dt, substeps=substeps, accel_lo=accel_lo, accel_hi=accel_hi,
+        yawrate_limit=yawrate_limit, fallback_error_m=fallback_error_m,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+    )
+    dev = state.device
+    Q = torch.diag(q_diag)
+    bd = bdist if use_dob else None
+    zeros3 = torch.zeros(N, 3, dtype=torch.float32, device=dev)
+
+    def stages_at(e, a, plant):
+        ex = tuple(e[i] for i in range(12))
+        c = tuple(a[9 + i] for i in range(4))
+        return ex, c, _rk4_stages(ex, c, plant, dt)
+
+    if not relinearize_per_tick:
+        # "dispatch": one transition Jacobian at the entry estimate and
+        # control for all K ticks (row 0's plant; the nominal row in
+        # observer mode)
+        ex0, c0, (x2, x3, x4, _) = stages_at(est, aux, nominal if use_dob else plants[0])
+        fd_frozen = _transition_fd(ex0, c0, x2, x3, x4, nominal if use_dob else plants[0],
+                                   dt, bd)
+
+    packed_rows = []
+    z_prev, y_prev = z0, y0
+    for t in range(k_ticks):
+        ref = refs[t]
+        s = tuple(state[i] for i in range(12))     # the truth
+        plant = plants[t if len(plants) > 1 else 0]
+        ekf_plant = nominal if use_dob else plant
+
+        # ---- EKF predict: one RK4 step at dt from the applied control ----
+        ex, prev_c, (x2, x3, x4, xp) = stages_at(est, aux, ekf_plant)
+        d_prev = ()
+        if use_dob:
+            d_prev = (est[12], est[13], est[14])
+            hh = 0.5 * dt * dt
+            xp = tuple(xp[i] + hh * d_prev[i] for i in range(3)) + tuple(
+                xp[3 + i] + dt * d_prev[i] for i in range(3)) + xp[6:]
+        Fd = (_transition_fd(ex, prev_c, x2, x3, x4, ekf_plant, dt, bd)
+              if relinearize_per_tick else fd_frozen)
+        FdP = Fd @ P
+        Pm = P + FdP + FdP.T + FdP @ Fd.T + Q
+
+        # ---- EKF update: 9 sequential scalar fusions --------------------
+        xrow = torch.stack(xp + d_prev)
+        for jm, j in enumerate(EKF_MEAS_IDX):
+            innov = s[j] + noise[t, jm] - xrow[j]     # truth + presampled noise
+            if j == 8:                                # yaw seam
+                innov = _wrap(innov)
+            S = Pm[j, j] + r_diag[jm]
+            xrow = xrow + innov * (Pm[j, :] / S)
+            Pm = Pm - (Pm[:, j:j + 1] / S) * Pm[j:j + 1, :]
+        exn = tuple(_wrap(xrow[i]) if 6 <= i <= 8 else xrow[i] for i in range(12))
+        dn = (xrow[12], xrow[13], xrow[14]) if use_dob else ()
+        P = Pm
+
+        # ---- GP horizon mean (from the previous tick's solution) --------
+        if use_gp:
+            Xs = torch.cat([aux[None, :nx], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
+            F = torch.cat([Xs, z_prev[: N * nu].reshape(N, nu)], dim=1)
+            Zf = F * gp.inv_ls[0] - gp.inv_ls[1]
+            sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
+            dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * (Zf @ gp.ztrT), min=0.0)
+            mean = gp.scal[0] * torch.exp(-0.5 * dists) @ gp.alpha_s + gp.y_mean
+            wrow = gp.scal[1] * mean[:, 3:6]
+        else:
+            wrow = zeros3
+        if use_dob:
+            # the observer's acceleration, summed with the GP's rows
+            wrow = wrow + dt * torch.stack(dn)[None, :]
+        w = torch.cat([zeros3, wrow], dim=1).reshape(-1)
+
+        # ---- MPC on the estimate; allocation on it, plant on the truth --
+        zy = torch.stack([z_prev, y_prev]) @ data.ShiftT
+        z, y, U, X_tail = controller_plain(data, torch.stack(exn[0:6]), w, ref, zy[0], zy[1],
+                                           rho, iterations, over_relax)
+        s_new, c, att_sp, new_int, accel = command_plant_plain(
+            z, ref, exn, s, yaw_refs[t], (aux[6], aux[7], aux[8]), plant, **plant_statics)
+        pad = dn if use_dob else (torch.zeros((), dtype=torch.float32, device=dev),) * 3
+        packed_rows.append(torch.stack(
+            s + c + att_sp + new_int + accel + (z[0], z[1], z[2], z[3])
+            + (X_tail[3], X_tail[4], X_tail[5]) + exn + pad
+        ))
+        state = torch.stack(s_new)
+        est = torch.stack(exn + dn)
+        aux = torch.stack(exn[0:6] + new_int + c)
+        xtail = X_tail
+        z_prev, y_prev = z, y
+    return torch.stack(packed_rows), state, est, P, aux, xtail, z_prev, y_prev
+
+
+class _NoisyTickParams(ctypes.Structure):
+    _fields_ = [
+        ("k_ticks", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
+        ("n_train", ctypes.c_int), ("use_gp", ctypes.c_int),
+        ("iterations", ctypes.c_int), ("substeps", ctypes.c_int),
+        ("use_fallback", ctypes.c_int), ("n_est", ctypes.c_int), ("use_dob", ctypes.c_int),
+        ("relin_per_tick", ctypes.c_int), ("plant_rows", ctypes.c_int),
+        ("dt", ctypes.c_double),
+        ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float), ("yawrate_limit", ctypes.c_float),
+        ("fallback_error_sq", ctypes.c_float), ("fallback_thrust_ceiling", ctypes.c_float),
+        ("accel_lo", ctypes.c_float * 3), ("accel_hi", ctypes.c_float * 3),
+        ("fallback_lo", ctypes.c_float * 3), ("fallback_hi", ctypes.c_float * 3),
+    ]
+
+
+_NOISY_OPERAND_NAMES = (
+    "SxSwT", "SuTqT", "PM", "P1", "P0matT", "SuT", "lo_row", "hi_row",
+    "ztrT", "sq2", "alpha_s", "y_mean", "inv_ls", "scal",
+    "state_in", "est_in", "P_in", "aux_in", "xtail_in", "z_in", "y_in", "refs", "yaw_refs",
+    "noise", "plant_rows", "q_diag", "r_diag", "nominal_row", "bdist",
+    "packed", "state_out", "est_out", "P_out", "aux_out", "xtail_out", "z_out", "y_out",
+)
+
+
+class _NoisyTickOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _NOISY_OPERAND_NAMES]
+
+
+# csrc/noisy_tick_kernel.cu: the filter's shared arrays beyond K5's layout
+# (truth 12, aux 16, estimate and prediction 16 each, q and r 32, stage
+# states 48, P, Fd, Fd P at 15 x 15, four stage Jacobians and three chain
+# terms at 12 x 12)
+_FILTER_FLOATS = 12 + 16 + 2 * 16 + 32 + 48 + 3 * DOB_STATES**2 + 7 * 144
+
+
+NOISY_SECTIONS = ("predict", "relinearise", "propagate", "fuse", "GP and shift", "solve",
+                  "scalar section", "whole tick")
+
+
+def noisy_section_cycles() -> dict[str, int]:
+    """K9's per-section clock cycles summed over the launches since the
+    last call, then reset: the filter warp's predict, relinearise,
+    propagate and fuse, the GP warps' GP and shift, the solve, the scalar
+    section and the whole tick. Counted only by the build with section
+    clocks: launch K9 inside ``_cuda.library_variant("noisy_tick",
+    "noisy_tick_clocks")``, synchronise, then call this."""
+    out = (ctypes.c_ulonglong * len(NOISY_SECTIONS))()
+    fn = _cuda.library("noisy_tick_clocks").noisy_tick_section_cycles
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), "noisy_section_cycles")
+    return dict(zip(NOISY_SECTIONS, (int(v) for v in out)))
+
+
+def noisy_shared_memory_bytes(n: int, nu: int = 4, nx: int = 6,
+                              threads: int = KERNEL_THREADS) -> int:
+    """Dynamic shared memory of one K9 block: K5's layout (without its
+    carries) plus the filter's arrays."""
+    return shared_memory_bytes(n, nu, nx, threads) - 4 * 24 + 4 * _FILTER_FLOATS
+
+
+def gpmpc_noisy_multitick_fused(
+    data: FusedTickData,
+    gp: GPRows | None,
+    state: torch.Tensor,       # (12,) the truth
+    est: torch.Tensor,         # (n_est,) estimate: 12 states, + 3 disturbance in observer mode
+    P: torch.Tensor,           # (n_est, n_est) covariance
+    aux: torch.Tensor,         # (13,) estimate x0 (6), integral (3), applied control (4)
+    xtail: torch.Tensor,       # (Nnx,)
+    z0: torch.Tensor,          # (m,) UNshifted previous slack
+    y0: torch.Tensor,          # (m,) UNshifted previous dual
+    refs: torch.Tensor,        # (K, Nnx)
+    yaw_refs: torch.Tensor,    # (K,)
+    noise: torch.Tensor,       # (K, 9) measurement noise (scaled) per measured lane
+    plant_rows: torch.Tensor,  # (1, 10), or (K, 10) per tick (time-varying wind)
+    q_diag: torch.Tensor,      # (n_est,) process noise variances
+    r_diag: torch.Tensor,      # (9,) measurement noise variances
+    *,
+    k_ticks: int,
+    use_gp: bool,
+    rho: float,
+    iterations: int,
+    over_relax: float,
+    dt: float,
+    substeps: int,
+    accel_lo: tuple,
+    accel_hi: tuple,
+    yawrate_limit: float,
+    loop_precision: str = "highest",
+    n: int = 0,
+    nu: int = 4,
+    nx: int = 6,
+    fallback_error_m: float = 0.0,
+    fallback_thrust_ceiling: float = 1.5,
+    fallback_accel_scale: float = 1.5,
+    relinearize_per_tick: bool = True,
+    cov_precision: str = "highest",
+    use_dob: bool = False,
+    nominal_row: torch.Tensor | None = None,   # (10,) the observer's process model
+    bdist: torch.Tensor | None = None,         # (15, 15) build_dob_bdist(dt)
+):
+    """K whole noisy ticks (EKF + MPC + allocation + plant) in one launch
+    (K9).
+
+    Each tick: the filter predicts one RK4 step at ``dt`` from the
+    estimate and the previously applied control (process model: this
+    tick's plant row, or ``nominal_row`` in observer mode, which also adds
+    the disturbance's injection), relinearises ``F = I + Fd`` through the
+    RK4 stages (per tick, or once per launch with ``relinearize_per_tick=
+    False``), propagates P and fuses the 9 measured lanes (truth + noise)
+    one by one; then K5's GP, MPC and scalar section run with the estimate
+    as the controller state, the observer's disturbance added to the w
+    rows, and the plant integrating the truth.
+
+    Returns ``(packed (K, 47), state (12,), est (n_est,), P (n_est,
+    n_est), aux (13,), xtail (Nnx,), z (m,), y (m,))``; packed lanes as K5,
+    then the estimate 32:44 and the disturbance 44:47 (zero unless
+    ``use_dob``). ``cov_precision`` and ``loop_precision`` are accepted for
+    the JAX signature: the card computes in float32 either way."""
+    _check_statics(n, nu, nx, 0.0)
+    if cov_precision not in ("highest", "bf16"):
+        raise ValueError(f"cov_precision={cov_precision!r}: expected 'highest' or 'bf16'")
+    dev = state.device
+    N, K = n, k_ticks
+    Nnx, m = N * nx, N * (nu + nx)
+    n_est = DOB_STATES if use_dob else 12
+    req = _cuda.require
+    req(state, "state", (12,), dev)
+    req(est, "est", (n_est,), dev)
+    req(P, "P", (n_est, n_est), dev)
+    req(aux, "aux", (NOISY_AUX_LANES,), dev)
+    req(xtail, "xtail", (Nnx,), dev)
+    req(z0, "z0", (m,), dev)
+    req(y0, "y0", (m,), dev)
+    req(refs, "refs", (K, Nnx), dev)
+    req(yaw_refs, "yaw_refs", (K,), dev)
+    req(noise, "noise", (K, len(EKF_MEAS_IDX)), dev)
+    if plant_rows.shape[0] not in (1, K):
+        raise ValueError(f"plant_rows has {plant_rows.shape[0]} rows, expected 1 or {K}")
+    req(plant_rows, "plant_rows", (plant_rows.shape[0], PLANT_LANES), dev)
+    req(q_diag, "q_diag", (n_est,), dev)
+    req(r_diag, "r_diag", (len(EKF_MEAS_IDX),), dev)
+    if use_dob:
+        if nominal_row is None or bdist is None:
+            raise ValueError("use_dob=True needs nominal_row and bdist")
+        req(nominal_row, "nominal_row", (PLANT_LANES,), dev)
+        req(bdist, "bdist", (DOB_STATES, DOB_STATES), dev)
+    require_tick_data(data, N, dev)
+    if use_gp:
+        if gp is None:
+            raise ValueError("use_gp=True needs GP rows")
+        Pn, d = gp.sq2.shape[0], nu + nx
+        req(gp.ztrT, "ztrT", (d, Pn), dev)
+        req(gp.sq2, "sq2", (Pn,), dev)
+        req(gp.alpha_s, "alpha_s", (Pn, 6), dev)
+        req(gp.y_mean, "y_mean", (6,), dev)
+        req(gp.inv_ls, "inv_ls", (2, d), dev)
+        req(gp.scal, "scal", (3,), dev)
+    statics = dict(
+        k_ticks=k_ticks, use_gp=use_gp, rho=rho, iterations=iterations,
+        over_relax=over_relax, dt=dt, substeps=substeps, accel_lo=accel_lo,
+        accel_hi=accel_hi, yawrate_limit=yawrate_limit, loop_precision=loop_precision,
+        n=n, nu=nu, nx=nx, fallback_error_m=fallback_error_m,
+        fallback_thrust_ceiling=fallback_thrust_ceiling,
+        fallback_accel_scale=fallback_accel_scale,
+        relinearize_per_tick=relinearize_per_tick, cov_precision=cov_precision,
+        use_dob=use_dob, nominal_row=nominal_row, bdist=bdist,
+    )
+    args = (data, gp, state, est, P, aux, xtail, z0, y0, refs, yaw_refs, noise, plant_rows,
+            q_diag, r_diag)
+    if dev.type == "cpu":
+        return noisy_multitick_staged(*args, **statics)
+    if dev.type != "cuda":
+        raise ValueError(f"gpmpc_noisy_multitick_fused runs on cuda or cpu, not {dev}")
+
+    smem = noisy_shared_memory_bytes(N, nu, nx)
+    limit = _cuda.shared_memory_optin(dev)
+    if smem > limit:
+        raise ValueError(
+            f"horizon {N}: P1 ({m}x{m}), the tick vectors and the filter need {smem} bytes "
+            f"of shared memory, more than one block's {limit}; streaming P1 from L2 for "
+            "long horizons is queued in ROADMAP.md"
+        )
+    f = lambda v: float(np.float32(v))
+    params = _NoisyTickParams(
+        k_ticks=K, n=N, m=m, n_train=(gp.sq2.shape[0] if use_gp else 0),
+        use_gp=int(bool(use_gp)), iterations=int(iterations), substeps=int(substeps),
+        use_fallback=int(fallback_error_m > 0.0), n_est=n_est, use_dob=int(bool(use_dob)),
+        relin_per_tick=int(bool(relinearize_per_tick)), plant_rows=plant_rows.shape[0],
+        dt=float(dt),
+        rho=f(rho), over_relax=f(over_relax), one_minus_over_relax=f(1.0 - over_relax),
+        yawrate_limit=f(yawrate_limit), fallback_error_sq=f(fallback_error_m**2),
+        fallback_thrust_ceiling=f(fallback_thrust_ceiling),
+        accel_lo=(ctypes.c_float * 3)(*accel_lo), accel_hi=(ctypes.c_float * 3)(*accel_hi),
+        fallback_lo=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_lo)),
+        fallback_hi=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_hi)),
+    )
+    empty = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
+    outs = dict(packed=empty(K, NOISY_PACKED_LANES), state_out=empty(12), est_out=empty(n_est),
+                P_out=empty(n_est, n_est), aux_out=empty(NOISY_AUX_LANES), xtail_out=empty(Nnx),
+                z_out=empty(m), y_out=empty(m))
+    tensors = dict(
+        SxSwT=data.SxSwT, SuTqT=data.SuTqT, PM=data.PM, P1=data.P1, P0matT=data.P0matT,
+        SuT=data.SuT, lo_row=data.lo_row, hi_row=data.hi_row,
+        state_in=state, est_in=est, P_in=P, aux_in=aux, xtail_in=xtail, z_in=z0, y_in=y0,
+        refs=refs, yaw_refs=yaw_refs, noise=noise, plant_rows=plant_rows, q_diag=q_diag,
+        r_diag=r_diag, **outs,
+    )
+    if use_gp:
+        tensors.update(ztrT=gp.ztrT, sq2=gp.sq2, alpha_s=gp.alpha_s, y_mean=gp.y_mean,
+                       inv_ls=gp.inv_ls, scal=gp.scal)
+    if use_dob:
+        tensors.update(nominal_row=nominal_row, bdist=bdist)
+    ops = _NoisyTickOperands(**{k: v.data_ptr() for k, v in tensors.items()})
+    fn = _cuda.library("noisy_tick").gpmpc_noisy_multitick_launch
+    fn.argtypes = [ctypes.POINTER(_NoisyTickParams), ctypes.POINTER(_NoisyTickOperands),
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(params), ctypes.byref(ops), smem, _cuda.stream_of(state))
+    _cuda.check(status, "gpmpc_noisy_multitick_fused")
+    _cuda.count_launch("gpmpc_noisy_multitick_fused")
+    return (outs["packed"], outs["state_out"], outs["est_out"], outs["P_out"], outs["aux_out"],
+            outs["xtail_out"], outs["z_out"], outs["y_out"])
