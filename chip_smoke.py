@@ -24,11 +24,19 @@ Phases (any failure exits non-zero; nothing is caught):
    configurations (the online-noisy filter, the observer with per-tick gust
    rows, ``relinearize_every="dispatch"``, the hover fallback engaged;
    tolerance 1e-4 on the packed lanes, the estimate, P and every carry, and
-   a second launch bit-identical); time each kernel and its plain
+   a second launch bit-identical); K10 over random states around hover at
+   n=1 and n=20 with wind and residuals, and at the Euler-rate singularity
+   (tolerance 1e-5 of the state's size), K11 for one launch per plant at
+   full width (direct-rate N=20, rigid N=15, K=8, 30 iterations) on the
+   port's own relinearisation at the circle task's start (5e-4 on every
+   output, a second launch bit-identical, the P1 variant printed), K12 at
+   512 x 25 (1e-5 relative; a float64 MPPI controller's tick must launch
+   it once); time each kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
-   at the sweep's batch of 1024, and K4, K3, K6 also at N=25;
+   at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
+   n=20;
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -47,8 +55,15 @@ Phases (any failure exits non-zero; nothing is caught):
    observer with a gust at 5 s (K9 25 launches; its disturbance estimate
    must point into the wind), a 100-tick staged noisy flight (K3 and K1 100
    launches each) and a 100-tick single-tick noisy flight (K4 100
-   launches); each is held against the same flight through the plain
-   versions on the card;
+   launches); and the 12-state family on the circle task
+   (``ramped_circle_reference``, 2 m, 3 m high, 50 Hz, 400 ticks): the
+   direct-rate12 and mpc12 fused multi-tick tiers (K11 50 launches each),
+   mpc12 through ``sqp_multitick_rollout`` (K10 400), the LTV obstacle flight
+   at 10 Hz (K=2, 100 iterations, fallback, 200 ticks: K10 300) and the
+   staged MPPI flight (K12 400, K10 400); each is held against the same
+   flight through the plain versions on the card (1e-3 m; the LTV obstacle
+   and MPPI flights, chaotic in float32, 5e-3 m over their first 30 ticks
+   and their RMS within 8e-3 m and 2e-3 m over the whole flight);
 4. time microseconds per online tick, per online-noisy tick and per
    single-tick tick as the slope between two flight lengths, for the
    kernel path and the plain path (the single-tick tick also without its
@@ -57,7 +72,10 @@ Phases (any failure exits non-zero; nothing is caught):
    flight-tick of the 1024-flight sweep as the
    slope between 200 and 700 ticks (``gp_posterior`` with ``gp_every`` 1
    and 5, and ``residual_fn``), and the device's busy time per sweep tick
-   by kernel from a ``torch.profiler`` window of 50 ticks;
+   by kernel from a ``torch.profiler`` window of 50 ticks; microseconds per
+   tick of the direct-rate12 fused, mpc12 fused and mppi12 flights as the
+   slope between 400 and 2000 ticks (the plain versions at shorter
+   lengths), with profiler windows of the first and the last;
 5. print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -320,6 +338,373 @@ def check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics, k5_
                 host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
                 bound=bound_ms(n_bytes, k5_ops + K * ops_filter(12)),
                 filter_ops_per_tick=ops_filter(12))
+
+
+# ---- the 12-state SQP and MPPI family (K10, K11, K12) ----------------------
+
+RIGID_PLANT_TOL = 1e-5        # K10 against its plain version, relative to the state's size
+# K11 against its plain version on out, x, z and y. Measured on the H100 at
+# the direct-rate width (8 ticks of 30 iterations): 2.0e-5 on the controls,
+# 1.6e-4 on the equilibrated slack. The plain version's own float32 and
+# float64 runs differ by as much on the same operands (4.9e-5 on the slack
+# over 4 ticks, tests/test_torch_rigid_tick.py): each iteration's 320-term
+# sums round in another order, and the ADMM carries the rounding on
+K11_TOL = 5e-4
+K12_RTOL = 1e-5               # K12's costs against its plain version, relative
+SQP_GAP_BOUND_M = 1e-3        # kernel vs plain 12-state SQP flights
+# Two flights are chaotic in float32, so each is held over its first 30
+# ticks, and over the whole flight by its RMS gap to the plain twin (and
+# both LTV flights clear the obstacle), each bound a little above what the
+# H100 gave (the kernels and the plain versions are deterministic: every
+# run gave the same readings):
+# - MPPI: its update is a softmax over the K costs at temperature 0.3, so a
+#   cost that rounds differently by 1e-7 of ~5000 moves its weight by
+#   ~0.2%. On the CPU, costs perturbed by 2e-7 (relative, random) move the
+#   flight by 2.2e-4 m within 30 ticks, 3.7e-2 m over 400 and its RMS by
+#   4.0e-3 m. On the H100: 1.42e-3 m within 30 ticks, 4.6e-2 m over 400,
+#   RMS gap 2.16e-4 m.
+# - The LTV obstacle flight: the rows' normals follow the warm plan and the
+#   100-iteration ADMM does not converge on the active rows. On the CPU its
+#   plain version started 1e-6 m apart parts by 1.6e-4 m within 10 ticks,
+#   6.5e-4 m within 30 and 0.175 m over 200. On the H100: 1.94e-3 m within
+#   30 ticks, 9.6e-2 m over 200, RMS gap 5.78e-3 m.
+CHAOTIC_GAP_TICKS = 30
+CHAOTIC_BOUNDS_M = {           # (gap over the first 30 ticks, RMS gap)
+    "ltv12_obstacle": (5e-3, 8e-3),
+    "mppi12": (5e-3, 2e-3),
+}
+CIRCLE_T = 400                # the circle task (bench_controllers.py:61), 2 m, 3 m high, 50 Hz
+LTV_T = 200                   # the obstacle flight at 10 Hz (bench_controllers.py:449-512)
+LTV_OBSTACLE = (0.0, 1.5, 1.0, 0.3)
+T_SLOPE_12 = (400, 2000)      # bench_controllers.py:61,72-87
+T_SLOPE_12_PLAIN = (96, 288)  # multiples of K=8
+T_SLOPE_MPPI_PLAIN = (40, 120)
+
+# operation counts read off csrc/rigid_math.cuh, rigid_tick_kernel.cu and
+# mppi_kernels.cu (one per add, multiply, division, select or
+# transcendental)
+OPS_RIGID_DERIVATIVE = 85
+OPS_RIGID_RK4 = 4 * OPS_RIGID_DERIVATIVE + 3 * 24 + 12 * 7
+OPS_DIRECT_RATE_SUBSTEP = 66
+OPS_MPPI_STAGE_COST = 50
+
+
+def ops_rigid_tick(N: int, iterations: int, plant_ops: int, nu: int = 4, nx: int = 12) -> int:
+    """FP32 operations of one K11 tick (an FMA counts 2): the shift, offset,
+    gradient, bounds, p0, the ADMM iterations and the plant."""
+    Nnu, Nnx, m = N * nu, N * nx, N * (nu + nx)
+    return (2 * m + Nnx * (2 * 12 + 2) + Nnu * (2 * Nnx + 2) + 6 * m + 2 * Nnu * m
+            + iterations * (2 * m * m + 12 * m) + plant_ops + nu)
+
+
+def rel_err(got, want) -> float:
+    """Max abs error over a tensor, relative to its size (at least 1)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def check_rigid_kernels(dev, gen, fail_fn) -> dict:
+    """Hold K10, K11 (both plants) and K12 against their plain versions on
+    the card at the flights' shapes and time them. Returns the kernels'
+    records for the JSON line (K11's from the direct-rate plant, the rigid
+    plant's under ``"rigid"``)."""
+    import dataclasses
+
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import DirectRateMPC, MPPIController, RigidBodyMPC
+    from unmanned_aerial_vehicles_tpu_torch.loop.rigid_loop import dispatch_tick_operands
+    from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS, X500_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.ops import (
+        _cuda,
+        mppi_pallas,
+        rigid_plant_pallas,
+        rigid_tick_pallas,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen)
+    recs = {}
+
+    # K10: random states around hover with wind and residuals, at the plant
+    # step's n=1 and the plan roll's n=20, and the Euler-rate singularity
+    body = dataclasses.replace(GZ_QUADROTOR_PARAMS, wind=(0.6, -0.4, 0.2))
+    scale = torch.tensor([2, 2, 1, 3, 3, 2, 0.6, 0.6, 2.0, 2, 2, 1.5])
+    cases = []
+    for n, dt in ((1, 0.02), (20, 0.1)):
+        for substeps in (1, 2):
+            for _ in range(4):
+                U = torch.tensor([4.9, 0.0, 0.0, 0.0]) + rnd(n, 4) * torch.tensor([0.5, 2e-3, 2e-3, 2e-3])
+                cases.append((0.3 * rnd(12) * scale, U, 0.1 * rnd(n, 12), dt, substeps))
+    for pitch in (math.pi / 2 - 1e-7, math.pi / 2 + 1e-7, -math.pi / 2):
+        x0 = torch.zeros(12)
+        x0[7], x0[10] = pitch, 0.5
+        cases.append((x0, torch.tensor([[5.0, 0.01, 0.0, 0.0]]), None, 0.01, 1))
+    err = 0.0
+    for x0, U, res, dt, substeps in cases:
+        x0, U = x0.to(**f32).contiguous(), U.to(**f32).contiguous()
+        res = None if res is None else res.to(**f32).contiguous()
+        got = rigid_plant_pallas.rigid_body_rollout_fused(x0, U, body, dt, substeps, res)
+        torch.cuda.synchronize()
+        want = rigid_plant_pallas.rigid_body_rollout_plain(x0, U, body, dt, substeps, res)
+        if not bool(torch.isfinite(got).all()):
+            fail_fn("K10 produced non-finite values")
+        err = max(err, rel_err(got, want))
+    print(f"K10 rigid_body_rollout_fused: max error {err:.3e} relative to the state's size over "
+          f"{len(cases)} rollouts (n=1 and 20, substeps 1 and 2, wind, residuals, pitch at the "
+          "Euler-rate singularity)")
+    if not err <= RIGID_PLANT_TOL:
+        fail_fn(f"K10 disagrees with its plain version: {err}")
+    x1 = torch.zeros(12, **f32)
+    x1[2] = 3.0
+    u1 = torch.tensor([[X500_PARAMS.mass * X500_PARAMS.gravity + 0.3, 0.01, -0.01, 0.0]], **f32)
+    k10_fn = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, u1, X500_PARAMS, 0.02)
+    k10_plain = lambda: rigid_plant_pallas.rigid_body_rollout_plain(x1, u1, X500_PARAMS, 0.02)
+    U20 = u1.repeat(20, 1).contiguous()
+    k10_20 = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, U20, GZ_QUADROTOR_PARAMS, 0.1)
+    recs["rigid_body_rollout_fused"] = dict(
+        err=err, ms=graph_ms(k10_fn, 200), plain_ms=graph_ms(k10_plain, 5),
+        host_ms=cuda_ms(k10_fn, 500), host_plain_ms=cuda_ms(k10_plain, 20),
+        bound=bound_ms(nbytes(x1, u1) + 4 * 12, OPS_RIGID_RK4),
+        n20_ms=graph_ms(k10_20, 50),
+        n20_bound=bound_ms(nbytes(x1, U20) + 4 * 12 * 20, 20 * OPS_RIGID_RK4))
+
+    # K11 at full width on the port's own relinearisation at the circle
+    # task's start (hover at 3 m, the first dispatch's references)
+    K = 8
+    ts = 0.02 * torch.arange(K, **f32)
+    pos, _, _ = ramped_circle_reference(ts, amplitude=2.0, height=3.0)
+    for plant, eng in (("direct_rate", DirectRateMPC(device=dev)),
+                       ("rigid", RigidBodyMPC(device=dev))):
+        N = eng.mpc.config.horizon
+        m = N * 16
+        x0 = torch.zeros(12, **f32)
+        x0[2] = 3.0
+        _, ops = dispatch_tick_operands(eng.mpc, eng.cost, x0[None, :].repeat(N + 1, 1),
+                                        eng.u_hover[None, :].repeat(N, 1))
+        refs = torch.cat([pos, torch.zeros(K, 9, **f32)], 1)[:, None, :].repeat(1, N, 1)
+        refs = refs.reshape(K, N * 12).contiguous()
+        z0, y0 = torch.zeros(m, **f32), torch.zeros(m, **f32)
+        statics = dict(k_ticks=K, n=N, nu=4, nx=12, iterations=30, over_relax=1.6,
+                       rho=float(eng.mpc.config.admm_rho), dt=0.02, substeps=1, plant=plant,
+                       body=X500_PARAMS if plant == "rigid" else None)
+        args = (x0, z0, y0, refs, ops)
+        got = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
+        torch.cuda.synchronize()
+        want = rigid_tick_pallas.direct_rate_multitick_plain(*args, **statics)
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail_fn(f"K11 ({plant}) produced non-finite values")
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        again = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail_fn(f"K11 ({plant}): a second launch on the same inputs differs")
+        p1_shared, smem = rigid_tick_pallas.p1_placement(dev, N)
+        variant = "P1 in shared memory" if p1_shared else "P1 through L2"
+        print(f"K11 direct_rate_multitick_kernel ({plant} plant, N={N}, m={m}, K={K}, 30 "
+              f"iterations, {variant}, {smem} B of shared memory): max_abs_err out "
+              f"{errs[0]:.3e}, x {errs[1]:.3e}, z {errs[2]:.3e}, y {errs[3]:.3e}; a second launch "
+              "bit-identical")
+        if not max(errs) <= K11_TOL:
+            fail_fn(f"K11 ({plant}) disagrees with its plain version: {errs}")
+        fn = lambda a=args, s=statics: rigid_tick_pallas.direct_rate_multitick_kernel(*a, **s)
+        plain = lambda a=args, s=statics: rigid_tick_pallas.direct_rate_multitick_plain(*a, **s)
+        plant_ops = OPS_RIGID_RK4 if plant == "rigid" else OPS_DIRECT_RATE_SUBSTEP
+        rec = dict(err=max(errs), errs=errs, ms=graph_ms(fn, 5), plain_ms=graph_ms(plain, 1, replays=3),
+                   host_ms=cuda_ms(fn, 20), host_plain_ms=cuda_ms(plain, 2, warmup=1),
+                   bound=bound_ms(nbytes(x0, z0, y0, refs, *ops) + nbytes(*got),
+                                  K * ops_rigid_tick(N, 30, plant_ops)),
+                   variant=variant, n=N)
+        print(f"  K11 ({plant}): device {rec['ms'] * 1e3:.2f} us per launch of {K} ticks "
+              f"({rec['ms'] * 1e3 / K:.2f} us per tick), plain {rec['plain_ms'] * 1e3:.2f} us; "
+              f"bound {rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
+        if plant == "direct_rate":
+            recs["direct_rate_multitick_kernel"] = rec
+        else:
+            recs["direct_rate_multitick_kernel"]["rigid"] = rec
+    recs["direct_rate_multitick_kernel"]["err"] = max(
+        recs["direct_rate_multitick_kernel"]["err"], recs["direct_rate_multitick_kernel"]["rigid"]["err"])
+
+    # K12 at the controller's width (512 samples x 25 steps)
+    ctrl = MPPIController(device=dev)
+    cfg = ctrl.config
+    x0 = torch.zeros(12, **f32)
+    x0[2] = 3.0
+    x0 += 0.1 * rnd(12).to(**f32)
+    x0[8] = 3.0
+    eps = rnd(cfg.num_samples, cfg.horizon, 4).to(**f32)
+    U = torch.minimum(torch.maximum(ctrl.u_hover + ctrl._noise_std * eps, ctrl.u_lo), ctrl.u_hi)
+    U = U.contiguous()
+    targets = (torch.tensor([0.5, -0.3, 3.2]) + 0.05 * torch.arange(cfg.horizon)[:, None]).to(**f32)
+    yaw = torch.tensor(-3.0, **f32)
+    k12_args = (x0, U, targets, yaw, X500_PARAMS, cfg.dt, ctrl._u_hover_host, cfg.weights)
+    got = mppi_pallas.mppi_rollout_costs_fused(*k12_args)
+    torch.cuda.synchronize()
+    want = mppi_pallas.mppi_rollout_costs_plain(*k12_args)
+    if not bool(torch.isfinite(got).all()):
+        fail_fn("K12 produced non-finite values")
+    k12_err = float(((got - want).abs() / want.abs()).max())
+    print(f"K12 mppi_rollout_costs_fused: max relative error {k12_err:.3e} over "
+          f"{cfg.num_samples} costs ({cfg.num_samples} x {cfg.horizon} RK4 steps; costs "
+          f"{float(want.min()):.1f}..{float(want.max()):.1f})")
+    if not k12_err <= K12_RTOL:
+        fail_fn(f"K12 disagrees with its plain version: {k12_err}")
+    # a float64 controller samples through K12 too (in float32, costs cast
+    # back): one launch per tick
+    ctrl64 = MPPIController(dtype=torch.float64, device=dev)
+    before = _cuda.launch_counts["mppi_rollout_costs_fused"]
+    u64, _, _ = ctrl64.solve(ctrl64.init_carry(x0), x0, targets[0], 0.0)
+    launched = _cuda.launch_counts["mppi_rollout_costs_fused"] - before
+    print(f"  a float64 MPPIController tick: {launched} K12 launch, u0 {u64.dtype}")
+    if launched != 1 or u64.dtype != torch.float64 or not bool(torch.isfinite(u64).all()):
+        fail_fn(f"a float64 MPPI tick launched K12 {launched} times (u0 {u64})")
+    fn = lambda: mppi_pallas.mppi_rollout_costs_fused(*k12_args)
+    plain = lambda: mppi_pallas.mppi_rollout_costs_plain(*k12_args)
+    recs["mppi_rollout_costs_fused"] = dict(
+        err=k12_err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+        host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 2, warmup=1),
+        bound=bound_ms(nbytes(x0, U, targets, yaw, got),
+                       cfg.num_samples * (cfg.horizon * (OPS_RIGID_RK4 + OPS_MPPI_STAGE_COST) + 20)))
+    r = recs["rigid_body_rollout_fused"]
+    print(f"K10 device time per launch: n=1 {r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} "
+          f"us, bound {r['bound'][0] * 1e3:.6f} us, {r['bound'][1]}); n=20 (the LTV plan roll) "
+          f"{r['n20_ms'] * 1e3:.2f} us (bound {r['n20_bound'][0] * 1e3:.6f} us); K12 "
+          f"{recs['mppi_rollout_costs_fused']['ms'] * 1e3:.2f} us (plain "
+          f"{recs['mppi_rollout_costs_fused']['plain_ms'] * 1e3:.2f} us, bound "
+          f"{recs['mppi_rollout_costs_fused']['bound'][0] * 1e3:.4f} us)")
+    return recs
+
+
+class RigidFamily:
+    """The 12-state family's flights on the card (the circle task of
+    ``tools/bench_controllers.py``; the LTV obstacle flight at 10 Hz), each
+    callable as ``fly(T, plain)``, with ``plain=True`` flying the kernels'
+    plain versions. Each returns ``state`` and ``pos_ref`` (T, .)."""
+
+    def __init__(self, dev):
+        import torch
+
+        from unmanned_aerial_vehicles_tpu_torch.control import (
+            DirectRateMPC,
+            LTVTrackingMPC,
+            RigidBodyMPC,
+        )
+        from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+        self.torch, self.dev = torch, dev
+        self.f32 = dict(dtype=torch.float32, device=dev)
+        self.circle = lambda t: ramped_circle_reference(t, amplitude=2.0, height=3.0)
+        self.dr = DirectRateMPC(device=dev)
+        self.rigid = RigidBodyMPC(device=dev)
+        self.ltv = LTVTrackingMPC(num_obstacles=1, obstacle_margin=0.2, device=dev)
+        self.x0 = torch.zeros(12, **self.f32)
+        self.x0[2] = 3.0
+
+    def circle_pos(self, T):
+        return self.circle(0.02 * self.torch.arange(T, **self.f32))[0]
+
+    def reference_fn(self, N):
+        torch = self.torch
+
+        def reference_fn(ticks):
+            pos = self.circle(0.02 * ticks.to(torch.float32))[0]
+            stage = torch.cat([pos, torch.zeros(ticks.shape[0], 9, **self.f32)], 1)
+            return stage[:, None, :].repeat(1, N, 1)
+        return reference_fn
+
+    def multitick_kw(self, eng):
+        return dict(ticks_per_dispatch=8, admm_iterations=30, u_init=eng.u_hover)
+
+    def direct_rate12_fused(self, T, plain=False):
+        from unmanned_aerial_vehicles_tpu_torch.loop import direct_rate_multitick_fused
+
+        eng = self.dr
+        outs = direct_rate_multitick_fused(
+            eng.mpc, eng.cost, self.reference_fn(eng.mpc.config.horizon), self.x0, T,
+            dt=0.02, plan_roll="linear", plain_kernels=plain, **self.multitick_kw(eng))
+        return {"state": outs["state"], "u": outs["u"], "pos_ref": self.circle_pos(T)}
+
+    def mpc12_fused(self, T, plain=False):
+        from unmanned_aerial_vehicles_tpu_torch.loop import rigid_multitick_fused
+
+        eng = self.rigid
+        outs = rigid_multitick_fused(
+            eng.mpc, eng.cost, self.reference_fn(eng.mpc.config.horizon), self.x0, T,
+            dt=0.02, plan_roll="linear", plain_kernels=plain, **self.multitick_kw(eng))
+        return {"state": outs["state"], "u": outs["u"], "pos_ref": self.circle_pos(T)}
+
+    def mpc12_multitick(self, T, plain=False):
+        from unmanned_aerial_vehicles_tpu_torch.loop import sqp_multitick_rollout
+        from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+        eng = self.rigid
+        plant = lambda x, u: rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain)
+        outs = sqp_multitick_rollout(
+            eng.mpc, eng.cost, self.reference_fn(eng.mpc.config.horizon), plant, self.x0, T,
+            plan_roll="linear", **self.multitick_kw(eng))
+        return {"state": outs["state"], "u": outs["u"], "pos_ref": self.circle_pos(T)}
+
+    def ltv_ref(self, t):
+        """The LTV flight's reference: a 1.5 m circle at 1 m, period 20 s."""
+        torch = self.torch
+        w = 2.0 * math.pi / 20.0
+        zero = torch.zeros_like(t)
+        return torch.stack([1.5 * torch.cos(w * t), 1.5 * torch.sin(w * t), zero + 1.0,
+                            -1.5 * w * torch.sin(w * t), 1.5 * w * torch.cos(w * t)]
+                           + [zero] * 7, -1)
+
+    def ltv12_obstacle(self, T, plain=False):
+        """bench_controllers.py:449-512: 10 Hz, K=2, 100 ADMM iterations, the
+        obstacle on the path, the attitude-recovery fallback, the plant (RK4,
+        2 substeps) and the plan re-anchor through K10."""
+        from unmanned_aerial_vehicles_tpu_torch.loop import (
+            make_attitude_recovery_fallback,
+            sqp_multitick_rollout,
+        )
+        from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS as GZ
+        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import (
+            rigid_body_rk4_step_fast,
+            rigid_body_rollout_fused,
+            rigid_body_rollout_plain,
+        )
+
+        torch, eng = self.torch, self.ltv
+        N = eng.mpc.config.horizon
+        roll = rigid_body_rollout_plain if plain else rigid_body_rollout_fused
+
+        def reference_fn(ticks):
+            t = 0.1 * (ticks[:, None] + 1 + torch.arange(N, device=self.dev)[None, :]).to(torch.float32)
+            return self.ltv_ref(t)
+
+        outs = sqp_multitick_rollout(
+            eng.mpc, eng.cost, reference_fn,
+            lambda x, u: rigid_body_rk4_step_fast(x, u, GZ, 0.1, substeps=2, plain_kernels=plain),
+            self.ltv_ref(torch.zeros((), **self.f32)), T, ticks_per_dispatch=2,
+            admm_iterations=100, u_init=eng.u_hover,
+            obstacles=torch.tensor([LTV_OBSTACLE], **self.f32),
+            plan_roll_fn=lambda x, U, residuals: roll(x, U, GZ, 0.1),
+            fallback_fn=make_attitude_recovery_fallback(GZ))
+        ts = 0.1 * torch.arange(T, **self.f32)
+        return {"state": outs["state"], "u": outs["u"], "pos_ref": self.ltv_ref(ts)[:, 0:3]}
+
+    def mppi12(self, T, plain=False):
+        """The staged MPPI flight (cli.py fly --controller mppi12): one
+        sampling stage (K12) and one plant step (K10) per tick; the state
+        after each step against the reference at its tick."""
+        from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
+        from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+        torch = self.torch
+        ctrl = MPPIController(MPPIConfig(fused_rollouts=not plain), device=self.dev)
+        pos_ref, _, yaw_ref = self.circle(0.02 * torch.arange(T, **self.f32))
+        x, carry = self.x0, ctrl.init_carry(self.x0, seed=0)
+        states = []
+        for i in range(T):
+            u, _, carry = ctrl.solve(carry, x, pos_ref[i], yaw_ref[i])
+            x = rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain)
+            states.append(x)
+        return {"state": torch.stack(states), "pos_ref": pos_ref}
 
 
 def main() -> int:
@@ -725,6 +1110,9 @@ def main() -> int:
     if not max(solve_errs.values()) <= SINGLE_TOL:
         fail(f"a fused solve disagrees with its plain version: {solve_errs}")
 
+    # K10, K11 (both plants) and K12: the 12-state family
+    kernels.update(check_rigid_kernels(dev, gen, fail))
+
     # ---- phase 3: fly every path ------------------------------------------
     def ref(t):
         p, y = ramped_figure8_reference(t, 6.0, 0.02)
@@ -749,7 +1137,10 @@ def main() -> int:
         return mpc_flight_rollout(mpc, ref, T, cfg=online_cfg, online_gp=ogp, gp_gain=0.1,
                                   device=dev, plain_kernels=plain)
 
-    def check_path(label, fly, expected, bound, record=True):
+    def check_path(label, fly, expected, bound, record=True, gap_ticks=None):
+        """Fly ``fly(False)`` with the launch counts from 0 and its plain
+        twin ``fly(True)``; hold the position gap over the first
+        ``gap_ticks`` ticks (all by default) to ``bound``."""
         _cuda.reset_launch_counts()
         outs = fly(False)
         torch.cuda.synchronize()
@@ -761,9 +1152,12 @@ def main() -> int:
                 fail(f"{label}: non-finite {key}")
             if val.shape != plain[key].shape:
                 fail(f"{label}: {key} shape {tuple(val.shape)} != {tuple(plain[key].shape)}")
-        gap = float((outs["state"][..., 0:3] - plain["state"][..., 0:3]).abs().max())
-        print(f"{label}: launches {counts}, figure-8 RMS {describe(rms(outs))} "
-              f"(plain {describe(rms(plain))}), max position gap to plain {gap:.3e} m")
+        diff = (outs["state"][..., 0:3] - plain["state"][..., 0:3]).abs()
+        gap = float(diff[:gap_ticks].max())
+        over = "" if gap_ticks is None else (f" over the first {gap_ticks} ticks (over all "
+                                             f"{float(diff.max()):.3e} m)")
+        print(f"{label}: launches {counts}, RMS {describe(rms(outs))} "
+              f"(plain {describe(rms(plain))}), max position gap to plain {gap:.3e} m{over}")
         for kernel, n in expected.items():
             if counts[kernel] != n:
                 fail(f"{label}: {kernel} launched {counts[kernel]} times, expected {n}")
@@ -934,6 +1328,48 @@ def main() -> int:
     print(f"  figure-8 RMS: online-noisy {float(rms(noisy_outs)):.6f} m (online without noise "
           f"{float(rms(outs)):.6f} m); observer with the gust {float(rms(observer_outs)):.6f} m")
 
+    # the 12-state family on the circle task (and the LTV obstacle flight)
+    fam = RigidFamily(dev)
+    rigid_outs, rigid_plains = {}, {}
+    for key, label, fly, T, expected, bound, record in (
+        ("direct_rate12_fused", "direct-rate12 fused multi-tick (K11, N=20, K=8, 30 iterations)",
+         fam.direct_rate12_fused, CIRCLE_T, {"direct_rate_multitick_kernel": CIRCLE_T // 8},
+         SQP_GAP_BOUND_M, True),
+        ("mpc12_fused", "mpc12 fused multi-tick (K11 with the rigid plant, N=15, K=8)",
+         fam.mpc12_fused, CIRCLE_T, {"direct_rate_multitick_kernel": CIRCLE_T // 8},
+         SQP_GAP_BOUND_M, False),
+        ("mpc12_multitick", "mpc12 sqp_multitick_rollout (K=8, plan_roll linear, plant K10)",
+         fam.mpc12_multitick, CIRCLE_T, {"rigid_body_rollout_fused": CIRCLE_T},
+         SQP_GAP_BOUND_M, True),
+        ("ltv12_obstacle", "ltv12 obstacle multi-tick (10 Hz, K=2, 100 iterations, fallback, "
+         "plant and plan roll K10)", fam.ltv12_obstacle, LTV_T,
+         {"rigid_body_rollout_fused": LTV_T + LTV_T // 2}, CHAOTIC_BOUNDS_M["ltv12_obstacle"][0],
+         False),
+        ("mppi12", "mppi12 staged (K12 512 x 25, plant K10)", fam.mppi12, CIRCLE_T,
+         {"mppi_rollout_costs_fused": CIRCLE_T, "rigid_body_rollout_fused": CIRCLE_T},
+         CHAOTIC_BOUNDS_M["mppi12"][0], True),
+    ):
+        rigid_outs[key], rigid_plains[key] = check_path(
+            f"{label}, {T} ticks", lambda p, f=fly, T=T: f(T, p), expected, bound, record=record,
+            gap_ticks=CHAOTIC_GAP_TICKS if key in CHAOTIC_BOUNDS_M else None)
+    centre = torch.tensor(LTV_OBSTACLE[:3], **f32)
+    clearance, clearance_plain = (
+        float((o["state"][:, 0:3] - centre).norm(dim=1).min() - LTV_OBSTACLE[3])
+        for o in (rigid_outs["ltv12_obstacle"], rigid_plains["ltv12_obstacle"]))
+    rms_gap = {key: abs(float(rms(rigid_outs[key])) - float(rms(rigid_plains[key])))
+               for key in CHAOTIC_BOUNDS_M}
+    if not (clearance > 0.0 and clearance_plain > 0.0):
+        fail(f"ltv12 obstacle flight: clearance {clearance}, plain {clearance_plain}")
+    for key, (_, rms_bound) in CHAOTIC_BOUNDS_M.items():
+        if not rms_gap[key] <= rms_bound:
+            fail(f"{key}: RMS gap to the plain flight {rms_gap[key]} > {rms_bound}")
+    circle_rms = {key: float(rms(o)) for key, o in rigid_outs.items()}
+    print(f"  circle RMS ({CIRCLE_T} ticks; ltv12 obstacle {LTV_T} ticks at 10 Hz): "
+          + "; ".join(f"{k} {v:.6f} m" for k, v in circle_rms.items())
+          + f"; ltv12 minimum clearance from the obstacle's surface {clearance:.4f} m (plain "
+          f"{clearance_plain:.4f} m); RMS gaps to the plain flights: ltv12 "
+          f"{rms_gap['ltv12_obstacle']:.3e} m, mppi12 {rms_gap['mppi12']:.3e} m")
+
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
     def slope_us(fly, lengths, reps=2, warm_T=None):
         """Microseconds per tick of ``fly(T)``: the slope of the best of
@@ -1029,6 +1465,36 @@ def main() -> int:
         print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
               f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
               + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
+    # the 12-state family: microseconds per tick, slope between 400 and
+    # 2000 ticks (bench_controllers.py), the plain versions at shorter lengths
+    us_12 = {
+        "direct_rate12_fused": (slope_us(fam.direct_rate12_fused, T_SLOPE_12),
+                                slope_us(lambda T: fam.direct_rate12_fused(T, True),
+                                         T_SLOPE_12_PLAIN)),
+        "mpc12_fused": (slope_us(fam.mpc12_fused, T_SLOPE_12),
+                        slope_us(lambda T: fam.mpc12_fused(T, True), T_SLOPE_12_PLAIN)),
+        "mppi12": (slope_us(fam.mppi12, T_SLOPE_12),
+                   slope_us(lambda T: fam.mppi12(T, True), T_SLOPE_MPPI_PLAIN, reps=1, warm_T=10)),
+    }
+    for key, (us, us_p) in us_12.items():
+        plain_T = T_SLOPE_MPPI_PLAIN if key == "mppi12" else T_SLOPE_12_PLAIN
+        print(f"{key} tick: {us:.2f} us/tick through the kernels (slope {T_SLOPE_12[0]}->"
+              f"{T_SLOPE_12[1]} ticks), {us_p:.2f} us/tick through the plain versions (slope "
+              f"{plain_T[0]}->{plain_T[1]}); card: {card}")
+    k11 = kernels["direct_rate_multitick_kernel"]
+    print(f"  K11's device time per tick: direct-rate {k11['ms'] * 1e3 / 8:.2f} us, rigid "
+          f"{k11['rigid']['ms'] * 1e3 / 8:.2f} us; K12 "
+          f"{kernels['mppi_rollout_costs_fused']['ms'] * 1e3:.2f} us and K10 "
+          f"{kernels['rigid_body_rollout_fused']['ms'] * 1e3:.2f} us per mppi12 tick")
+    for label, fly, tick_us, ticks in (
+        ("80 direct-rate12 fused ticks", fam.direct_rate12_fused, us_12["direct_rate12_fused"][0], 80),
+        ("100 mppi12 ticks", fam.mppi12, us_12["mppi12"][0], 100),
+    ):
+        busy_us, by_name = device_busy(fly, ticks)
+        idle_share[label] = 1.0 - busy_us / tick_us
+        print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
+              f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
+              + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
     # two parts of the single-tick tick, each timed alone with the host's
     # overhead (not in the tick's window: the host's run-to-run spread is
     # larger than the rest of the loop, so no remainder is derived)
@@ -1063,6 +1529,12 @@ def main() -> int:
             "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:152"),
         "admm_box_qp_fused_composite": (
             "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/admm_pallas.py:172"),
+        "rigid_body_rollout_fused": (
+            "rigid_plant_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/rigid_plant_pallas.py:140"),
+        "direct_rate_multitick_kernel": (
+            "rigid_tick_kernel.cu", "unmanned_aerial_vehicles_tpu/ops/rigid_tick_pallas.py:192"),
+        "mppi_rollout_costs_fused": (
+            "mppi_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/mppi_pallas.py:102"),
     }
     line = {"kernels": [
         {
@@ -1097,7 +1569,15 @@ def main() -> int:
         "fig8_rms_m_frozen_preview_400": float(rms(frozen_preview_outs)),
         "us_per_launch_n25": {name: single[(name, LONG_HORIZON)]["ms"] * 1e3
                               for name in ("gpmpc_tick_fused", "gpmpc_controller_fused",
-                                           "admm_box_qp_fused_composite")}}
+                                           "admm_box_qp_fused_composite")},
+        "us_per_tick_12state": {key: v[0] for key, v in us_12.items()},
+        "us_per_tick_12state_plain": {key: v[1] for key, v in us_12.items()},
+        "circle_rms_m_12state": circle_rms, "ltv12_min_clearance_m": clearance,
+        "idle_share_12state": {k: idle_share[k] for k in ("80 direct-rate12 fused ticks",
+                                                          "100 mppi12 ticks")},
+        "us_per_launch_k11_rigid": k11["rigid"]["ms"] * 1e3,
+        "k11_max_abs_err_by_output": {"direct_rate": k11["errs"], "rigid": k11["rigid"]["errs"]},
+        "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

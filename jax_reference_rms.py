@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Circle-task RMS of the JAX package's 12-state flights on the CPU: the
+yardstick for the port's flights in ``chip_smoke.py`` phase 3.
+
+    python3 jax_reference_rms.py
+
+Flies, with the JAX package (``unmanned_aerial_vehicles_tpu``; its Pallas
+kernels in interpret mode), the configurations that ``chip_smoke.py`` flies
+through the port: the circle task of ``tools/bench_controllers.py``
+(``ramped_circle_reference``, amplitude 2 m, 3 m high, 50 Hz, 400 ticks)
+through the direct-rate12 and mpc12 fused multi-tick tiers (K=8, 30 ADMM
+iterations, ``plan_roll="linear"``), the mpc12 ``sqp_multitick_rollout``
+with the rigid plant, and the staged MPPI flight (512 x 25, seed 0); and
+the LTV obstacle flight (10 Hz, K=2, 100 iterations, obstacle (0, 1.5, 1,
+0.3), fallback, 200 ticks). Prints one JSON object of RMS values in metres
+and the LTV flight's minimum clearance from the obstacle's surface.
+
+Imports JAX; the port and ``chip_smoke.py`` do not. MPPI draws its
+exploration noise from ``jax.random`` here and from a ``torch.Generator``
+in the port, so its two flights see different noise; ``mppi12_port_cpu``
+is the port's MPPI flight (its plain versions, on the CPU) flying the JAX
+flight's own draws (``solve(..., eps=)``), the same task tick for tick.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from pathlib import Path
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+from unmanned_aerial_vehicles_tpu.control import MPPIController  # noqa: E402
+from unmanned_aerial_vehicles_tpu.control.mpc_rigid import (  # noqa: E402
+    DirectRateMPC,
+    LTVTrackingMPC,
+    RigidBodyMPC,
+)
+from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (  # noqa: E402
+    direct_rate_multitick_fused,
+    make_attitude_recovery_fallback,
+    rigid_multitick_fused,
+    sqp_multitick_rollout,
+)
+from unmanned_aerial_vehicles_tpu.models import GZ_QUADROTOR_PARAMS, X500_PARAMS  # noqa: E402
+from unmanned_aerial_vehicles_tpu.models import rigid_body_rk4_step  # noqa: E402
+from unmanned_aerial_vehicles_tpu.trajectories import ramped_circle_reference  # noqa: E402
+
+T, LTV_T, DT, LDT = 400, 200, 0.02, 0.1
+OBSTACLE = (0.0, 1.5, 1.0, 0.3)
+
+
+def circle(t):
+    return ramped_circle_reference(t, amplitude=2.0, height=3.0)
+
+
+def rms(states, refs):
+    return float(jnp.sqrt(jnp.mean(jnp.sum((states[:, 0:3] - refs) ** 2, -1))))
+
+
+def circle_refs(T_):
+    return jax.vmap(lambda t: circle(t)[0])(jnp.arange(T_, dtype=jnp.float32) * DT)
+
+
+def reference_fn(N):
+    def fn(ticks):
+        pos = jax.vmap(lambda t: circle(t)[0])(ticks.astype(jnp.float32) * DT)
+        stage = jnp.concatenate([pos, jnp.zeros((ticks.shape[0], 9))], axis=1)
+        return jnp.tile(stage[:, None, :], (1, N, 1))
+    return fn
+
+
+def x_start():
+    return jnp.zeros(12, jnp.float32).at[2].set(3.0)
+
+
+def multitick(eng, fly, **kw):
+    outs = jax.jit(lambda x: fly(eng.mpc, eng.cost, reference_fn(eng.mpc.config.horizon), x, T,
+                                 ticks_per_dispatch=8, admm_iterations=30, u_init=eng.u_hover,
+                                 plan_roll="linear", **kw))(x_start())
+    return rms(outs["state"], circle_refs(T))
+
+
+def mpc12_multitick():
+    eng = RigidBodyMPC()
+    plant = lambda x, u: rigid_body_rk4_step(x, u, X500_PARAMS, DT)
+    outs = jax.jit(lambda x: sqp_multitick_rollout(
+        eng.mpc, eng.cost, reference_fn(eng.mpc.config.horizon), plant, x, T,
+        ticks_per_dispatch=8, admm_iterations=30, u_init=eng.u_hover,
+        plan_roll="linear"))(x_start())
+    return rms(outs["state"], circle_refs(T))
+
+
+def ltv_ref(t):
+    w = 2.0 * jnp.pi / 20.0
+    r = jnp.zeros(12, jnp.float32)
+    r = r.at[0].set(1.5 * jnp.cos(w * t)).at[1].set(1.5 * jnp.sin(w * t)).at[2].set(1.0)
+    return r.at[3].set(-1.5 * w * jnp.sin(w * t)).at[4].set(1.5 * w * jnp.cos(w * t))
+
+
+def ltv12_obstacle():
+    eng = LTVTrackingMPC(num_obstacles=1, obstacle_margin=0.2)
+    N = eng.mpc.config.horizon
+
+    def refs_fn(ticks):
+        return jax.vmap(lambda i: jax.vmap(ltv_ref)((i + 1 + jnp.arange(N)).astype(jnp.float32)
+                                                   * LDT))(ticks)
+
+    def plant(x, u):
+        def sub(xc, _):
+            return rigid_body_rk4_step(xc, u, GZ_QUADROTOR_PARAMS, LDT / 2), None
+        return jax.lax.scan(sub, x, None, length=2)[0]
+
+    def roll(x, U, residuals):
+        return jax.lax.scan(lambda c, u: (rigid_body_rk4_step(c, u, GZ_QUADROTOR_PARAMS, LDT),) * 2,
+                            x, U)[1]
+
+    outs = jax.jit(lambda x: sqp_multitick_rollout(
+        eng.mpc, eng.cost, refs_fn, plant, x, LTV_T, ticks_per_dispatch=2, admm_iterations=100,
+        u_init=eng.u_hover, obstacles=jnp.asarray([OBSTACLE], jnp.float32), plan_roll_fn=roll,
+        fallback_fn=make_attitude_recovery_fallback(GZ_QUADROTOR_PARAMS)))(ltv_ref(0.0))
+    refs = jax.vmap(ltv_ref)(jnp.arange(LTV_T, dtype=jnp.float32) * LDT)[:, 0:3]
+    dist = jnp.linalg.norm(outs["state"][:, 0:3] - jnp.asarray(OBSTACLE[:3]), axis=1)
+    return rms(outs["state"], refs), float(dist.min() - OBSTACLE[3])
+
+
+def mppi12():
+    ctrl = MPPIController()
+
+    def step(c, i):
+        st, mc = c
+        pos_ref, _, yaw_ref = circle(i.astype(jnp.float32) * DT)
+        u, _, mc = ctrl.solve(mc, st, pos_ref, yaw_ref)
+        st = rigid_body_rk4_step(st, u, X500_PARAMS, DT)
+        return (st, mc), st
+
+    x0 = x_start()
+    _, states = jax.jit(lambda: jax.lax.scan(step, (x0, ctrl.init_carry(x0, seed=0)),
+                                             jnp.arange(T)))()
+    return rms(states, circle_refs(T))
+
+
+def jax_mppi_draws(ctrl):
+    """The JAX controller's exploration draws, tick by tick: the carry key
+    split once per tick, standard normals from the subkey."""
+    cfg = ctrl.config
+
+    def step(key, _):
+        key, sub = jax.random.split(key)
+        return key, jax.random.normal(sub, (cfg.num_samples, cfg.horizon, 4), jnp.float32)
+
+    return jax.lax.scan(step, jax.random.PRNGKey(0), None, length=T)[1]
+
+
+def port_mppi12_cpu():
+    """The port's staged MPPI flight on the CPU with the JAX draws."""
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import MPPIController as TMPPI
+    from unmanned_aerial_vehicles_tpu_torch.models import X500_PARAMS as TX500
+    from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference as t_circle
+
+    draws = np.asarray(jax_mppi_draws(MPPIController()))
+    ctrl = TMPPI(device="cpu")
+    pos, _, yaw = t_circle(torch.arange(T, dtype=torch.float32) * DT, amplitude=2.0, height=3.0)
+    x = torch.zeros(12)
+    x[2] = 3.0
+    carry, states = ctrl.init_carry(x, seed=0), []
+    for i in range(T):
+        u, _, carry = ctrl.solve(carry, x, pos[i], yaw[i], eps=torch.from_numpy(draws[i]))
+        x = rigid_body_rk4_step_fast(x, u, TX500, DT)
+        states.append(x)
+    return rms(jnp.asarray(torch.stack(states).numpy()), jnp.asarray(pos.numpy()))
+
+
+def main() -> int:
+    ltv_rms, clearance = ltv12_obstacle()
+    out = {
+        "direct_rate12_fused": multitick(DirectRateMPC(), direct_rate_multitick_fused, dt=DT),
+        "mpc12_fused": multitick(RigidBodyMPC(), rigid_multitick_fused, dt=DT),
+        "mpc12_multitick": mpc12_multitick(),
+        "ltv12_obstacle": ltv_rms,
+        "mppi12": mppi12(),
+        "mppi12_port_cpu": port_mppi12_cpu(),
+        "ltv12_min_clearance_m": clearance,
+    }
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

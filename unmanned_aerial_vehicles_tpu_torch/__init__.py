@@ -16,14 +16,18 @@ no GPU they raise rather than carry on quietly on the CPU.
 
 Sub-packages
 ------------
-``models``        double integrator, PX4 rate-loop surrogate, parameters
-``trajectories``  the ramped figure-8 reference
-``control``       geometric allocation, condensed linear MPC
+``models``        double integrator, PX4 rate-loop surrogate, 12-state rigid
+                  body, parameters
+``trajectories``  the ramped figure-8 and circle references
+``control``       geometric allocation, condensed linear MPC, the 12-state
+                  SQP family (torque, direct-rate, LTV tracking), MPPI
 ``gp``            exact GP and the residual-dynamics ring buffer
 ``estimation``    EKF, disturbance observer, noisy-sensor flights
-``ops``           box-QP ADMM and the hand-written kernels (plant, tick,
-                  batched controller, GP posterior mean, noisy tick)
-``loop``          closed-loop flights and the batched throughput sweep
+``ops``           box-QP ADMM, LTV condensation and the hand-written kernels
+                  (plants, ticks, batched controller, GP posterior mean,
+                  noisy tick, rigid plant, rigid multi-tick, MPPI sampling)
+``loop``          closed-loop flights, the batched throughput sweep and the
+                  12-state multi-tick tiers
 ``parallel``      flight sweeps reduced to tracking aggregates
 ``convert``       carries the JAX package's values (as numpy) across
 """

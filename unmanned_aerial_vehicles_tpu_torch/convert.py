@@ -15,9 +15,13 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .control.mpc_sqp import SQPCarry
 from .gp.exact_gp import GPParams, GPPosterior
 from .gp.residual_gp import ResidualDataset
+from .loop.rigid_loop import MultiTickCarry
+from .models.params import RigidBodyParams
 from .ops.controller_pallas import FusedControllerData, StructuredBatchData
+from .ops.rigid_tick_pallas import RigidTickOperands
 from .ops.tick_pallas import FusedTickData, GPRows, build_tick_data
 
 
@@ -211,3 +215,69 @@ def plant_rows_from_numpy(rows, device=None) -> torch.Tensor:
     """``(R, 10)`` plant rows from the JAX package's ``(R, 16)`` ones (the
     10 plant lanes of its padded row)."""
     return _t(np.asarray(rows)[:, :10], torch.float32, resolve_device(device)).contiguous()
+
+
+def rigid_params_from_numpy(fields: Mapping) -> RigidBodyParams:
+    """``RigidBodyParams`` from the JAX parameter set's fields (a mapping
+    such as ``{f: getattr(p, f) for f in ...}``; scalars or numpy values)."""
+    kw = {k: float(np.asarray(v)) for k, v in fields.items() if k != "wind"}
+    if "wind" in fields:
+        kw["wind"] = tuple(float(v) for v in np.asarray(fields["wind"]).reshape(3))
+    return RigidBodyParams(**kw)
+
+
+def sqp_carry_from_numpy(slack, dual, X_prev, U_prev, dtype=torch.float32,
+                         device=None) -> SQPCarry:
+    """An ``SQPCarry`` from the JAX engine's carry arrays."""
+    dev = resolve_device(device)
+    f = lambda a: _t(a, dtype, dev)
+    return SQPCarry(slack=f(slack), dual=f(dual), X_prev=f(X_prev), U_prev=f(U_prev))
+
+
+def multitick_carry12_from_numpy(state, X_plan, U_plan, z, y, dtype=torch.float32,
+                                 device=None) -> MultiTickCarry:
+    """The 12-state multi-tick tier's ``MultiTickCarry`` from the JAX
+    one's arrays."""
+    dev = resolve_device(device)
+    f = lambda a: _t(a, dtype, dev)
+    return MultiTickCarry(state=f(state), X_plan=f(X_plan), U_plan=f(U_plan), z=f(z), y=f(y))
+
+
+def rigid_tick_operands_from_numpy(sxct, sutqt, f0_row, gml, p1, d_row, e_row, ie_row, ce_row,
+                                   ice_row, lo_row, hi_row, horizon: int, nu: int = 4,
+                                   nx: int = 12, device=None) -> RigidTickOperands:
+    """K11's semantic operands from the JAX multi-tick kernel's padded
+    layouts: ``sxct (16, pad)`` holds Sx' in rows 0:12 and Sc in row 12,
+    ``sutqt (pad, pad)`` is SuT_q', ``gml (pad, pad)`` is GMinvT_s, ``p1
+    (pad, pad)`` is P1, and every ``*_row`` is a ``(1, pad)`` row."""
+    dev = resolve_device(device)
+    N = horizon
+    Nnu, Nnx, m = N * nu, N * nx, N * (nu + nx)
+    f = lambda a: _t(np.ascontiguousarray(a), torch.float32, dev).contiguous()
+    row = lambda r, n: f(np.asarray(r)[0, :n])
+    sxct = np.asarray(sxct)
+    return RigidTickOperands(
+        Sx=f(sxct[0:nx, :Nnx].T), Sc=f(sxct[12, :Nnx]),
+        SuT_q=f(np.asarray(sutqt)[:Nnx, :Nnu].T), f0=row(f0_row, Nnu),
+        GMinvT_s=f(np.asarray(gml)[:Nnu, :m]), P1=f(np.asarray(p1)[:m, :m]),
+        d=row(d_row, Nnu), e=row(e_row, m), ie=row(ie_row, m), ce=row(ce_row, m),
+        ice=row(ice_row, m), lo=row(lo_row, m), hi=row(hi_row, m),
+    )
+
+
+def rigid_tick_carry_from_numpy(x_row, z_row, y_row, refs, horizon: int, nu: int = 4,
+                                nx: int = 12, device=None):
+    """K11's ``(x (12,), z (m,), y (m,), refs (K, N nx))`` from the JAX
+    kernel's padded ``x_row (1, 16)``, slack and dual rows and ``(K, pad)``
+    reference rows."""
+    dev = resolve_device(device)
+    m, Nnx = horizon * (nu + nx), horizon * nx
+    f = lambda a: _t(np.ascontiguousarray(a), torch.float32, dev).contiguous()
+    return (f(np.asarray(x_row)[0, :12]), f(np.asarray(z_row)[0, :m]),
+            f(np.asarray(y_row)[0, :m]), f(np.asarray(refs)[:, :Nnx]))
+
+
+def mppi_noise_from_numpy(eps, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The JAX MPPI tick's ``(K, N, 4)`` standard-normal exploration draw,
+    for ``MPPIController.solve(..., eps=...)``."""
+    return _t(eps, dtype, resolve_device(device)).contiguous()

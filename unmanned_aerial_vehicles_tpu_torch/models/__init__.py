@@ -1,10 +1,14 @@
-"""Plants: double integrator and the PX4 rate-loop surrogate."""
+"""Plants: double integrator, PX4 rate-loop surrogate, 12-state rigid body,
+parameters."""
 
 from .double_integrator import CONTROL_DIM, STATE_DIM, double_integrator_step
-from .params import RigidBodyParams
+from .params import COMPARISON_PARAMS, GZ_QUADROTOR_PARAMS, X500_PARAMS, RigidBodyParams
 from .px4_surrogate import RateLoopParams, px4_rate_tracking_step
+from .rigid_body import rigid_body_derivative, rigid_body_euler_step, rigid_body_rk4_step
 
 __all__ = [
     "CONTROL_DIM", "STATE_DIM", "double_integrator_step", "RigidBodyParams",
+    "COMPARISON_PARAMS", "GZ_QUADROTOR_PARAMS", "X500_PARAMS",
     "RateLoopParams", "px4_rate_tracking_step",
+    "rigid_body_derivative", "rigid_body_euler_step", "rigid_body_rk4_step",
 ]

@@ -8,5 +8,8 @@ K1 ``plant_pallas.px4_plant_step_fused``, K2
 K6 ``admm_pallas.admm_box_qp_fused_composite``, K7
 ``rbf_pallas.rbf_posterior_mean_pallas``, K8
 ``controller_pallas.gpmpc_controller_structured_batched``, K9
-``tick_pallas.gpmpc_noisy_multitick_fused``.
+``tick_pallas.gpmpc_noisy_multitick_fused``, K10
+``rigid_plant_pallas.rigid_body_rollout_fused``, K11
+``rigid_tick_pallas.direct_rate_multitick_kernel``, K12
+``mppi_pallas.mppi_rollout_costs_fused``.
 """

@@ -40,6 +40,9 @@ LIBRARIES = {
     "noisy_tick": "noisy_tick_kernel.cu",
     # K9 with its per-section clock counters (chip_smoke.py's breakdown)
     "noisy_tick_clocks": ("noisy_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
+    "rigid_plant": "rigid_plant_kernels.cu",
+    "rigid_tick": "rigid_tick_kernel.cu",
+    "mppi": "mppi_kernels.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +60,9 @@ launch_counts: dict[str, int] = {
     "gpmpc_controller_fused": 0,
     "admm_box_qp_fused_composite": 0,
     "gpmpc_noisy_multitick_fused": 0,
+    "rigid_body_rollout_fused": 0,
+    "direct_rate_multitick_kernel": 0,
+    "mppi_rollout_costs_fused": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

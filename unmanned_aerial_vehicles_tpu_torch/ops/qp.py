@@ -76,3 +76,72 @@ def admm_box_qp_composite(
         z = z_new
     U = -Minv_f + GMinvT @ (rho * z - y)
     return AdmmState(U, z, y)
+
+
+def condense_ltv(A: torch.Tensor, B: torch.Tensor, c: torch.Tensor):
+    """Condensation of time-varying affine dynamics
+    ``x_{k+1} = A_k x_k + B_k u_k + c_k`` with ``A (N, nx, nx)``, ``B (N, nx,
+    nu)``, ``c (N, nx)``: ``(Sx (N nx, nx), Su (N nx, N nu), Sc (N nx,))``
+    with ``X = Sx x0 + Su U + Sc`` for ``X = [x_1..x_N]``, ``U =
+    [u_0..u_{N-1}]``. A serial pass of three small products per stage."""
+    N, nx, nu = B.shape
+    row_x = torch.eye(nx, dtype=B.dtype, device=B.device)
+    row_u = torch.zeros(nx, N * nu, dtype=B.dtype, device=B.device)
+    row_c = torch.zeros(nx, dtype=B.dtype, device=B.device)
+    Sx, Su, Sc = [], [], []
+    for k in range(N):
+        row_x = A[k] @ row_x
+        row_u = A[k] @ row_u
+        row_u[:, k * nu:(k + 1) * nu] = B[k]
+        row_c = A[k] @ row_c + c[k]
+        Sx.append(row_x)
+        Su.append(row_u)
+        Sc.append(row_c)
+    return torch.cat(Sx), torch.cat(Su), torch.cat(Sc)
+
+
+def condense_ltv_doubling(A: torch.Tensor, B: torch.Tensor, c: torch.Tensor):
+    """``condense_ltv`` by log-depth block doubling: adjacent horizon
+    blocks combine as
+
+        Sx = [Sx_L; Sx_R PhiL],  Su = [[Su_L, 0], [Sx_R SuL_end, Su_R]],
+        Sc = [Sc_L; Sx_R ScL_end + Sc_R],
+
+    ``ceil(log2 N)`` levels of batched small products. The horizon pads to
+    a power of two with zero stages, sliced off at the end. The products
+    associate differently from the serial form, so the two agree to
+    rounding."""
+    N, nx, nu = B.shape
+    P = 1 << max(N - 1, 0).bit_length()
+    if P != N:
+        pad = P - N
+        A = torch.cat([A, A.new_zeros(pad, nx, nx)])
+        B = torch.cat([B, B.new_zeros(pad, nx, nu)])
+        c = torch.cat([c, c.new_zeros(pad, nx)])
+    Sx, Su, Sc = A, B, c          # blocks of length L=1: (P, L nx, .)
+    L = 1
+    while L < P:
+        SxL, SxR = Sx[0::2], Sx[1::2]
+        SuL, SuR = Su[0::2], Su[1::2]
+        ScL, ScR = Sc[0::2], Sc[1::2]
+        PhiL = SxL[:, -nx:, :]                    # end-state map of the left block
+        SuLe = SuL[:, -nx:, :]
+        ScLe = ScL[:, -nx:]
+        Sx = torch.cat([SxL, torch.bmm(SxR, PhiL)], dim=1)
+        Su = torch.cat([
+            torch.cat([SuL, torch.zeros_like(SuL)], dim=2),
+            torch.cat([torch.bmm(SxR, SuLe), SuR], dim=2),
+        ], dim=1)
+        Sc = torch.cat([ScL, torch.bmm(SxR, ScLe[:, :, None])[:, :, 0] + ScR], dim=1)
+        L *= 2
+    return Sx[0, : N * nx], Su[0, : N * nx, : N * nu], Sc[0, : N * nx]
+
+
+def shift_stages(mat: torch.Tensor) -> torch.Tensor:
+    """The warm-start shift: rows moved one forward, the last repeated."""
+    return torch.cat([mat[1:], mat[-1:]], dim=0)
+
+
+def roll_block(vec: torch.Tensor, N: int) -> torch.Tensor:
+    """A vector of N stages moved one stage forward, its last stage repeated."""
+    return shift_stages(vec.reshape(N, -1)).reshape(-1)
