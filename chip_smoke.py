@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught):
    port's own relinearisation at the circle task's start (5e-4 on every
    output, a second launch bit-identical, the P1 variant printed), K12 at
    512 x 25 (1e-5 relative; a float64 MPPI controller's tick must launch
-   it once); time each kernel and its plain
+   it once), K5 with the variance section (``tighten_kappa`` 2, N=20,
+   P=800, K=8, 10 iterations; 1e-4 of each output's scale, a second launch
+   bit-identical, in a case where the backed-off bound binds) and timed
+   next to the same launch without it; time each kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
@@ -60,15 +63,24 @@ Phases (any failure exits non-zero; nothing is caught):
    direct-rate12 and mpc12 fused multi-tick tiers (K11 50 launches each),
    mpc12 through ``sqp_multitick_rollout`` (K10 400), the LTV obstacle flight
    at 10 Hz (K=2, 100 iterations, fallback, 200 ticks: K10 300) and the
-   staged MPPI flight (K12 400, K10 400); each is held against the same
+   staged MPPI flight (K12 400, K10 400); GP-variance tightening:
+   ``bench.py``'s tightening mode (the frozen GP, kappa 2, K=8, 400 ticks:
+   the tightened K5 50 launches), ``examples/09``'s online flight (wind,
+   preview, fallback, P=256, refit every 250, K=8, 1000 ticks: 125
+   launches, the ring buffer's count equal to the plain flight's), a
+   100-tick staged flight tightened through ``uncertainty_fn`` and K6 (100
+   launches), a 100-tick staged output-correction flight (K3 100 launches),
+   and the online flight stopped at tick 496, saved, loaded and continued
+   (bit-identical to the unbroken flight); each is held against the same
    flight through the plain versions on the card (1e-3 m; the LTV obstacle
    and MPPI flights, chaotic in float32, 5e-3 m over their first 30 ticks
    and their RMS within 8e-3 m and 2e-3 m over the whole flight);
-4. time microseconds per online tick, per online-noisy tick and per
-   single-tick tick as the slope between two flight lengths, for the
-   kernel path and the plain path (the single-tick tick also without its
-   GP), the device's busy time and idle share from ``torch.profiler``
-   windows (sweep, single-tick, online-noisy), and microseconds per
+4. time microseconds per online tick, per online-noisy tick, per
+   single-tick tick and per tightened tick (``bench.py``'s tightening mode)
+   as the slope between two flight lengths, for the kernel path and the
+   plain path (the single-tick tick also without its GP), the device's
+   busy time and idle share from ``torch.profiler`` windows (sweep,
+   single-tick, online-noisy, tightened), and microseconds per
    flight-tick of the 1024-flight sweep as the
    slope between 200 and 700 ticks (``gp_posterior`` with ``gp_every`` 1
    and 5, and ``residual_fn``), and the device's busy time per sweep tick
@@ -89,6 +101,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +121,7 @@ HORIZON, K_TICKS, GP_POINTS, ADMM_ITERS = 20, 20, 800, 10
 T_MAIN = 500
 T_SLOPE = (1000, 3000)        # kernel path
 T_SLOPE_PLAIN = (100, 300)    # plain path (hundreds of small launches per tick)
+T_SLOPE_TIGHT_PLAIN = (104, 304)   # the same at K=8 (lengths a multiple of K)
 
 SWEEP_B, SWEEP_T = 1024, 100  # the throughput sweep (bench.py:301-307)
 T_SWEEP_SLOPE = (200, 700)    # bench.py:301
@@ -119,6 +133,11 @@ SINGLE_TOL = 1e-4             # K4, K3, K6 against their plain versions
 SINGLE_GAP_BOUND_M = 1e-3     # kernel vs plain flight: single-tick, preview, K3/K6 staged
 LONG_HORIZON = 25             # the package default: P1 read through L2
 K5_PREVIEW_K, K5_PREVIEW_T = 8, 400   # bench.py's frozen-GP preview flight
+
+TIGHTEN_KAPPA = 2.0           # bench.py:262-270's tightening mode and examples/09
+TIGHT_T = 400                 # the tightened frozen-GP flight (bench.py's mode)
+ONLINE09_T, ONLINE09_P = 1000, 256   # examples/09's online flight, shortened
+RESUME_AT = 496               # a launch boundary of the K=8 online flight
 
 K9_TOL = 1e-4                 # K9 against its plain version
 NOISY_GAP_BOUND_M = 1e-3      # kernel vs plain noisy flights
@@ -338,6 +357,82 @@ def check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics, k5_
                 host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
                 bound=bound_ms(n_bytes, k5_ops + K * ops_filter(12)),
                 filter_ops_per_tick=ops_filter(12))
+
+
+def ops_tightening(N: int, P: int) -> int:
+    """FP32 operations of K5's variance section per tick
+    (csrc/multitick_phases.cuh gp_horizon_tightening): the quadratic form
+    K* K^-1 K*' (2 N P^2 + 2 N P), the variance row (6 per stage row), the
+    SwSqT matvec (2 Nnx^2) and the back-off (5 per state row)."""
+    Nnx = 6 * N
+    return 2 * N * P * P + 2 * N * P + 6 * Nnx + 2 * Nnx * Nnx + 5 * Nnx
+
+
+def check_tightened_k5(dev, mpc, post, prow, k5_tick_ops, fail_fn):
+    """Hold K5's tightened variant against its plain version on the card at
+    bench.py's tightening width (N=20, P=800, K=8, 10 iterations, kappa 2)
+    in a case where the back-off binds, launch it twice (bit-identical), and
+    time it next to the same launch without the variance section. Returns
+    the kernel's record for the JSON line."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    N, K, P = HORIZON, K5_PREVIEW_K, GP_POINTS
+    gp = tick_pallas.build_gp_rows(post, 0.1, with_variance=True)
+    x0 = torch.zeros(12, **f32)
+    x0[:6] = torch.tensor([0.2, -0.1, 2.9, 7.9, 0.3, -0.1])
+    aux = torch.cat([x0[:6], torch.zeros(3, **f32)]).contiguous()
+    refs = torch.tensor([3.0, 0.0, 3.0, 9.0, 0.0, 0.0], **f32).repeat(K, N).contiguous()
+    m = mpc.n_constraints
+    args = (mpc._tick_data, gp, x0, aux, x0[:6].repeat(N).contiguous(), torch.zeros(m, **f32),
+            torch.zeros(m, **f32), refs, torch.zeros(K, **f32), prow)
+    statics = dict(k_ticks=K, use_gp=True, rho=8.0, iterations=ADMM_ITERS, over_relax=1.6,
+                   dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                   yawrate_limit=0.8, n=N, nu=4, nx=6, tighten_kappa=TIGHTEN_KAPPA)
+    got = tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    torch.cuda.synchronize()
+    want = tick_pallas.multitick_staged(*args, **statics)
+    loose = tick_pallas.multitick_staged(*args, **dict(statics, tighten_kappa=0.0))
+    for g in got:
+        if not torch.isfinite(g).all():
+            fail_fn("tightened K5 produced non-finite values")
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [max(1.0, float(w.abs().max())) for w in want]
+    again = tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    bind = float((want[0][:, 25:29] - loose[0][:, 25:29]).abs().max())
+    print("K5 tightened (gpmpc_multitick_fused, tighten_kappa "
+          f"{TIGHTEN_KAPPA}, N={N}, P={P}, K={K}): max_abs_err against the plain version per "
+          "output (packed, state, aux, xtail, z, y): "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (output scales {', '.join(f'{v:.1f}' for v in scales)}); the back-off moves "
+          f"u_mpc by {bind:.3e} against kappa 0; shared memory "
+          f"{tick_pallas.shared_memory_bytes(N, tighten=True)} B")
+    if not all(e <= TICK_TOL * sc for e, sc in zip(errs, scales)):
+        fail_fn(f"tightened K5 disagrees with its plain version: {errs}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail_fn("tightened K5: a second launch on the same inputs differs")
+    if not bind > 1e-3:
+        fail_fn(f"tightened K5's check case does not bind ({bind})")
+    fn = lambda: tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    plain = lambda: tick_pallas.multitick_staged(*args, **statics)
+    untightened = graph_ms(lambda: tick_pallas.gpmpc_multitick_fused(
+        *args, **dict(statics, tighten_kappa=0.0)), 20)
+    data = mpc._tick_data
+    n_bytes = (nbytes(data.SxSwT, data.SuTqT, data.PM, data.P1, data.P0matT, data.SuT,
+                      data.lo_row, data.hi_row, data.SwSqT, *gp, *args[2:]) + nbytes(*got))
+    rec = dict(err=max(errs), ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+               host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
+               bound=bound_ms(n_bytes, K * (k5_tick_ops + ops_tightening(N, P))),
+               untightened_ms=untightened)
+    print(f"K5 tightened device time per launch: {rec['ms'] * 1e3:.2f} us ({rec['ms'] * 1e3 / K:.2f}"
+          f" us per tick), the same launch without the variance section {untightened * 1e3:.2f} us"
+          f" ({untightened * 1e3 / K:.2f} us per tick): the section costs "
+          f"{(rec['ms'] - untightened) * 1e3 / K:.2f} us per tick; plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us; bound {rec['bound'][0] * 1e3:.4f} us "
+          f"({rec['bound'][1]}; {ops_tightening(N, P)} operations per tick in the section)")
+    return rec
 
 
 # ---- the 12-state SQP and MPPI family (K10, K11, K12) ----------------------
@@ -726,8 +821,11 @@ def main() -> int:
     from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
         ResidualGPConfig,
         build_horizon_residuals,
+        build_horizon_uncertainty,
         fit_residual_gp,
+        make_output_correction_fn,
     )
+    from unmanned_aerial_vehicles_tpu_torch.io import load_resume_state, save_resume_state
     from unmanned_aerial_vehicles_tpu_torch.loop import (
         FlightLoopConfig,
         OnlineFusedGPConfig,
@@ -905,6 +1003,12 @@ def main() -> int:
     }
     print(f"K5 device time per launch: {k5['ms'] * 1e3:.2f} us; "
           + "; ".join(f"without {w} {ms * 1e3:.2f} us" for w, ms in k5_without.items()))
+
+    # K5 with the variance section (tighten_kappa > 0): bench.py's tightening
+    # mode's launch (N=20, P=800, K=8, kappa 2), flying at 7.9 m/s into the
+    # 8 m/s box toward a 9 m/s reference, so the backed-off bound binds
+    kt = check_tightened_k5(dev, mpc, post, prow, gp_ops + admm_ops + rest_ops, fail)
+    kernels["gpmpc_multitick_fused_tightened"] = kt
 
     # K9: K5's operands with the filter inside, four configurations
     k9 = check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics,
@@ -1270,6 +1374,87 @@ def main() -> int:
           f"{float(rms(preview_outs)):.6f} m; frozen-GP multi-tick with preview "
           f"{float(rms(frozen_preview_outs)):.6f} m")
 
+    # GP-variance tightening: (a) bench.py:262-270's tightening mode (the
+    # frozen GP, K=8, kappa 2); (b) examples/09's online flight (wind, preview,
+    # the fallback, P=256, refit every 250, K=8); (c) the staged tightening
+    # through uncertainty_fn and K6; (d) the staged output correction; (e)
+    # flight (b) stopped at a launch boundary, saved, loaded and continued
+    tight_cfg = dict(horizon=HORIZON, admm_iterations=ADMM_ITERS, tightening_factor=TIGHTEN_KAPPA)
+    mpc_tight = LinearMPC(LinearMPCConfig(use_fused_controller=True, **tight_cfg), device=dev)
+    loop8 = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K5_PREVIEW_K)
+
+    def tightened(T, plain=False):
+        return mpc_flight_rollout(mpc_tight, ref, T, gp_posterior=post,
+                                  gp_gain=gp_cfg.residual_gain, cfg=loop8, device=dev,
+                                  plain_kernels=plain)
+
+    tight_outs, _ = check_path(
+        f"tightened frozen-GP multi-tick figure-8 (kappa {TIGHTEN_KAPPA}, N={HORIZON}, "
+        f"P={GP_POINTS}, K={K5_PREVIEW_K}, {TIGHT_T} ticks)",
+        lambda p: tightened(TIGHT_T, p),
+        {"gpmpc_multitick_fused_tightened": TIGHT_T // K5_PREVIEW_K}, SINGLE_GAP_BOUND_M,
+    )
+    loop09 = FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K5_PREVIEW_K,
+                              fallback_error_m=1.5)
+    ogp09 = OnlineFusedGPConfig(gp=ResidualGPConfig(max_data_points=ONLINE09_P, residual_gain=1.0),
+                                refit_every=250)
+    wind09 = RigidBodyParams(wind=(1.5, 0.8, 0.0))
+
+    def online09(T, plain=False, **kw):
+        return mpc_flight_rollout(mpc_tight, ref, T, body=wind09, cfg=loop09, preview=True,
+                                  online_gp=ogp09, gp_gain=1.0, device=dev, plain_kernels=plain,
+                                  **kw)
+
+    online09_outs, online09_plain = check_path(
+        f"examples/09 online figure-8 (tightening kappa {TIGHTEN_KAPPA}, wind, preview, "
+        f"fallback, P={ONLINE09_P}, K={K5_PREVIEW_K}, {ONLINE09_T} ticks)",
+        lambda p: online09(ONLINE09_T, p),
+        {"gpmpc_multitick_fused_tightened": ONLINE09_T // K5_PREVIEW_K}, SINGLE_GAP_BOUND_M,
+        record=False,
+    )
+    if not torch.equal(online09_outs["gp_count"], online09_plain["gp_count"]):
+        fail("examples/09 online flight: the ring buffer's count differs from the plain flight's")
+    admm_tight = LinearMPC(LinearMPCConfig(use_fused_admm=True, **tight_cfg), device=dev)
+    unc = lambda Xg, Ug: build_horizon_uncertainty(post, Xg, Ug, gp_cfg)
+    staged_tight_outs, _ = check_path(
+        f"staged tightened flight (uncertainty_fn, use_fused_admm, kappa {TIGHTEN_KAPPA}; "
+        f"{NOISY_SHORT_T} ticks)",
+        lambda p: mpc_flight_rollout(admm_tight, ref, NOISY_SHORT_T, residual_fn=resid,
+                                     uncertainty_fn=unc, device=dev, plain_kernels=p),
+        {"admm_box_qp_fused_composite": NOISY_SHORT_T}, SINGLE_GAP_BOUND_M, record=False,
+    )
+    correction = make_output_correction_fn(post, GP_POINTS)
+    correction_outs, _ = check_path(
+        f"staged output-correction flight (solve through K3; {NOISY_SHORT_T} ticks)",
+        lambda p: mpc_flight_rollout(mpc, ref, NOISY_SHORT_T, output_correction_fn=correction,
+                                     device=dev, plain_kernels=p),
+        {"gpmpc_controller_fused": NOISY_SHORT_T}, SINGLE_GAP_BOUND_M, record=False,
+    )
+    uncorrected = mpc_flight_rollout(mpc, ref, NOISY_SHORT_T, device=dev)
+    moved = float((correction_outs["u_mpc"] - uncorrected["u_mpc"]).abs().max())
+    if not moved > 0.0:
+        fail("the output correction never applied")
+    _cuda.reset_launch_counts()
+    seg1, resume_state = online09(RESUME_AT, return_resume=True)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = Path(tmp) / "resume.npz"
+        save_resume_state(path, resume_state)
+        seg2 = online09(ONLINE09_T - RESUME_AT, resume=load_resume_state(path, device=dev))
+    torch.cuda.synchronize()
+    resumed_launches = _cuda.launch_counts["gpmpc_multitick_fused_tightened"]
+    for key in ("state", "gp_count"):
+        if not torch.equal(torch.cat([seg1[key], seg2[key]]), online09_outs[key]):
+            fail(f"the resumed examples/09 flight's {key} differs from the unbroken flight's")
+    print(f"  resumed at tick {RESUME_AT} from a saved checkpoint: bit-identical to the unbroken "
+          f"flight over {ONLINE09_T} ticks ({resumed_launches} launches of the tightened K5)")
+    tight_rms = {"frozen_400": float(rms(tight_outs)), "online09_1000": float(rms(online09_outs)),
+                 "staged_uncertainty_100": float(rms(staged_tight_outs)),
+                 "output_correction_100": float(rms(correction_outs))}
+    print("  figure-8 RMS: " + "; ".join(f"{k} {v:.6f} m" for k, v in tight_rms.items())
+          + f"; examples/09 ring buffer count at tick {ONLINE09_T} "
+          f"{int(online09_outs['gp_count'][-1])}; the output correction moved u_mpc by up to "
+          f"{moved:.3e}")
+
     # the noisy tiers: sensors -> filter -> MPC on the estimate -> plant on
     # the truth, the same seeded sensor stream for the kernel and plain runs
     def noisy(T, plain=False, **kw):
@@ -1415,6 +1600,14 @@ def main() -> int:
           f"{T_SLOPE_PLAIN[0]}->{T_SLOPE_PLAIN[1]}); online tick without noise {us_kernel:.2f} "
           f"us; card: {card}")
 
+    us_tight = slope_us(lambda T: tightened(T), T_SLOPE)
+    us_tight_plain = slope_us(lambda T: tightened(T, True), T_SLOPE_TIGHT_PLAIN)
+    print(f"tightened tick (frozen GP, kappa {TIGHTEN_KAPPA}, K={K5_PREVIEW_K}): {us_tight:.2f} "
+          f"us/tick through the tightened K5 (slope {T_SLOPE[0]}->{T_SLOPE[1]} ticks; its "
+          f"device time {kt['ms'] * 1e3 / K5_PREVIEW_K:.2f} us per tick), {us_tight_plain:.2f} "
+          f"us/tick through the plain version (slope {T_SLOPE_TIGHT_PLAIN[0]}->"
+          f"{T_SLOPE_TIGHT_PLAIN[1]}); card: {card}")
+
     def sweep_slope_us(**kw):
         """Microseconds per sweep tick, slope between the two lengths."""
         return slope_us(lambda T: sweep(T, **kw), T_SWEEP_SLOPE)
@@ -1459,6 +1652,7 @@ def main() -> int:
          us_sweep_tick["gp_posterior, gp_every=1"], 50),
         ("50 single-tick ticks", lambda T: single_tick(T), us_single, 50),
         ("100 online-noisy ticks", lambda T: online_noisy(T), us_noisy, 100),
+        ("96 tightened ticks", lambda T: tightened(T), us_tight, 96),
     ):
         busy_us, by_name = device_busy(fly, ticks)
         idle_share[label] = 1.0 - busy_us / tick_us
@@ -1519,6 +1713,8 @@ def main() -> int:
         "px4_plant_step_fused": ("plant_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/plant_pallas.py:377"),
         "allocation_plant_tick_fused": ("plant_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/plant_pallas.py:312"),
         "gpmpc_multitick_fused": ("tick_kernel.cu", "unmanned_aerial_vehicles_tpu/ops/tick_pallas.py:686"),
+        "gpmpc_multitick_fused_tightened": (
+            "tick_kernel.cu", "unmanned_aerial_vehicles_tpu/ops/tick_pallas.py:686"),
         "gpmpc_controller_structured_batched": (
             "controller_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:449"),
         "rbf_posterior_mean_pallas": ("rbf_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/rbf_pallas.py:221"),
@@ -1567,6 +1763,10 @@ def main() -> int:
         "fig8_rms_m_single_tick_500": float(rms(single_outs)),
         "fig8_rms_m_single_tick_preview_500": float(rms(preview_outs)),
         "fig8_rms_m_frozen_preview_400": float(rms(frozen_preview_outs)),
+        "us_per_tightened_tick": us_tight, "us_per_tightened_tick_plain": us_tight_plain,
+        "idle_share_tightened": idle_share["96 tightened ticks"],
+        "us_per_launch_k5_tightened_without_variance": kt["untightened_ms"] * 1e3,
+        "fig8_rms_m_tightening": tight_rms,
         "us_per_launch_n25": {name: single[(name, LONG_HORIZON)]["ms"] * 1e3
                               for name in ("gpmpc_tick_fused", "gpmpc_controller_fused",
                                            "admm_box_qp_fused_composite")},

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Circle-task RMS of the JAX package's 12-state flights on the CPU: the
-yardstick for the port's flights in ``chip_smoke.py`` phase 3.
+"""Circle-task RMS of the JAX package's 12-state flights, and figure-8 RMS
+of its GP-variance tightening flights, on the CPU: the yardstick for the
+port's flights in ``chip_smoke.py`` phase 3.
 
     python3 jax_reference_rms.py
 
@@ -12,8 +13,14 @@ through the direct-rate12 and mpc12 fused multi-tick tiers (K=8, 30 ADMM
 iterations, ``plan_roll="linear"``), the mpc12 ``sqp_multitick_rollout``
 with the rigid plant, and the staged MPPI flight (512 x 25, seed 0); and
 the LTV obstacle flight (10 Hz, K=2, 100 iterations, obstacle (0, 1.5, 1,
-0.3), fallback, 200 ticks). Prints one JSON object of RMS values in metres
-and the LTV flight's minimum clearance from the obstacle's surface.
+0.3), fallback, 200 ticks). And the 6-state figure-8
+(``ramped_figure8_reference``, 6 m, 0.02 Hz, 3 m high, N=20, 10 ADMM
+iterations) with tightening kappa 2: ``bench.py``'s tightening mode (the
+frozen GP fitted on the seeded synthetic set, P=800, K=8, 400 ticks) and
+``examples/09``'s online flight (wind (1.5, 0.8, 0), preview, fallback
+1.5 m, P=256, refit every 250, K=8, 1000 ticks). Prints one JSON object of
+RMS values in metres and the LTV flight's minimum clearance from the
+obstacle's surface.
 
 Imports JAX; the port and ``chip_smoke.py`` do not. MPPI draws its
 exploration noise from ``jax.random`` here and from a ``torch.Generator``
@@ -182,8 +189,52 @@ def port_mppi12_cpu():
     return rms(jnp.asarray(torch.stack(states).numpy()), jnp.asarray(pos.numpy()))
 
 
+def fig8(t):
+    from unmanned_aerial_vehicles_tpu.trajectories import ramped_figure8_reference
+
+    pos, yaw = ramped_figure8_reference(t, 6.0, 0.02)
+    return pos + jnp.asarray([0.0, 0.0, 3.0], pos.dtype), yaw
+
+
+def fig8_rms(outs):
+    return float(jnp.sqrt(jnp.mean(jnp.sum((outs["state"][:, 0:3] - outs["pos_ref"]) ** 2, -1))))
+
+
+def fig8_tightening():
+    """``chip_smoke.py``'s tightening flights (a) and (b), flown by the JAX
+    package (its K5 in interpret mode)."""
+    import numpy as np
+
+    from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig, fit_residual_gp
+    from unmanned_aerial_vehicles_tpu.loop import (
+        FlightLoopConfig,
+        OnlineFusedGPConfig,
+        mpc_flight_rollout,
+    )
+    from unmanned_aerial_vehicles_tpu.models.params import RigidBodyParams
+
+    mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=10, use_fused_controller=True,
+                                    tightening_factor=2.0))
+    rng = np.random.default_rng(0)
+    X = jnp.asarray(rng.normal(size=(800, 10)), jnp.float32)
+    Y = jnp.asarray(0.05 * rng.normal(size=(800, 6)), jnp.float32)
+    post = fit_residual_gp(X, Y, ResidualGPConfig())
+    frozen = jax.jit(lambda p: mpc_flight_rollout(
+        mpc, fig8, 400, gp_posterior=p, gp_gain=ResidualGPConfig().residual_gain,
+        cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8)))(post)
+    online = jax.jit(lambda: mpc_flight_rollout(
+        mpc, fig8, 1000, body=RigidBodyParams(wind=(1.5, 0.8, 0.0)),
+        cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=8, fallback_error_m=1.5),
+        preview=True, gp_gain=1.0,
+        online_gp=OnlineFusedGPConfig(gp=ResidualGPConfig(max_data_points=256, residual_gain=1.0),
+                                      refit_every=250)))()
+    return fig8_rms(frozen), fig8_rms(online), int(online["gp_count"][-1])
+
+
 def main() -> int:
     ltv_rms, clearance = ltv12_obstacle()
+    tight_rms, online09_rms, online09_count = fig8_tightening()
     out = {
         "direct_rate12_fused": multitick(DirectRateMPC(), direct_rate_multitick_fused, dt=DT),
         "mpc12_fused": multitick(RigidBodyMPC(), rigid_multitick_fused, dt=DT),
@@ -192,6 +243,9 @@ def main() -> int:
         "mppi12": mppi12(),
         "mppi12_port_cpu": port_mppi12_cpu(),
         "ltv12_min_clearance_m": clearance,
+        "fig8_tightened_frozen_400": tight_rms,
+        "fig8_online09_1000": online09_rms,
+        "fig8_online09_gp_count_1000": online09_count,
     }
     print(json.dumps(out))
     return 0

@@ -7,11 +7,15 @@ a machine without them:
 ``--noconftest`` leaves out ``tests/conftest.py``, which imports JAX.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
-from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import fit_residual_gp
+from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_pallas
+from unmanned_aerial_vehicles_tpu_torch.ops.plant_pallas import build_plant_row
 
 K_SAMPLES, N = 128, 9
 # a float32 sampling stage against the controller's own dtype: the softmax
@@ -46,3 +50,42 @@ def test_mppi_tick_samples_through_k12(cuda_device, dtype):
         assert us[fused].dtype == dtype and carry.U_nom.dtype == dtype
         assert bool(torch.isfinite(us[fused]).all())
     torch.testing.assert_close(us[True], us[False], rtol=0, atol=U0_ATOL)
+
+
+@pytest.mark.cuda
+def test_tightened_k5_launches_once_and_agrees_with_its_plain_version(cuda_device):
+    """A K5 call with tighten_kappa > 0 (N=20, P=800, K=8) launches the
+    tightened kernel once, agrees with the plain version within 1e-4 of each
+    output's scale and repeats bit for bit."""
+    N, P, K = 20, 800, 8
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    mpc = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=10, use_fused_controller=True),
+                    device=cuda_device)
+    rng = np.random.default_rng(0)
+    post = fit_residual_gp(torch.tensor(rng.normal(size=(P, 10)), **f32),
+                           torch.tensor(2.0 * rng.normal(size=(P, 6)), **f32))
+    gp = tick_pallas.build_gp_rows(post, 1.0, with_variance=True)
+    x0 = torch.zeros(12, **f32)
+    x0[:6] = torch.tensor([0.2, -0.1, 2.9, 7.8, 0.3, -0.1])   # near the 8 m/s box
+    aux = torch.cat([x0[:6], torch.zeros(3, **f32)]).contiguous()
+    refs = torch.tensor([3.0, 0.0, 3.0, 9.0, 0.0, 0.0], **f32).repeat(K, N).contiguous()
+    plant_row = build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81, (0.8, 0.4, 0.0),
+                                device=cuda_device)
+    args = (mpc._tick_data, gp, x0, aux, x0[:6].repeat(N).contiguous(),
+            torch.zeros(10 * N, **f32), torch.zeros(10 * N, **f32), refs,
+            torch.zeros(K, **f32), plant_row)
+    statics = dict(k_ticks=K, use_gp=True, rho=8.0, iterations=10, over_relax=1.6, dt=0.02,
+                   substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                   yawrate_limit=0.8, n=N, tighten_kappa=2.0)
+    _cuda.reset_launch_counts()
+    got = tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["gpmpc_multitick_fused_tightened"] == 1
+    assert _cuda.launch_counts["gpmpc_multitick_fused"] == 0
+    want = tick_pallas.multitick_staged(*args, **statics)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+    again = tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

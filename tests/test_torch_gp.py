@@ -1,10 +1,15 @@
 """Port parity: exact GP, the masked ring-buffer refit, horizon residuals
-and the ring buffer's batched inserts against the JAX package, on the CPU.
+and the ring buffer's batched and single inserts against the JAX package,
+on the CPU; the predictive variance and what reads it (``predict``,
+``predict_residual``, ``build_horizon_uncertainty``, the output
+correction).
 
 Tolerance 1e-6 on posteriors (the bar JAX itself holds against sklearn,
 ``tests/test_gp.py``): the fits share float64 Gram matrices and Cholesky
 factors, and the float32 ring-buffer statistics differ only in summation
 order. Ring-buffer inserts are exact: same slots, same rows, same count.
+The variance and its consumers compute from one carried-across float64
+posterior: 1e-10 (float64 triangular solves in another order).
 """
 
 import jax.numpy as jnp
@@ -15,11 +20,17 @@ import torch
 from unmanned_aerial_vehicles_tpu.gp.exact_gp import (
     GPParams as JParams,
     fit_gp as j_fit_gp,
+    predict as j_predict,
     predict_mean as j_predict_mean,
 )
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import (
+    OutputCorrectionConfig as JOCCfg,
     ResidualGPConfig as JGPCfg,
+    add_training_sample as j_add_one,
     add_training_samples_batch as j_add,
+    build_horizon_uncertainty as j_uncertainty,
+    output_correction as j_output_correction,
+    predict_residual as j_predict_residual,
     build_horizon_residuals as j_residuals,
     empty_dataset as j_empty,
     fit_residual_gp_masked as j_fit_masked,
@@ -27,10 +38,16 @@ from unmanned_aerial_vehicles_tpu.gp.residual_gp import (
     standardized_params as j_std_params,
 )
 from unmanned_aerial_vehicles_tpu_torch import convert
-from unmanned_aerial_vehicles_tpu_torch.gp.exact_gp import GPParams, fit_gp, predict_mean
+from unmanned_aerial_vehicles_tpu_torch.gp.exact_gp import GPParams, fit_gp, predict, predict_mean
 from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
+    OutputCorrectionConfig,
     ResidualGPConfig,
+    add_training_sample,
     add_training_samples_batch,
+    build_horizon_uncertainty,
+    make_output_correction_fn,
+    output_correction,
+    predict_residual,
     build_horizon_residuals,
     empty_dataset,
     fit_residual_gp_masked,
@@ -145,3 +162,105 @@ def test_batched_inserts_match_jax_through_wraparound():
         np.testing.assert_array_equal(ds.X.numpy(), np.asarray(jds.X))
         np.testing.assert_array_equal(ds.Y.numpy(), np.asarray(jds.Y))
     assert int(ds.head) > capacity     # the ring wrapped
+
+
+def test_single_inserts_match_jax_through_wraparound():
+    capacity = 8
+    cfg, jcfg = ResidualGPConfig(), JGPCfg()
+    ds = empty_dataset(capacity, torch.float32, device="cpu")
+    jds = j_empty(capacity, jnp.float32)
+    rng = np.random.default_rng(6)
+    accepted = 0
+    for i in range(20):
+        s = rng.normal(size=12).astype(np.float32)
+        s[3:6] *= 2.5 if i % 5 == 0 else 1.0        # some fail the velocity filter
+        c = rng.normal(size=4).astype(np.float32)
+        nxt = s.copy()
+        nxt[:6] += 0.02 * rng.normal(size=6).astype(np.float32)
+        ds = add_training_sample(ds, torch.from_numpy(s), torch.from_numpy(c),
+                                 torch.from_numpy(nxt), cfg)
+        jds = j_add_one(jds, jnp.asarray(s), jnp.asarray(c), jnp.asarray(nxt), jcfg)
+        assert (int(ds.count), int(ds.head)) == (int(jds.count), int(jds.head))
+        np.testing.assert_array_equal(ds.X.numpy(), np.asarray(jds.X))
+        np.testing.assert_array_equal(ds.Y.numpy(), np.asarray(jds.Y))
+        accepted = int(ds.head)
+    assert capacity < accepted < 20 and int(ds.count) == capacity   # wrapped, some rejected
+
+
+@pytest.fixture(scope="module")
+def variance_case():
+    """A masked float64 refit with an input shift (standardized mode), the
+    JAX posterior and the port's copy of it, and query points some near the
+    data, some far."""
+    capacity, count = 32, 20
+    X, Y = ring_data(3, capacity, count)
+    jds = j_empty(capacity, jnp.float32).replace(
+        X=jnp.asarray(X), Y=jnp.asarray(Y), head=jnp.int32(count), count=jnp.int32(count))
+    jcfg = JGPCfg()
+    jshift, jstd = j_stats(jds)
+    jpost = j_fit_masked(jds, jcfg, params=j_std_params(jds, jcfg, std=jstd), x_shift=jshift)
+    rng = np.random.default_rng(4)
+    Xq = np.concatenate([X[:4] + 0.05 * rng.normal(size=(4, 10)),
+                         rng.normal(size=(4, 10)) * 3.0]).astype(np.float32)
+    return jpost, to_port(jpost), Xq
+
+
+@pytest.mark.parametrize("with_noise", [True, False])
+def test_predict_mean_and_variance_match_jax(variance_case, with_noise):
+    jpost, post, Xq = variance_case
+    jm, jv = j_predict(jpost, jnp.asarray(Xq), include_noise_in_variance=with_noise)
+    m, v = predict(post, torch.from_numpy(Xq), include_noise_in_variance=with_noise)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=1e-10)
+    # the latent variance is smaller near the data than far from it
+    assert float(v.min()) > 0.0 and float(v[:4, 0].max()) < float(v[4:, 0].min())
+    jr = j_predict_residual(jpost, jnp.asarray(Xq[0, :6]), jnp.asarray(Xq[0, 6:]))
+    r = predict_residual(post, torch.from_numpy(Xq[0, :6]), torch.from_numpy(Xq[0, 6:]))
+    for g, w in zip(r, jr):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10)
+
+
+def test_horizon_uncertainty_matches_jax(variance_case):
+    jpost, post, Xq = variance_case
+    N = 6
+    rng = np.random.default_rng(8)
+    Xg = (Xq[:N + 1, :6] + 0.1 * rng.normal(size=(N + 1, 6))).astype(np.float32)
+    Ug = Xq[:N, 6:].copy()
+    cfg, jcfg = ResidualGPConfig(residual_gain=0.7), JGPCfg(residual_gain=0.7)
+    want = np.asarray(j_uncertainty(jpost, jnp.asarray(Xg), jnp.asarray(Ug), jcfg))
+    got = build_horizon_uncertainty(post, torch.from_numpy(Xg), torch.from_numpy(Ug), cfg)
+    assert tuple(got.shape) == (N, 6) and np.all(got[:, :3].numpy() == 0.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+
+
+# (state6, u_opt, target, n_train, config fields): every gate open, then
+# each gate closed in turn
+_OC = dict(min_train_samples=10, confidence_threshold=2.0, correction_gain=0.5)
+OUTPUT_CORRECTION_CASES = {
+    "applied": ([0.1, 0.2, 3.0, 0.3, -0.2, 0.1], 20, _OC),
+    "too_few_samples": ([0.1, 0.2, 3.0, 0.3, -0.2, 0.1], 5, _OC),
+    "unstable_velocity": ([0.1, 0.2, 3.0, 2.5, -0.2, 0.1], 20, _OC),
+    "far_from_target": ([6.0, 0.2, 3.0, 0.3, -0.2, 0.1], 20, _OC),
+    "uncertain": ([0.1, 0.2, 3.0, 0.3, -0.2, 0.1], 20, dict(_OC, confidence_threshold=0.005)),
+    "defaults": ([0.1, 0.2, 3.0, 0.3, -0.2, 0.1], 20, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OUTPUT_CORRECTION_CASES))
+def test_output_correction_matches_jax(variance_case, case):
+    jpost, post, _ = variance_case
+    state, n_train, fields = OUTPUT_CORRECTION_CASES[case]
+    state = np.asarray(state, np.float32)
+    u = np.asarray([0.4, -0.3, 0.2, 0.05], np.float32)
+    target = np.asarray([0.0, 0.0, 3.0], np.float32)
+    want = np.asarray(j_output_correction(jpost, jnp.asarray(state), jnp.asarray(u),
+                                          jnp.asarray(target), n_train, JOCCfg(**fields)))
+    cfg = convert.output_correction_config_from_fields(fields)
+    got = output_correction(post, torch.from_numpy(state), torch.from_numpy(u),
+                            torch.from_numpy(target), n_train, cfg)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10)
+    assert (not np.array_equal(got.numpy(), u)) == (case == "applied")
+    hook = make_output_correction_fn(post, n_train, cfg)
+    assert torch.equal(hook(torch.from_numpy(state), torch.from_numpy(u),
+                            torch.from_numpy(target)), got)

@@ -1,13 +1,16 @@
 """Port parity for MPPI against the JAX package on the CPU: kernel K12's
 plain version (which the wrapper runs for CPU tensors) against the JAX
 sampling kernel in interpret mode and against the JAX controller's vmapped
-rollout cost, and ``MPPIController.solve`` over five warm-started ticks
-flying the JAX package's own exploration draws (``eps=``).
+rollout cost, ``MPPIController.solve`` over five warm-started ticks flying
+the JAX package's own exploration draws (``eps=``), the circle task at
+full width on those draws, and ``solve`` as a function of its carry.
 
 Tolerances: the costs to 1e-5 relative (float32; the sines of two libraries
 differ in the last bit over 9 RK4 steps); the solve's controls to 1e-9 in
 float64 and 1e-4 in float32 (the softmax at temperature 0.3 amplifies the
-costs' rounding).
+costs' rounding); the circle flight's RMS position error within 5e-3 m of
+the JAX flight's over 50 ticks on equal draws (the 12-state family's bar
+against the JAX package).
 """
 
 import jax
@@ -106,13 +109,27 @@ def test_solve_five_ticks_matches_jax(dtype, tol):
 
 
 def test_solve_draws_from_the_carried_generator():
-    """Without ``eps`` the tick draws from the carry's generator: two
-    controllers seeded alike agree, another seed differs, and the fused
-    and plain sampling stages give the same tick."""
+    """Without ``eps`` the tick draws from the random stream whose state the
+    carry holds, and ``solve`` is a function of its carry: two solves from
+    one carry give the same control and the same new carry, the old carry
+    is left as it was, the new carry's stream state differs from the old
+    one's; two controllers seeded alike agree, another seed differs, and
+    the fused and plain sampling stages give the same tick."""
     cfg = MPPIConfig(horizon=N, num_samples=K_SAMPLES)
     x = torch.zeros(12)
     x[2] = 3.0
     target = torch.tensor([0.3, 0.0, 3.0])
+    ctrl = MPPIController(cfg, device="cpu")
+    carry = ctrl.init_carry(x, seed=4)
+    before = carry.rng_state.clone()
+    u1, _, new1 = ctrl.solve(carry, x, target)
+    u2, _, new2 = ctrl.solve(carry, x, target)
+    assert torch.equal(u1, u2) and torch.equal(new1.U_nom, new2.U_nom)
+    assert torch.equal(new1.rng_state, new2.rng_state)
+    assert torch.equal(carry.rng_state, before)
+    assert not torch.equal(new1.rng_state, carry.rng_state)
+    u3, _, _ = ctrl.solve(new1, x, target)
+    assert not torch.equal(u3, u1)             # the next tick draws new noise
     runs = {}
     for label, seed, fused in (("a", 1, True), ("b", 1, True), ("c", 2, True), ("plain", 1, False)):
         ctrl = MPPIController(MPPIConfig(horizon=N, num_samples=K_SAMPLES, fused_rollouts=fused),
@@ -129,3 +146,52 @@ def test_solve_draws_from_the_carried_generator():
                           device="cpu")
     _, X_nom, _ = ctrl.solve(ctrl.init_carry(x), x, target)
     assert tuple(X_nom.shape) == (N + 1, 12) and torch.equal(X_nom[0], x) and cfg.horizon == N
+
+
+def test_circle_flight_on_jax_draws_matches_jax():
+    """The MPPI bar where equal draws make it hold: the port's MPPI (the
+    plain versions of K12 and K10) flies the circle task
+    (``ramped_circle_reference``, 2 m, 3 m high, 50 Hz, 512 x 25) on the
+    JAX flight's own exploration draws, obtained as
+    ``jax_reference_rms.py`` obtains them: 50 ticks, within 5e-3 m of the
+    JAX flight's RMS position error."""
+    from unmanned_aerial_vehicles_tpu.trajectories import ramped_circle_reference as j_circle
+    from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    T = 50
+    jctrl = JMPPI()
+    cfg = jctrl.config
+
+    def step(c, i):
+        st, mc = c
+        pos_ref, _, yaw_ref = j_circle(i.astype(jnp.float32) * 0.02, amplitude=2.0, height=3.0)
+        u, _, mc = jctrl.solve(mc, st, pos_ref, yaw_ref)
+        st = j_rk4(st, u, JX500, 0.02)
+        return (st, mc), st
+
+    jx0 = jnp.zeros(12, jnp.float32).at[2].set(3.0)
+    _, jstates = jax.jit(lambda: jax.lax.scan(step, (jx0, jctrl.init_carry(jx0, seed=0)),
+                                              jnp.arange(T)))()
+
+    def draw(key, _):
+        key, sub = jax.random.split(key)
+        return key, jax.random.normal(sub, (cfg.num_samples, cfg.horizon, 4), jnp.float32)
+
+    draws = np.asarray(jax.lax.scan(draw, jax.random.PRNGKey(0), None, length=T)[1])
+    ctrl = MPPIController(device="cpu")
+    pos, _, yaw = ramped_circle_reference(torch.arange(T, dtype=torch.float32) * 0.02,
+                                          amplitude=2.0, height=3.0)
+    x = torch.zeros(12)
+    x[2] = 3.0
+    carry, states = ctrl.init_carry(x, seed=0), []
+    for i in range(T):
+        u, _, carry = ctrl.solve(carry, x, pos[i], yaw[i],
+                                 eps=convert.mppi_noise_from_numpy(draws[i], device="cpu"))
+        x = rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02)
+        states.append(x)
+    states = torch.stack(states).numpy()
+    rms = lambda s: float(np.sqrt(np.mean(np.sum((s[:, 0:3] - pos.numpy()) ** 2, axis=1))))
+    jrms = rms(np.asarray(jstates))
+    assert np.isfinite(states).all() and jrms > 0.0
+    assert abs(rms(states) - jrms) <= 5e-3, (rms(states), jrms)

@@ -152,9 +152,25 @@ def test_gp_rows_built_by_port_match_jax(operands):
                            torch.tensor(Y, dtype=torch.float32))
     got = tick_pallas.build_gp_rows(post, 1.0)
     want = convert.gp_rows_from_numpy(*(np.asarray(a) for a in gp[:6]), device="cpu")
-    for name, g, w in zip(got._fields, got, want):
+    assert got.kinv is None and got.y_std is None
+    for name, g, w in zip(got._fields[:6], got, want):
         # float32 values up to ~70 (squared norms): relative 1e-6
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+    # with the variance operands: K^-1 (entries up to ~10) and y_std
+    jpost = j_fit(jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32), JGPCfg())
+    got = tick_pallas.build_gp_rows(post, 1.0, with_variance=True)
+    want = convert.gp_rows_from_numpy(*(np.asarray(a) for a in j_gp_rows(jpost, 1.0,
+                                                                         with_variance=True)),
+                                      device="cpu")
+    for name, g, w in zip(got._fields, got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+    from unmanned_aerial_vehicles_tpu_torch.gp.kernels import rbf_kernel
+
+    Xt = post.X_train.double()
+    K_train = (rbf_kernel(Xt, Xt, post.params.length_scale, post.params.signal_variance)
+               + (post.params.noise_variance + JGPCfg().alpha) * torch.eye(P, dtype=torch.float64))
+    resid = got.kinv.double() @ K_train - torch.eye(P, dtype=torch.float64)
+    assert float(resid.abs().max()) < 1e-5
 
 
 def test_shared_memory_fits_horizon_20_not_25():
@@ -176,7 +192,14 @@ def test_k5_wrapper_checks_operands(operands):
     with pytest.raises(ValueError, match="float32"):
         tick_pallas.gpmpc_multitick_fused(pdata, None, *args[:3], torch.zeros(m).double(),
                                           *args[4:], **st)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tick_pallas.gpmpc_multitick_fused(pdata, None, *args, **{**st, "tighten_kappa": 1.0})
     out = tick_pallas.gpmpc_multitick_fused(pdata, None, *args, **st)
     assert [tuple(o.shape) for o in out] == [(K, 32), (12,), (9,), (N * 6,), (m,), (m,)]
+    # tighten_kappa acts only with the GP on (as in the JAX package), and
+    # then needs the variance rows
+    again = tick_pallas.gpmpc_multitick_fused(pdata, None, *args, **{**st, "tighten_kappa": 1.0})
+    torch.testing.assert_close(again, out, rtol=0, atol=0, equal_nan=True)
+    _, _, gp, _ = operands
+    rows = convert.gp_rows_from_numpy(*(np.asarray(a) for a in gp[:6]), device="cpu")
+    with pytest.raises(ValueError, match="with_variance"):
+        tick_pallas.gpmpc_multitick_fused(pdata, rows, *args,
+                                          **{**statics("gp"), "tighten_kappa": 1.0})

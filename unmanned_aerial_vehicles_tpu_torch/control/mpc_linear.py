@@ -6,7 +6,10 @@ GP dynamics residuals ``d_k``; cost ``Q_pos = diag(50,50,80)``,
 ``Q_vel = diag(12,12,18)``, ``R = diag(2,2,1,8)`` with terminal weights
 ``3 Q_pos`` / ``2 Q_vel``; box bounds on states and controls; states
 eliminated and the QP solved in control space by fixed-iteration composite
-ADMM with a shifted warm start.
+ADMM with a shifted warm start. With ``tightening_factor`` kappa > 0 and a
+stage-wise GP std (``solve(uncertainty=...)``) the state boxes shrink by
+kappa times the std propagated through the prediction matrix (zero-order
+GP-MPC, arXiv:2211.15522).
 
 ``use_fused_controller`` solves each tick in one launch of the fused
 controller kernel K3 (``ops.controller_pallas.gpmpc_controller_fused``);
@@ -107,6 +110,7 @@ class LinearMPC:
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         cast = lambda a: torch.as_tensor(np.asarray(a, dtype=np_dtype), device=self.device)
         self._Sx, self._Su, self._Sw = cast(Sx), cast(Su), cast(Sw)
+        self._Sw_sq = cast(Sw**2)   # variance propagation (tightening)
         self._qbar = cast(qbar)
         self._H, self._G, self._M_inv = cast(H), cast(G), cast(M_inv)
         self._SuT_q = cast(Su.T * qbar[None, :])
@@ -182,8 +186,11 @@ class LinearMPC:
         """One MPC tick. ``state``: 6-vector, ``target_pos``: 3-vector,
         ``residuals``: optional ``(N, 6)`` gain-scaled GP dynamics
         residuals, ``reference_states``: optional ``(N, 6)`` per-stage
-        references (trajectory preview; overrides ``target_pos``). Returns
-        ``(u0, X_opt, new_carry)``.
+        references (trajectory preview; overrides ``target_pos``),
+        ``uncertainty``: optional ``(N, 6)`` stage-wise GP dynamics stds
+        (``gp.build_horizon_uncertainty``): with ``tightening_factor`` kappa
+        > 0 the state boxes shrink by ``min(kappa sqrt(Sw^2 (dt sigma)^2),
+        0.45 (x_hi - x_lo))``. Returns ``(u0, X_opt, new_carry)``.
 
         With ``use_fused_controller`` the tick is one launch of K3, with
         ``use_fused_admm`` the ADMM loop is one launch of K6;
@@ -196,8 +203,6 @@ class LinearMPC:
                 "uncertainty tightening with use_fused_controller runs on the multi-tick "
                 "kernel path; the fused controller kernel reads static bound rows"
             )
-        if tightened:
-            raise NotImplementedError("uncertainty tightening is queued in ROADMAP.md")
         if cfg.polish and not (cfg.use_fused_controller or cfg.use_fused_admm):
             raise NotImplementedError("active-set polish is queued in ROADMAP.md")
         full_f32_matmul()
@@ -237,8 +242,15 @@ class LinearMPC:
 
         offset = self._Sx @ x0 + self._Sw @ w
         f = self._SuT_q @ (offset - ref)
-        lower = torch.cat([self._u_lo, self._x_lo - offset])
-        upper = torch.cat([self._u_hi, self._x_hi - offset])
+        x_lo, x_hi = self._x_lo, self._x_hi
+        if tightened:
+            var_x = self._Sw_sq @ (cfg.dt * uncertainty.to(self.dtype).reshape(-1)) ** 2
+            tight = cfg.tightening_factor * torch.sqrt(var_x)
+            # never invert a box: cap at 45% of its width
+            tight = torch.minimum(tight, 0.45 * (x_hi - x_lo))
+            x_lo, x_hi = x_lo + tight, x_hi - tight
+        lower = torch.cat([self._u_lo, x_lo - offset])
+        upper = torch.cat([self._u_hi, x_hi - offset])
 
         p0 = -(self._GMinv @ f)
         minv_f = self._M_inv @ f

@@ -10,11 +10,14 @@ costs are cast back). ``fused_rollouts=False``, or a float64 controller on
 the CPU, runs K12's plain version in the controller's dtype. The softmax
 and the update are PyTorch.
 
-The exploration noise comes from a ``torch.Generator`` held in the carry
-(``init_carry(state, seed)``): the generator is advanced in place by each
-``solve`` and handed on in the new carry. ``solve(..., eps=...)`` takes an
-explicit ``(K, N, 4)`` standard-normal draw instead (another package's
-draws, for instance).
+The exploration noise comes from a random stream whose state the carry
+holds (``init_carry(state, seed)``: a ``torch.Generator``'s ``get_state()``
+bytes). Each ``solve`` restores that state into the controller's scratch
+generator, draws from it and puts the advanced state into the new carry, so
+``solve`` is a function of its carry: two solves from one carry draw the
+same noise, and the old and new carries never share a stream (as the JAX
+package's split PRNG keys). ``solve(..., eps=...)`` takes an explicit ``(K, N, 4)``
+standard-normal draw instead (another package's draws, for instance).
 
 Interface as ``control.mpc_rigid.RigidBodyMPC`` (``init_carry`` / ``solve``
 on the z-up rigid-body plant with ``[T, tau]`` inputs).
@@ -65,7 +68,7 @@ class MPPIConfig:
 
 class MPPICarry(NamedTuple):
     U_nom: torch.Tensor            # (N, 4) nominal control sequence (warm start)
-    generator: torch.Generator     # exploration noise stream
+    rng_state: torch.Tensor        # the exploration stream's generator state (uint8)
 
 
 class MPPIController:
@@ -89,11 +92,15 @@ class MPPIController:
         self.u_lo = torch.tensor([0.3 * mg, -0.8, -0.8, -0.4], **kw)
         self.u_hi = torch.tensor([1.6 * mg, 0.8, 0.8, 0.4], **kw)
         self._noise_std = torch.tensor(config.noise_std, **kw)
+        # restored from the carry before every draw, so its own state never
+        # reaches a result
+        self._scratch_gen = torch.Generator(device=self.device)
 
     def init_carry(self, state12: torch.Tensor, seed: int = 0) -> MPPICarry:
-        """Hover warm start and a generator seeded with ``seed``."""
+        """Hover warm start and the state of a generator seeded with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         return MPPICarry(U_nom=self.u_hover[None, :].repeat(self.config.horizon, 1),
-                         generator=torch.Generator(device=self.device).manual_seed(seed))
+                         rng_state=gen.get_state())
 
     def _use_fused(self) -> bool:
         # K12 computes in float32 whatever the controller's dtype; only a
@@ -116,8 +123,12 @@ class MPPIController:
             targets = torch.as_tensor(reference_positions, **kw)
         else:
             targets = target_pos[None, :].repeat(cfg.horizon, 1)
+        rng_state = carry.rng_state
         if eps is None:
-            eps = torch.randn(cfg.num_samples, cfg.horizon, 4, generator=carry.generator, **kw)
+            gen = self._scratch_gen
+            gen.set_state(rng_state)
+            eps = torch.randn(cfg.num_samples, cfg.horizon, 4, generator=gen, **kw)
+            rng_state = gen.get_state()
         U_cand = torch.minimum(torch.maximum(carry.U_nom[None] + self._noise_std * eps.to(**kw),
                                              self.u_lo), self.u_hi)
 
@@ -136,4 +147,4 @@ class MPPIController:
                 X.append(rigid_body_rk4_step(X[-1], U_new[k], self.params, cfg.dt))
             X_nom = torch.stack(X)
         U_shift = torch.cat([U_new[1:], U_new[-1:]])
-        return U_new[0], X_nom, MPPICarry(U_nom=U_shift, generator=carry.generator)
+        return U_new[0], X_nom, MPPICarry(U_nom=U_shift, rng_state=rng_state)

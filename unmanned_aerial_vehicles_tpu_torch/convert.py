@@ -17,7 +17,8 @@ import torch
 from ._device import resolve_device
 from .control.mpc_sqp import SQPCarry
 from .gp.exact_gp import GPParams, GPPosterior
-from .gp.residual_gp import ResidualDataset
+from .gp.residual_gp import OutputCorrectionConfig, ResidualDataset
+from .loop.closed_loop import FlightResumeState
 from .loop.rigid_loop import MultiTickCarry
 from .models.params import RigidBodyParams
 from .ops.controller_pallas import FusedControllerData, StructuredBatchData
@@ -108,8 +109,10 @@ def fused_tick_data_from_numpy(padded_ctrl: Mapping[str, np.ndarray], horizon: i
 
 
 def gp_rows_from_numpy(ztrT, sq2_row, alpha_s, y_mean_row, inv_ls_row, scal_row,
-                       n_features: int = 10, device=None) -> GPRows:
-    """``GPRows`` from the JAX package's padded GP rows."""
+                       kinv=None, y_std_row=None, n_features: int = 10,
+                       device=None) -> GPRows:
+    """``GPRows`` from the JAX package's padded GP rows (with ``kinv`` and
+    ``y_std_row`` when they were built ``with_variance=True``)."""
     dev = resolve_device(device)
     f = lambda a: _t(a, torch.float32, dev).contiguous()
     d = n_features
@@ -120,7 +123,36 @@ def gp_rows_from_numpy(ztrT, sq2_row, alpha_s, y_mean_row, inv_ls_row, scal_row,
         y_mean=f(np.asarray(y_mean_row)[0, :6]),
         inv_ls=f(np.asarray(inv_ls_row)[:, :d]),
         scal=f(np.asarray(scal_row)[0, :3]),
+        kinv=None if kinv is None else f(kinv),
+        y_std=None if y_std_row is None else f(np.asarray(y_std_row)[0, :6]),
     )
+
+
+def output_correction_config_from_fields(fields: Mapping) -> OutputCorrectionConfig:
+    """``OutputCorrectionConfig`` from the JAX one's fields (a mapping such
+    as ``dataclasses.asdict(cfg)``)."""
+    return OutputCorrectionConfig(**{k: type(getattr(OutputCorrectionConfig, k))(v)
+                                     for k, v in fields.items()})
+
+
+def flight_resume_state_from_numpy(leaves, tick: int, meta, horizon: int, nu: int = 4,
+                                   nx: int = 6, device=None) -> FlightResumeState:
+    """A ``FlightResumeState`` from a JAX one's carry leaves in pytree order
+    (``jax.tree_util.tree_leaves(rs.carry)``, or the ``leaf_i`` arrays of
+    the JAX package's ``save_resume_state`` file): the padded state, aux,
+    X_tail, slack and dual rows; the ring buffer's X, Y, head and count
+    (one placeholder leaf for a frozen GP); the GP rows (six, eight with
+    the variance operands, none without a GP). ``meta`` is the JAX
+    fingerprint ``(horizon, K, capacity, variance, scaled)``."""
+    dev = resolve_device(device)
+    leaves = [np.asarray(a) for a in leaves]
+    meta = tuple(int(v) for v in meta)
+    carry = multitick_carry_from_numpy(*leaves[:5], horizon, nu, nx, device=dev)
+    online = meta[2] > 0
+    rest = leaves[5 + (4 if online else 1):]
+    dataset = dataset_from_numpy(*leaves[5:9], device=dev) if online else None
+    gp = gp_rows_from_numpy(*rest, n_features=nu + nx, device=dev) if rest else None
+    return FlightResumeState(carry=(*carry, dataset, gp), tick=int(tick), meta=meta)
 
 
 def multitick_carry_from_numpy(state_row, aux_row, xtail_row, z_row, y_row, horizon: int,

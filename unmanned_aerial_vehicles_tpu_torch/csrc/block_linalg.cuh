@@ -121,6 +121,24 @@ __device__ __forceinline__ void row_dots_warp(const float* __restrict__ A, int l
   }
 }
 
+// Row i's ADMM box: the static bounds [lo, hi] backed off by the
+// tightening row (tight == nullptr: none) and shifted by the prediction
+// offset off_z (zero outside the X-block). The single-tick kernel K4 and
+// the multi-tick kernel K5 both form their boxes here.
+__device__ __forceinline__ void box_bounds(const float* __restrict__ lo,
+                                           const float* __restrict__ hi,
+                                           const float* __restrict__ tight, int i, float off_z,
+                                           float* lower, float* upper) {
+  if (tight != nullptr) {
+    const float t = tight[i];
+    *lower = (lo[i] + t) - off_z;
+    *upper = (hi[i] - t) - off_z;
+  } else {
+    *lower = lo[i] - off_z;
+    *upper = hi[i] - off_z;
+  }
+}
+
 // `iterations` steps of operator-composed over-relaxed ADMM, one (m, m)
 // matvec with P1 = G M^-1 G' per step:
 //   GU = p0 + (rho z - y) P1,  Gt = a GU + (1 - a) z,

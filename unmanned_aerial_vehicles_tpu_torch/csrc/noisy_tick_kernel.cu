@@ -470,7 +470,8 @@ gpmpc_noisy_multitick_kernel(const NoisyTickParams P, const NoisyTickOperands O)
       SECTION_START(t_gp);
       const int gt = tid - 32;
       if (P.use_gp) {
-        uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, gt, kGPThreads, gp_bar);
+        uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, nullptr, gt, kGPThreads,
+                             gp_bar);
       } else {
         for (int i = gt; i < Nnx; i += kGPThreads) wv[i] = 0.0f;
       }

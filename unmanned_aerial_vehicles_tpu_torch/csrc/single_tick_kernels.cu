@@ -218,14 +218,8 @@ single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
   matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
   for (int i = tid; i < m; i += nth) {
     const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
-    if constexpr (kTick) {
-      const float t = O.tight[i];
-      lower[i] = (O.lo_row[i] + t) - off_z;
-      upper[i] = (O.hi_row[i] - t) - off_z;
-    } else {
-      lower[i] = O.lo_row[i] - off_z;
-      upper[i] = O.hi_row[i] - off_z;
-    }
+    uav::box_bounds(O.lo_row, O.hi_row, kTick ? O.tight : nullptr, i, off_z, lower + i,
+                    upper + i);
     va[i] = rho * z[i] - y[i];
   }
   __syncthreads();

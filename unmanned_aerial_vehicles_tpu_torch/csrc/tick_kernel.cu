@@ -47,6 +47,17 @@
 // overlapping the scalar plant section with the next tick's GP, are the
 // next steps (ROADMAP.md).
 //
+// With tighten_kappa > 0 (the kTighten instantiation) each tick also runs
+// the variance section (multitick_phases.cuh gp_horizon_tightening) between
+// the GP and the shift: the GP section leaves K* (N x P) in a workspace in
+// device memory, and the section forms the posterior variance K* K^-1 K*'
+// from the cached K^-1 and the box back-off that the solve's bounds take.
+// It is N P^2 multiply-adds per tick (12.8 M at N = 20, P = 800), ~17x the
+// rest of the tick, on one SM: bound by the FP32 FMA rate of one SM and by
+// reading K^-1 (2.56 MB, L2-resident) once per tick. Splitting K^-1's
+// columns over a thread-block cluster, its symmetry, tensor cores (3xTF32)
+// or the Cholesky-factor form are the ways to make it faster (ROADMAP.md).
+//
 // loop_precision: both modes compute in float32 with FMAs here.
 
 #include <cuda_runtime.h>
@@ -57,16 +68,18 @@
 // Host-visible (external linkage): the C entry point takes pointers to
 // these, laid out as ops/tick_pallas.py's _TickParams / _TickOperands.
 struct TickParams {
-  int k_ticks, n, m, n_train, use_gp, iterations, substeps, use_fallback;
+  int k_ticks, n, m, n_train, use_gp, iterations, substeps, use_fallback, tighten;
   double dt;
   float rho, over_relax, one_minus_over_relax, yawrate_limit;
-  float fallback_error_sq, fallback_thrust_ceiling;
+  float fallback_error_sq, fallback_thrust_ceiling, tighten_kappa;
   float accel_lo[3], accel_hi[3], fallback_lo[3], fallback_hi[3];
 };
 
 struct TickOperands {
   const float *SxSwT, *SuTqT, *PM, *P1, *P0matT, *SuT, *lo_row, *hi_row;
   const float *ztrT, *sq2, *alpha_s, *y_mean, *inv_ls, *scal;
+  const float *kinv, *y_std, *SwSqT;
+  float* kst_ws;
   const float *state_in, *aux_in, *xtail_in, *z_in, *y_in, *refs, *yaw_refs, *plant_row;
   float *packed, *state_out, *aux_out, *xtail_out, *z_out, *y_out;
 };
@@ -121,6 +134,7 @@ __device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands
     for (int i = 0; i < 3; ++i) aux[6 + i] = new_int[i];
 }
 
+template <bool kTighten>
 __global__ void __launch_bounds__(kThreads, 1)
 gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
   extern __shared__ float4 sm4[];
@@ -156,6 +170,11 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
   float* red = sq1 + N;
   float* st = red + 3 * nth;
   float* aux = st + 12;
+  // the variance section's arrays (kTighten), from a 16-byte boundary
+  float* tiles = sm + ((static_cast<int>(aux - sm) + kAux + 3) & ~3);
+  float* wsum = tiles + 2 * uav::kVarTileFloats;
+  float* sig = wsum + (kThreads / 32) * uav::kMaxVarStages;
+  float* tight = sig + Nnx;
 
   {
     const float4* src = reinterpret_cast<const float4*>(O.P1);
@@ -172,20 +191,26 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
   for (int i = tid; i < Nnx; i += nth) xtail[i] = O.xtail_in[i];
   if (tid < 12) st[tid] = O.state_in[tid];
   if (tid < kAux) aux[tid] = O.aux_in[tid];
-  const float rho = P.rho;
   __syncthreads();
 
   const uav::GPOperands gp{O.ztrT, O.sq2, O.alpha_s, O.y_mean, O.inv_ls, O.scal, P.n_train};
   const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
+  const uav::VarianceOperands var{O.kinv, O.y_std, O.SwSqT, O.scal, P.tighten_kappa};
   const uav::TickVectors vec{P1s,  lo,     hi,     ref,   va,    vb, z, y, p0, lower,
-                             upper, xw,   xtail, offset, dref, f, minvf, U, part};
+                             upper, xw,   xtail, offset, dref, f, minvf, U, part,
+                             kTighten ? tight : nullptr};
   for (int t = 0; t < P.k_ticks; ++t) {
     for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
     if (tid < kNx) xw[tid] = st[tid];
     if (P.use_gp) {
-      uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, tid, nth, uav::BlockBarrier{});
+      uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, kTighten ? O.kst_ws : nullptr,
+                           tid, nth, uav::BlockBarrier{});
     } else {
       for (int i = tid; i < Nnx; i += nth) wv[i] = 0.0f;
+    }
+    if constexpr (kTighten) {
+      uav::gp_horizon_tightening<kThreads>(var, N, P.n_train, O.kst_ws, lo, hi, tiles, wsum, sig,
+                                           part, tight, tid, uav::BlockBarrier{});
     }
     uav::warm_shift(z, y, va, vb, N, m, tid, nth, uav::BlockBarrier{});
     uav::condensed_solve(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
@@ -206,17 +231,32 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
 
 }  // namespace
 
+namespace {
+
+// Raise the block's shared-memory limit once per size and instantiation
+// (host-side call, kept out of the per-launch path and out of CUDA graph
+// captures), then launch one block on `stream`.
+int launch(void (*kernel)(const TickParams, const TickOperands), int* configured,
+           const TickParams* params, const TickOperands* ops, int smem_bytes, void* stream) {
+  if (smem_bytes > *configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    *configured = smem_bytes;
+  }
+  kernel<<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  return (int)cudaGetLastError();
+}
+
+int configured_bytes[2] = {-1, -1};
+
+}  // namespace
+
 extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperands* ops,
                                       int smem_bytes, void* stream) {
-  // raise the block's shared-memory limit once per size (host-side call,
-  // kept out of the per-launch path and out of CUDA graph captures)
-  static int configured_bytes = -1;
-  if (smem_bytes > configured_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gpmpc_multitick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured_bytes = smem_bytes;
-  }
-  gpmpc_multitick_kernel<<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
-  return (int)cudaGetLastError();
+  return params->tighten
+             ? launch(gpmpc_multitick_kernel<true>, &configured_bytes[1], params, ops,
+                      smem_bytes, stream)
+             : launch(gpmpc_multitick_kernel<false>, &configured_bytes[0], params, ops,
+                      smem_bytes, stream);
 }

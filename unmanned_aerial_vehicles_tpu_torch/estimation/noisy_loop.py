@@ -53,6 +53,30 @@ from .ekf import MEAS_DIM, EKFConfig, ekf_init, ekf_step, measure
 _HOVER = (1.0, 0.0, 0.0, 0.0)   # the control applied before the first tick
 
 
+def flight_winds(wind_fn: Callable, t: torch.Tensor) -> torch.Tensor:
+    """The ``(T, 3)`` true wind at the flight's tick times ``t (T,)``.
+
+    ``wind_fn`` has either calling form: the JAX package's per-time
+    ``wind_fn(t 0-d) -> (3,)``, evaluated at each tick's time, or the
+    whole-flight ``wind_fn(t (T,)) -> (T, 3)``. A callable whose result on
+    a single time is not ``(3,)`` (it indexes or broadcasts over the time
+    axis) is taken as the whole-flight form. Any other shape raises
+    ``ValueError``, so no row is read as another tick's wind."""
+    T = t.shape[0]
+    try:
+        first = torch.as_tensor(wind_fn(t[0]))
+    except (IndexError, RuntimeError):
+        first = None          # the whole-flight form: it needs the time axis
+    if first is not None and tuple(first.shape) == (3,):
+        winds = torch.stack([torch.as_tensor(wind_fn(t[i])) for i in range(T)])
+    else:
+        winds = torch.as_tensor(wind_fn(t))
+    if tuple(winds.shape) != (T, 3):
+        raise ValueError(f"wind_fn gave shape {tuple(winds.shape)}: expected (3,) for one "
+                         f"time or ({T}, 3) for the flight's {T} times")
+    return winds.to(device=t.device)
+
+
 def noisy_mpc_flight_rollout(
     mpc: LinearMPC,
     reference_fn: Callable,
@@ -90,9 +114,10 @@ def noisy_mpc_flight_rollout(
     12-state filter for the 15-state observer, whose acceleration estimate
     reaches the MPC as stage-wise feedforward (summed with the GP's rows).
     ``nominal_body`` is the observer's process model (default: ``body``
-    without wind). ``wind_fn(t (T,)) -> (T, 3)`` makes the true wind vary
-    in time (staged or multi-tick tier); the 12-state filter predicts with
-    the same wind. ``online_gp`` (multi-tick tier) learns from the
+    without wind). ``wind_fn`` makes the true wind vary in time (staged or
+    multi-tick tier), in the JAX package's form ``wind_fn(t) -> (3,)`` or as
+    ``wind_fn(t (T,)) -> (T, 3)`` (``flight_winds``); the 12-state filter
+    predicts with the same wind. ``online_gp`` (multi-tick tier) learns from the
     estimates: each launch's last transition is completed by the next
     launch's first estimate.
 
@@ -178,8 +203,8 @@ def _staged_noisy_rollout(mpc, reference_fn, num_steps, noise, ekf_cfg, body, ra
     ref_states = (_preview_references(reference_fn, num_steps, N, cfg, dtype, dev)
                   .reshape(num_steps, N, 6) if preview else None)
     # the wind of every tick, read to the host once
-    winds = (wind_fn(_times(num_steps, cfg.control_dt, dtype, dev)).to(dtype).tolist()
-             if wind_fn is not None else None)
+    winds = (flight_winds(wind_fn, _times(num_steps, cfg.control_dt, dtype, dev)).to(dtype)
+             .tolist() if wind_fn is not None else None)
     # sensor model: the observer's base config when one was passed
     meas_cfg = dob_cfg.base if dob_cfg is not None else ekf_cfg
 
@@ -371,7 +396,7 @@ def _fused_noisy_multitick_rollout(mpc, reference_fn, num_steps, noise, ekf_cfg,
     else:
         # per-tick plant rows: the kernel reads tick t's row, the staged
         # tier's per-tick wind
-        winds = wind_fn(_times(num_steps, cfg.control_dt, f32, dev)).to(f32)
+        winds = flight_winds(wind_fn, _times(num_steps, cfg.control_dt, f32, dev)).to(f32)
         plant_rows = torch.cat([plant_row[:7].expand(num_steps, 7), winds], dim=1)
     if use_dob:
         statics.update(nominal_row=_plant_row(nominal_body, rate_loop, dev),

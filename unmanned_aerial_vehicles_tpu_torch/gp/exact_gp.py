@@ -1,5 +1,5 @@
 """Exact multi-output Gaussian-process regression (port of
-``gp/exact_gp.py``: fit and posterior mean).
+``gp/exact_gp.py``: fit, posterior mean and predictive variance).
 
 sklearn semantics (``RBF + WhiteKernel``, ``alpha`` jitter,
 ``normalize_y=True`` with the population std). Hyperparameter optimisation
@@ -115,3 +115,32 @@ def predict_mean(posterior: GPPosterior, X_test: torch.Tensor) -> torch.Tensor:
         p.length_scale.to(wd), p.signal_variance.to(wd),
     )
     return K_star @ posterior.alpha * posterior.y_std + posterior.y_mean
+
+
+def predict(posterior: GPPosterior, X_test: torch.Tensor,
+            include_noise_in_variance: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and variance at a batch of test points:
+    ``(mean (m, out), var (m, out))``.
+
+    The latent variance ``max(prior - sum(v^2), 1e-10)`` with
+    ``v = L^-1 K_*'`` is shared by the outputs and scaled per output by
+    ``y_std^2`` (sklearn's ``normalize_y`` predict). With
+    ``include_noise_in_variance`` the prior includes the White-kernel noise
+    (sklearn's ``RBF + WhiteKernel`` predict)."""
+    p = posterior.params
+    if posterior.x_shift is not None:
+        X_test = X_test - posterior.x_shift
+    wd = posterior.alpha.dtype
+    K_star = rbf_kernel(
+        X_test.to(wd), posterior.X_train.to(wd),
+        p.length_scale.to(wd), p.signal_variance.to(wd),
+    )
+    mean = K_star @ posterior.alpha * posterior.y_std + posterior.y_mean
+    v = torch.linalg.solve_triangular(posterior.chol.to(wd), K_star.T, upper=False)
+    # the prior diagonal in the queries' own dtype, as the JAX package's
+    # rbf_kernel_diag forms it
+    prior_var = p.signal_variance.to(X_test.dtype).to(wd).expand(X_test.shape[0])
+    if include_noise_in_variance:
+        prior_var = prior_var + p.noise_variance.to(wd)
+    var_latent = torch.clamp(prior_var - torch.sum(v**2, dim=0), min=1e-10)
+    return mean, var_latent[:, None] * posterior.y_std[None, :] ** 2

@@ -5,6 +5,11 @@
 quality filters and sklearn configuration (``RBF(0.5) + WhiteKernel(0.1)``,
 ``alpha=1e-4``, ``normalize_y=True``). ``ResidualDataset`` is a
 fixed-capacity ring buffer updated on the device without host syncs.
+
+The predictive variance serves two consumers: ``build_horizon_uncertainty``
+(the stage-wise std that tightens the MPC's state boxes) and
+``output_correction`` (the reference's earlier GP-MPC generation, which
+corrects the solved control after the solve, gated on the GP's confidence).
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 
 from .._device import full_f32_matmul, resolve_device
 from ..models.double_integrator import double_integrator_step
-from .exact_gp import GPParams, GPPosterior, _work_dtype, fit_gp, predict_mean
+from .exact_gp import GPParams, GPPosterior, _work_dtype, fit_gp, predict, predict_mean
 from .kernels import rbf_kernel
 
 INPUT_DIM = 10
@@ -53,6 +58,20 @@ def empty_dataset(capacity: int = 800, dtype=torch.float32, device=None) -> Resi
         head=torch.zeros((), dtype=torch.int64, device=dev),
         count=torch.zeros((), dtype=torch.int64, device=dev),
     )
+
+
+def add_training_sample(
+    dataset: ResidualDataset,
+    state: torch.Tensor,
+    control: torch.Tensor,
+    state_next: torch.Tensor,
+    config: ResidualGPConfig = ResidualGPConfig(),
+) -> ResidualDataset:
+    """One ring-buffer insert with the reference's quality filters
+    (``simple_gp.py:118-141``): a rejected sample leaves the buffer as it
+    was; an accepted one takes slot ``head % capacity``."""
+    return add_training_samples_batch(dataset, state[None], control[None], state_next[None],
+                                      config)
 
 
 def add_training_samples_batch(
@@ -219,6 +238,14 @@ def fit_residual_gp_masked(
     )
 
 
+def predict_residual(posterior: GPPosterior, state: torch.Tensor,
+                     control: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean residual (6,), variance (6,))`` for one (state, control) pair
+    (``simple_gp.py:187-197``)."""
+    mean, var = predict(posterior, torch.cat([state[:6], control[:4]])[None, :])
+    return mean[0], var[0]
+
+
 def build_horizon_residuals(
     posterior: GPPosterior,
     X_guess: torch.Tensor,
@@ -270,3 +297,77 @@ def build_horizon_residuals_batched_fused(
     mean_fn = rbf_posterior_mean_plain if plain_kernels else rbf_posterior_mean_pallas
     mean = mean_fn(posterior, inputs, precision).reshape(B, N, OUTPUT_DIM)
     return _acceleration_rows(mean, config)
+
+
+def build_horizon_uncertainty(
+    posterior: GPPosterior,
+    X_guess: torch.Tensor,
+    U_guess: torch.Tensor,
+    config: ResidualGPConfig = ResidualGPConfig(),
+) -> torch.Tensor:
+    """Stage-wise GP predictive std of the dynamics residual, ``(N, 6)``:
+    the same ``/ dt`` and gain conversion as the residual means, on the
+    acceleration rows. ``LinearMPC.solve(uncertainty=...)`` backs the state
+    boxes off by it (zero-order GP-MPC, arXiv:2211.15522)."""
+    N = U_guess.shape[0]
+    inputs = torch.cat([X_guess[:N, :6], U_guess[:, :4]], dim=1)
+    _, var = predict(posterior, inputs)            # (N, 6) state-residual variance
+    return _acceleration_rows(torch.sqrt(var), config)
+
+
+@dataclass(frozen=True)
+class OutputCorrectionConfig:
+    """Constants of the reference's first GP-MPC generation
+    (``mpc_gp.py:341-372``), which corrects the solved control after the
+    solve instead of entering the prediction model."""
+
+    correction_gain: float = 0.01       # mpc_gp.py:362
+    correction_clip: float = 0.1        # mpc_gp.py:368
+    confidence_threshold: float = 0.1   # mpc_gp.py:134 (uncertainty gate)
+    min_train_samples: int = 500        # mpc_gp.py:346
+    max_velocity_norm: float = 2.0      # mpc_gp.py:352 "system is stable"
+    max_position_error: float = 5.0     # mpc_gp.py:352
+
+
+def output_correction(
+    posterior: GPPosterior,
+    state6: torch.Tensor,
+    u_opt: torch.Tensor,
+    target_pos: torch.Tensor,
+    n_train,
+    config: OutputCorrectionConfig = OutputCorrectionConfig(),
+) -> torch.Tensor:
+    """Post-solve GP control correction: ``clip(gain * mean[3:6], +-clip)``
+    added to the solved accelerations when the GP has at least
+    ``min_train_samples`` samples, the state is stable (speed and position
+    error below their limits) and the mean posterior std is below the
+    confidence threshold. The three gates are one ``torch.where`` on the
+    device (no host read per tick)."""
+    mean, var = predict(posterior, torch.cat([state6[:6], u_opt[:4]])[None, :])
+    uncertainty = torch.mean(torch.sqrt(var[0]))
+    correction = torch.clamp(config.correction_gain * mean[0, 3:6],
+                             -config.correction_clip, config.correction_clip)
+    stable = (
+        (torch.linalg.vector_norm(state6[3:6]) < config.max_velocity_norm)
+        & (torch.linalg.vector_norm(state6[0:3] - target_pos) < config.max_position_error)
+    )
+    apply = (
+        (torch.as_tensor(n_train, device=u_opt.device) >= config.min_train_samples)
+        & stable & (uncertainty < config.confidence_threshold)
+    )
+    applied = torch.where(apply, correction, 0.0).to(u_opt.dtype)
+    return torch.cat([u_opt[0:3] + applied, u_opt[3:]])
+
+
+def make_output_correction_fn(
+    posterior: GPPosterior,
+    n_train: int,
+    config: OutputCorrectionConfig = OutputCorrectionConfig(),
+):
+    """The rollout hook ``(state6, u_opt, target_pos) -> u_corrected`` with
+    ``posterior`` bound."""
+
+    def fn(state6, u_opt, target_pos):
+        return output_correction(posterior, state6, u_opt, target_pos, n_train, config)
+
+    return fn

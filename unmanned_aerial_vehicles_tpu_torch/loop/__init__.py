@@ -3,6 +3,7 @@ SQP family's multi-tick tiers."""
 
 from .closed_loop import (
     FlightLoopConfig,
+    FlightResumeState,
     OnlineFusedGPConfig,
     batched_mpc_flight_sweep,
     mpc_flight_rollout,
@@ -17,7 +18,7 @@ from .rigid_loop import (
 )
 
 __all__ = [
-    "FlightLoopConfig", "OnlineFusedGPConfig", "batched_mpc_flight_sweep", "mpc_flight_rollout",
+    "FlightLoopConfig", "FlightResumeState", "OnlineFusedGPConfig", "batched_mpc_flight_sweep", "mpc_flight_rollout",
     "pid_flight_rollout",
     "MultiTickCarry", "direct_rate_multitick_fused", "make_attitude_recovery_fallback",
     "rigid_multitick_fused", "sqp_multitick_rollout",

@@ -15,7 +15,17 @@ three tiers:
   GP): K whole ticks per launch of kernel K5 with the GP posterior inside
   the kernel; with ``online_gp=`` the GP learns in flight — each launch's K
   transitions go into the ring buffer, and every ``refit_every`` ticks a
-  masked Cholesky refit rebuilds the kernel's GP operands.
+  masked Cholesky refit rebuilds the kernel's GP operands. With
+  ``tightening_factor > 0`` the kernel also forms the GP's posterior
+  variance and backs the state boxes off. ``return_resume=True`` returns a
+  ``FlightResumeState`` at the flight's last launch boundary, and
+  ``resume=`` continues a flight from one (``io.checkpoint`` saves and
+  loads them).
+
+The staged tier takes ``uncertainty_fn(X_prev, U_prev)`` (the stage-wise
+GP std that tightens the boxes, ``gp.build_horizon_uncertainty``) and
+``output_correction_fn(state6, u_opt, pos_ref)`` (the post-solve GP
+correction, ``gp.make_output_correction_fn``).
 
 ``preview=True`` (every tier) gives the MPC per-stage references along the
 horizon, position at ``t + dt (1..N)`` and finite-difference velocity,
@@ -36,7 +46,7 @@ evaluate it once for the whole flight.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -49,6 +59,22 @@ from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
 
 _QUEUED = "queued in ROADMAP.md"
+
+
+class FlightResumeState(NamedTuple):
+    """Mid-flight checkpoint of the multi-tick tier: the whole loop state at
+    a launch boundary, from which a flight continues bit for bit.
+
+    ``carry = (state (12,), aux (9,), xtail (Nnx,), z (m,), y (m,), dataset,
+    gp)``: K5's carries, the online ring buffer (``ResidualDataset``, None
+    for a frozen GP) and the kernel's GP rows (``GPRows`` or None). ``tick``
+    is the next tick to fly. ``meta = (horizon, K, GP capacity, variance,
+    scaled inputs)`` fingerprints the configuration: a resume under another
+    one raises."""
+
+    carry: tuple
+    tick: int
+    meta: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -107,20 +133,21 @@ def _plant_substeps(state, control, body, rate_loop, cfg: FlightLoopConfig, plai
     return state
 
 
-def _times(num_steps: int, dt: float, dtype, device):
-    return torch.arange(num_steps, device=device).to(dtype) * dt
+def _times(num_steps: int, dt: float, dtype, device, first: int = 0):
+    """The times of ticks ``first .. first + num_steps - 1``."""
+    return torch.arange(first, first + num_steps, device=device).to(dtype) * dt
 
 
-def _references(reference_fn, num_steps, cfg, dtype, device):
-    pos, yaw = reference_fn(_times(num_steps, cfg.control_dt, dtype, device))
+def _references(reference_fn, num_steps, cfg, dtype, device, first=0):
+    pos, yaw = reference_fn(_times(num_steps, cfg.control_dt, dtype, device, first))
     return pos.to(dtype), yaw.to(dtype)
 
 
-def _preview_references(reference_fn, num_steps, N, cfg, dtype, device):
+def _preview_references(reference_fn, num_steps, N, cfg, dtype, device, first=0):
     """``(T, N nx)`` per-stage state references of every tick: position at
     ``t + dt k`` for k = 1..N and the finite-difference velocity to the
     next sample (JAX ``closed_loop.py:362-369``)."""
-    t = _times(num_steps, cfg.control_dt, dtype, device)
+    t = _times(num_steps, cfg.control_dt, dtype, device, first)
     ts = t[:, None] + cfg.control_dt * torch.arange(1, N + 2, dtype=dtype, device=device)
     pos, _ = reference_fn(ts.reshape(-1))
     pos = pos.to(dtype).reshape(num_steps, N + 1, 3)
@@ -128,13 +155,14 @@ def _preview_references(reference_fn, num_steps, N, cfg, dtype, device):
     return torch.cat([pos[:, :-1], vel], dim=2).reshape(num_steps, -1)
 
 
-def _tick_references(reference_fn, num_steps, N, cfg, preview, dtype, device):
-    """``(pos_refs (T, 3), yaw_refs (T,), refs (T, N nx))``: the point
-    targets, and the state references the fused tiers hand their kernels
-    (the point target repeated over the horizon, or the preview)."""
-    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, device)
+def _tick_references(reference_fn, num_steps, N, cfg, preview, dtype, device, first=0):
+    """``(pos_refs (T, 3), yaw_refs (T,), refs (T, N nx))`` of ticks
+    ``first ..``: the point targets, and the state references the fused
+    tiers hand their kernels (the point target repeated over the horizon,
+    or the preview)."""
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, device, first)
     if preview:
-        refs = _preview_references(reference_fn, num_steps, N, cfg, dtype, device)
+        refs = _preview_references(reference_fn, num_steps, N, cfg, dtype, device, first)
     else:
         zeros3 = torch.zeros(num_steps, 3, dtype=dtype, device=device)
         refs = torch.cat([pos_refs, zeros3], dim=1).repeat(1, N)
@@ -221,6 +249,13 @@ def mpc_flight_rollout(
     the horizon. ``device`` defaults to ``cuda`` and must match the MPC's.
     ``plain_kernels=True`` flies the kernels' plain PyTorch versions
     instead (the reference a kernel flight is held against on the card).
+    ``uncertainty_fn(X_prev, U_prev)`` (staged tier) gives the ``(N, 6)``
+    stage-wise GP std that backs the state boxes off when the MPC's
+    ``tightening_factor`` is > 0; on the multi-tick tier the kernel forms
+    that std itself. ``output_correction_fn(state6, u_opt, pos_ref)``
+    (staged tier) corrects the solved control after the solve.
+    ``return_resume=True`` (multi-tick tier) also returns a
+    ``FlightResumeState``, and ``resume=`` continues from one.
     Returns a dict of stacked per-tick tensors; the fused tiers return
     float32 whatever ``dtype`` is."""
     dev = resolve_device(device)
@@ -255,13 +290,6 @@ def mpc_flight_rollout(
                 "output_correction_fn (the post-solve GP generation) is not supported on "
                 "the fused-tick paths; use the staged rollout (use_fused_tick=False)"
             )
-        multitick = (online_gp is not None or cfg.ticks_per_dispatch > 1
-                     or gp_posterior is not None)
-        if multitick and resuming:
-            raise NotImplementedError(f"mid-flight checkpoint/resume is {_QUEUED}")
-        if multitick and mpc.config.tightening_factor > 0.0:
-            raise NotImplementedError(
-                f"uncertainty tightening (tightening_factor > 0) in K5 is {_QUEUED}")
         if online_gp is not None:
             if gp_posterior is not None or residual_fn is not None:
                 raise ValueError(
@@ -271,9 +299,10 @@ def mpc_flight_rollout(
             return _multitick_rollout(
                 mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
                 None, gp_gain, online_gp.gp.dt, preview, online_gp=online_gp,
-                initial_dataset=initial_dataset, plain_kernels=plain_kernels,
+                initial_dataset=initial_dataset, resume=resume, return_resume=return_resume,
+                plain_kernels=plain_kernels,
             )
-        if multitick:
+        if cfg.ticks_per_dispatch > 1 or gp_posterior is not None:
             if residual_fn is not None and gp_posterior is None:
                 raise ValueError(
                     "ticks_per_dispatch > 1 computes the GP inside the kernel: "
@@ -281,7 +310,8 @@ def mpc_flight_rollout(
                 )
             return _multitick_rollout(
                 mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
-                gp_posterior, gp_gain, gp_dt, preview, plain_kernels=plain_kernels,
+                gp_posterior, gp_gain, gp_dt, preview, resume=resume,
+                return_resume=return_resume, plain_kernels=plain_kernels,
             )
         if mpc.config.tightening_factor > 0.0:
             raise ValueError(
@@ -293,17 +323,14 @@ def mpc_flight_rollout(
                              "(ticks_per_dispatch > 1, or pass gp_posterior=/online_gp=)")
         return _fused_tick_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
                                    initial_state, residual_fn, preview, plain_kernels)
-    if uncertainty_fn is not None or mpc.config.tightening_factor > 0.0:
-        raise NotImplementedError(f"uncertainty tightening (tightening_factor > 0) is {_QUEUED}")
-    if output_correction_fn is not None:
-        raise NotImplementedError(f"the post-solve GP output correction is {_QUEUED}")
     if gp_posterior is not None:
         raise ValueError(
             "gp_posterior is only consumed by the multi-tick kernel path "
             "(use_fused_tick=True); pass a residual_fn on the staged path"
         )
-    return _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
-                           initial_state, residual_fn, preview, dtype, plain_kernels)
+    return _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+                           residual_fn, uncertainty_fn, output_correction_fn, preview, dtype,
+                           plain_kernels)
 
 
 def batched_mpc_flight_sweep(
@@ -448,8 +475,9 @@ def batched_mpc_flight_sweep(
     }
 
 
-def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
-                    initial_state, residual_fn, preview, dtype, plain_kernels):
+def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,
+                    residual_fn, uncertainty_fn, output_correction_fn, preview, dtype,
+                    plain_kernels):
     from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
 
     dev = initial_state.device
@@ -472,10 +500,18 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg,
         residuals = (
             residual_fn(mpc_carry.X_prev, mpc_carry.U_prev) if residual_fn is not None else None
         )
+        # the stage-wise GP std for the box back-off
+        uncertainty = (
+            uncertainty_fn(mpc_carry.X_prev, mpc_carry.U_prev)
+            if uncertainty_fn is not None else None
+        )
         u_opt, X_opt, mpc_carry = mpc.solve(
             mpc_carry, state[0:6], pos_ref, residuals,
-            reference_states=ref_states[i] if preview else None, plain_kernels=plain_kernels,
+            reference_states=ref_states[i] if preview else None, uncertainty=uncertainty,
+            plain_kernels=plain_kernels,
         )
+        if output_correction_fn is not None:
+            u_opt = output_correction_fn(state[0:6], u_opt, pos_ref)
 
         accel_des = torch.minimum(torch.maximum(u_opt[0:3], accel_lo), accel_hi)
         yawrate_des = torch.clamp(u_opt[3], -cfg.yawrate_limit, cfg.yawrate_limit)
@@ -538,18 +574,24 @@ class _OnlineGP:
     """In-flight learning on the multi-tick tiers: the ring buffer, the
     masked refit every ``refit_every`` ticks and the gain that stays 0
     until ``min_samples`` transitions are in. ``rows`` are the kernel's
-    current GP operands."""
+    current GP operands (with the variance operands when
+    ``with_variance``). ``resumed = (dataset, rows)`` continues a flight
+    from a ``FlightResumeState`` instead of fitting afresh."""
 
     def __init__(self, online_gp: OnlineFusedGPConfig, initial_dataset, gp_gain: float,
-                 control_dt: float, device):
+                 control_dt: float, device, with_variance: bool = False, resumed=None):
         from ..gp.residual_gp import empty_dataset
 
         self.cfg, self.gain, self.control_dt = online_gp, gp_gain, control_dt
+        self.with_variance = with_variance
+        self.counts = []
+        if resumed is not None:
+            self.dataset, self.rows = resumed
+            return
         self.dataset = (
             initial_dataset if initial_dataset is not None
             else empty_dataset(online_gp.gp.max_data_points, torch.float32, device)
         )
-        self.counts = []
         gain0 = gp_gain if int(self.dataset.count) >= online_gp.min_samples else 0.0
         self.rows = self._fit(gain0)
 
@@ -564,7 +606,8 @@ class _OnlineGP:
                 ds, gcfg, params=standardized_params(ds, gcfg, std=std), x_shift=shift)
         else:
             post = fit_residual_gp_masked(ds, gcfg)
-        return build_gp_rows(post, gain, control_dt=self.control_dt, gp_dt=gcfg.dt)
+        return build_gp_rows(post, gain, control_dt=self.control_dt, gp_dt=gcfg.dt,
+                             with_variance=self.with_variance)
 
     def capture(self, states, controls, states_next, launch: int, K: int) -> None:
         """Insert one launch's transitions, record the count for its K
@@ -597,9 +640,13 @@ def _multitick_rollout(
     posterior, gp_gain, gp_dt, preview,
     online_gp: OnlineFusedGPConfig | None = None,
     initial_dataset=None,
+    resume: FlightResumeState | None = None,
+    return_resume: bool = False,
     plain_kernels: bool = False,
 ):
-    """K ticks per launch of kernel K5, GP posterior inside the kernel.
+    """K ticks per launch of kernel K5, GP posterior inside the kernel; with
+    the MPC's ``tightening_factor`` > 0 the GP rows carry the variance
+    operands and every tick backs the state boxes off in the kernel.
 
     The host loop never waits on the card except where a refit is due
     (once per ``refit_every`` ticks it reads the ring buffer's count to
@@ -624,14 +671,41 @@ def _multitick_rollout(
         )
     plant_row = _plant_row(body, rate_loop, dev)
     tick = multitick_staged if plain_kernels else gpmpc_multitick_fused
+    kappa = float(mpc.config.tightening_factor)
+    with_variance = kappa > 0.0
+    # (horizon, K, GP capacity, variance, scaled inputs), as the JAX package
+    # fingerprints its resume states
+    meta = (N, K, int(online_gp.gp.max_data_points) if online else 0, with_variance,
+            bool(online_gp.standardize_inputs) if online else False)
 
-    if online:
-        learner = _OnlineGP(online_gp, initial_dataset, gp_gain, cfg.control_dt, dev)
+    if resume is not None:
+        if resume.meta and tuple(resume.meta) != meta:
+            raise ValueError(
+                f"resume checkpoint config mismatch: saved {tuple(resume.meta)}, current "
+                f"(horizon, K, gp_capacity, variance, scaled) = {meta}")
+        if resume.tick % K != 0:
+            raise ValueError(f"resume tick {resume.tick} is not a dispatch boundary "
+                             f"(ticks_per_dispatch={K})")
+        state, aux, xtail, z, y, dataset, gp = resume.carry
+        start = resume.tick // K
     else:
+        x0 = initial_state.to(f32)
+        state = x0.clone()
+        aux = torch.cat([x0[0:6], torch.zeros(3, dtype=f32, device=dev)])  # prev x0; integral 0
+        xtail = x0[0:6].repeat(N).contiguous()
+        z = torch.zeros(mpc.n_constraints, dtype=f32, device=dev)
+        y = torch.zeros(mpc.n_constraints, dtype=f32, device=dev)
+        dataset = None
         gp = (
-            build_gp_rows(posterior, gp_gain, control_dt=cfg.control_dt, gp_dt=gp_dt)
+            build_gp_rows(posterior, gp_gain, control_dt=cfg.control_dt, gp_dt=gp_dt,
+                          with_variance=with_variance)
             if posterior is not None else None
         )
+        start = 0
+    if online:
+        learner = _OnlineGP(online_gp, initial_dataset, gp_gain, cfg.control_dt, dev,
+                            with_variance=with_variance,
+                            resumed=(dataset, gp) if resume is not None else None)
     statics = dict(
         k_ticks=K, use_gp=online or posterior is not None,
         rho=mpc.config.admm_rho,
@@ -644,19 +718,11 @@ def _multitick_rollout(
         fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
         fallback_accel_scale=cfg.fallback_accel_scale,
         loop_precision=cfg.fused_tick_loop_precision,
-        n=N, nu=CONTROL_DIM, nx=STATE_DIM,
+        n=N, nu=CONTROL_DIM, nx=STATE_DIM, tighten_kappa=kappa,
     )
 
     pos_refs, yaw_refs, refs_all = _tick_references(reference_fn, num_steps, N, cfg, preview,
-                                                    f32, dev)
-
-    x0 = initial_state.to(f32)
-    m = mpc.n_constraints
-    state = x0.clone()
-    aux = torch.cat([x0[0:6], torch.zeros(3, dtype=f32, device=dev)])  # prev x0; integral 0
-    xtail = x0[0:6].repeat(N).contiguous()
-    z = torch.zeros(m, dtype=f32, device=dev)
-    y = torch.zeros(m, dtype=f32, device=dev)
+                                                    f32, dev, first=start * K)
 
     packed_chunks = []
     for i in range(num_steps // K):
@@ -672,7 +738,7 @@ def _multitick_rollout(
             # (the next packed row; the last tick's is the carried state)
             states_next = torch.cat([packed[1:, 0:12], state[None]], dim=0)
             learner.capture(packed[:, 0:12], _applied_controls(packed, refs, packed[:, 0:3], cfg),
-                            states_next, i, K)
+                            states_next, start + i, K)
 
     packed = torch.cat(packed_chunks, dim=0)
     outs = {
@@ -688,6 +754,10 @@ def _multitick_rollout(
     if online:
         outs["gp_count"] = torch.cat(learner.counts)
     outs["final_state"] = state
+    if return_resume:
+        carry = (state, aux, xtail, z, y, *((learner.dataset, learner.rows) if online
+                                            else (None, gp)))
+        return outs, FlightResumeState(carry=carry, tick=(start * K + num_steps), meta=meta)
     return outs
 
 

@@ -54,6 +54,7 @@ launch_counts: dict[str, int] = {
     "px4_plant_step_fused": 0,
     "allocation_plant_tick_fused": 0,
     "gpmpc_multitick_fused": 0,
+    "gpmpc_multitick_fused_tightened": 0,   # K5 with the variance section
     "gpmpc_controller_structured_batched": 0,
     "rbf_posterior_mean_pallas": 0,
     "gpmpc_tick_fused": 0,

@@ -23,6 +23,14 @@ one launch. Each tick:
     U = M^-1(-f + G'(rho z - y)),  X_tail = offset + Su U
     u0 clips (+ hover fallback) -> allocation + attitude PID -> plant RK4
 
+With ``tighten_kappa > 0`` (GP rows built ``with_variance=True``) each
+tick also forms the GP's posterior variance at the horizon's features from
+the cached ``K^-1`` and backs the state boxes off:
+
+    var_lat[k] = max(prior - K*_k K^-1 K*_k', 1e-10)
+    sig[k, 3+j] = gain^2 var_lat[k] y_std[3+j]^2,   var_x = sig @ SwSqT
+    tight = min(kappa sqrt(var_x), 0.45 (x_hi - x_lo))   (state block)
+
 The kernel is ``csrc/tick_kernel.cu`` (one thread block per flight, the K
 ticks looped inside the block, P1 resident in shared memory). Its plain
 PyTorch version is ``multitick_staged`` below, a port of the JAX package's
@@ -96,6 +104,7 @@ class FusedTickData(NamedTuple):
     SuT: torch.Tensor           # (Nnu, Nnx)
     lo_row: torch.Tensor        # (m,) = u_lo_row + x_lo_row (disjoint blocks)
     hi_row: torch.Tensor        # (m,)
+    SwSqT: torch.Tensor         # (Nnx, Nnx) = SwT**2: disturbance-variance propagation
     Nnu: int
     Nnx: int
 
@@ -136,6 +145,7 @@ def build_tick_data(ctrl: FusedControllerData, N: int, nu: int, nx: int,
         SuT=t(ctrl.SuT),
         lo_row=t(ctrl.u_lo_row + ctrl.x_lo_row),
         hi_row=t(ctrl.u_hi_row + ctrl.x_hi_row),
+        SwSqT=t(np.asarray(ctrl.SwT, np.float32) ** 2),
         Nnu=N * nu,
         Nnx=N * nx,
     )
@@ -151,17 +161,19 @@ class GPRows(NamedTuple):
     y_mean: torch.Tensor   # (6,)
     inv_ls: torch.Tensor   # (2, d): row 0 = 1/ls, row 1 = x_shift/ls
     scal: torch.Tensor     # (3,) = [signal_variance, gain, prior variance]
+    kinv: torch.Tensor | None = None    # (P, P) K^-1 (with_variance)
+    y_std: torch.Tensor | None = None   # (6,) (with_variance)
 
 
 def build_gp_rows(posterior, gain: float, control_dt: float = 0.02, gp_dt: float = 0.02,
                   with_variance: bool = False) -> GPRows:
     """Pack a ``gp.exact_gp.GPPosterior`` for the kernel (float32, on the
     posterior's device). The kernel computes
-    ``w[k, 3:6] = gain (control_dt / gp_dt) posterior_mean[k, 3:6]``."""
-    if with_variance:
-        raise NotImplementedError(
-            "the posterior-variance / tightening branch of K5 is queued in ROADMAP.md"
-        )
+    ``w[k, 3:6] = gain (control_dt / gp_dt) posterior_mean[k, 3:6]``.
+    ``with_variance`` also caches ``K^-1`` (``cholesky_solve`` of the
+    identity against the posterior's factor, in its dtype) and ``y_std``,
+    the operands of the posterior variance ``prior - K* K^-1 K*'``
+    (``predict``'s ``include_noise_in_variance`` semantics)."""
     f32 = torch.float32
     X = posterior.X_train.to(f32)                     # (P, d)
     P, d = X.shape
@@ -174,6 +186,12 @@ def build_gp_rows(posterior, gain: float, control_dt: float = 0.02, gp_dt: float
     sf2 = posterior.params.signal_variance.to(f32)
     noise = posterior.params.noise_variance.to(f32)
     g = torch.tensor(gain * (control_dt / gp_dt), dtype=f32, device=X.device)
+    kinv = y_std = None
+    if with_variance:
+        chol = posterior.chol
+        eye = torch.eye(P, dtype=chol.dtype, device=chol.device)
+        kinv = torch.cholesky_solve(eye, chol).to(f32).contiguous()
+        y_std = posterior.y_std.to(f32).contiguous()
     return GPRows(
         ztrT=Z.T.contiguous(),
         sq2=torch.sum(Z * Z, dim=1).contiguous(),
@@ -181,15 +199,23 @@ def build_gp_rows(posterior, gain: float, control_dt: float = 0.02, gp_dt: float
         y_mean=posterior.y_mean.to(f32).contiguous(),
         inv_ls=inv_ls,
         scal=torch.stack([sf2, g, sf2 + noise]),
+        kinv=kinv,
+        y_std=y_std,
     )
 
 
-def _check_statics(n, nu, nx, tighten_kappa):
-    if tighten_kappa > 0.0:
-        raise NotImplementedError(
-            "tighten_kappa > 0 (in-kernel GP variance + box tightening) is "
-            "queued in ROADMAP.md"
-        )
+def _uses_tightening(use_gp, gp, tighten_kappa) -> bool:
+    """Whether a K5 launch forms the variance and backs the boxes off: only
+    with the GP on, and then its rows must carry the variance operands."""
+    if not (use_gp and tighten_kappa > 0.0):
+        return False
+    if gp is None or gp.kinv is None or gp.y_std is None:
+        raise ValueError("tighten_kappa > 0 needs GP rows built with_variance=True "
+                         "(build_gp_rows(..., with_variance=True))")
+    return True
+
+
+def _check_statics(n, nu, nx):
     if (nu, nx) != (4, 6):
         raise ValueError(f"the tick kernel is built for nu=4, nx=6 (got {nu}, {nx})")
     if n < 1:
@@ -227,6 +253,25 @@ def command_plant_plain(z, ref, sc, s, yaw_ref, integral, plant, *, dt, substeps
     return _rk4_substeps(s, c, plant, dt, substeps), c, att_sp, new_int, (ax, ay, az)
 
 
+def tightening_row(data: FusedTickData, gp: GPRows, Kst: torch.Tensor,
+                   tighten_kappa: float) -> torch.Tensor:
+    """The ``(m,)`` box back-off of one tick from the horizon's cross-kernel
+    ``Kst (N, P)``: the posterior variance through the cached ``K^-1``, its
+    acceleration rows scaled by ``gain^2 y_std^2``, propagated by ``SwSqT``,
+    ``kappa sqrt`` of it capped at 45% of each state box's width, and zero
+    on the U-block."""
+    Nnu = data.Nnu
+    quad = torch.sum((Kst @ gp.kinv) * Kst, dim=1)
+    var_lat = torch.clamp(gp.scal[2] - quad, min=1e-10)
+    gain = gp.scal[1]
+    sig_acc = (gain * gain) * var_lat[:, None] * (gp.y_std[3:6] ** 2)[None, :]
+    sig = torch.cat([torch.zeros_like(sig_acc), sig_acc], dim=1).reshape(-1)
+    tight_x = tighten_kappa * torch.sqrt(sig @ data.SwSqT)
+    cap = 0.45 * (data.hi_row[Nnu:] - data.lo_row[Nnu:])
+    return torch.cat([torch.zeros(Nnu, dtype=torch.float32, device=Kst.device),
+                      torch.minimum(tight_x, cap)])
+
+
 def multitick_staged(
     data: FusedTickData,
     gp: GPRows | None,
@@ -240,7 +285,8 @@ def multitick_staged(
 ):
     """Plain version of K5: the same operands and outputs, the same math
     block for block, in PyTorch tensor ops on any device."""
-    _check_statics(n, nu, nx, tighten_kappa)
+    _check_statics(n, nu, nx)
+    tighten = _uses_tightening(use_gp, gp, tighten_kappa)
     N = n
     Nnu = N * nu
     plant = _read_plant(plant_row)
@@ -273,10 +319,11 @@ def multitick_staged(
             w = torch.cat([zeros3, gp.scal[1] * mean[:, 3:6]], dim=1).reshape(-1)
         else:
             w = torch.zeros(N * nx, dtype=torch.float32, device=dev)
+        tight = tightening_row(data, gp, Kst, tighten_kappa) if tighten else None
 
         zy = torch.stack([z_prev, y_prev]) @ data.ShiftT            # exact 0/1 product
         z, y, U, X_tail = controller_plain(data, state[:nx], w, ref, zy[0], zy[1], rho,
-                                           iterations, over_relax)
+                                           iterations, over_relax, tight)
         s = tuple(state[i] for i in range(12))
         s_new, c, att_sp, new_int, accel = command_plant_plain(
             z, ref, s, s, yaw_ref, (aux[6], aux[7], aux[8]), plant, **plant_statics)
@@ -296,11 +343,12 @@ class _TickParams(ctypes.Structure):
         ("k_ticks", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
         ("n_train", ctypes.c_int), ("use_gp", ctypes.c_int),
         ("iterations", ctypes.c_int), ("substeps", ctypes.c_int),
-        ("use_fallback", ctypes.c_int),
+        ("use_fallback", ctypes.c_int), ("tighten", ctypes.c_int),
         ("dt", ctypes.c_double),
         ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
         ("one_minus_over_relax", ctypes.c_float), ("yawrate_limit", ctypes.c_float),
         ("fallback_error_sq", ctypes.c_float), ("fallback_thrust_ceiling", ctypes.c_float),
+        ("tighten_kappa", ctypes.c_float),
         ("accel_lo", ctypes.c_float * 3), ("accel_hi", ctypes.c_float * 3),
         ("fallback_lo", ctypes.c_float * 3), ("fallback_hi", ctypes.c_float * 3),
     ]
@@ -309,6 +357,7 @@ class _TickParams(ctypes.Structure):
 _OPERAND_NAMES = (
     "SxSwT", "SuTqT", "PM", "P1", "P0matT", "SuT", "lo_row", "hi_row",
     "ztrT", "sq2", "alpha_s", "y_mean", "inv_ls", "scal",
+    "kinv", "y_std", "SwSqT", "kst_ws",
     "state_in", "aux_in", "xtail_in", "z_in", "y_in", "refs", "yaw_refs", "plant_row",
     "packed", "state_out", "aux_out", "xtail_out", "z_out", "y_out",
 )
@@ -318,13 +367,24 @@ class _TickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _OPERAND_NAMES]
 
 
-def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int = KERNEL_THREADS) -> int:
+# csrc/multitick_phases.cuh: the variance section's shared tile of K* columns
+# and the most horizon stages it keeps in registers
+VAR_TILE = 64
+MAX_VAR_STAGES = 24
+
+
+def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int = KERNEL_THREADS,
+                        tighten: bool = False) -> int:
     """Dynamic shared memory of one K5 block (csrc/tick_kernel.cu layout):
-    P1 plus the per-tick vectors."""
+    P1 plus the per-tick vectors; with ``tighten`` also the variance
+    section's two K* tiles, warp sums, variance row and back-off row."""
     m, Nnu, Nnx, d = n * (nu + nx), n * nu, n * nx, nu + nx
     m4 = (m + 3) // 4 * 4
     floats = (m * m + 2 * m4 + 7 * m + nx + 5 * Nnx + 3 * Nnu + (threads + m + Nnu)
               + n * d + n + 3 * threads + 24)
+    if tighten:
+        floats = ((floats + 3) // 4 * 4 + 2 * MAX_VAR_STAGES * VAR_TILE
+                  + (threads // 32) * MAX_VAR_STAGES + Nnx + m)
     return 4 * floats
 
 
@@ -362,9 +422,13 @@ def gpmpc_multitick_fused(
     """K whole GP-MPC ticks in one launch (K5).
 
     Returns ``(packed (K, 32), state (12,), aux (9,), xtail (Nnx,),
-    z (m,), y (m,))``. A horizon whose P1 does not fit in one block's
-    shared memory raises ``ValueError``."""
-    _check_statics(n, nu, nx, tighten_kappa)
+    z (m,), y (m,))``. With ``use_gp`` and ``tighten_kappa > 0`` the GP
+    rows must carry ``kinv`` and ``y_std`` (``build_gp_rows(...,
+    with_variance=True)``): each tick then backs the state boxes off by the
+    posterior std. A horizon whose P1 does not fit in one block's shared
+    memory raises ``ValueError``."""
+    _check_statics(n, nu, nx)
+    tighten = _uses_tightening(use_gp, gp, tighten_kappa)
     dev = state.device
     N, K = n, k_ticks
     Nnx, m = N * nx, N * (nu + nx)
@@ -389,6 +453,10 @@ def gpmpc_multitick_fused(
         req(gp.y_mean, "y_mean", (6,), dev)
         req(gp.inv_ls, "inv_ls", (2, d), dev)
         req(gp.scal, "scal", (3,), dev)
+    if tighten:
+        req(gp.kinv, "kinv", (P, P), dev)
+        req(gp.y_std, "y_std", (6,), dev)
+        req(data.SwSqT, "SwSqT", (Nnx, Nnx), dev)
     statics = dict(
         k_ticks=k_ticks, use_gp=use_gp, rho=rho, iterations=iterations,
         over_relax=over_relax, dt=dt, substeps=substeps, accel_lo=accel_lo,
@@ -404,8 +472,11 @@ def gpmpc_multitick_fused(
     if dev.type != "cuda":
         raise ValueError(f"gpmpc_multitick_fused runs on cuda or cpu, not {dev}")
 
-    smem = shared_memory_bytes(N, nu, nx)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if tighten and N > MAX_VAR_STAGES:
+        raise ValueError(f"the variance section keeps at most {MAX_VAR_STAGES} horizon stages "
+                         f"in registers (got {N})")
+    smem = shared_memory_bytes(N, nu, nx, tighten=tighten)
+    limit = _cuda.shared_memory_optin(dev)
     if smem > limit:
         raise ValueError(
             f"horizon {N}: P1 ({m}x{m}) and the tick vectors need {smem} bytes of "
@@ -416,10 +487,10 @@ def gpmpc_multitick_fused(
     params = _TickParams(
         k_ticks=K, n=N, m=m, n_train=(gp.sq2.shape[0] if use_gp else 0),
         use_gp=int(bool(use_gp)), iterations=int(iterations), substeps=int(substeps),
-        use_fallback=int(fallback_error_m > 0.0), dt=float(dt),
+        use_fallback=int(fallback_error_m > 0.0), tighten=int(tighten), dt=float(dt),
         rho=f(rho), over_relax=f(over_relax), one_minus_over_relax=f(1.0 - over_relax),
         yawrate_limit=f(yawrate_limit), fallback_error_sq=f(fallback_error_m**2),
-        fallback_thrust_ceiling=f(fallback_thrust_ceiling),
+        fallback_thrust_ceiling=f(fallback_thrust_ceiling), tighten_kappa=f(tighten_kappa),
         accel_lo=(ctypes.c_float * 3)(*accel_lo), accel_hi=(ctypes.c_float * 3)(*accel_hi),
         fallback_lo=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_lo)),
         fallback_hi=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_hi)),
@@ -441,6 +512,11 @@ def gpmpc_multitick_fused(
     if use_gp:
         tensors.update(ztrT=gp.ztrT, sq2=gp.sq2, alpha_s=gp.alpha_s, y_mean=gp.y_mean,
                        inv_ls=gp.inv_ls, scal=gp.scal)
+    if tighten:
+        # the GP section leaves the horizon's cross-kernel K* (N, P) here for
+        # the variance section (64 KB at N=20, P=800: it stays in L2)
+        tensors.update(kinv=gp.kinv, y_std=gp.y_std, SwSqT=data.SwSqT,
+                       kst_ws=torch.empty(N * P, dtype=torch.float32, device=dev))
     ops = _TickOperands(**{k: v.data_ptr() for k, v in tensors.items()})
     fn = _cuda.library("tick").gpmpc_multitick_launch
     fn.argtypes = [ctypes.POINTER(_TickParams), ctypes.POINTER(_TickOperands),
@@ -448,7 +524,7 @@ def gpmpc_multitick_fused(
     fn.restype = ctypes.c_int
     status = fn(ctypes.byref(params), ctypes.byref(ops), smem, _cuda.stream_of(state))
     _cuda.check(status, "gpmpc_multitick_fused")
-    _cuda.count_launch("gpmpc_multitick_fused")
+    _cuda.count_launch("gpmpc_multitick_fused_tightened" if tighten else "gpmpc_multitick_fused")
     return (outs["packed"], outs["state_out"], outs["aux_out"], outs["xtail_out"],
             outs["z_out"], outs["y_out"])
 
@@ -516,7 +592,7 @@ def gpmpc_tick_fused(
     lies in shared memory where it fits one block (N <= 23 on an H100) and
     is read through L2 beyond."""
     N = n or data.Nnx // nx
-    _check_statics(N, nu, nx, 0.0)
+    _check_statics(N, nu, nx)
     dev = state.device
     Nnx, m = N * nx, N * (nu + nx)
     require_tick_data(data, N, dev)
@@ -623,7 +699,7 @@ def noisy_multitick_staged(
 ):
     """Plain version of K9: the same operands and outputs, the same math
     block for block, in PyTorch tensor ops on any device."""
-    _check_statics(n, nu, nx, 0.0)
+    _check_statics(n, nu, nx)
     N = n
     plants = [_read_plant(plant_rows[i]) for i in range(plant_rows.shape[0])]
     nominal = _read_plant(nominal_row) if use_dob else None
@@ -840,7 +916,7 @@ def gpmpc_noisy_multitick_fused(
     then the estimate 32:44 and the disturbance 44:47 (zero unless
     ``use_dob``). ``cov_precision`` and ``loop_precision`` are accepted for
     the JAX signature: the card computes in float32 either way."""
-    _check_statics(n, nu, nx, 0.0)
+    _check_statics(n, nu, nx)
     if cov_precision not in ("highest", "bf16"):
         raise ValueError(f"cov_precision={cov_precision!r}: expected 'highest' or 'bf16'")
     dev = state.device
