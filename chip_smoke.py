@@ -34,7 +34,14 @@ Phases (any failure exits non-zero; nothing is caught):
    it once), K5 with the variance section (``tighten_kappa`` 2, N=20,
    P=800, K=8, 10 iterations; 1e-4 of each output's scale, a second launch
    bit-identical, in a case where the backed-off bound binds) and timed
-   next to the same launch without it; time each kernel and its plain
+   next to the same launch without it; the plant VJP kernels K13a and K13b
+   against ``torch.func.vjp`` of K1's and K2's plain versions at B=1 and
+   B=1024 (around hover with wind, a quarter at zero airspeed, a quarter
+   of K13b's with every clamp binding; 1e-5 of each cotangent's scale, a
+   second launch bit-identical); ``gpmpc_multitick_ad`` (K5 with its VJP
+   rule) over two launches at N=20, P=800, K=20 and tightened at K=8:
+   forward bit-identical to K5, weight gradient within 1e-4 of the plain
+   route's; time each kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
@@ -74,7 +81,15 @@ Phases (any failure exits non-zero; nothing is caught):
    (bit-identical to the unbroken flight); each is held against the same
    flight through the plain versions on the card (1e-3 m; the LTV obstacle
    and MPPI flights, chaotic in float32, 5e-3 m over their first 30 ticks
-   and their RMS within 8e-3 m and 2e-3 m over the whole flight);
+   and their RMS within 8e-3 m and 2e-3 m over the whole flight); and
+   the three auto-tuners: the cascade-PID tuner on the JAX CLI's task
+   (circle 6 m, 1500 ticks, ``PID_CAMPAIGN_RATE_LOOP``, 3 iterations: K1
+   7500 launches, K13a 4497: the last tick's new state enters no loss
+   term, so its backward never runs), the fused MPC tuner (N=20, K=20, 200 ticks, 2
+   iterations: K5 40) and the staged MPC tuner with the fused allocation +
+   plant (N=25, 80 ADMM iterations, 200 ticks, 2 iterations: K2 800, K13b
+   400); each must lower its loss, and at 60 ticks its loss trace must
+   agree with the plain route's within 1e-3 relative;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -87,7 +102,10 @@ Phases (any failure exits non-zero; nothing is caught):
    by kernel from a ``torch.profiler`` window of 50 ticks; microseconds per
    tick of the direct-rate12 fused, mpc12 fused and mppi12 flights as the
    slope between 400 and 2000 ticks (the plain versions at shorter
-   lengths), with profiler windows of the first and the last;
+   lengths), with profiler windows of the first and the last; and the
+   seconds of one tuning iteration of each tuner, forward and backward,
+   for both routes at 60 ticks and the cascade-PID tuner's kernel route at
+   its width;
 5. print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -802,6 +820,381 @@ class RigidFamily:
         return {"state": torch.stack(states), "pos_ref": pos_ref}
 
 
+# ---- K13: the autodiff routes and the auto-tuners ---------------------------
+
+# operation counts of the plant VJPs, read off csrc/plant_math.cuh
+# (derivative_vjp: the forward's trigonometry and products recomputed, then
+# the adjoint of each row; rk4_substeps_vjp: per substep the three stage
+# states, four derivative VJPs and the stage sums; with 2 substeps the first
+# substep's step is recomputed once more; allocation_vjp: the allocation
+# recomputed and its adjoint)
+OPS_DERIVATIVE_VJP = 214
+OPS_RK4_SUBSTEP_VJP = 3 * OPS_DERIVATIVE + 3 * 24 + 4 * OPS_DERIVATIVE_VJP + 12 + 3 * 48
+OPS_PLANT_VJP = 2 * OPS_RK4_SUBSTEP_VJP + OPS_RK4_SUBSTEP
+OPS_ALLOCATION_VJP = OPS_ALLOCATION + 70
+VJP_TOL = 1e-5                # of each cotangent's max-abs scale
+AD_GRAD_RTOL = 1e-4           # K5 route's weight gradient against the plain route's
+TUNER_TRACE_RTOL = 1e-3       # a tuner's loss trace, kernel route against plain route
+
+# the tuners' widths: the JAX CLI's `tune` task (cli.py:1095-1176, 1458-1469:
+# a circle of 6 m at 3 m, 30 s = 1500 ticks, settle 250, learning rate 0.06,
+# PID_CAMPAIGN_RATE_LOOP), 3 iterations instead of 40; the MPC tuners at
+# bench.py's fused width (N=20, 10 ADMM iterations, K=20) and at the
+# LinearMPCConfig() default (N=25, 80 iterations) on the staged tier, 2
+# iterations and 200 ticks each
+PID_TUNE_T, PID_TUNE_ITERS, PID_TUNE_LR, PID_TUNE_SETTLE = 1500, 3, 0.06, 250
+MPC_TUNE_T, MPC_TUNE_ITERS, MPC_TUNE_LR, MPC_TUNE_SETTLE = 200, 2, 0.08, 50
+TUNE_SHORT_T, TUNE_SHORT_ITERS, TUNE_SHORT_SETTLE = 60, 2, 15    # against the plain route
+
+
+def tune_circle(t):
+    """The CLI's tune task: the ramped circle of 6 m at the 3 m take-off height."""
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    pos, _, yaw = ramped_circle_reference(t, amplitude=6.0, height=3.0)
+    return pos, yaw
+
+
+def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
+    """Hold K13a and K13b against their plain versions (``torch.func.vjp`` of
+    K1's and K2's plain versions) at B=1 and B=1024 on states around hover
+    with wind: a quarter at zero airspeed, and for K13b a quarter with the
+    tilt, integral, rate and thrust clamps binding; 1e-5 of each cotangent's
+    scale; a second launch bit-identical. Time both at B=1 (the tuners'
+    batch) and B=1024. Returns their records for the JSON line."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_ad
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    wind = tuple(float(v) for v in prow[7:10])
+
+    def operands(B):
+        s = 0.3 * torch.randn(B, 12, generator=gen)
+        s[:, 2] += 3.0
+        q = B // 4
+        s[:q, 3:6] = torch.tensor(wind)                       # zero airspeed
+        c = torch.cat([1.0 + 0.1 * torch.randn(B, 1, generator=gen),
+                       0.3 * torch.randn(B, 3, generator=gen)], 1)
+        cmd = torch.cat([torch.randn(B, 3, generator=gen), 0.3 * torch.randn(B, 2, generator=gen),
+                         torch.full((B, 1), 1.2)], 1)
+        integ = 0.05 * torch.randn(B, 3, generator=gen)
+        if B >= 4:                                            # every clamp binding
+            s[q:2 * q, 6:12] = torch.tensor([0.9, -0.9, 2.0, 2.0, -2.0, 1.5])
+            cmd[q:2 * q] = torch.tensor([5.0, -5.0, 9.0, 0.5, -1.0, 1.2])
+            integ[q:2 * q] = torch.tensor([0.299, -0.299, 0.299])
+        cts = [torch.randn(B, n, generator=gen) for n in (12, 7, 3)]
+        return [t.to(**f32).contiguous() for t in (s, c, cmd, integ, *cts)]
+
+    recs = {}
+    for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp"):
+        recs[name] = dict(errs={}, timing={})
+    for B in (1, 1024):
+        s, c, cmd, integ, ct_s, ct_c, ct_i = operands(B)
+        calls = {
+            "px4_plant_step_vjp": (
+                lambda: tick_ad.px4_plant_step_vjp(s, c, prow, ct_s, 0.02, 2),
+                lambda: tick_ad.px4_plant_step_vjp_plain(s, c, prow, ct_s, 0.02, 2),
+                nbytes(s, c, prow, ct_s) + 4 * (B * 16 + 10),
+                B * (OPS_PLANT_VJP + 10)),
+            "allocation_plant_tick_vjp": (
+                lambda: tick_ad.allocation_plant_tick_vjp(s, cmd, integ, prow, ct_s, ct_c, ct_i,
+                                                          0.02, 2),
+                lambda: tick_ad.allocation_plant_tick_vjp_plain(s, cmd, integ, prow, ct_s, ct_c,
+                                                                ct_i, 0.02, 2),
+                nbytes(s, cmd, integ, prow, ct_s, ct_c, ct_i) + 4 * (B * 21 + 10),
+                B * (OPS_ALLOCATION_VJP + OPS_PLANT_VJP + 10)),
+        }
+        for name, (kernel, plain, n_bytes, n_ops) in calls.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            again = kernel()
+            errs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                    for g, w in zip(got, want)]
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                fail_fn(f"{name} produced non-finite values (B={B})")
+            if not max(errs) <= VJP_TOL:
+                fail_fn(f"{name} disagrees with its plain version at B={B}: {errs}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail_fn(f"{name}: a second launch on the same inputs differs (B={B})")
+            recs[name]["errs"][B] = errs
+            recs[name]["timing"][B] = dict(
+                ms=graph_ms(kernel, 200), plain_ms=graph_ms(plain, 5),
+                host_ms=cuda_ms(kernel, 500), host_plain_ms=cuda_ms(plain, 20),
+                bound=bound_ms(n_bytes, n_ops))
+    for name, rec in recs.items():
+        t1 = rec["timing"][1]
+        rec.update(err=max(max(e) for e in rec["errs"].values()), ms=t1["ms"],
+                   plain_ms=t1["plain_ms"], host_ms=t1["host_ms"],
+                   host_plain_ms=t1["host_plain_ms"], bound=t1["bound"])
+        print(f"K13 {name}: max error per cotangent relative to its scale, B=1 "
+              + ", ".join(f"{e:.3e}" for e in rec["errs"][1]) + "; B=1024 "
+              + ", ".join(f"{e:.3e}" for e in rec["errs"][1024]) + "; device us per launch "
+              + "; ".join(f"B={B} {t['ms'] * 1e3:.2f} (plain {t['plain_ms'] * 1e3:.2f}, bound "
+                          f"{t['bound'][0] * 1e3:.5f} {t['bound'][1]})"
+                          for B, t in rec["timing"].items()))
+    return recs
+
+
+def check_multitick_ad(dev, post, prow, fail_fn) -> dict:
+    """``gpmpc_multitick_ad`` at full width (N=20, P=800, K=20 with the
+    frozen GP; the tightened K=8 at kappa 2): two chained launches from the
+    traced-weight MPC's operands, forward bit-identical to
+    ``gpmpc_multitick_fused``, and the weight gradient of a tracking loss
+    over both launches within 1e-4 (norm-relative, per leaf) of the same
+    gradient through the plain route (autograd straight through
+    ``multitick_staged``). Returns the gaps and the route's forward and
+    backward seconds."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_ad, tick_pallas
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+    from unmanned_aerial_vehicles_tpu_torch.tuning import mpc_weights_theta
+    from unmanned_aerial_vehicles_tpu_torch.tuning.autotune import _TracedWeightMPC
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+    for label, K, kappa in (("frozen GP", K_TICKS, 0.0), ("tightened", K5_PREVIEW_K, TIGHTEN_KAPPA)):
+        N = HORIZON
+        cfg = LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True,
+                              tightening_factor=kappa)
+        gp = tick_pallas.build_gp_rows(post, 0.1, with_variance=kappa > 0.0)
+        ts = 10.0 + 0.02 * torch.arange(2 * K, **f32)
+        pos, yaw = ramped_figure8_reference(ts)
+        pos = pos + torch.tensor([0.0, 0.0, 3.0], **f32)
+        refs = torch.cat([pos, torch.zeros(2 * K, 3, **f32)], 1).repeat(1, N).contiguous()
+        x0 = torch.zeros(12, **f32)
+        x0[:6] = torch.cat([pos[0] + torch.tensor([0.2, -0.1, 0.05], **f32),
+                            torch.tensor([0.5, 0.2, -0.1], **f32)])
+        m = 10 * N
+        statics = dict(k_ticks=K, use_gp=True, rho=8.0, iterations=ADMM_ITERS, over_relax=1.6,
+                       dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0),
+                       accel_hi=(3.5, 3.5, 6.0), yawrate_limit=0.8, n=N, nu=4, nx=6,
+                       tighten_kappa=kappa)
+
+        def run(route, grad=True):
+            theta = {k: v.requires_grad_(grad) for k, v in mpc_weights_theta(cfg, device=dev).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = _TracedWeightMPC(theta, cfg)._tick_data
+            carry = (x0, torch.cat([x0[:6], torch.zeros(3, **f32)]), x0[:6].repeat(N).contiguous(),
+                     torch.zeros(m, **f32), torch.zeros(m, **f32))
+            packs = []
+            for i in range(2):
+                packed, *carry = route(data, gp, *carry, refs[i * K:(i + 1) * K],
+                                       yaw[i * K:(i + 1) * K].contiguous(), prow, **statics)
+                packs.append(packed)
+            packed = torch.cat(packs)
+            loss = (torch.mean(torch.sum((packed[:, 0:3] - pos) ** 2, dim=1))
+                    + 1e-3 * torch.mean(packed[:, 13:16] ** 2))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(loss, list(theta.values())) if grad else None
+            torch.cuda.synchronize()
+            return packed.detach(), grads, (t1 - t0, time.perf_counter() - t1)
+
+        packed_ad, g_ad, sec_ad = run(tick_ad.gpmpc_multitick_ad)
+        packed_plain, g_plain, sec_plain = run(tick_pallas.multitick_staged)
+        with torch.no_grad():
+            packed_fused, _, _ = run(tick_pallas.gpmpc_multitick_fused, grad=False)
+        gaps = {k: float((a - b).norm() / b.norm()) for k, a, b in
+                zip(mpc_weights_theta(cfg, device=dev), g_ad, g_plain)}
+        finite = all(bool(torch.isfinite(g).all()) for g in g_ad)
+        print(f"gpmpc_multitick_ad, {label} (N={N}, P={GP_POINTS}, K={K}, kappa {kappa}, two "
+              f"launches): forward bit-identical to gpmpc_multitick_fused "
+              f"{torch.equal(packed_ad, packed_fused)}; weight gradient against the plain "
+              "route, norm-relative per leaf: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f"; seconds forward/backward: K5 route {sec_ad[0]:.3f}/{sec_ad[1]:.3f}, plain "
+              f"route {sec_plain[0]:.3f}/{sec_plain[1]:.3f}")
+        if not torch.equal(packed_ad, packed_fused):
+            fail_fn(f"gpmpc_multitick_ad ({label}): forward differs from gpmpc_multitick_fused")
+        if not finite or not max(gaps.values()) <= AD_GRAD_RTOL:
+            fail_fn(f"gpmpc_multitick_ad ({label}): gradient gap to the plain route {gaps}")
+        out[label] = dict(gaps=gaps, seconds=sec_ad, seconds_plain=sec_plain)
+    return out
+
+
+def run_tuners(dev, fail_fn, kernels) -> dict:
+    """Phase 3's tuners through the user entry points at the widths above,
+    each with the launch counts from 0: the cascade-PID tuner on the CLI
+    task (K1 T (I+2) launches, K13a T I), the fused MPC tuner (K5 (T/K)
+    (I+2)) and the staged MPC tuner with the fused allocation + plant (K2
+    T (I+2), K13b T I). Each must improve its loss, and each is run again
+    at 60 ticks through the kernels (counted) and through their plain
+    versions on the card: the loss traces within 1e-3 relative."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import FlightLoopConfig
+    from unmanned_aerial_vehicles_tpu_torch.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+    from unmanned_aerial_vehicles_tpu_torch.tuning import (
+        TuneConfig,
+        tune_cascade_gains,
+        tune_mpc_weights,
+    )
+
+    tuners = {
+        "cascade-PID tuner (K1 + K13a)": (
+            lambda T, I, settle, plain: tune_cascade_gains(
+                tune_circle, T, tune_cfg=TuneConfig(iterations=I, learning_rate=PID_TUNE_LR,
+                                                    settle_steps=settle),
+                rate_loop=PID_CAMPAIGN_RATE_LOOP,
+                loop_cfg=FlightLoopConfig(use_pallas_plant=True, fused_tick_ad=True),
+                device=dev, plain_kernels=plain),
+            (PID_TUNE_T, PID_TUNE_ITERS, PID_TUNE_SETTLE),
+            # the last tick's new state enters no loss term, so autograd
+            # never runs its plant step's backward: T - 1 VJPs per iteration
+            lambda T, I: {"px4_plant_step_fused": T * (I + 2), "px4_plant_step_vjp": (T - 1) * I}),
+        "fused MPC tuner (K5 forward, staged-twin VJP)": (
+            lambda T, I, settle, plain: tune_mpc_weights(
+                tune_circle, T, base_config=LinearMPCConfig(horizon=HORIZON,
+                                                            admm_iterations=ADMM_ITERS),
+                tune_cfg=TuneConfig(iterations=I, learning_rate=MPC_TUNE_LR, settle_steps=settle),
+                loop_cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K_TICKS),
+                device=dev, plain_kernels=plain)[0],
+            (MPC_TUNE_T, MPC_TUNE_ITERS, MPC_TUNE_SETTLE),
+            lambda T, I: {"gpmpc_multitick_fused": T // K_TICKS * (I + 2)}),
+        "staged MPC tuner (K2 + K13b)": (
+            lambda T, I, settle, plain: tune_mpc_weights(
+                tune_circle, T, base_config=LinearMPCConfig(),
+                tune_cfg=TuneConfig(iterations=I, learning_rate=MPC_TUNE_LR, settle_steps=settle),
+                loop_cfg=FlightLoopConfig(use_pallas_plant=True), device=dev,
+                plain_kernels=plain)[0],
+            (MPC_TUNE_T, MPC_TUNE_ITERS, MPC_TUNE_SETTLE),
+            lambda T, I: {"allocation_plant_tick_fused": T * (I + 2),
+                          "allocation_plant_tick_vjp": T * I}),
+    }
+    results = {}
+    for label, (tune, (T, I, settle), expected) in tuners.items():
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = tune(T, I, settle, False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+        _cuda.reset_launch_counts()
+        short = {plain: tune(TUNE_SHORT_T, TUNE_SHORT_ITERS, TUNE_SHORT_SETTLE, plain)
+                 for plain in (False, True)}
+        torch.cuda.synchronize()
+        short_counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+        trace = [float(v) for v in res.losses]
+        trace_gap = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(
+            [short[False].initial_loss, *short[False].losses],
+            [short[True].initial_loss, *short[True].losses]))
+        print(f"{label}: {T} ticks, {I} iterations, {seconds:.2f} s; launches {counts}; loss "
+              f"initial {float(res.initial_loss):.6f}, trace "
+              + ", ".join(f"{v:.6f}" for v in trace)
+              + f", final (best) {float(res.final_loss):.6f}; at {TUNE_SHORT_T} ticks (launches "
+              f"{short_counts}) against the plain route: initial loss and trace within "
+              f"{trace_gap:.3e} relative (kernel route "
+              + ", ".join(f"{float(v):.9f}" for v in (short[False].initial_loss,
+                                                      *short[False].losses))
+              + "; plain route "
+              + ", ".join(f"{float(v):.9f}" for v in (short[True].initial_loss,
+                                                      *short[True].losses)) + ")")
+        for kernel, n in expected(T, I).items():
+            if counts.get(kernel, 0) != n:
+                fail_fn(f"{label}: {kernel} launched {counts.get(kernel, 0)} times, expected {n}")
+            if kernel.endswith("_vjp"):
+                kernels[kernel]["launches"] = n
+        if not all(math.isfinite(v) for v in trace):
+            fail_fn(f"{label}: non-finite loss trace {trace}")
+        if not float(res.final_loss) < float(res.initial_loss):
+            fail_fn(f"{label}: final loss {float(res.final_loss)} not below the initial "
+                    f"{float(res.initial_loss)}")
+        if set(short_counts) != set(expected(T, I)):
+            fail_fn(f"{label}: the short kernel-route run launched {short_counts}")
+        if not trace_gap <= TUNER_TRACE_RTOL:
+            fail_fn(f"{label}: loss trace {trace_gap} from the plain route's")
+        results[label] = dict(initial=float(res.initial_loss), trace=trace,
+                              final=float(res.final_loss), seconds=seconds,
+                              short_trace_gap=trace_gap)
+    return results
+
+
+def time_tuner_iterations(dev) -> dict:
+    """Seconds of one tuning iteration (value and gradient of a whole
+    flight), split into forward and backward, for each tuner: both routes
+    at 60 ticks, and the cascade-PID tuner's kernel route at its 1500."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.cascade_pid import CascadePidGains
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import FlightLoopConfig
+    from unmanned_aerial_vehicles_tpu_torch.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.models.px4_surrogate import RateLoopParams
+    from unmanned_aerial_vehicles_tpu_torch.tuning import TuneConfig, mpc_weights_theta
+    from unmanned_aerial_vehicles_tpu_torch.tuning.autotune import (
+        _cascade_loss_fn,
+        _cascade_theta,
+        _f32_gains,
+        _mpc_loss_fn,
+    )
+
+    body = RigidBodyParams()
+    template = _f32_gains(CascadePidGains.default(device=dev), dev)
+    fused_base = LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                 use_fused_controller=True)
+
+    def pid(T, plain):
+        loss = _cascade_loss_fn(tune_circle, T, template, TuneConfig(settle_steps=T // 6), body,
+                                PID_CAMPAIGN_RATE_LOOP, FlightLoopConfig(use_pallas_plant=True),
+                                dev, plain)
+        return loss, _cascade_theta(template)
+
+    def mpc(base, loop):
+        def make(T, plain):
+            loss = _mpc_loss_fn(tune_circle, T, base, TuneConfig(settle_steps=T // 4), body,
+                                RateLoopParams(), loop, None, False, dev, plain)
+            return loss, mpc_weights_theta(base, device=dev)
+        return make
+
+    def split(make, T, plain):
+        loss_fn, theta0 = make(T, plain)
+        theta = {k: v.detach().clone().requires_grad_(True) for k, v in theta0.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(theta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, list(theta.values()))
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    out = {}
+    for label, make, T in (
+        ("cascade-PID tuner", pid, PID_TUNE_T),
+        ("fused MPC tuner", mpc(fused_base, FlightLoopConfig(use_fused_tick=True,
+                                                             ticks_per_dispatch=K_TICKS)),
+         MPC_TUNE_T),
+        ("staged MPC tuner", mpc(LinearMPCConfig(), FlightLoopConfig(use_pallas_plant=True)),
+         MPC_TUNE_T),
+    ):
+        split(make, TUNE_SHORT_T, False)                    # warm
+        rec = {"kernel_short": split(make, TUNE_SHORT_T, False),
+               "plain_short": split(make, TUNE_SHORT_T, True)}
+        full = ""
+        if label == "cascade-PID tuner":
+            rec["kernel_full"] = split(make, T, False)
+            full = (f"; kernel route at {T} ticks {rec['kernel_full'][0]:.3f}/"
+                    f"{rec['kernel_full'][1]:.3f}")
+        out[label] = rec
+        print(f"{label} iteration seconds (forward/backward) at {TUNE_SHORT_T} ticks: kernel "
+              f"route {rec['kernel_short'][0]:.3f}/{rec['kernel_short'][1]:.3f}, plain route "
+              f"{rec['plain_short'][0]:.3f}/{rec['plain_short'][1]:.3f}{full}")
+    launches = TUNE_SHORT_T // K_TICKS
+    fwd, bwd = out["fused MPC tuner"]["kernel_short"]
+    out["fused MPC tuner"]["backward_ms_per_k5_launch"] = 1e3 * bwd / launches
+    print(f"  fused MPC tuner: backward (the staged twin's VJP) {1e3 * bwd / launches:.1f} ms per "
+          f"K5 launch of {K_TICKS} ticks, forward {1e3 * fwd / launches:.1f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -938,6 +1331,10 @@ def main() -> int:
     if not k2["err"] <= PLANT_TOL:
         fail(f"K2 disagrees with its plain version: {k2['err']}")
 
+    # K13a and K13b: the plant VJPs against torch.func.vjp of K1's and K2's
+    # plain versions
+    kernels.update(check_plant_vjps(dev, gen, prow, fail))
+
     # K5: one launch at full width from a GP fitted on the seeded synthetic set
     mpc = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
                                     use_fused_controller=True), device=dev)
@@ -1009,6 +1406,9 @@ def main() -> int:
     # 8 m/s box toward a 9 m/s reference, so the backed-off bound binds
     kt = check_tightened_k5(dev, mpc, post, prow, gp_ops + admm_ops + rest_ops, fail)
     kernels["gpmpc_multitick_fused_tightened"] = kt
+
+    # K5 with its VJP rule (the fused MPC tuner's route), untightened and tightened
+    multitick_ad = check_multitick_ad(dev, post, prow, fail)
 
     # K9: K5's operands with the filter inside, four configurations
     k9 = check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics,
@@ -1555,6 +1955,9 @@ def main() -> int:
           f"{clearance_plain:.4f} m); RMS gaps to the plain flights: ltv12 "
           f"{rms_gap['ltv12_obstacle']:.3e} m, mppi12 {rms_gap['mppi12']:.3e} m")
 
+    # the auto-tuners (K1 + K13a, K5 with its VJP rule, K2 + K13b)
+    tuners = run_tuners(dev, fail, kernels)
+
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
     def slope_us(fly, lengths, reps=2, warm_T=None):
         """Microseconds per tick of ``fly(T)``: the slope of the best of
@@ -1708,6 +2111,8 @@ def main() -> int:
               f"({k['bound'][1]}); no single PyTorch call computes this function, so there "
               "is no library yardstick")
 
+    tuner_seconds = time_tuner_iterations(dev)
+
     # ---- phase 5: result lines --------------------------------------------
     meta = {
         "px4_plant_step_fused": ("plant_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/plant_pallas.py:377"),
@@ -1731,6 +2136,10 @@ def main() -> int:
             "rigid_tick_kernel.cu", "unmanned_aerial_vehicles_tpu/ops/rigid_tick_pallas.py:192"),
         "mppi_rollout_costs_fused": (
             "mppi_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/mppi_pallas.py:102"),
+        "px4_plant_step_vjp": (
+            "plant_vjp_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_ad.py:402"),
+        "allocation_plant_tick_vjp": (
+            "plant_vjp_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_ad.py:462"),
     }
     line = {"kernels": [
         {
@@ -1777,7 +2186,10 @@ def main() -> int:
                                                           "100 mppi12 ticks")},
         "us_per_launch_k11_rigid": k11["rigid"]["ms"] * 1e3,
         "k11_max_abs_err_by_output": {"direct_rate": k11["errs"], "rigid": k11["rigid"]["errs"]},
-        "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3}
+        "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3,
+        "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3
+                                    for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp")},
+        "multitick_ad": multitick_ad, "tuners": tuners, "tuner_iteration_seconds": tuner_seconds}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,9 +18,19 @@ the LTV obstacle flight (10 Hz, K=2, 100 iterations, obstacle (0, 1.5, 1,
 iterations) with tightening kappa 2: ``bench.py``'s tightening mode (the
 frozen GP fitted on the seeded synthetic set, P=800, K=8, 400 ticks) and
 ``examples/09``'s online flight (wind (1.5, 0.8, 0), preview, fallback
-1.5 m, P=256, refit every 250, K=8, 1000 ticks). Prints one JSON object of
-RMS values in metres and the LTV flight's minimum clearance from the
-obstacle's surface.
+1.5 m, P=256, refit every 250, K=8, 1000 ticks). And the three auto-tuners
+at ``chip_smoke.py``'s widths: the cascade-PID tuner on the CLI's ``tune``
+task (circle of 6 m at 3 m, 1500 ticks, settle 250, learning rate 0.06,
+``PID_CAMPAIGN_RATE_LOOP``, the plant through its K1 custom VJP; 3
+iterations), the fused MPC tuner (N=20, 10 ADMM iterations, K=20) and the
+staged MPC tuner (``LinearMPCConfig()``, the allocation and plant through
+K2's custom VJP), 200 ticks, settle 50, learning rate 0.08, 2 iterations
+each: initial loss, loss trace and final loss; and whether the JAX
+package's weight gradient through its tightened fused tier is finite
+(kappa 2, the frozen GP, N=20, K=8, 16 ticks; fault F13). Prints one JSON
+object of RMS values in metres, the LTV flight's minimum clearance from
+the obstacle's surface and the tuners' losses. ``--tuners`` runs the
+tuners alone.
 
 Imports JAX; the port and ``chip_smoke.py`` do not. MPPI draws its
 exploration noise from ``jax.random`` here and from a ``torch.Generator``
@@ -232,7 +242,67 @@ def fig8_tightening():
     return fig8_rms(frozen), fig8_rms(online), int(online["gp_count"][-1])
 
 
+def tune_circle(t):
+    pos, _, yaw = ramped_circle_reference(t, amplitude=6.0, height=3.0)
+    return pos, yaw
+
+
+def tuners():
+    """``chip_smoke.py``'s three tuners, flown by the JAX package."""
+    import numpy as np
+
+    from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig, fit_residual_gp
+    from unmanned_aerial_vehicles_tpu.loop import FlightLoopConfig, mpc_flight_rollout
+    from unmanned_aerial_vehicles_tpu.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu.tuning import (
+        TuneConfig,
+        mpc_weights_theta,
+        tune_cascade_gains,
+        tune_mpc_weights,
+    )
+    from unmanned_aerial_vehicles_tpu.tuning.autotune import _TracedWeightMPC, _tracking_loss
+
+    record = lambda r: dict(initial=float(r.initial_loss),
+                            trace=[float(v) for v in np.asarray(r.losses)],
+                            final=float(r.final_loss))
+    out = {"cascade_pid": record(tune_cascade_gains(
+        tune_circle, 1500, tune_cfg=TuneConfig(iterations=3, learning_rate=0.06, settle_steps=250),
+        rate_loop=PID_CAMPAIGN_RATE_LOOP,
+        loop_cfg=FlightLoopConfig(use_pallas_plant=True, fused_tick_ad=True)))}
+    mpc_cfg = TuneConfig(iterations=2, learning_rate=0.08, settle_steps=50)
+    out["mpc_fused"] = record(tune_mpc_weights(
+        tune_circle, 200, base_config=LinearMPCConfig(horizon=20, admm_iterations=10),
+        tune_cfg=mpc_cfg, loop_cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=20))[0])
+    out["mpc_staged_k2"] = record(tune_mpc_weights(
+        tune_circle, 200, base_config=LinearMPCConfig(), tune_cfg=mpc_cfg,
+        loop_cfg=FlightLoopConfig(use_pallas_plant=True, fused_tick_ad=True))[0])
+
+    rng = np.random.default_rng(0)
+    post = fit_residual_gp(jnp.asarray(rng.normal(size=(800, 10)), jnp.float32),
+                           jnp.asarray(0.05 * rng.normal(size=(800, 6)), jnp.float32),
+                           ResidualGPConfig())
+    base = LinearMPCConfig(horizon=20, admm_iterations=10, use_fused_controller=True,
+                           tightening_factor=2.0)
+
+    def loss(theta):
+        outs = mpc_flight_rollout(_TracedWeightMPC(theta, base), fig8, 16, gp_posterior=post,
+                                  gp_gain=0.1, cfg=FlightLoopConfig(
+                                      use_fused_tick=True, ticks_per_dispatch=8,
+                                      fused_tick_ad=True))
+        return _tracking_loss(outs, 0, 1e-3)
+
+    _, grads = jax.jit(jax.value_and_grad(loss))(mpc_weights_theta(base))
+    leaves = [np.asarray(g) for g in grads.values()]
+    out["tightened_gradient_finite_share"] = float(
+        sum(np.isfinite(g).sum() for g in leaves) / sum(g.size for g in leaves))
+    return out
+
+
 def main() -> int:
+    if "--tuners" in sys.argv[1:]:
+        print(json.dumps({"tuners": tuners()}))
+        return 0
     ltv_rms, clearance = ltv12_obstacle()
     tight_rms, online09_rms, online09_count = fig8_tightening()
     out = {
@@ -246,6 +316,7 @@ def main() -> int:
         "fig8_tightened_frozen_400": tight_rms,
         "fig8_online09_1000": online09_rms,
         "fig8_online09_gp_count_1000": online09_count,
+        "tuners": tuners(),
     }
     print(json.dumps(out))
     return 0

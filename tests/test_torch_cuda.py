@@ -14,7 +14,7 @@ import torch
 from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
 from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
 from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import fit_residual_gp
-from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_pallas
+from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_ad, tick_pallas
 from unmanned_aerial_vehicles_tpu_torch.ops.plant_pallas import build_plant_row
 
 K_SAMPLES, N = 128, 9
@@ -89,3 +89,46 @@ def test_tightened_k5_launches_once_and_agrees_with_its_plain_version(cuda_devic
         assert float((g - w).abs().max()) <= tol
     again = tick_pallas.gpmpc_multitick_fused(*args, **statics)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 1024])
+def test_plant_vjp_kernels_agree_with_their_plain_versions(cuda_device, batch):
+    """K13a and K13b launch once per call, agree with ``torch.func.vjp`` of
+    K1's and K2's plain versions within 1e-5 of each cotangent's scale
+    (around hover with wind, a quarter of the states at zero airspeed) and
+    repeat bit for bit."""
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    gen = torch.Generator().manual_seed(batch)
+    wind = (0.8, 0.4, 0.0)
+    prow = build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81 / 0.7, wind,
+                           device=cuda_device)
+    s = 0.3 * torch.randn(batch, 12, generator=gen)
+    s[:, 2] += 3.0
+    s[: batch // 4 + 1, 3:6] = torch.tensor(wind)
+    s = s.to(**f32).contiguous()
+    c = torch.cat([1.4 + 0.1 * torch.randn(batch, 1, generator=gen),
+                   0.3 * torch.randn(batch, 3, generator=gen)], 1).to(**f32).contiguous()
+    cmd = torch.cat([torch.randn(batch, 3, generator=gen), 0.3 * torch.randn(batch, 2, generator=gen),
+                     torch.full((batch, 1), 1.2)], 1).to(**f32).contiguous()
+    integ = (0.05 * torch.randn(batch, 3, generator=gen)).to(**f32).contiguous()
+    cts = [torch.randn(batch, n, generator=gen).to(**f32).contiguous() for n in (12, 7, 3)]
+    cases = {
+        "px4_plant_step_vjp": (
+            lambda: tick_ad.px4_plant_step_vjp(s, c, prow, cts[0], 0.02, 2),
+            lambda: tick_ad.px4_plant_step_vjp_plain(s, c, prow, cts[0], 0.02, 2)),
+        "allocation_plant_tick_vjp": (
+            lambda: tick_ad.allocation_plant_tick_vjp(s, cmd, integ, prow, *cts, 0.02, 2),
+            lambda: tick_ad.allocation_plant_tick_vjp_plain(s, cmd, integ, prow, *cts, 0.02, 2)),
+    }
+    for name, (kernel, plain) in cases.items():
+        _cuda.reset_launch_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts[name] == 1
+        want = plain()
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            assert float((g - w).abs().max()) <= 1e-5 * max(1.0, float(w.abs().max()))
+        again = kernel()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -130,6 +130,8 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.estimation.disturbance\n"
         "import unmanned_aerial_vehicles_tpu_torch.estimation.noisy_loop\n"
         "import unmanned_aerial_vehicles_tpu_torch.io.checkpoint\n"
+        "import unmanned_aerial_vehicles_tpu_torch.ops.tick_ad\n"
+        "import unmanned_aerial_vehicles_tpu_torch.tuning\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"
@@ -149,6 +151,7 @@ _JAX_PKG = re.compile(r"^\s*(from|import)\s+(jax\b|unmanned_aerial_vehicles_tpu(
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
+    assert PORT / "tuning" / "autotune.py" in sources and PORT / "ops" / "tick_ad.py" in sources
     for path in sources:
         text = path.read_text()
         assert not _JAX_PKG.search(text), path
@@ -170,10 +173,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 @pytest.mark.parametrize("path", ["polish", "tightening", "resume", "output_correction",
                                   "fused_tick_ad"])
 def test_queued_paths_raise_and_point_at_the_roadmap(path):
-    """The paths still queued in ROADMAP.md (active-set polish, the K13
-    autodiff wrappers) raise ``NotImplementedError`` naming it; the three
-    that were queued before the GP-variance slice (multi-tick tightening,
-    resume, the staged output correction) now fly."""
+    """The path still queued in ROADMAP.md (active-set polish) raises
+    ``NotImplementedError`` naming it; those queued before the GP-variance
+    slice (multi-tick tightening, resume, the staged output correction) and
+    before the autodiff slice (``fused_tick_ad``, here on the single-tick
+    tier, which it leaves as it is) now fly."""
     cfg = dict(horizon=HORIZON, use_fused_controller=True)
     kw = dict(cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K), device="cpu")
     if path == "polish":
@@ -187,7 +191,7 @@ def test_queued_paths_raise_and_point_at_the_roadmap(path):
     else:
         kw["cfg"] = FlightLoopConfig(use_fused_tick=True, fused_tick_ad=True)
     tm = LinearMPC(LinearMPCConfig(**cfg), device="cpu")
-    if path in ("tightening", "resume", "output_correction"):
+    if path in ("tightening", "resume", "output_correction", "fused_tick_ad"):
         out = mpc_flight_rollout(tm, t_ref, K, **kw)
         outs = out[0] if path == "resume" else out
         assert tuple(outs["state"].shape) == (K, 12)

@@ -25,10 +25,13 @@ Sub-packages
 ``estimation``    EKF, disturbance observer, noisy-sensor flights
 ``ops``           box-QP ADMM, LTV condensation and the hand-written kernels
                   (plants, ticks, batched controller, GP posterior mean,
-                  noisy tick, rigid plant, rigid multi-tick, MPPI sampling)
+                  noisy tick, rigid plant, rigid multi-tick, MPPI sampling,
+                  the plant VJPs)
 ``loop``          closed-loop flights, the batched throughput sweep and the
                   12-state multi-tick tiers
 ``parallel``      flight sweeps reduced to tracking aggregates
+``tuning``        gradient descent on the cascade-PID gains and the MPC
+                  weights through whole flights (the kernels' VJPs)
 ``convert``       carries the JAX package's values (as numpy) across
 """
 

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .control.cascade_pid import CascadePidGains
 from .control.mpc_sqp import SQPCarry
+from .control.pid import PIDGains
 from .gp.exact_gp import GPParams, GPPosterior
 from .gp.residual_gp import OutputCorrectionConfig, ResidualDataset
 from .loop.closed_loop import FlightResumeState
@@ -313,3 +315,21 @@ def mppi_noise_from_numpy(eps, dtype=torch.float32, device=None) -> torch.Tensor
     """The JAX MPPI tick's ``(K, N, 4)`` standard-normal exploration draw,
     for ``MPPIController.solve(..., eps=...)``."""
     return _t(eps, dtype, resolve_device(device)).contiguous()
+
+
+def cascade_gains_from_numpy(leaves, device=None) -> CascadePidGains:
+    """``CascadePidGains`` from the leaves of the JAX package's gain pytree
+    (``jax.tree_util.tree_leaves`` order: position, velocity and attitude,
+    each kp, ki, kd, max_output, max_integral; then hover_thrust,
+    thrust_min, thrust_max, max_rate), as float32 tensors and floats."""
+    dev = resolve_device(device)
+    leaves = list(leaves)
+    pid = lambda i: PIDGains(*(_t(leaves[i + j], torch.float32, dev) for j in range(5)))
+    return CascadePidGains(pid(0), pid(5), pid(10), *(float(np.asarray(v)) for v in leaves[15:19]))
+
+
+def mpc_theta_from_numpy(theta: Mapping, device=None) -> dict:
+    """The tuner's log-weight dict (``tuning.mpc_weights_theta``) from the
+    JAX package's, as float32 tensors."""
+    dev = resolve_device(device)
+    return {k: _t(v, torch.float32, dev) for k, v in theta.items()}

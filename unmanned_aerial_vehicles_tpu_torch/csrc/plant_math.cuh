@@ -96,27 +96,41 @@ __device__ __forceinline__ void derivative(const float s[12], const float c[4],
   out[11] = (c[3] - r) / pl.tau_y;
 }
 
+// The step lengths of one RK4 substep of dt / substeps, rounded to float
+// once as the plain versions round them.
+struct Rk4Step {
+  float h, half_h, h6;
+};
+
+__device__ __forceinline__ Rk4Step rk4_step_lengths(double dt, int substeps) {
+  const double h = dt / substeps;
+  return Rk4Step{(float)h, (float)(0.5 * h), (float)(h / 6.0)};
+}
+
+// One RK4 substep in place on s.
+__device__ __forceinline__ void rk4_step(float s[12], const float c[4], const Plant& pl,
+                                         const Rk4Step& st) {
+  float k1[12], k2[12], k3[12], k4[12], x[12];
+  derivative(s, c, pl, k1);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.half_h * k1[i];
+  derivative(x, c, pl, k2);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.half_h * k2[i];
+  derivative(x, c, pl, k3);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.h * k3[i];
+  derivative(x, c, pl, k4);
+#pragma unroll
+  for (int i = 0; i < 12; ++i)
+    s[i] = s[i] + st.h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
+}
+
 // `substeps` RK4 steps of length dt / substeps, in place on s.
 __device__ __forceinline__ void rk4_substeps(float s[12], const float c[4], const Plant& pl,
                                              double dt, int substeps) {
-  const double h = dt / substeps;
-  const float hf = (float)h, half_h = (float)(0.5 * h), h6 = (float)(h / 6.0);
-  float k1[12], k2[12], k3[12], k4[12], x[12];
-  for (int step = 0; step < substeps; ++step) {
-    derivative(s, c, pl, k1);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x[i] = s[i] + half_h * k1[i];
-    derivative(x, c, pl, k2);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x[i] = s[i] + half_h * k2[i];
-    derivative(x, c, pl, k3);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x[i] = s[i] + hf * k3[i];
-    derivative(x, c, pl, k4);
-#pragma unroll
-    for (int i = 0; i < 12; ++i)
-      s[i] = s[i] + h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
-  }
+  const Rk4Step st = rk4_step_lengths(dt, substeps);
+  for (int step = 0; step < substeps; ++step) rk4_step(s, c, pl, st);
 }
 
 // The warp-cooperative forms below (K9's filter warp) spread the slow,
@@ -364,6 +378,281 @@ __device__ __forceinline__ void mpc_command_plant(const Params& P, const Plant& 
   accel[0] = ax;
   accel[1] = ay;
   accel[2] = az;
+}
+
+
+// ---------------------------------------------------------------------------
+// Reverse mode (the K13 VJP kernels, plant_vjp_kernels.cu). Each function
+// recomputes its forward intermediates with the code above and runs the
+// adjoint back through them, with PyTorch autograd's rules at the kinks of
+// the plain versions (ops/plant_pallas.py): torch.clamp passes the gradient
+// on its closed interval, torch.minimum splits it equally at a tie,
+// torch.where sends it to the branch taken, torch.remainder has slope 1,
+// the guarded sqrt of the drag has no gradient at zero airspeed, and the
+// cos(theta) guard passes it only where it does not bind. Cotangents are
+// added into the outputs (the caller zeroes them).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool in_closed(float x, float lo, float hi) {
+  return x >= lo && x <= hi;
+}
+
+// derivative()'s VJP: from the cotangent g of its output, gs += J_s' g,
+// gc += J_c' g, gp += J_p' g (gp has the plant row's 10 lanes).
+__device__ __forceinline__ void derivative_vjp(const float s[12], const float c[4],
+                                               const Plant& pl, const float g[12], float gs[12],
+                                               float gc[4], float gp[kPlantLanes]) {
+  const float vx = s[3], vy = s[4], vz = s[5];
+  const float phi = s[6], theta = s[7], psi = s[8];
+  const float p = s[9], q = s[10], r = s[11];
+  const float cphi = cosf(phi), sphi = sinf(phi);
+  const float cth = cosf(theta), sth = sinf(theta);
+  const float cpsi = cosf(psi), spsi = sinf(psi);
+  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
+  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
+  const float t2 = cphi * cth;
+  const float a_thrust = c[0] * pl.thrust_gain;
+  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
+  const float sq = avx * avx + avy * avy + avz * avz;
+  const bool moving = sq > 0.0f;
+  const float speed = moving ? sqrtf(sq) : 0.0f;
+  const float kd = pl.k_drag / pl.mass;
+  const float tth = sth / cth;
+  const bool guarded = fabsf(cth) < 1e-6f;
+  const float cth_safe = guarded ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
+
+  // position rows: d(x)/dt = v
+  gs[3] += g[0];
+  gs[4] += g[1];
+  gs[5] += g[2];
+
+  // acceleration rows: a_thrust t - kd speed av - gravity e_z
+  const float g_at = g[3] * t0 + g[4] * t1 + g[5] * t2;
+  const float g_t0 = g[3] * a_thrust, g_t1 = g[4] * a_thrust, g_t2 = g[5] * a_thrust;
+  gc[0] += g_at * pl.thrust_gain;
+  gp[6] += g_at * c[0];
+  const float kd_speed = kd * speed;
+  const float g_kd_speed = -(g[3] * avx + g[4] * avy + g[5] * avz);
+  float g_av[3] = {-kd_speed * g[3], -kd_speed * g[4], -kd_speed * g[5]};
+  if (moving) {
+    const float g_sq = g_kd_speed * kd / (2.0f * speed);
+    g_av[0] += 2.0f * avx * g_sq;
+    g_av[1] += 2.0f * avy * g_sq;
+    g_av[2] += 2.0f * avz * g_sq;
+  }
+  const float g_kd = g_kd_speed * speed;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    gs[3 + i] += g_av[i];
+    gp[7 + i] -= g_av[i];
+  }
+  gp[2] += g_kd / pl.mass;
+  gp[0] -= g_kd * pl.k_drag / (pl.mass * pl.mass);
+  gp[1] -= g[5];
+
+  // the thrust direction's trigonometric factors
+  float g_cphi = 0.0f, g_sphi = 0.0f, g_cth = 0.0f, g_sth = 0.0f, g_cpsi = 0.0f, g_spsi = 0.0f;
+  g_cphi -= g_t0 * sth * cpsi;
+  g_sth -= g_t0 * cphi * cpsi;
+  g_cpsi -= g_t0 * cphi * sth;
+  g_sphi -= g_t0 * spsi;
+  g_spsi -= g_t0 * sphi;
+  g_cphi -= g_t1 * sth * spsi;
+  g_sth -= g_t1 * cphi * spsi;
+  g_spsi -= g_t1 * cphi * sth;
+  g_sphi += g_t1 * cpsi;
+  g_cpsi += g_t1 * sphi;
+  g_cphi += g_t2 * cth;
+  g_cth += g_t2 * cphi;
+
+  // attitude rows: the Euler-rate transform (phi row unguarded, psi row guarded)
+  gs[9] += g[6];
+  gs[10] += g[6] * sphi * tth;
+  gs[11] += g[6] * cphi * tth;
+  g_sphi += g[6] * q * tth;
+  g_cphi += g[6] * r * tth;
+  const float g_tth = g[6] * (q * sphi + r * cphi);
+  g_sth += g_tth / cth;
+  g_cth -= g_tth * sth / (cth * cth);
+  gs[10] += g[7] * cphi;
+  gs[11] -= g[7] * sphi;
+  g_cphi += g[7] * q;
+  g_sphi -= g[7] * r;
+  const float g8 = g[8] / cth_safe;
+  gs[10] += g8 * sphi;
+  gs[11] += g8 * cphi;
+  g_sphi += g8 * q;
+  g_cphi += g8 * r;
+  if (!guarded) g_cth -= g[8] * (q * sphi + r * cphi) / (cth_safe * cth_safe);
+
+  // rate rows: (command - rate) / tau
+  const float g_p = g[9] / pl.tau_r, g_q = g[10] / pl.tau_p, g_r = g[11] / pl.tau_y;
+  gc[1] += g_p;
+  gc[2] += g_q;
+  gc[3] += g_r;
+  gs[9] -= g_p;
+  gs[10] -= g_q;
+  gs[11] -= g_r;
+  gp[3] -= g[9] * (c[1] - p) / (pl.tau_r * pl.tau_r);
+  gp[4] -= g[10] * (c[2] - q) / (pl.tau_p * pl.tau_p);
+  gp[5] -= g[11] * (c[3] - r) / (pl.tau_y * pl.tau_y);
+
+  gs[6] += g_sphi * cphi - g_cphi * sphi;
+  gs[7] += g_sth * cth - g_cth * sth;
+  gs[8] += g_spsi * cpsi - g_cpsi * spsi;
+}
+
+// rk4_substeps()'s VJP: on entry gs holds the cotangent of the state after
+// the substeps, on return the cotangent of the state s0 before them; the
+// control's and the plant row's are added into gc and gp. Each substep's
+// start state is recomputed from s0 (substeps is small: 2 in every loop).
+__device__ __forceinline__ void rk4_substeps_vjp(const float s0[12], const float c[4],
+                                                 const Plant& pl, double dt, int substeps,
+                                                 float gs[12], float gc[4],
+                                                 float gp[kPlantLanes]) {
+  const Rk4Step st = rk4_step_lengths(dt, substeps);
+  for (int step = substeps - 1; step >= 0; --step) {
+    float s[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s[i] = s0[i];
+    for (int j = 0; j < step; ++j) rk4_step(s, c, pl, st);
+    // the stage states x2, x3, x4 of this substep
+    float k[12], x2[12], x3[12], x4[12];
+    derivative(s, c, pl, k);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x2[i] = s[i] + st.half_h * k[i];
+    derivative(x2, c, pl, k);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x3[i] = s[i] + st.half_h * k[i];
+    derivative(x3, c, pl, k);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) x4[i] = s[i] + st.h * k[i];
+
+    // s' = s + h6 (k1 + 2 k2 + 2 k3 + k4), back through k4 .. k1
+    float g_sum[12], g_k[12], g_x[12], g_s[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_sum[i] = st.h6 * gs[i];
+      g_s[i] = gs[i];
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp(x4, c, pl, g_sum, g_x, gc, gp);   // k4 = f(x4)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = 2.0f * g_sum[i] + st.h * g_x[i];      // x4 = s + h k3
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp(x3, c, pl, g_k, g_x, gc, gp);     // k3 = f(x3)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = 2.0f * g_sum[i] + st.half_h * g_x[i]; // x3 = s + h/2 k2
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp(x2, c, pl, g_k, g_x, gc, gp);     // k2 = f(x2)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = g_sum[i] + st.half_h * g_x[i];        // x2 = s + h/2 k1
+    }
+    derivative_vjp(s, c, pl, g_k, g_s, gc, gp);      // k1 = f(s)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) gs[i] = g_s[i];
+  }
+}
+
+// allocation()'s VJP: from the cotangents of control (4), att_sp (3) and
+// new_int (3), add those of s (12), cmd (5), integral (3), gravity and the
+// thrust ceiling.
+__device__ __forceinline__ void allocation_vjp(const float s[12], const float cmd[5],
+                                               const float integral[3], float dt, float gravity,
+                                               float thrust_ceiling, const float g_control[4],
+                                               const float g_att[3], const float g_new_int[3],
+                                               float gs[12], float gcmd[5], float gint[3],
+                                               float* g_gravity, float* g_ceiling) {
+  const float kp = 3.2f, ki = 0.6f, kd = 0.6f, integral_max = 0.3f;
+  const float tvx = cmd[0], tvy = cmd[1], tvz = cmd[2] + gravity;
+  const float tmag = sqrtf(tvx * tvx + tvy * tvy + tvz * tvz);
+  const float x = tmag / gravity;
+  const float x_lo = fmaxf(x, 0.25f);
+  const float inv = 1.0f / fmaxf(tmag, 1e-9f);
+  const float sin_pitch = tvx * inv, sin_roll = tvy * inv;
+  const float sin_pitch_c = clipf(sin_pitch, -0.4f, 0.4f);
+  const float sin_roll_c = clipf(sin_roll, -0.4f, 0.4f);
+  const bool degenerate = tmag <= 0.1f;
+  const float pitch_cmd = degenerate ? 0.0f : -asinf(sin_pitch_c);
+  const float roll_cmd = degenerate ? 0.0f : asinf(sin_roll_c);
+  const float e[3] = {wrap_angle(roll_cmd - s[6]), wrap_angle(pitch_cmd - s[7]),
+                      wrap_angle(cmd[4] - s[8])};
+  float u[3], in[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    u[i] = integral[i] + e[i] * dt;
+    in[i] = clipf(u[i], -integral_max, integral_max);
+  }
+  const float v0 = kp * e[0] + ki * in[0] - kd * s[9];
+  const float v1 = kp * e[1] + ki * in[1] - kd * s[10];
+  const float v2 = cmd[3] + kp * e[2] + ki * in[2] - kd * s[11];
+
+  // the rate commands' clips, the PID, the integral's clip
+  const float g_v[3] = {in_closed(v0, -1.2f, 1.2f) ? g_control[1] : 0.0f,
+                        in_closed(v1, -1.2f, 1.2f) ? g_control[2] : 0.0f,
+                        in_closed(v2, -0.8f, 0.8f) ? g_control[3] : 0.0f};
+  gcmd[3] += g_v[2];
+  float g_e[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    gs[9 + i] -= kd * g_v[i];
+    g_e[i] = kp * g_v[i];
+    const float g_in = ki * g_v[i] + g_new_int[i];
+    const float g_u = in_closed(u[i], -integral_max, integral_max) ? g_in : 0.0f;
+    gint[i] += g_u;
+    g_e[i] += dt * g_u;
+    gs[6 + i] -= g_e[i];   // the wrap has slope 1
+  }
+  const float g_roll = g_att[0] + g_e[0];
+  const float g_pitch = g_att[1] + g_e[1];
+  gcmd[4] += g_att[2] + g_e[2];
+
+  // the tilt: asin of the clipped direction, zero when degenerate
+  float g_tvx = 0.0f, g_tvy = 0.0f, g_tvz = 0.0f, g_inv = 0.0f;
+  if (!degenerate) {
+    if (in_closed(sin_roll, -0.4f, 0.4f)) {
+      const float g_arg = g_roll * rsqrtf(1.0f - sin_roll_c * sin_roll_c);
+      g_tvy += g_arg * inv;
+      g_inv += g_arg * tvy;
+    }
+    if (in_closed(sin_pitch, -0.4f, 0.4f)) {
+      const float g_arg = -g_pitch * rsqrtf(1.0f - sin_pitch_c * sin_pitch_c);
+      g_tvx += g_arg * inv;
+      g_inv += g_arg * tvx;
+    }
+  }
+  float g_tmag = tmag >= 1e-9f ? -g_inv * inv * inv : 0.0f;
+
+  // thrust = min(max(tmag / g, 0.25), ceiling): a tie splits the gradient
+  float g_x_lo = 0.0f;
+  if (x_lo < thrust_ceiling) {
+    g_x_lo = g_control[0];
+  } else if (x_lo > thrust_ceiling) {
+    *g_ceiling += g_control[0];
+  } else {
+    g_x_lo = 0.5f * g_control[0];
+    *g_ceiling += 0.5f * g_control[0];
+  }
+  const float g_x = x >= 0.25f ? g_x_lo : 0.0f;
+  g_tmag += g_x / gravity;
+  *g_gravity -= g_x * tmag / (gravity * gravity);
+
+  const float g_sq = g_tmag / (2.0f * tmag);
+  g_tvx += 2.0f * tvx * g_sq;
+  g_tvy += 2.0f * tvy * g_sq;
+  g_tvz += 2.0f * tvz * g_sq;
+  gcmd[0] += g_tvx;
+  gcmd[1] += g_tvy;
+  gcmd[2] += g_tvz;
+  *g_gravity += g_tvz;
 }
 
 }  // namespace uav

@@ -34,6 +34,13 @@ instead of one point target per tick.
 ``pid_flight_rollout`` flies the cascade PID; with ``use_pallas_plant`` its
 plant substeps go through kernel K1.
 
+``FlightLoopConfig(fused_tick_ad=True)`` makes the kernel tiers
+differentiable (the tuner's route, ``tuning.autotune``): K1, K2 and K5
+launch through the ``ops.tick_ad`` autograd functions, whose forward is
+the same kernel (the flight is bit-identical) and whose backward is the VJP
+kernel K13a/K13b or, for K5, the VJP of its plain twin. Without it a loss
+that reaches a kernel operand raises (``ops._cuda.require``).
+
 ``batched_mpc_flight_sweep`` is the throughput mode: B flights in lockstep,
 one launch each of K8 (controller), K7 (GP posterior mean) and K2
 (allocation + plant) per tick for the whole batch.
@@ -57,9 +64,6 @@ from ..control.mpc_linear import LinearMPC
 from ..gp.residual_gp import ResidualGPConfig
 from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
-
-_QUEUED = "queued in ROADMAP.md"
-
 
 class FlightResumeState(NamedTuple):
     """Mid-flight checkpoint of the multi-tick tier: the whole loop state at
@@ -89,6 +93,8 @@ class FlightLoopConfig:
     use_fused_tick: bool = False
     fused_tick_loop_precision: str = "highest"
     ticks_per_dispatch: int = 1
+    # differentiable kernel tiers: K1, K2 and K5 launch through the
+    # ops.tick_ad autograd functions (same forward, VJP backward)
     fused_tick_ad: bool = False
     fallback_error_m: float = 0.0
     fallback_accel_scale: float = 1.5
@@ -120,8 +126,10 @@ def _plant_row(body: RigidBodyParams, rate_loop: RateLoopParams, device):
 def _plant_substeps(state, control, body, rate_loop, cfg: FlightLoopConfig, plain=False):
     if cfg.use_pallas_plant:
         from ..ops.plant_pallas import _px4_plant_rows, px4_plant_step_plain
+        from ..ops.tick_ad import px4_plant_rows_ad
 
-        step = px4_plant_step_plain if plain else _px4_plant_rows
+        step = (px4_plant_step_plain if plain
+                else px4_plant_rows_ad if cfg.fused_tick_ad else _px4_plant_rows)
         out = step(state.to(torch.float32)[None].contiguous(),
                    control.to(torch.float32)[None].contiguous(),
                    _plant_row(body, rate_loop, state.device),
@@ -277,8 +285,6 @@ def mpc_flight_rollout(
     if resuming and not cfg.use_fused_tick:
         raise ValueError("mid-flight checkpoint/resume runs on the fused multi-tick path "
                          "(use_fused_tick=True)")
-    if cfg.fused_tick_ad:
-        raise NotImplementedError(f"the autodiff wrappers of the fused tiers (K13) are {_QUEUED}")
     if cfg.use_fused_tick:
         if uncertainty_fn is not None:
             raise ValueError(
@@ -479,6 +485,7 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_
                     residual_fn, uncertainty_fn, output_correction_fn, preview, dtype,
                     plain_kernels):
     from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
+    from ..ops.tick_ad import allocation_plant_rows_ad
 
     dev = initial_state.device
     kw = dict(dtype=dtype, device=dev)
@@ -489,7 +496,8 @@ def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_
     ref_states = (_preview_references(reference_fn, num_steps, N, cfg, dtype, dev)
                   .reshape(num_steps, N, 6) if preview else None)
     plant_row = _plant_row(body, rate_loop, dev) if cfg.use_pallas_plant else None
-    alloc_plant = allocation_plant_tick_plain if plain_kernels else _allocation_plant_rows
+    alloc_plant = (allocation_plant_tick_plain if plain_kernels
+                   else allocation_plant_rows_ad if cfg.fused_tick_ad else _allocation_plant_rows)
 
     state = initial_state.to(dtype)
     mpc_carry = mpc.init_carry(state[0:6])
@@ -652,6 +660,7 @@ def _multitick_rollout(
     (once per ``refit_every`` ticks it reads the ring buffer's count to
     decide whether enough samples were captured)."""
     from ..models.double_integrator import CONTROL_DIM, STATE_DIM
+    from ..ops.tick_ad import gpmpc_multitick_ad
     from ..ops.tick_pallas import build_gp_rows, gpmpc_multitick_fused, multitick_staged
 
     if not mpc.config.use_fused_controller:
@@ -670,7 +679,8 @@ def _multitick_rollout(
             f"ticks_per_dispatch={K} (refits happen at launch boundaries)"
         )
     plant_row = _plant_row(body, rate_loop, dev)
-    tick = multitick_staged if plain_kernels else gpmpc_multitick_fused
+    tick = (multitick_staged if plain_kernels
+            else gpmpc_multitick_ad if cfg.fused_tick_ad else gpmpc_multitick_fused)
     kappa = float(mpc.config.tightening_factor)
     with_variance = kappa > 0.0
     # (horizon, K, GP capacity, variance, scaled inputs), as the JAX package

@@ -3,12 +3,12 @@ parameters."""
 
 from .double_integrator import CONTROL_DIM, STATE_DIM, double_integrator_step
 from .params import COMPARISON_PARAMS, GZ_QUADROTOR_PARAMS, X500_PARAMS, RigidBodyParams
-from .px4_surrogate import RateLoopParams, px4_rate_tracking_step
+from .px4_surrogate import PID_CAMPAIGN_RATE_LOOP, RateLoopParams, px4_rate_tracking_step
 from .rigid_body import rigid_body_derivative, rigid_body_euler_step, rigid_body_rk4_step
 
 __all__ = [
     "CONTROL_DIM", "STATE_DIM", "double_integrator_step", "RigidBodyParams",
     "COMPARISON_PARAMS", "GZ_QUADROTOR_PARAMS", "X500_PARAMS",
-    "RateLoopParams", "px4_rate_tracking_step",
+    "PID_CAMPAIGN_RATE_LOOP", "RateLoopParams", "px4_rate_tracking_step",
     "rigid_body_derivative", "rigid_body_euler_step", "rigid_body_rk4_step",
 ]

@@ -31,6 +31,12 @@ class RateLoopParams:
     hover_thrust_norm: float = 1.0
 
 
+# The PX4 cascade-PID campaign's rate loop: its hover calibration feeds a 0.7
+# normalized-thrust baseline (JAX ``models/px4_surrogate.py:118``), the rate
+# loop of the JAX CLI's ``tune`` command.
+PID_CAMPAIGN_RATE_LOOP = RateLoopParams(hover_thrust_norm=0.7)
+
+
 def _derivative(
     state: torch.Tensor,
     control: torch.Tensor,

@@ -11,5 +11,7 @@ K6 ``admm_pallas.admm_box_qp_fused_composite``, K7
 ``tick_pallas.gpmpc_noisy_multitick_fused``, K10
 ``rigid_plant_pallas.rigid_body_rollout_fused``, K11
 ``rigid_tick_pallas.direct_rate_multitick_kernel``, K12
-``mppi_pallas.mppi_rollout_costs_fused``.
+``mppi_pallas.mppi_rollout_costs_fused``; K13, the autodiff routes of K1,
+K2 and K5 (``tick_ad``), with the VJP kernels K13a
+``tick_ad.px4_plant_step_vjp`` and K13b ``tick_ad.allocation_plant_tick_vjp``.
 """

@@ -12,6 +12,12 @@ parity with the plain versions.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises if that is not 0. Launch counts live in ``launch_counts``:
 a wrapper adds one where it launches its kernel and nowhere else.
+
+A kernel launched on ``data_ptr()`` is invisible to autograd, so ``require``
+refuses an operand that asks for a gradient while grad mode is on: the
+differentiable routes are the ``ops.tick_ad`` functions
+(``FlightLoopConfig(fused_tick_ad=True)``), whose ``torch.autograd.Function``
+forward runs with grad mode off.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ LIBRARIES = {
     "rigid_plant": "rigid_plant_kernels.cu",
     "rigid_tick": "rigid_tick_kernel.cu",
     "mppi": "mppi_kernels.cu",
+    "plant_vjp": "plant_vjp_kernels.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,6 +71,8 @@ launch_counts: dict[str, int] = {
     "rigid_body_rollout_fused": 0,
     "direct_rate_multitick_kernel": 0,
     "mppi_rollout_costs_fused": 0,
+    "px4_plant_step_vjp": 0,
+    "allocation_plant_tick_vjp": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -210,11 +219,20 @@ def require_aligned(what: str, *tensors) -> None:
 
 def require(t, name: str, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` (the kernels take nothing else)."""
+    ``device`` (the kernels take nothing else), and unless it is outside
+    autograd: an operand that requires grad under grad mode would have its
+    gradient cut silently, so it raises, on every device alike."""
     import torch
 
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name} requires grad, and a kernel launch would cut its gradient: "
+            "differentiate through FlightLoopConfig(fused_tick_ad=True) or the "
+            "ops.tick_ad *_ad functions (px4_plant_step_ad, allocation_plant_tick_ad, "
+            "gpmpc_multitick_ad)"
+        )
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:

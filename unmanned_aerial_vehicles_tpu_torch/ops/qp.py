@@ -78,6 +78,34 @@ def admm_box_qp_composite(
     return AdmmState(U, z, y)
 
 
+def admm_box_qp_chol(
+    M_chol: torch.Tensor,  # (n, n) lower Cholesky factor of M = H + rho G'G
+    G: torch.Tensor,       # (m, n)
+    f: torch.Tensor,       # (n,)
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    z0: torch.Tensor,
+    y0: torch.Tensor,
+    rho: float,
+    iterations: int,
+    over_relax: float = 1.6,
+) -> AdmmState:
+    """ADMM with a Cholesky factor of ``M = H + rho G'G`` formed from
+    tensors (the traced-weight MPC of the tuner): two triangular solves per
+    iteration, ``U = M^{-1} (-f + G'(rho z - y))``. The iteration count is
+    fixed, so reverse mode through the solver is exact."""
+    U = torch.zeros(G.shape[1], dtype=f.dtype, device=f.device)
+    z, y = z0, y0
+    for _ in range(iterations):
+        rhs = -f + G.T @ (rho * z - y)
+        U = torch.cholesky_solve(rhs[:, None], M_chol)[:, 0]
+        Gt = over_relax * (G @ U) + (1.0 - over_relax) * z
+        z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+        y = y + rho * (Gt - z_new)
+        z = z_new
+    return AdmmState(U, z, y)
+
+
 def condense_ltv(A: torch.Tensor, B: torch.Tensor, c: torch.Tensor):
     """Condensation of time-varying affine dynamics
     ``x_{k+1} = A_k x_k + B_k u_k + c_k`` with ``A (N, nx, nx)``, ``B (N, nx,

@@ -253,6 +253,16 @@ def command_plant_plain(z, ref, sc, s, yaw_ref, integral, plant, *, dt, substeps
     return _rk4_substeps(s, c, plant, dt, substeps), c, att_sp, new_int, (ax, ay, az)
 
 
+def guarded_sqrt(v: torch.Tensor) -> torch.Tensor:
+    """``sqrt(v)`` for ``v >= 0`` whose gradient is 0, not infinite, where
+    ``v`` is 0. The propagated variance is exactly 0 on the first stage's
+    position rows, where the plain ``sqrt`` makes every weight gradient NaN
+    (the JAX package's, fault F13 in ROADMAP.md); the value is the same."""
+    pos = v > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, v, torch.ones_like(v))),
+                       torch.zeros_like(v))
+
+
 def tightening_row(data: FusedTickData, gp: GPRows, Kst: torch.Tensor,
                    tighten_kappa: float) -> torch.Tensor:
     """The ``(m,)`` box back-off of one tick from the horizon's cross-kernel
@@ -266,7 +276,7 @@ def tightening_row(data: FusedTickData, gp: GPRows, Kst: torch.Tensor,
     gain = gp.scal[1]
     sig_acc = (gain * gain) * var_lat[:, None] * (gp.y_std[3:6] ** 2)[None, :]
     sig = torch.cat([torch.zeros_like(sig_acc), sig_acc], dim=1).reshape(-1)
-    tight_x = tighten_kappa * torch.sqrt(sig @ data.SwSqT)
+    tight_x = tighten_kappa * guarded_sqrt(sig @ data.SwSqT)
     cap = 0.45 * (data.hi_row[Nnu:] - data.lo_row[Nnu:])
     return torch.cat([torch.zeros(Nnu, dtype=torch.float32, device=Kst.device),
                       torch.minimum(tight_x, cap)])
