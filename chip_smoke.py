@@ -41,7 +41,17 @@ Phases (any failure exits non-zero; nothing is caught):
    second launch bit-identical); ``gpmpc_multitick_ad`` (K5 with its VJP
    rule) over two launches at N=20, P=800, K=20 and tightened at K=8:
    forward bit-identical to K5, weight gradient within 1e-4 of the plain
-   route's; time each kernel and its plain
+   route's; the last three kernels at the system's shapes, each with a
+   second launch bit-identical: K14 (the explicit-inverse ADMM) on the
+   staged MPC's own M^-1 and G at N=20 and N=25 (80 iterations, rho 8,
+   relaxation 1.6; 2e-5 of each output's scale), K15 (the RBF Gram) at
+   the GP refit's 800 x 800 x 10 and the corpus's 19,800^2 x 10,
+   isotropic and ARD (5e-5 of sigma^2 against the plain version, 2e-5
+   against float64 on rows holding the diagonal: see GRAM_TOL), K16 (the
+   fused controller for a batch of flights) at B=256, N=20 (P1 in shared
+   memory) and N=25 (P1 through L2) over three warm-started ticks, and K1
+   and K2 on a dispersed (256, 10) plant block (2e-5 of scale); time each
+   kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
@@ -89,7 +99,17 @@ Phases (any failure exits non-zero; nothing is caught):
    iterations: K5 40) and the staged MPC tuner with the fused allocation +
    plant (N=25, 80 ADMM iterations, 200 ticks, 2 iterations: K2 800, K13b
    400); each must lower its loss, and at 60 ticks its loss trace must
-   agree with the plain route's within 1e-3 relative;
+   agree with the plain route's within 1e-3 relative; K14 and K15 once
+   each at their own entry points (the staged MPC's QP at N=25, the
+   800-point Gram); the Monte Carlo robustness study at the campaign's
+   width (256 flights, 1500 ticks, the 6 m circle at 3 m, wind 0.8 m/s):
+   the MPC population with ``use_fused_controller`` (N=25, 80 iterations)
+   and ``use_pallas_plant`` (K16 1500 launches, K2 1500), the same with
+   the 1.5 m hover fallback, and the PID population with
+   ``PID_CAMPAIGN_RATE_LOOP`` (K1 1500), each against its plain twin (equal
+   success flags, per-flight RMS within 1e-3 m where both succeed), and two
+   flights of the MPC population flown alone through K3 (within 1e-3 m of
+   their population rows);
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -105,7 +125,9 @@ Phases (any failure exits non-zero; nothing is caught):
    lengths), with profiler windows of the first and the last; and the
    seconds of one tuning iteration of each tuner, forward and backward,
    for both routes at 60 ticks and the cascade-PID tuner's kernel route at
-   its width;
+   its width; microseconds per Monte Carlo flight-tick (the MPC
+   population's slope between 300 and 1500 ticks, over 256) and its
+   device-busy share;
 5. print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1195,6 +1217,421 @@ def time_tuner_iterations(dev) -> dict:
     return out
 
 
+# ---- the last three TPU kernels (K14, K15, K16) and the plant block -------
+
+TAIL_TOL = 2e-5               # K14, K16 and the plant block, of each output's scale
+# K15 against its plain version, of sigma^2. The distance form cancels
+# |z1|^2 + |z2|^2 against 2 z1.z2; on the Gram's diagonal (and at
+# near-duplicate points) both are ~2 |z|^2, up to ~150 at the corpus's
+# width (10 features / 0.5), where one float32 ulp is 1.5e-5. The plain
+# version rounds each z^2 before summing and takes the cross term from a
+# matrix product, so its diagonal distance is off by a few ulps; the
+# kernel forms |z|^2 and z.z with the same fused chain, so its diagonal
+# distance is exactly 0. On the H100 the two differ by 1.52e-5 of sigma^2 at
+# 800 points and 2.28e-5 at 19,800. So the kernel is held to its plain
+# version within GRAM_TOL and, on a block of rows that holds the diagonal,
+# to a float64 evaluation of the same formula within TAIL_TOL.
+GRAM_TOL = 5e-5
+GRAM_F64_ROWS = 1024
+MC_B = 256                    # the campaign's population (tools/run_campaign.py:336-365)
+GRAM_SHAPES = ((800, 800), (19800, 19800))   # the GP refit's points; the full corpus
+GRAM_D = 10
+ADMM_RHO, ADMM_RELAX, ADMM_ITERS_DEFAULT = 8.0, 1.6, 80   # LinearMPCConfig() defaults
+
+
+def ops_explicit_admm(n: int, m: int, iterations: int) -> int:
+    """FP32 operations of K14 (csrc/single_tick_kernels.cu, an FMA counts
+    2): per iteration rhs (2 m n + n), u (2 n^2), Gu (2 m n) and ~12 per
+    constraint row; then the final rhs and u."""
+    return iterations * (4 * m * n + 2 * n * n + n + 12 * m) + 2 * m * n + 2 * n * n + n
+
+
+def ops_gram(n1: int, n2: int, d: int) -> int:
+    """FP32 operations of K15 (csrc/rbf_kernels.cu): per entry the d-term
+    dot, the distance (4) and the scale and expf (2); the rows' scaling and
+    norms."""
+    return n1 * n2 * (2 * d + 6) + (n1 + n2) * 3 * d
+
+
+def ops_fused_batched(B: int, N: int, iterations: int) -> int:
+    """FP32 operations of K16 (csrc/controller_kernels.cu) for B flights:
+    the two shift products (4 m^2) and K3's controller tick per flight."""
+    m = 10 * N
+    return B * (4 * m * m + ops_controller(N, iterations))
+
+
+def check_tail_kernels(dev, gen, fail_fn) -> dict:
+    """Hold K14, K15 and K16, and K1 and K2 on a dispersed (256, 10) plant
+    block, against their plain versions on the card at the system's shapes,
+    each within TAIL_TOL of its outputs' scale with a second launch
+    bit-identical, and time them. Returns the kernels' entries."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.kernels import rbf_kernel
+    from unmanned_aerial_vehicles_tpu_torch.ops import (
+        _cuda,
+        admm_pallas,
+        controller_pallas,
+        plant_pallas,
+        rbf_pallas,
+    )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+
+    def held(label, got, want, again, tol=TAIL_TOL):
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"{label}: max_abs_err of scale {max(errs):.3e} (by output "
+              + ", ".join(f"{e:.2e}" for e in errs) + f"), second launch bit-identical {same}")
+        if not max(errs) <= tol:
+            fail_fn(f"{label} disagrees with its plain version: {errs}")
+        if not same:
+            fail_fn(f"{label}: a second launch differs")
+        return max(errs)
+
+    # K14 at the staged MPC's QP (LinearMPC's own M^-1 and G), N=20 and N=25
+    k14 = {}
+    for N in (20, LONG_HORIZON):
+        mpc = LinearMPC(LinearMPCConfig(horizon=N), device=dev)
+        n, m = mpc.n_primal, mpc.n_constraints
+        x0 = torch.tensor([2.0, -1.5, 1.0, 1.0, -0.5, 0.3], **f32)
+        ref = torch.tensor([0.0, 0.0, 3.0, 0.0, 0.0, 0.0], **f32).repeat(N)
+        offset = mpc._Sx @ x0
+        f = (mpc._SuT_q @ (offset - ref)).contiguous()
+        lower = torch.cat([mpc._u_lo, mpc._x_lo - offset]).contiguous()
+        upper = torch.cat([mpc._u_hi, mpc._x_hi - offset]).contiguous()
+        z0 = (0.1 * torch.randn(m, generator=gen)).to(**f32)
+        y0 = (0.1 * torch.randn(m, generator=gen)).to(**f32)
+        Minv, G = mpc._M_inv.contiguous(), mpc._G.contiguous()
+        GT = G.T.contiguous()
+        args = (Minv, G, GT, f, lower, upper, z0, y0, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
+        fn = lambda: admm_pallas.admm_box_qp_fused(*args)
+        plain = lambda: admm_pallas.admm_box_qp_fused_plain(*args)
+        got = fn()
+        torch.cuda.synchronize()
+        err = held(f"K14 admm_box_qp_fused (N={N}, n={n}, m={m}, {ADMM_ITERS_DEFAULT} iterations)",
+                   got, plain(), fn())
+        shared, _ = _cuda.p1_variant(dev, admm_pallas.explicit_shared_memory_bytes(n, m, True),
+                                     admm_pallas.explicit_shared_memory_bytes(n, m, False))
+        k14[N] = dict(
+            err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 2),
+            host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 5),
+            bound=bound_ms(nbytes(Minv, G, f, lower, upper, z0, y0) + 4 * (n + 2 * m),
+                           ops_explicit_admm(n, m, ADMM_ITERS_DEFAULT)),
+            variant="M^-1 and G in shared memory" if shared else "through L2",
+        )
+        print(f"  K14 at N={N}: {k14[N]['ms'] * 1e3:.2f} us per launch ({k14[N]['variant']}), "
+              f"plain {k14[N]['plain_ms'] * 1e3:.2f} us")
+    out["admm_box_qp_fused"] = dict(k14[LONG_HORIZON], n20=k14[20])
+
+    # K15 at the GP refit's 800 x 800 x 10 and the corpus's 19,800^2 x 10,
+    # isotropic and ARD, on seeded synthetic inputs
+    ard = (0.3 + 1.2 * torch.rand(GRAM_D, generator=gen)).to(**f32)
+    iso, sig = torch.tensor(0.5, **f32), torch.tensor(1.3, **f32)   # on the card: no copies
+    k15 = {}
+    for n1, n2 in GRAM_SHAPES:
+        X1 = torch.randn(n1, GRAM_D, generator=gen).to(**f32)
+        X2 = X1 if n1 == n2 else torch.randn(n2, GRAM_D, generator=gen).to(**f32)
+        errs = []
+        for ls, label in ((iso, "isotropic"), (ard, "ARD")):
+            args = (X1, X2, ls, sig)
+            got = rbf_pallas.rbf_kernel_matrix_pallas(*args)
+            torch.cuda.synchronize()
+            plain = rbf_pallas.rbf_kernel_matrix_plain(*args)
+            what = f"K15 rbf_kernel_matrix_pallas ({n1} x {n2} x {GRAM_D}, {label})"
+            errs.append(held(what, (got,), (plain,),
+                             (rbf_pallas.rbf_kernel_matrix_pallas(*args),), tol=GRAM_TOL))
+            rows = slice(0, GRAM_F64_ROWS)
+            exact = rbf_kernel(X1[rows].double(), X2.double(), ls.double(), sig.double())
+            e_kernel, e_plain = rel_err(got[rows].double(), exact), rel_err(plain[rows].double(), exact)
+            print(f"  against float64 on rows 0:{GRAM_F64_ROWS}: kernel {e_kernel:.3e}, plain "
+                  f"{e_plain:.3e} of scale")
+            if not e_kernel <= TAIL_TOL:
+                fail_fn(f"{what} is {e_kernel} of scale from the float64 values")
+            del got, plain, exact
+        fn = lambda: rbf_pallas.rbf_kernel_matrix_pallas(X1, X2, iso, sig)
+        plain = lambda: rbf_pallas.rbf_kernel_matrix_plain(X1, X2, iso, sig)
+        Z1, Z2 = X1 / 0.5, X2 / 0.5
+        cdist = lambda: torch.cdist(Z1, Z2).square_().mul_(-0.5).exp_()
+        small = n1 * n2 < 10**7
+        k15[n1] = dict(
+            err=max(errs), ms=graph_ms(fn, 20) if small else cuda_ms(fn, 10),
+            plain_ms=graph_ms(plain, 5) if small else cuda_ms(plain, 5),
+            host_ms=cuda_ms(fn, 50 if small else 5), host_plain_ms=cuda_ms(plain, 5),
+            cdist_ms=cuda_ms(cdist, 10 if small else 5),
+            bound=bound_ms(nbytes(X1, X2) + 4 * (GRAM_D + 1) + 4 * n1 * n2,
+                           ops_gram(n1, n2, GRAM_D)),
+        )
+        print(f"  K15 at {n1} x {n2}: {k15[n1]['ms'] * 1e3:.2f} us per launch, plain "
+              f"{k15[n1]['plain_ms'] * 1e3:.2f} us, torch.cdist + square/scale/exp (in place) "
+              f"{k15[n1]['cdist_ms'] * 1e3:.2f} us, bound {k15[n1]['bound'][0] * 1e3:.2f} us "
+              f"({k15[n1]['bound'][1]})")
+        torch.cuda.empty_cache()
+    (small, _), (corpus, _) = GRAM_SHAPES
+    out["rbf_kernel_matrix_pallas"] = dict(k15[small], corpus=k15[corpus])
+
+    # K16 at B=256, N=20 and N=25, three warm-started ticks
+    k16 = {}
+    for N in (20, LONG_HORIZON):
+        mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True), device=dev)
+        data = mpc._tick_data
+        m, Nnx = 10 * N, 6 * N
+        X0 = torch.zeros(MC_B, 6)
+        X0[:, 0:3] = torch.randn(MC_B, 3, generator=gen)
+        X0[:, 2] += 3.0
+        X0[:, 3:6] = 0.5 * torch.randn(MC_B, 3, generator=gen)
+        X0 = X0.to(**f32).contiguous()
+        W = (0.02 * torch.randn(MC_B, Nnx, generator=gen)).to(**f32)
+        REF = torch.tensor([3.0, 0.0, 3.0, 0.0, 0.0, 0.0]).repeat(N)[None].to(**f32)
+        Z = torch.zeros(MC_B, m, **f32)
+        Y = torch.zeros(MC_B, m, **f32)
+        errs = []
+        for tick in range(3):
+            args = (data, data.ShiftT, X0, W, REF, Z, Y, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
+            got = controller_pallas.gpmpc_controller_fused_batched(*args)
+            torch.cuda.synchronize()
+            errs.append(held(f"K16 gpmpc_controller_fused_batched (B={MC_B}, N={N}, tick {tick})",
+                             got, controller_pallas.gpmpc_controller_fused_batched_plain(*args),
+                             controller_pallas.gpmpc_controller_fused_batched(*args)))
+            Z, Y = got[0], got[1]
+        args = (data, data.ShiftT, X0, W, REF, Z, Y, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
+        fn = lambda: controller_pallas.gpmpc_controller_fused_batched(*args)
+        plain = lambda: controller_pallas.gpmpc_controller_fused_batched_plain(*args)
+        shared, _ = _cuda.p1_variant(dev,
+                                     controller_pallas.fused_batched_shared_memory_bytes(N, True),
+                                     controller_pallas.fused_batched_shared_memory_bytes(N, False))
+        ins = (data.ShiftT, data.SxSwT, data.SuTqT, data.PM, data.P1, data.P0matT, data.SuT,
+               data.lo_row, data.hi_row, X0, W, REF, Z, Y)
+        k16[N] = dict(
+            err=max(errs), ms=graph_ms(fn, 10), plain_ms=graph_ms(plain, 2),
+            host_ms=cuda_ms(fn, 20), host_plain_ms=cuda_ms(plain, 3),
+            bound=bound_ms(nbytes(*ins) + 4 * MC_B * (2 * m + 10 * N),
+                           ops_fused_batched(MC_B, N, ADMM_ITERS_DEFAULT)),
+            variant="P1 in shared memory" if shared else "P1 through L2",
+        )
+        print(f"  K16 at B={MC_B}, N={N}: {k16[N]['ms'] * 1e3:.2f} us per launch "
+              f"({k16[N]['variant']}), plain {k16[N]['plain_ms'] * 1e3:.2f} us, bound "
+              f"{k16[N]['bound'][0] * 1e3:.2f} us ({k16[N]['bound'][1]})")
+    out["gpmpc_controller_fused_batched"] = dict(k16[LONG_HORIZON], n20=k16[20])
+
+    # K1 and K2 on a dispersed (256, 10) plant block (one row per flight)
+    mass = 0.5 * torch.exp(0.1 * torch.randn(MC_B, generator=gen))
+    hover = torch.exp(0.03 * torch.randn(MC_B, generator=gen))
+    block = torch.stack([
+        mass, torch.full((MC_B,), 9.81), 0.25 * torch.exp(0.3 * torch.randn(MC_B, generator=gen)),
+        *(tau * torch.exp(0.2 * torch.randn(MC_B, generator=gen)) for tau in (0.05, 0.05, 0.08)),
+        9.81 / hover, *(0.8 * torch.randn(3, MC_B, generator=gen)),
+    ], dim=1).to(**f32).contiguous()
+    s = torch.randn(MC_B, 12, generator=gen)
+    s[:, 6:9] = (torch.rand(MC_B, 3, generator=gen) - 0.5) * 1.2
+    s[:, 9:12] *= 0.5
+    s = s.to(**f32).contiguous()
+    c = torch.cat([0.6 + 0.7 * torch.rand(MC_B, 1, generator=gen),
+                   torch.randn(MC_B, 3, generator=gen)], 1).to(**f32).contiguous()
+    cmd = torch.cat([2.0 * torch.randn(MC_B, 3, generator=gen), torch.randn(MC_B, 1, generator=gen),
+                     6.0 * (torch.rand(MC_B, 1, generator=gen) - 0.5),
+                     torch.where(torch.rand(MC_B, 1, generator=gen) < 0.5, 1.2, 1.5)],
+                    1).to(**f32).contiguous()
+    integ = (0.6 * (torch.rand(MC_B, 3, generator=gen) - 0.5)).to(**f32).contiguous()
+    k1 = lambda: (plant_pallas._px4_plant_rows(s, c, block, 0.02, 2),)
+    k2 = lambda: plant_pallas._allocation_plant_rows(s, cmd, integ, block, 0.02, 2)
+    got = k1()
+    torch.cuda.synchronize()
+    plant_errs = {"K1": held(f"K1 on a ({MC_B}, 10) plant block", got,
+                             (plant_pallas.px4_plant_step_plain(s, c, block, 0.02, 2),), k1())}
+    got = k2()
+    torch.cuda.synchronize()
+    plant_errs["K2"] = held(f"K2 on a ({MC_B}, 10) plant block", got,
+                            plant_pallas.allocation_plant_tick_plain(s, cmd, integ, block, 0.02, 2),
+                            k2())
+    plant_ms = {"K1": graph_ms(k1, 200), "K2": graph_ms(k2, 200)}
+    print(f"  the plant block at B={MC_B}: K1 {plant_ms['K1'] * 1e3:.2f} us, K2 "
+          f"{plant_ms['K2'] * 1e3:.2f} us per launch")
+    return out, dict(errs=plant_errs, ms=plant_ms, block=block)
+
+
+# ---- the Monte Carlo robustness study (K16 with K2; K1) --------------------
+
+MC_T = 1500                   # 30 s at 50 Hz (tools/run_campaign.py:343-365)
+T_MC_SLOPE = (300, 1500)
+MC_RMS_GAP_M = 1e-3           # per-flight RMS, kernel population vs plain, where both succeed
+MC_LONE_FLIGHTS = 2           # population flights flown again alone through K3
+
+
+def campaign_circle(t):
+    """The campaign's circle: 6 m radius at 3 m (tools/run_campaign.py:278-281)."""
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    pos, _, yaw = ramped_circle_reference(t, amplitude=6.0, height=3.0)
+    return pos, yaw
+
+
+def drive_entry_points(dev, fail_fn, kernels) -> None:
+    """K14 and K15 have no flight path in the JAX package: drive each once
+    through its own entry point at the system's shapes (the staged MPC's QP
+    at N=25; the GP refit's 800-point Gram) with the counts from 0, and
+    record the launches."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, admm_pallas, rbf_pallas
+
+    mpc = LinearMPC(LinearMPCConfig(), device=dev)
+    m = mpc.n_constraints
+    x0 = torch.tensor([2.0, -1.5, 1.0, 1.0, -0.5, 0.3], device=dev)
+    ref = torch.tensor([0.0, 0.0, 3.0, 0.0, 0.0, 0.0], device=dev).repeat(mpc.config.horizon)
+    offset = mpc._Sx @ x0
+    X = torch.randn(800, GRAM_D, generator=torch.Generator().manual_seed(1)).to(dev)
+    _cuda.reset_launch_counts()
+    U, z, y = admm_pallas.admm_box_qp_fused(
+        mpc._M_inv.contiguous(), mpc._G.contiguous(), mpc._G.T.contiguous(),
+        (mpc._SuT_q @ (offset - ref)).contiguous(),
+        torch.cat([mpc._u_lo, mpc._x_lo - offset]), torch.cat([mpc._u_hi, mpc._x_hi - offset]),
+        torch.zeros(m, device=dev), torch.zeros(m, device=dev),
+        mpc.config.admm_rho, mpc.config.admm_iterations, mpc.config.admm_over_relax)
+    K = rbf_pallas.rbf_kernel_matrix_pallas(X, X, 0.5, 1.3)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)
+    for name in ("admm_box_qp_fused", "rbf_kernel_matrix_pallas"):
+        if counts[name] != 1:
+            fail_fn(f"{name} launched {counts[name]} times at its entry point, expected 1")
+        kernels[name]["launches"] = counts[name]
+    if not all(torch.isfinite(v).all() for v in (U, z, y, K)):
+        fail_fn("K14 or K15 produced non-finite values at its entry point")
+    print(f"K14 and K15 at their own entry points: launches {counts['admm_box_qp_fused']} "
+          f"(the staged MPC's QP, N=25) and {counts['rbf_kernel_matrix_pallas']} (800-point "
+          f"Gram); K14's U[0:4] {[round(float(v), 4) for v in U[:4]]}")
+
+
+def run_populations(dev, fail_fn, kernels) -> dict:
+    """Fly the campaign's three 256-flight populations (30 s on the 6 m
+    circle, wind 0.8 m/s): the MPC population (K16 and K2 every tick), the
+    same with the 1.5 m hover fallback, and the PID population (K1 every
+    tick), each against its plain twin (equal success flags; per-flight RMS
+    within MC_RMS_GAP_M where both succeed), with exact launch counts; then
+    fly MC_LONE_FLIGHTS flights of the MPC population alone through K3 and
+    hold them to their population rows."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import (
+        FlightLoopConfig,
+        MonteCarloConfig,
+        monte_carlo_mpc,
+        monte_carlo_pid,
+        mpc_flight_rollout,
+        robustness_stats,
+        sample_conditions,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.models.px4_surrogate import RateLoopParams
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    mc = MonteCarloConfig(n_rollouts=MC_B, wind_std=0.8)
+    cond = sample_conditions(None, mc, device=dev)
+    cond_pid = sample_conditions(None, mc, rate_loop=PID_CAMPAIGN_RATE_LOOP, device=dev)
+    mpc = LinearMPC(LinearMPCConfig(use_fused_controller=True), device=dev)
+    plant = FlightLoopConfig(use_pallas_plant=True)
+    guard = FlightLoopConfig(use_pallas_plant=True, fallback_error_m=1.5)
+
+    def fly_mpc(T, plain=False, cfg=plant):
+        return monte_carlo_mpc(mpc, campaign_circle, T, mc=mc, loop_cfg=cfg, conditions=cond,
+                               device=dev, plain_kernels=plain)
+
+    def fly_pid(T, plain=False):
+        return monte_carlo_pid(campaign_circle, T, mc=mc, rate_loop=PID_CAMPAIGN_RATE_LOOP,
+                               loop_cfg=plant, conditions=cond_pid, device=dev,
+                               plain_kernels=plain)
+
+    pops = {
+        "mpc": (lambda p: fly_mpc(MC_T, p),
+                {"gpmpc_controller_fused_batched": MC_T, "allocation_plant_tick_fused": MC_T}),
+        "mpc_fallback": (lambda p: fly_mpc(MC_T, p, guard),
+                         {"gpmpc_controller_fused_batched": MC_T,
+                          "allocation_plant_tick_fused": MC_T}),
+        "pid": (lambda p: fly_pid(MC_T, p), {"px4_plant_step_fused": MC_T}),
+    }
+    scalars = ("success_rate", "rms_mean", "rms_p50", "rms_p90", "rms_p99", "worst_max_pos")
+    results = {}
+    for key, (fly, expected) in pops.items():
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fly(False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: _cuda.launch_counts[k] for k in expected}
+        t0 = time.perf_counter()
+        want = fly(True)
+        torch.cuda.synchronize()
+        seconds_plain = time.perf_counter() - t0
+        for name, n in expected.items():
+            if counts[name] != n:
+                fail_fn(f"population {key}: {name} launched {counts[name]} times, expected {n}")
+        if key == "mpc":
+            kernels["gpmpc_controller_fused_batched"]["launches"] = counts[
+                "gpmpc_controller_fused_batched"]
+        if not torch.equal(got["success"], want["success"]):
+            fail_fn(f"population {key}: the kernel and plain twins disagree on which flights "
+                    "succeed")
+        both = got["success"] & want["success"]
+        gap = float((got["rms_pos"] - want["rms_pos"])[both].abs().max()) if bool(both.any()) else 0.0
+        results[key] = dict(
+            {s: float(got[s]) for s in scalars}, plain={s: float(want[s]) for s in scalars},
+            rms_gap_m=gap, launches=counts, seconds=seconds, seconds_plain=seconds_plain,
+            rms_pos=got["rms_pos"], success=got["success"],
+        )
+        print(f"Monte Carlo population {key} ({MC_B} flights, {MC_T} ticks, wind 0.8 m/s): "
+              f"launches {counts}; success {float(got['success_rate']):.4f}, RMS mean "
+              f"{float(got['rms_mean']):.6f} m, p50 {float(got['rms_p50']):.6f}, p90 "
+              f"{float(got['rms_p90']):.6f}, p99 {float(got['rms_p99']):.6f}, worst max "
+              f"{float(got['worst_max_pos']):.4f} m (plain: success "
+              f"{float(want['success_rate']):.4f}, RMS mean {float(want['rms_mean']):.6f} m); "
+              f"max per-flight RMS gap to plain {gap:.3e} m; {seconds:.1f} s (plain "
+              f"{seconds_plain:.1f} s)")
+        if not gap <= MC_RMS_GAP_M:
+            fail_fn(f"population {key}: per-flight RMS gap {gap} > {MC_RMS_GAP_M}")
+
+    # two flights of the MPC population alone, each on its own body and
+    # start, through K3 (per-flight solve) and K2 (its own plant row)
+    bodies, rate_loops, x0 = cond
+    ok = torch.nonzero(results["mpc"]["success"]).flatten()[:MC_LONE_FLIGHTS].tolist()
+    if len(ok) < MC_LONE_FLIGHTS:
+        fail_fn("the MPC population has fewer successful flights than the lone check needs")
+    lone = {}
+    ts = torch.arange(MC_T, device=dev).to(torch.float32) * plant.control_dt
+    pos_ref, _ = campaign_circle(ts)
+    at = lambda v, i: float(v[i]) if isinstance(v, torch.Tensor) else v
+    for i in ok:
+        body = RigidBodyParams(**{f: at(getattr(bodies, f), i) for f in (
+            "mass", "gravity", "inertia_xx", "inertia_yy", "inertia_zz", "k_drag_linear",
+            "k_drag_angular")}, wind=tuple(at(w, i) for w in bodies.wind))
+        rl = RateLoopParams(**{f: at(getattr(rate_loops, f), i) for f in (
+            "tau_roll", "tau_pitch", "tau_yaw", "hover_thrust_norm")})
+        _cuda.reset_launch_counts()
+        outs = mpc_flight_rollout(mpc, campaign_circle, MC_T, body=body, rate_loop=rl, cfg=plant,
+                                  initial_state=x0[i], device=dev)
+        torch.cuda.synchronize()
+        if _cuda.launch_counts["gpmpc_controller_fused"] != MC_T:
+            fail_fn(f"lone flight {i}: K3 launched {_cuda.launch_counts['gpmpc_controller_fused']}"
+                    f" times, expected {MC_T}")
+        rms = float(robustness_stats(outs["state"][None, :, 0:3], pos_ref, mc.settle_steps,
+                                     mc.crash_error_m)["rms_pos"][0])
+        lone[i] = (rms, float(results["mpc"]["rms_pos"][i]))
+    gaps = {i: abs(a - b) for i, (a, b) in lone.items()}
+    print("lone flights through K3 against their population rows (K16): "
+          + "; ".join(f"flight {i}: {a:.6f} m vs {b:.6f} m" for i, (a, b) in lone.items()))
+    if not max(gaps.values()) <= MC_RMS_GAP_M:
+        fail_fn(f"a lone K3 flight disagrees with its K16 population row: {gaps}")
+    for r in results.values():
+        del r["rms_pos"], r["success"]
+    results["lone_flights_rms_m"] = {str(i): v for i, v in lone.items()}
+    results["fly_mpc"] = lambda T: fly_mpc(T)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1242,6 +1679,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
+    started = time.perf_counter()
+    phase_clock = lambda phase: print(f"chip_smoke: {phase} done at "
+                                      f"{time.perf_counter() - started:.1f} s")
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -1617,6 +2057,11 @@ def main() -> int:
     # K10, K11 (both plants) and K12: the 12-state family
     kernels.update(check_rigid_kernels(dev, gen, fail))
 
+    # K14, K15, K16 and K1/K2 on a dispersed plant block
+    tail, plant_block_check = check_tail_kernels(dev, gen, fail)
+    kernels.update(tail)
+
+    phase_clock("phase 2")
     # ---- phase 3: fly every path ------------------------------------------
     def ref(t):
         p, y = ramped_figure8_reference(t, 6.0, 0.02)
@@ -1958,6 +2403,13 @@ def main() -> int:
     # the auto-tuners (K1 + K13a, K5 with its VJP rule, K2 + K13b)
     tuners = run_tuners(dev, fail, kernels)
 
+    # K14 and K15 at their own entry points; the Monte Carlo populations
+    # (K16 + K2, K1) and the lone K3 flights
+    drive_entry_points(dev, fail, kernels)
+    populations = run_populations(dev, fail, kernels)
+    fly_population = populations.pop("fly_mpc")
+
+    phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
     def slope_us(fly, lengths, reps=2, warm_T=None):
         """Microseconds per tick of ``fly(T)``: the slope of the best of
@@ -1986,11 +2438,12 @@ def main() -> int:
           f"ticks), {us_plain:.2f} us/tick through the plain version "
           f"(slope {T_SLOPE_PLAIN[0]}->{T_SLOPE_PLAIN[1]}); card: {card}")
     us_single = slope_us(lambda T: single_tick(T), T_SLOPE)
-    us_single_plain = slope_us(lambda T: single_tick(T, True), T_SLOPE, reps=1, warm_T=100)
+    us_single_plain = slope_us(lambda T: single_tick(T, True), T_SLOPE_PLAIN, reps=1,
+                               warm_T=100)
     print(f"single-tick tick: {us_single:.2f} us/tick through K4 (slope {T_SLOPE[0]}->"
           f"{T_SLOPE[1]} ticks; K4's device time {kernels['gpmpc_tick_fused']['ms'] * 1e3:.2f} "
-          f"us of it), {us_single_plain:.2f} us/tick through the plain version (same slope, "
-          f"one run per length); card: {card}")
+          f"us of it), {us_single_plain:.2f} us/tick through the plain version (slope "
+          f"{T_SLOPE_PLAIN[0]}->{T_SLOPE_PLAIN[1]}, one run per length); card: {card}")
     # the same slope without the GP: what the residual_fn costs per tick
     us_single_no_gp = slope_us(lambda T: single_tick(T, gp=False), T_SLOPE)
     print(f"single-tick tick without the GP (residual_fn=None): {us_single_no_gp:.2f} us/tick "
@@ -2092,6 +2545,27 @@ def main() -> int:
         print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
               f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
               + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
+    # the Monte Carlo study: microseconds per flight-tick of the MPC
+    # population (K16 + K2), slope between 300 and 1500 ticks over 256
+    us_mc_tick = slope_us(fly_population, T_MC_SLOPE)
+    us_mc_flight_tick = us_mc_tick / MC_B
+    busy_us, by_name = device_busy(fly_population, 50)
+    idle_share["50 Monte Carlo ticks"] = 1.0 - busy_us / us_mc_tick
+    k16 = kernels["gpmpc_controller_fused_batched"]
+    print(f"Monte Carlo MPC population ({MC_B} flights, N={LONG_HORIZON}, "
+          f"{ADMM_ITERS_DEFAULT} iterations, K16 + K2): {us_mc_flight_tick:.4f} us per "
+          f"flight-tick, {us_mc_tick:.2f} us per tick (slope {T_MC_SLOPE[0]}->{T_MC_SLOPE[1]} "
+          f"ticks); K16's device time {k16['ms'] * 1e3:.2f} us per tick; card: {card}")
+    print(f"  profiler, 50 Monte Carlo ticks: device busy {busy_us:.2f} us per tick of "
+          f"{us_mc_tick:.2f} us, idle share {idle_share['50 Monte Carlo ticks']:.3f}; by kernel "
+          "(us per tick): " + "; ".join(f"{name[:60]} {t / 50:.2f}" for t, name in by_name[:8]))
+    print(f"  K16 at N=20 (P1 in shared memory): {k16['n20']['ms'] * 1e3:.2f} us; K14 at N=20 "
+          f"{kernels['admm_box_qp_fused']['n20']['ms'] * 1e3:.2f} us; K15 at the corpus "
+          f"{kernels['rbf_kernel_matrix_pallas']['corpus']['ms'] * 1e3:.2f} us (bound "
+          f"{kernels['rbf_kernel_matrix_pallas']['corpus']['bound'][0] * 1e3:.2f} us, torch.cdist "
+          f"+ square/scale/exp {kernels['rbf_kernel_matrix_pallas']['corpus']['cdist_ms'] * 1e3:.2f}"
+          f" us); plant block at B={MC_B}: K1 {plant_block_check['ms']['K1'] * 1e3:.2f} us, K2 "
+          f"{plant_block_check['ms']['K2'] * 1e3:.2f} us")
     # two parts of the single-tick tick, each timed alone with the host's
     # overhead (not in the tick's window: the host's run-to-run spread is
     # larger than the rest of the loop, so no remainder is derived)
@@ -2113,6 +2587,7 @@ def main() -> int:
 
     tuner_seconds = time_tuner_iterations(dev)
 
+    phase_clock("phase 4")
     # ---- phase 5: result lines --------------------------------------------
     meta = {
         "px4_plant_step_fused": ("plant_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/plant_pallas.py:377"),
@@ -2140,6 +2615,12 @@ def main() -> int:
             "plant_vjp_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_ad.py:402"),
         "allocation_plant_tick_vjp": (
             "plant_vjp_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/tick_ad.py:462"),
+        "admm_box_qp_fused": (
+            "single_tick_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/admm_pallas.py:87"),
+        "rbf_kernel_matrix_pallas": (
+            "rbf_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/rbf_pallas.py:427"),
+        "gpmpc_controller_fused_batched": (
+            "controller_kernels.cu", "unmanned_aerial_vehicles_tpu/ops/controller_pallas.py:252"),
     }
     line = {"kernels": [
         {
@@ -2189,7 +2670,15 @@ def main() -> int:
         "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3,
         "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3
                                     for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp")},
-        "multitick_ad": multitick_ad, "tuners": tuners, "tuner_iteration_seconds": tuner_seconds}
+        "multitick_ad": multitick_ad, "tuners": tuners, "tuner_iteration_seconds": tuner_seconds,
+        "us_per_flight_tick_monte_carlo_256": us_mc_flight_tick,
+        "idle_share_monte_carlo": idle_share["50 Monte Carlo ticks"],
+        "monte_carlo": populations,
+        "plant_block_max_abs_err": plant_block_check["errs"],
+        "us_per_launch_k14_n20": kernels["admm_box_qp_fused"]["n20"]["ms"] * 1e3,
+        "us_per_launch_k16_n20": kernels["gpmpc_controller_fused_batched"]["n20"]["ms"] * 1e3,
+        "us_per_launch_k15_corpus": kernels["rbf_kernel_matrix_pallas"]["corpus"]["ms"] * 1e3,
+        "us_per_launch_k15_corpus_cdist": kernels["rbf_kernel_matrix_pallas"]["corpus"]["cdist_ms"] * 1e3}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,7 +14,15 @@ import torch
 from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
 from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
 from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import fit_residual_gp
-from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_ad, tick_pallas
+from unmanned_aerial_vehicles_tpu_torch.ops import (
+    _cuda,
+    admm_pallas,
+    controller_pallas,
+    plant_pallas,
+    rbf_pallas,
+    tick_ad,
+    tick_pallas,
+)
 from unmanned_aerial_vehicles_tpu_torch.ops.plant_pallas import build_plant_row
 
 K_SAMPLES, N = 128, 9
@@ -132,3 +140,79 @@ def test_plant_vjp_kernels_agree_with_their_plain_versions(cuda_device, batch):
             assert float((g - w).abs().max()) <= 1e-5 * max(1.0, float(w.abs().max()))
         again = kernel()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _held(kernel, plain, name, tol):
+    """One launch of ``kernel`` (counted), within ``tol`` of each output's
+    scale of ``plain``, and a second launch bit-identical."""
+    _cuda.reset_launch_counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts[name] == 1
+    for g, w in zip(got, plain()):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol * max(1.0, float(w.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(got, kernel()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [20, 25])
+def test_k14_and_k16_agree_with_their_plain_versions(cuda_device, horizon):
+    """K14 on the staged MPC's own M^-1 and G and K16 for 64 flights, at
+    N=20 (operands in shared memory) and N=25 (K16's P1 through L2), within
+    2e-5 of scale, a second launch bit-identical."""
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    gen = torch.Generator().manual_seed(horizon)
+    mpc = LinearMPC(LinearMPCConfig(horizon=horizon, use_fused_controller=True),
+                    device=cuda_device)
+    m, Nnx = mpc.n_constraints, 6 * horizon
+    x0 = torch.tensor([2.0, -1.5, 1.0, 1.0, -0.5, 0.3], **f32)
+    offset = mpc._Sx @ x0
+    f = (mpc._SuT_q @ (offset - torch.tensor([0.0, 0.0, 3.0, 0, 0, 0], **f32).repeat(horizon)))
+    k14 = (mpc._M_inv.contiguous(), mpc._G.contiguous(), mpc._G.T.contiguous(), f.contiguous(),
+           torch.cat([mpc._u_lo, mpc._x_lo - offset]), torch.cat([mpc._u_hi, mpc._x_hi - offset]),
+           torch.zeros(m, **f32), torch.zeros(m, **f32), 8.0, 80, 1.6)
+    _held(lambda: admm_pallas.admm_box_qp_fused(*k14),
+          lambda: admm_pallas.admm_box_qp_fused_plain(*k14), "admm_box_qp_fused", 2e-5)
+    B = 64
+    data = mpc._tick_data
+    X0 = (torch.randn(B, 6, generator=gen) + torch.tensor([0, 0, 3.0, 0, 0, 0])).to(**f32)
+    k16 = (data, data.ShiftT, X0, (0.02 * torch.randn(B, Nnx, generator=gen)).to(**f32),
+           torch.tensor([3.0, 0.0, 3.0, 0.0, 0.0, 0.0], **f32).repeat(horizon)[None],
+           (0.3 * torch.randn(B, m, generator=gen)).to(**f32),
+           (0.1 * torch.randn(B, m, generator=gen)).to(**f32), 8.0, 80, 1.6)
+    _held(lambda: controller_pallas.gpmpc_controller_fused_batched(*k16),
+          lambda: controller_pallas.gpmpc_controller_fused_batched_plain(*k16),
+          "gpmpc_controller_fused_batched", 2e-5)
+
+
+@pytest.mark.cuda
+def test_k15_and_the_plant_block_agree_with_their_plain_versions(cuda_device):
+    """K15 (ARD, 777 x 501 x 10: ragged tiles, scalar stores) within 5e-5 of
+    sigma^2 of its plain version (``chip_smoke.py`` GRAM_TOL gives the
+    reason), and K1/K2 on a (300, 10) plant block within 2e-5."""
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    gen = torch.Generator().manual_seed(15)
+    X1 = torch.randn(777, 10, generator=gen).to(**f32)
+    X2 = torch.randn(501, 10, generator=gen).to(**f32)
+    ls = (0.4 + torch.rand(10, generator=gen)).to(**f32)
+    _held(lambda: (rbf_pallas.rbf_kernel_matrix_pallas(X1, X2, ls, 1.3),),
+          lambda: (rbf_pallas.rbf_kernel_matrix_plain(X1, X2, ls, 1.3),),
+          "rbf_kernel_matrix_pallas", 5e-5)
+    B = 300
+    block = torch.stack([0.5 + 0.05 * torch.randn(B, generator=gen), torch.full((B,), 9.81),
+                         0.25 + 0.05 * torch.rand(B, generator=gen),
+                         *(0.05 + 0.01 * torch.rand(3, B, generator=gen)),
+                         9.81 + 0.3 * torch.randn(B, generator=gen),
+                         *(0.8 * torch.randn(3, B, generator=gen))], 1).to(**f32).contiguous()
+    s = (0.3 * torch.randn(B, 12, generator=gen)).to(**f32)
+    c = torch.cat([torch.ones(B, 1), 0.1 * torch.randn(B, 3, generator=gen)], 1).to(**f32)
+    cmd = torch.cat([torch.randn(B, 3, generator=gen), torch.zeros(B, 2),
+                     torch.full((B, 1), 1.2)], 1).to(**f32)
+    integ = torch.zeros(B, 3, **f32)
+    _held(lambda: (plant_pallas._px4_plant_rows(s, c, block, 0.02, 2),),
+          lambda: (plant_pallas.px4_plant_step_plain(s, c, block, 0.02, 2),),
+          "px4_plant_step_fused", 2e-5)
+    _held(lambda: plant_pallas._allocation_plant_rows(s, cmd, integ, block, 0.02, 2),
+          lambda: plant_pallas.allocation_plant_tick_plain(s, cmd, integ, block, 0.02, 2),
+          "allocation_plant_tick_fused", 2e-5)

@@ -132,6 +132,7 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.io.checkpoint\n"
         "import unmanned_aerial_vehicles_tpu_torch.ops.tick_ad\n"
         "import unmanned_aerial_vehicles_tpu_torch.tuning\n"
+        "import unmanned_aerial_vehicles_tpu_torch.loop.monte_carlo\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"
@@ -152,6 +153,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
     assert PORT / "tuning" / "autotune.py" in sources and PORT / "ops" / "tick_ad.py" in sources
+    assert PORT / "loop" / "monte_carlo.py" in sources
     for path in sources:
         text = path.read_text()
         assert not _JAX_PKG.search(text), path

@@ -23,6 +23,7 @@ from .gp.residual_gp import OutputCorrectionConfig, ResidualDataset
 from .loop.closed_loop import FlightResumeState
 from .loop.rigid_loop import MultiTickCarry
 from .models.params import RigidBodyParams
+from .models.px4_surrogate import RateLoopParams
 from .ops.controller_pallas import FusedControllerData, StructuredBatchData
 from .ops.rigid_tick_pallas import RigidTickOperands
 from .ops.tick_pallas import FusedTickData, GPRows, build_tick_data
@@ -214,6 +215,19 @@ def row_from_numpy(row, n: int, device=None) -> torch.Tensor:
     return _t(np.asarray(row)[0, :n], torch.float32, resolve_device(device)).contiguous()
 
 
+def rows_from_numpy(rows, n: int, device=None) -> torch.Tensor:
+    """The first ``n`` lanes of a batched JAX kernel's ``(B, pad)`` rows
+    (K16's X0, W, REF, Z0, Y0 and outputs) as a float32 ``(B, n)``
+    tensor."""
+    return _t(np.asarray(rows)[:, :n], torch.float32, resolve_device(device)).contiguous()
+
+
+def square_from_numpy(mat, n: int, device=None) -> torch.Tensor:
+    """The leading ``(n, n)`` block of a padded JAX operand (K16's
+    ``ShiftT``) as a float32 tensor."""
+    return _t(np.asarray(mat)[:n, :n], torch.float32, resolve_device(device)).contiguous()
+
+
 def composite_admm_operands_from_numpy(P1_pad, GMinvT_pad, horizon: int, nu: int = 4,
                                        nx: int = 6, device=None):
     """K6's ``(P1 (m, m), GMinvT (n, m))`` from the JAX MPC's padded
@@ -333,3 +347,20 @@ def mpc_theta_from_numpy(theta: Mapping, device=None) -> dict:
     JAX package's, as float32 tensors."""
     dev = resolve_device(device)
     return {k: _t(v, torch.float32, dev) for k, v in theta.items()}
+
+
+def monte_carlo_conditions_from_numpy(body_fields: Mapping, rate_fields: Mapping, x0,
+                                      device=None):
+    """A population's ``(bodies, rate_loops, x0)`` from the JAX package's
+    ``sample_conditions`` (its batched ``RigidBodyParams`` and
+    ``RateLoopParams`` fields as mappings of ``(B,)`` arrays, the wind a
+    tuple of three or ``(B, 3)``; ``x0 (B, 12)``), every field a float32
+    tensor on ``device``."""
+    dev = resolve_device(device)
+    f = lambda a: _t(np.asarray(a, np.float32), torch.float32, dev)
+    body = {k: f(v) for k, v in body_fields.items() if k != "wind"}
+    wind = body_fields["wind"]
+    body["wind"] = tuple(f(w) for w in (wind if isinstance(wind, (tuple, list))
+                                        else np.asarray(wind).T))
+    rates = {k: f(v) for k, v in rate_fields.items()}
+    return RigidBodyParams(**body), RateLoopParams(**rates), f(x0)

@@ -17,6 +17,11 @@
 // over all SMs; a single state is one thread's dependent chain and its
 // time is the chain's latency plus the launch.
 //
+// The plant scalars are one shared 10-lane row (plant_stride 0) or one row
+// per state (plant_stride 10: the Monte Carlo population's dispersed
+// plants, what JAX's vmap over traced plant rows computes); a thread reads
+// its row at plant_row + b * plant_stride.
+//
 // The plain versions are ops/plant_pallas.py: px4_plant_step_plain and
 // allocation_plant_tick_plain.
 
@@ -32,10 +37,10 @@ __global__ void px4_plant_step_kernel(const float* __restrict__ state,
                                       const float* __restrict__ control,
                                       const float* __restrict__ plant_row,
                                       float* __restrict__ out, int batch, double dt,
-                                      int substeps) {
+                                      int substeps, int plant_stride) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
-  const uav::Plant pl = uav::load_plant(plant_row);
+  const uav::Plant pl = uav::load_plant(plant_row + b * plant_stride);
   float s[12], c[4];
 #pragma unroll
   for (int i = 0; i < 12; ++i) s[i] = state[b * 12 + i];
@@ -54,10 +59,10 @@ __global__ void allocation_plant_tick_kernel(const float* __restrict__ state,
                                              float* __restrict__ out_state,
                                              float* __restrict__ out_ctrl,
                                              float* __restrict__ out_int, int batch, double dt,
-                                             int substeps) {
+                                             int substeps, int plant_stride) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
-  const uav::Plant pl = uav::load_plant(plant_row);
+  const uav::Plant pl = uav::load_plant(plant_row + b * plant_stride);
   float s[12], cm[5], in[3];
 #pragma unroll
   for (int i = 0; i < 12; ++i) s[i] = state[b * 12 + i];
@@ -84,20 +89,22 @@ __global__ void allocation_plant_tick_kernel(const float* __restrict__ state,
 extern "C" {
 
 int px4_plant_step_launch(const float* state, const float* control, const float* plant_row,
-                          float* out, int batch, double dt, int substeps, void* stream) {
+                          float* out, int batch, double dt, int substeps, int plant_stride,
+                          void* stream) {
   const int blocks = (batch + kThreads - 1) / kThreads;
   px4_plant_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      state, control, plant_row, out, batch, dt, substeps);
+      state, control, plant_row, out, batch, dt, substeps, plant_stride);
   return (int)cudaGetLastError();
 }
 
 int allocation_plant_tick_launch(const float* state, const float* cmd, const float* integral,
                                  const float* plant_row, float* out_state, float* out_ctrl,
                                  float* out_int, int batch, double dt, int substeps,
-                                 void* stream) {
+                                 int plant_stride, void* stream) {
   const int blocks = (batch + kThreads - 1) / kThreads;
   allocation_plant_tick_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      state, cmd, integral, plant_row, out_state, out_ctrl, out_int, batch, dt, substeps);
+      state, cmd, integral, plant_row, out_state, out_ctrl, out_int, batch, dt, substeps,
+      plant_stride);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,12 @@
 // The single-tick fused kernels, one thread block per call:
 //
+//   K14 admm_explicit_kernel  replaces the JAX package's
+//      ops/admm_pallas.py:admm_box_qp_fused (pallas_call at :107, body
+//      _make_kernel at :28): `iterations` over-relaxed ADMM steps of the box
+//      QP with an explicit M^-1, rhs = -f + (rho z - y) G, u = rhs M^-1,
+//      Gu = G u, relaxation, clip and dual step, then one more u from the
+//      final (z, y). Plain version:
+//      ops/admm_pallas.py:admm_box_qp_fused_plain.
 //   K6 admm_composite_kernel  replaces the JAX package's
 //      ops/admm_pallas.py:admm_box_qp_fused_composite (pallas_call at :193):
 //      `iterations` composite-ADMM steps, then the primal recovery
@@ -57,6 +64,17 @@ struct AdmmParams {
 
 struct AdmmOperands {
   const float *P1, *p0, *GMinvT, *minvf, *lower, *upper, *z_in, *y_in;
+  float *u_out, *z_out, *y_out;
+};
+
+// K14 (ops/admm_pallas.py _ExplicitParams / _ExplicitOperands)
+struct ExplicitParams {
+  int n, m, iterations;
+  float rho, over_relax, one_minus_over_relax;
+};
+
+struct ExplicitOperands {
+  const float *Minv, *G, *f, *lower, *upper, *z_in, *y_in;
   float *u_out, *z_out, *y_out;
 };
 
@@ -123,6 +141,99 @@ admm_composite_kernel(const AdmmParams P, const AdmmOperands O) {
   // primal recovery: U[r] = -minvf[r] + GMinvT[r, :] . (rho z - y)
   uav::row_dots_warp(O.GMinvT, m, vsrc, m, P.n, tid, nth,
                      [=](int r, float acc) { O.u_out[r] = -O.minvf[r] + acc; });
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+}
+
+// K14. M^-1 (n x n) and G (m x n) lie in shared memory (kShared: 140 KB at
+// the staged MPC's N=25, n=100, m=250) or are read through L1/L2. G serves
+// both products: rhs = (rho z - y) G as column dots (matvec_partial, the
+// column sums split over the threads) and Gu = G u as one row dot per
+// thread. In shared memory G's rows are stored with an odd stride, so the
+// threads of a warp, each on its own row, read from distinct banks. Every
+// sum runs in a fixed order. What bounds it: one block on one SM; per
+// iteration 2 n m + n^2 multiply-adds (60,000 at N=25) over five barriers,
+// so latency, not the card's rates.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+admm_explicit_kernel(const ExplicitParams P, const ExplicitOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int n = P.n, m = P.m;
+  const int ldg = kShared ? (n | 1) : n;
+  const float rho = P.rho;
+
+  // shared memory layout (ops/admm_pallas.py explicit_shared_memory_bytes)
+  float* Minv_s = sm;
+  float* G_s = Minv_s + (kShared ? n * n : 0);
+  float* z = G_s + (kShared ? m * ldg : 0);
+  float* y = z + m;
+  float* v = y + m;             // rho z - y
+  float* lower = v + m;
+  float* upper = lower + m;
+  float* f = upper + m;
+  float* rhs = f + n;
+  float* u = rhs + n;
+  float* part = u + n;          // matvec slices: max(nth, n)
+
+  if constexpr (kShared) {
+    for (int i = tid; i < n * n; i += nth) Minv_s[i] = __ldg(O.Minv + i);
+    for (int i = tid; i < m * n; i += nth) {
+      const int r = i / n, c = i - r * n;
+      G_s[r * ldg + c] = __ldg(O.G + i);
+    }
+  }
+  const float* Minv = kShared ? Minv_s : O.Minv;
+  const float* G = kShared ? G_s : O.G;
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+    lower[i] = O.lower[i];
+    upper[i] = O.upper[i];
+    v[i] = rho * z[i] - y[i];
+  }
+  for (int i = tid; i < n; i += nth) f[i] = O.f[i];
+  __syncthreads();
+
+  // iteration `iterations` only forms the final primal
+  for (int it = 0;; ++it) {
+    // rhs = -f + (rho z - y) G
+    matvec_partial(v, G, ldg, m, n, part, tid, nth);
+    __syncthreads();
+    for (int c = tid; c < n; c += nth) rhs[c] = -f[c] + matvec_total(part, n, nth, c);
+    __syncthreads();
+    // u = rhs M^-1
+    matvec_partial(rhs, Minv, n, n, n, part, tid, nth);
+    __syncthreads();
+    for (int c = tid; c < n; c += nth) u[c] = matvec_total(part, n, nth, c);
+    __syncthreads();
+    if (it == P.iterations) break;
+    // Gu = G u, over-relaxation, box projection, dual step
+    for (int j = tid; j < m; j += nth) {
+      const float* row = G + j * ldg;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int c = 0;
+      for (; c + 4 <= n; c += 4) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] += row[c + q] * u[c + q];
+      }
+      if (c < n) acc[0] += row[c] * u[c];
+      if (c + 1 < n) acc[1] += row[c + 1] * u[c + 1];
+      if (c + 2 < n) acc[2] += row[c + 2] * u[c + 2];
+      const float gu = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      const float Gt = P.over_relax * gu + P.one_minus_over_relax * z[j];
+      const float zn = uav::clipf(Gt + y[j] / rho, lower[j], upper[j]);
+      const float yn = y[j] + rho * (Gt - zn);
+      z[j] = zn;
+      y[j] = yn;
+      v[j] = rho * zn - yn;
+    }
+    __syncthreads();
+  }
+  for (int c = tid; c < n; c += nth) O.u_out[c] = u[c];
   for (int i = tid; i < m; i += nth) {
     O.z_out[i] = z[i];
     O.y_out[i] = y[i];
@@ -273,7 +384,7 @@ int launch_one_block(void (*kernel)(const Params, const Operands), int* configur
   return (int)cudaGetLastError();
 }
 
-int configured_bytes[6] = {-1, -1, -1, -1, -1, -1};
+int configured_bytes[8] = {-1, -1, -1, -1, -1, -1, -1, -1};
 
 }  // namespace
 
@@ -300,4 +411,12 @@ extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTic
                                       params, ops, smem_bytes, stream)
                    : launch_one_block(single_tick_kernel<false, true>, &configured_bytes[5],
                                       params, ops, smem_bytes, stream);
+}
+
+extern "C" int admm_explicit_launch(const ExplicitParams* params, const ExplicitOperands* ops,
+                                    int shared, int smem_bytes, void* stream) {
+  return shared ? launch_one_block(admm_explicit_kernel<true>, &configured_bytes[6], params,
+                                   ops, smem_bytes, stream)
+                : launch_one_block(admm_explicit_kernel<false>, &configured_bytes[7], params,
+                                   ops, smem_bytes, stream);
 }

@@ -21,3 +21,10 @@ def rbf_kernel(
     cross = Z1 @ Z2.T
     dists = torch.clamp(sq1 + sq2 - 2.0 * cross, min=0.0)
     return signal_variance * torch.exp(-0.5 * dists)
+
+
+def rbf_kernel_diag(X: torch.Tensor, signal_variance: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """``diag(k(X, X))`` without forming the matrix: ``sigma^2`` for every
+    row of ``X``, in ``X``'s dtype."""
+    sig = torch.as_tensor(signal_variance, dtype=X.dtype, device=X.device)
+    return sig.expand(X.shape[:-1]).clone()

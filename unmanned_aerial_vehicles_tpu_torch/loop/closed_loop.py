@@ -45,6 +45,17 @@ that reaches a kernel operand raises (``ops._cuda.require``).
 one launch each of K8 (controller), K7 (GP posterior mean) and K2
 (allocation + plant) per tick for the whole batch.
 
+``batched_mpc_flight_rollout`` and ``batched_pid_flight_rollout`` fly a
+population of B flights in lockstep on the staged tier, each flight with
+its own plant (``bodies`` and ``rate_loops`` whose fields are ``(B,)``
+tensors or shared numbers) and start: per flight what ``mpc_flight_rollout``
+and ``pid_flight_rollout`` fly (the JAX package's ``vmap`` of them, which
+``loop.monte_carlo`` runs). An MPC built with ``use_fused_controller``
+solves every tick in one launch of K16 for all flights, the default one
+runs the composite ADMM as batched PyTorch ops; ``use_pallas_plant`` sends
+allocation + plant through K2 (MPC) or the plant through K1 (PID), one
+launch per tick with one plant row per flight.
+
 A loop returns a dict of per-tick tensors on its device. ``reference_fn``
 maps a tensor of times ``(T,)`` to ``(pos (T, 3), yaw (T,))``; the loops
 evaluate it once for the whole flight.
@@ -59,9 +70,11 @@ import torch
 
 from .._device import full_f32_matmul, resolve_device
 from ..control.allocation import AttitudeLoopState, attitude_loop_init, geometric_control_allocation
-from ..control.cascade_pid import CascadePidGains, cascade_init, cascade_pid_step
+from ..control.cascade_pid import CascadePidGains, CascadeState, cascade_init, cascade_pid_step
 from ..control.mpc_linear import LinearMPC
+from ..control.pid import PIDState
 from ..gp.residual_gp import ResidualGPConfig
+from ..models.double_integrator import CONTROL_DIM, STATE_DIM
 from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
 
@@ -121,6 +134,52 @@ def _plant_row(body: RigidBodyParams, rate_loop: RateLoopParams, device):
         (rate_loop.tau_roll, rate_loop.tau_pitch, rate_loop.tau_yaw),
         body.gravity / rate_loop.hover_thrust_norm, body.wind, device=device,
     )
+
+
+_WIND = ("wind_x", "wind_y", "wind_z")
+_PLANT_FIELDS = ("mass", "gravity", "k_drag_linear", *_WIND, "tau_roll", "tau_pitch", "tau_yaw",
+                 "hover_thrust_norm")
+
+
+def _flight_columns(bodies: RigidBodyParams, rate_loops: RateLoopParams, batch: int,
+                    device) -> dict:
+    """Every plant field the surrogate reads, as a ``(batch,)`` float32
+    column (a number is shared by every flight)."""
+    col = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device).expand(batch)
+    cols = dict(mass=bodies.mass, gravity=bodies.gravity, k_drag_linear=bodies.k_drag_linear,
+                tau_roll=rate_loops.tau_roll, tau_pitch=rate_loops.tau_pitch,
+                tau_yaw=rate_loops.tau_yaw, hover_thrust_norm=rate_loops.hover_thrust_norm,
+                **dict(zip(_WIND, bodies.wind)))
+    return {k: col(v) for k, v in cols.items()}
+
+
+def plant_block(bodies: RigidBodyParams, rate_loops: RateLoopParams, batch: int,
+                device=None) -> torch.Tensor:
+    """The ``(batch, 10)`` float32 plant block of K1 and K2, one row per
+    flight (``ops.plant_pallas.build_plant_row``'s lanes; the thrust gain
+    ``gravity / hover_thrust_norm`` is divided in float32, as in the JAX
+    package's vmapped flights)."""
+    c = _flight_columns(bodies, rate_loops, batch, resolve_device(device))
+    return torch.stack([
+        c["mass"], c["gravity"], c["k_drag_linear"], c["tau_roll"], c["tau_pitch"], c["tau_yaw"],
+        c["gravity"] / c["hover_thrust_norm"], c["wind_x"], c["wind_y"], c["wind_z"],
+    ], dim=1).contiguous()
+
+
+def _population_plant(states, controls, cols: dict, cfg: FlightLoopConfig):
+    """The surrogate's RK4 substeps per flight, each on its own plant: the
+    staged plant mapped over the flights with ``torch.func.vmap``."""
+    dt_sub = cfg.control_dt / cfg.plant_substeps
+
+    def one(s, c, mass, gravity, kdl, wx, wy, wz, tr, tp, ty, hover):
+        body = RigidBodyParams(mass=mass, gravity=gravity, k_drag_linear=kdl, wind=(wx, wy, wz))
+        rates = RateLoopParams(tau_roll=tr, tau_pitch=tp, tau_yaw=ty, hover_thrust_norm=hover)
+        for _ in range(cfg.plant_substeps):
+            s = px4_rate_tracking_step(s, c, body, rates, dt_sub)
+        return s
+
+    return torch.func.vmap(one)(states, controls,
+                                *(cols[k].to(states.dtype) for k in _PLANT_FIELDS))
 
 
 def _plant_substeps(state, control, body, rate_loop, cfg: FlightLoopConfig, plain=False):
@@ -479,6 +538,245 @@ def batched_mpc_flight_sweep(
         "pos_ref": pos_refs,
         "thrust": torch.stack(thrust_rows),
     }
+
+
+def _stack_population(rows: list[dict], pos_refs, final_states) -> dict:
+    outs = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
+    outs["pos_ref"] = pos_refs
+    outs["final_state"] = final_states
+    return outs
+
+
+def batched_pid_flight_rollout(
+    reference_fn: Callable,
+    num_steps: int,
+    bodies: RigidBodyParams,
+    rate_loops: RateLoopParams,
+    initial_states: torch.Tensor,            # (B, 12)
+    gains: CascadePidGains | None = None,
+    cfg: FlightLoopConfig = FlightLoopConfig(),
+    dtype=torch.float32,
+    device=None,
+    plain_kernels: bool = False,
+):
+    """B cascade-PID flights in lockstep, each on its own plant and start:
+    per flight ``pid_flight_rollout``. With ``cfg.use_pallas_plant`` the
+    plant substeps of all flights are one launch of K1 per tick, one plant
+    row per flight (``plain_kernels=True`` flies K1's plain version).
+
+    Returns ``(B, T, .)`` per-tick tensors (``state`` at the start of each
+    tick, ``vel_ref``, ``att_ref``, ``thrust``, ``rates_cmd``), ``pos_ref
+    (T, 3)`` and ``final_state (B, 12)``."""
+    from ..ops.plant_pallas import _px4_plant_rows, px4_plant_step_plain
+
+    dev = resolve_device(device)
+    if gains is None:
+        gains = CascadePidGains.default(dtype=dtype, device=dev)
+    states = initial_states.to(dtype=dtype, device=dev)
+    B = states.shape[0]
+    cols = _flight_columns(bodies, rate_loops, B, dev)
+    block = plant_block(bodies, rate_loops, B, dev) if cfg.use_pallas_plant else None
+    plant_step = px4_plant_step_plain if plain_kernels else _px4_plant_rows
+    f32 = lambda v: v.to(torch.float32).contiguous()
+    pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, dev)
+    per_flight = lambda leaf: leaf.expand(B, *leaf.shape).clone()
+    pid_state = CascadeState(*(PIDState(*map(per_flight, layer))
+                               for layer in cascade_init(dtype, dev)))
+    step = torch.func.vmap(
+        lambda carry, s, pos_ref, yaw_ref: cascade_pid_step(gains, carry, s, pos_ref, yaw_ref,
+                                                            cfg.control_dt),
+        in_dims=(0, 0, None, None))
+    rows = []
+    for i in range(num_steps):
+        control, pid_state, aux = step(pid_state, states, pos_refs[i], yaw_refs[i])
+        if block is None:
+            new_states = _population_plant(states, control, cols, cfg)
+        else:
+            new_states = plant_step(f32(states), f32(control), block, cfg.control_dt,
+                                    cfg.plant_substeps).to(dtype)
+        rows.append({
+            "state": states,
+            "vel_ref": aux["velocity_setpoint"],
+            "att_ref": aux["attitude_setpoint"],
+            "thrust": control[:, 0],
+            "rates_cmd": control[:, 1:4],
+        })
+        states = new_states
+    return _stack_population(rows, pos_refs, states)
+
+
+def _batched_composite_solve(mpc: LinearMPC, Z, Y, x0, W, ref):
+    """``LinearMPC.solve``'s staged composite ADMM for B flights in row
+    form: the warm-start shift, offset, gradient, bounds and loop. Returns
+    ``(slack (B, m), dual (B, m), X_tail (B, N nx))``."""
+    from ..ops.controller_pallas import _shift_plane
+
+    cfg = mpc.config
+    N = cfg.horizon
+    Nnu = N * CONTROL_DIM
+    rho, a = cfg.admm_rho, cfg.admm_over_relax
+    shift = lambda v: torch.cat([_shift_plane(v[:, :Nnu], N, CONTROL_DIM),
+                                 _shift_plane(v[:, Nnu:], N, STATE_DIM)], dim=1)
+    z, y = shift(Z), shift(Y)
+    offset = x0 @ mpc._Sx.T + W @ mpc._Sw.T
+    f = (offset - ref) @ mpc._SuT_q.T
+    B = x0.shape[0]
+    lower = torch.cat([mpc._u_lo.expand(B, Nnu), mpc._x_lo - offset], dim=1)
+    upper = torch.cat([mpc._u_hi.expand(B, Nnu), mpc._x_hi - offset], dim=1)
+    p0 = -(f @ mpc._GMinv.T)
+    minv_f = f @ mpc._M_inv.T
+    P1T = mpc._P1.T
+    for _ in range(cfg.admm_iterations):
+        Gt = a * (p0 + (rho * z - y) @ P1T) + (1.0 - a) * z
+        z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+        y = y + rho * (Gt - z_new)
+        z = z_new
+    U = -minv_f + (rho * z - y) @ mpc._GMinv
+    return z, y, offset + U @ mpc._Su.T
+
+
+def batched_mpc_flight_rollout(
+    mpc: LinearMPC,
+    reference_fn: Callable,
+    num_steps: int,
+    bodies: RigidBodyParams,
+    rate_loops: RateLoopParams,
+    initial_states: torch.Tensor,            # (B, 12)
+    cfg: FlightLoopConfig = FlightLoopConfig(),
+    residual_fn: Callable | None = None,
+    preview: bool = False,
+    dtype=torch.float32,
+    device=None,
+    plain_kernels: bool = False,
+):
+    """B linear-MPC flights in lockstep on the staged tier, each on its own
+    plant and start: per flight ``mpc_flight_rollout`` with the same
+    ``cfg``, ``residual_fn`` (mapped over the flights with
+    ``torch.func.vmap``), ``preview`` and ``fallback_error_m``.
+
+    An MPC built with ``use_fused_controller`` solves every tick in one
+    launch of K16 (``ops.controller_pallas.gpmpc_controller_fused_batched``,
+    the warm-start shift inside); the default MPC runs the composite ADMM
+    as batched PyTorch ops. ``cfg.use_pallas_plant`` sends allocation,
+    attitude PID and plant through one launch of K2 per tick with one plant
+    row per flight. ``plain_kernels=True`` flies the kernels' plain
+    versions. The fused-tick tier (``cfg.use_fused_tick``), ``use_fused_admm``
+    and ``polish`` raise ``NotImplementedError`` (queued in ``ROADMAP.md``).
+
+    Returns ``(B, T, .)`` per-tick tensors (``state`` at the start of each
+    tick, ``vel_ref``, ``att_ref``, ``thrust``, ``rates_cmd``,
+    ``accel_cmd``, ``u_mpc``), ``pos_ref (T, 3)`` and ``final_state
+    (B, 12)``."""
+    from ..ops.controller_pallas import (
+        gpmpc_controller_fused_batched,
+        gpmpc_controller_fused_batched_plain,
+    )
+    from ..ops.plant_pallas import _allocation_plant_rows, allocation_plant_tick_plain
+
+    dev = resolve_device(device)
+    if mpc.device != dev:
+        raise ValueError(f"the MPC lives on {mpc.device}, the population on {dev}")
+    mcfg = mpc.config
+    if cfg.use_fused_tick or mcfg.use_fused_admm or mcfg.polish:
+        raise NotImplementedError(
+            "the fused-tick population (use_fused_tick: K5 over a grid of flights), "
+            "use_fused_admm and polish in a population are queued in ROADMAP.md "
+            "(queue 1, item 6)")
+    full_f32_matmul()
+    states = initial_states.to(dtype=dtype, device=dev)
+    B = states.shape[0]
+    cols = _flight_columns(bodies, rate_loops, B, dev)
+    block = plant_block(bodies, rate_loops, B, dev) if cfg.use_pallas_plant else None
+    N, nu, nx = mcfg.horizon, CONTROL_DIM, STATE_DIM
+    Nnu, Nnx, m = N * nu, N * nx, mpc.n_constraints
+    kw = dict(dtype=dtype, device=dev)
+    accel_lo = torch.tensor(cfg.accel_lower, **kw)
+    accel_hi = torch.tensor(cfg.accel_upper, **kw)
+    pos_refs, yaw_refs, refs = _tick_references(reference_fn, num_steps, N, cfg, preview, dtype,
+                                                dev)
+    f32 = lambda v: v.to(torch.float32).contiguous()
+    fused = mcfg.use_fused_controller
+    controller = (gpmpc_controller_fused_batched_plain if plain_kernels
+                  else gpmpc_controller_fused_batched)
+    alloc_plant = allocation_plant_tick_plain if plain_kernels else _allocation_plant_rows
+    data = mpc._tick_data if fused else None
+
+    slack = torch.zeros(B, m, **kw)
+    dual = torch.zeros(B, m, **kw)
+    X_prev = states[:, None, 0:6].repeat(1, N + 1, 1)
+    U_prev = torch.zeros(B, N, nu, **kw)
+    integral = torch.zeros(B, 3, **kw)
+    ceiling = torch.full((B,), 1.2, **kw)
+    W = torch.zeros(1, Nnx, **kw)     # one zero row, shared by every flight
+    allocate = torch.func.vmap(
+        lambda i, acc, yaw, yawrate, att, omega, top: geometric_control_allocation(
+            AttitudeLoopState(integral=i), acc, yaw, yawrate, att, omega,
+            dt_attitude=cfg.control_dt, thrust_ceiling=top),
+        in_dims=(0, 0, None, 0, 0, 0, 0))
+
+    rows = []
+    for i in range(num_steps):
+        x0 = states[:, 0:6]
+        if residual_fn is not None:
+            res = torch.func.vmap(residual_fn)(X_prev, U_prev)
+            W = (mcfg.dt * res.to(dtype)).reshape(B, Nnx)
+        ref = refs[i : i + 1]
+        if fused:
+            Z, Y, _, X_tail = controller(data, data.ShiftT, f32(x0), f32(W), f32(ref), f32(slack),
+                                         f32(dual), mcfg.admm_rho, mcfg.admm_iterations,
+                                         mcfg.admm_over_relax)
+            slack, dual, X_tail = Z.to(dtype), Y.to(dtype), X_tail.to(dtype)
+        else:
+            slack, dual, X_tail = _batched_composite_solve(mpc, slack, dual, x0, W, ref)
+        # controls come from the slack's U-block (LinearMPC.solve); the
+        # predicted states feed only the next tick's residual_fn
+        U_prev = slack[:, :Nnu].reshape(B, N, nu)
+        if residual_fn is not None:
+            X_prev = torch.cat([x0[:, None], X_tail.reshape(B, N, nx)], dim=1)
+        u_opt = U_prev[:, 0]
+
+        accel_des = torch.minimum(torch.maximum(u_opt[:, 0:3], accel_lo), accel_hi)
+        yawrate_des = torch.clamp(u_opt[:, 3], -cfg.yawrate_limit, cfg.yawrate_limit)
+        thrust_ceiling = ceiling
+        if cfg.fallback_error_m > 0.0:
+            # divergence guard per flight: fallback PD hover law with
+            # recovery headroom
+            e = pos_refs[i][None, :] - states[:, 0:3]
+            diverged = torch.sum(e * e, dim=1) > cfg.fallback_error_m**2
+            k = cfg.fallback_accel_scale
+            a_fb = torch.minimum(torch.maximum(1.5 * e - 0.8 * states[:, 3:6], k * accel_lo),
+                                 k * accel_hi)
+            accel_des = torch.where(diverged[:, None], a_fb, accel_des)
+            yawrate_des = torch.where(diverged, 0.0, yawrate_des)
+            thrust_ceiling = torch.where(diverged, cfg.fallback_thrust_ceiling, ceiling)
+
+        if block is not None:
+            # allocation + attitude PID + all plant substeps in one launch
+            cmd = torch.cat([accel_des, yawrate_des[:, None], yaw_refs[i].expand(B, 1),
+                             thrust_ceiling[:, None]], dim=1)
+            new_states, ctrl, new_int = alloc_plant(f32(states), f32(cmd), f32(integral), block,
+                                                    cfg.control_dt, cfg.plant_substeps)
+            new_states, integral = new_states.to(dtype), new_int.to(dtype)
+            ctrl = ctrl.to(dtype)
+            thrust, rate_cmd, att_sp = ctrl[:, 0], ctrl[:, 1:4], ctrl[:, 4:7]
+        else:
+            thrust, rate_cmd, att_sp, att = allocate(integral, accel_des, yaw_refs[i],
+                                                     yawrate_des, states[:, 6:9],
+                                                     states[:, 9:12], thrust_ceiling)
+            integral = att.integral
+            control = torch.cat([thrust[:, None], rate_cmd], dim=1)
+            new_states = _population_plant(states, control, cols, cfg)
+        rows.append({
+            "state": states,
+            "vel_ref": X_tail[:, 3:6],
+            "att_ref": att_sp,
+            "thrust": thrust,
+            "rates_cmd": rate_cmd,
+            "accel_cmd": accel_des,
+            "u_mpc": u_opt,
+        })
+        states = new_states
+    return _stack_population(rows, pos_refs, states)
 
 
 def _staged_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, initial_state,

@@ -37,6 +37,15 @@ class RateLoopParams:
 PID_CAMPAIGN_RATE_LOOP = RateLoopParams(hover_thrust_norm=0.7)
 
 
+def _constants(values, dtype, device) -> torch.Tensor:
+    """A vector of plant constants. They are Python numbers, or tensors
+    where a population gives each flight its own (0-d per flight under
+    ``torch.func.vmap``)."""
+    if any(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack([torch.as_tensor(v, dtype=dtype, device=device) for v in values])
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _derivative(
     state: torch.Tensor,
     control: torch.Tensor,
@@ -58,7 +67,7 @@ def _derivative(
     thrust_accel_world = t_dir * (thrust_norm * thrust_gain)[..., None]
 
     # drag acts on the airspeed (v - wind)
-    airspeed_vec = vel - torch.tensor(body.wind, dtype=dtype, device=state.device)
+    airspeed_vec = vel - _constants(body.wind, dtype, state.device)
     sq = torch.sum(airspeed_vec**2, dim=-1, keepdim=True)
     speed = torch.where(sq > 0.0, torch.sqrt(torch.where(sq > 0.0, sq, 1.0)), 0.0)
     drag_accel = -(body.k_drag_linear / body.mass) * speed * airspeed_vec
@@ -70,9 +79,7 @@ def _derivative(
     W = euler_rate_transform(phi, theta)
     attitude_dot = torch.einsum("...ij,...j->...i", W, omega)
 
-    taus = torch.tensor(
-        [rates.tau_roll, rates.tau_pitch, rates.tau_yaw], dtype=dtype, device=state.device
-    )
+    taus = _constants((rates.tau_roll, rates.tau_pitch, rates.tau_yaw), dtype, state.device)
     omega_dot = (rate_cmd - omega) / taus
 
     return torch.cat([vel, acceleration, attitude_dot, omega_dot], dim=-1)

@@ -13,5 +13,8 @@ K6 ``admm_pallas.admm_box_qp_fused_composite``, K7
 ``rigid_tick_pallas.direct_rate_multitick_kernel``, K12
 ``mppi_pallas.mppi_rollout_costs_fused``; K13, the autodiff routes of K1,
 K2 and K5 (``tick_ad``), with the VJP kernels K13a
-``tick_ad.px4_plant_step_vjp`` and K13b ``tick_ad.allocation_plant_tick_vjp``.
+``tick_ad.px4_plant_step_vjp`` and K13b ``tick_ad.allocation_plant_tick_vjp``;
+K14 ``admm_pallas.admm_box_qp_fused``, K15
+``rbf_pallas.rbf_kernel_matrix_pallas`` and K16
+``controller_pallas.gpmpc_controller_fused_batched``.
 """

@@ -73,6 +73,9 @@ launch_counts: dict[str, int] = {
     "mppi_rollout_costs_fused": 0,
     "px4_plant_step_vjp": 0,
     "allocation_plant_tick_vjp": 0,
+    "admm_box_qp_fused": 0,
+    "rbf_kernel_matrix_pallas": 0,
+    "gpmpc_controller_fused_batched": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,24 @@
-"""The fused composite-ADMM kernel K6 (port of the composite half of
-``ops/admm_pallas.py``: ``admm_box_qp_fused_composite``).
+"""The fused ADMM kernels K14 and K6 (port of ``ops/admm_pallas.py``:
+``admm_box_qp_fused`` and ``admm_box_qp_fused_composite``).
 
-One launch runs the whole fixed-iteration solve of ``ops.qp.
-admm_box_qp_composite``: ``iterations`` over-relaxed ADMM steps with one
-``(m, m)`` matvec each, then the primal recovery
+K14 ``admm_box_qp_fused`` runs the whole fixed-iteration solve of
+``ops.qp.admm_box_qp`` (the box QP with an explicit ``M^-1``) in one
+launch, in the TPU kernel's row form:
+
+    rhs = -f + (rho z - y) G,  u = rhs M^-1,  Gu = u G',
+    Gt = a Gu + (1 - a) z,  z = clip(Gt + y / rho, lower, upper),
+    y += rho (Gt - z),
+
+then one more ``u`` from the final ``(z, y)``. The kernel is
+``csrc/single_tick_kernels.cu`` (``admm_explicit_kernel``, one thread
+block, ``M^-1`` and ``G`` in shared memory where they fit and read through
+L2 beyond; ``G`` serves both products, so ``GT`` is taken for the JAX
+signature and must be ``G``'s transpose). Its plain PyTorch version is
+``admm_box_qp_fused_plain`` below.
+
+K6 ``admm_box_qp_fused_composite`` runs the whole fixed-iteration solve of
+``ops.qp.admm_box_qp_composite``: ``iterations`` over-relaxed ADMM steps
+with one ``(m, m)`` matvec each, then the primal recovery
 
     GU = p0 + (rho z - y) P1,  Gt = a GU + (1 - a) z,
     z  = clip(Gt + y / rho, lower, upper),  y += rho (Gt - z),
@@ -14,13 +29,17 @@ one thread block, P1 in shared memory where it fits and read through L2
 beyond). Its plain PyTorch version is ``admm_box_qp_fused_composite_plain``
 below: the float32 ``admm_box_qp_composite`` with the TPU kernel's
 contractions (the row form ``v @ P1``, GMinvT contracted on its second
-axis; a float32 P1 is not exactly symmetric, so ``P1 @ v`` differs). The
-wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+axis; a float32 P1 is not exactly symmetric, so ``P1 @ v`` differs).
 
-Shapes are semantic (the TPU kernel's 128-lane padding is gone): ``P1
-(m, m)``, ``GMinvT (n, m)``, ``p0, lower, upper, z0, y0 (m,)``,
-``Minv_f (n,)``, all float32.
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises. Shapes are semantic (the TPU
+kernels' 128-lane padding is gone, and the ``(1, k)`` rows are ``(k,)``
+vectors): K14 takes ``M_inv (n, n)``, ``G (m, n)``, ``GT (n, m)``,
+``f (n,)``, ``lower, upper, z0, y0 (m,)``; K6 ``P1 (m, m)``,
+``GMinvT (n, m)``, ``p0, lower, upper, z0, y0 (m,)``, ``Minv_f (n,)``; all
+float32. Zero-padded operands (zero rows and columns of ``M^-1`` and
+``G``, ``lower = upper = 0`` on padded rows) keep zeros in the padded
+lanes.
 """
 
 from __future__ import annotations
@@ -121,4 +140,101 @@ def admm_box_qp_fused_composite(
     status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem, _cuda.stream_of(P1))
     _cuda.check(status, "admm_box_qp_fused_composite")
     _cuda.count_launch("admm_box_qp_fused_composite")
+    return U, z, y
+
+
+# ---------------------------------------------------------------------------
+# K14: the ADMM box QP with an explicit M^-1
+# ---------------------------------------------------------------------------
+
+
+def admm_box_qp_fused_plain(M_inv, G, GT, f, lower, upper, z0, y0, rho: float,
+                            iterations: int, over_relax: float = 1.6):
+    """Plain version of K14: ``(U (n,), z (m,), y (m,))``. ``GT`` is
+    ``G``'s transpose; like the kernel, this reads ``G`` for both products."""
+    z, y = z0, y0
+
+    def primal(z, y):
+        return (-f + (rho * z - y) @ G) @ M_inv
+
+    for _ in range(iterations):
+        Gt = over_relax * (primal(z, y) @ G.T) + (1.0 - over_relax) * z
+        z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+        y = y + rho * (Gt - z_new)
+        z = z_new
+    return primal(z, y), z, y
+
+
+def explicit_shared_memory_bytes(n: int, m: int, shared: bool = True,
+                                 threads: int = KERNEL_THREADS) -> int:
+    """Dynamic shared memory of one K14 block (csrc/single_tick_kernels.cu
+    layout): M^-1 and G (with an odd row stride) in the shared variant, five
+    m-vectors, three n-vectors and the matvec slices."""
+    ldg = n | 1
+    return 4 * ((n * n + m * ldg if shared else 0) + 5 * m + 3 * n + max(threads, n))
+
+
+class _ExplicitParams(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int), ("m", ctypes.c_int), ("iterations", ctypes.c_int),
+        ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float),
+    ]
+
+
+_EXPLICIT_OPERANDS = ("Minv", "G", "f", "lower", "upper", "z_in", "y_in",
+                      "u_out", "z_out", "y_out")
+
+
+class _ExplicitOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _EXPLICIT_OPERANDS]
+
+
+def admm_box_qp_fused(
+    M_inv: torch.Tensor,   # (n, n) = (H + rho G'G)^-1
+    G: torch.Tensor,       # (m, n)
+    GT: torch.Tensor,      # (n, m) = G'
+    f: torch.Tensor,       # (n,)
+    lower: torch.Tensor,   # (m,)
+    upper: torch.Tensor,   # (m,)
+    z0: torch.Tensor,      # (m,)
+    y0: torch.Tensor,      # (m,)
+    rho: float,
+    iterations: int,
+    over_relax: float = 1.6,
+):
+    """The whole explicit-inverse ADMM solve in one launch (K14). Returns
+    ``(U (n,), z (m,), y (m,))`` in float32 after ``iterations`` steps and
+    the final primal refresh."""
+    dev = M_inv.device
+    n, m = M_inv.shape[0], G.shape[0]
+    req = _cuda.require
+    req(M_inv, "M_inv", (n, n), dev)
+    req(G, "G", (m, n), dev)
+    req(GT, "GT", (n, m), dev)
+    req(f, "f", (n,), dev)
+    for name, t in (("lower", lower), ("upper", upper), ("z0", z0), ("y0", y0)):
+        req(t, name, (m,), dev)
+    if dev.type == "cpu":
+        return admm_box_qp_fused_plain(M_inv, G, GT, f, lower, upper, z0, y0, rho,
+                                       iterations, over_relax)
+    if dev.type != "cuda":
+        raise ValueError(f"admm_box_qp_fused runs on cuda or cpu, not {dev}")
+
+    shared, smem = _cuda.p1_variant(dev, explicit_shared_memory_bytes(n, m, True),
+                                    explicit_shared_memory_bytes(n, m, False))
+    params = _ExplicitParams(n=n, m=m, iterations=int(iterations), rho=rho,
+                             over_relax=over_relax, one_minus_over_relax=1.0 - over_relax)
+    U = torch.empty(n, dtype=torch.float32, device=dev)
+    z = torch.empty(m, dtype=torch.float32, device=dev)
+    y = torch.empty(m, dtype=torch.float32, device=dev)
+    ops = _ExplicitOperands(*(t.data_ptr() for t in (M_inv, G, f, lower, upper, z0, y0,
+                                                     U, z, y)))
+    fn = _cuda.library("single_tick").admm_explicit_launch
+    fn.argtypes = [ctypes.POINTER(_ExplicitParams), ctypes.POINTER(_ExplicitOperands),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(params), ctypes.byref(ops), shared, smem, _cuda.stream_of(M_inv))
+    _cuda.check(status, "admm_box_qp_fused")
+    _cuda.count_launch("admm_box_qp_fused")
     return U, z, y

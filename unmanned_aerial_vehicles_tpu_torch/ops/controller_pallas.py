@@ -21,7 +21,8 @@ plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
 
 K3 runs one controller tick of one flight from an already shifted warm
-start:
+start (K16, ``gpmpc_controller_fused_batched``, runs it for a batch of
+flights, the warm-start shift ``z0 = Z0 @ ShiftT`` inside the kernel):
 
     offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
     box bounds [u_box; x_box - offset],  p0 = -(f @ P0mat),  M^-1 f,
@@ -32,7 +33,11 @@ It reads the stacked device operands of ``ops.tick_pallas.FusedTickData``
 (the TPU kernel's ``Emb`` matmul is a lane offset here). The kernel is
 ``csrc/single_tick_kernels.cu`` (``single_tick_kernel``, one block; K4 is
 the same kernel with the shift before it and the plant after it); its plain
-version is ``gpmpc_controller_fused_plain`` below.
+version is ``gpmpc_controller_fused_plain`` below. K16's kernel is
+``csrc/controller_kernels.cu`` (``fused_batched_kernel``: a block per tile
+of two flights, their iterates in shared memory, so every P1 element read
+serves the whole tile); its plain version is
+``gpmpc_controller_fused_batched_plain``.
 """
 
 from __future__ import annotations
@@ -104,27 +109,29 @@ def build_fused_controller_data(
 
 def controller_plain(data, x0, w, ref, z, y, rho: float, iterations: int,
                      over_relax: float, tight=None):
-    """The condensed controller tick of K3, K4 and K5 in PyTorch tensor ops:
-    ``(z, y, U, X_tail)`` from the (already shifted) warm start ``z, y``.
-    ``tight`` (m,) backs the boxes off (K4's tightening row)."""
+    """The condensed controller tick of K3, K4, K5 and K16 in PyTorch tensor
+    ops: ``(z, y, U, X_tail)`` from the (already shifted) warm start
+    ``z, y``. Vectors may carry a leading flight axis (K16: ``(B, .)``
+    rows, all of equal batch). ``tight`` (m,) backs the boxes off (K4's
+    tightening row)."""
     Nnu = data.Nnu
-    offset = torch.cat([x0, w]) @ data.SxSwT
+    offset = torch.cat([x0, w], dim=-1) @ data.SxSwT
     f = (offset - ref) @ data.SuTqT
-    off_z = torch.cat([torch.zeros(Nnu, dtype=offset.dtype, device=offset.device), offset])
+    off_z = torch.cat([offset.new_zeros(offset.shape[:-1] + (Nnu,)), offset], dim=-1)
     lower, upper = data.lo_row, data.hi_row
     if tight is not None:
         lower, upper = lower + tight, upper - tight
     lower, upper = lower - off_z, upper - off_z
     m = data.P1.shape[0]
     pm = f @ data.PM
-    p0 = -pm[:m]
+    p0 = -pm[..., :m]
     for _ in range(iterations):
         GU = p0 + (rho * z - y) @ data.P1
         Gt = over_relax * GU + (1.0 - over_relax) * z
         z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
         y = y + rho * (Gt - z_new)
         z = z_new
-    U = -pm[m:] + (rho * z - y) @ data.P0matT
+    U = -pm[..., m:] + (rho * z - y) @ data.P0matT
     return z, y, U, offset + U @ data.SuT
 
 
@@ -476,3 +483,118 @@ def gpmpc_controller_structured_batched(
     _cuda.count_launch("gpmpc_controller_structured_batched")
     return (outs["zu_out"], outs["zx_out"], outs["yu_out"], outs["yx_out"],
             outs["u_out"], outs["xtail_out"])
+
+
+# ---------------------------------------------------------------------------
+# K16: the fused controller for a batch of flights
+# ---------------------------------------------------------------------------
+
+FUSED_FLIGHTS_PER_BLOCK = 2   # csrc/controller_kernels.cu kTile
+
+
+def gpmpc_controller_fused_batched_plain(data, ShiftT, X0, W, REF, Z0, Y0, rho: float,
+                                         iterations: int, over_relax: float = 1.6):
+    """Plain version of K16: K3's ``controller_plain`` on every flight's
+    row after the warm-start shift ``Z0 @ ShiftT``, ``Y0 @ ShiftT``.
+    ``W`` and ``REF`` may be one ``(1, Nnx)`` row shared by every flight."""
+    B = X0.shape[0]
+    return controller_plain(data, X0, W.expand(B, -1), REF.expand(B, -1), Z0 @ ShiftT,
+                            Y0 @ ShiftT, rho, iterations, over_relax)
+
+
+def fused_batched_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4,
+                                      nx: int = 6) -> int:
+    """Dynamic shared memory of one K16 block (csrc/controller_kernels.cu
+    layout): P1 (shared variant only) and, per flight of the tile, seven
+    m-vectors (z, y, the double-buffered matvec input, p0, the bounds),
+    ``[x0 | w]``, the offset and its reference error, and three U-space
+    vectors (f, M^-1 f, U), each row padded to a multiple of 4."""
+    m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
+    r4 = _round4
+    floats = ((r4(m * m) if p1_shared else 0)
+              + FUSED_FLIGHTS_PER_BLOCK * (7 * r4(m) + r4(nx + Nnx) + 2 * r4(Nnx) + 3 * r4(Nnu)))
+    return 4 * floats
+
+
+class _FusedBatchedParams(ctypes.Structure):
+    _fields_ = [
+        ("batch", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
+        ("iterations", ctypes.c_int), ("w_stride", ctypes.c_int), ("ref_stride", ctypes.c_int),
+        ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float),
+    ]
+
+
+_FUSED_BATCHED_OPERANDS = (
+    "ShiftT", "SxSwT", "SuTqT", "PM", "P1", "P0matT", "SuT", "lo_row", "hi_row",
+    "X0", "W", "REF", "Z0", "Y0", "z_out", "y_out", "u_out", "xtail_out",
+)
+
+
+class _FusedBatchedOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _FUSED_BATCHED_OPERANDS]
+
+
+def gpmpc_controller_fused_batched(
+    data,                   # ops.tick_pallas.FusedTickData
+    ShiftT: torch.Tensor,   # (m, m) warm-start shift, row form
+    X0: torch.Tensor,       # (B, nx) controller states
+    W: torch.Tensor,        # (B, Nnx) or (1, Nnx) stacked dt * D disturbances
+    REF: torch.Tensor,      # (B, Nnx) or (1, Nnx) stacked state references
+    Z0: torch.Tensor,       # (B, m) unshifted previous slacks
+    Y0: torch.Tensor,       # (B, m) unshifted previous duals
+    rho: float,
+    iterations: int,
+    over_relax: float = 1.6,
+):
+    """The whole-controller tick for a batch of flights (K16): the
+    warm-start shift ``Z0 @ ShiftT``, ``Y0 @ ShiftT`` (any shift), then K3's
+    offset, gradient, bounds, composite-ADMM loop, primal and predicted tail
+    for every flight. Returns ``(Z (B, m), Y (B, m), U (B, Nnu),
+    X_tail (B, Nnx))`` in float32. Any B (the TPU kernel's multiple of 128
+    is gone); a one-row ``W`` or ``REF`` is shared by every flight. P1 lies
+    in shared memory where it and the tile's vectors fit one block (N <= 23
+    on an H100) and is read through L2 beyond."""
+    dev = X0.device
+    Nnu, Nnx = data.Nnu, data.Nnx
+    n, m = Nnu // 4, Nnu + Nnx
+    B = X0.shape[0]
+    require_tick_data(data, n, dev)
+    req = _cuda.require
+    rows = lambda t: 1 if t.ndim == 2 and t.shape[0] == 1 else B   # 1: a shared row
+    req(ShiftT, "ShiftT", (m, m), dev)
+    req(X0, "X0", (B, 6), dev)
+    req(W, "W", (rows(W), Nnx), dev)
+    req(REF, "REF", (rows(REF), Nnx), dev)
+    req(Z0, "Z0", (B, m), dev)
+    req(Y0, "Y0", (B, m), dev)
+    if dev.type == "cpu":
+        return gpmpc_controller_fused_batched_plain(data, ShiftT, X0, W, REF, Z0, Y0, rho,
+                                                    iterations, over_relax)
+    if dev.type != "cuda":
+        raise ValueError(f"gpmpc_controller_fused_batched runs on cuda or cpu, not {dev}")
+    _cuda.require_aligned("gpmpc_controller_fused_batched", data.P1)
+    p1_shared, smem = _cuda.p1_variant(dev, fused_batched_shared_memory_bytes(n, True),
+                                       fused_batched_shared_memory_bytes(n, False))
+    stride = lambda t: 0 if t.shape[0] == 1 else Nnx
+    params = _FusedBatchedParams(
+        batch=B, n=n, m=m, iterations=int(iterations), w_stride=stride(W),
+        ref_stride=stride(REF), rho=rho, over_relax=over_relax,
+        one_minus_over_relax=1.0 - over_relax,
+    )
+    plane = lambda width: torch.empty(B, width, dtype=torch.float32, device=dev)
+    outs = dict(z_out=plane(m), y_out=plane(m), u_out=plane(Nnu), xtail_out=plane(Nnx))
+    tensors = dict(ShiftT=ShiftT, SxSwT=data.SxSwT, SuTqT=data.SuTqT, PM=data.PM, P1=data.P1,
+                   P0matT=data.P0matT, SuT=data.SuT, lo_row=data.lo_row, hi_row=data.hi_row,
+                   X0=X0, W=W, REF=REF, Z0=Z0, Y0=Y0, **outs)
+    if B == 0:
+        return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
+    ops = _FusedBatchedOperands(**{k: v.data_ptr() for k, v in tensors.items()})
+    fn = _cuda.library("controller").fused_batched_launch
+    fn.argtypes = [ctypes.POINTER(_FusedBatchedParams), ctypes.POINTER(_FusedBatchedOperands),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem, _cuda.stream_of(X0))
+    _cuda.check(status, "gpmpc_controller_fused_batched")
+    _cuda.count_launch("gpmpc_controller_fused_batched")
+    return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]

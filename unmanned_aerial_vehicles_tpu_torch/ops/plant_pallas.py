@@ -8,8 +8,11 @@ attitude PID (integral carried) -> K1.
 
 Both take a batch: one CUDA thread per state (``csrc/plant_kernels.cu``;
 the device math lives in ``csrc/plant_math.cuh`` and is shared with K5).
-Plant scalars are a (10,) row operand, not constants, so dispersed plants
-and steady wind reuse one build.
+Plant scalars are a row operand, not constants, so dispersed plants and
+steady wind reuse one build: one (10,) row shared by the batch, or a
+``(B, 10)`` block with one row per state (a Monte Carlo population's
+dispersed plants; what the JAX package's ``vmap`` over traced plant rows
+computes).
 
 Beside each kernel is its plain PyTorch version (``_rk4_substeps``,
 ``_allocation`` below, an elementwise transcription of the same scalar
@@ -42,8 +45,18 @@ def build_plant_row(mass, gravity, k_drag_linear, taus, thrust_gain,
 
 
 def _read_plant(plant_row: torch.Tensor):
-    """The 10 plant scalars as 0-d tensors (they broadcast over a batch)."""
-    return tuple(plant_row[i] for i in range(PLANT_LANES))
+    """The 10 plant scalars: 0-d tensors from a shared ``(10,)`` row, or
+    ``(B,)`` columns from a ``(B, 10)`` block (both broadcast against the
+    batch's state columns)."""
+    return tuple(plant_row[..., i] for i in range(PLANT_LANES))
+
+
+def _require_plant(plant_row, B: int, dev) -> int:
+    """Check a shared ``(10,)`` row or a ``(B, 10)`` block; return the
+    kernels' row stride (0 or 10)."""
+    shape = (PLANT_LANES,) if plant_row.ndim == 1 else (B, PLANT_LANES)
+    _cuda.require(plant_row, "plant_row", shape, dev)
+    return 0 if plant_row.ndim == 1 else PLANT_LANES
 
 
 def _derivative(s, c, plant):
@@ -223,7 +236,7 @@ def _cols(x: torch.Tensor):
 
 def px4_plant_step_plain(state, control, plant_row, dt: float, substeps: int):
     """Plain version of K1: ``state (B, 12)``, ``control (B, 4)``,
-    ``plant_row (10,)`` float32 -> ``(B, 12)``."""
+    ``plant_row (10,)`` or ``(B, 10)`` float32 -> ``(B, 12)``."""
     s = _rk4_substeps(_cols(state), _cols(control), _read_plant(plant_row), dt, substeps)
     return torch.stack(s, dim=1)
 
@@ -233,7 +246,7 @@ def _px4_plant_rows(state, control, plant_row, dt: float, substeps: int):
     B = state.shape[0]
     _cuda.require(state, "state", (B, 12), dev)
     _cuda.require(control, "control", (B, 4), dev)
-    _cuda.require(plant_row, "plant_row", (PLANT_LANES,), dev)
+    plant_stride = _require_plant(plant_row, B, dev)
     if dev.type == "cpu":
         return px4_plant_step_plain(state, control, plant_row, dt, substeps)
     if dev.type != "cuda":
@@ -241,11 +254,12 @@ def _px4_plant_rows(state, control, plant_row, dt: float, substeps: int):
     lib = _cuda.library("plant")
     fn = lib.px4_plant_step_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(state)
     status = fn(_cuda.ptr(state), _cuda.ptr(control), _cuda.ptr(plant_row),
-                _cuda.ptr(out), B, float(dt), int(substeps), _cuda.stream_of(state))
+                _cuda.ptr(out), B, float(dt), int(substeps), plant_stride,
+                _cuda.stream_of(state))
     _cuda.check(status, "px4_plant_step_fused")
     _cuda.count_launch("px4_plant_step_fused")
     return out
@@ -283,7 +297,7 @@ def px4_plant_step_fused(
 def allocation_plant_tick_plain(state, cmd, integral, plant_row, dt: float, substeps: int):
     """Plain version of K2: ``state (B, 12)``, ``cmd (B, 6)`` =
     ``[ax, ay, az, yawrate, yaw, thrust_ceiling]``, ``integral (B, 3)``,
-    ``plant_row (10,)`` -> ``(state (B, 12), control+att_sp (B, 7),
+    ``plant_row (10,)`` or ``(B, 10)`` -> ``(state (B, 12), control+att_sp (B, 7),
     integral (B, 3))``."""
     s = _cols(state)
     cm = _cols(cmd)
@@ -301,7 +315,7 @@ def _allocation_plant_rows(state, cmd, integral, plant_row, dt: float, substeps:
     _cuda.require(state, "state", (B, 12), dev)
     _cuda.require(cmd, "cmd", (B, 6), dev)
     _cuda.require(integral, "integral", (B, 3), dev)
-    _cuda.require(plant_row, "plant_row", (PLANT_LANES,), dev)
+    plant_stride = _require_plant(plant_row, B, dev)
     if dev.type == "cpu":
         return allocation_plant_tick_plain(state, cmd, integral, plant_row, dt, substeps)
     if dev.type != "cuda":
@@ -309,14 +323,14 @@ def _allocation_plant_rows(state, cmd, integral, plant_row, dt: float, substeps:
     lib = _cuda.library("plant")
     fn = lib.allocation_plant_tick_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out_state = torch.empty_like(state)
     out_ctrl = torch.empty(B, 7, dtype=torch.float32, device=dev)
     out_int = torch.empty_like(integral)
     status = fn(_cuda.ptr(state), _cuda.ptr(cmd), _cuda.ptr(integral), _cuda.ptr(plant_row),
                 _cuda.ptr(out_state), _cuda.ptr(out_ctrl), _cuda.ptr(out_int),
-                B, float(dt), int(substeps), _cuda.stream_of(state))
+                B, float(dt), int(substeps), plant_stride, _cuda.stream_of(state))
     _cuda.check(status, "allocation_plant_tick_fused")
     _cuda.count_launch("allocation_plant_tick_fused")
     return out_state, out_ctrl, out_int

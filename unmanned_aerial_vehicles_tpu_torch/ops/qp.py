@@ -48,6 +48,36 @@ class AdmmState(NamedTuple):
     dual: torch.Tensor    # y
 
 
+def admm_box_qp(
+    M_inv: torch.Tensor,   # (n, n) = (H + rho G'G)^{-1}
+    G: torch.Tensor,       # (m, n)
+    f: torch.Tensor,       # (n,)
+    lower: torch.Tensor,
+    upper: torch.Tensor,
+    z0: torch.Tensor,
+    y0: torch.Tensor,
+    rho: float,
+    iterations: int,
+    over_relax: float = 1.6,
+) -> AdmmState:
+    """Fixed-iteration over-relaxed ADMM for ``min 1/2 U'HU + f'U,
+    l <= GU <= u`` with the explicit inverse ``M_inv``: per iteration
+    ``U = M^{-1}(-f + G'(rho z - y))``, ``GU``, relaxation, box projection
+    and dual step. The returned primal is refreshed from the final
+    ``(z, y)``, as in ``admm_box_qp_composite`` and the fused kernel K14
+    (``ops.admm_pallas.admm_box_qp_fused``)."""
+    GT = G.T
+    z, y = z0, y0
+    for _ in range(iterations):
+        U = M_inv @ (-f + GT @ (rho * z - y))
+        Gt = over_relax * (G @ U) + (1.0 - over_relax) * z
+        z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
+        y = y + rho * (Gt - z_new)
+        z = z_new
+    U = M_inv @ (-f + GT @ (rho * z - y))
+    return AdmmState(U, z, y)
+
+
 def admm_box_qp_composite(
     P1: torch.Tensor,      # (m, m) = G M^{-1} G'
     p0: torch.Tensor,      # (m,)   = -G M^{-1} f   (per-tick)

@@ -1,15 +1,26 @@
-"""The fused GP posterior mean K7 (port of ``ops/rbf_pallas.py``:
-``rbf_posterior_mean_pallas``).
+"""The RBF kernels K15 and K7 (port of ``ops/rbf_pallas.py``:
+``rbf_kernel_matrix_pallas`` and ``rbf_posterior_mean_pallas``).
 
+K15 ``rbf_kernel_matrix_pallas``: the Gram matrix
+``sigma^2 exp(-0.5 max(|z1|^2 + |z2|^2 - 2 z1.z2, 0))``, ``z = x / l``, of
+``X1 (n1, d)`` against ``X2 (n2, d)``, scalar or per-feature (ARD) ``l``.
+The kernel is ``csrc/rbf_kernels.cu`` (``rbf_gram_kernel``: 64 x 64 output
+tiles, both tiles' scaled rows in shared memory, a 4 x 4 micro-tile per
+thread, 16-byte stores); its plain version ``rbf_kernel_matrix_plain`` is
+``gp.kernels.rbf_kernel`` in float32. The clamp at 0 is kept exactly: the
+Gram's positive semi-definiteness rests on it.
+
+K7 ``rbf_posterior_mean_pallas``:
 ``K_*(X_test - x_shift, X_train) @ (sigma^2 alpha y_std) + y_mean`` for
 ``(m, d)`` queries against ``P`` training points, ``(m, out)`` out. The
 kernel is ``csrc/rbf_kernels.cu``: the training points stream through
 shared memory in chunks and the ``(m, P)`` cross-kernel matrix is never
 written to memory, so there is no limit on ``P`` and no second route (the
 TPU kernel's ``P_pad > 4096`` branch was a VMEM limit). Its plain PyTorch
-version is ``rbf_posterior_mean_plain`` below. The wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.
+version is ``rbf_posterior_mean_plain`` below.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 
 ``precision`` is accepted for the JAX signature. Every tier computes in
 float32 here: the bfloat16 limb tiers were a TPU matrix-unit scheme, and
@@ -23,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..gp.kernels import rbf_kernel
 from . import _cuda
 
 PRECISIONS = ("default", "high", "highest")
@@ -153,4 +165,63 @@ def rbf_posterior_mean_pallas(posterior, X_test: torch.Tensor,
     status = fn(ctypes.byref(operands), m, P, _cuda.stream_of(X_test))
     _cuda.check(status, "rbf_posterior_mean_pallas")
     _cuda.count_launch("rbf_posterior_mean_pallas")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K15: the blocked RBF Gram matrix
+# ---------------------------------------------------------------------------
+
+GRAM_MAX_FEATURES = 16   # csrc/rbf_kernels.cu kGramMaxD
+
+
+def _gram_operands(X1, length_scale, signal_variance):
+    """``(ls (d,), sig (1,))`` float32 on ``X1``'s device."""
+    f32 = dict(dtype=torch.float32, device=X1.device)
+    d = X1.shape[1]
+    ls = torch.as_tensor(length_scale, **f32).expand(d).contiguous()
+    sig = torch.as_tensor(signal_variance, **f32).reshape(1).contiguous()
+    return ls, sig
+
+
+def rbf_kernel_matrix_plain(X1: torch.Tensor, X2: torch.Tensor, length_scale,
+                            signal_variance) -> torch.Tensor:
+    """Plain version of K15: ``gp.kernels.rbf_kernel`` in float32."""
+    ls, sig = _gram_operands(X1, length_scale, signal_variance)
+    return rbf_kernel(X1.to(torch.float32), X2.to(torch.float32), ls, sig[0])
+
+
+class _GramOperands(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in ("X1", "X2", "ls", "sig", "out")]
+
+
+def rbf_kernel_matrix_pallas(X1: torch.Tensor, X2: torch.Tensor, length_scale,
+                             signal_variance) -> torch.Tensor:
+    """``sigma^2 exp(-0.5 ||(x1 - x2)/l||^2)`` as one launch of the blocked
+    Gram kernel (K15): ``X1 (n1, d)``, ``X2 (n2, d)`` float32, ``d <= 16``;
+    ``length_scale`` a scalar or ``(d,)``, ``signal_variance`` a scalar
+    (numbers or tensors). Returns ``(n1, n2)`` float32."""
+    dev = X1.device
+    n1, d = X1.shape
+    n2 = X2.shape[0]
+    _cuda.require(X1, "X1", (n1, d), dev)
+    _cuda.require(X2, "X2", (n2, d), dev)
+    ls, sig = _gram_operands(X1, length_scale, signal_variance)
+    if dev.type == "cpu":
+        return rbf_kernel_matrix_plain(X1, X2, ls, sig)
+    if dev.type != "cuda":
+        raise ValueError(f"rbf_kernel_matrix_pallas runs on cuda or cpu, not {dev}")
+    if not 1 <= d <= GRAM_MAX_FEATURES:
+        raise ValueError(f"the Gram kernel stages up to {GRAM_MAX_FEATURES} features, got {d}")
+    out = torch.empty(n1, n2, dtype=torch.float32, device=dev)
+    if n1 == 0 or n2 == 0:
+        return out
+    operands = _GramOperands(*(t.data_ptr() for t in (X1, X2, ls, sig, out)))
+    fn = _cuda.library("rbf").rbf_gram_launch
+    fn.argtypes = [ctypes.POINTER(_GramOperands), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(ctypes.byref(operands), n1, n2, d, _cuda.stream_of(X1))
+    _cuda.check(status, "rbf_kernel_matrix_pallas")
+    _cuda.count_launch("rbf_kernel_matrix_pallas")
     return out

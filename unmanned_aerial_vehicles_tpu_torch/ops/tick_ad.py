@@ -243,9 +243,18 @@ class _PlantStepAD(torch.autograd.Function):
                 g_plant, None, None)
 
 
+def _shared_plant_row(plant_row) -> None:
+    """The VJP kernels sum the plant row's cotangent over the batch: the
+    autodiff routes take one shared ``(10,)`` row, not a per-flight block."""
+    if tuple(plant_row.shape) != (PLANT_LANES,):
+        raise ValueError(f"the autodiff routes take one shared plant row of {PLANT_LANES} "
+                         f"lanes, got shape {tuple(plant_row.shape)}")
+
+
 def px4_plant_rows_ad(state, control, plant_row, dt: float, substeps: int):
     """``plant_pallas._px4_plant_rows`` (K1 on ``(B, 12)``, ``(B, 4)``
     rows) with a VJP rule: the forward is K1, the backward K13a."""
+    _shared_plant_row(plant_row)
     return _PlantStepAD.apply(state, control, plant_row, dt, substeps)
 
 
@@ -271,6 +280,7 @@ class _AllocationTickAD(torch.autograd.Function):
 def allocation_plant_rows_ad(state, cmd, integral, plant_row, dt: float, substeps: int):
     """``plant_pallas._allocation_plant_rows`` (K2) with a VJP rule: the
     forward is K2, the backward K13b."""
+    _shared_plant_row(plant_row)
     return _AllocationTickAD.apply(state, cmd, integral, plant_row, dt, substeps)
 
 
