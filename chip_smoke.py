@@ -31,10 +31,13 @@ Phases (any failure exits non-zero; nothing is caught):
    port's own relinearisation at the circle task's start (5e-4 on every
    output, a second launch bit-identical, the P1 variant printed), K12 at
    512 x 25 (1e-5 relative; a float64 MPPI controller's tick must launch
-   it once), K5 with the variance section (``tighten_kappa`` 2, N=20,
-   P=800, K=8, 10 iterations; 1e-4 of each output's scale, a second launch
-   bit-identical, in a case where the backed-off bound binds) and timed
-   next to the same launch without it; the plant VJP kernels K13a and K13b
+   it once), K5 with the variance section over a thread-block cluster
+   (``tighten_kappa`` 2, 10 iterations, K=8 at N=20 with P=800, N=23 with
+   P=800, N=20 with P=2000; 1e-4 of each output's and of each tick's
+   back-off row's scale, a second launch bit-identical, in a case where the
+   backed-off bound binds) and timed with K^-1 in the workers' shared
+   memory and streamed, with 8 blocks, and without the section; the plant
+   VJP kernels K13a and K13b
    against ``torch.func.vjp`` of K1's and K2's plain versions at B=1 and
    B=1024 (around hover with wind, a quarter at zero airspeed, a quarter
    of K13b's with every clamp binding; 1e-5 of each cotangent's scale, a
@@ -48,15 +51,20 @@ Phases (any failure exits non-zero; nothing is caught):
    the GP refit's 800 x 800 x 10 and the corpus's 19,800^2 x 10,
    isotropic and ARD (5e-5 of sigma^2 against the plain version, 2e-5
    against float64 on rows holding the diagonal: see GRAM_TOL), K16 (the
-   fused controller for a batch of flights) at B=256, N=20 (P1 in shared
-   memory) and N=25 (P1 through L2) over three warm-started ticks, and K1
+   fused controller for a batch of flights, over thread-block clusters) at
+   B = 1, 17, 256 and 257, N=20 and N=25, over three warm-started ticks
+   (timed at B=256, with its cluster shape and the clusters the card runs
+   at once), and K1
    and K2 on a dispersed (256, 10) plant block (2e-5 of scale); time each
    kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
    at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
-   n=20;
+   n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
+   K16 at B=256 and the tightened K5 of that package and of this one,
+   timed in turns (older, this, this, older; each older run a subprocess
+   that builds its own sources);
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -133,6 +141,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
+
+    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16 and K5
 """
 
 from __future__ import annotations
@@ -400,77 +410,168 @@ def check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics, k5_
 
 
 def ops_tightening(N: int, P: int) -> int:
-    """FP32 operations of K5's variance section per tick
-    (csrc/multitick_phases.cuh gp_horizon_tightening): the quadratic form
-    K* K^-1 K*' (2 N P^2 + 2 N P), the variance row (6 per stage row), the
-    SwSqT matvec (2 Nnx^2) and the back-off (5 per state row)."""
+    """FP32 operations of K5's variance section per tick: the quadratic form
+    K* K^-1 K*' (2 N P^2 + 2 N P, the same work whatever form computes it),
+    the variance row (6 per stage row), the SwSqT matvec (2 Nnx^2) and the
+    back-off (5 per state row)."""
     Nnx = 6 * N
     return 2 * N * P * P + 2 * N * P + 6 * Nnx + 2 * Nnx * Nnx + 5 * Nnx
 
 
-def check_tightened_k5(dev, mpc, post, prow, k5_tick_ops, fail_fn):
-    """Hold K5's tightened variant against its plain version on the card at
-    bench.py's tightening width (N=20, P=800, K=8, 10 iterations, kappa 2)
-    in a case where the back-off binds, launch it twice (bit-identical), and
-    time it next to the same launch without the variance section. Returns
-    the kernel's record for the JSON line."""
+# (N, P): the tightening mode's width; N=23; P=2000, whose triangle shares
+# do not fit the workers' shared memory (K^-1 streamed from L2)
+TIGHT_CASES = ((20, 800), (23, 800), (20, 2000))
+
+
+def tightened_case(dev, mpc, post, prow, K: int):
+    """Operands of the tightened K5's check launch at the MPC's horizon:
+    flying at 7.9 m/s into the 8 m/s box toward a 9 m/s reference, so the
+    backed-off bound binds (kappa 2, 10 ADMM iterations)."""
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch.ops import tick_pallas
 
     f32 = dict(dtype=torch.float32, device=dev)
-    N, K, P = HORIZON, K5_PREVIEW_K, GP_POINTS
+    N, m = mpc.config.horizon, mpc.n_constraints
     gp = tick_pallas.build_gp_rows(post, 0.1, with_variance=True)
     x0 = torch.zeros(12, **f32)
     x0[:6] = torch.tensor([0.2, -0.1, 2.9, 7.9, 0.3, -0.1])
     aux = torch.cat([x0[:6], torch.zeros(3, **f32)]).contiguous()
     refs = torch.tensor([3.0, 0.0, 3.0, 9.0, 0.0, 0.0], **f32).repeat(K, N).contiguous()
-    m = mpc.n_constraints
     args = (mpc._tick_data, gp, x0, aux, x0[:6].repeat(N).contiguous(), torch.zeros(m, **f32),
             torch.zeros(m, **f32), refs, torch.zeros(K, **f32), prow)
     statics = dict(k_ticks=K, use_gp=True, rho=8.0, iterations=ADMM_ITERS, over_relax=1.6,
                    dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
-                   yawrate_limit=0.8, n=N, nu=4, nx=6, tighten_kappa=TIGHTEN_KAPPA)
-    got = tick_pallas.gpmpc_multitick_fused(*args, **statics)
-    torch.cuda.synchronize()
-    want = tick_pallas.multitick_staged(*args, **statics)
-    loose = tick_pallas.multitick_staged(*args, **dict(statics, tighten_kappa=0.0))
-    for g in got:
-        if not torch.isfinite(g).all():
-            fail_fn("tightened K5 produced non-finite values")
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    scales = [max(1.0, float(w.abs().max())) for w in want]
-    again = tick_pallas.gpmpc_multitick_fused(*args, **statics)
-    bind = float((want[0][:, 25:29] - loose[0][:, 25:29]).abs().max())
-    print("K5 tightened (gpmpc_multitick_fused, tighten_kappa "
-          f"{TIGHTEN_KAPPA}, N={N}, P={P}, K={K}): max_abs_err against the plain version per "
-          "output (packed, state, aux, xtail, z, y): "
-          + ", ".join(f"{e:.3e}" for e in errs)
-          + f" (output scales {', '.join(f'{v:.1f}' for v in scales)}); the back-off moves "
-          f"u_mpc by {bind:.3e} against kappa 0; shared memory "
-          f"{tick_pallas.shared_memory_bytes(N, tighten=True)} B")
-    if not all(e <= TICK_TOL * sc for e, sc in zip(errs, scales)):
-        fail_fn(f"tightened K5 disagrees with its plain version: {errs}")
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        fail_fn("tightened K5: a second launch on the same inputs differs")
-    if not bind > 1e-3:
-        fail_fn(f"tightened K5's check case does not bind ({bind})")
+                   yawrate_limit=0.8, n=N, nu=4, nx=6, tighten_kappa=TIGHTEN_KAPPA,
+                   loop_precision="highest", fallback_error_m=0.0, fallback_thrust_ceiling=1.5,
+                   fallback_accel_scale=1.5)
+    return args, statics
+
+
+def plain_tight_rows(args, statics):
+    """Each tick's back-off row through the plain version: ``tightening_row``
+    on that tick's cross-kernel (the features of the previous solution, as
+    ``multitick_staged`` forms them), then ``multitick_staged`` one tick on."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_pallas
+
+    data, gp, state, aux, xtail, z, y, refs, yaw, prow = args
+    N, nu, nx = statics["n"], statics["nu"], statics["nx"]
+    rows = []
+    for t in range(statics["k_ticks"]):
+        Xs = torch.cat([aux[None, :nx], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
+        Zf = torch.cat([Xs, z[: N * nu].reshape(N, nu)], dim=1) * gp.inv_ls[0] - gp.inv_ls[1]
+        sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
+        dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * (Zf @ gp.ztrT), min=0.0)
+        rows.append(tick_pallas.tightening_row(data, gp, gp.scal[0] * torch.exp(-0.5 * dists),
+                                               statics["tighten_kappa"]))
+        _, state, aux, xtail, z, y = tick_pallas.multitick_staged(
+            data, gp, state, aux, xtail, z, y, refs[t:t + 1], yaw[t:t + 1], prow,
+            **dict(statics, k_ticks=1))
+    return torch.stack(rows)
+
+
+def check_tightened_k5(dev, mpc, post, prow, k5_tick_ops, fail_fn):
+    """Hold K5's tightened variant (a cluster of VAR_CLUSTER blocks a
+    flight) against its plain version on the card, on the packed lanes,
+    every carry and each tick's back-off row, at bench.py's tightening
+    width (N=20, P=800, K=8, 10 iterations, kappa 2) in a case where the
+    back-off binds, at N=23 and at P=1000 (K^-1 streamed from L2); launch
+    each twice (bit-identical); time it, with K^-1 in the workers' shared
+    memory and streamed, next to the same launch without the variance
+    section. Returns the kernel's record for the JSON line."""
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig, fit_residual_gp
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    K = K5_PREVIEW_K
+    posts = {GP_POINTS: post}
+    recs = {}
+    for N, P in TIGHT_CASES:
+        if P not in posts:
+            rng = np.random.default_rng(P)
+            posts[P] = fit_residual_gp(torch.tensor(rng.normal(size=(P, 10)), **f32),
+                                       torch.tensor(0.05 * rng.normal(size=(P, 6)), **f32),
+                                       ResidualGPConfig(max_data_points=P))
+        case_mpc = mpc if N == mpc.config.horizon else LinearMPC(
+            LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True),
+            device=dev)
+        args, statics = tightened_case(dev, case_mpc, posts[P], prow, K)
+        m = case_mpc.n_constraints
+        got = tick_pallas.gpmpc_multitick_fused(*args, **statics)
+        torch.cuda.synchronize()
+        want = tick_pallas.multitick_staged(*args, **statics)
+        loose = tick_pallas.multitick_staged(*args, **dict(statics, tighten_kappa=0.0))
+        tight = torch.empty(K, m, **f32)
+        again = tick_pallas._launch_multitick(args[0], args[1], args[2:], statics, True,
+                                              tight_out=tight)
+        cluster, shared, smem = tick_pallas.variance_cluster(dev, N, P)
+        variants = {"shared" if shared else "streamed": got}
+        if shared:   # the same launch with K^-1 streamed from L2
+            variants["streamed"] = tick_pallas._launch_multitick(args[0], args[1], args[2:],
+                                                                 statics, True, kinv_shared=False)
+        torch.cuda.synchronize()
+        tight_want = plain_tight_rows(args, statics)
+        for g in got:
+            if not torch.isfinite(g).all():
+                fail_fn(f"tightened K5 (N={N}, P={P}) produced non-finite values")
+        errs = [float((g - w).abs().max()) for g, w in zip((*got, tight), (*want, tight_want))]
+        scales = [max(1.0, float(w.abs().max())) for w in (*want, tight_want)]
+        bind = float((want[0][:, 25:29] - loose[0][:, 25:29]).abs().max())
+        same = {name: all(torch.equal(a, b) for a, b in zip(out, again))
+                for name, out in variants.items()}
+        print(f"K5 tightened (gpmpc_multitick_fused, tighten_kappa {TIGHTEN_KAPPA}, N={N}, P={P}, "
+              f"K={K}; a cluster of {cluster} blocks, K^-1 {next(iter(variants))} in the "
+              "workers): max_abs_err against the plain "
+              "version per output (packed, state, aux, xtail, z, y, back-off rows): "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (output scales {', '.join(f'{v:.1f}' for v in scales)}); the back-off moves "
+              f"u_mpc by {bind:.3e} against kappa 0; bit-identical to a second launch "
+              + ", ".join(f"{k} {v}" for k, v in same.items())
+              + f"; shared memory {tick_pallas.shared_memory_bytes(N, tighten=True)} B (rank 0), "
+              f"{smem} B a block")
+        if not all(e <= TICK_TOL * sc for e, sc in zip(errs, scales)):
+            fail_fn(f"tightened K5 (N={N}, P={P}) disagrees with its plain version: {errs}")
+        if not all(same.values()):
+            fail_fn(f"tightened K5 (N={N}, P={P}): a second launch on the same inputs differs")
+        if not bind > 1e-3:
+            fail_fn(f"tightened K5's check case (N={N}, P={P}) does not bind ({bind})")
+        recs[(N, P)] = dict(args=args, statics=statics, err=max(errs))
+    N, P = TIGHT_CASES[0]
+    args, statics = recs[(N, P)]["args"], recs[(N, P)]["statics"]
     fn = lambda: tick_pallas.gpmpc_multitick_fused(*args, **statics)
+    streamed = lambda: tick_pallas._launch_multitick(args[0], args[1], args[2:], statics, True,
+                                                     kinv_shared=False)
+    cluster, _, _ = tick_pallas.variance_cluster(dev, N, P)
+    portable = lambda: tick_pallas._launch_multitick(args[0], args[1], args[2:], statics, True,
+                                                     cluster=tick_pallas.VAR_CLUSTER)
     plain = lambda: tick_pallas.multitick_staged(*args, **statics)
     untightened = graph_ms(lambda: tick_pallas.gpmpc_multitick_fused(
         *args, **dict(statics, tighten_kappa=0.0)), 20)
-    data = mpc._tick_data
+    data, gp = args[0], args[1]
     n_bytes = (nbytes(data.SxSwT, data.SuTqT, data.PM, data.P1, data.P0matT, data.SuT,
-                      data.lo_row, data.hi_row, data.SwSqT, *gp, *args[2:]) + nbytes(*got))
-    rec = dict(err=max(errs), ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+                      data.lo_row, data.hi_row, data.SwSqT, *gp, *args[2:])
+               + nbytes(*fn()))
+    rec = dict(err=max(r["err"] for r in recs.values()), ms=graph_ms(fn, 20),
+               streamed_ms=graph_ms(streamed, 20), cluster=cluster,
+               portable_ms=graph_ms(portable, 20), plain_ms=graph_ms(plain, 1, replays=3),
                host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
                bound=bound_ms(n_bytes, K * (k5_tick_ops + ops_tightening(N, P))),
                untightened_ms=untightened)
-    print(f"K5 tightened device time per launch: {rec['ms'] * 1e3:.2f} us ({rec['ms'] * 1e3 / K:.2f}"
-          f" us per tick), the same launch without the variance section {untightened * 1e3:.2f} us"
-          f" ({untightened * 1e3 / K:.2f} us per tick): the section costs "
-          f"{(rec['ms'] - untightened) * 1e3 / K:.2f} us per tick; plain "
-          f"{rec['plain_ms'] * 1e3:.2f} us; bound {rec['bound'][0] * 1e3:.4f} us "
+    section = lambda ms: (ms - untightened) * 1e3 / K
+    print(f"K5 tightened device time per launch (N={N}, P={P}, K={K}), a cluster of {cluster} "
+          f"blocks: {rec['ms'] * 1e3:.2f} us with K^-1 in the workers' shared memory (the section "
+          f"{section(rec['ms']):.2f} us per tick), {rec['streamed_ms'] * 1e3:.2f} us streamed from "
+          f"L2 (the section {section(rec['streamed_ms']):.2f} us per tick); with "
+          f"{tick_pallas.VAR_CLUSTER} blocks {rec['portable_ms'] * 1e3:.2f} us (the section "
+          f"{section(rec['portable_ms']):.2f} us per tick); the same launch without the "
+          f"variance section {untightened * 1e3:.2f} us ({untightened * 1e3 / K:.2f} us per "
+          f"tick); plain {rec['plain_ms'] * 1e3:.2f} us; bound {rec['bound'][0] * 1e3:.4f} us "
           f"({rec['bound'][1]}; {ops_tightening(N, P)} operations per tick in the section)")
     return rec
 
@@ -1260,6 +1361,23 @@ def ops_fused_batched(B: int, N: int, iterations: int) -> int:
     return B * (4 * m * m + ops_controller(N, iterations))
 
 
+K16_BATCHES = (1, 17, MC_B, MC_B + 1)
+
+
+def k16_operands(gen, N: int, B: int, f32: dict):
+    """K16's per-flight operands for B flights around the 3 m hover: states,
+    disturbance rows and one shared reference row."""
+    import torch
+
+    X0 = torch.zeros(B, 6)
+    X0[:, 0:3] = torch.randn(B, 3, generator=gen)
+    X0[:, 2] += 3.0
+    X0[:, 3:6] = 0.5 * torch.randn(B, 3, generator=gen)
+    W = (0.02 * torch.randn(B, 6 * N, generator=gen)).to(**f32)
+    REF = torch.tensor([3.0, 0.0, 3.0, 0.0, 0.0, 0.0]).repeat(N)[None].to(**f32)
+    return X0.to(**f32).contiguous(), W, REF
+
+
 def check_tail_kernels(dev, gen, fail_fn) -> dict:
     """Hold K14, K15 and K16, and K1 and K2 on a dispersed (256, 10) plant
     block, against their plain versions on the card at the system's shapes,
@@ -1372,36 +1490,35 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
     (small, _), (corpus, _) = GRAM_SHAPES
     out["rbf_kernel_matrix_pallas"] = dict(k15[small], corpus=k15[corpus])
 
-    # K16 at B=256, N=20 and N=25, three warm-started ticks
+    # K16 at B = 1, 17, 256 and 257 (a lone flight, a ragged tile, the
+    # population, one flight past it), N=20 and N=25, three warm-started
+    # ticks each; timed at the population's B=256
     k16 = {}
     for N in (20, LONG_HORIZON):
         mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True), device=dev)
         data = mpc._tick_data
-        m, Nnx = 10 * N, 6 * N
-        X0 = torch.zeros(MC_B, 6)
-        X0[:, 0:3] = torch.randn(MC_B, 3, generator=gen)
-        X0[:, 2] += 3.0
-        X0[:, 3:6] = 0.5 * torch.randn(MC_B, 3, generator=gen)
-        X0 = X0.to(**f32).contiguous()
-        W = (0.02 * torch.randn(MC_B, Nnx, generator=gen)).to(**f32)
-        REF = torch.tensor([3.0, 0.0, 3.0, 0.0, 0.0, 0.0]).repeat(N)[None].to(**f32)
-        Z = torch.zeros(MC_B, m, **f32)
-        Y = torch.zeros(MC_B, m, **f32)
+        m = 10 * N
         errs = []
-        for tick in range(3):
-            args = (data, data.ShiftT, X0, W, REF, Z, Y, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
-            got = controller_pallas.gpmpc_controller_fused_batched(*args)
-            torch.cuda.synchronize()
-            errs.append(held(f"K16 gpmpc_controller_fused_batched (B={MC_B}, N={N}, tick {tick})",
-                             got, controller_pallas.gpmpc_controller_fused_batched_plain(*args),
-                             controller_pallas.gpmpc_controller_fused_batched(*args)))
-            Z, Y = got[0], got[1]
+        for B in K16_BATCHES:
+            X0, W, REF = k16_operands(gen, N, B, f32)
+            Z = torch.zeros(B, m, **f32)
+            Y = torch.zeros(B, m, **f32)
+            for tick in range(3):
+                args = (data, data.ShiftT, X0, W, REF, Z, Y, ADMM_RHO, ADMM_ITERS_DEFAULT,
+                        ADMM_RELAX)
+                got = controller_pallas.gpmpc_controller_fused_batched(*args)
+                torch.cuda.synchronize()
+                errs.append(held(f"K16 gpmpc_controller_fused_batched (B={B}, N={N}, tick {tick})",
+                                 got, controller_pallas.gpmpc_controller_fused_batched_plain(*args),
+                                 controller_pallas.gpmpc_controller_fused_batched(*args)))
+                Z, Y = got[0], got[1]
+            if B == MC_B:
+                population = (X0, W, REF, Z, Y)
+        X0, W, REF, Z, Y = population
         args = (data, data.ShiftT, X0, W, REF, Z, Y, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
         fn = lambda: controller_pallas.gpmpc_controller_fused_batched(*args)
         plain = lambda: controller_pallas.gpmpc_controller_fused_batched_plain(*args)
-        shared, _ = _cuda.p1_variant(dev,
-                                     controller_pallas.fused_batched_shared_memory_bytes(N, True),
-                                     controller_pallas.fused_batched_shared_memory_bytes(N, False))
+        cluster, smem, active = controller_pallas.fused_cluster_choice(dev, MC_B, N)
         ins = (data.ShiftT, data.SxSwT, data.SuTqT, data.PM, data.P1, data.P0matT, data.SuT,
                data.lo_row, data.hi_row, X0, W, REF, Z, Y)
         k16[N] = dict(
@@ -1409,11 +1526,15 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
             host_ms=cuda_ms(fn, 20), host_plain_ms=cuda_ms(plain, 3),
             bound=bound_ms(nbytes(*ins) + 4 * MC_B * (2 * m + 10 * N),
                            ops_fused_batched(MC_B, N, ADMM_ITERS_DEFAULT)),
-            variant="P1 in shared memory" if shared else "P1 through L2",
+            cluster=cluster, flights=controller_pallas.FUSED_TILE_FLIGHTS, active=active,
+            smem=smem,
         )
-        print(f"  K16 at B={MC_B}, N={N}: {k16[N]['ms'] * 1e3:.2f} us per launch "
-              f"({k16[N]['variant']}), plain {k16[N]['plain_ms'] * 1e3:.2f} us, bound "
-              f"{k16[N]['bound'][0] * 1e3:.2f} us ({k16[N]['bound'][1]})")
+        print(f"  K16 at B={MC_B}, N={N}: {k16[N]['ms'] * 1e3:.2f} us per launch, plain "
+              f"{k16[N]['plain_ms'] * 1e3:.2f} us, bound {k16[N]['bound'][0] * 1e3:.2f} us "
+              f"({k16[N]['bound'][1]}); clusters of C={cluster} blocks x F="
+              f"{controller_pallas.FUSED_TILE_FLIGHTS} flights, {smem} B of shared memory a "
+              f"block, {active} such clusters run at once "
+              f"({len(controller_pallas.fused_flight_tiles(MC_B))} needed)")
     out["gpmpc_controller_fused_batched"] = dict(k16[LONG_HORIZON], n20=k16[20])
 
     # K1 and K2 on a dispersed (256, 10) plant block (one row per flight)
@@ -1450,6 +1571,86 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
     print(f"  the plant block at B={MC_B}: K1 {plant_ms['K1'] * 1e3:.2f} us, K2 "
           f"{plant_ms['K2'] * 1e3:.2f} us per launch")
     return out, dict(errs=plant_errs, ms=plant_ms, block=block)
+
+
+# ---- the kernels redesigned for clusters, against an older checkout ---------
+
+def time_redesigned(dev) -> dict:
+    """Device microseconds per launch of the kernels redesigned for thread-
+    block clusters, through their public wrappers only, so that the same
+    function times an older checkout of the package: K16 at B=256, N=20 and
+    N=25 (three warm-started ticks in, 80 iterations) and K5 at N=20,
+    P=800, K=8, tightened (kappa 2) and not."""
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig, fit_residual_gp
+    from unmanned_aerial_vehicles_tpu_torch.ops import controller_pallas, plant_pallas, tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for N in (20, LONG_HORIZON):
+        mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True), device=dev)
+        data = mpc._tick_data
+        X0, W, REF = k16_operands(gen, N, MC_B, f32)
+        zy = [torch.zeros(MC_B, 10 * N, **f32), torch.zeros(MC_B, 10 * N, **f32)]
+        call = lambda: controller_pallas.gpmpc_controller_fused_batched(
+            data, data.ShiftT, X0, W, REF, zy[0], zy[1], ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
+        for _ in range(3):
+            zy[:] = call()[:2]
+        out[f"k16_n{N}_us"] = graph_ms(call, 10) * 1e3
+    mpc = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                    use_fused_controller=True), device=dev)
+    rng = np.random.default_rng(0)
+    post = fit_residual_gp(torch.tensor(rng.normal(size=(GP_POINTS, 10)), **f32),
+                           torch.tensor(0.05 * rng.normal(size=(GP_POINTS, 6)), **f32),
+                           ResidualGPConfig())
+    prow = plant_pallas.build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81,
+                                        (0.8, 0.4, 0.0), device=dev)
+    args, statics = tightened_case(dev, mpc, post, prow, K5_PREVIEW_K)
+    for key, kappa in (("k5_tightened_us", TIGHTEN_KAPPA), ("k5_untightened_us", 0.0)):
+        out[key] = graph_ms(lambda: tick_pallas.gpmpc_multitick_fused(
+            *args, **dict(statics, tighten_kappa=kappa)), 20) * 1e3
+    return out
+
+
+def compare_with_parent(dev, parent: str | None):
+    """K16 and the tightened K5 of the checkout at ``parent`` (its own
+    package, built from its own sources in a subprocess) and of this one,
+    timed in turns in this call: parent, this, this, parent."""
+    if parent is None:
+        print("older checkout's K16 and K5: not measured in this run (pass --parent DIR, "
+              "DIR holding the older package, to time them here)")
+        return None
+
+    def parent_run():
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time-redesigned",
+                              str(Path(parent).resolve())], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            fail(f"timing the checkout at {parent} failed:\n{out.stdout[-3000:]}\n"
+                 f"{out.stderr[-3000:]}")
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    runs = [("older", parent_run()), ("this", time_redesigned(dev)),
+            ("this", time_redesigned(dev)), ("older", parent_run())]
+    for key in runs[0][1]:
+        print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in runs))
+    return {"order": [who for who, _ in runs], "runs": [r for _, r in runs]}
+
+
+def time_redesigned_main(package_root: str) -> int:
+    """``--time-redesigned DIR``: time_redesigned on the package under DIR."""
+    import torch
+
+    sys.path.insert(0, str(Path(package_root).resolve()))
+    import unmanned_aerial_vehicles_tpu_torch as pkg
+
+    print(f"package: {Path(pkg.__file__).resolve().parent}")
+    print(json.dumps(time_redesigned(torch.device("cuda"))))
+    return 0
 
 
 # ---- the Monte Carlo robustness study (K16 with K2; K1) --------------------
@@ -1632,7 +1833,7 @@ def run_populations(dev, fail_fn, kernels) -> dict:
     return results
 
 
-def main() -> int:
+def main(parent: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2060,6 +2261,8 @@ def main() -> int:
     # K14, K15, K16 and K1/K2 on a dispersed plant block
     tail, plant_block_check = check_tail_kernels(dev, gen, fail)
     kernels.update(tail)
+    # the redesigned K16 and tightened K5 against an older checkout's, in turns
+    redesign = compare_with_parent(dev, parent)
 
     phase_clock("phase 2")
     # ---- phase 3: fly every path ------------------------------------------
@@ -2559,7 +2762,7 @@ def main() -> int:
     print(f"  profiler, 50 Monte Carlo ticks: device busy {busy_us:.2f} us per tick of "
           f"{us_mc_tick:.2f} us, idle share {idle_share['50 Monte Carlo ticks']:.3f}; by kernel "
           "(us per tick): " + "; ".join(f"{name[:60]} {t / 50:.2f}" for t, name in by_name[:8]))
-    print(f"  K16 at N=20 (P1 in shared memory): {k16['n20']['ms'] * 1e3:.2f} us; K14 at N=20 "
+    print(f"  K16 at N=20: {k16['n20']['ms'] * 1e3:.2f} us; K14 at N=20 "
           f"{kernels['admm_box_qp_fused']['n20']['ms'] * 1e3:.2f} us; K15 at the corpus "
           f"{kernels['rbf_kernel_matrix_pallas']['corpus']['ms'] * 1e3:.2f} us (bound "
           f"{kernels['rbf_kernel_matrix_pallas']['corpus']['bound'][0] * 1e3:.2f} us, torch.cdist "
@@ -2677,6 +2880,12 @@ def main() -> int:
         "plant_block_max_abs_err": plant_block_check["errs"],
         "us_per_launch_k14_n20": kernels["admm_box_qp_fused"]["n20"]["ms"] * 1e3,
         "us_per_launch_k16_n20": kernels["gpmpc_controller_fused_batched"]["n20"]["ms"] * 1e3,
+        "k16_cluster": {N: {key: k16[key] for key in ("cluster", "flights", "active", "smem")}
+                        for N, k16 in ((LONG_HORIZON, kernels["gpmpc_controller_fused_batched"]),
+                                       (20, kernels["gpmpc_controller_fused_batched"]["n20"]))},
+        "us_per_launch_k5_tightened_streamed":
+            kernels["gpmpc_multitick_fused_tightened"]["streamed_ms"] * 1e3,
+        "redesign_vs_older_checkout": redesign,
         "us_per_launch_k15_corpus": kernels["rbf_kernel_matrix_pallas"]["corpus"]["ms"] * 1e3,
         "us_per_launch_k15_corpus_cdist": kernels["rbf_kernel_matrix_pallas"]["corpus"]["cdist_ms"] * 1e3}
     print(json.dumps(line))
@@ -2687,4 +2896,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    argv = sys.argv[1:]
+    if argv[:1] == ["--time-redesigned"]:
+        sys.exit(time_redesigned_main(argv[1]))
+    sys.exit(main(parent=argv[1] if argv[:1] == ["--parent"] else None))

@@ -159,8 +159,9 @@ def _held(kernel, plain, name, tol):
 @pytest.mark.parametrize("horizon", [20, 25])
 def test_k14_and_k16_agree_with_their_plain_versions(cuda_device, horizon):
     """K14 on the staged MPC's own M^-1 and G and K16 for 64 flights, at
-    N=20 (operands in shared memory) and N=25 (K16's P1 through L2), within
-    2e-5 of scale, a second launch bit-identical."""
+    N=20 and N=25 (K14's operands in shared memory; K16's P1 split over a
+    thread-block cluster), within 2e-5 of scale, a second launch
+    bit-identical."""
     f32 = dict(dtype=torch.float32, device=cuda_device)
     gen = torch.Generator().manual_seed(horizon)
     mpc = LinearMPC(LinearMPCConfig(horizon=horizon, use_fused_controller=True),
@@ -216,3 +217,59 @@ def test_k15_and_the_plant_block_agree_with_their_plain_versions(cuda_device):
     _held(lambda: plant_pallas._allocation_plant_rows(s, cmd, integ, block, 0.02, 2),
           lambda: plant_pallas.allocation_plant_tick_plain(s, cmd, integ, block, 0.02, 2),
           "allocation_plant_tick_fused", 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 17, 257])
+def test_k16_over_clusters_agrees_with_its_plain_version(cuda_device, batch):
+    """K16 at N=25 for a lone flight, a ragged tile of flights and one
+    flight past the 256-flight population (a cluster more than the card
+    runs at once with 8 blocks each): three warm-started ticks, each one
+    launch within 2e-5 of scale of the plain version and a second launch
+    bit-identical."""
+    N = 25
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    gen = torch.Generator().manual_seed(batch)
+    mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True), device=cuda_device)
+    data = mpc._tick_data
+    X0 = (torch.randn(batch, 6, generator=gen) + torch.tensor([0, 0, 3.0, 0, 0, 0])).to(**f32)
+    W = (0.02 * torch.randn(batch, 6 * N, generator=gen)).to(**f32)
+    REF = torch.tensor([3.0, 0.0, 3.0, 0.0, 0.0, 0.0], **f32).repeat(N)[None]
+    Z = torch.zeros(batch, 10 * N, **f32)
+    Y = torch.zeros(batch, 10 * N, **f32)
+    for _ in range(3):
+        args = (data, data.ShiftT, X0, W, REF, Z, Y, 8.0, 80, 1.6)
+        _held(lambda: controller_pallas.gpmpc_controller_fused_batched(*args),
+              lambda: controller_pallas.gpmpc_controller_fused_batched_plain(*args),
+              "gpmpc_controller_fused_batched", 2e-5)
+        Z, Y, _, _ = controller_pallas.gpmpc_controller_fused_batched(*args)
+
+
+@pytest.mark.cuda
+def test_tightened_k5_at_horizon_23_agrees_with_its_plain_version(cuda_device):
+    """The tightened K5 at N=23 (the longest horizon whose tick fits one
+    block) with P=800 and K=8: one cluster launch within 1e-4 of each
+    output's scale of the plain version, a second launch bit-identical."""
+    N, P, K = 23, 800, 8
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    mpc = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=10, use_fused_controller=True),
+                    device=cuda_device)
+    rng = np.random.default_rng(23)
+    post = fit_residual_gp(torch.tensor(rng.normal(size=(P, 10)), **f32),
+                           torch.tensor(2.0 * rng.normal(size=(P, 6)), **f32))
+    gp = tick_pallas.build_gp_rows(post, 1.0, with_variance=True)
+    x0 = torch.zeros(12, **f32)
+    x0[:6] = torch.tensor([0.2, -0.1, 2.9, 7.8, 0.3, -0.1])
+    aux = torch.cat([x0[:6], torch.zeros(3, **f32)]).contiguous()
+    refs = torch.tensor([3.0, 0.0, 3.0, 9.0, 0.0, 0.0], **f32).repeat(K, N).contiguous()
+    plant_row = build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81, (0.8, 0.4, 0.0),
+                                device=cuda_device)
+    args = (mpc._tick_data, gp, x0, aux, x0[:6].repeat(N).contiguous(),
+            torch.zeros(10 * N, **f32), torch.zeros(10 * N, **f32), refs,
+            torch.zeros(K, **f32), plant_row)
+    statics = dict(k_ticks=K, use_gp=True, rho=8.0, iterations=10, over_relax=1.6, dt=0.02,
+                   substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                   yawrate_limit=0.8, n=N, tighten_kappa=2.0)
+    _held(lambda: tick_pallas.gpmpc_multitick_fused(*args, **statics),
+          lambda: tick_pallas.multitick_staged(*args, **statics),
+          "gpmpc_multitick_fused_tightened", 1e-4)

@@ -263,11 +263,14 @@ def test_k16_wrapper_checks_operands(k16_case):
                                                          8.0, 1)
     with pytest.raises(ValueError, match="ShiftT"):
         controller_pallas.gpmpc_controller_fused_batched(data, S[1:], X0, W, REF, Z0, Y0, 8.0, 1)
+    # P1 split over a cluster's blocks: every horizon up to the package
+    # default fits a block of 8, and a block of 1 holds P1 whole only where
+    # it is small
     limit = 232448
-    assert controller_pallas.fused_batched_shared_memory_bytes(20) <= limit   # P1 shared
-    assert controller_pallas.fused_batched_shared_memory_bytes(23) <= limit
-    assert controller_pallas.fused_batched_shared_memory_bytes(24) > limit
-    assert controller_pallas.fused_batched_shared_memory_bytes(25, p1_shared=False) < 32768
+    for n in (20, 23, 25):
+        assert controller_pallas.fused_batched_shared_memory_bytes(n) <= limit
+    assert controller_pallas.fused_slice_pad(25, 8) == 32
+    assert controller_pallas.fused_slice_pad(25, 1) > controller_pallas.FUSED_MAX_SLICE
 
 
 # ---------------------------------------------------------------------------

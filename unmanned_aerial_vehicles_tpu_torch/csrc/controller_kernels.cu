@@ -9,27 +9,46 @@
 // shift matrix works). Its plain version is the port's
 // ops/controller_pallas.py:gpmpc_controller_fused_batched_plain.
 //
-// Design: a block owns a tile of two flights (the tail tile is masked: any
-// batch) and keeps every vector of the tile in shared memory: z, y, the
-// double-buffered ADMM input rho z - y, p0, the bounds, [x0 | w], the
-// offset, f, M^-1 f and U. Each ADMM iteration is then a (2 x m)(m x m)
-// product: thread j owns column j of P1 for both flights, reads each P1
-// element once and uses it twice, and reads the flights' inputs as 16-byte
-// broadcasts. P1 lies in shared memory (kSharedP1: 160,000 bytes at N=20)
-// or is read through L1/L2 with 32 loads in flight per thread (the package
-// default N=25 has 250,000 bytes, more than one block holds); the wrapper
-// picks the variant. The shift and the set-up products read ShiftT,
-// SxSwT, SuTqT, PM, P0matT and SuT once per launch from global memory.
-// Every sum runs in a fixed order, so two launches agree bit for bit.
-//
 // What bounds K16 on an H100: operations. Per flight-tick 2 m^2 (shift) +
 // iterations m^2 (ADMM) multiply-adds plus the set-up, ~5.2 M at N=25 with
 // 80 iterations; ~2.7 GFLOP for the 256-flight population, ~40 us at
-// 67 TFLOP/s. At B=256 the 128 blocks hold 128 of the 132 SMs, one each;
-// per iteration a thread issues two shared loads per two multiply-adds
-// and waits on its P1 column, and the blocks re-read P1 from L2 (32 MB per
-// iteration at N=25): load traffic, not the FMA rate, sets the pace.
+// 67 TFLOP/s. What held its first design back was the operator, not the
+// arithmetic: one block per two flights, 128 blocks each re-reading P1
+// (250 KB at N=25, more than a block holds) from L2 in every one of the 80
+// iterations, ~2.56 GB per launch, with one shared load per multiply-add.
 //
+// Design: a thread-block cluster (csrc/cluster.cuh) of C blocks owns a tile
+// of 16 flights (the tail tile is masked: any batch). Block r keeps columns
+// [r m / C, (r + 1) m / C) of P1 in its shared memory for the whole launch
+// (32 KB at N=25, C=8) and holds the tile's whole matvec input v =
+// rho z - y (m x 16, double-buffered). An ADMM iteration is: each block
+// forms its column slice of GU = p0 + v P1 (float32 multiply-adds, 4 x 4
+// register tiles), runs the over-relaxation, box projection and dual update
+// on its own columns (z, y, p0 and the bounds stay in registers), writes its
+// slice of the new v into every block of the cluster through distributed
+// shared memory, and meets the others at one cluster barrier. The shift,
+// the offset, f, p0, M^-1 f, the primal refresh and X_tail are split over
+// the cluster by output columns the same way, whole rows exchanged where
+// the next product needs them. So every operand (ShiftT, SxSwT, SuTqT, PM,
+// P1, P0matT, SuT) is read from global memory once per cluster per launch:
+// P1 16 x 250 KB = 4 MB at B=256, N=25, where the first design read
+// ~2.56 GB. One design serves every horizon whose slices fit a block (N=20
+// and N=25 alike). C is the largest of 8 down to 1 whose clusters for the
+// batch all run at once (an H100 runs 15 clusters of 8 at once, not the 16
+// that 256 flights need); the wrapper asks for at least half an SM's shared
+// memory, so no SM runs two blocks of a cluster that meets at a barrier
+// every iteration.
+//
+// Tensor cores did not pay here (PERF.md, section 6). TF32 keeps about three
+// digits, so the product needs three of them (3xTF32: a_hi b_hi + a_hi b_lo
+// + a_lo b_hi) to hold the plain version's float32 sums; on the H100
+// mma.sync.m16n8k8 in TF32 ran at about the float32 FMA rate, so the three
+// cost more than the FMAs, and wgmma.m64n16k8 (P1's slice as the 64-row A,
+// the 16 flights as N) ran slower still, its 16-column tile too narrow to
+// fill the tensor cores, with sums near the check's tolerance. What bounds
+// this design is the shared-memory loads of the products' 4 x 4 tiles (two
+// 16-byte loads per 16 multiply-adds) and the per-iteration exchange.
+
 // K8 structured_batched_kernel replaces the JAX package's
 // ops/controller_pallas.py:gpmpc_controller_structured_batched
 // (_structured_batched_impl, pallas_call at :541). Its plain version is the
@@ -71,6 +90,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "smem_copy.cuh"
 
 // Host-visible (external linkage): laid out as ops/controller_pallas.py's
@@ -371,167 +391,444 @@ structured_batched_kernel(const StructuredParams P, const StructuredOperands O) 
   }
 }
 
-// K16's flights per block (ops/controller_pallas.py FUSED_FLIGHTS_PER_BLOCK).
-// A block's time grows with its flights (each thread's multiply-adds and
-// shared loads); fewer flights per block spread the work over more SMs but
-// read P1 from L2 more often per flight. Two was the fastest of 1, 2, 4, 8
-// and 16 on the H100 at B=256 (PERF.md).
-constexpr int kTile = 2;
-constexpr int kStepGlobal = 32;   // matrix loads in flight per thread from L2
-constexpr int kNx = 6, kNu = 4;
+// ---- K16 ---------------------------------------------------------------------
+//
+// A cluster of C blocks owns a tile of kTileFlights flights; block r owns
+// the column slice [r m / C, (r + 1) m / C) of every m-wide product and the
+// matching slices of the Nnu- and Nnx-wide ones (balanced to within one
+// column; ops/controller_pallas.py fused_column_slices mirrors them). Every
+// vector that a product reads is held flight-minor, [k][16] (the matvec
+// input v, Z0 and Y0, [x0 | w], offset - ref, f, U): a thread loads the
+// flights of a row with 16-byte loads, and a block's slice of a vector is
+// one contiguous run of 64-byte rows.
+//
+// slice_product: the block's 256 threads form T = swp tiles of 4 flights x
+// 4 columns (swp: the slice width rounded up to 4) times R = 256 / T ranges
+// of the K rows; thread (tile, range) accumulates its 16 products over its
+// rows in order, and slice_total adds the R ranges' sums in order. So the
+// sums are fixed for a given slice width, and two launches agree bit for
+// bit. The operand is P1's slice in shared memory (the ADMM) or one read
+// from device memory once per cluster (the set-up).
 
-template <bool kSharedP1>
+constexpr int kNx = 6, kNu = 4;
+constexpr int kTileFlights = 16;   // FUSED_TILE_FLIGHTS
+constexpr int kPartRow = 20;       // a partial column's 16 flights, padded: conflict-free stores
+constexpr int kMaxPairs = 2;       // flight pairs per thread: slices of at most
+                                   // FUSED_MAX_SLICE = 64 columns
+
+__host__ __device__ __forceinline__ int part_begin(int n, int parts, int r) {
+  return static_cast<int>(static_cast<long long>(r) * n / parts);
+}
+
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// part[(range swp + c) kPartRow + f] = sum over the range's rows k of
+// inT[k 16 + f] A[k lda + c0 + c] for the slice's columns c < w (zero up to
+// swp); A lies in shared memory ([k][swp], zero-padded: kSharedA) or in
+// device memory; eight rows of loads in flight.
+template <bool kSharedA>
+__device__ __forceinline__ void slice_product(const float* inT, int K,
+                                              const float* __restrict__ A, int lda, int c0,
+                                              int w, int swp, float* part, int tid) {
+  const int T = swp, R = kThreads / swp;
+  if (tid >= R * T) return;
+  const int tile = tid % T, range = tid / T, fg = tile & 3, col = 4 * (tile >> 2);
+  const int k0 = part_begin(K, R, range), k1 = part_begin(K, R, range + 1);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  auto row = [&](int k, float (&a)[4]) {
+    if constexpr (kSharedA) {
+      const float4 v = *reinterpret_cast<const float4*>(A + k * lda + col);
+      a[0] = v.x;
+      a[1] = v.y;
+      a[2] = v.z;
+      a[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[j] = col + j < w ? __ldg(A + static_cast<size_t>(k) * lda + c0 + col + j) : 0.0f;
+      }
+    }
+  };
+  auto fold = [&](const float4 v, const float (&a)[4]) {
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], a[j], acc[i][j]);
+    }
+  };
+  int k = k0;
+  for (; k + 8 <= k1; k += 8) {
+    float a[8][4];
+    float4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      row(k + u, a[u]);
+      x[u] = *reinterpret_cast<const float4*>(inT + (k + u) * kTileFlights + 4 * fg);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) fold(x[u], a[u]);
+  }
+  for (; k < k1; ++k) {
+    float a[4];
+    row(k, a);
+    fold(*reinterpret_cast<const float4*>(inT + k * kTileFlights + 4 * fg), a);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    *reinterpret_cast<float4*>(part + (range * swp + col + j) * kPartRow + 4 * fg) =
+        make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+  }
+}
+
+// The product at slice column c for flights 2 fp and 2 fp + 1: the
+// ranges' partial sums in range order (R = 256 / swp ranges).
+__device__ __forceinline__ float2 slice_total(const float* part, int swp, int c, int fp) {
+  const int R = kThreads / swp;
+  float2 s = *reinterpret_cast<const float2*>(part + c * kPartRow + 2 * fp);
+#pragma unroll 8
+  for (int r = 1; r < R; ++r) {
+    const float2 v = *reinterpret_cast<const float2*>(part + (r * swp + c) * kPartRow + 2 * fp);
+    s.x += v.x;
+    s.y += v.y;
+  }
+  return s;
+}
+
+// slice_total at every pair of the thread (column e / 8, flights 2 (e % 8)
+// and + 1, e = tid + j kThreads), the pairs' loads interleaved; a pair past
+// the slice's 8 w reads the last one's.
+__device__ __forceinline__ void pair_totals(const float* part, int swp, int w, int tid,
+                                            float2 (&s)[kMaxPairs]) {
+  const int R = kThreads / swp;
+  int at[kMaxPairs];
+#pragma unroll
+  for (int j = 0; j < kMaxPairs; ++j) {
+    const int e = min(tid + j * kThreads, 8 * w - 1);
+    at[j] = (e / 8) * kPartRow + 2 * (e % 8);
+    s[j] = *reinterpret_cast<const float2*>(part + at[j]);
+  }
+#pragma unroll 4
+  for (int r = 1; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < kMaxPairs; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(part + r * swp * kPartRow + at[j]);
+      s[j].x += v.x;
+      s[j].y += v.y;
+    }
+  }
+}
+
+// Writes `value` into row `row` (16 flights) at flights 2 fp, 2 fp + 1 of
+// `buf` in every block of the cluster.
+__device__ __forceinline__ void put_pair(float* buf, int row, int fp, float2 value, int C) {
+  for (int r = 0; r < C; ++r) {
+    *reinterpret_cast<float2*>(uav::peer_shared(buf, r) + row * kTileFlights + 2 * fp) = value;
+  }
+}
+
+// dst(i) = load(i) for i < n over the block, eight loads in flight per thread.
+template <class Load, class Store>
+__device__ __forceinline__ void gather(int n, int tid, Load load, Store store) {
+  for (int i0 = tid; i0 < n; i0 += 8 * kThreads) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = i0 + u * kThreads < n ? load(i0 + u * kThreads) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (i0 + u * kThreads < n) store(i0 + u * kThreads, v[u]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 fused_batched_kernel(const FusedBatchedParams P, const FusedBatchedOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tid = threadIdx.x;
+  const int C = static_cast<int>(uav::cluster_blocks());
+  const int rank = static_cast<int>(uav::cluster_rank());
   const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu, nxw = kNx + Nnx;
-  const int ldm = round4(m), ldw = round4(nxw), ldx = round4(Nnx), ldu = round4(Nnu);
-  const int b0 = blockIdx.x * kTile;
+  const int b0 = static_cast<int>(blockIdx.x) / C * kTileFlights;
   const float rho = P.rho, a = P.over_relax, am = P.one_minus_over_relax;
+  constexpr int F = kTileFlights;
+
+  // this block's slices (begin, width, width rounded up to 4): the m columns
+  // of the ADMM, Nnu of U, Nnx of X
+  const int c0 = part_begin(m, C, rank), w = part_begin(m, C, rank + 1) - c0;
+  const int u0 = part_begin(Nnu, C, rank), uw = part_begin(Nnu, C, rank + 1) - u0;
+  const int x0 = part_begin(Nnx, C, rank), xw = part_begin(Nnx, C, rank + 1) - x0;
+  const int swp = 4 * ceil_div(w, 4), uswp = 4 * ceil_div(uw, 4), xswp = 4 * ceil_div(xw, 4);
 
   // shared memory layout (ops/controller_pallas.py
-  // fused_batched_shared_memory_bytes); every row starts 16-byte aligned
-  float* P1s = sm;
-  float* z = P1s + (kSharedP1 ? round4(m * m) : 0);   // kTile rows of ldm each
-  float* y = z + kTile * ldm;
-  float* va = y + kTile * ldm;      // ADMM input rho z - y, double-buffered;
-  float* vb = va + kTile * ldm;     // Z0 and Y0 before the shift
-  float* p0 = vb + kTile * ldm;
-  float* lower = p0 + kTile * ldm;
-  float* upper = lower + kTile * ldm;
-  float* xw = upper + kTile * ldm;  // [x0 | w], kTile rows of ldw
-  float* off = xw + kTile * ldw;    // offset, kTile rows of ldx
-  float* dref = off + kTile * ldx;  // ref, then offset - ref
-  float* f = dref + kTile * ldx;    // kTile rows of ldu
-  float* minvf = f + kTile * ldu;
-  float* U = minvf + kTile * ldu;
+  // fused_batched_shared_memory_bytes); every array starts 16-byte aligned
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(sm);   // 2 mbarriers
+  float* P1s = sm + 4;                      // [m][swp]: P1's column slice
+  float* vbuf = P1s + m * swp;              // 2 x [m][16]: Z0, Y0; then v, double-buffered
+  float* part = vbuf + 2 * m * F;           // 256 partial columns of kPartRow
+  float* xwv = part + kThreads * kPartRow;  // [nxw][16]: [x0 | w]; then offset - ref
+  float* off = xwv + nxw * F;               // [Nnx][16]: the offset (exchanged)
+  float* fv = off + Nnx * F;                // [Nnu][16]: f, then U (exchanged)
+  float* minvf = fv + Nnu * F;              // [uw][16]: M^-1 f on the U slice
 
-  // ---- load: P1, the tile's unshifted warm start, [x0 | w], ref ----------
-  // (flights past the batch load zeros)
-  if constexpr (kSharedP1) {
-    uav::copy_to_shared<8>(reinterpret_cast<float4*>(P1s), reinterpret_cast<const float4*>(O.P1),
-                           m * m / 4, tid, nth);
+  // ---- P1's slice (read once per cluster; first read by the ADMM: its copy
+  // runs asynchronously behind the set-up, cp.async, waited for before the
+  // first iteration)
+  for (int i = tid; i < m * swp; i += kThreads) {
+    const int c = i % swp;
+    if (c < w) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(uav::shared_address(P1s + i)),
+                   "l"(O.P1 + static_cast<size_t>(i / swp) * m + c0 + c)
+                   : "memory");
+    } else {
+      P1s[i] = 0.0f;
+    }
   }
-  for (int i = tid; i < kTile * m; i += nth) {
-    const int fl = i / m, c = i % m, b = b0 + fl;
-    const bool ok = b < P.batch;
-    va[fl * ldm + c] = ok ? O.Z0[(size_t)b * m + c] : 0.0f;
-    vb[fl * ldm + c] = ok ? O.Y0[(size_t)b * m + c] : 0.0f;
-  }
-  for (int i = tid; i < kTile * nxw; i += nth) {
-    const int fl = i / nxw, c = i % nxw, b = b0 + fl;
-    float v = 0.0f;
-    if (b < P.batch) v = c < kNx ? O.X0[b * kNx + c] : O.W[(size_t)b * P.w_stride + c - kNx];
-    xw[fl * ldw + c] = v;
-  }
-  for (int i = tid; i < kTile * Nnx; i += nth) {
-    const int fl = i / Nnx, r = i % Nnx, b = b0 + fl;
-    dref[fl * ldx + r] = b < P.batch ? O.REF[(size_t)b * P.ref_stride + r] : 0.0f;
-  }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;" ::: "memory");
 
-  // ---- warm-start shift z = Z0 ShiftT, y = Y0 ShiftT ----------------------
-  for (int j = tid; j < m; j += nth) {
-    float az[kTile], ay[kTile];
-    tile_dot<kTile, true, kStepGlobal>(va, ldm, O.ShiftT, m, j, m, az);
-    tile_dot<kTile, true, kStepGlobal>(vb, ldm, O.ShiftT, m, j, m, ay);
-#pragma unroll
-    for (int g = 0; g < kTile; ++g) {
-      z[g * ldm + j] = az[g];
-      y[g * ldm + j] = ay[g];
-    }
+  // ---- load: the tile's unshifted warm start and [x0 | w] (flights past the
+  // batch load zeros)
+  if (tid == 0) {
+    uav::barrier_init(full, 1);
+    uav::barrier_init(full + 1, 1);
+    uav::fence_barrier_init();
   }
-  // ---- prediction offset = [x0, w] @ [Sx'; Sw'], offset - ref -------------
-  for (int r = tid; r < Nnx; r += nth) {
-    float acc[kTile];
-    tile_dot<kTile, true, kStepGlobal>(xw, ldw, O.SxSwT, Nnx, r, nxw, acc);
-#pragma unroll
-    for (int g = 0; g < kTile; ++g) {
-      off[g * ldx + r] = acc[g];
-      dref[g * ldx + r] = acc[g] - dref[g * ldx + r];
-    }
-  }
+  // (element j: plane, then runs of 8 rows x 4 flights with the rows
+  // fastest, so a warp reads 4 runs of 8 consecutive floats)
+  const int runs = ceil_div(m, 8);
+  auto warm_row = [&](int j) { return (j / 32 % runs) * 8 + j % 8; };
+  auto warm_flight = [&](int j) { return j / (32 * runs) % 4 * 4 + j % 32 / 8; };
+  gather(2 * runs * 32 * 4, tid,
+         [&](int j) {
+           const int plane = j / (runs * 128), k = warm_row(j), b = b0 + warm_flight(j);
+           return b < P.batch && k < m ? (plane ? O.Y0 : O.Z0)[static_cast<size_t>(b) * m + k]
+                                       : 0.0f;
+         },
+         [&](int j, float v) {
+           const int k = warm_row(j);
+           if (k < m) vbuf[j / (runs * 128) * m * F + k * F + warm_flight(j)] = v;
+         });
+  gather(nxw * F, tid,
+         [&](int i) {
+           const int k = i / F, b = b0 + i % F;
+           if (b >= P.batch) return 0.0f;
+           return k < kNx ? O.X0[b * kNx + k] : O.W[static_cast<size_t>(b) * P.w_stride + k - kNx];
+         },
+         [&](int i, float v) { xwv[i] = v; });
   __syncthreads();
-  // ---- condensed gradient f, box bounds, the first ADMM input -------------
-  for (int c = tid; c < Nnu; c += nth) {
-    float acc[kTile];
-    tile_dot<kTile, true, kStepGlobal>(dref, ldx, O.SuTqT, Nnu, c, Nnx, acc);
+  uav::cluster_arrive();   // every block has started; waited on before the first remote write
+
+  // ---- warm-start shift z = Z0 ShiftT, y = Y0 ShiftT on this block's columns;
+  // thread pair j is (column e / 8, flights 2 (e % 8) and +1), e = tid + j kThreads
+  float z[kMaxPairs][2], y[kMaxPairs][2], p0[kMaxPairs][2], lower[kMaxPairs][2],
+      upper[kMaxPairs][2];
+  auto pair_on = [&](int j) { return tid + j * kThreads < 8 * w; };
 #pragma unroll
-    for (int g = 0; g < kTile; ++g) f[g * ldu + c] = acc[g];
-  }
-  for (int i = tid; i < kTile * m; i += nth) {
-    const int fl = i / m, j = i % m, k = fl * ldm + j;
-    const float off_z = j >= Nnu ? off[fl * ldx + j - Nnu] : 0.0f;
-    lower[k] = __ldg(O.lo_row + j) - off_z;
-    upper[k] = __ldg(O.hi_row + j) - off_z;
-    va[k] = rho * z[k] - y[k];
-  }
-  __syncthreads();
-  // ---- p0 = -(f @ P0mat), M^-1 f = f @ MinvT --------------------------------
-  for (int j = tid; j < npm; j += nth) {
-    float acc[kTile];
-    tile_dot<kTile, true, kStepGlobal>(f, ldu, O.PM, npm, j, Nnu, acc);
+  for (int plane = 0; plane < 2; ++plane) {
+    slice_product<false>(vbuf + plane * m * F, m, O.ShiftT, m, c0, w, swp, part, tid);
+    __syncthreads();
 #pragma unroll
-    for (int g = 0; g < kTile; ++g) {
-      if (j < m) p0[g * ldm + j] = -acc[g];
-      else minvf[g * ldu + j - m] = acc[g];
-    }
-  }
-  __syncthreads();
-  // ---- composite ADMM: GU = p0 + (rho z - y) P1 for the four flights --------
-  const float* P1 = kSharedP1 ? P1s : O.P1;
-  float* vsrc = va;
-  float* vdst = vb;
-  for (int it = 0; it < P.iterations; ++it) {
-    for (int j = tid; j < m; j += nth) {
-      float acc[kTile];
-      if constexpr (kSharedP1) tile_dot<kTile, false, 16>(vsrc, ldm, P1, m, j, m, acc);
-      else tile_dot<kTile, true, kStepGlobal>(vsrc, ldm, P1, m, j, m, acc);
-#pragma unroll
-      for (int g = 0; g < kTile; ++g) {
-        const int k = g * ldm + j;
-        const float GU = p0[k] + acc[g];
-        const float Gt = a * GU + am * z[k];
-        const float zn = clipf(Gt + y[k] / rho, lower[k], upper[k]);
-        const float yn = y[k] + rho * (Gt - zn);
-        z[k] = zn;
-        y[k] = yn;
-        vdst[k] = rho * zn - yn;
+    for (int j = 0; j < kMaxPairs; ++j) {
+      const int e = tid + j * kThreads;
+      const float2 s = pair_on(j) ? slice_total(part, swp, e / 8, e % 8) : make_float2(0.f, 0.f);
+      if (plane == 0) {
+        z[j][0] = s.x;
+        z[j][1] = s.y;
+      } else {
+        y[j][0] = s.x;
+        y[j][1] = s.y;
       }
     }
     __syncthreads();
-    float* tmp = vsrc;
-    vsrc = vdst;
-    vdst = tmp;
   }
-  // ---- primal U = -M^-1 f + (rho z - y) G M^-1, then X_tail ----------------
-  for (int c = tid; c < Nnu; c += nth) {
-    float acc[kTile];
-    tile_dot<kTile, true, kStepGlobal>(vsrc, ldm, O.P0matT, Nnu, c, m, acc);
+  // ---- prediction offset = [x0, w] [Sx'; Sw'] on this block's X columns -----
+  slice_product<false>(xwv, nxw, O.SxSwT, Nnx, x0, xw, xswp, part, tid);
+  __syncthreads();
+  uav::cluster_wait();
+  for (int e = tid; e < 8 * xw; e += kThreads) {
+    put_pair(off, x0 + e / 8, e % 8, slice_total(part, xswp, e / 8, e % 8), C);
+  }
+  uav::cluster_sync();   // whole offset rows in every block; every block is done with Z0, Y0
+
+  // ---- offset - ref (into xwv); f on this block's U columns; the first input
+  gather(Nnx * F, tid,
+         [&](int i) {
+           const int b = b0 + i % F;
+           const float ref =
+               b < P.batch ? O.REF[static_cast<size_t>(b) * P.ref_stride + i / F] : 0.0f;
+           return off[i] - ref;
+         },
+         [&](int i, float v) { xwv[i] = v; });
+  __syncthreads();
+  slice_product<false>(xwv, Nnx, O.SuTqT, Nnu, u0, uw, uswp, part, tid);
+  __syncthreads();
+  for (int e = tid; e < 8 * uw; e += kThreads) {
+    put_pair(fv, u0 + e / 8, e % 8, slice_total(part, uswp, e / 8, e % 8), C);
+  }
 #pragma unroll
-    for (int g = 0; g < kTile; ++g) {
-      const float u = -minvf[g * ldu + c] + acc[g];
-      U[g * ldu + c] = u;
-      if (b0 + g < P.batch) O.u_out[(size_t)(b0 + g) * Nnu + c] = u;
+  for (int j = 0; j < kMaxPairs; ++j) {
+    if (pair_on(j)) {
+      const int e = tid + j * kThreads;
+      put_pair(vbuf, c0 + e / 8, e % 8,
+               make_float2(rho * z[j][0] - y[j][0], rho * z[j][1] - y[j][1]), C);
+    }
+  }
+  uav::cluster_sync();   // whole f rows and the first input rows in every block
+
+  // ---- p0 = -(f P0mat) and the box bounds on this block's columns, M^-1 f on
+  // its U columns
+  slice_product<false>(fv, Nnu, O.PM, npm, c0, w, swp, part, tid);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kMaxPairs; ++j) {
+    const int e = tid + j * kThreads, jc = c0 + e / 8;
+    const float2 s = pair_on(j) ? slice_total(part, swp, e / 8, e % 8) : make_float2(0.f, 0.f);
+    p0[j][0] = -s.x;
+    p0[j][1] = -s.y;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lower[j][h] = upper[j][h] = 0.0f;
+      if (pair_on(j)) {
+        const float off_z = jc >= Nnu ? off[(jc - Nnu) * F + 2 * (e % 8) + h] : 0.0f;
+        lower[j][h] = __ldg(O.lo_row + jc) - off_z;
+        upper[j][h] = __ldg(O.hi_row + jc) - off_z;
+      }
     }
   }
   __syncthreads();
-  for (int r = tid; r < Nnx; r += nth) {
-    float acc[kTile];
-    tile_dot<kTile, true, kStepGlobal>(U, ldu, O.SuT, Nnx, r, Nnu, acc);
-#pragma unroll
-    for (int g = 0; g < kTile; ++g)
-      if (b0 + g < P.batch) O.xtail_out[(size_t)(b0 + g) * Nnx + r] = off[g * ldx + r] + acc[g];
+  slice_product<false>(fv, Nnu, O.PM, npm, m + u0, uw, uswp, part, tid);
+  __syncthreads();
+  for (int e = tid; e < 8 * uw; e += kThreads) {
+    *reinterpret_cast<float2*>(minvf + (e / 8) * F + 2 * (e % 8)) =
+        slice_total(part, uswp, e / 8, e % 8);
   }
-  for (int i = tid; i < kTile * m; i += nth) {
-    const int fl = i / m, j = i % m, b = b0 + fl;
-    if (b < P.batch) {
-      O.z_out[(size_t)b * m + j] = z[fl * ldm + j];
-      O.y_out[(size_t)b * m + j] = y[fl * ldm + j];
+  __syncthreads();
+
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // ---- composite ADMM: GU = p0 + (rho z - y) P1 on this block's columns ----
+  // Each block writes its slice of the new input v into its own copy of the
+  // other buffer, then thread r copies that run of rows into block r with a
+  // bulk copy, whose bytes complete on the receiver's
+  // transaction barrier for that buffer; the receiver waits on it before
+  // its next product. A block overwrites a buffer only after it has every
+  // block's slice of the iteration that last read it, so the two buffers
+  // need no other barrier.
+  const unsigned slice_bytes = static_cast<unsigned>(w * F * 4);
+  const unsigned peer_bytes = static_cast<unsigned>((m - w) * F * 4);
+  for (int it = 0; it < P.iterations; ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    if (it > 0) uav::barrier_wait(full + cur, ((it - 1) >> 1) & 1);
+    const float* vin = vbuf + cur * m * F;
+    float* vout = vbuf + nxt * m * F;
+    slice_product<true>(vin, m, P1s, swp, 0, w, swp, part, tid);
+    // this buffer's slice was last copied out two iterations ago
+    if (tid < C) uav::copies_wait_read<1>();
+    __syncthreads();
+    float2 sums[kMaxPairs];
+    pair_totals(part, swp, w, tid, sums);
+#pragma unroll
+    for (int j = 0; j < kMaxPairs; ++j) {
+      if (pair_on(j)) {
+        const int e = tid + j * kThreads;
+        const float gu[2] = {sums[j].x, sums[j].y};
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float Gt = a * (p0[j][h] + gu[h]) + am * z[j][h];
+          const float zn = clipf(Gt + y[j][h] / rho, lower[j][h], upper[j][h]);
+          const float yn = y[j][h] + rho * (Gt - zn);
+          z[j][h] = zn;
+          y[j][h] = yn;
+          v[h] = rho * zn - yn;
+        }
+        *reinterpret_cast<float2*>(vout + (c0 + e / 8) * F + 2 * (e % 8)) =
+            make_float2(v[0], v[1]);
+      }
+    }
+    uav::fence_for_copies();
+    __syncthreads();
+    if (tid == 0) uav::barrier_expect(full + nxt, peer_bytes);
+    if (tid < C) {
+      if (tid != rank) {
+        uav::copy_to_peer(vout + c0 * F, vout + c0 * F, slice_bytes, full + nxt, tid);
+      }
+      uav::copies_commit();
     }
   }
+  if (P.iterations > 0) {
+    uav::barrier_wait(full + (P.iterations & 1), ((P.iterations - 1) >> 1) & 1);
+  } else {
+    uav::cluster_sync();   // every block is done reading f
+  }
+
+  // ---- primal U = -M^-1 f + (rho z - y) P0mat' on this block's U columns ----
+  slice_product<false>(vbuf + (P.iterations & 1) * m * F, m, O.P0matT, Nnu, u0, uw, uswp, part,
+                       tid);
+  __syncthreads();
+  for (int e = tid; e < 8 * uw; e += kThreads) {
+    const int c = e / 8, fp = e % 8;
+    const float2 s = slice_total(part, uswp, c, fp);
+    const float2 mf = *reinterpret_cast<const float2*>(minvf + c * F + 2 * fp);
+    const float2 u = make_float2(-mf.x + s.x, -mf.y + s.y);
+    put_pair(fv, u0 + c, fp, u, C);
+    if (b0 + 2 * fp < P.batch) O.u_out[static_cast<size_t>(b0 + 2 * fp) * Nnu + u0 + c] = u.x;
+    if (b0 + 2 * fp + 1 < P.batch) {
+      O.u_out[static_cast<size_t>(b0 + 2 * fp + 1) * Nnu + u0 + c] = u.y;
+    }
+  }
+  // whole U rows in every block; the last remote access of the launch (every
+  // bulk copy has landed: each block waited for its last buffer), so no
+  // block exits while a peer still writes its shared memory
+  uav::cluster_sync();
+  // ---- X_tail = offset + U Su' on this block's X columns; the slack, dual --
+  slice_product<false>(fv, Nnu, O.SuT, Nnx, x0, xw, xswp, part, tid);
+  __syncthreads();
+  for (int e = tid; e < 8 * xw; e += kThreads) {
+    const int c = e / 8, fp = e % 8;
+    const float2 s = slice_total(part, xswp, c, fp);
+    const float xs[2] = {s.x, s.y};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + 2 * fp + h;
+      if (b < P.batch) {
+        O.xtail_out[static_cast<size_t>(b) * Nnx + x0 + c] =
+            off[(x0 + c) * F + 2 * fp + h] + xs[h];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxPairs; ++j) {
+    const int e = tid + j * kThreads;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + 2 * (e % 8) + h;
+      if (pair_on(j) && b < P.batch) {
+        O.z_out[static_cast<size_t>(b) * m + c0 + e / 8] = z[j][h];
+        O.y_out[static_cast<size_t>(b) * m + c0 + e / 8] = y[j][h];
+      }
+    }
+  }
+}
+
+int fused_configured_bytes = -1;
+
+// Raise the kernel's shared-memory limit once per size (host-side call,
+// kept out of the per-launch path and out of CUDA graph captures).
+int configure_fused(int smem_bytes) {
+  if (smem_bytes > fused_configured_bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_configured_bytes = smem_bytes;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -555,19 +852,19 @@ extern "C" int structured_batched_launch(const StructuredParams* params,
 }
 
 extern "C" int fused_batched_launch(const FusedBatchedParams* params,
-                                    const FusedBatchedOperands* ops, int p1_shared,
+                                    const FusedBatchedOperands* ops, int cluster,
                                     int smem_bytes, void* stream) {
-  // raise the block's shared-memory limit once per size and variant
-  static int configured_bytes[2] = {-1, -1};
-  auto kernel = p1_shared ? fused_batched_kernel<true> : fused_batched_kernel<false>;
-  int* configured = &configured_bytes[p1_shared ? 0 : 1];
-  if (smem_bytes > *configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    *configured = smem_bytes;
-  }
-  const int blocks = (params->batch + kTile - 1) / kTile;
-  kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
-  return (int)cudaGetLastError();
+  const int err = configure_fused(smem_bytes);
+  if (err != 0) return err;
+  const int clusters = (params->batch + kTileFlights - 1) / kTileFlights;
+  return uav::launch_cluster(fused_batched_kernel, clusters * cluster, kThreads, cluster,
+                             smem_bytes, static_cast<cudaStream_t>(stream), *params, *ops);
+}
+
+// The number of K16 clusters of `cluster` blocks with `smem_bytes` each
+// that the card runs at once, into *count.
+extern "C" int fused_batched_max_active_clusters(int cluster, int smem_bytes, int* count) {
+  const int err = configure_fused(smem_bytes);
+  if (err != 0) return err;
+  return uav::max_active_clusters(fused_batched_kernel, kThreads, cluster, smem_bytes, count);
 }

@@ -2,7 +2,7 @@
 // (noisy_tick_kernel.cu): the GP horizon posterior mean, the warm-start
 // shift and the condensed controller solve, one device implementation for
 // both kernels; and K5's GP posterior variance with the box back-off it
-// sets (gp_horizon_tightening).
+// sets, over a thread-block cluster (variance_share, variance_backoff).
 //
 // The GP and the shift take the threads they run on (tid, nth) and the
 // barrier that joins them: the whole block (K5), or the warps that run
@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include "block_linalg.cuh"
+#include "cluster.cuh"
 
 namespace uav {
 
@@ -110,130 +111,182 @@ __device__ __forceinline__ void gp_horizon_rows(const GPOperands& g, int N, cons
 //   sig[k*6 + 3 + j] = gain^2 var_lat[k] y_std[3+j]^2 (0 on rows j < 3)
 //   var_x    = sig @ SwSqT               tight_X = min(kappa sqrt(var_x),
 //                                                  0.45 (hi - lo))
-// and tight = 0 on the U-block. Thread p owns column p of K^-1 (neighbouring
-// threads read neighbouring addresses, 32 rows in flight at a time) and
-// keeps r[k] = sum_q K^-1[q, p] K*[k, q] for every stage in registers, the
-// stage loop unrolled to kMaxVarStages (rows past N are zeros, so no
-// predicate breaks the unrolled multiply-adds); K*'s columns pass through a
-// double-buffered shared tile, the next tile's loads in flight while the
-// current one is used (one barrier per tile). The thread then adds r[k]
-// K*[k, p] to its own quad[k]; those are reduced by a fixed shuffle tree
-// and the warps' sums added in warp order: a second launch is bit
-// identical. K^-1 is read once per tick (2.56 MB at P = 800, L2-resident
-// across the launch's ticks).
-constexpr int kVarTile = 64;        // ops/tick_pallas.py VAR_TILE
+// and tight = 0 on the U-block.
+//
+// The quadratic form runs over a thread-block cluster beside the tick
+// (tick_kernel.cu): rank 0 runs the tick, ranks 1..W are workers. K^-1 is
+// symmetric, so quad[k] = sum_q K^-1_qq K*_kq^2 + 2 sum_{q<p} K*_kq
+// K^-1_qp K*_kp: the upper triangle only, half the multiply-adds. Worker r
+// takes the triangle's rows [rows[r-1], rows[r]), cut so that every worker
+// has the same count of entries to within one row (ops/tick_pallas.py
+// variance_row_shares), and leaves its partial sums of quad in its own
+// shared memory (variance_share); rank 0 adds them in rank order through
+// distributed shared memory and forms the back-off (variance_backoff).
+// Every sum runs in a fixed order, so a second launch is bit-identical.
 constexpr int kMaxVarStages = 24;   // ops/tick_pallas.py MAX_VAR_STAGES
-constexpr int kVarTileFloats = kMaxVarStages * kVarTile;
-constexpr int kVarRows = 32;        // rows of K^-1 loaded before their use
+constexpr int kVarRows = 16;        // VAR_ROWS: rows of K^-1 per task
+constexpr int kMaxVarWorkers = 15;  // VAR_MAX_CLUSTER - 1: ranks 1..15 of a cluster of 16
+// a worker's shared memory: its partial sums (kMaxVarStages), the warps'
+// sums (8 x kMaxVarStages), then K*'s columns of its rows and, with K^-1
+// in shared memory, its rows of the triangle
+constexpr int kVarHead = 9 * kMaxVarStages;
 
 struct VarianceOperands {
   const float *kinv, *y_std, *SwSqT, *scal;
   float kappa;
 };
 
-// Thread tid's share of K*'s tile t (zeros past stage N and column P):
-// element j is row (j kNth + tid) / kVarTile, column (j kNth + tid) %
-// kVarTile of the tile; the shared tiles alternate between two buffers.
-template <int kNth>
-__device__ __forceinline__ void fetch_kst_tile(const float* kst, int N, int P, int t, int tid,
-                                               float (&pre)[kVarTileFloats / kNth]) {
-#pragma unroll
-  for (int j = 0; j < kVarTileFloats / kNth; ++j) {
-    const int i = j * kNth + tid, k = i / kVarTile, q = t * kVarTile + i % kVarTile;
-    pre[j] = (k < N && q < P) ? kst[k * P + q] : 0.0f;
-  }
+// Offset of row q's first entry (column q) in a share packed row by row
+// from row q0, each row q holding columns q..P-1.
+__device__ __forceinline__ int packed_row(int q, int q0, int P) {
+  return (q - q0) * P - ((q - q0) * (q + q0 - 1)) / 2;
 }
 
-template <int kNth>
-__device__ __forceinline__ void put_kst_tile(float* tiles, int t, int tid,
-                                             const float (&pre)[kVarTileFloats / kNth]) {
+// A worker's partial sums quad_out[k] over the triangle rows [q0, q1), on
+// kNth threads. kS: the stages rounded up to 4 (stages past N are zeros).
+// kst: K* in device memory, written by rank 0 in this launch, so read
+// through L2 (ld.cg), never the read-only cache; kinv: K^-1 in device
+// memory (kShared false) or `share`, the rows packed in shared memory.
+// rows: this share's K* columns as (row - q0, stage) pairs, kS floats a
+// row, zero on the padded rows; wsum: 8 x kS.
+//
+// Tasks are (a block of kVarRows rows, a column p >= the block's first
+// row), listed block by block and dealt to the threads round robin, so
+// every thread gets the same count to within one: a task loads its
+// kVarRows entries of K^-1's column p (neighbouring threads read
+// neighbouring columns) and K*'s column p, and folds t[k] = sum_q w_qp
+// K^-1_qp K*_kq (w = 2 off the diagonal, 1 on it, 0 below it) into
+// quad[k] += t[k] K*_kp. A thread loads its next task's operands before it
+// folds the current one, so their latency hides behind the arithmetic.
+template <int kS, bool kShared, int kNth>
+__device__ void variance_share(const float* __restrict__ kinv, const float* kst,
+                               const float* share, int N, int P, int q0, int q1, float* rows,
+                               float* wsum, float* quad_out, int tid) {
+  static_assert(kS % 4 == 0 && kS <= kMaxVarStages, "stages in float4 rows");
+  const int nq = q1 - q0;
+  for (int i0 = tid; i0 < N * nq; i0 += 8 * kNth) {
+    float v[8];
 #pragma unroll
-  for (int j = 0; j < kVarTileFloats / kNth; ++j) {
-    tiles[(t & 1) * kVarTileFloats + j * kNth + tid] = pre[j];
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kNth;
+      v[u] = i < N * nq ? __ldcg(kst + static_cast<size_t>(i / nq) * P + q0 + i % nq) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kNth;
+      if (i < N * nq) rows[(i % nq) * kS + i / nq] = v[u];
+    }
   }
-}
-
-// Shared scratch: tiles (2 * kVarTileFloats, 16-byte aligned), wsum
-// ((kNth / 32) * kMaxVarStages), sig (N * 6); part (the matvec slices, >=
-// kNth + N * 6). Writes tight (m) and ends with a barrier (bar).
-template <int kNth, class Barrier>
-__device__ __forceinline__ void gp_horizon_tightening(
-    const VarianceOperands& v, int N, int n_train, const float* kst, const float* lo,
-    const float* hi, float* tiles, float* wsum, float* sig, float* part, float* tight, int tid,
-    Barrier bar) {
-  static_assert(kVarTileFloats % kNth == 0, "a tile is a whole number of loads per thread");
-  constexpr int kLoads = kVarTileFloats / kNth;
-  const int P = n_train, Nnu = N * kTickNu, Nnx = N * kTickNx;
-  const int n_tiles = (P + kVarTile - 1) / kVarTile;
-  float quad[kMaxVarStages];
+  __syncthreads();
+  float quad[kS];
 #pragma unroll
-  for (int k = 0; k < kMaxVarStages; ++k) quad[k] = 0.0f;
-  const int rounds = (P + kNth - 1) / kNth;
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int p = rd * kNth + tid;
-    const bool active = p < P;
-    float r[kMaxVarStages];
-#pragma unroll
-    for (int k = 0; k < kMaxVarStages; ++k) r[k] = 0.0f;
-    float pre[kLoads];
-    fetch_kst_tile<kNth>(kst, N, P, 0, tid, pre);
-    put_kst_tile<kNth>(tiles, 0, tid, pre);   // free: their last use ended at a barrier
-    bar();
-    for (int t = 0; t < n_tiles; ++t) {
-      if (t + 1 < n_tiles) fetch_kst_tile<kNth>(kst, N, P, t + 1, tid, pre);
-      if (active) {
-        const float* buf = tiles + (t & 1) * kVarTileFloats;
-        const int q0 = t * kVarTile, qn = min(kVarTile, P - q0);
-        const float* col = v.kinv + static_cast<size_t>(q0) * P + p;
-        for (int g = 0; g < qn; g += kVarRows) {
-          float a[kVarRows];
-#pragma unroll
-          for (int u = 0; u < kVarRows; ++u) {
-            a[u] = g + u < qn ? __ldg(col + static_cast<size_t>(g + u) * P) : 0.0f;
-          }
-#pragma unroll
-          for (int k = 0; k < kMaxVarStages; ++k) {
-            const float4* t4 = reinterpret_cast<const float4*>(buf + k * kVarTile + g);
-            float acc = r[k];
-#pragma unroll
-            for (int qq = 0; qq < kVarRows / 4; ++qq) {
-              const float4 w = t4[qq];
-              acc = fmaf(a[4 * qq], w.x, acc);
-              acc = fmaf(a[4 * qq + 1], w.y, acc);
-              acc = fmaf(a[4 * qq + 2], w.z, acc);
-              acc = fmaf(a[4 * qq + 3], w.w, acc);
-            }
-            r[k] = acc;
-          }
-        }
-      }
-      if (t + 1 < n_tiles) put_kst_tile<kNth>(tiles, t + 1, tid, pre);
-      bar();
+  for (int k = 0; k < kS; ++k) quad[k] = 0.0f;
+  int tasks = 0;
+  for (int qc = q0; qc < q1; qc += kVarRows) tasks += P - qc;
+  int block = q0, before = 0;   // the row block of the task being located, tasks before it
+  auto locate = [&](int task, int& qc, int& p) {
+    while (task - before >= P - block) {
+      before += P - block;
+      block += kVarRows;
     }
-    if (active) {
+    qc = block;
+    p = block + task - before;
+  };
+  auto fetch = [&](int qc, int p, float (&a)[kVarRows], float (&kp)[kS]) {
 #pragma unroll
-      for (int k = 0; k < kMaxVarStages; ++k) {
-        if (k < N) quad[k] = fmaf(r[k], kst[k * P + p], quad[k]);
+    for (int k = 0; k < kS; ++k) {
+      kp[k] = k < N ? __ldcg(kst + static_cast<size_t>(k) * P + p) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kVarRows; ++u) {
+      const int q = qc + u;
+      float v = 0.0f;
+      if (q < q1 && q <= p) {
+        if constexpr (kShared) v = share[packed_row(q, q0, P) + p - q];
+        else v = __ldg(kinv + static_cast<size_t>(q) * P + p);
+        if (q < p) v += v;
+      }
+      a[u] = v;
+    }
+  };
+  float a_next[kVarRows], kp_next[kS];
+  int qc_next = 0, p_next = 0;
+  if (tid < tasks) {
+    locate(tid, qc_next, p_next);
+    fetch(qc_next, p_next, a_next, kp_next);
+  }
+  for (int task = tid; task < tasks; task += kNth) {
+    float a[kVarRows], kp[kS];
+#pragma unroll
+    for (int u = 0; u < kVarRows; ++u) a[u] = a_next[u];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) kp[k] = kp_next[k];
+    const int qc = qc_next;
+    if (task + kNth < tasks) {
+      locate(task + kNth, qc_next, p_next);
+      fetch(qc_next, p_next, a_next, kp_next);
+    }
+    float t[kS];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) t[k] = 0.0f;
+    // four stages at a time: the block's kVarRows rows loaded, then folded
+    const float4* r4 = reinterpret_cast<const float4*>(rows + (qc - q0) * kS);
+#pragma unroll
+    for (int k4 = 0; k4 < kS / 4; ++k4) {
+      float4 r[kVarRows];
+#pragma unroll
+      for (int u = 0; u < kVarRows; ++u) r[u] = r4[u * (kS / 4) + k4];
+#pragma unroll
+      for (int u = 0; u < kVarRows; ++u) {
+        t[4 * k4] = fmaf(a[u], r[u].x, t[4 * k4]);
+        t[4 * k4 + 1] = fmaf(a[u], r[u].y, t[4 * k4 + 1]);
+        t[4 * k4 + 2] = fmaf(a[u], r[u].z, t[4 * k4 + 2]);
+        t[4 * k4 + 3] = fmaf(a[u], r[u].w, t[4 * k4 + 3]);
       }
     }
+#pragma unroll
+    for (int k = 0; k < kS; ++k) quad[k] = fmaf(t[k], kp[k], quad[k]);
   }
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int k = 0; k < kMaxVarStages; ++k) {
+  for (int k = 0; k < kS; ++k) {
     float acc = quad[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) wsum[warp * kMaxVarStages + k] = acc;
+    if (lane == 0) wsum[warp * kS + k] = acc;
   }
-  bar();
+  __syncthreads();
+  if (tid < kS) {
+    float s = 0.0f;
+    for (int w = 0; w < kNth / 32; ++w) s += wsum[w * kS + tid];
+    quad_out[tid] = s;
+  }
+}
+
+// Rank 0: the workers' partial sums (at offset 0 of ranks 1..workers'
+// shared memory, `slot` in this block's), added in rank order, then sig
+// (N * 6), var_x through `part` (the matvec slices, >= kNth + N * 6) and
+// tight (m). Ends with a barrier (bar).
+template <int kNth, class Barrier>
+__device__ __forceinline__ void variance_backoff(const VarianceOperands& v, int N, int workers,
+                                                 float* slot, const float* lo, const float* hi,
+                                                 float* sig, float* part, float* tight, int tid,
+                                                 Barrier bar) {
+  const int Nnu = N * kTickNu, Nnx = N * kTickNx;
   const float prior = v.scal[2], gain = v.scal[1];
   const float g2 = gain * gain;
   for (int i = tid; i < Nnx; i += kNth) {
     const int k = i / kTickNx, c = i % kTickNx;
     float s = 0.0f;
     if (c >= 3) {
+      float w[kMaxVarWorkers];   // every load in flight before the sum
+#pragma unroll
+      for (int r = 0; r < kMaxVarWorkers; ++r) {
+        w[r] = r < workers ? peer_shared(slot, r + 1)[k] : 0.0f;
+      }
       float q = 0.0f;
-      for (int w = 0; w < kNth / 32; ++w) q += wsum[w * kMaxVarStages + k];
+#pragma unroll
+      for (int r = 0; r < kMaxVarWorkers; ++r) q += w[r];
       const float ys = v.y_std[c];
       s = (g2 * fmaxf(prior - q, 1e-10f)) * (ys * ys);
     }

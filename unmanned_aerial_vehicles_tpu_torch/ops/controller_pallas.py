@@ -43,6 +43,7 @@ serves the whole tile); its plain version is
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -489,7 +490,13 @@ def gpmpc_controller_structured_batched(
 # K16: the fused controller for a batch of flights
 # ---------------------------------------------------------------------------
 
-FUSED_FLIGHTS_PER_BLOCK = 2   # csrc/controller_kernels.cu kTile
+# csrc/controller_kernels.cu: a thread-block cluster of up to
+# FUSED_CLUSTER_BLOCKS blocks owns a tile of FUSED_TILE_FLIGHTS flights;
+# each block owns a column slice of at most FUSED_MAX_SLICE columns
+FUSED_CLUSTER_BLOCKS = 8
+FUSED_TILE_FLIGHTS = 16
+FUSED_MAX_SLICE = 64
+_FUSED_PART_ROW = 20   # kPartRow
 
 
 def gpmpc_controller_fused_batched_plain(data, ShiftT, X0, W, REF, Z0, Y0, rho: float,
@@ -502,18 +509,76 @@ def gpmpc_controller_fused_batched_plain(data, ShiftT, X0, W, REF, Z0, Y0, rho: 
                             Y0 @ ShiftT, rho, iterations, over_relax)
 
 
-def fused_batched_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4,
+def fused_column_slices(width: int, cluster: int = FUSED_CLUSTER_BLOCKS) -> list[tuple[int, int]]:
+    """The column slices of a K16 cluster's blocks: block ``r`` owns
+    ``[r width // cluster, (r + 1) width // cluster)`` of an m-, Nnu- or
+    Nnx-wide product (csrc/controller_kernels.cu part_begin)."""
+    return [(r * width // cluster, (r + 1) * width // cluster) for r in range(cluster)]
+
+
+def fused_flight_tiles(batch: int) -> list[tuple[int, int]]:
+    """The flight tiles of K16's clusters: ``FUSED_TILE_FLIGHTS`` flights
+    each, the last one cut at the batch (the kernel masks its tail)."""
+    F = FUSED_TILE_FLIGHTS
+    return [(b, min(b + F, batch)) for b in range(0, batch, F)]
+
+
+def fused_slice_pad(n: int, cluster: int) -> int:
+    """The widest column slice of a K16 block at horizon ``n`` with
+    ``cluster`` blocks, rounded up to 4 (the kernel's tiles)."""
+    return 4 * -(-(-(-10 * n // cluster)) // 4)
+
+
+def fused_batched_shared_memory_bytes(n: int, cluster: int = FUSED_CLUSTER_BLOCKS, nu: int = 4,
                                       nx: int = 6) -> int:
     """Dynamic shared memory of one K16 block (csrc/controller_kernels.cu
-    layout): P1 (shared variant only) and, per flight of the tile, seven
-    m-vectors (z, y, the double-buffered matvec input, p0, the bounds),
-    ``[x0 | w]``, the offset and its reference error, and three U-space
-    vectors (f, M^-1 f, U), each row padded to a multiple of 4."""
+    layout): two transaction barriers (16 bytes), the block's column slice
+    of P1 (m x the slice rounded up to 4), the tile's double-buffered matvec
+    input (m x 16), 256 partial columns of 20, and [x0 | w], the offset, f
+    (then U) and the block's M^-1 f, each 16 flights wide."""
     m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
-    r4 = _round4
-    floats = ((r4(m * m) if p1_shared else 0)
-              + FUSED_FLIGHTS_PER_BLOCK * (7 * r4(m) + r4(nx + Nnx) + 2 * r4(Nnx) + 3 * r4(Nnu)))
+    F = FUSED_TILE_FLIGHTS
+    floats = (4 + m * fused_slice_pad(n, cluster) + 2 * m * F + KERNEL_THREADS * _FUSED_PART_ROW
+              + F * ((nx + Nnx) + Nnx + Nnu + -(-Nnu // cluster)))
     return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def fused_cluster_choice(device, batch: int, n: int) -> tuple[int, int, int]:
+    """``(cluster, shared-memory bytes, clusters the card runs at once)`` for
+    a K16 launch: the largest cluster of 8 down to 1 blocks whose slice
+    fits (at most FUSED_MAX_SLICE columns, one block's shared memory) and
+    whose clusters for ``batch`` flights all run at once on ``device``
+    (``cudaOccupancyMaxActiveClusters``); failing that, the largest that
+    fits. Every block asks for at least half of an SM's shared memory, so
+    that no SM runs two blocks: a cluster's blocks meet at a barrier every
+    ADMM iteration, and one slow block holds back all of them. Cached per
+    argument set (the card does not change)."""
+    limit = _cuda.shared_memory_optin(device)
+    tiles = len(fused_flight_tiles(batch))
+    fitting = []
+    for cluster in range(FUSED_CLUSTER_BLOCKS, 0, -1):
+        smem = max(fused_batched_shared_memory_bytes(n, cluster), limit // 2 + 16)
+        if fused_slice_pad(n, cluster) <= FUSED_MAX_SLICE and smem <= limit:
+            active = fused_max_active_clusters(cluster, smem)
+            if active >= tiles:
+                return cluster, smem, active
+            fitting.append((cluster, smem, active))
+    if not fitting:
+        raise ValueError(f"horizon {n}: no K16 cluster of {FUSED_CLUSTER_BLOCKS} or fewer "
+                         f"blocks holds P1 in slices of at most {FUSED_MAX_SLICE} columns")
+    return fitting[0]
+
+
+def fused_max_active_clusters(cluster: int, smem: int) -> int:
+    """How many K16 clusters of ``cluster`` blocks with ``smem`` bytes each
+    the current card runs at once."""
+    fn = _cuda.library("controller").fused_batched_max_active_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    _cuda.check(fn(cluster, smem, ctypes.byref(count)), "fused_batched_max_active_clusters")
+    return count.value
 
 
 class _FusedBatchedParams(ctypes.Structure):
@@ -552,9 +617,9 @@ def gpmpc_controller_fused_batched(
     offset, gradient, bounds, composite-ADMM loop, primal and predicted tail
     for every flight. Returns ``(Z (B, m), Y (B, m), U (B, Nnu),
     X_tail (B, Nnx))`` in float32. Any B (the TPU kernel's multiple of 128
-    is gone); a one-row ``W`` or ``REF`` is shared by every flight. P1 lies
-    in shared memory where it and the tile's vectors fit one block (N <= 23
-    on an H100) and is read through L2 beyond."""
+    is gone); a one-row ``W`` or ``REF`` is shared by every flight. A
+    thread-block cluster per 16 flights keeps P1 split over its blocks'
+    shared memory (``fused_cluster_choice`` picks its size)."""
     dev = X0.device
     Nnu, Nnx = data.Nnu, data.Nnx
     n, m = Nnu // 4, Nnu + Nnx
@@ -573,9 +638,6 @@ def gpmpc_controller_fused_batched(
                                                     iterations, over_relax)
     if dev.type != "cuda":
         raise ValueError(f"gpmpc_controller_fused_batched runs on cuda or cpu, not {dev}")
-    _cuda.require_aligned("gpmpc_controller_fused_batched", data.P1)
-    p1_shared, smem = _cuda.p1_variant(dev, fused_batched_shared_memory_bytes(n, True),
-                                       fused_batched_shared_memory_bytes(n, False))
     stride = lambda t: 0 if t.shape[0] == 1 else Nnx
     params = _FusedBatchedParams(
         batch=B, n=n, m=m, iterations=int(iterations), w_stride=stride(W),
@@ -589,12 +651,13 @@ def gpmpc_controller_fused_batched(
                    X0=X0, W=W, REF=REF, Z0=Z0, Y0=Y0, **outs)
     if B == 0:
         return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
+    cluster, smem, _ = fused_cluster_choice(dev, B, n)
     ops = _FusedBatchedOperands(**{k: v.data_ptr() for k, v in tensors.items()})
     fn = _cuda.library("controller").fused_batched_launch
     fn.argtypes = [ctypes.POINTER(_FusedBatchedParams), ctypes.POINTER(_FusedBatchedOperands),
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem, _cuda.stream_of(X0))
+    status = fn(ctypes.byref(params), ctypes.byref(ops), cluster, smem, _cuda.stream_of(X0))
     _cuda.check(status, "gpmpc_controller_fused_batched")
     _cuda.count_launch("gpmpc_controller_fused_batched")
     return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]

@@ -60,6 +60,7 @@ bfloat16 modes were TPU matrix-unit choices).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -348,12 +349,24 @@ def multitick_staged(
     return torch.stack(packed_rows), state, aux, xtail, z_prev, y_prev
 
 
+# The tightened K5's thread-block cluster (csrc/tick_kernel.cu,
+# csrc/multitick_phases.cuh): rank 0 runs the tick, the other blocks are
+# variance workers, each over one share of K^-1's upper triangle.
+VAR_CLUSTER = 8           # blocks per flight where the card runs no larger cluster
+VAR_MAX_CLUSTER = 16      # the largest (non-portable on an H100), taken where it runs
+VAR_WORKERS = VAR_CLUSTER - 1
+VAR_ROWS = 16             # kVarRows: rows of K^-1 per worker task
+MAX_VAR_STAGES = 24       # kMaxVarStages: the most horizon stages a worker sums
+_VAR_HEAD = 9 * MAX_VAR_STAGES   # kVarHead: a worker's partial and warp sums
+
+
 class _TickParams(ctypes.Structure):
     _fields_ = [
         ("k_ticks", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
         ("n_train", ctypes.c_int), ("use_gp", ctypes.c_int),
         ("iterations", ctypes.c_int), ("substeps", ctypes.c_int),
         ("use_fallback", ctypes.c_int), ("tighten", ctypes.c_int),
+        ("var_kinv_shared", ctypes.c_int), ("var_rows", ctypes.c_int * VAR_MAX_CLUSTER),
         ("dt", ctypes.c_double),
         ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
         ("one_minus_over_relax", ctypes.c_float), ("yawrate_limit", ctypes.c_float),
@@ -369,7 +382,7 @@ _OPERAND_NAMES = (
     "ztrT", "sq2", "alpha_s", "y_mean", "inv_ls", "scal",
     "kinv", "y_std", "SwSqT", "kst_ws",
     "state_in", "aux_in", "xtail_in", "z_in", "y_in", "refs", "yaw_refs", "plant_row",
-    "packed", "state_out", "aux_out", "xtail_out", "z_out", "y_out",
+    "packed", "state_out", "aux_out", "xtail_out", "z_out", "y_out", "tight_out",
 )
 
 
@@ -377,25 +390,57 @@ class _TickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _OPERAND_NAMES]
 
 
-# csrc/multitick_phases.cuh: the variance section's shared tile of K* columns
-# and the most horizon stages it keeps in registers
-VAR_TILE = 64
-MAX_VAR_STAGES = 24
-
-
 def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int = KERNEL_THREADS,
                         tighten: bool = False) -> int:
     """Dynamic shared memory of one K5 block (csrc/tick_kernel.cu layout):
-    P1 plus the per-tick vectors; with ``tighten`` also the variance
-    section's two K* tiles, warp sums, variance row and back-off row."""
+    P1 plus the per-tick vectors; with ``tighten``, rank 0's layout, which
+    adds the variance row (N * nx) and the back-off row (m). The tightened
+    launch gives every block of its cluster the larger of this and
+    ``variance_worker_bytes``."""
     m, Nnu, Nnx, d = n * (nu + nx), n * nu, n * nx, nu + nx
     m4 = (m + 3) // 4 * 4
     floats = (m * m + 2 * m4 + 7 * m + nx + 5 * Nnx + 3 * Nnu + (threads + m + Nnu)
               + n * d + n + 3 * threads + 24)
     if tighten:
-        floats = ((floats + 3) // 4 * 4 + 2 * MAX_VAR_STAGES * VAR_TILE
-                  + (threads // 32) * MAX_VAR_STAGES + Nnx + m)
+        floats += Nnx + m
     return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def variance_row_shares(n_train: int, workers: int = VAR_WORKERS) -> tuple[int, ...]:
+    """Row bounds ``b`` (``workers + 1`` of them) of the variance workers'
+    shares of K^-1's upper triangle: worker ``r`` takes rows ``[b[r],
+    b[r + 1])``, row ``q`` holding columns ``q .. P - 1``. Each bound is the
+    first row at which the entries before it reach ``r / workers`` of the
+    triangle, so the shares' entry counts differ by less than one row."""
+    P = int(n_train)
+    total = P * (P + 1) // 2
+    before = lambda q: q * P - q * (q - 1) // 2   # entries of rows 0 .. q - 1
+    bounds, q = [0], 0
+    for r in range(1, workers):
+        while q < P and before(q) * workers < r * total:
+            q += 1
+        bounds.append(q)
+    bounds.append(P)
+    return tuple(bounds)
+
+
+@functools.lru_cache(maxsize=64)
+def variance_worker_bytes(n: int, n_train: int, kinv_shared: bool,
+                          workers: int = VAR_WORKERS) -> int:
+    """Dynamic shared memory a variance worker of the tightened K5 needs
+    (csrc/tick_kernel.cu variance_worker_ticks), the largest share's: its
+    partial and warp sums, K*'s columns of its rows (the stages rounded up
+    to 4, the rows to VAR_ROWS) and, with ``kinv_shared``, its rows of the
+    triangle."""
+    P, kS = int(n_train), (n + 3) // 4 * 4
+    b = variance_row_shares(P, workers)
+    most = 0
+    for q0, q1 in zip(b[:-1], b[1:]):
+        rows = -(-(q1 - q0) // VAR_ROWS) * VAR_ROWS
+        entries = sum(P - q for q in range(q0, q1)) if kinv_shared else 0
+        most = max(most, rows * kS + entries)
+    return 4 * (_VAR_HEAD + most)
 
 
 def gpmpc_multitick_fused(
@@ -435,8 +480,9 @@ def gpmpc_multitick_fused(
     z (m,), y (m,))``. With ``use_gp`` and ``tighten_kappa > 0`` the GP
     rows must carry ``kinv`` and ``y_std`` (``build_gp_rows(...,
     with_variance=True)``): each tick then backs the state boxes off by the
-    posterior std. A horizon whose P1 does not fit in one block's shared
-    memory raises ``ValueError``."""
+    posterior std, the quadratic form spread over a thread-block cluster
+    (``variance_cluster``). A horizon whose P1 does not fit in one block's
+    shared memory raises ``ValueError``."""
     _check_statics(n, nu, nx)
     tighten = _uses_tightening(use_gp, gp, tighten_kappa)
     dev = state.device
@@ -482,9 +528,59 @@ def gpmpc_multitick_fused(
     if dev.type != "cuda":
         raise ValueError(f"gpmpc_multitick_fused runs on cuda or cpu, not {dev}")
 
+    return _launch_multitick(data, gp, (state, aux, xtail, z0, y0, refs, yaw_refs, plant_row),
+                             statics, tighten)
+
+
+@functools.lru_cache(maxsize=64)
+def variance_cluster(device, n: int, n_train: int, nu: int = 4, nx: int = 6,
+                     kinv_shared: bool | None = None,
+                     cluster: int | None = None) -> tuple[int, bool, int]:
+    """``(cluster, kinv_shared, shared-memory bytes)`` of a tightened K5
+    launch: VAR_MAX_CLUSTER blocks where ``device`` runs such a cluster
+    (``cudaOccupancyMaxActiveClusters``), VAR_CLUSTER otherwise, or
+    ``cluster`` as asked; the workers keep their shares of K^-1 in shared
+    memory where those fit one block, or as ``kinv_shared`` asks. Every
+    block gets the larger of rank 0's layout and a worker's. Raises if none
+    fits. Cached per argument set (the card does not change)."""
+    limit = _cuda.shared_memory_optin(device)
+    rank0 = shared_memory_bytes(n, nu, nx, tighten=True)
+    for c in ([cluster] if cluster else [VAR_MAX_CLUSTER, VAR_CLUSTER]):
+        shared = (variance_worker_bytes(n, n_train, True, c - 1) <= limit
+                  if kinv_shared is None else kinv_shared)
+        smem = max(rank0, variance_worker_bytes(n, n_train, shared, c - 1))
+        if smem > limit:
+            continue
+        if c > VAR_CLUSTER:   # non-portable: does the card run one?
+            fn = _cuda.library("tick").gpmpc_multitick_max_active_clusters
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            count = ctypes.c_int(0)
+            _cuda.check(fn(c, smem, ctypes.byref(count)), "gpmpc_multitick_max_active_clusters")
+            if count.value < 1:
+                continue
+        return c, shared, smem
+    raise ValueError(f"{n_train} GP points at horizon {n}: the tightened K5's blocks need more "
+                     f"shared memory than one block's {limit}")
+
+
+def _launch_multitick(data: FusedTickData, gp: GPRows | None, tensors_in: tuple, statics: dict,
+                      tighten: bool, kinv_shared: bool | None = None,
+                      tight_out: torch.Tensor | None = None, cluster: int | None = None):
+    """K5's launch on the card, after ``gpmpc_multitick_fused``'s checks.
+    The tightened kernel's cluster and where its workers keep K^-1 follow
+    ``variance_cluster`` (``kinv_shared`` and ``cluster`` force them: the
+    card check times both); ``tight_out`` (K, m), if given, receives each
+    tick's back-off row (the card check compares it)."""
+    state, aux, xtail, z0, y0, refs, yaw_refs, plant_row = tensors_in
+    dev = state.device
+    N, K, nu, nx = statics["n"], statics["k_ticks"], statics["nu"], statics["nx"]
+    Nnx, m = N * nx, N * (nu + nx)
+    use_gp = statics["use_gp"]
+    P = gp.sq2.shape[0] if use_gp else 0
     if tighten and N > MAX_VAR_STAGES:
-        raise ValueError(f"the variance section keeps at most {MAX_VAR_STAGES} horizon stages "
-                         f"in registers (got {N})")
+        raise ValueError(f"the variance section sums at most {MAX_VAR_STAGES} horizon stages "
+                         f"(got {N})")
     smem = shared_memory_bytes(N, nu, nx, tighten=tighten)
     limit = _cuda.shared_memory_optin(dev)
     if smem > limit:
@@ -493,17 +589,29 @@ def gpmpc_multitick_fused(
             f"shared memory, more than one block's {limit}; streaming P1 from L2 "
             "for long horizons is queued in ROADMAP.md"
         )
+    rows = [0] * VAR_MAX_CLUSTER
+    if tighten:
+        cluster, kinv_shared, smem = variance_cluster(dev, N, P, nu, nx, kinv_shared, cluster)
+        rows = variance_row_shares(P, cluster - 1)
+        rows += (P,) * (VAR_MAX_CLUSTER - len(rows))
     f = lambda v: float(np.float32(v))
+    fallback_error_m, accel_lo, accel_hi = (statics["fallback_error_m"], statics["accel_lo"],
+                                            statics["accel_hi"])
+    scale = statics["fallback_accel_scale"]
     params = _TickParams(
-        k_ticks=K, n=N, m=m, n_train=(gp.sq2.shape[0] if use_gp else 0),
-        use_gp=int(bool(use_gp)), iterations=int(iterations), substeps=int(substeps),
-        use_fallback=int(fallback_error_m > 0.0), tighten=int(tighten), dt=float(dt),
-        rho=f(rho), over_relax=f(over_relax), one_minus_over_relax=f(1.0 - over_relax),
-        yawrate_limit=f(yawrate_limit), fallback_error_sq=f(fallback_error_m**2),
-        fallback_thrust_ceiling=f(fallback_thrust_ceiling), tighten_kappa=f(tighten_kappa),
+        k_ticks=K, n=N, m=m, n_train=P,
+        use_gp=int(bool(use_gp)), iterations=int(statics["iterations"]),
+        substeps=int(statics["substeps"]), use_fallback=int(fallback_error_m > 0.0),
+        tighten=int(tighten), var_kinv_shared=int(bool(kinv_shared)),
+        var_rows=(ctypes.c_int * VAR_MAX_CLUSTER)(*rows), dt=float(statics["dt"]),
+        rho=f(statics["rho"]), over_relax=f(statics["over_relax"]),
+        one_minus_over_relax=f(1.0 - statics["over_relax"]),
+        yawrate_limit=f(statics["yawrate_limit"]), fallback_error_sq=f(fallback_error_m**2),
+        fallback_thrust_ceiling=f(statics["fallback_thrust_ceiling"]),
+        tighten_kappa=f(statics["tighten_kappa"]),
         accel_lo=(ctypes.c_float * 3)(*accel_lo), accel_hi=(ctypes.c_float * 3)(*accel_hi),
-        fallback_lo=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_lo)),
-        fallback_hi=(ctypes.c_float * 3)(*(fallback_accel_scale * v for v in accel_hi)),
+        fallback_lo=(ctypes.c_float * 3)(*(scale * v for v in accel_lo)),
+        fallback_hi=(ctypes.c_float * 3)(*(scale * v for v in accel_hi)),
     )
     outs = dict(
         packed=torch.empty(K, PACKED_LANES, dtype=torch.float32, device=dev),
@@ -524,15 +632,19 @@ def gpmpc_multitick_fused(
                        inv_ls=gp.inv_ls, scal=gp.scal)
     if tighten:
         # the GP section leaves the horizon's cross-kernel K* (N, P) here for
-        # the variance section (64 KB at N=20, P=800: it stays in L2)
+        # the variance workers (64 KB at N=20, P=800: it stays in L2)
         tensors.update(kinv=gp.kinv, y_std=gp.y_std, SwSqT=data.SwSqT,
                        kst_ws=torch.empty(N * P, dtype=torch.float32, device=dev))
+        if tight_out is not None:
+            _cuda.require(tight_out, "tight_out", (K, m), dev)
+            tensors.update(tight_out=tight_out)
     ops = _TickOperands(**{k: v.data_ptr() for k, v in tensors.items()})
     fn = _cuda.library("tick").gpmpc_multitick_launch
     fn.argtypes = [ctypes.POINTER(_TickParams), ctypes.POINTER(_TickOperands),
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), smem, _cuda.stream_of(state))
+    status = fn(ctypes.byref(params), ctypes.byref(ops), cluster if tighten else 1, smem,
+                _cuda.stream_of(state))
     _cuda.check(status, "gpmpc_multitick_fused")
     _cuda.count_launch("gpmpc_multitick_fused_tightened" if tighten else "gpmpc_multitick_fused")
     return (outs["packed"], outs["state_out"], outs["aux_out"], outs["xtail_out"],
