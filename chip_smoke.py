@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (tolerance 1e-5 of the state's size), K11 for one launch per plant at
    full width (direct-rate N=20, rigid N=15, K=8, 30 iterations) on the
    port's own relinearisation at the circle task's start (5e-4 on every
-   output, a second launch bit-identical, the P1 variant printed), K12 at
+   output, a second launch bit-identical, the layout of the ADMM operator's
+   factors printed), and at N=25 where the factors are read through L2, with
+   each section's share of a launch from the build with section clocks, K12 at
    512 x 25 (1e-5 relative; a float64 MPPI controller's tick must launch
    it once), K5 with the variance section over a thread-block cluster
    (``tighten_kappa`` 2, 10 iterations, K=8 at N=20 with P=800, N=23 with
@@ -62,9 +64,10 @@ Phases (any failure exits non-zero; nothing is caught):
    K5 also without its GP section and without its ADMM iterations, K2 also
    at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
    n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
-   K16 at B=256 and the tightened K5 of that package and of this one,
-   timed in turns (older, this, this, older; each older run a subprocess
-   that builds its own sources);
+   K16 at B=256, the tightened K5, K11 at both plants and K13a at B=1 and
+   1024 of that package and of this one, timed in turns (older, this, this,
+   older; each older run a subprocess that builds its own sources, K11's
+   operands through its own ``dispatch_tick_operands``);
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -142,7 +145,7 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
-    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16 and K5
+    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16, K5, K11, K13a
 """
 
 from __future__ import annotations
@@ -633,22 +636,67 @@ def ops_rigid_tick(N: int, iterations: int, plant_ops: int, nu: int = 4, nx: int
             + iterations * (2 * m * m + 12 * m) + plant_ops + nu)
 
 
+def ops_rigid_tick_factored(N: int, iterations: int, plant_ops: int, nu: int = 4,
+                            nx: int = 12) -> int:
+    """``ops_rigid_tick`` with each ADMM step's (m, m) product by P1 counted
+    as the kernel runs it, on P1's factors: v[N nu:] GsL (N nx x N nu), the
+    diagonal term, then w GMinvT_s (N nu x m)."""
+    Nnu, Nnx, m = N * nu, N * nx, N * (nu + nx)
+    p1_product = 2 * m * m
+    factored = 2 * Nnx * Nnu + 2 * Nnu + 2 * Nnu * m
+    return ops_rigid_tick(N, iterations, plant_ops, nu, nx) - iterations * (p1_product - factored)
+
+
+def k11_case(dev, plant: str, N: int | None = None):
+    """K11's operands at full width on the package's own relinearisation at
+    the circle task's start (hover at 3 m, the first dispatch's references,
+    K=8, 30 iterations): ``(args, statics)``. Built through the public API
+    only, so an older checkout's package builds its own."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import DirectRateMPC, RigidBodyMPC
+    from unmanned_aerial_vehicles_tpu_torch.loop.rigid_loop import dispatch_tick_operands
+    from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    kw = {} if N is None else dict(horizon=N)
+    eng = (DirectRateMPC if plant == "direct_rate" else RigidBodyMPC)(device=dev, **kw)
+    N = eng.mpc.config.horizon
+    K, m = 8, N * 16
+    pos, _, _ = ramped_circle_reference(0.02 * torch.arange(K, **f32), amplitude=2.0, height=3.0)
+    x0 = torch.zeros(12, **f32)
+    x0[2] = 3.0
+    _, ops = dispatch_tick_operands(eng.mpc, eng.cost, x0[None, :].repeat(N + 1, 1),
+                                    eng.u_hover[None, :].repeat(N, 1))
+    refs = torch.cat([pos, torch.zeros(K, 9, **f32)], 1)[:, None, :].repeat(1, N, 1)
+    refs = refs.reshape(K, N * 12).contiguous()
+    z0, y0 = torch.zeros(m, **f32), torch.zeros(m, **f32)
+    statics = dict(k_ticks=K, n=N, nu=4, nx=12, iterations=30, over_relax=1.6,
+                   rho=float(eng.mpc.config.admm_rho), dt=0.02, substeps=1, plant=plant,
+                   body=X500_PARAMS if plant == "rigid" else None)
+    return (x0, z0, y0, refs, ops), statics
+
+
+K11_LONG_HORIZON = 25         # past the factors' fit in one block: read through L2
+
+
 def rel_err(got, want) -> float:
     """Max abs error over a tensor, relative to its size (at least 1)."""
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
 def check_rigid_kernels(dev, gen, fail_fn) -> dict:
-    """Hold K10, K11 (both plants) and K12 against their plain versions on
-    the card at the flights' shapes and time them. Returns the kernels'
-    records for the JSON line (K11's from the direct-rate plant, the rigid
-    plant's under ``"rigid"``)."""
+    """Hold K10, K11 (both plants; the direct-rate engine also at N=25) and
+    K12 against their plain versions on the card at the flights' shapes and
+    time them. Returns the kernels' records for the JSON line (K11's from
+    the direct-rate plant, the rigid plant's under ``"rigid"``, N=25's under
+    ``"long"``)."""
     import dataclasses
 
     import torch
 
-    from unmanned_aerial_vehicles_tpu_torch.control import DirectRateMPC, MPPIController, RigidBodyMPC
-    from unmanned_aerial_vehicles_tpu_torch.loop.rigid_loop import dispatch_tick_operands
+    from unmanned_aerial_vehicles_tpu_torch.control import MPPIController
     from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS, X500_PARAMS
     from unmanned_aerial_vehicles_tpu_torch.ops import (
         _cuda,
@@ -656,7 +704,6 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
         rigid_plant_pallas,
         rigid_tick_pallas,
     )
-    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
 
     f32 = dict(dtype=torch.float32, device=dev)
     rnd = lambda *shape: torch.randn(*shape, generator=gen)
@@ -706,59 +753,72 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
         n20_bound=bound_ms(nbytes(x1, U20) + 4 * 12 * 20, 20 * OPS_RIGID_RK4))
 
     # K11 at full width on the port's own relinearisation at the circle
-    # task's start (hover at 3 m, the first dispatch's references)
-    K = 8
-    ts = 0.02 * torch.arange(K, **f32)
-    pos, _, _ = ramped_circle_reference(ts, amplitude=2.0, height=3.0)
-    for plant, eng in (("direct_rate", DirectRateMPC(device=dev)),
-                       ("rigid", RigidBodyMPC(device=dev))):
-        N = eng.mpc.config.horizon
-        m = N * 16
-        x0 = torch.zeros(12, **f32)
-        x0[2] = 3.0
-        _, ops = dispatch_tick_operands(eng.mpc, eng.cost, x0[None, :].repeat(N + 1, 1),
-                                        eng.u_hover[None, :].repeat(N, 1))
-        refs = torch.cat([pos, torch.zeros(K, 9, **f32)], 1)[:, None, :].repeat(1, N, 1)
-        refs = refs.reshape(K, N * 12).contiguous()
-        z0, y0 = torch.zeros(m, **f32), torch.zeros(m, **f32)
-        statics = dict(k_ticks=K, n=N, nu=4, nx=12, iterations=30, over_relax=1.6,
-                       rho=float(eng.mpc.config.admm_rho), dt=0.02, substeps=1, plant=plant,
-                       body=X500_PARAMS if plant == "rigid" else None)
-        args = (x0, z0, y0, refs, ops)
+    # task's start (hover at 3 m, the first dispatch's references); the
+    # direct-rate engine also at N=25, where the factors go through L2
+    for plant, N in (("direct_rate", None), ("rigid", None), ("direct_rate", K11_LONG_HORIZON)):
+        args, statics = k11_case(dev, plant, N)
+        N, K = statics["n"], statics["k_ticks"]
+        x0, z0, y0, refs, ops = args
         got = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
         torch.cuda.synchronize()
         want = rigid_tick_pallas.direct_rate_multitick_plain(*args, **statics)
         if not all(bool(torch.isfinite(g).all()) for g in got):
-            fail_fn(f"K11 ({plant}) produced non-finite values")
+            fail_fn(f"K11 ({plant}, N={N}) produced non-finite values")
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         again = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail_fn(f"K11 ({plant}): a second launch on the same inputs differs")
-        p1_shared, smem = rigid_tick_pallas.p1_placement(dev, N)
-        variant = "P1 in shared memory" if p1_shared else "P1 through L2"
-        print(f"K11 direct_rate_multitick_kernel ({plant} plant, N={N}, m={m}, K={K}, 30 "
+            fail_fn(f"K11 ({plant}, N={N}): a second launch on the same inputs differs")
+        shared, smem = rigid_tick_pallas.factor_placement(dev, N)
+        variant = "factors in shared memory" if shared else "factors through L2"
+        print(f"K11 direct_rate_multitick_kernel ({plant} plant, N={N}, m={N * 16}, K={K}, 30 "
               f"iterations, {variant}, {smem} B of shared memory): max_abs_err out "
               f"{errs[0]:.3e}, x {errs[1]:.3e}, z {errs[2]:.3e}, y {errs[3]:.3e}; a second launch "
               "bit-identical")
         if not max(errs) <= K11_TOL:
-            fail_fn(f"K11 ({plant}) disagrees with its plain version: {errs}")
+            fail_fn(f"K11 ({plant}, N={N}) disagrees with its plain version: {errs}")
         fn = lambda a=args, s=statics: rigid_tick_pallas.direct_rate_multitick_kernel(*a, **s)
+        if N == K11_LONG_HORIZON:
+            k11_long = dict(err=max(errs), errs=errs, ms=graph_ms(fn, 5), variant=variant)
+            print(f"  K11 (N={N}, {variant}): device {k11_long['ms'] * 1e3:.2f} us per launch")
+            continue
         plain = lambda a=args, s=statics: rigid_tick_pallas.direct_rate_multitick_plain(*a, **s)
         plant_ops = OPS_RIGID_RK4 if plant == "rigid" else OPS_DIRECT_RATE_SUBSTEP
+        # the bound is the kernel's own work: the factored product, and
+        # every operand but P1 (which only the plain version reads), of Gs
+        # its lower N nx rows and its top block's diagonal; the P1 form's,
+        # which earlier rows of PERF.md give, is kept beside it
+        Nnu = N * 4
+        kernel_ops = [t for name, t in ops._asdict().items() if name not in ("P1", "Gs")]
+        kernel_ops += [ops.Gs[Nnu:], ops.Gs[:Nnu].diagonal()]
+        # each section's cycles per launch, from the build with section clocks
+        with _cuda.library_variant("rigid_tick", "rigid_tick_clocks"):
+            rigid_tick_pallas.rigid_section_cycles()
+            fn()
+            torch.cuda.synchronize()
+            cycles = rigid_tick_pallas.rigid_section_cycles()
+        shares = {k: v / cycles["whole tick"] for k, v in cycles.items() if k != "whole tick"}
         rec = dict(err=max(errs), errs=errs, ms=graph_ms(fn, 5), plain_ms=graph_ms(plain, 1, replays=3),
                    host_ms=cuda_ms(fn, 20), host_plain_ms=cuda_ms(plain, 2, warmup=1),
-                   bound=bound_ms(nbytes(x0, z0, y0, refs, *ops) + nbytes(*got),
-                                  K * ops_rigid_tick(N, 30, plant_ops)),
-                   variant=variant, n=N)
+                   bound=bound_ms(nbytes(x0, z0, y0, refs, *kernel_ops) + nbytes(*got),
+                                  K * ops_rigid_tick_factored(N, 30, plant_ops)),
+                   bound_p1_form=bound_ms(nbytes(x0, z0, y0, refs, *ops) + nbytes(*got),
+                                          K * ops_rigid_tick(N, 30, plant_ops)),
+                   variant=variant, n=N, cycles_per_launch=cycles, section_shares=shares)
         print(f"  K11 ({plant}): device {rec['ms'] * 1e3:.2f} us per launch of {K} ticks "
               f"({rec['ms'] * 1e3 / K:.2f} us per tick), plain {rec['plain_ms'] * 1e3:.2f} us; "
-              f"bound {rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
+              f"bound {rec['bound'][0] * 1e3:.4f} us on the factors ({rec['bound'][1]}; "
+              f"the P1 form's {rec['bound_p1_form'][0] * 1e3:.4f} us, "
+              f"{rec['bound_p1_form'][1]})")
+        print(f"  K11 ({plant}) sections, share of the launch's tick cycles (clocked build, "
+              f"{cycles['whole tick']} cycles): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
         if plant == "direct_rate":
             recs["direct_rate_multitick_kernel"] = rec
         else:
             recs["direct_rate_multitick_kernel"]["rigid"] = rec
-    recs["direct_rate_multitick_kernel"]["err"] = max(
-        recs["direct_rate_multitick_kernel"]["err"], recs["direct_rate_multitick_kernel"]["rigid"]["err"])
+    k11 = recs["direct_rate_multitick_kernel"]
+    k11["long"] = k11_long
+    k11["err"] = max(k11["err"], k11["rigid"]["err"], k11_long["err"])
 
     # K12 at the controller's width (512 samples x 25 steps)
     ctrl = MPPIController(device=dev)
@@ -984,10 +1044,11 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
     with wind: a quarter at zero airspeed, and for K13b a quarter with the
     tilt, integral, rate and thrust clamps binding; 1e-5 of each cotangent's
     scale; a second launch bit-identical. Time both at B=1 (the tuners'
-    batch) and B=1024. Returns their records for the JSON line."""
+    batch) and B=1024, and K13a's lane-owned ablation beside it. Returns
+    their records for the JSON line."""
     import torch
 
-    from unmanned_aerial_vehicles_tpu_torch.ops import tick_ad
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_ad
 
     f32 = dict(dtype=torch.float32, device=dev)
     wind = tuple(float(v) for v in prow[7:10])
@@ -1012,6 +1073,7 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
     recs = {}
     for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp"):
         recs[name] = dict(errs={}, timing={})
+    recs["px4_plant_step_vjp"]["lane_owned"] = {}
     for B in (1, 1024):
         s, c, cmd, integ, ct_s, ct_c, ct_i = operands(B)
         calls = {
@@ -1046,6 +1108,18 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
                 ms=graph_ms(kernel, 200), plain_ms=graph_ms(plain, 5),
                 host_ms=cuda_ms(kernel, 500), host_plain_ms=cuda_ms(plain, 20),
                 bound=bound_ms(n_bytes, n_ops))
+            if name == "px4_plant_step_vjp":
+                # the ablation: K13a with lanes 0-11 owning a state component
+                # each, held to the same tolerance and timed beside it
+                with _cuda.library_variant("plant_vjp", "plant_vjp_lane_owned"):
+                    lanes = kernel()
+                    torch.cuda.synchronize()
+                    lane_errs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                                 for g, w in zip(lanes, want)]
+                    if not max(lane_errs) <= VJP_TOL:
+                        fail_fn(f"K13a's lane-owned ablation disagrees at B={B}: {lane_errs}")
+                    recs[name]["lane_owned"][B] = dict(err=max(lane_errs),
+                                                       ms=graph_ms(kernel, 200))
     for name, rec in recs.items():
         t1 = rec["timing"][1]
         rec.update(err=max(max(e) for e in rec["errs"].values()), ms=t1["ms"],
@@ -1057,6 +1131,10 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
               + "; ".join(f"B={B} {t['ms'] * 1e3:.2f} (plain {t['plain_ms'] * 1e3:.2f}, bound "
                           f"{t['bound'][0] * 1e3:.5f} {t['bound'][1]})"
                           for B, t in rec["timing"].items()))
+    print("  K13a with lanes 0-11 owning a state component each (ablation): device us per "
+          "launch " + "; ".join(f"B={B} {t['ms'] * 1e3:.2f} (max error {t['err']:.3e}; shipped "
+                                f"{recs['px4_plant_step_vjp']['timing'][B]['ms'] * 1e3:.2f})"
+                                for B, t in recs["px4_plant_step_vjp"]["lane_owned"].items()))
     return recs
 
 
@@ -1573,20 +1651,27 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
     return out, dict(errs=plant_errs, ms=plant_ms, block=block)
 
 
-# ---- the kernels redesigned for clusters, against an older checkout ---------
+# ---- the redesigned kernels, against an older checkout ----------------------
 
 def time_redesigned(dev) -> dict:
-    """Device microseconds per launch of the kernels redesigned for thread-
-    block clusters, through their public wrappers only, so that the same
-    function times an older checkout of the package: K16 at B=256, N=20 and
-    N=25 (three warm-started ticks in, 80 iterations) and K5 at N=20,
-    P=800, K=8, tightened (kappa 2) and not."""
+    """Device microseconds per launch of the redesigned kernels, through
+    their public wrappers only, so that the same function times an older
+    checkout of the package: K16 at B=256, N=20 and N=25 (three
+    warm-started ticks in, 80 iterations), K5 at N=20, P=800, K=8, tightened
+    (kappa 2) and not, K11 at both plants (``k11_case``: the checkout's own
+    relinearisation and layout) and K13a at B=1 and 1024."""
     import numpy as np
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
     from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig, fit_residual_gp
-    from unmanned_aerial_vehicles_tpu_torch.ops import controller_pallas, plant_pallas, tick_pallas
+    from unmanned_aerial_vehicles_tpu_torch.ops import (
+        controller_pallas,
+        plant_pallas,
+        rigid_tick_pallas,
+        tick_ad,
+        tick_pallas,
+    )
 
     f32 = dict(dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(9)
@@ -1613,16 +1698,28 @@ def time_redesigned(dev) -> dict:
     for key, kappa in (("k5_tightened_us", TIGHTEN_KAPPA), ("k5_untightened_us", 0.0)):
         out[key] = graph_ms(lambda: tick_pallas.gpmpc_multitick_fused(
             *args, **dict(statics, tighten_kappa=kappa)), 20) * 1e3
+    for plant in ("direct_rate", "rigid"):
+        args, statics = k11_case(dev, plant)
+        out[f"k11_{plant}_us"] = graph_ms(
+            lambda: rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics), 5) * 1e3
+    for B in (1, 1024):
+        s, c, ct = (t.to(**f32).contiguous() for t in (
+            0.3 * torch.randn(B, 12, generator=gen) + torch.tensor([0, 0, 3.0] + [0] * 9),
+            torch.cat([1.0 + 0.1 * torch.randn(B, 1, generator=gen),
+                       0.3 * torch.randn(B, 3, generator=gen)], 1),
+            torch.randn(B, 12, generator=gen)))
+        out[f"k13a_b{B}_us"] = graph_ms(
+            lambda: tick_ad.px4_plant_step_vjp(s, c, prow, ct, 0.02, 2), 200) * 1e3
     return out
 
 
 def compare_with_parent(dev, parent: str | None):
-    """K16 and the tightened K5 of the checkout at ``parent`` (its own
-    package, built from its own sources in a subprocess) and of this one,
-    timed in turns in this call: parent, this, this, parent."""
+    """K16, the tightened K5, K11 and K13a of the checkout at ``parent``
+    (its own package, built from its own sources in a subprocess) and of
+    this one, timed in turns in this call: parent, this, this, parent."""
     if parent is None:
-        print("older checkout's K16 and K5: not measured in this run (pass --parent DIR, "
-              "DIR holding the older package, to time them here)")
+        print("older checkout's K16, K5, K11 and K13a: not measured in this run (pass --parent "
+              "DIR, DIR holding the older package, to time them here)")
         return None
 
     def parent_run():
@@ -2261,7 +2358,8 @@ def main(parent: str | None = None) -> int:
     # K14, K15, K16 and K1/K2 on a dispersed plant block
     tail, plant_block_check = check_tail_kernels(dev, gen, fail)
     kernels.update(tail)
-    # the redesigned K16 and tightened K5 against an older checkout's, in turns
+    # the redesigned K16, tightened K5, K11 and K13a against an older
+    # checkout's, in turns
     redesign = compare_with_parent(dev, parent)
 
     phase_clock("phase 2")
@@ -2869,8 +2967,16 @@ def main(parent: str | None = None) -> int:
         "idle_share_12state": {k: idle_share[k] for k in ("80 direct-rate12 fused ticks",
                                                           "100 mppi12 ticks")},
         "us_per_launch_k11_rigid": k11["rigid"]["ms"] * 1e3,
-        "k11_max_abs_err_by_output": {"direct_rate": k11["errs"], "rigid": k11["rigid"]["errs"]},
+        "us_per_launch_k11_n25_l2": k11["long"]["ms"] * 1e3,
+        "k11_max_abs_err_by_output": {"direct_rate": k11["errs"], "rigid": k11["rigid"]["errs"],
+                                      "n25_l2": k11["long"]["errs"]},
+        "k11_section_share": {"direct_rate": k11["section_shares"],
+                              "rigid": k11["rigid"]["section_shares"]},
+        "k11_bound_ms_p1_form": {"direct_rate": k11["bound_p1_form"][0],
+                                 "rigid": k11["rigid"]["bound_p1_form"][0]},
         "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3,
+        "us_per_launch_k13a_lane_owned": {
+            B: t["ms"] * 1e3 for B, t in kernels["px4_plant_step_vjp"]["lane_owned"].items()},
         "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3
                                     for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp")},
         "multitick_ad": multitick_ad, "tuners": tuners, "tuner_iteration_seconds": tuner_seconds,

@@ -273,3 +273,43 @@ def test_tightened_k5_at_horizon_23_agrees_with_its_plain_version(cuda_device):
     _held(lambda: tick_pallas.gpmpc_multitick_fused(*args, **statics),
           lambda: tick_pallas.multitick_staged(*args, **statics),
           "gpmpc_multitick_fused_tightened", 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plant,horizon", [("direct_rate", 20), ("rigid", 15), ("direct_rate", 25)])
+def test_k11_on_the_factors_agrees_with_its_plain_version(cuda_device, plant, horizon):
+    """K11 launches once per call with the ADMM operator's factors in shared
+    memory (N=20, 15) or read through L2 (N=25), agrees with its plain
+    version (which multiplies by P1) within chip_smoke.py's K11_TOL, and a
+    second launch is bit-identical."""
+    from unmanned_aerial_vehicles_tpu_torch.control import DirectRateMPC, RigidBodyMPC
+    from unmanned_aerial_vehicles_tpu_torch.loop.rigid_loop import dispatch_tick_operands
+    from unmanned_aerial_vehicles_tpu_torch.models import X500_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.ops import rigid_tick_pallas
+
+    eng = (DirectRateMPC if plant == "direct_rate" else RigidBodyMPC)(horizon=horizon,
+                                                                      device=cuda_device)
+    K, m = 8, 16 * horizon
+    x0 = torch.zeros(12, device=cuda_device)
+    x0[2] = 3.0
+    _, ops = dispatch_tick_operands(eng.mpc, eng.cost, x0[None, :].repeat(horizon + 1, 1),
+                                    eng.u_hover[None, :].repeat(horizon, 1))
+    refs = torch.zeros(K, horizon, 12, device=cuda_device)
+    refs[..., 0] = 0.3
+    refs[..., 2] = 3.2
+    args = (x0, torch.zeros(m, device=cuda_device), torch.zeros(m, device=cuda_device),
+            refs.reshape(K, -1).contiguous(), ops)
+    statics = dict(k_ticks=K, n=horizon, nu=4, nx=12, iterations=30, over_relax=1.6,
+                   rho=float(eng.mpc.config.admm_rho), dt=0.02, substeps=1, plant=plant,
+                   body=X500_PARAMS if plant == "rigid" else None)
+    shared, _ = rigid_tick_pallas.factor_placement(cuda_device, horizon)
+    assert shared == (horizon <= 21)
+    _cuda.reset_launch_counts()
+    got = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
+    again = rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["direct_rate_multitick_kernel"] == 2
+    want = rigid_tick_pallas.direct_rate_multitick_plain(*args, **statics)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=0, atol=5e-4)

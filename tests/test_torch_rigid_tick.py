@@ -46,7 +46,8 @@ STATICS = dict(iterations=30, over_relax=1.6, dt=DT, substeps=1, gravity=9.81,
 def jax_operands(eng, x, z, y, refs, K):
     """The JAX fused tier's padded K11 operands for one dispatch about the
     hover plan at ``x`` (``loop/rigid_loop.py:direct_rate_multitick_fused``'s
-    relinearisation and layouts)."""
+    relinearisation and layouts), and its equilibrated constraint matrix Gs
+    (m, N nu), the first factor of P1 that the port's kernel reads."""
     mpc, cost = eng.mpc, eng.cost
     N, nx, nu = mpc.config.horizon, mpc.nx, mpc.nu
     Nnu, Nnx = N * nu, N * nx
@@ -91,7 +92,7 @@ def jax_operands(eng, x, z, y, refs, K):
     carry = dict(x_row=jnp.zeros((1, 16), f32).at[0, 0:nx].set(x).at[0, 12].set(1.0),
                  z_row=row(z, m_pad), y_row=row(y, m_pad),
                  refs=jnp.zeros((K, nx_pad), f32).at[:, :Nnx].set(refs))
-    return ops, carry
+    return ops, carry, Gs
 
 
 @pytest.mark.parametrize("plant", ["direct_rate", "rigid"])
@@ -108,8 +109,8 @@ def test_k11_plain_matches_jax_kernel(rng, plant):
                     for k in range(K)])
     refs = np.tile(np.concatenate([pos, np.zeros((K, 9))], 1)[:, None, :], (1, N, 1))
     refs = refs.reshape(K, Nnx).astype(np.float32)
-    ops, carry = jax_operands(eng, jnp.asarray(x), jnp.asarray(z), jnp.asarray(y),
-                              jnp.asarray(refs), K)
+    ops, carry, gs = jax_operands(eng, jnp.asarray(x), jnp.asarray(z), jnp.asarray(y),
+                                  jnp.asarray(refs), K)
     rigid = (JX500.mass, JX500.k_drag_linear, JX500.k_drag_angular, JX500.inertia_xx,
              JX500.inertia_yy, JX500.inertia_zz, *JX500.wind) if plant == "rigid" else None
     want = j_k11(carry["x_row"], carry["z_row"], carry["y_row"], carry["refs"], *ops.values(),
@@ -118,7 +119,9 @@ def test_k11_plain_matches_jax_kernel(rng, plant):
     want = [np.asarray(w) for w in want]
 
     t_ops = convert.rigid_tick_operands_from_numpy(*(np.asarray(v) for v in ops.values()),
-                                                   horizon=N, device="cpu")
+                                                   horizon=N, gs=np.asarray(gs), device="cpu")
+    np.testing.assert_allclose((t_ops.Gs.double() @ t_ops.GMinvT_s.double()).numpy(),
+                               t_ops.P1.numpy(), rtol=0, atol=1e-5)
     tx, tz, ty, trefs = convert.rigid_tick_carry_from_numpy(
         *(np.asarray(carry[k]) for k in ("x_row", "z_row", "y_row", "refs")), horizon=N,
         device="cpu")

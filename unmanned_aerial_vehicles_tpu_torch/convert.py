@@ -293,21 +293,36 @@ def multitick_carry12_from_numpy(state, X_plan, U_plan, z, y, dtype=torch.float3
 
 def rigid_tick_operands_from_numpy(sxct, sutqt, f0_row, gml, p1, d_row, e_row, ie_row, ce_row,
                                    ice_row, lo_row, hi_row, horizon: int, nu: int = 4,
-                                   nx: int = 12, device=None) -> RigidTickOperands:
+                                   nx: int = 12, *, gs, device=None) -> RigidTickOperands:
     """K11's semantic operands from the JAX multi-tick kernel's padded
     layouts: ``sxct (16, pad)`` holds Sx' in rows 0:12 and Sc in row 12,
     ``sutqt (pad, pad)`` is SuT_q', ``gml (pad, pad)`` is GMinvT_s, ``p1
-    (pad, pad)`` is P1, and every ``*_row`` is a ``(1, pad)`` row."""
+    (pad, pad)`` is P1, and every ``*_row`` is a ``(1, pad)`` row. ``gs (m,
+    N nu)`` is the JAX relinearisation's equilibrated constraint matrix Gs
+    (unpadded; the JAX kernel takes only P1 = Gs GMinvT_s), whose factors
+    the port's kernel reads. Raises unless Gs's top ``N nu`` rows are
+    diagonal and ``Gs @ GMinvT_s`` is P1 within float32 rounding: the
+    kernel relies on both and the plain version on neither."""
     dev = resolve_device(device)
     N = horizon
     Nnu, Nnx, m = N * nu, N * nx, N * (nu + nx)
     f = lambda a: _t(np.ascontiguousarray(a), torch.float32, dev).contiguous()
     row = lambda r, n: f(np.asarray(r)[0, :n])
     sxct = np.asarray(sxct)
+    gs = np.asarray(gs, np.float32)[:m, :Nnu].astype(np.float64)
+    gml = np.asarray(gml, np.float32)[:Nnu, :m].astype(np.float64)
+    p1 = np.asarray(p1, np.float32)[:m, :m]
+    top = gs[:Nnu]
+    if np.any(top != np.diag(np.diagonal(top))):
+        raise ValueError("Gs's top N nu rows are not diagonal (G = [I; Su])")
+    # a float32 product of N nu terms is within (N nu + 1) eps of |Gs| |GMinvT_s|
+    slack = (Nnu + 1) * np.finfo(np.float32).eps * (np.abs(gs) @ np.abs(gml))
+    if np.any(np.abs(gs @ gml - p1) > slack):
+        raise ValueError("P1 is not Gs @ GMinvT_s within float32 rounding")
     return RigidTickOperands(
         Sx=f(sxct[0:nx, :Nnx].T), Sc=f(sxct[12, :Nnx]),
         SuT_q=f(np.asarray(sutqt)[:Nnx, :Nnu].T), f0=row(f0_row, Nnu),
-        GMinvT_s=f(np.asarray(gml)[:Nnu, :m]), P1=f(np.asarray(p1)[:m, :m]),
+        GMinvT_s=f(gml), Gs=f(gs), P1=f(p1),
         d=row(d_row, Nnu), e=row(e_row, m), ie=row(ie_row, m), ce=row(ce_row, m),
         ice=row(ice_row, m), lo=row(lo_row, m), hi=row(hi_row, m),
     )

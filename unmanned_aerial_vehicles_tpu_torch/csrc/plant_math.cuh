@@ -1,7 +1,8 @@
 // Scalar device math of the PX4 surrogate plant and the geometric
 // allocation, shared by the plant kernels (plant_kernels.cu: K1, K2), the
-// multi-tick tick kernels (tick_kernel.cu: K5; noisy_tick_kernel.cu: K9)
-// and the single-tick tick kernel (single_tick_kernels.cu: K4).
+// multi-tick tick kernels (tick_kernel.cu: K5; noisy_tick_kernel.cu: K9),
+// the single-tick tick kernel (single_tick_kernels.cu: K4) and the plant
+// VJP kernels (plant_vjp_kernels.cu: K13a, K13b).
 //
 // A transcription of the JAX package's ops/plant_pallas.py scalar
 // functions (_derivative, _rk4_substeps, _jacobian_rows, _allocation), which the port's
@@ -557,6 +558,221 @@ __device__ __forceinline__ void rk4_substeps_vjp(const float s0[12], const float
       g_k[i] = g_sum[i] + st.half_h * g_x[i];        // x2 = s + h/2 k1
     }
     derivative_vjp(s, c, pl, g_k, g_s, gc, gp);      // k1 = f(s)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) gs[i] = g_s[i];
+  }
+}
+
+// derivative_vjp() on a whole warp (K13a): every lane gets the whole
+// update of gs, gc and gp. Lanes 0-2 form the sine and cosine of one Euler
+// angle each and lanes 0-13 one quotient each, shared by shuffles, so the
+// warp waits for one sincosf and one division where derivative_vjp() waits
+// for six and fifteen. kd is the plant's k_drag / mass, formed once by the
+// caller. The same arithmetic as derivative_vjp() (sincosf for sinf and
+// cosf); every lane must call it with the same arguments.
+__device__ __forceinline__ void derivative_vjp_warp(const float s[12], const float c[4],
+                                                    const Plant& pl, float kd, const float g[12],
+                                                    int lane, float gs[12], float gc[4],
+                                                    float gp[kPlantLanes]) {
+  float sn, cs;
+  sincosf(s[6 + lane % 3], &sn, &cs);
+  const float cphi = __shfl_sync(kFullMask, cs, 0), sphi = __shfl_sync(kFullMask, sn, 0);
+  const float cth = __shfl_sync(kFullMask, cs, 1), sth = __shfl_sync(kFullMask, sn, 1);
+  const float cpsi = __shfl_sync(kFullMask, cs, 2), spsi = __shfl_sync(kFullMask, sn, 2);
+  const float vx = s[3], vy = s[4], vz = s[5];
+  const float p = s[9], q = s[10], r = s[11];
+  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
+  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
+  const float t2 = cphi * cth;
+  const float a_thrust = c[0] * pl.thrust_gain;
+  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
+  const float sq = avx * avx + avy * avy + avz * avz;
+  const bool moving = sq > 0.0f;
+  const float speed = moving ? sqrtf(sq) : 0.0f;
+  const bool guarded = fabsf(cth) < 1e-6f;
+  const float cth_safe = guarded ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
+  const float g_kd_speed = -(g[3] * avx + g[4] * avy + g[5] * avz);
+  const float g_kd = g_kd_speed * speed;
+  const float qr = q * sphi + r * cphi;
+  const float g_tth = g[6] * qr;
+
+  // one quotient per lane: tan, the drag's three, the attitude rows' four,
+  // the rate rows' six (lanes 14-15 and 16-31 repeat; a quotient of a
+  // branch not taken, as x / 0 at zero airspeed, is never read)
+  const int k = lane & 15;
+  float num, den;
+  switch (k) {
+    case 0: num = sth; den = cth; break;
+    case 1: num = g_kd_speed * kd; den = 2.0f * speed; break;
+    case 2: num = g_kd; den = pl.mass; break;
+    case 3: num = g_kd * pl.k_drag; den = pl.mass * pl.mass; break;
+    case 4: num = g_tth; den = cth; break;
+    case 5: num = g_tth * sth; den = cth * cth; break;
+    case 6: num = g[8]; den = cth_safe; break;
+    case 7: num = g[8] * qr; den = cth_safe * cth_safe; break;
+    case 8: num = g[9]; den = pl.tau_r; break;
+    case 9: num = g[10]; den = pl.tau_p; break;
+    case 10: num = g[11]; den = pl.tau_y; break;
+    case 11: num = g[9] * (c[1] - p); den = pl.tau_r * pl.tau_r; break;
+    case 12: num = g[10] * (c[2] - q); den = pl.tau_p * pl.tau_p; break;
+    case 13: num = g[11] * (c[3] - r); den = pl.tau_y * pl.tau_y; break;
+    default: num = 0.0f; den = 1.0f; break;
+  }
+  const float quo = num / den;
+  const float tth = __shfl_sync(kFullMask, quo, 0), g_sq = __shfl_sync(kFullMask, quo, 1);
+  const float g_kd_m = __shfl_sync(kFullMask, quo, 2), g_kd_mm = __shfl_sync(kFullMask, quo, 3);
+  const float g_sth_t = __shfl_sync(kFullMask, quo, 4), g_cth_t = __shfl_sync(kFullMask, quo, 5);
+  const float g8 = __shfl_sync(kFullMask, quo, 6), g_cth_8 = __shfl_sync(kFullMask, quo, 7);
+  const float g_p = __shfl_sync(kFullMask, quo, 8), g_q = __shfl_sync(kFullMask, quo, 9);
+  const float g_r = __shfl_sync(kFullMask, quo, 10), g_tr = __shfl_sync(kFullMask, quo, 11);
+  const float g_tp = __shfl_sync(kFullMask, quo, 12), g_ty = __shfl_sync(kFullMask, quo, 13);
+
+  // position rows: d(x)/dt = v
+  gs[3] += g[0];
+  gs[4] += g[1];
+  gs[5] += g[2];
+
+  // acceleration rows: a_thrust t - kd speed av - gravity e_z
+  const float g_at = g[3] * t0 + g[4] * t1 + g[5] * t2;
+  const float g_t0 = g[3] * a_thrust, g_t1 = g[4] * a_thrust, g_t2 = g[5] * a_thrust;
+  gc[0] += g_at * pl.thrust_gain;
+  gp[6] += g_at * c[0];
+  const float kd_speed = kd * speed;
+  float g_av[3] = {-kd_speed * g[3], -kd_speed * g[4], -kd_speed * g[5]};
+  if (moving) {
+    g_av[0] += 2.0f * avx * g_sq;
+    g_av[1] += 2.0f * avy * g_sq;
+    g_av[2] += 2.0f * avz * g_sq;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    gs[3 + i] += g_av[i];
+    gp[7 + i] -= g_av[i];
+  }
+  gp[2] += g_kd_m;
+  gp[0] -= g_kd_mm;
+  gp[1] -= g[5];
+
+  // the thrust direction's trigonometric factors
+  float g_cphi = 0.0f, g_sphi = 0.0f, g_cth = 0.0f, g_sth = 0.0f, g_cpsi = 0.0f, g_spsi = 0.0f;
+  g_cphi -= g_t0 * sth * cpsi;
+  g_sth -= g_t0 * cphi * cpsi;
+  g_cpsi -= g_t0 * cphi * sth;
+  g_sphi -= g_t0 * spsi;
+  g_spsi -= g_t0 * sphi;
+  g_cphi -= g_t1 * sth * spsi;
+  g_sth -= g_t1 * cphi * spsi;
+  g_spsi -= g_t1 * cphi * sth;
+  g_sphi += g_t1 * cpsi;
+  g_cpsi += g_t1 * sphi;
+  g_cphi += g_t2 * cth;
+  g_cth += g_t2 * cphi;
+
+  // attitude rows: the Euler-rate transform (phi row unguarded, psi row guarded)
+  gs[9] += g[6];
+  gs[10] += g[6] * sphi * tth;
+  gs[11] += g[6] * cphi * tth;
+  g_sphi += g[6] * q * tth;
+  g_cphi += g[6] * r * tth;
+  g_sth += g_sth_t;
+  g_cth -= g_cth_t;
+  gs[10] += g[7] * cphi;
+  gs[11] -= g[7] * sphi;
+  g_cphi += g[7] * q;
+  g_sphi -= g[7] * r;
+  gs[10] += g8 * sphi;
+  gs[11] += g8 * cphi;
+  g_sphi += g8 * q;
+  g_cphi += g8 * r;
+  if (!guarded) g_cth -= g_cth_8;
+
+  // rate rows: (command - rate) / tau
+  gc[1] += g_p;
+  gc[2] += g_q;
+  gc[3] += g_r;
+  gs[9] -= g_p;
+  gs[10] -= g_q;
+  gs[11] -= g_r;
+  gp[3] -= g_tr;
+  gp[4] -= g_tp;
+  gp[5] -= g_ty;
+
+  gs[6] += g_sphi * cphi - g_cphi * sphi;
+  gs[7] += g_sth * cth - g_cth * sth;
+  gs[8] += g_spsi * cpsi - g_cpsi * spsi;
+}
+
+// rk4_substeps_vjp() on a whole warp (K13a): the forward runs once through
+// rk4_stages_warp, each substep's start state and stage states x2, x3, x4
+// stored in the warp's stages (substeps x 48 floats of shared memory, lane
+// 0 writing), then the adjoint runs back through them with
+// derivative_vjp_warp. The same arithmetic as rk4_substeps_vjp(), except
+// that each substep's start state comes from the forward pass instead of a
+// recomputation from s0 (the same float32 operations either way); every
+// lane ends with the whole gs, gc, gp.
+__device__ __forceinline__ void rk4_substeps_vjp_warp(const float s0[12], const float c[4],
+                                                      const Plant& pl, double dt, int substeps,
+                                                      int lane, float* stages, float gs[12],
+                                                      float gc[4], float gp[kPlantLanes]) {
+  const Rk4Step st = rk4_step_lengths(dt, substeps);
+  const float kd = pl.k_drag / pl.mass;
+  float s[12], x2[12], x3[12], x4[12], xp[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = s0[i];
+  for (int step = 0; step < substeps; ++step) {
+    rk4_stages_warp(s, c, pl, dt / substeps, lane, x2, x3, x4, xp);
+    if (lane == 0) {
+      float* at = stages + 48 * step;
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        at[i] = s[i];
+        at[12 + i] = x2[i];
+        at[24 + i] = x3[i];
+        at[36 + i] = x4[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s[i] = xp[i];
+  }
+  __syncwarp();
+  for (int step = substeps - 1; step >= 0; --step) {
+    const float* at = stages + 48 * step;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      s[i] = at[i];
+      x2[i] = at[12 + i];
+      x3[i] = at[24 + i];
+      x4[i] = at[36 + i];
+    }
+    // s' = s + h6 (k1 + 2 k2 + 2 k3 + k4), back through k4 .. k1
+    float g_sum[12], g_k[12], g_x[12], g_s[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_sum[i] = st.h6 * gs[i];
+      g_s[i] = gs[i];
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp_warp(x4, c, pl, kd, g_sum, lane, g_x, gc, gp);   // k4 = f(x4)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = 2.0f * g_sum[i] + st.h * g_x[i];      // x4 = s + h k3
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp_warp(x3, c, pl, kd, g_k, lane, g_x, gc, gp);     // k3 = f(x3)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = 2.0f * g_sum[i] + st.half_h * g_x[i]; // x3 = s + h/2 k2
+      g_x[i] = 0.0f;
+    }
+    derivative_vjp_warp(x2, c, pl, kd, g_k, lane, g_x, gc, gp);     // k2 = f(x2)
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      g_s[i] += g_x[i];
+      g_k[i] = g_sum[i] + st.half_h * g_x[i];        // x2 = s + h/2 k1
+    }
+    derivative_vjp_warp(s, c, pl, kd, g_k, lane, g_s, gc, gp);      // k1 = f(s)
 #pragma unroll
     for (int i = 0; i < 12; ++i) gs[i] = g_s[i];
   }

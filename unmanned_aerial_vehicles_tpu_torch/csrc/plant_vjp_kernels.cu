@@ -1,5 +1,5 @@
-// K13a and K13b: the VJPs of the plant kernels K1 and K2, one CUDA thread
-// per state of a batch.
+// K13a and K13b: the VJPs of the plant kernels K1 and K2: K13a one warp per
+// state of a batch, K13b one CUDA thread per state.
 //
 // The JAX package differentiates its plant kernels through custom VJPs
 // whose backward pass is the staged twin's jax.vjp:
@@ -11,15 +11,26 @@
 //   the command row, the attitude integral and the plant row from those of
 //   the new state, the control + attitude setpoint row and the integral.
 //
-// Design: each thread recomputes its state's forward pass in registers with
-// the forward kernels' own device math (plant_math.cuh: allocation,
-// rk4_step, derivative) and runs the adjoint back through it
-// (rk4_substeps_vjp, derivative_vjp, allocation_vjp): per RK4 substep the
-// stage states are rebuilt and the cotangent goes back through k4 .. k1.
+// What bounds them is latency: per state ~100 bytes in and out against
+// ~4,000 operations, most of them waiting on a chain of accurate sines,
+// cosines and IEEE divisions; the flight tuners launch them at B=1.
+//
+// K13a: a warp per state (four per block, so B=1024 spreads over 256
+// blocks). The lanes share the slow scalar work by shuffles
+// (plant_math.cuh: rk4_stages_warp, derivative_warp, derivative_vjp_warp):
+// per derivative and per derivative VJP the warp waits for one sincosf and
+// one division where one thread waits for six and seven or fifteen in a
+// row. The forward runs once, each substep's start and stage states kept in
+// the warp's shared memory, and the cotangent goes back through k4 .. k1 of
+// each substep; every lane holds the whole state and cotangent (a 12-wide
+// combination is one FMA per component on any lane), and lane 0 writes.
+// K13b: each thread recomputes its state's forward pass in registers with
+// the forward kernels' own device math (allocation, rk4_step, derivative)
+// and runs the adjoint back through it (rk4_substeps_vjp, derivative_vjp,
+// allocation_vjp): per RK4 substep the stage states are rebuilt and the
+// cotangent goes back through k4 .. k1.
 // The plant row's cotangent is written per state, (B, 10), and the wrapper
 // sums it over the batch in a fixed order, so a launch is deterministic.
-// What bounds them is latency: per state ~100 bytes in and out against
-// ~4,000 dependent operations; the flight tuners launch them at B=1.
 //
 // The plain versions are ops/tick_ad.py: px4_plant_step_vjp_plain and
 // allocation_plant_tick_vjp_plain (torch.func.vjp of K1's and K2's plain
@@ -32,17 +43,103 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kVjpWarps = 4;        // K13a: states (warps) per block
+constexpr int kMaxVjpSubsteps = 64; // K13a: 4 warps x 64 x 48 floats = 48 KB of stages
 
-__global__ void px4_plant_step_vjp_kernel(const float* __restrict__ state,
-                                          const float* __restrict__ control,
-                                          const float* __restrict__ plant_row,
-                                          const float* __restrict__ ct_out,
-                                          float* __restrict__ ct_state,
-                                          float* __restrict__ ct_control,
-                                          float* __restrict__ ct_plant, int batch, double dt,
-                                          int substeps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+#ifdef UAV_K13A_LANE_OWNED
+// An ablation of K13a's design, built only as the plant_vjp_lane_owned
+// library (chip_smoke.py times it beside the shipped form): lanes 0-11 own
+// one state component each for the RK4 combinations and the adjoint's
+// accumulations, and each derivative and derivative VJP first gathers the
+// whole state or cotangent by twelve shuffles. The derivatives themselves,
+// and the cotangents of the control and the plant row, stay whole on every
+// lane, as in rk4_substeps_vjp_warp().
+__device__ __forceinline__ float own(const float v[12], int lane) {
+  float o = v[0];
+#pragma unroll
+  for (int j = 1; j < 12; ++j) o = lane == j ? v[j] : o;
+  return o;
+}
+
+__device__ __forceinline__ void gather(float v, float out[12]) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) out[j] = __shfl_sync(uav::kFullMask, v, j);
+}
+
+__device__ __forceinline__ void rk4_substeps_vjp_lanes(const float s0[12], const float c[4],
+                                                       const uav::Plant& pl, double dt,
+                                                       int substeps, int lane, float* stages,
+                                                       float gs[12], float gc[4],
+                                                       float gp[uav::kPlantLanes]) {
+  const uav::Rk4Step st = uav::rk4_step_lengths(dt, substeps);
+  const float kd = pl.k_drag / pl.mass;
+  float v[12], k[12];
+  float si = own(s0, lane);   // lanes 12-31 carry a copy of component 0, never read
+  for (int step = 0; step < substeps; ++step) {
+    gather(si, v);
+    uav::derivative_warp(v, c, pl, lane, k);
+    float acc = own(k, lane);
+    const float x2 = si + st.half_h * acc;
+    gather(x2, v);
+    uav::derivative_warp(v, c, pl, lane, k);
+    float ki = own(k, lane);
+    const float x3 = si + st.half_h * ki;
+    acc = acc + 2.0f * ki;
+    gather(x3, v);
+    uav::derivative_warp(v, c, pl, lane, k);
+    ki = own(k, lane);
+    const float x4 = si + st.h * ki;
+    acc = acc + 2.0f * ki;
+    gather(x4, v);
+    uav::derivative_warp(v, c, pl, lane, k);
+    ki = own(k, lane);
+    if (lane < 12) {
+      float* at = stages + 48 * step;
+      at[lane] = si;
+      at[12 + lane] = x2;
+      at[24 + lane] = x3;
+      at[36 + lane] = x4;
+    }
+    si = si + st.h6 * (acc + ki);
+  }
+  __syncwarp();
+  float gi = own(gs, lane), xs[12], g_x[12];
+  for (int step = substeps - 1; step >= 0; --step) {
+    const float* at = stages + 48 * step;
+    const float g_sum = st.h6 * gi;
+    float g_s = gi, g_k = g_sum;
+    // s' = s + h6 (k1 + 2 k2 + 2 k3 + k4), back through k4 .. k1 at the
+    // stage states x4, x3, x2, s
+#pragma unroll
+    for (int stage = 3; stage >= 0; --stage) {
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        xs[i] = at[12 * stage + i];
+        g_x[i] = 0.0f;
+      }
+      gather(g_k, v);
+      uav::derivative_vjp_warp(xs, c, pl, kd, v, lane, g_x, gc, gp);
+      const float gx = own(g_x, lane);
+      g_s += gx;
+      g_k = stage == 3 ? 2.0f * g_sum + st.h * gx          // x4 = s + h k3
+          : stage == 2 ? 2.0f * g_sum + st.half_h * gx     // x3 = s + h/2 k2
+                       : g_sum + st.half_h * gx;           // x2 = s + h/2 k1
+    }
+    gi = g_s;
+  }
+  gather(gi, gs);
+}
+#endif
+
+__global__ void __launch_bounds__(32 * kVjpWarps)
+px4_plant_step_vjp_kernel(const float* __restrict__ state, const float* __restrict__ control,
+                          const float* __restrict__ plant_row, const float* __restrict__ ct_out,
+                          float* __restrict__ ct_state, float* __restrict__ ct_control,
+                          float* __restrict__ ct_plant, int batch, double dt, int substeps) {
+  extern __shared__ float stages[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kVjpWarps + warp;
+  if (b >= batch) return;   // the whole warp
   const uav::Plant pl = uav::load_plant(plant_row);
   float s[12], c[4], gs[12], gc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, gp[uav::kPlantLanes];
 #pragma unroll
@@ -54,7 +151,13 @@ __global__ void px4_plant_step_vjp_kernel(const float* __restrict__ state,
   for (int i = 0; i < 4; ++i) c[i] = control[b * 4 + i];
 #pragma unroll
   for (int i = 0; i < uav::kPlantLanes; ++i) gp[i] = 0.0f;
-  uav::rk4_substeps_vjp(s, c, pl, dt, substeps, gs, gc, gp);
+#ifdef UAV_K13A_LANE_OWNED
+  rk4_substeps_vjp_lanes(s, c, pl, dt, substeps, lane, stages + warp * substeps * 48, gs, gc, gp);
+#else
+  uav::rk4_substeps_vjp_warp(s, c, pl, dt, substeps, lane, stages + warp * substeps * 48, gs, gc,
+                             gp);
+#endif
+  if (lane != 0) return;
 #pragma unroll
   for (int i = 0; i < 12; ++i) ct_state[b * 12 + i] = gs[i];
 #pragma unroll
@@ -126,8 +229,10 @@ int px4_plant_step_vjp_launch(const float* state, const float* control, const fl
                               const float* ct_out, float* ct_state, float* ct_control,
                               float* ct_plant, int batch, double dt, int substeps,
                               void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  px4_plant_step_vjp_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  if (substeps < 0 || substeps > kMaxVjpSubsteps) return (int)cudaErrorInvalidValue;
+  const int blocks = (batch + kVjpWarps - 1) / kVjpWarps;
+  const size_t smem = sizeof(float) * kVjpWarps * substeps * 48;
+  px4_plant_step_vjp_kernel<<<blocks, 32 * kVjpWarps, smem, (cudaStream_t)stream>>>(
       state, control, plant_row, ct_out, ct_state, ct_control, ct_plant, batch, dt, substeps);
   return (int)cudaGetLastError();
 }

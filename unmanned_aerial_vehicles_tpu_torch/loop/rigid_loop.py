@@ -11,8 +11,9 @@ for K consecutive ticks, so every matrix is a per-dispatch constant:
   M^-1 Gs'``: plain large products in PyTorch on the engine's device, in
   full float32 where the engine is float32 (no TF32);
 * per tick: the warm-start shift, two small matvecs (offset and linear
-  cost), the composite ADMM (one (m, m) matvec per iteration) and the true
-  **nonlinear** plant step.
+  cost), the composite ADMM (one (m, m) matvec with ``P1`` per iteration;
+  kernel K11 applies it as its rank-``N nu`` factors ``Gs`` and
+  ``GMinvT_s``) and the true **nonlinear** plant step.
 
 The equilibration scalars (d, e) are fixed across the dispatch, so the
 ADMM duals warm-start across ticks in the same scaled space.
@@ -90,16 +91,18 @@ class _Dispatch(NamedTuple):
     d: torch.Tensor          # Ruiz column scaling
     e: torch.Tensor          # Ruiz row scaling
     Minv_s: torch.Tensor     # (Hs + rho Gs'Gs)^-1
+    Gs: torch.Tensor         # diag(e) G diag(d), G = [I; Su] (and the obstacle rows)
     GMinvT_s: torch.Tensor   # M^-1 Gs'
-    P1: torch.Tensor         # Gs M^-1 Gs'
+    P1: torch.Tensor | None  # Gs M^-1 Gs' (None where nothing reads it)
     n_vec: torch.Tensor | None        # obstacle normals (N, n_obs, 3)
     lo_obs_base: torch.Tensor | None  # obstacle bounds without the offset term
 
 
-def _relinearize(mpc: SQPMPC, X_bar, U_bar, residuals, qbar, rbar, obstacles=None) -> _Dispatch:
+def _relinearize(mpc: SQPMPC, X_bar, U_bar, residuals, qbar, rbar, obstacles=None,
+                 with_p1: bool = True) -> _Dispatch:
     """Linearise about ``(X_bar, U_bar)``, condense by doubling, add the
     obstacle rows (normals anchored to ``X_bar``), equilibrate, factor and
-    compose the ADMM operators."""
+    compose the ADMM operators (``P1`` only ``with_p1``)."""
     N, nx, nu = mpc.config.horizon, mpc.nx, mpc.nu
     A, B, c = linearize(mpc.step_fn, X_bar, U_bar, residuals)
     Sx, Su, Sc = condense_ltv_doubling(A, B, c)
@@ -121,7 +124,8 @@ def _relinearize(mpc: SQPMPC, X_bar, U_bar, residuals, qbar, rbar, obstacles=Non
     # plain matvec
     Minv_s = torch.cholesky_solve(torch.eye(Hs.shape[0], dtype=mpc.dtype, device=mpc.device), L)
     GMinvT_s = Minv_s @ Gs.T
-    return _Dispatch(Sx, Su, Sc, SuT_q, d, e, Minv_s, GMinvT_s, Gs @ GMinvT_s, n_vec, lo_obs_base)
+    P1 = Gs @ GMinvT_s if with_p1 else None
+    return _Dispatch(Sx, Su, Sc, SuT_q, d, e, Minv_s, Gs, GMinvT_s, P1, n_vec, lo_obs_base)
 
 
 def _initial_carry(mpc: SQPMPC, cost: QuadCost, x0, u_init, m: int) -> MultiTickCarry:
@@ -242,22 +246,25 @@ def sqp_multitick_rollout(
 
 
 def dispatch_tick_operands(mpc: SQPMPC, cost: QuadCost, X_bar: torch.Tensor, U_bar: torch.Tensor,
-                           residuals: torch.Tensor | None = None
+                           residuals: torch.Tensor | None = None, with_p1: bool = True
                            ) -> tuple[_Dispatch, RigidTickOperands]:
     """One dispatch of the fused tier: the relinearisation about the plan
     ``(X_bar (N+1, nx), U_bar (N, nu))`` and K11's operands from it, with
     the equilibration's per-lane shift correction ``e / blockroll(e)`` and
-    its inverse beside the scalings."""
+    its inverse beside the scalings. The ADMM operator comes as its factors
+    ``Gs``, ``GMinvT_s`` (the kernel's) and, ``with_p1``, as ``P1 = Gs @
+    GMinvT_s`` (the plain version's; ``None`` otherwise)."""
     full_f32_matmul()
     N, Nnu = mpc.config.horizon, mpc.config.horizon * mpc.nu
     residuals, _ = mpc.defaults(residuals, None)
     qbar, rbar, u_ref_flat = mpc.horizon_weights(cost)
-    disp = _relinearize(mpc, X_bar, U_bar, residuals, qbar, rbar)
+    disp = _relinearize(mpc, X_bar, U_bar, residuals, qbar, rbar, with_p1=with_p1)
     e = disp.e
     e_shift = torch.cat([roll_block(e[:Nnu], N), roll_block(e[Nnu:], N)])
     return disp, RigidTickOperands(
         Sx=disp.Sx.contiguous(), Sc=disp.Sc.contiguous(), SuT_q=disp.SuT_q.contiguous(),
-        f0=-rbar * u_ref_flat, GMinvT_s=disp.GMinvT_s.contiguous(), P1=disp.P1.contiguous(),
+        f0=-rbar * u_ref_flat, GMinvT_s=disp.GMinvT_s.contiguous(), Gs=disp.Gs.contiguous(),
+        P1=None if disp.P1 is None else disp.P1.contiguous(),
         d=disp.d, e=e, ie=1.0 / e, ce=e / e_shift, ice=e_shift / e,
         lo=torch.cat([mpc._u_lo, mpc._x_lo]), hi=torch.cat([mpc._u_hi, mpc._x_hi]))
 
@@ -317,6 +324,8 @@ def direct_rate_multitick_fused(
     Nnu, Nnx = N * nu, N * nx
     residuals, _ = mpc.defaults(residuals, None)
     tick = direct_rate_multitick_plain if plain_kernels else direct_rate_multitick_kernel
+    # only the plain version (which CPU tensors take) reads P1
+    with_p1 = plain_kernels or torch.device(dev).type != "cuda"
     statics = dict(k_ticks=K, n=N, nu=nu, nx=nx, iterations=admm_iterations,
                    over_relax=float(cfg.admm_over_relax), rho=float(cfg.admm_rho), dt=dt,
                    substeps=substeps, gravity=gravity, taus=taus, plant=plant, body=body)
@@ -325,7 +334,7 @@ def direct_rate_multitick_fused(
     for tick0 in range(0, num_steps, K):
         X_bar = carry.X_plan.clone()
         X_bar[0] = carry.state
-        disp, ops = dispatch_tick_operands(mpc, cost, X_bar, carry.U_plan, residuals)
+        disp, ops = dispatch_tick_operands(mpc, cost, X_bar, carry.U_plan, residuals, with_p1)
         refs = reference_fn(torch.arange(tick0, tick0 + K, device=dev))
         refs = refs.to(torch.float32).reshape(K, Nnx).contiguous()
         out, x_fin, z_fin, y_fin = tick(carry.state, carry.z * ops.e, carry.y / ops.e, refs, ops,

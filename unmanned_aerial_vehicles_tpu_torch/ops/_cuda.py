@@ -48,8 +48,13 @@ LIBRARIES = {
     "noisy_tick_clocks": ("noisy_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
     "rigid_plant": "rigid_plant_kernels.cu",
     "rigid_tick": "rigid_tick_kernel.cu",
+    # K11 with its per-section clock counters (chip_smoke.py's breakdown)
+    "rigid_tick_clocks": ("rigid_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
     "mppi": "mppi_kernels.cu",
     "plant_vjp": "plant_vjp_kernels.cu",
+    # K13a with lanes 0-11 owning a state component each (chip_smoke.py's
+    # ablation of its design)
+    "plant_vjp_lane_owned": ("plant_vjp_kernels.cu", ["-DUAV_K13A_LANE_OWNED"]),
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

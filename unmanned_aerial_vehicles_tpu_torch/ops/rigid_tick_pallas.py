@@ -5,12 +5,14 @@
 (``loop.rigid_loop.direct_rate_multitick_fused``) in one launch of
 ``csrc/rigid_tick_kernel.cu``: per tick the blockwise warm-start shift in
 the dispatch's equilibrated space (times ``ce`` / ``ice``), the condensed
-gradient and bounds from ``offset = Sx x + Sc``, the composite ADMM with
-``P1``, ``u0 = z[:nu] ie`` and the plant substeps (the direct-rate model's
-Euler steps, or RK4 of the torque-input rigid body with ``plant="rigid"``).
-Its plain version, ``direct_rate_multitick_plain``, is the same algebra in
-PyTorch (in the operands' dtype). The wrapper takes it only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+gradient and bounds from ``offset = Sx x + Sc``, the composite ADMM,
+``u0 = z[:nu] ie`` and the plant substeps (the direct-rate model's Euler
+steps, or RK4 of the torque-input rigid body with ``plant="rigid"``). The
+kernel applies the ADMM operator ``P1 = Gs @ GMinvT_s`` as its two factors,
+held in shared memory (``factor_placement``); its plain version,
+``direct_rate_multitick_plain``, is the JAX kernel's algebra in PyTorch (in
+the operands' dtype) and multiplies by ``P1``. The wrapper takes it only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 
 Operands are semantic (the TPU kernel's 128-lane padding, its homogeneous
 ``x_row`` lane and its lane rolls are gone): ``RigidTickOperands`` below,
@@ -40,7 +42,9 @@ class RigidTickOperands(NamedTuple):
     SuT_q: torch.Tensor      # (N nu, N nx)  Su' diag(q)
     f0: torch.Tensor         # (N nu,)       -rbar * u_ref
     GMinvT_s: torch.Tensor   # (N nu, m)     M^-1 Gs'
-    P1: torch.Tensor         # (m, m)        Gs M^-1 Gs'
+    Gs: torch.Tensor         # (m, N nu)     diag(e) [I; Su] diag(d)
+    P1: torch.Tensor | None  # (m, m)        Gs M^-1 Gs' = Gs @ GMinvT_s: the plain
+                             #               version's; the kernel reads none
     d: torch.Tensor          # (N nu,)       Ruiz column scaling
     e: torch.Tensor          # (m,)          Ruiz row scaling
     ie: torch.Tensor         # (m,)          1 / e
@@ -96,6 +100,8 @@ def direct_rate_multitick_plain(x, z0, y0, refs, ops: RigidTickOperands, *, k_ti
     """Plain version of K11: ``(out (K, 16), x (12,), z (m,), y (m,))``,
     ``out`` holding each tick's pre-plant state and u0; z and y stay in the
     equilibrated space."""
+    if ops.P1 is None:
+        raise ValueError("direct_rate_multitick_plain multiplies by ops.P1, which is None")
     sub = plant_substep(plant, dt, substeps, gravity, taus, body)
     Nnu = n * nu
     shift = lambda v: torch.cat([roll_block(v[:Nnu], n), roll_block(v[Nnu:], n)])
@@ -126,17 +132,18 @@ def direct_rate_multitick_plain(x, z0, y0, refs, ops: RigidTickOperands, *, k_ti
     return torch.stack(rows), x, z, y
 
 
-def _round4(v: int) -> int:
-    return (v + 3) // 4 * 4
+KERNEL_THREADS = 640   # csrc/rigid_tick_kernel.cu kThreads
 
 
-def shared_memory_bytes(N: int, nu: int = 4, nx: int = 12, p1_shared: bool = True) -> int:
+def shared_memory_bytes(N: int, nu: int = 4, nx: int = 12, factors_shared: bool = True) -> int:
     """Dynamic shared memory of one K11 block (csrc/rigid_tick_kernel.cu
-    layout): P1 (shared variant only), the double-buffered ADMM input, fs,
-    ten m-vectors, three (N nx)-vectors and the state."""
+    layout): the factors (shared variant: Gs's lower rows transposed with a
+    row stride of N nx + 4, GMinvT_s and Gs's diagonal) or the first
+    product's partial sums (L2 variant), then v, w, fs, ten m-vectors, three
+    (N nx)-vectors and the state."""
     m, Nnu, Nnx = N * (nu + nx), N * nu, N * nx
-    return 4 * ((_round4(m * m) if p1_shared else 0) + 2 * _round4(m) + _round4(Nnu) + 10 * m
-                + 3 * Nnx + 12)
+    factors = Nnu * (Nnx + 4) + Nnu * m + Nnu if factors_shared else max(KERNEL_THREADS, Nnu)
+    return 4 * (factors + m + 2 * Nnu + 10 * m + 3 * Nnx + 12)
 
 
 class _RigidTickParams(ctypes.Structure):
@@ -150,7 +157,7 @@ class _RigidTickParams(ctypes.Structure):
     ]
 
 
-_OPERANDS = ("x_in", "z_in", "y_in", "refs", "Sx", "Sc", "SuT_q", "f0", "GMinvT_s", "P1", "d", "e",
+_OPERANDS = ("x_in", "z_in", "y_in", "refs", "Sx", "Sc", "SuT_q", "f0", "GMinvT_s", "Gs", "d", "e",
              "ie", "ce", "ice", "lo", "hi", "out", "x_out", "z_out", "y_out")
 
 
@@ -158,10 +165,19 @@ class _RigidTickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _OPERANDS]
 
 
-def p1_placement(device, N: int, nu: int = 4, nx: int = 12) -> tuple[int, int]:
-    """``(p1_shared, bytes)`` K11 launches with on ``device``."""
-    return _cuda.p1_variant(device, shared_memory_bytes(N, nu, nx, True),
-                            shared_memory_bytes(N, nu, nx, False))
+def factor_placement(device, N: int, nu: int = 4, nx: int = 12) -> tuple[int, int]:
+    """``(factors_shared, bytes)`` K11 launches with on ``device``: the
+    factors in shared memory where that layout fits one block (N <= 21 on an
+    H100; its first product also needs N nx <= 256), read through L2
+    otherwise; raise if neither fits."""
+    limit = _cuda.shared_memory_optin(device)
+    shared, streamed = (shared_memory_bytes(N, nu, nx, flag) for flag in (True, False))
+    if shared <= limit and N * nx <= 256:
+        return 1, shared
+    if streamed <= limit:
+        return 0, streamed
+    raise ValueError(f"K11's vectors need {streamed} bytes of shared memory, more than one "
+                     f"block's {limit}")
 
 
 def direct_rate_multitick_kernel(x, z0, y0, refs, ops: RigidTickOperands, *, k_ticks: int,
@@ -171,7 +187,14 @@ def direct_rate_multitick_kernel(x, z0, y0, refs, ops: RigidTickOperands, *, k_t
                                  body: RigidBodyParams | None = None):
     """K ticks (shift + condensed ADMM + plant) in one launch (K11), in
     float32. ``x (12,)``, ``z0, y0 (m,)`` equilibrated, ``refs (K, N nx)``.
-    Returns ``(out (K, 16), x (12,), z (m,), y (m,))``."""
+    Returns ``(out (K, 16), x (12,), z (m,), y (m,))``.
+
+    The kernel multiplies by ``P1`` as ``(v @ ops.Gs) @ ops.GMinvT_s`` and
+    reads only ``Gs``'s diagonal in its top ``N nu`` rows: the operands must
+    hold ``P1 = Gs @ GMinvT_s`` with ``Gs = diag(e) [I; Su] diag(d)``, as
+    ``loop.rigid_loop.dispatch_tick_operands`` builds them. On CUDA tensors
+    ``ops.P1`` is not read and may be ``None``; the plain version, which
+    CPU tensors take, multiplies by it."""
     if plant not in ("direct_rate", "rigid"):
         raise ValueError(f"unknown in-kernel plant: {plant!r}")
     if plant == "rigid" and body is None:
@@ -187,9 +210,10 @@ def direct_rate_multitick_kernel(x, z0, y0, refs, ops: RigidTickOperands, *, k_t
     req(y0, "y0", (m,), dev)
     req(refs, "refs", (k_ticks, Nnx), dev)
     shapes = dict(Sx=(Nnx, 12), Sc=(Nnx,), SuT_q=(Nnu, Nnx), f0=(Nnu,), GMinvT_s=(Nnu, m),
-                  P1=(m, m), d=(Nnu,))
+                  Gs=(m, Nnu), P1=(m, m), d=(Nnu,))
     for name, t in ops._asdict().items():
-        req(t, name, shapes.get(name, (m,)), dev)
+        if name != "P1" or dev.type == "cpu":
+            req(t, name, shapes.get(name, (m,)), dev)
     statics = dict(k_ticks=k_ticks, n=n, nu=nu, nx=nx, iterations=iterations,
                    over_relax=over_relax, rho=rho, dt=dt, substeps=substeps, gravity=gravity,
                    taus=taus, plant=plant, body=body)
@@ -198,8 +222,8 @@ def direct_rate_multitick_kernel(x, z0, y0, refs, ops: RigidTickOperands, *, k_t
     if dev.type != "cuda":
         raise ValueError(f"direct_rate_multitick_kernel runs on cuda or cpu, not {dev}")
 
-    _cuda.require_aligned("direct_rate_multitick_kernel", ops.P1)
-    p1_shared, smem = p1_placement(dev, N, nu, nx)
+    _cuda.require_aligned("direct_rate_multitick_kernel", ops.GMinvT_s)
+    factors_shared, smem = factor_placement(dev, N, nu, nx)
     h = float(dt) / substeps
     params = _RigidTickParams(
         k_ticks=k_ticks, n=N, m=m, iterations=int(iterations), substeps=int(substeps),
@@ -213,13 +237,33 @@ def direct_rate_multitick_kernel(x, z0, y0, refs, ops: RigidTickOperands, *, k_t
     x_out = torch.empty(12, dtype=torch.float32, device=dev)
     z = torch.empty(m, dtype=torch.float32, device=dev)
     y = torch.empty(m, dtype=torch.float32, device=dev)
-    operands = _RigidTickOperands(*(t.data_ptr() for t in (x, z0, y0, refs, *ops, out, x_out,
-                                                            z, y)))
+    tensors = dict(ops._asdict(), x_in=x, z_in=z0, y_in=y0, refs=refs, out=out, x_out=x_out,
+                   z_out=z, y_out=y)
+    operands = _RigidTickOperands(*(tensors[name].data_ptr() for name in _OPERANDS))
     fn = _cuda.library("rigid_tick").rigid_multitick_launch
     fn.argtypes = [ctypes.POINTER(_RigidTickParams), ctypes.POINTER(_RigidTickOperands),
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(operands), p1_shared, smem, _cuda.stream_of(x))
+    status = fn(ctypes.byref(params), ctypes.byref(operands), factors_shared, smem,
+                _cuda.stream_of(x))
     _cuda.check(status, "direct_rate_multitick_kernel")
     _cuda.count_launch("direct_rate_multitick_kernel")
     return out, x_out, z, y
+
+
+RIGID_SECTIONS = ("shift and offset", "gradient and bounds", "p0", "ADMM", "plant", "whole tick",
+                  "ADMM w = v Gs", "ADMM GU and update")
+
+
+def rigid_section_cycles() -> dict[str, int]:
+    """K11's per-section clock cycles summed over the launches since the
+    last call, then reset (``RIGID_SECTIONS``: the tick's five sections,
+    the whole tick, and the ADMM's two halves). Counted only by the build
+    with section clocks: launch K11 inside ``_cuda.library_variant(
+    "rigid_tick", "rigid_tick_clocks")``, synchronise, then call this."""
+    out = (ctypes.c_ulonglong * len(RIGID_SECTIONS))()
+    fn = _cuda.library("rigid_tick_clocks").rigid_tick_section_cycles
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), "rigid_section_cycles")
+    return dict(zip(RIGID_SECTIONS, (int(v) for v in out)))

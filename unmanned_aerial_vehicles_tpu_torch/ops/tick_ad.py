@@ -128,6 +128,9 @@ def traced_plant_row(mass, gravity, k_drag_linear, taus, thrust_gain,
 # ---------------------------------------------------------------------------
 
 
+VJP_MAX_SUBSTEPS = 64   # csrc/plant_vjp_kernels.cu kMaxVjpSubsteps
+
+
 def px4_plant_step_vjp_plain(state, control, plant_row, ct_out, dt: float, substeps: int):
     """Plain version of K13a: ``torch.func.vjp`` of K1's plain version.
     Returns ``(ct_state (B, 12), ct_control (B, 4), ct_plant (10,))``."""
@@ -139,9 +142,11 @@ def px4_plant_step_vjp_plain(state, control, plant_row, ct_out, dt: float, subst
 def px4_plant_step_vjp(state, control, plant_row, ct_out, dt: float, substeps: int,
                        plant_grad: bool = True):
     """K13a: the cotangents of K1's operands from the cotangent ``ct_out
-    (B, 12)`` of its new state, one launch. The plant row's per-state
-    cotangents are summed over the batch in a fixed order (``None`` when
-    ``plant_grad`` is off). On CPU tensors it runs the plain version."""
+    (B, 12)`` of its new state, one launch, one warp per state (at most
+    ``VJP_MAX_SUBSTEPS`` substeps, whose stage states the warp keeps in
+    shared memory). The plant row's per-state cotangents are summed over the
+    batch in a fixed order (``None`` when ``plant_grad`` is off; a batch of
+    one returns its row). On CPU tensors it runs the plain version."""
     dev = state.device
     B = state.shape[0]
     _cuda.require(state, "state", (B, 12), dev)
@@ -153,6 +158,8 @@ def px4_plant_step_vjp(state, control, plant_row, ct_out, dt: float, substeps: i
         return out if plant_grad else (*out[:2], None)
     if dev.type != "cuda":
         raise ValueError(f"px4_plant_step_vjp runs on cuda or cpu, not {dev}")
+    if not 0 <= substeps <= VJP_MAX_SUBSTEPS:
+        raise ValueError(f"px4_plant_step_vjp takes 0..{VJP_MAX_SUBSTEPS} substeps, not {substeps}")
     fn = _cuda.library("plant_vjp").px4_plant_step_vjp_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double, ctypes.c_int,
                                            ctypes.c_void_p]
@@ -165,7 +172,10 @@ def px4_plant_step_vjp(state, control, plant_row, ct_out, dt: float, substeps: i
                 int(substeps), _cuda.stream_of(state))
     _cuda.check(status, "px4_plant_step_vjp")
     _cuda.count_launch("px4_plant_step_vjp")
-    return ct_state, ct_control, (ct_plant.sum(dim=0) if plant_grad else None)
+    if not plant_grad:
+        return ct_state, ct_control, None
+    # a batch of one (the tuners') needs no reduction launch
+    return ct_state, ct_control, ct_plant[0] if B == 1 else ct_plant.sum(dim=0)
 
 
 def allocation_plant_tick_vjp_plain(state, cmd, integral, plant_row, ct_state, ct_ctrl, ct_int,
