@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
    K2 over the flight loops' batch of one and a batch of random states
    (tolerance 1e-5), K5 for one launch at full width (N=20, P=800, K=20,
    10 ADMM iterations, GP fitted on the seeded synthetic set) on the packed
-   lanes and every carry (tolerance 1e-4), K8 at the sweep's width
+   lanes and every carry (tolerance 1e-4; a second launch bit-identical; its
+   cycles per tick by section from the build with section clocks), K8 at the sweep's width
    (B=1024, N=20, 10 ADMM iterations, random planes; tolerance 1e-4 on all
    six outputs), K7 at the sweep's width (20480 queries against the
    800-point GP; tolerance 1e-5), K4 and K3 at N=20 (P1 in shared memory)
@@ -64,8 +65,9 @@ Phases (any failure exits non-zero; nothing is caught):
    K5 also without its GP section and without its ADMM iterations, K2 also
    at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
    n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
-   K16 at B=256, the tightened K5, K11 at both plants and K13a at B=1 and
-   1024 of that package and of this one, timed in turns (older, this, this,
+   K16 at B=256, the tightened K5, K5 and K9 at the main path's shape
+   (N=20, P=800, K=20), K11 at both plants and K13a at B=1 and 1024 of that
+   package and of this one, timed in turns (older, this, this,
    older; each older run a subprocess that builds its own sources, K11's
    operands through its own ``dispatch_tick_operands``);
 3. fly every path of the slices through the user entry points with the
@@ -145,7 +147,7 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
-    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16, K5, K11, K13a
+    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16, K5, K9, K11, K13a
 """
 
 from __future__ import annotations
@@ -398,8 +400,8 @@ def check_k9(dev, mpc, gp, gen, x0, xtail, z0, y0, refs, yaw, prow, statics, k5_
                              ("relinearize_every=dispatch", {"relinearize_per_tick": False}))
     }
     # cycles per tick by section, from the build with section clocks (the
-    # filter warp's four steps beside the GP warps, then the solve and the
-    # one-thread scalar section)
+    # solve, then warp 0's scalar section, the filter warp's four steps and
+    # the GP warps side by side)
     with _cuda.library_variant("noisy_tick", "noisy_tick_clocks"):
         tick_pallas.noisy_section_cycles()
         fn()
@@ -1653,13 +1655,57 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
 
 # ---- the redesigned kernels, against an older checkout ----------------------
 
+def main_path_k5_k9_operands(dev, mpc, post, prow):
+    """K5's operands at the main path's shape (the online figure-8 launch:
+    N=20, P=800, K=20, 10 ADMM iterations) from a seeded draw, and K9's for
+    the online-noisy flight (the 12-state EKF) over them: ``(k5_args,
+    k9_args, statics)``, public wrappers' arguments only."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.estimation import EKFConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import tick_pallas
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(11)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32)
+    m, Nnx = mpc.n_constraints, HORIZON * 6
+    x0 = torch.zeros(12, **f32)
+    x0[:3] = torch.tensor([0.3, -0.2, 2.9])
+    x0[3:9] = torch.tensor([0.5, 0.2, -0.1, 0.05, -0.03, 0.1])
+    aux = torch.cat([x0[:6] + 0.01, torch.tensor([0.02, -0.01, 0.03], **f32)]).contiguous()
+    xtail = (x0[:6].repeat(HORIZON) + rnd(Nnx, scale=0.05)).contiguous()
+    z0, y0 = rnd(m, scale=0.3).contiguous(), rnd(m, scale=0.1).contiguous()
+    pos, yaw = ramped_figure8_reference(10.0 + 0.02 * torch.arange(K_TICKS, **f32))
+    pos = pos + torch.tensor([0.0, 0.0, 3.0], **f32)
+    refs = torch.cat([pos, torch.zeros(K_TICKS, 3, **f32)], 1).repeat(1, HORIZON).contiguous()
+    gp = tick_pallas.build_gp_rows(post, 0.1)
+    statics = dict(k_ticks=K_TICKS, use_gp=True, rho=8.0, iterations=ADMM_ITERS, over_relax=1.6,
+                   dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                   yawrate_limit=0.8, n=HORIZON, nu=4, nx=6)
+    ekf = EKFConfig()
+    r9 = ekf.r_diag(dev)
+    est = (x0 + rnd(12, scale=0.02)).contiguous()
+    A = rnd(12, 12, scale=0.02)
+    P = (torch.diag(ekf.p0_diag(dev)) + A @ A.T).contiguous()
+    aux13 = torch.cat([est[:6] + 0.01, torch.tensor([0.02, -0.01, 0.03, 1.02, 0.1, -0.05, 0.03],
+                                                    **f32)]).contiguous()
+    noise = (torch.sqrt(r9) * rnd(K_TICKS, 9)).contiguous()
+    k5_args = (mpc._tick_data, gp, x0, aux, xtail, z0, y0, refs, yaw.contiguous(), prow)
+    k9_args = (mpc._tick_data, gp, x0, est, P, aux13, xtail, z0, y0, refs, yaw.contiguous(),
+               noise, prow[None].contiguous(), ekf.q_diag(dev), r9)
+    return k5_args, k9_args, statics
+
+
 def time_redesigned(dev) -> dict:
     """Device microseconds per launch of the redesigned kernels, through
     their public wrappers only, so that the same function times an older
     checkout of the package: K16 at B=256, N=20 and N=25 (three
     warm-started ticks in, 80 iterations), K5 at N=20, P=800, K=8, tightened
-    (kappa 2) and not, K11 at both plants (``k11_case``: the checkout's own
-    relinearisation and layout) and K13a at B=1 and 1024."""
+    (kappa 2) and not, K5 and K9 at the main path's shape (N=20, P=800,
+    K=20: the online and the online-noisy flights' launches), K11 at both
+    plants (``k11_case``: the checkout's own relinearisation and layout) and
+    K13a at B=1 and 1024."""
     import numpy as np
     import torch
 
@@ -1698,6 +1744,11 @@ def time_redesigned(dev) -> dict:
     for key, kappa in (("k5_tightened_us", TIGHTEN_KAPPA), ("k5_untightened_us", 0.0)):
         out[key] = graph_ms(lambda: tick_pallas.gpmpc_multitick_fused(
             *args, **dict(statics, tighten_kappa=kappa)), 20) * 1e3
+    k5_args, k9_args, statics = main_path_k5_k9_operands(dev, mpc, post, prow)
+    out["k5_main_us"] = graph_ms(
+        lambda: tick_pallas.gpmpc_multitick_fused(*k5_args, **statics), 20) * 1e3
+    out["k9_online_noisy_us"] = graph_ms(
+        lambda: tick_pallas.gpmpc_noisy_multitick_fused(*k9_args, **statics), 20) * 1e3
     for plant in ("direct_rate", "rigid"):
         args, statics = k11_case(dev, plant)
         out[f"k11_{plant}_us"] = graph_ms(
@@ -1714,11 +1765,11 @@ def time_redesigned(dev) -> dict:
 
 
 def compare_with_parent(dev, parent: str | None):
-    """K16, the tightened K5, K11 and K13a of the checkout at ``parent``
+    """K16, K5 (tightened and not), K9, K11 and K13a of the checkout at ``parent``
     (its own package, built from its own sources in a subprocess) and of
     this one, timed in turns in this call: parent, this, this, parent."""
     if parent is None:
-        print("older checkout's K16, K5, K11 and K13a: not measured in this run (pass --parent "
+        print("older checkout's K16, K5, K9, K11 and K13a: not measured in this run (pass --parent "
               "DIR, DIR holding the older package, to time them here)")
         return None
 
@@ -2138,6 +2189,21 @@ def main(parent: str | None = None) -> int:
     }
     print(f"K5 device time per launch: {k5['ms'] * 1e3:.2f} us; "
           + "; ".join(f"without {w} {ms * 1e3:.2f} us" for w, ms in k5_without.items()))
+    again = k5_fn()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("K5: a second launch on the same inputs differs")
+    # cycles per tick by section, from the build with section clocks
+    with _cuda.library_variant("tick", "tick_clocks"):
+        tick_pallas.tick_section_cycles()
+        k5_fn()
+        torch.cuda.synchronize()
+        k5["sections"] = sections = {k: v / K_TICKS
+                                     for k, v in tick_pallas.tick_section_cycles().items()}
+    sections["solve matvecs"] = sections["solve"] - sections["ADMM"]
+    whole = sections["whole tick"]
+    print("K5 clock cycles per tick by section (build with section clocks; the solve's matvecs "
+          "are the solve less its ADMM): "
+          + "; ".join(f"{name} {c:.0f} ({c / whole:.1%})" for name, c in sections.items()))
 
     # K5 with the variance section (tighten_kappa > 0): bench.py's tightening
     # mode's launch (N=20, P=800, K=8, kappa 2), flying at 7.9 m/s into the
@@ -2159,8 +2225,10 @@ def main(parent: str | None = None) -> int:
           f"{k9['filter_ops_per_tick']} operations per tick); "
           + "; ".join(f"{w} {ms * 1e3:.2f} us" for w, ms in k9["variants"].items())
           + f"; card: {card}")
+    k9["sections"]["solve matvecs"] = k9["sections"]["solve"] - k9["sections"]["ADMM"]
     whole = k9["sections"]["whole tick"]
-    print("K9 clock cycles per tick by section (build with section clocks): "
+    print("K9 clock cycles per tick by section (build with section clocks; warp 0's chain and "
+          "the GP warps run side by side; the solve's matvecs are the solve less its ADMM): "
           + "; ".join(f"{name} {c:.0f} ({c / whole:.1%})" for name, c in k9["sections"].items()))
 
     # K8 at the sweep's width, from random planes (a few slacks on their boxes)
@@ -2358,8 +2426,8 @@ def main(parent: str | None = None) -> int:
     # K14, K15, K16 and K1/K2 on a dispersed plant block
     tail, plant_block_check = check_tail_kernels(dev, gen, fail)
     kernels.update(tail)
-    # the redesigned K16, tightened K5, K11 and K13a against an older
-    # checkout's, in turns
+    # the redesigned K16, K5, K9, K11 and K13a against an older checkout's,
+    # in turns
     redesign = compare_with_parent(dev, parent)
 
     phase_clock("phase 2")

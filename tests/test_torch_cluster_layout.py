@@ -98,10 +98,14 @@ def test_every_cluster_block_fits_one_h100_block(horizon):
 
 def test_tightened_k5_fits_at_horizon_23():
     # rank 0 keeps only the variance row and the back-off row beside the
-    # untightened layout (the workers hold the quadratic form's scratch)
+    # tick's layout on its 256 threads, the GP's sums one per slice (the
+    # workers hold the quadratic form's scratch)
     n, m, Nnx = 23, 230, 138
     tight = tick_pallas.shared_memory_bytes(n, tighten=True)
-    assert tight == tick_pallas.shared_memory_bytes(n) + 4 * (Nnx + m) == 231748
+    threads = tick_pallas.TIGHT_KERNEL_THREADS
+    vectors = tick_pallas._vector_floats(n, 4, 6, threads, threads - 32,
+                                         tick_pallas.TIGHT_GP_GROUP, 1)
+    assert tight == 4 * (vectors + 12 + 9 + 6 + Nnx + m) == 230260
     assert tight <= SMEM_LIMIT
     assert tick_pallas.MAX_VAR_STAGES >= n
     assert tick_pallas.shared_memory_bytes(24, tighten=True) > SMEM_LIMIT

@@ -5,9 +5,9 @@
 // sets, over a thread-block cluster (variance_share, variance_backoff).
 //
 // The GP and the shift take the threads they run on (tid, nth) and the
-// barrier that joins them: the whole block (K5), or the warps that run
-// beside K9's filter warp (a named barrier). The solve always runs on the
-// whole block. Every sum runs in a fixed order (deterministic).
+// barrier that joins them (a named barrier): the warps that run beside the
+// scalar section's warp (and K9's filter warp). The solve always runs on
+// the whole block. Every sum runs in a fixed order (deterministic).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +20,25 @@ namespace uav {
 constexpr int kTickNu = 4;
 constexpr int kTickNx = 6;
 constexpr int kTickFeat = kTickNu + kTickNx;
+
+// Per-section clock counters, compiled in only with -DUAV_SECTION_CLOCKS
+// (the libraries tick_clocks and noisy_tick_clocks, which chip_smoke.py
+// reads for its breakdowns): one thread of each section adds its clock64()
+// cycles over the launch's ticks; the kernel's *_section_cycles entry point
+// reads and resets them. Each kernel source (its own library) has its own
+// counters; -1 names no section.
+constexpr int kMaxSections = 16;
+#ifdef UAV_SECTION_CLOCKS
+__device__ unsigned long long g_section_cycles[kMaxSections];
+__device__ __forceinline__ void section_add(int i, long long since) {
+  if (i >= 0) atomicAdd(&g_section_cycles[i], (unsigned long long)(clock64() - since));
+}
+#define SECTION_START(var) const long long var = clock64()
+#define SECTION_ADD(i, since) uav::section_add(i, since)
+#else
+#define SECTION_START(var)
+#define SECTION_ADD(i, since)
+#endif
 
 struct BlockBarrier {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
@@ -34,6 +53,12 @@ struct NamedBarrier {
   }
 };
 
+// bar.arrive on barrier `id` for `threads` threads: a warp's side of a
+// named barrier that other warps wait at (NamedBarrier), without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 struct GPOperands {
   const float *ztrT, *sq2, *alpha_s, *y_mean, *inv_ls, *scal;
   int n_train;
@@ -42,17 +67,23 @@ struct GPOperands {
 // GP horizon posterior mean as disturbance rows: wv[k * 6 + 3 + j] = gain
 // (mean[k, 3 + j]), wv[k * 6 + j] = 0 for j < 3. Stage k's features are the
 // UNshifted previous solution's: state `anchor` (k = 0) or xtail[k - 1],
-// controls z[k]. Thread (stage k, slice s) forms the cross-kernel entries of
-// stage k against every S-th training point from s, exponentiates them and
-// contracts them with alpha[:, 3:6]; the S slice sums of a stage are added
-// in a fixed order. Scratch: zf (N * 10), sq1 (N), red (3 * nth). With
+// controls z[k]. The N stages go in groups of kStages (the last group
+// padded); the nth threads (a multiple of 32) form h = nth / (G ceil(N /
+// kStages)) lane groups of G = kGroup lanes per stage group, S = G h slices:
+// thread (stage group, slice s) loads every S-th training point from s
+// once (neighbouring lanes read neighbouring points) and, for each of its
+// stages k, forms the cross-kernel entry, exponentiates it and contracts it
+// with alpha[:, 3:6]; a lane group's G sums of a stage meet in the xor tree
+// (offsets G/2, ..., 1), and the h group sums of a stage are added in group
+// order. Scratch: zf (N * 10), red (3 N h <= 3 kStages nth / G). With
 // kst_out (device memory, N x n_train) each cross-kernel entry is also
-// stored there for the variance section.
-template <class Barrier>
+// stored there for the variance section. Ends after the rows are written
+// (no barrier).
+template <int kGroup, int kStages, class Barrier>
 __device__ __forceinline__ void gp_horizon_rows(const GPOperands& g, int N, const float* anchor,
                                                 const float* xtail, const float* z, float* zf,
-                                                float* sq1, float* red, float* wv,
-                                                float* kst_out, int tid, int nth, Barrier bar) {
+                                                float* red, float* wv, float* kst_out, int tid,
+                                                int nth, Barrier bar) {
   const float sf2 = g.scal[0], gain = g.scal[1];
   for (int i = tid; i < N * kTickFeat; i += nth) {
     const int k = i / kTickFeat, c = i % kTickFeat;
@@ -61,45 +92,67 @@ __device__ __forceinline__ void gp_horizon_rows(const GPOperands& g, int N, cons
     zf[i] = feat * g.inv_ls[c] - g.inv_ls[kTickFeat + c];
   }
   bar();
-  for (int k = tid; k < N; k += nth) {
-    float acc = 0.0f;
+  const int ntr = g.n_train, NS = (N + kStages - 1) / kStages;
+  const int h = nth / (kGroup * NS), S = kGroup * h;
+  const int grp = tid / kGroup, lane8 = tid % kGroup;
+  const int ks = grp / h, sl = (grp % h) * kGroup + lane8;   // ks >= NS: an idle lane
+  float acc[kStages][3];
+  float zk[kStages][kTickFeat], q1[kStages];
 #pragma unroll
-    for (int c = 0; c < kTickFeat; ++c) acc += zf[k * kTickFeat + c] * zf[k * kTickFeat + c];
-    sq1[k] = acc;
+  for (int s = 0; s < kStages; ++s) {
+    const int k = min(ks * kStages + s, N - 1);   // a missing stage repeats the last
+    q1[s] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kTickFeat; ++c) {
+      zk[s][c] = ks < NS ? zf[k * kTickFeat + c] : 0.0f;
+      q1[s] += zk[s][c] * zk[s][c];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) acc[s][j] = 0.0f;
   }
-  bar();
-  // neighbouring threads read neighbouring points (coalesced)
-  const int ntr = g.n_train;
-  const int S = max(1, nth / N);
-  for (int t = tid; t < N * S; t += nth) {
-    const int k = t / S, sl = t % S;
-    float zk[kTickFeat];
-#pragma unroll
-    for (int c = 0; c < kTickFeat; ++c) zk[c] = zf[k * kTickFeat + c];
-    const float q1 = sq1[k];
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+  if (ks < NS) {
 #pragma unroll 2
     for (int p = sl; p < ntr; p += S) {
-      float cross = 0.0f;
+      float zt[kTickFeat];
 #pragma unroll
-      for (int c = 0; c < kTickFeat; ++c) cross += zk[c] * __ldg(g.ztrT + c * ntr + p);
-      const float kst = sf2 * expf(-0.5f * fmaxf(q1 + __ldg(g.sq2 + p) - 2.0f * cross, 0.0f));
-      if (kst_out != nullptr) kst_out[k * ntr + p] = kst;
-      acc0 += kst * __ldg(g.alpha_s + p * 6 + 3);
-      acc1 += kst * __ldg(g.alpha_s + p * 6 + 4);
-      acc2 += kst * __ldg(g.alpha_s + p * 6 + 5);
+      for (int c = 0; c < kTickFeat; ++c) zt[c] = __ldg(g.ztrT + c * ntr + p);
+      const float sq2 = __ldg(g.sq2 + p);
+      const float a3 = __ldg(g.alpha_s + p * 6 + 3), a4 = __ldg(g.alpha_s + p * 6 + 4),
+                  a5 = __ldg(g.alpha_s + p * 6 + 5);
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) {
+        float cross = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kTickFeat; ++c) cross += zk[s][c] * zt[c];
+        const float kst = sf2 * expf(-0.5f * fmaxf(q1[s] + sq2 - 2.0f * cross, 0.0f));
+        const int k = ks * kStages + s;
+        if (kst_out != nullptr && k < N) kst_out[k * ntr + p] = kst;
+        acc[s][0] += kst * a3;
+        acc[s][1] += kst * a4;
+        acc[s][2] += kst * a5;
+      }
     }
-    red[t * 3 + 0] = acc0;
-    red[t * 3 + 1] = acc1;
-    red[t * 3 + 2] = acc2;
+  }
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+#pragma unroll
+    for (int off = kGroup / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) acc[s][j] += __shfl_xor_sync(0xffffffffu, acc[s][j], off);
+    }
+    const int k = ks * kStages + s;
+    if (k < N && lane8 == 0) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) red[(k * h + grp % h) * 3 + j] = acc[s][j];
+    }
   }
   bar();
   for (int i = tid; i < N * 3; i += nth) {
-    const int k = i / 3, j = i % 3;
-    float acc = 0.0f;
-    for (int sl = 0; sl < S; ++sl) acc += red[(k * S + sl) * 3 + j];
-    wv[k * kTickNx + 3 + j] = gain * (acc + g.y_mean[3 + j]);
-    wv[k * kTickNx + j] = 0.0f;
+    const int kk = i / 3, j = i % 3;
+    float acc_k = 0.0f;
+    for (int gi = 0; gi < h; ++gi) acc_k += red[(kk * h + gi) * 3 + j];
+    wv[kk * kTickNx + 3 + j] = gain * (acc_k + g.y_mean[3 + j]);
+    wv[kk * kTickNx + j] = 0.0f;
   }
 }
 
@@ -328,66 +381,87 @@ struct CondensedOperands {
 };
 
 // Shared-memory vectors of one tick's solve (layouts in the kernels);
-// tight (m) backs the boxes off (nullptr: the static boxes).
+// tight (m) backs the boxes off (nullptr: the static boxes); anchor (6)
+// receives x0 for the next tick's GP.
 struct TickVectors {
   const float *P1s, *lo, *hi, *ref;
   float *va, *vb, *z, *y, *p0, *lower, *upper, *xw, *xtail, *offset, *dref, *f, *minvf, *U,
-      *part;
+      *part, *anchor;
   const float* tight = nullptr;
 };
 
-// The condensed controller tick on the whole block, from xw = [x0 | w], ref
-// and the shifted warm start z, y, the boxes backed off by v.tight (the caller's last write of those is
-// separated from this call by a barrier, or by the first matvec, which
-// reads only xw):
+// The condensed controller tick on the whole block, from xw = [x0 | w],
+// ref and the shifted warm start z, y, the boxes backed off by v.tight (the
+// caller's last write of those is separated from this call by a barrier,
+// or by the first product, which reads only xw):
 //   offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
 //   box bounds, p0 = -(f @ P0mat), M^-1 f = f @ MinvT,
 //   ADMM: `iterations` x one (m, m) matvec with P1 from shared memory,
-//   U = M^-1(-f + G'(rho z - y)),  X_tail = offset + U @ Su'  (into xtail).
-// Ends with a barrier.
+//   U = M^-1(-f + G'(rho z - y)),  X_tail = offset + U @ Su'  (into xtail);
+// the products with the fixed operators in matvec_partial's slices (each
+// column over nth / n_out threads), and x0 copied into v.anchor. Ends with
+// a barrier. clock_base: the first of the section clocks of its six phases
+// (offset, f, p0 and M^-1 f, the ADMM, U, X_tail), or -1.
 __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, const TickVectors& v,
                                                 int N, int m, float rho, float over_relax,
                                                 float one_minus_over_relax, int iterations,
-                                                int tid, int nth) {
+                                                int tid, int nth, int clock_base) {
   const int Nnu = N * kTickNu, Nnx = N * kTickNx, npm = m + Nnu;
-  matvec_partial(v.xw, O.SxSwT, Nnx, kTickNx + Nnx, Nnx, v.part, tid, nth);
-  __syncthreads();
+  [[maybe_unused]] auto section = [clock_base](int k) {
+    return clock_base < 0 ? -1 : clock_base + k;
+  };
+  // part = slices of the product of x with A (n_in x n_out); ends with a
+  // barrier
+  auto product = [&](const float* x, const float* A, int n_in, int n_out) {
+    matvec_partial(x, A, n_out, n_in, n_out, v.part, tid, nth);
+    __syncthreads();
+  };
+  SECTION_START(t_offset);
+  if (tid < kTickNx) v.anchor[tid] = v.xw[tid];
+  product(v.xw, O.SxSwT, kTickNx + Nnx, Nnx);
   for (int r = tid; r < Nnx; r += nth) {
     const float off = matvec_total(v.part, Nnx, nth, r);
     v.offset[r] = off;
     v.dref[r] = off - v.ref[r];
   }
   __syncthreads();
-  matvec_partial(v.dref, O.SuTqT, Nnu, Nnx, Nnu, v.part, tid, nth);
+  SECTION_START(t_f);
+  if (tid == 0) SECTION_ADD(section(0), t_offset);
+  product(v.dref, O.SuTqT, Nnx, Nnu);
   for (int i = tid; i < m; i += nth) {
     const float off_z = (i >= Nnu && i < Nnu + Nnx) ? v.offset[i - Nnu] : 0.0f;
     box_bounds(v.lo, v.hi, v.tight, i, off_z, v.lower + i, v.upper + i);
     v.va[i] = rho * v.z[i] - v.y[i];
   }
-  __syncthreads();
   for (int c = tid; c < Nnu; c += nth) v.f[c] = matvec_total(v.part, Nnu, nth, c);
   __syncthreads();
-  matvec_partial(v.f, O.PM, npm, Nnu, npm, v.part, tid, nth);
-  __syncthreads();
+  SECTION_START(t_p0);
+  if (tid == 0) SECTION_ADD(section(1), t_f);
+  product(v.f, O.PM, Nnu, npm);
   for (int j = tid; j < npm; j += nth) {
     const float acc = matvec_total(v.part, npm, nth, j);
     if (j < m) v.p0[j] = -acc;
     else v.minvf[j - m] = acc;
   }
   __syncthreads();
+  SECTION_START(t_admm);
+  if (tid == 0) SECTION_ADD(section(2), t_p0);
   const float* vsrc = composite_admm<true>(v.P1s, m, v.p0, v.lower, v.upper, v.z, v.y, v.va,
                                            v.vb, rho, over_relax, one_minus_over_relax,
                                            iterations, tid, nth);
-  matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, v.part, tid, nth);
-  __syncthreads();
+  SECTION_START(t_u);
+  if (tid == 0) SECTION_ADD(section(3), t_admm);
+  product(vsrc, O.P0matT, m, Nnu);
   for (int c = tid; c < Nnu; c += nth) v.U[c] = -v.minvf[c] + matvec_total(v.part, Nnu, nth, c);
   __syncthreads();
-  matvec_partial(v.U, O.SuT, Nnx, Nnu, Nnx, v.part, tid, nth);
-  __syncthreads();
+  SECTION_START(t_x);
+  if (tid == 0) SECTION_ADD(section(4), t_u);
+  product(v.U, O.SuT, Nnu, Nnx);
   for (int r = tid; r < Nnx; r += nth) {
     v.xtail[r] = v.offset[r] + matvec_total(v.part, Nnx, nth, r);
   }
   __syncthreads();
+  if (tid == 0) SECTION_ADD(section(5), t_x);
 }
 
 }  // namespace uav

@@ -16,35 +16,40 @@
 // 9 measured lanes (truth + noise) one scalar update at a time, yaw
 // innovation and attitude estimates wrapped. Then K5's tick runs on the
 // estimate: the GP horizon mean, the shifted warm start, the condensed
-// solve, and one thread's clips, fallback and allocation on the estimate
-// while the plant integrates the truth.
+// solve, and the clips, fallback and allocation on the estimate while the
+// plant integrates the truth.
 //
-// Design: K5's block (tick_kernel.cu: one block per flight, the K ticks a
-// loop inside it, P1 in shared memory, the GP, shift and solve from
-// multitick_phases.cuh) with a filter warp. The GP of tick t reads only
-// tick t-1's results (the anchor, X_tail and the unshifted slack), never
-// tick t's estimate, so the filter and the GP are independent within a
-// tick: warp 0 runs the whole filter (__syncwarp between its steps) while
-// warps 1-7 run the GP and the shift (a named barrier among them), and one
-// block barrier joins them before the solve. On the warp, the RK4 stages
-// and the four stage Jacobians are warp-cooperative (plant_math.cuh: the
-// sines, cosines and divisions spread over lanes, shared by shuffles), and
-// the 12 x 12 chain products, the n x n propagation and each fusion's
-// rank-one update are spread over the 32 lanes (n = 12 or 15), P kept in
-// registers across the nine fusions. With relinearize_every "dispatch" the
-// warp forms Fd once at launch entry from the entry estimate and control
-// (row 0's plant, or the nominal row).
+// Design: K5's block (tick_kernel.cu: one block of 512 threads per flight,
+// the K ticks a loop inside it, P1 in shared memory, the GP, shift and
+// solve from multitick_phases.cuh) with a filter warp. After the solve of
+// tick t, warp 0 runs tick t's scalar section, warp 1 tick t+1's filter
+// and warps 2-15 tick t+1's GP (two stages a thread) and shift, and one
+// block barrier joins them before the next solve. The GP of tick t+1 reads
+// only tick t's solve (x0 = the estimate, X_tail, the unshifted slack). The
+// filter's predict, relinearisation and propagation need only tick t's
+// control, which warp 0 hands over (aux[9:13], a named barrier) as soon as
+// its allocation has it; its fusions need the plant's new truth, handed
+// over (st, a second named barrier) after the plant's substeps. On the
+// warps, the scalar section (mpc_command_plant_warp), the RK4 stages and
+// the four stage Jacobians are warp-cooperative (plant_math.cuh: the sines,
+// cosines and divisions spread over lanes, shared by shuffles), and the
+// 12 x 12 chain products, the n x n propagation and each fusion's rank-one
+// update are spread over the 32 lanes (n = 12 or 15), P kept in registers
+// across the nine fusions. Tick 0's filter and GP run before the loop. With
+// relinearize_every "dispatch" the filter warp forms Fd once at launch
+// entry from the entry estimate and control (row 0's plant, or the nominal
+// row).
 //
 // What bounds it on an H100: the filter adds ~24k FP32 operations per tick
 // at n = 12 (~36k at n = 15; the chain products and the propagation) to
 // K5's ~1.46 M, and ~5 KB of operands per launch (noise, P, the rows):
 // the bound stays ~0.45 us per launch of 20 ticks (operations), and the
-// kernel stays latency-bound like K5, one block on one SM. The filter warp
-// costs nothing where its serial chain (four warp-wide derivative
-// evaluations, the Jacobians, ~20 warp barriers) is shorter than the GP
-// it runs beside; -DUAV_SECTION_CLOCKS builds count the cycles of each
-// section (chip_smoke.py prints them). Every sum runs in a fixed order
-// (deterministic).
+// kernel stays latency-bound like K5, one block on one SM. Beside the
+// solve (K5's), the filter warp's chain sets the overlap's length: it
+// waits for the allocation, and its predict and fusions share their
+// schedulers with the GP warps. -DUAV_SECTION_CLOCKS builds count the
+// cycles of each section (chip_smoke.py prints them). Every sum runs in a
+// fixed order (deterministic).
 //
 // loop_precision and cov_precision: every mode computes in float32 with
 // FMAs here (the bfloat16 modes were TPU matrix-unit choices).
@@ -75,9 +80,14 @@ struct NoisyTickOperands {
 
 namespace {
 
-constexpr int kThreads = 256;   // ops/tick_pallas.py KERNEL_THREADS
-constexpr int kGPThreads = kThreads - 32;   // warps 1-7
-constexpr int kGPBarrier = 1;   // named barrier of the GP warps (0 is __syncthreads)
+constexpr int kThreads = 512;                // ops/tick_pallas.py NOISY_KERNEL_THREADS
+constexpr int kGPThreads = kThreads - 64;    // warps 2..
+constexpr int kGpGroup = 8;   // the GP's lanes whose sums meet in a shuffle tree (GP_GROUP)
+constexpr int kGpStages = 2;  // the GP's stages per thread (NOISY_GP_STAGES)
+constexpr int kGPBarrier = 1;     // named barrier of the GP warps (0 is __syncthreads)
+constexpr int kShiftBarrier = 2;  // warp 0 has read z[0:4] and X_tail: warps 2.. may shift
+constexpr int kControlBarrier = 3;  // warp 0 has the control: warp 1's filter may predict
+constexpr int kTruthBarrier = 4;    // warp 0 has the plant's new truth: warp 1 may fuse
 constexpr int kNu = uav::kTickNu;
 constexpr int kNx = uav::kTickNx;
 constexpr int kPacked = 47;     // K5's 32 lanes | estimate 32:44 | disturbance 44:47
@@ -85,23 +95,14 @@ constexpr int kAux = 13;        // estimate x0 (6) | integral (3) | applied cont
 constexpr int kMeas = 9;
 constexpr int kDobStates = 15;
 
-// Per-section clock counters, compiled in only with -DUAV_SECTION_CLOCKS
-// (the library noisy_tick_clocks, which chip_smoke.py times for its
-// breakdown): one lane of each section adds its clock64() cycles over the
-// launch's ticks; noisy_tick_section_cycles reads and resets them. Sections
-// (ops/tick_pallas.py NOISY_SECTIONS): the filter's predict, relinearise,
-// propagate and fuse; the GP warps' GP and shift; the solve; the scalar
-// section; the whole tick.
-constexpr int kSections = 8;
-#ifdef UAV_SECTION_CLOCKS
-__device__ unsigned long long g_section_cycles[kSections];
-#define SECTION_START(var) const long long var = clock64()
-#define SECTION_ADD(i, since) \
-  atomicAdd(&g_section_cycles[i], (unsigned long long)(clock64() - (since)))
-#else
-#define SECTION_START(var)
-#define SECTION_ADD(i, since)
-#endif
+// Per-section clock counters (multitick_phases.cuh; the library
+// noisy_tick_clocks, which chip_smoke.py times for its breakdown). Sections
+// (ops/tick_pallas.py NOISY_SECTIONS): the filter warp's predict,
+// relinearise, propagate and fuse; warp 0's scalar section; the filter
+// warp's whole chain, its waits included; the GP warps' GP and shift; the
+// solve; the whole tick; the solve's six phases (offset, f, p0 and M^-1 f,
+// the ADMM, U, X_tail).
+constexpr int kSections = 15;
 
 // EKF_MEAS_IDX (0, 1, 2, 6, ..., 11): the measured state lane of entry jm
 __device__ __forceinline__ int measured_lane(int jm) { return jm < 3 ? jm : jm + 3; }
@@ -208,20 +209,21 @@ __device__ __noinline__ void transition_fd(const float* __restrict__ xs, float4 
   __syncwarp();
 }
 
-// P <- P + Fd P + (Fd P)' + Fd P Fd' + Q, then the 9 sequential scalar
-// fusions of the measured lanes of the truth st plus this tick's noise
+// P <- P + Fd P + (Fd P)' + Fd P Fd' + Q, then (once wait_truth returns)
+// the 9 sequential scalar fusions of the measured lanes of the truth st
+// plus this tick's noise
 // (yaw innovation wrapped), the attitude estimates wrapped, the estimate
 // into est and its x0 into xw; NE = 12 (EKF) or 15 (observer). Lane l keeps
 // the P entries l, l + 32, ... in registers across the fusions, which read
 // the previous P from one of two shared buffers (Pm, FdP) and write the
 // other: one warp barrier per fusion. Lane i < NE keeps x[i]. qr holds
 // q_diag at 0 and r_diag at 16. Ends with a warp barrier.
-template <int NE>
+template <int NE, class WaitTruth>
 __device__ __noinline__ void propagate_and_fuse(
     const float* __restrict__ Fd, float* __restrict__ Pm, float* __restrict__ FdP,
     const float* __restrict__ xrow, const float* __restrict__ qr,
     const float* __restrict__ st, const float* __restrict__ noise_t, float* __restrict__ est,
-    float* __restrict__ xw, int lane) {
+    float* __restrict__ xw, int lane, WaitTruth wait_truth) {
   constexpr int NN = NE * NE, R = (NN + 31) / 32;
   SECTION_START(t_prop);
   float nz[kMeas];   // this tick's noise: the loads overlap the propagation
@@ -263,6 +265,7 @@ __device__ __noinline__ void propagate_and_fuse(
   __syncwarp();
   SECTION_START(t_fuse);
   if (lane == 0) SECTION_ADD(2, t_prop);
+  wait_truth();   // st holds this tick's truth
 #pragma unroll
   for (int jm = 0; jm < kMeas; ++jm) {
     const int j = measured_lane(jm);
@@ -309,13 +312,19 @@ __device__ __noinline__ void propagate_and_fuse(
   if (lane == 0) SECTION_ADD(3, t_fuse);
 }
 
-// The scalar section of one tick (one thread): clips, fallback and
-// allocation on the estimate, the plant's substeps on the truth, the packed
-// row and the truth / aux carries.
-__device__ __noinline__ void scalar_tick(const NoisyTickParams& P, const NoisyTickOperands& O,
-                                         int t, const float* z, const float* ref,
-                                         const float* xtail, const float* est, float* st,
-                                         float* aux) {
+// The scalar section of tick t on warp 0: clips, fallback and allocation
+// on the estimate, the plant's substeps on the truth
+// (mpc_command_plant_warp), then lane 0 writes the packed row and the truth
+// / aux carries. With `next`, the control goes into aux[9:13] as soon as
+// the allocation has it and the truth into st after the plant, each
+// followed by an arrive at the barrier warp 1's filter of the next tick
+// waits at. z4 and xt3 (the slack's first stage, X_tail[3:6]) were read
+// before the shift could move them. Ends with a warp barrier.
+__device__ __forceinline__ void scalar_tick_warp(const NoisyTickParams& P,
+                                                 const NoisyTickOperands& O, int t, bool next,
+                                                 const float z4[4], const float xt3[3],
+                                                 const float* ref, const float* est, float* st,
+                                                 float* aux, int lane) {
   const uav::Plant pl = plant_at(P, O, t);
   float s[12], sc[12];
 #pragma unroll
@@ -324,42 +333,86 @@ __device__ __noinline__ void scalar_tick(const NoisyTickParams& P, const NoisyTi
     sc[i] = est[i];
   }
   const float integral[3] = {aux[6], aux[7], aux[8]};
+  const float ref3[3] = {ref[0], ref[1], ref[2]};
+  const float yaw_ref = O.yaw_refs[t];
+  __syncwarp();   // every lane has read st and aux before lane 0 rewrites them
+  auto hand_over_control = [&](const float* ctl) {
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) aux[9 + i] = ctl[i];
+    }
+    if (next) uav::named_arrive(kControlBarrier, 64);
+  };
   float sn[12], c[4], att_sp[3], new_int[3], accel[3];
-  uav::mpc_command_plant(P, pl, z, ref, sc, s, O.yaw_refs[t], integral, sn, c, att_sp, new_int,
-                         accel);
+  uav::mpc_command_plant_warp(P, pl, z4, ref3, sc, s, yaw_ref, integral, lane, sn, c, att_sp,
+                              new_int, accel, hand_over_control);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) st[i] = sn[i];
+  }
+  if (next) uav::named_arrive(kTruthBarrier, 64);
+  if (lane == 0) {
+    float* row = O.packed + t * kPacked;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) row[i] = s[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row[25 + i] = z4[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[29 + i] = xt3[i];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) row[32 + i] = sc[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[44 + i] = P.use_dob ? est[12 + i] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) aux[i] = sc[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) aux[6 + i] = new_int[i];
+  }
+  __syncwarp();
+}
 
-  float* row = O.packed + t * kPacked;
-#pragma unroll
-  for (int i = 0; i < 12; ++i) row[i] = s[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) row[25 + i] = z[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[29 + i] = xtail[3 + i];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) row[32 + i] = sc[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[44 + i] = P.use_dob ? est[12 + i] : 0.0f;
-
-#pragma unroll
-  for (int i = 0; i < 12; ++i) st[i] = sn[i];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) aux[i] = sc[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) aux[6 + i] = new_int[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) aux[9 + i] = c[i];
+// The filter of tick t on warp 1: once wait_control returns, predict from
+// the applied control (aux[9:13]), relinearise (per tick), propagate P;
+// once wait_truth returns, fuse tick t's measurement of the truth st; the
+// estimate into est and its x0 into xw.
+template <class WaitControl, class WaitTruth>
+__device__ __forceinline__ void filter_tick(const NoisyTickParams& P, const NoisyTickOperands& O,
+                                            int t, float* est, float* xrow, const float* qr,
+                                            float* xs, float* Pm, float* Fd, float* FdP,
+                                            float* Jm, const float* st, const float* aux,
+                                            float* xw, int lane, WaitControl wait_control,
+                                            WaitTruth wait_truth) {
+  wait_control();
+  SECTION_START(t_predict);
+  const uav::Plant pl = P.use_dob ? uav::load_plant(O.nominal_row) : plant_at(P, O, t);
+  const float4 c = make_float4(aux[9], aux[10], aux[11], aux[12]);
+  predict(est, c, pl, P.dt, P.use_dob, xs, xrow, lane);
+  SECTION_START(t_relin);
+  if (lane == 0) SECTION_ADD(0, t_predict);
+  const float* noise_t = O.noise + t * kMeas;
+  if (P.n_est == kDobStates) {
+    if (P.relin_per_tick) transition_fd<kDobStates>(xs, c, pl, P.dt, O.bdist, Jm, Fd, lane);
+    if (lane == 0) SECTION_ADD(1, t_relin);
+    propagate_and_fuse<kDobStates>(Fd, Pm, FdP, xrow, qr, st, noise_t, est, xw, lane,
+                                   wait_truth);
+  } else {
+    if (P.relin_per_tick) transition_fd<12>(xs, c, pl, P.dt, nullptr, Jm, Fd, lane);
+    if (lane == 0) SECTION_ADD(1, t_relin);
+    propagate_and_fuse<12>(Fd, Pm, FdP, xrow, qr, st, noise_t, est, xw, lane, wait_truth);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-gpmpc_noisy_multitick_kernel(const NoisyTickParams P, const NoisyTickOperands O) {
+gpmpc_noisy_multitick_kernel(const __grid_constant__ NoisyTickParams P,
+                             const __grid_constant__ NoisyTickOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -389,14 +442,14 @@ gpmpc_noisy_multitick_kernel(const NoisyTickParams P, const NoisyTickOperands O)
   float* f = dref + Nnx;
   float* minvf = f + Nnu;
   float* U = minvf + Nnu;
-  float* part = U + Nnu;        // matvec slices: nth + npm
-  float* zf = part + nth + npm;
-  float* sq1 = zf + N * uav::kTickFeat;
-  float* red = sq1 + N;
-  float* st = red + 3 * nth;    // the truth (12)
+  float* part = U + Nnu;        // matvec and ADMM slices: max(nth, npm)
+  float* zf = part + max(nth, npm);
+  float* red = zf + N * uav::kTickFeat;
+  float* st = red + 3 * (kGPThreads / kGpGroup) * kGpStages;   // the truth (12)
   float* aux = st + 12;         // (16)
+  float* anchor = aux + 16;     // (8) x0 of the GP's stage 0
   // the filter's arrays (ops/tick_pallas.py _FILTER_FLOATS)
-  float* est = aux + 16;        // (16) estimate [x12 | d3]
+  float* est = anchor + 8;      // (16) estimate [x12 | d3]
   float* xrow = est + 16;       // (16) prediction
   float* qr = xrow + 16;        // (32) q_diag (n) | r_diag (9) at 16
   float* xs = qr + 32;          // (48) RK4 stage states: estimate, x2, x3, x4
@@ -417,10 +470,14 @@ gpmpc_noisy_multitick_kernel(const NoisyTickParams P, const NoisyTickOperands O)
     lo[i] = O.lo_row[i];
     hi[i] = O.hi_row[i];
   }
-  for (int i = tid; i < Nnx; i += nth) xtail[i] = O.xtail_in[i];
+  for (int i = tid; i < Nnx; i += nth) {
+    xtail[i] = O.xtail_in[i];
+    wv[i] = 0.0f;               // the GP's rows (zero without the GP)
+  }
   for (int i = tid; i < n * n; i += nth) Pm[i] = O.P_in[i];
   if (tid < 12) st[tid] = O.state_in[tid];
   if (tid < kAux) aux[tid] = O.aux_in[tid];
+  if (tid < kNx) anchor[tid] = O.aux_in[tid];
   if (tid < n) {
     est[tid] = O.est_in[tid];
     qr[tid] = O.q_diag[tid];
@@ -429,76 +486,86 @@ gpmpc_noisy_multitick_kernel(const NoisyTickParams P, const NoisyTickOperands O)
   for (int i = tid; i < 4 * 144; i += nth) Jm[i] = 0.0f;   // J's structural zeros
   __syncthreads();
 
-  if (!P.relin_per_tick && warp == 0) {
-    // "dispatch": one Fd for the launch, at the entry estimate and control
-    const uav::Plant pl = P.use_dob ? uav::load_plant(O.nominal_row) : plant_at(P, O, 0);
-    const float4 c = make_float4(aux[9], aux[10], aux[11], aux[12]);
-    predict(est, c, pl, P.dt, P.use_dob, xs, xrow, lane);
-    if (n == kDobStates) transition_fd<kDobStates>(xs, c, pl, P.dt, O.bdist, Jm, Fd, lane);
-    else transition_fd<12>(xs, c, pl, P.dt, nullptr, Jm, Fd, lane);
-  }
-
   const uav::GPOperands gp{O.ztrT, O.sq2, O.alpha_s, O.y_mean, O.inv_ls, O.scal, P.n_train};
   const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
-  const uav::TickVectors vec{P1s,  lo,     hi,     ref,   va,    vb, z, y, p0, lower,
-                             upper, xw,   xtail, offset, dref, f, minvf, U, part};
+  const uav::TickVectors vec{P1s,   lo,    hi,     ref,  va, vb,    z, y, p0,   lower, upper,
+                             xw,    xtail, offset, dref, f,  minvf, U, part, anchor};
   const uav::NamedBarrier gp_bar{kGPBarrier, kGPThreads};
-  for (int t = 0; t < P.k_ticks; ++t) {
-    SECTION_START(t_tick);
-    for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
-    if (warp == 0) {
-      // the filter: predict from the applied control, relinearise,
-      // propagate P, fuse this tick's measurement
-      SECTION_START(t_predict);
-      const uav::Plant pl = P.use_dob ? uav::load_plant(O.nominal_row) : plant_at(P, O, t);
+  const uav::NamedBarrier shift_bar{kShiftBarrier, 32 + kGPThreads};   // warps 0, 2..
+
+  // warps 2..: the GP of the next tick, then, once warp 0 has read what the
+  // shift moves, the warm-start shift
+  auto gp_and_shift = [&](bool after_scalar) {
+    SECTION_START(t_gp);
+    const int gt = tid - 64;
+    if (P.use_gp) {
+      uav::gp_horizon_rows<kGpGroup, kGpStages>(gp, N, anchor, xtail, z, zf, red, wv, nullptr,
+                                                gt, kGPThreads, gp_bar);
+    }
+    if (after_scalar) shift_bar();
+    uav::warm_shift(z, y, va, vb, N, m, gt, kGPThreads, gp_bar);
+    if (gt == 0) SECTION_ADD(6, t_gp);
+  };
+  // warp 1: the filter of tick t, waiting for warp 0's control and truth
+  // (ready at once for tick 0)
+  auto filter = [&](int t, bool wait) {
+    const uav::NamedBarrier control{kControlBarrier, 64}, truth{kTruthBarrier, 64};
+    SECTION_START(t_filter);
+    if (wait) {
+      filter_tick(P, O, t, est, xrow, qr, xs, Pm, Fd, FdP, Jm, st, aux, xw, lane, control, truth);
+    } else {
+      filter_tick(P, O, t, est, xrow, qr, xs, Pm, Fd, FdP, Jm, st, aux, xw, lane, [] {}, [] {});
+    }
+    if (lane == 0) SECTION_ADD(5, t_filter);
+  };
+
+  if (warp == 1) {
+    if (!P.relin_per_tick) {
+      // "dispatch": one Fd for the launch, at the entry estimate and control
+      const uav::Plant pl = P.use_dob ? uav::load_plant(O.nominal_row) : plant_at(P, O, 0);
       const float4 c = make_float4(aux[9], aux[10], aux[11], aux[12]);
       predict(est, c, pl, P.dt, P.use_dob, xs, xrow, lane);
-      SECTION_START(t_relin);
-      if (lane == 0) SECTION_ADD(0, t_predict);
-      const float* noise_t = O.noise + t * kMeas;
-      if (n == kDobStates) {
-        if (P.relin_per_tick) transition_fd<kDobStates>(xs, c, pl, P.dt, O.bdist, Jm, Fd, lane);
-        if (lane == 0) SECTION_ADD(1, t_relin);
-        propagate_and_fuse<kDobStates>(Fd, Pm, FdP, xrow, qr, st, noise_t, est, xw, lane);
-      } else {
-        if (P.relin_per_tick) transition_fd<12>(xs, c, pl, P.dt, nullptr, Jm, Fd, lane);
-        if (lane == 0) SECTION_ADD(1, t_relin);
-        propagate_and_fuse<12>(Fd, Pm, FdP, xrow, qr, st, noise_t, est, xw, lane);
-      }
-    } else {
-      // the GP horizon mean and the warm-start shift on warps 1-7
-      SECTION_START(t_gp);
-      const int gt = tid - 32;
-      if (P.use_gp) {
-        uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, nullptr, gt, kGPThreads,
-                             gp_bar);
-      } else {
-        for (int i = gt; i < Nnx; i += kGPThreads) wv[i] = 0.0f;
-      }
-      uav::warm_shift(z, y, va, vb, N, m, gt, kGPThreads, gp_bar);
-      if (tid == 32) SECTION_ADD(4, t_gp);
+      if (n == kDobStates) transition_fd<kDobStates>(xs, c, pl, P.dt, O.bdist, Jm, Fd, lane);
+      else transition_fd<12>(xs, c, pl, P.dt, nullptr, Jm, Fd, lane);
     }
-    __syncthreads();
+    filter(0, false);
+  } else if (warp > 1) {
+    gp_and_shift(false);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < P.k_ticks; ++t) {
+    SECTION_START(t_tick);
+    const bool next = t + 1 < P.k_ticks;
     if (P.use_dob) {
       // the observer's acceleration, summed with the GP's rows
       const float hf = (float)P.dt;
       for (int i = tid; i < N * 3; i += nth) {
         const int k = i / 3, j = i % 3;
-        wv[k * kNx + 3 + j] += hf * est[12 + j];
+        float* w = wv + k * kNx + 3 + j;
+        *w = (P.use_gp ? *w : 0.0f) + hf * est[12 + j];
       }
       __syncthreads();
     }
+    for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
     SECTION_START(t_solve);
     uav::condensed_solve(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
-                         P.iterations, tid, nth);
-    SECTION_START(t_scalar);
-    if (tid == 0) {
-      SECTION_ADD(5, t_solve);
-      scalar_tick(P, O, t, z, ref, xtail, est, st, aux);
-      SECTION_ADD(6, t_scalar);
+                         P.iterations, tid, nth, 9);
+    if (tid == 0) SECTION_ADD(7, t_solve);
+    if (warp == 0) {
+      // this tick's scalar section beside the next tick's filter and GP
+      SECTION_START(t_scalar);
+      const float z4[4] = {z[0], z[1], z[2], z[3]};
+      const float xt3[3] = {xtail[3], xtail[4], xtail[5]};
+      if (next) uav::named_arrive(kShiftBarrier, 32 + kGPThreads);
+      scalar_tick_warp(P, O, t, next, z4, xt3, ref, est, st, aux, lane);
+      if (lane == 0) SECTION_ADD(4, t_scalar);
+    } else if (next) {
+      if (warp == 1) filter(t + 1, true);
+      else gp_and_shift(true);
     }
     __syncthreads();
-    if (tid == 0) SECTION_ADD(7, t_tick);
+    if (tid == 0) SECTION_ADD(8, t_tick);
   }
 
   for (int i = tid; i < m; i += nth) {
@@ -535,10 +602,10 @@ extern "C" int gpmpc_noisy_multitick_launch(const NoisyTickParams* params,
 // with -DUAV_SECTION_CLOCKS. Synchronous: call after the launches finish.
 extern "C" int noisy_tick_section_cycles(unsigned long long* out) {
 #ifdef UAV_SECTION_CLOCKS
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_section_cycles, sizeof(g_section_cycles));
+  cudaError_t err = cudaMemcpyFromSymbol(out, uav::g_section_cycles, kSections * sizeof(*out));
   if (err != cudaSuccess) return (int)err;
-  const unsigned long long zeros[kSections] = {};
-  return (int)cudaMemcpyToSymbol(g_section_cycles, zeros, sizeof(zeros));
+  const unsigned long long zeros[uav::kMaxSections] = {};
+  return (int)cudaMemcpyToSymbol(uav::g_section_cycles, zeros, sizeof(zeros));
 #else
   (void)out;
   return (int)cudaErrorNotSupported;

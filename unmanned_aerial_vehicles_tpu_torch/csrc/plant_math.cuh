@@ -134,10 +134,11 @@ __device__ __forceinline__ void rk4_substeps(float s[12], const float c[4], cons
   for (int step = 0; step < substeps; ++step) rk4_step(s, c, pl, st);
 }
 
-// The warp-cooperative forms below (K9's filter warp) spread the slow,
-// serial pieces of derivative() and of the closed-form Jacobian (the
-// accurate sine and cosine and the IEEE divisions, each behind a slow-path
-// branch) over the lanes of one warp and share the results by shuffles:
+// The warp-cooperative forms below (K9's filter warp, K13a, and K5's and
+// K9's scalar sections) spread the slow, serial pieces of derivative() and
+// of the closed-form Jacobian (the accurate sine and cosine and the IEEE
+// divisions, each behind a slow-path branch) over the lanes of one warp
+// and share the results by shuffles:
 // the warp waits for one sincosf and one division where a single thread
 // waits for six and seven in a row. Every lane must call them with the
 // same arguments (all 32 lanes active).
@@ -376,6 +377,97 @@ __device__ __forceinline__ void mpc_command_plant(const Params& P, const Plant& 
 #pragma unroll
   for (int i = 0; i < 12; ++i) sn[i] = s[i];
   rk4_substeps(sn, c, pl, P.dt, P.substeps);
+  accel[0] = ax;
+  accel[1] = ay;
+  accel[2] = az;
+}
+
+// allocation() on a whole warp (the multi-tick kernels' scalar section):
+// lanes 0 and 1 form the pitch and roll arcsines, lanes 0-2 one wrapped
+// attitude error each (fmodf), shared by shuffles; every lane gets the
+// whole output. The same arithmetic as allocation(); every lane must call
+// it with the same arguments (all 32 lanes active).
+__device__ __forceinline__ void allocation_warp(const float s[12], const float cmd[5],
+                                                const float integral[3], float dt, float gravity,
+                                                float thrust_ceiling, int lane, float control[4],
+                                                float att_sp[3], float new_int[3]) {
+  const float kp = 3.2f, ki = 0.6f, kd = 0.6f, integral_max = 0.3f;
+  const float tvx = cmd[0], tvy = cmd[1], tvz = cmd[2] + gravity;
+  const float tmag = sqrtf(tvx * tvx + tvy * tvy + tvz * tvz);
+  const float thrust = fminf(fmaxf(tmag / gravity, 0.25f), thrust_ceiling);
+  const float inv = 1.0f / fmaxf(tmag, 1e-9f);
+  const float tilt = asinf(clipf(((lane & 1) ? tvy : tvx) * inv, -0.4f, 0.4f));
+  float pitch_cmd = -__shfl_sync(kFullMask, tilt, 0);
+  float roll_cmd = __shfl_sync(kFullMask, tilt, 1);
+  if (tmag <= 0.1f) {
+    pitch_cmd = 0.0f;
+    roll_cmd = 0.0f;
+  }
+  const float target_yaw = cmd[4];
+  const int w = lane % 3;
+  const float err = wrap_angle((w == 0 ? roll_cmd : w == 1 ? pitch_cmd : target_yaw) - s[6 + w]);
+  const float e0 = __shfl_sync(kFullMask, err, 0);
+  const float e1 = __shfl_sync(kFullMask, err, 1);
+  const float e2 = __shfl_sync(kFullMask, err, 2);
+  const float i0 = clipf(integral[0] + e0 * dt, -integral_max, integral_max);
+  const float i1 = clipf(integral[1] + e1 * dt, -integral_max, integral_max);
+  const float i2 = clipf(integral[2] + e2 * dt, -integral_max, integral_max);
+  control[0] = thrust;
+  control[1] = clipf(kp * e0 + ki * i0 - kd * s[9], -1.2f, 1.2f);
+  control[2] = clipf(kp * e1 + ki * i1 - kd * s[10], -1.2f, 1.2f);
+  control[3] = clipf(cmd[3] + kp * e2 + ki * i2 - kd * s[11], -0.8f, 0.8f);
+  att_sp[0] = roll_cmd;
+  att_sp[1] = pitch_cmd;
+  att_sp[2] = target_yaw;
+  new_int[0] = i0;
+  new_int[1] = i1;
+  new_int[2] = i2;
+}
+
+// mpc_command_plant() on a whole warp (the multi-tick kernels K5 and K9):
+// the clips and the fallback on every lane, allocation_warp, then
+// after_control(c) (K9 hands the control to its filter warp there), then
+// the plant's `substeps` RK4 steps as rk4_stages_warp at dt / substeps (its
+// step lengths rounded from that double as rk4_step_lengths rounds them).
+// z4 is the slack's first stage, ref3 the first stage's position
+// reference. Every lane gets the whole output; all 32 lanes must call it.
+template <class Params, class AfterControl>
+__device__ __forceinline__ void mpc_command_plant_warp(const Params& P, const Plant& pl,
+                                                       const float z4[4], const float ref3[3],
+                                                       const float sc[12], const float s[12],
+                                                       float yaw_ref, const float integral[3],
+                                                       int lane, float sn[12], float c[4],
+                                                       float att_sp[3], float new_int[3],
+                                                       float accel[3],
+                                                       AfterControl after_control) {
+  float ax = clipf(z4[0], P.accel_lo[0], P.accel_hi[0]);
+  float ay = clipf(z4[1], P.accel_lo[1], P.accel_hi[1]);
+  float az = clipf(z4[2], P.accel_lo[2], P.accel_hi[2]);
+  float yr = clipf(z4[3], -P.yawrate_limit, P.yawrate_limit);
+  float thrust_hi = 1.2f;
+  if (P.use_fallback) {
+    const float ex = ref3[0] - sc[0], ey = ref3[1] - sc[1], ez = ref3[2] - sc[2];
+    if (ex * ex + ey * ey + ez * ez > P.fallback_error_sq) {
+      ax = clipf(1.5f * ex - 0.8f * sc[3], P.fallback_lo[0], P.fallback_hi[0]);
+      ay = clipf(1.5f * ey - 0.8f * sc[4], P.fallback_lo[1], P.fallback_hi[1]);
+      az = clipf(1.5f * ez - 0.8f * sc[5], P.fallback_lo[2], P.fallback_hi[2]);
+      yr = 0.0f;
+      thrust_hi = P.fallback_thrust_ceiling;
+    }
+  }
+  const float cmd[5] = {ax, ay, az, yr, yaw_ref};
+  allocation_warp(sc, cmd, integral, (float)P.dt, pl.gravity, thrust_hi, lane, c, att_sp,
+                  new_int);
+  after_control(c);
+#pragma unroll
+  for (int i = 0; i < 12; ++i) sn[i] = s[i];
+  const double h = P.dt / P.substeps;
+  for (int step = 0; step < P.substeps; ++step) {
+    float x2[12], x3[12], x4[12], xp[12];
+    rk4_stages_warp(sn, c, pl, h, lane, x2, x3, x4, xp);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) sn[i] = xp[i];
+  }
   accel[0] = ax;
   accel[1] = ay;
   accel[2] = az;

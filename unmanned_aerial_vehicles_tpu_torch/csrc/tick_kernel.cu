@@ -15,66 +15,77 @@
 //
 // The per-tick phases (GP, shift, condensed solve: multitick_phases.cuh)
 // are the same device code that the noisy kernel K9 runs
-// (noisy_tick_kernel.cu); the matvecs, the composite-ADMM iteration
-// (block_linalg.cuh) and the scalar section (plant_math.cuh
-// mpc_command_plant) are those of the single-tick kernels K3, K4 and K6.
+// (noisy_tick_kernel.cu); the scalar section is plant_math.cuh's
+// mpc_command_plant_warp, the warp form of the scalar section of the
+// single-tick kernel K4.
 //
-// Per tick, in block-wide phases separated by __syncthreads():
-//   GP     features of the UNshifted previous solution -> scaled features;
-//          thread (stage k, slice s) forms the cross-kernel entries of
-//          stage k against every S-th training point from s, exponentiates
-//          them and contracts them with alpha[:, 3:6]; the S slice sums of
-//          a stage are added in a fixed order (deterministic, no atomics);
-//   shift  warm start moved one stage forward (last stage repeated);
-//   offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
-//          box bounds, p0 = -(f @ P0mat), M^-1 f;
-//   ADMM   `iterations` x one (m, m) matvec from shared memory, thread j
-//          owns column j, the matvec input double-buffered so each
-//          iteration needs one barrier;
-//   U, X_tail, then thread 0 runs the clips, hover fallback, allocation +
-//          attitude PID and the plant RK4 substeps (plant_math.cuh, the
-//          same device code as K1/K2) and writes the packed row.
+// The untightened kernel runs on 512 threads (16 warps, one block on one
+// SM). A tick is the solve on the whole block, then one phase where warp 0
+// runs this tick's scalar section while warps 1-15 run the next tick's GP
+// and shift, joined by one block barrier:
+//   solve  offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
+//          box bounds, p0 = -(f @ P0mat), M^-1 f; the ADMM, `iterations`
+//          x one (m, m) matvec from shared memory, thread j owning column
+//          j; U, X_tail. Each product with a fixed operator splits a
+//          column over nth / n_out threads (block_linalg.cuh).
+//   warp 0 reads z[0:4] and X_tail[3:6], lets the shift run (a named
+//          barrier's arrive), and runs the clips, hover fallback,
+//          allocation + attitude PID and the plant's RK4 substeps with the
+//          sines and divisions spread over its lanes, and writes the packed
+//          row and the carries;
+//   warps 1-15 form the GP horizon mean of tick t+1: it reads only what
+//          the solve of tick t fixed (x0, X_tail, the unshifted slack), so
+//          it need not wait for the plant. A thread loads every S-th
+//          training point once for a group of 4 stages; 8-lane groups meet
+//          in a shuffle tree and the groups' sums are added in order. Then
+//          the warm start moves one stage forward. Tick 0's GP runs before
+//          the loop; none runs after tick K-1.
 //
 // What bounds it on an H100: at N=20, P=800 one tick is about 0.73 M
 // multiply-adds (GP ~0.26 M, 10 ADMM iterations 0.4 M, the rest ~0.07 M):
-// ~3 us at one SM's 128 FP32 FMA per clock. The ADMM matvec reads P1 from
-// shared memory at 128 bytes per clock per SM, so each iteration costs at
-// least m*m*4/128 = 1250 clocks (~0.7 us), 10 iterations ~7 us per tick;
-// the per-tick L2 reads of the other operands (~340 KB) are of the same
-// order. One block uses one SM of 132: the kernel is latency-bound by
-// design for one flight, and a batch of flights (one block each) is what
-// fills the card. Holding P1 in registers across a 1024-thread block, and
-// overlapping the scalar plant section with the next tick's GP, are the
-// next steps (ROADMAP.md).
+// ~3 us at one SM's 128 FP32 FMA per clock. One block uses one SM of 132:
+// the kernel is latency-bound by design for one flight. By the section
+// clocks (the tick_clocks build; PERF.md) what is left is the solve: the
+// ADMM steps, each ~3,600 clocks against P1's 1,250 of shared-memory
+// traffic (every warp also reads the whole input), and the five products
+// with the fixed operators (~290 KB a tick), which arrive at an SM's rate
+// of reads from L2 whatever the block's width. The overlap takes the
+// one-warp plant and the GP off each other's path. Measured slower on the
+// card and not kept (PERF.md): 1024 threads, the ADMM's column split over
+// lanes or warps or several columns a thread, and the operators copied
+// through shared memory in bulk or held in a cluster's other blocks.
 //
 // With tighten_kappa > 0 (the kTighten instantiation) each tick also runs
-// the variance section between the GP and the solve: the GP section leaves
-// K* (N x P) in a workspace in device memory, and the section forms the
-// posterior variance K* K^-1 K*' from the cached K^-1 and the box back-off
-// that the solve's bounds take (multitick_phases.cuh). It is N P^2
+// the variance section between the shift and the solve: the GP section
+// leaves K* (N x P) in a workspace in device memory, and the section forms
+// the posterior variance K* K^-1 K*' from the cached K^-1 and the box
+// back-off that the solve's bounds take (multitick_phases.cuh). It is N P^2
 // multiply-adds per tick (12.8 M at N = 20, P = 800), ~17x the rest of the
 // tick: on the tick's one SM, bound by that SM's FMA rate (~57 us per tick
 // at best), it took ~247 us (H100 80GB HBM3, 700 W; PERF.md). So the
 // tightened K5 launches a thread-block cluster (csrc/cluster.cuh) per
 // flight: 16 blocks where the card runs such a cluster (a non-portable
-// size; measured faster than 8 on the H100, PERF.md), 8 otherwise. Rank 0
-// runs the tick exactly as the untightened kernel does; the other ranks
-// are variance workers that loop over the launch's K ticks beside it. Per
-// tick rank 0 writes K* and
-// arrives at a cluster barrier (release: the workers then read K* through
-// L2), warm-shifts while the workers form their partial sums over equal
-// shares of K^-1's upper triangle (half of N P^2: K^-1 is symmetric; ~0.43 M
-// multiply-adds each for 15 workers at N = 20, P = 800), meets them at a
-// second barrier, adds their sums in rank order through distributed shared
-// memory and forms the back-off. K^-1 is fixed within a launch (refits
-// happen between launches): a worker keeps its share of the triangle in its
-// shared memory where it fits (P = 800: ~85 KB for 15 workers) and streams
-// it from L2 otherwise. K* stays in device memory (64 KB at N = 20,
-// P = 800: it does not fit beside rank 0's tick). Rank 0's layout holds
-// only the variance row and the back-off row, so the tightened kernel
-// reaches the untightened one's horizon (N <= 23 on an H100).
+// size; measured faster than 8 on the H100, PERF.md), 8 otherwise, of 256
+// threads each (the workers' variance loop holds ~100 live floats a thread,
+// which a 1024-thread block's 64 registers would spill). Rank 0 runs the
+// tick as the untightened kernel does, on its 256 threads; the other ranks
+// are variance workers that loop over the launch's K ticks beside it. Rank
+// 0's GP warps write K* and arrive at a cluster barrier (release: the
+// workers then read K* through L2) before they shift; at the next tick rank
+// 0 waits there, meets the workers at a second barrier once their partial
+// sums over equal shares of K^-1's upper triangle are done (half of N P^2:
+// K^-1 is symmetric; ~0.43 M multiply-adds each for 15 workers at N = 20,
+// P = 800), adds their sums in rank order through distributed shared memory
+// and forms the back-off. K^-1 is fixed within a launch (refits happen
+// between launches): a worker keeps its share of the triangle in its shared
+// memory where it fits (P = 800: ~85 KB for 15 workers) and streams it from
+// L2 otherwise. K* stays in device memory (64 KB at N = 20, P = 800: it
+// does not fit beside rank 0's tick). Rank 0's layout holds only the
+// variance row and the back-off row, so the tightened kernel reaches the
+// untightened one's horizon (N <= 23 on an H100).
 //
-// loop_precision: both modes compute in float32 with FMAs here.
+// loop_precision: both modes compute in float32 with FMAs here. Every sum
+// runs in a fixed order, so a second launch is bit-identical.
 
 #include <cuda_runtime.h>
 
@@ -106,30 +117,51 @@ struct TickOperands {
 
 namespace {
 
-constexpr int kThreads = 256;   // ops/tick_pallas.py KERNEL_THREADS
+constexpr int kThreads = 512;              // ops/tick_pallas.py KERNEL_THREADS
+constexpr int kTightThreads = 256;         // TIGHT_KERNEL_THREADS: the tightened cluster's blocks
+// the GP's lanes whose sums meet in a shuffle tree (GP_GROUP, TIGHT_GP_GROUP)
+// and its stages per thread (GP_STAGES; the tightened rank 0: 1)
+template <bool kTighten>
+constexpr int kGpGroup = kTighten ? 1 : 8;
+template <bool kTighten>
+constexpr int kGpStages = kTighten ? 1 : 4;
+constexpr int kGPBarrier = 1;     // named barrier of warps 1.. (0 is __syncthreads)
+constexpr int kShiftBarrier = 2;  // warp 0 has read z[0:4] and X_tail: the shift may run
 constexpr int kNu = 4;
 constexpr int kNx = 6;
 constexpr int kFeat = uav::kTickFeat;
 constexpr int kPacked = 32;
 constexpr int kAux = 9;
 
-// The scalar section of one tick (one thread): u0 clips, hover fallback,
-// allocation + attitude PID, plant RK4 substeps, the packed row and the
-// state / aux carries. Not inlined: it runs once per tick on one thread, so
-// it gets its own register allocation and keeps the block's loops from
-// paying for its register pressure.
-__device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands& O, int t,
-                                         const float* z, const float* ref,
-                                         const float* xtail, float* st, float* aux) {
-    const uav::Plant pl = uav::load_plant(O.plant_row);
-    float s[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) s[i] = st[i];
-    const float integral[3] = {aux[6], aux[7], aux[8]};
-    float sn[12], c[4], att_sp[3], new_int[3], accel[3];
-    uav::mpc_command_plant(P, pl, z, ref, s, s, O.yaw_refs[t], integral, sn, c, att_sp,
-                           new_int, accel);
+// Section clocks (multitick_phases.cuh; the library tick_clocks, which
+// chip_smoke.py reads for its breakdown). Sections (ops/tick_pallas.py
+// TICK_SECTIONS): the GP (warps 1..), the shift, the solve, the scalar
+// section (warp 0), the whole tick, then the solve's six phases (offset, f,
+// p0 and M^-1 f, the ADMM, U, X_tail).
+constexpr int kSections = 11;
 
+// The scalar section of tick t on warp 0: u0 clips, hover fallback,
+// allocation + attitude PID and the plant's RK4 substeps
+// (mpc_command_plant_warp), then lane 0 writes the packed row, the state
+// and aux carries and x0 of the next tick's solve into xw. z4 and xt3 (the
+// slack's first stage, X_tail[3:6]) were read before the shift could move
+// them.
+__device__ __forceinline__ void scalar_tick_warp(const TickParams& P, const TickOperands& O,
+                                                 int t, const float z4[4], const float xt3[3],
+                                                 const float* ref, float* st, float* aux,
+                                                 float* xw, int lane) {
+  const uav::Plant pl = uav::load_plant(O.plant_row);
+  float s[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s[i] = st[i];
+  const float integral[3] = {aux[6], aux[7], aux[8]};
+  const float ref3[3] = {ref[0], ref[1], ref[2]};
+  const float yaw_ref = O.yaw_refs[t];
+  __syncwarp();   // every lane has read st and aux before lane 0 rewrites them
+  float sn[12], c[4], att_sp[3], new_int[3], accel[3];
+  uav::mpc_command_plant_warp(P, pl, z4, ref3, s, s, yaw_ref, integral, lane, sn, c, att_sp,
+                              new_int, accel, [](const float*) {});
+  if (lane == 0) {
     float* row = O.packed + t * kPacked;
 #pragma unroll
     for (int i = 0; i < 12; ++i) row[i] = s[i];
@@ -142,16 +174,19 @@ __device__ __noinline__ void scalar_tick(const TickParams& P, const TickOperands
 #pragma unroll
     for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) row[25 + i] = z[i];
+    for (int i = 0; i < 4; ++i) row[25 + i] = z4[i];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) row[29 + i] = xtail[3 + i];
-
+    for (int i = 0; i < 3; ++i) row[29 + i] = xt3[i];
 #pragma unroll
     for (int i = 0; i < 12; ++i) st[i] = sn[i];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) aux[i] = s[i];
+    for (int i = 0; i < 6; ++i) {
+      aux[i] = s[i];
+      xw[i] = sn[i];
+    }
 #pragma unroll
     for (int i = 0; i < 3; ++i) aux[6 + i] = new_int[i];
+  }
 }
 
 // A variance worker (cluster rank >= 1) of the tightened K5: K ticks of
@@ -166,18 +201,18 @@ __device__ void variance_worker_ticks(const TickParams& P, const TickOperands& O
   float* rows = sm + uav::kVarHead;        // 16-byte aligned
   const int rows_pad = (q1 - q0 + uav::kVarRows - 1) / uav::kVarRows * uav::kVarRows;
   float* share = rows + rows_pad * kS;
-  for (int i = tid; i < rows_pad * kS; i += kThreads) rows[i] = 0.0f;
+  for (int i = tid; i < rows_pad * kS; i += kTightThreads) rows[i] = 0.0f;
   if (tid < uav::kMaxVarStages) quad_out[tid] = 0.0f;
   if constexpr (kShared) {
     // the share's rows packed (row q: columns q .. P - 1), eight loads in
     // flight per thread; q follows the thread's rising index
     const int entries = uav::packed_row(q1, q0, n_train);
     int q = q0;
-    for (int i0 = tid; i0 < entries; i0 += 8 * kThreads) {
+    for (int i0 = tid; i0 < entries; i0 += 8 * kTightThreads) {
       float v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * kThreads;
+        const int i = i0 + u * kTightThreads;
         v[u] = 0.0f;
         if (i < entries) {
           while (uav::packed_row(q + 1, q0, n_train) <= i) ++q;
@@ -187,15 +222,15 @@ __device__ void variance_worker_ticks(const TickParams& P, const TickOperands& O
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        if (i0 + u * kThreads < entries) share[i0 + u * kThreads] = v[u];
+        if (i0 + u * kTightThreads < entries) share[i0 + u * kTightThreads] = v[u];
       }
     }
   }
   __syncthreads();
   for (int t = 0; t < P.k_ticks; ++t) {
     uav::cluster_sync();   // rank 0 has written this tick's K*
-    uav::variance_share<kS, kShared, kThreads>(O.kinv, O.kst_ws, share, N, n_train, q0, q1,
-                                                rows, wsum, quad_out, tid);
+    uav::variance_share<kS, kShared, kTightThreads>(O.kinv, O.kst_ws, share, N, n_train, q0, q1,
+                                                    rows, wsum, quad_out, tid);
     uav::cluster_sync();   // quad_out holds this tick's partial sums
   }
   uav::cluster_sync();     // rank 0 is done reading quad_out
@@ -220,12 +255,14 @@ __device__ __noinline__ void variance_worker(const TickParams& P, const TickOper
 #undef UAV_VAR_WORKER
 }
 
-template <bool kTighten>
-__global__ void __launch_bounds__(kThreads, 1)
-gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
+template <int kNth, bool kTighten>
+__global__ void __launch_bounds__(kNth, 1)
+gpmpc_multitick_kernel(const __grid_constant__ TickParams P,
+                       const __grid_constant__ TickOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int nth = kNth, gp_nth = kNth - 32;   // warps 1.. run the GP and the shift
   if constexpr (kTighten) {
     if (uav::cluster_rank() != 0) {
       variance_worker(P, O, sm, tid);
@@ -256,13 +293,13 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
   float* f = dref + Nnx;
   float* minvf = f + Nnu;
   float* U = minvf + Nnu;
-  float* part = U + Nnu;        // matvec slices: nth + npm
-  float* zf = part + nth + npm;
-  float* sq1 = zf + N * kFeat;
-  float* red = sq1 + N;
-  float* st = red + 3 * nth;
+  float* part = U + Nnu;        // matvec and ADMM slices: max(nth, npm)
+  float* zf = part + max(nth, npm);
+  float* red = zf + N * kFeat;  // the GP's group sums: 3 per group of GP threads
+  float* st = red + 3 * (gp_nth / kGpGroup<kTighten>) * kGpStages<kTighten>;
   float* aux = st + 12;
-  float* sig = aux + kAux;      // the variance section's rows (kTighten)
+  float* anchor = aux + kAux;   // x0 of the GP's stage 0
+  float* sig = anchor + kNx;    // the variance section's rows (kTighten)
   float* tight = sig + Nnx;
 
   {
@@ -277,46 +314,85 @@ gpmpc_multitick_kernel(const TickParams P, const TickOperands O) {
     lo[i] = O.lo_row[i];
     hi[i] = O.hi_row[i];
   }
-  for (int i = tid; i < Nnx; i += nth) xtail[i] = O.xtail_in[i];
+  for (int i = tid; i < Nnx; i += nth) {
+    xtail[i] = O.xtail_in[i];
+    wv[i] = 0.0f;               // the GP's rows (zero without the GP)
+  }
   if (tid < 12) st[tid] = O.state_in[tid];
   if (tid < kAux) aux[tid] = O.aux_in[tid];
+  if (tid < kNx) {
+    anchor[tid] = O.aux_in[tid];
+    xw[tid] = O.state_in[tid];
+  }
   __syncthreads();
 
   const uav::GPOperands gp{O.ztrT, O.sq2, O.alpha_s, O.y_mean, O.inv_ls, O.scal, P.n_train};
   const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
   const uav::VarianceOperands var{O.kinv, O.y_std, O.SwSqT, O.scal, P.tighten_kappa};
-  const uav::TickVectors vec{P1s,  lo,     hi,     ref,   va,    vb, z, y, p0, lower,
-                             upper, xw,   xtail, offset, dref, f, minvf, U, part,
+  const uav::TickVectors vec{P1s,   lo,    hi,     ref,  va,    vb,    z, y, p0,   lower, upper,
+                             xw,    xtail, offset, dref, f,     minvf, U, part, anchor,
                              kTighten ? tight : nullptr};
-  for (int t = 0; t < P.k_ticks; ++t) {
-    for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
-    if (tid < kNx) xw[tid] = st[tid];
+  const uav::NamedBarrier gp_bar{kGPBarrier, gp_nth};
+  const uav::NamedBarrier shift_bar{kShiftBarrier, nth};
+
+  // warps 1..: the GP of the next tick (K* into kst_ws when tightened),
+  // then, once warp 0 has read what the shift moves, the warm-start shift
+  auto gp_and_shift = [&](bool after_scalar) {
+    const int gt = tid - 32;
+    SECTION_START(t_gp);
     if (P.use_gp) {
-      uav::gp_horizon_rows(gp, N, aux, xtail, z, zf, sq1, red, wv, kTighten ? O.kst_ws : nullptr,
-                           tid, nth, uav::BlockBarrier{});
-    } else {
-      for (int i = tid; i < Nnx; i += nth) wv[i] = 0.0f;
+      uav::gp_horizon_rows<kGpGroup<kTighten>, kGpStages<kTighten>>(
+          gp, N, anchor, xtail, z, zf, red, wv, kTighten ? O.kst_ws : nullptr, gt, gp_nth, gp_bar);
     }
+    if constexpr (kTighten) uav::cluster_arrive();   // K* is written
+    if (after_scalar) shift_bar();
+    SECTION_START(t_shift);
+    if (gt == 0) SECTION_ADD(0, t_gp);
+    uav::warm_shift(z, y, va, vb, N, m, gt, gp_nth, gp_bar);
+    if (gt == 0) SECTION_ADD(1, t_shift);
+  };
+  if (warp != 0) {
+    gp_and_shift(false);
+  } else if constexpr (kTighten) {
+    uav::cluster_arrive();
+  }
+  __syncthreads();
+
+  for (int t = 0; t < P.k_ticks; ++t) {
+    SECTION_START(t_tick);
+    const bool next = t + 1 < P.k_ticks;
     if constexpr (kTighten) {
-      // K* is in kst_ws: the workers form their partial sums while rank 0
-      // shifts the warm start, then rank 0 reads them
-      uav::cluster_arrive();
-      uav::warm_shift(z, y, va, vb, N, m, tid, nth, uav::BlockBarrier{});
+      // K* of this tick was written before the arrive: the workers form
+      // their partial sums, then rank 0 reads them
       uav::cluster_wait();
       uav::cluster_sync();
-      uav::variance_backoff<kThreads>(var, N, static_cast<int>(uav::cluster_blocks()) - 1, sm, lo,
-                                      hi, sig, part, tight, tid, uav::BlockBarrier{});
+      uav::variance_backoff<kNth>(var, N, static_cast<int>(uav::cluster_blocks()) - 1, sm, lo,
+                                  hi, sig, part, tight, tid, uav::BlockBarrier{});
       if (O.tight_out != nullptr) {
         for (int i = tid; i < m; i += nth) O.tight_out[t * m + i] = tight[i];
       }
-    } else {
-      uav::warm_shift(z, y, va, vb, N, m, tid, nth, uav::BlockBarrier{});
     }
+    for (int i = tid; i < Nnx; i += nth) ref[i] = O.refs[t * Nnx + i];
+    SECTION_START(t_solve);
     uav::condensed_solve(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
-                         P.iterations, tid, nth);
-    // ---- u0 clips, fallback, allocation + plant (one thread) -------------
-    if (tid == 0) scalar_tick(P, O, t, z, ref, xtail, st, aux);
+                         P.iterations, tid, nth, 5);
+    if (tid == 0) SECTION_ADD(2, t_solve);
+    if (warp == 0) {
+      // this tick's scalar section beside the next tick's GP
+      SECTION_START(t_scalar);
+      if constexpr (kTighten) {
+        if (next) uav::cluster_arrive();
+      }
+      const float z4[4] = {z[0], z[1], z[2], z[3]};
+      const float xt3[3] = {xtail[3], xtail[4], xtail[5]};
+      if (next) uav::named_arrive(kShiftBarrier, nth);
+      scalar_tick_warp(P, O, t, z4, xt3, ref, st, aux, xw, lane);
+      if (lane == 0) SECTION_ADD(3, t_scalar);
+    } else if (next) {
+      gp_and_shift(true);
+    }
     __syncthreads();
+    if (tid == 0) SECTION_ADD(4, t_tick);
   }
   if constexpr (kTighten) uav::cluster_sync();   // the workers exit after rank 0's last read
 
@@ -352,12 +428,14 @@ int configured_bytes[2] = {-1, -1};
 // The tightened kernel's shared memory, and clusters of more than the
 // portable 8 blocks (the card's own limit applies: 16 on an H100).
 int configure_tightened(int cluster, int smem_bytes) {
-  const int err = configure(gpmpc_multitick_kernel<true>, &configured_bytes[1], smem_bytes);
+  const int err = configure(gpmpc_multitick_kernel<kTightThreads, true>, &configured_bytes[1],
+                            smem_bytes);
   if (err != 0) return err;
   static bool non_portable = false;
   if (cluster > 8 && !non_portable) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gpmpc_multitick_kernel<true>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        gpmpc_multitick_kernel<kTightThreads, true>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
     non_portable = true;
   }
@@ -366,20 +444,39 @@ int configure_tightened(int cluster, int smem_bytes) {
 
 }  // namespace
 
-// One block on `stream`; with params->tighten one cluster of `cluster`
-// blocks (rank 0 the tick, the others variance workers).
+// One block of kThreads on `stream`; with params->tighten one cluster of
+// `cluster` blocks of kTightThreads (rank 0 the tick, the others variance
+// workers).
 extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperands* ops,
                                       int cluster, int smem_bytes, void* stream) {
   if (params->tighten) {
     const int err = configure_tightened(cluster, smem_bytes);
     if (err != 0) return err;
-    return uav::launch_cluster(gpmpc_multitick_kernel<true>, cluster, kThreads, cluster,
-                               smem_bytes, static_cast<cudaStream_t>(stream), *params, *ops);
+    return uav::launch_cluster(gpmpc_multitick_kernel<kTightThreads, true>, cluster,
+                               kTightThreads, cluster, smem_bytes,
+                               static_cast<cudaStream_t>(stream), *params, *ops);
   }
-  const int err = configure(gpmpc_multitick_kernel<false>, &configured_bytes[0], smem_bytes);
+  const int err =
+      configure(gpmpc_multitick_kernel<kThreads, false>, &configured_bytes[0], smem_bytes);
   if (err != 0) return err;
-  gpmpc_multitick_kernel<false><<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  gpmpc_multitick_kernel<kThreads, false>
+      <<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
   return (int)cudaGetLastError();
+}
+
+// The section counters summed since the last call (kSections values, in
+// cycles) into out, then reset; returns cudaErrorNotSupported unless built
+// with -DUAV_SECTION_CLOCKS. Synchronous: call after the launches finish.
+extern "C" int tick_section_cycles(unsigned long long* out) {
+#ifdef UAV_SECTION_CLOCKS
+  cudaError_t err = cudaMemcpyFromSymbol(out, uav::g_section_cycles, kSections * sizeof(*out));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zeros[uav::kMaxSections] = {};
+  return (int)cudaMemcpyToSymbol(uav::g_section_cycles, zeros, sizeof(zeros));
+#else
+  (void)out;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 // The number of tightened K5 clusters of `cluster` blocks with `smem_bytes`
@@ -387,6 +484,6 @@ extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperan
 extern "C" int gpmpc_multitick_max_active_clusters(int cluster, int smem_bytes, int* count) {
   const int err = configure_tightened(cluster, smem_bytes);
   if (err != 0) return err;
-  return uav::max_active_clusters(gpmpc_multitick_kernel<true>, kThreads, cluster, smem_bytes,
-                                  count);
+  return uav::max_active_clusters(gpmpc_multitick_kernel<kTightThreads, true>, kTightThreads,
+                                  cluster, smem_bytes, count);
 }

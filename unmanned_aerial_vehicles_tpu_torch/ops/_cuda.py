@@ -40,6 +40,8 @@ BUILD_ROOT = _PKG / "_build"
 LIBRARIES = {
     "plant": "plant_kernels.cu",
     "tick": "tick_kernel.cu",
+    # K5 with its per-section clock counters (chip_smoke.py's breakdown)
+    "tick_clocks": ("tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
     "controller": "controller_kernels.cu",
     "rbf": "rbf_kernels.cu",
     "single_tick": "single_tick_kernels.cu",

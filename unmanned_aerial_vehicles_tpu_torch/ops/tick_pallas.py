@@ -88,7 +88,12 @@ from .plant_pallas import (
 PACKED_LANES = 32
 TICK_PACKED_LANES = 25   # K4's packed row
 AUX_LANES = 9
-KERNEL_THREADS = 256   # csrc/tick_kernel.cu kThreads
+KERNEL_THREADS = 512        # csrc/tick_kernel.cu kThreads: K5's block
+TIGHT_KERNEL_THREADS = 256  # kTightThreads: each block of the tightened K5's cluster
+GP_GROUP = 8                # kGpGroup: lanes whose GP sums meet in a shuffle tree (K5, K9)
+TIGHT_GP_GROUP = 1          # the same on the tightened K5's 256 threads
+GP_STAGES = 4               # kGpStages: horizon stages per GP thread (K5)
+NOISY_GP_STAGES = 2         # the same in K9 (csrc/noisy_tick_kernel.cu)
 
 
 class FusedTickData(NamedTuple):
@@ -283,6 +288,22 @@ def tightening_row(data: FusedTickData, gp: GPRows, Kst: torch.Tensor,
                       torch.minimum(tight_x, cap)])
 
 
+def gp_horizon_rows(gp: GPRows, anchor, xtail, z_prev, N: int, nu: int = 4, nx: int = 6):
+    """The GP's horizon rows of K5's and K9's ticks: ``(gain mean[:, 3:6]
+    (N, 3), the cross-kernel K* (N, P))`` at the features of the UNshifted
+    previous solution: stage 0 from ``anchor`` (the previous x0), stages
+    1..N-1 from the previous X_tail, controls from the previous slack's
+    U-block."""
+    Xs = torch.cat([anchor[None, :], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
+    F = torch.cat([Xs, z_prev[: N * nu].reshape(N, nu)], dim=1)
+    Zf = F * gp.inv_ls[0] - gp.inv_ls[1]
+    sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
+    dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * (Zf @ gp.ztrT), min=0.0)
+    Kst = gp.scal[0] * torch.exp(-0.5 * dists)
+    mean = Kst @ gp.alpha_s + gp.y_mean                    # (N, 6)
+    return gp.scal[1] * mean[:, 3:6], Kst
+
+
 def multitick_staged(
     data: FusedTickData,
     gp: GPRows | None,
@@ -316,18 +337,8 @@ def multitick_staged(
         ref = refs[t]
         yaw_ref = yaw_refs[t]
         if use_gp:
-            # features from the UNshifted previous solution: stage 0 from
-            # the previous x0, stages 1..N-1 from the previous X_tail,
-            # controls from the previous slack's U-block
-            Xs = torch.cat([aux[None, :nx], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
-            F = torch.cat([Xs, z_prev[:Nnu].reshape(N, nu)], dim=1)
-            Zf = F * gp.inv_ls[0] - gp.inv_ls[1]
-            sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
-            cross = Zf @ gp.ztrT
-            dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * cross, min=0.0)
-            Kst = gp.scal[0] * torch.exp(-0.5 * dists)
-            mean = Kst @ gp.alpha_s + gp.y_mean                    # (N, 6)
-            w = torch.cat([zeros3, gp.scal[1] * mean[:, 3:6]], dim=1).reshape(-1)
+            wrow, Kst = gp_horizon_rows(gp, aux[:nx], xtail, z_prev, N, nu, nx)
+            w = torch.cat([zeros3, wrow], dim=1).reshape(-1)
         else:
             w = torch.zeros(N * nx, dtype=torch.float32, device=dev)
         tight = tightening_row(data, gp, Kst, tighten_kappa) if tighten else None
@@ -390,19 +401,60 @@ class _TickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _OPERAND_NAMES]
 
 
-def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int = KERNEL_THREADS,
-                        tighten: bool = False) -> int:
-    """Dynamic shared memory of one K5 block (csrc/tick_kernel.cu layout):
-    P1 plus the per-tick vectors; with ``tighten``, rank 0's layout, which
-    adds the variance row (N * nx) and the back-off row (m). The tightened
-    launch gives every block of its cluster the larger of this and
-    ``variance_worker_bytes``."""
+def _section_cycles(library: str, entry: str, names: tuple) -> dict[str, int]:
+    out = (ctypes.c_ulonglong * len(names))()
+    fn = getattr(_cuda.library(library), entry)
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), entry)
+    return dict(zip(names, (int(v) for v in out)))
+
+
+# the solve's six phases, in both kernels' section clocks
+SOLVE_PHASES = ("solve: offset", "solve: f", "solve: p0 and M^-1 f", "ADMM", "solve: U",
+                "solve: X_tail")
+TICK_SECTIONS = ("GP", "shift", "solve", "scalar section", "whole tick") + SOLVE_PHASES
+
+
+def tick_section_cycles() -> dict[str, int]:
+    """K5's per-section clock cycles summed over the launches since the
+    last call, then reset (``TICK_SECTIONS``: the GP and the shift on warps
+    1.., the solve, the scalar section on warp 0, the whole tick, then the
+    solve's phases; its L2 matvecs are the solve less its ADMM). Counted
+    only by the build with
+    section clocks: launch K5 inside ``_cuda.library_variant("tick",
+    "tick_clocks")``, synchronise, then call this."""
+    return _section_cycles("tick_clocks", "tick_section_cycles", TICK_SECTIONS)
+
+
+def _vector_floats(n: int, nu: int, nx: int, threads: int, gp_threads: int, group: int,
+                   stages: int) -> int:
+    """The shared-memory floats K5 and K9 lay out alike (csrc/tick_kernel.cu,
+    noisy_tick_kernel.cu): P1, the ADMM input double-buffered (16-byte
+    aligned), the slack, dual, p0 and the boxes, [x0 | w], X_tail, offset,
+    ref and its difference, f, M^-1 f and U, the matvec slices (``max(threads,
+    m + N nu)``), the GP's features and its group sums (3 per ``group`` of its
+    ``gp_threads`` for each of its ``stages`` per thread)."""
     m, Nnu, Nnx, d = n * (nu + nx), n * nu, n * nx, nu + nx
     m4 = (m + 3) // 4 * 4
-    floats = (m * m + 2 * m4 + 7 * m + nx + 5 * Nnx + 3 * Nnu + (threads + m + Nnu)
-              + n * d + n + 3 * threads + 24)
+    return (m * m + 2 * m4 + 7 * m + nx + 5 * Nnx + 3 * Nnu + max(threads, m + Nnu) + n * d
+            + 3 * (gp_threads // group) * stages)
+
+
+def shared_memory_bytes(n: int, nu: int = 4, nx: int = 6, threads: int | None = None,
+                        tighten: bool = False) -> int:
+    """Dynamic shared memory of one K5 block (csrc/tick_kernel.cu layout) of
+    ``threads`` (KERNEL_THREADS, or TIGHT_KERNEL_THREADS with ``tighten``):
+    P1, the per-tick vectors, the state (12), aux (9) and the GP's anchor
+    (nx); with ``tighten``, rank 0's layout, which adds the variance row (N *
+    nx) and the back-off row (m). The tightened launch gives every block of
+    its cluster the larger of this and ``variance_worker_bytes``."""
+    if threads is None:
+        threads = TIGHT_KERNEL_THREADS if tighten else KERNEL_THREADS
+    group, stages = (TIGHT_GP_GROUP, 1) if tighten else (GP_GROUP, GP_STAGES)
+    floats = _vector_floats(n, nu, nx, threads, threads - 32, group, stages) + 12 + AUX_LANES + nx
     if tighten:
-        floats += Nnx + m
+        floats += n * nx + n * (nu + nx)
     return 4 * floats
 
 
@@ -885,13 +937,7 @@ def noisy_multitick_staged(
 
         # ---- GP horizon mean (from the previous tick's solution) --------
         if use_gp:
-            Xs = torch.cat([aux[None, :nx], xtail[: (N - 1) * nx].reshape(N - 1, nx)], dim=0)
-            F = torch.cat([Xs, z_prev[: N * nu].reshape(N, nu)], dim=1)
-            Zf = F * gp.inv_ls[0] - gp.inv_ls[1]
-            sq1 = torch.sum(Zf * Zf, dim=1, keepdim=True)
-            dists = torch.clamp(sq1 + gp.sq2[None, :] - 2.0 * (Zf @ gp.ztrT), min=0.0)
-            mean = gp.scal[0] * torch.exp(-0.5 * dists) @ gp.alpha_s + gp.y_mean
-            wrow = gp.scal[1] * mean[:, 3:6]
+            wrow, _ = gp_horizon_rows(gp, aux[:nx], xtail, z_prev, N, nu, nx)
         else:
             wrow = zeros3
         if use_dob:
@@ -947,37 +993,37 @@ class _NoisyTickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _NOISY_OPERAND_NAMES]
 
 
-# csrc/noisy_tick_kernel.cu: the filter's shared arrays beyond K5's layout
-# (truth 12, aux 16, estimate and prediction 16 each, q and r 32, stage
-# states 48, P, Fd, Fd P at 15 x 15, four stage Jacobians and three chain
-# terms at 12 x 12)
-_FILTER_FLOATS = 12 + 16 + 2 * 16 + 32 + 48 + 3 * DOB_STATES**2 + 7 * 144
+NOISY_KERNEL_THREADS = 512    # csrc/noisy_tick_kernel.cu kThreads: K9's block
+
+# csrc/noisy_tick_kernel.cu: beyond the vectors it lays out as K5 does, the
+# truth (12), aux (16) and the GP's anchor (8), then the filter's arrays
+# (estimate and prediction 16 each, q and r 32, stage states 48, P, Fd, Fd P
+# at 15 x 15, four stage Jacobians and three chain terms at 12 x 12)
+_FILTER_FLOATS = 2 * 16 + 32 + 48 + 3 * DOB_STATES**2 + 7 * 144
 
 
-NOISY_SECTIONS = ("predict", "relinearise", "propagate", "fuse", "GP and shift", "solve",
-                  "scalar section", "whole tick")
+NOISY_SECTIONS = ("predict", "relinearise", "propagate", "fuse", "scalar section",
+                  "filter warp", "GP and shift", "solve", "whole tick") + SOLVE_PHASES
 
 
 def noisy_section_cycles() -> dict[str, int]:
     """K9's per-section clock cycles summed over the launches since the
-    last call, then reset: the filter warp's predict, relinearise,
-    propagate and fuse, the GP warps' GP and shift, the solve, the scalar
-    section and the whole tick. Counted only by the build with section
-    clocks: launch K9 inside ``_cuda.library_variant("noisy_tick",
-    "noisy_tick_clocks")``, synchronise, then call this."""
-    out = (ctypes.c_ulonglong * len(NOISY_SECTIONS))()
-    fn = _cuda.library("noisy_tick_clocks").noisy_tick_section_cycles
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), "noisy_section_cycles")
-    return dict(zip(NOISY_SECTIONS, (int(v) for v in out)))
+    last call, then reset: warp 0's filter (predict, relinearise, propagate,
+    fuse), its scalar section and its whole chain (this tick's scalar
+    section, then the next tick's filter), the GP warps' GP and shift, the
+    solve and the ADMM inside it, and the whole tick. Counted only by the
+    build with section clocks: launch K9 inside
+    ``_cuda.library_variant("noisy_tick", "noisy_tick_clocks")``,
+    synchronise, then call this."""
+    return _section_cycles("noisy_tick_clocks", "noisy_tick_section_cycles", NOISY_SECTIONS)
 
 
 def noisy_shared_memory_bytes(n: int, nu: int = 4, nx: int = 6,
-                              threads: int = KERNEL_THREADS) -> int:
-    """Dynamic shared memory of one K9 block: K5's layout (without its
-    carries) plus the filter's arrays."""
-    return shared_memory_bytes(n, nu, nx, threads) - 4 * 24 + 4 * _FILTER_FLOATS
+                              threads: int = NOISY_KERNEL_THREADS) -> int:
+    """Dynamic shared memory of one K9 block: the vectors K5 lays out, the
+    truth, aux and the GP's anchor, and the filter's arrays."""
+    return 4 * (_vector_floats(n, nu, nx, threads, threads - 64, GP_GROUP, NOISY_GP_STAGES)
+                + 12 + 16 + 8 + _FILTER_FLOATS)
 
 
 def gpmpc_noisy_multitick_fused(
