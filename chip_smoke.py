@@ -15,10 +15,14 @@ Phases (any failure exits non-zero; nothing is caught):
    lanes and every carry (tolerance 1e-4; a second launch bit-identical; its
    cycles per tick by section from the build with section clocks), K8 at the sweep's width
    (B=1024, N=20, 10 ADMM iterations, random planes; tolerance 1e-4 on all
-   six outputs), K7 at the sweep's width (20480 queries against the
-   800-point GP; tolerance 1e-5), K4 and K3 at N=20 (P1 in shared memory)
-   and N=25 (P1 read through L2), K4 also with a separate controller
-   state, a tightening row and the hover fallback, and K6 at N=20 and
+   six outputs; a second launch bit-identical; again at N=25 with B=257,
+   an odd horizon and a tail tile of one flight; its cycles per block by
+   section from the build with section clocks), K7 at the sweep's width
+   (20480 queries against the 800-point GP; tolerance 1e-5), K4 and K3 at
+   N=20 (P1 in shared memory) and N=25 (P1 read through L2), K4 also with
+   a separate controller state, a tightening row and the hover fallback
+   (K4's cycles by section from the build with section clocks at both
+   horizons), and K6 at N=20 and
    N=25 (tolerance 1e-4 on every output), and ``LinearMPC.solve`` through
    K3 and K6 at both horizons in float32 and float64 against the same
    solves through the plain versions (1e-4); K9 over K5's operands in four
@@ -65,9 +69,10 @@ Phases (any failure exits non-zero; nothing is caught):
    K5 also without its GP section and without its ADMM iterations, K2 also
    at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
    n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
-   K16 at B=256, the tightened K5, K5 and K9 at the main path's shape
-   (N=20, P=800, K=20), K11 at both plants and K13a at B=1 and 1024 of that
-   package and of this one, timed in turns (older, this, this,
+   K4 at N=20 and N=25, K8 at B=1024, K16 at B=256, the tightened K5, K5
+   and K9 at the main path's shape (N=20, P=800, K=20), K11 at both plants
+   and K13a at B=1 and 1024 of that package and of this one, timed in
+   turns (older, this, this,
    older; each older run a subprocess that builds its own sources, K11's
    operands through its own ``dispatch_tick_operands``);
 3. fly every path of the slices through the user entry points with the
@@ -147,7 +152,10 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
-    python3 chip_smoke.py --parent DIR   # also time an older checkout's K16, K5, K9, K11, K13a
+    python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K16, K5,
+                                         # K9, K11 and K13a in turns with this one's, and
+                                         # its sweep, single-tick and online ticks in
+                                         # E2E_PAIRS pairs
 """
 
 from __future__ import annotations
@@ -253,6 +261,31 @@ def graph_ms(fn, calls: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def slope_us(fly, lengths, reps=2, warm_T=None):
+    """Microseconds per tick of ``fly(T)``: the slope of the best of
+    ``reps`` host wall clocks between the two lengths, each ended by
+    ``torch.cuda.synchronize()``. Warm at each length, or once at
+    ``warm_T`` ticks."""
+    import torch
+
+    if warm_T is not None:
+        fly(warm_T)
+    times = {}
+    for T in lengths:
+        if warm_T is None:
+            fly(T)
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fly(T)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        times[T] = best
+    a, b = lengths
+    return (times[b] - times[a]) / (b - a) * 1e6
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -1653,6 +1686,243 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
     return out, dict(errs=plant_errs, ms=plant_ms, block=block)
 
 
+# ---- K8 and K4 (with K3 and K6) against their plain versions ----------------
+
+def figure8_launch(dev):
+    """The main path's state and reference at one K5 launch of the
+    figure-8 (t = 10 s, K=20 ticks): ``(x0 (12,), pos (K, 3), yaw (K,),
+    refs (K, N 6))``."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.zeros(12, **f32)
+    x0[:3] = torch.tensor([0.3, -0.2, 2.9])
+    x0[3:9] = torch.tensor([0.5, 0.2, -0.1, 0.05, -0.03, 0.1])
+    pos, yaw = ramped_figure8_reference(10.0 + 0.02 * torch.arange(K_TICKS, **f32))
+    pos = pos + torch.tensor([0.0, 0.0, 3.0], **f32)
+    refs = torch.cat([pos, torch.zeros(K_TICKS, 3, **f32)], 1).repeat(1, HORIZON).contiguous()
+    return x0, pos, yaw.contiguous(), refs
+
+
+def print_sections(label: str, sections: dict, whole: str) -> None:
+    total = sections[whole]
+    print(f"{label}: " + "; ".join(f"{name} {c:.0f} ({c / total:.1%})"
+                                   for name, c in sections.items()))
+
+
+def check_k8(dev, mpc, refs, gen, fail_fn) -> dict:
+    """K8 at the sweep's width (B=1024, N=20, 10 iterations) from random
+    planes (a few slacks on their boxes): all six outputs within ``K8_TOL``
+    of the plain version, a second launch bit-identical, its device time,
+    and its cycles per block by section from the build with section clocks."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, controller_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    B, Nnu, Nnx = SWEEP_B, HORIZON * 4, HORIZON * 6
+    sdata = controller_pallas.build_structured_batch_data(
+        mpc._fc_data, HORIZON, 4, 6, mpc._u_lo, mpc._u_hi, mpc._x_lo, mpc._x_hi, device=dev)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
+    X0 = rnd(B, 6)
+    X0[:, 2] += 3.0
+    k8_args = (sdata, X0, rnd(B, Nnx, scale=0.02), refs[:1].contiguous(),
+               rnd(B, Nnu, scale=3.0), rnd(B, Nnx), rnd(B, Nnu), rnd(B, Nnx),
+               8.0, ADMM_ITERS, 1.6)
+    got = controller_pallas.gpmpc_controller_structured_batched(*k8_args)
+    torch.cuda.synchronize()
+    want = controller_pallas.gpmpc_controller_structured_batched_plain(*k8_args)
+    k8_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail_fn("K8 produced non-finite values")
+    k8_fn = lambda: controller_pallas.gpmpc_controller_structured_batched(*k8_args)
+    k8_plain = lambda: controller_pallas.gpmpc_controller_structured_batched_plain(*k8_args)
+    k8 = dict(
+        err=k8_err,
+        ms=graph_ms(k8_fn, 20), plain_ms=graph_ms(k8_plain, 2, replays=3),
+        host_ms=cuda_ms(k8_fn, 50), host_plain_ms=cuda_ms(k8_plain, 5, warmup=1),
+        bound=bound_ms(nbytes(*(a for a in k8_args if torch.is_tensor(a)), *sdata[:10])
+                       + nbytes(*got), B * ops_structured_controller(HORIZON, ADMM_ITERS)),
+    )
+    print(f"K8 gpmpc_controller_structured_batched: max_abs_err {k8_err:.3e} over the six "
+          f"outputs (B={B}, N={HORIZON}, {ADMM_ITERS} iterations); shared memory "
+          f"{controller_pallas.structured_shared_memory_bytes(HORIZON)} B per block; device "
+          f"{k8['ms'] * 1e3:.2f} us per launch, bound {k8['bound'][0] * 1e3:.4f} us")
+    if not k8_err <= K8_TOL:
+        fail_fn(f"K8 disagrees with its plain version: {k8_err}")
+    again = k8_fn()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail_fn("K8: a second launch on the same inputs differs")
+    # an odd horizon (SuT's rows copied by the threads, the last X tile
+    # partial) and a batch with a tail tile of one flight
+    N25, B25 = LONG_HORIZON, 8 * 32 + 1
+    m25 = LinearMPC(LinearMPCConfig(horizon=N25, admm_iterations=ADMM_ITERS,
+                                    use_fused_controller=True), device=dev)
+    sd25 = controller_pallas.build_structured_batch_data(
+        m25._fc_data, N25, 4, 6, m25._u_lo, m25._u_hi, m25._x_lo, m25._x_hi, device=dev)
+    X25 = rnd(B25, 6)
+    X25[:, 2] += 3.0
+    ref25 = torch.cat([refs[:1, :3], torch.zeros(1, 3, **f32)], 1).repeat(1, N25).contiguous()
+    a25 = (sd25, X25, rnd(B25, 6 * N25, scale=0.02), ref25, rnd(B25, 4 * N25, scale=3.0),
+           rnd(B25, 6 * N25), rnd(B25, 4 * N25), rnd(B25, 6 * N25), 8.0, ADMM_ITERS, 1.6)
+    got25 = controller_pallas.gpmpc_controller_structured_batched(*a25)
+    torch.cuda.synchronize()
+    want25 = controller_pallas.gpmpc_controller_structured_batched_plain(*a25)
+    k8["err_n25_b257"] = max(float((g - w).abs().max()) for g, w in zip(got25, want25))
+    again25 = controller_pallas.gpmpc_controller_structured_batched(*a25)
+    print(f"K8 at N={N25}, B={B25}: max_abs_err {k8['err_n25_b257']:.3e}")
+    if not (k8["err_n25_b257"] <= K8_TOL
+            and all(bool(torch.isfinite(g).all()) for g in got25)
+            and all(torch.equal(a, b) for a, b in zip(got25, again25))):
+        fail_fn(f"K8 at N={N25}, B={B25} disagrees with its plain version or with itself: "
+                f"{k8['err_n25_b257']}")
+    k8["err"] = max(k8_err, k8["err_n25_b257"])
+    with _cuda.library_variant("controller", "controller_clocks"):
+        controller_pallas.structured_section_cycles()
+        k8_fn()
+        torch.cuda.synchronize()
+        blocks = -(-B // controller_pallas.FLIGHTS_PER_BLOCK)
+        k8["sections"] = {k: v / blocks
+                          for k, v in controller_pallas.structured_section_cycles().items()}
+    print_sections("K8 clock cycles per block by section (build with section clocks; the "
+                   "ADMM phases summed over the iterations)", k8["sections"], "whole launch")
+    return k8
+
+
+def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
+    """K4, K3 and K6 at N=20 (P1 in shared memory) and N=25 (P1 through L2)
+    against their plain versions (``SINGLE_TOL`` on every output; K4 also
+    with ``ctrl_state``, a ``tight`` row and the hover fallback engaged),
+    each timed, and K4's cycles by section from the build with section
+    clocks at both horizons: the ``kernels`` entries, keyed by name."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import (
+        _cuda,
+        admm_pallas,
+        controller_pallas,
+        tick_pallas,
+    )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
+    fail = fail_fn
+    tick_statics = dict(rho=8.0, iterations=ADMM_ITERS, over_relax=1.6, dt=0.02, substeps=2,
+                        accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
+                        yawrate_limit=0.8)
+
+    def single_tick_cases(N):
+        """K4's, K3's and K6's inputs at horizon N from seeded random draws
+        around a hovering flight near the figure-8."""
+        tm = mpc if N == HORIZON else LinearMPC(LinearMPCConfig(
+            horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True), device=dev)
+        am = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                       use_fused_admm=True), device=dev)
+        m, Nnu, Nnx = 10 * N, 4 * N, 6 * N
+        state = x0.clone()
+        w = torch.cat([torch.zeros(N, 3), 0.02 * torch.randn(N, 3, generator=gen)], 1)
+        ref = torch.cat([pos[:1], torch.zeros(1, 3, **f32)], 1).repeat(1, N).reshape(-1)
+        misc = torch.tensor([0.1, 0.02, -0.01, 0.03], **f32)
+        z, y = rnd(m, scale=0.3), rnd(m, scale=0.1)
+        k4 = (tm._tick_data, state, w.reshape(-1).to(**f32), ref.contiguous(), misc, z, y, prow)
+        k3 = (tm._tick_data, state[:6].contiguous(), *k4[2:4], z, y, 8.0, ADMM_ITERS, 1.6)
+        f = torch.randn(Nnu, generator=gen).to(**f32)
+        off = rnd(Nnx, scale=0.3)
+        k6 = (am._P1_f32, (-(am._GMinv @ f)).contiguous(), am._GMinvT_f32,
+              (am._M_inv @ f).contiguous(),
+              torch.cat([am._u_lo, am._x_lo - off]), torch.cat([am._u_hi, am._x_hi - off]),
+              z, y, 8.0, ADMM_ITERS, 1.6)
+        # K4 with the controller reading an estimate, tightened boxes and
+        # the hover fallback engaged (0.5 m from its reference)
+        tight = torch.zeros(m, **f32)
+        tight[Nnu:] = 0.2 * torch.rand(Nnx, generator=gen).to(dev)
+        cover = dict(ctrl_state=(state + rnd(12, scale=0.05)).contiguous(), tight=tight,
+                     fallback_error_m=0.3)
+        return k4, k3, k6, cover
+
+    def max_err(got, want):
+        for g in got:
+            if not torch.isfinite(g).all():
+                fail("a single-tick kernel produced non-finite values")
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    single = {}
+    for N in (HORIZON, LONG_HORIZON):
+        k4_args, k3_args, k6_args, cover = single_tick_cases(N)
+        kw = dict(tick_statics, n=N)
+        # the stacked device operands K3 and K4 read (FusedTickData: SxSwT
+        # through hi_row; ShiftT is a gather in the kernel)
+        tick_data = list(k4_args[0][2:10])
+        operands = lambda args: [a for a in args if torch.is_tensor(a)]
+        ops_k3 = ops_controller(N, ADMM_ITERS)
+        runs = {
+            "gpmpc_tick_fused": (
+                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused(*a, **kw),
+                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused_plain(*a, **kw),
+                operands(k4_args) + tick_data, ops_k3 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP),
+            "gpmpc_controller_fused": (
+                lambda a=k3_args: controller_pallas.gpmpc_controller_fused(*a),
+                lambda a=k3_args: controller_pallas.gpmpc_controller_fused_plain(*a),
+                operands(k3_args) + tick_data, ops_k3),
+            "admm_box_qp_fused_composite": (
+                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite(*a),
+                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite_plain(*a),
+                operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS)),
+        }
+        for name, (fn, plain, tensors, n_ops) in runs.items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = max_err(got, plain())
+            if name == "gpmpc_tick_fused":
+                kw_cover = dict(kw, **cover)
+                got = tick_pallas.gpmpc_tick_fused(*k4_args, **kw_cover)
+                torch.cuda.synchronize()
+                want = tick_pallas.gpmpc_tick_fused_plain(*k4_args, **kw_cover)
+                lo, hi = (torch.tensor(v, **f32) for v in (tick_statics["accel_lo"],
+                                                           tick_statics["accel_hi"]))
+                mpc_cmd = torch.minimum(torch.maximum(want[1][0:3], lo), hi)
+                if not float((want[0][22:25] - mpc_cmd).abs().max()) > 1e-3:
+                    fail("K4's coverage case did not engage the hover fallback")
+                err = max(err, max_err(got, want))
+            rec = dict(err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+                       host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
+                       bound=bound_ms(nbytes(*tensors) + nbytes(*got), n_ops))
+            single[(name, N)] = rec
+            if name == "gpmpc_tick_fused":
+                with _cuda.library_variant("single_tick", "single_tick_clocks"):
+                    tick_pallas.single_tick_section_cycles()
+                    fn()
+                    torch.cuda.synchronize()
+                    rec["sections"] = tick_pallas.single_tick_section_cycles()
+                print_sections(f"K4 clock cycles by section at N={N} (build with section clocks)",
+                               rec["sections"], "whole launch")
+            variant = "P1 in shared memory" if N <= 23 else "P1 through L2"
+            print(f"{name} (N={N}, {variant}): max_abs_err {err:.3e}; device "
+                  f"{rec['ms'] * 1e3:.2f} us per launch, plain {rec['plain_ms'] * 1e3:.2f} us; "
+                  f"with host overhead {rec['host_ms'] * 1e3:.2f} us; bound "
+                  f"{rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
+            if not err <= SINGLE_TOL:
+                fail(f"{name} at N={N} disagrees with its plain version: {err}")
+    out = {}
+    for name in ("gpmpc_tick_fused", "gpmpc_controller_fused", "admm_box_qp_fused_composite"):
+        out[name] = dict(single[(name, HORIZON)],
+                         err=max(single[(name, HORIZON)]["err"],
+                                 single[(name, LONG_HORIZON)]["err"]),
+                         long=single[(name, LONG_HORIZON)])
+    print(f"shared memory per block: K4 "
+          f"{tick_pallas.single_tick_shared_memory_bytes(HORIZON)} B at N={HORIZON}, "
+          f"{tick_pallas.single_tick_shared_memory_bytes(LONG_HORIZON, False)} B at "
+          f"N={LONG_HORIZON}; K3 "
+          f"{controller_pallas.controller_shared_memory_bytes(HORIZON)} B and "
+          f"{controller_pallas.controller_shared_memory_bytes(LONG_HORIZON, False)} B; K6 {admm_pallas.shared_memory_bytes(10 * HORIZON)} B and "
+          f"{admm_pallas.shared_memory_bytes(10 * LONG_HORIZON, False)} B")
+    return out
+
+
 # ---- the redesigned kernels, against an older checkout ----------------------
 
 def main_path_k5_k9_operands(dev, mpc, post, prow):
@@ -1697,11 +1967,111 @@ def main_path_k5_k9_operands(dev, mpc, post, prow):
     return k5_args, k9_args, statics
 
 
+def time_k4_k8(dev) -> dict:
+    """Device microseconds per launch of K4 at N=20 (P1 in shared memory)
+    and N=25 (P1 through L2), and of K8 at the sweep's B=1024 (N=20, 10
+    iterations), through the public wrappers, on seeded operands around
+    the figure-8: the first keys of ``time_redesigned``."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import controller_pallas, plant_pallas, tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
+    prow = plant_pallas.build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81,
+                                        (0.8, 0.4, 0.0), device=dev)
+    x0, pos, _, refs = figure8_launch(dev)
+    statics = dict(rho=8.0, iterations=ADMM_ITERS, over_relax=1.6, dt=0.02, substeps=2,
+                   accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0), yawrate_limit=0.8)
+    out = {}
+    for N in (HORIZON, LONG_HORIZON):
+        mpc = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                        use_fused_controller=True), device=dev)
+        if N == HORIZON:
+            mpc20 = mpc
+        w = torch.cat([torch.zeros(N, 3, **f32), rnd(N, 3, scale=0.02)], 1).reshape(-1)
+        ref = torch.cat([pos[:1], torch.zeros(1, 3, **f32)], 1).repeat(1, N).reshape(-1)
+        args = (mpc._tick_data, x0, w.contiguous(), ref.contiguous(),
+                torch.tensor([0.1, 0.02, -0.01, 0.03], **f32), rnd(10 * N, scale=0.3),
+                rnd(10 * N, scale=0.1), prow)
+        out[f"k4_n{N}_us"] = graph_ms(
+            lambda: tick_pallas.gpmpc_tick_fused(*args, n=N, **statics), 20) * 1e3
+    B, Nnu, Nnx = SWEEP_B, HORIZON * 4, HORIZON * 6
+    sdata = controller_pallas.build_structured_batch_data(
+        mpc20._fc_data, HORIZON, 4, 6, mpc20._u_lo, mpc20._u_hi, mpc20._x_lo, mpc20._x_hi,
+        device=dev)
+    X0 = rnd(B, 6)
+    X0[:, 2] += 3.0
+    k8_args = (sdata, X0, rnd(B, Nnx, scale=0.02), refs[:1].contiguous(),
+               rnd(B, Nnu, scale=3.0), rnd(B, Nnx), rnd(B, Nnu), rnd(B, Nnx), 8.0, ADMM_ITERS, 1.6)
+    out["k8_b1024_us"] = graph_ms(
+        lambda: controller_pallas.gpmpc_controller_structured_batched(*k8_args), 20) * 1e3
+    return out
+
+
+def time_end_to_end(dev) -> dict:
+    """The host-bound paths of K8, K4 and K5 as phase 4 flies them: the
+    sweep's microseconds per flight-tick (B=1024, ``gp_posterior``,
+    ``gp_every`` 1), the single-tick tick's (``residual_fn``) and the online
+    tick's, through the public entry points only."""
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
+        ResidualGPConfig,
+        build_horizon_residuals,
+        fit_residual_gp,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.loop import (
+        FlightLoopConfig,
+        OnlineFusedGPConfig,
+        batched_mpc_flight_sweep,
+        mpc_flight_rollout,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    mpc20 = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                      use_fused_controller=True), device=dev)
+    rng = np.random.default_rng(0)
+    post = fit_residual_gp(torch.tensor(rng.normal(size=(GP_POINTS, 10)), **f32),
+                           torch.tensor(0.05 * rng.normal(size=(GP_POINTS, 6)), **f32),
+                           ResidualGPConfig())
+    out = {}
+
+    def ref(t):
+        p, y = ramped_figure8_reference(t, 6.0, 0.02)
+        return p + torch.tensor([0.0, 0.0, 3.0], dtype=p.dtype, device=p.device), y
+
+    starts = torch.zeros(SWEEP_B, 12, **f32)
+    starts[:, 2] = 3.0
+    starts[:, 0] = torch.linspace(-1.0, 1.0, SWEEP_B, **f32)
+    out["sweep_us_per_flight_tick"] = slope_us(
+        lambda T: batched_mpc_flight_sweep(mpc20, ref, T, starts, device=dev, gp_posterior=post,
+                                           gp_cfg=ResidualGPConfig()), T_SWEEP_SLOPE) / SWEEP_B
+    gp_cfg = ResidualGPConfig()
+    out["single_tick_us_per_tick"] = slope_us(
+        lambda T: mpc_flight_rollout(
+            mpc20, ref, T, cfg=FlightLoopConfig(use_fused_tick=True), device=dev,
+            residual_fn=lambda Xg, Ug: build_horizon_residuals(post, Xg, Ug, gp_cfg)), T_SLOPE)
+    # and the online tick (K5, whose solve K4 now shares)
+    ogp = OnlineFusedGPConfig(gp=ResidualGPConfig(max_data_points=GP_POINTS), refit_every=250)
+    out["online_us_per_tick"] = slope_us(
+        lambda T: mpc_flight_rollout(
+            mpc20, ref, T, cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K_TICKS),
+            online_gp=ogp, gp_gain=0.1, device=dev), T_SLOPE)
+    return out
+
+
 def time_redesigned(dev) -> dict:
     """Device microseconds per launch of the redesigned kernels, through
     their public wrappers only, so that the same function times an older
-    checkout of the package: K16 at B=256, N=20 and N=25 (three
-    warm-started ticks in, 80 iterations), K5 at N=20, P=800, K=8, tightened
+    checkout of the package: K4 and K8 (``time_k4_k8``), K16 at B=256,
+    N=20 and N=25 (three warm-started ticks in, 80 iterations), K5 at N=20,
+    P=800, K=8, tightened
     (kappa 2) and not, K5 and K9 at the main path's shape (N=20, P=800,
     K=20: the online and the online-noisy flights' launches), K11 at both
     plants (``k11_case``: the checkout's own relinearisation and layout) and
@@ -1719,9 +2089,9 @@ def time_redesigned(dev) -> dict:
         tick_pallas,
     )
 
+    out = time_k4_k8(dev)
     f32 = dict(dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(9)
-    out = {}
     for N in (20, LONG_HORIZON):
         mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True), device=dev)
         data = mpc._tick_data
@@ -1764,40 +2134,97 @@ def time_redesigned(dev) -> dict:
     return out
 
 
+E2E_PAIRS = 10     # the end-to-end ticks, older and this checkout in pairs
+
+
+def sign_test_min(pairs: int) -> int:
+    """The fewest pairs of ``pairs`` that must differ in one direction for
+    the two-sided sign test to reject "no difference" at 5 %."""
+    for k in range(pairs // 2 + 1, pairs + 1):
+        if 2 * sum(math.comb(pairs, j) for j in range(k, pairs + 1)) / 2 ** pairs <= 0.05:
+            return k
+    return pairs + 1
+
+
+class TimingWorker:
+    """``chip_smoke.py --time-redesigned ROOT`` in a process of its own,
+    importing the package under ROOT, kept alive to time on request."""
+
+    def __init__(self, root: str | Path):
+        self.root = Path(root).resolve()
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--time-redesigned", str(self.root)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log, text=True)
+
+    def ask(self, request: str) -> dict:
+        self.proc.stdin.write(request + "\n")
+        self.proc.stdin.flush()
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                return json.loads(line)
+        self.log.seek(0)
+        fail(f"timing the checkout at {self.root} failed:\n{self.log.read()[-3000:]}")
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        self.proc.wait(timeout=60)
+        self.log.close()
+
+
 def compare_with_parent(dev, parent: str | None):
-    """K16, K5 (tightened and not), K9, K11 and K13a of the checkout at ``parent``
-    (its own package, built from its own sources in a subprocess) and of
-    this one, timed in turns in this call: parent, this, this, parent."""
+    """K4, K8, K16, K5 (tightened and not), K9, K11 and K13a of the checkout
+    at ``parent`` and of this one, each package in a process of its own
+    built from its own sources, timed in turns in this call: parent, this,
+    this, parent. Then the sweep's, single-tick and online ticks in
+    ``E2E_PAIRS`` pairs, alternating which checkout goes first, each called
+    changed only where the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K16, K5, K9, K11 and K13a: not measured in this run (pass --parent "
-              "DIR, DIR holding the older package, to time them here)")
+        print("older checkout's K4, K8, K16, K5, K9, K11 and K13a and its end-to-end ticks: "
+              "not measured in this run (pass --parent DIR, DIR holding the older package, to "
+              "time them here)")
         return None
-
-    def parent_run():
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time-redesigned",
-                              str(Path(parent).resolve())], capture_output=True, text=True,
-                             timeout=900)
-        if out.returncode != 0:
-            fail(f"timing the checkout at {parent} failed:\n{out.stdout[-3000:]}\n"
-                 f"{out.stderr[-3000:]}")
-        return json.loads(out.stdout.strip().splitlines()[-1])
-
-    runs = [("older", parent_run()), ("this", time_redesigned(dev)),
-            ("this", time_redesigned(dev)), ("older", parent_run())]
-    for key in runs[0][1]:
-        print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in runs))
-    return {"order": [who for who, _ in runs], "runs": [r for _, r in runs]}
+    workers = {"older": TimingWorker(parent), "this": TimingWorker(ROOT)}
+    try:
+        order = ["older", "this", "this", "older"]
+        runs = [workers[who].ask("kernels") for who in order]
+        for key in runs[0]:
+            print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
+        e2e = {"older": [], "this": []}
+        for i in range(E2E_PAIRS):
+            for who in ("older", "this") if i % 2 == 0 else ("this", "older"):
+                e2e[who].append(workers[who].ask("end_to_end"))
+    finally:
+        for w in workers.values():
+            w.close()
+    need = sign_test_min(E2E_PAIRS)
+    verdicts = {}
+    for key in e2e["this"][0]:
+        old, new = ([r[key] for r in e2e[who]] for who in ("older", "this"))
+        lower = sum(n < o for n, o in zip(new, old))
+        higher = sum(n > o for n, o in zip(new, old))
+        verdicts[key] = ("lower" if lower >= need else "higher" if higher >= need
+                         else "no difference resolved")
+        print(f"  {key}, {E2E_PAIRS} pairs (older, this), odd pairs this first: "
+              + "; ".join(f"{o:.5f}, {n:.5f}" for o, n in zip(old, new))
+              + f"; this lower in {lower}, higher in {higher} (sign test needs {need}): "
+              + verdicts[key])
+    return {"order": order, "runs": runs, "end_to_end": e2e, "end_to_end_verdict": verdicts}
 
 
 def time_redesigned_main(package_root: str) -> int:
-    """``--time-redesigned DIR``: time_redesigned on the package under DIR."""
+    """``--time-redesigned DIR``: import the package under DIR and answer
+    each line of standard input, ``kernels`` (time_redesigned) or
+    ``end_to_end`` (time_end_to_end), with a line of JSON."""
     import torch
 
     sys.path.insert(0, str(Path(package_root).resolve()))
     import unmanned_aerial_vehicles_tpu_torch as pkg
 
-    print(f"package: {Path(pkg.__file__).resolve().parent}")
-    print(json.dumps(time_redesigned(torch.device("cuda"))))
+    print(f"package: {Path(pkg.__file__).resolve().parent}", flush=True)
+    timers = {"kernels": time_redesigned, "end_to_end": time_end_to_end}
+    for request in sys.stdin:
+        print(json.dumps(timers[request.strip()](torch.device("cuda"))), flush=True)
     return 0
 
 
@@ -2013,14 +2440,7 @@ def main(parent: str | None = None) -> int:
         pid_flight_rollout,
     )
     from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
-    from unmanned_aerial_vehicles_tpu_torch.ops import (
-        _cuda,
-        admm_pallas,
-        controller_pallas,
-        plant_pallas,
-        rbf_pallas,
-        tick_pallas,
-    )
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, plant_pallas, rbf_pallas, tick_pallas
     from unmanned_aerial_vehicles_tpu_torch.parallel import structured_flight_sweep
     from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
 
@@ -2049,7 +2469,6 @@ def main(parent: str | None = None) -> int:
     taus = (0.05, 0.05, 0.08)
     wind = (0.8, 0.4, 0.0)
     prow = plant_pallas.build_plant_row(0.5, 9.81, 0.25, taus, 9.81, wind, device=dev)
-
     def random_states(B):
         s = torch.randn(B, 12, generator=gen)
         s[:, 6:9] = (torch.rand(B, 3, generator=gen) - 0.5) * 1.2
@@ -2134,18 +2553,11 @@ def main(parent: str | None = None) -> int:
     post = fit_residual_gp(torch.tensor(Xs, **f32), torch.tensor(Ys, **f32), ResidualGPConfig())
     gp = tick_pallas.build_gp_rows(post, 0.1)
     m, Nnx = mpc.n_constraints, HORIZON * 6
-    x0 = torch.zeros(12, **f32)
-    x0[:3] = torch.tensor([0.3, -0.2, 2.9])
-    x0[3:9] = torch.tensor([0.5, 0.2, -0.1, 0.05, -0.03, 0.1])
+    x0, pos, yaw, refs = figure8_launch(dev)
     aux = torch.cat([x0[:6] + 0.01, torch.tensor([0.02, -0.01, 0.03], **f32)]).contiguous()
     xtail = (x0[:6].repeat(HORIZON) + 0.05 * torch.randn(Nnx, generator=gen).to(dev)).contiguous()
     z0 = (0.3 * torch.randn(m, generator=gen)).to(**f32).contiguous()
     y0 = (0.1 * torch.randn(m, generator=gen)).to(**f32).contiguous()
-    ts = 10.0 + 0.02 * torch.arange(K_TICKS, **f32)
-    pos, yaw = ramped_figure8_reference(ts)
-    pos = pos + torch.tensor([0.0, 0.0, 3.0], **f32)
-    refs = torch.cat([pos, torch.zeros(K_TICKS, 3, **f32)], 1).repeat(1, HORIZON).contiguous()
-    yaw = yaw.contiguous()
     statics = dict(
         k_ticks=K_TICKS, use_gp=True, rho=8.0, iterations=ADMM_ITERS, over_relax=1.6,
         dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
@@ -2231,38 +2643,9 @@ def main(parent: str | None = None) -> int:
           "the GP warps run side by side; the solve's matvecs are the solve less its ADMM): "
           + "; ".join(f"{name} {c:.0f} ({c / whole:.1%})" for name, c in k9["sections"].items()))
 
-    # K8 at the sweep's width, from random planes (a few slacks on their boxes)
-    B = SWEEP_B
-    sdata = controller_pallas.build_structured_batch_data(
-        mpc._fc_data, HORIZON, 4, 6, mpc._u_lo, mpc._u_hi, mpc._x_lo, mpc._x_hi, device=dev)
-    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
-    X0 = rnd(B, 6)
-    X0[:, 2] += 3.0
-    k8_args = (sdata, X0, rnd(B, Nnx, scale=0.02), refs[:1].contiguous(),
-               rnd(B, Nnu, scale=3.0), rnd(B, Nnx), rnd(B, Nnu), rnd(B, Nnx),
-               8.0, ADMM_ITERS, 1.6)
-    got = controller_pallas.gpmpc_controller_structured_batched(*k8_args)
-    torch.cuda.synchronize()
-    want = controller_pallas.gpmpc_controller_structured_batched_plain(*k8_args)
-    k8_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    if not all(bool(torch.isfinite(g).all()) for g in got):
-        fail("K8 produced non-finite values")
-    k8_fn = lambda: controller_pallas.gpmpc_controller_structured_batched(*k8_args)
-    k8_plain = lambda: controller_pallas.gpmpc_controller_structured_batched_plain(*k8_args)
-    k8 = dict(
-        err=k8_err,
-        ms=graph_ms(k8_fn, 20), plain_ms=graph_ms(k8_plain, 2, replays=3),
-        host_ms=cuda_ms(k8_fn, 50), host_plain_ms=cuda_ms(k8_plain, 5, warmup=1),
-        bound=bound_ms(nbytes(*(a for a in k8_args if torch.is_tensor(a)), *sdata[:10])
-                       + nbytes(*got), B * ops_structured_controller(HORIZON, ADMM_ITERS)),
-    )
-    kernels["gpmpc_controller_structured_batched"] = k8
-    print(f"K8 gpmpc_controller_structured_batched: max_abs_err {k8_err:.3e} over the six "
-          f"outputs (B={B}, N={HORIZON}, {ADMM_ITERS} iterations); shared memory "
-          f"{controller_pallas.structured_shared_memory_bytes(HORIZON)} B per block")
-    if not k8_err <= K8_TOL:
-        fail(f"K8 disagrees with its plain version: {k8_err}")
+    k8 = kernels["gpmpc_controller_structured_batched"] = check_k8(dev, mpc, refs, gen, fail)
 
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
     # K7 at the sweep's width: B*N queries, a quarter of them near training points
     mq = SWEEP_B * HORIZON
     Xq = rnd(mq, 10)
@@ -2289,104 +2672,7 @@ def main(parent: str | None = None) -> int:
     if not k7_err <= K7_TOL:
         fail(f"K7 disagrees with its plain version: {k7_err}")
 
-    # K4, K3 and K6 at N=20 (P1 in shared memory) and N=25 (P1 through L2)
-    tick_statics = dict(rho=8.0, iterations=ADMM_ITERS, over_relax=1.6, dt=0.02, substeps=2,
-                        accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0),
-                        yawrate_limit=0.8)
-
-    def single_tick_cases(N):
-        """K4's, K3's and K6's inputs at horizon N from seeded random draws
-        around a hovering flight near the figure-8."""
-        tm = mpc if N == HORIZON else LinearMPC(LinearMPCConfig(
-            horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True), device=dev)
-        am = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
-                                       use_fused_admm=True), device=dev)
-        m, Nnu, Nnx = 10 * N, 4 * N, 6 * N
-        state = x0.clone()
-        w = torch.cat([torch.zeros(N, 3), 0.02 * torch.randn(N, 3, generator=gen)], 1)
-        ref = torch.cat([pos[:1], torch.zeros(1, 3, **f32)], 1).repeat(1, N).reshape(-1)
-        misc = torch.tensor([0.1, 0.02, -0.01, 0.03], **f32)
-        z, y = rnd(m, scale=0.3), rnd(m, scale=0.1)
-        k4 = (tm._tick_data, state, w.reshape(-1).to(**f32), ref.contiguous(), misc, z, y, prow)
-        k3 = (tm._tick_data, state[:6].contiguous(), *k4[2:4], z, y, 8.0, ADMM_ITERS, 1.6)
-        f = torch.randn(Nnu, generator=gen).to(**f32)
-        off = rnd(Nnx, scale=0.3)
-        k6 = (am._P1_f32, (-(am._GMinv @ f)).contiguous(), am._GMinvT_f32,
-              (am._M_inv @ f).contiguous(),
-              torch.cat([am._u_lo, am._x_lo - off]), torch.cat([am._u_hi, am._x_hi - off]),
-              z, y, 8.0, ADMM_ITERS, 1.6)
-        # K4 with the controller reading an estimate, tightened boxes and
-        # the hover fallback engaged (0.5 m from its reference)
-        tight = torch.zeros(m, **f32)
-        tight[Nnu:] = 0.2 * torch.rand(Nnx, generator=gen).to(dev)
-        cover = dict(ctrl_state=(state + rnd(12, scale=0.05)).contiguous(), tight=tight,
-                     fallback_error_m=0.3)
-        return k4, k3, k6, cover
-
-    def max_err(got, want):
-        for g in got:
-            if not torch.isfinite(g).all():
-                fail("a single-tick kernel produced non-finite values")
-        return max(float((g - w).abs().max()) for g, w in zip(got, want))
-
-    single = {}
-    for N in (HORIZON, LONG_HORIZON):
-        k4_args, k3_args, k6_args, cover = single_tick_cases(N)
-        kw = dict(tick_statics, n=N)
-        # the stacked device operands K3 and K4 read (FusedTickData: SxSwT
-        # through hi_row; ShiftT is a gather in the kernel)
-        tick_data = list(k4_args[0][2:10])
-        operands = lambda args: [a for a in args if torch.is_tensor(a)]
-        ops_k3 = ops_controller(N, ADMM_ITERS)
-        runs = {
-            "gpmpc_tick_fused": (
-                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused(*a, **kw),
-                lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused_plain(*a, **kw),
-                operands(k4_args) + tick_data, ops_k3 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP),
-            "gpmpc_controller_fused": (
-                lambda a=k3_args: controller_pallas.gpmpc_controller_fused(*a),
-                lambda a=k3_args: controller_pallas.gpmpc_controller_fused_plain(*a),
-                operands(k3_args) + tick_data, ops_k3),
-            "admm_box_qp_fused_composite": (
-                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite(*a),
-                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite_plain(*a),
-                operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS)),
-        }
-        for name, (fn, plain, tensors, n_ops) in runs.items():
-            got = fn()
-            torch.cuda.synchronize()
-            err = max_err(got, plain())
-            if name == "gpmpc_tick_fused":
-                kw_cover = dict(kw, **cover)
-                got = tick_pallas.gpmpc_tick_fused(*k4_args, **kw_cover)
-                torch.cuda.synchronize()
-                want = tick_pallas.gpmpc_tick_fused_plain(*k4_args, **kw_cover)
-                lo, hi = (torch.tensor(v, **f32) for v in (tick_statics["accel_lo"],
-                                                           tick_statics["accel_hi"]))
-                mpc_cmd = torch.minimum(torch.maximum(want[1][0:3], lo), hi)
-                if not float((want[0][22:25] - mpc_cmd).abs().max()) > 1e-3:
-                    fail("K4's coverage case did not engage the hover fallback")
-                err = max(err, max_err(got, want))
-            rec = dict(err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
-                       host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
-                       bound=bound_ms(nbytes(*tensors) + nbytes(*got), n_ops))
-            single[(name, N)] = rec
-            variant = "P1 in shared memory" if N <= 23 else "P1 through L2"
-            print(f"{name} (N={N}, {variant}): max_abs_err {err:.3e}; device "
-                  f"{rec['ms'] * 1e3:.2f} us per launch, plain {rec['plain_ms'] * 1e3:.2f} us; "
-                  f"with host overhead {rec['host_ms'] * 1e3:.2f} us; bound "
-                  f"{rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
-            if not err <= SINGLE_TOL:
-                fail(f"{name} at N={N} disagrees with its plain version: {err}")
-    for name in ("gpmpc_tick_fused", "gpmpc_controller_fused", "admm_box_qp_fused_composite"):
-        kernels[name] = dict(single[(name, HORIZON)],
-                             err=max(single[(name, HORIZON)]["err"],
-                                     single[(name, LONG_HORIZON)]["err"]))
-    print(f"shared memory per block: K3/K4 "
-          f"{controller_pallas.controller_shared_memory_bytes(HORIZON)} B at N={HORIZON}, "
-          f"{controller_pallas.controller_shared_memory_bytes(LONG_HORIZON, False)} B at "
-          f"N={LONG_HORIZON}; K6 {admm_pallas.shared_memory_bytes(10 * HORIZON)} B and "
-          f"{admm_pallas.shared_memory_bytes(10 * LONG_HORIZON, False)} B")
+    kernels.update(check_single_tick(dev, mpc, x0, pos, gen, prow, fail))
 
     # LinearMPC.solve through K3 and K6 at N=20 and N=25 in float32 and
     # float64 (the kernels compute in float32, the solve casts back): three
@@ -2780,27 +3066,6 @@ def main(parent: str | None = None) -> int:
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
-    def slope_us(fly, lengths, reps=2, warm_T=None):
-        """Microseconds per tick of ``fly(T)``: the slope of the best of
-        ``reps`` host wall clocks between the two lengths. Warm at each
-        length, or once at ``warm_T`` ticks."""
-        if warm_T is not None:
-            fly(warm_T)
-        times = {}
-        for T in lengths:
-            if warm_T is None:
-                fly(T)
-            torch.cuda.synchronize()
-            best = math.inf
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                fly(T)
-                torch.cuda.synchronize()
-                best = min(best, time.perf_counter() - t0)
-            times[T] = best
-        a, b = lengths
-        return (times[b] - times[a]) / (b - a) * 1e6
-
     us_kernel = slope_us(lambda T: online(T), T_SLOPE)
     us_plain = slope_us(lambda T: online(T, True), T_SLOPE_PLAIN)
     print(f"online tick: {us_kernel:.2f} us/tick through K5 (slope {T_SLOPE[0]}->{T_SLOPE[1]} "
@@ -3019,6 +3284,11 @@ def main(parent: str | None = None) -> int:
         "fig8_rms_m_observer_gust_500": float(rms(observer_outs)),
         "k9_max_abs_err_by_case": k9["errs"],
         "k9_cycles_per_tick_by_section": k9["sections"],
+        "k4_cycles_by_section": {
+            N: rec["sections"] for N, rec in ((HORIZON, kernels["gpmpc_tick_fused"]),
+                                              (LONG_HORIZON, kernels["gpmpc_tick_fused"]["long"]))},
+        "k8_cycles_per_block_by_section": k8["sections"],
+        "k8_max_abs_err_n25_b257": k8["err_n25_b257"],
         "fig8_rms_m_single_tick_500": float(rms(single_outs)),
         "fig8_rms_m_single_tick_preview_500": float(rms(preview_outs)),
         "fig8_rms_m_frozen_preview_400": float(rms(frozen_preview_outs)),
@@ -3026,7 +3296,7 @@ def main(parent: str | None = None) -> int:
         "idle_share_tightened": idle_share["96 tightened ticks"],
         "us_per_launch_k5_tightened_without_variance": kt["untightened_ms"] * 1e3,
         "fig8_rms_m_tightening": tight_rms,
-        "us_per_launch_n25": {name: single[(name, LONG_HORIZON)]["ms"] * 1e3
+        "us_per_launch_n25": {name: kernels[name]["long"]["ms"] * 1e3
                               for name in ("gpmpc_tick_fused", "gpmpc_controller_fused",
                                            "admm_box_qp_fused_composite")},
         "us_per_tick_12state": {key: v[0] for key, v in us_12.items()},

@@ -1,6 +1,8 @@
-"""Controllers: allocation, cascade PID, condensed linear MPC, the 12-state
+"""Controllers: PID, cascade PID, allocation, condensed linear MPC, the 12-state
 SQP family and MPPI."""
 
+from .pid import PIDGains, PIDState, pid_init, pid_step
+from .cascade_pid import CascadePidGains, CascadeState, cascade_init, cascade_pid_step
 from .allocation import AttitudeLoopState, attitude_loop_init, geometric_control_allocation
 from .mpc_linear import LinearMPC, LinearMPCConfig, MPCCarry
 from .mpc_rigid import DirectRateMPC, LTVTrackingMPC, RigidBodyMPC, direct_rate_step
@@ -8,6 +10,8 @@ from .mpc_sqp import QuadCost, SQPCarry, SQPConfig, SQPMPC
 from .mppi import MPPICarry, MPPIConfig, MPPIController
 
 __all__ = [
+    "PIDGains", "PIDState", "pid_init", "pid_step",
+    "CascadePidGains", "CascadeState", "cascade_init", "cascade_pid_step",
     "AttitudeLoopState", "attitude_loop_init", "geometric_control_allocation",
     "LinearMPC", "LinearMPCConfig", "MPCCarry",
     "DirectRateMPC", "LTVTrackingMPC", "RigidBodyMPC", "direct_rate_step",

@@ -1,7 +1,8 @@
 // Block-wide linear algebra of the condensed-QP controller kernels, shared
-// by the multi-tick kernel (tick_kernel.cu: K5) and the single-tick kernels
-// (single_tick_kernels.cu: K6, K3, K4), so all four run one device
-// implementation of the matvecs and the composite-ADMM iteration.
+// by the multi-tick kernels (tick_kernel.cu: K5; noisy_tick_kernel.cu: K9)
+// and the single-tick kernels (single_tick_kernels.cu: K6, K3, K4), so all
+// run one device implementation of the matvecs and the composite-ADMM
+// iteration.
 //
 // Every sum runs in a fixed order (no atomics, fixed shuffle trees), so two
 // launches on the same inputs agree bit for bit.

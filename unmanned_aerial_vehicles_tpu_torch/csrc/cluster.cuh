@@ -1,5 +1,7 @@
 // Thread-block clusters (Hopper): the helpers K16 (controller_kernels.cu)
-// and K5's variance section (tick_kernel.cu) share.
+// and K5's variance section (tick_kernel.cu) share; K4
+// (single_tick_kernels.cu) takes the transaction barrier and the bulk copy
+// from device memory.
 //
 // A cluster is a few blocks that the hardware runs at once on neighbouring
 // SMs. Each block can read and write the others' shared memory
@@ -112,6 +114,19 @@ __device__ __forceinline__ void copy_to_peer(void* dst, const void* src, unsigne
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];" ::"r"(peer_address(dst, rank)),
       "r"(shared_address(src)), "r"(bytes), "r"(peer_address(bar, rank))
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// device memory into this block's shared memory with one bulk copy (the
+// SM's copy engine: no thread waits on it), completing them on this block's
+// `bar`.
+__device__ __forceinline__ void copy_from_global(void* dst, const void* src, unsigned bytes,
+                                                 void* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(shared_address(dst)),
+      "l"(src), "r"(bytes), "r"(shared_address(bar))
       : "memory");
 }
 

@@ -62,35 +62,52 @@
 // then the primal refresh U = (v_U + v_X SuRow - f) MinvT and
 // X_tail = offset + U SuT.
 //
-// Design: a block owns a tile of kFlights flights (the tail tile is masked,
-// so any batch works and nothing is padded). SuRow, MinvT and SuT (100 KB
-// at N=20) are copied into shared memory once per launch and serve every
-// iteration of every flight of the tile; the tile's iterates (slack, dual,
-// matvec inputs, bounds, offset) live in shared memory too. SxT, SwT and
-// SuTqT are used once per launch and are read from global memory (L2).
-// The operators are copied in with 16-byte loads, eight in flight per
-// thread, and every matrix-vector product keeps 16 matrix loads in flight.
-// A thread owns one output column for kGroup flights: it reads each matrix
-// element once and uses it for kGroup flights, and reads the flights'
-// vectors as 16-byte broadcasts. Every sum runs in a fixed order (no
-// atomics), so two launches agree bit for bit. Each ADMM iteration is three
-// block-wide phases: t (U columns), U with the U-space projection (U
-// columns), G_X with the X-space projection (X columns).
+// Design: a block of 512 threads owns a tile of kFlights = 8 flights (the
+// tail tile is masked, so any batch works and nothing is padded; 128 blocks
+// at B=1024, one wave on 132 SMs). SuRow, MinvT and SuT (100 KB at N=20)
+// stay in shared memory for the launch, their rows at a stride of 4 mod 8
+// floats. The threads issue them as 16-byte asynchronous copies (cp.async)
+// at the kernel's start and wait for them only before the first ADMM phase,
+// so they land while the set-up reads SxT, SwT and SuTqT from L2 (SuT's
+// rows are copied by the threads where they are not 16-byte multiples, odd
+// N). The tile's iterates live in shared memory, flight-major
+// ([flight][index], rows at a stride of 16 mod 32 floats).
 //
-// What bounds it on an H100: operations. At N=20 a flight-tick is about
-// 0.13 M multiply-adds (setup 24,720, each iteration 25,600, the refresh
-// 25,600) plus ~12 elementwise operations per constraint lane and iteration;
-// at B=1024 with 10 iterations that is ~0.6 GFLOP, ~9 us at the card's
-// 67 TFLOP/s FP32 rate. This design is held by shared-memory traffic
-// instead: per 4 multiply-adds a thread issues two shared loads (one matrix
-// element, one 16-byte vector), where the SM's FMA rate would balance about
-// one load per 16; with eight warps per SM it measures ~73 us at B=1024
-// (PERF.md). Register blocking over more flights per thread, or tensor
-// cores (3xTF32 wgmma with the flight tile as M), are the later steps.
+// Every product out[f][o] = sum_k v[f][k] A[k][o] (A row-major: SuRow,
+// MinvT, SuT, and the set-up's SwT and SuTqT) runs on register tiles: a
+// lane owns 4 outputs for all 8 flights (32 accumulators) and one of 8
+// slices of the contraction, the chunks of 4 rows s, s + 8, s + 16, ...; per
+// chunk it loads the 4 rows' float4 of its outputs and the 8 flights'
+// float4 of the vector: 12 16-byte loads for 128 multiply-adds, where a
+// column a thread for 4 flights (the first design) took 2 for 4. A warp is
+// 4 tiles x 8 slices: a quarter warp reads 64 contiguous bytes of two rows
+// (the padded stride puts them on disjoint banks) and two vector chunks
+// that it broadcasts. The 8 slices' sums meet in a fixed xor tree (lane
+// offsets 16, 8, 1: ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7)))
+// that also scatters them: slice s's lane ends with its tile's 4 outputs
+// of flight s and runs their elementwise update itself, with 16-byte
+// accesses. So each ADMM phase is one product, the tree, the update and one
+// barrier, on ceil(n_out / 16) warps (N=20: 5 for t and U, 8 for G_X).
+// Every sum runs in a fixed order (no atomics), so two launches agree bit
+// for bit.
+//
+// What bounds it on an H100: at N=20 a flight-tick is about 0.13 M
+// multiply-adds (set-up 24,720, each iteration 25,600, the refresh 25,600);
+// at B=1024 with 10 iterations ~0.6 GFLOP, ~9 us at the card's 67 TFLOP/s
+// FP32 rate. One block per SM, so an iteration costs its SM's issue of the
+// products' loads and multiply-adds on 5 to 8 warps, the trees and three
+// barriers: ~6,900 cycles at N=20 against the first design's 11,500, by the
+// section clocks (the controller_clocks build; PERF.md). The set-up (a
+// quarter of a launch) waits on L2: each block reads ~200 KB of operators.
+// Measured on the card and not kept (PERF.md): each tile's contraction
+// split over two warps, the next chunk's loads issued ahead and 256 threads
+// (slower); one bulk copy per operator row (no faster, and one warp issuing
+// them all slower).
 
 #include <cuda_runtime.h>
 
 #include "cluster.cuh"
+#include "section_clocks.cuh"
 #include "smem_copy.cuh"
 
 // Host-visible (external linkage): laid out as ops/controller_pallas.py's
@@ -122,272 +139,439 @@ struct FusedBatchedOperands {
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFlights = 8;     // ops/controller_pallas.py FLIGHTS_PER_BLOCK
-constexpr int kGroup = 4;       // flights per thread item
-constexpr int kGroups = kFlights / kGroup;
+constexpr int kThreads = 256;     // K16's blocks
+constexpr int kK8Threads = 512;   // ops/controller_pallas.py STRUCTURED_THREADS
+constexpr int kFlights = 8;       // ops/controller_pallas.py FLIGHTS_PER_BLOCK
+constexpr int kSlices = 8;        // lanes sharing one tile's contraction
+constexpr int kTileOut = 4;       // outputs per tile
+constexpr int kWarpOut = 16;      // outputs per warp: 4 tiles
+constexpr int kPlaneLoads = 3;    // plane rows a thread loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// A row stride of at least n floats, a multiple of 4 and 4 mod 8 (ops/
+// controller_pallas.py _stride48): rows k and k + 4 lie 16 banks apart.
+__host__ __device__ __forceinline__ int stride48(int n) {
+  const int r = round4(n);
+  return (r & 7) ? r : r + 4;
+}
+
+// A row stride of at least n floats, 16 mod 32 (_stride16): rows f and
+// f + 1 lie 16 banks apart.
+__host__ __device__ __forceinline__ int stride16(int n) {
+  return n <= 16 ? 16 : 16 + (n - 16 + 31) / 32 * 32;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void arr4(const float4& q, float v[4]) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
 
 __device__ __forceinline__ float clipf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-// acc[g] += sum_i v[g * ldv + i] * A[i * lda + j] for i0 <= i < i0 + kStep
-// and the kG flights g of one item: kStep matrix loads are issued before
-// their multiply-adds. v: 16-byte-aligned shared rows (ldv and i0 multiples
-// of 4); A in shared memory (kGlobal false) or global memory (read through
-// the read-only cache).
-template <int kG, bool kGlobal, int kStep>
-__device__ __forceinline__ void tile_dot_step(const float* __restrict__ v, int ldv,
-                                              const float* __restrict__ A, int lda, int j,
-                                              int i0, float acc[kG]) {
-  float a[kStep];
+__device__ __forceinline__ void fma4(float acc[kTileOut], float s, const float4& a) {
+  acc[0] = fmaf(s, a.x, acc[0]);
+  acc[1] = fmaf(s, a.y, acc[1]);
+  acc[2] = fmaf(s, a.z, acc[2]);
+  acc[3] = fmaf(s, a.w, acc[3]);
+}
+
+// acc[f][j] = sum over this lane's chunks ch = s, s + 8, ... < nch, in
+// order, of sum_{kk < 4} v[f * ldv + 4 ch + kk] * row4(4 ch + kk)[j]: the
+// 4 rows of a chunk and its 8 vector chunks are loaded before its 128
+// multiply-adds. kPrefetchRows (the set-up's operators, read from L2): the
+// next chunk's rows are loaded while this one's multiply-adds run.
+template <bool kPrefetchRows, class Row4>
+__device__ __forceinline__ void tile_product(Row4 row4, int nch, const float* __restrict__ v,
+                                             int ldv, int s, float acc[kFlights][kTileOut]) {
+  float4 a[4];
+  if constexpr (kPrefetchRows) {
 #pragma unroll
-  for (int u = 0; u < kStep; ++u) {
-    if constexpr (kGlobal) a[u] = __ldg(A + (i0 + u) * lda + j);
-    else a[u] = A[(i0 + u) * lda + j];
+    for (int kk = 0; kk < 4; ++kk) a[kk] = row4(4 * s + kk);
   }
+  for (int ch = s; ch < nch; ch += kSlices) {
+    float4 w[kFlights], an[4];
+    if constexpr (kPrefetchRows) {
 #pragma unroll
-  for (int q = 0; q < kStep / 4; ++q) {
+      for (int kk = 0; kk < 4; ++kk) an[kk] = row4(4 * (ch + kSlices) + kk);
+    } else {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      const float4 w = *reinterpret_cast<const float4*>(v + g * ldv + i0 + 4 * q);
-      acc[g] = fmaf(w.x, a[4 * q], acc[g]);
-      acc[g] = fmaf(w.y, a[4 * q + 1], acc[g]);
-      acc[g] = fmaf(w.z, a[4 * q + 2], acc[g]);
-      acc[g] = fmaf(w.w, a[4 * q + 3], acc[g]);
+      for (int kk = 0; kk < 4; ++kk) a[kk] = row4(4 * ch + kk);
+    }
+#pragma unroll
+    for (int l = 0; l < kFlights; ++l) w[l] = ld4(v + (l ^ s) * ldv + 4 * ch);
+#pragma unroll
+    for (int l = 0; l < kFlights; ++l) {
+      fma4(acc[l], w[l].x, a[0]);
+      fma4(acc[l], w[l].y, a[1]);
+      fma4(acc[l], w[l].z, a[2]);
+      fma4(acc[l], w[l].w, a[3]);
+    }
+    if constexpr (kPrefetchRows) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a[kk] = an[kk];
     }
   }
 }
 
-// acc[g] = sum_i v[g * ldv + i] * A[i * lda + j] for i < n and kG flights,
-// each summed in order of i whatever kStep is, with kStep matrix loads in
-// flight per thread (a block holds only eight warps, so each thread must
-// hide its own load latency: 16 suit shared memory, more hide L2's).
-template <int kG, bool kGlobal, int kStep>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ v, int ldv,
-                                         const float* __restrict__ A, int lda, int j, int n,
-                                         float acc[kG]) {
+// The 8 slices' sums of one tile (the lanes 16, 8 and 1 apart) in the xor
+// tree, scattered by flight. Slice s's lane holds flight l ^ s in its
+// accumulator l, so each round keeps its accumulators' lower half and sends
+// the upper half, which the partner (slice s ^ 4, ^ 2, ^ 1) holds the same
+// flights in: slice s's lane returns the 4 outputs of flight s, ((a_s +
+// a_s^4) + (a_s^2 + a_s^6)) + ((a_s^1 + a_s^5) + (a_s^3 + a_s^7)) with a_q
+// slice q's sum (each pair added in either order: the same float).
+__device__ __forceinline__ void tile_reduce(const float acc[kFlights][kTileOut],
+                                            float out[kTileOut]) {
+  float r1[4][kTileOut], r2[2][kTileOut];
 #pragma unroll
-  for (int g = 0; g < kG; ++g) acc[g] = 0.0f;
-  int i = 0;
-  for (; i + kStep <= n; i += kStep) tile_dot_step<kG, kGlobal, kStep>(v, ldv, A, lda, j, i, acc);
-  for (; i + 4 <= n; i += 4) tile_dot_step<kG, kGlobal, 4>(v, ldv, A, lda, j, i, acc);
-  auto load = [&](int idx) {
-    if constexpr (kGlobal) return __ldg(A + idx);
-    else return A[idx];
-  };
-  for (; i < n; ++i) {
-    const float a = load(i * lda + j);
+  for (int l = 0; l < 4; ++l) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) acc[g] = fmaf(v[g * ldv + i], a, acc[g]);
+    for (int j = 0; j < kTileOut; ++j) {
+      r1[l][j] = acc[l][j] + __shfl_xor_sync(kFull, acc[4 + l][j], 16);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+#pragma unroll
+    for (int j = 0; j < kTileOut; ++j) r2[l][j] = r1[l][j] + __shfl_xor_sync(kFull, r1[2 + l][j], 8);
+  }
+#pragma unroll
+  for (int j = 0; j < kTileOut; ++j) out[j] = r2[0][j] + __shfl_xor_sync(kFull, r2[1][j], 1);
+}
+
+// One product with its update: warps w, w + 16, ... < ceil(n_out / 16) take
+// 4 tiles each; lane = 8 (s >> 1) + 2 (tile) + (s & 1). A lane whose tile
+// starts at o0 < n_out forms its sums from row4(k, o0); every lane of such a
+// warp joins the tree (its shuffles need the whole warp); then
+// update(o0, f, out) for the tile's 4 outputs of flight f.
+template <bool kPrefetchRows = false, class Row4, class Update>
+__device__ __forceinline__ void product_phase(int n_out, int nch, const float* __restrict__ v,
+                                              int ldv, int warp, int lane, Row4 row4,
+                                              Update update) {
+  const int warps = (n_out + kWarpOut - 1) / kWarpOut;
+  const int s = 2 * (lane >> 3) + (lane & 1);
+  for (int w = warp; w < warps; w += kK8Threads / 32) {
+    const int o0 = w * kWarpOut + kTileOut * ((lane >> 1) & 3);
+    float acc[kFlights][kTileOut] = {};
+    if (o0 < n_out) {
+      tile_product<kPrefetchRows>([&](int k) { return row4(k, o0); }, nch, v, ldv, s, acc);
+    }
+    float out[kTileOut];
+    tile_reduce(acc, out);
+    if (o0 < n_out) update(o0, s, out);
   }
 }
 
-// K8's products: kGroup flights per item, 16 loads in flight.
-template <bool kGlobal>
-__device__ __forceinline__ void group_dot(const float* __restrict__ v, int ldv,
-                                          const float* __restrict__ A, int lda, int j, int n,
-                                          float acc[kGroup]) {
-  tile_dot<kGroup, kGlobal, 16>(v, ldv, A, lda, j, n, acc);
+// Outputs o0 .. o0 + 3 of row k of a row-major operand in device memory
+// (K rows of n_out, row stride ld): one 16-byte load where the row is
+// 16-byte aligned and the 4 outputs exist, else one load per output;
+// zeros past the last row or output.
+__device__ __forceinline__ float4 global_row4(const float* __restrict__ A, int ld, int K,
+                                              int n_out, int k, int o0) {
+  if (k >= K) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* p = A + static_cast<size_t>(k) * ld + o0;
+  if ((ld & 3) == 0 && o0 + 4 <= n_out) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), o0 + 1 < n_out ? __ldg(p + 1) : 0.0f,
+                     o0 + 2 < n_out ? __ldg(p + 2) : 0.0f, o0 + 3 < n_out ? __ldg(p + 3) : 0.0f);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-structured_batched_kernel(const StructuredParams P, const StructuredOperands O) {
+__global__ void __launch_bounds__(kK8Threads, 1)
+structured_batched_kernel(const __grid_constant__ StructuredParams P,
+                          const __grid_constant__ StructuredOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int nth = kK8Threads;
   const int N = P.n, nu = P.nu, nx = P.nx, Nnu = N * nu, Nnx = N * nx;
-  const int ldu = round4(Nnu), ldx = round4(Nnx), ld0 = round4(nx);
+  const int ldu = stride16(Nnu), ldx = stride16(Nnx);   // the iterates' rows
+  const int lau = stride48(Nnu), lax = stride48(Nnx);   // the operators' rows
+  const int rows_x = round4(Nnx);   // SuRow's rows, the padded ones zero
   const int b0 = blockIdx.x * kFlights;
   const float rho = P.rho, a = P.over_relax, am = P.one_minus_over_relax;
+  // y / rho as a multiply: the IEEE division cost more than the rest of an update
+  const float inv_rho = 1.0f / rho;
+  SECTION_START(t_whole);
 
   // shared memory layout (ops/controller_pallas.py
-  // structured_shared_memory_bytes); every block starts 16-byte aligned
-  float* SuRow = sm;                    // (Nnx, Nnu)
-  float* MinvT = SuRow + Nnx * Nnu;     // (Nnu, Nnu)
-  float* SuT = MinvT + Nnu * Nnu;       // (Nnu, Nnx)
-  float* loU = SuT + Nnu * Nnx;
+  // structured_shared_memory_bytes); every array starts 16-byte aligned
+  float* SuRow = sm;                        // (rows_x, lau)
+  float* MinvT = SuRow + rows_x * lau;      // (Nnu, lau)
+  float* SuT = MinvT + Nnu * lau;           // (Nnu, lax)
+  float* loU = SuT + Nnu * lax;             // (ldu) each
   float* hiU = loU + ldu;
-  float* zU = hiU + ldu;                // U-space rows, kFlights x ldu each
+  float* xlo = hiU + ldu;                   // (ldx) each
+  float* xhi = xlo + ldx;
+  float* zU = xhi + ldx;                    // U-space iterates, (kFlights, ldu) each
   float* yU = zU + kFlights * ldu;
-  float* vU = yU + kFlights * ldu;      // rho zU - yU
-  float* tf = vU + kFlights * ldu;      // G'v - f
-  float* Ub = tf + kFlights * ldu;      // U
-  float* fv = Ub + kFlights * ldu;      // f
-  float* zX = fv + kFlights * ldu;      // X-space rows, kFlights x ldx each
+  float* vU = yU + kFlights * ldu;          // rho zU - yU
+  float* fv = vU + kFlights * ldu;          // f
+  float* tf = fv + kFlights * ldu;          // G'v - f
+  float* Ub = tf + kFlights * ldu;          // U
+  float* zX = Ub + kFlights * ldu;          // X-space iterates, (kFlights, ldx) each
   float* yX = zX + kFlights * ldx;
-  float* vX = yX + kFlights * ldx;      // w at setup, then rho zX - yX
-  float* loX = vX + kFlights * ldx;
-  float* hiX = loX + kFlights * ldx;
-  float* off = hiX + kFlights * ldx;
-  float* dref = off + kFlights * ldx;   // offset - ref
-  float* x0s = dref + kFlights * ldx;   // kFlights x ld0
+  float* vX = yX + kFlights * ldx;          // w at set-up, then rho zX - yX
+  float* off = vX + kFlights * ldx;         // offset
+  float* dref = off + kFlights * ldx;       // offset - ref; X_tail at the end
+  float* x0s = dref + kFlights * ldx;       // (kFlights, 8)
 
-  // ---- load: operators, bounds, the tile's shifted planes, x0 and w -------
-  // (the operator sizes are multiples of 4: Nnu = 4N)
-  auto fill = [&](float* dst, const float* src, int n) {
-    uav::copy_to_shared<8>(reinterpret_cast<float4*>(dst),
-                           reinterpret_cast<const float4*>(src), n / 4, tid, nth);
-  };
-  fill(SuRow, O.SuRow, Nnx * Nnu);
-  fill(SuT, O.SuT, Nnu * Nnx);
-  fill(MinvT, O.MinvT, Nnu * Nnu);
-  for (int i = tid; i < Nnu; i += nth) {
-    loU[i] = __ldg(O.u_lo + i);
-    hiU[i] = __ldg(O.u_hi + i);
+  // ---- the operators' rows, 16 bytes per asynchronous copy (SuT's by the
+  // threads where its rows are not 16-byte multiples, odd N) ------------------
+  const int qu = Nnu / 4, qx = Nnx / 4;     // 16-byte units per row
+  const bool sut_async = (Nnx & 3) == 0;
+  for (int i = tid; i < (Nnx + Nnu) * qu + (sut_async ? Nnu * qx : 0); i += nth) {
+    if (i < Nnx * qu) {
+      uav::copy16_async(SuRow + (i / qu) * lau + 4 * (i % qu), O.SuRow + 4 * i);
+    } else if (i < (Nnx + Nnu) * qu) {
+      const int e = i - Nnx * qu;
+      uav::copy16_async(MinvT + (e / qu) * lau + 4 * (e % qu), O.MinvT + 4 * e);
+    } else {
+      const int e = i - (Nnx + Nnu) * qu;
+      uav::copy16_async(SuT + (e / qx) * lax + 4 * (e % qx), O.SuT + 4 * e);
+    }
+  }
+  if (!sut_async) {
+    for (int i = tid; i < Nnu * Nnx; i += nth) SuT[(i / Nnx) * lax + i % Nnx] = __ldg(O.SuT + i);
+  }
+  for (int i = tid; i < (rows_x - Nnx) * lau; i += nth) SuRow[Nnx * lau + i] = 0.0f;
+  // SuT's padded columns, which G_X's last tile reads at odd N
+  const int sut_pad = lax - Nnx;
+  for (int i = tid; i < Nnu * sut_pad; i += nth) SuT[(i / sut_pad) * lax + Nnx + i % sut_pad] = 0.0f;
+
+  // ---- bounds, the tile's shifted planes, x0 and w; zeros past the batch
+  // and on the rows' padding --------------------------------------------------
+  for (int i = tid; i < ldu; i += nth) {
+    loU[i] = i < Nnu ? __ldg(O.u_lo + i) : 0.0f;
+    hiU[i] = i < Nnu ? __ldg(O.u_hi + i) : 0.0f;
+  }
+  for (int i = tid; i < ldx; i += nth) {
+    xlo[i] = i < Nnx ? __ldg(O.x_lo + i) : 0.0f;
+    xhi[i] = i < Nnx ? __ldg(O.x_hi + i) : 0.0f;
   }
   // warm-start shift as an index remap: stage k takes stage k+1, the last
-  // stage keeps its own values; flights past the batch load zeros
-  for (int i = tid; i < kFlights * Nnu; i += nth) {
-    const int fl = i / Nnu, c = i % Nnu, b = b0 + fl;
-    const int src = c < Nnu - nu ? c + nu : c;
-    const bool ok = b < P.batch;
-    zU[fl * ldu + c] = ok ? O.ZU[b * Nnu + src] : 0.0f;
-    yU[fl * ldu + c] = ok ? O.YU[b * Nnu + src] : 0.0f;
-  }
-  for (int i = tid; i < kFlights * Nnx; i += nth) {
-    const int fl = i / Nnx, r = i % Nnx, b = b0 + fl;
-    const int src = r < Nnx - nx ? r + nx : r;
-    const bool ok = b < P.batch;
-    zX[fl * ldx + r] = ok ? O.ZX[b * Nnx + src] : 0.0f;
-    yX[fl * ldx + r] = ok ? O.YX[b * Nnx + src] : 0.0f;
-    vX[fl * ldx + r] = ok ? O.W[b * P.w_stride + r] : 0.0f;
-  }
-  for (int i = tid; i < kFlights * nx; i += nth) {
-    const int fl = i / nx, c = i % nx, b = b0 + fl;
-    x0s[fl * ld0 + c] = b < P.batch ? O.X0[b * nx + c] : 0.0f;
-  }
-  __syncthreads();
-
-  // ---- offset = x0 SxT + w SwT; X-space bounds; offset - ref --------------
-  for (int t = tid; t < Nnx * kGroups; t += nth) {
-    const int r = t % Nnx, f0 = (t / Nnx) * kGroup;
-    float ax[kGroup], aw[kGroup];
-    group_dot<true>(x0s + f0 * ld0, ld0, O.SxT, Nnx, r, nx, ax);
-    group_dot<true>(vX + f0 * ldx, ldx, O.SwT, Nnx, r, Nnx, aw);
-    const float xlo = __ldg(O.x_lo + r), xhi = __ldg(O.x_hi + r);
+  // stage keeps its own values; every load of a thread in flight before its
+  // stores (kPlaneLoads rows per thread cover N <= 26)
+  for (int i0 = tid; i0 < kFlights * ldu; i0 += kPlaneLoads * nth) {
+    float z[kPlaneLoads], y[kPlaneLoads];
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int fl = f0 + g, b = b0 + fl;
-      const float o = ax[g] + aw[g];
-      const float ref = b < P.batch ? O.REF[b * P.ref_stride + r] : 0.0f;
-      off[fl * ldx + r] = o;
-      loX[fl * ldx + r] = xlo - o;
-      hiX[fl * ldx + r] = xhi - o;
-      dref[fl * ldx + r] = o - ref;
+    for (int u = 0; u < kPlaneLoads; ++u) {
+      const int i = i0 + u * nth, f = i / ldu, c = i % ldu, b = b0 + f;
+      const int src = b * Nnu + (c < Nnu - nu ? c + nu : c);
+      const bool ok = i < kFlights * ldu && b < P.batch && c < Nnu;
+      z[u] = ok ? O.ZU[src] : 0.0f;
+      y[u] = ok ? O.YU[src] : 0.0f;
     }
-  }
-  __syncthreads();
-
-  // ---- f = (offset - ref) SuTqT; the first matvec inputs -------------------
-  for (int t = tid; t < Nnu * kGroups; t += nth) {
-    const int c = t % Nnu, f0 = (t / Nnu) * kGroup;
-    float acc[kGroup];
-    group_dot<true>(dref + f0 * ldx, ldx, O.SuTqT, Nnu, c, Nnx, acc);
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int k = (f0 + g) * ldu + c;
-      fv[k] = acc[g];
-      vU[k] = rho * zU[k] - yU[k];
-    }
-  }
-  for (int i = tid; i < kFlights * Nnx; i += nth) {
-    const int k = (i / Nnx) * ldx + i % Nnx;
-    vX[k] = rho * zX[k] - yX[k];
-  }
-  __syncthreads();
-
-  // t - f = v_U + v_X SuRow - f (U columns)
-  auto phase_t = [&]() {
-    for (int t = tid; t < Nnu * kGroups; t += nth) {
-      const int c = t % Nnu, f0 = (t / Nnu) * kGroup;
-      float acc[kGroup];
-      group_dot<false>(vX + f0 * ldx, ldx, SuRow, Nnu, c, Nnx, acc);
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int k = (f0 + g) * ldu + c;
-        tf[k] = (vU[k] + acc[g]) - fv[k];
+    for (int u = 0; u < kPlaneLoads; ++u) {
+      const int i = i0 + u * nth;
+      if (i < kFlights * ldu) {
+        zU[i] = z[u];
+        yU[i] = y[u];
       }
     }
+  }
+  for (int i0 = tid; i0 < kFlights * ldx; i0 += kPlaneLoads * nth) {
+    float z[kPlaneLoads], y[kPlaneLoads], w[kPlaneLoads];
+#pragma unroll
+    for (int u = 0; u < kPlaneLoads; ++u) {
+      const int i = i0 + u * nth, f = i / ldx, r = i % ldx, b = b0 + f;
+      const int src = b * Nnx + (r < Nnx - nx ? r + nx : r);
+      const bool ok = i < kFlights * ldx && b < P.batch && r < Nnx;
+      z[u] = ok ? O.ZX[src] : 0.0f;
+      y[u] = ok ? O.YX[src] : 0.0f;
+      w[u] = ok ? O.W[b * P.w_stride + r] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPlaneLoads; ++u) {
+      const int i = i0 + u * nth;
+      if (i < kFlights * ldx) {
+        zX[i] = z[u];
+        yX[i] = y[u];
+        vX[i] = w[u];
+        off[i] = 0.0f;
+        dref[i] = 0.0f;
+      }
+    }
+  }
+  for (int i = tid; i < kFlights * 8; i += nth) {
+    const int f = i / 8, c = i % 8, b = b0 + f;
+    x0s[i] = b < P.batch && c < nx ? O.X0[b * nx + c] : 0.0f;
+  }
+  __syncthreads();
+  SECTION_START(t_offset);
+  if (tid == 0) SECTION_ADD(1, t_whole);
+
+  // ---- offset = x0 SxT + w SwT; offset - ref ---------------------------------
+  product_phase<true>(
+      Nnx, rows_x / 4, vX, ldx, warp, lane,
+      [&](int k, int o0) { return global_row4(O.SwT, Nnx, Nnx, Nnx, k, o0); },
+      [&](int o0, int f, const float* aw) {
+        const int b = b0 + f;
+        float ax[kTileOut] = {};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {   // nx <= 8: every row's load in flight at once
+          if (k >= nx) break;
+          const float4 s4 = global_row4(O.SxT, Nnx, nx, Nnx, k, o0);
+          const float x = x0s[f * 8 + k];
+          ax[0] = fmaf(x, s4.x, ax[0]);
+          ax[1] = fmaf(x, s4.y, ax[1]);
+          ax[2] = fmaf(x, s4.z, ax[2]);
+          ax[3] = fmaf(x, s4.w, ax[3]);
+        }
+        float o[kTileOut], d[kTileOut];
+#pragma unroll
+        for (int j = 0; j < kTileOut; ++j) {
+          const int r = o0 + j;
+          const bool in = r < Nnx;
+          const float ref = in && b < P.batch ? O.REF[b * P.ref_stride + r] : 0.0f;
+          o[j] = in ? ax[j] + aw[j] : 0.0f;
+          d[j] = in ? o[j] - ref : 0.0f;
+        }
+        st4(off + f * ldx + o0, o);
+        st4(dref + f * ldx + o0, d);
+      });
+  __syncthreads();
+  SECTION_START(t_f);
+  if (tid == 0) SECTION_ADD(2, t_offset);
+
+  // ---- f = (offset - ref) SuTqT; the first matvec inputs ---------------------
+  product_phase<true>(
+      Nnu, rows_x / 4, dref, ldx, warp, lane,
+      [&](int k, int o0) { return global_row4(O.SuTqT, Nnu, Nnx, Nnu, k, o0); },
+      [&](int o0, int f, const float* acc) { st4(fv + f * ldu + o0, acc); });
+  for (int i = tid; i < kFlights * ldu; i += nth) vU[i] = rho * zU[i] - yU[i];
+  for (int i = tid; i < kFlights * ldx; i += nth) {
+    vX[i] = i % ldx < Nnx ? rho * zX[i] - yX[i] : 0.0f;   // the padding stays zero
+  }
+  SECTION_START(t_wait);
+  if (tid == 0) SECTION_ADD(3, t_f);
+  uav::copies16_wait();   // this thread's rows of SuRow, MinvT and SuT have landed
+  __syncthreads();
+  if (tid == 0) SECTION_ADD(0, t_wait);
+
+  const auto smem_rows = [](const float* A, int ld) {
+    return [=](int k, int o0) { return ld4(A + k * ld + o0); };
+  };
+  // t - f = v_U + v_X SuRow - f on the U outputs
+  const auto phase_t = [&] {
+    product_phase(Nnu, rows_x / 4, vX, ldx, warp, lane, smem_rows(SuRow, lau),
+                  [&](int o0, int f, const float* acc) {
+                    const int k = f * ldu + o0;
+                    float vu[4], fk[4], t[4];
+                    arr4(ld4(vU + k), vu);
+                    arr4(ld4(fv + k), fk);
+#pragma unroll
+                    for (int j = 0; j < kTileOut; ++j) t[j] = (vu[j] + acc[j]) - fk[j];
+                    st4(tf + k, t);
+                  });
   };
 
-  // ---- ADMM iterations: three phases each -----------------------------------
+  // ---- ADMM iterations: three phases each -------------------------------------
   for (int it = 0; it < P.iterations; ++it) {
+    SECTION_START(t_t);
     phase_t();
     __syncthreads();
+    SECTION_START(t_u);
+    if (tid == 0) SECTION_ADD(4, t_t);
     // U = (t - f) MinvT, then the U-space over-relaxation and projection
-    for (int t = tid; t < Nnu * kGroups; t += nth) {
-      const int c = t % Nnu, f0 = (t / Nnu) * kGroup;
-      float acc[kGroup];
-      group_dot<false>(tf + f0 * ldu, ldu, MinvT, Nnu, c, Nnu, acc);
-      const float lo = loU[c], hi = hiU[c];
+    product_phase(Nnu, Nnu / 4, tf, ldu, warp, lane, smem_rows(MinvT, lau),
+                  [&](int o0, int f, const float* acc) {
+                    const int k = f * ldu + o0;
+                    float z[4], y[4], lo[4], hi[4], zn[4], yn[4], vn[4];
+                    arr4(ld4(zU + k), z);
+                    arr4(ld4(yU + k), y);
+                    arr4(ld4(loU + o0), lo);
+                    arr4(ld4(hiU + o0), hi);
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int k = (f0 + g) * ldu + c;
-        const float U = acc[g];
-        const float Gt = a * U + am * zU[k];
-        const float zn = clipf(Gt + yU[k] / rho, lo, hi);
-        const float yn = yU[k] + rho * (Gt - zn);
-        Ub[k] = U;
-        zU[k] = zn;
-        yU[k] = yn;
-        vU[k] = rho * zn - yn;
-      }
-    }
+                    for (int j = 0; j < kTileOut; ++j) {
+                      const float Gt = a * acc[j] + am * z[j];
+                      zn[j] = clipf(Gt + y[j] * inv_rho, lo[j], hi[j]);
+                      yn[j] = y[j] + rho * (Gt - zn[j]);
+                      vn[j] = rho * zn[j] - yn[j];
+                    }
+                    st4(Ub + k, acc);
+                    st4(zU + k, zn);
+                    st4(yU + k, yn);
+                    st4(vU + k, vn);
+                  });
     __syncthreads();
-    // G_X = U SuT, then the X-space over-relaxation and projection
-    for (int t = tid; t < Nnx * kGroups; t += nth) {
-      const int r = t % Nnx, f0 = (t / Nnx) * kGroup;
-      float acc[kGroup];
-      group_dot<false>(Ub + f0 * ldu, ldu, SuT, Nnx, r, Nnu, acc);
+    SECTION_START(t_gx);
+    if (tid == 0) SECTION_ADD(5, t_u);
+    // G_X = U SuT, then the X-space over-relaxation and projection (the
+    // padding of an odd horizon's last tile keeps v_X zero)
+    product_phase(Nnx, Nnu / 4, Ub, ldu, warp, lane, smem_rows(SuT, lax),
+                  [&](int o0, int f, const float* acc) {
+                    const int k = f * ldx + o0;
+                    float z[4], y[4], o[4], lo[4], hi[4], zn[4], yn[4], vn[4];
+                    arr4(ld4(zX + k), z);
+                    arr4(ld4(yX + k), y);
+                    arr4(ld4(off + k), o);
+                    arr4(ld4(xlo + o0), lo);
+                    arr4(ld4(xhi + o0), hi);
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int k = (f0 + g) * ldx + r;
-        const float Gt = a * acc[g] + am * zX[k];
-        const float zn = clipf(Gt + yX[k] / rho, loX[k], hiX[k]);
-        const float yn = yX[k] + rho * (Gt - zn);
-        zX[k] = zn;
-        yX[k] = yn;
-        vX[k] = rho * zn - yn;
-      }
-    }
+                    for (int j = 0; j < kTileOut; ++j) {
+                      const float Gt = a * acc[j] + am * z[j];
+                      zn[j] = clipf(Gt + y[j] * inv_rho, lo[j] - o[j], hi[j] - o[j]);
+                      yn[j] = y[j] + rho * (Gt - zn[j]);
+                      vn[j] = o0 + j < Nnx ? rho * zn[j] - yn[j] : 0.0f;
+                    }
+                    st4(zX + k, zn);
+                    st4(yX + k, yn);
+                    st4(vX + k, vn);
+                  });
     __syncthreads();
+    if (tid == 0) SECTION_ADD(6, t_gx);
   }
 
-  // ---- primal refresh from the last (z, y), X_tail, outputs ---------------
+  // ---- primal refresh from the last (z, y), X_tail (into dref), outputs ------
+  SECTION_START(t_refresh);
   phase_t();
   __syncthreads();
-  for (int t = tid; t < Nnu * kGroups; t += nth) {
-    const int c = t % Nnu, f0 = (t / Nnu) * kGroup;
-    float acc[kGroup];
-    group_dot<false>(tf + f0 * ldu, ldu, MinvT, Nnu, c, Nnu, acc);
+  product_phase(Nnu, Nnu / 4, tf, ldu, warp, lane, smem_rows(MinvT, lau),
+                [&](int o0, int f, const float* acc) { st4(Ub + f * ldu + o0, acc); });
+  __syncthreads();
+  product_phase(Nnx, Nnu / 4, Ub, ldu, warp, lane, smem_rows(SuT, lax),
+                [&](int o0, int f, const float* acc) {
+                  const int k = f * ldx + o0;
+                  float o[4], xt[4];
+                  arr4(ld4(off + k), o);
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int fl = f0 + g, b = b0 + fl, k = fl * ldu + c;
-      Ub[k] = acc[g];
-      if (b < P.batch) {
-        O.u_out[b * Nnu + c] = acc[g];
-        O.zu_out[b * Nnu + c] = zU[k];
-        O.yu_out[b * Nnu + c] = yU[k];
-      }
+                  for (int j = 0; j < kTileOut; ++j) xt[j] = o[j] + acc[j];
+                  st4(dref + k, xt);
+                });
+  __syncthreads();
+  for (int i = tid; i < kFlights * Nnu; i += nth) {
+    const int f = i / Nnu, c = i % Nnu, b = b0 + f, k = f * ldu + c;
+    if (b < P.batch) {
+      O.u_out[b * Nnu + c] = Ub[k];
+      O.zu_out[b * Nnu + c] = zU[k];
+      O.yu_out[b * Nnu + c] = yU[k];
     }
   }
-  __syncthreads();
-  for (int t = tid; t < Nnx * kGroups; t += nth) {
-    const int r = t % Nnx, f0 = (t / Nnx) * kGroup;
-    float acc[kGroup];
-    group_dot<false>(Ub + f0 * ldu, ldu, SuT, Nnx, r, Nnu, acc);
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int fl = f0 + g, b = b0 + fl, k = fl * ldx + r;
-      if (b < P.batch) {
-        O.xtail_out[b * Nnx + r] = off[k] + acc[g];
-        O.zx_out[b * Nnx + r] = zX[k];
-        O.yx_out[b * Nnx + r] = yX[k];
-      }
+  for (int i = tid; i < kFlights * Nnx; i += nth) {
+    const int f = i / Nnx, r = i % Nnx, b = b0 + f, k = f * ldx + r;
+    if (b < P.batch) {
+      O.xtail_out[b * Nnx + r] = dref[k];
+      O.zx_out[b * Nnx + r] = zX[k];
+      O.yx_out[b * Nnx + r] = yX[k];
     }
+  }
+  if (tid == 0) {
+    SECTION_ADD(7, t_refresh);
+    SECTION_ADD(8, t_whole);
   }
 }
 
@@ -846,9 +1030,16 @@ extern "C" int structured_batched_launch(const StructuredParams* params,
     configured_bytes = smem_bytes;
   }
   const int blocks = (params->batch + kFlights - 1) / kFlights;
-  structured_batched_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params,
-                                                                                    *ops);
+  structured_batched_kernel<<<blocks, kK8Threads, smem_bytes, (cudaStream_t)stream>>>(*params,
+                                                                                      *ops);
   return (int)cudaGetLastError();
+}
+
+// K8's section counters (ops/controller_pallas.py STRUCTURED_SECTIONS),
+// summed over the blocks since the last call, then reset
+// (section_clocks.cuh).
+extern "C" int structured_section_cycles(unsigned long long* out) {
+  return uav::read_section_cycles(out, 9);
 }
 
 extern "C" int fused_batched_launch(const FusedBatchedParams* params,

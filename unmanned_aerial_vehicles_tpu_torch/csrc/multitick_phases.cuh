@@ -14,31 +14,13 @@
 
 #include "block_linalg.cuh"
 #include "cluster.cuh"
+#include "section_clocks.cuh"
 
 namespace uav {
 
 constexpr int kTickNu = 4;
 constexpr int kTickNx = 6;
 constexpr int kTickFeat = kTickNu + kTickNx;
-
-// Per-section clock counters, compiled in only with -DUAV_SECTION_CLOCKS
-// (the libraries tick_clocks and noisy_tick_clocks, which chip_smoke.py
-// reads for its breakdowns): one thread of each section adds its clock64()
-// cycles over the launch's ticks; the kernel's *_section_cycles entry point
-// reads and resets them. Each kernel source (its own library) has its own
-// counters; -1 names no section.
-constexpr int kMaxSections = 16;
-#ifdef UAV_SECTION_CLOCKS
-__device__ unsigned long long g_section_cycles[kMaxSections];
-__device__ __forceinline__ void section_add(int i, long long since) {
-  if (i >= 0) atomicAdd(&g_section_cycles[i], (unsigned long long)(clock64() - since));
-}
-#define SECTION_START(var) const long long var = clock64()
-#define SECTION_ADD(i, since) uav::section_add(i, since)
-#else
-#define SECTION_START(var)
-#define SECTION_ADD(i, since)
-#endif
 
 struct BlockBarrier {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
@@ -380,14 +362,21 @@ struct CondensedOperands {
   const float *SxSwT, *SuTqT, *PM, *P0matT, *SuT;
 };
 
-// Shared-memory vectors of one tick's solve (layouts in the kernels);
-// tight (m) backs the boxes off (nullptr: the static boxes); anchor (6)
-// receives x0 for the next tick's GP.
+// The vectors of one tick's solve (layouts in the kernels), in shared
+// memory but for lo, hi, ref, tight and xtail, which may also lie in device
+// memory (K4 reads its rows and writes X_tail there); P1s is P1, in shared
+// memory or, for condensed_solve<false>, in device memory; tight (m) backs
+// the boxes off (nullptr: the static boxes); anchor (6) receives x0 for the
+// next tick's GP.
 struct TickVectors {
   const float *P1s, *lo, *hi, *ref;
   float *va, *vb, *z, *y, *p0, *lower, *upper, *xw, *xtail, *offset, *dref, *f, *minvf, *U,
       *part, *anchor;
   const float* tight = nullptr;
+};
+
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
 };
 
 // The condensed controller tick on the whole block, from xw = [x0 | w],
@@ -396,16 +385,21 @@ struct TickVectors {
 // or by the first product, which reads only xw):
 //   offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
 //   box bounds, p0 = -(f @ P0mat), M^-1 f = f @ MinvT,
-//   ADMM: `iterations` x one (m, m) matvec with P1 from shared memory,
+//   ADMM: `iterations` x one (m, m) matvec with P1 (from shared memory with
+//   kSharedP1, else through L1/L2),
 //   U = M^-1(-f + G'(rho z - y)),  X_tail = offset + U @ Su'  (into xtail);
 // the products with the fixed operators in matvec_partial's slices (each
-// column over nth / n_out threads), and x0 copied into v.anchor. Ends with
-// a barrier. clock_base: the first of the section clocks of its six phases
-// (offset, f, p0 and M^-1 f, the ADMM, U, X_tail), or -1.
+// column over nth / n_out threads), and x0 copied into v.anchor. Every
+// thread calls before_admm() once, after the phases that do not read P1
+// (K4 waits there for P1's copy into shared memory). Ends with a barrier.
+// clock_base: the first of the section clocks of its six phases (offset, f,
+// p0 and M^-1 f, the ADMM, U, X_tail), or -1.
+template <bool kSharedP1 = true, class BeforeAdmm = NoWait>
 __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, const TickVectors& v,
                                                 int N, int m, float rho, float over_relax,
                                                 float one_minus_over_relax, int iterations,
-                                                int tid, int nth, int clock_base) {
+                                                int tid, int nth, int clock_base,
+                                                BeforeAdmm before_admm = {}) {
   const int Nnu = N * kTickNu, Nnx = N * kTickNx, npm = m + Nnu;
   [[maybe_unused]] auto section = [clock_base](int k) {
     return clock_base < 0 ? -1 : clock_base + k;
@@ -444,9 +438,10 @@ __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, cons
     else v.minvf[j - m] = acc;
   }
   __syncthreads();
-  SECTION_START(t_admm);
   if (tid == 0) SECTION_ADD(section(2), t_p0);
-  const float* vsrc = composite_admm<true>(v.P1s, m, v.p0, v.lower, v.upper, v.z, v.y, v.va,
+  before_admm();
+  SECTION_START(t_admm);
+  const float* vsrc = composite_admm<kSharedP1>(v.P1s, m, v.p0, v.lower, v.upper, v.z, v.y, v.va,
                                            v.vb, rho, over_relax, one_minus_over_relax,
                                            iterations, tid, nth);
   SECTION_START(t_u);

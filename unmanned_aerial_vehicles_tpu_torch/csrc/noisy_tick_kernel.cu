@@ -601,13 +601,5 @@ extern "C" int gpmpc_noisy_multitick_launch(const NoisyTickParams* params,
 // cycles) into out, then reset; returns cudaErrorNotSupported unless built
 // with -DUAV_SECTION_CLOCKS. Synchronous: call after the launches finish.
 extern "C" int noisy_tick_section_cycles(unsigned long long* out) {
-#ifdef UAV_SECTION_CLOCKS
-  cudaError_t err = cudaMemcpyFromSymbol(out, uav::g_section_cycles, kSections * sizeof(*out));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zeros[uav::kMaxSections] = {};
-  return (int)cudaMemcpyToSymbol(uav::g_section_cycles, zeros, sizeof(zeros));
-#else
-  (void)out;
-  return (int)cudaErrorNotSupported;
-#endif
+  return uav::read_section_cycles(out, kSections);
 }

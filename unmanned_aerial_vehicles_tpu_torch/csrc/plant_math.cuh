@@ -342,46 +342,6 @@ __device__ __forceinline__ void allocation(const float s[12], const float cmd[5]
   new_int[2] = i2;
 }
 
-// The scalar section of one fused MPC tick (one thread), shared by K5 and
-// K4: the first stage of the slack's U-block z[0:4] clipped to the
-// acceleration and yaw-rate limits; the hover fallback when the controller
-// state sc is farther than the threshold from ref[0:3] (PD law a = 1.5 e -
-// 0.8 v with widened clips, yaw rate 0, raised thrust ceiling); allocation
-// + attitude PID on sc; the plant's RK4 substeps from s into sn. `Params`
-// is any struct with the fields read below (K5's TickParams, K4's
-// SingleTickParams).
-template <class Params>
-__device__ __forceinline__ void mpc_command_plant(const Params& P, const Plant& pl,
-                                                  const float* z, const float* ref,
-                                                  const float sc[12], const float s[12],
-                                                  float yaw_ref, const float integral[3],
-                                                  float sn[12], float c[4], float att_sp[3],
-                                                  float new_int[3], float accel[3]) {
-  float ax = clipf(z[0], P.accel_lo[0], P.accel_hi[0]);
-  float ay = clipf(z[1], P.accel_lo[1], P.accel_hi[1]);
-  float az = clipf(z[2], P.accel_lo[2], P.accel_hi[2]);
-  float yr = clipf(z[3], -P.yawrate_limit, P.yawrate_limit);
-  float thrust_hi = 1.2f;
-  if (P.use_fallback) {
-    const float ex = ref[0] - sc[0], ey = ref[1] - sc[1], ez = ref[2] - sc[2];
-    if (ex * ex + ey * ey + ez * ez > P.fallback_error_sq) {
-      ax = clipf(1.5f * ex - 0.8f * sc[3], P.fallback_lo[0], P.fallback_hi[0]);
-      ay = clipf(1.5f * ey - 0.8f * sc[4], P.fallback_lo[1], P.fallback_hi[1]);
-      az = clipf(1.5f * ez - 0.8f * sc[5], P.fallback_lo[2], P.fallback_hi[2]);
-      yr = 0.0f;
-      thrust_hi = P.fallback_thrust_ceiling;
-    }
-  }
-  const float cmd[5] = {ax, ay, az, yr, yaw_ref};
-  allocation(sc, cmd, integral, (float)P.dt, pl.gravity, thrust_hi, c, att_sp, new_int);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) sn[i] = s[i];
-  rk4_substeps(sn, c, pl, P.dt, P.substeps);
-  accel[0] = ax;
-  accel[1] = ay;
-  accel[2] = az;
-}
-
 // allocation() on a whole warp (the multi-tick kernels' scalar section):
 // lanes 0 and 1 form the pitch and roll arcsines, lanes 0-2 one wrapped
 // attitude error each (fmodf), shared by shuffles; every lane gets the
@@ -424,13 +384,19 @@ __device__ __forceinline__ void allocation_warp(const float s[12], const float c
   new_int[2] = i2;
 }
 
-// mpc_command_plant() on a whole warp (the multi-tick kernels K5 and K9):
-// the clips and the fallback on every lane, allocation_warp, then
-// after_control(c) (K9 hands the control to its filter warp there), then
-// the plant's `substeps` RK4 steps as rk4_stages_warp at dt / substeps (its
-// step lengths rounded from that double as rk4_step_lengths rounds them).
-// z4 is the slack's first stage, ref3 the first stage's position
-// reference. Every lane gets the whole output; all 32 lanes must call it.
+// The scalar section of one fused MPC tick on a whole warp (K5, K9 and
+// K4): the first stage of the slack's U-block z4 clipped to the
+// acceleration and yaw-rate limits; the hover fallback when the controller
+// state sc is farther than the threshold from ref3 (PD law a = 1.5 e -
+// 0.8 v with widened clips, yaw rate 0, raised thrust ceiling); `Params` is
+// any struct with the fields read below (TickParams, NoisyTickParams,
+// SingleTickParams). The clips and the fallback run on every lane, then
+// allocation_warp (allocation + attitude PID on sc), after_control(c) (K9
+// hands the control to its filter warp there), and the plant's `substeps`
+// RK4 steps from s as rk4_stages_warp at dt / substeps (its step lengths
+// rounded from that double as rk4_step_lengths rounds them). ref3 is the
+// first stage's position reference. Every lane gets the whole output; all
+// 32 lanes must call it.
 template <class Params, class AfterControl>
 __device__ __forceinline__ void mpc_command_plant_warp(const Params& P, const Plant& pl,
                                                        const float z4[4], const float ref3[3],

@@ -12,37 +12,43 @@
 //      `iterations` composite-ADMM steps, then the primal recovery
 //      U = -M^-1 f + (rho z - y) GMinvT'. Plain version:
 //      ops/admm_pallas.py:admm_box_qp_fused_composite_plain.
-//   K3 single_tick_kernel<., false>  replaces ops/controller_pallas.py:
+//   K3 controller_kernel  replaces ops/controller_pallas.py:
 //      gpmpc_controller_fused (pallas_call at :169): prediction offset,
 //      condensed gradient, box bounds, p0 and M^-1 f, K6's loop, U and the
 //      predicted tail X_tail, from an already shifted warm start. Plain
 //      version: ops/controller_pallas.py:gpmpc_controller_fused_plain.
-//   K4 single_tick_kernel<., true>  replaces ops/tick_pallas.py:
-//      gpmpc_tick_fused (pallas_call at :344): K3 after the warm-start shift
-//      (a gather), with the controller reading ctrl_state and the state
-//      boxes tightened by the `tight` row; then one thread runs the u0
-//      clips, the hover fallback, allocation + attitude PID and the plant's
-//      RK4 substeps on `state` and writes the 25-lane packed row. Plain
-//      version: ops/tick_pallas.py:gpmpc_tick_fused_plain.
+//   K4 gpmpc_tick_kernel  replaces ops/tick_pallas.py:gpmpc_tick_fused
+//      (pallas_call at :344): the warm-start shift, the condensed solve with
+//      the controller reading ctrl_state and the state boxes tightened by
+//      the `tight` row, then the u0 clips, the hover fallback, allocation +
+//      attitude PID and the plant's RK4 substeps on `state`, and the 25-lane
+//      packed row. Plain version: ops/tick_pallas.py:gpmpc_tick_fused_plain.
 //
-// K6, K3 and K4 are one family with K5 (tick_kernel.cu): the matvecs and the
-// composite-ADMM iteration are block_linalg.cuh's, the scalar section is
-// plant_math.cuh's mpc_command_plant, so the four run one device
-// implementation of each.
+// K6 and K3 run block_linalg.cuh's matvecs and composite-ADMM iteration on
+// 256 threads. K4 is a kernel of the multi-tick family (tick_kernel.cu: K5,
+// noisy_tick_kernel.cu: K9): 512 threads, multitick_phases.cuh's
+// warm_shift and condensed_solve, and plant_math.cuh's
+// mpc_command_plant_warp on warp 0, so the three run one device
+// implementation of the tick.
 //
-// Each kernel is built in two variants. With kSharedP1, P1 = G M^-1 G'
-// (m x m; 160,000 bytes at N=20) is copied into dynamic shared memory with
-// 16-byte loads and each ADMM step reads its column from there; without
-// it, each step reads P1 from global memory through L1/L2, 16 loads in
-// flight per thread. The wrapper takes the shared variant where P1 and the
-// vectors fit the block's opt-in shared memory (N <= 23 on an H100) and the
-// other one beyond (the package default N=25 has a 250,000-byte P1).
+// Each kernel but K14 is built in two variants. With kSharedP1, P1 = G
+// M^-1 G' (m x m; 160,000 bytes at N=20) lies in dynamic shared memory and
+// each ADMM step reads its column from there; without it, each step reads
+// P1 from global memory through L1/L2, 16 loads in flight per thread. The
+// wrapper takes the shared variant where P1 and the vectors fit the block's
+// opt-in shared memory (N <= 23 on an H100) and the other one beyond (the
+// package default N=25 has a 250,000-byte P1). K6 and K3 copy P1 in with
+// 16-byte loads before any other work; K4 copies it with bulk copies on the
+// SM's copy engine, issued at the kernel's start, and waits for them only
+// before its first ADMM step: the warm start, the offset, f, the bounds, p0
+// and M^-1 f (~1/4 of its time at N=20, by the section clocks) do not read
+// P1.
 //
 // What bounds them on an H100: one block on one SM of 132, so latency, not
-// the card's rates. At N=20 one ADMM step is 40,000 multiply-adds spread
-// over 200 threads (one column each) and one barrier: ~0.7 us of
-// shared-memory reads per step; K4's other phases are five short matvecs
-// against L2-resident operands (~300 KB) and the one-thread RK4. The bound
+// the card's rates. At N=20 one ADMM step is 40,000 multiply-adds over one
+// column a thread (200 columns) and one barrier: ~0.7 us of shared-memory
+// reads per step; the other phases are five short matvecs against
+// L2-resident operands (~300 KB) and, in K4, the one-warp RK4. The bound
 // from the card's rates (bytes over 3.35 TB/s, operations over 67 TFLOP/s)
 // is well under a microsecond; a batch of flights (a grid of blocks) is
 // what would approach it.
@@ -52,6 +58,8 @@
 #include <cuda_runtime.h>
 
 #include "block_linalg.cuh"
+#include "cluster.cuh"
+#include "multitick_phases.cuh"
 #include "plant_math.cuh"
 
 // Host-visible (external linkage): laid out as ops/admm_pallas.py's
@@ -88,7 +96,8 @@ struct SingleTickParams {
 
 // x0: the controller's state (K3: 6 lanes; K4: ctrl_state, 12 lanes).
 // state, misc = [yaw_ref, integral (3)], tight, plant_row and packed are
-// K4's only.
+// K4's only. K4's operands copied with bulk copies (P1) are 16-byte
+// aligned.
 struct SingleTickOperands {
   const float *SxSwT, *SuTqT, *PM, *P1, *P0matT, *SuT, *lo_row, *hi_row;
   const float *x0, *w, *ref, *z_in, *y_in;
@@ -101,7 +110,8 @@ namespace {
 using uav::matvec_partial;
 using uav::matvec_total;
 
-constexpr int kThreads = 256;   // ops/admm_pallas.py KERNEL_THREADS
+constexpr int kThreads = 256;       // ops/admm_pallas.py KERNEL_THREADS
+constexpr int kTickThreads = 512;   // ops/tick_pallas.py SINGLE_TICK_THREADS: K4's block
 constexpr int kNu = 4;
 constexpr int kNx = 6;
 
@@ -240,39 +250,10 @@ admm_explicit_kernel(const ExplicitParams P, const ExplicitOperands O) {
   }
 }
 
-// K4's scalar section (one thread): command, fallback, allocation + PID on
-// ctrl_state, RK4 on state, the packed row. Not inlined, so its registers
-// stay out of the block loops' allocation.
-__device__ __noinline__ void tick_section(const SingleTickParams& P, const SingleTickOperands& O,
-                                          const float* z, const float* ref) {
-  const uav::Plant pl = uav::load_plant(O.plant_row);
-  float s[12], sc[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    s[i] = O.state[i];
-    sc[i] = O.x0[i];
-  }
-  const float integral[3] = {O.misc[1], O.misc[2], O.misc[3]};
-  float sn[12], c[4], att_sp[3], new_int[3], accel[3];
-  uav::mpc_command_plant(P, pl, z, ref, sc, s, O.misc[0], integral, sn, c, att_sp, new_int,
-                         accel);
-  float* row = O.packed;   // 25 lanes
-#pragma unroll
-  for (int i = 0; i < 12; ++i) row[i] = sn[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
-}
-
-// K3 (kTick false) and K4 (kTick true).
-template <bool kSharedP1, bool kTick>
+// K3.
+template <bool kSharedP1>
 __global__ void __launch_bounds__(kThreads, 1)
-single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
+controller_kernel(const SingleTickParams P, const SingleTickOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -300,15 +281,9 @@ single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
   float* part = U + Nnu;        // matvec slices: nth + npm
 
   if constexpr (kSharedP1) uav::copy_floats_to_shared(P1s, O.P1, m * m, tid, nth);
-  // ---- warm start; K4 shifts it one stage forward (last stage repeated) --
   for (int i = tid; i < m; i += nth) {
-    int src = i;
-    if constexpr (kTick) {
-      if (i < Nnu - kNu) src = i + kNu;
-      else if (i >= Nnu && i < Nnu + Nnx - kNx) src = i + kNx;
-    }
-    z[i] = O.z_in[src];
-    y[i] = O.y_in[src];
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
   }
   if (tid < kNx) xw[tid] = O.x0[tid];
   for (int i = tid; i < Nnx; i += nth) {
@@ -325,12 +300,11 @@ single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
     dref[r] = off - ref[r];
   }
   __syncthreads();
-  // ---- condensed gradient and box bounds (K4: tightened state boxes) -----
+  // ---- condensed gradient and box bounds -----------------------------------
   matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
   for (int i = tid; i < m; i += nth) {
     const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
-    uav::box_bounds(O.lo_row, O.hi_row, kTick ? O.tight : nullptr, i, off_z, lower + i,
-                    upper + i);
+    uav::box_bounds(O.lo_row, O.hi_row, nullptr, i, off_z, lower + i, upper + i);
     va[i] = rho * z[i] - y[i];
   }
   __syncthreads();
@@ -362,9 +336,132 @@ single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
     O.y_out[i] = y[i];
   }
   for (int c = tid; c < Nnu; c += nth) O.u_out[c] = U[c];
-  // ---- K4: u0 clips, fallback, allocation + plant (one thread) -------------
-  if constexpr (kTick) {
-    if (tid == 0) tick_section(P, O, z, ref);
+}
+
+// ---- K4 -----------------------------------------------------------------
+//
+// One block of 512 threads. Thread 0 starts P1's copy into shared memory
+// (kSharedP1: bulk copies of at most kCopyChunk bytes, completing on one
+// transaction barrier) before anything else; the block loads the warm
+// start, shifts it (warm_shift) and loads [ctrl_state[0:6] | w]; the
+// condensed solve (condensed_solve) runs its offset, f, bounds, p0 and
+// M^-1 f phases against L2 while the copy lands, and waits on the barrier
+// only before its first ADMM step. Then warp 0 runs the scalar section
+// (mpc_command_plant_warp: clips, fallback, allocation + PID on ctrl_state,
+// RK4 on state) and lane 0 writes the packed row, while warps 1-15 write
+// the slack, dual and U. X_tail goes straight to device memory.
+//
+// Section clocks (ops/tick_pallas.py SINGLE_TICK_SECTIONS): the wait for
+// P1 (the copy's part not hidden), the warm start, the solve's six phases,
+// the scalar section and the whole launch.
+constexpr int kCopyChunk = 16384;
+
+template <bool kSharedP1>
+__global__ void __launch_bounds__(kTickThreads, 1)
+gpmpc_tick_kernel(const __grid_constant__ SingleTickParams P,
+                  const __grid_constant__ SingleTickOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int nth = kTickThreads;
+  const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  const int m4 = round4(m);
+  SECTION_START(t_whole);
+
+  // shared memory layout (ops/tick_pallas.py single_tick_shared_memory_bytes):
+  // the transaction barrier (16 bytes), then P1, va and vb 16-byte aligned
+  [[maybe_unused]] unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm);
+  float* P1s = sm + 4;
+  float* va = P1s + (kSharedP1 ? m * m : 0);   // ADMM matvec input, double-buffered
+  float* vb = va + m4;
+  float* z = vb + m4;
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lower = p0 + m;
+  float* upper = lower + m;
+  float* xw = upper + m;        // [x0 (6) | w (Nnx)]
+  float* offset = xw + kNx + Nnx;
+  float* dref = offset + Nnx;
+  float* f = dref + Nnx;
+  float* minvf = f + Nnu;
+  float* U = minvf + Nnu;
+  float* part = U + Nnu;        // matvec slices: max(nth, npm)
+  float* anchor = part + max(nth, npm);   // x0 (condensed_solve's copy; unused here)
+
+  if constexpr (kSharedP1) {
+    if (tid == 0) {
+      const unsigned bytes = 4u * static_cast<unsigned>(m * m);
+      uav::barrier_init(bar, 1);
+      uav::fence_barrier_init();
+      uav::barrier_expect(bar, bytes);
+      const char* src = reinterpret_cast<const char*>(O.P1);
+      char* dst = reinterpret_cast<char*>(P1s);
+      for (unsigned off = 0; off < bytes; off += kCopyChunk) {
+        uav::copy_from_global(dst + off, src + off, min(bytes - off, (unsigned)kCopyChunk), bar);
+      }
+    }
+  }
+  SECTION_START(t_shift);
+  auto wait_p1 = [&] {
+    if constexpr (kSharedP1) {
+      SECTION_START(t_wait);
+      uav::barrier_wait(bar, 0);
+      if (tid == 0) SECTION_ADD(0, t_wait);
+    }
+  };
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+  }
+  if (tid < kNx) xw[tid] = O.x0[tid];
+  for (int i = tid; i < Nnx; i += nth) xw[kNx + i] = O.w[i];
+  __syncthreads();   // also publishes the barrier's initialisation
+  uav::warm_shift(z, y, va, vb, N, m, tid, nth, uav::BlockBarrier{});
+  if (tid == 0) SECTION_ADD(1, t_shift);
+
+  const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
+  const uav::TickVectors vec{kSharedP1 ? P1s : O.P1, O.lo_row, O.hi_row, O.ref, va, vb, z, y,
+                             p0, lower, upper, xw, O.xtail_out, offset, dref, f, minvf, U,
+                             part, anchor, O.tight};
+  uav::condensed_solve<kSharedP1>(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
+                                  P.iterations, tid, nth, 2, wait_p1);
+  if (warp == 0) {
+    SECTION_START(t_scalar);
+    const uav::Plant pl = uav::load_plant(O.plant_row);
+    float s[12], sc[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      s[i] = O.state[i];
+      sc[i] = O.x0[i];
+    }
+    const float z4[4] = {z[0], z[1], z[2], z[3]};
+    const float ref3[3] = {O.ref[0], O.ref[1], O.ref[2]};
+    const float integral[3] = {O.misc[1], O.misc[2], O.misc[3]};
+    float sn[12], c[4], att_sp[3], new_int[3], accel[3];
+    uav::mpc_command_plant_warp(P, pl, z4, ref3, sc, s, O.misc[0], integral, lane, sn, c, att_sp,
+                                new_int, accel, [](const float*) {});
+    if (lane == 0) {
+      float* row = O.packed;   // 25 lanes
+#pragma unroll
+      for (int i = 0; i < 12; ++i) row[i] = sn[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) row[12 + i] = c[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) row[16 + i] = att_sp[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) row[19 + i] = new_int[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) row[22 + i] = accel[i];
+      SECTION_ADD(8, t_scalar);
+      SECTION_ADD(9, t_whole);
+    }
+  } else {
+    const int ot = tid - 32, onth = nth - 32;
+    for (int i = ot; i < m; i += onth) {
+      O.z_out[i] = z[i];
+      O.y_out[i] = y[i];
+    }
+    for (int c = ot; c < Nnu; c += onth) O.u_out[c] = U[c];
   }
 }
 
@@ -373,14 +470,15 @@ single_tick_kernel(const SingleTickParams P, const SingleTickOperands O) {
 // captures), then launch one block on `stream`.
 template <class Params, class Operands>
 int launch_one_block(void (*kernel)(const Params, const Operands), int* configured,
-                     const Params* params, const Operands* ops, int smem_bytes, void* stream) {
+                     const Params* params, const Operands* ops, int smem_bytes, void* stream,
+                     int threads = kThreads) {
   if (smem_bytes > *configured) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
     *configured = smem_bytes;
   }
-  kernel<<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  kernel<<<1, threads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
   return (int)cudaGetLastError();
 }
 
@@ -399,18 +497,24 @@ extern "C" int admm_composite_launch(const AdmmParams* params, const AdmmOperand
 extern "C" int gpmpc_controller_launch(const SingleTickParams* params,
                                        const SingleTickOperands* ops, int p1_shared,
                                        int smem_bytes, void* stream) {
-  return p1_shared ? launch_one_block(single_tick_kernel<true, false>, &configured_bytes[2],
-                                      params, ops, smem_bytes, stream)
-                   : launch_one_block(single_tick_kernel<false, false>, &configured_bytes[3],
-                                      params, ops, smem_bytes, stream);
+  return p1_shared ? launch_one_block(controller_kernel<true>, &configured_bytes[2], params, ops,
+                                      smem_bytes, stream)
+                   : launch_one_block(controller_kernel<false>, &configured_bytes[3], params, ops,
+                                      smem_bytes, stream);
 }
 
 extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTickOperands* ops,
                                  int p1_shared, int smem_bytes, void* stream) {
-  return p1_shared ? launch_one_block(single_tick_kernel<true, true>, &configured_bytes[4],
-                                      params, ops, smem_bytes, stream)
-                   : launch_one_block(single_tick_kernel<false, true>, &configured_bytes[5],
-                                      params, ops, smem_bytes, stream);
+  return p1_shared ? launch_one_block(gpmpc_tick_kernel<true>, &configured_bytes[4], params, ops,
+                                      smem_bytes, stream, kTickThreads)
+                   : launch_one_block(gpmpc_tick_kernel<false>, &configured_bytes[5], params, ops,
+                                      smem_bytes, stream, kTickThreads);
+}
+
+// K4's section counters (ops/tick_pallas.py SINGLE_TICK_SECTIONS) summed
+// since the last call, then reset (section_clocks.cuh).
+extern "C" int single_tick_section_cycles(unsigned long long* out) {
+  return uav::read_section_cycles(out, 10);
 }
 
 extern "C" int admm_explicit_launch(const ExplicitParams* params, const ExplicitOperands* ops,

@@ -15,9 +15,9 @@
 //
 // The per-tick phases (GP, shift, condensed solve: multitick_phases.cuh)
 // are the same device code that the noisy kernel K9 runs
-// (noisy_tick_kernel.cu); the scalar section is plant_math.cuh's
-// mpc_command_plant_warp, the warp form of the scalar section of the
-// single-tick kernel K4.
+// (noisy_tick_kernel.cu), and the shift and the solve the single-tick
+// kernel K4's (single_tick_kernels.cu); the scalar section is
+// plant_math.cuh's mpc_command_plant_warp, which all three run.
 //
 // The untightened kernel runs on 512 threads (16 warps, one block on one
 // SM). A tick is the solve on the whole block, then one phase where warp 0
@@ -468,15 +468,7 @@ extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperan
 // cycles) into out, then reset; returns cudaErrorNotSupported unless built
 // with -DUAV_SECTION_CLOCKS. Synchronous: call after the launches finish.
 extern "C" int tick_section_cycles(unsigned long long* out) {
-#ifdef UAV_SECTION_CLOCKS
-  cudaError_t err = cudaMemcpyFromSymbol(out, uav::g_section_cycles, kSections * sizeof(*out));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zeros[uav::kMaxSections] = {};
-  return (int)cudaMemcpyToSymbol(uav::g_section_cycles, zeros, sizeof(zeros));
-#else
-  (void)out;
-  return (int)cudaErrorNotSupported;
-#endif
+  return uav::read_section_cycles(out, kSections);
 }
 
 // The number of tightened K5 clusters of `cluster` blocks with `smem_bytes`

@@ -18,3 +18,19 @@ K14 ``admm_pallas.admm_box_qp_fused``, K15
 ``rbf_pallas.rbf_kernel_matrix_pallas`` and K16
 ``controller_pallas.gpmpc_controller_fused_batched``.
 """
+
+from .qp import (
+    admm_box_qp,
+    admm_box_qp_chol,
+    condense_dynamics,
+    condense_ltv,
+    condense_ltv_doubling,
+)
+
+__all__ = [
+    "admm_box_qp",
+    "admm_box_qp_chol",
+    "condense_dynamics",
+    "condense_ltv",
+    "condense_ltv_doubling",
+]

@@ -43,8 +43,12 @@ LIBRARIES = {
     # K5 with its per-section clock counters (chip_smoke.py's breakdown)
     "tick_clocks": ("tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
     "controller": "controller_kernels.cu",
+    # K8 with its per-section clock counters (chip_smoke.py's breakdown)
+    "controller_clocks": ("controller_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "rbf": "rbf_kernels.cu",
     "single_tick": "single_tick_kernels.cu",
+    # K4 with its per-section clock counters (chip_smoke.py's breakdown)
+    "single_tick_clocks": ("single_tick_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "noisy_tick": "noisy_tick_kernel.cu",
     # K9 with its per-section clock counters (chip_smoke.py's breakdown)
     "noisy_tick_clocks": ("noisy_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
@@ -175,6 +179,19 @@ def library_variant(name: str, variant: str):
             _loaded.pop(name)
         else:
             _loaded[name] = saved
+
+
+def section_cycles(name: str, entry: str, sections: tuple) -> dict[str, int]:
+    """The per-section clock cycles that library ``name`` (a build with
+    ``-DUAV_SECTION_CLOCKS``, csrc/section_clocks.cuh) counted since the
+    last call, by section name, read through its C entry point ``entry``,
+    which resets them. Synchronise before calling."""
+    out = (ctypes.c_ulonglong * len(sections))()
+    fn = getattr(library(name), entry)
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(fn(ctypes.cast(out, ctypes.c_void_p)), entry)
+    return dict(zip(sections, (int(v) for v in out)))
 
 
 def check(status: int, what: str) -> None:

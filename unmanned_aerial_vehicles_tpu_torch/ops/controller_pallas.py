@@ -15,7 +15,10 @@ K8 runs one controller tick for B flights in lockstep. Slacks and duals
 are split into U-space ``(B, Nnu)`` and X-space ``(B, Nnx)`` planes, so the
 identity block of ``G = [I; Su]`` costs nothing:
 ``G'v = v_U + v_X Su``, ``U = (G'v - f) M^-1``, ``(G U)_X = U Su'``. The
-kernel is ``csrc/controller_kernels.cu``; its plain PyTorch version is
+kernel is ``csrc/controller_kernels.cu`` (``structured_batched_kernel``: a
+block of 512 threads per 8 flights, the products on register tiles of 4
+outputs x 8 flights with each contraction split over 8 lanes); its plain
+PyTorch version is
 ``gpmpc_controller_structured_batched_plain`` below. The wrapper takes the
 plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.
@@ -31,9 +34,10 @@ flights, the warm-start shift ``z0 = Z0 @ ShiftT`` inside the kernel):
 
 It reads the stacked device operands of ``ops.tick_pallas.FusedTickData``
 (the TPU kernel's ``Emb`` matmul is a lane offset here). The kernel is
-``csrc/single_tick_kernels.cu`` (``single_tick_kernel``, one block; K4 is
-the same kernel with the shift before it and the plant after it); its plain
-version is ``gpmpc_controller_fused_plain`` below. K16's kernel is
+``csrc/single_tick_kernels.cu`` (``controller_kernel``, one block of 256
+threads; K4, ``gpmpc_tick_kernel`` there, runs the same tick on 512 threads
+with the shift before it and the plant after it); its plain version is
+``gpmpc_controller_fused_plain`` below. K16's kernel is
 ``csrc/controller_kernels.cu`` (``fused_batched_kernel``: a block per tile
 of two flights, their iterates in shared memory, so every P1 element read
 serves the whole tile); its plain version is
@@ -144,8 +148,9 @@ def gpmpc_controller_fused_plain(data, x0, w, ref, z0, y0, rho: float, iteration
 
 def controller_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4, nx: int = 6,
                                    threads: int = KERNEL_THREADS) -> int:
-    """Dynamic shared memory of one K3/K4 block (csrc/single_tick_kernels.cu
-    layout): P1 (shared variant only), the double-buffered matvec input,
+    """Dynamic shared memory of one K3 block of ``threads``
+    (csrc/single_tick_kernels.cu ``controller_kernel`` layout): P1 (shared
+    variant only), the double-buffered matvec input,
     five m-vectors, [x0 | w], offset, ref and ref error, three U-space
     vectors and the matvec slices."""
     m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
@@ -202,15 +207,16 @@ def launch_single_tick(entry: str, counter: str, data, n: int, tensors: dict, ou
                        substeps: int = 0, accel_lo=(0.0,) * 3, accel_hi=(0.0,) * 3,
                        yawrate_limit: float = 0.0, fallback_error_m: float = 0.0,
                        fallback_thrust_ceiling: float = 1.5,
-                       fallback_accel_scale: float = 1.5) -> None:
+                       fallback_accel_scale: float = 1.5,
+                       layout=controller_shared_memory_bytes) -> None:
     """Launch K3 (``entry="gpmpc_controller_launch"``) or K4
-    (``"gpmpc_tick_launch"``) on the operands already checked by the
-    caller, with P1 in shared memory where it fits."""
+    (``"gpmpc_tick_launch"``, with ``layout`` its shared-memory bytes
+    ``(n, p1_shared)``) on the operands already checked by the caller, with
+    P1 in shared memory where it fits."""
     dev = data.P1.device
     m = data.P1.shape[0]
     _cuda.require_aligned(counter, data.P1)
-    p1_shared, smem = _cuda.p1_variant(dev, controller_shared_memory_bytes(n, True),
-                                       controller_shared_memory_bytes(n, False))
+    p1_shared, smem = _cuda.p1_variant(dev, layout(n, True), layout(n, False))
     floats3 = lambda v: (ctypes.c_float * 3)(*v)
     params = _SingleTickParams(
         n=n, m=m, iterations=int(iterations), substeps=int(substeps),
@@ -277,6 +283,7 @@ def gpmpc_controller_fused(
 # ---------------------------------------------------------------------------
 
 FLIGHTS_PER_BLOCK = 8      # csrc/controller_kernels.cu kFlights
+STRUCTURED_THREADS = 512   # kK8Threads: K8's block
 
 
 class StructuredBatchData(NamedTuple):
@@ -378,14 +385,51 @@ def _round4(v: int) -> int:
     return (v + 3) // 4 * 4
 
 
+def _stride48(n: int) -> int:
+    """A row stride of at least ``n`` floats, a multiple of 4 and 4 mod 8
+    (csrc/controller_kernels.cu ``stride48``): K8's operator rows, so that
+    the two rows a quarter warp reads lie on disjoint banks."""
+    r = _round4(n)
+    return r if r % 8 else r + 4
+
+
+def _stride16(n: int) -> int:
+    """A row stride of at least ``n`` floats, 16 mod 32
+    (csrc/controller_kernels.cu ``stride16``): K8's per-flight rows, so that
+    the two flights' rows a quarter warp updates lie on disjoint banks."""
+    return 16 if n <= 16 else 16 + -(-(n - 16) // 32) * 32
+
+
 def structured_shared_memory_bytes(n: int, nu: int = 4, nx: int = 6) -> int:
     """Dynamic shared memory of one K8 block (csrc/controller_kernels.cu
-    layout): SuRow, MinvT and SuT, the U bounds, and per flight six U-space
-    and seven X-space vectors plus x0."""
+    layout): SuRow (its rows rounded up to 4), MinvT and SuT at
+    ``_stride48`` rows; the U bounds and the X bounds, and per flight six
+    U-space and five X-space vectors, at ``_stride16`` rows; x0 (8 per
+    flight)."""
     Nnu, Nnx = n * nu, n * nx
-    floats = (2 * Nnx * Nnu + Nnu * Nnu + 2 * _round4(Nnu)
-              + FLIGHTS_PER_BLOCK * (6 * _round4(Nnu) + 7 * _round4(Nnx) + _round4(nx)))
+    lau, lax = _stride48(Nnu), _stride48(Nnx)
+    ldu, ldx = _stride16(Nnu), _stride16(Nnx)
+    floats = (_round4(Nnx) * lau + Nnu * lau + Nnu * lax + 2 * ldu + 2 * ldx
+              + FLIGHTS_PER_BLOCK * (6 * ldu + 5 * ldx + 8))
     return 4 * floats
+
+
+# K8's sections (csrc/controller_kernels.cu), each summed over the blocks:
+# the operators' copy into shared memory, the tile's loads, the set-up's
+# offset and f, the ADMM iterations' three phases, the primal refresh with
+# X_tail, and the whole launch
+STRUCTURED_SECTIONS = ("operator copy", "setup: load", "setup: offset", "setup: f", "ADMM: t",
+                       "ADMM: U", "ADMM: G_X", "refresh", "whole launch")
+
+
+def structured_section_cycles() -> dict[str, int]:
+    """K8's per-section clock cycles summed over the blocks of the launches
+    since the last call, then reset (``STRUCTURED_SECTIONS``). Counted only
+    by the build with section clocks: launch K8 inside
+    ``_cuda.library_variant("controller", "controller_clocks")``,
+    synchronise, then call this."""
+    return _cuda.section_cycles("controller_clocks", "structured_section_cycles",
+                                STRUCTURED_SECTIONS)
 
 
 def gpmpc_controller_structured_batched(
@@ -448,9 +492,11 @@ def gpmpc_controller_structured_batched(
     if dev.type != "cuda":
         raise ValueError(f"gpmpc_controller_structured_batched runs on cuda or cpu, not {dev}")
 
-    if nu_ % 4 or any(t.data_ptr() % 16 for t in (sdata.SuRow, sdata.SuT, sdata.MinvT)):
-        raise ValueError("the kernel copies SuRow, SuT and MinvT in 16-byte rows: nu must be "
-                         "a multiple of 4 and the three operands 16-byte aligned")
+    if nu_ % 4 or nx_ > 8 or any(t.data_ptr() % 16 for t in (
+            sdata.SuRow, sdata.SuT, sdata.MinvT, sdata.SxT, sdata.SwT, sdata.SuTqT)):
+        raise ValueError("the kernel copies SuRow, MinvT and SuT in 16-byte rows and reads "
+                         "SxT, SwT and SuTqT 16 bytes at a time: nu must be a multiple of 4, nx "
+                         "at most 8 and the six operands 16-byte aligned")
     smem = structured_shared_memory_bytes(N, nu_, nx_)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:

@@ -261,9 +261,4 @@ def rigid_section_cycles() -> dict[str, int]:
     the whole tick, and the ADMM's two halves). Counted only by the build
     with section clocks: launch K11 inside ``_cuda.library_variant(
     "rigid_tick", "rigid_tick_clocks")``, synchronise, then call this."""
-    out = (ctypes.c_ulonglong * len(RIGID_SECTIONS))()
-    fn = _cuda.library("rigid_tick_clocks").rigid_tick_section_cycles
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), "rigid_section_cycles")
-    return dict(zip(RIGID_SECTIONS, (int(v) for v in out)))
+    return _cuda.section_cycles("rigid_tick_clocks", "rigid_tick_section_cycles", RIGID_SECTIONS)

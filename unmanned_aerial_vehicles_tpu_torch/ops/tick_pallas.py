@@ -9,8 +9,10 @@ warm-start shift, the fused controller of K3 (``ops.controller_pallas``) on
 the controller state ``ctrl_state`` with the state boxes backed off by the
 ``tight`` row, the u0 clips and hover fallback, allocation + attitude PID,
 and the plant's RK4 substeps on ``state``. The kernel is
-``csrc/single_tick_kernels.cu``; its plain version is
-``gpmpc_tick_fused_plain`` below. Packed row lanes (25): next state 0:12,
+``csrc/single_tick_kernels.cu`` (``gpmpc_tick_kernel``: one block of 512
+threads running K5's shift, solve and scalar section, P1's copy into shared
+memory overlapping the solve's phases before the ADMM); its plain version
+is ``gpmpc_tick_fused_plain`` below. Packed row lanes (25): next state 0:12,
 control 12:16, att_sp 16:19, integral 19:22, accel_cmd 22:25.
 
 K5 ``gpmpc_multitick_fused`` runs K whole control ticks of one flight in
@@ -94,6 +96,7 @@ GP_GROUP = 8                # kGpGroup: lanes whose GP sums meet in a shuffle tr
 TIGHT_GP_GROUP = 1          # the same on the tightened K5's 256 threads
 GP_STAGES = 4               # kGpStages: horizon stages per GP thread (K5)
 NOISY_GP_STAGES = 2         # the same in K9 (csrc/noisy_tick_kernel.cu)
+SINGLE_TICK_THREADS = 512   # csrc/single_tick_kernels.cu kTickThreads: K4's block
 
 
 class FusedTickData(NamedTuple):
@@ -401,15 +404,6 @@ class _TickOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _OPERAND_NAMES]
 
 
-def _section_cycles(library: str, entry: str, names: tuple) -> dict[str, int]:
-    out = (ctypes.c_ulonglong * len(names))()
-    fn = getattr(_cuda.library(library), entry)
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _cuda.check(fn(ctypes.cast(out, ctypes.c_void_p)), entry)
-    return dict(zip(names, (int(v) for v in out)))
-
-
 # the solve's six phases, in both kernels' section clocks
 SOLVE_PHASES = ("solve: offset", "solve: f", "solve: p0 and M^-1 f", "ADMM", "solve: U",
                 "solve: X_tail")
@@ -424,7 +418,37 @@ def tick_section_cycles() -> dict[str, int]:
     only by the build with
     section clocks: launch K5 inside ``_cuda.library_variant("tick",
     "tick_clocks")``, synchronise, then call this."""
-    return _section_cycles("tick_clocks", "tick_section_cycles", TICK_SECTIONS)
+    return _cuda.section_cycles("tick_clocks", "tick_section_cycles", TICK_SECTIONS)
+
+
+def single_tick_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4, nx: int = 6,
+                                    threads: int = SINGLE_TICK_THREADS) -> int:
+    """Dynamic shared memory of one K4 block of ``threads``
+    (csrc/single_tick_kernels.cu ``gpmpc_tick_kernel`` layout): P1's
+    transaction barrier (4 floats), P1 (``p1_shared`` only), the ADMM input
+    double-buffered (16-byte aligned), the slack, dual, p0 and the bounds,
+    [x0 | w], offset, ref error, f, M^-1 f and U, the matvec slices
+    (``max(threads, m + N nu)``) and the solve's x0 copy (nx)."""
+    m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
+    m4 = (m + 3) // 4 * 4
+    floats = (4 + (m * m if p1_shared else 0) + 2 * m4 + 5 * m + nx + 3 * Nnx + 3 * Nnu
+              + max(threads, m + Nnu) + nx)
+    return 4 * floats
+
+
+# K4's sections (csrc/single_tick_kernels.cu): P1's copy into shared memory
+# (the part not hidden behind the phases before the ADMM), the warm start,
+# the solve's six phases, the scalar section and the whole launch
+SINGLE_TICK_SECTIONS = ("P1 copy", "shift") + SOLVE_PHASES + ("scalar section", "whole launch")
+
+
+def single_tick_section_cycles() -> dict[str, int]:
+    """K4's per-section clock cycles summed over the launches since the
+    last call, then reset (``SINGLE_TICK_SECTIONS``). Counted only by the
+    build with section clocks: launch K4 inside ``_cuda.library_variant(
+    "single_tick", "single_tick_clocks")``, synchronise, then call this."""
+    return _cuda.section_cycles("single_tick_clocks", "single_tick_section_cycles",
+                                SINGLE_TICK_SECTIONS)
 
 
 def _vector_floats(n: int, nu: int, nx: int, threads: int, gp_threads: int, group: int,
@@ -802,7 +826,7 @@ def gpmpc_tick_fused(
     tensors = dict(x0=state if ctrl_state is None else ctrl_state, w=w, ref=ref, z_in=z0,
                    y_in=y0, state=state, misc=misc, tight=tight, plant_row=plant_row)
     launch_single_tick("gpmpc_tick_launch", "gpmpc_tick_fused", data, N, tensors, outs,
-                       **statics)
+                       layout=single_tick_shared_memory_bytes, **statics)
     return outs["packed"], outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
 
 
@@ -1015,7 +1039,7 @@ def noisy_section_cycles() -> dict[str, int]:
     build with section clocks: launch K9 inside
     ``_cuda.library_variant("noisy_tick", "noisy_tick_clocks")``,
     synchronise, then call this."""
-    return _section_cycles("noisy_tick_clocks", "noisy_tick_section_cycles", NOISY_SECTIONS)
+    return _cuda.section_cycles("noisy_tick_clocks", "noisy_tick_section_cycles", NOISY_SECTIONS)
 
 
 def noisy_shared_memory_bytes(n: int, nu: int = 4, nx: int = 6,
