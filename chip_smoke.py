@@ -18,12 +18,16 @@ Phases (any failure exits non-zero; nothing is caught):
    six outputs; a second launch bit-identical; again at N=25 with B=257,
    an odd horizon and a tail tile of one flight; its cycles per block by
    section from the build with section clocks), K7 at the sweep's width
-   (20480 queries against the 800-point GP; tolerance 1e-5), K4 and K3 at
-   N=20 (P1 in shared memory) and N=25 (P1 read through L2), K4 also with
-   a separate controller state, a tightening row and the hover fallback
-   (K4's cycles by section from the build with section clocks at both
-   horizons), and K6 at N=20 and
-   N=25 (tolerance 1e-4 on every output), and ``LinearMPC.solve`` through
+   (20480 queries against the 800-point GP; tolerance 1e-5), K4 at N=20
+   (P1 in shared memory) and N=25 (P1 read through L2), also with a
+   separate controller state, a tightening row and the hover fallback, K3
+   at N=20 and N=25 (P1's factors' slices in registers at both), and K6 at
+   N=20 and N=25 on P1's factors (as ``LinearMPC`` calls it) and on P1
+   (without ``SuT``), K3 and K6 at N=30 (the factors through L2)
+   (tolerance 1e-4 on every output, a second launch bit-identical;
+   K4's, K3's and K6's cycles by section from the build with section clocks
+   at both horizons; K3's and K6's bounds also in the P1 form), and
+   ``LinearMPC.solve`` through
    K3 and K6 at both horizons in float32 and float64 against the same
    solves through the plain versions (1e-4); K9 over K5's operands in four
    configurations (the online-noisy filter, the observer with per-tick gust
@@ -69,12 +73,14 @@ Phases (any failure exits non-zero; nothing is caught):
    K5 also without its GP section and without its ADMM iterations, K2 also
    at the sweep's batch of 1024, K4, K3, K6 also at N=25, and K10 also at
    n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
-   K4 at N=20 and N=25, K8 at B=1024, K16 at B=256, the tightened K5, K5
-   and K9 at the main path's shape (N=20, P=800, K=20), K11 at both plants
-   and K13a at B=1 and 1024 of that package and of this one, timed in
-   turns (older, this, this,
-   older; each older run a subprocess that builds its own sources, K11's
-   operands through its own ``dispatch_tick_operands``);
+   K4 at N=20 and N=25, K8 at B=1024, K3 and K6 (with and without ``SuT``)
+   at N=20 and N=25, K16 at B=256, the tightened K5, K5 and K9 at the main
+   path's shape (N=20, P=800, K=20), K11 at both plants and K13a at B=1 and
+   1024 of that package and of this one, and the device-busy and idle
+   shares of the staged flights through K3 and K6, timed in turns (older,
+   this, this, older; each older run a subprocess that builds its own
+   sources, K11's operands through its own ``dispatch_tick_operands``, K3's
+   and K6's through its own ``LinearMPC``);
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -152,8 +158,9 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
-    python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K16, K5,
-                                         # K9, K11 and K13a in turns with this one's, and
+    python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
+                                         # K5, K9, K11 and K13a and its staged flights'
+                                         # device-busy shares in turns with this one's, and
                                          # its sweep, single-tick and online ticks in
                                          # E2E_PAIRS pairs
 """
@@ -195,6 +202,7 @@ SWEEP_GAP_BOUND_M = 1e-3      # kernel vs plain sweep, max over all flights
 SINGLE_TOL = 1e-4             # K4, K3, K6 against their plain versions
 SINGLE_GAP_BOUND_M = 1e-3     # kernel vs plain flight: single-tick, preview, K3/K6 staged
 LONG_HORIZON = 25             # the package default: P1 read through L2
+L2_FACTOR_HORIZON = 30        # K3's and K6's factors read through L2
 K5_PREVIEW_K, K5_PREVIEW_T = 8, 400   # bench.py's frozen-GP preview flight
 
 TIGHTEN_KAPPA = 2.0           # bench.py:262-270's tightening mode and examples/09
@@ -317,19 +325,23 @@ def ops_structured_controller(N: int, iterations: int, nx: int = 6) -> int:
     return setup + iterations * iteration + final
 
 
-def ops_admm(m: int, n: int, iterations: int) -> int:
+def ops_admm(m: int, n: int, iterations: int, factored: bool = False) -> int:
     """FP32 operations of K6 (csrc/single_tick_kernels.cu): per iteration
-    and column the m-term dot and ~12 for the relaxation, clip and dual
-    update; then the primal recovery."""
-    return iterations * (2 * m * m + 12 * m) + 2 * n * m + n
+    and constraint row ~12 for the relaxation, clip and dual update, and the
+    product with P1 (an m-term dot per row) or, ``factored``, with its two
+    factors for G = [I; Su] (t = v GM^-1: n m-term dots; t Su': m - n
+    n-term dots); then the primal recovery (n m-term dots)."""
+    step = 2 * n * m + 2 * n * (m - n) if factored else 2 * m * m
+    return iterations * (step + 12 * m) + 2 * n * m + n
 
 
-def ops_controller(N: int, iterations: int) -> int:
-    """FP32 operations of K3: offset, gradient, bounds, p0 and M^-1 f, the
-    ADMM loop, U and X_tail."""
+def ops_controller(N: int, iterations: int, factored: bool = False) -> int:
+    """FP32 operations of the condensed solve of K3 (``factored``: its ADMM
+    on P1's factors), K4 and K16 (on P1): offset, gradient, bounds, p0 and
+    M^-1 f, the ADMM loop, U and X_tail."""
     Nnu, Nnx, m = 4 * N, 6 * N, 10 * N
     return (2 * (6 + Nnx) * Nnx + Nnx + 2 * Nnx * Nnu + 3 * m + 2 * Nnu * (m + Nnu)
-            + ops_admm(m, 0, iterations) + 2 * m * Nnu + Nnu + 2 * Nnu * Nnx + Nnx)
+            + ops_admm(m, Nnu, iterations, factored) + 2 * Nnu * Nnx + Nnx)
 
 
 def ops_posterior_mean(m: int, P: int, d: int = 10, out: int = 6) -> int:
@@ -1793,11 +1805,14 @@ def check_k8(dev, mpc, refs, gen, fail_fn) -> dict:
 
 
 def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
-    """K4, K3 and K6 at N=20 (P1 in shared memory) and N=25 (P1 through L2)
-    against their plain versions (``SINGLE_TOL`` on every output; K4 also
-    with ``ctrl_state``, a ``tight`` row and the hover fallback engaged),
-    each timed, and K4's cycles by section from the build with section
-    clocks at both horizons: the ``kernels`` entries, keyed by name."""
+    """K4, K3 and K6 at N=20 and N=25 against their plain versions
+    (``SINGLE_TOL`` on every output; K4 also with ``ctrl_state``, a
+    ``tight`` row and the hover fallback engaged; K6 on P1's factors, as
+    ``LinearMPC`` calls it, and on P1, without ``SuT``), each timed, with
+    its bound (K3's and K6's also in the P1 form, ``bound_p1_form``), and
+    the cycles by section of K4, K3 and K6 (on the factors) from the build
+    with section clocks at both horizons: the ``kernels`` entries, keyed by
+    name."""
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
@@ -1817,7 +1832,7 @@ def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
 
     def single_tick_cases(N):
         """K4's, K3's and K6's inputs at horizon N from seeded random draws
-        around a hovering flight near the figure-8."""
+        around a hovering flight near the figure-8, and K6's SuT."""
         tm = mpc if N == HORIZON else LinearMPC(LinearMPCConfig(
             horizon=N, admm_iterations=ADMM_ITERS, use_fused_controller=True), device=dev)
         am = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
@@ -1842,7 +1857,7 @@ def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
         tight[Nnu:] = 0.2 * torch.rand(Nnx, generator=gen).to(dev)
         cover = dict(ctrl_state=(state + rnd(12, scale=0.05)).contiguous(), tight=tight,
                      fallback_error_m=0.3)
-        return k4, k3, k6, cover
+        return k4, k3, k6, am._SuT_f32, cover
 
     def max_err(got, want):
         for g in got:
@@ -1850,33 +1865,58 @@ def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
                 fail("a single-tick kernel produced non-finite values")
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
+    def clocks(fn, read):
+        with _cuda.library_variant("single_tick", "single_tick_clocks"):
+            read()
+            fn()
+            torch.cuda.synchronize()
+            return read()
+
     single = {}
     for N in (HORIZON, LONG_HORIZON):
-        k4_args, k3_args, k6_args, cover = single_tick_cases(N)
+        k4_args, k3_args, k6_args, SuT, cover = single_tick_cases(N)
         kw = dict(tick_statics, n=N)
         # the stacked device operands K3 and K4 read (FusedTickData: SxSwT
-        # through hi_row; ShiftT is a gather in the kernel)
+        # through hi_row; ShiftT is a gather in the kernel); K3 reads P1's
+        # factors P0matT and SuT, not P1
         tick_data = list(k4_args[0][2:10])
+        k3_data = [t for t in tick_data if t is not k4_args[0].P1]
         operands = lambda args: [a for a in args if torch.is_tensor(a)]
-        ops_k3 = ops_controller(N, ADMM_ITERS)
+        k6_factored = [SuT if t is k6_args[0] else t for t in operands(k6_args)]
+        ops_k4 = ops_controller(N, ADMM_ITERS)
+        # name: (kernel, plain, tensors read, operations, the P1 form's
+        # (tensors, operations) or None, the section clocks' reader or None)
         runs = {
             "gpmpc_tick_fused": (
                 lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused(*a, **kw),
                 lambda a=k4_args, kw=kw: tick_pallas.gpmpc_tick_fused_plain(*a, **kw),
-                operands(k4_args) + tick_data, ops_k3 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP),
+                operands(k4_args) + tick_data, ops_k4 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP,
+                None, tick_pallas.single_tick_section_cycles),
             "gpmpc_controller_fused": (
                 lambda a=k3_args: controller_pallas.gpmpc_controller_fused(*a),
                 lambda a=k3_args: controller_pallas.gpmpc_controller_fused_plain(*a),
-                operands(k3_args) + tick_data, ops_k3),
+                operands(k3_args) + k3_data, ops_controller(N, ADMM_ITERS, factored=True),
+                (operands(k3_args) + tick_data, ops_k4),
+                controller_pallas.controller_section_cycles),
             "admm_box_qp_fused_composite": (
+                lambda a=k6_args, s=SuT: admm_pallas.admm_box_qp_fused_composite(*a, SuT=s),
+                lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite_plain(*a),
+                k6_factored, ops_admm(10 * N, 4 * N, ADMM_ITERS, factored=True),
+                (operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS)),
+                admm_pallas.composite_section_cycles),
+            # K6 without SuT: the kernel on P1, for a general G
+            "admm_box_qp_fused_composite on P1": (
                 lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite(*a),
                 lambda a=k6_args: admm_pallas.admm_box_qp_fused_composite_plain(*a),
-                operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS)),
+                operands(k6_args), ops_admm(10 * N, 4 * N, ADMM_ITERS), None, None),
         }
-        for name, (fn, plain, tensors, n_ops) in runs.items():
+        for name, (fn, plain, tensors, n_ops, p1_form, read_clocks) in runs.items():
             got = fn()
             torch.cuda.synchronize()
             err = max_err(got, plain())
+            again = fn()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name} at N={N}: a second launch on the same inputs differs")
             if name == "gpmpc_tick_fused":
                 kw_cover = dict(kw, **cover)
                 got = tick_pallas.gpmpc_tick_fused(*k4_args, **kw_cover)
@@ -1891,34 +1931,63 @@ def check_single_tick(dev, mpc, x0, pos, gen, prow, fail_fn) -> dict:
             rec = dict(err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
                        host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 3, warmup=1),
                        bound=bound_ms(nbytes(*tensors) + nbytes(*got), n_ops))
+            if p1_form is not None:
+                rec["bound_p1_form"] = bound_ms(nbytes(*p1_form[0]) + nbytes(*got), p1_form[1])
             single[(name, N)] = rec
-            if name == "gpmpc_tick_fused":
-                with _cuda.library_variant("single_tick", "single_tick_clocks"):
-                    tick_pallas.single_tick_section_cycles()
-                    fn()
-                    torch.cuda.synchronize()
-                    rec["sections"] = tick_pallas.single_tick_section_cycles()
-                print_sections(f"K4 clock cycles by section at N={N} (build with section clocks)",
-                               rec["sections"], "whole launch")
-            variant = "P1 in shared memory" if N <= 23 else "P1 through L2"
+            if read_clocks is not None:
+                rec["sections"] = clocks(fn, read_clocks)
+                print_sections(f"{name} clock cycles by section at N={N} (build with section "
+                               "clocks)", rec["sections"], "whole launch")
+            if name == "gpmpc_tick_fused" or name.endswith("on P1"):
+                variant = "P1 in shared memory" if N <= 23 else "P1 through L2"
+            else:
+                variant = "P1's factors' slices in registers"
+            p1_text = ("" if p1_form is None else
+                       f"; the P1 form's bound {rec['bound_p1_form'][0] * 1e3:.4f} us")
             print(f"{name} (N={N}, {variant}): max_abs_err {err:.3e}; device "
                   f"{rec['ms'] * 1e3:.2f} us per launch, plain {rec['plain_ms'] * 1e3:.2f} us; "
                   f"with host overhead {rec['host_ms'] * 1e3:.2f} us; bound "
-                  f"{rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]})")
+                  f"{rec['bound'][0] * 1e3:.4f} us ({rec['bound'][1]}){p1_text}")
             if not err <= SINGLE_TOL:
                 fail(f"{name} at N={N} disagrees with its plain version: {err}")
+    # K3 and K6 past the register slices' reach (N=25): the factors read
+    # through L2 every step
+    _, k3_args, k6_args, SuT, _ = single_tick_cases(L2_FACTOR_HORIZON)
+    for name, fn, plain in (
+            ("gpmpc_controller_fused",
+             lambda: controller_pallas.gpmpc_controller_fused(*k3_args),
+             lambda: controller_pallas.gpmpc_controller_fused_plain(*k3_args)),
+            ("admm_box_qp_fused_composite",
+             lambda: admm_pallas.admm_box_qp_fused_composite(*k6_args, SuT=SuT),
+             lambda: admm_pallas.admm_box_qp_fused_composite_plain(*k6_args))):
+        got = fn()
+        torch.cuda.synchronize()
+        err = max_err(got, plain())
+        if not all(torch.equal(a, b) for a, b in zip(got, fn())):
+            fail(f"{name} at N={L2_FACTOR_HORIZON}: a second launch on the same inputs differs")
+        single[(name, L2_FACTOR_HORIZON)] = dict(err=err, ms=graph_ms(fn, 20))
+        print(f"{name} (N={L2_FACTOR_HORIZON}, P1's factors through L2): max_abs_err {err:.3e}; "
+              f"device {single[(name, L2_FACTOR_HORIZON)]['ms'] * 1e3:.2f} us per launch")
+        if not err <= SINGLE_TOL:
+            fail(f"{name} at N={L2_FACTOR_HORIZON} disagrees with its plain version: {err}")
     out = {}
     for name in ("gpmpc_tick_fused", "gpmpc_controller_fused", "admm_box_qp_fused_composite"):
-        out[name] = dict(single[(name, HORIZON)],
-                         err=max(single[(name, HORIZON)]["err"],
-                                 single[(name, LONG_HORIZON)]["err"]),
-                         long=single[(name, LONG_HORIZON)])
+        errs = [rec["err"] for (key, N), rec in single.items() if key == name]
+        out[name] = dict(single[(name, HORIZON)], err=max(errs), long=single[(name, LONG_HORIZON)])
+        if (name, L2_FACTOR_HORIZON) in single:
+            out[name]["l2"] = single[(name, L2_FACTOR_HORIZON)]
+    out["admm_box_qp_fused_composite"]["p1"] = {
+        N: single[("admm_box_qp_fused_composite on P1", N)] for N in (HORIZON, LONG_HORIZON)}
     print(f"shared memory per block: K4 "
           f"{tick_pallas.single_tick_shared_memory_bytes(HORIZON)} B at N={HORIZON}, "
           f"{tick_pallas.single_tick_shared_memory_bytes(LONG_HORIZON, False)} B at "
           f"N={LONG_HORIZON}; K3 "
           f"{controller_pallas.controller_shared_memory_bytes(HORIZON)} B and "
-          f"{controller_pallas.controller_shared_memory_bytes(LONG_HORIZON, False)} B; K6 {admm_pallas.shared_memory_bytes(10 * HORIZON)} B and "
+          f"{controller_pallas.controller_shared_memory_bytes(LONG_HORIZON)} B; K6 on the "
+          f"factors "
+          f"{admm_pallas.factored_shared_memory_bytes(4 * HORIZON, 10 * HORIZON)} B and "
+          f"{admm_pallas.factored_shared_memory_bytes(4 * LONG_HORIZON, 10 * LONG_HORIZON)} B, "
+          f"on P1 {admm_pallas.shared_memory_bytes(10 * HORIZON)} B and "
           f"{admm_pallas.shared_memory_bytes(10 * LONG_HORIZON, False)} B")
     return out
 
@@ -2011,6 +2080,94 @@ def time_k4_k8(dev) -> dict:
     return out
 
 
+def time_k3_k6(dev) -> dict:
+    """Device microseconds per launch of K3 and K6 at N=20 and N=25 (10
+    iterations), through the public wrappers, each checkout's operands from
+    its own ``LinearMPC`` on seeded draws around the figure-8: K6 as
+    ``LinearMPC`` calls it (``k6_n*_us``: with ``SuT`` where the MPC holds
+    it) and without ``SuT`` (``k6_p1_n*_us``: the kernel on P1)."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.ops import admm_pallas, controller_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(13)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
+    x0, pos, _, _ = figure8_launch(dev)
+    out = {}
+    for N in (HORIZON, LONG_HORIZON):
+        m, Nnu, Nnx = 10 * N, 4 * N, 6 * N
+        cm = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                       use_fused_controller=True), device=dev)
+        w = torch.cat([torch.zeros(N, 3, **f32), rnd(N, 3, scale=0.02)], 1).reshape(-1)
+        ref = torch.cat([pos[:1], torch.zeros(1, 3, **f32)], 1).repeat(1, N).reshape(-1)
+        z, y = rnd(m, scale=0.3), rnd(m, scale=0.1)
+        k3 = (cm._tick_data, x0[:6].contiguous(), w.contiguous(), ref.contiguous(), z, y, 8.0,
+              ADMM_ITERS, 1.6)
+        out[f"k3_n{N}_us"] = graph_ms(lambda: controller_pallas.gpmpc_controller_fused(*k3),
+                                      20) * 1e3
+        am = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ADMM_ITERS,
+                                       use_fused_admm=True), device=dev)
+        f = rnd(Nnu)
+        off = rnd(Nnx, scale=0.3)
+        k6 = (am._P1_f32, (-(am._GMinv @ f)).contiguous(), am._GMinvT_f32,
+              (am._M_inv @ f).contiguous(), torch.cat([am._u_lo, am._x_lo - off]),
+              torch.cat([am._u_hi, am._x_hi - off]), z, y, 8.0, ADMM_ITERS, 1.6)
+        SuT = getattr(am, "_SuT_f32", None)
+        kw = {} if SuT is None else {"SuT": SuT}
+        out[f"k6_n{N}_us"] = graph_ms(
+            lambda: admm_pallas.admm_box_qp_fused_composite(*k6, **kw), 20) * 1e3
+        out[f"k6_p1_n{N}_us"] = graph_ms(
+            lambda: admm_pallas.admm_box_qp_fused_composite(*k6), 20) * 1e3
+    return out
+
+
+STAGED_SHARE_T = 50   # the staged flights' profiler window (ticks)
+
+
+def staged_shares(dev, post) -> dict:
+    """The 100-tick staged flights of phase 3 through K3 and K6 (N=20, 10
+    iterations, the 800-point GP as ``residual_fn``): microseconds per tick
+    (slope between 50 and 150 ticks), device-busy microseconds per tick from
+    a ``torch.profiler`` window of ``STAGED_SHARE_T`` ticks (device events
+    only) and the idle share in percent."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
+        ResidualGPConfig,
+        build_horizon_residuals,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.loop import mpc_flight_rollout
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    def ref(t):
+        p, yaw = ramped_figure8_reference(t, 6.0, 0.02)
+        return p + torch.tensor([0.0, 0.0, 3.0], dtype=p.dtype, device=p.device), yaw
+
+    gp_cfg = ResidualGPConfig()
+    resid = lambda Xg, Ug: build_horizon_residuals(post, Xg, Ug, gp_cfg)
+    out = {}
+    for key, mode in (("k3", "use_fused_controller"), ("k6", "use_fused_admm")):
+        sm = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                       **{mode: True}), device=dev)
+        fly = lambda T, sm=sm: mpc_flight_rollout(sm, ref, T, residual_fn=resid, device=dev)
+        tick_us = slope_us(fly, (50, 150))
+        fly(STAGED_SHARE_T)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fly(STAGED_SHARE_T)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / STAGED_SHARE_T
+        out[f"staged_{key}_us_per_tick"] = tick_us
+        out[f"staged_{key}_busy_us_per_tick"] = busy
+        out[f"staged_{key}_idle_pct"] = 100.0 * (1.0 - busy / tick_us)
+    return out
+
+
 def time_end_to_end(dev) -> dict:
     """The host-bound paths of K8, K4 and K5 as phase 4 flies them: the
     sweep's microseconds per flight-tick (B=1024, ``gp_posterior``,
@@ -2069,13 +2226,15 @@ def time_end_to_end(dev) -> dict:
 def time_redesigned(dev) -> dict:
     """Device microseconds per launch of the redesigned kernels, through
     their public wrappers only, so that the same function times an older
-    checkout of the package: K4 and K8 (``time_k4_k8``), K16 at B=256,
+    checkout of the package: K4 and K8 (``time_k4_k8``), K3 and K6
+    (``time_k3_k6``), K16 at B=256,
     N=20 and N=25 (three warm-started ticks in, 80 iterations), K5 at N=20,
     P=800, K=8, tightened
     (kappa 2) and not, K5 and K9 at the main path's shape (N=20, P=800,
     K=20: the online and the online-noisy flights' launches), K11 at both
-    plants (``k11_case``: the checkout's own relinearisation and layout) and
-    K13a at B=1 and 1024."""
+    plants (``k11_case``: the checkout's own relinearisation and layout),
+    K13a at B=1 and 1024, and the staged flights through K3 and K6
+    (``staged_shares``: their ticks and device-busy shares)."""
     import numpy as np
     import torch
 
@@ -2090,6 +2249,7 @@ def time_redesigned(dev) -> dict:
     )
 
     out = time_k4_k8(dev)
+    out.update(time_k3_k6(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(9)
     for N in (20, LONG_HORIZON):
@@ -2131,6 +2291,7 @@ def time_redesigned(dev) -> dict:
             torch.randn(B, 12, generator=gen)))
         out[f"k13a_b{B}_us"] = graph_ms(
             lambda: tick_ad.px4_plant_step_vjp(s, c, prow, ct, 0.02, 2), 200) * 1e3
+    out.update(staged_shares(dev, post))
     return out
 
 
@@ -2173,14 +2334,15 @@ class TimingWorker:
 
 
 def compare_with_parent(dev, parent: str | None):
-    """K4, K8, K16, K5 (tightened and not), K9, K11 and K13a of the checkout
+    """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K13a and the
+    staged flights' device-busy shares of the checkout
     at ``parent`` and of this one, each package in a process of its own
     built from its own sources, timed in turns in this call: parent, this,
     this, parent. Then the sweep's, single-tick and online ticks in
     ``E2E_PAIRS`` pairs, alternating which checkout goes first, each called
     changed only where the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K4, K8, K16, K5, K9, K11 and K13a and its end-to-end ticks: "
+        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11 and K13a and its end-to-end ticks: "
               "not measured in this run (pass --parent DIR, DIR holding the older package, to "
               "time them here)")
         return None
@@ -3287,6 +3449,29 @@ def main(parent: str | None = None) -> int:
         "k4_cycles_by_section": {
             N: rec["sections"] for N, rec in ((HORIZON, kernels["gpmpc_tick_fused"]),
                                               (LONG_HORIZON, kernels["gpmpc_tick_fused"]["long"]))},
+        "k3_cycles_by_section": {
+            N: rec["sections"] for N, rec in (
+                (HORIZON, kernels["gpmpc_controller_fused"]),
+                (LONG_HORIZON, kernels["gpmpc_controller_fused"]["long"]))},
+        "k6_cycles_by_section": {
+            N: rec["sections"] for N, rec in (
+                (HORIZON, kernels["admm_box_qp_fused_composite"]),
+                (LONG_HORIZON, kernels["admm_box_qp_fused_composite"]["long"]))},
+        "k3_bound_ms_p1_form": {
+            N: rec["bound_p1_form"][0] for N, rec in (
+                (HORIZON, kernels["gpmpc_controller_fused"]),
+                (LONG_HORIZON, kernels["gpmpc_controller_fused"]["long"]))},
+        "k6_bound_ms_p1_form": {
+            N: rec["bound_p1_form"][0] for N, rec in (
+                (HORIZON, kernels["admm_box_qp_fused_composite"]),
+                (LONG_HORIZON, kernels["admm_box_qp_fused_composite"]["long"]))},
+        "k6_on_p1": {N: {"us": rec["ms"] * 1e3, "max_abs_err": rec["err"],
+                         "bound_ms": rec["bound"][0]}
+                     for N, rec in kernels["admm_box_qp_fused_composite"]["p1"].items()},
+        "us_per_launch_factors_l2": {
+            L2_FACTOR_HORIZON: {name: kernels[name]["l2"]["ms"] * 1e3
+                                for name in ("gpmpc_controller_fused",
+                                             "admm_box_qp_fused_composite")}},
         "k8_cycles_per_block_by_section": k8["sections"],
         "k8_max_abs_err_n25_b257": k8["err_n25_b257"],
         "fig8_rms_m_single_tick_500": float(rms(single_outs)),

@@ -14,12 +14,14 @@ GP-MPC, arXiv:2211.15522).
 ``use_fused_controller`` solves each tick in one launch of the fused
 controller kernel K3 (``ops.controller_pallas.gpmpc_controller_fused``);
 ``use_fused_admm`` runs the ADMM loop as one launch of K6
-(``ops.admm_pallas.admm_box_qp_fused_composite``). Both compute in float32
-and cast back to the MPC's dtype.
+(``ops.admm_pallas.admm_box_qp_fused_composite``, given ``Su'`` so that it
+applies P1 as its factors). Both compute in float32 and cast back to the
+MPC's dtype.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
@@ -72,7 +74,8 @@ class LinearMPC:
     row-form controller operands (``ops.controller_pallas``), and
     ``_tick_data``, their float32 device layouts for K3, K4 and K5
     (``ops.tick_pallas.build_tick_data``). With ``use_fused_admm`` it holds
-    K6's float32 ``P1`` and ``GMinvT``."""
+    K6's float32 ``P1``, ``GMinvT`` and ``SuT`` (``Su'``, G's block below
+    the identity: the kernel applies P1 as ``GMinvT`` and ``SuT``)."""
 
     def __init__(self, config: LinearMPCConfig = LinearMPCConfig(),
                  dtype=torch.float32, device=None):
@@ -137,6 +140,7 @@ class LinearMPC:
                                             device=self.device)
             self._P1_f32 = f32(GMinv @ G.T)
             self._GMinvT_f32 = f32(GMinv.T)
+            self._SuT_f32 = f32(Su.T)
 
     # ------------------------------------------------------------------
     def init_carry(self, state: torch.Tensor | None = None) -> MPCCarry:
@@ -260,7 +264,10 @@ class LinearMPC:
                 admm_box_qp_fused_composite_plain,
             )
 
-            admm = admm_box_qp_fused_composite_plain if plain_kernels else admm_box_qp_fused_composite
+            if plain_kernels:
+                admm = admm_box_qp_fused_composite_plain
+            else:
+                admm = functools.partial(admm_box_qp_fused_composite, SuT=self._SuT_f32)
             Uf, zf, yf = admm(
                 self._P1_f32, f32(p0), self._GMinvT_f32, f32(minv_f), f32(lower), f32(upper),
                 f32(carry.slack), f32(carry.dual),

@@ -379,27 +379,124 @@ struct NoWait {
   __device__ __forceinline__ void operator()() const {}
 };
 
+// condensed_solve's ADMM operator, primal recovery and products. P1Operator:
+// P1 (m x m) at v.P1s, in shared memory (kSharedP1) or device memory, one
+// column dot a thread and step (composite_admm); U from O.P0matT in device
+// memory; the products in matvec_partial's slices (K4, K5, K9).
+template <bool kSharedP1>
+struct P1Operator {
+  // part = the slices of x A (the solve's products with the fixed operators)
+  __device__ __forceinline__ void partial(const float* x, const float* A, int n_in, int n_out,
+                                          float* part, int tid, int nth) const {
+    matvec_partial(x, A, n_out, n_in, n_out, part, tid, nth);
+  }
+  __device__ __forceinline__ const float* iterate(const TickVectors& v, int N, int m, float rho,
+                                                  float over_relax, float one_minus_over_relax,
+                                                  int iterations, int tid, int nth) const {
+    return composite_admm<kSharedP1>(v.P1s, m, v.p0, v.lower, v.upper, v.z, v.y, v.va, v.vb,
+                                     rho, over_relax, one_minus_over_relax, iterations, tid,
+                                     nth);
+  }
+  // U = -M^-1 f + (rho z - y) GM^-1 (no barrier after the last write)
+  __device__ __forceinline__ void primal(const CondensedOperands& O, const TickVectors& v,
+                                         const float* vsrc, int N, int m, int tid,
+                                         int nth) const {
+    const int Nnu = N * kTickNu;
+    matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, v.part, tid, nth);
+    __syncthreads();
+    for (int c = tid; c < Nnu; c += nth) v.U[c] = -v.minvf[c] + matvec_total(v.part, Nnu, nth, c);
+  }
+};
+
+// The operators of K3, on P1's two factors for G = [I; Su], GM^-1 (m x Nnu
+// rows) and Su' (Nnu x Nnx rows); U from GM^-1 as the first half of one
+// more step; the products with the fixed operators in matvec_partial's
+// slices and sums, with the accumulators in registers
+// (matvec_partial_static). ts: t (Nnu floats, 16-byte aligned);
+// clock_base: the first of the section clocks of a step's three phases
+// (factored_admm), or -1.
+//
+// SliceOperator: each thread's slices of both factors, loaded into
+// registers from device memory when the ADMM starts
+// (factored_admm_slices); kA, kB bound the slices' rows.
+template <int kA, int kB>
+struct SliceOperator {
+  const float *GMinv, *SuT;   // in device memory
+  float* ts;
+  int clock_base;
+  FactorSlices<kA, kB> s;
+  __device__ __forceinline__ void partial(const float* x, const float* A, int n_in, int n_out,
+                                          float* part, int tid, int nth) const {
+    matvec_partial_static(x, A, n_out, n_in, n_out, part, tid, nth);
+  }
+  __device__ __forceinline__ const float* iterate(const TickVectors& v, int N, int m, float rho,
+                                                  float over_relax, float one_minus_over_relax,
+                                                  int iterations, int tid, int nth) {
+    const int Nnu = N * kTickNu;
+    load_factor_slices<false>(s, GMinv, Nnu, SuT, m, Nnu, tid, nth);
+    return factored_admm_slices(s, m, Nnu, v.p0, v.lower, v.upper, v.z, v.y, v.va, v.vb, ts,
+                                v.part, rho, over_relax, one_minus_over_relax, iterations, tid,
+                                nth, clock_base);
+  }
+  __device__ __forceinline__ void primal(const CondensedOperands&, const TickVectors& v,
+                                         const float* vsrc, int N, int m, int tid,
+                                         int nth) const {
+    slices_t(s, vsrc, N * kTickNu, v.part, tid, nth,
+             [&](int c, float t) { v.U[c] = -v.minvf[c] + t; });
+  }
+};
+
+// FactoredOperator: both factors read through L2 every step
+// (factored_admm), where the slices exceed their bounds.
+struct FactoredOperator {
+  const float *GMinv, *SuT;   // in device memory
+  float* ts;
+  int clock_base;
+  __device__ __forceinline__ void partial(const float* x, const float* A, int n_in, int n_out,
+                                          float* part, int tid, int nth) const {
+    matvec_partial_static(x, A, n_out, n_in, n_out, part, tid, nth);
+  }
+  __device__ __forceinline__ const float* iterate(const TickVectors& v, int N, int m, float rho,
+                                                  float over_relax, float one_minus_over_relax,
+                                                  int iterations, int tid, int nth) const {
+    const int Nnu = N * kTickNu;
+    return factored_admm<false>(GMinv, Nnu, SuT, m, Nnu, v.p0, v.lower, v.upper, v.z, v.y,
+                                v.va, v.vb, ts, v.part, rho, over_relax, one_minus_over_relax,
+                                iterations, tid, nth, clock_base);
+  }
+  __device__ __forceinline__ void primal(const CondensedOperands&, const TickVectors& v,
+                                         const float* vsrc, int N, int m, int tid,
+                                         int nth) const {
+    const int Nnu = N * kTickNu;
+    factor_t<false>(vsrc, GMinv, Nnu, m, Nnu, v.part, tid, nth,
+                    [&](int c, float t) { v.U[c] = -v.minvf[c] + t; });
+  }
+};
+
 // The condensed controller tick on the whole block, from xw = [x0 | w],
 // ref and the shifted warm start z, y, the boxes backed off by v.tight (the
 // caller's last write of those is separated from this call by a barrier,
 // or by the first product, which reads only xw):
 //   offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
 //   box bounds, p0 = -(f @ P0mat), M^-1 f = f @ MinvT,
-//   ADMM: `iterations` x one (m, m) matvec with P1 (from shared memory with
-//   kSharedP1, else through L1/L2),
-//   U = M^-1(-f + G'(rho z - y)),  X_tail = offset + U @ Su'  (into xtail);
+//   ADMM: `iterations` steps of `op` (P1Operator: one (m, m) matvec with P1,
+//   from shared memory with kSharedP1, else through L1/L2; SliceOperator,
+//   FactoredOperator: P1's two factors),
+//   U = M^-1(-f + G'(rho z - y)) (op.primal),  X_tail = offset + U @ Su'
+//   (O.SuT; into xtail);
 // the products with the fixed operators in matvec_partial's slices (each
 // column over nth / n_out threads), and x0 copied into v.anchor. Every
-// thread calls before_admm() once, after the phases that do not read P1
-// (K4 waits there for P1's copy into shared memory). Ends with a barrier.
-// clock_base: the first of the section clocks of its six phases (offset, f,
-// p0 and M^-1 f, the ADMM, U, X_tail), or -1.
-template <bool kSharedP1 = true, class BeforeAdmm = NoWait>
+// thread calls before_admm() once, after the phases that do not read the
+// ADMM operator (K4 waits there for P1's copy into shared memory).
+// Ends with a barrier. clock_base: the first of the section clocks of its
+// six phases (offset, f, p0 and M^-1 f, the ADMM, U, X_tail), or -1.
+template <bool kSharedP1 = true, class BeforeAdmm = NoWait,
+          class Operator = P1Operator<kSharedP1>>
 __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, const TickVectors& v,
                                                 int N, int m, float rho, float over_relax,
                                                 float one_minus_over_relax, int iterations,
                                                 int tid, int nth, int clock_base,
-                                                BeforeAdmm before_admm = {}) {
+                                                BeforeAdmm before_admm = {}, Operator op = {}) {
   const int Nnu = N * kTickNu, Nnx = N * kTickNx, npm = m + Nnu;
   [[maybe_unused]] auto section = [clock_base](int k) {
     return clock_base < 0 ? -1 : clock_base + k;
@@ -407,7 +504,7 @@ __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, cons
   // part = slices of the product of x with A (n_in x n_out); ends with a
   // barrier
   auto product = [&](const float* x, const float* A, int n_in, int n_out) {
-    matvec_partial(x, A, n_out, n_in, n_out, v.part, tid, nth);
+    op.partial(x, A, n_in, n_out, v.part, tid, nth);
     __syncthreads();
   };
   SECTION_START(t_offset);
@@ -441,13 +538,11 @@ __device__ __forceinline__ void condensed_solve(const CondensedOperands& O, cons
   if (tid == 0) SECTION_ADD(section(2), t_p0);
   before_admm();
   SECTION_START(t_admm);
-  const float* vsrc = composite_admm<kSharedP1>(v.P1s, m, v.p0, v.lower, v.upper, v.z, v.y, v.va,
-                                           v.vb, rho, over_relax, one_minus_over_relax,
-                                           iterations, tid, nth);
+  const float* vsrc = op.iterate(v, N, m, rho, over_relax, one_minus_over_relax, iterations, tid,
+                                 nth);
   SECTION_START(t_u);
   if (tid == 0) SECTION_ADD(section(3), t_admm);
-  product(vsrc, O.P0matT, m, Nnu);
-  for (int c = tid; c < Nnu; c += nth) v.U[c] = -v.minvf[c] + matvec_total(v.part, Nnu, nth, c);
+  op.primal(O, v, vsrc, N, m, tid, nth);
   __syncthreads();
   SECTION_START(t_x);
   if (tid == 0) SECTION_ADD(section(4), t_u);

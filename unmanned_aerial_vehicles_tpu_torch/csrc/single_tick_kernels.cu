@@ -7,15 +7,15 @@
 //      Gu = G u, relaxation, clip and dual step, then one more u from the
 //      final (z, y). Plain version:
 //      ops/admm_pallas.py:admm_box_qp_fused_plain.
-//   K6 admm_composite_kernel  replaces the JAX package's
-//      ops/admm_pallas.py:admm_box_qp_fused_composite (pallas_call at :193):
-//      `iterations` composite-ADMM steps, then the primal recovery
+//   K6 admm_composite_kernel / admm_factored_kernel  replace the JAX
+//      package's ops/admm_pallas.py:admm_box_qp_fused_composite (pallas_call
+//      at :193): `iterations` composite-ADMM steps, then the primal recovery
 //      U = -M^-1 f + (rho z - y) GMinvT'. Plain version:
 //      ops/admm_pallas.py:admm_box_qp_fused_composite_plain.
 //   K3 controller_kernel  replaces ops/controller_pallas.py:
 //      gpmpc_controller_fused (pallas_call at :169): prediction offset,
-//      condensed gradient, box bounds, p0 and M^-1 f, K6's loop, U and the
-//      predicted tail X_tail, from an already shifted warm start. Plain
+//      condensed gradient, box bounds, p0 and M^-1 f, the ADMM loop, U and
+//      the predicted tail X_tail, from an already shifted warm start. Plain
 //      version: ops/controller_pallas.py:gpmpc_controller_fused_plain.
 //   K4 gpmpc_tick_kernel  replaces ops/tick_pallas.py:gpmpc_tick_fused
 //      (pallas_call at :344): the warm-start shift, the condensed solve with
@@ -24,34 +24,40 @@
 //      attitude PID and the plant's RK4 substeps on `state`, and the 25-lane
 //      packed row. Plain version: ops/tick_pallas.py:gpmpc_tick_fused_plain.
 //
-// K6 and K3 run block_linalg.cuh's matvecs and composite-ADMM iteration on
-// 256 threads. K4 is a kernel of the multi-tick family (tick_kernel.cu: K5,
-// noisy_tick_kernel.cu: K9): 512 threads, multitick_phases.cuh's
-// warm_shift and condensed_solve, and plant_math.cuh's
-// mpc_command_plant_warp on warp 0, so the three run one device
-// implementation of the tick.
+// K4 and K3 are kernels of the multi-tick family (tick_kernel.cu: K5,
+// noisy_tick_kernel.cu: K9): 512 threads and multitick_phases.cuh's
+// condensed_solve, so they run one device implementation of the tick; K4
+// adds warm_shift before it and plant_math.cuh's mpc_command_plant_warp on
+// warp 0 after it.
 //
-// Each kernel but K14 is built in two variants. With kSharedP1, P1 = G
-// M^-1 G' (m x m; 160,000 bytes at N=20) lies in dynamic shared memory and
-// each ADMM step reads its column from there; without it, each step reads
-// P1 from global memory through L1/L2, 16 loads in flight per thread. The
-// wrapper takes the shared variant where P1 and the vectors fit the block's
-// opt-in shared memory (N <= 23 on an H100) and the other one beyond (the
-// package default N=25 has a 250,000-byte P1). K6 and K3 copy P1 in with
-// 16-byte loads before any other work; K4 copies it with bulk copies on the
-// SM's copy engine, issued at the kernel's start, and waits for them only
-// before its first ADMM step: the warm start, the offset, f, the bounds, p0
-// and M^-1 f (~1/4 of its time at N=20, by the section clocks) do not read
-// P1.
+// The ADMM operator P1 = G M^-1 G' (m x m). K4 applies P1 itself
+// (P1Operator; 160,000 bytes at N=20): in dynamic shared memory where the
+// layout fits the block's opt-in shared memory (kSharedP1, N <= 23 on an
+// H100), else read through L1/L2 each step; thread 0 bulk-copies it at the
+// kernel's start and the solve waits for it only before the first ADMM
+// step. K3 and K6 (given Su') apply P1 as its two factors for G = [I; Su]
+// (block_linalg.cuh): t = v GM^-1, GU = p0 + [t | t Su'], 64 N^2
+// multiply-adds a step against P1's 100 N^2, and each of the 512 threads
+// holds its slices of both factors in registers for the whole launch
+// (SliceOperator, factored_admm_slices: at most 36 + 20 floats a thread to
+// N=20, 52 + 36 to N=25), so a step reads only its vectors from shared
+// memory. Both load their slices from device memory when the ADMM starts:
+// K3 from GM^-1 (P0matT, m x Nnu) and Su' (SuT, Nnu x Nnx), neighbouring
+// threads reading neighbouring columns; K6 from GMinvT (GM^-1's transpose,
+// the JAX operand), each thread's slice a contiguous run. Past N=25 both
+// read the factors through L2 every step (FactoredOperator,
+// factored_admm). Without Su', K6 runs the P1 step on
+// 256 threads (admm_composite_kernel: composite_admm, one column a thread,
+// P1 copied in with 16-byte loads before any other work).
 //
 // What bounds them on an H100: one block on one SM of 132, so latency, not
-// the card's rates. At N=20 one ADMM step is 40,000 multiply-adds over one
-// column a thread (200 columns) and one barrier: ~0.7 us of shared-memory
-// reads per step; the other phases are five short matvecs against
-// L2-resident operands (~300 KB) and, in K4, the one-warp RK4. The bound
-// from the card's rates (bytes over 3.35 TB/s, operations over 67 TFLOP/s)
-// is well under a microsecond; a batch of flights (a grid of blocks) is
-// what would approach it.
+// the card's rates. A factored step is two register products, their slices
+// added after a barrier each, and the updates, four barriers in all; the
+// other phases are short matvecs against L2-resident operands (~200 KB)
+// and, in K4, the one-warp RK4. The bound from the card's rates (bytes
+// over 3.35 TB/s, operations over 67 TFLOP/s) is well under a
+// microsecond; a batch of flights (a grid of blocks) is what would
+// approach it.
 //
 // Every sum runs in a fixed order, so two launches agree bit for bit.
 
@@ -70,9 +76,12 @@ struct AdmmParams {
   float rho, over_relax, one_minus_over_relax;
 };
 
+// SuT (n x (m - n), G's block below the identity, transposed) is read by
+// admm_factored_kernel only; P1 by admm_composite_kernel only.
 struct AdmmOperands {
   const float *P1, *p0, *GMinvT, *minvf, *lower, *upper, *z_in, *y_in;
   float *u_out, *z_out, *y_out;
+  const float* SuT;
 };
 
 // K14 (ops/admm_pallas.py _ExplicitParams / _ExplicitOperands)
@@ -110,8 +119,8 @@ namespace {
 using uav::matvec_partial;
 using uav::matvec_total;
 
-constexpr int kThreads = 256;       // ops/admm_pallas.py KERNEL_THREADS
-constexpr int kTickThreads = 512;   // ops/tick_pallas.py SINGLE_TICK_THREADS: K4's block
+constexpr int kThreads = 256;       // ops/admm_pallas.py KERNEL_THREADS: K14, K6 on P1
+constexpr int kTickThreads = 512;   // ops/tick_pallas.py SINGLE_TICK_THREADS: K4, K3, K6 factored
 constexpr int kNu = 4;
 constexpr int kNx = 6;
 
@@ -250,94 +259,6 @@ admm_explicit_kernel(const ExplicitParams P, const ExplicitOperands O) {
   }
 }
 
-// K3.
-template <bool kSharedP1>
-__global__ void __launch_bounds__(kThreads, 1)
-controller_kernel(const SingleTickParams P, const SingleTickOperands O) {
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
-  const int m4 = round4(m);
-  const float rho = P.rho;
-
-  // shared memory layout (ops/controller_pallas.py
-  // controller_shared_memory_bytes); P1, va and vb start 16-byte aligned
-  float* P1s = sm;
-  float* va = P1s + (kSharedP1 ? round4(m * m) : 0);   // ADMM matvec input,
-  float* vb = va + m4;                                 // double-buffered
-  float* z = vb + m4;
-  float* y = z + m;
-  float* p0 = y + m;
-  float* lower = p0 + m;
-  float* upper = lower + m;
-  float* xw = upper + m;        // [x0 (6) | w (Nnx)]
-  float* offset = xw + kNx + Nnx;
-  float* ref = offset + Nnx;
-  float* dref = ref + Nnx;
-  float* f = dref + Nnx;
-  float* minvf = f + Nnu;
-  float* U = minvf + Nnu;
-  float* part = U + Nnu;        // matvec slices: nth + npm
-
-  if constexpr (kSharedP1) uav::copy_floats_to_shared(P1s, O.P1, m * m, tid, nth);
-  for (int i = tid; i < m; i += nth) {
-    z[i] = O.z_in[i];
-    y[i] = O.y_in[i];
-  }
-  if (tid < kNx) xw[tid] = O.x0[tid];
-  for (int i = tid; i < Nnx; i += nth) {
-    xw[kNx + i] = O.w[i];
-    ref[i] = O.ref[i];
-  }
-  __syncthreads();
-  // ---- prediction offset = [x0, w] @ [Sx'; Sw'] ----------------------------
-  matvec_partial(xw, O.SxSwT, Nnx, kNx + Nnx, Nnx, part, tid, nth);
-  __syncthreads();
-  for (int r = tid; r < Nnx; r += nth) {
-    const float off = matvec_total(part, Nnx, nth, r);
-    offset[r] = off;
-    dref[r] = off - ref[r];
-  }
-  __syncthreads();
-  // ---- condensed gradient and box bounds -----------------------------------
-  matvec_partial(dref, O.SuTqT, Nnu, Nnx, Nnu, part, tid, nth);
-  for (int i = tid; i < m; i += nth) {
-    const float off_z = (i >= Nnu && i < Nnu + Nnx) ? offset[i - Nnu] : 0.0f;
-    uav::box_bounds(O.lo_row, O.hi_row, nullptr, i, off_z, lower + i, upper + i);
-    va[i] = rho * z[i] - y[i];
-  }
-  __syncthreads();
-  for (int c = tid; c < Nnu; c += nth) f[c] = matvec_total(part, Nnu, nth, c);
-  __syncthreads();
-  // ---- p0 = -(f @ P0mat), M^-1 f = f @ MinvT -----------------------------
-  matvec_partial(f, O.PM, npm, Nnu, npm, part, tid, nth);
-  __syncthreads();
-  for (int j = tid; j < npm; j += nth) {
-    const float acc = matvec_total(part, npm, nth, j);
-    if (j < m) p0[j] = -acc;
-    else minvf[j - m] = acc;
-  }
-  __syncthreads();
-  // ---- composite ADMM ------------------------------------------------------
-  const float* vsrc = uav::composite_admm<kSharedP1>(
-      kSharedP1 ? P1s : O.P1, m, p0, lower, upper, z, y, va, vb, rho, P.over_relax,
-      P.one_minus_over_relax, P.iterations, tid, nth);
-  // ---- primal U and predicted tail -----------------------------------------
-  matvec_partial(vsrc, O.P0matT, Nnu, m, Nnu, part, tid, nth);
-  __syncthreads();
-  for (int c = tid; c < Nnu; c += nth) U[c] = -minvf[c] + matvec_total(part, Nnu, nth, c);
-  __syncthreads();
-  matvec_partial(U, O.SuT, Nnx, Nnu, Nnx, part, tid, nth);
-  __syncthreads();
-  for (int r = tid; r < Nnx; r += nth) O.xtail_out[r] = offset[r] + matvec_total(part, Nnx, nth, r);
-  for (int i = tid; i < m; i += nth) {
-    O.z_out[i] = z[i];
-    O.y_out[i] = y[i];
-  }
-  for (int c = tid; c < Nnu; c += nth) O.u_out[c] = U[c];
-}
-
 // ---- K4 -----------------------------------------------------------------
 //
 // One block of 512 threads. Thread 0 starts P1's copy into shared memory
@@ -465,6 +386,168 @@ gpmpc_tick_kernel(const __grid_constant__ SingleTickParams P,
   }
 }
 
+// ---- K3 -----------------------------------------------------------------
+//
+// One block of 512 threads: K4's tick without the warm-start shift and the
+// plant, its ADMM on P1's two factors, GM^-1 (P0matT) and Su' (SuT). The
+// register variants load each thread's slices from device memory when the
+// ADMM starts (SliceOperator); kFactorsL2 reads both factors through L2
+// every step (FactoredOperator).
+//
+// Section clocks (K4's slots and three more, ops/controller_pallas.py
+// CONTROLLER_SECTIONS): 2-7 the solve's six phases (the ADMM with the
+// slices' loads), 10-12 the ADMM step's three, 9 the whole launch.
+//
+// The factors' variants of K3 and K6 (ops/controller_pallas.py
+// FACTORS_L2 ...): each thread's slices in registers, of at most 36 / 20
+// rows of GM^-1 / Su' (N <= 20) or 52 / 36 (N <= 25), or both factors read
+// through L2 every step beyond.
+constexpr int kFactorsL2 = 0, kFactorsRegs20 = 1, kFactorsRegs25 = 2;
+
+template <int kVariant>
+__global__ void __launch_bounds__(kTickThreads, 1)
+controller_kernel(const __grid_constant__ SingleTickParams P,
+                  const __grid_constant__ SingleTickOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x;
+  constexpr int nth = kTickThreads;
+  const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  const int m4 = round4(m);
+  SECTION_START(t_whole);
+
+  // shared memory layout (ops/controller_pallas.py
+  // controller_shared_memory_bytes): va, vb and t 16-byte aligned
+  float* va = sm;               // ADMM matvec input, double-buffered
+  float* vb = va + m4;
+  float* ts = vb + m4;          // t = v GM^-1
+  float* z = ts + Nnu;
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lower = p0 + m;
+  float* upper = lower + m;
+  float* xw = upper + m;        // [x0 (6) | w (Nnx)]
+  float* offset = xw + kNx + Nnx;
+  float* dref = offset + Nnx;
+  float* f = dref + Nnx;
+  float* minvf = f + Nnu;
+  float* U = minvf + Nnu;
+  float* part = U + Nnu;        // matvec slices: max(nth, npm)
+  float* anchor = part + max(nth, npm);   // x0 (condensed_solve's copy; unused here)
+
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+  }
+  if (tid < kNx) xw[tid] = O.x0[tid];
+  for (int i = tid; i < Nnx; i += nth) xw[kNx + i] = O.w[i];
+  __syncthreads();
+
+  const uav::CondensedOperands cops{O.SxSwT, O.SuTqT, O.PM, O.P0matT, O.SuT};
+  const uav::TickVectors vec{nullptr, O.lo_row, O.hi_row, O.ref, va, vb, z, y, p0, lower, upper,
+                             xw, O.xtail_out, offset, dref, f, minvf, U, part, anchor};
+  auto solve = [&](auto op) {
+    uav::condensed_solve(cops, vec, N, m, P.rho, P.over_relax, P.one_minus_over_relax,
+                         P.iterations, tid, nth, 2, uav::NoWait{}, op);
+  };
+  if constexpr (kVariant == kFactorsRegs20) {
+    solve(uav::SliceOperator<36, 20>{O.P0matT, O.SuT, ts, 10});
+  } else if constexpr (kVariant == kFactorsRegs25) {
+    solve(uav::SliceOperator<52, 36>{O.P0matT, O.SuT, ts, 10});
+  } else {
+    solve(uav::FactoredOperator{O.P0matT, O.SuT, ts, 10});
+  }
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+  for (int c = tid; c < Nnu; c += nth) O.u_out[c] = U[c];
+  if (tid == 0) SECTION_ADD(9, t_whole);
+}
+
+// ---- K6 on the factors --------------------------------------------------
+//
+// One block of 512 threads: `iterations` factored steps and U = -M^-1 f +
+// t of the final (z, y). G = [I; Su]: n rows of I over m - n rows of Su,
+// GM^-1 given as its transpose GMinvT (n x m, the JAX operand) and Su' as
+// SuT (n x (m - n)). The register variants load each thread's slices
+// straight from device memory (GMinvT's rows 8 bytes a load, m even) while
+// nothing else is left to run; kFactorsL2 reads both factors through L2
+// every step, t as row dots (factor_t's row form). The factors never enter
+// shared memory.
+//
+// Section clocks (K4's slots, ops/admm_pallas.py COMPOSITE_SECTIONS): 5
+// the ADMM (the slices' loads included), 10-12 its three phases, 6 U, 9 the
+// whole launch.
+template <int kVariant>
+__global__ void __launch_bounds__(kTickThreads, 1)
+admm_factored_kernel(const __grid_constant__ AdmmParams P,
+                     const __grid_constant__ AdmmOperands O) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x;
+  constexpr int nth = kTickThreads;
+  const int n = P.n, m = P.m;
+  SECTION_START(t_whole);
+
+  // shared memory layout (ops/admm_pallas.py factored_shared_memory_bytes):
+  // va, vb and t 16-byte aligned, five m-vectors and the slices
+  float* va = sm;
+  float* vb = va + round4(m);
+  float* ts = vb + round4(m);
+  float* z = ts + round4(n);
+  float* y = z + m;
+  float* p0 = y + m;
+  float* lower = p0 + m;
+  float* upper = lower + m;
+  float* part = upper + m;      // the products' slices: nth
+
+  for (int i = tid; i < m; i += nth) {
+    z[i] = O.z_in[i];
+    y[i] = O.y_in[i];
+    p0[i] = O.p0[i];
+    lower[i] = O.lower[i];
+    upper[i] = O.upper[i];
+    va[i] = P.rho * z[i] - y[i];
+  }
+  __syncthreads();
+  const auto emit_u = [&](int c, float t) { O.u_out[c] = -O.minvf[c] + t; };
+  SECTION_START(t_admm);
+  auto slices = [&](auto& sl) {
+    uav::load_factor_slices<true>(sl, O.GMinvT, m, O.SuT, m, n, tid, nth);
+    const float* vsrc = uav::factored_admm_slices(sl, m, n, p0, lower, upper, z, y, va, vb, ts,
+                                                  part, P.rho, P.over_relax,
+                                                  P.one_minus_over_relax, P.iterations, tid,
+                                                  nth, 10);
+    SECTION_START(t_u);
+    if (tid == 0) SECTION_ADD(5, t_admm);
+    uav::slices_t(sl, vsrc, n, part, tid, nth, emit_u);
+    __syncthreads();
+    if (tid == 0) SECTION_ADD(6, t_u);
+  };
+  if constexpr (kVariant == kFactorsRegs20) {
+    uav::FactorSlices<36, 20> sl;
+    slices(sl);
+  } else if constexpr (kVariant == kFactorsRegs25) {
+    uav::FactorSlices<52, 36> sl;
+    slices(sl);
+  } else {
+    const float* vsrc = uav::factored_admm<true>(
+        O.GMinvT, m, O.SuT, m, n, p0, lower, upper, z, y, va, vb, ts, part, P.rho,
+        P.over_relax, P.one_minus_over_relax, P.iterations, tid, nth, 10);
+    SECTION_START(t_u);
+    if (tid == 0) SECTION_ADD(5, t_admm);
+    uav::factor_t<true>(vsrc, O.GMinvT, m, m, n, part, tid, nth, emit_u);
+    __syncthreads();
+    if (tid == 0) SECTION_ADD(6, t_u);
+  }
+  for (int i = tid; i < m; i += nth) {
+    O.z_out[i] = z[i];
+    O.y_out[i] = y[i];
+  }
+  if (tid == 0) SECTION_ADD(9, t_whole);
+}
+
 // Raise the block's shared-memory limit once per size and instantiation
 // (a host-side call, kept out of the per-launch path and out of CUDA graph
 // captures), then launch one block on `stream`.
@@ -482,7 +565,7 @@ int launch_one_block(void (*kernel)(const Params, const Operands), int* configur
   return (int)cudaGetLastError();
 }
 
-int configured_bytes[8] = {-1, -1, -1, -1, -1, -1, -1, -1};
+int configured_bytes[12] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
 
 }  // namespace
 
@@ -494,13 +577,37 @@ extern "C" int admm_composite_launch(const AdmmParams* params, const AdmmOperand
                                       params, ops, smem_bytes, stream);
 }
 
+// K6 on P1's factors (ops->SuT set) and K3: `variant` is one of the
+// factors' variants (kFactorsL2, kFactorsRegs20, kFactorsRegs25).
+extern "C" int admm_factored_launch(const AdmmParams* params, const AdmmOperands* ops,
+                                    int variant, int smem_bytes, void* stream) {
+  switch (variant) {
+    case kFactorsRegs20:
+      return launch_one_block(admm_factored_kernel<kFactorsRegs20>, &configured_bytes[8],
+                              params, ops, smem_bytes, stream, kTickThreads);
+    case kFactorsRegs25:
+      return launch_one_block(admm_factored_kernel<kFactorsRegs25>, &configured_bytes[10],
+                              params, ops, smem_bytes, stream, kTickThreads);
+    default:
+      return launch_one_block(admm_factored_kernel<kFactorsL2>, &configured_bytes[9], params,
+                              ops, smem_bytes, stream, kTickThreads);
+  }
+}
+
 extern "C" int gpmpc_controller_launch(const SingleTickParams* params,
-                                       const SingleTickOperands* ops, int p1_shared,
+                                       const SingleTickOperands* ops, int variant,
                                        int smem_bytes, void* stream) {
-  return p1_shared ? launch_one_block(controller_kernel<true>, &configured_bytes[2], params, ops,
-                                      smem_bytes, stream)
-                   : launch_one_block(controller_kernel<false>, &configured_bytes[3], params, ops,
-                                      smem_bytes, stream);
+  switch (variant) {
+    case kFactorsRegs20:
+      return launch_one_block(controller_kernel<kFactorsRegs20>, &configured_bytes[2], params,
+                              ops, smem_bytes, stream, kTickThreads);
+    case kFactorsRegs25:
+      return launch_one_block(controller_kernel<kFactorsRegs25>, &configured_bytes[11], params,
+                              ops, smem_bytes, stream, kTickThreads);
+    default:
+      return launch_one_block(controller_kernel<kFactorsL2>, &configured_bytes[3], params, ops,
+                              smem_bytes, stream, kTickThreads);
+  }
 }
 
 extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTickOperands* ops,
@@ -511,10 +618,11 @@ extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTic
                                       smem_bytes, stream, kTickThreads);
 }
 
-// K4's section counters (ops/tick_pallas.py SINGLE_TICK_SECTIONS) summed
-// since the last call, then reset (section_clocks.cuh).
+// The section counters of K4 (ops/tick_pallas.py SINGLE_TICK_SECTIONS), K3
+// and K6 on the factors (their slots among K4's) summed since the last
+// call, then reset (section_clocks.cuh).
 extern "C" int single_tick_section_cycles(unsigned long long* out) {
-  return uav::read_section_cycles(out, 10);
+  return uav::read_section_cycles(out, 13);
 }
 
 extern "C" int admm_explicit_launch(const ExplicitParams* params, const ExplicitOperands* ops,

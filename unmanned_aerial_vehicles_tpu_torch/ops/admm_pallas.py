@@ -24,20 +24,28 @@ with one ``(m, m)`` matvec each, then the primal recovery
     z  = clip(Gt + y / rho, lower, upper),  y += rho (Gt - z),
     U  = -M^-1 f + GMinvT (rho z - y).
 
-The kernel is ``csrc/single_tick_kernels.cu`` (``admm_composite_kernel``,
-one thread block, P1 in shared memory where it fits and read through L2
-beyond). Its plain PyTorch version is ``admm_box_qp_fused_composite_plain``
-below: the float32 ``admm_box_qp_composite`` with the TPU kernel's
-contractions (the row form ``v @ P1``, GMinvT contracted on its second
-axis; a float32 P1 is not exactly symmetric, so ``P1 @ v`` differs).
+Given ``SuT`` (``G``'s block below the identity, transposed: the contract
+is ``G = [I; Su]``), the kernel applies P1 as its two factors,
+``v @ P1 = [t | t @ SuT]`` with ``t = v @ GMinvT'``, 64 N^2 multiply-adds a
+step at horizon N against P1's 100 N^2: ``csrc/single_tick_kernels.cu``
+``admm_factored_kernel``, one block of 512 threads, each thread's slices
+of ``GMinvT`` and ``SuT`` in registers for the whole launch (to N=25 at
+``LinearMPC``'s shapes), both read through L2 every step beyond; P1 is not
+read. Without ``SuT`` (a general ``G``) it is ``admm_composite_kernel``, one
+block of 256 threads, P1 in shared memory where it fits (N <= 23) and read
+through L2 beyond. The plain PyTorch version is
+``admm_box_qp_fused_composite_plain`` below, for both: the float32
+``admm_box_qp_composite`` with the TPU kernel's contractions (the row form
+``v @ P1``, GMinvT contracted on its second axis; a float32 P1 is not
+exactly symmetric, so ``P1 @ v`` differs).
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Shapes are semantic (the TPU
 kernels' 128-lane padding is gone, and the ``(1, k)`` rows are ``(k,)``
 vectors): K14 takes ``M_inv (n, n)``, ``G (m, n)``, ``GT (n, m)``,
 ``f (n,)``, ``lower, upper, z0, y0 (m,)``; K6 ``P1 (m, m)``,
-``GMinvT (n, m)``, ``p0, lower, upper, z0, y0 (m,)``, ``Minv_f (n,)``; all
-float32. Zero-padded operands (zero rows and columns of ``M^-1`` and
+``GMinvT (n, m)``, ``p0, lower, upper, z0, y0 (m,)``, ``Minv_f (n,)`` and
+optionally ``SuT (n, m - n)``; all float32. Zero-padded operands (zero rows and columns of ``M^-1`` and
 ``G``, ``lower = upper = 0`` on padded rows) keep zeros in the padded
 lanes.
 """
@@ -50,7 +58,8 @@ import torch
 
 from . import _cuda
 
-KERNEL_THREADS = 256   # csrc/single_tick_kernels.cu kThreads
+KERNEL_THREADS = 256     # csrc/single_tick_kernels.cu kThreads: K14, K6 on P1
+FACTORED_THREADS = 512   # kTickThreads: K6 on the factors
 
 
 def admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
@@ -78,6 +87,34 @@ def shared_memory_bytes(m: int, p1_shared: bool = True) -> int:
     return 4 * ((_round4(m * m) if p1_shared else 0) + 2 * _round4(m) + 5 * m)
 
 
+def factored_shared_memory_bytes(n: int, m: int, threads: int = FACTORED_THREADS) -> int:
+    """Dynamic shared memory of one block of K6 on the factors
+    (csrc/single_tick_kernels.cu ``admm_factored_kernel`` layout; the
+    factors stay in registers or device memory): the ADMM input
+    double-buffered and t (16-byte aligned), five m-vectors and the
+    products' slices."""
+    return 4 * (2 * _round4(m) + _round4(n) + 5 * m + threads)
+
+
+# K6's section clocks on the factors (the build with section clocks): the
+# library's counters it sets (``tick_pallas.SINGLE_TICK_COUNTERS``; the ADMM
+# includes the slices' loads, its three phases are summed over its steps)
+COMPOSITE_SECTIONS = ("ADMM", "ADMM: t and the U-block update", "ADMM: t Su'",
+                      "ADMM: the X-block update", "solve: U", "whole launch")
+
+
+def composite_section_cycles() -> dict[str, int]:
+    """K6's per-section clock cycles on the factors, summed over the
+    launches since the last call, then reset (``COMPOSITE_SECTIONS``).
+    Counted only by the build with section clocks: launch K6 with ``SuT``
+    inside ``_cuda.library_variant("single_tick", "single_tick_clocks")``,
+    synchronise, then call this."""
+    from .tick_pallas import single_tick_counters
+
+    cycles = single_tick_counters()
+    return {name: cycles[name] for name in COMPOSITE_SECTIONS}
+
+
 class _AdmmParams(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int), ("m", ctypes.c_int), ("iterations", ctypes.c_int),
@@ -87,7 +124,7 @@ class _AdmmParams(ctypes.Structure):
 
 
 _ADMM_OPERANDS = ("P1", "p0", "GMinvT", "minvf", "lower", "upper", "z_in", "y_in",
-                  "u_out", "z_out", "y_out")
+                  "u_out", "z_out", "y_out", "SuT")
 
 
 class _AdmmOperands(ctypes.Structure):
@@ -106,9 +143,13 @@ def admm_box_qp_fused_composite(
     rho: float,
     iterations: int,
     over_relax: float = 1.6,
+    *,
+    SuT: torch.Tensor | None = None,   # (n, m - n) = Su' for G = [I; Su]
 ):
     """The whole composite-ADMM solve in one launch (K6). Returns
-    ``(U (n,), z (m,), y (m,))`` in float32."""
+    ``(U (n,), z (m,), y (m,))`` in float32. With ``SuT`` the kernel applies
+    P1 as ``GMinvT`` and ``SuT`` and does not read P1; the plain version,
+    which the CPU runs, multiplies by P1 either way."""
     dev = P1.device
     m, n = P1.shape[0], GMinvT.shape[0]
     req = _cuda.require
@@ -117,27 +158,38 @@ def admm_box_qp_fused_composite(
     req(Minv_f, "Minv_f", (n,), dev)
     for name, t in (("p0", p0), ("lower", lower), ("upper", upper), ("z0", z0), ("y0", y0)):
         req(t, name, (m,), dev)
+    if SuT is not None:
+        req(SuT, "SuT", (n, m - n), dev)
     if dev.type == "cpu":
         return admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
                                                  rho, iterations, over_relax)
     if dev.type != "cuda":
         raise ValueError(f"admm_box_qp_fused_composite runs on cuda or cpu, not {dev}")
 
-    _cuda.require_aligned("admm_box_qp_fused_composite", P1)
-    p1_shared, smem = _cuda.p1_variant(dev, shared_memory_bytes(m, True),
+    if SuT is None:
+        _cuda.require_aligned("admm_box_qp_fused_composite", P1)
+        shared, smem = _cuda.p1_variant(dev, shared_memory_bytes(m, True),
                                         shared_memory_bytes(m, False))
+        entry = "admm_composite_launch"
+    else:
+        from .controller_pallas import factor_variant
+
+        _cuda.require_aligned("admm_box_qp_fused_composite", GMinvT, SuT)
+        shared, smem = factor_variant(dev, n, m, factored_shared_memory_bytes(n, m),
+                                      even_rows=True)
+        entry = "admm_factored_launch"
     params = _AdmmParams(n=n, m=m, iterations=int(iterations), rho=rho, over_relax=over_relax,
                          one_minus_over_relax=1.0 - over_relax)
     U = torch.empty(n, dtype=torch.float32, device=dev)
     z = torch.empty(m, dtype=torch.float32, device=dev)
     y = torch.empty(m, dtype=torch.float32, device=dev)
-    ops = _AdmmOperands(*(t.data_ptr() for t in (P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
-                                                 U, z, y)))
-    fn = _cuda.library("single_tick").admm_composite_launch
+    ops = _AdmmOperands(*(t.data_ptr() if t is not None else None
+                          for t in (P1, p0, GMinvT, Minv_f, lower, upper, z0, y0, U, z, y, SuT)))
+    fn = getattr(_cuda.library("single_tick"), entry)
     fn.argtypes = [ctypes.POINTER(_AdmmParams), ctypes.POINTER(_AdmmOperands), ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem, _cuda.stream_of(P1))
+    status = fn(ctypes.byref(params), ctypes.byref(ops), shared, smem, _cuda.stream_of(P1))
     _cuda.check(status, "admm_box_qp_fused_composite")
     _cuda.count_launch("admm_box_qp_fused_composite")
     return U, z, y

@@ -29,15 +29,21 @@ flights, the warm-start shift ``z0 = Z0 @ ShiftT`` inside the kernel):
 
     offset = [x0, w] @ [Sx'; Sw'],  f = (offset - ref) @ (Su'Q)',
     box bounds [u_box; x_box - offset],  p0 = -(f @ P0mat),  M^-1 f,
-    ADMM loop (one (m, m) matvec per iteration),
+    ADMM loop (v = rho z - y:  GU = p0 + v @ P1),
     U = -M^-1 f + (rho z - y) @ G M^-1,  X_tail = offset + U @ Su'.
 
 It reads the stacked device operands of ``ops.tick_pallas.FusedTickData``
 (the TPU kernel's ``Emb`` matmul is a lane offset here). The kernel is
-``csrc/single_tick_kernels.cu`` (``controller_kernel``, one block of 256
-threads; K4, ``gpmpc_tick_kernel`` there, runs the same tick on 512 threads
-with the shift before it and the plant after it); its plain version is
-``gpmpc_controller_fused_plain`` below. K16's kernel is
+``csrc/single_tick_kernels.cu`` (``controller_kernel``, one block of 512
+threads running ``multitick_phases.cuh:condensed_solve`` as K4 does,
+without K4's shift and plant). It applies P1 as its two factors, for
+``G = [I; Su]`` (``FusedTickData.factored``):
+``v @ P1 = [t | t @ Su']`` with ``t = v @ P0matT``, 64 N^2 multiply-adds a
+step against P1's 100 N^2: each thread holds its slices of both factors
+in registers for the whole ADMM (to N=25; both read through L2 every step
+beyond: ``factor_variant``). Its plain version is
+``gpmpc_controller_fused_plain`` below, which multiplies by P1. K16's
+kernel is
 ``csrc/controller_kernels.cu`` (``fused_batched_kernel``: a block per tile
 of two flights, their iterates in shared memory, so every P1 element read
 serves the whole tile); its plain version is
@@ -107,6 +113,18 @@ def build_fused_controller_data(
     )
 
 
+def factors_reproduce_p1(ctrl: FusedControllerData) -> bool:
+    """Whether ``P1 = P0matT @ [I | SuT]`` (to float32 rounding), that is
+    ``G = [I; Su]``: the factors K3 applies P1 as."""
+    P1 = np.asarray(ctrl.P1, np.float64)
+    A, S = np.asarray(ctrl.P0matT, np.float64), np.asarray(ctrl.SuT, np.float64)
+    Nnu = A.shape[1]
+    if P1.shape != (A.shape[0], Nnu + S.shape[1]) or S.shape[0] != Nnu:
+        return False
+    factored = np.concatenate([A, A @ S], axis=1)
+    return bool(np.abs(factored - P1).max() <= 1e-5 * max(np.abs(P1).max(), 1e-30))
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused single-flight controller (and the launch K4 shares with it)
 # ---------------------------------------------------------------------------
@@ -146,18 +164,74 @@ def gpmpc_controller_fused_plain(data, x0, w, ref, z0, y0, rho: float, iteration
     return controller_plain(data, x0, w, ref, z0, y0, rho, iterations, over_relax)
 
 
-def controller_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4, nx: int = 6,
-                                   threads: int = KERNEL_THREADS) -> int:
+CONTROLLER_THREADS = 512   # csrc/single_tick_kernels.cu kTickThreads: K3's block
+
+
+def controller_shared_memory_bytes(n: int, nu: int = 4, nx: int = 6,
+                                   threads: int = CONTROLLER_THREADS) -> int:
     """Dynamic shared memory of one K3 block of ``threads``
-    (csrc/single_tick_kernels.cu ``controller_kernel`` layout): P1 (shared
-    variant only), the double-buffered matvec input,
-    five m-vectors, [x0 | w], offset, ref and ref error, three U-space
-    vectors and the matvec slices."""
+    (csrc/single_tick_kernels.cu ``controller_kernel`` layout; the factors
+    stay in registers or device memory): the ADMM input double-buffered and
+    t (16-byte aligned), the slack, dual, p0 and the bounds, [x0 | w],
+    offset, ref error, f, M^-1 f and U, the matvec slices (``max(threads, m
+    + Nnu)``) and the solve's x0 copy (nx)."""
     m, Nnu, Nnx = n * (nu + nx), n * nu, n * nx
-    r4 = lambda v: (v + 3) // 4 * 4
-    floats = ((r4(m * m) if p1_shared else 0) + 2 * r4(m) + 5 * m + nx + 4 * Nnx + 3 * Nnu
-              + threads + m + Nnu)
+    m4 = (m + 3) // 4 * 4
+    floats = 2 * m4 + Nnu + 5 * m + nx + 3 * Nnx + 3 * Nnu + max(threads, m + Nnu) + nx
     return 4 * floats
+
+
+# The factors' variants of K3 and K6 (csrc/single_tick_kernels.cu
+# kFactorsL2 ...): each thread's slices of GM^-1 and Su' in registers, of
+# at most (36, 20) or (52, 36) rows, or both factors read through L2 every
+# step where the slices exceed those bounds
+FACTORS_L2, FACTORS_REGS20, FACTORS_REGS25 = 0, 1, 2
+FACTOR_SLICE_ROWS = {FACTORS_REGS20: (36, 20), FACTORS_REGS25: (52, 36)}
+
+
+def aligned_slice_rows(n_in: int, n_out: int, threads: int = CONTROLLER_THREADS) -> int:
+    """Rows of each slice of a product in ``aligned_slice``'s decomposition
+    (csrc/block_linalg.cuh): ``threads // n_out`` slices of a multiple of 4
+    rows."""
+    parts = 1 if n_out >= threads else threads // n_out
+    return (-(-n_in // parts) + 3) // 4 * 4
+
+
+def factor_variant(device, n_t: int, m: int, smem_bytes: int,
+                   even_rows: bool = False) -> tuple[int, int]:
+    """``(variant, shared-memory bytes)`` of K3 or K6 on P1's factors for
+    ``n_t`` controls and ``m`` constraint rows: the first register variant
+    whose bounds hold each thread's slices (and, ``even_rows``, m is even:
+    K6 reads its rows 8 bytes at a time), else the factors through L2.
+    Raises if the layout (``smem_bytes``) does not fit one block."""
+    limit = _cuda.shared_memory_optin(device)
+    if smem_bytes > limit:
+        raise ValueError(f"the kernel's vectors need {smem_bytes} bytes of shared memory, more "
+                         f"than one block's {limit}")
+    rows = (aligned_slice_rows(m, n_t), aligned_slice_rows(n_t, m - n_t))
+    for variant, (ka, kb) in FACTOR_SLICE_ROWS.items():
+        if rows[0] <= ka and rows[1] <= kb and not (even_rows and m % 2):
+            return variant, smem_bytes
+    return FACTORS_L2, smem_bytes
+
+
+# K3's section clocks (the build with section clocks): the library's
+# counters it sets (``tick_pallas.SINGLE_TICK_COUNTERS``; the ADMM includes
+# the slices' loads, its three phases are summed over its steps)
+CONTROLLER_SECTIONS = ("solve: offset", "solve: f", "solve: p0 and M^-1 f", "ADMM",
+                       "ADMM: t and the U-block update", "ADMM: t Su'",
+                       "ADMM: the X-block update", "solve: U", "solve: X_tail", "whole launch")
+
+
+def controller_section_cycles() -> dict[str, int]:
+    """K3's per-section clock cycles summed over the launches since the
+    last call, then reset (``CONTROLLER_SECTIONS``). Counted only by the
+    build with section clocks: launch K3 inside ``_cuda.library_variant(
+    "single_tick", "single_tick_clocks")``, synchronise, then call this."""
+    from .tick_pallas import single_tick_counters
+
+    cycles = single_tick_counters()
+    return {name: cycles[name] for name in CONTROLLER_SECTIONS}
 
 
 class _SingleTickParams(ctypes.Structure):
@@ -208,15 +282,19 @@ def launch_single_tick(entry: str, counter: str, data, n: int, tensors: dict, ou
                        yawrate_limit: float = 0.0, fallback_error_m: float = 0.0,
                        fallback_thrust_ceiling: float = 1.5,
                        fallback_accel_scale: float = 1.5,
-                       layout=controller_shared_memory_bytes) -> None:
-    """Launch K3 (``entry="gpmpc_controller_launch"``) or K4
+                       layout=None, variant=None) -> None:
+    """Launch K3 (``entry="gpmpc_controller_launch"``, ``variant`` its
+    ``(variant, shared-memory bytes)`` from ``factor_variant``) or K4
     (``"gpmpc_tick_launch"``, with ``layout`` its shared-memory bytes
-    ``(n, p1_shared)``) on the operands already checked by the caller, with
-    P1 in shared memory where it fits."""
+    ``(n, p1_shared)``: P1 in shared memory where it fits) on the operands
+    already checked by the caller."""
     dev = data.P1.device
     m = data.P1.shape[0]
     _cuda.require_aligned(counter, data.P1)
-    p1_shared, smem = _cuda.p1_variant(dev, layout(n, True), layout(n, False))
+    if variant is None:
+        p1_shared, smem = _cuda.p1_variant(dev, layout(n, True), layout(n, False))
+    else:
+        p1_shared, smem = variant
     floats3 = lambda v: (ctypes.c_float * 3)(*v)
     params = _SingleTickParams(
         n=n, m=m, iterations=int(iterations), substeps=int(substeps),
@@ -254,8 +332,10 @@ def gpmpc_controller_fused(
     over_relax: float = 1.6,
 ):
     """One fused controller tick (K3). Returns ``(z (m,), y (m,),
-    U (Nnu,), X_tail (Nnx,))`` in float32. P1 lies in shared memory where
-    it fits one block (N <= 23 on an H100) and is read through L2 beyond."""
+    U (Nnu,), X_tail (Nnx,))`` in float32. The kernel applies P1 as its
+    factors P0matT and SuT, so ``data`` must come from ``G = [I; Su]``
+    (``data.factored``); each thread holds its slices of them in
+    registers to N=25, and the kernel reads them through L2 beyond."""
     dev = x0.device
     Nnu, Nnx = data.Nnu, data.Nnx
     n, m = Nnu // 4, Nnu + Nnx
@@ -270,11 +350,15 @@ def gpmpc_controller_fused(
         return gpmpc_controller_fused_plain(data, x0, w, ref, z0, y0, rho, iterations, over_relax)
     if dev.type != "cuda":
         raise ValueError(f"gpmpc_controller_fused runs on cuda or cpu, not {dev}")
+    if not data.factored:
+        raise ValueError("gpmpc_controller_fused applies P1 as P0matT @ [I | SuT], which needs "
+                         "the tick data of G = [I; Su]")
     empty = lambda k: torch.empty(k, dtype=torch.float32, device=dev)
     outs = dict(z_out=empty(m), y_out=empty(m), u_out=empty(Nnu), xtail_out=empty(Nnx))
+    variant = factor_variant(dev, Nnu, m, controller_shared_memory_bytes(n))
     launch_single_tick("gpmpc_controller_launch", "gpmpc_controller_fused", data, n,
                        dict(x0=x0, w=w, ref=ref, z_in=z0, y_in=y0), outs,
-                       rho, iterations, over_relax)
+                       rho, iterations, over_relax, variant=variant)
     return outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
 
 

@@ -73,6 +73,7 @@ from . import _cuda
 from .controller_pallas import (
     FusedControllerData,
     controller_plain,
+    factors_reproduce_p1,
     launch_single_tick,
     require_tick_data,
 )
@@ -116,6 +117,8 @@ class FusedTickData(NamedTuple):
     SwSqT: torch.Tensor         # (Nnx, Nnx) = SwT**2: disturbance-variance propagation
     Nnu: int
     Nnx: int
+    # P1 = P0matT @ [I | SuT] (G = [I; Su]): K3 applies P1 as these factors
+    factored: bool = True
 
 
 def build_shift_matrix(N: int, nu: int, nx: int) -> np.ndarray:
@@ -157,6 +160,7 @@ def build_tick_data(ctrl: FusedControllerData, N: int, nu: int, nx: int,
         SwSqT=t(np.asarray(ctrl.SwT, np.float32) ** 2),
         Nnu=N * nu,
         Nnx=N * nx,
+        factored=factors_reproduce_p1(ctrl),
     )
 
 
@@ -440,6 +444,19 @@ def single_tick_shared_memory_bytes(n: int, p1_shared: bool = True, nu: int = 4,
 # (the part not hidden behind the phases before the ADMM), the warm start,
 # the solve's six phases, the scalar section and the whole launch
 SINGLE_TICK_SECTIONS = ("P1 copy", "shift") + SOLVE_PHASES + ("scalar section", "whole launch")
+# the library's counters: K4's, then the three phases of a factored ADMM step
+# (block_linalg.cuh factored_admm: K3 and K6 on P1's factors), summed over
+# the steps
+SINGLE_TICK_COUNTERS = SINGLE_TICK_SECTIONS + (
+    "ADMM: t and the U-block update", "ADMM: t Su'", "ADMM: the X-block update")
+
+
+def single_tick_counters() -> dict[str, int]:
+    """Every counter of the single-tick kernels' build with section clocks
+    (``SINGLE_TICK_COUNTERS``), summed over the launches since the last
+    call, then reset."""
+    return _cuda.section_cycles("single_tick_clocks", "single_tick_section_cycles",
+                                SINGLE_TICK_COUNTERS)
 
 
 def single_tick_section_cycles() -> dict[str, int]:
@@ -447,8 +464,8 @@ def single_tick_section_cycles() -> dict[str, int]:
     last call, then reset (``SINGLE_TICK_SECTIONS``). Counted only by the
     build with section clocks: launch K4 inside ``_cuda.library_variant(
     "single_tick", "single_tick_clocks")``, synchronise, then call this."""
-    return _cuda.section_cycles("single_tick_clocks", "single_tick_section_cycles",
-                                SINGLE_TICK_SECTIONS)
+    cycles = single_tick_counters()
+    return {name: cycles[name] for name in SINGLE_TICK_SECTIONS}
 
 
 def _vector_floats(n: int, nu: int, nx: int, threads: int, gp_threads: int, group: int,
