@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
    six outputs; a second launch bit-identical; again at N=25 with B=257,
    an odd horizon and a tail tile of one flight; its cycles per block by
    section from the build with section clocks), K7 at the sweep's width
-   (20480 queries against the 800-point GP; tolerance 1e-5), K4 at N=20
+   (20480 queries against the 800-point GP; tolerance 1e-5; a second launch
+   bit-identical; its bound also on the units that do its work; its cycles
+   per block by section from the build with section clocks; again at
+   P=2000, 25600 queries and on a masked ring buffer), K4 at N=20
    (P1 in shared memory) and N=25 (P1 read through L2), also with a
    separate controller state, a tightening row and the hover fallback, K3
    at N=20 and N=25 (P1's factors' slices in registers at both), and K6 at
@@ -75,9 +78,12 @@ Phases (any failure exits non-zero; nothing is caught):
    n=20; with ``--parent DIR`` (DIR holding an older checkout's package),
    K4 at N=20 and N=25, K8 at B=1024, K3 and K6 (with and without ``SuT``)
    at N=20 and N=25, K16 at B=256, the tightened K5, K5 and K9 at the main
-   path's shape (N=20, P=800, K=20), K11 at both plants and K13a at B=1 and
-   1024 of that package and of this one, and the device-busy and idle
-   shares of the staged flights through K3 and K6, timed in turns (older,
+   path's shape (N=20, P=800, K=20), K11 at both plants, K7 at the sweep's
+   width, K2 at B=1, on a dispersed (256, 10) plant block and at B=1024 (and
+   K2's outputs of both checkouts on the same inputs compared) and K13a at
+   B=1 and 1024 of that package and of this one, and the device-busy and
+   idle shares of the staged flights through K3 and K6 and of the sweep
+   (with K8's, K7's and K2's device time per tick), timed in turns (older,
    this, this, older; each older run a subprocess that builds its own
    sources, K11's operands through its own ``dispatch_tick_operands``, K3's
    and K6's through its own ``LinearMPC``);
@@ -159,8 +165,9 @@ Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
-                                         # K5, K9, K11 and K13a and its staged flights'
-                                         # device-busy shares in turns with this one's, and
+                                         # K5, K9, K11, K7, K2 and K13a and its staged
+                                         # flights' and sweep's device-busy shares in
+                                         # turns with this one's, and
                                          # its sweep, single-tick and online ticks in
                                          # E2E_PAIRS pairs
 """
@@ -169,6 +176,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -349,6 +357,32 @@ def ops_posterior_mean(m: int, P: int, d: int = 10, out: int = 6) -> int:
     point) pair the d-term dot, the distance (4), the scale and expf (2) and
     the out accumulations; per query its features, norm and offset."""
     return m * P * (2 * d + 4 + 2 + 2 * out) + m * (3 * d + out)
+
+
+PEAK_TF32_OPS_PER_S = 495e12   # the tensor cores, dense TF32
+PEAK_SM_CLOCK_HZ = 1.98e9      # 67 TFLOP/s = 132 SMs x 128 lanes x 2 x 1.98 GHz
+SFU_PER_CLOCK_PER_SM = 16      # ex2 and the other special functions
+
+
+def bound_posterior_mean_units(m: int, P: int, n_bytes: int, sms: int, d: int = 10,
+                               out: int = 6):
+    """K7's bound: its work (``ops_posterior_mean``'s count) on the units
+    that can do it, side by side: the two products (2 d + 2 out operations
+    a pair) at the TF32 tensor rate, tripled for 3xTF32; the exps at the
+    SFU's 16 a clock per SM; the rest of a pair's elementwise work (the
+    distance's four operations with the clamp, the scale) and the queries'
+    set-up on the FP32 pipe; the bytes. Returns the slowest unit's time
+    (ms), its kind and its name: ``(ms, "bytes" or "operations", unit)``.
+    The FP32 form (``bound_ms`` of ``ops_posterior_mean``) is kept beside
+    it."""
+    times = {
+        "tensor cores, 3xTF32": 3 * m * P * (2 * d + 2 * out) / PEAK_TF32_OPS_PER_S,
+        "SFU exps": m * P / (sms * SFU_PER_CLOCK_PER_SM * PEAK_SM_CLOCK_HZ),
+        "FP32 pipe": (5 * m * P + m * (3 * d + out)) / PEAK_F32_OPS_PER_S,
+        "bytes": n_bytes / PEAK_BYTES_PER_S,
+    }
+    unit = max(times, key=times.get)
+    return times[unit] * 1e3, "bytes" if unit == "bytes" else "operations", unit
 
 
 def ops_filter(n: int, relinearize_per_tick: bool = True) -> int:
@@ -2123,6 +2157,133 @@ def time_k3_k6(dev) -> dict:
     return out
 
 
+def k2_operands(gen, B: int, f32: dict, dispersed: bool = False):
+    """K2's operands for a batch of B: random states (roll and yaw across
+    the +-pi wrap; pitch kept off the Euler-rate singularity, where
+    1/cos(theta) would amplify float32 rounding), commands, integrals, and
+    the shared plant row or a dispersed (B, 10) block (the Monte Carlo
+    population's)."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import plant_pallas
+
+    s = torch.randn(B, 12, generator=gen)
+    s[:, 6] = (torch.rand(B, generator=gen) - 0.5) * 7.0
+    s[:, 7] = (torch.rand(B, generator=gen) - 0.5) * 1.2
+    s[:, 8] = (torch.rand(B, generator=gen) - 0.5) * 7.0
+    s[:, 9:12] *= 0.5
+    cmd = torch.cat([2.0 * torch.randn(B, 3, generator=gen), torch.randn(B, 1, generator=gen),
+                     6.0 * (torch.rand(B, 1, generator=gen) - 0.5),
+                     torch.where(torch.rand(B, 1, generator=gen) < 0.5, 1.2, 1.5)], 1)
+    integ = 0.6 * (torch.rand(B, 3, generator=gen) - 0.5)
+    if dispersed:
+        plant = torch.stack([
+            0.5 * torch.exp(0.1 * torch.randn(B, generator=gen)), torch.full((B,), 9.81),
+            0.25 * torch.exp(0.3 * torch.randn(B, generator=gen)),
+            *(tau * torch.exp(0.2 * torch.randn(B, generator=gen)) for tau in (0.05, 0.05, 0.08)),
+            9.81 / torch.exp(0.03 * torch.randn(B, generator=gen)),
+            *(0.8 * torch.randn(3, B, generator=gen))], dim=1)
+    else:
+        plant = plant_pallas.build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81,
+                                             (0.8, 0.4, 0.0), device=f32["device"])
+    return tuple(t.to(**f32).contiguous() for t in (s, cmd, integ, plant))
+
+
+def time_k7_k2(dev, post) -> dict:
+    """Device microseconds per launch of K7 at the sweep's width (20480
+    queries, a quarter within 0.2 of a training point, against the
+    800-point GP) and of K2 at B=1, on a dispersed (256, 10) plant block
+    and at B=1024, on seeded operands; K2's outputs (B=1024 and the block)
+    go to a file named by ``_k2_outputs``, so that the caller can hold one
+    checkout's K2 against another's on the same inputs."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import plant_pallas, rbf_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(14)
+    mq = SWEEP_B * HORIZON
+    Xq = torch.randn(mq, 10, generator=gen).to(**f32)
+    near = torch.randint(0, GP_POINTS, (mq // 4,), generator=gen).to(dev)
+    Xq[: mq // 4] = post.X_train[near] + 0.2 * torch.randn(mq // 4, 10, generator=gen).to(**f32)
+    Xq = Xq.contiguous()
+    gp_ops = rbf_pallas.posterior_mean_operands(post)
+    out = {"k7_us": graph_ms(lambda: rbf_pallas.rbf_posterior_mean_pallas(gp_ops, Xq), 20) * 1e3}
+    outputs = {}
+    for key, B, dispersed in (("k2_b1_us", 1, False), ("k2_b256_dispersed_us", MC_B, True),
+                              ("k2_b1024_us", SWEEP_B, False)):
+        ops = k2_operands(gen, B, f32, dispersed)
+        call = lambda: plant_pallas._allocation_plant_rows(*ops, 0.02, 2)
+        outputs[key] = [t.cpu() for t in call()]
+        out[key] = graph_ms(call, 200) * 1e3
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    torch.save(outputs, path)
+    out["_k2_outputs"] = path
+    return out
+
+
+def k2_difference(older: str, this: str) -> str:
+    """The largest difference between two checkouts' K2 outputs saved by
+    ``time_k7_k2`` (both files are removed)."""
+    import torch
+
+    a, b = torch.load(older), torch.load(this)
+    os.unlink(older)
+    os.unlink(this)
+    same = all(torch.equal(x, y) for k in a for x, y in zip(a[k], b[k]))
+    worst = max(float((x - y).abs().max()) for k in a for x, y in zip(a[k], b[k]))
+    return "bit-identical" if same else f"largest difference {worst:.3e}"
+
+
+SWEEP_SHARE_T = 50    # the sweep's profiler window (ticks)
+
+
+def sweep_shares(dev, post) -> dict:
+    """The 1024-flight sweep (``gp_posterior``, ``gp_every`` 1, N=20, 10
+    iterations) as phase 4 flies it: microseconds per tick (slope between
+    200 and 700 ticks), device-busy microseconds per tick from a
+    ``torch.profiler`` window of ``SWEEP_SHARE_T`` ticks (device events
+    only), the idle share in percent, and K8's, K7's and K2's device
+    microseconds per tick in that window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import batched_mpc_flight_sweep
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    mpc = LinearMPC(LinearMPCConfig(horizon=HORIZON, admm_iterations=ADMM_ITERS,
+                                    use_fused_controller=True), device=dev)
+
+    def ref(t):
+        p, y = ramped_figure8_reference(t, 6.0, 0.02)
+        return p + torch.tensor([0.0, 0.0, 3.0], dtype=p.dtype, device=p.device), y
+
+    starts = torch.zeros(SWEEP_B, 12, **f32)
+    starts[:, 2] = 3.0
+    starts[:, 0] = torch.linspace(-1.0, 1.0, SWEEP_B, **f32)
+    fly = lambda T: batched_mpc_flight_sweep(mpc, ref, T, starts, device=dev, gp_posterior=post,
+                                             gp_cfg=ResidualGPConfig())
+    tick_us = slope_us(fly, T_SWEEP_SLOPE)
+    fly(SWEEP_SHARE_T)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fly(SWEEP_SHARE_T)
+        torch.cuda.synchronize()
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_tick = lambda part: sum(t for k, t in events if part in k) / SWEEP_SHARE_T
+    busy = per_tick("")
+    return {"sweep_us_per_tick": tick_us, "sweep_busy_us_per_tick": busy,
+            "sweep_idle_pct": 100.0 * (1.0 - busy / tick_us),
+            "sweep_k8_us_per_tick": per_tick("structured_batched_kernel"),
+            "sweep_k7_us_per_tick": per_tick("rbf_posterior_mean_kernel"),
+            "sweep_k2_us_per_tick": per_tick("allocation_plant_tick_kernel")}
+
+
 STAGED_SHARE_T = 50   # the staged flights' profiler window (ticks)
 
 
@@ -2233,8 +2394,10 @@ def time_redesigned(dev) -> dict:
     (kappa 2) and not, K5 and K9 at the main path's shape (N=20, P=800,
     K=20: the online and the online-noisy flights' launches), K11 at both
     plants (``k11_case``: the checkout's own relinearisation and layout),
-    K13a at B=1 and 1024, and the staged flights through K3 and K6
-    (``staged_shares``: their ticks and device-busy shares)."""
+    K7 and K2 (``time_k7_k2``), the sweep's device-busy share
+    (``sweep_shares``), K13a at B=1 and 1024, and the staged flights
+    through K3 and K6 (``staged_shares``: their ticks and device-busy
+    shares)."""
     import numpy as np
     import torch
 
@@ -2283,6 +2446,8 @@ def time_redesigned(dev) -> dict:
         args, statics = k11_case(dev, plant)
         out[f"k11_{plant}_us"] = graph_ms(
             lambda: rigid_tick_pallas.direct_rate_multitick_kernel(*args, **statics), 5) * 1e3
+    out.update(time_k7_k2(dev, post))
+    out.update(sweep_shares(dev, post))
     for B in (1, 1024):
         s, c, ct = (t.to(**f32).contiguous() for t in (
             0.3 * torch.randn(B, 12, generator=gen) + torch.tensor([0, 0, 3.0] + [0] * 9),
@@ -2334,24 +2499,32 @@ class TimingWorker:
 
 
 def compare_with_parent(dev, parent: str | None):
-    """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K13a and the
-    staged flights' device-busy shares of the checkout
-    at ``parent`` and of this one, each package in a process of its own
-    built from its own sources, timed in turns in this call: parent, this,
-    this, parent. Then the sweep's, single-tick and online ticks in
+    """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K7, K2, K13a
+    and the staged flights' and the sweep's device-busy shares of the
+    checkout at ``parent`` and of this one, each package in a process of
+    its own built from its own sources, timed in turns in this call:
+    parent, this, this, parent; K2's outputs of the two on the same inputs
+    compared. Then the sweep's, single-tick and online ticks in
     ``E2E_PAIRS`` pairs, alternating which checkout goes first, each called
     changed only where the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11 and K13a and its end-to-end ticks: "
-              "not measured in this run (pass --parent DIR, DIR holding the older package, to "
-              "time them here)")
+        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2 and K13a and its "
+              "end-to-end ticks: not measured in this run (pass --parent DIR, DIR holding the "
+              "older package, to time them here)")
         return None
     workers = {"older": TimingWorker(parent), "this": TimingWorker(ROOT)}
     try:
         order = ["older", "this", "this", "older"]
         runs = [workers[who].ask("kernels") for who in order]
         for key in runs[0]:
-            print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
+            if not key.startswith("_"):
+                print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
+        k2_files = [r.pop("_k2_outputs") for r in runs]
+        k2_same = k2_difference(k2_files[0], k2_files[1])
+        for path in k2_files[2:]:
+            os.unlink(path)
+        print(f"  K2 at B=1, 1024 and on the (256, 10) plant block, this checkout's outputs "
+              f"against the older one's on the same inputs: {k2_same}")
         e2e = {"older": [], "this": []}
         for i in range(E2E_PAIRS):
             for who in ("older", "this") if i % 2 == 0 else ("this", "older"):
@@ -2371,7 +2544,8 @@ def compare_with_parent(dev, parent: str | None):
               + "; ".join(f"{o:.5f}, {n:.5f}" for o, n in zip(old, new))
               + f"; this lower in {lower}, higher in {higher} (sign test needs {need}): "
               + verdicts[key])
-    return {"order": order, "runs": runs, "end_to_end": e2e, "end_to_end_verdict": verdicts}
+    return {"order": order, "runs": runs, "end_to_end": e2e, "end_to_end_verdict": verdicts,
+            "k2_against_older": k2_same}
 
 
 def time_redesigned_main(package_root: str) -> int:
@@ -2587,10 +2761,12 @@ def main(parent: str | None = None) -> int:
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
     from unmanned_aerial_vehicles_tpu_torch.estimation import noisy_mpc_flight_rollout
     from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
+        ResidualDataset,
         ResidualGPConfig,
         build_horizon_residuals,
         build_horizon_uncertainty,
         fit_residual_gp,
+        fit_residual_gp_masked,
         make_output_correction_fn,
     )
     from unmanned_aerial_vehicles_tpu_torch.io import load_resume_state, save_resume_state
@@ -2667,17 +2843,7 @@ def main(parent: str | None = None) -> int:
     # K2
     errs = []
     for B in (1, 4096):
-        s = random_states(B)
-        # roll and yaw across the +-pi wrap; pitch kept off the Euler-rate
-        # singularity (1/cos(theta) would amplify float32 rounding)
-        s[:, 6] = ((torch.rand(B, generator=gen) - 0.5) * 7.0).to(dev)
-        s[:, 8] = ((torch.rand(B, generator=gen) - 0.5) * 7.0).to(dev)
-        cmd = torch.cat([
-            2.0 * torch.randn(B, 3, generator=gen), torch.randn(B, 1, generator=gen),
-            6.0 * (torch.rand(B, 1, generator=gen) - 0.5),
-            torch.where(torch.rand(B, 1, generator=gen) < 0.5, 1.2, 1.5),
-        ], 1).to(**f32).contiguous()
-        integ = (0.6 * (torch.rand(B, 3, generator=gen) - 0.5)).to(**f32).contiguous()
+        s, cmd, integ, _ = k2_operands(gen, B, f32)
         got = plant_pallas._allocation_plant_rows(s, cmd, integ, prow, 0.02, 2)
         torch.cuda.synchronize()
         want = plant_pallas.allocation_plant_tick_plain(s, cmd, integ, prow, 0.02, 2)
@@ -2697,7 +2863,8 @@ def main(parent: str | None = None) -> int:
     # sweep's); the staged flight's batch of one is printed beside it
     k2 = dict(err=max(errs), **k2_timing(SWEEP_B), batch_1=k2_timing(1))
     kernels["allocation_plant_tick_fused"] = k2
-    print(f"K2 allocation_plant_tick_fused: max_abs_err {k2['err']:.3e} (B=1, 4096)")
+    print(f"K2 allocation_plant_tick_fused: max_abs_err {k2['err']:.3e} (B=1, 4096); "
+          f"{k2['batch_1']['ms'] * 1e3:.2f} us at B=1, {k2['ms'] * 1e3:.2f} us at B={SWEEP_B}")
     if not k2["err"] <= PLANT_TOL:
         fail(f"K2 disagrees with its plain version: {k2['err']}")
 
@@ -2822,17 +2989,71 @@ def main(parent: str | None = None) -> int:
         fail("K7 produced non-finite values")
     k7_fn = lambda: rbf_pallas.rbf_posterior_mean_pallas(gp_ops, Xq)
     k7_plain = lambda: rbf_pallas.rbf_posterior_mean_plain(gp_ops, Xq)
+    if not torch.equal(got, k7_fn()):
+        fail("K7: a second launch on the same inputs differs")
+    # the bytes the kernel moves: the queries, the packed training set, the
+    # scalars and the outputs
+    k7_bytes = nbytes(Xq, gp_ops.tiles, gp_ops.y_mean, gp_ops.ls, gp_ops.shift, got)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     k7 = dict(
         err=k7_err,
         ms=graph_ms(k7_fn, 20), plain_ms=graph_ms(k7_plain, 2, replays=3),
         host_ms=cuda_ms(k7_fn, 50), host_plain_ms=cuda_ms(k7_plain, 5, warmup=1),
-        bound=bound_ms(nbytes(Xq, *gp_ops, got), ops_posterior_mean(mq, GP_POINTS)),
+        bound_fp32_form=bound_ms(k7_bytes, ops_posterior_mean(mq, GP_POINTS)),
     )
+    # the bound: the same work on the units that do it (the tensor cores,
+    # the SFU, the FP32 pipe, the bytes), the slowest of them
+    k7_bound_ms, k7_bound_by, k7["bound_unit"] = bound_posterior_mean_units(
+        mq, GP_POINTS, k7_bytes, sms)
+    k7["bound"] = (k7_bound_ms, k7_bound_by)
     kernels["rbf_posterior_mean_pallas"] = k7
+    # cycles per block by section, from the build with section clocks
+    with _cuda.library_variant("rbf", "rbf_clocks"):
+        rbf_pallas.posterior_mean_section_cycles()
+        k7_fn()
+        torch.cuda.synchronize()
+        k7["sections"] = rbf_pallas.posterior_mean_section_cycles()
     print(f"K7 rbf_posterior_mean_pallas: max_abs_err {k7_err:.3e} on outputs up to "
-          f"{float(want.abs().max()):.3f} ({mq} queries, P={GP_POINTS})")
+          f"{float(want.abs().max()):.3f} ({mq} queries, P={GP_POINTS}; a second launch "
+          f"bit-identical); {k7['ms'] * 1e3:.2f} us; bound {k7['bound'][0] * 1e3:.4f} us on the "
+          f"units that do the work ({k7['bound_unit']}), "
+          f"{k7['bound_fp32_form'][0] * 1e3:.4f} us in the FP32 form; layout "
+          f"{rbf_pallas.posterior_mean_layout(GP_POINTS, _cuda.shared_memory_optin(dev))}")
+    whole = k7["sections"]["whole"]
+    print("K7 clock cycles per block by section (warp 0, build with section clocks; each "
+          "phase waits for its results): "
+          + "; ".join(f"{name} {c:.0f} ({c / whole:.1%})" for name, c in k7["sections"].items()))
     if not k7_err <= K7_TOL:
         fail(f"K7 disagrees with its plain version: {k7_err}")
+    # K7's other layouts: a training set that streams through the ring of
+    # stages (P=2000) in one round of queries a block (4096) and in two
+    # (25600: the ring wraps across the rounds), a resident set in two
+    # rounds (25600), and a masked ring buffer at the 1e6 sentinel (P=300,
+    # 180 valid)
+    k7["cases"] = {}
+    ring = ResidualDataset(X=rnd(300, 10), Y=rnd(300, 6, scale=0.05),
+                           head=torch.tensor(180, device=dev), count=torch.tensor(180, device=dev))
+    post_2000 = fit_residual_gp(rnd(2000, 10), rnd(2000, 6, scale=0.05), ResidualGPConfig())
+    for label, case_post, mq_case in (
+            ("P=2000", post_2000, 4096),
+            ("P=2000, 25600 queries", post_2000, 25600),
+            ("25600 queries", post, 25600),
+            ("masked ring", fit_residual_gp_masked(ring, ResidualGPConfig()), 777)):
+        case_ops = rbf_pallas.posterior_mean_operands(case_post)
+        Xc = rnd(mq_case, 10)
+        valid_rows = case_post.X_train[case_post.X_train[:, 0] < 1e5]
+        pick = torch.randint(0, valid_rows.shape[0], (mq_case // 4,), generator=gen).to(dev)
+        Xc[: mq_case // 4] = valid_rows[pick] + rnd(mq_case // 4, 10, scale=0.2)
+        got_c = rbf_pallas.rbf_posterior_mean_pallas(case_ops, Xc)
+        torch.cuda.synchronize()
+        err_c = float((got_c - rbf_pallas.rbf_posterior_mean_plain(case_ops, Xc)).abs().max())
+        same_c = torch.equal(got_c, rbf_pallas.rbf_posterior_mean_pallas(case_ops, Xc))
+        k7["cases"][label] = err_c
+        print(f"K7 at {label} ({mq_case} queries, layout "
+              f"{rbf_pallas.posterior_mean_layout(case_ops.rec.shape[0], _cuda.shared_memory_optin(dev))}"
+              f"): max_abs_err {err_c:.3e}; a second launch bit-identical {same_c}")
+        if not (err_c <= K7_TOL and same_c and bool(torch.isfinite(got_c).all())):
+            fail(f"K7 at {label}: error {err_c}, second launch bit-identical {same_c}")
 
     kernels.update(check_single_tick(dev, mpc, x0, pos, gen, prow, fail))
 
@@ -3498,6 +3719,10 @@ def main(parent: str | None = None) -> int:
         "k11_bound_ms_p1_form": {"direct_rate": k11["bound_p1_form"][0],
                                  "rigid": k11["rigid"]["bound_p1_form"][0]},
         "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3,
+        "k7_bound_ms_fp32_form": kernels["rbf_posterior_mean_pallas"]["bound_fp32_form"][0],
+        "k7_bound_unit": kernels["rbf_posterior_mean_pallas"]["bound_unit"],
+        "k7_cycles_per_block_by_section": kernels["rbf_posterior_mean_pallas"]["sections"],
+        "k7_max_abs_err_other_layouts": kernels["rbf_posterior_mean_pallas"]["cases"],
         "us_per_launch_k13a_lane_owned": {
             B: t["ms"] * 1e3 for B, t in kernels["px4_plant_step_vjp"]["lane_owned"].items()},
         "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3

@@ -147,13 +147,17 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // derivative() on a whole warp; every lane gets the whole out. Lanes 0-2
 // form the sine and cosine of one Euler angle each, lanes 0-6 one quotient
 // each. The same arithmetic as derivative() (sincosf for sinf and cosf).
+// kWidth < 32 runs it on each aligned group of kWidth lanes (at least 8),
+// lane being the lane's index in its group.
+template <int kWidth = 32>
 __device__ __forceinline__ void derivative_warp(const float s[12], const float c[4],
                                                 const Plant& pl, int lane, float out[12]) {
   float sn, cs;
   sincosf(s[6 + lane % 3], &sn, &cs);
-  const float cphi = __shfl_sync(kFullMask, cs, 0), sphi = __shfl_sync(kFullMask, sn, 0);
-  const float cth = __shfl_sync(kFullMask, cs, 1), sth = __shfl_sync(kFullMask, sn, 1);
-  const float cpsi = __shfl_sync(kFullMask, cs, 2), spsi = __shfl_sync(kFullMask, sn, 2);
+  auto from = [](float v, int src) { return __shfl_sync(kFullMask, v, src, kWidth); };
+  const float cphi = from(cs, 0), sphi = from(sn, 0);
+  const float cth = from(cs, 1), sth = from(sn, 1);
+  const float cpsi = from(cs, 2), spsi = from(sn, 2);
   const float vx = s[3], vy = s[4], vz = s[5];
   const float p = s[9], q = s[10], r = s[11];
   const float cth_safe = fabsf(cth) < 1e-6f ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
@@ -165,10 +169,10 @@ __device__ __forceinline__ void derivative_warp(const float s[12], const float c
   const float den = k == 0 ? cth : k < 3 ? cth_safe : k == 3 ? pl.tau_r : k == 4 ? pl.tau_p
                   : k == 5 ? pl.tau_y : pl.mass;
   const float quo = num / den;
-  const float tth = __shfl_sync(kFullMask, quo, 0);
-  const float psi_q = __shfl_sync(kFullMask, quo, 1), psi_r = __shfl_sync(kFullMask, quo, 2);
-  const float p_dot = __shfl_sync(kFullMask, quo, 3), q_dot = __shfl_sync(kFullMask, quo, 4);
-  const float r_dot = __shfl_sync(kFullMask, quo, 5), kd = __shfl_sync(kFullMask, quo, 6);
+  const float tth = from(quo, 0);
+  const float psi_q = from(quo, 1), psi_r = from(quo, 2);
+  const float p_dot = from(quo, 3), q_dot = from(quo, 4);
+  const float r_dot = from(quo, 5), kd = from(quo, 6);
 
   const float t0 = -(cphi * sth * cpsi + sphi * spsi);
   const float t1 = -(cphi * sth * spsi - sphi * cpsi);
@@ -193,29 +197,31 @@ __device__ __forceinline__ void derivative_warp(const float s[12], const float c
 
 // One RK4 step of length dt from s on a whole warp (the noisy tick's filter
 // prediction): the stage states x2, x3, x4 (the linearisation points of the
-// transition Jacobian) and the predicted state xp, the same on every lane.
+// transition Jacobian) and the predicted state xp, the same on every lane
+// (of each group of kWidth lanes, as derivative_warp).
+template <int kWidth = 32>
 __device__ __forceinline__ void rk4_stages_warp(const float s[12], const float c[4],
                                                 const Plant& pl, double dt, int lane,
                                                 float x2[12], float x3[12], float x4[12],
                                                 float xp[12]) {
   const float hf = (float)dt, half_h = (float)(0.5 * dt), h6 = (float)(dt / 6.0);
   float k[12], acc[12];
-  derivative_warp(s, c, pl, lane, acc);
+  derivative_warp<kWidth>(s, c, pl, lane, acc);
 #pragma unroll
   for (int i = 0; i < 12; ++i) x2[i] = s[i] + half_h * acc[i];
-  derivative_warp(x2, c, pl, lane, k);
+  derivative_warp<kWidth>(x2, c, pl, lane, k);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
     x3[i] = s[i] + half_h * k[i];
     acc[i] = acc[i] + 2.0f * k[i];
   }
-  derivative_warp(x3, c, pl, lane, k);
+  derivative_warp<kWidth>(x3, c, pl, lane, k);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
     x4[i] = s[i] + hf * k[i];
     acc[i] = acc[i] + 2.0f * k[i];
   }
-  derivative_warp(x4, c, pl, lane, k);
+  derivative_warp<kWidth>(x4, c, pl, lane, k);
 #pragma unroll
   for (int i = 0; i < 12; ++i) xp[i] = s[i] + h6 * (acc[i] + k[i]);
 }
@@ -346,7 +352,9 @@ __device__ __forceinline__ void allocation(const float s[12], const float cmd[5]
 // lanes 0 and 1 form the pitch and roll arcsines, lanes 0-2 one wrapped
 // attitude error each (fmodf), shared by shuffles; every lane gets the
 // whole output. The same arithmetic as allocation(); every lane must call
-// it with the same arguments (all 32 lanes active).
+// it with the same arguments (all 32 lanes active); kWidth as in
+// derivative_warp.
+template <int kWidth = 32>
 __device__ __forceinline__ void allocation_warp(const float s[12], const float cmd[5],
                                                 const float integral[3], float dt, float gravity,
                                                 float thrust_ceiling, int lane, float control[4],
@@ -357,8 +365,8 @@ __device__ __forceinline__ void allocation_warp(const float s[12], const float c
   const float thrust = fminf(fmaxf(tmag / gravity, 0.25f), thrust_ceiling);
   const float inv = 1.0f / fmaxf(tmag, 1e-9f);
   const float tilt = asinf(clipf(((lane & 1) ? tvy : tvx) * inv, -0.4f, 0.4f));
-  float pitch_cmd = -__shfl_sync(kFullMask, tilt, 0);
-  float roll_cmd = __shfl_sync(kFullMask, tilt, 1);
+  float pitch_cmd = -__shfl_sync(kFullMask, tilt, 0, kWidth);
+  float roll_cmd = __shfl_sync(kFullMask, tilt, 1, kWidth);
   if (tmag <= 0.1f) {
     pitch_cmd = 0.0f;
     roll_cmd = 0.0f;
@@ -366,9 +374,9 @@ __device__ __forceinline__ void allocation_warp(const float s[12], const float c
   const float target_yaw = cmd[4];
   const int w = lane % 3;
   const float err = wrap_angle((w == 0 ? roll_cmd : w == 1 ? pitch_cmd : target_yaw) - s[6 + w]);
-  const float e0 = __shfl_sync(kFullMask, err, 0);
-  const float e1 = __shfl_sync(kFullMask, err, 1);
-  const float e2 = __shfl_sync(kFullMask, err, 2);
+  const float e0 = __shfl_sync(kFullMask, err, 0, kWidth);
+  const float e1 = __shfl_sync(kFullMask, err, 1, kWidth);
+  const float e2 = __shfl_sync(kFullMask, err, 2, kWidth);
   const float i0 = clipf(integral[0] + e0 * dt, -integral_max, integral_max);
   const float i1 = clipf(integral[1] + e1 * dt, -integral_max, integral_max);
   const float i2 = clipf(integral[2] + e2 * dt, -integral_max, integral_max);

@@ -31,34 +31,74 @@
 //   out[q] = sum_p exp(-0.5 max(|z_q|^2 + |z_p|^2 - 2 z_q.z_p, 0)) a[p] + y_mean
 //   z_q = (x_q - shift) / ls,  z_p = x_p / ls,  a = sigma^2 alpha y_std
 //
-// Design: a block takes kQueries queries and kSlices threads per query. A
-// thread keeps its query's scaled features and squared norm in registers.
-// The training points stream through shared memory in chunks of kChunk
-// records of 20 floats (z_p, |z_p|^2, a_p, padding; packed once per
-// posterior by ops/rbf_pallas.py), copied with 16-byte loads, eight in
-// flight per thread, and read back as five 16-byte loads per point; thread
-// slice s takes the chunk's points s, s + kSlices, ..., and
-// the kSlices partial sums of a query meet in a fixed shuffle order
-// (deterministic, no atomics). The (m, P) cross-kernel matrix never leaves
-// registers, so P has no limit. Masked training rows at the 1e6 sentinel
-// give a distance of ~1e13 and exp(-0.5 d) = 0 exactly (no inf - inf).
-// kSlices threads per query keep four times as many warps in flight as one
-// thread per query: at m = 20480 one thread per query is five warps per SM.
+// Two matrix products with an exp between them (a flash-attention shape
+// with a head width of 10 and a value width of 6), both on the tensor
+// cores with mma.sync in 3xTF32 (hi.hi + hi.lo + lo.hi, each operand split
+// into two TF32 parts), the exp tile passed from the first product's
+// accumulators to the second's A operand in registers:
 //
-// What bounds it on an H100: operations. Per (query, training point) pair
-// ~38 FP32 operations (10-term dot, distance, accurate expf, 6-term
-// accumulate); at m = 20480, P = 800 that is ~0.62 GFLOP, ~9 us at 67
-// TFLOP/s, and 16.4 M expf. The bytes (queries, training records, outputs)
-// are ~1.4 MB.
+// - The cross product: with c = -0.5 log2(e) folded into the operands, one
+//   m16n8k8 (features 0-7) and one m16n8k4 (features 8, 9 and a column that
+//   carries c |z_p|^2 against a query column of ones) per 16-query x
+//   8-point tile and part (the k4 part's two small parts go as one k8), the
+//   accumulator starting at c |z_q|^2: it ends at
+//   c (|z_q|^2 + |z_p|^2 - 2 z_q.z_p), so the clamp at 0 is a min and the
+//   exp one ex2.approx on the SFU. The training side is packed once per
+//   posterior (ops/rbf_pallas.py:pack_posterior_tiles) in the fragments'
+//   lane order: a lane reads its B fragments of a tile as two 16-byte and
+//   one 8-byte load.
+// - The value product: one m16n8k8 per tile (k = the tile's 8 points, n =
+//   the 6 outputs padded to 8). The cross product's accumulator holds the
+//   exp tile's columns (2t, 2t + 1) in lane t of a quad, the value
+//   product's A operand wants columns (t, t + 4): the points of the value
+//   operand are packed in that permuted order, so each lane's four exps are
+//   its A fragment as they stand. The exps are split with Dekker's product
+//   (round-to-nearest, no fused multiply-add).
+// - Work: one launch is one wave, a block of 8 warps on each SM, each block
+//   an even share of the 16-query tiles, in rounds of 10 (5 a warp). Warp w
+//   takes query tiles (w / 4) + 2i of the round and point tiles w % 4,
+//   w % 4 + 4, ...: the four warp columns split the points, and their sums
+//   meet in shared memory in a fixed order, ((c0 + c1) + (c2 + c3)), then
+//   y_mean: a second launch is bit-identical.
+// - The queries: each round's rows are loaded once per block (coalesced,
+//   every load in flight), scaled once per element, and c |z_q|^2 summed
+//   once per row into shared memory, where each warp reads its fragments.
+// - The training set: chunks of 4 point tiles (32 points, 5 KB), each a
+//   bulk copy (cp.async.bulk, the SM's copy engine) completing on its own
+//   transaction barrier, issued when the block starts by a lane of each
+//   warp, so the first chunks arrive while the warps stage their queries
+//   and later ones while they compute. Up to 1312 points the whole set
+//   stays resident for the launch (P = 800: 25 chunks, 148,736 bytes); past
+//   that the chunks stream through a ring of stages whose two halves are
+//   refilled in turns (double-buffered), so P has no limit.
+//   ops/rbf_pallas.py:posterior_mean_layout computes the layout.
+// - Masked training rows at the 1e6 sentinel carry c |z_p|^2 ~ -1e13 (the
+//   packing clamps it at -1e34, so its TF32 parts stay finite): the
+//   accumulator is hugely negative and ex2 returns 0 exactly. Zero points
+//   pad the last chunk; their value rows are 0.
+//
+// What bounds it on an H100: in the plain form, operations. Per (query,
+// training point) pair the work is ~38 FP32 operations (10-term dot,
+// distance, exp, 6-term accumulate); at m = 20480, P = 800 that is ~0.62
+// GFLOP, 9.3 us at 67 TFLOP/s. On the units this design uses: the
+// products' 32 of those operations at the TF32 tensor rate, tripled for
+// 3xTF32 (3.2 us), the 16.4 M exps at the SFU's 16 a clock per SM (3.9
+// us), the clamp and the rest of the distance on the FP32 pipe (1.2 us);
+// the bytes (queries, the packed training set, outputs) are ~1.5 MB. What
+// it meets in practice is the rate at which mma.sync issues TF32 products
+// (cycles per block by section: chip_smoke.py, the rbf_clocks build); the
+// 5 cross-product and 3 value-product instructions per 16 x 8 tile carry
+// the padding to 12 features and 8 outputs.
 
 #include <cuda_runtime.h>
 
-#include "smem_copy.cuh"
+#include "cluster.cuh"
+#include "section_clocks.cuh"
 
 // Host-visible: laid out as ops/rbf_pallas.py's _MeanOperands and
 // _GramOperands.
 struct MeanOperands {
-  const float *X, *rec, *y_mean, *ls, *shift;
+  const float *X, *tiles, *y_mean, *ls, *shift;
   float* out;
 };
 
@@ -69,78 +109,331 @@ struct GramOperands {
 
 namespace {
 
-constexpr int kD = 10;          // features (ops/rbf_pallas.py KERNEL_FEATURES)
-constexpr int kOut = 6;         // outputs (KERNEL_OUTPUTS)
-constexpr int kSlices = 4;      // threads per query
-constexpr int kQueries = 32;    // queries per block
-constexpr int kThreads = kQueries * kSlices;
-constexpr int kRec = 20;        // floats per training record
-constexpr int kChunk = 512;     // training records per shared-memory chunk (40 KB)
-static_assert(kD == 10 && kOut == 6 && kRec == 20, "the record reads below assume this layout");
+constexpr int kD = 10;            // features (ops/rbf_pallas.py KERNEL_FEATURES)
+constexpr int kOut = 6;           // outputs (KERNEL_OUTPUTS)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kColumns = 4;       // warps splitting a chunk's point tiles (WARP_COLUMNS)
+constexpr int kTilesPerWarp = 5;  // 16-query tiles a warp holds
+constexpr int kRoundTiles = (kWarps / kColumns) * kTilesPerWarp;   // ROUND_TILES
+constexpr int kTileFloats = 320;  // one 8-point tile's fragments (TILE_FLOATS)
+constexpr int kChunkTiles = 4;    // CHUNK_TILES
+constexpr int kChunkFloats = kChunkTiles * kTileFloats;
+constexpr unsigned kChunkBytes = 4u * kChunkFloats;
+constexpr int kReduceFloats = kColumns * kRoundTiles * 16 * 8;   // REDUCE_BYTES / 4
+constexpr float kExp2Scale = -0.72134752044448170f;   // -0.5 log2(e) (EXP2_SCALE)
+static_assert(kChunkTiles == kColumns, "a chunk gives each warp column one point tile");
+static_assert(kD == 10 && kOut <= 8, "the fragments below assume 10 features, 8 outputs");
+static_assert(kRoundTiles * 16 * (kD + 1) <= kReduceFloats,
+              "a round's staged queries fit the reduction's buffer");
 
-__global__ void __launch_bounds__(kThreads)
-rbf_posterior_mean_kernel(const MeanOperands O, int m, int n_train) {
-  __shared__ float4 rec4[kChunk * kRec / 4];
-  const int tid = threadIdx.x;
-  const int s = tid % kSlices;
-  const int q = blockIdx.x * kQueries + tid / kSlices;
-  const bool valid = q < m;
+// x rounded to TF32 (10-bit mantissa), to nearest with ties away from
+// zero: cvt.rna.tf32.f32 on the float32 bits.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-  float z[kD];
-  float sq1 = 0.0f;
+// d = a b + c on the tensor cores, TF32 operands, float32 accumulators.
+// Fragments (lane = 4 g + t): a (16 x 8) a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4); b (8 x 8) b0 (t, g), b1 (t + 4, g); c, d (16
+// x 8) (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_k8(float d[4], const unsigned a[4], unsigned b0, unsigned b1,
+                                       const float c[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+// The same for k = 4: a (16 x 4) a0 (g, t), a1 (g + 8, t); b (4 x 8) b0 (t, g).
+__device__ __forceinline__ void mma_k4(float d[4], const unsigned a[2], unsigned b0,
+                                       const float c[4]) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%7,%8,%9,%10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 16-query tile of a warp: its A fragments of the cross product (hi
+// and lo parts; the k4 columns are features 8, 9, then 1 against c |z_p|^2
+// and 0), c |z_q|^2 as the accumulator's start, and the value sums.
+struct QueryTile {
+  unsigned a8h[4], a8l[4], a4h[2], a4l[2];
+  float csq[4];
+  float o[4];
+};
+
+// A tile's fragments from the round's staged queries: z (row-major, kD a
+// row) and c |z|^2 a row.
+__device__ __forceinline__ void load_query_tile(const float* zs, const float* csq, int row0,
+                                                int g, int t, QueryTile& Q) {
+  float z[2][3];   // rows g, g + 8; features t, t + 4, 8 + t (t < 2)
+  float sq[2];
 #pragma unroll
-  for (int c = 0; c < kD; ++c) {
-    const float x = valid ? O.X[q * kD + c] : 0.0f;
-    z[c] = (x - __ldg(O.shift + c)) / __ldg(O.ls + c);
-    sq1 += z[c] * z[c];
+  for (int r = 0; r < 2; ++r) {
+    const float* zr = zs + (row0 + g + 8 * r) * kD;
+    z[r][0] = zr[t];
+    z[r][1] = zr[t + 4];
+    z[r][2] = t < 2 ? zr[8 + t] : 0.0f;
+    sq[r] = csq[row0 + g + 8 * r];
   }
-
-  float acc[kOut];
+  const unsigned one = __float_as_uint(1.0f);
 #pragma unroll
-  for (int o = 0; o < kOut; ++o) acc[o] = 0.0f;
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const unsigned hi = tf32_rna(z[r][f]);
+      Q.a8h[r + 2 * f] = hi;
+      Q.a8l[r + 2 * f] = tf32_rna(z[r][f] - __uint_as_float(hi));
+    }
+    const unsigned hi = tf32_rna(z[r][2]);
+    Q.a4h[r] = t < 2 ? hi : t == 2 ? one : 0u;
+    Q.a4l[r] = t < 2 ? tf32_rna(z[r][2] - __uint_as_float(hi)) : 0u;
+    Q.csq[2 * r] = Q.csq[2 * r + 1] = sq[r];
+    Q.o[2 * r] = Q.o[2 * r + 1] = 0.0f;
+  }
+}
 
-  for (int base = 0; base < n_train; base += kChunk) {
-    const int cnt = min(kChunk, n_train - base);
-    __syncthreads();   // the previous chunk is consumed
-    uav::copy_to_shared<8>(rec4, reinterpret_cast<const float4*>(O.rec) + base * (kRec / 4),
-                           cnt * (kRec / 4), tid, kThreads);
-    __syncthreads();
-#pragma unroll 4
-    for (int p = s; p < cnt; p += kSlices) {
-      const float4* r = rec4 + p * (kRec / 4);
-      // r0 = z0..z3, r1 = z4..z7, r2 = z8 z9 |z|^2 a0, r3 = a1..a4, r4 = a5
-      const float4 r0 = r[0], r1 = r[1], r2 = r[2], r3 = r[3], r4 = r[4];
-      float cross = z[0] * r0.x;
-      cross = fmaf(z[1], r0.y, cross);
-      cross = fmaf(z[2], r0.z, cross);
-      cross = fmaf(z[3], r0.w, cross);
-      cross = fmaf(z[4], r1.x, cross);
-      cross = fmaf(z[5], r1.y, cross);
-      cross = fmaf(z[6], r1.z, cross);
-      cross = fmaf(z[7], r1.w, cross);
-      cross = fmaf(z[8], r2.x, cross);
-      cross = fmaf(z[9], r2.y, cross);
-      const float k = expf(-0.5f * fmaxf(sq1 + r2.z - 2.0f * cross, 0.0f));
-      acc[0] = fmaf(k, r2.w, acc[0]);
-      acc[1] = fmaf(k, r3.x, acc[1]);
-      acc[2] = fmaf(k, r3.y, acc[2]);
-      acc[3] = fmaf(k, r3.z, acc[3]);
-      acc[4] = fmaf(k, r3.w, acc[4]);
-      acc[5] = fmaf(k, r4.x, acc[5]);
+#ifdef UAV_SECTION_CLOCKS
+// The clocks build waits for a phase's results before it reads the clock
+// (an instruction that uses them), so each phase is charged its own time.
+#define K7_SETTLE(x) asm volatile("add.f32 %0, %0, 0f00000000;" : "+f"(x))
+#define K7_CLOCK(var) const long long var = clock64()
+#define K7_CHARGE(i, from, to) clocks[i] += (to) - (from)
+#else
+#define K7_SETTLE(x)
+#define K7_CLOCK(var)
+#define K7_CHARGE(i, from, to)
+#endif
+
+// One chunk of the training set against a warp's first kQ query tiles of
+// the round (the valid ones, a prefix: no branch between the tiles' MMA
+// chains, which the scheduler interleaves), phase by phase.
+template <int kQ>
+__device__ __forceinline__ void chunk_tile(QueryTile (&Q)[kTilesPerWarp], const float* tile,
+                                           int lane, long long (&clocks)[9]) {
+  (void)clocks;
+  K7_CLOCK(c1);
+  const float4 cr = reinterpret_cast<const float4*>(tile)[lane];
+  const float4 va = reinterpret_cast<const float4*>(tile + 128)[lane];
+  const float2 k4 = reinterpret_cast<const float2*>(tile + 256)[lane];
+  const unsigned b8h0 = __float_as_uint(cr.x), b8h1 = __float_as_uint(cr.y);
+  const unsigned b8l0 = __float_as_uint(cr.z), b8l1 = __float_as_uint(cr.w);
+  const unsigned b4h = __float_as_uint(k4.x), b4l = __float_as_uint(k4.y);
+  const unsigned vh0 = __float_as_uint(va.x), vh1 = __float_as_uint(va.y);
+  const unsigned vl0 = __float_as_uint(va.z), vl1 = __float_as_uint(va.w);
+
+  // the cross product: c (|z_q|^2 + |z_p|^2 - 2 z_q.z_p), the small parts
+  // first; features 8-11's two small parts as one k = 8 product, [lo | hi]
+  // against [hi ; lo] (the registers as they stand: a lane's k4 pair is
+  // its B fragment's rows t and t + 4)
+  float s[kTilesPerWarp][4];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const unsigned a4[4] = {Q[q].a4l[0], Q[q].a4l[1], Q[q].a4h[0], Q[q].a4h[1]};
+    mma_k8(s[q], Q[q].a8l, b8h0, b8h1, Q[q].csq);
+    mma_k8(s[q], Q[q].a8h, b8l0, b8l1, s[q]);
+    mma_k8(s[q], a4, b4h, b4l, s[q]);
+    mma_k8(s[q], Q[q].a8h, b8h0, b8h1, s[q]);
+    mma_k4(s[q], Q[q].a4h, b4h, s[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) K7_SETTLE(s[q][3]);
+  K7_CLOCK(c2);
+  K7_CHARGE(1, c1, c2);
+
+  // the clamp at 0, the exp, and the split of each exp (Dekker's, no fused
+  // multiply-add): the accumulator's (2t, 2t + 1) columns are the value
+  // product's A columns (t, t + 4) as the points are packed
+  unsigned kh[kTilesPerWarp][4], kl[kTilesPerWarp][4];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float k = ex2_approx(fminf(s[q][e], 0.0f));
+      const float c = __fmul_rn(k, 8193.0f);
+      const float hi = __fsub_rn(c, __fsub_rn(c, k));
+      const int a = e == 0 ? 0 : e == 1 ? 2 : e == 2 ? 1 : 3;   // A fragment slot
+      kh[q][a] = __float_as_uint(hi);
+      kl[q][a] = __float_as_uint(__fsub_rn(k, hi));
     }
   }
+#ifdef UAV_SECTION_CLOCKS
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) K7_SETTLE(*reinterpret_cast<float*>(&kl[q][3]));
+#endif
+  K7_CLOCK(c3);
+  K7_CHARGE(2, c2, c3);
 
-  // the kSlices partial sums of a query sit in adjacent lanes: add them in a
-  // fixed order, (s0 + s2) + (s1 + s3)
+  // the value product, the small parts first
 #pragma unroll
-  for (int o = 0; o < kOut; ++o) {
-    acc[o] += __shfl_down_sync(0xffffffffu, acc[o], 2, kSlices);
-    acc[o] += __shfl_down_sync(0xffffffffu, acc[o], 1, kSlices);
+  for (int q = 0; q < kQ; ++q) {
+    mma_k8(Q[q].o, kl[q], vh0, vh1, Q[q].o);
+    mma_k8(Q[q].o, kh[q], vl0, vl1, Q[q].o);
+    mma_k8(Q[q].o, kh[q], vh0, vh1, Q[q].o);
   }
-  if (valid && s == 0) {
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) O.out[q * kOut + o] = acc[o] + __ldg(O.y_mean + o);
+  for (int q = 0; q < kQ; ++q) K7_SETTLE(Q[q].o[3]);
+  K7_CLOCK(c4);
+  K7_CHARGE(3, c3, c4);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+rbf_posterior_mean_kernel(const MeanOperands O, int m, int chunks, int stages, int resident) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);
+  float* red = reinterpret_cast<float*>(smem + (8 * stages + 127) / 128 * 128);
+  float* slots = red + kReduceFloats;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int col = warp % kColumns, row_group = warp / kColumns;
+  long long clocks[9] = {};   // the clocks build's sections
+  (void)clocks;
+  K7_CLOCK(t_start);
+
+  // this block's even share of the 16-query tiles, in rounds of kRoundTiles
+  const int query_tiles = (m + 15) / 16;
+  const int T0 = (int)((long long)blockIdx.x * query_tiles / gridDim.x);
+  const int T1 = (int)((long long)(blockIdx.x + 1) * query_tiles / gridDim.x);
+  const int rounds = (T1 - T0 + kRoundTiles - 1) / kRoundTiles;
+  // the chunks the block reads: once if they stay resident, else once a round
+  const int total = resident ? chunks : rounds * chunks;
+  const int half = stages / 2;
+
+  auto issue = [&](int n, int slot) {   // chunk n of the stream into stage slot
+    uav::barrier_expect(bars + slot, kChunkBytes);
+    uav::copy_from_global(slots + slot * kChunkFloats, O.tiles + (n % chunks) * kChunkFloats,
+                          kChunkBytes, bars + slot);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) uav::barrier_init(bars + s, 1);
+    uav::fence_barrier_init();
   }
+  __syncthreads();
+  // the first copies, a lane of each warp issuing its share
+  if (lane == 0)
+    for (int n = warp; n < stages && n < total; n += kWarps) issue(n, n);
+  K7_CLOCK(t_issued);
+  K7_CHARGE(8, t_start, t_issued);
+
+  int slot = 0, n = 0;   // the next chunk's stage, and how many were read
+  unsigned parity = 0;   // the phase of that stage's barrier
+  for (int round = 0; round < rounds; ++round) {
+    K7_CLOCK(r0);
+    const int q_base = (T0 + round * kRoundTiles) * 16;
+    const int nq = min(min(m, T1 * 16) - q_base, kRoundTiles * 16);
+    // the round's queries, each scaled once, into shared memory (red, free
+    // until the round ends), every load in flight at once: z = (x - shift)
+    // / ls, then c |z|^2 a row, summed as a quad of lanes would, (s0 + s1)
+    // + (s2 + s3) with lane t's s = z_t^2 + z_(t+4)^2 (+ z_(8+t)^2)
+    constexpr int kRows = kRoundTiles * 16;
+    constexpr int kRowLoads = (kRows * kD + kThreads - 1) / kThreads;
+    float* zs = red;
+    float* csq = red + kRows * kD;
+    float x[kRowLoads];
+#pragma unroll
+    for (int k = 0; k < kRowLoads; ++k) {
+      const int e = tid + k * kThreads;
+      x[k] = e < nq * kD ? __ldg(O.X + (size_t)q_base * kD + e) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kRowLoads; ++k) {
+      const int e = tid + k * kThreads, c = e % kD;
+      if (e < kRows * kD)
+        zs[e] = e < nq * kD ? (x[k] - __ldg(O.shift + c)) / __ldg(O.ls + c) : 0.0f;
+    }
+    __syncthreads();
+    if (tid < kRows) {
+      const float* zr = zs + tid * kD;
+      float part[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        part[q] = zr[q] * zr[q];
+        part[q] = fmaf(zr[q + 4], zr[q + 4], part[q]);
+        if (q < 2) part[q] = fmaf(zr[8 + q], zr[8 + q], part[q]);
+      }
+      csq[tid] = kExp2Scale * ((part[0] + part[1]) + (part[2] + part[3]));
+    }
+    __syncthreads();
+    // the warp's tiles of the round: row_group + 2i, the valid ones a prefix
+    const int first = T0 + round * kRoundTiles + row_group;
+    const int valid = max(0, min(kTilesPerWarp, (T1 - first + 1) / 2));
+    QueryTile Q[kTilesPerWarp];
+#pragma unroll
+    for (int i = 0; i < kTilesPerWarp; ++i)
+      load_query_tile(zs, csq, (row_group + 2 * (i < valid ? i : 0)) * 16, g, t, Q[i]);
+    __syncthreads();   // red is free again
+    K7_CLOCK(r1);
+    K7_CHARGE(6, r0, r1);
+    if (resident) slot = 0, parity = 0;   // the same chunks again
+
+    for (int i = 0; i < chunks; ++i) {
+      K7_CLOCK(c0);
+      uav::barrier_wait(bars + slot, parity);
+      K7_CLOCK(c1);
+      K7_CHARGE(0, c0, c1);
+      const float* tile = slots + slot * kChunkFloats + col * kTileFloats;
+      switch (valid) {
+        case 5: chunk_tile<5>(Q, tile, lane, clocks); break;
+        case 4: chunk_tile<4>(Q, tile, lane, clocks); break;
+        case 3: chunk_tile<3>(Q, tile, lane, clocks); break;
+        case 2: chunk_tile<2>(Q, tile, lane, clocks); break;
+        case 1: chunk_tile<1>(Q, tile, lane, clocks); break;
+        default: break;
+      }
+      ++n;
+      if (++slot == stages) slot = 0, parity ^= 1u;
+
+      // past the resident set: once every warp is through a half of the
+      // ring, refill it while the other half is computed
+      if (!resident && (slot == 0 || slot == half) && n - half + stages < total) {
+        __syncthreads();
+        if (tid == 0) {
+          uav::fence_for_copies();
+          const int first_slot = slot == 0 ? half : 0;
+          for (int k = 0; k < half && n - half + stages + k < total; ++k)
+            issue(n - half + stages + k, first_slot + k);
+        }
+      }
+    }
+
+    // the four warp columns' sums meet in a fixed order, then y_mean
+    K7_CLOCK(c5);
+#pragma unroll
+    for (int q = 0; q < kTilesPerWarp; ++q) {
+      if (q >= valid) break;
+      float* dst = red + (col * kRoundTiles * 16 + (row_group + 2 * q) * 16 + g) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dst) = make_float2(Q[q].o[0], Q[q].o[1]);
+      *reinterpret_cast<float2*>(dst + 64) = make_float2(Q[q].o[2], Q[q].o[3]);
+    }
+    __syncthreads();
+    K7_CLOCK(c6);
+    K7_CHARGE(4, c5, c6);
+    constexpr int kColFloats = kRoundTiles * 16 * 8;
+    for (int e = tid; e < nq * kOut; e += kThreads) {
+      const int ql = e / kOut, o = e - ql * kOut;
+      const float* r = red + ql * 8 + o;
+      const float v = (r[0] + r[kColFloats]) + (r[2 * kColFloats] + r[3 * kColFloats]);
+      O.out[(size_t)q_base * kOut + e] = v + __ldg(O.y_mean + o);
+    }
+    __syncthreads();   // red is free for the next round
+    K7_CLOCK(c7);
+    K7_CHARGE(5, c6, c7);
+  }
+#ifdef UAV_SECTION_CLOCKS
+  if (tid == 0) {
+    clocks[7] = clock64() - t_start;
+    for (int i = 0; i < 9; ++i) atomicAdd(&uav::g_section_cycles[i], (unsigned long long)clocks[i]);
+    atomicAdd(&uav::g_section_cycles[9], 1ull);
+  }
+#endif
 }
 
 constexpr int kGramTile = 64;      // output rows and columns per block
@@ -218,11 +511,26 @@ rbf_gram_kernel(const GramOperands O, int n1, int n2, int d) {
 
 }  // namespace
 
-extern "C" int rbf_posterior_mean_launch(const MeanOperands* ops, int m, int n_train,
+extern "C" int rbf_posterior_mean_launch(const MeanOperands* ops, int m, int chunks,
+                                         int stages, int resident, int grid, int smem_bytes,
                                          void* stream) {
-  const int blocks = (m + kQueries - 1) / kQueries;
-  rbf_posterior_mean_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*ops, m, n_train);
+  static int opted = 0;
+  if (smem_bytes > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rbf_posterior_mean_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem_bytes;
+  }
+  rbf_posterior_mean_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      *ops, m, chunks, stages, resident);
   return (int)cudaGetLastError();
+}
+
+// The per-section clock cycles since the last call (the sections, the
+// whole block, the copies' issue, the blocks counted; ops/rbf_pallas.py:
+// posterior_mean_section_cycles), then reset.
+extern "C" int rbf_posterior_mean_section_cycles(unsigned long long* out) {
+  return uav::read_section_cycles(out, 10);
 }
 
 extern "C" int rbf_gram_launch(const GramOperands* ops, int n1, int n2, int d, void* stream) {

@@ -46,6 +46,8 @@ LIBRARIES = {
     # K8 with its per-section clock counters (chip_smoke.py's breakdown)
     "controller_clocks": ("controller_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "rbf": "rbf_kernels.cu",
+    # K7 with its per-section clock counters (chip_smoke.py's breakdown)
+    "rbf_clocks": ("rbf_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "single_tick": "single_tick_kernels.cu",
     # K4 with its per-section clock counters (chip_smoke.py's breakdown)
     "single_tick_clocks": ("single_tick_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
@@ -222,6 +224,22 @@ def shared_memory_optin(device) -> int:
 
 
 _optin: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device`` (a kernel sized to one
+    wave launches one block on each)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    count = _sms.get(index)
+    if count is None:
+        count = torch.cuda.get_device_properties(index).multi_processor_count
+        _sms[index] = count
+    return count
+
+
+_sms: dict[int, int] = {}
 
 
 def p1_variant(device, smem_shared: int, smem_global: int) -> tuple[int, int]:

@@ -6,8 +6,10 @@ transform, airspeed drag ``v - wind``) in one launch.
 K2 ``allocation_plant_tick_fused``: u0 command -> geometric allocation +
 attitude PID (integral carried) -> K1.
 
-Both take a batch: one CUDA thread per state (``csrc/plant_kernels.cu``;
-the device math lives in ``csrc/plant_math.cuh`` and is shared with K5).
+Both take a batch (``csrc/plant_kernels.cu``; the device math lives in
+``csrc/plant_math.cuh`` and is shared with K5): K1 one CUDA thread per
+state, K2 a group of 8 lanes per state, 16 a block
+(``allocation_plant_geometry``).
 Plant scalars are a row operand, not constants, so dispersed plants and
 steady wind reuse one build: one (10,) row shared by the batch, or a
 ``(B, 10)`` block with one row per state (a Monte Carlo population's
@@ -293,6 +295,16 @@ def px4_plant_step_fused(
 # K2: allocation + attitude PID + plant substeps
 # ---------------------------------------------------------------------------
 
+K2_LANES_PER_STATE = 8   # csrc/plant_kernels.cu kLanes
+K2_THREADS = 128         # four warps a block
+
+
+def allocation_plant_geometry(B: int) -> tuple[int, int]:
+    """K2's launch for a batch of ``B`` states, as ``_allocation_plant_rows``
+    passes it to ``csrc/plant_kernels.cu``: ``(blocks, threads a block)``, a
+    group of 8 lanes per state, 16 states a block."""
+    return -(-B // (K2_THREADS // K2_LANES_PER_STATE)), K2_THREADS
+
 
 def allocation_plant_tick_plain(state, cmd, integral, plant_row, dt: float, substeps: int):
     """Plain version of K2: ``state (B, 12)``, ``cmd (B, 6)`` =
@@ -322,15 +334,17 @@ def _allocation_plant_rows(state, cmd, integral, plant_row, dt: float, substeps:
         raise ValueError(f"allocation_plant_tick_fused runs on cuda or cpu, not {dev}")
     lib = _cuda.library("plant")
     fn = lib.allocation_plant_tick_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out_state = torch.empty_like(state)
     out_ctrl = torch.empty(B, 7, dtype=torch.float32, device=dev)
     out_int = torch.empty_like(integral)
+    blocks, threads = allocation_plant_geometry(B)
     status = fn(_cuda.ptr(state), _cuda.ptr(cmd), _cuda.ptr(integral), _cuda.ptr(plant_row),
                 _cuda.ptr(out_state), _cuda.ptr(out_ctrl), _cuda.ptr(out_int),
-                B, float(dt), int(substeps), plant_stride, _cuda.stream_of(state))
+                B, float(dt), int(substeps), plant_stride, blocks, threads,
+                _cuda.stream_of(state))
     _cuda.check(status, "allocation_plant_tick_fused")
     _cuda.count_launch("allocation_plant_tick_fused")
     return out_state, out_ctrl, out_int

@@ -13,18 +13,25 @@ Gram's positive semi-definiteness rests on it.
 K7 ``rbf_posterior_mean_pallas``:
 ``K_*(X_test - x_shift, X_train) @ (sigma^2 alpha y_std) + y_mean`` for
 ``(m, d)`` queries against ``P`` training points, ``(m, out)`` out. The
-kernel is ``csrc/rbf_kernels.cu``: the training points stream through
-shared memory in chunks and the ``(m, P)`` cross-kernel matrix is never
-written to memory, so there is no limit on ``P`` and no second route (the
-TPU kernel's ``P_pad > 4096`` branch was a VMEM limit). Its plain PyTorch
-version is ``rbf_posterior_mean_plain`` below.
+kernel is ``csrc/rbf_kernels.cu``: both products (the cross term and the
+value product) on the tensor cores in 3xTF32, the exp between them in
+registers, the training set in shared memory (streamed in chunks past one
+block's shared memory), so the ``(m, P)`` cross-kernel matrix is never
+written to memory and there is no limit on ``P`` and no second route (the
+TPU kernel's ``P_pad > 4096`` branch was a VMEM limit). The training side
+is packed once per posterior into the tensor-core operands' fragment order
+(``posterior_mean_operands``, ``pack_posterior_tiles``); the layout in
+shared memory is ``posterior_mean_layout``. Its plain PyTorch version is
+``rbf_posterior_mean_plain`` below.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 
-``precision`` is accepted for the JAX signature. Every tier computes in
-float32 here: the bfloat16 limb tiers were a TPU matrix-unit scheme, and
-float32 meets all three of the JAX tiers' bars against ``predict_mean``.
+``precision`` is accepted for the JAX signature. Every tier computes to
+float32 accuracy here (K7's products in 3xTF32, within ~2e-6 of the
+float32 plain version): the bfloat16 limb tiers were a TPU matrix-unit
+scheme, and float32 meets all three of the JAX tiers' bars against
+``predict_mean``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,117 @@ from . import _cuda
 PRECISIONS = ("default", "high", "highest")
 KERNEL_FEATURES, KERNEL_OUTPUTS = 10, 6   # csrc/rbf_kernels.cu kD, kOut
 
+# csrc/rbf_kernels.cu's layout of the training side: 8-point tiles of the
+# tensor-core operands, 10 floats a lane (320 a tile), 4 tiles a chunk (one
+# bulk copy); the 4 warps of a row split a chunk's tiles, 2 rows of warps
+# split the queries; a round is 10 query tiles of 16 (5 a warp).
+TILE_POINTS = 8
+TILE_FLOATS = 320
+CHUNK_TILES = 4
+CHUNK_BYTES = 4 * TILE_FLOATS * CHUNK_TILES
+QUERY_TILE = 16
+ROUND_TILES = 10
+WARP_COLUMNS = 4
+REDUCE_BYTES = 4 * WARP_COLUMNS * ROUND_TILES * QUERY_TILE * 8
+# exp(-0.5 d) = 2^(EXP2_SCALE d): folded into the operands, so the kernel's
+# exp is one ex2
+EXP2_SCALE = -0.5 * 1.4426950408889634
+# sentinel rows give |z_p|^2 up to ~1e13 and more: clamped here so that the
+# split's parts stay finite (the kernel value is 0 either way)
+OPERAND_LIMIT = 1e34
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (float32) as ``hi + lo``, both TF32 values (10-bit mantissas):
+    ``hi`` is ``x`` rounded to nearest, ties away from zero (PTX's
+    ``cvt.rna.tf32.f32``), ``lo`` the exact remainder rounded the same way.
+    Bit operations on the float32 encoding: adding half a unit of the last
+    kept place to the magnitude's bits carries into the exponent where it
+    should."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def pack_posterior_tiles(ztr: torch.Tensor, sq2: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The training side of K7 in the tensor cores' fragment order: ``(tiles
+    * 320,)`` float32, ``tiles = 4 ceil(P / 32)`` (zero points pad the last
+    chunk; they contribute exactly 0, their value rows being 0). For lane
+    ``l = 4 g + t`` of 8-point tile ``j`` (points ``8 j .. 8 j + 7``):
+
+    - floats ``[4 l, 4 l + 4)``: the cross product's B fragment of
+      ``mma.m16n8k8`` (k = feature, n = point ``8 j + g``), ``w_t`` and
+      ``w_{t+4}``, hi then lo, with ``w = -2 EXP2_SCALE z_p``;
+    - ``128 + [4 l, 4 l + 4)``: the value product's B fragment (k = point,
+      n = output ``g``) with the points permuted so that its k index ``t``
+      is point ``2 t`` and ``t + 4`` point ``2 t + 1``: the cross product's
+      accumulator columns ``(2 t, 2 t + 1)`` are then the value product's A
+      columns ``(t, t + 4)`` in the same lane, and the exp tile goes from
+      one to the other in registers. ``a[8 j + 2 t, g]``, ``a[8 j + 2 t + 1,
+      g]`` (0 for ``g >= out``), hi then lo;
+    - ``256 + [2 l, 2 l + 2)``: the ``mma.m16n8k4`` B fragment of features
+      8-11 (``w_8``, ``w_9``, ``EXP2_SCALE |z_p|^2``, 0 for ``t`` = 0..3),
+      hi, lo.
+
+    ``ztr (P, 10)``, ``sq2 (P,)``, ``a (P, 6)`` float32: the kernel (and
+    its packing) takes only the residual GP's shapes."""
+    P, d = ztr.shape
+    if (d, a.shape[1]) != (KERNEL_FEATURES, KERNEL_OUTPUTS):
+        raise ValueError(
+            f"the posterior-mean kernel is built for {KERNEL_FEATURES} features and "
+            f"{KERNEL_OUTPUTS} outputs (got {d}, {a.shape[1]})"
+        )
+    f32 = dict(dtype=torch.float32, device=ztr.device)
+    per_chunk = TILE_POINTS * CHUNK_TILES
+    Pp = -(-P // per_chunk) * per_chunk
+    tiles = Pp // TILE_POINTS
+    lim = OPERAND_LIMIT
+    # features 0-11 of each point: w (10), EXP2_SCALE |z|^2, 0
+    feats = torch.zeros(Pp, 12, **f32)
+    feats[:P, :10] = torch.clamp(ztr * (-2.0 * EXP2_SCALE), -lim, lim)
+    feats[:P, 10] = torch.clamp(sq2 * EXP2_SCALE, -lim, lim)
+    vals = torch.zeros(Pp, 8, **f32)
+    vals[:P, : a.shape[1]] = a
+    fh, fl = tf32_split(feats)
+    vh, vl = tf32_split(vals)
+    g = torch.arange(8, device=ztr.device)[:, None]     # lane = 4 g + t
+    t = torch.arange(4, device=ztr.device)[None, :]
+    pt = (TILE_POINTS * torch.arange(tiles, device=ztr.device))[:, None, None]
+    pnt = pt + g                                        # (tiles, 8, 4): point 8 j + g
+    cross = torch.stack([fh[pnt, t], fh[pnt, t + 4], fl[pnt, t], fl[pnt, t + 4]], -1)
+    v0, v1 = pt + 2 * t, pt + 2 * t + 1                 # value rows 2 t, 2 t + 1
+    gg = g.expand(8, 4)
+    value = torch.stack([vh[v0, gg], vh[v1, gg], vl[v0, gg], vl[v1, gg]], -1)
+    k4 = torch.stack([fh[pnt, 8 + t], fl[pnt, 8 + t]], -1)
+    return torch.cat([cross.reshape(tiles, 128), value.reshape(tiles, 128),
+                      k4.reshape(tiles, 64)], 1).reshape(-1).contiguous()
+
+
+def posterior_mean_layout(P: int, smem_limit: int) -> dict:
+    """K7's shared memory for ``P`` training points on a card whose blocks
+    may opt into ``smem_limit`` bytes: the training set's chunks, the
+    stages of the ring they pass through, whether all of them stay resident
+    for the launch (``chunks <= stages``; else two halves of the ring are
+    refilled in turns, double-buffered), and the bytes (the stages'
+    transaction barriers, the reduction of the 4 warp columns' sums, the
+    stages)."""
+    chunks = -(-P // (TILE_POINTS * CHUNK_TILES))
+
+    def nbytes(stages):
+        return -(-8 * stages // 128) * 128 + REDUCE_BYTES + CHUNK_BYTES * stages
+
+    most = 0
+    while nbytes(most + 1) <= smem_limit:
+        most += 1
+    if chunks <= most:
+        return dict(chunks=chunks, stages=chunks, resident=True, bytes=nbytes(chunks))
+    stages = most - most % 2
+    if stages < 2:
+        raise ValueError(f"K7 needs {nbytes(2)} bytes of shared memory, more than {smem_limit}")
+    return dict(chunks=chunks, stages=stages, resident=False, bytes=nbytes(stages))
+
 
 class PosteriorMeanOperands(NamedTuple):
     """A posterior packed for K7 (float32, on the posterior's device). Built
@@ -51,6 +169,9 @@ class PosteriorMeanOperands(NamedTuple):
     y_mean: torch.Tensor   # (out,)
     ls: torch.Tensor       # (d,)     length scales
     shift: torch.Tensor    # (d,)     query centering (zeros without x_shift)
+    tiles: torch.Tensor | None   # the kernel's operand (pack_posterior_tiles),
+                                 #   packed for a posterior on the card in
+                                 #   the kernel's shapes, else None
 
     @property
     def ztr(self) -> torch.Tensor:
@@ -70,7 +191,8 @@ class PosteriorMeanOperands(NamedTuple):
 
 
 def posterior_mean_operands(posterior) -> PosteriorMeanOperands:
-    """Pack a ``gp.exact_gp.GPPosterior`` for K7."""
+    """Pack a ``gp.exact_gp.GPPosterior`` for K7 (and, on the CPU, for its
+    plain version alone: ``tiles`` is packed only where the kernel runs)."""
     f32 = torch.float32
     p = posterior.params
     d = posterior.X_train.shape[1]
@@ -88,6 +210,9 @@ def posterior_mean_operands(posterior) -> PosteriorMeanOperands:
         y_mean=posterior.y_mean.to(f32).contiguous(),
         ls=ls,
         shift=shift,
+        tiles=(pack_posterior_tiles(ztr, sq2, a)
+               if ztr.is_cuda and (d, a.shape[1]) == (KERNEL_FEATURES, KERNEL_OUTPUTS)
+               else None),
     )
 
 
@@ -117,7 +242,7 @@ def rbf_posterior_mean_plain(posterior, X_test: torch.Tensor,
 
 class _MeanOperands(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p)
-                for name in ("X", "rec", "y_mean", "ls", "shift", "out")]
+                for name in ("X", "tiles", "y_mean", "ls", "shift", "out")]
 
 
 def rbf_posterior_mean_pallas(posterior, X_test: torch.Tensor,
@@ -130,7 +255,9 @@ def rbf_posterior_mean_pallas(posterior, X_test: torch.Tensor,
     sentinel of ``fit_residual_gp_masked`` contribute exactly 0.
 
     The kernel is built for the residual GP's shapes (d=10 features, 6
-    outputs); other shapes raise on the card."""
+    outputs); other shapes raise on the card. One launch is one wave: a
+    block on each SM (``_cuda.sm_count``), each taking an even share of
+    the 16-query tiles."""
     _check_precision(precision)
     ops = _operands(posterior)
     dev = X_test.device
@@ -138,7 +265,6 @@ def rbf_posterior_mean_pallas(posterior, X_test: torch.Tensor,
     m = X_test.shape[0]
     req = _cuda.require
     req(X_test, "X_test", (m, d), dev)
-    req(ops.rec, "rec", (P, (d + out_dim + 4) // 4 * 4), dev)
     req(ops.y_mean, "y_mean", (out_dim,), dev)
     req(ops.ls, "ls", (d,), dev)
     req(ops.shift, "shift", (d,), dev)
@@ -151,21 +277,49 @@ def rbf_posterior_mean_pallas(posterior, X_test: torch.Tensor,
             f"the posterior-mean kernel is built for {KERNEL_FEATURES} features and "
             f"{KERNEL_OUTPUTS} outputs (got {d}, {out_dim})"
         )
-    if ops.rec.data_ptr() % 16:
-        raise ValueError("rec must be 16-byte aligned")
+    if ops.tiles is None:
+        raise ValueError("the posterior-mean operands were packed off the card: pack them "
+                         "(posterior_mean_operands) from a posterior on the card")
+    layout = posterior_mean_layout(P, _cuda.shared_memory_optin(dev))
+    req(ops.tiles, "tiles", (layout["chunks"] * CHUNK_TILES * TILE_FLOATS,), dev)
+    _cuda.require_aligned("rbf_posterior_mean_pallas", ops.tiles)
     out = torch.empty(m, out_dim, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    tensors = dict(X=X_test, rec=ops.rec, y_mean=ops.y_mean, ls=ops.ls, shift=ops.shift,
+    tensors = dict(X=X_test, tiles=ops.tiles, y_mean=ops.y_mean, ls=ops.ls, shift=ops.shift,
                    out=out)
     operands = _MeanOperands(**{k: v.data_ptr() for k, v in tensors.items()})
+    query_tiles = -(-m // QUERY_TILE)
+    grid = min(_cuda.sm_count(dev), query_tiles)
     fn = _cuda.library("rbf").rbf_posterior_mean_launch
-    fn.argtypes = [ctypes.POINTER(_MeanOperands), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_MeanOperands)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(operands), m, P, _cuda.stream_of(X_test))
+    status = fn(ctypes.byref(operands), m, layout["chunks"], layout["stages"],
+                int(layout["resident"]), grid, layout["bytes"], _cuda.stream_of(X_test))
     _cuda.check(status, "rbf_posterior_mean_pallas")
     _cuda.count_launch("rbf_posterior_mean_pallas")
     return out
+
+
+POSTERIOR_MEAN_SECTIONS = ("training set wait", "cross product", "exp", "value product",
+                           "reduction", "store", "queries", "whole", "copies issued")
+
+
+def posterior_mean_section_cycles() -> dict[str, float]:
+    """Clock cycles of K7 by section since the last call, per block (warp
+    0's: the training set's wait, the cross product's MMAs, the clamp, exp
+    and split, the value product's MMAs, the reduction of the warp columns'
+    sums, the store, the queries' loads and splits, the whole block, and
+    thread 0's barrier set-up and first bulk copies), from the
+    ``rbf_clocks`` build:
+    call inside ``_cuda.library_variant("rbf", "rbf_clocks")`` after the
+    launches, synchronised. The first call only resets them. Each launch
+    adds its blocks, so the counts are divided by the blocks counted
+    (``rbf_posterior_mean_section_cycles`` counts them in the last slot)."""
+    raw = _cuda.section_cycles("rbf", "rbf_posterior_mean_section_cycles",
+                               POSTERIOR_MEAN_SECTIONS + ("blocks",))
+    blocks = max(raw.pop("blocks"), 1)
+    return {k: v / blocks for k, v in raw.items()}
 
 
 # ---------------------------------------------------------------------------
