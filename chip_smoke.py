@@ -8,9 +8,11 @@ Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``unmanned_aerial_vehicles_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once) and print the build time and register report;
-2. hold every kernel against its plain PyTorch version on the card: K1 and
-   K2 over the flight loops' batch of one and a batch of random states
-   (tolerance 1e-5), K5 for one launch at full width (N=20, P=800, K=20,
+2. hold every kernel against its plain PyTorch version on the card: K1 at
+   B = 1, 17, 1024, 4096 and on a dispersed (256, 10) plant block (tolerance
+   1e-5, a second launch bit-identical, timed at each) and K2 over the
+   flight loops' batch of one and a batch of random states (tolerance
+   1e-5), K5 for one launch at full width (N=20, P=800, K=20,
    10 ADMM iterations, GP fitted on the seeded synthetic set) on the packed
    lanes and every carry (tolerance 1e-4; a second launch bit-identical; its
    cycles per tick by section from the build with section clocks), K8 at the sweep's width
@@ -44,8 +46,10 @@ Phases (any failure exits non-zero; nothing is caught):
    output, a second launch bit-identical, the layout of the ADMM operator's
    factors printed), and at N=25 where the factors are read through L2, with
    each section's share of a launch from the build with section clocks, K12 at
-   512 x 25 (1e-5 relative; a float64 MPPI controller's tick must launch
-   it once), K5 with the variance section over a thread-block cluster
+   512 x 25 and at K = 1, 17, 513, 2048 with N = 1, 7, 25 (1e-5 relative,
+   a second launch bit-identical at each; its cycles per RK4 step and per
+   derivative from the build with section clocks; a float64 MPPI
+   controller's tick must launch it once), K5 with the variance section over a thread-block cluster
    (``tighten_kappa`` 2, 10 iterations, K=8 at N=20 with P=800, N=23 with
    P=800, N=20 with P=2000; 1e-4 of each output's and of each tick's
    back-off row's scale, a second launch bit-identical, in a case where the
@@ -79,11 +83,13 @@ Phases (any failure exits non-zero; nothing is caught):
    K4 at N=20 and N=25, K8 at B=1024, K3 and K6 (with and without ``SuT``)
    at N=20 and N=25, K16 at B=256, the tightened K5, K5 and K9 at the main
    path's shape (N=20, P=800, K=20), K11 at both plants, K7 at the sweep's
-   width, K2 at B=1, on a dispersed (256, 10) plant block and at B=1024 (and
-   K2's outputs of both checkouts on the same inputs compared) and K13a at
-   B=1 and 1024 of that package and of this one, and the device-busy and
-   idle shares of the staged flights through K3 and K6 and of the sweep
-   (with K8's, K7's and K2's device time per tick), timed in turns (older,
+   width, K2 and K1 at B=1, on a dispersed (256, 10) plant block and at
+   B=1024, K12 at 512 x 25 (and K2's, K1's and K12's outputs of both
+   checkouts on the same inputs compared) and K13a at B=1 and 1024 of that
+   package and of this one, and the device-busy and idle shares of the
+   staged flights through K3 and K6, of the sweep (with K8's, K7's and
+   K2's device time per tick) and of the mppi12 flight (with K12's and
+   K10's), timed in turns (older,
    this, this, older; each older run a subprocess that builds its own
    sources, K11's operands through its own ``dispatch_tick_operands``, K3's
    and K6's through its own ``LinearMPC``);
@@ -165,11 +171,11 @@ Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
-                                         # K5, K9, K11, K7, K2 and K13a and its staged
-                                         # flights' and sweep's device-busy shares in
-                                         # turns with this one's, and
-                                         # its sweep, single-tick and online ticks in
-                                         # E2E_PAIRS pairs
+                                         # K5, K9, K11, K7, K2, K13a, K1 and K12 and its
+                                         # staged flights', sweep's and mppi12 flight's
+                                         # device-busy shares in turns with this one's,
+                                         # and its sweep, single-tick, online and mppi12
+                                         # ticks in E2E_PAIRS pairs
 """
 
 from __future__ import annotations
@@ -925,6 +931,35 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
           f"{float(want.min()):.1f}..{float(want.max()):.1f})")
     if not k12_err <= K12_RTOL:
         fail_fn(f"K12 disagrees with its plain version: {k12_err}")
+    if not torch.equal(got, mppi_pallas.mppi_rollout_costs_fused(*k12_args)):
+        fail_fn("K12: a second launch on the same inputs differs")
+    # the tails of the launch shape (blocks of 8 samples) and other
+    # horizons, on their own generator
+    k12_gen = torch.Generator().manual_seed(12)
+    shape_errs = {}
+    for K, N in K12_SHAPES:
+        args = k12_operands(k12_gen, ctrl, K, N, f32)
+        got_c = mppi_pallas.mppi_rollout_costs_fused(*args)
+        torch.cuda.synchronize()
+        want_c = mppi_pallas.mppi_rollout_costs_plain(*args)
+        if not bool(torch.isfinite(got_c).all()):
+            fail_fn(f"K12 at {K} x {N} produced non-finite values")
+        shape_errs[f"{K}x{N}"] = float(((got_c - want_c).abs() / want_c.abs()).max())
+        if not torch.equal(got_c, mppi_pallas.mppi_rollout_costs_fused(*args)):
+            fail_fn(f"K12 at {K} x {N}: a second launch on the same inputs differs")
+    print("  K12 at other sample counts and horizons, max relative error (a second launch "
+          "bit-identical at each): " + ", ".join(f"{k} {e:.3e}" for k, e in shape_errs.items()))
+    if not max(shape_errs.values()) <= K12_RTOL:
+        fail_fn(f"K12 disagrees with its plain version: {shape_errs}")
+    # cycles per RK4 step and per derivative, from the build with section clocks
+    with _cuda.library_variant("mppi", "mppi_clocks"):
+        mppi_pallas.mppi_section_cycles()
+        mppi_pallas.mppi_rollout_costs_fused(*k12_args)
+        torch.cuda.synchronize()
+        k12_cycles = mppi_pallas.mppi_section_cycles()
+    print(f"  K12 clock cycles (mppi_clocks build, lane 0 of each sample's group, "
+          f"{cfg.num_samples} x {cfg.horizon}): "
+          + "; ".join(f"{k} {v:.0f}" for k, v in k12_cycles.items()))
     # a float64 controller samples through K12 too (in float32, costs cast
     # back): one launch per tick
     ctrl64 = MPPIController(dtype=torch.float64, device=dev)
@@ -937,7 +972,8 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
     fn = lambda: mppi_pallas.mppi_rollout_costs_fused(*k12_args)
     plain = lambda: mppi_pallas.mppi_rollout_costs_plain(*k12_args)
     recs["mppi_rollout_costs_fused"] = dict(
-        err=k12_err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
+        err=max(k12_err, *shape_errs.values()), err_by_shape=shape_errs, cycles=k12_cycles,
+        ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 1, replays=3),
         host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 2, warmup=1),
         bound=bound_ms(nbytes(x0, U, targets, yaw, got),
                        cfg.num_samples * (cfg.horizon * (OPS_RIGID_RK4 + OPS_MPPI_STAGE_COST) + 20)))
@@ -949,6 +985,32 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
           f"{recs['mppi_rollout_costs_fused']['plain_ms'] * 1e3:.2f} us, bound "
           f"{recs['mppi_rollout_costs_fused']['bound'][0] * 1e3:.4f} us)")
     return recs
+
+
+K12_SHAPES = tuple((K, N) for K in (1, 17, 513, 2048) for N in (1, 7, 25))
+
+
+def k12_operands(gen, ctrl, K: int, N: int, f32: dict) -> tuple:
+    """K12's operands for K samples of N steps: a perturbed hover state with
+    its yaw near the wrap, candidates drawn around hover and clipped as
+    ``ctrl`` (an ``MPPIController``) clips them, a rising line of targets
+    and a target yaw across the wrap; ``ctrl``'s weights and step."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+
+    x0 = torch.zeros(12)
+    x0[2] = 3.0
+    x0 += 0.1 * torch.randn(12, generator=gen)
+    x0[8] = 3.0
+    x0 = x0.to(**f32)
+    eps = torch.randn(K, N, 4, generator=gen).to(**f32)
+    U = torch.minimum(torch.maximum(ctrl.u_hover + ctrl._noise_std * eps, ctrl.u_lo), ctrl.u_hi)
+    targets = (torch.tensor([0.5, -0.3, 3.2]) + 0.05 * torch.arange(N)[:, None]).to(**f32)
+    yaw = torch.tensor(-3.0, **f32)
+    cfg = ctrl.config
+    return (x0, U.contiguous(), targets, yaw, X500_PARAMS, cfg.dt, ctrl._u_hover_host,
+            cfg.weights)
 
 
 class RigidFamily:
@@ -1065,23 +1127,34 @@ class RigidFamily:
         return {"state": outs["state"], "u": outs["u"], "pos_ref": self.ltv_ref(ts)[:, 0:3]}
 
     def mppi12(self, T, plain=False):
-        """The staged MPPI flight (cli.py fly --controller mppi12): one
-        sampling stage (K12) and one plant step (K10) per tick; the state
-        after each step against the reference at its tick."""
-        from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
-        from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
-        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+        return mppi12_flight(self.dev, T, plain)
 
-        torch = self.torch
-        ctrl = MPPIController(MPPIConfig(fused_rollouts=not plain), device=self.dev)
-        pos_ref, _, yaw_ref = self.circle(0.02 * torch.arange(T, **self.f32))
-        x, carry = self.x0, ctrl.init_carry(self.x0, seed=0)
-        states = []
-        for i in range(T):
-            u, _, carry = ctrl.solve(carry, x, pos_ref[i], yaw_ref[i])
-            x = rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain)
-            states.append(x)
-        return {"state": torch.stack(states), "pos_ref": pos_ref}
+
+def mppi12_flight(dev, T, plain=False):
+    """The staged MPPI flight (cli.py fly --controller mppi12) on the circle
+    task from hover at 3 m: one sampling stage (K12) and one plant step
+    (K10) per tick; the state after each step against the reference at its
+    tick. ``plain=True`` flies the kernels' plain versions."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import MPPIConfig, MPPIController
+    from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_circle_reference
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    ctrl = MPPIController(MPPIConfig(fused_rollouts=not plain), device=dev)
+    pos_ref, _, yaw_ref = ramped_circle_reference(0.02 * torch.arange(T, **f32), amplitude=2.0,
+                                                  height=3.0)
+    x = torch.zeros(12, **f32)
+    x[2] = 3.0
+    carry = ctrl.init_carry(x, seed=0)
+    states = []
+    for i in range(T):
+        u, _, carry = ctrl.solve(carry, x, pos_ref[i], yaw_ref[i])
+        x = rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain)
+        states.append(x)
+    return {"state": torch.stack(states), "pos_ref": pos_ref}
 
 
 # ---- K13: the autodiff routes and the auto-tuners ---------------------------
@@ -2189,6 +2262,22 @@ def k2_operands(gen, B: int, f32: dict, dispersed: bool = False):
     return tuple(t.to(**f32).contiguous() for t in (s, cmd, integ, plant))
 
 
+K1_CASES = (("B=1", 1, False), ("B=17", 17, False), ("B=1024", 1024, False),
+            ("B=4096", 4096, False), ("(256, 10) block", 256, True))
+
+
+def k1_operands(gen, B: int, f32: dict, plant=None):
+    """K1's operands for a batch of B: ``k2_operands``' states, controls
+    (thrust 0.6-1.3, body rates), and ``plant`` or, if None, a dispersed
+    (B, 10) plant block."""
+    import torch
+
+    s, _, _, block = k2_operands(gen, B, f32, dispersed=plant is None)
+    c = torch.cat([0.6 + 0.7 * torch.rand(B, 1, generator=gen),
+                   torch.randn(B, 3, generator=gen)], 1).to(**f32).contiguous()
+    return s, c, block if plant is None else plant
+
+
 def time_k7_k2(dev, post) -> dict:
     """Device microseconds per launch of K7 at the sweep's width (20480
     queries, a quarter within 0.2 of a training point, against the
@@ -2223,17 +2312,57 @@ def time_k7_k2(dev, post) -> dict:
     return out
 
 
-def k2_difference(older: str, this: str) -> str:
-    """The largest difference between two checkouts' K2 outputs saved by
-    ``time_k7_k2`` (both files are removed)."""
+def time_k1_k12(dev) -> dict:
+    """Device microseconds per launch of K1 at B=1, on a dispersed (256, 10)
+    plant block and at B=1024, and of K12 at the controller's width (512 x
+    25), on seeded operands; the outputs go to a file named by
+    ``_k1_k12_outputs``, so that the caller can hold one checkout's K1 and
+    K12 against another's on the same inputs."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import MPPIController
+    from unmanned_aerial_vehicles_tpu_torch.ops import mppi_pallas, plant_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(15)
+    prow = plant_pallas.build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81,
+                                        (0.8, 0.4, 0.0), device=dev)
+    out, outputs = {}, {}
+    for key, B, dispersed in (("k1_b1_us", 1, False), ("k1_b256_dispersed_us", MC_B, True),
+                              ("k1_b1024_us", SWEEP_B, False)):
+        s, c, plant = k1_operands(gen, B, f32, None if dispersed else prow)
+        call = lambda: plant_pallas._px4_plant_rows(s, c, plant, 0.02, 2)
+        outputs[key] = [call().cpu()]
+        out[key] = graph_ms(call, 200) * 1e3
+    ctrl = MPPIController(device=dev)
+    args = k12_operands(gen, ctrl, ctrl.config.num_samples, ctrl.config.horizon, f32)
+    call = lambda: mppi_pallas.mppi_rollout_costs_fused(*args)
+    outputs["k12_us"] = [call().cpu()]
+    out["k12_us"] = graph_ms(call, 20) * 1e3
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    torch.save(outputs, path)
+    out["_k1_k12_outputs"] = path
+    return out
+
+
+def outputs_difference(older: str, this: str) -> dict:
+    """Per timing key, whether two checkouts' outputs saved by ``time_k7_k2``
+    or ``time_k1_k12`` agree bit for bit, or their largest difference (both
+    files are removed)."""
     import torch
 
     a, b = torch.load(older), torch.load(this)
     os.unlink(older)
     os.unlink(this)
-    same = all(torch.equal(x, y) for k in a for x, y in zip(a[k], b[k]))
-    worst = max(float((x - y).abs().max()) for k in a for x, y in zip(a[k], b[k]))
-    return "bit-identical" if same else f"largest difference {worst:.3e}"
+    diff = {}
+    for k in a:
+        if all(torch.equal(x, y) for x, y in zip(a[k], b[k])):
+            diff[k] = "bit-identical"
+        else:
+            worst = max(float((x - y).abs().max()) for x, y in zip(a[k], b[k]))
+            diff[k] = f"largest difference {worst:.3e}"
+    return diff
 
 
 SWEEP_SHARE_T = 50    # the sweep's profiler window (ticks)
@@ -2329,11 +2458,41 @@ def staged_shares(dev, post) -> dict:
     return out
 
 
+MPPI_SHARE_T = 100    # the mppi12 flight's profiler window (ticks)
+
+
+def mppi12_shares(dev) -> dict:
+    """The staged mppi12 flight as phase 4 flies it: microseconds per tick
+    (slope between 400 and 2000 ticks), device-busy microseconds per tick
+    from a ``torch.profiler`` window of ``MPPI_SHARE_T`` ticks (device events
+    only), the idle share in percent, and K12's and K10's device
+    microseconds per tick in that window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fly = lambda T: mppi12_flight(dev, T)
+    tick_us = slope_us(fly, T_SLOPE_12)
+    fly(MPPI_SHARE_T)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fly(MPPI_SHARE_T)
+        torch.cuda.synchronize()
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_tick = lambda part: sum(t for k, t in events if part in k) / MPPI_SHARE_T
+    busy = per_tick("")
+    return {"mppi12_us_per_tick": tick_us, "mppi12_busy_us_per_tick": busy,
+            "mppi12_idle_pct": 100.0 * (1.0 - busy / tick_us),
+            "mppi12_k12_us_per_tick": per_tick("mppi_costs_kernel"),
+            "mppi12_k10_us_per_tick": per_tick("rigid_rollout_kernel")}
+
+
 def time_end_to_end(dev) -> dict:
-    """The host-bound paths of K8, K4 and K5 as phase 4 flies them: the
+    """The host-bound paths of K8, K4, K5 and K12 as phase 4 flies them: the
     sweep's microseconds per flight-tick (B=1024, ``gp_posterior``,
-    ``gp_every`` 1), the single-tick tick's (``residual_fn``) and the online
-    tick's, through the public entry points only."""
+    ``gp_every`` 1), the single-tick tick's (``residual_fn``), the online
+    tick's and the staged mppi12 tick's, through the public entry points
+    only."""
     import numpy as np
     import torch
 
@@ -2381,6 +2540,8 @@ def time_end_to_end(dev) -> dict:
         lambda T: mpc_flight_rollout(
             mpc20, ref, T, cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K_TICKS),
             online_gp=ogp, gp_gain=0.1, device=dev), T_SLOPE)
+    # and the staged mppi12 tick (K12 and K10)
+    out["mppi12_us_per_tick"] = slope_us(lambda T: mppi12_flight(dev, T), T_SLOPE_12)
     return out
 
 
@@ -2395,9 +2556,10 @@ def time_redesigned(dev) -> dict:
     K=20: the online and the online-noisy flights' launches), K11 at both
     plants (``k11_case``: the checkout's own relinearisation and layout),
     K7 and K2 (``time_k7_k2``), the sweep's device-busy share
-    (``sweep_shares``), K13a at B=1 and 1024, and the staged flights
+    (``sweep_shares``), K13a at B=1 and 1024, the staged flights
     through K3 and K6 (``staged_shares``: their ticks and device-busy
-    shares)."""
+    shares), K1 and K12 (``time_k1_k12``) and the mppi12 flight's device-busy
+    share (``mppi12_shares``)."""
     import numpy as np
     import torch
 
@@ -2457,6 +2619,8 @@ def time_redesigned(dev) -> dict:
         out[f"k13a_b{B}_us"] = graph_ms(
             lambda: tick_ad.px4_plant_step_vjp(s, c, prow, ct, 0.02, 2), 200) * 1e3
     out.update(staged_shares(dev, post))
+    out.update(time_k1_k12(dev))
+    out.update(mppi12_shares(dev))
     return out
 
 
@@ -2499,18 +2663,19 @@ class TimingWorker:
 
 
 def compare_with_parent(dev, parent: str | None):
-    """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K7, K2, K13a
-    and the staged flights' and the sweep's device-busy shares of the
-    checkout at ``parent`` and of this one, each package in a process of
-    its own built from its own sources, timed in turns in this call:
-    parent, this, this, parent; K2's outputs of the two on the same inputs
-    compared. Then the sweep's, single-tick and online ticks in
-    ``E2E_PAIRS`` pairs, alternating which checkout goes first, each called
-    changed only where the sign test over the pairs says so."""
+    """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K7, K2, K13a,
+    K1 and K12 and the staged flights', the sweep's and the mppi12 flight's
+    device-busy shares of the checkout at ``parent`` and of this one, each
+    package in a process of its own built from its own sources, timed in
+    turns in this call: parent, this, this, parent; K2's, K1's and K12's
+    outputs of the two on the same inputs compared. Then the sweep's,
+    single-tick, online and mppi12 ticks in ``E2E_PAIRS`` pairs,
+    alternating which checkout goes first, each called changed only where
+    the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2 and K13a and its "
-              "end-to-end ticks: not measured in this run (pass --parent DIR, DIR holding the "
-              "older package, to time them here)")
+        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2, K13a, K1 and K12 and "
+              "its end-to-end ticks: not measured in this run (pass --parent DIR, DIR holding "
+              "the older package, to time them here)")
         return None
     workers = {"older": TimingWorker(parent), "this": TimingWorker(ROOT)}
     try:
@@ -2519,12 +2684,15 @@ def compare_with_parent(dev, parent: str | None):
         for key in runs[0]:
             if not key.startswith("_"):
                 print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
-        k2_files = [r.pop("_k2_outputs") for r in runs]
-        k2_same = k2_difference(k2_files[0], k2_files[1])
-        for path in k2_files[2:]:
-            os.unlink(path)
-        print(f"  K2 at B=1, 1024 and on the (256, 10) plant block, this checkout's outputs "
-              f"against the older one's on the same inputs: {k2_same}")
+        against_older = {}
+        for name in ("_k2_outputs", "_k1_k12_outputs"):
+            files = [r.pop(name) for r in runs]
+            against_older.update(outputs_difference(files[0], files[1]))
+            for path in files[2:]:
+                os.unlink(path)
+        print("  this checkout's outputs against the older one's on the same inputs (K2 at B=1, "
+              "1024 and on the (256, 10) plant block, K1 likewise, K12 at 512 x 25): "
+              + "; ".join(f"{k[:-3]} {v}" for k, v in against_older.items()))
         e2e = {"older": [], "this": []}
         for i in range(E2E_PAIRS):
             for who in ("older", "this") if i % 2 == 0 else ("this", "older"):
@@ -2545,7 +2713,7 @@ def compare_with_parent(dev, parent: str | None):
               + f"; this lower in {lower}, higher in {higher} (sign test needs {need}): "
               + verdicts[key])
     return {"order": order, "runs": runs, "end_to_end": e2e, "end_to_end_verdict": verdicts,
-            "k2_against_older": k2_same}
+            "outputs_against_older": against_older}
 
 
 def time_redesigned_main(package_root: str) -> int:
@@ -2835,8 +3003,27 @@ def main(parent: str | None = None) -> int:
         host_ms=cuda_ms(k1_fn, 500), host_plain_ms=cuda_ms(k1_plain, 20),
         bound=bound_ms(nbytes(s1, c1, prow) + nbytes(s1), 2 * OPS_RK4_SUBSTEP),
     )
+    # the batches of the tail and the launch shape, and the Monte Carlo
+    # population's dispersed plant block, on their own generator (the
+    # draws of the later checks stay as they were)
+    k1_gen = torch.Generator().manual_seed(15)
+    k1["by_batch"] = {}
+    for label, B, dispersed in K1_CASES:
+        s, c, plant = k1_operands(k1_gen, B, f32, prow if not dispersed else None)
+        fn = lambda: plant_pallas._px4_plant_rows(s, c, plant, 0.02, 2)
+        got = fn()
+        torch.cuda.synchronize()
+        err = float((got - plant_pallas.px4_plant_step_plain(s, c, plant, 0.02, 2)).abs().max())
+        if not torch.equal(got, fn()):
+            fail(f"K1 ({label}): a second launch on the same inputs differs")
+        k1["by_batch"][label] = dict(err=err, ms=graph_ms(fn, 200))
+        errs.append(err)
+    k1["err"] = max(errs)
     kernels["px4_plant_step_fused"] = k1
-    print(f"K1 px4_plant_step_fused: max_abs_err {k1['err']:.3e} (B=1, 4096)")
+    print(f"K1 px4_plant_step_fused: max_abs_err {k1['err']:.3e} (B=1, 4096; "
+          + ", ".join(f"{label} {r['err']:.3e}" for label, r in k1["by_batch"].items())
+          + f"); device {k1['ms'] * 1e3:.2f} us per launch at B=1, "
+          + ", ".join(f"{label} {r['ms'] * 1e3:.2f} us" for label, r in k1["by_batch"].items()))
     if not k1["err"] <= PLANT_TOL:
         fail(f"K1 disagrees with its plain version: {k1['err']}")
 
@@ -3723,6 +3910,10 @@ def main(parent: str | None = None) -> int:
         "k7_bound_unit": kernels["rbf_posterior_mean_pallas"]["bound_unit"],
         "k7_cycles_per_block_by_section": kernels["rbf_posterior_mean_pallas"]["sections"],
         "k7_max_abs_err_other_layouts": kernels["rbf_posterior_mean_pallas"]["cases"],
+        "k1_by_batch": {label: {"us": r["ms"] * 1e3, "max_abs_err": r["err"]}
+                        for label, r in kernels["px4_plant_step_fused"]["by_batch"].items()},
+        "k12_max_rel_err_by_shape": kernels["mppi_rollout_costs_fused"]["err_by_shape"],
+        "k12_cycles": kernels["mppi_rollout_costs_fused"]["cycles"],
         "us_per_launch_k13a_lane_owned": {
             B: t["ms"] * 1e3 for B, t in kernels["px4_plant_step_vjp"]["lane_owned"].items()},
         "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3

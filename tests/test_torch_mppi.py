@@ -74,6 +74,34 @@ def test_k12_plain_matches_jax(k12_case, against):
     np.testing.assert_allclose(got.numpy(), want, rtol=COST_RTOL, atol=0)
 
 
+@pytest.mark.parametrize("K,N", [(128, 1), (256, 7)])
+def test_k12_plain_matches_jax_kernel_other_shapes(K, N):
+    """K12's plain version against the JAX kernel in interpret mode at a
+    one-step horizon and at two 128-sample rows (the JAX kernel takes K in
+    multiples of 128), the same draws through both."""
+    rng = np.random.default_rng(K + N)
+    ctrl = JMPPI(JCfg(horizon=N, num_samples=K))
+    cfg = ctrl.config
+    x0 = np.zeros(12, np.float32)
+    x0[2] = 3.0
+    x0 += (0.1 * rng.normal(size=12)).astype(np.float32)
+    x0[8] = -3.1
+    eps = rng.normal(size=(K, N, 4)) * np.asarray(cfg.noise_std)
+    U = np.clip(np.asarray(ctrl.u_hover) + eps, np.asarray(ctrl.u_lo),
+                np.asarray(ctrl.u_hi)).astype(np.float32)
+    targets = (np.array([0.2, 0.4, 2.9]) + 0.05 * np.arange(N)[:, None]).astype(np.float32)
+    yaw = np.float32(3.0)
+    weights = (cfg.q_pos, cfg.q_vel, cfg.q_att, cfg.q_yaw, cfg.q_rate, *cfg.r_control,
+               cfg.terminal_weight)
+    want = np.asarray(j_k12(jnp.asarray(x0), jnp.asarray(U), jnp.asarray(targets), yaw, JX500,
+                            cfg.dt, ctrl.u_hover, weights, interpret=True))
+    got = tk12.mppi_rollout_costs_fused(
+        torch.tensor(x0), torch.tensor(U), torch.tensor(targets), torch.tensor(yaw), X500_PARAMS,
+        cfg.dt, torch.tensor(np.asarray(ctrl.u_hover)), weights)
+    assert tuple(got.shape) == (K,) and np.isfinite(want).all() and float(want.std()) > 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=COST_RTOL, atol=0)
+
+
 def jax_draws(seed, ticks, dtype):
     """The JAX controller's exploration draws: the carry key split once per
     tick, standard normals from the subkey."""

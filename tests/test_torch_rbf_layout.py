@@ -224,11 +224,12 @@ def test_k7_packing_rejects_other_shapes(d, out):
 
 @pytest.mark.parametrize("B", [1, 256, 1024, 4096])
 def test_k2_launch_geometry(B):
-    """The launch ``_allocation_plant_rows`` passes to the kernel: whole
-    warps (the shuffles), at most 128 threads (its launch bounds), and the
-    blocks cover the batch with fewer than a block's states to spare."""
-    blocks, threads = plant_pallas.allocation_plant_geometry(B)
+    """The launch ``_allocation_plant_rows`` (K2) and ``_px4_plant_rows``
+    (K1) pass to their kernels, one shared shape: whole warps (the
+    shuffles), at most 128 threads (the launch bounds), and the blocks
+    cover the batch with fewer than a block's states to spare."""
+    blocks, threads = plant_pallas.plant_geometry(B)
     assert threads == 128 and threads % 32 == 0
-    per_block = threads // plant_pallas.K2_LANES_PER_STATE   # 8 lanes per state
+    per_block = threads // plant_pallas.LANES_PER_STATE   # 8 lanes per state
     assert per_block == 16 and (blocks - 1) * per_block < B <= blocks * per_block
     assert blocks == {1: 1, 256: 16, 1024: 64, 4096: 256}[B]

@@ -127,15 +127,8 @@ __device__ __forceinline__ void rk4_step(float s[12], const float c[4], const Pl
     s[i] = s[i] + st.h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
 }
 
-// `substeps` RK4 steps of length dt / substeps, in place on s.
-__device__ __forceinline__ void rk4_substeps(float s[12], const float c[4], const Plant& pl,
-                                             double dt, int substeps) {
-  const Rk4Step st = rk4_step_lengths(dt, substeps);
-  for (int step = 0; step < substeps; ++step) rk4_step(s, c, pl, st);
-}
-
-// The warp-cooperative forms below (K9's filter warp, K13a, and K5's and
-// K9's scalar sections) spread the slow, serial pieces of derivative() and
+// The warp-cooperative forms below (K9's filter warp, K13a, K5's and K9's
+// scalar sections, and K1 and K2 on groups of 8 lanes) spread the slow, serial pieces of derivative() and
 // of the closed-form Jacobian (the accurate sine and cosine and the IEEE
 // divisions, each behind a slow-path branch) over the lanes of one warp
 // and share the results by shuffles:
@@ -224,6 +217,21 @@ __device__ __forceinline__ void rk4_stages_warp(const float s[12], const float c
   derivative_warp<kWidth>(x4, c, pl, lane, k);
 #pragma unroll
   for (int i = 0; i < 12; ++i) xp[i] = s[i] + h6 * (acc[i] + k[i]);
+}
+
+// `substeps` RK4 steps of length dt / substeps in place on s, on each group
+// of kWidth lanes (rk4_stages_warp): the same arithmetic as `substeps`
+// rk4_step()s (K1, K2).
+template <int kWidth = 32>
+__device__ __forceinline__ void rk4_substeps_warp(float s[12], const float c[4], const Plant& pl,
+                                                  double dt, int substeps, int lane) {
+  const double h = dt / substeps;
+  for (int step = 0; step < substeps; ++step) {
+    float x2[12], x3[12], x4[12], xp[12];
+    rk4_stages_warp<kWidth>(s, c, pl, h, lane, x2, x3, x4, xp);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s[i] = xp[i];
+  }
 }
 
 // d(derivative)/d(state) in closed form at the four RK4 stage states xs
@@ -569,8 +577,8 @@ __device__ __forceinline__ void derivative_vjp(const float s[12], const float c[
   gs[8] += g_spsi * cpsi - g_cpsi * spsi;
 }
 
-// rk4_substeps()'s VJP: on entry gs holds the cotangent of the state after
-// the substeps, on return the cotangent of the state s0 before them; the
+// The VJP of `substeps` rk4_step()s of length dt / substeps: on entry gs
+// holds the cotangent of the state after the substeps, on return the cotangent of the state s0 before them; the
 // control's and the plant row's are added into gc and gp. Each substep's
 // start state is recomputed from s0 (substeps is small: 2 in every loop).
 __device__ __forceinline__ void rk4_substeps_vjp(const float s0[12], const float c[4],

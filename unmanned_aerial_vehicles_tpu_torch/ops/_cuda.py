@@ -59,6 +59,8 @@ LIBRARIES = {
     # K11 with its per-section clock counters (chip_smoke.py's breakdown)
     "rigid_tick_clocks": ("rigid_tick_kernel.cu", ["-DUAV_SECTION_CLOCKS"]),
     "mppi": "mppi_kernels.cu",
+    # K12 with its per-section clock counters (chip_smoke.py's breakdown)
+    "mppi_clocks": ("mppi_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "plant_vjp": "plant_vjp_kernels.cu",
     # K13a with lanes 0-11 owning a state component each (chip_smoke.py's
     # ablation of its design)

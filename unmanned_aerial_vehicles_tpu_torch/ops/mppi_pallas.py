@@ -13,13 +13,17 @@ inputs' dtype. The wrapper takes it only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 
 Layout: the candidates stay ``(K, N, 4)`` row-major, as the controller
-draws them. One thread rolls one sample and reads its step's four controls
-as one 16-byte load; across a warp those loads are N * 16 bytes apart, so
-each touches its own sector, but the whole operand (K N 16 bytes, 205 KB at
-512 x 25) is read once and the loads wait behind the plant's serial math.
-A transpose to ``(N, 4, K)`` would coalesce them at the price of a copy
-kernel per tick. The sample count need not be a multiple of anything: the
-last block masks its tail.
+draws them; no transpose per tick. A group of ``K12_LANES_PER_SAMPLE``
+lanes rolls one sample, every lane carrying the whole state, and spreads
+each derivative's sines, cosines and quotients over its lanes
+(``RIGID_SINCOS_LANES``, ``RIGID_QUOTIENT_LANES``: the lane table of
+``csrc/rigid_math.cuh:rigid_derivative_warp``). Before its steps the group
+copies its sample's row (N * 16 bytes) into shared memory, each lane a share
+of the 16-byte loads, so no global load waits on a step.
+``mppi_launch_geometry`` sizes the launch; any sample count launches (a
+group past K reads the last sample and writes nothing).
+``mppi_section_cycles`` reads the ``mppi_clocks`` build's cycles per RK4
+step and per derivative.
 """
 
 from __future__ import annotations
@@ -33,6 +37,50 @@ from ..models.params import RigidBodyParams
 from . import _cuda
 from .rigid_plant_pallas import make_plant_math, rigid_body_struct, rk4_step_struct, _RigidBody, _RK4Step
 
+K12_LANES_PER_SAMPLE = 8   # csrc/mppi_kernels.cu kLanes
+K12_THREADS = 64           # two warps, 8 samples a block (csrc/mppi_kernels.cu kMaxThreads)
+
+# csrc/rigid_math.cuh:rigid_derivative_warp's lane table: lane i of a group
+# forms the sine and cosine of RIGID_SINCOS_LANES[i] and the quotient
+# RIGID_QUOTIENT_LANES[i] (numerator over denominator, as rigid_derivative
+# divides), which the group's shuffles read from that lane; the other lanes
+# repeat a neighbour's work (rigid_lane_roles), unread.
+RIGID_SINCOS_LANES = ("phi", "theta", "psi")
+RIGID_QUOTIENT_LANES = ("accel_x", "accel_y", "accel_z", "psi_dot", "p_dot", "q_dot", "r_dot")
+
+
+def rigid_lane_roles(lane: int) -> tuple[str, str]:
+    """The Euler angle whose sine and cosine lane ``lane`` of a group forms
+    and the quotient it divides (``lane % 3``, ``min(lane & 7, 6)`` in the
+    kernel)."""
+    return RIGID_SINCOS_LANES[lane % 3], RIGID_QUOTIENT_LANES[min(lane & 7, 6)]
+
+
+def mppi_launch_geometry(K: int) -> tuple[int, int]:
+    """K12's launch for ``K`` samples, as ``mppi_rollout_costs_fused``
+    passes it to ``csrc/mppi_kernels.cu``: ``(blocks, threads a block)``, a
+    group of 8 lanes per sample, 8 samples a block (64 blocks at K=512)."""
+    if K < 1:
+        raise ValueError(f"mppi_rollout_costs_fused needs at least one sample, got {K}")
+    return -(-K // (K12_THREADS // K12_LANES_PER_SAMPLE)), K12_THREADS
+
+
+MPPI_SECTIONS = ("staging", "rk4 steps", "derivatives", "whole")
+
+
+def mppi_section_cycles() -> dict[str, float]:
+    """K12's clock cycles since the last call, counted by lane 0 of each
+    sample's group in the ``mppi_clocks`` build: per RK4 step, per
+    derivative (one more evaluation a step at the step's end state, timed
+    alone with its outputs waited for), and per sample the staging of its
+    controls and the whole rollout (the timed derivatives included). Call
+    inside ``_cuda.library_variant("mppi", "mppi_clocks")`` after the
+    launches, synchronised; the first call only resets them."""
+    raw = _cuda.section_cycles("mppi", "mppi_section_cycles", MPPI_SECTIONS + ("steps", "samples"))
+    steps, samples = max(raw["steps"], 1), max(raw["samples"], 1)
+    return {"RK4 step": raw["rk4 steps"] / steps, "derivative": raw["derivatives"] / steps,
+            "staging a sample": raw["staging"] / samples,
+            "whole sample": raw["whole"] / samples}
 
 
 def mppi_rollout_costs_plain(x0: torch.Tensor, U_cand: torch.Tensor, targets: torch.Tensor,
@@ -105,11 +153,13 @@ def mppi_rollout_costs_fused(
     fn = _cuda.library("mppi").mppi_costs_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.POINTER(_RK4Step),
                                            ctypes.POINTER(_RigidBody), ctypes.POINTER(_MppiCost),
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     step, body = rk4_step_struct(dt), rigid_body_struct(params)
+    blocks, threads = mppi_launch_geometry(K)
     status = fn(_cuda.ptr(x), _cuda.ptr(U), _cuda.ptr(tg), _cuda.ptr(yaw), _cuda.ptr(out), K, N,
-                ctypes.byref(step), ctypes.byref(body), ctypes.byref(cost), _cuda.stream_of(x))
+                ctypes.byref(step), ctypes.byref(body), ctypes.byref(cost), blocks, threads,
+                _cuda.stream_of(x))
     _cuda.check(status, "mppi_rollout_costs_fused")
     _cuda.count_launch("mppi_rollout_costs_fused")
     return out

@@ -7,9 +7,8 @@ K2 ``allocation_plant_tick_fused``: u0 command -> geometric allocation +
 attitude PID (integral carried) -> K1.
 
 Both take a batch (``csrc/plant_kernels.cu``; the device math lives in
-``csrc/plant_math.cuh`` and is shared with K5): K1 one CUDA thread per
-state, K2 a group of 8 lanes per state, 16 a block
-(``allocation_plant_geometry``).
+``csrc/plant_math.cuh`` and is shared with K5): a group of 8 lanes per
+state, 16 a block (``plant_geometry``).
 Plant scalars are a row operand, not constants, so dispersed plants and
 steady wind reuse one build: one (10,) row shared by the batch, or a
 ``(B, 10)`` block with one row per state (a Monte Carlo population's
@@ -235,6 +234,17 @@ def _cols(x: torch.Tensor):
 # K1: all plant substeps
 # ---------------------------------------------------------------------------
 
+LANES_PER_STATE = 8   # csrc/plant_kernels.cu kLanes
+PLANT_THREADS = 128   # four warps a block
+
+
+def plant_geometry(B: int) -> tuple[int, int]:
+    """K1's and K2's launch for a batch of ``B`` states, as
+    ``_px4_plant_rows`` and ``_allocation_plant_rows`` pass it to
+    ``csrc/plant_kernels.cu``: ``(blocks, threads a block)``, a group of 8
+    lanes per state, 16 states a block."""
+    return -(-B // (PLANT_THREADS // LANES_PER_STATE)), PLANT_THREADS
+
 
 def px4_plant_step_plain(state, control, plant_row, dt: float, substeps: int):
     """Plain version of K1: ``state (B, 12)``, ``control (B, 4)``,
@@ -255,12 +265,13 @@ def _px4_plant_rows(state, control, plant_row, dt: float, substeps: int):
         raise ValueError(f"px4_plant_step_fused runs on cuda or cpu, not {dev}")
     lib = _cuda.library("plant")
     fn = lib.px4_plant_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_double,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_double] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(state)
+    blocks, threads = plant_geometry(B)
     status = fn(_cuda.ptr(state), _cuda.ptr(control), _cuda.ptr(plant_row),
-                _cuda.ptr(out), B, float(dt), int(substeps), plant_stride,
+                _cuda.ptr(out), B, float(dt), int(substeps), plant_stride, blocks, threads,
                 _cuda.stream_of(state))
     _cuda.check(status, "px4_plant_step_fused")
     _cuda.count_launch("px4_plant_step_fused")
@@ -294,16 +305,6 @@ def px4_plant_step_fused(
 # ---------------------------------------------------------------------------
 # K2: allocation + attitude PID + plant substeps
 # ---------------------------------------------------------------------------
-
-K2_LANES_PER_STATE = 8   # csrc/plant_kernels.cu kLanes
-K2_THREADS = 128         # four warps a block
-
-
-def allocation_plant_geometry(B: int) -> tuple[int, int]:
-    """K2's launch for a batch of ``B`` states, as ``_allocation_plant_rows``
-    passes it to ``csrc/plant_kernels.cu``: ``(blocks, threads a block)``, a
-    group of 8 lanes per state, 16 states a block."""
-    return -(-B // (K2_THREADS // K2_LANES_PER_STATE)), K2_THREADS
 
 
 def allocation_plant_tick_plain(state, cmd, integral, plant_row, dt: float, substeps: int):
@@ -340,7 +341,7 @@ def _allocation_plant_rows(state, cmd, integral, plant_row, dt: float, substeps:
     out_state = torch.empty_like(state)
     out_ctrl = torch.empty(B, 7, dtype=torch.float32, device=dev)
     out_int = torch.empty_like(integral)
-    blocks, threads = allocation_plant_geometry(B)
+    blocks, threads = plant_geometry(B)
     status = fn(_cuda.ptr(state), _cuda.ptr(cmd), _cuda.ptr(integral), _cuda.ptr(plant_row),
                 _cuda.ptr(out_state), _cuda.ptr(out_ctrl), _cuda.ptr(out_int),
                 B, float(dt), int(substeps), plant_stride, blocks, threads,
