@@ -39,8 +39,10 @@ Phases (any failure exits non-zero; nothing is caught):
    rows, ``relinearize_every="dispatch"``, the hover fallback engaged;
    tolerance 1e-4 on the packed lanes, the estimate, P and every carry, and
    a second launch bit-identical); K10 over random states around hover at
-   n=1 and n=20 with wind and residuals, and at the Euler-rate singularity
-   (tolerance 1e-5 of the state's size), K11 for one launch per plant at
+   n=1 and n=20 with wind and residuals, at the Euler-rate singularity and
+   at n=150 (past the 64 steps it stages at a time) with and without
+   residuals (tolerance 1e-5 of the state's size; a second launch
+   bit-identical at each), K11 for one launch per plant at
    full width (direct-rate N=20, rigid N=15, K=8, 30 iterations) on the
    port's own relinearisation at the circle task's start (5e-4 on every
    output, a second launch bit-identical, the layout of the ADMM operator's
@@ -59,7 +61,10 @@ Phases (any failure exits non-zero; nothing is caught):
    against ``torch.func.vjp`` of K1's and K2's plain versions at B=1 and
    B=1024 (around hover with wind, a quarter at zero airspeed, a quarter
    of K13b's with every clamp binding; 1e-5 of each cotangent's scale, a
-   second launch bit-identical); ``gpmpc_multitick_ad`` (K5 with its VJP
+   second launch bit-identical; K13a's ``plant_vjp_lane_owned`` ablation
+   timed beside it; K13b's cycles per state by phase from the
+   ``plant_vjp_clocks`` build: forward allocation, plant forward, plant
+   adjoint, allocation VJP); ``gpmpc_multitick_ad`` (K5 with its VJP
    rule) over two launches at N=20, P=800, K=20 and tightened at K=8:
    forward bit-identical to K5, weight gradient within 1e-4 of the plain
    route's; the last three kernels at the system's shapes, each with a
@@ -84,15 +89,17 @@ Phases (any failure exits non-zero; nothing is caught):
    at N=20 and N=25, K16 at B=256, the tightened K5, K5 and K9 at the main
    path's shape (N=20, P=800, K=20), K11 at both plants, K7 at the sweep's
    width, K2 and K1 at B=1, on a dispersed (256, 10) plant block and at
-   B=1024, K12 at 512 x 25 (and K2's, K1's and K12's outputs of both
-   checkouts on the same inputs compared) and K13a at B=1 and 1024 of that
-   package and of this one, and the device-busy and idle shares of the
-   staged flights through K3 and K6, of the sweep (with K8's, K7's and
-   K2's device time per tick) and of the mppi12 flight (with K12's and
-   K10's), timed in turns (older,
-   this, this, older; each older run a subprocess that builds its own
-   sources, K11's operands through its own ``dispatch_tick_operands``, K3's
-   and K6's through its own ``LinearMPC``);
+   B=1024, K12 at 512 x 25, K13b at B=1 and 1024 and K10 at n=1 and 20
+   (and K2's, K1's, K12's, K13a's, K13b's and K10's outputs of both
+   checkouts on the same inputs compared, K10's also on its checked
+   rollouts; K11's and K12's machine code compared) and K13a at B=1 and
+   1024 of that package and of this one, and the device-busy and idle
+   shares of the staged flights through K3 and K6, of the sweep (with
+   K8's, K7's and K2's device time per tick) and of the mppi12 flight
+   (with K12's and K10's), timed in turns (older, this, this, older; each
+   older run a subprocess that builds its own sources, K11's operands
+   through its own ``dispatch_tick_operands``, K3's and K6's through its
+   own ``LinearMPC``);
 3. fly every path of the slices through the user entry points with the
    launch counts set to 0 just before and read just after: the online
    GP-MPC figure-8 (K=20, P=800, N=20, 500 ticks, refit every 250; K5 must
@@ -171,7 +178,8 @@ Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
-                                         # K5, K9, K11, K7, K2, K13a, K1 and K12 and its
+                                         # K5, K9, K11, K7, K2, K13a, K1, K12, K13b and
+                                         # K10 and its
                                          # staged flights', sweep's and mppi12 flight's
                                          # device-busy shares in turns with this one's,
                                          # and its sweep, single-tick, online and mppi12
@@ -773,6 +781,47 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
+def k10_cases(rnd) -> list:
+    """K10's checked rollouts, ``(x0, U, res, dt, substeps)`` on the CPU:
+    random states around hover with residuals at the plant step's n=1
+    (dt 0.02) and the plan roll's n=20 (dt 0.1), 4 each at substeps 1 and 2,
+    then hover at the Euler-rate singularity (pitch pi/2 -+ 1e-7, -pi/2)
+    without residuals. ``rnd(*shape)`` draws standard normals."""
+    import torch
+
+    scale = torch.tensor([2, 2, 1, 3, 3, 2, 0.6, 0.6, 2.0, 2, 2, 1.5])
+    cases = []
+    for n, dt in ((1, 0.02), (20, 0.1)):
+        for substeps in (1, 2):
+            for _ in range(4):
+                U = torch.tensor([4.9, 0.0, 0.0, 0.0]) + rnd(n, 4) * torch.tensor(
+                    [0.5, 2e-3, 2e-3, 2e-3])
+                cases.append((0.3 * rnd(12) * scale, U, 0.1 * rnd(n, 12), dt, substeps))
+    for pitch in (math.pi / 2 - 1e-7, math.pi / 2 + 1e-7, -math.pi / 2):
+        x0 = torch.zeros(12)
+        x0[7], x0[10] = pitch, 0.5
+        cases.append((x0, torch.tensor([[5.0, 0.01, 0.0, 0.0]]), None, 0.01, 1))
+    return cases
+
+
+K10_BODY_WIND = (0.6, -0.4, 0.2)   # the checked rollouts' wind (GZ quadrotor)
+K10_LONG_N = 150                   # past the 64 steps K10 stages at a time
+
+
+def k10_timed_operands(f32: dict):
+    """K10's timed operands: hover at 3 m with a thrust step, X500 for the
+    plant step (n=1, dt 0.02) and its control repeated 20 times for the GZ
+    quadrotor's plan roll (n=20, dt 0.1). ``(x1, u1, U20)``."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+
+    x1 = torch.zeros(12, **f32)
+    x1[2] = 3.0
+    u1 = torch.tensor([[X500_PARAMS.mass * X500_PARAMS.gravity + 0.3, 0.01, -0.01, 0.0]], **f32)
+    return x1, u1, u1.repeat(20, 1).contiguous()
+
+
 def check_rigid_kernels(dev, gen, fail_fn) -> dict:
     """Hold K10, K11 (both plants; the direct-rate engine also at N=25) and
     K12 against their plain versions on the card at the flights' shapes and
@@ -797,19 +846,17 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
     recs = {}
 
     # K10: random states around hover with wind and residuals, at the plant
-    # step's n=1 and the plan roll's n=20, and the Euler-rate singularity
-    body = dataclasses.replace(GZ_QUADROTOR_PARAMS, wind=(0.6, -0.4, 0.2))
-    scale = torch.tensor([2, 2, 1, 3, 3, 2, 0.6, 0.6, 2.0, 2, 2, 1.5])
-    cases = []
-    for n, dt in ((1, 0.02), (20, 0.1)):
-        for substeps in (1, 2):
-            for _ in range(4):
-                U = torch.tensor([4.9, 0.0, 0.0, 0.0]) + rnd(n, 4) * torch.tensor([0.5, 2e-3, 2e-3, 2e-3])
-                cases.append((0.3 * rnd(12) * scale, U, 0.1 * rnd(n, 12), dt, substeps))
-    for pitch in (math.pi / 2 - 1e-7, math.pi / 2 + 1e-7, -math.pi / 2):
-        x0 = torch.zeros(12)
-        x0[7], x0[10] = pitch, 0.5
-        cases.append((x0, torch.tensor([[5.0, 0.01, 0.0, 0.0]]), None, 0.01, 1))
+    # step's n=1 and the plan roll's n=20, and the Euler-rate singularity;
+    # then a rollout past the steps staged at a time, with and without
+    # residuals, on its own generator (the later draws stay as they were)
+    body = dataclasses.replace(GZ_QUADROTOR_PARAMS, wind=K10_BODY_WIND)
+    cases = k10_cases(rnd)
+    long_gen = torch.Generator().manual_seed(10)
+    long_x0 = 0.1 * torch.randn(12, generator=long_gen)
+    long_U = torch.tensor([4.9, 0.0, 0.0, 0.0]) + torch.randn(
+        K10_LONG_N, 4, generator=long_gen) * torch.tensor([0.5, 2e-3, 2e-3, 2e-3])
+    long_res = 0.1 * torch.randn(K10_LONG_N, 12, generator=long_gen)
+    cases += [(long_x0, long_U, long_res, 0.02, 1), (long_x0, long_U, None, 0.02, 2)]
     err = 0.0
     for x0, U, res, dt, substeps in cases:
         x0, U = x0.to(**f32).contiguous(), U.to(**f32).contiguous()
@@ -819,18 +866,19 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
         want = rigid_plant_pallas.rigid_body_rollout_plain(x0, U, body, dt, substeps, res)
         if not bool(torch.isfinite(got).all()):
             fail_fn("K10 produced non-finite values")
+        if not torch.equal(got, rigid_plant_pallas.rigid_body_rollout_fused(x0, U, body, dt,
+                                                                             substeps, res)):
+            fail_fn(f"K10 (n={U.shape[0]}): a second launch on the same inputs differs")
         err = max(err, rel_err(got, want))
     print(f"K10 rigid_body_rollout_fused: max error {err:.3e} relative to the state's size over "
           f"{len(cases)} rollouts (n=1 and 20, substeps 1 and 2, wind, residuals, pitch at the "
-          "Euler-rate singularity)")
+          f"Euler-rate singularity, n={K10_LONG_N} with and without residuals); a second launch "
+          "bit-identical at each")
     if not err <= RIGID_PLANT_TOL:
         fail_fn(f"K10 disagrees with its plain version: {err}")
-    x1 = torch.zeros(12, **f32)
-    x1[2] = 3.0
-    u1 = torch.tensor([[X500_PARAMS.mass * X500_PARAMS.gravity + 0.3, 0.01, -0.01, 0.0]], **f32)
+    x1, u1, U20 = k10_timed_operands(f32)
     k10_fn = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, u1, X500_PARAMS, 0.02)
     k10_plain = lambda: rigid_plant_pallas.rigid_body_rollout_plain(x1, u1, X500_PARAMS, 0.02)
-    U20 = u1.repeat(20, 1).contiguous()
     k10_20 = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, U20, GZ_QUADROTOR_PARAMS, 0.1)
     recs["rigid_body_rollout_fused"] = dict(
         err=err, ms=graph_ms(k10_fn, 200), plain_ms=graph_ms(k10_plain, 5),
@@ -1160,14 +1208,13 @@ def mppi12_flight(dev, T, plain=False):
 # ---- K13: the autodiff routes and the auto-tuners ---------------------------
 
 # operation counts of the plant VJPs, read off csrc/plant_math.cuh
-# (derivative_vjp: the forward's trigonometry and products recomputed, then
-# the adjoint of each row; rk4_substeps_vjp: per substep the three stage
-# states, four derivative VJPs and the stage sums; with 2 substeps the first
-# substep's step is recomputed once more; allocation_vjp: the allocation
-# recomputed and its adjoint)
+# (derivative_vjp_warp: the forward's trigonometry and products recomputed,
+# then the adjoint of each row; rk4_substeps_vjp_warp: the forward once, its
+# stage states kept, then per substep four derivative VJPs and the stage
+# sums; allocation_vjp_warp: the allocation recomputed and its adjoint)
 OPS_DERIVATIVE_VJP = 214
-OPS_RK4_SUBSTEP_VJP = 3 * OPS_DERIVATIVE + 3 * 24 + 4 * OPS_DERIVATIVE_VJP + 12 + 3 * 48
-OPS_PLANT_VJP = 2 * OPS_RK4_SUBSTEP_VJP + OPS_RK4_SUBSTEP
+OPS_RK4_SUBSTEP_ADJOINT = 4 * OPS_DERIVATIVE_VJP + 12 + 3 * 48
+OPS_PLANT_VJP = 2 * (OPS_RK4_SUBSTEP + OPS_RK4_SUBSTEP_ADJOINT)
 OPS_ALLOCATION_VJP = OPS_ALLOCATION + 70
 VJP_TOL = 1e-5                # of each cotangent's max-abs scale
 AD_GRAD_RTOL = 1e-4           # K5 route's weight gradient against the plain route's
@@ -1192,14 +1239,60 @@ def tune_circle(t):
     return pos, yaw
 
 
+def vjp_operands(gen, B: int, wind, f32: dict) -> list:
+    """The plant VJPs' operands for a batch of B: states around hover with
+    the wind ``wind`` (3,), a quarter at zero airspeed and, for B >= 4, a
+    quarter with the tilt, integral, rate and thrust clamps binding;
+    controls, commands (thrust ceiling 1.2), integrals, and the cotangents
+    of K2's three outputs. ``[s, c, cmd, integ, ct_s, ct_c, ct_i]``."""
+    import torch
+
+    s = 0.3 * torch.randn(B, 12, generator=gen)
+    s[:, 2] += 3.0
+    q = B // 4
+    s[:q, 3:6] = torch.tensor(wind)                       # zero airspeed
+    c = torch.cat([1.0 + 0.1 * torch.randn(B, 1, generator=gen),
+                   0.3 * torch.randn(B, 3, generator=gen)], 1)
+    cmd = torch.cat([torch.randn(B, 3, generator=gen), 0.3 * torch.randn(B, 2, generator=gen),
+                     torch.full((B, 1), 1.2)], 1)
+    integ = 0.05 * torch.randn(B, 3, generator=gen)
+    if B >= 4:                                            # every clamp binding
+        s[q:2 * q, 6:12] = torch.tensor([0.9, -0.9, 2.0, 2.0, -2.0, 1.5])
+        cmd[q:2 * q] = torch.tensor([5.0, -5.0, 9.0, 0.5, -1.0, 1.2])
+        integ[q:2 * q] = torch.tensor([0.299, -0.299, 0.299])
+    cts = [torch.randn(B, n, generator=gen) for n in (12, 7, 3)]
+    return [t.to(**f32).contiguous() for t in (s, c, cmd, integ, *cts)]
+
+
+def k13b_cycles(dev, prow) -> dict:
+    """K13b's cycles per state by phase at B=1 (the tuners' batch), from
+    the ``plant_vjp_clocks`` build, on ``vjp_operands``' draw from its own
+    generator (the mean over 20 launches)."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_ad
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    wind = tuple(float(v) for v in prow[7:10])
+    s, _, cmd, integ, ct_s, ct_c, ct_i = vjp_operands(torch.Generator().manual_seed(13), 1,
+                                                      wind, f32)
+    with _cuda.library_variant("plant_vjp", "plant_vjp_clocks"):
+        tick_ad.plant_vjp_section_cycles()
+        for _ in range(20):
+            tick_ad.allocation_plant_tick_vjp(s, cmd, integ, prow, ct_s, ct_c, ct_i, 0.02, 2)
+        torch.cuda.synchronize()
+        return tick_ad.plant_vjp_section_cycles()
+
+
 def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
     """Hold K13a and K13b against their plain versions (``torch.func.vjp`` of
     K1's and K2's plain versions) at B=1 and B=1024 on states around hover
     with wind: a quarter at zero airspeed, and for K13b a quarter with the
     tilt, integral, rate and thrust clamps binding; 1e-5 of each cotangent's
     scale; a second launch bit-identical. Time both at B=1 (the tuners'
-    batch) and B=1024, and K13a's lane-owned ablation beside it. Returns
-    their records for the JSON line."""
+    batch) and B=1024, K13a's lane-owned ablation beside it, and print
+    K13b's cycles by phase at B=1 (``k13b_cycles``). Returns their records
+    for the JSON line."""
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, tick_ad
@@ -1207,29 +1300,12 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
     f32 = dict(dtype=torch.float32, device=dev)
     wind = tuple(float(v) for v in prow[7:10])
 
-    def operands(B):
-        s = 0.3 * torch.randn(B, 12, generator=gen)
-        s[:, 2] += 3.0
-        q = B // 4
-        s[:q, 3:6] = torch.tensor(wind)                       # zero airspeed
-        c = torch.cat([1.0 + 0.1 * torch.randn(B, 1, generator=gen),
-                       0.3 * torch.randn(B, 3, generator=gen)], 1)
-        cmd = torch.cat([torch.randn(B, 3, generator=gen), 0.3 * torch.randn(B, 2, generator=gen),
-                         torch.full((B, 1), 1.2)], 1)
-        integ = 0.05 * torch.randn(B, 3, generator=gen)
-        if B >= 4:                                            # every clamp binding
-            s[q:2 * q, 6:12] = torch.tensor([0.9, -0.9, 2.0, 2.0, -2.0, 1.5])
-            cmd[q:2 * q] = torch.tensor([5.0, -5.0, 9.0, 0.5, -1.0, 1.2])
-            integ[q:2 * q] = torch.tensor([0.299, -0.299, 0.299])
-        cts = [torch.randn(B, n, generator=gen) for n in (12, 7, 3)]
-        return [t.to(**f32).contiguous() for t in (s, c, cmd, integ, *cts)]
-
     recs = {}
     for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp"):
         recs[name] = dict(errs={}, timing={})
     recs["px4_plant_step_vjp"]["lane_owned"] = {}
     for B in (1, 1024):
-        s, c, cmd, integ, ct_s, ct_c, ct_i = operands(B)
+        s, c, cmd, integ, ct_s, ct_c, ct_i = vjp_operands(gen, B, wind, f32)
         calls = {
             "px4_plant_step_vjp": (
                 lambda: tick_ad.px4_plant_step_vjp(s, c, prow, ct_s, 0.02, 2),
@@ -1289,6 +1365,10 @@ def check_plant_vjps(dev, gen, prow, fail_fn) -> dict:
           "launch " + "; ".join(f"B={B} {t['ms'] * 1e3:.2f} (max error {t['err']:.3e}; shipped "
                                 f"{recs['px4_plant_step_vjp']['timing'][B]['ms'] * 1e3:.2f})"
                                 for B, t in recs["px4_plant_step_vjp"]["lane_owned"].items()))
+    k13b = recs["allocation_plant_tick_vjp"]
+    k13b["cycles"] = k13b_cycles(dev, prow)
+    print("  K13b clock cycles per state at B=1 (plant_vjp_clocks build, lane 0 of the warp, "
+          "20 launches): " + "; ".join(f"{k} {v:.0f}" for k, v in k13b["cycles"].items()))
     return recs
 
 
@@ -2346,10 +2426,70 @@ def time_k1_k12(dev) -> dict:
     return out
 
 
+def time_k13b_k10(dev) -> dict:
+    """Device microseconds per launch of K13b at B=1 and B=1024 (on
+    ``vjp_operands``; also the kernel alone, ``plant_grad=False``, without
+    the plant row's batch sum; K13a's outputs on the same operands are
+    saved beside K13b's) and of K10 at n=1 and n=20
+    (``k10_timed_operands``),
+    on seeded operands; the outputs go to a file named by
+    ``_k13b_k10_outputs``, with those of K10's checked rollouts
+    (``k10_cases``: n=1 and 20, substeps 1 and 2, with and without
+    residuals, the Euler-rate singularity), so that the caller can hold one
+    checkout's K13b and K10 against another's on the same inputs."""
+    import dataclasses
+
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS, X500_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.ops import plant_pallas, rigid_plant_pallas, tick_ad
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(16)
+    wind = (0.8, 0.4, 0.0)
+    prow = plant_pallas.build_plant_row(0.5, 9.81, 0.25, (0.05, 0.05, 0.08), 9.81, wind,
+                                        device=dev)
+    out, outputs = {}, {}
+    for B in (1, 1024):
+        s, c, cmd, integ, ct_s, ct_c, ct_i = vjp_operands(gen, B, wind, f32)
+        outputs[f"k13a_b{B}"] = [t.cpu() for t in tick_ad.px4_plant_step_vjp(s, c, prow, ct_s,
+                                                                              0.02, 2)]
+        call = lambda: tick_ad.allocation_plant_tick_vjp(s, cmd, integ, prow, ct_s, ct_c, ct_i,
+                                                         0.02, 2)
+        key = f"k13b_b{B}_us"
+        outputs[key] = [t.cpu() for t in call()]
+        out[key] = graph_ms(call, 200) * 1e3
+        # the kernel alone: no plant-row cotangent, so no batch sum
+        out[f"k13b_b{B}_kernel_only_us"] = graph_ms(
+            lambda: tick_ad.allocation_plant_tick_vjp(s, cmd, integ, prow, ct_s, ct_c, ct_i, 0.02,
+                                                      2, plant_grad=False), 200) * 1e3
+    x1, u1, U20 = k10_timed_operands(f32)
+    for key, U, params, dt in (("k10_n1_us", u1, X500_PARAMS, 0.02),
+                               ("k10_n20_us", U20, GZ_QUADROTOR_PARAMS, 0.1)):
+        call = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, U, params, dt)
+        outputs[key] = [call().cpu()]
+        out[key] = graph_ms(call, 200 if U.shape[0] == 1 else 50) * 1e3
+    body = dataclasses.replace(GZ_QUADROTOR_PARAMS, wind=K10_BODY_WIND)
+    rows = []
+    for x0, U, res, dt, substeps in k10_cases(lambda *shape: torch.randn(*shape, generator=gen)):
+        rows.append(rigid_plant_pallas.rigid_body_rollout_fused(
+            x0.to(**f32), U.to(**f32).contiguous(), body, dt, substeps,
+            None if res is None else res.to(**f32).contiguous()).cpu())
+        if res is not None:   # the same rollout without its residuals
+            rows.append(rigid_plant_pallas.rigid_body_rollout_fused(
+                x0.to(**f32), U.to(**f32).contiguous(), body, dt, substeps).cpu())
+    outputs["k10_checked_rollouts"] = rows
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    torch.save(outputs, path)
+    out["_k13b_k10_outputs"] = path
+    return out
+
+
 def outputs_difference(older: str, this: str) -> dict:
-    """Per timing key, whether two checkouts' outputs saved by ``time_k7_k2``
-    or ``time_k1_k12`` agree bit for bit, or their largest difference (both
-    files are removed)."""
+    """Per timing key, whether two checkouts' outputs saved by ``time_k7_k2``,
+    ``time_k1_k12`` or ``time_k13b_k10`` agree bit for bit, or their largest
+    difference (both files are removed)."""
     import torch
 
     a, b = torch.load(older), torch.load(this)
@@ -2558,8 +2698,8 @@ def time_redesigned(dev) -> dict:
     K7 and K2 (``time_k7_k2``), the sweep's device-busy share
     (``sweep_shares``), K13a at B=1 and 1024, the staged flights
     through K3 and K6 (``staged_shares``: their ticks and device-busy
-    shares), K1 and K12 (``time_k1_k12``) and the mppi12 flight's device-busy
-    share (``mppi12_shares``)."""
+    shares), K1 and K12 (``time_k1_k12``), the mppi12 flight's device-busy
+    share (``mppi12_shares``), and K13b and K10 (``time_k13b_k10``)."""
     import numpy as np
     import torch
 
@@ -2621,6 +2761,7 @@ def time_redesigned(dev) -> dict:
     out.update(staged_shares(dev, post))
     out.update(time_k1_k12(dev))
     out.update(mppi12_shares(dev))
+    out.update(time_k13b_k10(dev))
     return out
 
 
@@ -2662,20 +2803,72 @@ class TimingWorker:
         self.log.close()
 
 
+# the kernels whose code this checkout leaves alone: K11's and K12's
+# libraries (rigid_math.cuh's one-thread and warp forms stay as they were)
+# and the forward kernels that include plant_math.cuh beside the VJPs (K1,
+# K5, K4 and K9; K2 is K1's library); a kernel beside changed ones is named
+# "library:kernel"
+SASS_KEPT = ("rigid_tick", "mppi", "plant", "tick", "single_tick", "noisy_tick")
+
+
+def sass_difference(parent: str, names=SASS_KEPT) -> dict:
+    """Per library, or per kernel as ``"library:kernel"``, whether the
+    machine code (``cuobjdump -sass``) that the checkout at ``parent``
+    built equals this checkout's, with the anonymous namespace's per-build
+    hash masked; else the first line that differs. Call after both
+    checkouts built their libraries."""
+    import re
+    import shutil
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def sass(path, kernel):
+        text = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                              check=True).stdout
+        text = re.sub(r"_GLOBAL__N__[0-9a-f]+", "_GLOBAL__N__", text)
+        text = re.sub(r"_cu_[0-9a-f]{8}", "_cu_", text)   # the source's hash in the name
+        if kernel:   # that kernel's block, from its "Function :" line to the next
+            blocks = re.split(r"(?m)^(?=\s*Function : )", text)
+            text = "".join(b for b in blocks if b.lstrip().startswith("Function : ")
+                           and kernel in b.splitlines()[0])
+        return text.splitlines()
+
+    older_builds = sorted((Path(parent) / PKG / "_build").glob("*/"),
+                          key=lambda d: d.stat().st_mtime)
+    out = {}
+    for name in names:
+        lib, _, kernel = name.partition(":")
+        older = sass(older_builds[-1] / f"lib{lib}.so", kernel)
+        this = sass(_cuda._build_dir() / f"lib{lib}.so", kernel)
+        if older == this and this:
+            out[name] = f"identical ({len(this)} lines)"
+        else:
+            first = next((i for i, (a, b) in enumerate(zip(older, this)) if a != b),
+                         min(len(older), len(this)))
+            out[name] = (f"differs at line {first} of {len(this)} (older {len(older)}): "
+                         f"{older[first] if first < len(older) else ''!r} -> "
+                         f"{this[first] if first < len(this) else ''!r}")
+    return out
+
+
 def compare_with_parent(dev, parent: str | None):
     """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K7, K2, K13a,
-    K1 and K12 and the staged flights', the sweep's and the mppi12 flight's
-    device-busy shares of the checkout at ``parent`` and of this one, each
-    package in a process of its own built from its own sources, timed in
-    turns in this call: parent, this, this, parent; K2's, K1's and K12's
-    outputs of the two on the same inputs compared. Then the sweep's,
+    K1, K12, K13b and K10 and the staged flights', the sweep's and the
+    mppi12 flight's device-busy shares of the checkout at ``parent`` and of
+    this one, each package in a process of its own built from its own
+    sources, timed in turns in this call: parent, this, this, parent; K2's,
+    K1's, K12's, K13a's, K13b's and K10's outputs of the two on the same
+    inputs compared, and the machine code of the kernels whose code is kept
+    (``sass_difference``). Then the sweep's,
     single-tick, online and mppi12 ticks in ``E2E_PAIRS`` pairs,
     alternating which checkout goes first, each called changed only where
     the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2, K13a, K1 and K12 and "
-              "its end-to-end ticks: not measured in this run (pass --parent DIR, DIR holding "
-              "the older package, to time them here)")
+        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2, K13a, K1, K12, K13b "
+              "and K10 and its end-to-end ticks: not measured in this run (pass --parent DIR, "
+              "DIR holding the older package, to time them here)")
         return None
     workers = {"older": TimingWorker(parent), "this": TimingWorker(ROOT)}
     try:
@@ -2685,14 +2878,19 @@ def compare_with_parent(dev, parent: str | None):
             if not key.startswith("_"):
                 print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
         against_older = {}
-        for name in ("_k2_outputs", "_k1_k12_outputs"):
+        for name in ("_k2_outputs", "_k1_k12_outputs", "_k13b_k10_outputs"):
             files = [r.pop(name) for r in runs]
             against_older.update(outputs_difference(files[0], files[1]))
             for path in files[2:]:
                 os.unlink(path)
         print("  this checkout's outputs against the older one's on the same inputs (K2 at B=1, "
-              "1024 and on the (256, 10) plant block, K1 likewise, K12 at 512 x 25): "
-              + "; ".join(f"{k[:-3]} {v}" for k, v in against_older.items()))
+              "1024 and on the (256, 10) plant block, K1 likewise, K12 at 512 x 25, K13a and "
+              "K13b at B=1 and 1024, K10 at n=1 and 20 and on its checked rollouts): "
+              + "; ".join(f"{k.removesuffix('_us')} {v}" for k, v in against_older.items()))
+        sass = sass_difference(parent)
+        print("  machine code of the kernels whose code is kept, against the older "
+              "checkout's (cuobjdump -sass, the anonymous namespace's hash masked): "
+              + "; ".join(f"{k} {v}" for k, v in sass.items()))
         e2e = {"older": [], "this": []}
         for i in range(E2E_PAIRS):
             for who in ("older", "this") if i % 2 == 0 else ("this", "older"):
@@ -2713,7 +2911,7 @@ def compare_with_parent(dev, parent: str | None):
               + f"; this lower in {lower}, higher in {higher} (sign test needs {need}): "
               + verdicts[key])
     return {"order": order, "runs": runs, "end_to_end": e2e, "end_to_end_verdict": verdicts,
-            "outputs_against_older": against_older}
+            "outputs_against_older": against_older, "sass_against_older": sass}
 
 
 def time_redesigned_main(package_root: str) -> int:
@@ -3282,8 +3480,7 @@ def main(parent: str | None = None) -> int:
     # K14, K15, K16 and K1/K2 on a dispersed plant block
     tail, plant_block_check = check_tail_kernels(dev, gen, fail)
     kernels.update(tail)
-    # the redesigned K16, K5, K9, K11 and K13a against an older checkout's,
-    # in turns
+    # the redesigned kernels against an older checkout's, in turns
     redesign = compare_with_parent(dev, parent)
 
     phase_clock("phase 2")
@@ -3918,6 +4115,7 @@ def main(parent: str | None = None) -> int:
             B: t["ms"] * 1e3 for B, t in kernels["px4_plant_step_vjp"]["lane_owned"].items()},
         "us_per_launch_k13_b1024": {name: kernels[name]["timing"][1024]["ms"] * 1e3
                                     for name in ("px4_plant_step_vjp", "allocation_plant_tick_vjp")},
+        "k13b_cycles_per_state_b1": kernels["allocation_plant_tick_vjp"]["cycles"],
         "multitick_ad": multitick_ad, "tuners": tuners, "tuner_iteration_seconds": tuner_seconds,
         "us_per_flight_tick_monte_carlo_256": us_mc_flight_tick,
         "idle_share_monte_carlo": idle_share["50 Monte Carlo ticks"],

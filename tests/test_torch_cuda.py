@@ -142,6 +142,30 @@ def test_plant_vjp_kernels_agree_with_their_plain_versions(cuda_device, batch):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,substeps,with_res", [(1, 1, True), (20, 2, True), (20, 1, False),
+                                                  (150, 1, True), (150, 2, False)])
+def test_k10_rollout_agrees_with_its_plain_version(cuda_device, n, substeps, with_res):
+    """K10 (one warp, the controls and residuals staged 64 steps at a time)
+    launches once per call, agrees with its plain version within 1e-5 of
+    the state's size (around hover with wind) and repeats bit for bit."""
+    import dataclasses
+
+    from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS
+    from unmanned_aerial_vehicles_tpu_torch.ops import rigid_plant_pallas as rp
+
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    gen = torch.Generator().manual_seed(n + substeps)
+    body = dataclasses.replace(GZ_QUADROTOR_PARAMS, wind=(0.6, -0.4, 0.2))
+    x0 = (0.1 * torch.randn(12, generator=gen)).to(**f32)
+    U = (torch.tensor([4.9, 0.0, 0.0, 0.0]) + torch.randn(n, 4, generator=gen)
+         * torch.tensor([0.5, 2e-3, 2e-3, 2e-3])).to(**f32)
+    res = (0.1 * torch.randn(n, 12, generator=gen)).to(**f32) if with_res else None
+    _held(lambda: (rp.rigid_body_rollout_fused(x0, U, body, 0.02, substeps, res),),
+          lambda: (rp.rigid_body_rollout_plain(x0, U, body, 0.02, substeps, res),),
+          "rigid_body_rollout_fused", 1e-5)
+
+
 def _held(kernel, plain, name, tol):
     """One launch of ``kernel`` (counted), within ``tol`` of each output's
     scale of ``plain``, and a second launch bit-identical."""

@@ -1,15 +1,17 @@
-// Scalar device math of the PX4 surrogate plant and the geometric
-// allocation, shared by the plant kernels (plant_kernels.cu: K1, K2), the
+// Device math of the PX4 surrogate plant and the geometric allocation,
+// warp-cooperative, shared by the plant kernels (plant_kernels.cu: K1, K2), the
 // multi-tick tick kernels (tick_kernel.cu: K5; noisy_tick_kernel.cu: K9),
 // the single-tick tick kernel (single_tick_kernels.cu: K4) and the plant
 // VJP kernels (plant_vjp_kernels.cu: K13a, K13b).
 //
 // A transcription of the JAX package's ops/plant_pallas.py scalar
 // functions (_derivative, _rk4_substeps, _jacobian_rows, _allocation), which the port's
-// plain versions (ops/plant_pallas.py) mirror. All float32, no fast math:
-// sinf/cosf/asinf/sqrtf are the accurate library versions. The compiler
-// contracts a*b+c into FMAs, so results agree with the plain versions to
-// float32 rounding, not bit for bit.
+// plain versions (ops/plant_pallas.py) mirror, and of their VJPs. All
+// float32, no fast math: sincosf/asinf/sqrtf are the accurate library
+// versions. The compiler contracts a*b+c into FMAs, so results agree with
+// the plain versions to float32 rounding, not bit for bit. There is one
+// device implementation of each piece of math: the one-thread forms went
+// with their last callers.
 #pragma once
 
 #include <math.h>
@@ -56,47 +58,6 @@ __device__ __forceinline__ float wrap_angle(float a) {
   return m - kPi;
 }
 
-// d(state)/dt of the rate-tracking surrogate: mixed-NED thrust, airspeed
-// drag, guarded Euler-rate transform, first-order body-rate lags.
-__device__ __forceinline__ void derivative(const float s[12], const float c[4],
-                                           const Plant& pl, float out[12]) {
-  const float vx = s[3], vy = s[4], vz = s[5];
-  const float phi = s[6], theta = s[7], psi = s[8];
-  const float p = s[9], q = s[10], r = s[11];
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(psi), spsi = sinf(psi);
-
-  // R[:, 2] with the mixed-NED xy sign flip
-  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
-  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
-  const float t2 = cphi * cth;
-  const float a_thrust = c[0] * pl.thrust_gain;
-
-  // drag on the airspeed (v - wind); zero speed -> zero drag
-  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
-  const float sq = avx * avx + avy * avy + avz * avz;
-  const float speed = sq > 0.0f ? sqrtf(sq) : 0.0f;
-  const float kd = pl.k_drag / pl.mass;
-
-  out[0] = vx;
-  out[1] = vy;
-  out[2] = vz;
-  out[3] = a_thrust * t0 - kd * speed * avx;
-  out[4] = a_thrust * t1 - kd * speed * avy;
-  out[5] = a_thrust * t2 - kd * speed * avz - pl.gravity;
-
-  const float tth = sth / cth;
-  const float cth_safe = fabsf(cth) < 1e-6f ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
-  out[6] = p + q * sphi * tth + r * cphi * tth;
-  out[7] = q * cphi - r * sphi;
-  out[8] = q * sphi / cth_safe + r * cphi / cth_safe;
-
-  out[9] = (c[1] - p) / pl.tau_r;
-  out[10] = (c[2] - q) / pl.tau_p;
-  out[11] = (c[3] - r) / pl.tau_y;
-}
-
 // The step lengths of one RK4 substep of dt / substeps, rounded to float
 // once as the plain versions round them.
 struct Rk4Step {
@@ -108,38 +69,21 @@ __device__ __forceinline__ Rk4Step rk4_step_lengths(double dt, int substeps) {
   return Rk4Step{(float)h, (float)(0.5 * h), (float)(h / 6.0)};
 }
 
-// One RK4 substep in place on s.
-__device__ __forceinline__ void rk4_step(float s[12], const float c[4], const Plant& pl,
-                                         const Rk4Step& st) {
-  float k1[12], k2[12], k3[12], k4[12], x[12];
-  derivative(s, c, pl, k1);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.half_h * k1[i];
-  derivative(x, c, pl, k2);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.half_h * k2[i];
-  derivative(x, c, pl, k3);
-#pragma unroll
-  for (int i = 0; i < 12; ++i) x[i] = s[i] + st.h * k3[i];
-  derivative(x, c, pl, k4);
-#pragma unroll
-  for (int i = 0; i < 12; ++i)
-    s[i] = s[i] + st.h6 * (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]);
-}
-
-// The warp-cooperative forms below (K9's filter warp, K13a, K5's and K9's
-// scalar sections, and K1 and K2 on groups of 8 lanes) spread the slow, serial pieces of derivative() and
-// of the closed-form Jacobian (the accurate sine and cosine and the IEEE
-// divisions, each behind a slow-path branch) over the lanes of one warp
-// and share the results by shuffles:
+// The warp-cooperative forms below (K9's filter warp, K13a and K13b, K5's
+// and K9's scalar sections, and K1 and K2 on groups of 8 lanes) spread the
+// slow, serial pieces of the derivative, the allocation, the closed-form
+// Jacobian and their VJPs (the accurate sines, cosines and arcsines, the
+// wraps and the IEEE divisions, each behind a slow-path branch) over the
+// lanes of one warp and share the results by shuffles: for a derivative
 // the warp waits for one sincosf and one division where a single thread
-// waits for six and seven in a row. Every lane must call them with the
-// same arguments (all 32 lanes active).
+// would wait for six and seven in a row. Every lane must call them with
+// the same arguments (all 32 lanes active).
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// derivative() on a whole warp; every lane gets the whole out. Lanes 0-2
-// form the sine and cosine of one Euler angle each, lanes 0-6 one quotient
-// each. The same arithmetic as derivative() (sincosf for sinf and cosf).
+// d(state)/dt of the rate-tracking surrogate (mixed-NED thrust, airspeed
+// drag, guarded Euler-rate transform, first-order body-rate lags) on a
+// whole warp; every lane gets the whole out. Lanes 0-2 form the sine and
+// cosine of one Euler angle each, lanes 0-6 one quotient each.
 // kWidth < 32 runs it on each aligned group of kWidth lanes (at least 8),
 // lane being the lane's index in its group.
 template <int kWidth = 32>
@@ -220,8 +164,7 @@ __device__ __forceinline__ void rk4_stages_warp(const float s[12], const float c
 }
 
 // `substeps` RK4 steps of length dt / substeps in place on s, on each group
-// of kWidth lanes (rk4_stages_warp): the same arithmetic as `substeps`
-// rk4_step()s (K1, K2).
+// of kWidth lanes (rk4_stages_warp; K1, K2).
 template <int kWidth = 32>
 __device__ __forceinline__ void rk4_substeps_warp(float s[12], const float c[4], const Plant& pl,
                                                   double dt, int substeps, int lane) {
@@ -241,7 +184,7 @@ __device__ __forceinline__ void rk4_substeps_warp(float s[12], const float c[4],
 // Euler-angle derivatives on the acceleration rows, the Euler-rate
 // transform's derivatives on the attitude rows, -1/tau on the rate rows.
 // Only the entries that are not structurally zero are written: the caller
-// zeroes J once. Unlike derivative(), the phi row uses the guarded tangent
+// zeroes J once. Unlike derivative_warp, the phi row uses the guarded tangent
 // sin / cth_safe (the same for any bounded attitude). A transcription of
 // the JAX package's ops/plant_pallas.py:_jacobian_rows: lanes 0-11 form the
 // sine and cosine of one angle of one stage and a quotient each (per stage
@@ -320,48 +263,13 @@ __device__ __forceinline__ void jacobians_warp(const float* xs, const float c[4]
 }
 
 // Geometric allocation + attitude PID (Kp 3.2, Ki 0.6, Kd 0.6, integral
-// clip 0.3). cmd = ax, ay, az, yawrate, yaw. Writes control (thrust, p, q,
-// r), att_sp (roll, pitch, yaw) and the new integral.
-__device__ __forceinline__ void allocation(const float s[12], const float cmd[5],
-                                           const float integral[3], float dt, float gravity,
-                                           float thrust_ceiling, float control[4],
-                                           float att_sp[3], float new_int[3]) {
-  const float kp = 3.2f, ki = 0.6f, kd = 0.6f, integral_max = 0.3f;
-  const float tvx = cmd[0], tvy = cmd[1], tvz = cmd[2] + gravity;
-  const float tmag = sqrtf(tvx * tvx + tvy * tvy + tvz * tvz);
-  const float thrust = fminf(fmaxf(tmag / gravity, 0.25f), thrust_ceiling);
-  const float inv = 1.0f / fmaxf(tmag, 1e-9f);
-  float pitch_cmd = -asinf(clipf(tvx * inv, -0.4f, 0.4f));
-  float roll_cmd = asinf(clipf(tvy * inv, -0.4f, 0.4f));
-  if (tmag <= 0.1f) {
-    pitch_cmd = 0.0f;
-    roll_cmd = 0.0f;
-  }
-  const float target_yaw = cmd[4];
-  const float e0 = wrap_angle(roll_cmd - s[6]);
-  const float e1 = wrap_angle(pitch_cmd - s[7]);
-  const float e2 = wrap_angle(target_yaw - s[8]);
-  const float i0 = clipf(integral[0] + e0 * dt, -integral_max, integral_max);
-  const float i1 = clipf(integral[1] + e1 * dt, -integral_max, integral_max);
-  const float i2 = clipf(integral[2] + e2 * dt, -integral_max, integral_max);
-  control[0] = thrust;
-  control[1] = clipf(kp * e0 + ki * i0 - kd * s[9], -1.2f, 1.2f);
-  control[2] = clipf(kp * e1 + ki * i1 - kd * s[10], -1.2f, 1.2f);
-  control[3] = clipf(cmd[3] + kp * e2 + ki * i2 - kd * s[11], -0.8f, 0.8f);
-  att_sp[0] = roll_cmd;
-  att_sp[1] = pitch_cmd;
-  att_sp[2] = target_yaw;
-  new_int[0] = i0;
-  new_int[1] = i1;
-  new_int[2] = i2;
-}
-
-// allocation() on a whole warp (the multi-tick kernels' scalar section):
-// lanes 0 and 1 form the pitch and roll arcsines, lanes 0-2 one wrapped
-// attitude error each (fmodf), shared by shuffles; every lane gets the
-// whole output. The same arithmetic as allocation(); every lane must call
-// it with the same arguments (all 32 lanes active); kWidth as in
-// derivative_warp.
+// clip 0.3) on a whole warp (the multi-tick kernels' scalar section, K2,
+// K13b). cmd = ax, ay, az, yawrate, yaw. Writes control (thrust, p, q, r),
+// att_sp (roll, pitch, yaw) and the new integral. Lanes 0 and 1 form the
+// pitch and roll arcsines, lanes 0-2 one wrapped attitude error each
+// (fmodf), shared by shuffles; every lane gets the whole output. Every
+// lane must call it with the same arguments (all 32 lanes active); kWidth
+// as in derivative_warp.
 template <int kWidth = 32>
 __device__ __forceinline__ void allocation_warp(const float s[12], const float cmd[5],
                                                 const float integral[3], float dt, float gravity,
@@ -458,7 +366,7 @@ __device__ __forceinline__ void mpc_command_plant_warp(const Params& P, const Pl
 
 // ---------------------------------------------------------------------------
 // Reverse mode (the K13 VJP kernels, plant_vjp_kernels.cu). Each function
-// recomputes its forward intermediates with the code above and runs the
+// recomputes its forward intermediates as the code above forms them and runs the
 // adjoint back through them, with PyTorch autograd's rules at the kinks of
 // the plain versions (ops/plant_pallas.py): torch.clamp passes the gradient
 // on its closed interval, torch.minimum splits it equally at a tie,
@@ -472,178 +380,14 @@ __device__ __forceinline__ bool in_closed(float x, float lo, float hi) {
   return x >= lo && x <= hi;
 }
 
-// derivative()'s VJP: from the cotangent g of its output, gs += J_s' g,
-// gc += J_c' g, gp += J_p' g (gp has the plant row's 10 lanes).
-__device__ __forceinline__ void derivative_vjp(const float s[12], const float c[4],
-                                               const Plant& pl, const float g[12], float gs[12],
-                                               float gc[4], float gp[kPlantLanes]) {
-  const float vx = s[3], vy = s[4], vz = s[5];
-  const float phi = s[6], theta = s[7], psi = s[8];
-  const float p = s[9], q = s[10], r = s[11];
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(psi), spsi = sinf(psi);
-  const float t0 = -(cphi * sth * cpsi + sphi * spsi);
-  const float t1 = -(cphi * sth * spsi - sphi * cpsi);
-  const float t2 = cphi * cth;
-  const float a_thrust = c[0] * pl.thrust_gain;
-  const float avx = vx - pl.wx, avy = vy - pl.wy, avz = vz - pl.wz;
-  const float sq = avx * avx + avy * avy + avz * avz;
-  const bool moving = sq > 0.0f;
-  const float speed = moving ? sqrtf(sq) : 0.0f;
-  const float kd = pl.k_drag / pl.mass;
-  const float tth = sth / cth;
-  const bool guarded = fabsf(cth) < 1e-6f;
-  const float cth_safe = guarded ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
-
-  // position rows: d(x)/dt = v
-  gs[3] += g[0];
-  gs[4] += g[1];
-  gs[5] += g[2];
-
-  // acceleration rows: a_thrust t - kd speed av - gravity e_z
-  const float g_at = g[3] * t0 + g[4] * t1 + g[5] * t2;
-  const float g_t0 = g[3] * a_thrust, g_t1 = g[4] * a_thrust, g_t2 = g[5] * a_thrust;
-  gc[0] += g_at * pl.thrust_gain;
-  gp[6] += g_at * c[0];
-  const float kd_speed = kd * speed;
-  const float g_kd_speed = -(g[3] * avx + g[4] * avy + g[5] * avz);
-  float g_av[3] = {-kd_speed * g[3], -kd_speed * g[4], -kd_speed * g[5]};
-  if (moving) {
-    const float g_sq = g_kd_speed * kd / (2.0f * speed);
-    g_av[0] += 2.0f * avx * g_sq;
-    g_av[1] += 2.0f * avy * g_sq;
-    g_av[2] += 2.0f * avz * g_sq;
-  }
-  const float g_kd = g_kd_speed * speed;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    gs[3 + i] += g_av[i];
-    gp[7 + i] -= g_av[i];
-  }
-  gp[2] += g_kd / pl.mass;
-  gp[0] -= g_kd * pl.k_drag / (pl.mass * pl.mass);
-  gp[1] -= g[5];
-
-  // the thrust direction's trigonometric factors
-  float g_cphi = 0.0f, g_sphi = 0.0f, g_cth = 0.0f, g_sth = 0.0f, g_cpsi = 0.0f, g_spsi = 0.0f;
-  g_cphi -= g_t0 * sth * cpsi;
-  g_sth -= g_t0 * cphi * cpsi;
-  g_cpsi -= g_t0 * cphi * sth;
-  g_sphi -= g_t0 * spsi;
-  g_spsi -= g_t0 * sphi;
-  g_cphi -= g_t1 * sth * spsi;
-  g_sth -= g_t1 * cphi * spsi;
-  g_spsi -= g_t1 * cphi * sth;
-  g_sphi += g_t1 * cpsi;
-  g_cpsi += g_t1 * sphi;
-  g_cphi += g_t2 * cth;
-  g_cth += g_t2 * cphi;
-
-  // attitude rows: the Euler-rate transform (phi row unguarded, psi row guarded)
-  gs[9] += g[6];
-  gs[10] += g[6] * sphi * tth;
-  gs[11] += g[6] * cphi * tth;
-  g_sphi += g[6] * q * tth;
-  g_cphi += g[6] * r * tth;
-  const float g_tth = g[6] * (q * sphi + r * cphi);
-  g_sth += g_tth / cth;
-  g_cth -= g_tth * sth / (cth * cth);
-  gs[10] += g[7] * cphi;
-  gs[11] -= g[7] * sphi;
-  g_cphi += g[7] * q;
-  g_sphi -= g[7] * r;
-  const float g8 = g[8] / cth_safe;
-  gs[10] += g8 * sphi;
-  gs[11] += g8 * cphi;
-  g_sphi += g8 * q;
-  g_cphi += g8 * r;
-  if (!guarded) g_cth -= g[8] * (q * sphi + r * cphi) / (cth_safe * cth_safe);
-
-  // rate rows: (command - rate) / tau
-  const float g_p = g[9] / pl.tau_r, g_q = g[10] / pl.tau_p, g_r = g[11] / pl.tau_y;
-  gc[1] += g_p;
-  gc[2] += g_q;
-  gc[3] += g_r;
-  gs[9] -= g_p;
-  gs[10] -= g_q;
-  gs[11] -= g_r;
-  gp[3] -= g[9] * (c[1] - p) / (pl.tau_r * pl.tau_r);
-  gp[4] -= g[10] * (c[2] - q) / (pl.tau_p * pl.tau_p);
-  gp[5] -= g[11] * (c[3] - r) / (pl.tau_y * pl.tau_y);
-
-  gs[6] += g_sphi * cphi - g_cphi * sphi;
-  gs[7] += g_sth * cth - g_cth * sth;
-  gs[8] += g_spsi * cpsi - g_cpsi * spsi;
-}
-
-// The VJP of `substeps` rk4_step()s of length dt / substeps: on entry gs
-// holds the cotangent of the state after the substeps, on return the cotangent of the state s0 before them; the
-// control's and the plant row's are added into gc and gp. Each substep's
-// start state is recomputed from s0 (substeps is small: 2 in every loop).
-__device__ __forceinline__ void rk4_substeps_vjp(const float s0[12], const float c[4],
-                                                 const Plant& pl, double dt, int substeps,
-                                                 float gs[12], float gc[4],
-                                                 float gp[kPlantLanes]) {
-  const Rk4Step st = rk4_step_lengths(dt, substeps);
-  for (int step = substeps - 1; step >= 0; --step) {
-    float s[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) s[i] = s0[i];
-    for (int j = 0; j < step; ++j) rk4_step(s, c, pl, st);
-    // the stage states x2, x3, x4 of this substep
-    float k[12], x2[12], x3[12], x4[12];
-    derivative(s, c, pl, k);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x2[i] = s[i] + st.half_h * k[i];
-    derivative(x2, c, pl, k);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x3[i] = s[i] + st.half_h * k[i];
-    derivative(x3, c, pl, k);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) x4[i] = s[i] + st.h * k[i];
-
-    // s' = s + h6 (k1 + 2 k2 + 2 k3 + k4), back through k4 .. k1
-    float g_sum[12], g_k[12], g_x[12], g_s[12];
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      g_sum[i] = st.h6 * gs[i];
-      g_s[i] = gs[i];
-      g_x[i] = 0.0f;
-    }
-    derivative_vjp(x4, c, pl, g_sum, g_x, gc, gp);   // k4 = f(x4)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      g_s[i] += g_x[i];
-      g_k[i] = 2.0f * g_sum[i] + st.h * g_x[i];      // x4 = s + h k3
-      g_x[i] = 0.0f;
-    }
-    derivative_vjp(x3, c, pl, g_k, g_x, gc, gp);     // k3 = f(x3)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      g_s[i] += g_x[i];
-      g_k[i] = 2.0f * g_sum[i] + st.half_h * g_x[i]; // x3 = s + h/2 k2
-      g_x[i] = 0.0f;
-    }
-    derivative_vjp(x2, c, pl, g_k, g_x, gc, gp);     // k2 = f(x2)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) {
-      g_s[i] += g_x[i];
-      g_k[i] = g_sum[i] + st.half_h * g_x[i];        // x2 = s + h/2 k1
-    }
-    derivative_vjp(s, c, pl, g_k, g_s, gc, gp);      // k1 = f(s)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) gs[i] = g_s[i];
-  }
-}
-
-// derivative_vjp() on a whole warp (K13a): every lane gets the whole
-// update of gs, gc and gp. Lanes 0-2 form the sine and cosine of one Euler
-// angle each and lanes 0-13 one quotient each, shared by shuffles, so the
-// warp waits for one sincosf and one division where derivative_vjp() waits
-// for six and fifteen. kd is the plant's k_drag / mass, formed once by the
-// caller. The same arithmetic as derivative_vjp() (sincosf for sinf and
-// cosf); every lane must call it with the same arguments.
+// derivative_warp()'s VJP on a whole warp (K13a, K13b): from the cotangent
+// g of its output, gs += J_s' g, gc += J_c' g, gp += J_p' g (gp has the
+// plant row's 10 lanes); every lane gets the whole update. Lanes 0-2 form
+// the sine and cosine of one Euler angle each and lanes 0-13 one quotient
+// each, shared by shuffles, so the warp waits for one sincosf and one
+// division where one thread would wait for six and fifteen. kd is the
+// plant's k_drag / mass, formed once by the caller. Every lane must call
+// it with the same arguments.
 __device__ __forceinline__ void derivative_vjp_warp(const float s[12], const float c[4],
                                                     const Plant& pl, float kd, const float g[12],
                                                     int lane, float gs[12], float gc[4],
@@ -667,7 +411,11 @@ __device__ __forceinline__ void derivative_vjp_warp(const float s[12], const flo
   const float cth_safe = guarded ? (cth < 0.0f ? -1e-6f : 1e-6f) : cth;
   const float g_kd_speed = -(g[3] * avx + g[4] * avy + g[5] * avz);
   const float g_kd = g_kd_speed * speed;
-  const float qr = q * sphi + r * cphi;
+  // q sphi rounded, then r cphi fused into it: the rounding the one-thread
+  // form's compiled code made (the first VJP kernels'). Left to the
+  // compiler, the warp form fused q sphi instead, which moved g_sth and
+  // g_cth by a rounding in 7% of states (PERF.md §6)
+  const float qr = __fmaf_rn(r, cphi, __fmul_rn(q, sphi));
   const float g_tth = g[6] * qr;
 
   // one quotient per lane: tan, the drag's three, the attitude rows' four,
@@ -776,18 +524,27 @@ __device__ __forceinline__ void derivative_vjp_warp(const float s[12], const flo
   gs[8] += g_spsi * cpsi - g_cpsi * spsi;
 }
 
-// rk4_substeps_vjp() on a whole warp (K13a): the forward runs once through
-// rk4_stages_warp, each substep's start state and stage states x2, x3, x4
-// stored in the warp's stages (substeps x 48 floats of shared memory, lane
-// 0 writing), then the adjoint runs back through them with
-// derivative_vjp_warp. The same arithmetic as rk4_substeps_vjp(), except
-// that each substep's start state comes from the forward pass instead of a
-// recomputation from s0 (the same float32 operations either way); every
-// lane ends with the whole gs, gc, gp.
+// A hook that does nothing (rk4_substeps_vjp_warp's default AfterForward).
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// The VJP of `substeps` RK4 steps of length dt / substeps on a whole warp
+// (K13a, K13b): on entry gs holds the cotangent of the state after the
+// substeps, on return the cotangent of the state s0 before them; the
+// control's and the plant row's are added into gc and gp. The forward runs
+// once through rk4_stages_warp, each substep's start state and stage states
+// x2, x3, x4 stored in the warp's stages (substeps x 48 floats of shared
+// memory, lane 0 writing); then after_forward() (K13b's clocks build reads
+// the clock there), and the adjoint runs back through each substep's
+// k4 .. k1 at those states with derivative_vjp_warp. Every lane ends with
+// the whole gs, gc, gp.
+template <class AfterForward = NoHook>
 __device__ __forceinline__ void rk4_substeps_vjp_warp(const float s0[12], const float c[4],
                                                       const Plant& pl, double dt, int substeps,
                                                       int lane, float* stages, float gs[12],
-                                                      float gc[4], float gp[kPlantLanes]) {
+                                                      float gc[4], float gp[kPlantLanes],
+                                                      AfterForward after_forward = AfterForward()) {
   const Rk4Step st = rk4_step_lengths(dt, substeps);
   const float kd = pl.k_drag / pl.mass;
   float s[12], x2[12], x3[12], x4[12], xp[12];
@@ -809,6 +566,7 @@ __device__ __forceinline__ void rk4_substeps_vjp_warp(const float s0[12], const 
     for (int i = 0; i < 12; ++i) s[i] = xp[i];
   }
   __syncwarp();
+  after_forward();
   for (int step = substeps - 1; step >= 0; --step) {
     const float* at = stages + 48 * step;
 #pragma unroll
@@ -852,29 +610,72 @@ __device__ __forceinline__ void rk4_substeps_vjp_warp(const float s0[12], const 
   }
 }
 
-// allocation()'s VJP: from the cotangents of control (4), att_sp (3) and
-// new_int (3), add those of s (12), cmd (5), integral (3), gravity and the
-// thrust ceiling.
-__device__ __forceinline__ void allocation_vjp(const float s[12], const float cmd[5],
-                                               const float integral[3], float dt, float gravity,
-                                               float thrust_ceiling, const float g_control[4],
-                                               const float g_att[3], const float g_new_int[3],
-                                               float gs[12], float gcmd[5], float gint[3],
-                                               float* g_gravity, float* g_ceiling) {
+// allocation_warp()'s VJP on a whole warp (K13b): from the cotangents of
+// control (4), att_sp (3) and new_int (3), add those of s (12), cmd (5),
+// integral (3), gravity and the thrust ceiling; every lane gets the whole
+// update. The allocation is recomputed, its serial pieces one to a lane in
+// three rounds and shared by shuffles (the lane table is ops/tick_ad.py
+// ALLOC_VJP_LANES; the other lanes repeat a neighbour's work, unread):
+// lanes 0 and 1 divide tmag / gravity and 1 / max(tmag, 1e-9); then lane 0
+// forms the pitch's arcsine and the rsqrtf of its derivative and the
+// thrust's g_x / gravity, lane 1 the roll's and g_x tmag / gravity^2; then
+// lanes 0-2 one wrapped attitude error each (roll, pitch, yaw). The last
+// quotient, g_tmag / (2 tmag), is alone in its round and every lane forms
+// it (a shuffle would only add its latency). So the warp waits for about
+// four of these in a row where one thread would wait for about twenty.
+// The rules at the kinks are PyTorch autograd's (above): the clamps pass
+// the gradient on their closed interval, the tilt's is zero when
+// degenerate (tmag <= 0.1), min(max(tmag / g, 0.25), ceiling) splits it at
+// a tie with the ceiling, and the wrap has slope 1.
+__device__ __forceinline__ void allocation_vjp_warp(const float s[12], const float cmd[5],
+                                                    const float integral[3], float dt,
+                                                    float gravity, float thrust_ceiling,
+                                                    const float g_control[4], const float g_att[3],
+                                                    const float g_new_int[3], int lane,
+                                                    float gs[12], float gcmd[5], float gint[3],
+                                                    float* g_gravity, float* g_ceiling) {
+  auto from = [](float v, int src) { return __shfl_sync(kFullMask, v, src); };
   const float kp = 3.2f, ki = 0.6f, kd = 0.6f, integral_max = 0.3f;
   const float tvx = cmd[0], tvy = cmd[1], tvz = cmd[2] + gravity;
   const float tmag = sqrtf(tvx * tvx + tvy * tvy + tvz * tvz);
-  const float x = tmag / gravity;
+  const bool odd = (lane & 1) != 0;   // lane 0: the pitch's pieces, lane 1: the roll's
+
+  // round 1: lane 0 x = tmag / gravity, lane 1 inv = 1 / max(tmag, 1e-9)
+  const float q1 = (odd ? 1.0f : tmag) / (odd ? fmaxf(tmag, 1e-9f) : gravity);
+  const float x = from(q1, 0), inv = from(q1, 1);
   const float x_lo = fmaxf(x, 0.25f);
-  const float inv = 1.0f / fmaxf(tmag, 1e-9f);
   const float sin_pitch = tvx * inv, sin_roll = tvy * inv;
   const float sin_pitch_c = clipf(sin_pitch, -0.4f, 0.4f);
   const float sin_roll_c = clipf(sin_roll, -0.4f, 0.4f);
   const bool degenerate = tmag <= 0.1f;
-  const float pitch_cmd = degenerate ? 0.0f : -asinf(sin_pitch_c);
-  const float roll_cmd = degenerate ? 0.0f : asinf(sin_roll_c);
-  const float e[3] = {wrap_angle(roll_cmd - s[6]), wrap_angle(pitch_cmd - s[7]),
-                      wrap_angle(cmd[4] - s[8])};
+  // thrust = min(max(tmag / g, 0.25), ceiling): a tie splits the gradient
+  float g_x_lo = 0.0f;
+  if (x_lo < thrust_ceiling) {
+    g_x_lo = g_control[0];
+  } else if (x_lo > thrust_ceiling) {
+    *g_ceiling += g_control[0];
+  } else {
+    g_x_lo = 0.5f * g_control[0];
+    *g_ceiling += 0.5f * g_control[0];
+  }
+  const float g_x = x >= 0.25f ? g_x_lo : 0.0f;
+
+  // round 2: the tilt's arcsine and the rsqrtf of its derivative, and the
+  // thrust's two quotients (lane 0 g_x / gravity, lane 1 g_x tmag / g^2)
+  const float sin_c = odd ? sin_roll_c : sin_pitch_c;
+  const float tilt = asinf(sin_c);
+  const float rs = rsqrtf(1.0f - sin_c * sin_c);
+  const float q2 = (odd ? g_x * tmag : g_x) / (odd ? gravity * gravity : gravity);
+  const float pitch_cmd = degenerate ? 0.0f : -from(tilt, 0);
+  const float roll_cmd = degenerate ? 0.0f : from(tilt, 1);
+  const float rs_pitch = from(rs, 0), rs_roll = from(rs, 1);
+  const float g_x_g = from(q2, 0), g_x_gg = from(q2, 1);
+
+  // round 3: lanes 0-2 one wrapped attitude error each
+  const int w = lane % 3;
+  const float err = wrap_angle((w == 0 ? roll_cmd : w == 1 ? pitch_cmd : cmd[4])
+                               - (w == 0 ? s[6] : w == 1 ? s[7] : s[8]));
+  const float e[3] = {from(err, 0), from(err, 1), from(err, 2)};
   float u[3], in[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -909,32 +710,21 @@ __device__ __forceinline__ void allocation_vjp(const float s[12], const float cm
   float g_tvx = 0.0f, g_tvy = 0.0f, g_tvz = 0.0f, g_inv = 0.0f;
   if (!degenerate) {
     if (in_closed(sin_roll, -0.4f, 0.4f)) {
-      const float g_arg = g_roll * rsqrtf(1.0f - sin_roll_c * sin_roll_c);
+      const float g_arg = g_roll * rs_roll;
       g_tvy += g_arg * inv;
       g_inv += g_arg * tvy;
     }
     if (in_closed(sin_pitch, -0.4f, 0.4f)) {
-      const float g_arg = -g_pitch * rsqrtf(1.0f - sin_pitch_c * sin_pitch_c);
+      const float g_arg = -g_pitch * rs_pitch;
       g_tvx += g_arg * inv;
       g_inv += g_arg * tvx;
     }
   }
   float g_tmag = tmag >= 1e-9f ? -g_inv * inv * inv : 0.0f;
+  g_tmag += g_x_g;
+  *g_gravity -= g_x_gg;
 
-  // thrust = min(max(tmag / g, 0.25), ceiling): a tie splits the gradient
-  float g_x_lo = 0.0f;
-  if (x_lo < thrust_ceiling) {
-    g_x_lo = g_control[0];
-  } else if (x_lo > thrust_ceiling) {
-    *g_ceiling += g_control[0];
-  } else {
-    g_x_lo = 0.5f * g_control[0];
-    *g_ceiling += 0.5f * g_control[0];
-  }
-  const float g_x = x >= 0.25f ? g_x_lo : 0.0f;
-  g_tmag += g_x / gravity;
-  *g_gravity -= g_x * tmag / (gravity * gravity);
-
+  // round 4, on every lane
   const float g_sq = g_tmag / (2.0f * tmag);
   g_tvx += 2.0f * tvx * g_sq;
   g_tvy += 2.0f * tvy * g_sq;

@@ -1,5 +1,5 @@
-// K13a and K13b: the VJPs of the plant kernels K1 and K2: K13a one warp per
-// state of a batch, K13b one CUDA thread per state.
+// K13a and K13b: the VJPs of the plant kernels K1 and K2, one warp per
+// state of a batch.
 //
 // The JAX package differentiates its plant kernels through custom VJPs
 // whose backward pass is the staged twin's jax.vjp:
@@ -15,22 +15,27 @@
 // ~4,000 operations, most of them waiting on a chain of accurate sines,
 // cosines and IEEE divisions; the flight tuners launch them at B=1.
 //
-// K13a: a warp per state (four per block, so B=1024 spreads over 256
-// blocks). The lanes share the slow scalar work by shuffles
-// (plant_math.cuh: rk4_stages_warp, derivative_warp, derivative_vjp_warp):
-// per derivative and per derivative VJP the warp waits for one sincosf and
-// one division where one thread waits for six and seven or fifteen in a
-// row. The forward runs once, each substep's start and stage states kept in
-// the warp's shared memory, and the cotangent goes back through k4 .. k1 of
-// each substep; every lane holds the whole state and cotangent (a 12-wide
-// combination is one FMA per component on any lane), and lane 0 writes.
-// K13b: each thread recomputes its state's forward pass in registers with
-// the forward kernels' own device math (allocation, rk4_step, derivative)
-// and runs the adjoint back through it (rk4_substeps_vjp, derivative_vjp,
-// allocation_vjp): per RK4 substep the stage states are rebuilt and the
-// cotangent goes back through k4 .. k1.
+// Both: a warp per state, four per block, so B=1024 spreads over 256 blocks
+// (ops/tick_ad.py:vjp_geometry, checked by the launchers). The lanes share
+// the slow scalar work by shuffles (plant_math.cuh: rk4_stages_warp,
+// derivative_warp, derivative_vjp_warp): per derivative and per derivative
+// VJP the warp waits for one sincosf and one division where one thread
+// waits for six and seven or fifteen in a row. The plant's forward runs
+// once, each substep's start and stage states kept in the warp's shared
+// memory, and the cotangent goes back through k4 .. k1 of each substep;
+// every lane holds the whole state and cotangent (a 12-wide combination is
+// one FMA per component on any lane). K13b first forms the control on the
+// warp (allocation_warp) and after the plant's adjoint runs back through
+// the allocation and the attitude PID (allocation_vjp_warp: the arcsines,
+// wraps, rsqrtf and quotients one to a lane). Lane 0 writes a state's rows.
 // The plant row's cotangent is written per state, (B, 10), and the wrapper
 // sums it over the batch in a fixed order, so a launch is deterministic.
+//
+// With -DUAV_SECTION_CLOCKS (the plant_vjp_clocks library) lane 0 of each
+// K13b warp counts its cycles: the forward allocation, the plant's forward,
+// its adjoint, the allocation's VJP, and the whole state
+// (ops/tick_ad.py:plant_vjp_section_cycles); each phase's results are
+// waited for before the clock is read.
 //
 // The plain versions are ops/tick_ad.py: px4_plant_step_vjp_plain and
 // allocation_plant_tick_vjp_plain (torch.func.vjp of K1's and K2's plain
@@ -39,12 +44,17 @@
 #include <cuda_runtime.h>
 
 #include "plant_math.cuh"
+#include "section_clocks.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kVjpWarps = 4;        // K13a: states (warps) per block
-constexpr int kMaxVjpSubsteps = 64; // K13a: 4 warps x 64 x 48 floats = 48 KB of stages
+constexpr int kVjpWarps = 4;        // states (warps) per block
+constexpr int kMaxVjpSubsteps = 64; // 4 warps x 64 x 48 floats = 48 KB of stages
+
+#ifdef UAV_SECTION_CLOCKS
+// wait for a result before the clock is read (an instruction that uses it)
+#define K13_SETTLE(x) asm volatile("add.f32 %0, %0, 0f00000000;" : "+f"(x))
+#endif
 
 #ifdef UAV_K13A_LANE_OWNED
 // An ablation of K13a's design, built only as the plant_vjp_lane_owned
@@ -168,15 +178,21 @@ px4_plant_step_vjp_kernel(const float* __restrict__ state, const float* __restri
 
 // cmd row: ax, ay, az, yawrate, yaw, thrust_ceiling; ctrl row: control (4),
 // attitude setpoint (3)
-__global__ void allocation_plant_tick_vjp_kernel(
+__global__ void __launch_bounds__(32 * kVjpWarps)
+allocation_plant_tick_vjp_kernel(
     const float* __restrict__ state, const float* __restrict__ cmd,
     const float* __restrict__ integral, const float* __restrict__ plant_row,
     const float* __restrict__ ct_state_out, const float* __restrict__ ct_ctrl,
     const float* __restrict__ ct_int, float* __restrict__ ct_state,
     float* __restrict__ ct_cmd, float* __restrict__ ct_integral, float* __restrict__ ct_plant,
     int batch, double dt, int substeps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+  extern __shared__ float stages[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kVjpWarps + warp;
+  if (b >= batch) return;   // the whole warp
+#ifdef UAV_SECTION_CLOCKS
+  const long long t_whole = clock64();
+#endif
   const uav::Plant pl = uav::load_plant(plant_row);
   float s[12], cm[5], in[3];
 #pragma unroll
@@ -186,8 +202,17 @@ __global__ void allocation_plant_tick_vjp_kernel(
 #pragma unroll
   for (int i = 0; i < 3; ++i) in[i] = integral[b * 3 + i];
   const float thrust_ceiling = cmd[b * 6 + 5];
+#ifdef UAV_SECTION_CLOCKS
+  const long long t0 = clock64();
+#endif
   float c[4], att_sp[3], new_int[3];
-  uav::allocation(s, cm, in, (float)dt, pl.gravity, thrust_ceiling, c, att_sp, new_int);
+  uav::allocation_warp(s, cm, in, (float)dt, pl.gravity, thrust_ceiling, lane, c, att_sp,
+                       new_int);
+#ifdef UAV_SECTION_CLOCKS
+#pragma unroll
+  for (int i = 0; i < 4; ++i) K13_SETTLE(c[i]);
+  const long long t1 = clock64();
+#endif
 
   // back through the plant's substeps to the state and the control
   float gs[12], gc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, gp[uav::kPlantLanes];
@@ -195,7 +220,21 @@ __global__ void allocation_plant_tick_vjp_kernel(
   for (int i = 0; i < 12; ++i) gs[i] = ct_state_out[b * 12 + i];
 #pragma unroll
   for (int i = 0; i < uav::kPlantLanes; ++i) gp[i] = 0.0f;
-  uav::rk4_substeps_vjp(s, c, pl, dt, substeps, gs, gc, gp);
+#ifdef UAV_SECTION_CLOCKS
+  long long t2 = 0;
+  uav::rk4_substeps_vjp_warp(s, c, pl, dt, substeps, lane, stages + warp * substeps * 48, gs, gc,
+                             gp, [&t2] { t2 = clock64(); });
+#else
+  uav::rk4_substeps_vjp_warp(s, c, pl, dt, substeps, lane, stages + warp * substeps * 48, gs, gc,
+                             gp);
+#endif
+#ifdef UAV_SECTION_CLOCKS
+#pragma unroll
+  for (int i = 0; i < 12; ++i) K13_SETTLE(gs[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) K13_SETTLE(gc[i]);
+  const long long t3 = clock64();
+#endif
 
   // then back through the allocation and attitude PID
   float g_control[4], g_att[3], g_new_int[3];
@@ -206,19 +245,41 @@ __global__ void allocation_plant_tick_vjp_kernel(
     g_att[i] = ct_ctrl[b * 7 + 4 + i];
     g_new_int[i] = ct_int[b * 3 + i];
   }
-  float gcmd[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, gint[3] = {0.0f, 0.0f, 0.0f};
-  float g_ceiling = 0.0f;
-  uav::allocation_vjp(s, cm, in, (float)dt, pl.gravity, thrust_ceiling, g_control, g_att,
-                      g_new_int, gs, gcmd, gint, &gp[1], &g_ceiling);
+  float gcmd[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, gint[3] = {0.0f, 0.0f, 0.0f};
+  uav::allocation_vjp_warp(s, cm, in, (float)dt, pl.gravity, thrust_ceiling, g_control, g_att,
+                           g_new_int, lane, gs, gcmd, gint, &gp[1], &gcmd[5]);
+#ifdef UAV_SECTION_CLOCKS
+#pragma unroll
+  for (int i = 0; i < 12; ++i) K13_SETTLE(gs[i]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) K13_SETTLE(gcmd[i]);
+  const long long t4 = clock64();
+  if (lane == 0) {
+    const unsigned long long counts[6] = {
+        (unsigned long long)(t1 - t0), (unsigned long long)(t2 - t1),
+        (unsigned long long)(t3 - t2), (unsigned long long)(t4 - t3),
+        (unsigned long long)(t4 - t_whole), 1ull};
+    for (int i = 0; i < 6; ++i) atomicAdd(&uav::g_section_cycles[i], counts[i]);
+  }
+#endif
+  if (lane != 0) return;
 #pragma unroll
   for (int i = 0; i < 12; ++i) ct_state[b * 12 + i] = gs[i];
 #pragma unroll
-  for (int i = 0; i < 5; ++i) ct_cmd[b * 6 + i] = gcmd[i];
-  ct_cmd[b * 6 + 5] = g_ceiling;
+  for (int i = 0; i < 6; ++i) ct_cmd[b * 6 + i] = gcmd[i];
 #pragma unroll
   for (int i = 0; i < 3; ++i) ct_integral[b * 3 + i] = gint[i];
 #pragma unroll
   for (int i = 0; i < uav::kPlantLanes; ++i) ct_plant[b * uav::kPlantLanes + i] = gp[i];
+}
+
+// blocks x threads from ops/tick_ad.py:vjp_geometry: a warp per state,
+// kVjpWarps a block, every state covered; at most kMaxVjpSubsteps substeps
+// (the warp's stage states in dynamic shared memory).
+bool vjp_launch_ok(int batch, int substeps, int blocks, int threads) {
+  return batch >= 0 && substeps >= 0 && substeps <= kMaxVjpSubsteps &&
+         threads == 32 * kVjpWarps && (long long)blocks * kVjpWarps >= batch &&
+         (long long)(blocks - 1) * kVjpWarps < batch;
 }
 
 }  // namespace
@@ -227,12 +288,11 @@ extern "C" {
 
 int px4_plant_step_vjp_launch(const float* state, const float* control, const float* plant_row,
                               const float* ct_out, float* ct_state, float* ct_control,
-                              float* ct_plant, int batch, double dt, int substeps,
-                              void* stream) {
-  if (substeps < 0 || substeps > kMaxVjpSubsteps) return (int)cudaErrorInvalidValue;
-  const int blocks = (batch + kVjpWarps - 1) / kVjpWarps;
+                              float* ct_plant, int batch, double dt, int substeps, int blocks,
+                              int threads, void* stream) {
+  if (!vjp_launch_ok(batch, substeps, blocks, threads)) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kVjpWarps * substeps * 48;
-  px4_plant_step_vjp_kernel<<<blocks, 32 * kVjpWarps, smem, (cudaStream_t)stream>>>(
+  px4_plant_step_vjp_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       state, control, plant_row, ct_out, ct_state, ct_control, ct_plant, batch, dt, substeps);
   return (int)cudaGetLastError();
 }
@@ -241,12 +301,19 @@ int allocation_plant_tick_vjp_launch(const float* state, const float* cmd, const
                                      const float* plant_row, const float* ct_state_out,
                                      const float* ct_ctrl, const float* ct_int, float* ct_state,
                                      float* ct_cmd, float* ct_integral, float* ct_plant,
-                                     int batch, double dt, int substeps, void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  allocation_plant_tick_vjp_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+                                     int batch, double dt, int substeps, int blocks, int threads,
+                                     void* stream) {
+  if (!vjp_launch_ok(batch, substeps, blocks, threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * kVjpWarps * substeps * 48;
+  allocation_plant_tick_vjp_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       state, cmd, integral, plant_row, ct_state_out, ct_ctrl, ct_int, ct_state, ct_cmd,
       ct_integral, ct_plant, batch, dt, substeps);
   return (int)cudaGetLastError();
 }
+
+// K13b's section clocks since the last call (forward allocation, plant
+// forward, plant adjoint, allocation VJP, whole states, states), then
+// reset; cudaErrorNotSupported unless built with -DUAV_SECTION_CLOCKS.
+int plant_vjp_section_cycles(unsigned long long* out) { return uav::read_section_cycles(out, 6); }
 
 }  // extern "C"

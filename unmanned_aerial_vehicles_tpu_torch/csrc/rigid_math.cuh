@@ -2,8 +2,8 @@
 // rigid-plant kernel (rigid_plant_kernels.cu: K10), the rigid plant of the
 // direct-rate multi-tick kernel (rigid_tick_kernel.cu: K11) and the MPPI
 // sampling kernel (mppi_kernels.cu: K12), so the model cannot drift between
-// them. The MPPI kernel runs the warp-cooperative forms at the end of the
-// file (rigid_derivative_warp, rigid_rk4_warp); K10 and K11 keep one
+// them. The MPPI kernel and K10 run the warp-cooperative forms at the end
+// of the file (rigid_derivative_warp, rigid_rk4_warp); K11 keeps one
 // thread per state.
 //
 // A transcription of the JAX package's ops/rigid_plant_pallas.py:

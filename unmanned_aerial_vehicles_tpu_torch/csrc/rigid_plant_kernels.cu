@@ -11,13 +11,24 @@
 //
 // What bounds it on an H100: latency. The flights call it with n = 1 (the
 // plant step, 16 floats in, 12 out) and n = 20 (the LTV plan roll); each
-// step is four derivative evaluations on one dependent chain, each six
-// accurate sines and cosines, a tangent, a square root and seven divisions.
-// The bytes (at most ~2.5 KB) and operations (~1.5 k per RK4 step) are
-// nanoseconds at the card's rates; the chain's latency plus the launch is
-// the time. The design is the simple one: one thread carries the state in
-// registers through every step. Spreading each evaluation's sines and
-// quotients over a warp (plant_math.cuh derivative_warp) is the next step.
+// step is four derivative evaluations on one dependent chain, each with
+// three accurate sines and cosines, a tangent, a square root and seven
+// divisions. The bytes (at most ~2.5 KB) and operations (~1.5 k per RK4
+// step) are nanoseconds at the card's rates; the chain's latency plus the
+// launch is the time.
+//
+// Design: one warp carries the rollout. Each derivative spreads its sines
+// and cosines and its seven quotients over a group of kLanes lanes and
+// shares them by shuffles (rigid_math.cuh rigid_rk4_warp, K12's width), so
+// it waits for one sincosf and one division instead of three and seven in
+// a row; all four groups step the same state, because the shuffles take
+// the full mask. Before the first step the warp copies the controls, and
+// the residuals when given, into shared memory (kChunk steps at a time: the
+// whole rollout up to 64 steps), so no global load sits on the chain;
+// whether residuals are given is decided once, outside the loop
+// (rollout<kRes>). Lanes 0-11 write one component each of each step's row.
+// The arithmetic is rigid_rk4's, so the outputs equal the one-thread
+// kernel's bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -25,25 +36,58 @@
 
 namespace {
 
-__global__ void rigid_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
-                                     const float* __restrict__ res, float* __restrict__ out,
-                                     int n, int substeps, uav::RK4Step st, uav::RigidBody b) {
-  if (threadIdx.x != 0) return;
+constexpr int kThreads = 32;   // one warp
+constexpr int kLanes = 8;      // a derivative's lane group (K12's kLanes)
+constexpr int kChunk = 64;     // steps staged at a time
+
+template <bool kRes>
+__device__ __forceinline__ void rollout(float s[12], const float* __restrict__ u,
+                                        const float* __restrict__ res, float* __restrict__ out,
+                                        int n, int substeps, const uav::RK4Step& st,
+                                        const uav::RigidBody& b, int lane, float* ctrl,
+                                        float* resid) {
+  const int g = lane & (kLanes - 1);
+  for (int k0 = 0; k0 < n; k0 += kChunk) {
+    const int len = min(kChunk, n - k0);
+    __syncwarp();   // the last chunk's steps are done with its rows
+    for (int j = lane; j < 4 * len; j += kThreads) ctrl[j] = __ldg(u + 4 * k0 + j);
+    if (kRes) {
+      for (int j = lane; j < 12 * len; j += kThreads) resid[j] = __ldg(res + 12 * k0 + j);
+    }
+    __syncwarp();
+    for (int k = 0; k < len; ++k) {
+      float uk[4], rk[12];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) uk[i] = ctrl[4 * k + i];
+      if (kRes) {
+#pragma unroll
+        for (int i = 0; i < 12; ++i) rk[i] = resid[12 * k + i];
+      }
+      for (int j = 0; j < substeps; ++j)
+        uav::rigid_rk4_warp<kLanes>(s, uk, b, kRes ? rk : nullptr, st, g);
+      float* row = out + (size_t)(k0 + k) * 12;
+      float v = s[0];
+#pragma unroll
+      for (int i = 1; i < 12; ++i) v = lane == i ? s[i] : v;
+      if (lane < 12) row[lane] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rigid_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
+                     const float* __restrict__ res, float* __restrict__ out, int n, int substeps,
+                     uav::RK4Step st, uav::RigidBody b) {
+  __shared__ float ctrl[4 * kChunk];
+  __shared__ float resid[12 * kChunk];
+  const int lane = threadIdx.x;
   float s[12];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) s[i] = x0[i];
-  for (int k = 0; k < n; ++k) {
-    float uk[4], rk[12];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) uk[i] = u[k * 4 + i];
-    if (res != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 12; ++i) rk[i] = res[k * 12 + i];
-    }
-    for (int j = 0; j < substeps; ++j) uav::rigid_rk4(s, uk, b, res != nullptr ? rk : nullptr, st);
-#pragma unroll
-    for (int i = 0; i < 12; ++i) out[k * 12 + i] = s[i];
-  }
+  for (int i = 0; i < 12; ++i) s[i] = __ldg(x0 + i);
+  if (res == nullptr)
+    rollout<false>(s, u, res, out, n, substeps, st, b, lane, ctrl, resid);
+  else
+    rollout<true>(s, u, res, out, n, substeps, st, b, lane, ctrl, resid);
 }
 
 }  // namespace
@@ -51,7 +95,8 @@ __global__ void rigid_rollout_kernel(const float* __restrict__ x0, const float* 
 extern "C" int rigid_rollout_launch(const float* x0, const float* u, const float* res, float* out,
                                     int n, int substeps, const uav::RK4Step* st,
                                     const uav::RigidBody* body, void* stream) {
-  rigid_rollout_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(x0, u, res, out, n, substeps, *st,
-                                                           *body);
+  if (n < 0 || substeps < 0) return (int)cudaErrorInvalidValue;
+  rigid_rollout_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(x0, u, res, out, n, substeps,
+                                                                 *st, *body);
   return (int)cudaGetLastError();
 }

@@ -681,7 +681,7 @@ def batched_mpc_flight_rollout(
         raise NotImplementedError(
             "the fused-tick population (use_fused_tick: K5 over a grid of flights), "
             "use_fused_admm and polish in a population are queued in ROADMAP.md "
-            "(queue 1, item 6)")
+            "(queue 1, \"References and orchestration\")")
     full_f32_matmul()
     states = initial_states.to(dtype=dtype, device=dev)
     B = states.shape[0]

@@ -18,9 +18,10 @@ rate_loops, x0)`` in place of the draw, so a test can fly another
 package's population (``convert.monte_carlo_conditions_from_numpy``).
 ``robustness_stats`` gives the campaign's dispersion statistics.
 
-Queued in ``ROADMAP.md`` (queue 1, item 6), raising ``NotImplementedError``:
-the fused-tick population (``loop_cfg.use_fused_tick``: K5 as a grid of one
-block per flight), ``use_fused_admm``, ``polish`` and ``monte_carlo_mpc12``.
+Queued in ``ROADMAP.md`` (queue 1, "References and orchestration"), raising
+``NotImplementedError``: the fused-tick population (``loop_cfg.use_fused_tick``:
+K5 as a grid of one block per flight), ``use_fused_admm``, ``polish`` and
+``monte_carlo_mpc12``.
 """
 
 from __future__ import annotations
@@ -226,8 +227,9 @@ def monte_carlo_mpc(
 
 def monte_carlo_mpc12(*args, **kwargs) -> dict:
     """The 12-state family's population study (JAX ``monte_carlo.py:
-    monte_carlo_mpc12``): queued in ``ROADMAP.md`` (queue 1, item 6)."""
+    monte_carlo_mpc12``): queued in ``ROADMAP.md`` (queue 1, "References and
+    orchestration")."""
     raise NotImplementedError(
         "monte_carlo_mpc12 (the vmapped 12-state SQP population) is queued in ROADMAP.md "
-        "(queue 1, item 6)"
+        "(queue 1, \"References and orchestration\")"
     )

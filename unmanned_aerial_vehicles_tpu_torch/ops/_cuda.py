@@ -62,6 +62,8 @@ LIBRARIES = {
     # K12 with its per-section clock counters (chip_smoke.py's breakdown)
     "mppi_clocks": ("mppi_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     "plant_vjp": "plant_vjp_kernels.cu",
+    # K13b with its per-section clock counters (chip_smoke.py's breakdown)
+    "plant_vjp_clocks": ("plant_vjp_kernels.cu", ["-DUAV_SECTION_CLOCKS"]),
     # K13a with lanes 0-11 owning a state component each (chip_smoke.py's
     # ablation of its design)
     "plant_vjp_lane_owned": ("plant_vjp_kernels.cu", ["-DUAV_K13A_LANE_OWNED"]),

@@ -16,6 +16,11 @@ CUDA tensor it launches the kernel or raises.
 ``rigid_body_rk4_step_fast`` is the flights' plant step: the kernel for a
 CUDA state, the model's ``rigid_body_rk4_step`` (in the state's dtype) for
 a CPU one, as the JAX package's backend-aware step.
+
+K10 runs the rollout on one warp: each derivative spreads its sines,
+cosines and quotients over a group of 8 lanes
+(``csrc/rigid_math.cuh:rigid_rk4_warp``, K12's lane table,
+``ops.mppi_pallas.rigid_lane_roles``), every group stepping the same state.
 """
 
 from __future__ import annotations
@@ -136,7 +141,7 @@ def rigid_body_rollout_fused(
     substeps: int = 1,
     residuals: torch.Tensor | None = None,   # (n, 12) derivative residuals
 ) -> torch.Tensor:
-    """n sequential RK4 steps in one launch (K10), in float32: the
+    """n sequential RK4 steps in one launch (K10, one warp), in float32: the
     ``(n, 12)`` states after each step. ``substeps`` subdivides each step's
     dt (zero-order-hold controls)."""
     dev = x0.device

@@ -13,6 +13,12 @@ mode off, and whose backward is:
 * K2 ``allocation_plant_tick_ad``: the VJP kernel K13b
   ``allocation_plant_tick_vjp``; plain version
   ``allocation_plant_tick_vjp_plain``;
+
+both VJP kernels run a warp per state, ``VJP_STATES_PER_BLOCK`` to a block
+(``vjp_geometry``); K13b's allocation VJP spreads its serial pieces over
+the lanes by the table ``ALLOC_VJP_LANES`` (``alloc_vjp_lane_role``), and
+``plant_vjp_section_cycles`` reads its cycles by phase from the
+``plant_vjp_clocks`` build;
 * K5 ``gpmpc_multitick_ad``: ``torch.autograd.grad`` of K5's plain twin
   ``ops.tick_pallas.multitick_staged``, recomputed from the saved operands.
   That is the JAX package's own backward program (its custom VJP
@@ -129,6 +135,54 @@ def traced_plant_row(mass, gravity, k_drag_linear, taus, thrust_gain,
 
 
 VJP_MAX_SUBSTEPS = 64   # csrc/plant_vjp_kernels.cu kMaxVjpSubsteps
+VJP_STATES_PER_BLOCK = 4   # kVjpWarps: a warp per state
+VJP_THREADS = 32 * VJP_STATES_PER_BLOCK
+
+# csrc/plant_math.cuh:allocation_vjp_warp's lane table: in each round, lane
+# i forms entry ``i % len(round)`` (the kernel's ``lane & 1`` and ``lane %
+# 3``), which the warp's shuffles read from the lowest such lane; the other
+# lanes repeat a neighbour's work, unread. ``ALLOC_VJP_EVERY_LANE`` is the
+# quotient alone in its round, which every lane forms.
+ALLOC_VJP_LANES = {
+    "quotient 1": ("tmag / gravity", "1 / max(tmag, 1e-9)"),
+    "asinf": ("pitch", "roll"),
+    "rsqrtf": ("pitch", "roll"),
+    "quotient 2": ("g_x / gravity", "g_x tmag / gravity^2"),
+    "wrap": ("roll", "pitch", "yaw"),
+}
+ALLOC_VJP_EVERY_LANE = ("g_tmag / (2 tmag)",)
+
+
+def alloc_vjp_lane_role(lane: int) -> dict[str, str]:
+    """What lane ``lane`` of a K13b warp forms in each round of
+    ``allocation_vjp_warp``."""
+    return {rnd: names[lane % len(names)] for rnd, names in ALLOC_VJP_LANES.items()}
+
+
+def vjp_geometry(B: int) -> tuple[int, int]:
+    """K13a's and K13b's launch for a batch of ``B`` states, as the wrappers
+    pass it to ``csrc/plant_vjp_kernels.cu``: ``(blocks, threads a
+    block)``, a warp per state, ``VJP_STATES_PER_BLOCK`` a block (256 blocks
+    at B=1024)."""
+    return -(-B // VJP_STATES_PER_BLOCK), VJP_THREADS
+
+
+PLANT_VJP_SECTIONS = ("forward allocation", "plant forward", "plant adjoint",
+                      "allocation VJP", "whole")
+
+
+def plant_vjp_section_cycles() -> dict[str, float]:
+    """K13b's clock cycles per state since the last call, counted by lane 0
+    of each warp in the ``plant_vjp_clocks`` build: the forward allocation,
+    the plant's forward (its stage states stored), its adjoint, the
+    allocation's VJP, and the whole state (the loads included, the writes
+    not). Call inside ``_cuda.library_variant("plant_vjp",
+    "plant_vjp_clocks")`` after the launches, synchronised; the first call
+    only resets them."""
+    raw = _cuda.section_cycles("plant_vjp", "plant_vjp_section_cycles",
+                               PLANT_VJP_SECTIONS + ("states",))
+    states = max(raw.pop("states"), 1)
+    return {k: v / states for k, v in raw.items()}
 
 
 def px4_plant_step_vjp_plain(state, control, plant_row, ct_out, dt: float, substeps: int):
@@ -161,15 +215,15 @@ def px4_plant_step_vjp(state, control, plant_row, ct_out, dt: float, substeps: i
     if not 0 <= substeps <= VJP_MAX_SUBSTEPS:
         raise ValueError(f"px4_plant_step_vjp takes 0..{VJP_MAX_SUBSTEPS} substeps, not {substeps}")
     fn = _cuda.library("plant_vjp").px4_plant_step_vjp_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_double] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ct_state = torch.empty_like(state)
     ct_control = torch.empty_like(control)
     ct_plant = torch.empty(B, PLANT_LANES, dtype=_f32, device=dev)
     status = fn(_cuda.ptr(state), _cuda.ptr(control), _cuda.ptr(plant_row), _cuda.ptr(ct_out),
                 _cuda.ptr(ct_state), _cuda.ptr(ct_control), _cuda.ptr(ct_plant), B, float(dt),
-                int(substeps), _cuda.stream_of(state))
+                int(substeps), *vjp_geometry(B), _cuda.stream_of(state))
     _cuda.check(status, "px4_plant_step_vjp")
     _cuda.count_launch("px4_plant_step_vjp")
     if not plant_grad:
@@ -193,7 +247,9 @@ def allocation_plant_tick_vjp(state, cmd, integral, plant_row, ct_state, ct_ctrl
                               dt: float, substeps: int, plant_grad: bool = True):
     """K13b: the cotangents of K2's operands from those of its three outputs
     (new state (B, 12), control + attitude setpoint (B, 7), integral
-    (B, 3)), one launch; the plant row's summed as in K13a. On CPU tensors
+    (B, 3)), one launch, one warp per state (at most ``VJP_MAX_SUBSTEPS``
+    substeps, as K13a); the plant row's summed as in K13a (``None`` when
+    ``plant_grad`` is off; a batch of one returns its row). On CPU tensors
     it runs the plain version."""
     dev = state.device
     B = state.shape[0]
@@ -211,9 +267,12 @@ def allocation_plant_tick_vjp(state, cmd, integral, plant_row, ct_state, ct_ctrl
         return out if plant_grad else (*out[:3], None)
     if dev.type != "cuda":
         raise ValueError(f"allocation_plant_tick_vjp runs on cuda or cpu, not {dev}")
+    if not 0 <= substeps <= VJP_MAX_SUBSTEPS:
+        raise ValueError(f"allocation_plant_tick_vjp takes 0..{VJP_MAX_SUBSTEPS} substeps, "
+                         f"not {substeps}")
     fn = _cuda.library("plant_vjp").allocation_plant_tick_vjp_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                                            ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_double] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     g_state = torch.empty_like(state)
     g_cmd = torch.empty_like(cmd)
@@ -222,10 +281,13 @@ def allocation_plant_tick_vjp(state, cmd, integral, plant_row, ct_state, ct_ctrl
     status = fn(_cuda.ptr(state), _cuda.ptr(cmd), _cuda.ptr(integral), _cuda.ptr(plant_row),
                 _cuda.ptr(ct_state), _cuda.ptr(ct_ctrl), _cuda.ptr(ct_int), _cuda.ptr(g_state),
                 _cuda.ptr(g_cmd), _cuda.ptr(g_int), _cuda.ptr(g_plant), B, float(dt),
-                int(substeps), _cuda.stream_of(state))
+                int(substeps), *vjp_geometry(B), _cuda.stream_of(state))
     _cuda.check(status, "allocation_plant_tick_vjp")
     _cuda.count_launch("allocation_plant_tick_vjp")
-    return g_state, g_cmd, g_int, (g_plant.sum(dim=0) if plant_grad else None)
+    if not plant_grad:
+        return g_state, g_cmd, g_int, None
+    # a batch of one (the staged MPC tuner's) needs no reduction launch
+    return g_state, g_cmd, g_int, g_plant[0] if B == 1 else g_plant.sum(dim=0)
 
 
 # ---------------------------------------------------------------------------
