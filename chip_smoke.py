@@ -69,11 +69,15 @@ Phases (any failure exits non-zero; nothing is caught):
    forward bit-identical to K5, weight gradient within 1e-4 of the plain
    route's; the last three kernels at the system's shapes, each with a
    second launch bit-identical: K14 (the explicit-inverse ADMM) on the
-   staged MPC's own M^-1 and G at N=20 and N=25 (80 iterations, rho 8,
-   relaxation 1.6; 2e-5 of each output's scale), K15 (the RBF Gram) at
-   the GP refit's 800 x 800 x 10 and the corpus's 19,800^2 x 10,
-   isotropic and ARD (5e-5 of sigma^2 against the plain version, 2e-5
-   against float64 on rows holding the diagonal: see GRAM_TOL), K16 (the
+   staged MPC's own M^-1 and G at N=20 and N=25 (the register slices), N=30
+   (the slices from shared memory) and N=40 (through L2) (80 iterations,
+   rho 8, relaxation 1.6; 2e-5 of each output's scale) and on the JAX
+   tests' QP padded to 128 lanes (300 iterations; the padded lanes exactly
+   0), K15 (the RBF Gram) at the GP refit's 800 x 800 x 10 and the
+   corpus's 19,800^2 x 10, isotropic and ARD (5e-5 of sigma^2 against the
+   plain version, 2e-5 against float64 on rows holding the diagonal: see
+   GRAM_TOL; the diagonal exactly sigma^2), at a ragged 801 x 257 and on
+   coincident points (exactly sigma^2), K16 (the
    fused controller for a batch of flights, over thread-block clusters) at
    B = 1, 17, 256 and 257, N=20 and N=25, over three warm-started ticks
    (timed at B=256, with its cluster shape and the clusters the card runs
@@ -89,10 +93,12 @@ Phases (any failure exits non-zero; nothing is caught):
    at N=20 and N=25, K16 at B=256, the tightened K5, K5 and K9 at the main
    path's shape (N=20, P=800, K=20), K11 at both plants, K7 at the sweep's
    width, K2 and K1 at B=1, on a dispersed (256, 10) plant block and at
-   B=1024, K12 at 512 x 25, K13b at B=1 and 1024 and K10 at n=1 and 20
-   (and K2's, K1's, K12's, K13a's, K13b's and K10's outputs of both
+   B=1024, K12 at 512 x 25, K13b at B=1 and 1024, K10 at n=1 and 20, K14
+   at N=20, N=25 and on 128 lanes and K15 at 800^2 and 19,800^2 (and K2's,
+   K1's, K12's, K13a's, K13b's, K10's, K14's and K15's outputs of both
    checkouts on the same inputs compared, K10's also on its checked
-   rollouts; K11's and K12's machine code compared) and K13a at B=1 and
+   rollouts; the machine code of the kernels this checkout keeps compared:
+   ``SASS_KEPT``) and K13a at B=1 and
    1024 of that package and of this one, and the device-busy and idle
    shares of the staged flights through K3 and K6, of the sweep (with
    K8's, K7's and K2's device time per tick) and of the mppi12 flight
@@ -178,8 +184,8 @@ Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
-                                         # K5, K9, K11, K7, K2, K13a, K1, K12, K13b and
-                                         # K10 and its
+                                         # K5, K9, K11, K7, K2, K13a, K1, K12, K13b, K10,
+                                         # K14 and K15 and its
                                          # staged flights', sweep's and mppi12 flight's
                                          # device-busy shares in turns with this one's,
                                          # and its sweep, single-tick, online and mppi12
@@ -1690,6 +1696,51 @@ def k16_operands(gen, N: int, B: int, f32: dict):
     return X0.to(**f32).contiguous(), W, REF
 
 
+K14_PAD = 128                 # the JAX tests' QP on 128 lanes (tests/test_pallas_ops.py)
+K14_HORIZONS = (20, LONG_HORIZON, 30, 40)   # N=30: slices from shared memory; 40: through L2
+
+
+def k14_operands(dev, gen, N=None) -> tuple:
+    """K14's operands: the staged MPC's QP at horizon N (``LinearMPC``'s own
+    M^-1 and G, the state off the reference so that boxes bind, z0 and y0
+    drawn from ``gen``; 80 iterations, rho 8, relaxation 1.6), or, with N
+    None, the JAX tests' QP (n=24, m=40, numpy seed 14) zero-padded to 128
+    lanes (300 iterations, rho 10), whose padded lanes stay exactly 0."""
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    if N is None:
+        rng = np.random.default_rng(14)
+        n, m = 24, 40
+        Q = rng.normal(size=(n, n))
+        G = np.vstack([np.eye(n), rng.normal(size=(m - n, n))])
+        Mp, Gp = np.zeros((K14_PAD, K14_PAD)), np.zeros((K14_PAD, K14_PAD))
+        Mp[:n, :n] = np.linalg.inv(Q @ Q.T + n * np.eye(n) + 10.0 * G.T @ G)
+        Gp[:m, :n] = G
+        pad = lambda v: torch.tensor(np.concatenate([v, np.zeros(K14_PAD - len(v))]), **f32)
+        dense = lambda a: torch.tensor(a, **f32).contiguous()
+        zeros = torch.zeros(K14_PAD, **f32)
+        return (dense(Mp), dense(Gp), dense(Gp.T), pad(rng.normal(size=n) * 50),
+                pad(-0.5 * np.ones(m)), pad(0.5 * np.ones(m)), zeros, zeros.clone(), 10.0, 300,
+                ADMM_RELAX)
+    mpc = LinearMPC(LinearMPCConfig(horizon=N), device=dev)
+    m = mpc.n_constraints
+    x0 = torch.tensor([2.0, -1.5, 1.0, 1.0, -0.5, 0.3], **f32)
+    ref = torch.tensor([0.0, 0.0, 3.0, 0.0, 0.0, 0.0], **f32).repeat(N)
+    offset = mpc._Sx @ x0
+    G = mpc._G.contiguous()
+    return (mpc._M_inv.contiguous(), G, G.T.contiguous(),
+            (mpc._SuT_q @ (offset - ref)).contiguous(),
+            torch.cat([mpc._u_lo, mpc._x_lo - offset]).contiguous(),
+            torch.cat([mpc._u_hi, mpc._x_hi - offset]).contiguous(),
+            (0.1 * torch.randn(m, generator=gen)).to(**f32),
+            (0.1 * torch.randn(m, generator=gen)).to(**f32), ADMM_RHO, ADMM_ITERS_DEFAULT,
+            ADMM_RELAX)
+
+
 def check_tail_kernels(dev, gen, fail_fn) -> dict:
     """Hold K14, K15 and K16, and K1 and K2 on a dispersed (256, 10) plant
     block, against their plain versions on the card at the system's shapes,
@@ -1722,39 +1773,48 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
         return max(errs)
 
     # K14 at the staged MPC's QP (LinearMPC's own M^-1 and G), N=20 and N=25
+    # (the register slices), N=30 (the slices from shared memory) and N=40
+    # (through L2), and on the JAX tests' QP padded to 128 lanes
     k14 = {}
-    for N in (20, LONG_HORIZON):
-        mpc = LinearMPC(LinearMPCConfig(horizon=N), device=dev)
-        n, m = mpc.n_primal, mpc.n_constraints
-        x0 = torch.tensor([2.0, -1.5, 1.0, 1.0, -0.5, 0.3], **f32)
-        ref = torch.tensor([0.0, 0.0, 3.0, 0.0, 0.0, 0.0], **f32).repeat(N)
-        offset = mpc._Sx @ x0
-        f = (mpc._SuT_q @ (offset - ref)).contiguous()
-        lower = torch.cat([mpc._u_lo, mpc._x_lo - offset]).contiguous()
-        upper = torch.cat([mpc._u_hi, mpc._x_hi - offset]).contiguous()
-        z0 = (0.1 * torch.randn(m, generator=gen)).to(**f32)
-        y0 = (0.1 * torch.randn(m, generator=gen)).to(**f32)
-        Minv, G = mpc._M_inv.contiguous(), mpc._G.contiguous()
-        GT = G.T.contiguous()
-        args = (Minv, G, GT, f, lower, upper, z0, y0, ADMM_RHO, ADMM_ITERS_DEFAULT, ADMM_RELAX)
+    for N in (*K14_HORIZONS, None):
+        args = k14_operands(dev, gen, N)
+        (Minv, G, GT, f, lower, upper, z0, y0), iters = args[:8], args[9]
+        n, m = Minv.shape[0], G.shape[0]
         fn = lambda: admm_pallas.admm_box_qp_fused(*args)
         plain = lambda: admm_pallas.admm_box_qp_fused_plain(*args)
         got = fn()
         torch.cuda.synchronize()
-        err = held(f"K14 admm_box_qp_fused (N={N}, n={n}, m={m}, {ADMM_ITERS_DEFAULT} iterations)",
+        label = f"N={N}" if N is not None else f"the JAX tests' QP on {K14_PAD} lanes"
+        err = held(f"K14 admm_box_qp_fused ({label}, n={n}, m={m}, {iters} iterations)",
                    got, plain(), fn())
-        shared, _ = _cuda.p1_variant(dev, admm_pallas.explicit_shared_memory_bytes(n, m, True),
-                                     admm_pallas.explicit_shared_memory_bytes(n, m, False))
+        if N is None and not all(bool((v[k:] == 0).all()) for v, k in zip(got, (24, 40, 40))):
+            fail_fn("K14 on the padded QP: a padded lane is not exactly 0")
+        variant, shared, _ = admm_pallas.explicit_variant(dev, n, m)
+        with _cuda.library_variant("single_tick", "single_tick_clocks"):
+            admm_pallas.explicit_section_cycles()
+            fn()
+            torch.cuda.synchronize()
+            cycles = admm_pallas.explicit_section_cycles()
+        per_pass = {k: v / (iters + 1) for k, v in cycles.items()
+                    if k not in ("whole launch", "set-up")}
         k14[N] = dict(
             err=err, ms=graph_ms(fn, 20), plain_ms=graph_ms(plain, 2),
             host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain, 5),
             bound=bound_ms(nbytes(Minv, G, f, lower, upper, z0, y0) + 4 * (n + 2 * m),
-                           ops_explicit_admm(n, m, ADMM_ITERS_DEFAULT)),
-            variant="M^-1 and G in shared memory" if shared else "through L2",
+                           ops_explicit_admm(n, m, iters)),
+            variant=("slices in registers, {1} columns a lane, {2} rows of M^-1".format(
+                *admm_pallas.EXPLICIT_REG_VARIANTS[variant - 1]) if variant else
+                     "slices from shared memory" if shared else "slices through L2"),
+            cycles_per_pass=per_pass, cycles_whole=cycles["whole launch"],
+            cycles_setup=cycles["set-up"],
         )
-        print(f"  K14 at N={N}: {k14[N]['ms'] * 1e3:.2f} us per launch ({k14[N]['variant']}), "
-              f"plain {k14[N]['plain_ms'] * 1e3:.2f} us")
-    out["admm_box_qp_fused"] = dict(k14[LONG_HORIZON], n20=k14[20])
+        print(f"  K14 at {label}: {k14[N]['ms'] * 1e3:.2f} us per launch ({k14[N]['variant']}), "
+              f"plain {k14[N]['plain_ms'] * 1e3:.2f} us; clock cycles per pass (thread 0, the "
+              f"build with section clocks) " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                         per_pass.items())
+              + f"; whole launch {cycles['whole launch']}, set-up {cycles['set-up']}")
+    out["admm_box_qp_fused"] = dict(k14[LONG_HORIZON], n20=k14[20], padded=k14[None],
+                                    memory={N: k14[N] for N in K14_HORIZONS[2:]})
 
     # K15 at the GP refit's 800 x 800 x 10 and the corpus's 19,800^2 x 10,
     # isotropic and ARD, on seeded synthetic inputs
@@ -1773,6 +1833,8 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
             what = f"K15 rbf_kernel_matrix_pallas ({n1} x {n2} x {GRAM_D}, {label})"
             errs.append(held(what, (got,), (plain,),
                              (rbf_pallas.rbf_kernel_matrix_pallas(*args),), tol=GRAM_TOL))
+            if n1 == n2 and not bool((got.diagonal() == sig).all()):
+                fail_fn(f"{what}: a diagonal entry (coincident points) is not exactly sigma^2")
             rows = slice(0, GRAM_F64_ROWS)
             exact = rbf_kernel(X1[rows].double(), X2.double(), ls.double(), sig.double())
             e_kernel, e_plain = rel_err(got[rows].double(), exact), rel_err(plain[rows].double(), exact)
@@ -1786,21 +1848,47 @@ def check_tail_kernels(dev, gen, fail_fn) -> dict:
         Z1, Z2 = X1 / 0.5, X2 / 0.5
         cdist = lambda: torch.cdist(Z1, Z2).square_().mul_(-0.5).exp_()
         small = n1 * n2 < 10**7
+        out_buf = torch.empty(n1, n2, **f32)
+        fill = lambda: out_buf.fill_(1.0)   # the card's write rate on the same bytes
         k15[n1] = dict(
             err=max(errs), ms=graph_ms(fn, 20) if small else cuda_ms(fn, 10),
             plain_ms=graph_ms(plain, 5) if small else cuda_ms(plain, 5),
             host_ms=cuda_ms(fn, 50 if small else 5), host_plain_ms=cuda_ms(plain, 5),
             cdist_ms=cuda_ms(cdist, 10 if small else 5),
+            fill_ms=graph_ms(fill, 20) if small else cuda_ms(fill, 10),
             bound=bound_ms(nbytes(X1, X2) + 4 * (GRAM_D + 1) + 4 * n1 * n2,
                            ops_gram(n1, n2, GRAM_D)),
         )
         print(f"  K15 at {n1} x {n2}: {k15[n1]['ms'] * 1e3:.2f} us per launch, plain "
               f"{k15[n1]['plain_ms'] * 1e3:.2f} us, torch.cdist + square/scale/exp (in place) "
               f"{k15[n1]['cdist_ms'] * 1e3:.2f} us, bound {k15[n1]['bound'][0] * 1e3:.2f} us "
-              f"({k15[n1]['bound'][1]})")
+              f"({k15[n1]['bound'][1]}), fill_ of the same output {k15[n1]['fill_ms'] * 1e3:.2f} "
+              f"us")
+        del out_buf
         torch.cuda.empty_cache()
     (small, _), (corpus, _) = GRAM_SHAPES
-    out["rbf_kernel_matrix_pallas"] = dict(k15[small], corpus=k15[corpus])
+    out["rbf_kernel_matrix_pallas"] = dict(k15[small], n800=k15[small], corpus=k15[corpus])
+    # a ragged shape (n1 past a tile, n2 not a multiple of 4), and coincident
+    # points far from the origin (exactly sigma^2, every pair of them)
+    X1 = torch.randn(801, GRAM_D, generator=gen).to(**f32)
+    X2 = torch.randn(257, GRAM_D, generator=gen).to(**f32)
+    for ls, label in ((iso, "isotropic"), (ard, "ARD")):
+        args = (X1, X2, ls, sig)
+        got = rbf_pallas.rbf_kernel_matrix_pallas(*args)
+        torch.cuda.synchronize()
+        held(f"K15 rbf_kernel_matrix_pallas (801 x 257 x {GRAM_D}, {label})", (got,),
+             (rbf_pallas.rbf_kernel_matrix_plain(*args),),
+             (rbf_pallas.rbf_kernel_matrix_pallas(*args),), tol=GRAM_TOL)
+    X = (30.0 * torch.randn(64, GRAM_D, generator=gen)).to(**f32)
+    X[32:] = X[:32]
+    K = rbf_pallas.rbf_kernel_matrix_pallas(X, X, ard, sig)
+    same = torch.cat([torch.arange(64), torch.arange(32), torch.arange(32, 64)])
+    pair = torch.cat([torch.arange(64), torch.arange(32, 64), torch.arange(32)])
+    exact = bool((K[same, pair] == sig).all())
+    print(f"K15 on coincident points (64 x 64, every row twice, 30 times the corpus's spread, "
+          f"ARD): every coincident pair exactly sigma^2 {exact}")
+    if not exact:
+        fail_fn("K15: a pair of coincident points is not exactly sigma^2")
 
     # K16 at B = 1, 17, 256 and 257 (a lone flight, a ragged tile, the
     # population, one flight past it), N=20 and N=25, three warm-started
@@ -2486,10 +2574,47 @@ def time_k13b_k10(dev) -> dict:
     return out
 
 
+def time_k14_k15(dev) -> dict:
+    """Device microseconds per launch of K14 at N=20, N=25, on the JAX
+    tests' QP padded to 128 lanes and, past the register slices, at N=30
+    and N=40 (``k14_operands``) and of K15 at 800 x
+    800 and 19,800^2 x 10 (isotropic, seeded points), through the public
+    wrappers; the outputs go to a file named by ``_k14_k15_outputs`` (K15's
+    corpus every 199th row), so that the caller can hold one checkout's K14
+    and K15 against another's on the same inputs."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import admm_pallas, rbf_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(17)
+    out, outputs = {}, {}
+    for key, N in (("k14_n20_us", 20), ("k14_n25_us", LONG_HORIZON), ("k14_pad128_us", None),
+                   ("k14_n30_us", 30), ("k14_n40_us", 40)):
+        args = k14_operands(dev, gen, N)
+        call = lambda: admm_pallas.admm_box_qp_fused(*args)
+        outputs[key] = [t.cpu() for t in call()]
+        out[key] = graph_ms(call, 20) * 1e3
+    iso, sig = torch.tensor(0.5, **f32), torch.tensor(1.3, **f32)
+    for (n, _), key in zip(GRAM_SHAPES, ("k15_800_us", "k15_19800_us")):
+        X = torch.randn(n, GRAM_D, generator=gen).to(**f32)
+        call = lambda: rbf_pallas.rbf_kernel_matrix_pallas(X, X, iso, sig)
+        K = call()
+        outputs[key] = [(K if n < 10**4 else K[::199]).cpu()]
+        del K
+        out[key] = (graph_ms(call, 20) if n < 10**4 else cuda_ms(call, 10)) * 1e3
+        torch.cuda.empty_cache()
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    torch.save(outputs, path)
+    out["_k14_k15_outputs"] = path
+    return out
+
+
 def outputs_difference(older: str, this: str) -> dict:
     """Per timing key, whether two checkouts' outputs saved by ``time_k7_k2``,
-    ``time_k1_k12`` or ``time_k13b_k10`` agree bit for bit, or their largest
-    difference (both files are removed)."""
+    ``time_k1_k12``, ``time_k13b_k10`` or ``time_k14_k15`` agree bit for bit,
+    or their largest difference (both files are removed)."""
     import torch
 
     a, b = torch.load(older), torch.load(this)
@@ -2699,7 +2824,8 @@ def time_redesigned(dev) -> dict:
     (``sweep_shares``), K13a at B=1 and 1024, the staged flights
     through K3 and K6 (``staged_shares``: their ticks and device-busy
     shares), K1 and K12 (``time_k1_k12``), the mppi12 flight's device-busy
-    share (``mppi12_shares``), and K13b and K10 (``time_k13b_k10``)."""
+    share (``mppi12_shares``), K13b and K10 (``time_k13b_k10``), and K14
+    and K15 (``time_k14_k15``)."""
     import numpy as np
     import torch
 
@@ -2762,6 +2888,7 @@ def time_redesigned(dev) -> dict:
     out.update(time_k1_k12(dev))
     out.update(mppi12_shares(dev))
     out.update(time_k13b_k10(dev))
+    out.update(time_k14_k15(dev))
     return out
 
 
@@ -2803,20 +2930,23 @@ class TimingWorker:
         self.log.close()
 
 
-# the kernels whose code this checkout leaves alone: K11's and K12's
-# libraries (rigid_math.cuh's one-thread and warp forms stay as they were)
-# and the forward kernels that include plant_math.cuh beside the VJPs (K1,
-# K5, K4 and K9; K2 is K1's library); a kernel beside changed ones is named
-# "library:kernel"
-SASS_KEPT = ("rigid_tick", "mppi", "plant", "tick", "single_tick", "noisy_tick")
+# the kernels whose code this checkout leaves alone: the libraries of K11,
+# K12, K1/K2, K5, K9, K8/K16, K13a/K13b and K10, and beside K14 in its
+# library K4, K3 and K6 (on the factors and on P1), beside K15 K7; a kernel
+# beside changed ones is named "library:kernel"
+SASS_KEPT = ("rigid_tick", "mppi", "plant", "tick", "noisy_tick", "controller", "plant_vjp",
+             "rigid_plant", "single_tick:gpmpc_tick_kernel", "single_tick:controller_kernel",
+             "single_tick:admm_factored_kernel", "single_tick:admm_composite_kernel",
+             "rbf:rbf_posterior_mean_kernel")
 
 
 def sass_difference(parent: str, names=SASS_KEPT) -> dict:
     """Per library, or per kernel as ``"library:kernel"``, whether the
     machine code (``cuobjdump -sass``) that the checkout at ``parent``
     built equals this checkout's, with the anonymous namespace's per-build
-    hash masked; else the first line that differs. Call after both
-    checkouts built their libraries."""
+    hash masked and runs of blanks read as one (cuobjdump pads its columns
+    to the longest line of the library); else the first line that differs.
+    Call after both checkouts built their libraries."""
     import re
     import shutil
 
@@ -2829,6 +2959,7 @@ def sass_difference(parent: str, names=SASS_KEPT) -> dict:
                               check=True).stdout
         text = re.sub(r"_GLOBAL__N__[0-9a-f]+", "_GLOBAL__N__", text)
         text = re.sub(r"_cu_[0-9a-f]{8}", "_cu_", text)   # the source's hash in the name
+        text = re.sub(r"[ \t]+", " ", text)
         if kernel:   # that kernel's block, from its "Function :" line to the next
             blocks = re.split(r"(?m)^(?=\s*Function : )", text)
             text = "".join(b for b in blocks if b.lstrip().startswith("Function : ")
@@ -2855,20 +2986,20 @@ def sass_difference(parent: str, names=SASS_KEPT) -> dict:
 
 def compare_with_parent(dev, parent: str | None):
     """K4, K8, K3, K6, K16, K5 (tightened and not), K9, K11, K7, K2, K13a,
-    K1, K12, K13b and K10 and the staged flights', the sweep's and the
-    mppi12 flight's device-busy shares of the checkout at ``parent`` and of
-    this one, each package in a process of its own built from its own
+    K1, K12, K13b, K10, K14 and K15 and the staged flights', the sweep's and
+    the mppi12 flight's device-busy shares of the checkout at ``parent`` and
+    of this one, each package in a process of its own built from its own
     sources, timed in turns in this call: parent, this, this, parent; K2's,
-    K1's, K12's, K13a's, K13b's and K10's outputs of the two on the same
-    inputs compared, and the machine code of the kernels whose code is kept
-    (``sass_difference``). Then the sweep's,
+    K1's, K12's, K13a's, K13b's, K10's, K14's and K15's outputs of the two
+    on the same inputs compared, and the machine code of the kernels whose
+    code is kept (``sass_difference``). Then the sweep's,
     single-tick, online and mppi12 ticks in ``E2E_PAIRS`` pairs,
     alternating which checkout goes first, each called changed only where
     the sign test over the pairs says so."""
     if parent is None:
-        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2, K13a, K1, K12, K13b "
-              "and K10 and its end-to-end ticks: not measured in this run (pass --parent DIR, "
-              "DIR holding the older package, to time them here)")
+        print("older checkout's K4, K8, K3, K6, K16, K5, K9, K11, K7, K2, K13a, K1, K12, K13b, "
+              "K10, K14 and K15 and its end-to-end ticks: not measured in this run (pass "
+              "--parent DIR, DIR holding the older package, to time them here)")
         return None
     workers = {"older": TimingWorker(parent), "this": TimingWorker(ROOT)}
     try:
@@ -2878,14 +3009,15 @@ def compare_with_parent(dev, parent: str | None):
             if not key.startswith("_"):
                 print(f"  {key}: " + ", ".join(f"{who} {r[key]:.2f}" for who, r in zip(order, runs)))
         against_older = {}
-        for name in ("_k2_outputs", "_k1_k12_outputs", "_k13b_k10_outputs"):
+        for name in ("_k2_outputs", "_k1_k12_outputs", "_k13b_k10_outputs", "_k14_k15_outputs"):
             files = [r.pop(name) for r in runs]
             against_older.update(outputs_difference(files[0], files[1]))
             for path in files[2:]:
                 os.unlink(path)
         print("  this checkout's outputs against the older one's on the same inputs (K2 at B=1, "
               "1024 and on the (256, 10) plant block, K1 likewise, K12 at 512 x 25, K13a and "
-              "K13b at B=1 and 1024, K10 at n=1 and 20 and on its checked rollouts): "
+              "K13b at B=1 and 1024, K10 at n=1 and 20 and on its checked rollouts, K14 at N=20, "
+              "25, 30, 40 and on 128 lanes, K15 at 800^2 and every 199th row at 19,800^2): "
               + "; ".join(f"{k.removesuffix('_us')} {v}" for k, v in against_older.items()))
         sass = sass_difference(parent)
         print("  machine code of the kernels whose code is kept, against the older "
@@ -4122,6 +4254,12 @@ def main(parent: str | None = None) -> int:
         "monte_carlo": populations,
         "plant_block_max_abs_err": plant_block_check["errs"],
         "us_per_launch_k14_n20": kernels["admm_box_qp_fused"]["n20"]["ms"] * 1e3,
+        "k14_by_case": {
+            label: {"us": r["ms"] * 1e3, "max_abs_err": r["err"], "variant": r["variant"]}
+            for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
+                             ("padded 128", kernels["admm_box_qp_fused"]["padded"]),
+                             *((f"N={N}", r) for N, r in
+                               kernels["admm_box_qp_fused"]["memory"].items()))},
         "us_per_launch_k16_n20": kernels["gpmpc_controller_fused_batched"]["n20"]["ms"] * 1e3,
         "k16_cluster": {N: {key: k16[key] for key in ("cluster", "flights", "active", "smem")}
                         for N, k16 in ((LONG_HORIZON, kernels["gpmpc_controller_fused_batched"]),
@@ -4130,7 +4268,15 @@ def main(parent: str | None = None) -> int:
             kernels["gpmpc_multitick_fused_tightened"]["streamed_ms"] * 1e3,
         "redesign_vs_older_checkout": redesign,
         "us_per_launch_k15_corpus": kernels["rbf_kernel_matrix_pallas"]["corpus"]["ms"] * 1e3,
-        "us_per_launch_k15_corpus_cdist": kernels["rbf_kernel_matrix_pallas"]["corpus"]["cdist_ms"] * 1e3}
+        "us_per_launch_k15_corpus_cdist": kernels["rbf_kernel_matrix_pallas"]["corpus"]["cdist_ms"] * 1e3,
+        "us_fill_k15_output": {
+            n: kernels["rbf_kernel_matrix_pallas"][key]["fill_ms"] * 1e3
+            for n, key in ((GRAM_SHAPES[0][0], "n800"), (GRAM_SHAPES[1][0], "corpus"))},
+        "k14_cycles_per_pass": {
+            label: r["cycles_per_pass"]
+            for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
+                             ("N=25", kernels["admm_box_qp_fused"]),
+                             ("padded 128", kernels["admm_box_qp_fused"]["padded"]))}}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -183,8 +183,8 @@ def _held(kernel, plain, name, tol):
 @pytest.mark.parametrize("horizon", [20, 25])
 def test_k14_and_k16_agree_with_their_plain_versions(cuda_device, horizon):
     """K14 on the staged MPC's own M^-1 and G and K16 for 64 flights, at
-    N=20 and N=25 (K14's operands in shared memory; K16's P1 split over a
-    thread-block cluster), within 2e-5 of scale, a second launch
+    N=20 and N=25 (K14's slices of G and M^-1 in registers; K16's P1 split
+    over a thread-block cluster), within 2e-5 of scale, a second launch
     bit-identical."""
     f32 = dict(dtype=torch.float32, device=cuda_device)
     gen = torch.Generator().manual_seed(horizon)

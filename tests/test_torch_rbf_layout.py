@@ -233,3 +233,112 @@ def test_k2_launch_geometry(B):
     per_block = threads // plant_pallas.LANES_PER_STATE   # 8 lanes per state
     assert per_block == 16 and (blocks - 1) * per_block < B <= blocks * per_block
     assert blocks == {1: 1, 256: 16, 1024: 64, 4096: 256}[B]
+
+
+# ---------------------------------------------------------------------------
+# K15: the persistent Gram kernel's walk and its folded exponent
+# ---------------------------------------------------------------------------
+
+SMS = 132             # an H100's SMs
+GRAM_TOL = 5e-5       # chip_smoke.py: K15 against its plain version, of sigma^2
+TILE = 64
+LOG2E = f32(1.4426950408889634)
+
+
+@pytest.mark.parametrize("n1,n2", [(800, 800), (19800, 19800), (300, 257), (801, 257), (1, 1)])
+def test_k15_tile_walk_covers_every_entry_once(n1, n2):
+    """The blocks' tile ranges partition the tiles in row-major order, the
+    tiles (cut at the ragged edges) and each tile's 16 x 16 threads' 4 x 4
+    micro-tiles partition the output; the grid is three blocks an SM, never
+    more than the tiles, and leaves no SM idle where the tiles suffice.
+    Reckoned on the host: the corpus's output is not allocated."""
+    geo = rbf_pallas.gram_geometry(n1, n2, SMS)
+    assert (geo.tiles_r, geo.tiles_c) == (-(-n1 // TILE), -(-n2 // TILE))
+    assert geo.grid == min(geo.tiles, 3 * SMS) and geo.grid >= min(geo.tiles, SMS)
+    # block b walks tiles [b T // grid, (b + 1) T // grid) (csrc/rbf_kernels.cu)
+    walks = [range(b * geo.tiles // geo.grid, (b + 1) * geo.tiles // geo.grid)
+             for b in range(geo.grid)]
+    assert walks[0].start == 0 and walks[-1].stop == geo.tiles
+    assert all(a.stop == b.start and len(a) >= 1 for a, b in zip(walks, walks[1:]))
+    lengths = {len(w) for w in walks}
+    assert max(lengths) - min(lengths) <= 1   # an even share
+    # each tile's entries: rows and columns cut at the edges
+    t = np.arange(geo.tiles)
+    tr, tc = t // geo.tiles_c, t % geo.tiles_c
+    rows = np.minimum(n1, TILE * tr + TILE) - TILE * tr
+    cols = np.minimum(n2, TILE * tc + TILE) - TILE * tc
+    assert int((rows * cols).sum()) == n1 * n2 and rows.min() >= 1 and cols.min() >= 1
+    if n1 * n2 <= 10**6:
+        # thread (ty, tx) writes rows 4 ty + r and columns 4 tx + q of its tile
+        hits = np.zeros((n1, n2), np.int32)
+        ty, tx, r, q = np.meshgrid(*(np.arange(k) for k in (16, 16, 4, 4)), indexing="ij")
+        for w in walks:
+            for tile in w:
+                R = (tile // geo.tiles_c) * TILE + 4 * ty + r
+                C = (tile % geo.tiles_c) * TILE + 4 * tx + q
+                keep = (R < n1) & (C < n2)
+                np.add.at(hits, (R[keep], C[keep]), 1)
+        assert np.all(hits == 1)
+
+
+def fma32(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def gram_order(X1, X2, ls, sig):
+    """K15's arithmetic in float32: z = x / l, w = log2(e) z, half norms
+    0.5 sum_k w_k z_k and dots sum_k w1_k z2_k as one FMA chain over the
+    features, then sigma^2 2^min((dot - h1) - h2, 0)."""
+    L = torch.tensor(LOG2E)
+
+    def side(X):
+        z = X / ls
+        w = L * z
+        s = torch.zeros(X.shape[0])
+        for k in range(X.shape[1]):
+            s = fma32(w[:, k], z[:, k], s)
+        return z, w, torch.tensor(0.5, dtype=torch.float32) * s
+
+    z1, w1, h1 = side(X1)
+    z2, _, h2 = side(X2)
+    dot = torch.zeros(X1.shape[0], X2.shape[0])
+    for k in range(X1.shape[1]):
+        dot = fma32(w1[:, k, None], z2[None, :, k], dot)
+    e = (dot - h1[:, None]) - h2[None, :]
+    return sig * torch.exp2(torch.clamp(e, max=0.0))
+
+
+@pytest.mark.parametrize("case", ["isotropic", "ard", "near"])
+def test_k15_folded_exponent_holds_plain(case):
+    """The exponent folded into the scaled operands (one ex2) against
+    ``rbf_kernel_matrix_plain`` within GRAM_TOL, on the JAX tests' shapes
+    and on points near one another (where the exp is far from 0)."""
+    rng = np.random.default_rng(15)
+    if case == "isotropic":
+        X1 = rng.normal(size=(300, 10)).astype(f32)
+        X2 = rng.normal(size=(257, 10)).astype(f32)
+        ls, sig = torch.tensor(0.5), torch.tensor(1.3)
+    elif case == "ard":
+        X1 = X2 = rng.normal(size=(100, 6)).astype(f32)
+        ls, sig = torch.tensor([0.3, 0.5, 1.0, 2.0, 0.7, 1.5]), torch.tensor(1.0)
+    else:
+        X1 = rng.normal(size=(200, 10)).astype(f32)
+        X2 = (X1 + 0.05 * rng.normal(size=X1.shape)).astype(f32)
+        ls, sig = torch.tensor(0.5), torch.tensor(1.3)
+    X1, X2 = torch.from_numpy(X1), torch.from_numpy(X2)
+    got = gram_order(X1, X2, ls, sig)
+    want = rbf_pallas.rbf_kernel_matrix_plain(X1, X2, ls, sig)
+    assert float((got - want).abs().max()) <= GRAM_TOL * float(sig)
+    if case == "near":
+        assert float(want.diagonal().min()) > 0.5   # the exps are not all ~0
+
+
+def test_k15_folded_exponent_is_exact_on_coincident_points():
+    """Coincident points give exactly sigma^2: the dot and the two half
+    norms are the same FMA chain, so the exponent is 0 exactly."""
+    rng = np.random.default_rng(16)
+    X = torch.from_numpy((30.0 * rng.normal(size=(64, 10))).astype(f32))
+    X[7] = X[3]
+    ls = torch.from_numpy(rng.uniform(0.3, 1.5, size=10).astype(f32))
+    K = gram_order(X, X, ls, torch.tensor(1.7))
+    assert torch.all(K.diagonal() == torch.tensor(1.7)) and K[3, 7] == K[7, 3] == K[3, 3]

@@ -9,19 +9,41 @@
 //   out[i, j] = sigma^2 exp(-0.5 max(|z_i|^2 + |z_j|^2 - 2 z_i.z_j, 0)),
 //   z = x / ls  (ls: one length scale per feature; a scalar is expanded)
 //
-// Design: a block owns a 64 x 64 output tile and 256 threads. It loads the
-// tile's 64 rows of X1 and 64 rows of X2 (d <= 16 features), divides them by
-// the length scales on load and keeps them feature-major in shared memory,
-// with each row's squared norm computed once per tile. A thread computes a
-// 4 x 4 micro-tile: rows ty + 16 r, columns 4 tx .. 4 tx + 3, so per
-// feature it reads four broadcast row values and one 16-byte column vector
-// and does 16 FMAs; the two rows of a warp are written with 16-byte stores,
-// 256 contiguous bytes per row (scalar stores at a ragged edge or when n2 is
-// not a multiple of 4). The distance keeps the JAX clamp at 0 exactly.
-//
 // What bounds K15 on an H100: bytes. The output is written once, 4 n1 n2
-// bytes (1.57 GB at the 19,800-point corpus, ~0.47 ms at 3.35 TB/s); the
-// arithmetic is ~2 d + 8 operations and one expf per entry.
+// bytes (1.57 GB at the 19,800-point corpus, 468 us at 3.35 TB/s; a plain
+// fill of that buffer takes ~480 us on an H100), the inputs are read once.
+// The first design (one block per 64 x 64 tile, 96,100 blocks at the
+// corpus; expf's full sequence, ~30 instructions an entry) ran 813 us
+// there, near the SMs' issue limit as well as the bytes', and at the
+// refit's 800 points left 169 blocks each loading, dividing and passing two
+// barriers before its first store (6.22 us).
+//
+// Design: persistent blocks, three of 256 threads on each SM (no more than
+// the tiles), each walking an even share of the 64 x 64 output tiles in
+// row-major order (ops/rbf_pallas.py gram_geometry), so a block scales its
+// 64 rows of X1 once per tile row and the X2 columns of each tile once:
+// - every thread divides its share of a tile's elements by the length
+//   scales (z = x / l) into shared memory, the next-but-one tile's loaded
+//   into registers under the current tile's stores; threads 0-63 then take
+//   each column's half norm h = 0.5 sum_k w_k z_k, w = log2(e) z (one FMA
+//   chain over the features), a tile ahead; one barrier a tile (X2's
+//   scaled tiles triple-buffered, their norms double-buffered);
+// - a tile row's X1 is held as w in shared memory with its half norms;
+// - an entry is then its dot (sum_k w1_k z2_k, the same FMA chain as the
+//   half norms), two adds, the clamp and one ex2.approx, then sigma^2:
+//
+//     out = sigma^2 2^min((dot - h1) - h2, 0),  (dot - h1) - h2 = -0.5 log2(e) dist
+//
+//   For coincident points (z1 = z2) the dot equals 2 h1 = 2 h2 bit for bit,
+//   so the exponent is 0 exactly and the entry exactly sigma^2 (the JAX
+//   clamp at 0; the Gram's diagonal). One add more than folding h1 into
+//   the chain's start would take, which would lose that exactness;
+// - each thread computes a 4 x 4 micro-tile (rows 4 ty + r, columns 4 tx +
+//   q): per feature two 16-byte shared loads and 16 FMAs; rows go out as
+//   16-byte streaming stores (st.global.cs: the output does not stay in
+//   L2), scalar ones at a ragged edge or where n2 is not a multiple of 4.
+// Features are padded to a multiple of 4 past 10 (zeros on both sides add
+// exact zeros).
 //
 // K7 rbf_posterior_mean_kernel replaces the JAX package's
 // ops/rbf_pallas.py:rbf_posterior_mean_pallas
@@ -436,76 +458,159 @@ rbf_posterior_mean_kernel(const MeanOperands O, int m, int chunks, int stages, i
 #endif
 }
 
-constexpr int kGramTile = 64;      // output rows and columns per block
-constexpr int kGramMaxD = 16;      // ops/rbf_pallas.py GRAM_MAX_FEATURES
-constexpr int kGramThreads = 256;  // 16 x 16 threads, a 4 x 4 micro-tile each
+// ---- K15 -----------------------------------------------------------------
 
-__global__ void __launch_bounds__(kGramThreads)
-rbf_gram_kernel(const GramOperands O, int n1, int n2, int d) {
-  __shared__ __align__(16) float z1[kGramMaxD][kGramTile];
-  __shared__ __align__(16) float z2[kGramMaxD][kGramTile];
-  __shared__ __align__(16) float sq1[kGramTile];
-  __shared__ __align__(16) float sq2[kGramTile];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int r0 = blockIdx.y * kGramTile, c0 = blockIdx.x * kGramTile;
+constexpr int kGramMaxD = 16;          // ops/rbf_pallas.py GRAM_MAX_FEATURES
+constexpr int kGramTile = 64;          // GRAM_TILE: output rows and columns per tile
+constexpr int kGramThreads = 256;      // 16 x 16 threads, a 4 x 4 micro-tile each
+constexpr int kGramBlocksPerSM = 3;    // GRAM_BLOCKS_PER_SM
+constexpr float kLog2e = 1.4426950408889634f;
 
-  // the tile's rows, scaled on load (neighbouring threads read neighbouring
-  // features of a row); rows past the edge load zeros
-  for (int i = tid; i < kGramTile * d; i += kGramThreads) {
-    const int row = i / d, c = i - row * d;
-    const float l = __ldg(O.ls + c);
-    const int a = r0 + row, b = c0 + row;
-    z1[c][row] = a < n1 ? __ldg(O.X1 + (size_t)a * d + c) / l : 0.0f;
-    z2[c][row] = b < n2 ? __ldg(O.X2 + (size_t)b * d + c) / l : 0.0f;
-  }
-  __syncthreads();
-  if (tid < 2 * kGramTile) {
-    float(*z)[kGramTile] = tid < kGramTile ? z1 : z2;
-    const int row = tid % kGramTile;
-    float s = 0.0f;
-    for (int c = 0; c < d; ++c) s += z[c][row] * z[c][row];
-    (tid < kGramTile ? sq1 : sq2)[row] = s;
-  }
-  __syncthreads();
+// One block walks the output tiles [t0, t1) of the row-major order of 64 x
+// 64 tiles; kD is the features d, or d rounded up to a multiple of 4 (the
+// padded features are 0 on both sides and add nothing). Thread (ty, tx)
+// computes rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of a tile;
+// a warp's 16-byte stores cover two rows of 256 contiguous bytes.
+template <int kD>
+__global__ void __launch_bounds__(kGramThreads, kGramBlocksPerSM)
+rbf_gram_kernel(const GramOperands O, int n1, int n2, int d, int ls_stride) {
+  constexpr int kRaw = (kGramTile * kD + kGramThreads - 1) / kGramThreads;   // a thread's X2 elements
+  __shared__ __align__(16) float z2s[3][kD][kGramTile];   // X2 tiles, scaled, by feature
+  __shared__ __align__(16) float h2s[2][kGramTile];       // their columns' half norms
+  __shared__ __align__(16) float w1s[kD][kGramTile];      // the tile row's X1, log2(e) z
+  __shared__ __align__(16) float h1s[kGramTile];          // its rows' half norms
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tiles_c = (n2 + kGramTile - 1) / kGramTile;
+  const long long tiles = (long long)tiles_c * ((n1 + kGramTile - 1) / kGramTile);
+  const int t0 = (int)(blockIdx.x * tiles / gridDim.x);
+  const int t1 = (int)((blockIdx.x + 1) * tiles / gridDim.x);
+  const float sig = __ldg(O.sig);
 
-  float acc[4][4];
+  // z = x / l, elementwise over all threads (X's own order, a point's
+  // features together); w = log2(e) z. A point's half norm 0.5 sum_k w_k z_k
+  // and a pair's dot sum_k w1_k z2_k are the same FMA chain over the
+  // features (one thread's), so for coincident points the exponent below is
+  // 0 exactly.
+  auto fetch = [&](int t, float (&raw)[kRaw]) {
+    const int c0 = (t % tiles_c) * kGramTile;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int e = 0; e < kRaw; ++e) {
+      const int i = tid + e * kGramThreads, c = i / kD, k = i - c * kD;
+      raw[e] = i < kGramTile * kD && c0 + c < n2 && k < d
+                   ? __ldg(O.X2 + (size_t)(c0 + c) * d + k)
+                   : 0.0f;
+    }
+  };
+  auto scale = [&](const float (&raw)[kRaw], int buf) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-  for (int c = 0; c < d; ++c) {
-    const float4 b = *reinterpret_cast<const float4*>(&z2[c][4 * tx]);
+    for (int e = 0; e < kRaw; ++e) {
+      const int i = tid + e * kGramThreads, c = i / kD, k = i - c * kD;
+      if (i < kGramTile * kD) z2s[buf][k][c] = k < d ? raw[e] / __ldg(O.ls + k * ls_stride) : 0.0f;
+    }
+  };
+  auto norms = [&](int buf3, int buf2, int thread) {   // columns by threads thread .. + 63
+    const int c = tid - thread;
+    if (c >= 0 && c < kGramTile) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kD; ++k) {
+        const float z = z2s[buf3][k][c];
+        s = fmaf(kLog2e * z, z, s);
+      }
+      h2s[buf2][c] = 0.5f * s;
+    }
+  };
+  auto scale_rows = [&](int tr) {   // then a barrier, then chain_rows
+    for (int i = tid; i < kGramTile * kD; i += kGramThreads) {
+      const int r = i / kD, k = i - r * kD, row = tr * kGramTile + r;
+      w1s[k][r] = row < n1 && k < d
+                      ? __ldg(O.X1 + (size_t)row * d + k) / __ldg(O.ls + k * ls_stride)
+                      : 0.0f;
+    }
+  };
+  auto chain_rows = [&] {   // rows by threads 0-63, then a barrier
+    if (tid < kGramTile) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kD; ++k) {
+        const float z = w1s[k][tid], w = kLog2e * z;
+        s = fmaf(w, z, s);
+        w1s[k][tid] = w;
+      }
+      h1s[tid] = 0.5f * s;
+    }
+  };
+
+  if (t0 >= t1) return;
+  float raw[kRaw], raw1[kRaw];
+  fetch(t0, raw);
+  if (t0 + 1 < t1) fetch(t0 + 1, raw1);
+  int row_tile = t0 / tiles_c;
+  scale_rows(row_tile);
+  scale(raw, 0);
+  if (t0 + 1 < t1) scale(raw1, 1);
+  __syncthreads();
+  chain_rows();
+  norms(0, 0, kGramTile);
+  __syncthreads();
+  // tile t: z2s[t % 3], h2s[t % 2]; tile t + 1's z2s scaled, its norms
+  // taken here; tile t + 2's elements loaded under this tile's stores
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0;
+    if (t + 2 < t1) fetch(t + 2, raw);
+    if (t + 1 < t1) norms((i + 1) % 3, (i + 1) & 1, 0);
+    const int tr = t / tiles_c, tc = t - tr * tiles_c;
+    if (tr != row_tile) {   // the same for the whole block
+      row_tile = tr;
+      scale_rows(tr);
+      __syncthreads();
+      chain_rows();
+      __syncthreads();
+    }
+    const int b3 = i % 3, b2 = i & 1;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kD; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&w1s[k][4 * ty]);
+      const float4 b = *reinterpret_cast<const float4*>(&z2s[b3][k][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][0] = fmaf(av[r], b.x, acc[r][0]);
+        acc[r][1] = fmaf(av[r], b.y, acc[r][1]);
+        acc[r][2] = fmaf(av[r], b.z, acc[r][2]);
+        acc[r][3] = fmaf(av[r], b.w, acc[r][3]);
+      }
+    }
+    // log2(e) (-0.5 the squared distance) = (dot - h1) - h2, clamped at 0
+    // (the distance's clamp), one ex2, then sigma^2; streaming stores
+    const float4 h1 = *reinterpret_cast<const float4*>(&h1s[4 * ty]);
+    const float4 h2 = *reinterpret_cast<const float4*>(&h2s[b2][4 * tx]);
+    const float h1v[4] = {h1.x, h1.y, h1.z, h1.w}, h2v[4] = {h2.x, h2.y, h2.z, h2.w};
+    const int col = tc * kGramTile + 4 * tx;
+    const bool vec = (n2 & 3) == 0 && col < n2;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float a = z1[c][ty + 16 * r];
-      acc[r][0] = fmaf(a, b.x, acc[r][0]);
-      acc[r][1] = fmaf(a, b.y, acc[r][1]);
-      acc[r][2] = fmaf(a, b.z, acc[r][2]);
-      acc[r][3] = fmaf(a, b.w, acc[r][3]);
+      const int row = tr * kGramTile + 4 * ty + r;
+      if (row >= n1) continue;
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) o[q] = sig * ex2_approx(fminf((acc[r][q] - h1v[r]) - h2v[q], 0.0f));
+      float* dst = O.out + (size_t)row * n2 + col;
+      if (vec) {
+        __stcs(reinterpret_cast<float4*>(dst), make_float4(o[0], o[1], o[2], o[3]));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < n2) __stcs(dst + q, o[q]);
+      }
     }
-  }
-
-  const float sig = __ldg(O.sig);
-  const float4 s2 = *reinterpret_cast<const float4*>(&sq2[4 * tx]);
-  const float s2v[4] = {s2.x, s2.y, s2.z, s2.w};
-  const int col = c0 + 4 * tx;
-  const bool vec = (n2 % 4 == 0) && col + 3 < n2;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty + 16 * r;
-    if (row >= n1) continue;
-    const float s1 = sq1[ty + 16 * r];
-    float o[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) o[q] = sig * expf(-0.5f * fmaxf(s1 + s2v[q] - 2.0f * acc[r][q], 0.0f));
-    float* dst = O.out + (size_t)row * n2 + col;
-    if (vec) {
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (col + q < n2) dst[q] = o[q];
-    }
+    if (t + 2 < t1) scale(raw, (i + 2) % 3);
+    __syncthreads();
   }
 }
 
@@ -533,8 +638,24 @@ extern "C" int rbf_posterior_mean_section_cycles(unsigned long long* out) {
   return uav::read_section_cycles(out, 10);
 }
 
-extern "C" int rbf_gram_launch(const GramOperands* ops, int n1, int n2, int d, void* stream) {
-  const dim3 grid((n2 + kGramTile - 1) / kGramTile, (n1 + kGramTile - 1) / kGramTile);
-  rbf_gram_kernel<<<grid, kGramThreads, 0, (cudaStream_t)stream>>>(*ops, n1, n2, d);
+// K15 on `grid` blocks (ops/rbf_pallas.py gram_geometry: at most
+// kGramBlocksPerSM per SM, no more than the tiles), d <= kGramMaxD; the
+// length scales ls[k ls_stride] (ls_stride 0: one for every feature).
+extern "C" int rbf_gram_launch(const GramOperands* ops, int n1, int n2, int d, int ls_stride,
+                               int grid, void* stream) {
+  if (d < 1 || d > kGramMaxD) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const GramOperands O = *ops;
+  if (d <= 4) {
+    rbf_gram_kernel<4><<<grid, kGramThreads, 0, s>>>(O, n1, n2, d, ls_stride);
+  } else if (d <= 8) {
+    rbf_gram_kernel<8><<<grid, kGramThreads, 0, s>>>(O, n1, n2, d, ls_stride);
+  } else if (d <= 10) {
+    rbf_gram_kernel<10><<<grid, kGramThreads, 0, s>>>(O, n1, n2, d, ls_stride);
+  } else if (d <= 12) {
+    rbf_gram_kernel<12><<<grid, kGramThreads, 0, s>>>(O, n1, n2, d, ls_stride);
+  } else {
+    rbf_gram_kernel<16><<<grid, kGramThreads, 0, s>>>(O, n1, n2, d, ls_stride);
+  }
   return (int)cudaGetLastError();
 }

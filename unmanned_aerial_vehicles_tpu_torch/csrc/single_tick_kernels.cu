@@ -5,7 +5,8 @@
 //      _make_kernel at :28): `iterations` over-relaxed ADMM steps of the box
 //      QP with an explicit M^-1, rhs = -f + (rho z - y) G, u = rhs M^-1,
 //      Gu = G u, relaxation, clip and dual step, then one more u from the
-//      final (z, y). Plain version:
+//      final (z, y). 512 threads, each holding its slices of G and M^-1 in
+//      registers (see K14 below). Plain version:
 //      ops/admm_pallas.py:admm_box_qp_fused_plain.
 //   K6 admm_composite_kernel / admm_factored_kernel  replace the JAX
 //      package's ops/admm_pallas.py:admm_box_qp_fused_composite (pallas_call
@@ -54,9 +55,12 @@
 // the card's rates. A factored step is two register products, their slices
 // added after a barrier each, and the updates, four barriers in all; the
 // other phases are short matvecs against L2-resident operands (~200 KB)
-// and, in K4, the one-warp RK4. The bound from the card's rates (bytes
-// over 3.35 TB/s, operations over 67 TFLOP/s) is well under a
-// microsecond; a batch of flights (a grid of blocks) is what would
+// and, in K4, the one-warp RK4. K14's iteration, three products on the
+// register slices, was five barriers and dependent chains of shared-memory
+// loads on 256 threads before (matvec_partial; 367.80 us at N=25 on an
+// H100); see K14 below for what bounds it now. The bound from the
+// card's rates (bytes over 3.35 TB/s, operations over 67 TFLOP/s) is well
+// under a microsecond; a batch of QPs (a grid of blocks) is what would
 // approach it.
 //
 // Every sum runs in a fixed order, so two launches agree bit for bit.
@@ -88,6 +92,7 @@ struct AdmmOperands {
 struct ExplicitParams {
   int n, m, iterations;
   float rho, over_relax, one_minus_over_relax;
+  int shared_slices;   // the memory variant: G and M^-1 copied into shared memory
 };
 
 struct ExplicitOperands {
@@ -116,11 +121,8 @@ struct SingleTickOperands {
 
 namespace {
 
-using uav::matvec_partial;
-using uav::matvec_total;
-
-constexpr int kThreads = 256;       // ops/admm_pallas.py KERNEL_THREADS: K14, K6 on P1
-constexpr int kTickThreads = 512;   // ops/tick_pallas.py SINGLE_TICK_THREADS: K4, K3, K6 factored
+constexpr int kThreads = 256;       // ops/admm_pallas.py KERNEL_THREADS: K6 on P1
+constexpr int kTickThreads = 512;   // ops/tick_pallas.py SINGLE_TICK_THREADS: K4, K3, K6 factored, K14
 constexpr int kNu = 4;
 constexpr int kNx = 6;
 
@@ -166,97 +168,398 @@ admm_composite_kernel(const AdmmParams P, const AdmmOperands O) {
   }
 }
 
-// K14. M^-1 (n x n) and G (m x n) lie in shared memory (kShared: 140 KB at
-// the staged MPC's N=25, n=100, m=250) or are read through L1/L2. G serves
-// both products: rhs = (rho z - y) G as column dots (matvec_partial, the
-// column sums split over the threads) and Gu = G u as one row dot per
-// thread. In shared memory G's rows are stored with an odd stride, so the
-// threads of a warp, each on its own row, read from distinct banks. Every
-// sum runs in a fixed order. What bounds it: one block on one SM; per
-// iteration 2 n m + n^2 multiply-adds (60,000 at N=25) over five barriers,
-// so latency, not the card's rates.
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-admm_explicit_kernel(const ExplicitParams P, const ExplicitOperands O) {
+// ---- K14 ----------------------------------------------------------------
+//
+// One block of 512 threads, 16 warps. Warp w owns a band of H = ceil(m /
+// 16) rows of G (w H .. w H + H - 1) and of Hn = ceil(n / 16) rows of M^-1;
+// lane l owns the columns l + 32 q (q < 4) of each 128-column block. One
+// slice of G serves both of its products:
+//   (a) v G: each lane sums its band's rows for its own columns (an FMA
+//       chain over the rows in order), one partial per (warp, column);
+//   (b) rhs = -f + the 16 warps' partials, for the rows of the warp's M^-1
+//       band (lane group g = l >> 3 adds warps g, g + 4, g + 8, g + 12 in
+//       order, then the four groups meet by xor shuffles at 8 and 16);
+//   (c) rhs M^-1: each lane's chain over the band's rows (their rhs passed
+//       through shared memory, 8 a warp), one partial per (warp, column);
+//   (d) u = the 16 warps' partials (the same sum as (b)), 8 columns a warp;
+//   (e) G u: each lane's chain over its columns for each band row, the row
+//       reduced over the warp's 32 lanes by a fixed xor tree (offsets 16, 8,
+//       4, 2, 1: a plain butterfly's sums, 16 rows at a time, lanes 2h and
+//       2h + 1 ending with row h), then the relaxation, clip and dual step
+//       of the band's rows and v = rho z - y for the warp's next (a).
+// Three barriers an iteration, after (a), (c) and (d); (e) needs none,
+// since a warp's (a) reads only its own band's v. The last pass stops
+// after (d) and writes u.
+//
+// Variants (ops/admm_pallas.py explicit_variant), chosen by whether a
+// thread's slices fit: kQ = 3 or 4 holds each thread's slices in registers
+// for the whole launch, 16 rows x kQ columns of G and kMRows x kQ of M^-1
+// (m <= 256 and n <= 96, 112 or 128 for (kQ, kMRows) = (3, 6), (4, 7), (4,
+// 8): the staged MPC's QP at N=20 and N=25, the 128-lane padded operands),
+// with no bounds tested in the loops (the slices hold 0 outside the
+// matrix); kQ = 0 loads each 16-row group's (and 8-row M^-1 group's) slice
+// of each 128-column block into registers where it is used, from copies in
+// shared memory where they fit (shared_slices) or through L1/L2, in as
+// many groups and blocks as the shape needs, adding in the same order.
+//
+// What bounds it on an H100: one block on one SM, so latency and the SM's
+// issue. An iteration is 2 n m + n^2 multiply-adds (60,000 at N=25, n=100,
+// m=250; 4 warps x 156 FMAs on each SM sub-partition on the padded
+// slices), the shuffle trees, the shared-memory sums and three barriers
+// (the single_tick_clocks build times each phase: chip_smoke.py prints
+// them); ~4x fewer cycles an iteration than the first design's five
+// barriers and dependent shared-memory chains on 256 threads.
+// Every sum runs in a fixed order, so two launches agree bit for bit.
+constexpr int kExplicitWarps = kTickThreads / 32;   // 16 row bands
+constexpr int kRowGroup = 16;   // G rows of a band held or read at a time
+constexpr int kColSlots = 4;    // a lane's columns in a 128-column block
+constexpr int kColBlock = 32 * kColSlots;
+constexpr int kMGroup = 8;      // M^-1 rows whose rhs a warp reduces at once
+
+// K14's shape: the bands, groups and blocks, and the partials' row stride
+// (128 blocks + 8: the four lane groups of a sum read distinct banks).
+struct ExplicitShape {
+  int n, m, band, mband, groups, mgroups, blocks, slots, ldp;
+};
+
+__host__ __device__ __forceinline__ ExplicitShape explicit_shape(int n, int m) {
+  ExplicitShape S;
+  S.n = n;
+  S.m = m;
+  S.band = (m + kExplicitWarps - 1) / kExplicitWarps;
+  S.mband = (n + kExplicitWarps - 1) / kExplicitWarps;
+  S.groups = (S.band + kRowGroup - 1) / kRowGroup;
+  S.mgroups = (S.mband + kMGroup - 1) / kMGroup;
+  S.blocks = (n + kColBlock - 1) / kColBlock;
+  S.slots = kRowGroup * S.groups;   // a warp's row slots (its band, padded)
+  S.ldp = kColBlock * S.blocks + 8;
+  return S;
+}
+
+// The register variants' slices of G (band rows h < 16, columns 32 q +
+// lane, q < kQ) and of M^-1 (band rows j < kMRows), loaded once; 0 outside
+// the band and the matrix.
+template <int kQ, int kMRows>
+struct ExplicitSlices {
+  float g[kRowGroup][kQ], mi[kMRows][kQ];
+
+  __device__ __forceinline__ ExplicitSlices(const float* __restrict__ G,
+                                            const float* __restrict__ Minv,
+                                            const ExplicitShape& S, int warp, int lane) {
+#pragma unroll
+    for (int h = 0; h < kRowGroup; ++h) {
+      const int row = warp * S.band + h;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int col = 32 * q + lane;
+        g[h][q] = h < S.band && row < S.m && col < S.n ? __ldg(G + row * S.n + col) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMRows; ++j) {
+      const int row = warp * S.mband + j;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int col = 32 * q + lane;
+        mi[j][q] = j < S.mband && row < S.n && col < S.n ? __ldg(Minv + row * S.n + col) : 0.0f;
+      }
+    }
+  }
+};
+
+template <>
+struct ExplicitSlices<0, 0> {   // the memory variant holds none
+  __device__ __forceinline__ ExplicitSlices(const float*, const float*, const ExplicitShape&, int,
+                                            int) {}
+};
+
+// The memory variant's pointers to a lane's columns 128 cb + 32 q + lane of
+// a matrix of n columns, clamped inside it: a column past n is read as the
+// last one, and what it adds lands only in partials and rows the kernel
+// discards (past n), or meets u = 0.
+__device__ __forceinline__ void lane_columns(const float* (&cp)[kColSlots], const float* A, int cb,
+                                             int n, int lane) {
+#pragma unroll
+  for (int q = 0; q < kColSlots; ++q) cp[q] = A + min(cb * kColBlock + 32 * q + lane, n - 1);
+}
+
+// The 16 warps' partials of column c (part: 16 rows of ldp floats), lane
+// group g adding warps g, g + 4, g + 8, g + 12, the groups meeting at xor
+// 8 and 16: every lane ends with the sum.
+__device__ __forceinline__ float warp_partials_total(const float* __restrict__ part, int ldp,
+                                                     int c, int g) {
+  const float* p = part + c;
+  float s = ((p[g * ldp] + p[(g + 4) * ldp]) + p[(g + 8) * ldp]) + p[(g + 12) * ldp];
+  s += __shfl_xor_sync(0xffffffffu, s, 8);
+  s += __shfl_xor_sync(0xffffffffu, s, 16);
+  return s;
+}
+
+// Section clocks (thread 0; ops/admm_pallas.py EXPLICIT_SECTIONS): 0 (a),
+// 1 the wait after it, 2 (b) and (c), 3 the wait after them, 4 (d), 5 the
+// wait after it, 6 (e), 7 the whole launch, 8 the set-up (slices, vectors).
+template <int kQ, int kMRows>
+__global__ void __launch_bounds__(kTickThreads, 1)
+admm_explicit_kernel(const __grid_constant__ ExplicitParams P,
+                     const __grid_constant__ ExplicitOperands O) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int n = P.n, m = P.m;
-  const int ldg = kShared ? (n | 1) : n;
-  const float rho = P.rho;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int nth = kTickThreads;
+  constexpr bool kRegs = kQ > 0;
+  const ExplicitShape S = explicit_shape(P.n, P.m);
+  const int n = S.n, m = S.m, ldp = S.ldp, slots = S.slots;
+  const float rho = P.rho, inv_rho = 1.0f / rho;
+  const int j8 = lane & 7, g4 = lane >> 3;
+  SECTION_START(t_whole);
 
   // shared memory layout (ops/admm_pallas.py explicit_shared_memory_bytes)
-  float* Minv_s = sm;
-  float* G_s = Minv_s + (kShared ? n * n : 0);
-  float* z = G_s + (kShared ? m * ldg : 0);
-  float* y = z + m;
-  float* v = y + m;             // rho z - y
-  float* lower = v + m;
-  float* upper = lower + m;
-  float* f = upper + m;
-  float* rhs = f + n;
-  float* u = rhs + n;
-  float* part = u + n;          // matvec slices: max(nth, n)
+  float* part1 = sm;                        // (a)'s partials: 16 rows of ldp
+  float* part2 = part1 + kExplicitWarps * ldp;   // (c)'s
+  float* fs = part2 + kExplicitWarps * ldp; // f, 0 past n: ldp
+  float* us = fs + ldp;                     // u, 0 past n: 128 blocks
+  float* rb = us + kColBlock * S.blocks;    // each warp's 8 rhs rows of (c)
+  float* vs = rb + kExplicitWarps * kMGroup;   // rho z - y by row slot (warp w: w slots + hh)
+  float* zs = vs + kExplicitWarps * slots;
+  float* ys = zs + kExplicitWarps * slots;
+  float* los = ys + kExplicitWarps * slots;
+  float* his = los + kExplicitWarps * slots;
+  float* Gs = his + kExplicitWarps * slots; // the memory variant's copies (shared_slices)
+  float* Ms = Gs + round4(m * n);
 
-  if constexpr (kShared) {
-    for (int i = tid; i < n * n; i += nth) Minv_s[i] = __ldg(O.Minv + i);
-    for (int i = tid; i < m * n; i += nth) {
-      const int r = i / n, c = i - r * n;
-      G_s[r * ldg + c] = __ldg(O.G + i);
+  for (int i = tid; i < 2 * kExplicitWarps * ldp + ldp + kColBlock * S.blocks; i += nth) {
+    sm[i] = 0.0f;
+  }
+  for (int i = tid; i < kExplicitWarps * slots; i += nth) {
+    const int hh = i % slots, row = (i / slots) * S.band + hh;
+    const bool valid = hh < S.band && row < m;
+    const float z = valid ? O.z_in[row] : 0.0f, y = valid ? O.y_in[row] : 0.0f;
+    zs[i] = z;
+    ys[i] = y;
+    los[i] = valid ? O.lower[row] : 0.0f;
+    his[i] = valid ? O.upper[row] : 0.0f;
+    vs[i] = rho * z - y;
+  }
+  __syncthreads();   // the zeros before f
+  for (int k = tid; k < n; k += nth) fs[k] = O.f[k];
+  const float* Gsrc = O.G;
+  const float* Msrc = O.Minv;
+  if constexpr (!kRegs) {
+    if (P.shared_slices) {
+      uav::copy_floats_to_shared(Gs, O.G, m * n, tid, nth);
+      uav::copy_floats_to_shared(Ms, O.Minv, n * n, tid, nth);
+      Gsrc = Gs;
+      Msrc = Ms;
     }
   }
-  const float* Minv = kShared ? Minv_s : O.Minv;
-  const float* G = kShared ? G_s : O.G;
-  for (int i = tid; i < m; i += nth) {
-    z[i] = O.z_in[i];
-    y[i] = O.y_in[i];
-    lower[i] = O.lower[i];
-    upper[i] = O.upper[i];
-    v[i] = rho * z[i] - y[i];
-  }
-  for (int i = tid; i < n; i += nth) f[i] = O.f[i];
+  // the register variants' slices, and the rows of a warp's G and M^-1
+  // bands that lie in the matrix (the memory variant's loads)
+  const ExplicitSlices<kQ, kMRows> sl(O.G, O.Minv, S, warp, lane);
+  const int g_end = min(warp * S.band + S.band, m), m_end = min(warp * S.mband + S.mband, n);
   __syncthreads();
+  // the register variants keep f of their one rhs row and z and y of
+  // their row slot (lane >> 1) in registers
+  const int own = warp * slots + (lane >> 1);
+  const float f_own = fs[warp * S.mband + j8];
+  float z_own = zs[own], y_own = ys[own];
+  if (tid == 0) SECTION_ADD(8, t_whole);
 
-  // iteration `iterations` only forms the final primal
+  const float* vw = vs + warp * slots;
   for (int it = 0;; ++it) {
-    // rhs = -f + (rho z - y) G
-    matvec_partial(v, G, ldg, m, n, part, tid, nth);
+    SECTION_START(c0);
+    // (a) v G: the band's partials for the lane's columns, each a chain
+    // over the band's rows in order
+    if constexpr (kRegs) {
+      float p[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) p[q] = 0.0f;
+#pragma unroll
+      for (int h4 = 0; h4 < kRowGroup / 4; ++h4) {
+        const float4 v4 = reinterpret_cast<const float4*>(vw)[h4];
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) p[q] = fmaf(v[e], sl.g[4 * h4 + e][q], p[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) part1[warp * ldp + 32 * q + lane] = p[q];
+    } else {
+      for (int cb = 0; cb < S.blocks; ++cb) {
+        const float* cp[kColSlots];
+        lane_columns(cp, Gsrc, cb, n, lane);
+        float p[kColSlots] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int hg = 0; hg < S.groups; ++hg) {
+          const int r0 = warp * S.band + hg * kRowGroup, count = min(kRowGroup, g_end - r0);
+#pragma unroll
+          for (int h = 0; h < kRowGroup; ++h) {
+            if (h >= count) break;
+            const float v = vw[hg * kRowGroup + h];
+            const size_t ro = (size_t)(r0 + h) * n;
+#pragma unroll
+            for (int q = 0; q < kColSlots; ++q) p[q] = fmaf(v, cp[q][ro], p[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kColSlots; ++q) {
+          if (cb * kColBlock + 32 * q < n) part1[warp * ldp + cb * kColBlock + 32 * q + lane] = p[q];
+        }
+      }
+    }
+    SECTION_START(c1);
+    if (tid == 0) SECTION_ADD(0, c0);
     __syncthreads();
-    for (int c = tid; c < n; c += nth) rhs[c] = -f[c] + matvec_total(part, n, nth, c);
+    SECTION_START(c2);
+    if (tid == 0) SECTION_ADD(1, c1);
+    // (b) rhs for the rows of the warp's M^-1 band, 8 at a time, broadcast
+    // through rb; (c) rhs M^-1's partials, each a chain over the band's rows
+    if constexpr (kRegs) {
+      const float rhs = -f_own + warp_partials_total(part1, ldp, warp * S.mband + j8, g4);
+      if (g4 == 0) rb[warp * kMGroup + j8] = rhs;
+      __syncwarp();
+      const float4* r4 = reinterpret_cast<const float4*>(rb + warp * kMGroup);
+      const float4 ra = r4[0], rc = r4[1];
+      const float r[kMGroup] = {ra.x, ra.y, ra.z, ra.w, rc.x, rc.y, rc.z, rc.w};
+      __syncwarp();
+      float p[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) p[q] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMRows; ++j) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) p[q] = fmaf(r[j], sl.mi[j][q], p[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) part2[warp * ldp + 32 * q + lane] = p[q];
+    } else {
+      for (int cb = 0; cb < S.blocks; ++cb) {
+        const float* cp[kColSlots];
+        lane_columns(cp, Msrc, cb, n, lane);
+        float p[kColSlots] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int mg = 0; mg < S.mgroups; ++mg) {
+          const int k = warp * S.mband + mg * kMGroup + j8;
+          const int r0 = warp * S.mband + mg * kMGroup, count = min(kMGroup, m_end - r0);
+          const float rhs = -fs[k] + warp_partials_total(part1, ldp, k, g4);
+          __syncwarp();   // rb read by the last group
+          if (g4 == 0) rb[warp * kMGroup + j8] = rhs;
+          __syncwarp();
+#pragma unroll
+          for (int j = 0; j < kMGroup; ++j) {
+            if (j >= count) break;
+            const float r = rb[warp * kMGroup + j];
+            const size_t ro = (size_t)(r0 + j) * n;
+#pragma unroll
+            for (int q = 0; q < kColSlots; ++q) p[q] = fmaf(r, cp[q][ro], p[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kColSlots; ++q) {
+          if (cb * kColBlock + 32 * q < n) part2[warp * ldp + cb * kColBlock + 32 * q + lane] = p[q];
+        }
+      }
+    }
+    SECTION_START(c3);
+    if (tid == 0) SECTION_ADD(2, c2);
     __syncthreads();
-    // u = rhs M^-1
-    matvec_partial(rhs, Minv, n, n, n, part, tid, nth);
-    __syncthreads();
-    for (int c = tid; c < n; c += nth) u[c] = matvec_total(part, n, nth, c);
+    SECTION_START(c4);
+    if (tid == 0) SECTION_ADD(3, c3);
+    // (d) u, 8 columns a warp in each block
+    for (int cb = 0; cb < (kRegs ? 1 : S.blocks); ++cb) {
+      const int c = cb * kColBlock + 8 * warp + j8;
+      const float u = warp_partials_total(part2, ldp, c, g4);
+      if (g4 == 0 && c < n) us[c] = u;
+    }
+    SECTION_START(c5);
+    if (tid == 0) SECTION_ADD(4, c4);
     __syncthreads();
     if (it == P.iterations) break;
-    // Gu = G u, over-relaxation, box projection, dual step
-    for (int j = tid; j < m; j += nth) {
-      const float* row = G + j * ldg;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      int c = 0;
-      for (; c + 4 <= n; c += 4) {
+    SECTION_START(c6);
+    if (tid == 0) SECTION_ADD(5, c5);
+    // (e) G u for the band's rows, 16 at a time (each row's chain over the
+    // lane's columns in order), then their updates (rows past the band or
+    // past m: state 0 and box [0, 0], so they stay 0)
+    for (int hg = 0; hg < (kRegs ? 1 : S.groups); ++hg) {
+      // the xor tree: at 16, 8, 4 and 2 each lane keeps half of its rows
+      // (in the register variants rows h and h + 8 meet as soon as both are
+      // formed), so that lanes 2h, 2h + 1 end with row h
+      const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4, hi2 = lane & 2;
+      float k8[8], k4[4], k2[2];
+      if constexpr (kRegs) {
+        float uv[kQ];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] += row[c + q] * u[c + q];
+        for (int q = 0; q < kQ; ++q) uv[q] = us[32 * q + lane];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            a0 = fmaf(sl.g[e][q], uv[q], a0);
+            a1 = fmaf(sl.g[e + 8][q], uv[q], a1);
+          }
+          k8[e] = (hi16 ? a1 : a0) + __shfl_xor_sync(0xffffffffu, hi16 ? a0 : a1, 16);
+        }
+      } else {
+        const int r0 = warp * S.band + hg * kRowGroup, count = min(kRowGroup, g_end - r0);
+        float acc[kRowGroup];
+#pragma unroll
+        for (int h = 0; h < kRowGroup; ++h) acc[h] = 0.0f;
+        for (int cb = 0; cb < S.blocks; ++cb) {
+          const float* cp[kColSlots];
+          lane_columns(cp, Gsrc, cb, n, lane);
+          float u[kColSlots];   // 0 past n
+#pragma unroll
+          for (int q = 0; q < kColSlots; ++q) u[q] = us[cb * kColBlock + 32 * q + lane];
+#pragma unroll
+          for (int h = 0; h < kRowGroup; ++h) {
+            if (h >= count) break;   // rows past the band or m keep 0
+            const size_t ro = (size_t)(r0 + h) * n;
+#pragma unroll
+            for (int q = 0; q < kColSlots; ++q) acc[h] = fmaf(cp[q][ro], u[q], acc[h]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          k8[e] = (hi16 ? acc[e + 8] : acc[e]) +
+                  __shfl_xor_sync(0xffffffffu, hi16 ? acc[e] : acc[e + 8], 16);
+        }
       }
-      if (c < n) acc[0] += row[c] * u[c];
-      if (c + 1 < n) acc[1] += row[c + 1] * u[c + 1];
-      if (c + 2 < n) acc[2] += row[c + 2] * u[c + 2];
-      const float gu = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-      const float Gt = P.over_relax * gu + P.one_minus_over_relax * z[j];
-      const float zn = uav::clipf(Gt + y[j] / rho, lower[j], upper[j]);
-      const float yn = y[j] + rho * (Gt - zn);
-      z[j] = zn;
-      y[j] = yn;
-      v[j] = rho * zn - yn;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        k4[e] = (hi8 ? k8[4 + e] : k8[e]) +
+                __shfl_xor_sync(0xffffffffu, hi8 ? k8[e] : k8[4 + e], 8);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        k2[e] = (hi4 ? k4[2 + e] : k4[e]) +
+                __shfl_xor_sync(0xffffffffu, hi4 ? k4[e] : k4[2 + e], 4);
+      }
+      float gu = (hi2 ? k2[1] : k2[0]) + __shfl_xor_sync(0xffffffffu, hi2 ? k2[0] : k2[1], 2);
+      gu += __shfl_xor_sync(0xffffffffu, gu, 1);
+      // the row's relaxation, clip and dual step, on lanes 2h and 2h + 1
+      const int i = warp * slots + hg * kRowGroup + (lane >> 1);
+      const float z = kRegs ? z_own : zs[i], y = kRegs ? y_own : ys[i];
+      const float Gt = P.over_relax * gu + P.one_minus_over_relax * z;
+      const float zn = uav::clipf(Gt + y * inv_rho, los[i], his[i]);
+      const float yn = y + rho * (Gt - zn);
+      z_own = zn;
+      y_own = yn;
+      if ((lane & 1) == 0) {
+        zs[i] = zn;
+        ys[i] = yn;
+        vs[i] = rho * zn - yn;
+      }
     }
-    __syncthreads();
+    __syncwarp();   // the band's v before the warp's next (a)
+    if (tid == 0) SECTION_ADD(6, c6);
   }
-  for (int c = tid; c < n; c += nth) O.u_out[c] = u[c];
-  for (int i = tid; i < m; i += nth) {
-    O.z_out[i] = z[i];
-    O.y_out[i] = y[i];
+  for (int c = tid; c < n; c += nth) O.u_out[c] = us[c];
+  for (int r = tid; r < m; r += nth) {
+    const int i = (r / S.band) * slots + r % S.band;
+    O.z_out[r] = zs[i];
+    O.y_out[r] = ys[i];
   }
+  if (tid == 0) SECTION_ADD(7, t_whole);
 }
 
 // ---- K4 -----------------------------------------------------------------
@@ -565,7 +868,7 @@ int launch_one_block(void (*kernel)(const Params, const Operands), int* configur
   return (int)cudaGetLastError();
 }
 
-int configured_bytes[12] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+int configured_bytes[14] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
 
 }  // namespace
 
@@ -625,10 +928,24 @@ extern "C" int single_tick_section_cycles(unsigned long long* out) {
   return uav::read_section_cycles(out, 13);
 }
 
+// K14: `variant` 1, 2 or 3, the register slices of 3 columns a lane and 6
+// rows of M^-1 (n <= 96), 4 and 7 (n <= 112) or 4 and 8 (n <= 128); or 0,
+// the slices read where used (params->shared_slices: from copies in shared
+// memory). ops/admm_pallas.py EXPLICIT_REG_VARIANTS.
 extern "C" int admm_explicit_launch(const ExplicitParams* params, const ExplicitOperands* ops,
-                                    int shared, int smem_bytes, void* stream) {
-  return shared ? launch_one_block(admm_explicit_kernel<true>, &configured_bytes[6], params,
-                                   ops, smem_bytes, stream)
-                : launch_one_block(admm_explicit_kernel<false>, &configured_bytes[7], params,
-                                   ops, smem_bytes, stream);
+                                    int variant, int smem_bytes, void* stream) {
+  switch (variant) {
+    case 1:
+      return launch_one_block(admm_explicit_kernel<3, 6>, &configured_bytes[6], params, ops,
+                              smem_bytes, stream, kTickThreads);
+    case 2:
+      return launch_one_block(admm_explicit_kernel<4, 7>, &configured_bytes[7], params, ops,
+                              smem_bytes, stream, kTickThreads);
+    case 3:
+      return launch_one_block(admm_explicit_kernel<4, 8>, &configured_bytes[13], params, ops,
+                              smem_bytes, stream, kTickThreads);
+    default:
+      return launch_one_block(admm_explicit_kernel<0, 0>, &configured_bytes[12], params, ops,
+                              smem_bytes, stream, kTickThreads);
+  }
 }

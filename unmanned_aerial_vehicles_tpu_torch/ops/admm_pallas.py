@@ -10,11 +10,14 @@ launch, in the TPU kernel's row form:
     y += rho (Gt - z),
 
 then one more ``u`` from the final ``(z, y)``. The kernel is
-``csrc/single_tick_kernels.cu`` (``admm_explicit_kernel``, one thread
-block, ``M^-1`` and ``G`` in shared memory where they fit and read through
-L2 beyond; ``G`` serves both products, so ``GT`` is taken for the JAX
-signature and must be ``G``'s transpose). Its plain PyTorch version is
-``admm_box_qp_fused_plain`` below.
+``csrc/single_tick_kernels.cu`` (``admm_explicit_kernel``, one block of
+512 threads: warp w owns a band of ``ceil(m / 16)`` rows of ``G`` and of
+``ceil(n / 16)`` rows of ``M^-1``, lane l the columns ``l + 32 q``; each
+thread's slices in registers for ``n <= 128``, ``m <= 256``, read from
+shared memory or through L2 beyond: ``explicit_variant``). ``G`` serves
+both products, so ``GT`` is taken for the JAX signature and must be
+``G``'s transpose. Its plain PyTorch version is ``admm_box_qp_fused_plain``
+below.
 
 K6 ``admm_box_qp_fused_composite`` runs the whole fixed-iteration solve of
 ``ops.qp.admm_box_qp_composite``: ``iterations`` over-relaxed ADMM steps
@@ -53,13 +56,14 @@ lanes.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _cuda
 
-KERNEL_THREADS = 256     # csrc/single_tick_kernels.cu kThreads: K14, K6 on P1
-FACTORED_THREADS = 512   # kTickThreads: K6 on the factors
+KERNEL_THREADS = 256     # csrc/single_tick_kernels.cu kThreads: K6 on P1
+FACTORED_THREADS = 512   # kTickThreads: K6 on the factors, K14
 
 
 def admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
@@ -217,20 +221,98 @@ def admm_box_qp_fused_plain(M_inv, G, GT, f, lower, upper, z0, y0, rho: float,
     return primal(z, y), z, y
 
 
-def explicit_shared_memory_bytes(n: int, m: int, shared: bool = True,
-                                 threads: int = KERNEL_THREADS) -> int:
+# K14's layout (csrc/single_tick_kernels.cu): 16 warps, each a band of
+# rows; a lane's columns l + 32 q, q < 4, of each 128-column block; G's
+# rows 16 at a time, M^-1's rhs 8 at a time
+EXPLICIT_WARPS, EXPLICIT_ROW_GROUP, EXPLICIT_COL_BLOCK, EXPLICIT_M_GROUP = 16, 16, 128, 8
+# the variants: each thread's slices in registers (one row group: m <= 256;
+# variant i + 1 for the i-th (n bound, columns a lane, rows of M^-1): 16
+# rows x q columns of G and r x q of M^-1), or read where they are used
+# (variant 0: from shared memory where G and M^-1 fit beside the vectors,
+# else through L2)
+EXPLICIT_MEMORY = 0
+EXPLICIT_REG_VARIANTS = ((96, 3, 6), (112, 4, 7), (128, 4, 8))
+
+
+class ExplicitShape(NamedTuple):
+    """K14's bands for ``n`` unknowns and ``m`` rows (``explicit_shape`` in
+    the kernel)."""
+
+    band: int     # G rows a warp owns: ceil(m / 16)
+    mband: int    # M^-1 rows a warp owns: ceil(n / 16)
+    groups: int   # 16-row groups of a band
+    mgroups: int  # 8-row groups of an M^-1 band
+    blocks: int   # 128-column blocks
+    slots: int    # a warp's row slots, 16 groups
+    ldp: int      # the partials' row stride, 128 blocks + 8
+
+
+def explicit_shape(n: int, m: int) -> ExplicitShape:
+    band, mband = -(-m // EXPLICIT_WARPS), -(-n // EXPLICIT_WARPS)
+    groups, blocks = -(-band // EXPLICIT_ROW_GROUP), -(-n // EXPLICIT_COL_BLOCK)
+    return ExplicitShape(band, mband, groups, -(-mband // EXPLICIT_M_GROUP), blocks,
+                         EXPLICIT_ROW_GROUP * groups, EXPLICIT_COL_BLOCK * blocks + 8)
+
+
+def explicit_shared_memory_bytes(n: int, m: int, shared: bool = True) -> int:
     """Dynamic shared memory of one K14 block (csrc/single_tick_kernels.cu
-    layout): M^-1 and G (with an odd row stride) in the shared variant, five
-    m-vectors, three n-vectors and the matvec slices."""
-    ldg = n | 1
-    return 4 * ((n * n + m * ldg if shared else 0) + 5 * m + 3 * n + max(threads, n))
+    layout): the two partials' tables (16 rows of ``ldp``), f, u, each
+    warp's 8 rhs rows, five vectors by row slot (v, z, y and the box), and,
+    with ``shared``, copies of G and M^-1."""
+    S = explicit_shape(n, m)
+    floats = 2 * EXPLICIT_WARPS * S.ldp + S.ldp + EXPLICIT_COL_BLOCK * S.blocks
+    floats += EXPLICIT_WARPS * EXPLICIT_M_GROUP + 5 * EXPLICIT_WARPS * S.slots
+    if shared:
+        floats += _round4(m * n) + n * n
+    return 4 * floats
+
+
+def explicit_variant(device, n: int, m: int) -> tuple[int, bool, int]:
+    """``(variant, shared_slices, bytes)`` of K14: where a band is one group
+    of at most 16 rows (``m <= 256``), the register slices of the first of
+    ``EXPLICIT_REG_VARIANTS`` that holds the row (``n <= 96``, ``112``,
+    ``128``); else the slices read where they are used, from copies in
+    shared memory where those fit one block, else through L2. Raises if not
+    even the vectors fit."""
+    limit = _cuda.shared_memory_optin(device)
+    S = explicit_shape(n, m)
+    vectors = explicit_shared_memory_bytes(n, m, False)
+    if vectors > limit:
+        raise ValueError(f"K14's vectors need {vectors} bytes of shared memory, more than one "
+                         f"block's {limit}")
+    if S.groups == 1:
+        for variant, (n_max, _, _) in enumerate(EXPLICIT_REG_VARIANTS, 1):
+            if n <= n_max:
+                return variant, False, vectors
+    with_slices = explicit_shared_memory_bytes(n, m, True)
+    if with_slices <= limit:
+        return EXPLICIT_MEMORY, True, with_slices
+    return EXPLICIT_MEMORY, False, vectors
+
+
+# K14's section clocks (the build with section clocks, thread 0; slots 0-8
+# of the library's counters)
+EXPLICIT_SECTIONS = ("v G", "wait after v G", "rhs and rhs M^-1", "wait after rhs M^-1", "u",
+                     "wait after u", "G u and the updates", "whole launch", "set-up")
+
+
+def explicit_section_cycles() -> dict[str, int]:
+    """K14's per-section clock cycles summed over the launches since the
+    last call, then reset (``EXPLICIT_SECTIONS``; the loop's sections summed
+    over its iterations). Counted only by the build with section clocks:
+    launch K14 inside ``_cuda.library_variant("single_tick",
+    "single_tick_clocks")``, synchronise, then call this."""
+    from .tick_pallas import single_tick_counters
+
+    cycles = list(single_tick_counters().values())
+    return dict(zip(EXPLICIT_SECTIONS, cycles))
 
 
 class _ExplicitParams(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int), ("m", ctypes.c_int), ("iterations", ctypes.c_int),
         ("rho", ctypes.c_float), ("over_relax", ctypes.c_float),
-        ("one_minus_over_relax", ctypes.c_float),
+        ("one_minus_over_relax", ctypes.c_float), ("shared_slices", ctypes.c_int),
     ]
 
 
@@ -273,10 +355,12 @@ def admm_box_qp_fused(
     if dev.type != "cuda":
         raise ValueError(f"admm_box_qp_fused runs on cuda or cpu, not {dev}")
 
-    shared, smem = _cuda.p1_variant(dev, explicit_shared_memory_bytes(n, m, True),
-                                    explicit_shared_memory_bytes(n, m, False))
+    variant, shared, smem = explicit_variant(dev, n, m)
+    if shared:
+        _cuda.require_aligned("admm_box_qp_fused", M_inv, G)
     params = _ExplicitParams(n=n, m=m, iterations=int(iterations), rho=rho,
-                             over_relax=over_relax, one_minus_over_relax=1.0 - over_relax)
+                             over_relax=over_relax, one_minus_over_relax=1.0 - over_relax,
+                             shared_slices=int(shared))
     U = torch.empty(n, dtype=torch.float32, device=dev)
     z = torch.empty(m, dtype=torch.float32, device=dev)
     y = torch.empty(m, dtype=torch.float32, device=dev)
@@ -286,7 +370,7 @@ def admm_box_qp_fused(
     fn.argtypes = [ctypes.POINTER(_ExplicitParams), ctypes.POINTER(_ExplicitOperands),
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), shared, smem, _cuda.stream_of(M_inv))
+    status = fn(ctypes.byref(params), ctypes.byref(ops), variant, smem, _cuda.stream_of(M_inv))
     _cuda.check(status, "admm_box_qp_fused")
     _cuda.count_launch("admm_box_qp_fused")
     return U, z, y

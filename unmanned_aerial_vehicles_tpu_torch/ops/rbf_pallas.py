@@ -4,11 +4,16 @@
 K15 ``rbf_kernel_matrix_pallas``: the Gram matrix
 ``sigma^2 exp(-0.5 max(|z1|^2 + |z2|^2 - 2 z1.z2, 0))``, ``z = x / l``, of
 ``X1 (n1, d)`` against ``X2 (n2, d)``, scalar or per-feature (ARD) ``l``.
-The kernel is ``csrc/rbf_kernels.cu`` (``rbf_gram_kernel``: 64 x 64 output
-tiles, both tiles' scaled rows in shared memory, a 4 x 4 micro-tile per
-thread, 16-byte stores); its plain version ``rbf_kernel_matrix_plain`` is
-``gp.kernels.rbf_kernel`` in float32. The clamp at 0 is kept exactly: the
-Gram's positive semi-definiteness rests on it.
+The kernel is ``csrc/rbf_kernels.cu`` (``rbf_gram_kernel``: persistent
+blocks, three on each SM, each walking an even share of the 64 x 64 output
+tiles in row-major order (``gram_geometry``), its X1 rows scaled once, the
+next tile's X2 loaded under the current tile's stores; an entry is its dot,
+two adds, the clamp and one ``ex2``, with ``-0.5 log2(e)`` folded into the
+scaled operands; a 4 x 4 micro-tile per thread, 16-byte streaming stores);
+its plain version ``rbf_kernel_matrix_plain`` is ``gp.kernels.rbf_kernel``
+in float32. The clamp at 0 is kept exactly: the Gram's positive
+semi-definiteness rests on it, and coincident points give exactly
+``sigma^2``.
 
 K7 ``rbf_posterior_mean_pallas``:
 ``K_*(X_test - x_shift, X_train) @ (sigma^2 alpha y_std) + y_mean`` for
@@ -323,17 +328,44 @@ def posterior_mean_section_cycles() -> dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
-# K15: the blocked RBF Gram matrix
+# K15: the RBF Gram matrix
 # ---------------------------------------------------------------------------
 
 GRAM_MAX_FEATURES = 16   # csrc/rbf_kernels.cu kGramMaxD
+GRAM_TILE = 64           # kGramTile: output rows and columns per tile
+GRAM_BLOCKS_PER_SM = 3   # kGramBlocksPerSM
+
+
+class GramGeometry(NamedTuple):
+    """K15's launch: ``tiles_r x tiles_c`` tiles of 64 x 64 in row-major
+    order (tile ``t`` is row ``t // tiles_c``, column ``t % tiles_c`` of
+    the tiles), ``grid`` persistent blocks, block b walking tiles
+    ``[b T // grid, (b + 1) T // grid)`` of the ``T`` tiles."""
+
+    tiles_r: int
+    tiles_c: int
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_r * self.tiles_c
+
+
+def gram_geometry(n1: int, n2: int, sms: int) -> GramGeometry:
+    """K15's tiles and grid for an ``(n1, n2)`` Gram on a card of ``sms``
+    SMs: three blocks an SM, no more blocks than tiles."""
+    tiles_r, tiles_c = -(-n1 // GRAM_TILE), -(-n2 // GRAM_TILE)
+    return GramGeometry(tiles_r, tiles_c, min(tiles_r * tiles_c, GRAM_BLOCKS_PER_SM * sms))
 
 
 def _gram_operands(X1, length_scale, signal_variance):
-    """``(ls (d,), sig (1,))`` float32 on ``X1``'s device."""
+    """``(ls (1,) or (d,), sig (1,))`` float32 on ``X1``'s device (a
+    tensor already there in float32 is not copied)."""
     f32 = dict(dtype=torch.float32, device=X1.device)
     d = X1.shape[1]
-    ls = torch.as_tensor(length_scale, **f32).expand(d).contiguous()
+    ls = torch.as_tensor(length_scale, **f32).reshape(-1).contiguous()
+    if ls.numel() not in (1, d):
+        raise ValueError(f"length_scale has {ls.numel()} values, expected 1 or {d}")
     sig = torch.as_tensor(signal_variance, **f32).reshape(1).contiguous()
     return ls, sig
 
@@ -351,10 +383,10 @@ class _GramOperands(ctypes.Structure):
 
 def rbf_kernel_matrix_pallas(X1: torch.Tensor, X2: torch.Tensor, length_scale,
                              signal_variance) -> torch.Tensor:
-    """``sigma^2 exp(-0.5 ||(x1 - x2)/l||^2)`` as one launch of the blocked
-    Gram kernel (K15): ``X1 (n1, d)``, ``X2 (n2, d)`` float32, ``d <= 16``;
-    ``length_scale`` a scalar or ``(d,)``, ``signal_variance`` a scalar
-    (numbers or tensors). Returns ``(n1, n2)`` float32."""
+    """``sigma^2 exp(-0.5 ||(x1 - x2)/l||^2)`` as one launch of the
+    persistent Gram kernel (K15): ``X1 (n1, d)``, ``X2 (n2, d)`` float32,
+    ``d <= 16``; ``length_scale`` a scalar or ``(d,)``, ``signal_variance``
+    a scalar (numbers or tensors). Returns ``(n1, n2)`` float32."""
     dev = X1.device
     n1, d = X1.shape
     n2 = X2.shape[0]
@@ -370,12 +402,13 @@ def rbf_kernel_matrix_pallas(X1: torch.Tensor, X2: torch.Tensor, length_scale,
     out = torch.empty(n1, n2, dtype=torch.float32, device=dev)
     if n1 == 0 or n2 == 0:
         return out
+    geometry = gram_geometry(n1, n2, _cuda.sm_count(dev))
     operands = _GramOperands(*(t.data_ptr() for t in (X1, X2, ls, sig, out)))
     fn = _cuda.library("rbf").rbf_gram_launch
-    fn.argtypes = [ctypes.POINTER(_GramOperands), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_GramOperands)] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(operands), n1, n2, d, _cuda.stream_of(X1))
+    status = fn(ctypes.byref(operands), n1, n2, d, int(ls.numel() > 1), geometry.grid,
+                _cuda.stream_of(X1))
     _cuda.check(status, "rbf_kernel_matrix_pallas")
     _cuda.count_launch("rbf_kernel_matrix_pallas")
     return out
