@@ -42,7 +42,8 @@ Phases (any failure exits non-zero; nothing is caught):
    n=1 and n=20 with wind and residuals, at the Euler-rate singularity and
    at n=150 (past the 64 steps it stages at a time) with and without
    residuals (tolerance 1e-5 of the state's size; a second launch
-   bit-identical at each), K11 for one launch per plant at
+   bit-identical at each), and at n=15 (the iLQR engine's rollout), K11 for
+   one launch per plant at
    full width (direct-rate N=20, rigid N=15, K=8, 30 iterations) on the
    port's own relinearisation at the circle task's start (5e-4 on every
    output, a second launch bit-identical, the layout of the ADMM operator's
@@ -129,7 +130,15 @@ Phases (any failure exits non-zero; nothing is caught):
    direct-rate12 and mpc12 fused multi-tick tiers (K11 50 launches each),
    mpc12 through ``sqp_multitick_rollout`` (K10 400), the LTV obstacle flight
    at 10 Hz (K=2, 100 iterations, fallback, 200 ticks: K10 300) and the
-   staged MPPI flight (K12 400, K10 400); GP-variance tightening:
+   staged MPPI flight (K12 400, K10 400); the iLQR engine on the same task:
+   the staged RK4 engine (N=15, 3 iterations, its rollouts and the plant
+   step through K10: 150 launches in 30 ticks) and the K=2 policy tier (1
+   iteration: K10 200 in 100 ticks), each RMS also within 5e-3 m of the
+   JAX package's (``jax_reference_rms.py --ilqr``, JAX on the CPU); the
+   12-state noisy loops on a seeded generator each: the staged RK4 iLQR
+   engine on the rigid-body EKF's estimate (8 ticks: K10 40) and the LTV
+   MPC at 10 Hz over the 100 Hz filter (4 control ticks: K10 40 truth
+   steps); GP-variance tightening:
    ``bench.py``'s tightening mode (the frozen GP, kappa 2, K=8, 400 ticks:
    the tightened K5 50 launches), ``examples/09``'s online flight (wind,
    preview, fallback, P=256, refit every 250, K=8, 1000 ticks: 125
@@ -171,7 +180,10 @@ Phases (any failure exits non-zero; nothing is caught):
    by kernel from a ``torch.profiler`` window of 50 ticks; microseconds per
    tick of the direct-rate12 fused, mpc12 fused and mppi12 flights as the
    slope between 400 and 2000 ticks (the plain versions at shorter
-   lengths), with profiler windows of the first and the last; and the
+   lengths), with profiler windows of the first and the last;
+   microseconds per tick of the staged iLQR engine (slope 4->12 ticks) and
+   of its K=2 policy tier (20->60), with profiler windows of each and the
+   host time of an iteration's parts; and the
    seconds of one tuning iteration of each tuner, forward and backward,
    for both routes at 60 ticks and the cascade-PID tuner's kernel route at
    its width; microseconds per Monte Carlo flight-tick (the MPC
@@ -719,6 +731,22 @@ LTV_OBSTACLE = (0.0, 1.5, 1.0, 0.3)
 T_SLOPE_12 = (400, 2000)      # bench_controllers.py:61,72-87
 T_SLOPE_12_PLAIN = (96, 288)  # multiples of K=8
 T_SLOPE_MPPI_PLAIN = (40, 120)
+# the iLQR engine and the 12-state noisy loops (cli.py fly --controller
+# ilqr12 [--fast] [--noisy], --controller ltv12 --noisy)
+ILQR_HORIZON = 15
+# These flights are host-bound, tens to hundreds of milliseconds a tick
+# (PERF.md §5), so they are cut to keep the plain run near 900 s.
+ILQR_STAGED_T = 30            # the staged RK4 engine, 3 iterations
+ILQR_K2_T = 100               # the policy tier, K=2, 1 iteration
+NOISY12_T = 8                 # the iLQR engine on the EKF's estimate
+NOISY_LTV_T = 4               # control ticks at 10 Hz, 10 sensor substeps each
+T_SLOPE_ILQR_STAGED = (4, 12)
+T_SLOPE_ILQR_K2 = (20, 60)
+ILQR_SHARE_T = 20             # the K=2 tier's profiler window (ticks)
+JAX_RMS_GAP_M = 5e-3          # the port's circle RMS against the JAX package's
+# jax_reference_rms.py --ilqr (the JAX package on the CPU, float32): the
+# circle task's RMS over ILQR_STAGED_T and ILQR_K2_T ticks
+JAX_ILQR_RMS_M = {"ilqr12_staged": 0.13116547465324402, "ilqr12_k2": 0.35347670316696167}
 
 # operation counts read off csrc/rigid_math.cuh, rigid_tick_kernel.cu and
 # mppi_kernels.cu (one per add, multiply, division, select or
@@ -886,12 +914,25 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
     k10_fn = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, u1, X500_PARAMS, 0.02)
     k10_plain = lambda: rigid_plant_pallas.rigid_body_rollout_plain(x1, u1, X500_PARAMS, 0.02)
     k10_20 = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, U20, GZ_QUADROTOR_PARAMS, 0.1)
+    # the iLQR engine's rollout: N=15 steps of the X500 at 50 Hz
+    U15 = u1.repeat(ILQR_HORIZON, 1).contiguous()
+    k10_15 = lambda: rigid_plant_pallas.rigid_body_rollout_fused(x1, U15, X500_PARAMS, 0.02)
+    k10_15_plain = lambda: rigid_plant_pallas.rigid_body_rollout_plain(x1, U15, X500_PARAMS, 0.02)
+    got15 = k10_15()
+    torch.cuda.synchronize()
+    err15 = rel_err(got15, k10_15_plain())
+    if not (err15 <= RIGID_PLANT_TOL and torch.equal(got15, k10_15())):
+        fail_fn(f"K10 at n={ILQR_HORIZON}: error {err15}, or a second launch differs")
     recs["rigid_body_rollout_fused"] = dict(
-        err=err, ms=graph_ms(k10_fn, 200), plain_ms=graph_ms(k10_plain, 5),
+        err=max(err, err15), ms=graph_ms(k10_fn, 200), plain_ms=graph_ms(k10_plain, 5),
         host_ms=cuda_ms(k10_fn, 500), host_plain_ms=cuda_ms(k10_plain, 20),
         bound=bound_ms(nbytes(x1, u1) + 4 * 12, OPS_RIGID_RK4),
         n20_ms=graph_ms(k10_20, 50),
-        n20_bound=bound_ms(nbytes(x1, U20) + 4 * 12 * 20, 20 * OPS_RIGID_RK4))
+        n20_bound=bound_ms(nbytes(x1, U20) + 4 * 12 * 20, 20 * OPS_RIGID_RK4),
+        n15_err=err15, n15_ms=graph_ms(k10_15, 50), n15_plain_ms=graph_ms(k10_15_plain, 2),
+        n15_host_ms=cuda_ms(k10_15, 200),
+        n15_bound=bound_ms(nbytes(x1, U15) + 4 * 12 * ILQR_HORIZON,
+                           ILQR_HORIZON * OPS_RIGID_RK4))
 
     # K11 at full width on the port's own relinearisation at the circle
     # task's start (hover at 3 m, the first dispatch's references); the
@@ -1033,7 +1074,11 @@ def check_rigid_kernels(dev, gen, fail_fn) -> dict:
                        cfg.num_samples * (cfg.horizon * (OPS_RIGID_RK4 + OPS_MPPI_STAGE_COST) + 20)))
     r = recs["rigid_body_rollout_fused"]
     print(f"K10 device time per launch: n=1 {r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f} "
-          f"us, bound {r['bound'][0] * 1e3:.6f} us, {r['bound'][1]}); n=20 (the LTV plan roll) "
+          f"us, bound {r['bound'][0] * 1e3:.6f} us, {r['bound'][1]}); n={ILQR_HORIZON} (the iLQR "
+          f"rollout; max error {r['n15_err']:.3e}, a second launch bit-identical) "
+          f"{r['n15_ms'] * 1e3:.2f} us (plain {r['n15_plain_ms'] * 1e3:.2f} us, with host overhead "
+          f"{r['n15_host_ms'] * 1e3:.2f} us, bound {r['n15_bound'][0] * 1e3:.6f} us, "
+          f"{r['n15_bound'][1]}); n=20 (the LTV plan roll) "
           f"{r['n20_ms'] * 1e3:.2f} us (bound {r['n20_bound'][0] * 1e3:.6f} us); K12 "
           f"{recs['mppi_rollout_costs_fused']['ms'] * 1e3:.2f} us (plain "
           f"{recs['mppi_rollout_costs_fused']['plain_ms'] * 1e3:.2f} us, bound "
@@ -1182,6 +1227,123 @@ class RigidFamily:
 
     def mppi12(self, T, plain=False):
         return mppi12_flight(self.dev, T, plain)
+
+    def ilqr_engine(self, plain, iterations=3):
+        from unmanned_aerial_vehicles_tpu_torch.control import ILQRRigidBodyMPC
+
+        return ILQRRigidBodyMPC(integrator="rk4", iterations=iterations, device=self.dev,
+                                plain_kernels=plain)
+
+    def ilqr12_staged(self, T, plain=False):
+        """cli.py fly --controller ilqr12 (bench_controllers.py's
+        ilqr12_rk4_staged row): the RK4 iLQR engine (N=15, 3 iterations,
+        its rollouts through K10) per tick, the plant step through K10; the
+        state after each step against the reference at its tick."""
+        from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+        eng = self.ilqr_engine(plain)
+        pos_ref, _, yaw_ref = self.circle(0.02 * self.torch.arange(T, **self.f32))
+        x = self.x0.clone()
+        carry, states = eng.init_carry(x), []
+        for i in range(T):
+            u, _, carry = eng.solve(carry, x, pos_ref[i], yaw_ref[i])
+            x = rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain)
+            states.append(x)
+        return {"state": self.torch.stack(states), "pos_ref": pos_ref}
+
+    def ilqr12_k2(self, T, plain=False):
+        """cli.py fly --controller ilqr12 --fast (the ilqr12_multitick_rk4_k2
+        row): the policy tier, one RK4 solve of 1 iteration per K=2 ticks,
+        the plant step through K10; the pre-step state against the
+        reference."""
+        from unmanned_aerial_vehicles_tpu_torch.loop import ilqr_multitick_rollout
+        from unmanned_aerial_vehicles_tpu_torch.models.params import X500_PARAMS
+        from unmanned_aerial_vehicles_tpu_torch.ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+        outs = ilqr_multitick_rollout(
+            self.ilqr_engine(plain, iterations=1),
+            lambda ticks: self.circle(0.02 * ticks.to(self.torch.float32))[0],
+            lambda x, u: rigid_body_rk4_step_fast(x, u, X500_PARAMS, 0.02, plain_kernels=plain),
+            self.x0, T, ticks_per_dispatch=2)
+        return {"state": outs["state"], "u": outs["u"], "pos_ref": self.circle_pos(T)}
+
+    def noisy_ilqr12(self, T, plain=False):
+        """cli.py fly --controller ilqr12 --noisy: the RK4 iLQR engine on the
+        rigid-body EKF's estimate, ``EKFConfig()``, the truth through K10,
+        the sensor draws from a generator seeded 12."""
+        from unmanned_aerial_vehicles_tpu_torch.estimation import noisy_rigid_mpc_rollout
+
+        def reference_fn(t):
+            pos, _, yaw = self.circle(t)
+            return pos, yaw
+
+        gen = self.torch.Generator(device=self.dev).manual_seed(12)
+        return noisy_rigid_mpc_rollout(self.ilqr_engine(plain), reference_fn, T, generator=gen,
+                                       device=self.dev, plain_kernels=plain)
+
+    def noisy_ltv12(self, T, plain=False):
+        """cli.py fly --controller ltv12 --noisy: the LTV MPC (N=20, 200
+        iterations) at 10 Hz on the 100 Hz rigid-body EKF (10 sensor
+        substeps per control tick, the truth through K10), the LTV flight's
+        circle as its shifting window, the draws from a generator seeded
+        13."""
+        from unmanned_aerial_vehicles_tpu_torch.control import LTVTrackingMPC
+        from unmanned_aerial_vehicles_tpu_torch.estimation import noisy_ltv_rollout
+
+        torch = self.torch
+        eng = LTVTrackingMPC(device=self.dev)
+        N = eng.mpc.config.horizon
+        window = lambda i: self.ltv_ref(0.1 * (i + torch.arange(N + 1, device=self.dev))
+                                        .to(torch.float32))
+        gen = torch.Generator(device=self.dev).manual_seed(13)
+        return noisy_ltv_rollout(eng, window, T, generator=gen, device=self.dev,
+                                 plain_kernels=plain)
+
+
+def ilqr_iteration_parts(dev) -> dict:
+    """Host milliseconds of the parts of one iteration of the RK4 iLQR
+    engine at hover (N=15), each call ended by ``torch.cuda.synchronize()``,
+    best of 3: the vmapped ``jacfwd`` of the step, the Riccati pass, the
+    forward rollout through K10 and through the plain loop of the step."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import ILQRRigidBodyMPC
+    from unmanned_aerial_vehicles_tpu_torch.ops.riccati import lqr_tracking_solve
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    eng = ILQRRigidBodyMPC(integrator="rk4", device=dev)
+    N = eng.N
+    X = torch.zeros(N + 1, 12, **f32)
+    X[:, 2] = 3.0
+    U = eng.u_hover[None, :].repeat(N, 1)
+    jac = torch.func.vmap(torch.func.jacfwd(eng.step_fn, argnums=(0, 1)))
+    A, B = jac(X[:-1], U)
+    lqr_args = (A, B, torch.zeros(N, 12, **f32), eng.q_diag, eng.r_diag + eng.reg,
+                torch.zeros(N + 1, 12, **f32), torch.zeros(N, 4, **f32), torch.zeros(12, **f32))
+
+    def plain_rollout():
+        x = X[0]
+        for k in range(N):
+            x = eng.step_fn(x, U[k])
+        return x
+
+    parts = {"vmapped jacfwd": lambda: jac(X[:-1], U),
+             "Riccati pass": lambda: lqr_tracking_solve(*lqr_args),
+             "K10 rollout": lambda: eng.rollout_fn(X[0], U),
+             "plain rollout": plain_rollout}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = best * 1e3
+    return out
 
 
 def mppi12_flight(dev, T, plain=False):
@@ -3664,7 +3826,9 @@ def main(parent: str | None = None) -> int:
         for kernel, n in expected.items():
             if counts[kernel] != n:
                 fail(f"{label}: {kernel} launched {counts[kernel]} times, expected {n}")
-            if record:
+            if record == "add":
+                kernels[kernel]["launches"] += counts[kernel]
+            elif record:
                 kernels[kernel]["launches"] = counts[kernel]
         if not gap <= bound:
             fail(f"{label}: position gap {gap} > {bound}")
@@ -3954,6 +4118,44 @@ def main(parent: str | None = None) -> int:
           f"{clearance_plain:.4f} m); RMS gaps to the plain flights: ltv12 "
           f"{rms_gap['ltv12_obstacle']:.3e} m, mppi12 {rms_gap['mppi12']:.3e} m")
 
+    # the iLQR engine (staged, and the K=2 policy tier) and the 12-state
+    # noisy loops: the iLQR rollouts and every truth step through K10, each
+    # flight's K10 launches added to K10's count
+    k10_by_path = {}
+    for key, label, fly, T, n_k10 in (
+        ("ilqr12_staged", f"ilqr12 staged (RK4 engine, N={ILQR_HORIZON}, 3 iterations: 4 K10 "
+         "rollouts and the K10 plant step a tick)", fam.ilqr12_staged, ILQR_STAGED_T,
+         5 * ILQR_STAGED_T),
+        ("ilqr12_k2", "ilqr12 policy tier (K=2, 1 iteration: 2 K10 rollouts a dispatch, the K10 "
+         "plant step a tick)", fam.ilqr12_k2, ILQR_K2_T, 2 * ILQR_K2_T),
+        ("noisy_ilqr12", "noisy ilqr12 (the staged RK4 engine on the EKF's estimate, the truth "
+         "through K10)", fam.noisy_ilqr12, NOISY12_T, 5 * NOISY12_T),
+        ("noisy_ltv12", "noisy ltv12 (10 Hz LTV over the 100 Hz EKF, 10 K10 truth steps a "
+         "control tick)", fam.noisy_ltv12, NOISY_LTV_T, 10 * NOISY_LTV_T),
+    ):
+        rigid_outs[key], rigid_plains[key] = check_path(
+            f"{label}, {T} ticks", lambda p, f=fly, T=T: f(T, p),
+            {"rigid_body_rollout_fused": n_k10}, SQP_GAP_BOUND_M, record="add")
+        k10_by_path[key] = n_k10
+    ilqr_rms = {key: float(rms(rigid_outs[key]))
+                for key in ("ilqr12_staged", "ilqr12_k2", "noisy_ilqr12", "noisy_ltv12")}
+    ilqr_rms_plain = {key: float(rms(rigid_plains[key])) for key in ilqr_rms}
+    estimate_rms = {key: float(torch.sqrt(torch.mean(torch.sum(
+        (rigid_outs[key]["state_est"][:, 0:3] - rigid_outs[key]["state"][:, 0:3]) ** 2, -1))))
+        for key in ("noisy_ilqr12", "noisy_ltv12")}
+    jax_gap = {key: abs(ilqr_rms[key] - JAX_ILQR_RMS_M[key]) for key in JAX_ILQR_RMS_M}
+    print(f"  circle RMS: ilqr12 staged {ilqr_rms['ilqr12_staged']:.6f} m over {ILQR_STAGED_T} "
+          f"ticks (JAX {JAX_ILQR_RMS_M['ilqr12_staged']:.6f} m), K=2 tier "
+          f"{ilqr_rms['ilqr12_k2']:.6f} m over {ILQR_K2_T} (JAX "
+          f"{JAX_ILQR_RMS_M['ilqr12_k2']:.6f} m); noisy ilqr12 {ilqr_rms['noisy_ilqr12']:.6f} m "
+          f"(estimate against truth {estimate_rms['noisy_ilqr12']:.6f} m), noisy ltv12 "
+          f"{ilqr_rms['noisy_ltv12']:.6f} m (estimate {estimate_rms['noisy_ltv12']:.6f} m); "
+          f"K10 launches by path {k10_by_path}")
+    for key, gap in jax_gap.items():
+        if not gap <= JAX_RMS_GAP_M:
+            fail(f"{key}: RMS {ilqr_rms[key]} is {gap} m from the JAX package's "
+                 f"{JAX_ILQR_RMS_M[key]} (bound {JAX_RMS_GAP_M})")
+
     # the auto-tuners (K1 + K13a, K5 with its VJP rule, K2 + K13b)
     tuners = run_tuners(dev, fail, kernels)
 
@@ -4078,6 +4280,24 @@ def main(parent: str | None = None) -> int:
         print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
               f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
               + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
+    # the iLQR engine: microseconds per tick (kernel path), the staged
+    # engine and the K=2 policy tier, and their device-busy shares
+    us_ilqr = {"ilqr12_staged": slope_us(fam.ilqr12_staged, T_SLOPE_ILQR_STAGED, reps=1, warm_T=2),
+               "ilqr12_k2": slope_us(fam.ilqr12_k2, T_SLOPE_ILQR_K2, reps=2, warm_T=10)}
+    for key, label, ticks in (("ilqr12_k2", f"{ILQR_SHARE_T} ilqr12 K=2 ticks", ILQR_SHARE_T),
+                              ("ilqr12_staged", "2 ilqr12 staged ticks", 2)):
+        busy_us, by_name = device_busy(getattr(fam, key), ticks)
+        idle_share[label] = 1.0 - busy_us / us_ilqr[key]
+        print(f"{key} tick: {us_ilqr[key]:.2f} us/tick through K10 (slope "
+              f"{(T_SLOPE_ILQR_STAGED if key == 'ilqr12_staged' else T_SLOPE_ILQR_K2)} ticks); "
+              f"profiler, {label}: device busy {busy_us:.2f} us per tick, idle share "
+              f"{idle_share[label]:.3f}; by kernel (us per tick): "
+              + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8])
+              + f"; card: {card}")
+    ilqr_parts = ilqr_iteration_parts(dev)
+    print("  one iLQR iteration's parts at N=15 (host ms, each call ended by a synchronize, "
+          "best of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in ilqr_parts.items())
+          + f"; card: {card}")
     # the Monte Carlo study: microseconds per flight-tick of the MPC
     # population (K16 + K2), slope between 300 and 1500 ticks over 256
     us_mc_tick = slope_us(fly_population, T_MC_SLOPE)
@@ -4235,6 +4455,19 @@ def main(parent: str | None = None) -> int:
         "k11_bound_ms_p1_form": {"direct_rate": k11["bound_p1_form"][0],
                                  "rigid": k11["rigid"]["bound_p1_form"][0]},
         "us_per_launch_k10_n20": kernels["rigid_body_rollout_fused"]["n20_ms"] * 1e3,
+        "k10_n15": {key: kernels["rigid_body_rollout_fused"][f"n15_{key}"] for key in
+                    ("err", "ms", "plain_ms", "host_ms")}
+                   | {"bound_ms": kernels["rigid_body_rollout_fused"]["n15_bound"][0],
+                      "bound_by": kernels["rigid_body_rollout_fused"]["n15_bound"][1]},
+        "k10_launches_by_new_path": k10_by_path,
+        "us_per_tick_ilqr12": us_ilqr,
+        "idle_share_ilqr12": {k: idle_share[k] for k in (f"{ILQR_SHARE_T} ilqr12 K=2 ticks",
+                                                         "2 ilqr12 staged ticks")},
+        "circle_rms_m_ilqr12_and_noisy12": ilqr_rms,
+        "circle_rms_m_ilqr12_and_noisy12_plain": ilqr_rms_plain,
+        "estimate_rms_m_noisy12": estimate_rms,
+        "jax_circle_rms_m_ilqr12": JAX_ILQR_RMS_M,
+        "ilqr_iteration_parts_ms": ilqr_parts,
         "k7_bound_ms_fp32_form": kernels["rbf_posterior_mean_pallas"]["bound_fp32_form"][0],
         "k7_bound_unit": kernels["rbf_posterior_mean_pallas"]["bound_unit"],
         "k7_cycles_per_block_by_section": kernels["rbf_posterior_mean_pallas"]["sections"],

@@ -13,7 +13,9 @@ through the direct-rate12 and mpc12 fused multi-tick tiers (K=8, 30 ADMM
 iterations, ``plan_roll="linear"``), the mpc12 ``sqp_multitick_rollout``
 with the rigid plant, and the staged MPPI flight (512 x 25, seed 0); and
 the LTV obstacle flight (10 Hz, K=2, 100 iterations, obstacle (0, 1.5, 1,
-0.3), fallback, 200 ticks). And the 6-state figure-8
+0.3), fallback, 200 ticks); and the iLQR engine on the circle task: the
+staged RK4 engine (N=15, 3 iterations, 30 ticks) and the K=2 policy tier
+(1 iteration, 100 ticks). And the 6-state figure-8
 (``ramped_figure8_reference``, 6 m, 0.02 Hz, 3 m high, N=20, 10 ADMM
 iterations) with tightening kappa 2: ``bench.py``'s tightening mode (the
 frozen GP fitted on the seeded synthetic set, P=800, K=8, 400 ticks) and
@@ -30,7 +32,7 @@ package's weight gradient through its tightened fused tier is finite
 (kappa 2, the frozen GP, N=20, K=8, 16 ticks; fault F13). Prints one JSON
 object of RMS values in metres, the LTV flight's minimum clearance from
 the obstacle's surface and the tuners' losses. ``--tuners`` runs the
-tuners alone.
+tuners alone, ``--ilqr`` the two iLQR flights alone.
 
 Imports JAX; the port and ``chip_smoke.py`` do not. MPPI draws its
 exploration noise from ``jax.random`` here and from a ``torch.Generator``
@@ -54,7 +56,7 @@ import jax.numpy as jnp  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from unmanned_aerial_vehicles_tpu.control import MPPIController  # noqa: E402
+from unmanned_aerial_vehicles_tpu.control import ILQRRigidBodyMPC, MPPIController  # noqa: E402
 from unmanned_aerial_vehicles_tpu.control.mpc_rigid import (  # noqa: E402
     DirectRateMPC,
     LTVTrackingMPC,
@@ -62,6 +64,7 @@ from unmanned_aerial_vehicles_tpu.control.mpc_rigid import (  # noqa: E402
 )
 from unmanned_aerial_vehicles_tpu.loop.rigid_loop import (  # noqa: E402
     direct_rate_multitick_fused,
+    ilqr_multitick_rollout,
     make_attitude_recovery_fallback,
     rigid_multitick_fused,
     sqp_multitick_rollout,
@@ -71,6 +74,7 @@ from unmanned_aerial_vehicles_tpu.models import rigid_body_rk4_step  # noqa: E40
 from unmanned_aerial_vehicles_tpu.trajectories import ramped_circle_reference  # noqa: E402
 
 T, LTV_T, DT, LDT = 400, 200, 0.02, 0.1
+ILQR_STAGED_T, ILQR_K2_T = 30, 100      # chip_smoke.py's ILQR_STAGED_T, ILQR_K2_T
 OBSTACLE = (0.0, 1.5, 1.0, 0.3)
 
 
@@ -162,6 +166,36 @@ def mppi12():
     _, states = jax.jit(lambda: jax.lax.scan(step, (x0, ctrl.init_carry(x0, seed=0)),
                                              jnp.arange(T)))()
     return rms(states, circle_refs(T))
+
+
+def ilqr12_staged():
+    """cli.py fly --controller ilqr12: the RK4 iLQR engine (N=15, 3
+    iterations) per tick; the state after each step against the reference
+    at its tick (chip_smoke.py ``RigidFamily.ilqr12_staged``)."""
+    ctrl = ILQRRigidBodyMPC(integrator="rk4")
+
+    def step(c, i):
+        st, mc = c
+        pos_ref, _, yaw_ref = circle(i.astype(jnp.float32) * DT)
+        u, _, mc = ctrl.solve(mc, st, pos_ref, yaw_ref)
+        st = rigid_body_rk4_step(st, u, X500_PARAMS, DT)
+        return (st, mc), st
+
+    x0 = x_start()
+    _, states = jax.jit(lambda: jax.lax.scan(step, (x0, ctrl.init_carry(x0)),
+                                             jnp.arange(ILQR_STAGED_T)))()
+    return rms(states, circle_refs(ILQR_STAGED_T))
+
+
+def ilqr12_k2():
+    """cli.py fly --controller ilqr12 --fast: the policy tier, K=2, the RK4
+    engine at 1 iteration; the pre-step state against the reference."""
+    ctrl = ILQRRigidBodyMPC(iterations=1, integrator="rk4")
+    outs = jax.jit(lambda x: ilqr_multitick_rollout(
+        ctrl, lambda ticks: jax.vmap(lambda t: circle(t)[0])(ticks.astype(jnp.float32) * DT),
+        lambda x_, u: rigid_body_rk4_step(x_, u, X500_PARAMS, DT), x, ILQR_K2_T,
+        ticks_per_dispatch=2))(x_start())
+    return rms(outs["state"], circle_refs(ILQR_K2_T))
 
 
 def jax_mppi_draws(ctrl):
@@ -303,6 +337,9 @@ def main() -> int:
     if "--tuners" in sys.argv[1:]:
         print(json.dumps({"tuners": tuners()}))
         return 0
+    if "--ilqr" in sys.argv[1:]:
+        print(json.dumps({"ilqr12_staged": ilqr12_staged(), "ilqr12_k2": ilqr12_k2()}))
+        return 0
     ltv_rms, clearance = ltv12_obstacle()
     tight_rms, online09_rms, online09_count = fig8_tightening()
     out = {
@@ -312,6 +349,8 @@ def main() -> int:
         "ltv12_obstacle": ltv_rms,
         "mppi12": mppi12(),
         "mppi12_port_cpu": port_mppi12_cpu(),
+        "ilqr12_staged": ilqr12_staged(),
+        "ilqr12_k2": ilqr12_k2(),
         "ltv12_min_clearance_m": clearance,
         "fig8_tightened_frozen_400": tight_rms,
         "fig8_online09_1000": online09_rms,

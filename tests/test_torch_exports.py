@@ -6,9 +6,8 @@ and its relative imports parsed: for every name that one of them imports
 from a module the port has, and that the port's module defines, the
 port's matching subpackage must export it, so that code written against
 the JAX package (``from ...control import pid_step``) runs on the port.
-Names whose module the port has not ported (the Riccati solvers, iLQR,
-``mpc_demo``) or that the port's module does not define yet
-(``kkt_residuals``, ``ComparisonPidParams``) are left out.
+Names whose module the port has not ported (``mpc_demo``) or that the
+port's module does not define yet (``ComparisonPidParams``) are left out.
 """
 
 import ast

@@ -175,11 +175,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 @pytest.mark.parametrize("path", ["polish", "tightening", "resume", "output_correction",
                                   "fused_tick_ad"])
 def test_queued_paths_raise_and_point_at_the_roadmap(path):
-    """The path still queued in ROADMAP.md (active-set polish) raises
-    ``NotImplementedError`` naming it; those queued before the GP-variance
-    slice (multi-tick tightening, resume, the staged output correction) and
-    before the autodiff slice (``fused_tick_ad``, here on the single-tick
-    tier, which it leaves as it is) now fly."""
+    """Every path once queued in ROADMAP.md now flies: the staged
+    active-set polish (a tick of the polished ``LinearMPC``, held to the
+    JAX package by ``tests/test_torch_qp_polish.py``), multi-tick
+    tightening, resume, the staged output correction and ``fused_tick_ad``
+    (here on the single-tick tier, which it leaves as it is)."""
     cfg = dict(horizon=HORIZON, use_fused_controller=True)
     kw = dict(cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=K), device="cpu")
     if path == "polish":
@@ -199,11 +199,9 @@ def test_queued_paths_raise_and_point_at_the_roadmap(path):
         assert tuple(outs["state"].shape) == (K, 12)
         assert bool(torch.isfinite(outs["state"]).all())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "polish":
-            tm.solve(tm.init_carry(), torch.zeros(6), torch.zeros(3))
-        else:
-            mpc_flight_rollout(tm, t_ref, K, **kw)
+    u0, X_opt, carry = tm.solve(tm.init_carry(), torch.zeros(6), torch.zeros(3))
+    assert tuple(X_opt.shape) == (HORIZON + 1, 6)
+    assert bool(torch.isfinite(u0).all()) and bool(torch.isfinite(carry.dual).all())
 
 
 @pytest.mark.parametrize("path", ["tightening", "resume", "uncertainty_fn",

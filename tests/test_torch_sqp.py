@@ -115,17 +115,6 @@ def test_solve_three_ticks_matches_jax(rng, kind):
         x = plant(x, np.asarray(ju))
 
 
-def test_solve_raises_for_unported_modes():
-    teng = tmr.RigidBodyMPC(config=SQPConfig(horizon=5, polish=True), dtype=F64, device="cpu")
-    x = torch.zeros(12, dtype=F64)
-    with pytest.raises(NotImplementedError, match="polish"):
-        teng.solve(teng.init_carry(x), x, torch.zeros(3, dtype=F64))
-    teng = tmr.RigidBodyMPC(horizon=5, dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="kkt"):
-        teng.mpc.solve(teng.init_carry(x), x, teng.cost, torch.zeros(5, 12, dtype=F64),
-                       return_kkt=True)
-
-
 # ---- the multi-tick tier -------------------------------------------------
 
 MT_N, MT_K, MT_T = 8, 4, 24

@@ -1,5 +1,5 @@
 """Controllers: PID, cascade PID, allocation, condensed linear MPC, the 12-state
-SQP family and MPPI."""
+SQP family, iLQR and MPPI."""
 
 from .pid import PIDGains, PIDState, pid_init, pid_step
 from .cascade_pid import CascadePidGains, CascadeState, cascade_init, cascade_pid_step
@@ -7,6 +7,7 @@ from .allocation import AttitudeLoopState, attitude_loop_init, geometric_control
 from .mpc_linear import LinearMPC, LinearMPCConfig, MPCCarry
 from .mpc_rigid import DirectRateMPC, LTVTrackingMPC, RigidBodyMPC, direct_rate_step
 from .mpc_sqp import QuadCost, SQPCarry, SQPConfig, SQPMPC
+from .ilqr import ILQRRigidBodyMPC, ilqr_solve
 from .mppi import MPPICarry, MPPIConfig, MPPIController
 
 __all__ = [
@@ -16,5 +17,6 @@ __all__ = [
     "LinearMPC", "LinearMPCConfig", "MPCCarry",
     "DirectRateMPC", "LTVTrackingMPC", "RigidBodyMPC", "direct_rate_step",
     "QuadCost", "SQPCarry", "SQPConfig", "SQPMPC",
+    "ILQRRigidBodyMPC", "ilqr_solve",
     "MPPICarry", "MPPIConfig", "MPPIController",
 ]

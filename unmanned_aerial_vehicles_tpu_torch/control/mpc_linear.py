@@ -16,7 +16,10 @@ controller kernel K3 (``ops.controller_pallas.gpmpc_controller_fused``);
 ``use_fused_admm`` runs the ADMM loop as one launch of K6
 (``ops.admm_pallas.admm_box_qp_fused_composite``, given ``Su'`` so that it
 applies P1 as its factors). Both compute in float32 and cast back to the
-MPC's dtype.
+MPC's dtype. On the staged path ``polish=True`` snaps each tick's ADMM
+iterate to the KKT point of its detected active set
+(``ops.qp.active_set_polish``); the fused paths ignore ``polish``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from .._device import full_f32_matmul, resolve_device
 from ..models.double_integrator import CONTROL_DIM, STATE_DIM
-from ..ops.qp import AdmmState, admm_box_qp_composite, condense_dynamics
+from ..ops.qp import AdmmState, active_set_polish, admm_box_qp_composite, condense_dynamics
 
 
 @dataclass(frozen=True)
@@ -207,8 +210,6 @@ class LinearMPC:
                 "uncertainty tightening with use_fused_controller runs on the multi-tick "
                 "kernel path; the fused controller kernel reads static bound rows"
             )
-        if cfg.polish and not (cfg.use_fused_controller or cfg.use_fused_admm):
-            raise NotImplementedError("active-set polish is queued in ROADMAP.md")
         full_f32_matmul()
         N = cfg.horizon
         x0 = state.to(self.dtype)
@@ -280,6 +281,12 @@ class LinearMPC:
                 carry.slack, carry.dual,
                 cfg.admm_rho, cfg.admm_iterations, cfg.admm_over_relax,
             )
+            if cfg.polish:
+                U_pol, y_pol, _ = active_set_polish(self._H, self._G, f, lower, upper, sol,
+                                                    tol=cfg.polish_tol,
+                                                    passes=cfg.polish_passes)
+                # slack = G U_pol: G = [I; Su], so its U-block is U_pol
+                sol = AdmmState(U_pol, self._G @ U_pol, y_pol)
 
         # controls come from the slack's U-block: box-feasible at every
         # iteration; equals the primal at convergence

@@ -14,10 +14,11 @@ Gauss-Newton):
    iterations;
 3. roll the nonlinear dynamics forward under the new controls.
 
-``polish=True`` (the interior-point verification solve) and
-``return_kkt=True`` need ``ip_box_qp``, ``active_set_polish`` and
-``kkt_score``, which are not ported yet: they raise ``NotImplementedError``
-(ROADMAP.md).
+``SQPConfig(polish=True)`` replaces step 2's ADMM by the verification
+solve: ``ops.qp.ip_box_qp`` on the unequilibrated QP, then
+``ops.qp.active_set_polish``. ``solve(return_kkt=True)`` also returns each
+SQP iteration's ``ops.qp.kkt_score`` against its own QP, and
+``nonlinear_kkt_score`` scores a candidate against the nonlinear program.
 """
 
 from __future__ import annotations
@@ -28,7 +29,16 @@ from typing import Callable, NamedTuple
 import torch
 
 from .._device import full_f32_matmul, resolve_device
-from ..ops.qp import admm_box_qp_composite, condense_ltv, roll_block, shift_stages
+from ..ops.qp import (
+    active_set_polish,
+    admm_box_qp_composite,
+    condense_ltv,
+    ip_box_qp,
+    kkt_score,
+    kkt_violation,
+    roll_block,
+    shift_stages,
+)
 
 
 @dataclass(frozen=True)
@@ -49,7 +59,7 @@ class SQPConfig:
     admm_iterations: int = 40
     admm_rho: float = 1.0       # in equilibrated space (unit-diagonal H)
     admm_over_relax: float = 1.6
-    polish: bool = False        # interior-point verification solve (not ported yet)
+    polish: bool = False        # interior point + active-set polish in place of the ADMM
 
 
 class SQPCarry(NamedTuple):
@@ -252,13 +262,11 @@ class SQPMPC:
         """One MPC tick: fixed SQP iterations, warm-started. ``x_ref (N,
         nx)`` per-stage targets, ``lin_trajectory`` an optional ``(X (N+1,
         nx), U (N, nu))`` linearisation anchor, ``obstacles (n_obs, 4)``
-        ``[x, y, z, r]``. Returns ``(u0, X_opt, new_carry)``."""
+        ``[x, y, z, r]``. Returns ``(u0, X_opt, new_carry)``, or with
+        ``return_kkt=True`` ``(u0, X_opt, new_carry, kkt)``: ``kkt`` the
+        ``(sqp_iterations,)`` ``kkt_score`` of each iteration's iterate
+        against its own unequilibrated QP."""
         cfg = self.config
-        if cfg.polish:
-            raise NotImplementedError("the SQP polish solve (ip_box_qp, active_set_polish) is "
-                                      "queued in ROADMAP.md")
-        if return_kkt:
-            raise NotImplementedError("return_kkt needs ops.qp.kkt_score, queued in ROADMAP.md")
         full_f32_matmul()
         N, nu = cfg.horizon, self.nu
         x0 = state.to(self.dtype)
@@ -268,27 +276,91 @@ class SQPMPC:
         X_bar, U_bar = self._anchors(carry, x0, lin_trajectory)
         X_anchor, z, y = carry.X_prev, carry.slack, carry.dual
         rho = cfg.admm_rho
+        scores = []
         for _ in range(cfg.sqp_iterations):
             H, G, f, lower, upper = self._subproblem(x0, X_bar, U_bar, X_anchor, residuals,
                                                      obstacles, *arrays)
-            # equilibrate (the traced Hessians are badly conditioned), factor
-            # once, compose the ADMM operator (one matvec per iteration)
-            d, e, Hs, Gs = ruiz_scaling(H, G)
-            fs = f * d
-            L = torch.linalg.cholesky(Hs + rho * (Gs.T @ Gs))
-            GMinvT_s = torch.cholesky_solve(Gs.T, L)
-            P1 = Gs @ GMinvT_s
-            p0 = -(GMinvT_s.T @ fs)
-            minv_f = torch.cholesky_solve(fs[:, None], L)[:, 0]
-            sol = admm_box_qp_composite(P1, p0, GMinvT_s, minv_f, lower * e, upper * e,
-                                        z * e, y / e, rho, cfg.admm_iterations,
-                                        cfg.admm_over_relax)
-            z, y = sol.slack / e, sol.dual * e
-            # controls from the slack's U-block: box-feasible at every
-            # iteration, the primal at convergence
-            U_bar = z[: N * nu].reshape(N, nu)
+            if cfg.polish:
+                # solve to convergence on the unequilibrated QP: the interior
+                # point, then the active-set polish of its iterate
+                U_pol, y, _ = active_set_polish(H, G, f, lower, upper,
+                                                ip_box_qp(H, G, f, lower, upper))
+                U_bar = U_pol[: N * nu].reshape(N, nu)
+                z = torch.clamp(G @ U_pol, min=lower, max=upper)
+            else:
+                # equilibrate (the traced Hessians are badly conditioned),
+                # factor once, compose the ADMM operator (one matvec per
+                # iteration)
+                d, e, Hs, Gs = ruiz_scaling(H, G)
+                fs = f * d
+                L = torch.linalg.cholesky(Hs + rho * (Gs.T @ Gs))
+                GMinvT_s = torch.cholesky_solve(Gs.T, L)
+                P1 = Gs @ GMinvT_s
+                p0 = -(GMinvT_s.T @ fs)
+                minv_f = torch.cholesky_solve(fs[:, None], L)[:, 0]
+                sol = admm_box_qp_composite(P1, p0, GMinvT_s, minv_f, lower * e, upper * e,
+                                            z * e, y / e, rho, cfg.admm_iterations,
+                                            cfg.admm_over_relax)
+                z, y = sol.slack / e, sol.dual * e
+                # controls from the slack's U-block: box-feasible at every
+                # iteration, the primal at convergence
+                U_bar = z[: N * nu].reshape(N, nu)
+            if return_kkt:
+                scores.append(kkt_score(H, G, f, lower, upper, U_bar.reshape(-1), y))
             X_bar = self.rollout(x0, U_bar, residuals)
             X_anchor = X_bar
         new_carry = SQPCarry(slack=z, dual=y, X_prev=X_bar, U_prev=U_bar)
+        if return_kkt:
+            return U_bar[0], X_bar, new_carry, torch.stack(scores)
         return U_bar[0], X_bar, new_carry
+
+
+def nonlinear_kkt_score(mpc: SQPMPC, cost: QuadCost, x0: torch.Tensor, x_ref: torch.Tensor,
+                        U: torch.Tensor, y: torch.Tensor, residuals: torch.Tensor | None = None,
+                        obstacles: torch.Tensor | None = None) -> torch.Tensor:
+    """KKT score of the nonlinear single-shooting program at ``(U (N, nu),
+    y (m,))``, with exact Jacobians of the engine's rollout (autograd),
+    independent of the SQP linearisation:
+
+        min_U 1/2 [ sum_k q_k (x_k(U) - ref_k)^2 + r (u_k - uref)^2 ]
+        s.t.  u_lo <= U <= u_hi,  x_lo <= X(U) <= x_hi,
+              dist(p_k(U), obs_j) >= r_j + margin
+
+    (the 1/2 matches the engine's QP scaling, so the engine's duals apply
+    unchanged): ``ops.qp.kkt_violation`` with stationarity ``grad J + J_g'
+    y``."""
+    N, nu = mpc.config.horizon, mpc.nu
+    residuals, obstacles = mpc.defaults(residuals, obstacles)
+    qbar, rbar, ref_flat, u_ref_flat = mpc.cost_arrays(cost, x_ref)
+    x0 = x0.to(mpc.dtype)
+    y = y.to(mpc.dtype)
+
+    def x_traj(U_f):
+        return mpc.rollout(x0, U_f.reshape(N, nu), residuals)[1:]
+
+    def g_fn(U_f):
+        X = x_traj(U_f)
+        parts = [U_f, X.reshape(-1)]
+        if mpc.num_obstacles:
+            diff = X[:, None, 0:3] - obstacles[None, :, 0:3]
+            parts.append(torch.sqrt(torch.sum(diff**2, dim=-1) + 1e-9).reshape(-1))
+        return torch.cat(parts)
+
+    def cost_fn(U_f):
+        ex = x_traj(U_f).reshape(-1) - ref_flat
+        return 0.5 * (torch.sum(qbar * ex**2) + torch.sum(rbar * (U_f - u_ref_flat) ** 2))
+
+    lower = torch.cat([mpc._u_lo, mpc._x_lo])
+    upper = torch.cat([mpc._u_hi, mpc._x_hi])
+    if mpc.num_obstacles:
+        lower = torch.cat([lower, (obstacles[None, :, 3] + mpc.obstacle_margin)
+                           .repeat(N, 1).reshape(-1)])
+        upper = torch.cat([upper, torch.full((N * mpc.num_obstacles,), 1e9, dtype=mpc.dtype,
+                                             device=mpc.device)])
+    with torch.enable_grad():
+        U_f = U.reshape(-1).to(mpc.dtype).detach().requires_grad_(True)
+        g_val = g_fn(U_f)
+        (g_y,) = torch.autograd.grad(g_val, U_f, grad_outputs=y)
+        (grad_J,) = torch.autograd.grad(cost_fn(U_f), U_f)
+    return kkt_violation(grad_J + g_y, g_val.detach(), lower, upper, y)
 

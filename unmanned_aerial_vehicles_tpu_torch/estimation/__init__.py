@@ -1,8 +1,6 @@
 """State estimation (port of ``estimation/``): the 12-state EKF over the
 surrogate dynamics, the 15-state disturbance observer, and the noisy-sensor
-closed loops of the 6-state MPC. The 12-state family's noisy loops
-(``noisy_rigid_mpc_rollout``, ``noisy_ltv_rollout``) are queued in
-ROADMAP.md."""
+closed loops of the 6-state MPC and of the 12-state family."""
 
 from .disturbance import (
     DisturbanceEKFConfig,
@@ -21,7 +19,7 @@ from .ekf import (
     joseph_update,
     measure,
 )
-from .noisy_loop import noisy_mpc_flight_rollout
+from .noisy_loop import noisy_ltv_rollout, noisy_mpc_flight_rollout, noisy_rigid_mpc_rollout
 
 __all__ = [
     "DisturbanceEKFConfig",
@@ -37,5 +35,7 @@ __all__ = [
     "ekf_step",
     "joseph_update",
     "measure",
+    "noisy_ltv_rollout",
     "noisy_mpc_flight_rollout",
+    "noisy_rigid_mpc_rollout",
 ]

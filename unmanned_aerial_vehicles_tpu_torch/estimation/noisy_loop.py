@@ -14,8 +14,14 @@ Three tiers, routed as in the JAX package:
   observer) inside the kernel; with ``online_gp=`` the GP learns in flight
   from the estimates.
 
-The sensor noise is drawn once per flight: ``(T, 9)`` standard normals
-from ``generator`` (or handed in as ``noise=``), scaled by ``sqrt(r)``.
+The 12-state family's loops: ``noisy_rigid_mpc_rollout`` (any engine of
+the family on the estimate, the truth through kernel K10) and
+``noisy_ltv_rollout`` (the LTV MPC at its own rate over a filter at the
+sensor rate).
+
+The sensor noise is drawn once per flight: standard normals (``(T, 9)``;
+``(T, substeps, 9)`` for the LTV loop) from ``generator`` (or handed in as
+``noise=``), scaled by ``sqrt(r)``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from .disturbance import (
     dekf_init,
     dekf_step,
     disturbance_residual_rows,
+    disturbance_residual_rows12,
 )
 from .ekf import MEAS_DIM, EKFConfig, ekf_init, ekf_step, measure
 
@@ -75,6 +82,18 @@ def flight_winds(wind_fn: Callable, t: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wind_fn gave shape {tuple(winds.shape)}: expected (3,) for one "
                          f"time or ({T}, 3) for the flight's {T} times")
     return winds.to(device=t.device)
+
+
+def _noise_draws(noise, generator, shape, dtype, dev):
+    """The flight's standard-normal sensor draws: ``noise`` as given, or
+    drawn once from ``generator``; checked against ``shape``."""
+    if noise is None:
+        if generator is None:
+            raise ValueError(f"pass generator= (a torch.Generator) or noise= {shape} draws")
+        noise = torch.randn(*shape, generator=generator, device=generator.device, dtype=dtype)
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {tuple(shape)}")
+    return noise.to(device=dev)
 
 
 def noisy_mpc_flight_rollout(
@@ -158,14 +177,8 @@ def noisy_mpc_flight_rollout(
             "path (ticks_per_dispatch > 1); the single-tick kernel takes the wind as a "
             "per-launch constant"
         )
-    if noise is None:
-        if generator is None:
-            raise ValueError("pass generator= (a torch.Generator) or noise= (T, 9) draws")
-        noise = torch.randn(num_steps, MEAS_DIM, generator=generator, device=generator.device,
-                            dtype=torch.float32 if cfg.use_fused_tick else dtype)
-    if tuple(noise.shape) != (num_steps, MEAS_DIM):
-        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected ({num_steps}, 9)")
-    noise = noise.to(device=dev)
+    noise = _noise_draws(noise, generator, (num_steps, MEAS_DIM),
+                         torch.float32 if cfg.use_fused_tick else dtype, dev)
     full_f32_matmul()
     if cfg.use_fused_tick:
         if multitick:
@@ -464,4 +477,236 @@ def _fused_noisy_multitick_rollout(mpc, reference_fn, num_steps, noise, ekf_cfg,
         outs["gp_count"] = torch.cat(learner.counts)
     outs["final_state"] = state
     outs["final_covariance"] = P
+    return outs
+
+
+def noisy_rigid_mpc_rollout(
+    controller,
+    reference_fn: Callable,
+    num_steps: int,
+    generator: torch.Generator | None = None,
+    ekf_cfg: EKFConfig = EKFConfig(),
+    body: RigidBodyParams | None = None,
+    dt: float = 0.02,
+    initial_state: torch.Tensor | None = None,
+    takeoff_height: float = 3.0,
+    plant_step_fn: Callable | None = None,
+    plant_step_tfn: Callable | None = None,
+    process_step_fn: Callable | None = None,
+    yaw_channel: bool = True,
+    disturbance_observer=None,
+    dtype=torch.float32,
+    device=None,
+    noise: torch.Tensor | None = None,
+    plain_kernels: bool = False,
+):
+    """Noisy-sensor loop of the 12-state family: sensors -> EKF ->
+    controller on the estimate -> torque-input rigid body on the truth.
+
+    ``controller`` is any engine of the family with the ``solve(carry,
+    state12, target_pos, target_yaw)`` surface (``ILQRRigidBodyMPC``,
+    ``RigidBodyMPC``, ``MPPIController``); ``reference_fn(t 0-d) ->
+    (pos_ref, yaw_ref)``. The filter's process model is the rigid body's
+    RK4 step (``body``, default ``X500_PARAMS``; the filter takes its
+    ``jacfwd``), and the truth steps through
+    ``ops.rigid_plant_pallas.rigid_body_rk4_step_fast``: kernel K10 for a
+    CUDA state (its plain version with ``plain_kernels=True``).
+
+    ``plant_step_fn(x, u)`` replaces the truth and ``process_step_fn`` the
+    filter's model (default: the truth's); ``plant_step_tfn(x, u, t)`` is a
+    time-varying truth and needs an explicit ``process_step_fn``.
+    ``yaw_channel=False`` for engines whose ``solve`` takes no yaw
+    (direct-rate). ``disturbance_observer`` (a ``DisturbanceEKFConfig`` or
+    ``True``) runs the 15-state observer and feeds its estimate to the
+    engine as ``(N, 12)`` ``residuals=`` rows; it needs the residual-channel
+    engine (``yaw_channel=False``).
+
+    ``generator`` draws the flight's ``(T, 9)`` standard-normal sensor
+    noise once, before the first tick, or ``noise`` hands it in; each
+    sample is scaled by ``sqrt(r)`` (``measure``). Returns ``state``,
+    ``state_est``, ``meas_pos``, ``pos_ref``, ``u`` (T, .), with the
+    observer ``disturbance_est``, and ``final_state`` and
+    ``final_covariance``. ``device`` defaults to ``cuda``."""
+    from ..models.params import X500_PARAMS
+    from ..models.rigid_body import rigid_body_rk4_step
+    from ..ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+    dev = resolve_device(device)
+    if body is None:
+        body = X500_PARAMS
+    if initial_state is None:
+        initial_state = torch.zeros(12, dtype=dtype, device=dev)
+        initial_state[2] = takeoff_height
+    state = initial_state.to(dtype=dtype, device=dev)
+
+    if plant_step_tfn is not None:
+        if plant_step_fn is not None:
+            raise ValueError("pass plant_step_fn OR plant_step_tfn, not both")
+        if process_step_fn is None:
+            raise ValueError(
+                "plant_step_tfn= (time-varying truth) requires an explicit process_step_fn: "
+                "the filter's model must not silently track the disturbance being estimated"
+            )
+    elif plant_step_fn is None:
+        plant_step_fn = lambda x, u: rigid_body_rk4_step_fast(x, u, body, dt,
+                                                              plain_kernels=plain_kernels)
+        if process_step_fn is None:
+            process_step_fn = lambda x, u: rigid_body_rk4_step(x, u, body, dt)
+    elif process_step_fn is None:
+        process_step_fn = plant_step_fn
+
+    if disturbance_observer is not None and disturbance_observer is not False:
+        if yaw_channel:
+            raise ValueError(
+                "disturbance_observer= on the 12-state loop requires the residual-channel "
+                "engine (direct-rate: solve(carry, x, pos, residuals=), yaw_channel=False); "
+                "the SQP/iLQR/MPPI solves have no residual input"
+            )
+        dob_cfg = (DisturbanceEKFConfig(base=ekf_cfg) if disturbance_observer is True
+                   else disturbance_observer)
+        horizon12 = int(controller.mpc.config.horizon)
+    else:
+        dob_cfg = None
+    meas_cfg = dob_cfg.base if dob_cfg is not None else ekf_cfg
+    noise = _noise_draws(noise, generator, (num_steps, MEAS_DIM), dtype, dev)
+    full_f32_matmul()
+
+    times = torch.arange(num_steps, dtype=dtype, device=dev) * dt
+    ekf = (dekf_init(state, dob_cfg, dtype) if dob_cfg is not None
+           else ekf_init(state, ekf_cfg, dtype))
+    mc = controller.init_carry(state)
+    prev_u = controller.u_hover.to(dtype)
+    rows = []
+    for i in range(num_steps):
+        t = times[i]
+        pos_ref, yaw_ref = reference_fn(t)
+        pos_ref = torch.as_tensor(pos_ref, dtype=dtype, device=dev)
+        yaw_ref = torch.as_tensor(yaw_ref, dtype=dtype, device=dev)
+        z = measure(state, noise[i], meas_cfg)
+        if dob_cfg is not None:
+            ekf, x_est, d_est = dekf_step(ekf, prev_u, z, dt=dt, config=dob_cfg,
+                                          step_fn=process_step_fn)
+        else:
+            ekf, x_est = ekf_step(ekf, prev_u, z, dt=dt, config=ekf_cfg, step_fn=process_step_fn)
+        if yaw_channel:
+            u, _, mc = controller.solve(mc, x_est, pos_ref, yaw_ref)
+        elif dob_cfg is not None:
+            rows12 = disturbance_residual_rows12(d_est, horizon12, dtype)
+            u, _, mc = controller.solve(mc, x_est, pos_ref, residuals=rows12)
+        else:
+            u, _, mc = controller.solve(mc, x_est, pos_ref)
+        new_state = (plant_step_fn(state, u) if plant_step_tfn is None
+                     else plant_step_tfn(state, u, t))
+        row = {"state": state, "state_est": x_est, "meas_pos": z[0:3], "pos_ref": pos_ref,
+               "u": u}
+        if dob_cfg is not None:
+            row["disturbance_est"] = d_est
+        rows.append(row)
+        state, prev_u = new_state, u
+    outs = _stack_outs(rows)
+    outs["final_state"] = state
+    outs["final_covariance"] = ekf.P
+    return outs
+
+
+def noisy_ltv_rollout(
+    controller,
+    reference_window_fn: Callable,
+    num_steps: int,
+    generator: torch.Generator | None = None,
+    ekf_cfg: EKFConfig = EKFConfig(),
+    body: RigidBodyParams | None = None,
+    dt_plant: float = 0.01,
+    substeps_per_tick: int = 10,
+    obstacles: torch.Tensor | None = None,
+    initial_state: torch.Tensor | None = None,
+    disturbance_observer=None,
+    nominal_body: RigidBodyParams | None = None,
+    dtype=torch.float32,
+    device=None,
+    noise: torch.Tensor | None = None,
+    plain_kernels: bool = False,
+):
+    """Multi-rate noisy loop of the LTV tracking MPC: the plant and the
+    filter at the sensor rate (``dt_plant``), the controller every
+    ``substeps_per_tick`` plant steps, flying the estimate while the truth
+    integrates its control under zero-order hold.
+
+    ``controller`` is an ``LTVTrackingMPC``; ``reference_window_fn(i int)
+    -> (N+1, 12)`` is control tick i's window of stage references (and its
+    first row the default start). The truth steps through
+    ``rigid_body_rk4_step_fast`` on ``body`` (default
+    ``GZ_QUADROTOR_PARAMS``): K10 for a CUDA state, its plain version with
+    ``plain_kernels=True``; the filter predicts with the plain
+    ``rigid_body_rk4_step``. ``obstacles (n_obs, 4)`` go to every solve.
+    ``disturbance_observer`` (a ``DisturbanceEKFConfig`` or ``True``) runs
+    the 15-state observer over the NOMINAL body (``nominal_body``, default
+    ``body`` without wind) and feeds its estimate to the solve as ``(N,
+    12)`` ``residuals=`` rows.
+
+    ``generator`` draws the flight's ``(T, substeps_per_tick, 9)``
+    standard-normal sensor draws once, or ``noise`` hands them in. Returns
+    one row per control tick: ``state``, ``state_est`` and ``pos_ref`` at
+    the tick, the applied ``u``, the tick's last ``meas_pos``, with the
+    observer ``disturbance_est``; and ``final_state``,
+    ``final_covariance``. ``device`` defaults to ``cuda``."""
+    from ..models.params import GZ_QUADROTOR_PARAMS
+    from ..models.rigid_body import rigid_body_rk4_step
+    from ..ops.rigid_plant_pallas import rigid_body_rk4_step_fast
+
+    dev = resolve_device(device)
+    if body is None:
+        body = GZ_QUADROTOR_PARAMS
+    if initial_state is None:
+        initial_state = reference_window_fn(0)[0]
+    state = initial_state.to(dtype=dtype, device=dev)
+
+    if disturbance_observer is not None and disturbance_observer is not False:
+        dob_cfg = (DisturbanceEKFConfig(base=ekf_cfg) if disturbance_observer is True
+                   else disturbance_observer)
+        if nominal_body is None:
+            nominal_body = dataclasses.replace(body, wind=(0.0, 0.0, 0.0))
+        horizon12 = int(controller.mpc.config.horizon)
+    else:
+        dob_cfg = None
+    meas_cfg = dob_cfg.base if dob_cfg is not None else ekf_cfg
+    process_body = nominal_body if dob_cfg is not None else body
+    plant_step_fn = lambda x, u: rigid_body_rk4_step_fast(x, u, body, dt_plant,
+                                                          plain_kernels=plain_kernels)
+    process_step_fn = lambda x, u: rigid_body_rk4_step(x, u, process_body, dt_plant)
+    noise = _noise_draws(noise, generator, (num_steps, substeps_per_tick, MEAS_DIM), dtype,
+                         dev)
+    if obstacles is not None:
+        obstacles = obstacles.to(dtype=dtype, device=dev)
+    full_f32_matmul()
+
+    ekf = (dekf_init(state, dob_cfg, dtype) if dob_cfg is not None
+           else ekf_init(state, ekf_cfg, dtype))
+    mc = controller.init_carry(state)
+    rows = []
+    for i in range(num_steps):
+        window = reference_window_fn(i).to(dtype=dtype, device=dev)
+        x_est = ekf.x[:12]
+        if dob_cfg is not None:
+            rows12 = disturbance_residual_rows12(ekf.x[12:], horizon12, dtype)
+            u, _, mc = controller.solve(mc, x_est, window, residuals=rows12, obstacles=obstacles)
+        else:
+            u, _, mc = controller.solve(mc, x_est, window, obstacles=obstacles)
+        row = {"state": state, "state_est": x_est, "pos_ref": window[0, 0:3], "u": u}
+        if dob_cfg is not None:
+            row["disturbance_est"] = ekf.x[12:]
+        for j in range(substeps_per_tick):
+            state = plant_step_fn(state, u)          # the truth under zero-order hold
+            z = measure(state, noise[i, j], meas_cfg)
+            if dob_cfg is not None:
+                ekf, _, _ = dekf_step(ekf, u, z, dt=dt_plant, config=dob_cfg,
+                                      step_fn=process_step_fn)
+            else:
+                ekf, _ = ekf_step(ekf, u, z, dt=dt_plant, config=ekf_cfg,
+                                  step_fn=process_step_fn)
+        row["meas_pos"] = z[0:3]
+        rows.append(row)
+    outs = _stack_outs(rows)
+    outs["final_state"] = state
+    outs["final_covariance"] = ekf.P
     return outs

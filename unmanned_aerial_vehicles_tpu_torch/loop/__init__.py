@@ -1,5 +1,5 @@
 """Closed-loop flights: the 6-state GP-MPC loops, sweep and Monte Carlo
-populations, and the 12-state SQP family's multi-tick tiers."""
+populations, and the 12-state SQP and iLQR multi-tick tiers."""
 
 from .closed_loop import (
     FlightLoopConfig,
@@ -24,6 +24,7 @@ from .monte_carlo import (
 from .rigid_loop import (
     MultiTickCarry,
     direct_rate_multitick_fused,
+    ilqr_multitick_rollout,
     make_attitude_recovery_fallback,
     rigid_multitick_fused,
     sqp_multitick_rollout,
@@ -35,6 +36,7 @@ __all__ = [
     "pid_flight_rollout", "plant_block",
     "MonteCarloConfig", "monte_carlo_flights", "monte_carlo_mpc", "monte_carlo_mpc12",
     "monte_carlo_pid", "robustness_stats", "sample_conditions",
-    "MultiTickCarry", "direct_rate_multitick_fused", "make_attitude_recovery_fallback",
+    "MultiTickCarry", "direct_rate_multitick_fused", "ilqr_multitick_rollout",
+    "make_attitude_recovery_fallback",
     "rigid_multitick_fused", "sqp_multitick_rollout",
 ]

@@ -23,8 +23,9 @@ ADMM duals warm-start across ticks in the same scaled space.
 through kernel K10 on the card). ``direct_rate_multitick_fused`` and
 ``rigid_multitick_fused`` run K whole ticks per launch of kernel K11
 (``ops.rigid_tick_pallas``), with the direct-rate model or the torque-input
-rigid body as the in-kernel plant. ``ilqr_multitick_rollout`` waits for the
-port of ``control/ilqr.py``.
+rigid body as the in-kernel plant. ``ilqr_multitick_rollout`` is the iLQR
+engine's policy tier: one full solve per dispatch, then the solve's own
+time-varying LQR policy per tick.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .._device import full_f32_matmul
+from ..control.ilqr import ILQRCarry, ILQRRigidBodyMPC, ilqr_solve
 from ..control.mpc_sqp import QuadCost, SQPMPC, linearize, obstacle_normals, ruiz_scaling
 from ..models.params import X500_PARAMS, RigidBodyParams
 from ..ops.qp import admm_box_qp_composite, condense_ltv_doubling, roll_block
@@ -357,3 +359,52 @@ def rigid_multitick_fused(mpc: SQPMPC, cost: QuadCost, reference_fn: Callable, x
     math)."""
     return direct_rate_multitick_fused(mpc, cost, reference_fn, x0, num_steps, plant="rigid",
                                        body=X500_PARAMS if body is None else body, **kwargs)
+
+
+def ilqr_multitick_rollout(
+    eng: ILQRRigidBodyMPC,
+    position_ref_fn: Callable,   # tick indices (K,) -> (K, 3) positions
+    plant_step: Callable,        # (x, u) -> x_next, the true plant
+    x0: torch.Tensor,
+    num_steps: int,
+    ticks_per_dispatch: int = 2,
+) -> dict:
+    """iLQR at dispatch granularity: one full solve per K ticks, then the
+    solve's own time-varying LQR policy per tick.
+
+    Per dispatch: the fixed-iteration ``ilqr_solve`` from the current state
+    against the mid-dispatch target ``pos_refs[K // 2]`` (the solve holds a
+    constant target; centring it halves the lag the reference's motion over
+    K ticks would bias in), warm-started by the previous plan shifted one
+    stage. Per tick: ``u_k = clip(U[k] - K_k (x - X[k]))`` (the ``u = -Kx -
+    d`` convention of ``ops.riccati``) and one ``plant_step``. The plan is
+    then shifted by K. ``position_ref_fn`` maps an int64 tensor of tick
+    indices on the engine's device to ``(K, 3)`` positions. Returns
+    ``{"state": (T, 12) pre-plant, "u": (T, 4) applied, "carry":
+    ILQRCarry}``."""
+    K = ticks_per_dispatch
+    if num_steps % K:
+        raise ValueError(f"num_steps={num_steps} not a multiple of K={K}")
+    full_f32_matmul()
+    N, dtype, dev = eng.N, eng.dtype, eng.device
+    u_ref = eng.u_hover[None, :].repeat(N, 1)
+    x = x0.to(dtype=dtype, device=dev)
+    U_prev = eng.u_hover[None, :].repeat(N, 1)
+    states, controls = [], []
+    for tick0 in range(0, num_steps, K):
+        pos_refs = position_ref_fn(torch.arange(tick0, tick0 + K, device=dev)).to(dtype)
+        x_ref_stage = torch.cat([pos_refs[K // 2], torch.zeros(9, dtype=dtype, device=dev)])
+        x_ref = x_ref_stage[None, :].repeat(N + 1, 1)
+        U0 = torch.cat([U_prev[1:], U_prev[-1:]])
+        sol = ilqr_solve(eng.step_fn, x, U0, eng.q_diag, eng.r_diag, x_ref, u_ref,
+                         iterations=eng.iterations, reg=eng.reg, u_lower=eng.u_lower,
+                         u_upper=eng.u_upper, parallel=eng.parallel,
+                         rollout_fn=eng.rollout_fn)
+        for k in range(K):
+            u = sol.U[k] - sol.gains[k] @ (x - sol.X[k])
+            u = torch.minimum(torch.maximum(u, eng.u_lower), eng.u_upper)
+            states.append(x)
+            controls.append(u)
+            x = plant_step(x, u)
+        U_prev = torch.cat([sol.U[K:], sol.U[-1:].repeat(K, 1)])
+    return _stack(states, controls, ILQRCarry(U_prev=U_prev))

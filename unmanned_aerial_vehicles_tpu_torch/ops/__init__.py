@@ -16,7 +16,8 @@ K2 and K5 (``tick_ad``), with the VJP kernels K13a
 ``tick_ad.px4_plant_step_vjp`` and K13b ``tick_ad.allocation_plant_tick_vjp``;
 K14 ``admm_pallas.admm_box_qp_fused``, K15
 ``rbf_pallas.rbf_kernel_matrix_pallas`` and K16
-``controller_pallas.gpmpc_controller_fused_batched``.
+``controller_pallas.gpmpc_controller_fused_batched``. The Riccati solvers
+(``riccati``, ``parallel_riccati``) carry the iLQR engine.
 """
 
 from .qp import (
@@ -25,7 +26,10 @@ from .qp import (
     condense_dynamics,
     condense_ltv,
     condense_ltv_doubling,
+    kkt_residuals,
 )
+from .parallel_riccati import lqr_tracking_solve_parallel
+from .riccati import LQRSolution, lqr_tracking_solve
 
 __all__ = [
     "admm_box_qp",
@@ -33,4 +37,8 @@ __all__ = [
     "condense_dynamics",
     "condense_ltv",
     "condense_ltv_doubling",
+    "kkt_residuals",
+    "LQRSolution",
+    "lqr_tracking_solve",
+    "lqr_tracking_solve_parallel",
 ]
