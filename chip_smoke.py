@@ -83,8 +83,14 @@ Phases (any failure exits non-zero; nothing is caught):
    B = 1, 17, 256 and 257, N=20 and N=25, over three warm-started ticks
    (timed at B=256, with its cluster shape and the clusters the card runs
    at once), and K1
-   and K2 on a dispersed (256, 10) plant block (2e-5 of scale); time each
-   kernel and its plain
+   and K2 on a dispersed (256, 10) plant block (2e-5 of scale); the
+   population kernels at the campaign's 256 flights, each against its plain
+   version (K4 at N=25 with 80 iterations and the fallback engaged on some
+   flights, K5 at N=20, K=20, 80 iterations, K6 at N=25 on P1's factors:
+   1e-4; K10 at n=1 and at n=20 with residuals, a body per member: 1e-5 of
+   the state's size), every block bit-identical to a one-flight launch on
+   its operands, a relaunch bit-identical, each timed at B = 1, 132 and 256
+   with its bound at each; time each kernel and its plain
    version alone: device time from CUDA events around a replayed CUDA
    graph of many calls, and time with the host's overhead, eagerly; time
    K5 also without its GP section and without its ADMM iterations, K2 also
@@ -160,14 +166,23 @@ Phases (any failure exits non-zero; nothing is caught):
    agree with the plain route's within 1e-3 relative; K14 and K15 once
    each at their own entry points (the staged MPC's QP at N=25, the
    800-point Gram); the Monte Carlo robustness study at the campaign's
-   width (256 flights, 1500 ticks, the 6 m circle at 3 m, wind 0.8 m/s):
+   width (256 flights, 500 ticks of the campaign's 1500: ``MC_T``; the 6 m
+   circle at 3 m, wind 0.8 m/s):
    the MPC population with ``use_fused_controller`` (N=25, 80 iterations)
-   and ``use_pallas_plant`` (K16 1500 launches, K2 1500), the same with
+   and ``use_pallas_plant`` (K16 500 launches, K2 500), the same with
    the 1.5 m hover fallback, and the PID population with
-   ``PID_CAMPAIGN_RATE_LOOP`` (K1 1500), each against its plain twin (equal
+   ``PID_CAMPAIGN_RATE_LOOP`` (K1 500), each against its plain twin (equal
    success flags, per-flight RMS within 1e-3 m where both succeed), and two
    flights of the MPC population flown alone through K3 (within 1e-3 m of
-   their population rows);
+   their population rows); the population tiers on the same draw and
+   circle, 300 ticks each (``POP_T``, RMS after 100), against their plain
+   twins alike: the fused single-tick population
+   (N=25, 80 iterations: K4 300 launches), the multi-tick one (N=20, K=20:
+   K5 15), ``use_fused_admm`` with the fused plant (K6 300, K2 300), the
+   fused single-tick one with the 1.5 m fallback (K4 300), and
+   ``monte_carlo_mpc12`` (64 X500 members on their own bodies, 200 ticks:
+   K10 200); the polished population (16 flights, 50 ticks, no kernel)
+   must fly finite;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -179,7 +194,7 @@ Phases (any failure exits non-zero; nothing is caught):
    and 5, and ``residual_fn``), and the device's busy time per sweep tick
    by kernel from a ``torch.profiler`` window of 50 ticks; microseconds per
    tick of the direct-rate12 fused, mpc12 fused and mppi12 flights as the
-   slope between 400 and 2000 ticks (the plain versions at shorter
+   slope between 200 and 1000 ticks (the plain versions at shorter
    lengths), with profiler windows of the first and the last;
    microseconds per tick of the staged iLQR engine (slope 4->12 ticks) and
    of its K=2 policy tier (20->60), with profiler windows of each and the
@@ -188,7 +203,12 @@ Phases (any failure exits non-zero; nothing is caught):
    for both routes at 60 ticks and the cascade-PID tuner's kernel route at
    its width; microseconds per Monte Carlo flight-tick (the MPC
    population's slope between 300 and 1500 ticks, over 256) and its
-   device-busy share;
+   device-busy share; the same for the fused single-tick, multi-tick and
+   ``use_fused_admm`` populations (slope between 100 and 500 ticks, a
+   profiler window of 60); the multi-start cascade-PID tuner (8 starts, 300
+   ticks, 2 iterations) as one batch against its starts one after another
+   (host wall clock of each; the best start equal, the final losses within
+   1e-5 relative);
 5. print the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -728,9 +748,10 @@ CHAOTIC_BOUNDS_M = {           # (gap over the first 30 ticks, RMS gap)
 CIRCLE_T = 400                # the circle task (bench_controllers.py:61), 2 m, 3 m high, 50 Hz
 LTV_T = 200                   # the obstacle flight at 10 Hz (bench_controllers.py:449-512)
 LTV_OBSTACLE = (0.0, 1.5, 1.0, 0.3)
-T_SLOPE_12 = (400, 2000)      # bench_controllers.py:61,72-87
+# bench_controllers.py:61,72-87 slopes 400 -> 2000; cut for the run's time limit
+T_SLOPE_12 = (200, 1000)
 T_SLOPE_12_PLAIN = (96, 288)  # multiples of K=8
-T_SLOPE_MPPI_PLAIN = (40, 120)
+T_SLOPE_MPPI_PLAIN = (20, 60)   # ~213 ms a plain tick
 # the iLQR engine and the 12-state noisy loops (cli.py fly --controller
 # ilqr12 [--fast] [--noisy], --controller ltv12 --noisy)
 ILQR_HORIZON = 15
@@ -2890,7 +2911,7 @@ MPPI_SHARE_T = 100    # the mppi12 flight's profiler window (ticks)
 
 def mppi12_shares(dev) -> dict:
     """The staged mppi12 flight as phase 4 flies it: microseconds per tick
-    (slope between 400 and 2000 ticks), device-busy microseconds per tick
+    (slope over T_SLOPE_12's lengths), device-busy microseconds per tick
     from a ``torch.profiler`` window of ``MPPI_SHARE_T`` ticks (device events
     only), the idle share in percent, and K12's and K10's device
     microseconds per tick in that window."""
@@ -3226,7 +3247,10 @@ def time_redesigned_main(package_root: str) -> int:
 
 # ---- the Monte Carlo robustness study (K16 with K2; K1) --------------------
 
-MC_T = 1500                   # 30 s at 50 Hz (tools/run_campaign.py:343-365)
+# 10 s at 50 Hz, not the campaign's 30 (tools/run_campaign.py:343-365): since
+# the population tiers joined, the plain twins (13-42 s each at 256 flights)
+# and the lone K3 flights would push the run past its time limit at 1500
+MC_T = 500
 T_MC_SLOPE = (300, 1500)
 MC_RMS_GAP_M = 1e-3           # per-flight RMS, kernel population vs plain, where both succeed
 MC_LONE_FLIGHTS = 2           # population flights flown again alone through K3
@@ -3278,8 +3302,8 @@ def drive_entry_points(dev, fail_fn, kernels) -> None:
 
 
 def run_populations(dev, fail_fn, kernels) -> dict:
-    """Fly the campaign's three 256-flight populations (30 s on the 6 m
-    circle, wind 0.8 m/s): the MPC population (K16 and K2 every tick), the
+    """Fly the campaign's three 256-flight populations (MC_T ticks on the
+    6 m circle, wind 0.8 m/s): the MPC population (K16 and K2 every tick), the
     same with the 1.5 m hover fallback, and the PID population (K1 every
     tick), each against its plain twin (equal success flags; per-flight RMS
     within MC_RMS_GAP_M where both succeed), with exact launch counts; then
@@ -3402,6 +3426,437 @@ def run_populations(dev, fail_fn, kernels) -> dict:
     results["lone_flights_rms_m"] = {str(i): v for i, v in lone.items()}
     results["fly_mpc"] = lambda T: fly_mpc(T)
     return results
+
+
+# ---- the population tier: K4, K5 and K6 with a flight axis, K10 with a
+# member axis (a grid of one block per flight or member) --------------------
+POP_BATCHES = (1, 132, 256)   # timed at each: one flight, one block per SM, the campaign's 256
+POP_K5_N, POP_K5_K = 20, 20   # the multi-tick population (K5's P1 fits shared memory to N=23)
+POP_FALLBACK_M = 1.2          # the checked K4 launch's fallback radius: some flights engage
+MC12_B, MC12_T, MC12_SETTLE = 64, 200, 50   # monte_carlo_mpc12's members and ticks
+POLISH_B, POLISH_T = 16, 50   # the polished population (no kernel: it must fly finite)
+# the population tiers' plain twins take 26-35 ms a tick at 256 flights:
+# 300 ticks each, their RMS after 100
+POP_T, POP_SETTLE = 300, 100
+T_POP_SLOPE = (100, 500)
+TUNE_MS_STARTS, TUNE_MS_T, TUNE_MS_ITERS, TUNE_MS_SETTLE = 8, 300, 2, 50
+TUNE_MS_RTOL = 1e-5           # batched multi-start against the starts run one after another
+
+
+def pop_operands(dev):
+    """The population kernels' shared inputs at the campaign's width
+    (``MC_B`` flights): the Monte Carlo draw's dispersed plant block and
+    take-off states, and a seeded generator for the rest."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.loop import MonteCarloConfig, plant_block, sample_conditions
+
+    bodies, rate_loops, x0 = sample_conditions(None, MonteCarloConfig(n_rollouts=MC_B,
+                                                                      wind_std=0.8), device=dev)
+    gen = torch.Generator().manual_seed(19)
+    return gen, plant_block(bodies, rate_loops, MC_B, dev), x0
+
+
+def population_record(label, launch, plain, single, tol, shared_bytes, flight_bytes,
+                      flight_ops, fail_fn, err_fn=None) -> dict:
+    """Hold a batched kernel at ``MC_B`` flights against its plain version
+    (``tol`` on every output, by ``err_fn(got, want)``, default the max abs
+    difference), require every block bit-identical to a one-flight launch on
+    that flight's operands (``single(b)``) and a relaunch bit-identical,
+    time it at each of ``POP_BATCHES`` (``launch(B)`` on the first B
+    flights) and its plain version at ``MC_B``, and reckon its bound at the
+    population's shape (``shared_bytes`` + B x ``flight_bytes``, B x
+    ``flight_ops``)."""
+    import torch
+
+    err_fn = err_fn or (lambda g, w: float((g - w).abs().max()))
+    got = launch(MC_B)
+    torch.cuda.synchronize()
+    want = plain()
+    for g in got:
+        if not torch.isfinite(g).all():
+            fail_fn(f"{label}: non-finite values at B={MC_B}")
+    err = max(err_fn(g, w) for g, w in zip(got, want))
+    if not err <= tol:
+        fail_fn(f"{label} at B={MC_B} disagrees with its plain version: {err} > {tol}")
+    if not all(torch.equal(g, a) for g, a in zip(got, launch(MC_B))):
+        fail_fn(f"{label}: a second launch on the same inputs differs")
+    differ = [b for b in range(MC_B)
+              if not all(torch.equal(g[b], s) for g, s in zip(got, single(b)))]
+    if differ:
+        fail_fn(f"{label}: blocks {differ[:8]} differ from one-flight launches on their operands")
+    ms = {B: graph_ms(lambda B=B: launch(B), 20) for B in POP_BATCHES}
+    rec = dict(err=err, ms=ms[MC_B], by_batch=ms, plain_ms=graph_ms(plain, 1, replays=2),
+               bound=bound_ms(shared_bytes + MC_B * flight_bytes, MC_B * flight_ops),
+               bound_by_batch={B: bound_ms(shared_bytes + B * flight_bytes, B * flight_ops)[0]
+                               for B in POP_BATCHES})
+    print(f"{label}: max_abs_err {err:.3e} against the plain version at B={MC_B}; every block "
+          f"bit-identical to a one-flight launch; device "
+          + ", ".join(f"{v * 1e3:.2f} us at B={B}" for B, v in ms.items())
+          + f" (bound {rec['bound'][0] * 1e3:.4f} us at B={MC_B}, {rec['bound'][1]}; plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us)")
+    return rec
+
+
+def check_population_kernels(dev, fail_fn) -> dict:
+    """K4 (N=25, 80 iterations, the fallback engaged on some flights), K5
+    (N=20, K=20, 80 iterations, no GP), K6 on P1's factors (N=25, 80
+    iterations) and K10 (n=1, the population's truth step, and n=20 with
+    residuals; a body per member) at ``MC_B`` flights, each through
+    ``population_record``. Returns the records keyed by kernel name."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import MonteCarloConfig, sample_conditions
+    from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS, RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.ops import admm_pallas, rigid_plant_pallas, tick_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    gen, block, x0 = pop_operands(dev)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(**f32).contiguous()
+    B = MC_B
+    records = {}
+    plant_statics = dict(dt=0.02, substeps=2, accel_lo=(-3.5, -3.5, -4.0),
+                         accel_hi=(3.5, 3.5, 6.0), yawrate_limit=0.8)
+    states = (x0 + rnd(B, 12, scale=0.05)).contiguous()
+    first = lambda Bn, *ts: [t[:Bn] for t in ts]
+
+    # K4: one tick of every flight of the fused single-tick population
+    mpc = LinearMPC(LinearMPCConfig(use_fused_controller=True), device=dev)
+    N, cfg = mpc.config.horizon, mpc.config
+    m, Nnu, Nnx = mpc.n_constraints, 4 * N, 6 * N
+    data = mpc._tick_data
+    pos, _ = campaign_circle(torch.tensor([1.0], device=dev))
+    ref = torch.cat([pos[0], torch.zeros(3, **f32)]).repeat(N).contiguous()
+    w = torch.cat([torch.zeros(B, N, 3, **f32), rnd(B, N, 3, scale=0.02)], 2).reshape(B, Nnx)
+    misc = torch.cat([torch.full((B, 1), 0.1, **f32), rnd(B, 3, scale=0.02)], 1)
+    z, y = rnd(B, m, scale=0.3), rnd(B, m, scale=0.1)
+    kw = dict(plant_statics, rho=cfg.admm_rho, iterations=cfg.admm_iterations,
+              over_relax=cfg.admm_over_relax, n=N, fallback_error_m=POP_FALLBACK_M)
+    engaged = int((((states[:, 0:3] - pos) ** 2).sum(1) > POP_FALLBACK_M ** 2).sum())
+    per = (states, w, misc, z, y, block)
+    k4_args = lambda Bn: (data, *first(Bn, states, w), ref, *first(Bn, misc, z, y, block))
+    records["gpmpc_tick_fused"] = population_record(
+        f"K4 gpmpc_tick_fused, population (N={N}, {cfg.admm_iterations} iterations, "
+        f"fallback at {POP_FALLBACK_M} m: {engaged} of {B} flights engaged)",
+        lambda Bn: tick_pallas.gpmpc_tick_fused(*k4_args(Bn), **kw),
+        lambda: tick_pallas.gpmpc_tick_fused_plain(*k4_args(B), **kw),
+        lambda b: tick_pallas.gpmpc_tick_fused(data, states[b], w[b], ref, misc[b], z[b], y[b],
+                                               block[b], **kw),
+        SINGLE_TOL, nbytes(*data[2:10], ref), nbytes(*(t[0] for t in per)) + 4 * (25 + 3 * m),
+        ops_controller(N, cfg.admm_iterations) + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP, fail_fn)
+
+    # K5: one launch of K ticks of every flight of the multi-tick population
+    mpc5 = LinearMPC(LinearMPCConfig(horizon=POP_K5_N, use_fused_controller=True), device=dev)
+    N, K, cfg5 = POP_K5_N, POP_K5_K, mpc5.config
+    m5, Nnx5, Nnu5 = mpc5.n_constraints, 6 * POP_K5_N, 4 * POP_K5_N
+    data5 = mpc5._tick_data
+    aux = torch.cat([states[:, 0:6] + 0.01, rnd(B, 3, scale=0.02)], 1).contiguous()
+    xtail = (states[:, 0:6].repeat(1, N) + rnd(B, Nnx5, scale=0.05)).contiguous()
+    z5, y5 = rnd(B, m5, scale=0.3), rnd(B, m5, scale=0.1)
+    ts = 1.0 + 0.02 * torch.arange(K, device=dev).to(torch.float32)
+    pk, _ = campaign_circle(ts)
+    refs = torch.cat([pk, torch.zeros(K, 3, **f32)], 1).repeat(1, N).contiguous()
+    yaw = torch.zeros(K, **f32)
+    kw5 = dict(plant_statics, k_ticks=K, use_gp=False, rho=cfg5.admm_rho,
+               iterations=cfg5.admm_iterations, over_relax=cfg5.admm_over_relax, n=N)
+    per5 = (states, aux, xtail, z5, y5, block)
+    k5_args = lambda Bn: (data5, None, *first(Bn, states, aux, xtail, z5, y5), refs, yaw,
+                          block[:Bn])
+    tick5_ops = (2 * (6 + Nnx5) * Nnx5 + 2 * Nnx5 * Nnu5 + 2 * Nnu5 * (m5 + Nnu5)
+                 + cfg5.admm_iterations * (2 * m5 * m5 + 10 * m5) + 2 * m5 * Nnu5
+                 + 2 * Nnu5 * Nnx5 + OPS_ALLOCATION + 2 * OPS_RK4_SUBSTEP)
+    records["gpmpc_multitick_fused"] = population_record(
+        f"K5 gpmpc_multitick_fused, population (N={N}, K={K}, {cfg5.admm_iterations} "
+        "iterations, no GP)",
+        lambda Bn: tick_pallas.gpmpc_multitick_fused(*k5_args(Bn), **kw5),
+        lambda: tick_pallas.multitick_staged(*k5_args(B), **kw5),
+        lambda b: tick_pallas.gpmpc_multitick_fused(data5, None, states[b], aux[b], xtail[b],
+                                                    z5[b], y5[b], refs, yaw, block[b], **kw5),
+        TICK_TOL, nbytes(*data5[2:10], refs, yaw),
+        nbytes(*(t[0] for t in per5)) + 4 * (K * 32 + 12 + 9 + Nnx5 + 2 * m5), K * tick5_ops,
+        fail_fn)
+
+    # K6: every flight's ADMM of one staged tick (use_fused_admm)
+    am = LinearMPC(LinearMPCConfig(use_fused_admm=True), device=dev)
+    N, cfg6 = am.config.horizon, am.config
+    m6, n6, Nnx6 = am.n_constraints, am.n_primal, 6 * am.config.horizon
+    f = rnd(B, n6)
+    off = rnd(B, Nnx6, scale=0.3)
+    p0 = (-(f @ am._GMinv.T)).contiguous()
+    minv_f = (f @ am._M_inv.T).contiguous()
+    lower = torch.cat([am._u_lo.expand(B, n6), am._x_lo - off], 1).contiguous()
+    upper = torch.cat([am._u_hi.expand(B, n6), am._x_hi - off], 1).contiguous()
+    z6, y6 = rnd(B, m6, scale=0.3), rnd(B, m6, scale=0.1)
+    k6_args = lambda Bn: (am._P1_f32, p0[:Bn], am._GMinvT_f32, minv_f[:Bn],
+                          *first(Bn, lower, upper, z6, y6), cfg6.admm_rho, cfg6.admm_iterations,
+                          cfg6.admm_over_relax)
+    records["admm_box_qp_fused_composite"] = population_record(
+        f"K6 admm_box_qp_fused_composite, population (N={N}, {cfg6.admm_iterations} "
+        "iterations, P1's factors)",
+        lambda Bn: admm_pallas.admm_box_qp_fused_composite(*k6_args(Bn), SuT=am._SuT_f32),
+        lambda: admm_pallas.admm_box_qp_fused_composite_plain(*k6_args(B)),
+        lambda b: admm_pallas.admm_box_qp_fused_composite(
+            am._P1_f32, p0[b], am._GMinvT_f32, minv_f[b], lower[b], upper[b], z6[b], y6[b],
+            cfg6.admm_rho, cfg6.admm_iterations, cfg6.admm_over_relax, SuT=am._SuT_f32),
+        SINGLE_TOL, nbytes(am._GMinvT_f32, am._SuT_f32),
+        4 * (5 * m6 + n6) + 4 * (n6 + 2 * m6),
+        ops_admm(m6, n6, cfg6.admm_iterations, factored=True), fail_fn)
+
+    # K10: every member's truth step, each on its own body (the dispersed
+    # GZ quadrotor: drag, so the wind bites)
+    gz, _, xg = sample_conditions(None, MonteCarloConfig(n_rollouts=B, mass_jitter_pct=0.15,
+                                                         wind_std=0.8),
+                                  body=GZ_QUADROTOR_PARAMS, device=dev)
+    scale = torch.tensor([2, 2, 1, 3, 3, 2, 0.6, 0.6, 2.0, 2, 2, 1.5], **f32)
+    xr = (xg + 0.3 * rnd(B, 12) * scale).contiguous()
+    member = lambda b: RigidBodyParams(
+        **{fl: float(getattr(gz, fl)[b]) for fl in (
+            "mass", "gravity", "inertia_xx", "inertia_yy", "inertia_zz", "k_drag_linear",
+            "k_drag_angular")}, wind=tuple(float(wv[b]) for wv in gz.wind))
+    hover = (gz.mass * gz.gravity)[:, None, None]
+    for n, dt, with_res in ((1, 0.02, False), (20, 0.1, True)):
+        U = (torch.cat([hover, torch.zeros(B, 1, 3, **f32)], 2)
+             + rnd(B, n, 4) * torch.tensor([0.5, 2e-3, 2e-3, 2e-3], **f32)).contiguous()
+        res = rnd(B, n, 12, scale=0.1) if with_res else None
+        sub = lambda t, Bn: None if t is None else t[:Bn]
+        bodies_of = lambda Bn: RigidBodyParams(
+            mass=gz.mass[:Bn], gravity=gz.gravity[:Bn], inertia_xx=gz.inertia_xx[:Bn],
+            inertia_yy=gz.inertia_yy[:Bn], inertia_zz=gz.inertia_zz[:Bn],
+            k_drag_linear=gz.k_drag_linear[:Bn], k_drag_angular=gz.k_drag_angular[:Bn],
+            wind=tuple(wv[:Bn] for wv in gz.wind))
+        rec = population_record(
+            f"K10 rigid_body_rollout_fused, population (n={n}, a body per member"
+            + (", residuals)" if with_res else ")"),
+            lambda Bn, U=U, res=res, dt=dt: (rigid_plant_pallas.rigid_body_rollout_fused(
+                xr[:Bn], U[:Bn], bodies_of(Bn), dt, residuals=sub(res, Bn)),),
+            lambda U=U, res=res, dt=dt: (rigid_plant_pallas.rigid_body_rollout_plain(
+                xr, U, bodies_of(B), dt, residuals=res),),
+            lambda b, U=U, res=res, dt=dt: (rigid_plant_pallas.rigid_body_rollout_fused(
+                xr[b], U[b], member(b), dt, residuals=None if res is None else res[b]),),
+            RIGID_PLANT_TOL, 0, 4 * (12 + 4 * n + 10 + (12 * n if with_res else 0) + 12 * n),
+            n * OPS_RIGID_RK4, fail_fn, err_fn=rel_err)
+        if n == 1:
+            records["rigid_body_rollout_fused"] = rec
+        else:
+            records["rigid_body_rollout_fused"]["n20"] = rec
+    return records
+
+
+def run_population_tiers(dev, fail_fn, kernels) -> dict:
+    """Fly the population tiers on the Monte Carlo phase's conditions and
+    the campaign's circle, each with the launch counts from 0 and against
+    its plain twin (equal success flags; per-flight RMS within MC_RMS_GAP_M
+    where both succeed), POP_T ticks (RMS after POP_SETTLE): the fused
+    single-tick population
+    (N=25: K4 POP_T), the multi-tick one (N=20, K=20: K5 POP_T / 20), the
+    ``use_fused_admm`` one with the fused plant (K6 and K2 POP_T), the fused
+    single-tick one with the 1.5 m fallback (K4 POP_T), and
+    ``monte_carlo_mpc12`` (MC12_B
+    members on their own X500 bodies, MC12_T ticks: K10 MC12_T); then the
+    polished population (POLISH_B flights, POLISH_T ticks, no kernel) must
+    fly finite. Returns the results and, under ``"fly"``, each timed
+    population's ``fly(T)``."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_rigid import RigidBodyMPC
+    from unmanned_aerial_vehicles_tpu_torch.loop import (
+        FlightLoopConfig,
+        MonteCarloConfig,
+        batched_mpc_flight_rollout,
+        monte_carlo_mpc,
+        monte_carlo_mpc12,
+        sample_conditions,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    cond = sample_conditions(None, MonteCarloConfig(n_rollouts=MC_B, wind_std=0.8), device=dev)
+    mc = MonteCarloConfig(n_rollouts=MC_B, wind_std=0.8, settle_steps=POP_SETTLE)
+    fused = LinearMPC(LinearMPCConfig(use_fused_controller=True), device=dev)
+    fused20 = LinearMPC(LinearMPCConfig(horizon=POP_K5_N, use_fused_controller=True), device=dev)
+    admm = LinearMPC(LinearMPCConfig(use_fused_admm=True), device=dev)
+    tiers = {
+        "fused_tick": (fused, FlightLoopConfig(use_fused_tick=True),
+                       {"gpmpc_tick_fused": POP_T}),
+        "multitick": (fused20, FlightLoopConfig(use_fused_tick=True,
+                                                ticks_per_dispatch=POP_K5_K),
+                      {"gpmpc_multitick_fused": POP_T // POP_K5_K}),
+        "fused_admm": (admm, FlightLoopConfig(use_pallas_plant=True),
+                       {"admm_box_qp_fused_composite": POP_T,
+                        "allocation_plant_tick_fused": POP_T}),
+        "fused_tick_fallback": (fused, FlightLoopConfig(use_fused_tick=True, fallback_error_m=1.5),
+                                {"gpmpc_tick_fused": POP_T}),
+    }
+    fly = {key: (lambda T, plain=False, mpc=mpc, cfg=cfg: monte_carlo_mpc(
+        mpc, campaign_circle, T, mc=mc, loop_cfg=cfg, conditions=cond, device=dev,
+        plain_kernels=plain)) for key, (mpc, cfg, _) in tiers.items()}
+    eng = RigidBodyMPC(device=dev)
+    mc12 = MonteCarloConfig(n_rollouts=MC12_B, wind_std=0.8, settle_steps=MC12_SETTLE)
+    fly["mpc12"] = lambda T, plain=False: monte_carlo_mpc12(eng, campaign_circle, T, mc=mc12,
+                                                            device=dev, plain_kernels=plain)
+    expected = {key: counts for key, (_, _, counts) in tiers.items()}
+    expected["mpc12"] = {"rigid_body_rollout_fused": MC12_T}
+    scalars = ("success_rate", "rms_mean", "rms_p50", "rms_p90", "rms_p99", "worst_max_pos")
+    results = {}
+    for key, counts_expected in expected.items():
+        T = MC12_T if key == "mpc12" else POP_T
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fly[key](T)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: _cuda.launch_counts[k] for k in counts_expected}
+        t0 = time.perf_counter()
+        want = fly[key](T, True)
+        torch.cuda.synchronize()
+        seconds_plain = time.perf_counter() - t0
+        for name, n in counts_expected.items():
+            if counts[name] != n:
+                fail_fn(f"population tier {key}: {name} launched {counts[name]} times, "
+                        f"expected {n}")
+        if not torch.equal(got["success"], want["success"]):
+            fail_fn(f"population tier {key}: the kernel and plain twins disagree on which "
+                    "flights succeed")
+        both = got["success"] & want["success"]
+        gap = (float((got["rms_pos"] - want["rms_pos"])[both].abs().max())
+               if bool(both.any()) else 0.0)
+        results[key] = dict({s: float(got[s]) for s in scalars},
+                            plain={s: float(want[s]) for s in scalars}, rms_gap_m=gap,
+                            launches=counts, seconds=seconds, seconds_plain=seconds_plain)
+        print(f"population tier {key} ({MC12_B if key == 'mpc12' else MC_B} flights, {T} ticks): "
+              f"launches {counts}; success {float(got['success_rate']):.4f}, RMS mean "
+              f"{float(got['rms_mean']):.6f} m, p50 {float(got['rms_p50']):.6f}, p90 "
+              f"{float(got['rms_p90']):.6f}, worst max {float(got['worst_max_pos']):.4f} m "
+              f"(plain: success {float(want['success_rate']):.4f}, RMS mean "
+              f"{float(want['rms_mean']):.6f} m); max per-flight RMS gap to plain {gap:.3e} m; "
+              f"{seconds:.1f} s (plain {seconds_plain:.1f} s)")
+        if not gap <= MC_RMS_GAP_M:
+            fail_fn(f"population tier {key}: per-flight RMS gap {gap} > {MC_RMS_GAP_M}")
+    for key, kernel in (("fused_tick", "gpmpc_tick_fused"),
+                        ("multitick", "gpmpc_multitick_fused"),
+                        ("fused_admm", "admm_box_qp_fused_composite"),
+                        ("mpc12", "rigid_body_rollout_fused")):
+        kernels[kernel]["population"]["launches"] = results[key]["launches"][kernel]
+
+    # the polished population: each flight's active-set polish, no kernel
+    polish = LinearMPC(LinearMPCConfig(polish=True), device=dev)
+    pb, pr, px = sample_conditions(None, MonteCarloConfig(n_rollouts=POLISH_B, wind_std=0.8),
+                                   device=dev)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = batched_mpc_flight_rollout(polish, campaign_circle, POLISH_T, pb, pr, px, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in _cuda.launch_counts.items() if v}
+    finite = bool(torch.isfinite(outs["state"]).all())
+    print(f"population tier polish ({POLISH_B} flights, {POLISH_T} ticks, N="
+          f"{polish.config.horizon}): finite {finite}, kernel launches {launched or 'none'}, "
+          f"{seconds:.1f} s")
+    if not finite or launched:
+        fail_fn(f"the polished population: finite {finite}, launches {launched}")
+    results["polish"] = dict(finite=finite, seconds=seconds)
+    results["fly"] = fly
+    return results
+
+
+def time_population_tiers(fly: dict, staged_us: float, card: str, device_busy) -> dict:
+    """Microseconds per flight-tick of the three fused populations (slope
+    between T_POP_SLOPE's lengths over MC_B flights) and each one's
+    device-busy share over a profiler window of 60 ticks, beside the staged
+    population's."""
+    out = {}
+    for key in ("fused_tick", "multitick", "fused_admm"):
+        us_tick = slope_us(fly[key], T_POP_SLOPE)
+        busy_us, by_name = device_busy(fly[key], 60)
+        out[key] = dict(us_per_flight_tick=us_tick / MC_B, us_per_tick=us_tick,
+                        busy_us_per_tick=busy_us, idle_share=1.0 - busy_us / us_tick)
+        print(f"population tier {key}: {us_tick / MC_B:.4f} us per flight-tick ({us_tick:.2f} us "
+              f"per tick of {MC_B} flights, slope {T_POP_SLOPE[0]}->{T_POP_SLOPE[1]} ticks; the "
+              f"staged population through K16 {staged_us / MC_B:.4f}); profiler over 60 ticks: "
+              f"device busy {busy_us:.2f} us per tick, idle share {out[key]['idle_share']:.3f}; "
+              "by kernel (us per tick): "
+              + "; ".join(f"{name[:50]} {t / 60:.2f}" for t, name in by_name[:6])
+              + f"; card: {card}")
+    return out
+
+
+def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
+    """The multi-start cascade-PID tuner (TUNE_MS_STARTS starts, TUNE_MS_T
+    ticks of the CLI task, TUNE_MS_ITERS iterations, K1 forward and K13a
+    backward) flown as one batch (``tune_cascade_gains_multistart``) and
+    the same starts run one after another (``tune_parameters`` per start);
+    the best start must agree and every start's final loss within
+    TUNE_MS_RTOL relative. Host wall clocks of both, each ended by a
+    synchronize, with the batched run's launch counts."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control.cascade_pid import CascadePidGains
+    from unmanned_aerial_vehicles_tpu_torch.loop import FlightLoopConfig
+    from unmanned_aerial_vehicles_tpu_torch.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+    from unmanned_aerial_vehicles_tpu_torch.tuning import (
+        TuneConfig,
+        tune_cascade_gains_multistart,
+        tune_parameters,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.tuning.autotune import (
+        _cascade_loss_fn,
+        _cascade_population_loss_fn,
+        _cascade_theta,
+        _f32_gains,
+        _multistart_thetas,
+        _tune_stacked,
+    )
+
+    cfg = TuneConfig(iterations=TUNE_MS_ITERS, learning_rate=PID_TUNE_LR,
+                     settle_steps=TUNE_MS_SETTLE)
+    loop = FlightLoopConfig(use_pallas_plant=True, fused_tick_ad=True)
+    args = (tune_circle, TUNE_MS_T)
+    template = _f32_gains(CascadePidGains.default(device=dev), dev)
+    thetas = _multistart_thetas(_cascade_theta(template), TUNE_MS_STARTS, 0.3, 0)
+    common = (template, cfg, RigidBodyParams(), PID_CAMPAIGN_RATE_LOOP, loop, dev, False)
+    batched_loss = _cascade_population_loss_fn(*args, *common)
+    one_loss = _cascade_loss_fn(*args, *common)
+    # warm both routes (first calls allocate and load)
+    _tune_stacked(batched_loss, {k: v[:2] for k, v in thetas.items()}, 1, cfg.learning_rate)
+    tune_parameters(one_loss, {k: v[0] for k, v in thetas.items()}, 1, cfg.learning_rate)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = tune_cascade_gains_multistart(*args, n_starts=TUNE_MS_STARTS, tune_cfg=cfg,
+                                           rate_loop=PID_CAMPAIGN_RATE_LOOP, loop_cfg=loop,
+                                           device=dev)
+    float(result.final_loss)
+    batched_s = time.perf_counter() - t0
+    counts = {k: _cuda.launch_counts[k] for k in ("px4_plant_step_fused", "px4_plant_step_vjp")}
+    _, _, finals = _tune_stacked(batched_loss, thetas, cfg.iterations, cfg.learning_rate)
+    t0 = time.perf_counter()
+    runs = [tune_parameters(one_loss, {k: v[i] for k, v in thetas.items()}, cfg.iterations,
+                            cfg.learning_rate) for i in range(TUNE_MS_STARTS)]
+    seq = torch.stack([r[2] for r in runs])
+    float(seq.sum())
+    sequential_s = time.perf_counter() - t0
+    T, I = TUNE_MS_T, TUNE_MS_ITERS
+    # I flights with their backward, the final iterate's and start 0's
+    # initial loss: T (I + 2) K1 launches, (T - 1) I K13a (the last tick's
+    # new state enters no loss term)
+    expected = {"px4_plant_step_fused": T * (I + 2), "px4_plant_step_vjp": (T - 1) * I}
+    if counts != expected:
+        fail_fn(f"batched multi-start tuner: launches {counts}, expected {expected}")
+    best_b, best_s = int(torch.argmin(finals)), int(torch.argmin(seq))
+    rel = float(((finals - seq).abs() / seq.abs()).max())
+    print(f"multi-start tuner ({TUNE_MS_STARTS} starts, {T} ticks, {I} iterations, K1 + K13a): "
+          f"one batch {batched_s:.3f} s, one start after another {sequential_s:.3f} s "
+          f"({sequential_s / batched_s:.2f}x); best start {best_b} and {best_s}; final losses "
+          f"{[round(float(v), 6) for v in finals]}, max relative gap {rel:.3e}; launches "
+          f"{counts}; card: {card}")
+    if best_b != best_s or not rel <= TUNE_MS_RTOL:
+        fail_fn(f"batched multi-start tuner disagrees with the sequential starts: best "
+                f"{best_b} vs {best_s}, relative gap {rel}")
+    return dict(batched_s=batched_s, sequential_s=sequential_s, best=best_b, rel_gap=rel,
+                final_losses=[float(v) for v in finals], launches=counts)
 
 
 def main(parent: str | None = None) -> int:
@@ -3774,6 +4229,9 @@ def main(parent: str | None = None) -> int:
     # K14, K15, K16 and K1/K2 on a dispersed plant block
     tail, plant_block_check = check_tail_kernels(dev, gen, fail)
     kernels.update(tail)
+    # K4, K5, K6 and K10 on a grid of one block per flight or member
+    for name, rec in check_population_kernels(dev, fail).items():
+        kernels[name]["population"] = rec
     # the redesigned kernels against an older checkout's, in turns
     redesign = compare_with_parent(dev, parent)
 
@@ -4164,6 +4622,8 @@ def main(parent: str | None = None) -> int:
     drive_entry_points(dev, fail, kernels)
     populations = run_populations(dev, fail, kernels)
     fly_population = populations.pop("fly_mpc")
+    population_tiers = run_population_tiers(dev, fail, kernels)
+    fly_tiers = population_tiers.pop("fly")
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
@@ -4250,8 +4710,8 @@ def main(parent: str | None = None) -> int:
         print(f"  profiler, {label}: device busy {busy_us:.2f} us per tick of {tick_us:.2f} us, "
               f"idle share {idle_share[label]:.3f}; by kernel (us per tick): "
               + "; ".join(f"{name[:60]} {t / ticks:.2f}" for t, name in by_name[:8]))
-    # the 12-state family: microseconds per tick, slope between 400 and
-    # 2000 ticks (bench_controllers.py), the plain versions at shorter lengths
+    # the 12-state family: microseconds per tick, slope between 200 and
+    # 1000 ticks (T_SLOPE_12), the plain versions at shorter lengths
     us_12 = {
         "direct_rate12_fused": (slope_us(fam.direct_rate12_fused, T_SLOPE_12),
                                 slope_us(lambda T: fam.direct_rate12_fused(T, True),
@@ -4338,7 +4798,9 @@ def main(parent: str | None = None) -> int:
               f"({k['bound'][1]}); no single PyTorch call computes this function, so there "
               "is no library yardstick")
 
+    population_timing = time_population_tiers(fly_tiers, us_mc_tick, card, device_busy)
     tuner_seconds = time_tuner_iterations(dev)
+    multistart = time_multistart_tuner(dev, fail, card)
 
     phase_clock("phase 4")
     # ---- phase 5: result lines --------------------------------------------
@@ -4505,6 +4967,26 @@ def main(parent: str | None = None) -> int:
         "us_fill_k15_output": {
             n: kernels["rbf_kernel_matrix_pallas"][key]["fill_ms"] * 1e3
             for n, key in ((GRAM_SHAPES[0][0], "n800"), (GRAM_SHAPES[1][0], "corpus"))},
+        "population_kernels": {
+            name: {"flights": MC_B, "us": kernels[name]["population"]["ms"] * 1e3,
+                   "us_by_batch": {B: v * 1e3 for B, v in
+                                   kernels[name]["population"]["by_batch"].items()},
+                   "launches": kernels[name]["population"]["launches"],
+                   "max_abs_err": kernels[name]["population"]["err"],
+                   "bound_us": kernels[name]["population"]["bound"][0] * 1e3,
+                   "bound_us_by_batch": {B: v * 1e3 for B, v in
+                                         kernels[name]["population"]["bound_by_batch"].items()},
+                   "bound_by": kernels[name]["population"]["bound"][1],
+                   "plain_us": kernels[name]["population"]["plain_ms"] * 1e3}
+            for name in ("gpmpc_tick_fused", "gpmpc_multitick_fused",
+                         "admm_box_qp_fused_composite", "rigid_body_rollout_fused")},
+        "k10_population_n20": {
+            "us_by_batch": {B: v * 1e3 for B, v in
+                            kernels["rigid_body_rollout_fused"]["population"]["n20"]["by_batch"].items()},
+            "max_rel_err": kernels["rigid_body_rollout_fused"]["population"]["n20"]["err"]},
+        "population_tiers": population_tiers,
+        "us_per_flight_tick_population_tiers": population_timing,
+        "multistart_tuner": multistart,
         "k14_cycles_per_pass": {
             label: r["cycles_per_pass"]
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),

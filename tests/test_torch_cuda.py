@@ -337,3 +337,80 @@ def test_k11_on_the_factors_agrees_with_its_plain_version(cuda_device, plant, ho
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=0, atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K6", "K10"])
+def test_population_kernels_run_one_block_per_flight(cuda_device, kernel):
+    """K4, K5 and K6 with a flight axis and K10 with a member axis (a body
+    per member): one launch for the batch, every block bit-identical to a
+    one-flight launch on its operands, and the batch within 1e-4 (K10: 1e-5
+    of the state's size) of the plain version."""
+    from unmanned_aerial_vehicles_tpu_torch.loop import MonteCarloConfig, plant_block, sample_conditions
+    from unmanned_aerial_vehicles_tpu_torch.models.params import GZ_QUADROTOR_PARAMS, RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.ops import rigid_plant_pallas
+
+    B, N, dev = 9, 6, cuda_device
+    g = torch.Generator().manual_seed(19)
+    rnd = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev)
+    bodies, rates, x0 = sample_conditions(None, MonteCarloConfig(n_rollouts=B), device=dev)
+    block = plant_block(bodies, rates, B, dev)
+    statics = dict(rho=8.0, iterations=20, over_relax=1.6, dt=0.02, substeps=2,
+                   accel_lo=(-3.5, -3.5, -4.0), accel_hi=(3.5, 3.5, 6.0), yawrate_limit=0.8)
+    mpc = LinearMPC(LinearMPCConfig(horizon=N, use_fused_controller=True, use_fused_admm=True),
+                    device=dev)
+    m, n = mpc.n_constraints, mpc.n_primal
+    z, y = rnd(B, m, scale=0.3), rnd(B, m, scale=0.1)
+    tol = 1e-4
+    if kernel == "K4":
+        ref = torch.tensor([0.5, 1.0, 3.0, 0.0, 0.0, 0.0], device=dev).repeat(N)
+        w, misc = rnd(B, 6 * N, scale=0.02), rnd(B, 4, scale=0.02)
+        kw = dict(statics, n=N, fallback_error_m=1.0)
+        name, run, plain = "gpmpc_tick_fused", (lambda b=slice(None): tick_pallas.gpmpc_tick_fused(
+            mpc._tick_data, x0[b], w[b], ref, misc[b], z[b], y[b], block[b], **kw)), (
+            lambda: tick_pallas.gpmpc_tick_fused_plain(mpc._tick_data, x0, w, ref, misc, z, y,
+                                                       block, **kw))
+    elif kernel == "K5":
+        aux = torch.cat([x0[:, 0:6], rnd(B, 3, scale=0.02)], 1).contiguous()
+        xtail = (x0[:, 0:6].repeat(1, N) + rnd(B, 6 * N, scale=0.05)).contiguous()
+        refs = torch.tensor([0.5, 1.0, 3.0, 0.0, 0.0, 0.0], device=dev).repeat(4, N)
+        yaw = torch.zeros(4, device=dev)
+        kw = dict(statics, k_ticks=4, use_gp=False, n=N)
+        name, run, plain = "gpmpc_multitick_fused", (
+            lambda b=slice(None): tick_pallas.gpmpc_multitick_fused(
+                mpc._tick_data, None, x0[b], aux[b], xtail[b], z[b], y[b], refs, yaw, block[b],
+                **kw)), (lambda: tick_pallas.multitick_staged(mpc._tick_data, None, x0, aux, xtail,
+                                                             z, y, refs, yaw, block, **kw))
+    elif kernel == "K6":
+        f = rnd(B, n)
+        p0, minv_f = (-(f @ mpc._GMinv.T)).contiguous(), (f @ mpc._M_inv.T).contiguous()
+        lo = torch.cat([mpc._u_lo.expand(B, n), mpc._x_lo - rnd(B, 6 * N, scale=0.3)], 1)
+        hi = torch.cat([mpc._u_hi.expand(B, n), mpc._x_hi + rnd(B, 6 * N, scale=0.3)], 1)
+        args = lambda b: (mpc._P1_f32, p0[b], mpc._GMinvT_f32, minv_f[b], lo[b], hi[b], z[b],
+                          y[b], 8.0, 20, 1.6)
+        name, run, plain = "admm_box_qp_fused_composite", (
+            lambda b=slice(None): admm_pallas.admm_box_qp_fused_composite(
+                *args(b), SuT=mpc._SuT_f32)), (
+            lambda: admm_pallas.admm_box_qp_fused_composite_plain(*args(slice(None))))
+    else:
+        gz, _, xg = sample_conditions(None, MonteCarloConfig(n_rollouts=B, mass_jitter_pct=0.15),
+                                      body=GZ_QUADROTOR_PARAMS, device=dev)
+        U = ((gz.mass * gz.gravity)[:, None, None] * torch.tensor([1.0, 0, 0, 0], device=dev)
+             + rnd(B, 3, 4, scale=1e-3)).contiguous()
+        one = lambda b: RigidBodyParams(
+            mass=float(gz.mass[b]), k_drag_linear=float(gz.k_drag_linear[b]),
+            k_drag_angular=float(gz.k_drag_angular[b]), wind=tuple(float(v[b]) for v in gz.wind))
+        name = "rigid_body_rollout_fused"
+        run = lambda b=slice(None): (rigid_plant_pallas.rigid_body_rollout_fused(
+            xg[b], U[b], gz if isinstance(b, slice) else one(b), 0.02),)
+        plain = lambda: (rigid_plant_pallas.rigid_body_rollout_plain(xg, U, gz, 0.02),)
+        tol = 1e-5 * max(1.0, float(xg.abs().max()))
+    _cuda.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts[name] == 1
+    for g_, w_ in zip(got, plain()):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=tol)
+    for b in range(B):
+        for g_, s_ in zip(got, run(b)):
+            assert torch.equal(g_[b], s_)

@@ -1,18 +1,27 @@
 """Port parity for the Monte Carlo robustness study (``loop.monte_carlo``):
 the port's populations flown on the JAX package's own ``jax.random``
-conditions (``convert.monte_carlo_conditions_from_numpy``) against
-``monte_carlo_pid`` and ``monte_carlo_mpc`` of the JAX package, whose
-kernels run in interpret mode; ``robustness_stats`` on the same positions;
-``sample_conditions``' shapes and dispersion.
+conditions (``convert.monte_carlo_conditions_from_numpy``,
+``convert.rigid_conditions_from_numpy``) against ``monte_carlo_pid``,
+``monte_carlo_mpc`` and ``monte_carlo_mpc12`` of the JAX package, whose
+kernels run in interpret mode: every tier (staged, the fused controller,
+K6, polish, the fused single-tick and multi-tick tiers, the fallback);
+``robustness_stats`` on the same positions; ``sample_conditions``' shapes
+and dispersion.
 
 Tolerances:
 - Per-flight RMS 1e-4 m (the flight tests' bar), success flags equal.
   Both packages fly float32; the two agree to ~2e-7 m at this length.
+- ``monte_carlo_mpc12``: per-member RMS 1e-4 m. The JAX truth is the
+  model's RK4 step, the port's K10's plain version (``make_plant_math``,
+  the same expressions in another association), and the SQP engine's
+  float32 relinearisation and ADMM run through both frameworks' batched
+  products; at 32 ticks they agree to ~1e-6 m.
 - ``robustness_stats`` 1e-6 on the same positions (float32 reductions in
   other orders); NaN where the JAX package gives NaN.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+import unmanned_aerial_vehicles_tpu.ops.admm_pallas as j_admm_module
 from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPC as JMPC, LinearMPCConfig as JCfg
+from unmanned_aerial_vehicles_tpu.control.mpc_rigid import RigidBodyMPC as JRigidBodyMPC
 from unmanned_aerial_vehicles_tpu.gp.residual_gp import (
     ResidualGPConfig as JGPCfg,
     build_horizon_residuals as j_residuals,
@@ -30,14 +41,20 @@ from unmanned_aerial_vehicles_tpu.loop import (
     FlightLoopConfig as JLoopCfg,
     MonteCarloConfig as JMCCfg,
     monte_carlo_mpc as j_mc_mpc,
+    monte_carlo_mpc12 as j_mc_mpc12,
     monte_carlo_pid as j_mc_pid,
     sample_conditions as j_sample,
 )
 from unmanned_aerial_vehicles_tpu.loop.monte_carlo import robustness_stats as j_stats
-from unmanned_aerial_vehicles_tpu.models.px4_surrogate import PID_CAMPAIGN_RATE_LOOP as J_PID_RL
+from unmanned_aerial_vehicles_tpu.models import X500_PARAMS as J_X500
+from unmanned_aerial_vehicles_tpu.models.px4_surrogate import (
+    PID_CAMPAIGN_RATE_LOOP as J_PID_RL,
+    RateLoopParams as JRateLoopParams,
+)
 from unmanned_aerial_vehicles_tpu.trajectories import ramped_circle_reference as j_circle
 from unmanned_aerial_vehicles_tpu_torch import convert
 from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+from unmanned_aerial_vehicles_tpu_torch.control.mpc_rigid import RigidBodyMPC
 from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
     ResidualGPConfig,
     build_horizon_residuals,
@@ -80,6 +97,23 @@ def port_conditions(bodies, rate_loops, x0):
     return convert.monte_carlo_conditions_from_numpy(body, rates, np.asarray(x0), device="cpu")
 
 
+def port_rigid_conditions(bodies, x0):
+    body = {f.name: (tuple(np.asarray(w) for w in bodies.wind) if f.name == "wind"
+                     else np.asarray(getattr(bodies, f.name)))
+            for f in dataclasses.fields(bodies)}
+    return convert.rigid_conditions_from_numpy(body, np.asarray(x0), device="cpu")
+
+
+@pytest.fixture
+def jax_fused_admm_interpreted(monkeypatch):
+    """The JAX MPC calls its K6 without an interpret switch; route it
+    through the interpreter on the CPU, as ``tests/test_pallas_ops.py``
+    runs the kernel."""
+    monkeypatch.setattr(j_admm_module, "admm_box_qp_fused_composite",
+                        functools.partial(j_admm_module.admm_box_qp_fused_composite,
+                                          interpret=True))
+
+
 @pytest.fixture(scope="module")
 def conditions():
     """The JAX package's draw for seed 0, and the PID campaign's (the same
@@ -106,15 +140,17 @@ MPC_CASES = {
                                       dict(use_pallas_plant=True)),
     "fused_controller": (dict(use_fused_controller=True), dict()),
     "fallback": (dict(), dict(fallback_error_m=0.5)),
+    "fused_tick_k4": (dict(use_fused_controller=True),
+                      dict(use_fused_tick=True, ticks_per_dispatch=4)),
+    "fused_tick_fallback": (dict(use_fused_controller=True),
+                            dict(use_fused_tick=True, fallback_error_m=0.5)),
+    "fused_admm_pallas_plant": (dict(use_fused_admm=True), dict(use_pallas_plant=True)),
 }
 
 
-@pytest.mark.parametrize("case", sorted(MPC_CASES))
-def test_monte_carlo_mpc_matches_jax(conditions, case):
-    """The default tier (batched composite ADMM), the fused controller (K16's
-    plain version against the JAX package's vmapped K3), with K2's plant
-    block, and the hover fallback (0.5 m: it engages on the ramp)."""
-    mpc_kw, loop_kw = MPC_CASES[case]
+def fly_both(conditions, mpc_kw, loop_kw):
+    """One tier's population through the JAX package (its kernels in
+    interpret mode) and through the port (their plain versions)."""
     jm = JMPC(JCfg(horizon=N, admm_iterations=ITERS, **mpc_kw), dtype=jnp.float32)
     tm = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=ITERS, **mpc_kw), device="cpu")
     want = jax.jit(lambda: j_mc_mpc(jm, j_ref, T, mc=JMCCfg(**MC),
@@ -122,6 +158,18 @@ def test_monte_carlo_mpc_matches_jax(conditions, case):
     got = monte_carlo_mpc(tm, t_ref, T, mc=MonteCarloConfig(**MC),
                           loop_cfg=FlightLoopConfig(**loop_kw), conditions=conditions[0],
                           device="cpu")
+    return got, want
+
+
+@pytest.mark.parametrize("case", sorted(MPC_CASES))
+def test_monte_carlo_mpc_matches_jax(conditions, case, jax_fused_admm_interpreted):
+    """The default tier (batched composite ADMM), the fused controller (K16's
+    plain version against the JAX package's vmapped K3), with K2's plant
+    block, the hover fallback (0.5 m: it engages on the ramp), the
+    multi-tick population (K5's plain version, K=4, against the JAX
+    package's vmapped K5), the single-tick population with the fallback
+    (K4's) and K6's with K2's plant block."""
+    got, want = fly_both(conditions, *MPC_CASES[case])
     assert_populations_agree(got, want)
 
 
@@ -209,19 +257,84 @@ def test_sample_conditions_shapes_and_dispersion():
     torch.testing.assert_close(pid[1].hover_thrust_norm, 0.7 * rates.hover_thrust_norm)
 
 
+MC12_B, MC12_T, MC12_K = 3, 32, 8
+MC12_RMS_TOL_M = 1e-4
+
+
 @pytest.mark.parametrize("path", ["fused_tick", "fused_admm", "polish", "mpc12"])
-def test_queued_population_tiers_raise_and_point_at_the_roadmap(path):
-    tm = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=2,
-                                   use_fused_admm=path == "fused_admm", polish=path == "polish",
-                                   use_fused_controller=path == "fused_tick"), device="cpu")
+def test_queued_population_tiers_raise_and_point_at_the_roadmap(conditions, path,
+                                                                jax_fused_admm_interpreted):
+    """The population tiers that were queued (they raised until the
+    population tier was ported) fly against the JAX package: the
+    single-tick population (K4's plain version against the JAX package's
+    vmapped K4), K6's population (its plain version against the vmapped
+    interpret-mode K6), the polished one (each flight's active-set polish)
+    and ``monte_carlo_mpc12`` on the JAX package's draw (the torque SQP
+    engine on its nominal model against X500 members with 15% mass jitter,
+    K=8, 32 ticks)."""
+    if path == "mpc12":
+        jmc = JMCCfg(n_rollouts=MC12_B, mass_jitter_pct=0.15, settle_steps=8)
+        bodies, _, x0 = j_sample(jax.random.PRNGKey(jmc.seed), jmc, J_X500, JRateLoopParams())
+        want = jax.jit(lambda: j_mc_mpc12(JRigidBodyMPC(), lambda t: j_ref(t), MC12_T, mc=jmc,
+                                          ticks_per_dispatch=MC12_K))()
+        got = monte_carlo_mpc12(RigidBodyMPC(device="cpu"), t_ref, MC12_T,
+                                mc=MonteCarloConfig(n_rollouts=MC12_B, mass_jitter_pct=0.15,
+                                                    settle_steps=8),
+                                ticks_per_dispatch=MC12_K,
+                                conditions=port_rigid_conditions(bodies, x0), device="cpu")
+        np.testing.assert_array_equal(got["success"].numpy(), np.asarray(want["success"]))
+        np.testing.assert_allclose(got["rms_pos"].numpy(), np.asarray(want["rms_pos"]), rtol=0,
+                                   atol=MC12_RMS_TOL_M)
+        return
+    mpc_kw = dict(fused_tick=dict(use_fused_controller=True),
+                  fused_admm=dict(use_fused_admm=True), polish=dict(polish=True))[path]
+    loop_kw = dict(use_fused_tick=True) if path == "fused_tick" else {}
+    got, want = fly_both(conditions, mpc_kw, loop_kw)
+    assert_populations_agree(got, want)
+
+
+def test_monte_carlo_mpc12_zero_jitter_members_are_identical():
+    """Without dispersion every member flies the same flight bit for bit
+    (the batched relinearisation, ADMM and plant treat each member alike),
+    and a mass jitter spreads the members' RMS."""
+    zero = MonteCarloConfig(n_rollouts=3, mass_jitter_pct=0.0, drag_jitter_pct=0.0,
+                            tau_jitter_pct=0.0, hover_thrust_jitter_pct=0.0, wind_std=0.0,
+                            initial_pos_std=0.0, initial_vel_std=0.0, settle_steps=8)
+    eng = RigidBodyMPC(device="cpu")
+    same = monte_carlo_mpc12(eng, t_ref, 16, mc=zero, device="cpu")
+    assert torch.isfinite(same["rms_pos"]).all()
+    assert torch.equal(same["rms_pos"], same["rms_pos"][:1].expand(3))
+    spread = monte_carlo_mpc12(eng, t_ref, 16, device="cpu",
+                               mc=dataclasses.replace(zero, mass_jitter_pct=0.15))
+    assert float(spread["rms_pos"].std()) > 0.0
+
+
+def test_population_tier_checks():
+    """The tiers' refusals: a multi-tick population takes no residual_fn
+    (its GP belongs in the kernel), a single-tick population no tightening,
+    and a batched K5 no tightening either."""
+    tm = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=2, use_fused_controller=True),
+                   device="cpu")
     mc = MonteCarloConfig(n_rollouts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "mpc12":
-            monte_carlo_mpc12(None, t_ref, 4, mc=mc)
-        else:
-            monte_carlo_mpc(tm, t_ref, 4, mc=mc, device="cpu",
-                            loop_cfg=FlightLoopConfig(use_fused_tick=path == "fused_tick",
-                                                      ticks_per_dispatch=2))
+    with pytest.raises(ValueError, match="gp_posterior"):
+        monte_carlo_mpc(tm, t_ref, 4, mc=mc, device="cpu", residual_fn=lambda X, U: X[1:],
+                        loop_cfg=FlightLoopConfig(use_fused_tick=True, ticks_per_dispatch=2))
+    tight = LinearMPC(LinearMPCConfig(horizon=N, admm_iterations=2, use_fused_controller=True,
+                                      tightening_factor=2.0), device="cpu")
+    with pytest.raises(ValueError, match="tightening"):
+        monte_carlo_mpc(tight, t_ref, 4, mc=mc, device="cpu",
+                        loop_cfg=FlightLoopConfig(use_fused_tick=True))
+    from unmanned_aerial_vehicles_tpu_torch.ops.tick_pallas import GPRows, gpmpc_multitick_fused
+
+    zeros = lambda *shape: torch.zeros(*shape)
+    rows = GPRows(*(zeros(1) for _ in range(6)), kinv=zeros(1, 1), y_std=zeros(6))
+    m, Nnx = 10 * N, 6 * N
+    with pytest.raises(ValueError, match="one flight"):
+        gpmpc_multitick_fused(tm._tick_data, rows, zeros(2, 12), zeros(2, 9), zeros(2, Nnx),
+                              zeros(2, m), zeros(2, m), zeros(2, Nnx), zeros(2), zeros(2, 10),
+                              k_ticks=2, use_gp=True, rho=8.0, iterations=2, over_relax=1.6,
+                              dt=0.02, substeps=2, accel_lo=(-3.5,) * 3, accel_hi=(3.5,) * 3,
+                              yawrate_limit=0.8, n=N, tighten_kappa=2.0)
 
 
 def test_populations_default_to_cuda_and_refuse_without_it():

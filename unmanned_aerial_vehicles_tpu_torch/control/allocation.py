@@ -3,7 +3,10 @@
 ``geometric_control_allocation``: desired world acceleration + yaw ->
 normalized thrust, attitude setpoint and body-rate command through an
 attitude PID (Kp=3.2, Ki=0.6, Kd=0.6) whose clipped error integral is the
-carried state.
+carried state. ``torque_to_px4_rates`` converts a torque-input MPC's
+command into PX4 body rates and normalized thrust; ``with_hover_fallback``
+wraps a controller so that a command that is not finite becomes the hover
+command.
 """
 
 from __future__ import annotations
@@ -83,3 +86,49 @@ def geometric_control_allocation(
         attitude_setpoint,
         AttitudeLoopState(integral=integral),
     )
+
+
+def torque_to_px4_rates(
+    u_mpc: torch.Tensor,
+    mass: float = 2.0,
+    Jx: float = 0.0217,
+    Jy: float = 0.0217,
+    Jz: float = 0.04,
+    kp_att: float = 5.0,
+    gravity: float = 9.81,
+):
+    """Torque + thrust MPC output ``[T, tau_x, tau_y, tau_z]`` -> ``(rate_cmd
+    (3,), thrust_norm)``: the reference's conversion, with its 0.05 s
+    feed-forward constant and its asymmetric clips (thrust to [0.30, 0.80]
+    of ``m g``, roll and pitch rates to 3, yaw rate to 2)."""
+    uT, tau = u_mpc[0], u_mpc[1:4]
+    thrust_norm = torch.clamp(uT / (mass * gravity), 0.30, 0.80)
+    alpha = tau / torch.tensor([Jx, Jy, Jz], dtype=u_mpc.dtype, device=u_mpc.device)
+    dt_control = 0.05
+    rate_cmd = alpha * dt_control * kp_att
+    rate_cmd = torch.stack([
+        torch.clamp(rate_cmd[0], -3.0, 3.0),
+        torch.clamp(rate_cmd[1], -3.0, 3.0),
+        torch.clamp(rate_cmd[2], -2.0, 2.0),
+    ])
+    return rate_cmd, thrust_norm
+
+
+def with_hover_fallback(controller_fn, hover_control=None):
+    """Wrap a ``(*args) -> u`` or ``(*args) -> (u, *rest)`` controller with
+    the reference's solver-failure behaviour: a command that is not finite
+    everywhere is replaced by the hover command. The check is a
+    ``torch.where`` on the output, so it needs no host read.
+    ``hover_control`` defaults to the zero-acceleration command (zeros of
+    ``u``'s shape: the fused loops' convention, where allocation adds the
+    gravity compensation)."""
+
+    def wrapped(*args, **kwargs):
+        out = controller_fn(*args, **kwargs)
+        u, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
+        hover = (torch.zeros_like(u) if hover_control is None
+                 else torch.as_tensor(hover_control, dtype=u.dtype, device=u.device))
+        safe = torch.where(torch.isfinite(u).all(), u, hover)
+        return (safe, *rest) if rest else safe
+
+    return wrapped

@@ -364,18 +364,30 @@ def mpc_theta_from_numpy(theta: Mapping, device=None) -> dict:
     return {k: _t(v, torch.float32, dev) for k, v in theta.items()}
 
 
-def monte_carlo_conditions_from_numpy(body_fields: Mapping, rate_fields: Mapping, x0,
-                                      device=None):
-    """A population's ``(bodies, rate_loops, x0)`` from the JAX package's
-    ``sample_conditions`` (its batched ``RigidBodyParams`` and
-    ``RateLoopParams`` fields as mappings of ``(B,)`` arrays, the wind a
-    tuple of three or ``(B, 3)``; ``x0 (B, 12)``), every field a float32
-    tensor on ``device``."""
+def rigid_conditions_from_numpy(body_fields: Mapping, x0, device=None):
+    """A population's per-member true plants ``(bodies, x0)`` from the JAX
+    package's ``sample_conditions`` (its batched ``RigidBodyParams`` fields
+    as a mapping of ``(B,)`` arrays, the wind a tuple of three or ``(B,
+    3)``; ``x0 (B, 12)``): ``bodies`` a ``RigidBodyParams`` whose every
+    field is a ``(B,)`` float32 tensor on ``device`` (``monte_carlo_mpc12``'s
+    ``conditions``)."""
     dev = resolve_device(device)
     f = lambda a: _t(np.asarray(a, np.float32), torch.float32, dev)
     body = {k: f(v) for k, v in body_fields.items() if k != "wind"}
     wind = body_fields["wind"]
     body["wind"] = tuple(f(w) for w in (wind if isinstance(wind, (tuple, list))
                                         else np.asarray(wind).T))
-    rates = {k: f(v) for k, v in rate_fields.items()}
-    return RigidBodyParams(**body), RateLoopParams(**rates), f(x0)
+    return RigidBodyParams(**body), f(x0)
+
+
+def monte_carlo_conditions_from_numpy(body_fields: Mapping, rate_fields: Mapping, x0,
+                                      device=None):
+    """A population's ``(bodies, rate_loops, x0)`` from the JAX package's
+    ``sample_conditions`` (``rigid_conditions_from_numpy``'s bodies and
+    start, and the batched ``RateLoopParams`` fields as a mapping of
+    ``(B,)`` arrays), every field a float32 tensor on ``device``."""
+    dev = resolve_device(device)
+    bodies, x0 = rigid_conditions_from_numpy(body_fields, x0, dev)
+    rates = {k: _t(np.asarray(v, np.float32), torch.float32, dev)
+             for k, v in rate_fields.items()}
+    return bodies, RateLoopParams(**rates), x0

@@ -29,6 +29,15 @@
 // (rollout<kRes>). Lanes 0-11 write one component each of each step's row.
 // The arithmetic is rigid_rk4's, so the outputs equal the one-thread
 // kernel's bit for bit.
+//
+// A population (loop/monte_carlo.py monte_carlo_mpc12: each member's true
+// plant its own sampled body) launches a grid of one warp per member:
+// block b reads member b's start, controls, residuals and body from
+// device memory (rigid_rollout_batched_launch) and writes its rows, so
+// each block runs the one-member arithmetic and agrees with a one-member
+// launch bit for bit. The blocks are independent warps, so the card runs
+// them all at once up to its resident-warp limit; the bound at B members
+// is B times one member's bytes and operations.
 
 #include <cuda_runtime.h>
 
@@ -74,20 +83,30 @@ __device__ __forceinline__ void rollout(float s[12], const float* __restrict__ u
   }
 }
 
+// Block m rolls member m out: x0 (12), u (n x 4), res (n x 12) and out
+// (n x 12) are member m's rows; its body is bodies[m], or `one` where
+// `bodies` is null (a one-member launch passes its body by value).
 __global__ void __launch_bounds__(kThreads)
 rigid_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ u,
                      const float* __restrict__ res, float* __restrict__ out, int n, int substeps,
-                     uav::RK4Step st, uav::RigidBody b) {
+                     uav::RK4Step st, uav::RigidBody one,
+                     const uav::RigidBody* __restrict__ bodies) {
   __shared__ float ctrl[4 * kChunk];
   __shared__ float resid[12 * kChunk];
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x, member = blockIdx.x;
+  const uav::RigidBody b = bodies == nullptr ? one : bodies[member];
+  x0 += member * 12;
+  u += (size_t)member * n * 4;
+  out += (size_t)member * n * 12;
   float s[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) s[i] = __ldg(x0 + i);
-  if (res == nullptr)
+  if (res == nullptr) {
     rollout<false>(s, u, res, out, n, substeps, st, b, lane, ctrl, resid);
-  else
+  } else {
+    res += (size_t)member * n * 12;
     rollout<true>(s, u, res, out, n, substeps, st, b, lane, ctrl, resid);
+  }
 }
 
 }  // namespace
@@ -97,6 +116,20 @@ extern "C" int rigid_rollout_launch(const float* x0, const float* u, const float
                                     const uav::RigidBody* body, void* stream) {
   if (n < 0 || substeps < 0) return (int)cudaErrorInvalidValue;
   rigid_rollout_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(x0, u, res, out, n, substeps,
-                                                                 *st, *body);
+                                                                 *st, *body, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// `members` rollouts, one warp each, member m on bodies[m] (device memory,
+// laid out as ops/rigid_plant_pallas.py _RigidBody): x0 (members x 12), u
+// (members x n x 4), res (members x n x 12, or null), out (members x n x 12).
+extern "C" int rigid_rollout_batched_launch(const float* x0, const float* u, const float* res,
+                                            float* out, int n, int substeps, int members,
+                                            const uav::RK4Step* st,
+                                            const uav::RigidBody* bodies, void* stream) {
+  if (n < 0 || substeps < 0 || members < 1 || bodies == nullptr)
+    return (int)cudaErrorInvalidValue;
+  rigid_rollout_kernel<<<members, kThreads, 0, (cudaStream_t)stream>>>(
+      x0, u, res, out, n, substeps, *st, uav::RigidBody{}, bodies);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// The single-tick fused kernels, one thread block per call:
+// The single-tick fused kernels, one thread block per call (K4 and K6: one
+// block per flight of a population, below):
 //
 //   K14 admm_explicit_kernel  replaces the JAX package's
 //      ops/admm_pallas.py:admm_box_qp_fused (pallas_call at :107, body
@@ -64,6 +65,16 @@
 // approach it.
 //
 // Every sum runs in a fixed order, so two launches agree bit for bit.
+//
+// A population (loop/closed_loop.py batched_mpc_flight_rollout) launches K4
+// and K6 as a grid of one block per flight: block b reads and writes flight
+// b's rows of the per-flight operands (tick_flight, admm_flight below) and
+// shares the rest (K4: the tick data, ref and tight; K6: P1's factors), so
+// each block runs the one-flight kernel's arithmetic on its flight and
+// agrees with a one-flight launch bit for bit. The blocks keep their
+// 512 threads and one-block-an-SM register budget, so B flights run in
+// ceil(B / 132) waves on an H100; the bound at B flights is B times one
+// flight's bytes and operations at the card's rates.
 
 #include <cuda_runtime.h>
 
@@ -127,6 +138,41 @@ constexpr int kNu = 4;
 constexpr int kNx = 6;
 
 __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// Flight b's K4 operands: its rows of ctrl_state, w, z, y, state, misc and
+// the plant block, and of every output.
+__device__ __forceinline__ SingleTickOperands tick_flight(const SingleTickOperands& O, int b,
+                                                          int m, int Nnu, int Nnx) {
+  SingleTickOperands F = O;
+  F.x0 += b * 12;
+  F.w += b * Nnx;
+  F.z_in += b * m;
+  F.y_in += b * m;
+  F.state += b * 12;
+  F.misc += b * 4;
+  F.plant_row += b * 10;
+  F.z_out += b * m;
+  F.y_out += b * m;
+  F.u_out += b * Nnu;
+  F.xtail_out += b * Nnx;
+  F.packed += b * 25;
+  return F;
+}
+
+// Flight b's K6 operands: its p0, M^-1 f, bounds, z and y, and its outputs.
+__device__ __forceinline__ AdmmOperands admm_flight(const AdmmOperands& O, int b, int n, int m) {
+  AdmmOperands F = O;
+  F.p0 += b * m;
+  F.minvf += b * n;
+  F.lower += b * m;
+  F.upper += b * m;
+  F.z_in += b * m;
+  F.y_in += b * m;
+  F.u_out += b * n;
+  F.z_out += b * m;
+  F.y_out += b * m;
+  return F;
+}
 
 template <bool kSharedP1>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -583,12 +629,13 @@ constexpr int kCopyChunk = 16384;
 template <bool kSharedP1>
 __global__ void __launch_bounds__(kTickThreads, 1)
 gpmpc_tick_kernel(const __grid_constant__ SingleTickParams P,
-                  const __grid_constant__ SingleTickOperands O) {
+                  const __grid_constant__ SingleTickOperands Og) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int nth = kTickThreads;
   const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  const SingleTickOperands O = tick_flight(Og, blockIdx.x, m, Nnu, Nnx);
   const int m4 = round4(m);
   SECTION_START(t_whole);
 
@@ -785,12 +832,13 @@ controller_kernel(const __grid_constant__ SingleTickParams P,
 template <int kVariant>
 __global__ void __launch_bounds__(kTickThreads, 1)
 admm_factored_kernel(const __grid_constant__ AdmmParams P,
-                     const __grid_constant__ AdmmOperands O) {
+                     const __grid_constant__ AdmmOperands Og) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x;
   constexpr int nth = kTickThreads;
   const int n = P.n, m = P.m;
+  const AdmmOperands O = admm_flight(Og, blockIdx.x, n, m);
   SECTION_START(t_whole);
 
   // shared memory layout (ops/admm_pallas.py factored_shared_memory_bytes):
@@ -853,18 +901,20 @@ admm_factored_kernel(const __grid_constant__ AdmmParams P,
 
 // Raise the block's shared-memory limit once per size and instantiation
 // (a host-side call, kept out of the per-launch path and out of CUDA graph
-// captures), then launch one block on `stream`.
+// captures), then launch `blocks` blocks (K4 and K6: one per flight; the
+// others one) on `stream`.
 template <class Params, class Operands>
-int launch_one_block(void (*kernel)(const Params, const Operands), int* configured,
-                     const Params* params, const Operands* ops, int smem_bytes, void* stream,
-                     int threads = kThreads) {
+int launch_blocks(void (*kernel)(const Params, const Operands), int* configured,
+                  const Params* params, const Operands* ops, int smem_bytes, void* stream,
+                  int threads = kThreads, int blocks = 1) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
   if (smem_bytes > *configured) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
     *configured = smem_bytes;
   }
-  kernel<<<1, threads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
   return (int)cudaGetLastError();
 }
 
@@ -874,26 +924,27 @@ int configured_bytes[14] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, 
 
 extern "C" int admm_composite_launch(const AdmmParams* params, const AdmmOperands* ops,
                                      int p1_shared, int smem_bytes, void* stream) {
-  return p1_shared ? launch_one_block(admm_composite_kernel<true>, &configured_bytes[0], params,
-                                      ops, smem_bytes, stream)
-                   : launch_one_block(admm_composite_kernel<false>, &configured_bytes[1],
-                                      params, ops, smem_bytes, stream);
+  return p1_shared ? launch_blocks(admm_composite_kernel<true>, &configured_bytes[0], params,
+                                   ops, smem_bytes, stream)
+                   : launch_blocks(admm_composite_kernel<false>, &configured_bytes[1],
+                                   params, ops, smem_bytes, stream);
 }
 
-// K6 on P1's factors (ops->SuT set) and K3: `variant` is one of the
-// factors' variants (kFactorsL2, kFactorsRegs20, kFactorsRegs25).
+// K6 on P1's factors (ops->SuT set) for `flights` QPs, one block each:
+// `variant` is one of the factors' variants (kFactorsL2, kFactorsRegs20,
+// kFactorsRegs25).
 extern "C" int admm_factored_launch(const AdmmParams* params, const AdmmOperands* ops,
-                                    int variant, int smem_bytes, void* stream) {
+                                    int variant, int smem_bytes, int flights, void* stream) {
   switch (variant) {
     case kFactorsRegs20:
-      return launch_one_block(admm_factored_kernel<kFactorsRegs20>, &configured_bytes[8],
-                              params, ops, smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_factored_kernel<kFactorsRegs20>, &configured_bytes[8], params,
+                           ops, smem_bytes, stream, kTickThreads, flights);
     case kFactorsRegs25:
-      return launch_one_block(admm_factored_kernel<kFactorsRegs25>, &configured_bytes[10],
-                              params, ops, smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_factored_kernel<kFactorsRegs25>, &configured_bytes[10], params,
+                           ops, smem_bytes, stream, kTickThreads, flights);
     default:
-      return launch_one_block(admm_factored_kernel<kFactorsL2>, &configured_bytes[9], params,
-                              ops, smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_factored_kernel<kFactorsL2>, &configured_bytes[9], params, ops,
+                           smem_bytes, stream, kTickThreads, flights);
   }
 }
 
@@ -902,23 +953,24 @@ extern "C" int gpmpc_controller_launch(const SingleTickParams* params,
                                        int smem_bytes, void* stream) {
   switch (variant) {
     case kFactorsRegs20:
-      return launch_one_block(controller_kernel<kFactorsRegs20>, &configured_bytes[2], params,
-                              ops, smem_bytes, stream, kTickThreads);
+      return launch_blocks(controller_kernel<kFactorsRegs20>, &configured_bytes[2], params,
+                           ops, smem_bytes, stream, kTickThreads);
     case kFactorsRegs25:
-      return launch_one_block(controller_kernel<kFactorsRegs25>, &configured_bytes[11], params,
-                              ops, smem_bytes, stream, kTickThreads);
+      return launch_blocks(controller_kernel<kFactorsRegs25>, &configured_bytes[11], params,
+                           ops, smem_bytes, stream, kTickThreads);
     default:
-      return launch_one_block(controller_kernel<kFactorsL2>, &configured_bytes[3], params, ops,
-                              smem_bytes, stream, kTickThreads);
+      return launch_blocks(controller_kernel<kFactorsL2>, &configured_bytes[3], params, ops,
+                           smem_bytes, stream, kTickThreads);
   }
 }
 
+// K4 for `flights` flights, one block each.
 extern "C" int gpmpc_tick_launch(const SingleTickParams* params, const SingleTickOperands* ops,
-                                 int p1_shared, int smem_bytes, void* stream) {
-  return p1_shared ? launch_one_block(gpmpc_tick_kernel<true>, &configured_bytes[4], params, ops,
-                                      smem_bytes, stream, kTickThreads)
-                   : launch_one_block(gpmpc_tick_kernel<false>, &configured_bytes[5], params, ops,
-                                      smem_bytes, stream, kTickThreads);
+                                 int p1_shared, int smem_bytes, int flights, void* stream) {
+  return p1_shared ? launch_blocks(gpmpc_tick_kernel<true>, &configured_bytes[4], params, ops,
+                                   smem_bytes, stream, kTickThreads, flights)
+                   : launch_blocks(gpmpc_tick_kernel<false>, &configured_bytes[5], params, ops,
+                                   smem_bytes, stream, kTickThreads, flights);
 }
 
 // The section counters of K4 (ops/tick_pallas.py SINGLE_TICK_SECTIONS), K3
@@ -936,16 +988,16 @@ extern "C" int admm_explicit_launch(const ExplicitParams* params, const Explicit
                                     int variant, int smem_bytes, void* stream) {
   switch (variant) {
     case 1:
-      return launch_one_block(admm_explicit_kernel<3, 6>, &configured_bytes[6], params, ops,
-                              smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_explicit_kernel<3, 6>, &configured_bytes[6], params, ops,
+                           smem_bytes, stream, kTickThreads);
     case 2:
-      return launch_one_block(admm_explicit_kernel<4, 7>, &configured_bytes[7], params, ops,
-                              smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_explicit_kernel<4, 7>, &configured_bytes[7], params, ops,
+                           smem_bytes, stream, kTickThreads);
     case 3:
-      return launch_one_block(admm_explicit_kernel<4, 8>, &configured_bytes[13], params, ops,
-                              smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_explicit_kernel<4, 8>, &configured_bytes[13], params, ops,
+                           smem_bytes, stream, kTickThreads);
     default:
-      return launch_one_block(admm_explicit_kernel<0, 0>, &configured_bytes[12], params, ops,
-                              smem_bytes, stream, kTickThreads);
+      return launch_blocks(admm_explicit_kernel<0, 0>, &configured_bytes[12], params, ops,
+                           smem_bytes, stream, kTickThreads);
   }
 }

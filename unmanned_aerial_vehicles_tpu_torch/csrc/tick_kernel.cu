@@ -86,6 +86,15 @@
 //
 // loop_precision: both modes compute in float32 with FMAs here. Every sum
 // runs in a fixed order, so a second launch is bit-identical.
+//
+// A population (loop/closed_loop.py batched_mpc_flight_rollout) launches
+// the untightened kernel as a grid of one block per flight: block b reads
+// and writes flight b's rows of the carries, the plant block and the
+// outputs (flight_operands) and shares the operators, the GP rows and the
+// references, so each block runs the one-flight arithmetic and agrees with
+// a one-flight launch bit for bit. At N = 20 a block's shared memory
+// (~176 KB) leaves one block an SM: 256 flights run in two waves over an
+// H100's 132 SMs. The tightened cluster kernel takes one flight.
 
 #include <cuda_runtime.h>
 
@@ -116,6 +125,26 @@ struct TickOperands {
 };
 
 namespace {
+
+// Flight b's operands: its rows of the carries in and out, the plant block
+// and the packed rows (K x 32).
+__device__ __forceinline__ TickOperands flight_operands(const TickOperands& O, int b, int k_ticks,
+                                                        int m, int Nnx) {
+  TickOperands F = O;
+  F.state_in += b * 12;
+  F.aux_in += b * 9;
+  F.xtail_in += b * Nnx;
+  F.z_in += b * m;
+  F.y_in += b * m;
+  F.plant_row += b * 10;
+  F.packed += b * k_ticks * 32;
+  F.state_out += b * 12;
+  F.aux_out += b * 9;
+  F.xtail_out += b * Nnx;
+  F.z_out += b * m;
+  F.y_out += b * m;
+  return F;
+}
 
 constexpr int kThreads = 512;              // ops/tick_pallas.py KERNEL_THREADS
 constexpr int kTightThreads = 256;         // TIGHT_KERNEL_THREADS: the tightened cluster's blocks
@@ -258,18 +287,20 @@ __device__ __noinline__ void variance_worker(const TickParams& P, const TickOper
 template <int kNth, bool kTighten>
 __global__ void __launch_bounds__(kNth, 1)
 gpmpc_multitick_kernel(const __grid_constant__ TickParams P,
-                       const __grid_constant__ TickOperands O) {
+                       const __grid_constant__ TickOperands Og) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int nth = kNth, gp_nth = kNth - 32;   // warps 1.. run the GP and the shift
   if constexpr (kTighten) {
     if (uav::cluster_rank() != 0) {
-      variance_worker(P, O, sm, tid);
+      variance_worker(P, Og, sm, tid);
       return;
     }
   }
   const int N = P.n, m = P.m, Nnu = N * kNu, Nnx = N * kNx, npm = m + Nnu;
+  // the tightened kernel's grid is one flight's cluster
+  const TickOperands O = flight_operands(Og, kTighten ? 0 : blockIdx.x, P.k_ticks, m, Nnx);
   const int m4 = (m + 3) & ~3;
 
   // shared memory layout (ops/tick_pallas.py shared_memory_bytes); P1, va
@@ -444,11 +475,12 @@ int configure_tightened(int cluster, int smem_bytes) {
 
 }  // namespace
 
-// One block of kThreads on `stream`; with params->tighten one cluster of
-// `cluster` blocks of kTightThreads (rank 0 the tick, the others variance
-// workers).
+// One block of kThreads per flight (`flights` of them) on `stream`; with
+// params->tighten one cluster of `cluster` blocks of kTightThreads (rank 0
+// the tick, the others variance workers) for one flight.
 extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperands* ops,
-                                      int cluster, int smem_bytes, void* stream) {
+                                      int cluster, int smem_bytes, int flights, void* stream) {
+  if (flights < 1 || (params->tighten && flights != 1)) return (int)cudaErrorInvalidValue;
   if (params->tighten) {
     const int err = configure_tightened(cluster, smem_bytes);
     if (err != 0) return err;
@@ -460,7 +492,7 @@ extern "C" int gpmpc_multitick_launch(const TickParams* params, const TickOperan
       configure(gpmpc_multitick_kernel<kThreads, false>, &configured_bytes[0], smem_bytes);
   if (err != 0) return err;
   gpmpc_multitick_kernel<kThreads, false>
-      <<<1, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
+      <<<flights, kThreads, smem_bytes, (cudaStream_t)stream>>>(*params, *ops);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ from .rigid_loop import (
     ilqr_multitick_rollout,
     make_attitude_recovery_fallback,
     rigid_multitick_fused,
+    sqp_multitick_population,
     sqp_multitick_rollout,
 )
 
@@ -38,5 +39,5 @@ __all__ = [
     "monte_carlo_pid", "robustness_stats", "sample_conditions",
     "MultiTickCarry", "direct_rate_multitick_fused", "ilqr_multitick_rollout",
     "make_attitude_recovery_fallback",
-    "rigid_multitick_fused", "sqp_multitick_rollout",
+    "rigid_multitick_fused", "sqp_multitick_population", "sqp_multitick_rollout",
 ]

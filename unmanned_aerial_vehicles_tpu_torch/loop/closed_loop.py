@@ -51,10 +51,14 @@ its own plant (``bodies`` and ``rate_loops`` whose fields are ``(B,)``
 tensors or shared numbers) and start: per flight what ``mpc_flight_rollout``
 and ``pid_flight_rollout`` fly (the JAX package's ``vmap`` of them, which
 ``loop.monte_carlo`` runs). An MPC built with ``use_fused_controller``
-solves every tick in one launch of K16 for all flights, the default one
-runs the composite ADMM as batched PyTorch ops; ``use_pallas_plant`` sends
+solves every tick in one launch of K16 for all flights, one built with
+``use_fused_admm`` runs every flight's ADMM in one launch of K6, the
+default one runs the composite ADMM as batched PyTorch ops (then, with
+``polish``, each flight's active-set polish); ``use_pallas_plant`` sends
 allocation + plant through K2 (MPC) or the plant through K1 (PID), one
-launch per tick with one plant row per flight.
+launch per tick with one plant row per flight. The fused tiers
+(``use_fused_tick``) fly one launch of K4 per tick or of K5 per K ticks
+for all flights, one block per flight.
 
 A loop returns a dict of per-tick tensors on its device. ``reference_fn``
 maps a tensor of times ``(T,)`` to ``(pos (T, 3), yaw (T,))``; the loops
@@ -63,6 +67,7 @@ evaluate it once for the whole flight.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Tuple
 
@@ -72,7 +77,7 @@ from .._device import full_f32_matmul, resolve_device
 from ..control.allocation import AttitudeLoopState, attitude_loop_init, geometric_control_allocation
 from ..control.cascade_pid import CascadePidGains, CascadeState, cascade_init, cascade_pid_step
 from ..control.mpc_linear import LinearMPC
-from ..control.pid import PIDState
+from ..control.pid import PIDGains, PIDState
 from ..gp.residual_gp import ResidualGPConfig
 from ..models.double_integrator import CONTROL_DIM, STATE_DIM
 from ..models.params import RigidBodyParams
@@ -562,12 +567,17 @@ def batched_pid_flight_rollout(
     """B cascade-PID flights in lockstep, each on its own plant and start:
     per flight ``pid_flight_rollout``. With ``cfg.use_pallas_plant`` the
     plant substeps of all flights are one launch of K1 per tick, one plant
-    row per flight (``plain_kernels=True`` flies K1's plain version).
+    row per flight (``plain_kernels=True`` flies K1's plain version); with
+    ``cfg.fused_tick_ad`` too, K1 runs through its autodiff route (K13a
+    backward), which takes one plant shared by every flight. The gains'
+    ``kp``, ``ki`` and ``kd`` may carry a leading flight axis (``(B, 3)``:
+    each flight its own gains, as the batched multi-start tuner flies).
 
     Returns ``(B, T, .)`` per-tick tensors (``state`` at the start of each
     tick, ``vel_ref``, ``att_ref``, ``thrust``, ``rates_cmd``), ``pos_ref
     (T, 3)`` and ``final_state (B, 12)``."""
     from ..ops.plant_pallas import _px4_plant_rows, px4_plant_step_plain
+    from ..ops.tick_ad import px4_plant_rows_ad
 
     dev = resolve_device(device)
     if gains is None:
@@ -575,20 +585,29 @@ def batched_pid_flight_rollout(
     states = initial_states.to(dtype=dtype, device=dev)
     B = states.shape[0]
     cols = _flight_columns(bodies, rate_loops, B, dev)
-    block = plant_block(bodies, rate_loops, B, dev) if cfg.use_pallas_plant else None
-    plant_step = px4_plant_step_plain if plain_kernels else _px4_plant_rows
+    block = None
+    if cfg.use_pallas_plant:
+        block = (_plant_row(bodies, rate_loops, dev) if cfg.fused_tick_ad
+                 else plant_block(bodies, rate_loops, B, dev))
+    plant_step = (px4_plant_step_plain if plain_kernels
+                  else px4_plant_rows_ad if cfg.fused_tick_ad else _px4_plant_rows)
     f32 = lambda v: v.to(torch.float32).contiguous()
     pos_refs, yaw_refs = _references(reference_fn, num_steps, cfg, dtype, dev)
     per_flight = lambda leaf: leaf.expand(B, *leaf.shape).clone()
     pid_state = CascadeState(*(PIDState(*map(per_flight, layer))
                                for layer in cascade_init(dtype, dev)))
+    # per-flight gains map over the flights, shared ones (and the floats) not
+    gain_dims = gains._replace(
+        **{layer: PIDGains(*(0 if v.ndim == 2 else None for v in getattr(gains, layer)))
+           for layer in ("position", "velocity", "attitude")},
+        hover_thrust=None, thrust_min=None, thrust_max=None, max_rate=None)
     step = torch.func.vmap(
-        lambda carry, s, pos_ref, yaw_ref: cascade_pid_step(gains, carry, s, pos_ref, yaw_ref,
-                                                            cfg.control_dt),
-        in_dims=(0, 0, None, None))
+        lambda g, carry, s, pos_ref, yaw_ref: cascade_pid_step(g, carry, s, pos_ref, yaw_ref,
+                                                               cfg.control_dt),
+        in_dims=(gain_dims, 0, 0, None, None))
     rows = []
     for i in range(num_steps):
-        control, pid_state, aux = step(pid_state, states, pos_refs[i], yaw_refs[i])
+        control, pid_state, aux = step(gains, pid_state, states, pos_refs[i], yaw_refs[i])
         if block is None:
             new_states = _population_plant(states, control, cols, cfg)
         else:
@@ -605,9 +624,12 @@ def batched_pid_flight_rollout(
     return _stack_population(rows, pos_refs, states)
 
 
-def _batched_composite_solve(mpc: LinearMPC, Z, Y, x0, W, ref):
+def _batched_composite_solve(mpc: LinearMPC, Z, Y, x0, W, ref, plain_kernels: bool = False):
     """``LinearMPC.solve``'s staged composite ADMM for B flights in row
-    form: the warm-start shift, offset, gradient, bounds and loop. Returns
+    form: the warm-start shift, offset, gradient, bounds and loop (one
+    launch of K6 for all flights with ``use_fused_admm``, its plain version
+    with ``plain_kernels``), then with ``polish`` each flight's active-set
+    polish (``ops.qp.active_set_polish`` mapped over the flights). Returns
     ``(slack (B, m), dual (B, m), X_tail (B, N nx))``."""
     from ..ops.controller_pallas import _shift_plane
 
@@ -625,6 +647,19 @@ def _batched_composite_solve(mpc: LinearMPC, Z, Y, x0, W, ref):
     upper = torch.cat([mpc._u_hi.expand(B, Nnu), mpc._x_hi - offset], dim=1)
     p0 = -(f @ mpc._GMinv.T)
     minv_f = f @ mpc._M_inv.T
+    if cfg.use_fused_admm:
+        from ..ops.admm_pallas import (
+            admm_box_qp_fused_composite,
+            admm_box_qp_fused_composite_plain,
+        )
+
+        admm = (admm_box_qp_fused_composite_plain if plain_kernels
+                else functools.partial(admm_box_qp_fused_composite, SuT=mpc._SuT_f32))
+        f32 = lambda v: v.to(torch.float32).contiguous()
+        U, z, y = (v.to(x0.dtype) for v in admm(
+            mpc._P1_f32, f32(p0), mpc._GMinvT_f32, f32(minv_f), f32(lower), f32(upper), f32(z),
+            f32(y), rho, cfg.admm_iterations, a))
+        return z, y, offset + U @ mpc._Su.T
     P1T = mpc._P1.T
     for _ in range(cfg.admm_iterations):
         Gt = a * (p0 + (rho * z - y) @ P1T) + (1.0 - a) * z
@@ -632,6 +667,15 @@ def _batched_composite_solve(mpc: LinearMPC, Z, Y, x0, W, ref):
         y = y + rho * (Gt - z_new)
         z = z_new
     U = -minv_f + (rho * z - y) @ mpc._GMinv
+    if cfg.polish:
+        from ..ops.qp import AdmmState, active_set_polish
+
+        polish = lambda f_, lo, hi, u, zz, yy: active_set_polish(
+            mpc._H, mpc._G, f_, lo, hi, AdmmState(u, zz, yy), tol=cfg.polish_tol,
+            passes=cfg.polish_passes)[:2]
+        U, y = torch.func.vmap(polish)(f, lower, upper, U, z, y)
+        # slack = G U: G = [I; Su], so its U-block is U
+        z = U @ mpc._G.T
     return z, y, offset + U @ mpc._Su.T
 
 
@@ -659,14 +703,20 @@ def batched_mpc_flight_rollout(
     the warm-start shift inside); the default MPC runs the composite ADMM
     as batched PyTorch ops. ``cfg.use_pallas_plant`` sends allocation,
     attitude PID and plant through one launch of K2 per tick with one plant
-    row per flight. ``plain_kernels=True`` flies the kernels' plain
-    versions. The fused-tick tier (``cfg.use_fused_tick``), ``use_fused_admm``
-    and ``polish`` raise ``NotImplementedError`` (queued in ``ROADMAP.md``).
+    row per flight. ``use_fused_admm`` runs the ADMM of every flight in one
+    launch of K6 per tick, ``polish`` polishes each flight's iterate.
+
+    The fused tiers (``cfg.use_fused_tick``, an MPC built with
+    ``use_fused_controller``) fly each tick as one launch of K4 for all
+    flights (``ticks_per_dispatch == 1``, ``residual_fn`` mapped over the
+    flights between launches), or K ticks per launch of K5 for all flights
+    (``ticks_per_dispatch = K > 1``, without a GP), one block per flight.
+    ``plain_kernels=True`` flies the kernels' plain versions.
 
     Returns ``(B, T, .)`` per-tick tensors (``state`` at the start of each
     tick, ``vel_ref``, ``att_ref``, ``thrust``, ``rates_cmd``,
     ``accel_cmd``, ``u_mpc``), ``pos_ref (T, 3)`` and ``final_state
-    (B, 12)``."""
+    (B, 12)``; the fused tiers return float32 whatever ``dtype`` is."""
     from ..ops.controller_pallas import (
         gpmpc_controller_fused_batched,
         gpmpc_controller_fused_batched_plain,
@@ -677,12 +727,11 @@ def batched_mpc_flight_rollout(
     if mpc.device != dev:
         raise ValueError(f"the MPC lives on {mpc.device}, the population on {dev}")
     mcfg = mpc.config
-    if cfg.use_fused_tick or mcfg.use_fused_admm or mcfg.polish:
-        raise NotImplementedError(
-            "the fused-tick population (use_fused_tick: K5 over a grid of flights), "
-            "use_fused_admm and polish in a population are queued in ROADMAP.md "
-            "(queue 1, \"References and orchestration\")")
     full_f32_matmul()
+    if cfg.use_fused_tick:
+        return _batched_fused_tick_rollout(mpc, reference_fn, num_steps, bodies, rate_loops,
+                                           initial_states.to(device=dev), cfg, residual_fn,
+                                           preview, plain_kernels)
     states = initial_states.to(dtype=dtype, device=dev)
     B = states.shape[0]
     cols = _flight_columns(bodies, rate_loops, B, dev)
@@ -727,7 +776,8 @@ def batched_mpc_flight_rollout(
                                          mcfg.admm_over_relax)
             slack, dual, X_tail = Z.to(dtype), Y.to(dtype), X_tail.to(dtype)
         else:
-            slack, dual, X_tail = _batched_composite_solve(mpc, slack, dual, x0, W, ref)
+            slack, dual, X_tail = _batched_composite_solve(mpc, slack, dual, x0, W, ref,
+                                                           plain_kernels)
         # controls come from the slack's U-block (LinearMPC.solve); the
         # predicted states feed only the next tick's residual_fn
         U_prev = slack[:, :Nnu].reshape(B, N, nu)
@@ -1132,3 +1182,101 @@ def _fused_tick_rollout(mpc, reference_fn, num_steps, body, rate_loop, cfg, init
     outs = _stack_outs(rows)
     outs["final_state"] = state
     return outs
+
+
+def _batched_fused_tick_rollout(mpc, reference_fn, num_steps, bodies, rate_loops,
+                                initial_states, cfg, residual_fn, preview, plain_kernels):
+    """The fused tiers of ``batched_mpc_flight_rollout``: K4 for all
+    flights per tick (``ticks_per_dispatch == 1``) or K5 for all flights per
+    K ticks, one block per flight, each flight on its own plant row
+    (``plant_block``). Flies float32."""
+    from ..ops.tick_pallas import (
+        gpmpc_multitick_fused,
+        gpmpc_tick_fused,
+        gpmpc_tick_fused_plain,
+        multitick_staged,
+    )
+
+    mcfg = mpc.config
+    if not mcfg.use_fused_controller:
+        raise ValueError("use_fused_tick requires LinearMPCConfig.use_fused_controller=True")
+    K = cfg.ticks_per_dispatch
+    if K > 1 and residual_fn is not None:
+        raise ValueError(
+            "ticks_per_dispatch > 1 computes the GP inside the kernel: "
+            "pass the raw posterior via gp_posterior= instead of residual_fn"
+        )
+    if K == 1 and mcfg.tightening_factor > 0.0:
+        raise ValueError(
+            "uncertainty tightening on the fused single-tick path needs the staged "
+            "rollout or the multi-tick kernel (the GP and its variance run in-kernel there)"
+        )
+    if num_steps % K != 0:
+        raise ValueError(f"num_steps={num_steps} not divisible by ticks_per_dispatch={K}")
+    dev = initial_states.device
+    f32 = torch.float32
+    N, nu, nx = mcfg.horizon, CONTROL_DIM, STATE_DIM
+    B, m = initial_states.shape[0], mpc.n_constraints
+    statics = dict(
+        rho=mcfg.admm_rho, iterations=mcfg.admm_iterations, over_relax=mcfg.admm_over_relax,
+        dt=cfg.control_dt, substeps=cfg.plant_substeps,
+        accel_lo=tuple(cfg.accel_lower), accel_hi=tuple(cfg.accel_upper),
+        yawrate_limit=cfg.yawrate_limit, fallback_error_m=cfg.fallback_error_m,
+        fallback_thrust_ceiling=cfg.fallback_thrust_ceiling,
+        fallback_accel_scale=cfg.fallback_accel_scale,
+        loop_precision=cfg.fused_tick_loop_precision, n=N, nu=nu, nx=nx,
+    )
+    data = mpc._tick_data
+    block = plant_block(bodies, rate_loops, B, dev)
+    pos_refs, yaw_refs, refs = _tick_references(reference_fn, num_steps, N, cfg, preview, f32,
+                                                dev)
+    states = initial_states.to(f32).contiguous()
+    zeros = lambda *shape: torch.zeros(B, *shape, dtype=f32, device=dev)
+    slack, dual = zeros(m), zeros(m)
+
+    if K > 1:
+        tick = multitick_staged if plain_kernels else gpmpc_multitick_fused
+        aux = torch.cat([states[:, 0:nx], zeros(3)], dim=1)   # prev x0; integral 0
+        xtail = states[:, 0:nx].repeat(1, N).contiguous()
+        chunks = []
+        for i in range(num_steps // K):
+            sl = slice(i * K, (i + 1) * K)
+            packed, states, aux, xtail, slack, dual = tick(
+                data, None, states, aux, xtail, slack, dual, refs[sl], yaw_refs[sl].contiguous(),
+                block, k_ticks=K, use_gp=False, tighten_kappa=0.0, **statics)
+            chunks.append(packed)
+        packed = torch.cat(chunks, dim=1)
+        return {
+            "state": packed[..., 0:12], "vel_ref": packed[..., 29:32],
+            "att_ref": packed[..., 16:19], "thrust": packed[..., 12],
+            "rates_cmd": packed[..., 13:16], "accel_cmd": packed[..., 22:25],
+            "u_mpc": packed[..., 25:29], "pos_ref": pos_refs, "final_state": states,
+        }
+
+    tick = gpmpc_tick_fused_plain if plain_kernels else gpmpc_tick_fused
+    W = zeros(N * nx)
+    X_prev = states[:, None, 0:nx].repeat(1, N + 1, 1)
+    U_prev = zeros(N, nu)
+    integral = zeros(3)
+    rows = []
+    for i in range(num_steps):
+        if residual_fn is not None:
+            res = torch.func.vmap(residual_fn)(X_prev, U_prev)
+            W = (cfg.control_dt * res.to(f32)).reshape(B, N * nx).contiguous()
+        misc = torch.cat([yaw_refs[i].expand(B, 1), integral], dim=1)
+        packed, slack, dual, _, X_tail = tick(data, states, W, refs[i], misc, slack, dual,
+                                              block, **statics)
+        U_prev = slack[:, : N * nu].reshape(B, N, nu)
+        X_prev = torch.cat([states[:, None, 0:nx], X_tail.reshape(B, N, nx)], dim=1)
+        rows.append({
+            "state": states,
+            "vel_ref": X_tail[:, 3:6],
+            "att_ref": packed[:, 16:19],
+            "thrust": packed[:, 12],
+            "rates_cmd": packed[:, 13:16],
+            "accel_cmd": packed[:, 22:25],
+            "u_mpc": U_prev[:, 0],
+        })
+        states = packed[:, 0:12].contiguous()
+        integral = packed[:, 19:22].contiguous()
+    return _stack_population(rows, pos_refs, states)

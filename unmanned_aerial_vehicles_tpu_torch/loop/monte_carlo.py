@@ -13,15 +13,21 @@ use_fused_controller=True)`` every tick is one launch of K16 for all
 flights, and ``FlightLoopConfig(use_pallas_plant=True)`` one launch of K2
 (MPC) or K1 (PID) with one plant row per flight.
 
-``monte_carlo_pid`` and ``monte_carlo_mpc`` take ``conditions=(bodies,
-rate_loops, x0)`` in place of the draw, so a test can fly another
-package's population (``convert.monte_carlo_conditions_from_numpy``).
-``robustness_stats`` gives the campaign's dispersion statistics.
+``monte_carlo_mpc`` routes every tier: the fused tiers
+(``loop_cfg.use_fused_tick``) fly one launch of K4 per tick
+(``ticks_per_dispatch=1``) or of K5 per K ticks for all flights, one block
+per flight; ``use_fused_admm`` one launch of K6 per tick for all flights;
+``polish`` each flight's active-set polish. ``monte_carlo_mpc12`` flies the
+12-state SQP engine on its nominal model against dispersed true plants
+(``loop.rigid_loop.sqp_multitick_population``), every member's truth
+stepped by one launch of K10 a tick with a body per member.
 
-Queued in ``ROADMAP.md`` (queue 1, "References and orchestration"), raising
-``NotImplementedError``: the fused-tick population (``loop_cfg.use_fused_tick``:
-K5 as a grid of one block per flight), ``use_fused_admm``, ``polish`` and
-``monte_carlo_mpc12``.
+``monte_carlo_pid`` and ``monte_carlo_mpc`` take ``conditions=(bodies,
+rate_loops, x0)`` in place of the draw, ``monte_carlo_mpc12``
+``conditions=(bodies, x0)``, so a test can fly another package's
+population (``convert.monte_carlo_conditions_from_numpy``,
+``convert.rigid_conditions_from_numpy``). ``robustness_stats`` gives the
+campaign's dispersion statistics.
 """
 
 from __future__ import annotations
@@ -209,11 +215,13 @@ def monte_carlo_mpc(
     device=None,
     plain_kernels: bool = False,
 ) -> dict:
-    """(GP-)MPC population study on the staged tier
-    (``batched_mpc_flight_rollout``): K16 per tick for an MPC built with
-    ``use_fused_controller``, the batched composite ADMM otherwise; K2 per
-    tick with ``loop_cfg.use_pallas_plant``. ``device`` defaults to
-    ``cuda`` and must match the MPC's."""
+    """(GP-)MPC population study on any tier (``batched_mpc_flight_rollout``):
+    staged, K16 per tick for an MPC built with ``use_fused_controller``, K6
+    with ``use_fused_admm``, the batched composite ADMM otherwise (with
+    ``polish``, polished per flight); K2 per tick with
+    ``loop_cfg.use_pallas_plant``; ``loop_cfg.use_fused_tick`` K4 per tick
+    or K5 per ``ticks_per_dispatch`` ticks for all flights. ``device``
+    defaults to ``cuda`` and must match the MPC's."""
     dev = resolve_device(device)
 
     def flight(bodies, rate_loops, x0):
@@ -225,11 +233,69 @@ def monte_carlo_mpc(
                                conditions, dev)
 
 
-def monte_carlo_mpc12(*args, **kwargs) -> dict:
-    """The 12-state family's population study (JAX ``monte_carlo.py:
-    monte_carlo_mpc12``): queued in ``ROADMAP.md`` (queue 1, "References and
-    orchestration")."""
-    raise NotImplementedError(
-        "monte_carlo_mpc12 (the vmapped 12-state SQP population) is queued in ROADMAP.md "
-        "(queue 1, \"References and orchestration\")"
-    )
+def monte_carlo_mpc12(
+    engine,
+    reference_fn: Callable,
+    num_steps: int,
+    mc: MonteCarloConfig = MonteCarloConfig(),
+    body: RigidBodyParams | None = None,
+    ticks_per_dispatch: int = 8,
+    admm_iterations: int = 30,
+    dt: float = 0.02,
+    takeoff_height: float = 3.0,
+    use_fallback: bool = True,
+    conditions=None,
+    device=None,
+    plain_kernels: bool = False,
+) -> dict:
+    """12-state-family population study: the multi-tick SQP tier under a
+    dispersed true plant.
+
+    ``engine`` is a nominal-model controller (``control.mpc_rigid.
+    RigidBodyMPC``, on ``device``); each member's true plant is its own
+    jittered ``RigidBodyParams`` (mass, drag and wind log-normal or Gaussian
+    per ``mc``, around ``body``, default ``X500_PARAMS``) while the
+    controller keeps flying its nominal model. The population flies as one
+    batch (``loop.rigid_loop.sqp_multitick_population``): per tick every
+    member's true RK4 step is one launch of K10 with a body per member
+    (``plain_kernels=True``: its plain version). ``X500_PARAMS`` has no
+    drag, so the wind (which enters through the airspeed drag) is inert
+    there. ``use_fallback`` arms ``make_attitude_recovery_fallback`` per
+    member, with the nominal mass's gravity compensation and the engine's
+    1.2 x nominal thrust ceiling. ``conditions=(bodies, x0)`` replaces the
+    draw (the rate loops of ``sample_conditions`` are not used).
+
+    ``reference_fn(t (T,)) -> (pos (T, 3), yaw (T,))``; returns
+    ``robustness_stats``."""
+    from ..models.params import X500_PARAMS
+    from ..ops.rigid_plant_pallas import rigid_body_rollout_fused, rigid_body_rollout_plain
+    from .rigid_loop import make_attitude_recovery_fallback, sqp_multitick_population
+
+    dev = resolve_device(device)
+    if body is None:
+        body = X500_PARAMS
+    N = engine.mpc.config.horizon
+    if conditions is None:
+        bodies, _, x0 = sample_conditions(None, mc, body, RateLoopParams(), takeoff_height,
+                                          device=dev)
+    else:
+        bodies, x0 = conditions
+
+    def ref_ticks(ticks):
+        pos, _ = reference_fn(ticks.to(torch.float32) * dt)
+        stage = torch.cat([pos.to(torch.float32),
+                           torch.zeros(ticks.shape[0], 9, dtype=torch.float32, device=dev)], dim=1)
+        return stage[:, None, :].repeat(1, N, 1)
+
+    rollout = rigid_body_rollout_plain if plain_kernels else rigid_body_rollout_fused
+    plant = lambda x, u: rollout(x, u[:, None, :], bodies, dt)[:, 0]
+    fallback = (make_attitude_recovery_fallback(body, thrust_max=1.2 * body.mass * body.gravity)
+                if use_fallback else None)
+    outs = sqp_multitick_population(engine.mpc, engine.cost, ref_ticks, plant, x0, num_steps,
+                                    ticks_per_dispatch=ticks_per_dispatch,
+                                    admm_iterations=admm_iterations, u_init=engine.u_hover,
+                                    fallback_fn=fallback)
+    ts = torch.arange(num_steps, device=dev).to(torch.float32) * dt
+    pos_ref, _ = reference_fn(ts)
+    return robustness_stats(outs["state"][:, :, 0:3].to(torch.float32),
+                            pos_ref.to(torch.float32), mc.settle_steps, mc.crash_error_m)

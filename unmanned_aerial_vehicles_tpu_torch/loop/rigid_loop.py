@@ -20,8 +20,10 @@ ADMM duals warm-start across ticks in the same scaled space.
 
 ``sqp_multitick_rollout`` runs the tick in PyTorch, with any plant step
 (``ops.rigid_plant_pallas.rigid_body_rk4_step_fast`` runs the rigid body
-through kernel K10 on the card). ``direct_rate_multitick_fused`` and
-``rigid_multitick_fused`` run K whole ticks per launch of kernel K11
+through kernel K10 on the card); ``sqp_multitick_population`` flies a
+population of members, each on its own true plant
+(``loop.monte_carlo.monte_carlo_mpc12``: one launch of K10 a tick for all
+members). ``direct_rate_multitick_fused`` and ``rigid_multitick_fused`` run K whole ticks per launch of kernel K11
 (``ops.rigid_tick_pallas``), with the direct-rate model or the torque-input
 rigid body as the in-kernel plant. ``ilqr_multitick_rollout`` is the iLQR
 engine's policy tier: one full solve per dispatch, then the solve's own
@@ -54,23 +56,27 @@ def make_attitude_recovery_fallback(params: RigidBodyParams, tilt_limit: float =
     not finite, or |roll| or |pitch| exceeds ``tilt_limit``, fly a PD
     level-off (gravity-compensating thrust ``mg / cos(tilt)``, optionally
     clamped to ``thrust_max``, attitude PD with rate damping, torques within
-    ``tau_max``). Returns ``fb(x, u0) -> (u_applied, bad)``;
-    ``sqp_multitick_rollout`` also resets the ADMM slack and duals on the
-    ticks where it engages."""
+    ``tau_max``). Returns ``fb(x, u0) -> (u_applied, bad)``; ``x (..., 12)``
+    and ``u0 (..., 4)`` may carry a leading member axis, and ``bad (...)``
+    is decided per member. ``sqp_multitick_rollout`` also resets the ADMM
+    slack and duals on the ticks where it engages."""
     mg = params.mass * params.gravity
 
     def fb(x, u0):
-        bad = (~torch.isfinite(u0).all() | ~torch.isfinite(x).all()
-               | (x[6].abs() > tilt_limit) | (x[7].abs() > tilt_limit))
-        cos_t = torch.clamp(torch.cos(x[6]) * torch.cos(x[7]), 0.3, 1.0)
+        # reduced over each member's own state and controls: x (..., 12),
+        # u0 (..., 4), bad (...), so one bad member of a population leaves
+        # the others alone
+        bad = (~torch.isfinite(u0).all(dim=-1) | ~torch.isfinite(x).all(dim=-1)
+               | (x[..., 6].abs() > tilt_limit) | (x[..., 7].abs() > tilt_limit))
+        cos_t = torch.clamp(torch.cos(x[..., 6]) * torch.cos(x[..., 7]), 0.3, 1.0)
         thrust = mg / cos_t
         if thrust_max is not None:
             thrust = torch.clamp(thrust, max=thrust_max)
-        tau_rp = -kp * x[6:8] - kd * x[9:11]
-        tau_y = -kd * x[11]
-        tau = torch.clamp(torch.cat([tau_rp, tau_y[None]]), -tau_max, tau_max)
-        u_safe = torch.cat([thrust[None], tau]).to(u0.dtype)
-        return torch.where(bad, u_safe, u0), bad
+        tau_rp = -kp * x[..., 6:8] - kd * x[..., 9:11]
+        tau_y = -kd * x[..., 11]
+        tau = torch.clamp(torch.cat([tau_rp, tau_y[..., None]], dim=-1), -tau_max, tau_max)
+        u_safe = torch.cat([thrust[..., None], tau], dim=-1).to(u0.dtype)
+        return torch.where(bad[..., None], u_safe, u0), bad
 
     return fb
 
@@ -154,8 +160,34 @@ def _plan_tail(mpc: SQPMPC, disp: _Dispatch, x_fin, U_fin, residuals, plan_roll:
     return torch.cat([x_fin[None, :], tail.to(x_fin.dtype)])
 
 
-def _stack(states, controls, carry) -> dict:
-    return {"state": torch.stack(states), "u": torch.stack(controls), "carry": carry}
+def _stack(states, controls, carry, dim: int = 0) -> dict:
+    return {"state": torch.stack(states, dim), "u": torch.stack(controls, dim), "carry": carry}
+
+
+def _sqp_tick(mpc: SQPMPC, disp: _Dispatch, x, z, y, ref, rbar, u_ref_flat, big,
+              admm_iterations: int):
+    """One tick of the multi-tick SQP tier: the warm-start shift, the
+    offset, linear cost and bounds (the obstacle rows' too), and the
+    composite ADMM in the dispatch's equilibrated space. Returns the new
+    ``(z, y)`` in the unequilibrated space."""
+    cfg = mpc.config
+    N, nx = cfg.horizon, mpc.nx
+    z, y = mpc.shift_blocks(z), mpc.shift_blocks(y)
+    offset = disp.Sx @ x + disp.Sc
+    f = disp.SuT_q @ (offset - ref.reshape(-1)) - rbar * u_ref_flat
+    lower = torch.cat([mpc._u_lo, mpc._x_lo - offset])
+    upper = torch.cat([mpc._u_hi, mpc._x_hi - offset])
+    if mpc.num_obstacles:
+        off3 = offset.reshape(N, nx)[:, 0:3]
+        lo_obs = disp.lo_obs_base - torch.einsum("nkj,nj->nk", disp.n_vec, off3).reshape(-1)
+        lower = torch.cat([lower, lo_obs])
+        upper = torch.cat([upper, big])
+    fs = f * disp.d
+    sol = admm_box_qp_composite(disp.P1, -(disp.GMinvT_s.T @ fs), disp.GMinvT_s,
+                                disp.Minv_s @ fs, lower * disp.e, upper * disp.e,
+                                z * disp.e, y / disp.e, cfg.admm_rho, admm_iterations,
+                                cfg.admm_over_relax)
+    return sol.slack / disp.e, sol.dual * disp.e
 
 
 def sqp_multitick_rollout(
@@ -207,7 +239,6 @@ def sqp_multitick_rollout(
     dtype, dev = mpc.dtype, mpc.device
     residuals, obstacles = mpc.defaults(residuals, obstacles)
     qbar, rbar, u_ref_flat = mpc.horizon_weights(cost)
-    rho, over_relax = cfg.admm_rho, cfg.admm_over_relax
     big = torch.full((N * n_obs,), 1e9, dtype=dtype, device=dev)
     carry = _initial_carry(mpc, cost, x0, u_init, N * (nu + nx + n_obs))
     states, controls = [], []
@@ -218,21 +249,8 @@ def sqp_multitick_rollout(
         refs = reference_fn(torch.arange(tick0, tick0 + K, device=dev)).to(dtype)
         x, U, z, y = carry.state, carry.U_plan, carry.z, carry.y
         for k in range(K):
-            z, y = mpc.shift_blocks(z), mpc.shift_blocks(y)
-            offset = disp.Sx @ x + disp.Sc
-            f = disp.SuT_q @ (offset - refs[k].reshape(-1)) - rbar * u_ref_flat
-            lower = torch.cat([mpc._u_lo, mpc._x_lo - offset])
-            upper = torch.cat([mpc._u_hi, mpc._x_hi - offset])
-            if n_obs:
-                off3 = offset.reshape(N, nx)[:, 0:3]
-                lo_obs = disp.lo_obs_base - torch.einsum("nkj,nj->nk", disp.n_vec, off3).reshape(-1)
-                lower = torch.cat([lower, lo_obs])
-                upper = torch.cat([upper, big])
-            fs = f * disp.d
-            sol = admm_box_qp_composite(disp.P1, -(disp.GMinvT_s.T @ fs), disp.GMinvT_s,
-                                        disp.Minv_s @ fs, lower * disp.e, upper * disp.e,
-                                        z * disp.e, y / disp.e, rho, admm_iterations, over_relax)
-            z, y = sol.slack / disp.e, sol.dual * disp.e
+            z, y = _sqp_tick(mpc, disp, x, z, y, refs[k], rbar, u_ref_flat, big,
+                             admm_iterations)
             U = z[: N * nu].reshape(N, nu)
             u0 = U[0]
             if fallback_fn is not None:
@@ -245,6 +263,82 @@ def sqp_multitick_rollout(
         X_plan = _plan_tail(mpc, disp, x, U, residuals, plan_roll, plan_roll_fn)
         carry = MultiTickCarry(x, X_plan, U, z, y)
     return _stack(states, controls, carry)
+
+
+def sqp_multitick_population(
+    mpc: SQPMPC,
+    cost: QuadCost,
+    reference_fn: Callable,      # tick indices (K,) -> (K, N, nx) stage references
+    plant_step: Callable,        # (x (B, nx), u (B, nu)) -> (B, nx), each member's true plant
+    x0: torch.Tensor,            # (B, nx)
+    num_steps: int,
+    ticks_per_dispatch: int = 8,
+    admm_iterations: int = 30,
+    u_init: torch.Tensor | None = None,
+    fallback_fn: Callable | None = None,
+) -> dict:
+    """``sqp_multitick_rollout`` for a population of B members that share
+    the engine and the reference, each from its own start and on its own
+    true plant (``plant_step`` steps all members at once: kernel K10 with a
+    body per member in ``loop.monte_carlo.monte_carlo_mpc12``). Per
+    dispatch each member's relinearisation about its own plan (the one-
+    member code mapped over the members with ``torch.func.vmap``: batched
+    ``jacfwd``, condensation, Ruiz, Cholesky, ``M^-1`` and P1); per tick the
+    composite ADMM of every member as one batched solve, then
+    ``fallback_fn(x (B, nx), u0 (B, nu)) -> (u, bad (B,))`` decided per
+    member (its slack and duals reset where it engages), then the plants.
+    The plan re-anchors by the nonlinear roll of ``mpc.step_fn``. The
+    engine must have no obstacle rows. Returns ``{"state": (B, T, nx)
+    pre-plant, "u": (B, T, nu) applied, "carry": MultiTickCarry}`` with a
+    leading member axis on every carry field."""
+    cfg = mpc.config
+    N, nx, nu = cfg.horizon, mpc.nx, mpc.nu
+    if mpc.num_obstacles:
+        raise ValueError("the population runs engines without obstacle rows")
+    K = ticks_per_dispatch
+    if num_steps % K:
+        raise ValueError(f"num_steps={num_steps} not a multiple of K={K}")
+    full_f32_matmul()
+    dtype, dev = mpc.dtype, mpc.device
+    residuals, _ = mpc.defaults(None, None)
+    qbar, rbar, u_ref_flat = mpc.horizon_weights(cost)
+    x = x0.to(dtype=dtype, device=dev)
+    B, m = x.shape[0], N * (nu + nx)
+    u = (cost.u_ref if u_init is None else u_init).to(dtype=dtype, device=dev)
+    X_plan = x[:, None, :].repeat(1, N + 1, 1)
+    U = u.expand(B, N, nu).clone()
+    z = torch.zeros(B, m, dtype=dtype, device=dev)
+    y = torch.zeros(B, m, dtype=dtype, device=dev)
+    # the dispatch's tensors without the obstacle fields, which vmap cannot map
+    fields = _Dispatch._fields[:10]
+    as_dispatch = lambda t: _Dispatch(*t, n_vec=None, lo_obs_base=None)
+    relinearize = torch.func.vmap(
+        lambda Xb, Ub: tuple(_relinearize(mpc, Xb, Ub, residuals, qbar, rbar)[:len(fields)]))
+    tick = torch.func.vmap(
+        lambda d, xb, zb, yb, ref: _sqp_tick(mpc, as_dispatch(d), xb, zb, yb, ref, rbar,
+                                             u_ref_flat, None, admm_iterations),
+        in_dims=(0, 0, 0, 0, None))
+    roll = torch.func.vmap(lambda d, xb, Ub: _plan_tail(mpc, as_dispatch(d), xb, Ub, residuals,
+                                                        "nonlinear"))
+    states, controls = [], []
+    for tick0 in range(0, num_steps, K):
+        X_bar = X_plan.clone()
+        X_bar[:, 0] = x
+        disp = relinearize(X_bar, U)
+        refs = reference_fn(torch.arange(tick0, tick0 + K, device=dev)).to(dtype)
+        for k in range(K):
+            z, y = tick(disp, x, z, y, refs[k])
+            U = z[:, : N * nu].reshape(B, N, nu)
+            u0 = U[:, 0]
+            if fallback_fn is not None:
+                u0, bad = fallback_fn(x, u0)
+                z = torch.where(bad[:, None], torch.zeros_like(z), z)
+                y = torch.where(bad[:, None], torch.zeros_like(y), y)
+            states.append(x)
+            controls.append(u0)
+            x = plant_step(x, u0)
+        X_plan = roll(disp, x, U)
+    return _stack(states, controls, MultiTickCarry(x, X_plan, U, z, y), dim=1)
 
 
 def dispatch_tick_operands(mpc: SQPMPC, cost: QuadCost, X_bar: torch.Tensor, U_bar: torch.Tensor,

@@ -42,6 +42,10 @@ through L2 beyond. The plain PyTorch version is
 ``v @ P1``, GMinvT contracted on its second axis; a float32 P1 is not
 exactly symmetric, so ``P1 @ v`` differs).
 
+K6 on the factors also takes a batch of QPs that share P1's factors (a
+leading axis on the per-QP vectors, one block per QP: the population's
+``use_fused_admm`` tick).
+
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Shapes are semantic (the TPU
 kernels' 128-lane padding is gone, and the ``(1, k)`` rows are ``(k,)``
@@ -68,7 +72,8 @@ FACTORED_THREADS = 512   # kTickThreads: K6 on the factors, K14
 
 def admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
                                       rho: float, iterations: int, over_relax: float = 1.6):
-    """Plain version of K6: ``(U (n,), z (m,), y (m,))``."""
+    """Plain version of K6: ``(U (n,), z (m,), y (m,))``; with a leading
+    flight axis on the per-QP vectors, each QP's (``(B, .)`` rows)."""
     z, y = z0, y0
     for _ in range(iterations):
         GU = p0 + (rho * z - y) @ P1
@@ -76,7 +81,8 @@ def admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, 
         z_new = torch.minimum(torch.maximum(Gt + y / rho, lower), upper)
         y = y + rho * (Gt - z_new)
         z = z_new
-    U = -Minv_f + GMinvT @ (rho * z - y)
+    v = rho * z - y
+    U = -Minv_f + (GMinvT @ v if v.ndim == 1 else v @ GMinvT.T)
     return U, z, y
 
 
@@ -153,17 +159,23 @@ def admm_box_qp_fused_composite(
     """The whole composite-ADMM solve in one launch (K6). Returns
     ``(U (n,), z (m,), y (m,))`` in float32. With ``SuT`` the kernel applies
     P1 as ``GMinvT`` and ``SuT`` and does not read P1; the plain version,
-    which the CPU runs, multiplies by P1 either way."""
+    which the CPU runs, multiplies by P1 either way. With a leading flight
+    axis on ``p0``, ``Minv_f``, the bounds, ``z0`` and ``y0`` (``(B, .)``
+    rows: B QPs that share P1's factors) the launch is a grid of one block
+    per QP, which needs ``SuT``; the outputs then carry the axis."""
     dev = P1.device
     m, n = P1.shape[0], GMinvT.shape[0]
+    batch = (p0.shape[0],) if p0.ndim == 2 else ()
     req = _cuda.require
     req(P1, "P1", (m, m), dev)
     req(GMinvT, "GMinvT", (n, m), dev)
-    req(Minv_f, "Minv_f", (n,), dev)
+    req(Minv_f, "Minv_f", batch + (n,), dev)
     for name, t in (("p0", p0), ("lower", lower), ("upper", upper), ("z0", z0), ("y0", y0)):
-        req(t, name, (m,), dev)
+        req(t, name, batch + (m,), dev)
     if SuT is not None:
         req(SuT, "SuT", (n, m - n), dev)
+    elif batch:
+        raise ValueError("a batch of QPs runs on P1's factors: pass SuT")
     if dev.type == "cpu":
         return admm_box_qp_fused_composite_plain(P1, p0, GMinvT, Minv_f, lower, upper, z0, y0,
                                                  rho, iterations, over_relax)
@@ -184,16 +196,19 @@ def admm_box_qp_fused_composite(
         entry = "admm_factored_launch"
     params = _AdmmParams(n=n, m=m, iterations=int(iterations), rho=rho, over_relax=over_relax,
                          one_minus_over_relax=1.0 - over_relax)
-    U = torch.empty(n, dtype=torch.float32, device=dev)
-    z = torch.empty(m, dtype=torch.float32, device=dev)
-    y = torch.empty(m, dtype=torch.float32, device=dev)
+    U = torch.empty(*batch, n, dtype=torch.float32, device=dev)
+    z = torch.empty(*batch, m, dtype=torch.float32, device=dev)
+    y = torch.empty(*batch, m, dtype=torch.float32, device=dev)
     ops = _AdmmOperands(*(t.data_ptr() if t is not None else None
                           for t in (P1, p0, GMinvT, Minv_f, lower, upper, z0, y0, U, z, y, SuT)))
     fn = getattr(_cuda.library("single_tick"), entry)
+    # the factored entry takes the grid's QPs, one block each
+    grid = () if SuT is None else (batch[0] if batch else 1,)
     fn.argtypes = [ctypes.POINTER(_AdmmParams), ctypes.POINTER(_AdmmOperands), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, *(ctypes.c_int for _ in grid), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), shared, smem, _cuda.stream_of(P1))
+    status = fn(ctypes.byref(params), ctypes.byref(ops), shared, smem, *grid,
+                _cuda.stream_of(P1))
     _cuda.check(status, "admm_box_qp_fused_composite")
     _cuda.count_launch("admm_box_qp_fused_composite")
     return U, z, y

@@ -282,12 +282,13 @@ def launch_single_tick(entry: str, counter: str, data, n: int, tensors: dict, ou
                        yawrate_limit: float = 0.0, fallback_error_m: float = 0.0,
                        fallback_thrust_ceiling: float = 1.5,
                        fallback_accel_scale: float = 1.5,
-                       layout=None, variant=None) -> None:
+                       layout=None, variant=None, blocks: int | None = None) -> None:
     """Launch K3 (``entry="gpmpc_controller_launch"``, ``variant`` its
     ``(variant, shared-memory bytes)`` from ``factor_variant``) or K4
     (``"gpmpc_tick_launch"``, with ``layout`` its shared-memory bytes
-    ``(n, p1_shared)``: P1 in shared memory where it fits) on the operands
-    already checked by the caller."""
+    ``(n, p1_shared)``: P1 in shared memory where it fits, and ``blocks``
+    its flights, one block each) on the operands already checked by the
+    caller."""
     dev = data.P1.device
     m = data.P1.shape[0]
     _cuda.require_aligned(counter, data.P1)
@@ -311,10 +312,11 @@ def launch_single_tick(entry: str, counter: str, data, n: int, tensors: dict, ou
                 **tensors, **outs)
     ops = _SingleTickOperands(**{k: v.data_ptr() for k, v in ptrs.items()})
     fn = getattr(_cuda.library("single_tick"), entry)
+    grid = () if blocks is None else (blocks,)
     fn.argtypes = [ctypes.POINTER(_SingleTickParams), ctypes.POINTER(_SingleTickOperands),
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, *(ctypes.c_int for _ in grid), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem,
+    status = fn(ctypes.byref(params), ctypes.byref(ops), p1_shared, smem, *grid,
                 _cuda.stream_of(data.P1))
     _cuda.check(status, counter)
     _cuda.count_launch(counter)

@@ -54,6 +54,12 @@ estimate while the plant integrates the truth. The kernel is
 ``noisy_multitick_staged``. Carries: ``est (12|15,)``, ``P (12|15,
 12|15)``, ``aux (13,)``; ``packed (K, 47)``.
 
+K4 and K5 also take a leading flight axis on every per-flight operand (a
+population: ``loop.closed_loop.batched_mpc_flight_rollout``): the launch is
+a grid of one block per flight, the operators, references (and K5's GP
+rows) shared, each block bit-identical to a one-flight launch; their plain
+versions map the one-flight version over the flights.
+
 ``loop_precision`` (and K9's ``cov_precision``) are accepted for the JAX
 signature; on the card every mode computes in float32 with FMAs (the
 bfloat16 modes were TPU matrix-unit choices).
@@ -323,8 +329,20 @@ def multitick_staged(
     fallback_accel_scale=1.5,
 ):
     """Plain version of K5: the same operands and outputs, the same math
-    block for block, in PyTorch tensor ops on any device."""
+    block for block, in PyTorch tensor ops on any device; with a leading
+    flight axis on ``state`` the one-flight version mapped over the flights
+    (``torch.func.vmap``)."""
     _check_statics(n, nu, nx)
+    if state.ndim == 2:
+        statics = dict(k_ticks=k_ticks, use_gp=use_gp, rho=rho, iterations=iterations,
+                       over_relax=over_relax, dt=dt, substeps=substeps, accel_lo=accel_lo,
+                       accel_hi=accel_hi, yawrate_limit=yawrate_limit, n=n, nu=nu, nx=nx,
+                       tighten_kappa=tighten_kappa, fallback_error_m=fallback_error_m,
+                       fallback_thrust_ceiling=fallback_thrust_ceiling,
+                       fallback_accel_scale=fallback_accel_scale)
+        one = lambda s, a, xt, z, y, pr: multitick_staged(data, gp, s, a, xt, z, y, refs,
+                                                          yaw_refs, pr, **statics)
+        return torch.func.vmap(one)(state, aux, xtail, z0, y0, plant_row)
     tighten = _uses_tightening(use_gp, gp, tighten_kappa)
     N = n
     Nnu = N * nu
@@ -539,14 +557,14 @@ def variance_worker_bytes(n: int, n_train: int, kinv_shared: bool,
 def gpmpc_multitick_fused(
     data: FusedTickData,
     gp: GPRows | None,
-    state: torch.Tensor,      # (12,)
-    aux: torch.Tensor,        # (9,) previous x0 (6) + integral (3)
-    xtail: torch.Tensor,      # (Nnx,) previous predicted X_tail
-    z0: torch.Tensor,         # (m,) UNshifted previous slack
-    y0: torch.Tensor,         # (m,) UNshifted previous dual
-    refs: torch.Tensor,       # (K, Nnx) stacked state references per tick
-    yaw_refs: torch.Tensor,   # (K,)
-    plant_row: torch.Tensor,  # (10,)
+    state: torch.Tensor,      # (12,) or (B, 12)
+    aux: torch.Tensor,        # (9,) / (B, 9) previous x0 (6) + integral (3)
+    xtail: torch.Tensor,      # (Nnx,) / (B, Nnx) previous predicted X_tail
+    z0: torch.Tensor,         # (m,) / (B, m) UNshifted previous slack
+    y0: torch.Tensor,         # (m,) / (B, m) UNshifted previous dual
+    refs: torch.Tensor,       # (K, Nnx) stacked state references per tick (shared)
+    yaw_refs: torch.Tensor,   # (K,) (shared)
+    plant_row: torch.Tensor,  # (10,) / (B, 10)
     *,
     k_ticks: int,
     use_gp: bool,
@@ -575,21 +593,29 @@ def gpmpc_multitick_fused(
     with_variance=True)``): each tick then backs the state boxes off by the
     posterior std, the quadratic form spread over a thread-block cluster
     (``variance_cluster``). A horizon whose P1 does not fit in one block's
-    shared memory raises ``ValueError``."""
+    shared memory raises ``ValueError``. With a leading flight axis on
+    ``state`` (``(B, 12)``) every per-flight operand carries it and the
+    launch is a grid of one block per flight (the operators, the GP rows
+    and the references shared; the outputs carry the axis); the tightened
+    kernel takes one flight."""
     _check_statics(n, nu, nx)
     tighten = _uses_tightening(use_gp, gp, tighten_kappa)
     dev = state.device
     N, K = n, k_ticks
     Nnx, m = N * nx, N * (nu + nx)
+    batch = (state.shape[0],) if state.ndim == 2 else ()
+    if batch and tighten:
+        raise ValueError("the tightened K5 (a thread-block cluster per flight) flies one flight "
+                         "a launch: a population flies untightened")
     req = _cuda.require
-    req(state, "state", (12,), dev)
-    req(aux, "aux", (AUX_LANES,), dev)
-    req(xtail, "xtail", (Nnx,), dev)
-    req(z0, "z0", (m,), dev)
-    req(y0, "y0", (m,), dev)
+    req(state, "state", batch + (12,), dev)
+    req(aux, "aux", batch + (AUX_LANES,), dev)
+    req(xtail, "xtail", batch + (Nnx,), dev)
+    req(z0, "z0", batch + (m,), dev)
+    req(y0, "y0", batch + (m,), dev)
     req(refs, "refs", (K, Nnx), dev)
     req(yaw_refs, "yaw_refs", (K,), dev)
-    req(plant_row, "plant_row", (PLANT_LANES,), dev)
+    req(plant_row, "plant_row", batch + (PLANT_LANES,), dev)
     require_tick_data(data, N, dev)
     if use_gp:
         if gp is None:
@@ -706,14 +732,10 @@ def _launch_multitick(data: FusedTickData, gp: GPRows | None, tensors_in: tuple,
         fallback_lo=(ctypes.c_float * 3)(*(scale * v for v in accel_lo)),
         fallback_hi=(ctypes.c_float * 3)(*(scale * v for v in accel_hi)),
     )
-    outs = dict(
-        packed=torch.empty(K, PACKED_LANES, dtype=torch.float32, device=dev),
-        state_out=torch.empty(12, dtype=torch.float32, device=dev),
-        aux_out=torch.empty(AUX_LANES, dtype=torch.float32, device=dev),
-        xtail_out=torch.empty(Nnx, dtype=torch.float32, device=dev),
-        z_out=torch.empty(m, dtype=torch.float32, device=dev),
-        y_out=torch.empty(m, dtype=torch.float32, device=dev),
-    )
+    batch = tuple(state.shape[:-1])
+    empty = lambda *shape: torch.empty(*batch, *shape, dtype=torch.float32, device=dev)
+    outs = dict(packed=empty(K, PACKED_LANES), state_out=empty(12), aux_out=empty(AUX_LANES),
+                xtail_out=empty(Nnx), z_out=empty(m), y_out=empty(m))
     tensors = dict(
         SxSwT=data.SxSwT, SuTqT=data.SuTqT, PM=data.PM, P1=data.P1, P0matT=data.P0matT,
         SuT=data.SuT, lo_row=data.lo_row, hi_row=data.hi_row,
@@ -734,10 +756,10 @@ def _launch_multitick(data: FusedTickData, gp: GPRows | None, tensors_in: tuple,
     ops = _TickOperands(**{k: v.data_ptr() for k, v in tensors.items()})
     fn = _cuda.library("tick").gpmpc_multitick_launch
     fn.argtypes = [ctypes.POINTER(_TickParams), ctypes.POINTER(_TickOperands),
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     status = fn(ctypes.byref(params), ctypes.byref(ops), cluster if tighten else 1, smem,
-                _cuda.stream_of(state))
+                batch[0] if batch else 1, _cuda.stream_of(state))
     _cuda.check(status, "gpmpc_multitick_fused")
     _cuda.count_launch("gpmpc_multitick_fused_tightened" if tighten else "gpmpc_multitick_fused")
     return (outs["packed"], outs["state_out"], outs["aux_out"], outs["xtail_out"],
@@ -756,7 +778,19 @@ def gpmpc_tick_fused_plain(
     fallback_thrust_ceiling=1.5, fallback_accel_scale=1.5, ctrl_state=None, tight=None,
 ):
     """Plain version of K4: the same operands and outputs, in PyTorch
-    tensor ops on any device."""
+    tensor ops on any device; with a leading flight axis on ``state`` the
+    one-flight version mapped over the flights (``torch.func.vmap``)."""
+    statics = dict(rho=rho, iterations=iterations, over_relax=over_relax, dt=dt,
+                   substeps=substeps, accel_lo=accel_lo, accel_hi=accel_hi,
+                   yawrate_limit=yawrate_limit, n=n, nu=nu, nx=nx,
+                   fallback_error_m=fallback_error_m,
+                   fallback_thrust_ceiling=fallback_thrust_ceiling,
+                   fallback_accel_scale=fallback_accel_scale, tight=tight)
+    if state.ndim == 2:
+        one = lambda s, w_, mi, z, y, pr, cs: gpmpc_tick_fused_plain(
+            data, s, w_, ref, mi, z, y, pr, ctrl_state=cs, **statics)
+        return torch.func.vmap(one)(state, w, misc, z0, y0, plant_row,
+                                    state if ctrl_state is None else ctrl_state)
     cs = state if ctrl_state is None else ctrl_state
     zy = torch.stack([z0, y0]) @ data.ShiftT            # exact 0/1 product
     z, y, U, X_tail = controller_plain(data, cs[:nx], w, ref, zy[0], zy[1], rho, iterations,
@@ -774,13 +808,13 @@ def gpmpc_tick_fused_plain(
 
 def gpmpc_tick_fused(
     data: FusedTickData,
-    state: torch.Tensor,      # (12,) plant state (the truth)
-    w: torch.Tensor,          # (Nnx,) stacked disturbance dt * D
-    ref: torch.Tensor,        # (Nnx,) stacked state reference
-    misc: torch.Tensor,       # (4,) = [yaw_ref, attitude integral (3)]
-    z0: torch.Tensor,         # (m,) UNshifted previous slack
-    y0: torch.Tensor,         # (m,) UNshifted previous dual
-    plant_row: torch.Tensor,  # (10,)
+    state: torch.Tensor,      # (12,) or (B, 12) plant state (the truth)
+    w: torch.Tensor,          # (Nnx,) / (B, Nnx) stacked disturbance dt * D
+    ref: torch.Tensor,        # (Nnx,) stacked state reference (shared)
+    misc: torch.Tensor,       # (4,) / (B, 4) = [yaw_ref, attitude integral (3)]
+    z0: torch.Tensor,         # (m,) / (B, m) UNshifted previous slack
+    y0: torch.Tensor,         # (m,) / (B, m) UNshifted previous dual
+    plant_row: torch.Tensor,  # (10,) / (B, 10)
     *,
     rho: float,
     iterations: int,
@@ -797,13 +831,16 @@ def gpmpc_tick_fused(
     fallback_error_m: float = 0.0,
     fallback_thrust_ceiling: float = 1.5,
     fallback_accel_scale: float = 1.5,
-    ctrl_state: torch.Tensor | None = None,   # (12,) the controller's state; None: state
-    tight: torch.Tensor | None = None,        # (m,) box back-off; None: zeros
+    ctrl_state: torch.Tensor | None = None,   # like state: the controller's state; None: state
+    tight: torch.Tensor | None = None,        # (m,) box back-off (shared); None: zeros
 ):
     """One whole GP-MPC tick in one launch (K4).
 
     Returns ``(packed (25,), z (m,), y (m,), U (Nnu,), X_tail (Nnx,))``.
-    ``n`` (the horizon) defaults to the one ``data`` is laid out for. P1
+    With a leading flight axis on ``state`` (``(B, 12)``) every per-flight
+    operand carries it too and the launch is a grid of one block per flight
+    (the tick data, ``ref`` and ``tight`` shared); the outputs then carry
+    it. ``n`` (the horizon) defaults to the one ``data`` is laid out for. P1
     lies in shared memory where it fits one block (N <= 23 on an H100) and
     is read through L2 beyond."""
     N = n or data.Nnx // nx
@@ -811,18 +848,19 @@ def gpmpc_tick_fused(
     dev = state.device
     Nnx, m = N * nx, N * (nu + nx)
     require_tick_data(data, N, dev)
-    req = _cuda.require
-    req(state, "state", (12,), dev)
+    batch = (state.shape[0],) if state.ndim == 2 else ()
+    req = lambda t, name, shape: _cuda.require(t, name, batch + shape, dev)
+    req(state, "state", (12,))
     if ctrl_state is not None:
-        req(ctrl_state, "ctrl_state", (12,), dev)
+        req(ctrl_state, "ctrl_state", (12,))
     if tight is not None:
-        req(tight, "tight", (m,), dev)
-    req(w, "w", (Nnx,), dev)
-    req(ref, "ref", (Nnx,), dev)
-    req(misc, "misc", (4,), dev)
-    req(z0, "z0", (m,), dev)
-    req(y0, "y0", (m,), dev)
-    req(plant_row, "plant_row", (PLANT_LANES,), dev)
+        _cuda.require(tight, "tight", (m,), dev)
+    req(w, "w", (Nnx,))
+    _cuda.require(ref, "ref", (Nnx,), dev)
+    req(misc, "misc", (4,))
+    req(z0, "z0", (m,))
+    req(y0, "y0", (m,))
+    req(plant_row, "plant_row", (PLANT_LANES,))
     statics = dict(
         rho=rho, iterations=iterations, over_relax=over_relax, dt=dt, substeps=substeps,
         accel_lo=accel_lo, accel_hi=accel_hi, yawrate_limit=yawrate_limit,
@@ -837,13 +875,14 @@ def gpmpc_tick_fused(
         raise ValueError(f"gpmpc_tick_fused runs on cuda or cpu, not {dev}")
     if tight is None:
         tight = torch.zeros(m, dtype=torch.float32, device=dev)
-    empty = lambda k: torch.empty(k, dtype=torch.float32, device=dev)
+    empty = lambda k: torch.empty(*batch, k, dtype=torch.float32, device=dev)
     outs = dict(z_out=empty(m), y_out=empty(m), u_out=empty(N * nu), xtail_out=empty(Nnx),
                 packed=empty(TICK_PACKED_LANES))
     tensors = dict(x0=state if ctrl_state is None else ctrl_state, w=w, ref=ref, z_in=z0,
                    y_in=y0, state=state, misc=misc, tight=tight, plant_row=plant_row)
     launch_single_tick("gpmpc_tick_launch", "gpmpc_tick_fused", data, N, tensors, outs,
-                       layout=single_tick_shared_memory_bytes, **statics)
+                       layout=single_tick_shared_memory_bytes, blocks=batch[0] if batch else 1,
+                       **statics)
     return outs["packed"], outs["z_out"], outs["y_out"], outs["u_out"], outs["xtail_out"]
 
 

@@ -18,8 +18,9 @@ Where a flight's loop config puts a kernel on the loss's path
 ``fused_tick_ad=True``: the forward pass is the kernel that flies (K1, K2 or
 K5) and the backward its VJP (``ops.tick_ad``). In the JAX package each
 tuning run is one jitted scan; here it is a Python loop of
-``torch.optim.Adam`` steps, each one value-and-gradient of a whole flight,
-and the multi-start runs its starts one after another.
+``torch.optim.Adam`` steps, each one value-and-gradient of a whole flight;
+the multi-start flies all its starts as one batch and steps them with one
+Adam.
 """
 
 from __future__ import annotations
@@ -34,7 +35,12 @@ import torch
 from .._device import resolve_device
 from ..control.cascade_pid import CascadePidGains
 from ..control.mpc_linear import LinearMPC, LinearMPCConfig, MPCCarry
-from ..loop.closed_loop import FlightLoopConfig, mpc_flight_rollout, pid_flight_rollout
+from ..loop.closed_loop import (
+    FlightLoopConfig,
+    batched_pid_flight_rollout,
+    mpc_flight_rollout,
+    pid_flight_rollout,
+)
 from ..models.double_integrator import CONTROL_DIM, STATE_DIM
 from ..models.params import RigidBodyParams
 from ..models.px4_surrogate import RateLoopParams
@@ -82,36 +88,59 @@ def tune_parameters(
     update of ``optax.adam``). As in the JAX package: non-finite gradients
     are zeroed, the best-seen parameters are those that produced the best
     loss (taken before the step that follows it), and one final evaluation
-    lets the last iterate compete."""
+    lets the last iterate compete. One run of ``_tune_stacked``."""
+    params, trace, best = _tune_stacked(
+        lambda p: loss_fn({k: v[0] for k, v in p.items()})[None],
+        {k: v[None] for k, v in init_params.items()}, iterations, learning_rate, optimizer)
+    return {k: v[0] for k, v in params.items()}, trace[:, 0], best[0]
+
+
+def _tune_stacked(loss_fn: Callable, init_params: dict, iterations: int,
+                  learning_rate: float = 0.05, optimizer: Callable | None = None):
+    """``tune_parameters`` for S independent runs stacked on a leading axis
+    of every tensor in ``init_params``: ``loss_fn`` returns the ``(S,)``
+    losses, one optimiser steps the stacked tensors (Adam is elementwise,
+    so it is one Adam per run), and the non-finite gradients, the best-seen
+    parameters and loss, and the final iterate's comparison are each run's
+    own (``torch.where`` over the run axis), as the JAX package's ``vmap``
+    of ``tune_parameters``. Returns ``(best params (S, ...), loss trace
+    (iterations, S), best loss (S,))``; no value is read on the host."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in init_params.items()}
     leaves = list(params.values())
     opt = (optimizer(leaves) if optimizer is not None
            else torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8))
-    snapshot = lambda: {k: v.detach().clone() for k, v in params.items()}
-    best_params, best, best_loss = snapshot(), math.inf, None
+    best_params = {k: v.detach().clone() for k, v in params.items()}
+    best_loss = None
+    per_run = lambda mask, v: mask.reshape(-1, *([1] * (v.ndim - 1)))
+
+    def keep_better(loss):
+        nonlocal best_loss
+        if best_loss is None:
+            best_loss = torch.full_like(loss, math.inf)
+        better = torch.isfinite(loss) & (loss < best_loss)
+        for k, v in params.items():
+            best_params[k] = torch.where(per_run(better, v), v.detach(), best_params[k])
+        best_loss = torch.where(better, loss, best_loss)
+
     losses = []
     for _ in range(iterations):
         loss = loss_fn(params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # the runs are independent: the sum's gradient is each run's own
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
         with torch.no_grad():
             for p, g in zip(leaves, grads):
                 # a diverging candidate must not poison the run
                 p.grad = (torch.zeros_like(p) if g is None
                           else torch.where(torch.isfinite(g), g, torch.zeros_like(g)))
         loss = loss.detach()
-        value = float(loss)
-        if math.isfinite(value) and value < best:
-            best_params, best, best_loss = snapshot(), value, loss
+        keep_better(loss)
         opt.step()
         losses.append(loss)
     with torch.no_grad():
         final_loss = loss_fn(params).detach()
-    value = float(final_loss)
-    if math.isfinite(value) and value < best:
-        best_params, best_loss = snapshot(), final_loss
-    if best_loss is None:
-        best_loss = torch.full_like(final_loss, math.inf)
-    trace = torch.stack(losses) if losses else torch.empty(0, dtype=final_loss.dtype)
+    keep_better(final_loss)
+    trace = (torch.stack(losses) if losses
+             else torch.empty(0, *final_loss.shape, dtype=final_loss.dtype))
     return best_params, trace, best_loss
 
 
@@ -214,6 +243,45 @@ def tune_cascade_gains(
                         initial_loss=initial_loss, final_loss=final_loss)
 
 
+def _multistart_thetas(theta0: dict, n_starts: int, jitter: float, seed: int) -> dict:
+    """The starts stacked on a leading axis: start 0 is ``theta0``, start i
+    ``theta0`` plus log-space Gaussian jitter drawn from
+    ``torch.Generator().manual_seed(seed)`` (one draw of every leaf per
+    start, in order)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    starts = []
+    for i in range(n_starts):
+        noise = {k: jitter * torch.randn(v.shape, generator=gen, dtype=_f32)
+                 for k, v in theta0.items()}
+        starts.append(theta0 if i == 0 else
+                      {k: v + noise[k].to(v.device) for k, v in theta0.items()})
+    return {k: torch.stack([th[k] for th in starts]) for k in theta0}
+
+
+def _cascade_population_loss_fn(reference_fn, num_steps, template, tune_cfg, body, rate_loop,
+                                loop_cfg, dev, plain_kernels):
+    """``theta`` stacked over S starts -> the ``(S,)`` losses of the S
+    flights, flown as one batch (``batched_pid_flight_rollout``, each
+    flight its own gains)."""
+    loop_cfg = _differentiable(loop_cfg)
+    settle = tune_cfg.settle_steps
+
+    def loss_fn(theta):
+        S = next(iter(theta.values())).shape[0]
+        x0 = torch.zeros(S, 12, dtype=_f32, device=dev)
+        x0[:, 2] = loop_cfg.takeoff_height
+        outs = batched_pid_flight_rollout(
+            reference_fn, num_steps, body, rate_loop, x0, gains=_cascade_gains(theta, template),
+            cfg=loop_cfg, device=dev, plain_kernels=plain_kernels,
+        )
+        err = outs["state"][:, settle:, 0:3] - outs["pos_ref"][settle:]
+        mse = torch.mean(torch.sum(err**2, dim=-1), dim=1)
+        effort = torch.mean(outs["rates_cmd"][:, settle:] ** 2, dim=(1, 2))
+        return mse + tune_cfg.effort_weight * effort
+
+    return loss_fn
+
+
 def tune_cascade_gains_multistart(
     reference_fn: Callable,
     num_steps: int,
@@ -230,29 +298,25 @@ def tune_cascade_gains_multistart(
 ) -> TuningResult:
     """Run the tuning from ``n_starts`` jittered initialisations (log-space
     Gaussian jitter from ``torch.Generator().manual_seed(seed)``, start 0
-    unjittered) and return the best. The starts run one after another (the
-    JAX package vmaps them)."""
+    unjittered) and return the best. All starts fly as one batch of
+    ``n_starts`` flights (``batched_pid_flight_rollout``: with
+    ``loop_cfg.use_pallas_plant`` one launch of K1 forward and K13a
+    backward a tick for all starts) and one Adam steps them together
+    (``_tune_stacked``), as the JAX package vmaps its runs."""
     dev = resolve_device(device)
     template = _f32_gains(init_gains if init_gains is not None
                           else CascadePidGains.default(device=dev), dev)
-    loss_fn = _cascade_loss_fn(reference_fn, num_steps, template, tune_cfg, body, rate_loop,
-                               loop_cfg, dev, plain_kernels)
-    theta0 = _cascade_theta(template)
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    starts = []
-    for i in range(n_starts):
-        noise = {k: jitter * torch.randn(v.shape, generator=gen, dtype=_f32)
-                 for k, v in theta0.items()}
-        starts.append(theta0 if i == 0 else {k: v + noise[k].to(dev) for k, v in theta0.items()})
-    runs = [tune_parameters(loss_fn, th, tune_cfg.iterations, tune_cfg.learning_rate)
-            for th in starts]
-    finals = [float(r[2]) for r in runs]
-    best = int(np.argmin(finals))
+    loss_fn = _cascade_population_loss_fn(reference_fn, num_steps, template, tune_cfg, body,
+                                          rate_loop, loop_cfg, dev, plain_kernels)
+    thetas = _multistart_thetas(_cascade_theta(template), n_starts, jitter, seed)
+    theta, losses, final_losses = _tune_stacked(loss_fn, thetas, tune_cfg.iterations,
+                                                          tune_cfg.learning_rate)
+    best = int(torch.argmin(final_losses))
     with torch.no_grad():
-        initial_loss = loss_fn(starts[0])
-    theta, losses, final_loss = runs[best]
-    return TuningResult(params=_cascade_gains(theta, template), losses=losses,
-                        initial_loss=initial_loss, final_loss=final_loss)
+        initial_loss = loss_fn({k: v[:1] for k, v in thetas.items()})[0]
+    return TuningResult(params=_cascade_gains({k: v[best] for k, v in theta.items()}, template),
+                        losses=losses[:, best], initial_loss=initial_loss,
+                        final_loss=final_losses[best])
 
 
 # ---------------------------------------------------------------------------
