@@ -182,7 +182,21 @@ Phases (any failure exits non-zero; nothing is caught):
    fused single-tick one with the 1.5 m fallback (K4 300), and
    ``monte_carlo_mpc12`` (64 X500 members on their own bodies, 200 ticks:
    K10 200); the polished population (16 flights, 50 ticks, no kernel)
-   must fly finite;
+   must fly finite; the orchestration tier (``run_orchestration``) against
+   its plain twins: the mission at the CLI's settings (``mission_rollout``,
+   K3 at N=25 with 80 iterations and K1, the figure-8 at amplitude 6 over
+   the take-off height, 24 s: all five phases, K3 and K1 1200 launches
+   each, the trajectory phase's RMS gap within 1e-3 m), the noisy mission
+   with the disturbance observer under a steady (1.5, 0.8, 0) m/s wind on
+   one seeded draw (22 s, 1100 ticks; the estimate must point into the
+   wind),
+   the online learner (``online_gp_mpc_rollout``, the CLI's 400-point ring
+   refitted every 250 ticks, 600 ticks: K3 and K1 600 each, two refits, the
+   sample counts equal), ``RK4DemoMPC`` tracking a moving reference for 200
+   solves (K14 200 launches at n=30, m=90, the states within 1e-4 m; K14
+   timed there against its plain version and its bound), and, with no
+   kernel, ten ticks of the attitude MPC's hover and the comparison
+   harness's winner table;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -3265,10 +3279,10 @@ def campaign_circle(t):
 
 
 def drive_entry_points(dev, fail_fn, kernels) -> None:
-    """K14 and K15 have no flight path in the JAX package: drive each once
-    through its own entry point at the system's shapes (the staged MPC's QP
-    at N=25; the GP refit's 800-point Gram) with the counts from 0, and
-    record the launches."""
+    """Drive K14 and K15 once each through their own entry points at the
+    system's shapes (the staged MPC's QP at N=25; the GP refit's 800-point
+    Gram) with the counts from 0, and record K15's launches (K14's come
+    from its flight path, ``RK4DemoMPC``: ``run_orchestration``)."""
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
@@ -3293,7 +3307,7 @@ def drive_entry_points(dev, fail_fn, kernels) -> None:
     for name in ("admm_box_qp_fused", "rbf_kernel_matrix_pallas"):
         if counts[name] != 1:
             fail_fn(f"{name} launched {counts[name]} times at its entry point, expected 1")
-        kernels[name]["launches"] = counts[name]
+    kernels["rbf_kernel_matrix_pallas"]["launches"] = counts["rbf_kernel_matrix_pallas"]
     if not all(torch.isfinite(v).all() for v in (U, z, y, K)):
         fail_fn("K14 or K15 produced non-finite values at its entry point")
     print(f"K14 and K15 at their own entry points: launches {counts['admm_box_qp_fused']} "
@@ -3779,6 +3793,268 @@ def time_population_tiers(fly: dict, staged_us: float, card: str, device_busy) -
               + "; ".join(f"{name[:50]} {t / 60:.2f}" for t, name in by_name[:6])
               + f"; card: {card}")
     return out
+
+
+# the orchestration block: the mission phase machine, the online learner,
+# the demo MPCs and the comparison harness at the CLI's settings
+MISSION_S = 24.0              # all five phases; the trajectory from 20 s: 200 ticks at 50 Hz
+NOISY_MISSION_S = 22.0       # 100 trajectory ticks: the observer's tick is ~9x the mission's
+MISSION_WIND = (1.5, 0.8, 0.0)
+ONLINE_SYSTEM_T = 600         # two refits (ticks 250 and 500)
+ONLINE_SYSTEM_P, ONLINE_SYSTEM_REFIT = 400, 250   # the CLI's online defaults
+ORCHESTRATION_GAP_M = 1e-3    # kernel flight against its plain twin (RMS and max position gap)
+DEMO_SOLVES = 200
+DEMO_GAP_M = 1e-4             # RK4DemoMPC's states, K14 against its plain twin
+ATTITUDE_TICKS = 10
+
+
+def run_orchestration(dev, fail_fn, kernels, ref, card: str) -> dict:
+    """Fly the orchestration tier at full width, each flight with the launch
+    counts from 0 and against its plain twin (``plain_kernels=True``): the
+    mission (``mission_rollout``, the CLI's ``LinearMPCConfig(
+    use_fused_controller=True)``, N=25, 80 iterations, and
+    ``FlightLoopConfig(use_pallas_plant=True)``; the figure-8 at amplitude 6
+    over the take-off height; MISSION_S: K3 and K1 once a tick, all five
+    phases), the noisy mission with the disturbance observer under a
+    steady wind on one seeded draw (its estimate must point into the wind),
+    the online learner (``online_gp_mpc_rollout``, the CLI's 400-point ring
+    refitted every 250 ticks, ONLINE_SYSTEM_T ticks: K3 and K1 once a tick,
+    at least two refits, the sample counts equal), ``RK4DemoMPC`` tracking a
+    per-stage reference for DEMO_SOLVES solves (K14 once a solve, at n=30,
+    m=90; timed there against its plain version and its bound), and the
+    attitude MPC's hover and the comparison harness once (no kernel,
+    finite). Records each path's launches under the kernel's ``paths``;
+    K14's entry becomes its flight path's (the N=25 QP moves to ``n25``).
+    Returns the results line's entries."""
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.control import AttitudeMPC, RK4DemoMPC
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_demo import attitude_mpc_step
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig
+    from unmanned_aerial_vehicles_tpu_torch.loop import (
+        FlightLoopConfig,
+        OnlineGPMPCConfig,
+        mission_rollout,
+        online_gp_mpc_rollout,
+        run_full_comparison,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.models.params import RigidBodyParams
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, admm_pallas
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    started = time.perf_counter()
+    mpc = LinearMPC(LinearMPCConfig(use_fused_controller=True), device=dev)
+    loop = FlightLoopConfig(use_pallas_plant=True)
+    results = {}
+
+    def twins(label, fly, ticks, expected):
+        """``fly(plain)`` with the counts from 0, timed, then its plain twin.
+        Returns both outputs and the kernel flight's host us per tick."""
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = fly(False)
+        torch.cuda.synchronize()
+        us_tick = (time.perf_counter() - t0) / ticks * 1e6
+        counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+        t0 = time.perf_counter()
+        plain = fly(True)
+        torch.cuda.synchronize()
+        us_plain = (time.perf_counter() - t0) / ticks * 1e6
+        o, p = (x[0] if isinstance(x, tuple) else x for x in (outs, plain))
+        for key, val in o.items():
+            if not torch.isfinite(val.float()).all():
+                fail_fn(f"{label}: non-finite {key}")
+        gap = float((o["state"][:, 0:3] - p["state"][:, 0:3]).abs().max())
+        for kernel, n in expected.items():
+            if counts.get(kernel, 0) != n:
+                fail_fn(f"{label}: {kernel} launched {counts.get(kernel, 0)} times, expected {n}")
+            kernels[kernel].setdefault("paths", {})[label.split(" (")[0]] = counts[kernel]
+        unexpected = set(counts) - set(expected)
+        if unexpected:
+            fail_fn(f"{label}: launched {sorted(unexpected)} as well")
+        print(f"{label}: launches {counts}, {us_tick:.1f} us per tick on the host through the "
+              f"kernels ({us_plain:.1f} us plain), max position gap to the plain twin "
+              f"{gap:.3e} m; card: {card}")
+        if not gap <= ORCHESTRATION_GAP_M:
+            fail_fn(f"{label}: position gap {gap} > {ORCHESTRATION_GAP_M}")
+        return outs, plain, us_tick, us_plain, gap
+
+    def trajectory_rms(o):
+        traj = o["in_trajectory"]
+        err = o["target"][traj] - o["state"][traj][:, 0:3]
+        return float(torch.sqrt(torch.mean(torch.sum(err**2, dim=1))))
+
+    # the mission at the CLI's settings
+    ticks = int(MISSION_S / loop.control_dt)
+    outs, plain, us_tick, us_plain, gap = twins(
+        f"mission (K3 N=25, 80 iterations, K1; {MISSION_S} s, {ticks} ticks)",
+        lambda p: mission_rollout(mpc, ref, MISSION_S, cfg=loop, device=dev,
+                                  plain_kernels=p),
+        ticks, {"gpmpc_controller_fused": ticks, "px4_plant_step_fused": ticks})
+    phases = sorted(set(outs["phase"].tolist()))
+    rms_k, rms_p = trajectory_rms(outs), trajectory_rms(plain)
+    traj = outs["in_trajectory"]
+    z_hover = float(outs["state"][int(19.0 / loop.control_dt), 2])
+    print(f"  phases reached {phases}; height at 19 s {z_hover:.4f} m; trajectory-phase RMS "
+          f"{rms_k:.6f} m over {int(traj.sum())} ticks (plain {rms_p:.6f} m, gap "
+          f"{abs(rms_k - rms_p):.3e} m)")
+    if phases != [0, 1, 2, 3, 4]:
+        fail_fn(f"the mission reached phases {phases}")
+    if not abs(rms_k - rms_p) <= ORCHESTRATION_GAP_M:
+        fail_fn(f"the mission's trajectory RMS gap {abs(rms_k - rms_p)} > {ORCHESTRATION_GAP_M}")
+    results["mission"] = dict(ticks=ticks, us_per_tick=us_tick, us_per_tick_plain=us_plain,
+                              rms_m=rms_k, rms_m_plain=rms_p, gap_m=gap, phases=len(phases))
+
+    # the noisy mission: the 15-state observer under a steady wind, one draw
+    ticks = int(NOISY_MISSION_S / loop.control_dt)
+    noise = torch.randn(ticks, 9, generator=torch.Generator(device=dev).manual_seed(0), **f32)
+    windy = RigidBodyParams(wind=MISSION_WIND)
+    outs, plain, us_tick, us_plain, gap = twins(
+        f"noisy mission (observer, wind {MISSION_WIND}; {NOISY_MISSION_S} s, {ticks} ticks)",
+        lambda p: mission_rollout(mpc, ref, NOISY_MISSION_S, cfg=loop, body=windy,
+                                  noise=noise, disturbance_observer=True, device=dev,
+                                  plain_kernels=p),
+        ticks, {"gpmpc_controller_fused": ticks, "px4_plant_step_fused": ticks})
+    rms_k, rms_p = trajectory_rms(outs), trajectory_rms(plain)
+    d_tail = outs["disturbance_est"][-ticks // 4:].mean(dim=0)
+    est = float(torch.sqrt(torch.mean(torch.sum(
+        (outs["state_est"][:, 0:3] - outs["state"][:, 0:3]) ** 2, dim=1))))
+    print(f"  trajectory-phase RMS {rms_k:.6f} m (plain {rms_p:.6f} m, gap {abs(rms_k - rms_p):.3e}"
+          f" m); estimate RMS {est:.6f} m; disturbance estimate over the last quarter "
+          f"{[round(float(v), 4) for v in d_tail]} (wind {list(MISSION_WIND)})")
+    if not abs(rms_k - rms_p) <= ORCHESTRATION_GAP_M:
+        fail_fn(f"the noisy mission's RMS gap {abs(rms_k - rms_p)} > {ORCHESTRATION_GAP_M}")
+    if not all(float(d_tail[i]) * MISSION_WIND[i] > 0 for i in (0, 1)):
+        fail_fn(f"the observer's estimate {d_tail.tolist()} does not point into the wind")
+    results["noisy_mission"] = dict(ticks=ticks, us_per_tick=us_tick, us_per_tick_plain=us_plain,
+                                    rms_m=rms_k, rms_m_plain=rms_p, gap_m=gap,
+                                    disturbance_tail=d_tail.tolist())
+
+    # the online learner at the CLI's settings
+    ocfg = OnlineGPMPCConfig(flight=loop, gp=ResidualGPConfig(max_data_points=ONLINE_SYSTEM_P),
+                             gp_refit_every=ONLINE_SYSTEM_REFIT)
+    (outs, ds, _), (plain, ds_plain, _), us_tick, us_plain, gap = twins(
+        f"online learner (K3 N=25, 80 iterations, K1; P={ONLINE_SYSTEM_P}, refit every "
+        f"{ONLINE_SYSTEM_REFIT}; {ONLINE_SYSTEM_T} ticks)",
+        lambda p: online_gp_mpc_rollout(mpc, ref, ONLINE_SYSTEM_T, cfg=ocfg, device=dev,
+                                        plain_kernels=p),
+        ONLINE_SYSTEM_T, {"gpmpc_controller_fused": ONLINE_SYSTEM_T,
+                          "px4_plant_step_fused": ONLINE_SYSTEM_T})
+    err = lambda o: o["pos_ref"] - o["state"][:, 0:3]
+    rms_k, rms_p = (float(torch.sqrt(torch.mean(torch.sum(err(o) ** 2, dim=1))))
+                    for o in (outs, plain))
+    refit_ticks = range(ONLINE_SYSTEM_REFIT - 1, ONLINE_SYSTEM_T, ONLINE_SYSTEM_REFIT)
+    refits = sum(int(outs["gp_count"][i]) >= ocfg.gp_min_samples for i in refit_ticks)
+    same_counts = torch.equal(outs["gp_count"], plain["gp_count"])
+    print(f"  RMS {rms_k:.6f} m (plain {rms_p:.6f} m, gap {abs(rms_k - rms_p):.3e} m); refits "
+          f"{refits}; samples collected {int(ds.count)} (plain {int(ds_plain.count)}), counts "
+          f"equal at every tick {same_counts}")
+    if refits < 2 or not same_counts or not abs(rms_k - rms_p) <= ORCHESTRATION_GAP_M:
+        fail_fn(f"the online learner: refits {refits}, counts equal {same_counts}, RMS gap "
+                f"{abs(rms_k - rms_p)}")
+    results["online_learner"] = dict(ticks=ONLINE_SYSTEM_T, us_per_tick=us_tick,
+                                     us_per_tick_plain=us_plain, rms_m=rms_k, rms_m_plain=rms_p,
+                                     gap_m=gap, refits=refits, samples=int(ds.count))
+
+    # RK4DemoMPC tracking a moving NED reference: K14 once a solve
+    demo = RK4DemoMPC(device=dev)
+    ts = 0.1 * (torch.arange(DEMO_SOLVES, device=dev)[:, None]
+                + torch.arange(demo.N + 1, device=dev)[None, :]).to(torch.float32)
+    demo_refs = torch.stack([2.0 * torch.sin(0.3 * ts), 2.0 * torch.cos(0.3 * ts),
+                             torch.full_like(ts, -2.0), 0.6 * torch.cos(0.3 * ts),
+                             -0.6 * torch.sin(0.3 * ts), torch.zeros_like(ts)], dim=2)
+
+    def fly_demo(plain):
+        state = torch.tensor([0.0, 2.0, -2.0, 0.6, 0.0, 0.0], **f32)
+        carry, rows = demo.init_carry(), []
+        for i in range(DEMO_SOLVES):
+            u, _, carry = demo.solve(carry, state, demo_refs[i], plain_kernels=plain)
+            rows.append(state)
+            state = torch.cat([state[0:3] + 0.1 * state[3:6] + 0.005 * u, state[3:6] + 0.1 * u])
+        return {"state": torch.stack(rows), "last_carry": carry.slack, "last_dual": carry.dual}
+
+    outs, plain, us_solve, us_plain, gap = twins(
+        f"RK4DemoMPC ({DEMO_SOLVES} solves, n=30, m=90, 80 iterations)", fly_demo, DEMO_SOLVES,
+        {"admm_box_qp_fused": DEMO_SOLVES})
+    track = float((outs["state"][50:, 0:3] - demo_refs[50:, 0, 0:3]).norm(dim=1).mean())
+    print(f"  mean tracking error after 50 solves {track:.4f} m; {us_solve:.1f} us per solve on "
+          f"the host (plain {us_plain:.1f} us)")
+    if not gap <= DEMO_GAP_M:
+        fail_fn(f"RK4DemoMPC: states' gap to the plain twin {gap} > {DEMO_GAP_M}")
+    # K14 at the demo's QP (n=30, m=90), on the flight's last operands
+    state = outs["state"][-1]
+    offset = demo._Sx @ state
+    f = (demo._SuT_q @ (offset - demo_refs[-1][1:].reshape(-1))).contiguous()
+    args = (demo._M_inv_f32, demo._G_f32, demo._GT_f32, f,
+            torch.cat([demo._u_lo, demo._x_lo - offset]).contiguous(),
+            torch.cat([demo._u_hi, demo._x_hi - offset]).contiguous(),
+            outs["last_carry"].contiguous(), outs["last_dual"].contiguous(), demo.rho,
+            demo.iterations)
+    n, m = demo._M_inv_f32.shape[0], demo._G_f32.shape[0]
+    fn = lambda: admm_pallas.admm_box_qp_fused(*args)
+    plain_fn = lambda: admm_pallas.admm_box_qp_fused_plain(*args)
+    got, want = fn(), plain_fn()
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    variant, shared, _ = admm_pallas.explicit_variant(dev, n, m)
+    k14 = kernels["admm_box_qp_fused"]
+    k14["n25"] = {key: k14[key] for key in ("err", "ms", "plain_ms", "host_ms", "host_plain_ms",
+                                            "bound", "variant", "cycles_per_pass")}
+    k14.update(
+        err=max(errs), ms=graph_ms(fn, 20), plain_ms=graph_ms(plain_fn, 2),
+        host_ms=cuda_ms(fn, 50), host_plain_ms=cuda_ms(plain_fn, 5),
+        bound=bound_ms(nbytes(*args[:8]) + 4 * (n + 2 * m),
+                       ops_explicit_admm(n, m, demo.iterations)),
+        launches=DEMO_SOLVES, variant=f"register variant {variant} "
+        f"{admm_pallas.EXPLICIT_REG_VARIANTS[variant - 1] if variant else ''}")
+    print(f"  K14 at the demo's QP (n={n}, m={m}, {demo.iterations} iterations, "
+          f"{k14['variant']}): max_abs_err of scale {max(errs):.3e} against its plain version; "
+          f"{k14['ms'] * 1e3:.2f} us per launch (CUDA graph), plain {k14['plain_ms'] * 1e3:.2f} "
+          f"us, bound {k14['bound'][0] * 1e3:.4f} us ({k14['bound'][1]}); with the host's "
+          f"overhead {k14['host_ms'] * 1e3:.2f} us; card: {card}")
+    if not max(errs) <= TAIL_TOL:
+        fail_fn(f"K14 at the demo's QP disagrees with its plain version: {errs}")
+    results["rk4_demo"] = dict(solves=DEMO_SOLVES, us_per_solve=us_solve,
+                               us_per_solve_plain=us_plain, gap_m=gap, tracking_m=track)
+
+    # the attitude MPC's hover and the comparison harness: no kernel
+    _cuda.reset_launch_counts()
+    att = AttitudeMPC(device=dev)
+    target = torch.tensor([0.0, 0.0, 2.0, 0, 0, 0, 0, 0, 0], **f32)
+    x = target.clone()
+    x[0] = 0.3
+    carry = att.init_carry(x)
+    att.solve(carry, x, target)     # the first solve sets up the linear-algebra libraries
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ATTITUDE_TICKS):
+        u, _, carry = att.solve(carry, x, target)
+        x = attitude_mpc_step(x, u, torch.zeros(9, **f32))
+    torch.cuda.synchronize()
+    us_att = (time.perf_counter() - t0) / ATTITUDE_TICKS * 1e6
+    t0 = time.perf_counter()
+    table = run_full_comparison(device=dev)
+    comparison_s = time.perf_counter() - t0
+    launched = {k: v for k, v in _cuda.launch_counts.items() if v}
+    print(f"attitude MPC hover ({ATTITUDE_TICKS} ticks, SQP engine, no kernel): u0 "
+          f"{[round(float(v), 4) for v in u]}, final state {[round(float(v), 4) for v in x[:3]]}"
+          f", {us_att:.1f} us per tick")
+    for traj_type, row in table.items():
+        print(f"  comparison {traj_type}: winner {row['winner']}, PID avg error "
+              f"{row['pid_avg_error']:.4f} m, GP-MPC avg error {row['mpc_avg_error']:.4f} m, "
+              f"improvement {row['improvement_%']:.1f} %")
+    print(f"comparison harness (4 trajectories, 30 s at 10 Hz, no kernel): {comparison_s:.2f} s")
+    finite = bool(torch.isfinite(x).all()) and all(
+        math.isfinite(v) for row in table.values() for k, v in row.items() if k != "winner")
+    if not finite or launched:
+        fail_fn(f"attitude MPC / comparison: finite {finite}, launches {launched}")
+    results["attitude_hover_u0"] = [float(v) for v in u]
+    results["comparison"] = {k: {"winner": r["winner"], "pid_avg_error": r["pid_avg_error"],
+                                 "mpc_avg_error": r["mpc_avg_error"]} for k, r in table.items()}
+    results["seconds"] = time.perf_counter() - started
+    print(f"orchestration block: {results['seconds']:.1f} s")
+    return results
 
 
 def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
@@ -4624,6 +4900,9 @@ def main(parent: str | None = None) -> int:
     fly_population = populations.pop("fly_mpc")
     population_tiers = run_population_tiers(dev, fail, kernels)
     fly_tiers = population_tiers.pop("fly")
+    # the mission, the online learner, the demo MPCs (K14's flight path) and
+    # the comparison harness
+    orchestration = run_orchestration(dev, fail, kernels, ref, card)
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
@@ -4850,6 +5129,7 @@ def main(parent: str | None = None) -> int:
             "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1],
             "library_ms": None,
+            **({"launches_by_path": k["paths"]} if "paths" in k else {}),
         }
         for name, k in kernels.items()
     ], "us_per_online_tick": us_kernel, "us_per_online_tick_plain": us_plain,
@@ -4952,6 +5232,7 @@ def main(parent: str | None = None) -> int:
         "k14_by_case": {
             label: {"us": r["ms"] * 1e3, "max_abs_err": r["err"], "variant": r["variant"]}
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
+                             ("N=25", kernels["admm_box_qp_fused"]["n25"]),
                              ("padded 128", kernels["admm_box_qp_fused"]["padded"]),
                              *((f"N={N}", r) for N, r in
                                kernels["admm_box_qp_fused"]["memory"].items()))},
@@ -4990,8 +5271,9 @@ def main(parent: str | None = None) -> int:
         "k14_cycles_per_pass": {
             label: r["cycles_per_pass"]
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
-                             ("N=25", kernels["admm_box_qp_fused"]),
-                             ("padded 128", kernels["admm_box_qp_fused"]["padded"]))}}
+                             ("N=25", kernels["admm_box_qp_fused"]["n25"]),
+                             ("padded 128", kernels["admm_box_qp_fused"]["padded"]))},
+        "orchestration": orchestration}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

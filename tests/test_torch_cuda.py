@@ -414,3 +414,25 @@ def test_population_kernels_run_one_block_per_flight(cuda_device, kernel):
     for b in range(B):
         for g_, s_ in zip(got, run(b)):
             assert torch.equal(g_[b], s_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rk4_demo_mpc_solves_through_k14(cuda_device, dtype):
+    """Every ``RK4DemoMPC`` solve on the card is one K14 launch (n=30, m=90),
+    whatever the MPC's dtype, and agrees with K14's plain version."""
+    from unmanned_aerial_vehicles_tpu_torch.control import RK4DemoMPC
+
+    mpc = RK4DemoMPC(dtype=dtype, device=cuda_device)
+    state = torch.tensor([0.0, 2.0, -2.0, 0.6, 0.0, 0.0], dtype=dtype, device=cuda_device)
+    X_ref = torch.tensor([1.0, 1.0, -2.0, 0.0, 0.0, 0.0], dtype=dtype,
+                         device=cuda_device).repeat(mpc.N + 1, 1)
+    out = {}
+    for plain in (False, True):
+        _cuda.reset_launch_counts()
+        out[plain] = mpc.solve(mpc.init_carry(), state, X_ref, plain_kernels=plain)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["admm_box_qp_fused"] == (0 if plain else 1)
+    assert out[False][0].dtype == dtype
+    for got, want in zip(out[False][:2], out[True][:2]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

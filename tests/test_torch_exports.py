@@ -6,8 +6,8 @@ and its relative imports parsed: for every name that one of them imports
 from a module the port has, and that the port's module defines, the
 port's matching subpackage must export it, so that code written against
 the JAX package (``from ...control import pid_step``) runs on the port.
-Names whose module the port has not ported (``mpc_demo``) or that the
-port's module does not define yet (``ComparisonPidParams``) are left out.
+Names whose module the port has not ported (``metrics.plots``) or that
+the port's module does not define are left out.
 """
 
 import ast
@@ -21,9 +21,9 @@ JAX_PKG = REPO / "unmanned_aerial_vehicles_tpu"
 PORT_NAME = "unmanned_aerial_vehicles_tpu_torch"
 PORT = REPO / PORT_NAME
 
-# the JAX package's subpackages that the port has (metrics is not ported)
-SUBPACKAGES = ("control", "estimation", "gp", "io", "loop", "models", "ops", "parallel",
-               "trajectories", "tuning", "utils")
+# the JAX package's subpackages that the port has
+SUBPACKAGES = ("control", "estimation", "gp", "io", "loop", "metrics", "models", "ops",
+               "parallel", "trajectories", "tuning", "utils")
 
 
 def jax_exports(sub: str) -> list[tuple[str, str, str]]:

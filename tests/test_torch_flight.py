@@ -133,6 +133,12 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.ops.tick_ad\n"
         "import unmanned_aerial_vehicles_tpu_torch.tuning\n"
         "import unmanned_aerial_vehicles_tpu_torch.loop.monte_carlo\n"
+        "import unmanned_aerial_vehicles_tpu_torch.loop.mission\n"
+        "import unmanned_aerial_vehicles_tpu_torch.loop.full_system\n"
+        "import unmanned_aerial_vehicles_tpu_torch.control.mpc_demo\n"
+        "import unmanned_aerial_vehicles_tpu_torch.gp.per_dim\n"
+        "import unmanned_aerial_vehicles_tpu_torch.io.synthetic\n"
+        "import unmanned_aerial_vehicles_tpu_torch.metrics\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"

@@ -15,10 +15,11 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .control.cascade_pid import CascadePidGains
+from .control.cascade_pid import CascadePidGains, ComparisonPidParams
 from .control.mpc_sqp import SQPCarry
 from .control.pid import PIDGains
 from .gp.exact_gp import GPParams, GPPosterior
+from .gp.per_dim import PerDimGP, Standardizer
 from .gp.residual_gp import OutputCorrectionConfig, ResidualDataset
 from .loop.closed_loop import FlightResumeState
 from .loop.rigid_loop import MultiTickCarry
@@ -391,3 +392,34 @@ def monte_carlo_conditions_from_numpy(body_fields: Mapping, rate_fields: Mapping
     rates = {k: _t(np.asarray(v, np.float32), torch.float32, dev)
              for k, v in rate_fields.items()}
     return bodies, RateLoopParams(**rates), x0
+
+
+def comparison_pid_params_from_fields(fields: Mapping) -> ComparisonPidParams:
+    """``ComparisonPidParams`` from the JAX package's dataclass fields (a
+    mapping of name to number)."""
+    return ComparisonPidParams(**{k: float(np.asarray(v)) for k, v in fields.items()})
+
+
+def gp_params_from_numpy(log_length_scale, log_signal_variance, log_noise_variance,
+                         device=None) -> GPParams:
+    """``GPParams`` from the JAX package's log-hyperparameter arrays, bit
+    for bit (each keeps its own dtype; any leading batch axis stays)."""
+    dev = resolve_device(device)
+    return GPParams(_keep(log_length_scale, dev), _keep(log_signal_variance, dev),
+                    _keep(log_noise_variance, dev))
+
+
+def per_dim_gp_from_numpy(posteriors: Mapping, scaler_X: Mapping, scaler_Y: Mapping,
+                          device=None) -> PerDimGP:
+    """A ``PerDimGP`` from the JAX package's: ``posteriors`` maps each
+    ``GPPosterior`` field (``params`` as the three ``log_*`` arrays) to its
+    stacked array, one entry per output; the scalers map ``mean`` and
+    ``std`` to arrays. Every array keeps its dtype."""
+    dev = resolve_device(device)
+    params = gp_params_from_numpy(posteriors["log_length_scale"],
+                                  posteriors["log_signal_variance"],
+                                  posteriors["log_noise_variance"], dev)
+    fields = {k: (None if posteriors.get(k) is None else _keep(posteriors[k], dev))
+              for k in GPPosterior._fields if k != "params"}
+    scaler = lambda sc: Standardizer(_keep(sc["mean"], dev), _keep(sc["std"], dev))
+    return PerDimGP(GPPosterior(params=params, **fields), scaler(scaler_X), scaler(scaler_Y))

@@ -22,7 +22,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ..models.params import RigidBodyParams
-from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
+from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step, px4_step_jacobian
 from .ekf import EKFConfig, joseph_update
 
 AUG_STATE_DIM = 15
@@ -60,6 +60,15 @@ def dekf_init(x0: torch.Tensor, config: DisturbanceEKFConfig = DisturbanceEKFCon
     return DisturbanceEKFState(x=xa, P=torch.diag(config.p0_diag(x0.device)).to(dtype))
 
 
+def _augmented_jacobian(F12: torch.Tensor, dt: float) -> torch.Tensor:
+    """``d aug_step / d [x12, d]`` from the nominal step's ``F12``."""
+    kw = dict(dtype=F12.dtype, device=F12.device)
+    eye3 = torch.eye(DIST_DIM, **kw)
+    inject = torch.cat([0.5 * dt * dt * eye3, dt * eye3, torch.zeros(6, DIST_DIM, **kw)])
+    return torch.cat([torch.cat([F12, inject], dim=1),
+                      torch.cat([torch.zeros(DIST_DIM, 12, **kw), eye3], dim=1)])
+
+
 def dekf_step(
     carry: DisturbanceEKFState,
     control: torch.Tensor,
@@ -87,7 +96,13 @@ def dekf_step(
         return torch.cat([xn[0:3] + 0.5 * dt * dt * d, xn[3:6] + dt * d, xn[6:], d])
 
     x_pred = aug_step(carry.x)
-    F = torch.func.jacfwd(aug_step)(carry.x)
+    if step_fn is None:
+        # the augmented Jacobian in closed form: the nominal step's beside
+        # the disturbance's exact injection [0.5 dt^2 I; dt I; 0; I]
+        F = _augmented_jacobian(px4_step_jacobian(carry.x[:12], control, body, rate_loop, dt),
+                                dt)
+    else:
+        F = torch.func.jacfwd(aug_step)(carry.x)
     dev = x_pred.device
     x_new, P_new = joseph_update(x_pred, F, carry.P, config.q_diag(dev), measurement,
                                  config.base.r_diag(dev))

@@ -5,21 +5,26 @@ noisy sensor sample of the true state goes in, the controller flies the
 estimate that comes out.
 
 Process model: one RK4 step of the rate-tracking surrogate
-(``models.px4_surrogate``) at the control period, linearised with
-``torch.func.jacfwd``. Measurement model: position, attitude and gyro body
+(``models.px4_surrogate``) at the control period, linearised by the
+chain rule through the RK4 stages in closed form
+(``px4_surrogate.px4_step_jacobian``: the Jacobian the JAX package's
+``jacfwd`` forms, a few hundred small ops instead of a ``torch.func``
+transform; a custom ``step_fn`` is linearised with ``torch.func.jacfwd``).
+Measurement model: position, attitude and gyro body
 rates (``MEASURED_IDX``), a linear selection with the yaw innovation
 wrapped. The covariance update is the Joseph form, re-symmetrised.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from ..models.params import RigidBodyParams
-from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step
+from ..models.px4_surrogate import RateLoopParams, px4_rate_tracking_step, px4_step_jacobian
 from ..utils.rotations import wrap_angle
 
 STATE_DIM = 12
@@ -27,6 +32,13 @@ STATE_DIM = 12
 MEASURED_IDX = (0, 1, 2, 6, 7, 8, 9, 10, 11)
 MEAS_DIM = len(MEASURED_IDX)
 _YAW_ROW = 5  # index of yaw inside the measurement vector
+
+
+@functools.lru_cache(maxsize=16)
+def _measured_index(device: torch.device) -> torch.Tensor:
+    """``MEASURED_IDX`` on ``device``, made once (a copy from the host at
+    every tick would wait for the device's queue)."""
+    return torch.tensor(MEASURED_IDX, device=device)
 
 
 def _groups(*stds, device=None) -> torch.Tensor:
@@ -84,7 +96,7 @@ def measure(state: torch.Tensor, normals: torch.Tensor,
             config: EKFConfig = EKFConfig()) -> torch.Tensor:
     """One sensor sample: the measured components of ``state`` plus
     ``sqrt(r) * normals`` (``normals``: 9 standard-normal draws)."""
-    clean = state[list(MEASURED_IDX)]
+    clean = state[_measured_index(state.device)]
     return clean + torch.sqrt(config.r_diag(state.device)).to(state.dtype) * normals.to(state.dtype)
 
 
@@ -103,7 +115,7 @@ def joseph_update(
     n = x_pred.shape[0]
     P_pred = F @ P @ F.T + torch.diag(q_diag).to(dtype)
 
-    idx = torch.tensor(MEASURED_IDX, device=dev)
+    idx = _measured_index(dev)
     H = torch.zeros(MEAS_DIM, n, dtype=dtype, device=dev)
     H[torch.arange(MEAS_DIM, device=dev), idx] = 1.0
 
@@ -136,11 +148,12 @@ def ekf_step(
     u) -> x_next`` replaces the process model (default: one RK4 step of
     the surrogate at ``dt``)."""
     if step_fn is None:
-        step = lambda x: px4_rate_tracking_step(x, control, body, rate_loop, dt)
+        x_pred = px4_rate_tracking_step(carry.x, control, body, rate_loop, dt)
+        F = px4_step_jacobian(carry.x, control, body, rate_loop, dt)
     else:
         step = lambda x: step_fn(x, control)
-    x_pred = step(carry.x)
-    F = torch.func.jacfwd(step)(carry.x)
+        x_pred = step(carry.x)
+        F = torch.func.jacfwd(step)(carry.x)
     x_new, P_new = joseph_update(x_pred, F, carry.P, config.q_diag(x_pred.device), measurement,
                                  config.r_diag(x_pred.device))
     return EKFState(x=x_new, P=P_new), x_new

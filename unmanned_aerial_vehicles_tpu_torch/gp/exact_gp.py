@@ -1,14 +1,19 @@
 """Exact multi-output Gaussian-process regression (port of
-``gp/exact_gp.py``: fit, posterior mean and predictive variance).
+``gp/exact_gp.py``: fit, posterior mean and predictive variance, the log
+marginal likelihood and its maximisation).
 
 sklearn semantics (``RBF + WhiteKernel``, ``alpha`` jitter,
-``normalize_y=True`` with the population std). Hyperparameter optimisation
-is queued in ROADMAP.md.
+``normalize_y=True`` with the population std). The hyperparameters are
+optimised by ``torch.optim.LBFGS`` (a strong-Wolfe line search, a history
+of 10) for a fixed number of steps, where the JAX package runs
+``optax.lbfgs``: the same quasi-Newton family, so the two reach
+comparable optima, not the same iterates.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -144,3 +149,116 @@ def predict(posterior: GPPosterior, X_test: torch.Tensor,
         prior_var = prior_var + p.noise_variance.to(wd)
     var_latent = torch.clamp(prior_var - torch.sum(v**2, dim=0), min=1e-10)
     return mean, var_latent[:, None] * posterior.y_std[None, :] ** 2
+
+
+def _train_kernel(params: GPParams, X: torch.Tensor, jitter: float) -> torch.Tensor:
+    n = X.shape[0]
+    K = rbf_kernel(X, X, params.length_scale, params.signal_variance)
+    return K + (params.noise_variance + jitter) * torch.eye(n, dtype=X.dtype, device=X.device)
+
+
+def log_marginal_likelihood(
+    params: GPParams,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    jitter: float = 0.0,
+    normalize_y: bool = False,
+) -> torch.Tensor:
+    """Multi-output log marginal likelihood, differentiable in ``params``
+    (sklearn's ``log_marginal_likelihood`` summed over the outputs). In
+    the promoted dtype of the inputs and the hyperparameters; NaN where the
+    Gram matrix is not positive definite (a failed Cholesky), as in the JAX
+    package."""
+    full_f32_matmul()
+    Y = Y if Y.ndim == 2 else Y[:, None]
+    if normalize_y:
+        y_std = torch.std(Y, dim=0, correction=0)
+        Y = (Y - torch.mean(Y, dim=0)) / torch.where(y_std == 0.0, torch.ones_like(y_std), y_std)
+    n, out = Y.shape
+    wd = _work_dtype(params, X, Y)
+    p = GPParams(*(v.to(wd) for v in params))
+    L, info = torch.linalg.cholesky_ex(_train_kernel(p, X.to(wd), jitter))
+    alpha = torch.cholesky_solve(Y.to(wd), L)
+    log_det = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    quad = torch.sum(Y.to(wd) * alpha)
+    const = n * out * math.log(2.0 * math.pi)
+    lml = -0.5 * (out * log_det + quad + const)
+    return torch.where(info == 0, lml, torch.nan)
+
+
+_NLL_PENALTY = 1e30
+
+
+def optimize_hyperparameters(
+    params: GPParams,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    jitter: float = 0.0,
+    normalize_y: bool = False,
+    steps: int = 100,
+    learning_rate: float = 1.0,
+) -> Tuple[GPParams, torch.Tensor]:
+    """Maximise the log marginal likelihood over the log-hyperparameters
+    with ``steps`` L-BFGS steps (``torch.optim.LBFGS``, one iteration a
+    step, strong-Wolfe line search, ``learning_rate`` its initial step).
+    A trial point whose Gram matrix is not positive definite scores a large
+    finite penalty, so the line search backs off from it. Returns the best
+    parameters seen (the start included) and their negative log marginal
+    likelihood, as the JAX package does."""
+    leaves = [v.detach().clone().requires_grad_(True) for v in params]
+    opt = torch.optim.LBFGS(leaves, lr=learning_rate, max_iter=1, history_size=10,
+                            line_search_fn="strong_wolfe")
+
+    def nll():
+        return -log_marginal_likelihood(GPParams(*leaves), X, Y, jitter, normalize_y)
+
+    def closure():
+        opt.zero_grad()
+        value = nll()
+        if not bool(torch.isfinite(value)):
+            value = _NLL_PENALTY + sum(0.0 * leaf.sum() for leaf in leaves)
+        value.backward()
+        return value
+
+    best_p = GPParams(*(v.detach().clone() for v in leaves))
+    best_v = math.inf
+    for _ in range(steps):
+        current = GPParams(*(v.detach().clone() for v in leaves))
+        value = float(opt.step(closure).detach())
+        if value < best_v:
+            best_p, best_v = current, value
+    with torch.no_grad():
+        final_v = float(nll())
+    if final_v < best_v:    # False for a NaN
+        best_p, best_v = GPParams(*(v.detach().clone() for v in leaves)), final_v
+    return best_p, torch.tensor(best_v, dtype=_work_dtype(params, X, Y))
+
+
+def optimize_hyperparameters_restarts(
+    params: GPParams,
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    generator: torch.Generator,
+    restarts: int = 3,
+    perturbation: float = 1.0,
+    jitter: float = 0.0,
+    normalize_y: bool = False,
+    steps: int = 100,
+) -> Tuple[GPParams, torch.Tensor]:
+    """Multi-start maximisation (sklearn's ``n_restarts_optimizer``): the
+    log length scales perturbed by ``perturbation`` times standard normals
+    drawn from ``generator``, restart 0 the unperturbed start; the restarts
+    run one after another. Returns the best restart's parameters and
+    negative log marginal likelihood."""
+    log_ls = params.log_length_scale
+    draws = torch.randn((restarts,) + tuple(log_ls.shape), generator=generator,
+                        device=generator.device, dtype=log_ls.dtype).to(log_ls.device)
+    best, best_v = None, None
+    for r in range(restarts):
+        start = params if r == 0 else params._replace(
+            log_length_scale=log_ls + perturbation * draws[r])
+        p, v = optimize_hyperparameters(start, X, Y, jitter=jitter, normalize_y=normalize_y,
+                                        steps=steps)
+        if best_v is None or bool(v < best_v) or bool(torch.isnan(best_v)):
+            best, best_v = p, v
+    return best, best_v

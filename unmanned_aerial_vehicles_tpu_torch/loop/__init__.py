@@ -1,5 +1,7 @@
 """Closed-loop flights: the 6-state GP-MPC loops, sweep and Monte Carlo
-populations, and the 12-state SQP and iLQR multi-tick tiers."""
+populations, the mission phase machine, the online GP-MPC system, the
+PID-against-MPC comparison harness, and the 12-state SQP and iLQR
+multi-tick tiers."""
 
 from .closed_loop import (
     FlightLoopConfig,
@@ -12,6 +14,17 @@ from .closed_loop import (
     pid_flight_rollout,
     plant_block,
 )
+from .compare import (
+    TRAJECTORY_TYPES,
+    comparison_plant_step,
+    comparison_reference,
+    comparison_summary,
+    run_comparison,
+    run_full_comparison,
+    simplified_mpc_control,
+)
+from .full_system import OnlineGPMPCConfig, online_gp_mpc_rollout
+from .mission import ARM_END, HOVER_END, PREPARE_END, TAKEOFF_END, mission_rollout
 from .monte_carlo import (
     MonteCarloConfig,
     monte_carlo_flights,
@@ -35,6 +48,10 @@ __all__ = [
     "FlightLoopConfig", "FlightResumeState", "OnlineFusedGPConfig", "batched_mpc_flight_rollout",
     "batched_mpc_flight_sweep", "batched_pid_flight_rollout", "mpc_flight_rollout",
     "pid_flight_rollout", "plant_block",
+    "TRAJECTORY_TYPES", "comparison_plant_step", "comparison_reference", "comparison_summary",
+    "run_comparison", "run_full_comparison", "simplified_mpc_control",
+    "OnlineGPMPCConfig", "online_gp_mpc_rollout",
+    "ARM_END", "HOVER_END", "PREPARE_END", "TAKEOFF_END", "mission_rollout",
     "MonteCarloConfig", "monte_carlo_flights", "monte_carlo_mpc", "monte_carlo_mpc12",
     "monte_carlo_pid", "robustness_stats", "sample_conditions",
     "MultiTickCarry", "direct_rate_multitick_fused", "ilqr_multitick_rollout",

@@ -4,6 +4,7 @@ parameters."""
 from .double_integrator import (
     CONTROL_DIM,
     STATE_DIM,
+    discrete_system_matrices,
     double_integrator_derivative,
     double_integrator_step,
 )
@@ -12,7 +13,7 @@ from .px4_surrogate import PID_CAMPAIGN_RATE_LOOP, RateLoopParams, px4_rate_trac
 from .rigid_body import rigid_body_derivative, rigid_body_euler_step, rigid_body_rk4_step
 
 __all__ = [
-    "CONTROL_DIM", "STATE_DIM", "double_integrator_derivative", "double_integrator_step",
+    "CONTROL_DIM", "STATE_DIM", "discrete_system_matrices", "double_integrator_derivative", "double_integrator_step",
     "RigidBodyParams",
     "COMPARISON_PARAMS", "GZ_QUADROTOR_PARAMS", "X500_PARAMS",
     "PID_CAMPAIGN_RATE_LOOP", "RateLoopParams", "px4_rate_tracking_step",

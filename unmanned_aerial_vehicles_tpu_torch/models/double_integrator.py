@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
+
 STATE_DIM = 6
 CONTROL_DIM = 4
 
@@ -22,3 +24,16 @@ def double_integrator_step(
 ) -> torch.Tensor:
     """Forward-Euler step: ``x + dt * dx/dt``."""
     return state + dt * double_integrator_derivative(state, control)
+
+
+def discrete_system_matrices(dt: float, dtype=torch.float32, device=None):
+    """``(A, B)`` of the forward-Euler discrete system the linear MPC uses,
+    ``x_{k+1} = A x_k + B u_k``: ``A = I + dt [[0, I], [0, 0]]``, ``B = dt
+    [[0], [I | 0]]`` (the yaw-rate column is zero: it does not enter the
+    translational dynamics)."""
+    device = resolve_device(device)
+    A = torch.eye(STATE_DIM, dtype=dtype, device=device)
+    A[0:3, 3:6] = dt * torch.eye(3, dtype=dtype, device=device)
+    B = torch.zeros(STATE_DIM, CONTROL_DIM, dtype=dtype, device=device)
+    B[3:6, 0:3] = dt * torch.eye(3, dtype=dtype, device=device)
+    return A, B

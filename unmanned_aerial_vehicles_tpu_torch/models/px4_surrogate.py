@@ -12,6 +12,7 @@ Jacobian and the RK4 step's transition Jacobian in closed form.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -37,13 +38,22 @@ class RateLoopParams:
 PID_CAMPAIGN_RATE_LOOP = RateLoopParams(hover_thrust_norm=0.7)
 
 
+@functools.lru_cache(maxsize=256)
+def _constant_vector(values: tuple, dtype, device) -> torch.Tensor:
+    """A vector of Python-number constants on ``device``, made once: a copy
+    from the host at every call would wait for the device's queue. Every
+    caller gets the same tensor, so none may write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _constants(values, dtype, device) -> torch.Tensor:
     """A vector of plant constants. They are Python numbers, or tensors
     where a population gives each flight its own (0-d per flight under
     ``torch.func.vmap``)."""
     if any(isinstance(v, torch.Tensor) for v in values):
         return torch.stack([torch.as_tensor(v, dtype=dtype, device=device) for v in values])
-    return torch.tensor(values, dtype=dtype, device=device)
+    return _constant_vector(tuple(float(v) for v in values), dtype,
+                            None if device is None else torch.device(device))
 
 
 def _derivative(
@@ -62,7 +72,7 @@ def _derivative(
 
     R = euler_to_rotation_matrix(phi, theta, psi)
     # mixed-NED thrust mapping: xy components flip sign
-    t_dir = R[..., :, 2] * torch.tensor([-1.0, -1.0, 1.0], dtype=dtype, device=state.device)
+    t_dir = R[..., :, 2] * _constant_vector((-1.0, -1.0, 1.0), dtype, state.device)
     thrust_gain = body.gravity / rates.hover_thrust_norm
     thrust_accel_world = t_dir * (thrust_norm * thrust_gain)[..., None]
 
@@ -131,7 +141,7 @@ def derivative_jacobian(
     sec2 = sec * sec
     zero, one = torch.zeros_like(phi), torch.ones_like(phi)
 
-    av = vel - torch.tensor(body.wind, dtype=dtype, device=dev)
+    av = vel - _constants(body.wind, dtype, dev)
     sq = torch.sum(av**2)
     pos = sq > 0.0
     speed = torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
@@ -154,8 +164,7 @@ def derivative_jacobian(
         torch.stack([(q * cphi - r * sphi) * sec, (q * sphi + r * cphi) * sth * sec2, zero,
                      zero, sphi * sec, cphi * sec]),
     ])
-    taus = torch.tensor([rates.tau_roll, rates.tau_pitch, rates.tau_yaw], dtype=dtype,
-                        device=dev)
+    taus = _constants((rates.tau_roll, rates.tau_pitch, rates.tau_yaw), dtype, dev)
 
     J = torch.zeros(12, 12, dtype=dtype, device=dev)
     J[0:3, 3:6] = torch.eye(3, dtype=dtype, device=dev)

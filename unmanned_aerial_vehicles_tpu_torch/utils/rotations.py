@@ -66,3 +66,30 @@ def euler_rate_transform(phi, theta) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def euler_to_quaternion(roll, pitch, yaw) -> torch.Tensor:
+    """ZYX Euler angles -> quaternion ``[w, x, y, z]``, shape ``(..., 4)``."""
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([w, x, y, z], dim=-1)
+
+
+def quaternion_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion ``[w, x, y, z]`` ``(..., 4)`` -> Euler ``[roll, pitch,
+    yaw]`` ``(..., 3)``; the pitch is clamped to +-pi/2 where ``|sin p| >=
+    1``."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    sinp = 2.0 * (w * y - z * x)
+    pitch = torch.where(torch.abs(sinp) >= 1.0, torch.sign(sinp) * (math.pi / 2.0),
+                        torch.arcsin(torch.clamp(sinp, -1.0, 1.0)))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
