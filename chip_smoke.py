@@ -196,7 +196,18 @@ Phases (any failure exits non-zero; nothing is caught):
    solves (K14 200 launches at n=30, m=90, the states within 1e-4 m; K14
    timed there against its plain version and its bound), and, with no
    kernel, ten ticks of the attitude MPC's hover and the comparison
-   harness's winner table;
+   harness's winner table; the full-corpus GP and the sharded sweeps
+   (``run_distributed``, a world of one): a seeded 19,816 x 10 float32
+   corpus fitted by ``fit_residual_gp_sharded`` through K15 and its plain
+   twin (posterior means within 1e-3 of y_std), a 4000-row fit against a
+   dense float64 Cholesky fit (5e-3 of y_std) and through a one-rank NCCL
+   group (bit for bit), ``predict_sharded`` and ``lml_grad_sharded``
+   against the plain route (1e-3), three Adam steps and the per-dimension
+   fit finite, one fit under ``torch.profiler`` (K15's and the products'
+   shares), ``sharded_structured_flight_sweep`` (K8, K7, K2: 100 launches
+   each) and ``sharded_flight_sweep`` (K5: 40) equal bit for bit to their
+   one-card runs, and ``utils.profiling.scan_slope_timeit`` within 10% of
+   ``graph_ms`` on K15 at the corpus; the block must take at most 60 s;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -4057,6 +4068,351 @@ def run_orchestration(dev, fail_fn, kernels, ref, card: str) -> dict:
     return results
 
 
+CORPUS_N, CORPUS_D, CORPUS_OUT = 19816, 10, 6   # the reference's flight corpus
+CORPUS_FLIGHTS = 8            # the seeded corpus: figure-8 flights at 50 Hz
+CORPUS_QUERIES = 2000
+CORPUS_FIT_REL = 1e-3         # kernel fit against the plain fit: posterior mean, of y_std
+DENSE_N = 4000
+DENSE_FIT_REL = 5e-3          # float32 kernel fit against a dense float64 Cholesky fit, of y_std
+PREDICT_Q = 256
+PREDICT_REL = 1e-3            # predict_sharded's mean and variance, kernel against plain route
+GRAD_PROBES = 16
+GRAD_REL = 1e-3               # lml_grad_sharded on equal probes, kernel against plain route
+ADAM_STEPS = 3
+FLIGHT_SWEEP_B, FLIGHT_SWEEP_T = 4, 200
+TIMER_LAUNCHES = (10, 50)     # scan_slope_timeit's two lengths of K15 launches
+TIMER_REL = 0.10              # its per-launch time against graph_ms on the same launch
+DISTRIBUTED_BUDGET_S = 60.0
+
+
+def seeded_corpus(seed: int = 2026):
+    """A float32 flight corpus of the reference's size: ``CORPUS_FLIGHTS``
+    figure-8 flights at 50 Hz (position, velocity, acceleration with sensor
+    noise, yaw rate: the GP's 10 inputs) and 6 smooth residual outputs of
+    them (drag-like and tilt-like terms) plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = CORPUS_N
+    per = -(-n // CORPUS_FLIGHTS)
+    rows = []
+    for _ in range(CORPUS_FLIGHTS):
+        amp, freq = rng.uniform(2.0, 6.0), rng.uniform(0.02, 0.06)
+        w, phase = 2 * np.pi * freq, rng.uniform(0, 2 * np.pi)
+        t = np.arange(per) * 0.02
+        s, c = np.sin(w * t + phase), np.cos(w * t + phase)
+        s2, c2 = np.sin(2 * (w * t + phase)), np.cos(2 * (w * t + phase))
+        pos = np.stack([amp * s, 0.5 * amp * s2, 3.0 + 0.3 * s], 1)
+        vel = np.stack([amp * w * c, amp * w * c2, 0.3 * w * c], 1)
+        acc = np.stack([-amp * w**2 * s, -2 * amp * w**2 * s2, -0.3 * w**2 * s], 1)
+        acc = acc + 0.3 * rng.normal(size=acc.shape)
+        yaw_rate = 0.2 * np.sin(0.5 * w * t) + 0.02 * rng.normal(size=per)
+        rows.append(np.column_stack([pos, vel, acc, yaw_rate]))
+    X = np.concatenate(rows)[:n]
+    v, a = X[:, 3:6], X[:, 6:9]
+    Y = np.column_stack([
+        -0.02 * v[:, 0] * np.abs(v[:, 0]), -0.02 * v[:, 1] * np.abs(v[:, 1]),
+        0.01 * np.sin(X[:, 2]) - 0.005 * a[:, 2],
+        -0.1 * v[:, 0] + 0.05 * np.tanh(a[:, 0]), -0.1 * v[:, 1] + 0.05 * np.tanh(a[:, 1]),
+        0.05 * np.cos(X[:, 9]) - 0.02 * v[:, 2],
+    ]) + 0.01 * rng.normal(size=(n, CORPUS_OUT))
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def run_distributed(dev, fail_fn, kernels, mpc, ref, starts, post, online_cfg, ogp,
+                    card: str) -> dict:
+    """The full-corpus GP and the sharded sweeps on a world of one (no
+    process group; a one-rank NCCL group once), each kernel route against
+    its plain twin (``plain_kernels=True``) with the launch counts from 0:
+
+    - ``fit_residual_gp_sharded`` on the seeded corpus (19,816 x 10, 6
+      outputs, float32; ``ResidualGPConfig()``, 200 CG iterations, 256
+      anchors): every Gram block through K15 (a launch per tile of
+      ``GRAM_SHIFT_ROWS`` rows, each on its own shifted coordinates); the posterior means at 2,000
+      queries within CORPUS_FIT_REL of y_std of the plain route's;
+    - the first DENSE_N rows' kernel fit within DENSE_FIT_REL of y_std of a
+      dense float64 Cholesky fit (``fit_residual_gp``) on the card;
+    - ``predict_sharded`` (mean and variance) at 256 queries and
+      ``lml_grad_sharded`` on 16 probes of one seeded generator, each within
+      its bound of the plain route's; three Adam steps
+      (``optimize_hyperparameters_sharded``) finite; ``fit_per_dim_gp_sharded``
+      (six K15-built fits) finite;
+    - the DENSE_N-row fit through a one-rank NCCL group equal bit for bit to
+      the fit without a group;
+    - ``sharded_structured_flight_sweep`` (1024 flights x 100 ticks,
+      ``gp_posterior=``: K8, K7, K2) equal bit for bit to
+      ``structured_flight_sweep``'s; ``sharded_flight_sweep`` over the
+      multi-tick online flight (K5), 4 flights x 200 ticks, equal per flight
+      to the flights run one by one;
+    - ``utils.profiling.scan_slope_timeit`` over 10 and 50 K15 launches at
+      the corpus within TIMER_REL of ``graph_ms`` on the same launch.
+
+    Records each path's launches under the kernel's ``paths``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import (
+        ResidualGPConfig,
+        default_params,
+        fit_residual_gp,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.gp.exact_gp import predict_mean
+    from unmanned_aerial_vehicles_tpu_torch.loop import mpc_flight_rollout
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda, rbf_pallas
+    from unmanned_aerial_vehicles_tpu_torch.parallel import (
+        fit_per_dim_gp_sharded,
+        fit_residual_gp_sharded,
+        lml_grad_sharded,
+        make_mesh,
+        optimize_hyperparameters_sharded,
+        predict_mean_sharded,
+        predict_sharded,
+        sharded_flight_sweep,
+        sharded_structured_flight_sweep,
+        structured_flight_sweep,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.parallel.distributed_gp import (
+        GRAM_SHIFT_ROWS,
+        rademacher_probes,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.utils.profiling import scan_slope_timeit
+
+    started = time.perf_counter()
+    out = {}
+    X, Y = seeded_corpus()
+    rng = np.random.default_rng(7)
+    queries = X[rng.choice(CORPUS_N, CORPUS_QUERIES, replace=False)]
+    queries = queries + 0.05 * rng.normal(size=queries.shape).astype(np.float32)
+    mesh = make_mesh(device=dev)
+    cfg = ResidualGPConfig()
+
+    def counted(label, fn):
+        """``fn()`` with the counts from 0, synchronised and timed: (result,
+        seconds, the launches it made)."""
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+        return result, seconds, counts
+
+    def record(path, counts, expected):
+        for kernel, n in expected.items():
+            if counts.get(kernel, 0) != n:
+                fail_fn(f"{path}: {kernel} launched {counts.get(kernel, 0)} times, expected {n}")
+            kernels[kernel].setdefault("paths", {})[path] = n
+        if set(counts) - set(expected):
+            fail_fn(f"{path}: launched {sorted(set(counts) - set(expected))} as well")
+
+    def of_scale(got, want, scale):
+        return float(((got - want).abs() / scale).max())
+
+    k15 = "rbf_kernel_matrix_pallas"
+    tiles = lambda rows: -(-rows // GRAM_SHIFT_ROWS)   # K15 launches of one Gram block
+    system = lambda n: 2 * tiles(n) + tiles(min(256, n))   # the block, C and W
+    fit = lambda plain, rows=slice(None), **kw: fit_residual_gp_sharded(
+        X[rows], Y[rows], mesh=mesh, config=cfg, cg_iterations=200, precond_size=256,
+        plain_kernels=plain, **kw)
+    post_k, s_k, c_k = counted("fit", lambda: fit(False))
+    kernels[k15].setdefault("paths", {})["its own entry point (800-point Gram)"] = (
+        kernels[k15]["launches"])
+    record("distributed GP: corpus fit", c_k, {k15: system(CORPUS_N)})
+    kernels[k15]["launches"] = c_k.get(k15, 0)
+    post_p, s_p, c_p = counted("fit plain", lambda: fit(True))
+    record("distributed GP: corpus fit, plain twin", c_p, {})
+    mean_k = predict_mean_sharded(post_k, queries)
+    mean_p = predict_mean_sharded(post_p, queries, plain_kernels=True)
+    gap = of_scale(mean_k, mean_p, post_p.y_std)
+    rel_res = float(post_k.cg_residual) / math.sqrt(CORPUS_N)
+    print(f"distributed GP fit ({CORPUS_N} x {CORPUS_D}, {CORPUS_OUT} outputs, float32, 200 CG "
+          f"iterations, 256 anchors): {s_k:.3f} s through K15 ({c_k.get(k15, 0)} launches), "
+          f"{s_p:.3f} s plain; CG relative residual {rel_res:.3e} (plain "
+          f"{float(post_p.cg_residual) / math.sqrt(CORPUS_N):.3e}); posterior mean at "
+          f"{CORPUS_QUERIES} queries within {gap:.3e} of y_std of the plain fit's; card: {card}")
+    if not (gap <= CORPUS_FIT_REL and torch.isfinite(mean_k).all()):
+        fail_fn(f"corpus fit: posterior mean {gap} of y_std from the plain fit's "
+                f"(bound {CORPUS_FIT_REL})")
+    out.update(fit_seconds=s_k, fit_seconds_plain=s_p, cg_relative_residual=rel_res,
+               mean_gap_of_y_std=gap)
+    del post_p, mean_p
+    # where a fit's time goes: device-side events of one more kernel-route fit
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(False)
+        torch.cuda.synchronize()
+        s_prof = time.perf_counter() - t0
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    part = lambda test: sum(t for k, t in events if test(k.lower())) / 1e6
+    busy = part(lambda k: True)
+    gram_s = part(lambda k: "rbf_gram" in k)
+    matmul_s = part(lambda k: "gemm" in k or "gemv" in k)
+    shares = {"fit_seconds_profiled": s_prof, "device_busy_seconds": busy,
+              "k15_seconds": gram_s, "matmul_seconds": matmul_s,
+              "k15_share": gram_s / s_prof, "matmul_share": matmul_s / s_prof,
+              "idle_share": 1.0 - busy / s_prof}
+    print(f"  one fit under torch.profiler: {s_prof:.3f} s, device busy {busy * 1e3:.1f} ms "
+          f"(K15 {gram_s * 1e3:.2f} ms, the products {matmul_s * 1e3:.1f} ms), K15's share "
+          f"{shares['k15_share']:.4f}, the products' {shares['matmul_share']:.4f}, idle "
+          f"{shares['idle_share']:.4f}; top device events "
+          f"{sorted(events, key=lambda e: -e[1])[:4]}; card: {card}")
+    out["fit_shares"] = shares
+
+    # the float32 kernel fit of DENSE_N rows against a dense float64 Cholesky fit
+    small = slice(0, DENSE_N)
+    post_s, _, c_s = counted("dense", lambda: fit(False, small))
+    record(f"distributed GP: {DENSE_N}-row fit", c_s, {k15: system(DENSE_N)})
+    f64 = dict(dtype=torch.float64, device=dev)
+    dense = fit_residual_gp(torch.tensor(X[small], **f64), torch.tensor(Y[small], **f64), cfg)
+    want = predict_mean(dense, torch.tensor(queries, **f64))
+    got = predict_mean_sharded(post_s, queries).double()
+    dense_gap = of_scale(got, want, dense.y_std)
+    print(f"  {DENSE_N}-row float32 kernel fit against a dense float64 Cholesky fit: "
+          f"{dense_gap:.3e} of y_std")
+    if not dense_gap <= DENSE_FIT_REL:
+        fail_fn(f"{DENSE_N}-row fit: {dense_gap} of y_std from the dense float64 fit "
+                f"(bound {DENSE_FIT_REL})")
+    out["dense_gap_of_y_std"] = dense_gap
+
+    # one-rank NCCL group: the same fit through the collectives, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            group_mesh = make_mesh(device=dev)
+            if group_mesh.group is None:
+                fail_fn("make_mesh under a process group made a mesh without it")
+            post_g, _, c_g = counted("nccl", lambda: fit_residual_gp_sharded(
+                X[small], Y[small], mesh=group_mesh, config=cfg, cg_iterations=200,
+                precond_size=256))
+        finally:
+            dist.destroy_process_group()
+    record(f"distributed GP: {DENSE_N}-row fit, one-rank NCCL group", c_g,
+           {k15: system(DENSE_N)})
+    same = all(torch.equal(a, b) for a, b in ((post_g.alpha, post_s.alpha),
+                                               (post_g.cg_residual, post_s.cg_residual)))
+    print(f"  the same fit through a one-rank NCCL group: alpha equal bit for bit {same}")
+    if not same:
+        fail_fn("the fit through a one-rank NCCL group differs from the fit without a group")
+    del post_s, post_g, dense
+
+    # mean and variance at PREDICT_Q queries; the LML gradient; Adam; per-dim
+    q = queries[:PREDICT_Q]
+    (mk, vk), s_pk, c_pk = counted("predict", lambda: predict_sharded(post_k, q, mesh=mesh))
+    record("distributed GP: predict_sharded", c_pk, {k15: 2 * tiles(CORPUS_N)})
+    mp_, vp = predict_sharded(post_k, q, mesh=mesh, plain_kernels=True)
+    pred_gap = max(of_scale(mk, mp_, mp_.abs().max()), of_scale(vk, vp, vp.abs().max()))
+    probes = rademacher_probes(CORPUS_N, GRAD_PROBES, torch.Generator().manual_seed(11))
+    params = default_params(cfg, device=dev)
+    grad = lambda plain: lml_grad_sharded(params, X, Y, mesh=mesh, config=cfg, probes=probes,
+                                          plain_kernels=plain)
+    g_k, s_gk, c_gk = counted("grad", lambda: grad(False))
+    record("distributed GP: lml_grad_sharded", c_gk, {k15: system(CORPUS_N)})
+    g_p = grad(True)
+    grad_gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p))
+    print(f"  predict_sharded at {PREDICT_Q} queries: {s_pk:.3f} s, mean and variance within "
+          f"{pred_gap:.3e} of the plain route's; lml_grad_sharded ({GRAD_PROBES} probes): "
+          f"{s_gk:.3f} s, within {grad_gap:.3e} relative of the plain route's "
+          f"({[round(float(v), 3) for v in g_k]})")
+    if not (pred_gap <= PREDICT_REL and grad_gap <= GRAD_REL):
+        fail_fn(f"predict_sharded {pred_gap} (bound {PREDICT_REL}) or lml_grad_sharded "
+                f"{grad_gap} (bound {GRAD_REL}) from the plain route")
+    del post_k
+    p_opt, s_opt, c_opt = counted("adam", lambda: optimize_hyperparameters_sharded(
+        params, X, Y, mesh=mesh, config=cfg, steps=ADAM_STEPS,
+        generator=torch.Generator().manual_seed(5)))
+    record("distributed GP: optimize_hyperparameters_sharded", c_opt,
+           {k15: ADAM_STEPS * system(CORPUS_N)})
+    model, s_pd, c_pd = counted("per-dim", lambda: fit_per_dim_gp_sharded(X, Y, mesh=mesh))
+    record("distributed GP: fit_per_dim_gp_sharded", c_pd, {k15: CORPUS_OUT * system(CORPUS_N)})
+    finite = all(bool(torch.isfinite(v).all()) for v in p_opt) and all(
+        bool(torch.isfinite(p.alpha).all()) for p in model.posteriors)
+    print(f"  {ADAM_STEPS} Adam steps: {s_opt:.3f} s, length scale "
+          f"{float(p_opt.length_scale):.4f}, signal variance {float(p_opt.signal_variance):.4f}, "
+          f"noise variance {float(p_opt.noise_variance):.4f}; fit_per_dim_gp_sharded: "
+          f"{s_pd:.3f} s; all finite {finite}")
+    if not finite:
+        fail_fn("the Adam steps or the per-dimension fit produced non-finite values")
+    out.update(predict_gap=pred_gap, grad_gap=grad_gap, predict_seconds=s_pk,
+               grad_seconds=s_gk, adam_seconds=s_opt, per_dim_seconds=s_pd)
+    del model
+    torch.cuda.empty_cache()
+
+    # the sharded sweeps on the world of one
+    gp_kw = dict(gp_posterior=post, gp_cfg=ResidualGPConfig())
+    agg, s_sw, c_sw = counted("sweep", lambda: sharded_structured_flight_sweep(
+        mesh, mpc, ref, SWEEP_T, starts, **gp_kw))
+    record("sharded structured sweep", c_sw, {
+        "gpmpc_controller_structured_batched": SWEEP_T, "rbf_posterior_mean_pallas": SWEEP_T,
+        "allocation_plant_tick_fused": SWEEP_T})
+    one = structured_flight_sweep(mpc, ref, SWEEP_T, starts, device=dev, **gp_kw)
+    sweep_equal = (torch.equal(agg["rms_per_flight"], one["rms_per_flight"])
+                   and torch.equal(agg["rms_max"], one["rms_max"])
+                   and abs(float(agg["rms_mean"]) - float(one["rms_mean"]))
+                   <= 1e-7 * float(one["rms_mean"]))
+    rollout = lambda x0: mpc_flight_rollout(mpc, ref, FLIGHT_SWEEP_T, cfg=online_cfg,
+                                            online_gp=ogp, gp_gain=0.1, initial_state=x0,
+                                            device=dev)
+    x0s = starts[:FLIGHT_SWEEP_B].clone()
+    flights, s_fl, c_fl = counted("flights", lambda: sharded_flight_sweep(mesh, rollout, x0s))
+    record("sharded flight sweep (multi-tick online flight)", c_fl, {
+        "gpmpc_multitick_fused": FLIGHT_SWEEP_B * FLIGHT_SWEEP_T // K_TICKS})
+    alone = []
+    for x0 in x0s:
+        o = rollout(x0)
+        alone.append(torch.sqrt(torch.mean(torch.sum((o["pos_ref"] - o["state"][:, 0:3]) ** 2,
+                                                     dim=-1))))
+    flights_equal = torch.equal(flights["rms_per_flight"], torch.stack(alone))
+    print(f"  sharded_structured_flight_sweep ({SWEEP_B} flights x {SWEEP_T} ticks, K8, K7, K2): "
+          f"{s_sw:.3f} s, rms_mean {float(agg['rms_mean']):.6f} m, rms_max "
+          f"{float(agg['rms_max']):.6f} m, equal to structured_flight_sweep's {sweep_equal}; "
+          f"sharded_flight_sweep ({FLIGHT_SWEEP_B} online flights x {FLIGHT_SWEEP_T} ticks, K5): "
+          f"{s_fl:.3f} s, equal per flight to the flights alone {flights_equal}")
+    if not (sweep_equal and flights_equal):
+        fail_fn("a sharded sweep on the world of one differs from the sweep on one card")
+    out.update(sweep_rms_mean_m=float(agg["rms_mean"]), sweep_seconds=s_sw,
+               flight_sweep_rms_m=[float(v) for v in flights["rms_per_flight"]])
+
+    # the profiling timer against graph_ms on the same K15 launch
+    Xc = torch.tensor(X, dtype=torch.float32, device=dev)
+    iso, sig = torch.tensor(0.5, device=dev), torch.tensor(1.0, device=dev)
+    launch = lambda: rbf_pallas.rbf_kernel_matrix_pallas(Xc, Xc, iso, sig)
+
+    def make_fn(T):
+        def run():
+            K = None
+            for _ in range(T):
+                K = launch()
+            return K
+        return run
+
+    slope = scan_slope_timeit(make_fn, *TIMER_LAUNCHES)
+    graph = graph_ms(launch, 5)
+    timer_gap = abs(slope["per_iter_s"] * 1e3 - graph) / graph
+    print(f"  utils.profiling.scan_slope_timeit over {TIMER_LAUNCHES} K15 launches at the "
+          f"corpus: {slope['per_iter_s'] * 1e6:.2f} us a launch against graph_ms "
+          f"{graph * 1e3:.2f} us ({timer_gap:.3%} apart); card: {card}")
+    if not timer_gap <= TIMER_REL:
+        fail_fn(f"scan_slope_timeit is {timer_gap:.3%} from graph_ms (bound {TIMER_REL:.0%})")
+    out.update(timer_us=slope["per_iter_s"] * 1e6, graph_us=graph * 1e3)
+    del Xc
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - started
+    print(f"distributed block: {out['seconds']:.1f} s")
+    if not out["seconds"] <= DISTRIBUTED_BUDGET_S:
+        fail_fn(f"the distributed block took {out['seconds']:.1f} s, over its "
+                f"{DISTRIBUTED_BUDGET_S:.0f} s")
+    return out
+
+
 def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
     """The multi-start cascade-PID tuner (TUNE_MS_STARTS starts, TUNE_MS_T
     ticks of the CLI task, TUNE_MS_ITERS iterations, K1 forward and K13a
@@ -4903,6 +5259,9 @@ def main(parent: str | None = None) -> int:
     # the mission, the online learner, the demo MPCs (K14's flight path) and
     # the comparison harness
     orchestration = run_orchestration(dev, fail, kernels, ref, card)
+    # the full-corpus GP (K15's path) and the sharded sweeps (K8, K7, K5)
+    distributed = run_distributed(dev, fail, kernels, mpc, ref, starts, post, online_cfg, ogp,
+                                  card)
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
@@ -5273,7 +5632,7 @@ def main(parent: str | None = None) -> int:
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
                              ("N=25", kernels["admm_box_qp_fused"]["n25"]),
                              ("padded 128", kernels["admm_box_qp_fused"]["padded"]))},
-        "orchestration": orchestration}
+        "orchestration": orchestration, "distributed": distributed}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -436,3 +436,84 @@ def test_rk4_demo_mpc_solves_through_k14(cuda_device, dtype):
     assert out[False][0].dtype == dtype
     for got, want in zip(out[False][:2], out[True][:2]):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _flight_corpus(n: int, seed: int = 3):
+    """Time-ordered flight-like inputs (a figure-8 with noise) and smooth
+    outputs, float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) * 0.02
+    s, c = np.sin(0.3 * t), np.cos(0.3 * t)
+    X = np.column_stack([4 * s, 2 * np.sin(0.6 * t), 3 + 0.2 * s, 1.2 * c, 1.2 * np.cos(0.6 * t),
+                         0.06 * c, -0.36 * s, -0.72 * np.sin(0.6 * t), 0 * t, 0.1 * s])
+    X = X + 0.05 * rng.normal(size=X.shape)
+    Y = np.column_stack([np.tanh(X[:, k]) for k in range(3, 9)]) + 0.01 * rng.normal(size=(n, 6))
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_sharded_fit_builds_every_gram_block_through_k15(cuda_device):
+    """On the card the float32 fit and prediction launch K15 once per tile of
+    rows of each Gram block and agree with the plain route; float64 on the
+    card raises unless ``plain_kernels=True``."""
+    from unmanned_aerial_vehicles_tpu_torch.parallel import (
+        fit_residual_gp_sharded,
+        predict_mean_sharded,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.parallel.distributed_gp import GRAM_SHIFT_ROWS
+
+    X, Y = _flight_corpus(1000)
+    tiles = lambda n: -(-n // GRAM_SHIFT_ROWS)
+    means = {}
+    for plain in (False, True):
+        _cuda.reset_launch_counts()
+        post = fit_residual_gp_sharded(X, Y, device=cuda_device, plain_kernels=plain)
+        means[plain] = predict_mean_sharded(post, X[::7], plain_kernels=plain)
+        torch.cuda.synchronize()
+        want = 0 if plain else 2 * tiles(1000) + tiles(256) + tiles(1000)
+        assert _cuda.launch_counts["rbf_kernel_matrix_pallas"] == want
+    gap = float(((means[False] - means[True]).abs() / post.y_std).max())
+    assert gap <= 1e-3, gap
+    with pytest.raises(ValueError, match="plain_kernels=True"):
+        fit_residual_gp_sharded(X.astype(np.float64), Y, device=cuda_device, cg_iterations=2)
+    post64 = fit_residual_gp_sharded(X.astype(np.float64), Y.astype(np.float64),
+                                     device=cuda_device, plain_kernels=True)
+    assert post64.alpha.dtype == torch.float64 and bool(torch.isfinite(post64.alpha).all())
+
+
+@pytest.mark.cuda
+def test_sharded_structured_sweep_on_a_world_of_one(cuda_device):
+    """The sharded sweep on one card launches K8, K7 and K2 once a tick and
+    equals the one-card sweep bit for bit."""
+    from unmanned_aerial_vehicles_tpu_torch.loop import FlightLoopConfig
+    from unmanned_aerial_vehicles_tpu_torch.parallel import (
+        make_mesh,
+        sharded_structured_flight_sweep,
+        structured_flight_sweep,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.trajectories import ramped_figure8_reference
+
+    def ref(t):
+        p, y = ramped_figure8_reference(t, 6.0, 0.02)
+        return p + torch.tensor([0.0, 0.0, 3.0], dtype=p.dtype, device=p.device), y
+
+    rng = np.random.default_rng(0)
+    post = fit_residual_gp(torch.tensor(rng.normal(size=(200, 10)), dtype=torch.float32,
+                                        device=cuda_device),
+                           torch.tensor(0.05 * rng.normal(size=(200, 6)), dtype=torch.float32,
+                                        device=cuda_device))
+    mpc = LinearMPC(LinearMPCConfig(horizon=10, admm_iterations=10, use_fused_controller=True),
+                    device=cuda_device)
+    starts = torch.zeros(16, 12, device=cuda_device)
+    starts[:, 2] = 3.0
+    starts[:, 0] = torch.linspace(-1, 1, 16, device=cuda_device)
+    _cuda.reset_launch_counts()
+    agg = sharded_structured_flight_sweep(make_mesh(device=cuda_device), mpc, ref, 10, starts,
+                                          cfg=FlightLoopConfig(), gp_posterior=post)
+    torch.cuda.synchronize()
+    for name in ("gpmpc_controller_structured_batched", "rbf_posterior_mean_pallas",
+                 "allocation_plant_tick_fused"):
+        assert _cuda.launch_counts[name] == 10, name
+    one = structured_flight_sweep(mpc, ref, 10, starts, gp_posterior=post, device=cuda_device)
+    assert torch.equal(agg["rms_per_flight"], one["rms_per_flight"])
+    assert torch.equal(agg["rms_max"], one["rms_max"])

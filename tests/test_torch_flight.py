@@ -139,7 +139,14 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.gp.per_dim\n"
         "import unmanned_aerial_vehicles_tpu_torch.io.synthetic\n"
         "import unmanned_aerial_vehicles_tpu_torch.metrics\n"
+        "import unmanned_aerial_vehicles_tpu_torch.parallel\n"
+        "import unmanned_aerial_vehicles_tpu_torch.io\n"
+        "import unmanned_aerial_vehicles_tpu_torch.gp\n"
+        "import unmanned_aerial_vehicles_tpu_torch.utils\n"
+        "import unmanned_aerial_vehicles_tpu_torch.metrics.animate\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('sklearn', 'matplotlib')], "
+        "'sklearn or matplotlib imported'\n"
         "assert not any(m.startswith('unmanned_aerial_vehicles_tpu.') or "
         "m == 'unmanned_aerial_vehicles_tpu' for m in sys.modules)\n"
     )

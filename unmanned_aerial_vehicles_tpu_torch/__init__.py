@@ -21,7 +21,8 @@ Sub-packages
 ``trajectories``  the ramped figure-8 and circle references
 ``control``       geometric allocation, condensed linear MPC, the 12-state
                   SQP family (torque, direct-rate, LTV tracking), MPPI
-``gp``            exact GP and the residual-dynamics ring buffer
+``gp``            exact GP, the residual-dynamics ring buffer, per-dimension
+                  GPs, evaluation and model analysis
 ``estimation``    EKF, disturbance observer, noisy-sensor flights
 ``ops``           box-QP ADMM, LTV condensation and the hand-written kernels
                   (plants, ticks, batched controller, GP posterior mean,
@@ -29,7 +30,14 @@ Sub-packages
                   the plant VJPs)
 ``loop``          closed-loop flights, the batched throughput sweep and the
                   12-state multi-tick tiers
-``parallel``      flight sweeps reduced to tracking aggregates
+``parallel``      the full-corpus GP (row-sharded CG through the Gram
+                  kernel) and flight and hyperparameter sweeps, over a
+                  ``torch.distributed`` mesh or on one card
+``io``            datasets (a native CSV parser), flight logs (npz and the
+                  native ``uavlog`` recorder), GP and resume checkpoints,
+                  the reference's sklearn pickles, synthetic data
+``metrics``       tracking and performance metrics, plots, animated replays
+``utils``         rotations, device timers and traces
 ``tuning``        gradient descent on the cascade-PID gains and the MPC
                   weights through whole flights (the kernels' VJPs)
 ``convert``       carries the JAX package's values (as numpy) across

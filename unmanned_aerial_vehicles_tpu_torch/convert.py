@@ -28,6 +28,8 @@ from .models.px4_surrogate import RateLoopParams
 from .ops.controller_pallas import FusedControllerData, StructuredBatchData
 from .ops.rigid_tick_pallas import RigidTickOperands
 from .ops.tick_pallas import FusedTickData, GPRows, build_tick_data
+from .parallel.distributed_gp import PerDimShardedGP, ShardedGPPosterior
+from .parallel.sharding import Mesh, make_mesh, shard_rows
 
 
 def _keep(a, dev):
@@ -423,3 +425,39 @@ def per_dim_gp_from_numpy(posteriors: Mapping, scaler_X: Mapping, scaler_Y: Mapp
               for k in GPPosterior._fields if k != "params"}
     scaler = lambda sc: Standardizer(_keep(sc["mean"], dev), _keep(sc["std"], dev))
     return PerDimGP(GPPosterior(params=params, **fields), scaler(scaler_X), scaler(scaler_Y))
+
+
+def sharded_gp_posterior_from_numpy(fields: Mapping, mesh: Mesh | None = None,
+                                    device=None) -> ShardedGPPosterior:
+    """This rank's ``ShardedGPPosterior`` from the JAX package's: ``fields``
+    maps each of its fields (``params`` as the three ``log_*`` arrays) to
+    the whole array, as ``np.asarray`` reads a sharded one; the rows of
+    ``X_train``, ``mask`` and ``alpha`` are cut to this rank's block of
+    ``mesh`` (a world of one on ``device`` by default). Every array keeps
+    its dtype."""
+    mesh = mesh or make_mesh(device=device)
+    rows = shard_rows(np.asarray(fields["X_train"]).shape[0], mesh)
+    keep = lambda a: _keep(a, mesh.device)
+    return ShardedGPPosterior(
+        params=gp_params_from_numpy(fields["log_length_scale"], fields["log_signal_variance"],
+                                    fields["log_noise_variance"], mesh.device),
+        X_train=keep(np.asarray(fields["X_train"])[rows]),
+        mask=keep(np.asarray(fields["mask"])[rows]),
+        alpha=keep(np.asarray(fields["alpha"])[rows]),
+        y_mean=keep(fields["y_mean"]),
+        y_std=keep(fields["y_std"]),
+        cg_residual=keep(fields["cg_residual"]),
+    )
+
+
+def per_dim_sharded_gp_from_numpy(posteriors, x_mean, x_std, mesh: Mesh | None = None,
+                                  device=None) -> PerDimShardedGP:
+    """A ``PerDimShardedGP`` from the JAX package's: ``posteriors`` holds
+    one field mapping per output (as ``sharded_gp_posterior_from_numpy``
+    takes), ``x_mean`` and ``x_std`` the input scaler."""
+    mesh = mesh or make_mesh(device=device)
+    return PerDimShardedGP(
+        posteriors=tuple(sharded_gp_posterior_from_numpy(f, mesh) for f in posteriors),
+        x_mean=_keep(x_mean, mesh.device),
+        x_std=_keep(x_std, mesh.device),
+    )

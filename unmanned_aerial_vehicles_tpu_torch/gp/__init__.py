@@ -1,7 +1,12 @@
 """Exact GP (fit, prediction, the log marginal likelihood and its
 maximisation), the residual-dynamics ring buffer, per-dimension GPs,
-posterior compression and the offline evaluation."""
+posterior compression, the offline evaluation and the model analysis."""
 
+from .analysis import (
+    analyze_gp_model,
+    generate_generic_test_points,
+    generate_physical_test_points,
+)
 from .evaluate import evaluate_gp, evaluate_gp_residuals, write_metrics_csv
 from .exact_gp import (
     GPParams,
@@ -44,6 +49,7 @@ from .residual_gp import (
 from .sparse import compress_posterior, compression_error, select_anchors
 
 __all__ = [
+    "analyze_gp_model", "generate_generic_test_points", "generate_physical_test_points",
     "evaluate_gp", "evaluate_gp_residuals", "write_metrics_csv",
     "GPParams", "GPPosterior", "fit_gp", "log_marginal_likelihood", "optimize_hyperparameters",
     "optimize_hyperparameters_restarts", "predict", "predict_mean",

@@ -1,5 +1,5 @@
-"""Tracking metrics and the GP and MPC performance aggregates (plots and
-animations are not ported)."""
+"""Tracking metrics, the GP and MPC performance aggregates, and the plots
+(matplotlib is imported only when a plot is drawn)."""
 
 from .performance import (
     MetricsLogger,
@@ -8,6 +8,7 @@ from .performance import (
     measure_time,
     mpc_metrics_summary,
 )
+from .plots import plot_comparison, plot_flight_log, plot_robustness
 from .tracking import (
     attitude_rmse_deg,
     max_position_error,
@@ -24,6 +25,9 @@ __all__ = [
     "gp_metrics_summary",
     "measure_time",
     "mpc_metrics_summary",
+    "plot_comparison",
+    "plot_flight_log",
+    "plot_robustness",
     "attitude_rmse_deg",
     "max_position_error",
     "rms_position_error",
