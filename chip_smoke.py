@@ -208,6 +208,18 @@ Phases (any failure exits non-zero; nothing is caught):
    each) and ``sharded_flight_sweep`` (K5: 40) equal bit for bit to their
    one-card runs, and ``utils.profiling.scan_slope_timeit`` within 10% of
    ``graph_ms`` on K15 at the corpus; the block must take at most 60 s;
+   the command line and the examples (``run_surface``): the seeded corpus
+   written as CSVs, 21 commands through ``cli.main`` on the default device
+   at the CLI's widths cut in length (every ``fly`` controller, ``mission``,
+   ``online``, ``compare``, ``sweep``, both tuners, ``montecarlo``,
+   ``train-gp`` dense and ``--all-samples``, ``evaluate-gp``, ``analyze``),
+   each held to its bar from the JAX package's ``tests/test_cli.py``, each
+   expected to launch its kernels (every launch recorded by path), the
+   online flight's JSON equal to the same ``mpc_flight_rollout`` called
+   directly, and beside them ``python -m unmanned_aerial_vehicles_tpu_torch
+   fly`` in a process of its own and the 15 ``examples_torch/`` scripts
+   with ``UAV_FAST_EXAMPLES=1`` through ``runpy`` in two worker processes
+   (``--run-examples``); the block must take at most 90 s;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -240,6 +252,8 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
+    python3 chip_smoke.py --surface-only # build, then the command-line block alone
+    python3 chip_smoke.py --run-examples GLOB NN ...   # the block's example worker
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
                                          # K5, K9, K11, K7, K2, K13a, K1, K12, K13b, K10,
                                          # K14 and K15 and its
@@ -275,8 +289,8 @@ STAGED_GAP_BOUND_M = 1e-4    # kernel vs plain flight, 100 ticks
 HORIZON, K_TICKS, GP_POINTS, ADMM_ITERS = 20, 20, 800, 10
 T_MAIN = 500
 T_SLOPE = (1000, 3000)        # kernel path
-T_SLOPE_PLAIN = (100, 300)    # plain path (hundreds of small launches per tick)
-T_SLOPE_TIGHT_PLAIN = (104, 304)   # the same at K=8 (lengths a multiple of K)
+T_SLOPE_PLAIN = (40, 160)     # plain path (hundreds of small launches per tick; multiples of K=20)
+T_SLOPE_TIGHT_PLAIN = (48, 152)    # the same at K=8 (lengths a multiple of K)
 
 SWEEP_B, SWEEP_T = 1024, 100  # the throughput sweep (bench.py:301-307)
 T_SWEEP_SLOPE = (200, 700)    # bench.py:301
@@ -775,8 +789,8 @@ LTV_T = 200                   # the obstacle flight at 10 Hz (bench_controllers.
 LTV_OBSTACLE = (0.0, 1.5, 1.0, 0.3)
 # bench_controllers.py:61,72-87 slopes 400 -> 2000; cut for the run's time limit
 T_SLOPE_12 = (200, 1000)
-T_SLOPE_12_PLAIN = (96, 288)  # multiples of K=8
-T_SLOPE_MPPI_PLAIN = (20, 60)   # ~213 ms a plain tick
+T_SLOPE_12_PLAIN = (48, 144)  # multiples of K=8
+T_SLOPE_MPPI_PLAIN = (10, 30)   # ~213 ms a plain tick
 # the iLQR engine and the 12-state noisy loops (cli.py fly --controller
 # ilqr12 [--fast] [--noisy], --controller ltv12 --noisy)
 ILQR_HORIZON = 15
@@ -4413,6 +4427,315 @@ def run_distributed(dev, fail_fn, kernels, mpc, ref, starts, post, online_cfg, o
     return out
 
 
+# ---- the command line and the examples (run_surface) -------------------------
+
+SURFACE_BUDGET_S = 90.0
+SURFACE_WORKER_S = 300        # a worker's time limit (its process builds nothing)
+# the examples' two worker processes, balanced by their seconds on the card
+SURFACE_EXAMPLE_WORKERS = (("15", "13", "05", "12", "03", "01", "06", "02", "09", "10"),
+                           ("11", "14", "07", "08", "04"))
+K1, K2, K3 = "px4_plant_step_fused", "allocation_plant_tick_fused", "gpmpc_controller_fused"
+K5, K9, K10 = "gpmpc_multitick_fused", "gpmpc_noisy_multitick_fused", "rigid_body_rollout_fused"
+K11, K12 = "direct_rate_multitick_kernel", "mppi_rollout_costs_fused"
+K13A, K13B = "px4_plant_step_vjp", "allocation_plant_tick_vjp"
+K15, K16 = "rbf_kernel_matrix_pallas", "gpmpc_controller_fused_batched"
+# (label, argv after the command's own name, kernels it must launch); the
+# CLI's widths, cut in length only; "{tmp}" is the block's directory
+SURFACE_COMMANDS = (
+    ("fly gp-mpc --fast --online", ["fly", "--controller", "gp-mpc", "--fast", "--online",
+                                    "--duration", "20"], (K5,)),
+    ("fly mpc --fast --noisy", ["fly", "--controller", "mpc", "--fast", "--noisy",
+                                "--duration", "10"], (K9,)),
+    ("fly gp-mpc --fast --gp-data", ["fly", "--controller", "gp-mpc", "--fast", "--gp-data",
+                                     "{tmp}/*.csv", "--duration", "10"], (K5,)),
+    ("fly pid --save-log", ["fly", "--controller", "pid", "--duration", "10", "--save-log",
+                            "{tmp}/f.uavlog"], (K1,)),
+    ("analyze", ["analyze", "--log", "{tmp}/f.uavlog"], ()),
+    ("fly mpc12", ["fly", "--controller", "mpc12", "--duration", "0.6", "--amplitude", "2"],
+     (K10,)),
+    ("fly mpc12 --fast", ["fly", "--controller", "mpc12", "--fast", "--duration", "4",
+                          "--amplitude", "2"], (K10,)),
+    ("fly direct-rate12 --fast", ["fly", "--controller", "direct-rate12", "--fast",
+                                  "--duration", "10", "--amplitude", "2"], (K11,)),
+    ("fly ilqr12 --fast", ["fly", "--controller", "ilqr12", "--fast", "--duration", "1",
+                           "--amplitude", "2"], (K10,)),
+    ("fly mppi12", ["fly", "--controller", "mppi12", "--duration", "4", "--amplitude", "2",
+                    "--trajectory", "circle"], (K12, K10)),
+    ("fly ltv12 --fast --obstacle", ["fly", "--controller", "ltv12", "--fast", "--duration", "8",
+                                     "--trajectory", "circle", "--amplitude", "1.5",
+                                     "--obstacle", "0,1.5,3.0,0.3"], (K10,)),
+    ("mission", ["mission", "--duration", "25", "--amplitude", "3"], (K3, K1)),
+    ("online", ["online", "--duration", "12", "--gp-capacity", "64", "--refit-every", "100"],
+     (K3, K1)),
+    ("compare", ["compare", "--duration", "5"], ()),
+    ("sweep", ["sweep", "--flights", "8", "--duration", "4"], (K3, K2)),
+    ("tune pid", ["tune", "--controller", "pid", "--iterations", "2", "--duration", "5"],
+     (K1, K13A)),
+    ("tune mpc", ["tune", "--controller", "mpc", "--iterations", "2", "--duration", "0.5"],
+     (K2, K13B)),
+    ("montecarlo mpc", ["montecarlo", "--controller", "mpc", "--duration", "4"], (K16, K2)),
+    ("train-gp --all-samples", ["train-gp", "--data", "{tmp}/*.csv", "--all-samples",
+                                "--output", "{tmp}/all/gp.npz"], (K15,)),
+    ("train-gp", ["train-gp", "--data", "{tmp}/*.csv", "--output", "{tmp}/dense/gp.npz"], ()),
+    ("evaluate-gp", ["evaluate-gp", "--model", "{tmp}/dense/gp.npz", "--data",
+                     "{tmp}/flight_0.csv", "--output", "{tmp}/dense/eval"], ()),
+)
+SURFACE_DATA_EXAMPLES = ("01", "02", "06")    # take the CSVs' glob as their argument
+
+
+def surface_bars(label: str, out: dict, text: str, tmp: str):
+    """The bar of each command, from the JAX package's ``tests/test_cli.py``
+    (``None`` when it holds)."""
+    finite = all(v is None or math.isfinite(v) for v in out.values()
+                 if isinstance(v, (int, float)))
+    if label.startswith("fly") and not finite:
+        return "non-finite metrics"
+    bars = {
+        "fly mpc12": out.get("rms_pos", 9) < 1.3,                       # test_cli.py:76-80
+        "fly mpc12 --fast": out.get("rms_pos", 9) < 1.5,                # :217-228
+        "fly direct-rate12 --fast": out.get("rms_pos", 9) < 1.5,
+        "fly ilqr12 --fast": out.get("rms_pos", 9) < 3.0,
+        "fly mppi12": out.get("rms_pos", 9) < 1.3,                      # :145-150
+        "fly ltv12 --fast --obstacle": (out.get("rms_pos", 9) < 1.0     # :240-256
+                                        and "multitick tier: ltv12" in text
+                                        and "min_obstacle_clearance" in out),
+        "fly pid --save-log": os.path.exists(f"{tmp}/f.uavlog"),
+        "analyze": out.get("rms_pos", -1) >= 0.0,                       # :128-136
+        "mission": (out.get("phases_reached") == 5                      # :50-54
+                    and abs(out.get("takeoff_altitude_m", 0) - 3.0) < 0.5),
+        "online": out.get("gp_samples_collected", 0) > 30 and out.get("gp_active_final") is True,
+        "compare": set(out) == {"hover", "circle", "figure8", "step"},
+        "sweep": out.get("devices") == 1 and out.get("flights") == 8 and finite,
+        "tune pid": out.get("rms_pos_m_after", 9) <= out.get("rms_pos_m_before", 0),
+        "tune mpc": out.get("loss_final", 9) <= out.get("loss_initial", 0),
+        "montecarlo mpc": (0.0 <= (out.get("success_rate") or 0.0) <= 1.0
+                           and out.get("rms_pos_m_p50", 9) <= out.get("rms_pos_m_p99", 0) + 1e-9),
+        "train-gp --all-samples": ("sharded fit: n=" in text and "over 1 device(s)" in text
+                                   and os.path.exists(f"{tmp}/all/gp.npz")),
+        "train-gp": os.path.islink(f"{tmp}/dense/gp_model_latest.npz"),
+        "evaluate-gp": "global" in out and "acc_only" in out,
+    }
+    return None if bars.get(label, finite) else f"its bar failed: {out}"
+
+
+def run_examples(data_glob: str, names) -> dict:
+    """The numbered ``examples_torch/`` scripts whose two-digit prefixes
+    are ``names``, each through ``runpy`` in this process with
+    ``UAV_FAST_EXAMPLES=1`` on the default device (``SURFACE_DATA_EXAMPLES``
+    given ``data_glob``), the launch counts from 0 around each: seconds,
+    launches and the last printed line of each. Raises SystemExit when one
+    exits or prints nothing."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    out = {}
+    os.environ["UAV_FAST_EXAMPLES"] = "1"
+    os.environ.pop("UAV_EXAMPLES_DEVICE", None)
+    for name in names:
+        (path,) = (ROOT / "examples_torch").glob(f"{name}_*.py")
+        sys.argv = [str(path)] + ([data_glob] if name in SURFACE_DATA_EXAMPLES else [])
+        _cuda.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(path), run_name="__main__")
+        except SystemExit as exit_:
+            fail(f"{path.name} exited: {exit_}")
+        torch.cuda.synchronize()
+        text = buf.getvalue().strip()
+        if not text:
+            fail(f"{path.name} printed nothing")
+        out[path.name] = {"seconds": time.perf_counter() - t0,
+                          "launches": {k: v for k, v in _cuda.launch_counts.items() if v},
+                          "last_line": text.splitlines()[-1][:200]}
+    return out
+
+
+def run_examples_main(data_glob: str, names) -> int:
+    """``--run-examples GLOB NN ...``: ``run_examples`` in a worker process
+    of ``run_surface``; its result as the last line of standard output."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps(run_examples(data_glob, names)), flush=True)
+    return 0
+
+
+def run_surface(dev, fail_fn, kernels, card: str) -> dict:
+    """The command line and the examples on the card, with the launch
+    counts from 0 around each part:
+
+    - the seeded corpus (``seeded_corpus``: 19,816 rows) written as CSVs in
+      the reference's layout into a temporary directory;
+    - the 15 ``examples_torch/`` scripts in SURFACE_EXAMPLE_WORKERS worker
+      processes (``--run-examples``: each runs its share through ``runpy``
+      in its own process, ``UAV_FAST_EXAMPLES=1``, the default device, 01,
+      02 and 06 given the CSVs' glob), and ``python -m
+      unmanned_aerial_vehicles_tpu_torch fly --controller mpc --fast
+      --duration 2`` in a process of its own, beside the commands; each
+      must exit 0, the examples print something, ``python -m`` JSON;
+    - each of SURFACE_COMMANDS through ``cli.main`` in this process (the
+      default device, ``cuda``), its JSON parsed from its first ``{`` and
+      held to its bar from the JAX package's ``tests/test_cli.py``; each
+      must launch the kernels listed beside it;
+    - the JSON of ``fly --controller gp-mpc --fast --online`` equal to the
+      metrics of the same ``mpc_flight_rollout`` called directly with the
+      same configs.
+
+    Every command's and example's launches are recorded under the kernels'
+    ``paths``. The block must take at most SURFACE_BUDGET_S."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch import cli
+    from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig
+    from unmanned_aerial_vehicles_tpu_torch.io import save_gp_dataset
+    from unmanned_aerial_vehicles_tpu_torch.loop import (
+        FlightLoopConfig,
+        OnlineFusedGPConfig,
+        mpc_flight_rollout,
+    )
+    from unmanned_aerial_vehicles_tpu_torch.metrics import tracking_metrics
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    started = time.perf_counter()
+    out = {"seconds_by_part": {}, "commands": {}, "examples": {}}
+    parts = out["seconds_by_part"]
+
+    def record(path, counts, expected=()):
+        for kernel, n in counts.items():
+            kernels[kernel].setdefault("paths", {})[path] = n
+        missing = [k for k in expected if not counts.get(k)]
+        if missing:
+            fail_fn(f"{path}: launched no {missing} (launched {counts})")
+
+    scripts = sorted(p.name[:2] for p in (ROOT / "examples_torch").glob("[0-9]*.py"))
+    if sorted(sum(SURFACE_EXAMPLE_WORKERS, ())) != scripts or len(scripts) != 15:
+        fail_fn(f"examples_torch/ holds {scripts}, not the 15 of SURFACE_EXAMPLE_WORKERS")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    popen = lambda argv: subprocess.Popen(argv, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)
+    workers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        X, Y = seeded_corpus()
+        for k, rows in enumerate(np.array_split(np.arange(CORPUS_N), CORPUS_FLIGHTS)):
+            save_gp_dataset(f"{tmp}/flight_{k}.csv", X[rows].astype(np.float64),
+                            Y[rows].astype(np.float64))
+        os.makedirs(f"{tmp}/all")
+        os.makedirs(f"{tmp}/dense")
+        parts["corpus CSVs"] = time.perf_counter() - t0
+        try:
+            for names in SURFACE_EXAMPLE_WORKERS:
+                workers.append(popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                      "--run-examples", f"{tmp}/*.csv", *names]))
+            workers.append(popen([sys.executable, "-m", PKG, "fly", "--controller", "mpc",
+                                  "--fast", "--duration", "2"]))
+
+            for label, argv, expected in SURFACE_COMMANDS:
+                argv = [a.format(tmp=tmp) for a in argv]
+                _cuda.reset_launch_counts()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                text = buf.getvalue()
+                counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+                record(f"cli: {label}", counts, expected)
+                if rc != 0:
+                    fail_fn(f"cli {label}: exit {rc}, printed {text[-500:]!r}")
+                # train-gp prints no JSON; every other command's bar reads its JSON
+                payload = (json.JSONDecoder().raw_decode(text, text.index("{"))[0]
+                           if "{" in text else {})
+                bar = surface_bars(label, payload, text, tmp)
+                if bar is not None:
+                    fail_fn(f"cli {label}: {bar}")
+                parts[f"cli: {label}"] = seconds
+                out["commands"][label] = {"seconds": seconds, "launches": counts,
+                                          "json": payload}
+                print(f"  cli {label}: {seconds:.2f} s, launches {counts}; "
+                      f"{json.dumps(payload)[:160]}")
+
+            # the CLI passes its configs through intact: the same flight called directly
+            t0 = time.perf_counter()
+            flight = FlightLoopConfig(use_fused_tick=True, fused_tick_loop_precision="default",
+                                      ticks_per_dispatch=8)
+            steps = int(20.0 / flight.control_dt)
+            steps -= steps % 8
+            mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=10,
+                                            use_fused_controller=True), device=dev)
+            gcfg = ResidualGPConfig()
+            ref = cli._reference_fn("figure8", 6.0, flight.takeoff_height)
+            o = mpc_flight_rollout(mpc, ref, steps, cfg=flight,
+                                   online_gp=OnlineFusedGPConfig(gp=gcfg),
+                                   gp_gain=gcfg.residual_gain, device=dev)
+            m = tracking_metrics(o["pos_ref"], o["state"][:, 0:3], vel_setpoint=o["vel_ref"],
+                                 vel_current=o["state"][:, 3:6], att_setpoint=o["att_ref"],
+                                 att_current=o["state"][:, 6:9], thrust_normalized=o["thrust"])
+            direct = {k: round(float(v), 4) for k, v in m.items()}
+            via_cli = out["commands"]["fly gp-mpc --fast --online"]["json"]
+            print(f"  the CLI's online flight against mpc_flight_rollout called directly: "
+                  f"equal {direct == via_cli} (rms_pos {via_cli['rms_pos']} and "
+                  f"{direct['rms_pos']})")
+            if direct != via_cli:
+                fail_fn(f"the CLI's online flight {via_cli} differs from the direct call "
+                        f"{direct}")
+            out["cli_equals_direct_call"] = True
+            parts["direct call"] = time.perf_counter() - t0
+
+            # the processes beside the commands
+            results = []
+            for proc in workers:
+                try:
+                    results.append(proc.communicate(timeout=SURFACE_WORKER_S))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    results.append(proc.communicate())
+            parts["examples and python -m, beside the commands"] = (
+                time.perf_counter() - started - parts["corpus CSVs"])
+        finally:
+            for proc in workers:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    for proc, (stdout, stderr), names in zip(workers, results,
+                                             SURFACE_EXAMPLE_WORKERS + (("python -m",),)):
+        if proc.returncode != 0 or "{" not in stdout:
+            fail_fn(f"{' '.join(proc.args[1:4])} ({', '.join(names)}): exit {proc.returncode}, "
+                    f"{stdout[-400:]} {stderr[-1200:]}")
+    module_json = json.loads(results[-1][0][results[-1][0].index("{"):])
+    print(f"  python -m {PKG} fly --controller mpc --fast --duration 2: exit 0, "
+          f"rms_pos {module_json['rms_pos']}")
+    out["python_m_rms_pos"] = module_json["rms_pos"]
+    for stdout, _ in results[:-1]:
+        for name, ex in json.loads(stdout.strip().splitlines()[-1]).items():
+            record(f"examples_torch/{name}", ex["launches"])
+            out["examples"][name] = ex
+            print(f"  examples_torch/{name}: {ex['seconds']:.2f} s (in a worker), launches "
+                  f"{ex['launches']}; {ex['last_line'][:120]}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - started
+    print(f"surface block: {out['seconds']:.1f} s (by part: "
+          f"{ {k: round(v, 2) for k, v in parts.items()} }; the examples in their workers: "
+          f"{ {k: round(v['seconds'], 2) for k, v in out['examples'].items()} }); card: {card}")
+    if not out["seconds"] <= SURFACE_BUDGET_S:
+        fail_fn(f"the surface block took {out['seconds']:.1f} s, over its "
+                f"{SURFACE_BUDGET_S:.0f} s")
+    return out
+
 def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
     """The multi-start cascade-PID tuner (TUNE_MS_STARTS starts, TUNE_MS_T
     ticks of the CLI task, TUNE_MS_ITERS iterations, K1 forward and K13a
@@ -5262,6 +5585,8 @@ def main(parent: str | None = None) -> int:
     # the full-corpus GP (K15's path) and the sharded sweeps (K8, K7, K5)
     distributed = run_distributed(dev, fail, kernels, mpc, ref, starts, post, online_cfg, ogp,
                                   card)
+    # the command line, python -m and the examples (every command's launches)
+    surface = run_surface(dev, fail, kernels, card)
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
@@ -5632,7 +5957,10 @@ def main(parent: str | None = None) -> int:
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
                              ("N=25", kernels["admm_box_qp_fused"]["n25"]),
                              ("padded 128", kernels["admm_box_qp_fused"]["padded"]))},
-        "orchestration": orchestration, "distributed": distributed}
+        "orchestration": orchestration, "distributed": distributed,
+        "surface": {k: v for k, v in surface.items() if k != "commands"}
+        | {"commands": {label: {k: v for k, v in c.items() if k != "json"}
+                        for label, c in surface["commands"].items()}}}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5640,8 +5968,35 @@ def main(parent: str | None = None) -> int:
     return 0
 
 
+def surface_only_main() -> int:
+    """``--surface-only``: build the kernels and run ``run_surface`` alone
+    (the command line and the examples), for work on that block."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    kernels = {name: {} for name in _cuda.launch_counts}
+    run_surface(torch.device("cuda"), fail, kernels, card)
+    print(json.dumps({name: k["paths"] for name, k in kernels.items() if "paths" in k}))
+    return 0
+
+
 if __name__ == "__main__":
     argv = sys.argv[1:]
     if argv[:1] == ["--time-redesigned"]:
         sys.exit(time_redesigned_main(argv[1]))
+    if argv[:1] == ["--surface-only"]:
+        sys.exit(surface_only_main())
+    if argv[:1] == ["--run-examples"]:
+        sys.exit(run_examples_main(argv[1], argv[2:]))
     sys.exit(main(parent=argv[1] if argv[:1] == ["--parent"] else None))

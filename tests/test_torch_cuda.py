@@ -517,3 +517,51 @@ def test_sharded_structured_sweep_on_a_world_of_one(cuda_device):
     one = structured_flight_sweep(mpc, ref, 10, starts, gp_posterior=post, device=cuda_device)
     assert torch.equal(agg["rms_per_flight"], one["rms_per_flight"])
     assert torch.equal(agg["rms_max"], one["rms_max"])
+
+
+def _cli_run(argv):
+    """The port's ``cli.main(argv)`` on the default device: exit 0, its
+    JSON (from the first ``{``, or None) and its printed text."""
+    import contextlib
+    import io
+    import json
+
+    from unmanned_aerial_vehicles_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    assert rc == 0, text
+    payload = json.JSONDecoder().raw_decode(text, text.index("{"))[0] if "{" in text else None
+    return payload, text
+
+
+@pytest.mark.cuda
+def test_cli_fly_fast_launches_the_multitick_kernel(cuda_device):
+    """``fly --controller mpc --fast`` with no ``--device`` runs on the card:
+    one K5 launch per 8 ticks."""
+    _cuda.reset_launch_counts()
+    out, _ = _cli_run(["fly", "--controller", "mpc", "--fast", "--duration", "2",
+                       "--amplitude", "2"])
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["gpmpc_multitick_fused"] == 100 // 8
+    assert np.isfinite(out["rms_pos"]) and out["rms_pos"] < 3.0
+
+
+@pytest.mark.cuda
+def test_cli_train_gp_all_samples_through_k15(cuda_device, tmp_path):
+    """``train-gp --all-samples`` on the card: every Gram block through K15,
+    a checkpoint written."""
+    from unmanned_aerial_vehicles_tpu_torch.io import save_gp_dataset
+
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(300, 10))
+    save_gp_dataset(str(tmp_path / "f.csv"), X, 0.05 * rng.normal(size=(300, 6)))
+    _cuda.reset_launch_counts()
+    _, text = _cli_run(["train-gp", "--data", str(tmp_path / "*.csv"), "--all-samples",
+                        "--output", str(tmp_path / "gp.npz")])
+    torch.cuda.synchronize()
+    assert "sharded fit: n=300 over 1 device(s)" in text
+    assert _cuda.launch_counts["rbf_kernel_matrix_pallas"] > 0
+    assert (tmp_path / "gp.npz").exists()

@@ -7,11 +7,12 @@ from a module the port has, and that the port's module defines, the
 port's matching subpackage must export it, so that code written against
 the JAX package (``from ...control import pid_step``) runs on the port.
 Names whose module the port has not ported or that the port's module
-does not define are left out of that check; since every module but the
-command-line interface is ported, a second check requires every exported
-name of every shared subpackage, and a third the names of the last modules
-ported (the full-corpus GP, the sharded sweeps, the IO readers, the sklearn
-import, the GP analysis, the plots, the profiling helpers).
+does not define are left out of that check; since every module is ported
+(the command-line interface and ``__main__`` last), a second check requires
+every exported name of every shared subpackage, a third that no JAX module
+lacks a counterpart, and a fourth the names of the last modules ported (the
+full-corpus GP, the sharded sweeps, the IO readers, the sklearn import, the
+GP analysis, the plots, the profiling helpers).
 """
 
 import ast
@@ -100,11 +101,11 @@ def test_port_subpackage_exports_every_jax_name(sub):
     assert not missing, f"{PORT_NAME}.{sub} does not export {missing}"
 
 
-def test_every_jax_module_but_the_cli_has_a_port_counterpart():
+def test_every_jax_module_has_a_port_counterpart():
     jax_files = {p.relative_to(JAX_PKG) for p in JAX_PKG.rglob("*.py")}
     jax_files |= {p.relative_to(JAX_PKG) for p in (JAX_PKG / "native").glob("*.cpp")}
     missing = sorted(str(p) for p in jax_files if not (PORT / p).exists())
-    assert missing == ["__main__.py", "cli.py"]
+    assert missing == []
 
 
 def test_new_names_import():

@@ -144,6 +144,7 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.gp\n"
         "import unmanned_aerial_vehicles_tpu_torch.utils\n"
         "import unmanned_aerial_vehicles_tpu_torch.metrics.animate\n"
+        "import unmanned_aerial_vehicles_tpu_torch.cli\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('sklearn', 'matplotlib')], "
         "'sklearn or matplotlib imported'\n"
