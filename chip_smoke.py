@@ -216,10 +216,12 @@ Phases (any failure exits non-zero; nothing is caught):
    each held to its bar from the JAX package's ``tests/test_cli.py``, each
    expected to launch its kernels (every launch recorded by path), the
    online flight's JSON equal to the same ``mpc_flight_rollout`` called
-   directly, and beside them ``python -m unmanned_aerial_vehicles_tpu_torch
-   fly`` in a process of its own and the 15 ``examples_torch/`` scripts
-   with ``UAV_FAST_EXAMPLES=1`` through ``runpy`` in two worker processes
-   (``--run-examples``); the block must take at most 90 s;
+   directly, then ``python -m unmanned_aerial_vehicles_tpu_torch fly`` in a
+   process of its own and the 15 ``examples_torch/`` scripts with
+   ``UAV_FAST_EXAMPLES=1`` through ``runpy`` in five worker processes
+   (``--run-examples``), and beside them ``fly mpc12`` and ``tune mpc``
+   (flown shorter than their bars need) again with ``--device cpu``, held
+   to the card's JSON; the block must take at most 90 s;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -252,8 +254,7 @@ Phases (any failure exits non-zero; nothing is caught):
 Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
-    python3 chip_smoke.py --surface-only # build, then the command-line block alone
-    python3 chip_smoke.py --run-examples GLOB NN ...   # the block's example worker
+    python3 chip_smoke.py --run-examples GLOB CLAIMS   # the block's example worker
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
                                          # K5, K9, K11, K7, K2, K13a, K1, K12, K13b, K10,
                                          # K14 and K15 and its
@@ -4431,9 +4432,8 @@ def run_distributed(dev, fail_fn, kernels, mpc, ref, starts, post, online_cfg, o
 
 SURFACE_BUDGET_S = 90.0
 SURFACE_WORKER_S = 300        # a worker's time limit (its process builds nothing)
-# the examples' two worker processes, balanced by their seconds on the card
-SURFACE_EXAMPLE_WORKERS = (("15", "13", "05", "12", "03", "01", "06", "02", "09", "10"),
-                           ("11", "14", "07", "08", "04"))
+SURFACE_EXAMPLE_WORKERS = 5   # worker processes for the examples, each claiming the next
+SURFACE_WORKER_THREADS = 2    # CPU threads of each process beside them
 K1, K2, K3 = "px4_plant_step_fused", "allocation_plant_tick_fused", "gpmpc_controller_fused"
 K5, K9, K10 = "gpmpc_multitick_fused", "gpmpc_noisy_multitick_fused", "rigid_body_rollout_fused"
 K11, K12 = "direct_rate_multitick_kernel", "mppi_rollout_costs_fused"
@@ -4481,6 +4481,10 @@ SURFACE_COMMANDS = (
                      "{tmp}/flight_0.csv", "--output", "{tmp}/dense/eval"], ()),
 )
 SURFACE_DATA_EXAMPLES = ("01", "02", "06")    # take the CSVs' glob as their argument
+# commands flown shorter than their tests/test_cli.py bar needs, so that the
+# bar cannot fail; each is flown again with --device cpu (the plain versions)
+# and held to the card's JSON
+SURFACE_CPU_TWINS = ("fly mpc12", "tune mpc")
 
 
 def surface_bars(label: str, out: dict, text: str, tmp: str):
@@ -4518,13 +4522,38 @@ def surface_bars(label: str, out: dict, text: str, tmp: str):
     return None if bars.get(label, finite) else f"its bar failed: {out}"
 
 
-def run_examples(data_glob: str, names) -> dict:
-    """The numbered ``examples_torch/`` scripts whose two-digit prefixes
-    are ``names``, each through ``runpy`` in this process with
-    ``UAV_FAST_EXAMPLES=1`` on the default device (``SURFACE_DATA_EXAMPLES``
-    given ``data_glob``), the launch counts from 0 around each: seconds,
-    launches and the last printed line of each. Raises SystemExit when one
-    exits or prints nothing."""
+def twin_gaps(label: str, card: dict, cpu: dict) -> dict:
+    """The keys of a SURFACE_CPU_TWINS command's JSON on which the card
+    and the CPU twin disagree beyond the bars of the kernel-against-plain
+    flights and tuners (empty when they agree): ``fly mpc12`` its positions
+    within SQP_GAP_BOUND_M; ``tune mpc`` its losses within TUNER_TRACE_RTOL
+    (printed to 5 places), the flights' RMS within SINGLE_GAP_BOUND_M and
+    the tuned weights within TUNER_TRACE_RTOL (printed to 3 places)."""
+    if label == "fly mpc12":
+        pairs = [(k, card[k], cpu[k], SQP_GAP_BOUND_M) for k in ("rms_pos", "max_pos")]
+    else:
+        pairs = [(k, card[k], cpu[k], TUNER_TRACE_RTOL * abs(cpu[k]) + 5e-6)
+                 for k in ("loss_initial", "loss_final")]
+        pairs += [(k, card[k], cpu[k], SINGLE_GAP_BOUND_M)
+                  for k in ("rms_pos_m_before", "rms_pos_m_after")]
+        as_list = lambda v: v if isinstance(v, list) else [v]
+        for k, want in cpu["tuned"].items():
+            got = as_list(card["tuned"].get(k, []))
+            if len(got) != len(as_list(want)):
+                pairs.append((f"tuned.{k}", math.inf, 0.0, 0.0))
+            for i, (a, b) in enumerate(zip(got, as_list(want))):
+                pairs.append((f"tuned.{k}[{i}]", a, b, TUNER_TRACE_RTOL * abs(b) + 1e-3))
+    return {k: (a, b) for k, a, b, bound in pairs if not abs(a - b) <= bound}
+
+
+def run_examples(data_glob: str, claims: str) -> dict:
+    """The numbered ``examples_torch/`` scripts from the last to the first,
+    each that this process is the first to claim (a file of its two-digit
+    prefix created in the directory ``claims``), through ``runpy`` in this
+    process with ``UAV_FAST_EXAMPLES=1`` on the default device
+    (``SURFACE_DATA_EXAMPLES`` given ``data_glob``), the launch counts from
+    0 around each: seconds, launches and the last printed line of each.
+    Raises SystemExit when one exits or prints nothing."""
     import contextlib
     import io
     import runpy
@@ -4536,8 +4565,12 @@ def run_examples(data_glob: str, names) -> dict:
     out = {}
     os.environ["UAV_FAST_EXAMPLES"] = "1"
     os.environ.pop("UAV_EXAMPLES_DEVICE", None)
-    for name in names:
-        (path,) = (ROOT / "examples_torch").glob(f"{name}_*.py")
+    for path in sorted((ROOT / "examples_torch").glob("[0-9]*.py"), reverse=True):
+        name = path.name[:2]
+        try:
+            os.close(os.open(os.path.join(claims, name), os.O_CREAT | os.O_EXCL))
+        except FileExistsError:
+            continue
         sys.argv = [str(path)] + ([data_glob] if name in SURFACE_DATA_EXAMPLES else [])
         _cuda.reset_launch_counts()
         buf = io.StringIO()
@@ -4557,14 +4590,16 @@ def run_examples(data_glob: str, names) -> dict:
     return out
 
 
-def run_examples_main(data_glob: str, names) -> int:
-    """``--run-examples GLOB NN ...``: ``run_examples`` in a worker process
-    of ``run_surface``; its result as the last line of standard output."""
+def run_examples_main(data_glob: str, claims: str) -> int:
+    """``--run-examples GLOB CLAIMS``: ``run_examples`` in a worker process
+    of ``run_surface``, on SURFACE_WORKER_THREADS threads; its result as the
+    last line of standard output."""
     sys.path.insert(0, str(ROOT))
     import torch
 
+    torch.set_num_threads(SURFACE_WORKER_THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps(run_examples(data_glob, names)), flush=True)
+    print(json.dumps(run_examples(data_glob, claims)), flush=True)
     return 0
 
 
@@ -4574,20 +4609,24 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
 
     - the seeded corpus (``seeded_corpus``: 19,816 rows) written as CSVs in
       the reference's layout into a temporary directory;
-    - the 15 ``examples_torch/`` scripts in SURFACE_EXAMPLE_WORKERS worker
-      processes (``--run-examples``: each runs its share through ``runpy``
-      in its own process, ``UAV_FAST_EXAMPLES=1``, the default device, 01,
-      02 and 06 given the CSVs' glob), and ``python -m
-      unmanned_aerial_vehicles_tpu_torch fly --controller mpc --fast
-      --duration 2`` in a process of its own, beside the commands; each
-      must exit 0, the examples print something, ``python -m`` JSON;
     - each of SURFACE_COMMANDS through ``cli.main`` in this process (the
-      default device, ``cuda``), its JSON parsed from its first ``{`` and
-      held to its bar from the JAX package's ``tests/test_cli.py``; each
-      must launch the kernels listed beside it;
+      default device, ``cuda``), one after another with nothing else on
+      the card or the host, its JSON parsed from its first ``{`` and held
+      to its bar from the JAX package's ``tests/test_cli.py``; each must
+      launch the kernels listed beside it;
     - the JSON of ``fly --controller gp-mpc --fast --online`` equal to the
       metrics of the same ``mpc_flight_rollout`` called directly with the
-      same configs.
+      same configs;
+    - then the 15 ``examples_torch/`` scripts in SURFACE_EXAMPLE_WORKERS
+      worker processes (``--run-examples``: each claims the next script
+      from the last to the first and runs it through ``runpy`` in its own
+      process, ``UAV_FAST_EXAMPLES=1``, the default device, 01, 02 and 06
+      given the CSVs' glob), ``python -m
+      unmanned_aerial_vehicles_tpu_torch fly --controller mpc --fast
+      --duration 2`` in a process of its own, and beside them in this
+      process the SURFACE_CPU_TWINS commands again with ``--device cpu``,
+      held to the card's JSON (``twin_gaps``); each process must exit 0,
+      the examples print something, ``python -m`` JSON.
 
     Every command's and example's launches are recorded under the kernels'
     ``paths``. The block must take at most SURFACE_BUDGET_S."""
@@ -4610,7 +4649,7 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
     from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
 
     started = time.perf_counter()
-    out = {"seconds_by_part": {}, "commands": {}, "examples": {}}
+    out = {"seconds_by_part": {}, "commands": {}, "examples": {}, "cpu_twins": {}}
     parts = out["seconds_by_part"]
 
     def record(path, counts, expected=()):
@@ -4620,10 +4659,20 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
         if missing:
             fail_fn(f"{path}: launched no {missing} (launched {counts})")
 
-    scripts = sorted(p.name[:2] for p in (ROOT / "examples_torch").glob("[0-9]*.py"))
-    if sorted(sum(SURFACE_EXAMPLE_WORKERS, ())) != scripts or len(scripts) != 15:
-        fail_fn(f"examples_torch/ holds {scripts}, not the 15 of SURFACE_EXAMPLE_WORKERS")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    def run_cli(argv):
+        """``cli.main(argv)``: its exit code, its printed text and its
+        JSON from the first ``{`` (train-gp prints none)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        text = buf.getvalue()
+        payload = json.JSONDecoder().raw_decode(text, text.index("{"))[0] if "{" in text else {}
+        return rc, text, payload
+
+    scripts = sorted(p.name for p in (ROOT / "examples_torch").glob("[0-9]*.py"))
+    if len(scripts) != 15:
+        fail_fn(f"examples_torch/ holds {len(scripts)} numbered scripts, not 15")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=str(SURFACE_WORKER_THREADS))
     popen = lambda argv: subprocess.Popen(argv, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True)
     workers = []
@@ -4633,70 +4682,85 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
         for k, rows in enumerate(np.array_split(np.arange(CORPUS_N), CORPUS_FLIGHTS)):
             save_gp_dataset(f"{tmp}/flight_{k}.csv", X[rows].astype(np.float64),
                             Y[rows].astype(np.float64))
-        os.makedirs(f"{tmp}/all")
-        os.makedirs(f"{tmp}/dense")
+        for sub in ("all", "dense", "claims"):
+            os.makedirs(f"{tmp}/{sub}")
         parts["corpus CSVs"] = time.perf_counter() - t0
+
+        argvs = {}
+        for label, argv, expected in SURFACE_COMMANDS:
+            argvs[label] = argv = [a.format(tmp=tmp) for a in argv]
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, text, payload = run_cli(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+            record(f"cli: {label}", counts, expected)
+            if rc != 0:
+                fail_fn(f"cli {label}: exit {rc}, printed {text[-500:]!r}")
+            bar = surface_bars(label, payload, text, tmp)
+            if bar is not None:
+                fail_fn(f"cli {label}: {bar}")
+            parts[f"cli: {label}"] = seconds
+            out["commands"][label] = {"seconds": seconds, "launches": counts, "json": payload}
+            print(f"  cli {label}: {seconds:.2f} s, launches {counts}; "
+                  f"{json.dumps(payload)[:160]}")
+
+        # the CLI passes its configs through intact: the same flight called directly
+        t0 = time.perf_counter()
+        flight = FlightLoopConfig(use_fused_tick=True, fused_tick_loop_precision="default",
+                                  ticks_per_dispatch=8)
+        steps = int(20.0 / flight.control_dt)
+        steps -= steps % 8
+        mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=10,
+                                        use_fused_controller=True), device=dev)
+        gcfg = ResidualGPConfig()
+        ref = cli._reference_fn("figure8", 6.0, flight.takeoff_height)
+        o = mpc_flight_rollout(mpc, ref, steps, cfg=flight,
+                               online_gp=OnlineFusedGPConfig(gp=gcfg),
+                               gp_gain=gcfg.residual_gain, device=dev)
+        m = tracking_metrics(o["pos_ref"], o["state"][:, 0:3], vel_setpoint=o["vel_ref"],
+                             vel_current=o["state"][:, 3:6], att_setpoint=o["att_ref"],
+                             att_current=o["state"][:, 6:9], thrust_normalized=o["thrust"])
+        direct = {k: round(float(v), 4) for k, v in m.items()}
+        via_cli = out["commands"]["fly gp-mpc --fast --online"]["json"]
+        print(f"  the CLI's online flight against mpc_flight_rollout called directly: "
+              f"equal {direct == via_cli} (rms_pos {via_cli['rms_pos']} and "
+              f"{direct['rms_pos']})")
+        if direct != via_cli:
+            fail_fn(f"the CLI's online flight {via_cli} differs from the direct call "
+                    f"{direct}")
+        out["cli_equals_direct_call"] = True
+        parts["direct call"] = time.perf_counter() - t0
+
+        # the examples and python -m in processes of their own, the CPU twins here
+        t0 = time.perf_counter()
         try:
-            for names in SURFACE_EXAMPLE_WORKERS:
+            for _ in range(SURFACE_EXAMPLE_WORKERS):
                 workers.append(popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                      "--run-examples", f"{tmp}/*.csv", *names]))
+                                      "--run-examples", f"{tmp}/*.csv", f"{tmp}/claims"]))
             workers.append(popen([sys.executable, "-m", PKG, "fly", "--controller", "mpc",
                                   "--fast", "--duration", "2"]))
-
-            for label, argv, expected in SURFACE_COMMANDS:
-                argv = [a.format(tmp=tmp) for a in argv]
-                _cuda.reset_launch_counts()
-                buf = io.StringIO()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(buf):
-                    rc = cli.main(argv)
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                text = buf.getvalue()
-                counts = {k: v for k, v in _cuda.launch_counts.items() if v}
-                record(f"cli: {label}", counts, expected)
-                if rc != 0:
-                    fail_fn(f"cli {label}: exit {rc}, printed {text[-500:]!r}")
-                # train-gp prints no JSON; every other command's bar reads its JSON
-                payload = (json.JSONDecoder().raw_decode(text, text.index("{"))[0]
-                           if "{" in text else {})
-                bar = surface_bars(label, payload, text, tmp)
-                if bar is not None:
-                    fail_fn(f"cli {label}: {bar}")
-                parts[f"cli: {label}"] = seconds
-                out["commands"][label] = {"seconds": seconds, "launches": counts,
-                                          "json": payload}
-                print(f"  cli {label}: {seconds:.2f} s, launches {counts}; "
-                      f"{json.dumps(payload)[:160]}")
-
-            # the CLI passes its configs through intact: the same flight called directly
-            t0 = time.perf_counter()
-            flight = FlightLoopConfig(use_fused_tick=True, fused_tick_loop_precision="default",
-                                      ticks_per_dispatch=8)
-            steps = int(20.0 / flight.control_dt)
-            steps -= steps % 8
-            mpc = LinearMPC(LinearMPCConfig(horizon=20, admm_iterations=10,
-                                            use_fused_controller=True), device=dev)
-            gcfg = ResidualGPConfig()
-            ref = cli._reference_fn("figure8", 6.0, flight.takeoff_height)
-            o = mpc_flight_rollout(mpc, ref, steps, cfg=flight,
-                                   online_gp=OnlineFusedGPConfig(gp=gcfg),
-                                   gp_gain=gcfg.residual_gain, device=dev)
-            m = tracking_metrics(o["pos_ref"], o["state"][:, 0:3], vel_setpoint=o["vel_ref"],
-                                 vel_current=o["state"][:, 3:6], att_setpoint=o["att_ref"],
-                                 att_current=o["state"][:, 6:9], thrust_normalized=o["thrust"])
-            direct = {k: round(float(v), 4) for k, v in m.items()}
-            via_cli = out["commands"]["fly gp-mpc --fast --online"]["json"]
-            print(f"  the CLI's online flight against mpc_flight_rollout called directly: "
-                  f"equal {direct == via_cli} (rms_pos {via_cli['rms_pos']} and "
-                  f"{direct['rms_pos']})")
-            if direct != via_cli:
-                fail_fn(f"the CLI's online flight {via_cli} differs from the direct call "
-                        f"{direct}")
-            out["cli_equals_direct_call"] = True
-            parts["direct call"] = time.perf_counter() - t0
-
-            # the processes beside the commands
+            threads = torch.get_num_threads()
+            torch.set_num_threads(SURFACE_WORKER_THREADS)
+            try:
+                for label in SURFACE_CPU_TWINS:
+                    t1 = time.perf_counter()
+                    rc, text, twin = run_cli(argvs[label] + ["--device", "cpu"])
+                    if rc != 0:
+                        fail_fn(f"cli {label} --device cpu: exit {rc}, printed {text[-500:]!r}")
+                    card_json = out["commands"][label]["json"]
+                    gaps = twin_gaps(label, card_json, twin)
+                    out["cpu_twins"][label] = {"seconds": time.perf_counter() - t1,
+                                               "json": twin}
+                    print(f"  cli {label} --device cpu (its plain twin, beside the workers): "
+                          f"{out['cpu_twins'][label]['seconds']:.2f} s; "
+                          f"{json.dumps(twin)[:160]}; gaps over the bars {gaps}")
+                    if gaps:
+                        fail_fn(f"cli {label}: the card's JSON and --device cpu's differ "
+                                f"beyond their bars: {gaps}")
+            finally:
+                torch.set_num_threads(threads)
             results = []
             for proc in workers:
                 try:
@@ -4704,37 +4768,40 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     results.append(proc.communicate())
-            parts["examples and python -m, beside the commands"] = (
-                time.perf_counter() - started - parts["corpus CSVs"])
+            parts["examples, python -m and the CPU twins, side by side"] = (
+                time.perf_counter() - t0)
         finally:
             for proc in workers:
                 if proc.poll() is None:
                     proc.kill()
                     proc.communicate()
-    for proc, (stdout, stderr), names in zip(workers, results,
-                                             SURFACE_EXAMPLE_WORKERS + (("python -m",),)):
+    for proc, (stdout, stderr) in zip(workers, results):
         if proc.returncode != 0 or "{" not in stdout:
-            fail_fn(f"{' '.join(proc.args[1:4])} ({', '.join(names)}): exit {proc.returncode}, "
+            fail_fn(f"{' '.join(proc.args[1:4])}: exit {proc.returncode}, "
                     f"{stdout[-400:]} {stderr[-1200:]}")
     module_json = json.loads(results[-1][0][results[-1][0].index("{"):])
     print(f"  python -m {PKG} fly --controller mpc --fast --duration 2: exit 0, "
           f"rms_pos {module_json['rms_pos']}")
     out["python_m_rms_pos"] = module_json["rms_pos"]
-    for stdout, _ in results[:-1]:
+    for k, (stdout, _) in enumerate(results[:-1]):
         for name, ex in json.loads(stdout.strip().splitlines()[-1]).items():
             record(f"examples_torch/{name}", ex["launches"])
-            out["examples"][name] = ex
-            print(f"  examples_torch/{name}: {ex['seconds']:.2f} s (in a worker), launches "
-                  f"{ex['launches']}; {ex['last_line'][:120]}")
+            out["examples"][name] = ex | {"worker": k}
+            print(f"  examples_torch/{name}: {ex['seconds']:.2f} s (worker {k}, beside the "
+                  f"others), launches {ex['launches']}; {ex['last_line'][:120]}")
+    if sorted(out["examples"]) != scripts:
+        fail_fn(f"the workers ran {sorted(out['examples'])}, not {scripts}")
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - started
     print(f"surface block: {out['seconds']:.1f} s (by part: "
-          f"{ {k: round(v, 2) for k, v in parts.items()} }; the examples in their workers: "
+          f"{ {k: round(v, 2) for k, v in parts.items()} }; the commands alone, one after "
+          f"another; the examples in their workers: "
           f"{ {k: round(v['seconds'], 2) for k, v in out['examples'].items()} }); card: {card}")
     if not out["seconds"] <= SURFACE_BUDGET_S:
         fail_fn(f"the surface block took {out['seconds']:.1f} s, over its "
                 f"{SURFACE_BUDGET_S:.0f} s")
     return out
+
 
 def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
     """The multi-start cascade-PID tuner (TUNE_MS_STARTS starts, TUNE_MS_T
@@ -5968,35 +6035,10 @@ def main(parent: str | None = None) -> int:
     return 0
 
 
-def surface_only_main() -> int:
-    """``--surface-only``: build the kernels and run ``run_surface`` alone
-    (the command line and the examples), for work on that block."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}")
-    t0 = time.perf_counter()
-    _cuda.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-    kernels = {name: {} for name in _cuda.launch_counts}
-    run_surface(torch.device("cuda"), fail, kernels, card)
-    print(json.dumps({name: k["paths"] for name, k in kernels.items() if "paths" in k}))
-    return 0
-
-
 if __name__ == "__main__":
     argv = sys.argv[1:]
     if argv[:1] == ["--time-redesigned"]:
         sys.exit(time_redesigned_main(argv[1]))
-    if argv[:1] == ["--surface-only"]:
-        sys.exit(surface_only_main())
     if argv[:1] == ["--run-examples"]:
-        sys.exit(run_examples_main(argv[1], argv[2:]))
+        sys.exit(run_examples_main(argv[1], argv[2]))
     sys.exit(main(parent=argv[1] if argv[:1] == ["--parent"] else None))

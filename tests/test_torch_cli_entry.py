@@ -13,6 +13,11 @@ draws differ between the packages.
   ``test_torch_monte_carlo.py``), so they are held to the JAX package's own
   bars in ``tests/test_cli.py`` and to finite values, some at shorter
   lengths than there (the bars are RMS bounds over ramped references).
+  The 12-state noisy flights and the disturbance-observer flights only
+  repeat, through the command line, what ``test_torch_noisy_rigid.py``,
+  ``test_torch_noisy_flight.py`` and ``test_torch_estimation.py`` show at
+  the module level, and ``test_torch_cli_dispatch.py`` holds their configs:
+  they are marked ``slow`` (10-20 s each here on one thread).
 
 Every in-process call passes ``--device cpu``.
 """
@@ -93,7 +98,7 @@ def test_without_a_gpu_a_command_given_no_device_raises(argv):
 
 
 def test_fly_mppi12_meets_its_bar():
-    out, _ = cli(["fly", "--controller", "mppi12", "--duration", "3", "--amplitude", "2",
+    out, _ = cli(["fly", "--controller", "mppi12", "--duration", "2", "--amplitude", "2",
                   "--trajectory", "circle"])
     assert out["rms_pos"] < 1.3                       # tests/test_cli.py:145-150
 
@@ -108,6 +113,7 @@ def test_fly_noisy_flights_meet_their_bars():
         assert np.isfinite(out["rms_pos"])
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("controller, banner", [("mpc12", "# noisy tier: mpc12"),
                                                 ("direct-rate12", "rate-lag EKF")])
 def test_fly_noisy_12_state_meets_its_bar(controller, banner):
@@ -116,12 +122,14 @@ def test_fly_noisy_12_state_meets_its_bar(controller, banner):
     assert banner in text and out["rms_pos"] < 2.0    # test_cli.py:259-284
 
 
+@pytest.mark.slow
 def test_fly_ltv12_noisy_meets_its_bar():
     out, text = cli(["fly", "--controller", "ltv12", "--duration", "2", "--amplitude", "1.5",
                      "--trajectory", "circle", "--noisy"])
     assert "# noisy tier: ltv12" in text and out["rms_pos"] < 1.0   # test_cli.py:287-300
 
 
+@pytest.mark.slow
 def test_fly_gust_observer_points_into_the_post_gust_wind():
     """test_cli.py:334-349: the observer's tail estimate reflects the
     post-gust wind, staged and on the fused tier."""
@@ -134,6 +142,7 @@ def test_fly_gust_observer_points_into_the_post_gust_wind():
         assert line and "-" in line[0].split("[")[1]
 
 
+@pytest.mark.slow
 def test_fly_push_observer_direct_rate12():
     out, text = cli(["fly", "--controller", "direct-rate12", "--duration", "4", "--noisy",
                      "--push", "0.6", "-0.4", "0.3", "--disturbance-observer"])

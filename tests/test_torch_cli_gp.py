@@ -137,7 +137,7 @@ def test_evaluate_gp_json_matches_jax(checkpoints, corpus, tmp_path):
 @pytest.mark.parametrize("suffix", [".npz", ".uavlog"])
 def test_analyze_of_a_port_log_matches_jax(suffix, tmp_path):
     log = str(tmp_path / f"flight{suffix}")
-    cli(port_main, ["fly", "--controller", "pid", "--duration", "3", "--amplitude", "2",
+    cli(port_main, ["fly", "--controller", "pid", "--duration", "1", "--amplitude", "2",
                     "--trajectory", "circle", "--save-log", log, "--device", "cpu"])
     (got,), _ = cli(port_main, ["analyze", "--log", log, "--device", "cpu"])
     (want,), _ = cli(jax_main, ["analyze", "--log", log])
@@ -152,8 +152,8 @@ def test_analyze_of_a_port_log_matches_jax(suffix, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["tune", "--controller", "pid", "--duration", "3", "--amplitude", "2", "--iterations", "2"],
-    ["tune", "--controller", "mpc", "--duration", "1", "--amplitude", "2", "--iterations", "2"],
+    ["tune", "--controller", "pid", "--duration", "1", "--amplitude", "2", "--iterations", "2"],
+    ["tune", "--controller", "mpc", "--duration", "0.5", "--amplitude", "2", "--iterations", "2"],
 ], ids=["pid", "mpc"])
 def test_tune_loss_trace_matches_jax(argv, tmp_path):
     saved = str(tmp_path / "tuned.json")

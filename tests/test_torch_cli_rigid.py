@@ -3,8 +3,7 @@
 Both packages run ``fly`` with the 12-state controllers at the short
 lengths of the JAX package's ``tests/test_cli.py`` and print their JSON:
 the key sets must be equal and every flight metric within 5e-4 absolute
-(the JSON is rounded to 4 places). The JAX runs are shared through a
-module-scoped cache.
+(the JSON is rounded to 4 places).
 
 The LTV flight with an obstacle (``test_cli.py``'s 8 s circle past a 0.3 m
 sphere) is chaotic in float32 once the obstacle rows bind (``PERF.md`` §2:
@@ -42,18 +41,13 @@ def cli_run(main, argv):
     return json.loads(out[out.index("{"): out.rindex("}") + 1]), out[: out.index("{")]
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    return {}
-
-
 FLY = ["fly", "--amplitude", "2"]
 CASES = {
     "mpc12": (FLY + ["--controller", "mpc12", "--duration", "2"], METRIC_TOL),
     "direct-rate12-fast": (FLY + ["--controller", "direct-rate12", "--fast", "--duration", "2"],
                            METRIC_TOL),
     "ilqr12-fast": (FLY + ["--controller", "ilqr12", "--fast", "--duration", "2"], METRIC_TOL),
-    "ltv12-fast": (["fly", "--controller", "ltv12", "--fast", "--duration", "4", "--trajectory",
+    "ltv12-fast": (["fly", "--controller", "ltv12", "--fast", "--duration", "2", "--trajectory",
                     "circle", "--amplitude", "1.5"], METRIC_TOL),
     "ltv12-fast-obstacle": (["fly", "--controller", "ltv12", "--fast", "--duration", "8",
                              "--trajectory", "circle", "--amplitude", "1.5",
@@ -62,12 +56,10 @@ CASES = {
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_rigid_command_json_matches_jax(name, jax_runs):
+def test_rigid_command_json_matches_jax(name):
     argv, tol = CASES[name]
-    if name not in jax_runs:
-        jax_runs[name] = cli_run(jax_main, argv)
-    (got, banner), (want, jax_banner) = cli_run(port_main, argv + ["--device", "cpu"]), \
-        jax_runs[name]
+    (got, banner), (want, jax_banner) = (cli_run(port_main, argv + ["--device", "cpu"]),
+                                         cli_run(jax_main, argv))
     assert banner == jax_banner
     assert set(got) == set(want)
     for key, w in want.items():

@@ -5,9 +5,12 @@ read the seeded CSVs written here (their first argument). Each must exit 0
 and print something.
 
 Six examples take 15-34 s each here on one thread (many staged or noisy
-flights, or three LTV flights); they are marked ``slow``, as
-all fifteen JAX examples are (``tests/test_examples.py``), and
-``chip_smoke.py`` runs all fifteen on the card.
+flights, or three LTV flights), and five more 7-9 s (02, 05, 09, 12, 13,
+of which ~3 s is the start of the process); all eleven are marked ``slow``,
+as all fifteen JAX examples are (``tests/test_examples.py``), and
+``chip_smoke.py`` runs all fifteen on the card. 01, 03, 06 and 10 (the
+data examples' reading of the CSVs, in-flight learning, the full-corpus GP
+and the precision tiers) stay in the quick run.
 """
 
 import os
@@ -26,7 +29,7 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((REPO / "examples_torch").glob("[0-9]*.py"))
 WITH_DATA = ("01", "02", "06")
-SLOW = ("04", "07", "08", "11", "14", "15")
+SLOW = ("02", "04", "05", "07", "08", "09", "11", "12", "13", "14", "15")
 
 
 def test_examples_discovered():
