@@ -221,7 +221,15 @@ Phases (any failure exits non-zero; nothing is caught):
    ``UAV_FAST_EXAMPLES=1`` through ``runpy`` in five worker processes
    (``--run-examples``), and beside them ``fly mpc12`` and ``tune mpc``
    (flown shorter than their bars need) again with ``--device cpu``, held
-   to the card's JSON; the block must take at most 90 s;
+   to the card's JSON; the block must take at most 90 s; the experiment
+   campaign (``run_campaign_block``): ``tools_torch/run_campaign.py``'s
+   ``main`` at ``--duration 4`` (200 ticks) on the seeded corpus's CSVs,
+   the tuner 2 iterations of 2 s, the populations 2 s, the settle windows
+   0.5 s: all 29 rows present and finite, K1, K2, K3, K4, K5, K9, K13a and
+   K16 launched, K4 200 times, all by the oracle row; the staged
+   ``mpc_flight_figure8`` and the oracle row within 1e-3 m of their plain
+   twins, the fresh online row (K5) and the fused observer row (K9) within
+   1e-3 m; the block must take at most 60 s;
 4. time microseconds per online tick, per online-noisy tick, per
    single-tick tick and per tightened tick (``bench.py``'s tightening mode)
    as the slope between two flight lengths, for the kernel path and the
@@ -255,6 +263,8 @@ Needs one CUDA card; exits 2 without one, or when run outside a checkout of
 the repository.
 
     python3 chip_smoke.py --run-examples GLOB CLAIMS   # the block's example worker
+    python3 chip_smoke.py --write-corpus DIR   # the seeded corpus as CSVs, for
+                                               # tools_torch/run_campaign.py --gp-data 'DIR/*.csv'
     python3 chip_smoke.py --parent DIR   # also time an older checkout's K4, K8, K3, K6, K16,
                                          # K5, K9, K11, K7, K2, K13a, K1, K12, K13b, K10,
                                          # K14 and K15 and its
@@ -4134,6 +4144,19 @@ def seeded_corpus(seed: int = 2026):
     return X.astype(np.float32), Y.astype(np.float32)
 
 
+def write_corpus_csvs(directory: str) -> None:
+    """``seeded_corpus`` as ``CORPUS_FLIGHTS`` CSVs in the reference's layout
+    (``io.save_gp_dataset``), ``flight_<k>.csv`` in ``directory``."""
+    import numpy as np
+
+    from unmanned_aerial_vehicles_tpu_torch.io import save_gp_dataset
+
+    X, Y = seeded_corpus()
+    for k, rows in enumerate(np.array_split(np.arange(CORPUS_N), CORPUS_FLIGHTS)):
+        save_gp_dataset(f"{directory}/flight_{k}.csv", X[rows].astype(np.float64),
+                        Y[rows].astype(np.float64))
+
+
 def run_distributed(dev, fail_fn, kernels, mpc, ref, starts, post, online_cfg, ogp,
                     card: str) -> dict:
     """The full-corpus GP and the sharded sweeps on a world of one (no
@@ -4633,13 +4656,11 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
     import contextlib
     import io
 
-    import numpy as np
     import torch
 
     from unmanned_aerial_vehicles_tpu_torch import cli
     from unmanned_aerial_vehicles_tpu_torch.control.mpc_linear import LinearMPC, LinearMPCConfig
     from unmanned_aerial_vehicles_tpu_torch.gp.residual_gp import ResidualGPConfig
-    from unmanned_aerial_vehicles_tpu_torch.io import save_gp_dataset
     from unmanned_aerial_vehicles_tpu_torch.loop import (
         FlightLoopConfig,
         OnlineFusedGPConfig,
@@ -4678,10 +4699,7 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
     workers = []
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        X, Y = seeded_corpus()
-        for k, rows in enumerate(np.array_split(np.arange(CORPUS_N), CORPUS_FLIGHTS)):
-            save_gp_dataset(f"{tmp}/flight_{k}.csv", X[rows].astype(np.float64),
-                            Y[rows].astype(np.float64))
+        write_corpus_csvs(tmp)
         for sub in ("all", "dense", "claims"):
             os.makedirs(f"{tmp}/{sub}")
         parts["corpus CSVs"] = time.perf_counter() - t0
@@ -4801,6 +4819,173 @@ def run_surface(dev, fail_fn, kernels, card: str) -> dict:
         fail_fn(f"the surface block took {out['seconds']:.1f} s, over its "
                 f"{SURFACE_BUDGET_S:.0f} s")
     return out
+
+
+CAMPAIGN_BUDGET_S = 60.0
+CAMPAIGN_DURATION_S = 4.0     # 200 ticks: a multiple of the fused rows' 8
+# the campaign's windows cut for the block (tools_torch/run_campaign.py's
+# module constants; the comparisons keep their 30 s): the tuner 2 iterations
+# of 2 s, the populations 2 s, every settle window 0.5 s
+CAMPAIGN_WINDOWS = dict(TUNE_WINDOW_S=2.0, TUNE_ITERATIONS=2, TUNE_SETTLE_S=0.5,
+                        MC_WINDOW_S=2.0, MC_SETTLE_S=0.5, GUST_SETTLE_S=0.5)
+CAMPAIGN_ROWS = 29
+K4 = "gpmpc_tick_fused"
+CAMPAIGN_KERNELS = (K1, K2, K3, K4, K5, K9, K13A, K16)
+CAMPAIGN_ORACLE = "mpc_oracle_residual_windy_figure8"
+GATE_WORDS = (" BEATS ", " WORSE THAN ", " TIES ", " DIVERGES FROM ")
+
+
+def load_campaign():
+    """``tools_torch/run_campaign.py`` as a module (it is a script, not a
+    package member)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("run_campaign",
+                                                  ROOT / "tools_torch" / "run_campaign.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_campaign_block(dev, fail_fn, kernels, card: str) -> dict:
+    """The experiment campaign (``tools_torch/run_campaign.py``) on the card:
+
+    - ``main(["--duration", "4", "--gp-data", ...])`` on the default device
+      over the seeded corpus's CSVs (``write_corpus_csvs``), its windows cut
+      by CAMPAIGN_WINDOWS, with the launch counts from 0 around it: every
+      one of the CAMPAIGN_ROWS rows present and finite, K1, K2, K3, K4, K5,
+      K9, K13a and K16 each launched, K4 exactly once a tick of the oracle
+      row and by no other; each row's launches (the tool's
+      ``kernel_launches.json``) recorded under the kernels' ``paths``;
+    - four rows flown again with ``plain_kernels=True``, each against the
+      same row through the kernels, its position gap at every tick within
+      the bar of its tier: the staged ``mpc_flight_figure8`` (K3, K2) and
+      the oracle row (K4) within SINGLE_GAP_BOUND_M, the fresh online row
+      (K5) within ONLINE_GAP_BOUND_M, the fused observer row under the gust
+      (K9, the same generator seed) within NOISY_GAP_BOUND_M. The kernel
+      rows are main's own logs; the oracle row, which has none, is flown
+      again through K4 (its RMS printed beside main's).
+
+    The block must take at most CAMPAIGN_BUDGET_S."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from unmanned_aerial_vehicles_tpu_torch.ops import _cuda
+
+    started = time.perf_counter()
+    campaign = load_campaign()
+    for name, value in CAMPAIGN_WINDOWS.items():
+        setattr(campaign, name, value)
+    duration = CAMPAIGN_DURATION_S
+    out = {"windows": CAMPAIGN_WINDOWS, "duration_s": duration, "twins": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus_csvs(tmp)
+        out["corpus_csv_s"] = time.perf_counter() - t0
+        campaign.ARTIFACTS = f"{tmp}/main"
+        buf = io.StringIO()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = campaign.main(["--duration", str(duration), "--gp-data", f"{tmp}/*.csv"])
+        torch.cuda.synchronize()
+        out["main_s"] = time.perf_counter() - t0
+        counts = {k: v for k, v in _cuda.launch_counts.items() if v}
+        text = buf.getvalue()
+        if rc != 0:
+            fail_fn(f"campaign main: exit {rc}, printed {text[-500:]!r}")
+        with open(f"{tmp}/main/metrics_summary.json") as f:
+            rows = json.load(f)["ours"]
+        with open(f"{tmp}/main/kernel_launches.json") as f:
+            row_log = json.load(f)["rows"]
+        numbers = lambda row: [v for x in row.values() if not isinstance(x, str)
+                               for v in (x if isinstance(x, list) else [x])]
+        bad = [name for name, row in rows.items()
+               if not all(math.isfinite(v) for v in numbers(row))]
+        if len(rows) != CAMPAIGN_ROWS or bad:
+            fail_fn(f"campaign: {len(rows)} rows (want {CAMPAIGN_ROWS}), non-finite {bad}")
+        missing = [k for k in CAMPAIGN_KERNELS if not counts.get(k)]
+        ticks = int(round(duration / 0.02))
+        k4_rows = {name: r["launches"][K4] for name, r in row_log.items() if K4 in r["launches"]}
+        if missing or counts.get(K4) != ticks or k4_rows != {CAMPAIGN_ORACLE: ticks}:
+            fail_fn(f"campaign: launched no {missing}; K4 {counts.get(K4)} times by {k4_rows}, "
+                    f"want {ticks} by {CAMPAIGN_ORACLE} alone (launched {counts})")
+        if importlib.util.find_spec("matplotlib") is None and "plots skipped" not in text:
+            fail_fn("campaign: matplotlib is missing and no line said the plots were skipped")
+        for name, r in row_log.items():
+            for kernel, n in r["launches"].items():
+                kernels[kernel].setdefault("paths", {})[f"campaign: {name}"] = n
+        out |= {"launches": counts, "rows": rows, "row_log": row_log,
+                "gates": [ln for ln in text.splitlines() if any(w in ln for w in GATE_WORDS)]}
+        print(f"  campaign main (--duration {duration:g}, windows {CAMPAIGN_WINDOWS}): "
+              f"{out['main_s']:.2f} s, launches {counts}")
+        for name, r in row_log.items():
+            first = next(iter(rows[name].items()))
+            print(f"    {name}: {first[0]} {first[1]}, "
+                  f"{r['seconds']:.2f} s, launches {r['launches']}")
+        for line in out["gates"]:
+            print(f"    {line}")
+
+        # the plain twins on the card, beside the kernel rows
+        campaign.ARTIFACTS = f"{tmp}/twins"
+        scratch = {}
+        kw = dict(device=dev, plain_kernels=True)
+        twins = (
+            ("mpc_flight_figure8", SINGLE_GAP_BOUND_M,
+             lambda **k: campaign.baseline_rows(scratch, duration, None, **k)),
+            (CAMPAIGN_ORACLE, SINGLE_GAP_BOUND_M,
+             lambda **k: campaign.fused_online_rows(scratch, duration, **k)),
+            ("gpmpc_online_fresh_windy_figure8", ONLINE_GAP_BOUND_M,
+             lambda **k: campaign.fused_online_rows(scratch, duration, **k)),
+            ("mpc_dob_gusty_fused_figure8", NOISY_GAP_BOUND_M,
+             lambda **k: campaign.gusty_rows(scratch, duration, **k)),
+        )
+        for name, bound, section in twins:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                if name == CAMPAIGN_ORACLE:
+                    kernel_pos = section(device=dev, rows=(name,))[name]["state"][:, 0:3]
+                    again = scratch[name]["rms_pos"]
+                else:
+                    kernel_pos = np.load(f"{tmp}/main/{name}.npz")["state"][:, 0:3]
+                plain = section(rows=(name,), **kw)[name]
+            torch.cuda.synchronize()
+            plain_pos = plain["state"][:, 0:3]
+            if plain_pos.shape != kernel_pos.shape or not np.isfinite(plain_pos).all():
+                fail_fn(f"campaign twin {name}: shape {plain_pos.shape} against "
+                        f"{kernel_pos.shape}, or non-finite")
+            gap = float(np.abs(plain_pos - kernel_pos).max())
+            out["twins"][name] = {"gap_m": gap, "bound_m": bound,
+                                  "plain_rms_pos": scratch[name]["rms_pos"],
+                                  "seconds": time.perf_counter() - t0}
+            again_note = (f"; flown again through K4: rms_pos {again} (main's "
+                          f"{rows[name]['rms_pos']})" if name == CAMPAIGN_ORACLE else "")
+            print(f"  campaign twin {name}: max position gap to the plain versions "
+                  f"{gap:.3e} m (bar {bound:g}), rms_pos plain {scratch[name]['rms_pos']} "
+                  f"against {rows[name]['rms_pos']}{again_note}")
+            if not gap <= bound:
+                fail_fn(f"campaign twin {name}: position gap {gap} > {bound}")
+    out["seconds"] = time.perf_counter() - started
+    print(f"campaign block: {out['seconds']:.1f} s (main {out['main_s']:.1f} s, the twins "
+          f"{ {k: round(v['seconds'], 2) for k, v in out['twins'].items()} }); card: {card}")
+    if not out["seconds"] <= CAMPAIGN_BUDGET_S:
+        fail_fn(f"the campaign block took {out['seconds']:.1f} s, over its "
+                f"{CAMPAIGN_BUDGET_S:.0f} s")
+    return out
+
+
+def write_corpus_main(directory: str) -> int:
+    """``--write-corpus DIR``: the seeded corpus's CSVs into DIR (for a
+    campaign run from the command line: ``--gp-data 'DIR/*.csv'``)."""
+    sys.path.insert(0, str(ROOT))
+    os.makedirs(directory, exist_ok=True)
+    write_corpus_csvs(directory)
+    print(f"wrote {CORPUS_FLIGHTS} CSVs of the seeded corpus ({CORPUS_N} rows) into {directory}")
+    return 0
 
 
 def time_multistart_tuner(dev, fail_fn, card: str) -> dict:
@@ -5654,6 +5839,8 @@ def main(parent: str | None = None) -> int:
                                   card)
     # the command line, python -m and the examples (every command's launches)
     surface = run_surface(dev, fail, kernels, card)
+    # the experiment campaign (K4's first user entry: the oracle row)
+    campaign = run_campaign_block(dev, fail, kernels, card)
 
     phase_clock("phase 3")
     # ---- phase 4: microseconds per tick (slope of two lengths) --------------
@@ -6024,7 +6211,7 @@ def main(parent: str | None = None) -> int:
             for label, r in (("N=20", kernels["admm_box_qp_fused"]["n20"]),
                              ("N=25", kernels["admm_box_qp_fused"]["n25"]),
                              ("padded 128", kernels["admm_box_qp_fused"]["padded"]))},
-        "orchestration": orchestration, "distributed": distributed,
+        "orchestration": orchestration, "distributed": distributed, "campaign": campaign,
         "surface": {k: v for k, v in surface.items() if k != "commands"}
         | {"commands": {label: {k: v for k, v in c.items() if k != "json"}
                         for label, c in surface["commands"].items()}}}
@@ -6041,4 +6228,6 @@ if __name__ == "__main__":
         sys.exit(time_redesigned_main(argv[1]))
     if argv[:1] == ["--run-examples"]:
         sys.exit(run_examples_main(argv[1], argv[2]))
+    if argv[:1] == ["--write-corpus"]:
+        sys.exit(write_corpus_main(argv[1]))
     sys.exit(main(parent=argv[1] if argv[:1] == ["--parent"] else None))

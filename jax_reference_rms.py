@@ -32,7 +32,12 @@ package's weight gradient through its tightened fused tier is finite
 (kappa 2, the frozen GP, N=20, K=8, 16 ticks; fault F13). Prints one JSON
 object of RMS values in metres, the LTV flight's minimum clearance from
 the obstacle's surface and the tuners' losses. ``--tuners`` runs the
-tuners alone, ``--ilqr`` the two iLQR flights alone.
+tuners alone, ``--ilqr`` the two iLQR flights alone. ``--campaign [DURATION]``
+(default 132 s) flies the deterministic rows of ``tools/run_campaign.py``
+as that tool flies them (``mpc_flight_figure8``, ``pid_flight_circle``,
+``mpc_preview_{nowind,windy}_figure8``, ``mpc_perturbed_figure8``,
+``gpmpc_online_{perturbed,windy}_figure8``, ``online_preview_figure8``;
+none needs the GP corpus): the yardstick for the port's campaign rows.
 
 Imports JAX; the port and ``chip_smoke.py`` do not. MPPI draws its
 exploration noise from ``jax.random`` here and from a ``torch.Generator``
@@ -333,7 +338,83 @@ def tuners():
     return out
 
 
+CAMPAIGN_S = 132.0     # tools/run_campaign.py's --duration
+
+
+def campaign_rows(duration: float) -> dict:
+    """The deterministic rows of ``tools/run_campaign.py`` at ``duration``,
+    flown as the JAX tool flies them (its staged defaults, the 6 m figure-8
+    and circle at 3 m): rms_pos, max_pos and, where the row has it,
+    rms_pos_tail, and the online rows' sample counts."""
+    import numpy as np
+
+    from unmanned_aerial_vehicles_tpu.control.mpc_linear import LinearMPC, LinearMPCConfig
+    from unmanned_aerial_vehicles_tpu.gp.residual_gp import ResidualGPConfig
+    from unmanned_aerial_vehicles_tpu.loop import (
+        FlightLoopConfig,
+        OnlineGPMPCConfig,
+        mpc_flight_rollout,
+        online_gp_mpc_rollout,
+        pid_flight_rollout,
+    )
+    from unmanned_aerial_vehicles_tpu.models import PID_CAMPAIGN_RATE_LOOP
+    from unmanned_aerial_vehicles_tpu.models.params import RigidBodyParams
+
+    cfg = FlightLoopConfig()
+    T = int(duration / cfg.control_dt)
+    mpc = LinearMPC(LinearMPCConfig())
+
+    def fig8_6m(t):
+        from unmanned_aerial_vehicles_tpu.trajectories import ramped_figure8_reference
+
+        pos, yaw = ramped_figure8_reference(t, amplitude=6.0)
+        return pos + jnp.asarray([0.0, 0.0, cfg.takeoff_height], pos.dtype), yaw
+
+    def circle_6m(t):
+        pos, _, yaw = ramped_circle_reference(t, amplitude=6.0, height=cfg.takeoff_height)
+        return pos, yaw
+
+    def row(outs, tail=True, **extra):
+        e = np.linalg.norm(np.asarray(outs["pos_ref"]) - np.asarray(outs["state"])[:, 0:3], axis=1)
+        out = {"rms_pos": float(np.sqrt((e**2).mean())), "max_pos": float(e.max())}
+        if tail:
+            out["rms_pos_tail"] = float(np.sqrt((e[len(e) // 2:] ** 2).mean()))
+        return out | extra
+
+    def online(body, gain):
+        ocfg = OnlineGPMPCConfig(gp=ResidualGPConfig(max_data_points=400, residual_gain=gain),
+                                 gp_refit_every=250, preview=True)
+        outs, ds, _ = jax.jit(lambda: online_gp_mpc_rollout(mpc, fig8_6m, T, cfg=ocfg,
+                                                            body=body))()
+        return outs, int(ds.count)
+
+    plain = lambda body: jax.jit(lambda: mpc_flight_rollout(mpc, fig8_6m, T, body=body, cfg=cfg,
+                                                            preview=True))()
+    perturbed = RigidBodyParams(mass=0.55, k_drag_linear=0.375, wind=(1.0, 0.5, 0.0))
+    windy = RigidBodyParams(wind=(1.5, 0.8, 0.0))
+    out = {
+        "mpc_flight_figure8": row(jax.jit(lambda: mpc_flight_rollout(mpc, fig8_6m, T,
+                                                                     cfg=cfg))(), tail=False),
+        "pid_flight_circle": row(jax.jit(lambda: pid_flight_rollout(
+            circle_6m, T, cfg=cfg, rate_loop=PID_CAMPAIGN_RATE_LOOP))(), tail=False),
+        "mpc_preview_nowind_figure8": row(plain(RigidBodyParams())),
+        "mpc_preview_windy_figure8": row(plain(windy)),
+        "mpc_perturbed_figure8": row(plain(perturbed)),
+    }
+    for name, body, gain in (("gpmpc_online_perturbed_figure8", perturbed, 1.0),
+                             ("gpmpc_online_windy_figure8", windy, 1.0),
+                             ("online_preview_figure8", RigidBodyParams(), 0.1)):
+        outs, count = online(body, gain)
+        out[name] = row(outs, tail=name != "online_preview_figure8", gp_samples_collected=count)
+    return out
+
+
 def main() -> int:
+    if "--campaign" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--campaign") + 1:]
+        duration = float(rest[0]) if rest else CAMPAIGN_S
+        print(json.dumps({"duration_s": duration, "rows": campaign_rows(duration)}))
+        return 0
     if "--tuners" in sys.argv[1:]:
         print(json.dumps({"tuners": tuners()}))
         return 0

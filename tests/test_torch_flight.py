@@ -145,6 +145,10 @@ def test_port_imports_no_jax():
         "import unmanned_aerial_vehicles_tpu_torch.utils\n"
         "import unmanned_aerial_vehicles_tpu_torch.metrics.animate\n"
         "import unmanned_aerial_vehicles_tpu_torch.cli\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('run_campaign', "
+        "'tools_torch/run_campaign.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('sklearn', 'matplotlib')], "
         "'sklearn or matplotlib imported'\n"
@@ -164,7 +168,8 @@ _JAX_PKG = re.compile(r"^\s*(from|import)\s+(jax\b|unmanned_aerial_vehicles_tpu(
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+               + sorted((REPO / "tools_torch").glob("*.py")))
     assert len(sources) > 10
     assert PORT / "tuning" / "autotune.py" in sources and PORT / "ops" / "tick_ad.py" in sources
     assert PORT / "loop" / "monte_carlo.py" in sources
